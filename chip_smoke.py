@@ -6,24 +6,37 @@
 Phases, one line each (any failure raises and exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: nvcc seconds per generated program (kernels are built from the
-   checkout's sources at first use);
+2. build: every kernel of phases 3 and 4 generated and compiled at once,
+   one nvcc per source, all started together (kernels are built from the
+   checkout's sources);
 3. kernel vs plain version on the card: the panel and overlap kernels,
-   each forced through its own ``compile_chain_*``, against their plain
-   torch versions on the same inputs, on three example programs and five
-   random chains (constant / copy / shrink BCs, scalar and lower-rank
-   inputs, float32 / float64 / int32 fields).  Bit-exact, or within
-   VERIFY_RTOL where a transcendental appears;
+   each forced through its own plan, against their plain torch versions
+   on three example programs and five random chains (constant / copy /
+   shrink BCs, scalar and lower-rank inputs, float32 / float64 / int32
+   fields), bit-exact or within VERIFY_RTOL where a transcendental
+   appears; the stream kernel against its plain version on box chains of
+   extent 1 and 2 (composed), a box with constant BC 0.7 (per-stage plans
+   with correction planes), a shrink box, a radius-2 cross (rank 2, per
+   stage) and a per-cell stage feeding a wide affine stage that reads two
+   fields, within MXU_VERIFY_RTOL (the plain version applies the bands
+   with torch.matmul, another summation order);
 4. the ``run`` main path at full size through ``run_program(...,
    device="cuda")``: jacobi3d 512^3 x 8 (panel), jacobi3d 512^3 x 2
-   (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), each verified
-   against the dense lowering on the card and, up to 256^3, against the
-   numpy oracle; kernel launch counts are reset just before and read just
-   after, and each kernel must have been launched.
+   (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
+   extent 2 (stream, all 8 stages composed) and cross3d 256^3 x 8 of
+   extent 2 (stream, per stage), each verified against the dense lowering
+   on the card and, up to 256^3, against the numpy oracle (bit-exact for
+   the per-cell kernels, MXU_VERIFY_RTOL for the stream ones); kernel
+   launch counts are reset just before and read just after, and each
+   kernel must have been launched.  The stream cells also print the
+   forced-panel time where the panel planner accepts the program; after
+   the main path, one ``F.conv3d`` per stage, chained (TF32 off), is timed
+   for the linear chains as a library yardstick the port never calls.
 
 The last lines are the card line, a JSON object of the kernels (launches
-from phase 4; error, kernel and plain-version times measured in this run
-at the main path's shapes) and ``{"ok": true, "device": {...}}``.
+from phase 4; error, kernel, plain-version and library times measured in
+this run at the main path's shapes, bounds computed from its inputs) and
+``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -34,6 +47,10 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 flop/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def _smi() -> str:
@@ -115,6 +132,101 @@ def _fuzz_programs():
     return progs
 
 
+def _mixed_spec(dims):
+    """A per-cell stage feeding a wide affine stage that reads two fields
+    (a rank-1 box of s0 with a constant-0.2 BC, a rank-2 cross of b), an
+    (i, k) input, a scalar and a bias; then a narrow per-cell stage."""
+    box = " + ".join(f"s0[i{di:+d},j{dj:+d},k{dk:+d}]"
+                     for di in (-1, 0, 1) for dj in (-1, 0, 1)
+                     for dk in (-1, 0, 1))
+    cross = " + ".join(f"b[i{o[0]:+d},j{o[1]:+d},k{o[2]:+d}]" for o in
+                       [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0),
+                        (0, -1, 0), (0, 0, 1), (0, 0, -1)])
+
+    def bc(v):
+        return {"type": "constant", "value": v}
+    return {
+        "inputs": {
+            "a": {"data": "random:0.0,1.0", "data_type": "float32"},
+            "b": {"data": "random:0.0,1.0", "data_type": "float32"},
+            "ik": {"data": "random:0.0,1.0", "data_type": "float32",
+                   "input_dims": ["i", "k"]},
+            "sc": {"data": 0.5, "data_type": "float32", "input_dims": []}},
+        "outputs": ["s2"], "dimensions": list(dims),
+        "program": {
+            "s0": {"computation_string":
+                   "s0 = a[i,j,k] * a[i,j,k] + 0.1 * a[i,j+1,k]",
+                   "boundary_conditions": {"a": bc(0.0)},
+                   "data_type": "float32"},
+            "s1": {"computation_string":
+                   f"s1 = 0.04 * ({box}) + 0.1 * ({cross}) "
+                   "+ 0.3 * ik[i,k+1] + sc + 1.0",
+                   "boundary_conditions": {"s0": bc(0.2), "b": bc(0.0),
+                                           "ik": bc(0.0)},
+                   "data_type": "float32"},
+            "s2": {"computation_string": "s2 = s1[i,j,k] * 0.5 + "
+                   "s1[i-1,j+1,k]",
+                   "boundary_conditions": {"s1": bc(0.0)},
+                   "data_type": "float32"}}}
+
+
+def _io_bytes(program) -> int:
+    """Bytes a chain must move: each array input read once, each output
+    written once."""
+    dims = program.dimensions
+    total = 0
+    for spec in program.inputs.values():
+        if not spec.is_scalar:
+            total += int(np.prod([d for d, m in zip(dims, spec.dim_mask)
+                                  if m])) * np.dtype(spec.dtype).itemsize
+    for o in program.outputs:
+        total += program.total_elements * np.dtype(
+            program.kernels[o].dtype).itemsize
+    return total
+
+
+def _ops_per_cell(program) -> int:
+    """Arithmetic nodes of every stage (no common-subexpression credit)."""
+    from stencilflow_tpu_torch import ir
+    kinds = (ir.BinOp, ir.UnaryOp, ir.Compare, ir.BoolOp, ir.Select, ir.Call)
+    return sum(isinstance(n, kinds) for k in program.kernels.values()
+               for s in k.statements for n in ir.walk(s.rhs))
+
+
+def _bound(program, flops: float):
+    """(bound ms, "bytes" or "operations") on the H100 SXM peaks."""
+    t_bytes = _io_bytes(program) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _conv_chain_ms(program, radius: int) -> float:
+    """One ``F.conv3d`` per stage, chained, computing the same constant-0
+    linear chain with TF32 off: the library yardstick (timed only; the
+    port never calls it).  The stages of these chains are identical, so
+    the first stage's coefficients give the filter."""
+    import torch
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    from stencilflow_tpu_torch.backend.linear import extract_linear
+    stages = list(program.kernels.values())
+    w = np.zeros((1, 1) + (2 * radius + 1,) * 3, np.float32)
+    for key, c in extract_linear(stages[0]).items():
+        if key != ("const",):
+            oi, oj, ok = key[1]
+            w[0, 0, oi + radius, oj + radius, ok + radius] = c
+    weight = torch.as_tensor(w, device="cuda")
+    x = torch.rand((1, 1) + tuple(program.dimensions), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+
+    def run():
+        y = x
+        for _ in stages:
+            y = F.conv3d(y, weight, padding=radius)
+        return y
+    return _time_ms(run, 3)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -127,11 +239,12 @@ def main() -> int:
     sys.path.insert(0, HERE)
 
     import stencilflow_tpu_torch as sft
-    from stencilflow_tpu_torch.backend import build
+    from stencilflow_tpu_torch.backend import build, codegen
     from stencilflow_tpu_torch.backend import overlap as ov
     from stencilflow_tpu_torch.backend import panel as pn
+    from stencilflow_tpu_torch.backend import stream as st
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
-    from stencilflow_tpu_torch.config import VERIFY_RTOL
+    from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL, VERIFY_RTOL
     from stencilflow_tpu_torch.driver import run_program
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
 
@@ -141,30 +254,93 @@ def main() -> int:
     print(f"device: {smi} | torch: {kind} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    # -- 2. build + 3. kernel vs plain on the card --------------------------
+    # -- programs of phases 3 and 4 -----------------------------------------
+    def synth(shape, n, iters, extent=1, **kw):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n, n, n) if isinstance(n, int)
+            else n, shape=shape, extent=extent,
+            seed_data="random:0.0,1.0", **kw),
+            name=f"{shape}3d_{n if isinstance(n, int) else n[0]}_"
+                 f"{iters}itr")
+
     examples = [(n, sft.parse_program(os.path.join(HERE, "examples",
                                                    n + ".json")))
                 for n in ("jacobi3d_32x32x32_8itr", "hdiff_64x64x64",
                           "forked_box_chain")]
     cases = examples + _fuzz_programs()
+    small = (40, 48, 72)
+    stream_cases = [
+        ("box-r1", synth("box", small, 4, 1)),
+        ("box-r2", synth("box", small, 4, 2)),
+        ("box-r2-bc0.7", synth("box", small, 3, 2, boundary_value=0.7)),
+        ("box-r1-shrink", synth("box", small, 3, 1, boundary="shrink")),
+        ("cross-r2", synth("cross", small, 4, 2)),
+        ("mixed", sft.parse_program(_mixed_spec(small), name="mixed")),
+    ]
+    jacobi8 = sft.parse_program(synthesize_stencil(
+        num_stages=8, dimensions=(512,) * 3, shape="diffusion",
+        seed_data="random:0.0,1.0"), name="jacobi3d_512_8itr")
+    jacobi2 = sft.parse_program(synthesize_stencil(
+        num_stages=2, dimensions=(512,) * 3, shape="diffusion",
+        seed_data="random:0.0,1.0"), name="jacobi3d_512_2itr")
+    box256 = synth("box", 256, 8, 2)
+    cross256 = synth("cross", 256, 8, 2)
+    mains = [(jacobi8, "panel"), (jacobi2, "overlap"),
+             (synth("hdiff", 256, 8), "panel"),
+             (synth("hotspot", 256, 8), "panel"),
+             (box256, "stream"), (cross256, "stream")]
+
+    # -- 2. build: every kernel, one nvcc each, all at once ------------------
+    t0 = time.perf_counter()
     # name: (module, plan, build, wrapper, plain version)
     kernels = {"panel": (pn, pn.PanelPlan, pn.build_panel, pn.run_panel,
                          pn.panel_plain),
                "overlap": (ov, ov.OverlapPlan, ov.build_overlap,
                            ov.run_overlap, ov.overlap_plain)}
-    t0 = time.perf_counter()
-    built = []
+    sources = []
+    plain_cases = []
     for label, p in cases:
         an = sft.ChainAnalysis.run(p)
-        for kname, (_, plan_cls, build_fn, _, _) in kernels.items():
+        for kname, (_, plan_cls, _, _, _) in kernels.items():
             plan = plan_cls.build(an)
-            built.append((label, kname, p, an, plan, build_fn(p, an, plan)))
-    print("build: " + ", ".join(f"{n} {s:.1f}s" for n, s in build.build_log)
-          + f" | {len(build.build_log)} programs in "
-            f"{time.perf_counter() - t0:.1f}s", flush=True)
+            plain_cases.append((label, kname, p, an, plan))
+            src = (codegen.panel_source if kname == "panel" else
+                   codegen.overlap_source)(p, an, plan)
+            sources.append((src, kname))
+    stream_plans = []
+    for label, p in stream_cases + [("box3d_256_8itr", box256),
+                                    ("cross3d_256_8itr", cross256)]:
+        plan = st.plan_stream(p)
+        stream_plans.append((label, p, plan))
+        sources.append((st.stream_source(plan), "stream"))
+    main_panel = {}
+    for p, _ in mains[:4]:
+        an = sft.ChainAnalysis.run(p)
+        plan = (ov.OverlapPlan if p is jacobi2 else pn.PanelPlan).build(an)
+        sources.append(((codegen.overlap_source if p is jacobi2 else
+                         codegen.panel_source)(p, an, plan),
+                        "overlap" if p is jacobi2 else "panel"))
+    for p in (box256, cross256):   # forced panel, where its planner fits
+        an = sft.ChainAnalysis.run(p)
+        try:
+            plan = pn.PanelPlan.build(an)
+        except ValueError as exc:
+            main_panel[p.name] = str(exc)
+            continue
+        main_panel[p.name] = (an, plan)
+        sources.append((codegen.panel_source(p, an, plan), "panel"))
+    libs = build.load_libraries(sources)
+    lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
+    slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
+        else ("-", 0.0)
+    print(f"build: {len(build.build_log)} programs, one nvcc each in "
+          f"parallel, in {time.perf_counter() - t0:.1f}s (slowest "
+          f"{slow[0]} {slow[1]:.1f}s)", flush=True)
 
-    for label, kname, p, an, plan, lib in built:
+    # -- 3. kernel vs plain on the card --------------------------------------
+    for (label, kname, p, an, plan), (src, _) in zip(plain_cases, sources):
         module, _, _, run, plain = kernels[kname]
+        lib = lib_of[src]
         inputs = sft.load_input_arrays(p, seed=7)
         arrays = spanned_arrays(p, inputs, device="cuda")
         before = module.launches
@@ -182,26 +358,34 @@ def main() -> int:
             if not ok or n != 1:
                 raise RuntimeError(f"{kname} kernel disagrees with its "
                                    f"plain version on {label}")
+    for label, p, plan in stream_plans[:len(stream_cases)]:
+        lib = lib_of[st.stream_source(plan)]
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        before = st.launches
+        got = st.run_stream(plan, arrays, lib)
+        torch.cuda.synchronize()
+        want = st.stream_plain(plan, arrays)
+        for o in p.outputs:
+            g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+            ok, err = _compare(g, w, MXU_VERIFY_RTOL)
+            ok = ok and bool(np.isfinite(g).all())
+            n = st.launches - before
+            cfg = plan.last_config()
+            print(f"compare: stream  {label:28s} tile {plan.tile} banded "
+                  f"{cfg['mxu_stages']} composed {cfg['composed']} "
+                  f"max_abs_err {err:.3g} launches {n} "
+                  f"{'OK' if ok else 'MISMATCH'} (MXU_VERIFY_RTOL)",
+                  flush=True)
+            if not ok or n != 1:
+                raise RuntimeError(f"stream kernel disagrees with its plain "
+                                   f"version on {label}")
 
     # -- 4. the main path at full size ---------------------------------------
-    def jacobi(n, iters):
-        return sft.parse_program(synthesize_stencil(
-            num_stages=iters, dimensions=(n, n, n), shape="diffusion",
-            seed_data="random:0.0,1.0"), name=f"jacobi3d_{n}_{iters}itr")
-
-    def synth(shape, n, iters):
-        return sft.parse_program(synthesize_stencil(
-            num_stages=iters, dimensions=(n, n, n), shape=shape,
-            seed_data="random:0.0,1.0"),
-            name=f"{shape}3d_{n}_{iters}itr")
-
-    mains = [(jacobi(512, 8), "panel"), (jacobi(512, 2), "overlap"),
-             (synth("hdiff", 256, 8), "panel"),
-             (synth("hotspot", 256, 8), "panel")]
-
     # kernel vs plain version at the main path's shapes (counted out)
     report = {}
-    for (p, _), kname in ((mains[0], "panel"), (mains[1], "overlap")):
+    library = []     # (report key or cell, program, filter radius)
+    for p, kname in ((jacobi8, "panel"), (jacobi2, "overlap")):
         _, plan_cls, build_fn, run, plain = kernels[kname]
         an = sft.ChainAnalysis.run(p)
         plan = plan_cls.build(an)
@@ -214,10 +398,14 @@ def main() -> int:
                            want[p.outputs[0]].cpu().numpy(), 0.0)
         ms = _time_ms(lambda: run(p, an, plan, arrays, lib), 10)
         plain_ms = _time_ms(lambda: plain(p, an, plan, arrays), 1)
+        del got, want, arrays
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(p, _ops_per_cell(p) * p.total_elements)
         print(f"kernel: {kname} {p.name} tile {plan.tile} smem "
               f"{plan.smem_bytes(p)} B: {ms:.3f} ms, plain version "
-              f"{plain_ms:.1f} ms, max_abs_err {err:.3g} "
-              f"{'OK' if ok else 'MISMATCH'}", flush=True)
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} | {smi}",
+              flush=True)
         if not ok:
             raise RuntimeError(f"{kname} kernel disagrees with its plain "
                                f"version on {p.name}")
@@ -228,15 +416,70 @@ def main() -> int:
                          if kname == "panel" else
                          "stencilflow_tpu/backend/overlap.py:99"),
             "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+        library.append((kname, p, 1))
+    stream_extra = {}
+    for label, p, plan in stream_plans[len(stream_cases):]:
+        lib = lib_of[st.stream_source(plan)]
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                                device="cuda")
+        got = st.run_stream(plan, arrays, lib)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = st.stream_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
+                           want[p.outputs[0]].cpu().numpy(), MXU_VERIFY_RTOL)
+        ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 5)
+        # forced panel on the same inputs, where its planner fits
+        forced = main_panel[p.name]
+        if isinstance(forced, str):
+            stream_extra[label] = f" | forced panel: refused ({forced})"
+        else:
+            an, pplan = forced
+            plib = pn.build_panel(p, an, pplan)
+            pout = pn.run_panel(p, an, pplan, arrays, plib)
+            pok, _ = _compare(pout[p.outputs[0]].cpu().numpy(),
+                              want[p.outputs[0]].cpu().numpy(),
+                              MXU_VERIFY_RTOL)
+            pms = _time_ms(lambda: pn.run_panel(p, an, pplan, arrays,
+                                                plib), 2)
+            stream_extra[label] = (
+                f" | forced panel tile {pplan.tile} {pms:.3f} ms (within "
+                f"MXU_VERIFY_RTOL: {'yes' if pok else 'NO'})")
+            del pout
         del got, want, arrays
         torch.cuda.empty_cache()
+        flops = plan.flops_per_cell() * p.total_elements
+        bound_ms, bound_by = _bound(p, flops)
+        print(f"kernel: stream {label} tile {plan.tile} smem "
+              f"{plan.smem_bytes()} B: {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"transforms {flops / 1e9:.2f} GFLOP), max_abs_err {err:.3g} "
+              f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
+        if not ok:
+            raise RuntimeError(f"stream kernel disagrees with its plain "
+                               f"version on {label}")
+        if label == "box3d_256_8itr":
+            report["stream"] = {
+                "name": "stream", "route": "cuda",
+                "source": "stencilflow_tpu_torch/backend/codegen.py",
+                "replaces": "stencilflow_tpu/backend/stream.py:297",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+        library.append(("stream" if label == "box3d_256_8itr" else label,
+                        p, 2))
 
     pn.launches = 0
     ov.launches = 0
+    st.launches = 0
     for p, want_backend in mains:
         oracle = max(p.dimensions) <= 256
-        res = run_program(p, device="cuda", repetitions=5,
+        res = run_program(p, device="cuda", repetitions=20,
                           compare_to_reference=oracle, save_results=False,
                           log_level=0)
         if res.backend != want_backend:
@@ -244,24 +487,38 @@ def main() -> int:
                                f"{want_backend}")
         dense = run_program(p, device="cuda", backend="dense",
                             repetitions=2, save_results=False, log_level=0)
+        rtol = MXU_VERIFY_RTOL if res.backend == "stream" else 0.0
         for o in p.outputs:
-            ok, err = _compare(res.outputs[o], dense.outputs[o], 0.0)
-            if not ok:
+            ok, err = _compare(res.outputs[o], dense.outputs[o], rtol)
+            if not ok or not np.isfinite(res.outputs[o]).all():
                 raise RuntimeError(f"{p.name}: {res.backend} disagrees "
                                    f"with dense (max abs diff {err:.3g})")
         cells = p.total_elements
+        extra = stream_extra.get(p.name, "")
         print(f"main: {p.name} backend {res.backend} "
               f"{res.wall_time_s * 1e3:.3f} ms "
               f"({cells / res.wall_time_s / 1e9:.2f} GCell/s) | dense "
               f"{dense.wall_time_s * 1e3:.3f} ms "
               f"({cells / dense.wall_time_s / 1e9:.2f} GCell/s) | "
-              f"equal to dense, oracle "
-              f"{'OK' if res.verified_against_reference else 'skipped'} "
-              f"| {smi}", flush=True)
+              f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} "
+              f"dense, oracle "
+              f"{'OK' if res.verified_against_reference else 'skipped'}"
+              f"{extra} | {smi}", flush=True)
         del res, dense
+        torch.cuda.empty_cache()
+    # the library yardstick, after the main path (cuDNN state stays out
+    # of the kernels' timings)
+    for key, p, radius in library:
+        lib_ms = _conv_chain_ms(p, radius)
+        if key in report:
+            report[key]["library_ms"] = lib_ms
+        print(f"library: {p.name} {len(p.kernels)} chained F.conv3d "
+              f"(filter {2 * radius + 1}^3, TF32 off) {lib_ms:.3f} ms "
+              f"| {smi}", flush=True)
         torch.cuda.empty_cache()
     report["panel"]["launches"] = pn.launches
     report["overlap"]["launches"] = ov.launches
+    report["stream"]["launches"] = st.launches
     for name, entry in report.items():
         if entry["launches"] < 1:
             raise RuntimeError(f"the main path never launched {name}")

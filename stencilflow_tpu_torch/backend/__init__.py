@@ -1,11 +1,13 @@
 """Lowerings of a stencil chain to torch tensors on one device.
 
-``compile_chain_best`` keeps the JAX package's order for untiled VPU
-chains (``stencilflow_tpu/backend/__init__.py``): the overlap kernel when
-the chain's cumulative i-extent is at most 2, else the panel kernel, and
-the whole-domain ``dense`` lowering when a planner refuses the program,
-for chains the JAX package sends to its banded-matmul streamer (not
-ported yet), and on a CPU device.
+``compile_chain_best`` keeps the JAX package's order
+(``stencilflow_tpu/backend/__init__.py``): a chain with no wide affine
+stage goes to the overlap kernel when its cumulative i-extent is at most
+2, else to the panel kernel; for a chain with one, the stream lowering is
+planned, and taken when it has a banded stage — when its planner declines
+every such stage, the chain goes to overlap or panel as before.  The
+whole-domain ``dense`` lowering comes last: for programs every planner
+refuses, and on a CPU device.
 """
 import torch
 
@@ -15,11 +17,14 @@ from .dense import chain_halo, compile_chain
 from .linear import extract_linear
 from .overlap import OverlapPlan, compile_chain_overlap, shallow_extent
 from .panel import PanelPlan, compile_chain_panel
+from .stream import (MXU_MIN_FOOTPRINT, check_options,
+                     compile_chain_stream, compile_stream_plan, plan_stream)
 
 
-def _any_mxu_candidate(program, min_footprint: int = 12) -> bool:
-    """Is any stage affine with a footprint wide enough for the JAX
-    package's banded-matmul lowering, and no copy BC?"""
+def _any_mxu_candidate(program, min_footprint: int = MXU_MIN_FOOTPRINT
+                       ) -> bool:
+    """Is any stage affine with a footprint wide enough for the banded
+    lowering, and no copy BC?"""
     for kspec in program.kernels.values():
         coeffs = extract_linear(kspec)
         if coeffs is None:
@@ -48,17 +53,37 @@ def choose_stacked(program, analysis):
         return None
 
 
-def choose_backend(program, analysis, device) -> str:
+def _route(program, analysis, device, mxu="auto", mxu_precision="split"):
+    """(lowering name, stream plan or None) for ``device``; planning
+    only."""
+    check_options(mxu, mxu_precision)   # raised, never re-routed
+    if torch.device(device).type != "cuda":
+        return "dense", None
+    if mxu != "off" and _any_mxu_candidate(program):
+        try:
+            plan = plan_stream(program, analysis, mxu=mxu,
+                               mxu_precision=mxu_precision)
+            if plan.mxu_plans:
+                return "stream", plan
+        except (ValueError, NotImplementedError):
+            pass   # a planner refusal: the per-cell kernels below
+    return choose_stacked(program, analysis) or "dense", None
+
+
+def choose_backend(program, analysis, device, mxu="auto",
+                   mxu_precision="split") -> str:
     """The lowering compile_chain_best takes for ``device``."""
-    if torch.device(device).type != "cuda" or _any_mxu_candidate(program):
-        return "dense"
-    return choose_stacked(program, analysis) or "dense"
+    return _route(program, analysis, device, mxu, mxu_precision)[0]
 
 
-def compile_chain_best(program, analysis=None, device="cuda"):
-    """Pick the lowering for ``device``; returns ``(fn, backend_name)``."""
+def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
+                       mxu_precision="split"):
+    """Pick the lowering for ``device``; returns ``(fn, backend_name)``.
+    ``mxu``/``mxu_precision`` forward to the stream lowering."""
     analysis = analysis or ChainAnalysis.run(program)
-    name = choose_backend(program, analysis, device)
+    name, plan = _route(program, analysis, device, mxu, mxu_precision)
+    if name == "stream":
+        return compile_stream_plan(plan, device), name
     if name == "overlap":
         return compile_chain_overlap(program, analysis, device=device), name
     if name == "panel":
@@ -67,4 +92,4 @@ def compile_chain_best(program, analysis=None, device="cuda"):
 
 
 __all__ = ["chain_halo", "choose_backend", "compile_chain",
-           "compile_chain_best"]
+           "compile_chain_best", "compile_chain_stream"]

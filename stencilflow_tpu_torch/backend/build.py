@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 import numpy as np
@@ -85,6 +86,13 @@ def load_library(source: str, name: str) -> ctypes.CDLL:
     lib.sf_launch.restype = ctypes.c_int
     _loaded[digest] = lib
     return lib
+
+
+def load_libraries(items) -> List[ctypes.CDLL]:
+    """``load_library`` for every ``(source, name)`` in ``items``, one nvcc
+    process per source, as many at once as there are CPUs."""
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as ex:
+        return list(ex.map(lambda item: load_library(*item), items))
 
 
 def scalar_blob(program: ir.Program, inputs) -> np.ndarray:

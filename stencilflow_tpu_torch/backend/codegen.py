@@ -13,9 +13,11 @@ each program gets its own translation unit:
   propagating ``sf_min``/``sf_max``, and float->int casts with numpy's
   out-of-range results probed from the running numpy;
 * one skeleton that evaluates those functions: the panel streamer
-  (``panel_source``), the overlap streamer (``overlap_source``), or a host
-  loop nest over the whole domain (``host_source``), which compiles with
-  g++ so the generated math is tested without a GPU.
+  (``panel_source``), the overlap streamer (``overlap_source``), the
+  stream kernel with its banded transforms (``stream_source``, whose block
+  body also compiles with g++), or a host loop nest over the whole domain
+  (``host_source``), which compiles with g++ so the generated math is
+  tested without a GPU.
 
 The typed emitter extends the JAX package's native simulator emitter
 (``sim/native.py _expr_cpp_typed``) from double-carried values to native
@@ -345,10 +347,12 @@ def _stage_call(program, kspec, idx, pos, onchip, slots) -> List[str]:
     return lines
 
 
-def _common(program: ir.Program, analysis: ChainAnalysis):
+def _common(program: ir.Program, analysis: ChainAnalysis, skip=()):
+    """(kernel order, prelude + scalar struct + one stage function per
+    kernel not in ``skip``, scalar slots)."""
     order = analysis.graph.kernel_order
     funcs = [StageEmitter(program, program.kernels[k]).function(
-        f"sf_stage_{i}") for i, k in enumerate(order)]
+        f"sf_stage_{i}") for i, k in enumerate(order) if k not in skip]
     scalars = [n for n, s in program.inputs.items() if s.is_scalar]
     slots = {n: i for i, n in enumerate(scalars)}
     struct = ("struct SfScalars {\n  int unused_;\n"
@@ -357,14 +361,18 @@ def _common(program: ir.Program, analysis: ChainAnalysis):
     return order, prelude() + struct + "\n".join(funcs), slots
 
 
-def _params(program: ir.Program) -> Tuple[str, str]:
-    """Kernel parameter list and the matching launch arguments."""
+def _params(program: ir.Program, n_pool: int = 0) -> Tuple[str, str]:
+    """Kernel parameter list and the matching launch arguments; ``n_pool``
+    float32 tables follow the array inputs in ``in``."""
     params, args = [], []
     arrays = [n for n, s in program.inputs.items() if not s.is_scalar]
     for i, n in enumerate(arrays):
         ct = ctype(program.inputs[n].dtype)
         params.append(f"const {ct}* __restrict__ g_{n}")
         args.append(f"(const {ct}*)in[{i}]")
+    for i in range(n_pool):
+        params.append(f"const float* __restrict__ pc{i}")
+        args.append(f"(const float*)in[{len(arrays) + i}]")
     for i, o in enumerate(program.outputs):
         ct = ctype(program.kernels[o].dtype)
         params.append(f"{ct}* __restrict__ o_{o}")
@@ -374,8 +382,9 @@ def _params(program: ir.Program) -> Tuple[str, str]:
     return ", ".join(params), ", ".join(args)
 
 
-def _launcher(program, kernel: str, grid: str, smem: int, slots) -> str:
-    params, args = _params(program)
+def _launcher(program, kernel: str, grid: str, smem: int, slots,
+              n_pool: int = 0) -> str:
+    params, args = _params(program, n_pool)
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
     return f"""
@@ -541,6 +550,345 @@ def overlap_source(program: ir.Program, analysis: ChainAnalysis,
     L.append("}")
     L.append(_launcher(program, "sf_overlap", f"{nti * ntj * ntk}",
                        plan.smem_bytes(program), slots))
+    return "\n".join(L)
+
+
+# -- stream streamer (backend/stream.py) ---------------------------------------
+
+_STREAM_MACROS = """#ifdef __CUDACC__
+#define SF_DEV __device__ __forceinline__
+#define SF_SYNC() __syncthreads()
+#define SF_LDG(p) __ldg(p)
+#else
+#include <stdlib.h>
+#define SF_DEV static inline
+#define SF_SYNC()
+#define SF_LDG(p) (*(p))
+#endif
+"""
+
+
+def _param_names(params: str) -> str:
+    return ", ".join(p.split()[-1] for p in params.split(", "))
+
+
+class _StreamEmitter:
+    """The block body of the stream kernel for one StreamPlan."""
+
+    def __init__(self, program, plan, slots):
+        self.program, self.plan, self.slots = program, plan, slots
+        self.dims = program.dimensions
+        self.pidx = {k: i for i, (k, _) in enumerate(plan.kernel_pool())}
+        self.tidx = {t: n for n, t in enumerate(plan.tkeys)}
+        self.n_otf = 0
+
+    def raw(self, f, s, pexpr, o=(0, 0)) -> str:
+        """Raw plane ``pexpr`` of field ``f`` at the cell (jl, kl) of stage
+        ``s``'s region, shifted by (j, k) offset ``o``."""
+        plan, program = self.plan, self.program
+        if f in program.inputs and program.inputs[f].is_scalar:
+            return f"sc.x{self.slots[f]}"
+        if f in plan.raw_ring:
+            FJ, FK = plan.region(f)
+            dj = plan.halo[f][0] - plan.halo[s][0] + o[0]
+            dk = plan.halo[f][1] - plan.halo[s][1] + o[1]
+            return (f"r_{f}[(({pexpr}) % {plan.raw_ring[f]}) * {FJ * FK}"
+                    f" + (jl + {dj}) * {FK} + kl + {dk}]")
+        mask = program.field_dim_mask(f)
+        c = (pexpr, f"(gj + {o[0]})", f"(gk + {o[1]})")
+        return (f"(({_inb(mask, c, self.dims)}) ? g_{f}"
+                f"[{_flat(mask, c, self.dims)}] : 0.0f)")
+
+    def transformed(self, tkey, s, pexpr, pre: List[str]) -> str:
+        """Transformed plane ``pexpr`` of ``tkey`` at stage ``s``'s cell:
+        from its ring, the raw plane (no band), or summed on the fly
+        (fields without a ring; statements appended to ``pre``)."""
+        plan = self.plan
+        f, lkey, rkey = tkey
+        if tkey in self.tidx:
+            TJ, TK = plan.region(tkey)
+            dj = plan.thalo[tkey][0] - plan.halo[s][0]
+            dk = plan.thalo[tkey][1] - plan.halo[s][1]
+            return (f"t{self.tidx[tkey]}[(({pexpr}) % {plan.tring[tkey]})"
+                    f" * {TJ * TK} + (jl + {dj}) * {TK} + kl + {dk}]")
+        if lkey is None and rkey is None:
+            return self.raw(f, s, pexpr)
+        _, J, K = self.dims
+        mask = self.program.field_dim_mask(f)
+        v = f"tv{self.n_otf}"
+        self.n_otf += 1
+        g = f"g_{f}[{_flat(mask, (pexpr, 'sj', 'sk'), self.dims)}]"
+        pre += [f"float {v} = 0.0f;",
+                f"if (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) {{"]
+        if lkey is not None:
+            offs = plan.band(lkey, "L")[0]
+            dj0, dj1 = offs[0], offs[-1]
+            pre += [f"  for (int dj = {dj0}; dj <= {dj1}; ++dj) {{",
+                    "    const int sj = gj + dj;",
+                    f"    if (sj < 0 || sj >= {J}) continue;"]
+        else:
+            pre += ["  {", "    const int sj = gj;"]
+        if rkey is not None:
+            offs = plan.band(rkey, "R")[0]
+            dk0, dk1 = offs[0], offs[-1]
+            pre += ["    float rs = 0.0f;",
+                    f"    for (int dk = {dk0}; dk <= {dk1}; ++dk) {{",
+                    "      const int sk = gk + dk;",
+                    f"      if (sk < 0 || sk >= {K}) continue;",
+                    f"      rs = rs + SF_LDG(pc{self.pidx[rkey]} + "
+                    f"(dk - ({dk0})) * {K} + gk) * {g};", "    }"]
+        else:
+            pre += ["    const int sk = gk;", f"    const float rs = {g};"]
+        if lkey is not None:
+            pre.append(f"    {v} = {v} + SF_LDG(pc{self.pidx[lkey]} + "
+                       f"(dj - ({dj0})) * {J} + gj) * rs;")
+        else:
+            pre.append(f"    {v} = rs;")
+        pre += ["  }", "}"]
+        return v
+
+    def banded(self, s) -> List[str]:
+        """Statements computing ``const float r`` for banded stage ``s``."""
+        from .compose import ComposedPlan
+        plan, mp = self.plan, self.plan.mxu_plans[s]
+        I, J, K = self.dims
+        f32 = np.float32
+        L = ["float acc = 0.0f;"]
+        if isinstance(mp, ComposedPlan):
+            D, rows = mp.D, mp.table_rows
+            row = "q" if mp.full_table else (
+                f"(q < {D} ? q : (q >= {I - D} ? {rows - I} + q : {D}))")
+            L.append(f"const int row = sf_clamp({row}, {rows});")
+            ncol = len(mp.offsets)
+            tab = f"pc{self.pidx[mp.table_key]}"
+            for idx, d in enumerate(mp.offsets):
+                pre: List[str] = []
+                val = self.transformed((mp.field, mp.lkey, mp.rkey), s,
+                                       "pi", pre)
+                L += ["{", f"  const int pi = q + {d};",
+                      f"  if (pi >= 0 && pi < {I}) {{"]
+                L += ["    " + x for x in pre]
+                L += [f"    acc = acc + ({val}) * SF_LDG({tab} + row * "
+                      f"{ncol} + {idx});", "  }", "}"]
+            L.append("const float r = acc;")
+            return L
+        for grp in mp.groups:
+            pexpr = "q" if grp.oi is None else "pi"
+            L.append("{")
+            if grp.oi is not None:
+                L += [f"  const int pi = q + {grp.oi};", "  float part;",
+                      f"  if (pi < 0 || pi >= {I}) part = "
+                      f"{literal(f32(grp.bc_value * grp.weight_sum), f32)};",
+                      "  else {"]
+            else:
+                L += ["  float part;", "  {"]
+            for n, term in enumerate(grp.terms):
+                pre: List[str] = []
+                val = self.transformed((grp.field, term.left_key,
+                                        term.right_key), s, pexpr, pre)
+                if (term.left_key is None and term.right_key is None
+                        or term.scale != 1.0):
+                    val = f"({val}) * {literal(f32(term.scale), f32)}"
+                L += ["    " + x for x in pre]
+                L.append(f"    part = {val};" if n == 0 else
+                         f"    part = part + {val};")
+            if grp.correction_key is not None:
+                c = f"pc{self.pidx[grp.correction_key]}"
+                L.append(f"    part = part + ((gj >= 0 && gj < {J} && gk >= 0"
+                         f" && gk < {K}) ? SF_LDG({c} + gj * {K} + gk) : "
+                         "0.0f);")
+            L += ["  }", "  acc = acc + part;", "}"]
+        if mp.bias:
+            L.append(f"acc = acc + {literal(f32(mp.bias), f32)};")
+        L.append("const float r = acc;")
+        return L
+
+    def transform(self, tkey, pexpr) -> List[str]:
+        """Fill the transform ring of ``tkey`` for plane ``pexpr`` of its
+        field (raw ring slot): k-pass, then j-pass, with barriers."""
+        plan = self.plan
+        f, lkey, rkey = tkey
+        _, J, K = self.dims
+        n = self.tidx[tkey]
+        FJ, FK = plan.region(f)
+        TJ, TK = plan.region(tkey)
+        htj, htk = plan.thalo[tkey]
+        oj = plan.halo[f][0] - htj
+        ok = plan.halo[f][1] - htk
+        L = [f"{{  // transform {n}: {f} (L {lkey}, R {rkey})",
+             f"  const float* const src = r_{f} + (({pexpr}) % "
+             f"{plan.raw_ring[f]}) * {FJ * FK};",
+             f"  float* const dst = t{n} + (({pexpr}) % {plan.tring[tkey]})"
+             f" * {TJ * TK};"]
+
+        def kpass(out, rows, row_off):
+            offs = plan.band(rkey, "R")[0]
+            d0, d1 = offs[0], offs[-1]
+            c = f"pc{self.pidx[rkey]}"
+            return [f"  for (int c = tid; c < {rows * TK}; c += nt) {{",
+                    f"    const int jr = c / {TK}, kl = c - jr * {TK};",
+                    f"    const int gk = k0 - {htk} + kl;",
+                    "    float s = 0.0f;",
+                    f"    if (gk >= 0 && gk < {K}) {{",
+                    f"      const float* const row = src + (jr + {row_off})"
+                    f" * {FK} + kl + {ok};",
+                    f"      for (int d = {d0}; d <= {d1}; ++d) {{",
+                    "        const int sk = gk + d;",
+                    f"        if (sk >= 0 && sk < {K}) s = s + SF_LDG({c} + "
+                    f"(d - ({d0})) * {K} + gk) * row[d];",
+                    "      }", "    }", f"    {out}[c] = s;", "  }",
+                    "  SF_SYNC();"]
+
+        def jpass(inp, stride, col_off, row_off):
+            offs = plan.band(lkey, "L")[0]
+            d0, d1 = offs[0], offs[-1]
+            c = f"pc{self.pidx[lkey]}"
+            return [f"  for (int c = tid; c < {TJ * TK}; c += nt) {{",
+                    f"    const int jl = c / {TK}, kl = c - jl * {TK};",
+                    f"    const int gj = j0 - {htj} + jl;",
+                    "    float s = 0.0f;",
+                    f"    if (gj >= 0 && gj < {J}) {{",
+                    f"      const float* const col = {inp} + (jl + {row_off})"
+                    f" * {stride} + kl + {col_off};",
+                    f"      for (int d = {d0}; d <= {d1}; ++d) {{",
+                    "        const int sj = gj + d;",
+                    f"        if (sj >= 0 && sj < {J}) s = s + SF_LDG({c} + "
+                    f"(d - ({d0})) * {J} + gj) * col[d * {stride}];",
+                    "      }", "    }", "    dst[c] = s;", "  }",
+                    "  SF_SYNC();"]
+
+        if lkey is not None and rkey is not None:
+            bj = plan.reach(lkey, "L")
+            L += kpass("sf_u", TJ + 2 * bj, oj - bj)
+            L += jpass("sf_u", TK, 0, bj)
+        elif rkey is not None:
+            L += kpass("dst", TJ, oj)
+        else:
+            L += jpass("src", FK, ok, oj)
+        L.append("}")
+        return L
+
+
+def stream_source(program: ir.Program, analysis: ChainAnalysis,
+                  plan) -> str:
+    """The stream kernel for ``plan`` (backend/stream.py StreamPlan):
+    per-cell stages as in the panel kernel, banded stages from transform
+    rings.  The block body is a plain function of the block and thread
+    index, so the same source also compiles with g++ into
+    ``sf_host_launch``, which runs every block with one thread (the
+    barriers separate phases, so that is a valid schedule) — the CPU tests
+    run the generated kernel that way."""
+    I, J, K = dims = program.dimensions
+    order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans))
+    tj, tk = plan.tile
+    ntj, ntk = plan.grid()
+    offs = plan.smem_offsets()
+    n_pool = len(plan.kernel_pool())
+    params, args = _params(program, n_pool)
+    em = _StreamEmitter(program, plan, slots)
+    L = [head, _STREAM_MACROS,
+         "// stream streamer (backend/stream.py): replaces the TPU kernel "
+         "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
+         "cell stages, K3b banded transforms)",
+         "SF_DEV void sf_stream_block(const int by, const int bx, "
+         "const int tid, const int nt, unsigned char* const sf_smem, "
+         f"{params}) {{",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
+    for f in plan.raw_ring:
+        ct = ctype(program.field_dtype(f))
+        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
+    for n, t in enumerate(plan.tkeys):
+        L.append(f"  float* const t{n} = (float*)(sf_smem + {offs[t]});")
+    L.append(f"  float* const sf_u = (float*)(sf_smem + {offs['']});")
+    L += ["  (void)sf_u;", f"  for (int t = 0; t < {I + plan.lag_max}; ++t) {{"]
+    ring_inputs = [f for f in plan.raw_ring if f in program.inputs]
+    if ring_inputs:
+        L.append(f"    if (t < {I}) {{")
+        for f in ring_inputs:
+            RJ, RK = plan.region(f)
+            hj, hk = plan.halo[f]
+            L += [f"      for (int p = tid; p < {RJ * RK}; p += nt) {{",
+                  f"        const int jl = p / {RK}, kl = p - jl * {RK};",
+                  f"        const int gj = j0 - {hj} + jl, "
+                  f"gk = k0 - {hk} + kl;",
+                  f"        r_{f}[(t % {plan.raw_ring[f]}) * {RJ * RK} + p]"
+                  f" = (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) ? "
+                  f"g_{f}[((long long)t * {J} + gj) * {K} + gk] : "
+                  f"{literal(0, program.field_dtype(f))};",
+                  "      }"]
+        L += ["    }", "    SF_SYNC();"]
+        tl = [x for f in ring_inputs for t in plan.tkeys if t[0] == f
+              for x in em.transform(t, "t")]
+        if tl:
+            L += [f"    if (t < {I}) {{"] + ["      " + x for x in tl] \
+                + ["    }"]
+    for idx, s in enumerate(order):
+        kspec = program.kernels[s]
+        RJ, RK = plan.region(s)
+        hj, hk = plan.halo[s]
+        if s in plan.mxu_plans:
+            body = em.banded(s)
+        else:
+            def onchip(f, s=s):
+                if f not in plan.raw_ring:
+                    return lambda o: None
+                fj, fk = plan.region(f)
+                dj = plan.halo[f][0] - plan.halo[s][0]
+                dk = plan.halo[f][1] - plan.halo[s][1]
+                D = plan.raw_ring[f]
+                return lambda o: (f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
+                                  f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
+                                  f"kl + {dk + o[2]}]")
+            body = _stage_call(program, kspec, idx, ("q", "gj", "gk"),
+                               onchip, slots)
+        if s in plan.raw_ring:
+            body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
+                        "= r;")
+        if s in program.outputs:
+            body.append(f"if (jl >= {hj} && jl < {hj + tj} && kl >= {hk} "
+                        f"&& kl < {hk + tk} && gj < {J} && gk < {K}) "
+                        f"o_{s}[((long long)q * {J} + gj) * {K} + gk] = r;")
+        L += [f"    {{  // stage {s}",
+              f"      const int q = t - {plan.lag[s]};",
+              f"      if (q >= 0 && q < {I}) {{",
+              f"        for (int p = tid; p < {RJ * RK}; p += nt) {{",
+              f"          const int jl = p / {RK}, kl = p - jl * {RK};",
+              f"          const int gj = j0 - {hj} + jl, "
+              f"gk = k0 - {hk} + kl;"]
+        L += ["          " + b for b in body]
+        L += ["        }", "      }", "      SF_SYNC();"]
+        tl = [x for t in plan.tkeys if t[0] == s
+              for x in em.transform(t, "q")]
+        if tl:
+            L += [f"      if (q >= 0 && q < {I}) {{"] \
+                + ["        " + x for x in tl] + ["      }"]
+        L.append("    }")
+    L += ["  }", "}"]
+    smem = plan.smem_bytes()
+    names = _param_names(params)
+    copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
+                     for i in slots.values())
+    L += ["#ifdef __CUDACC__",
+          f"__global__ void __launch_bounds__({THREADS}) "
+          f"sf_stream({params}) {{",
+          "  extern __shared__ __align__(16) unsigned char sf_smem[];",
+          "  sf_stream_block(blockIdx.y, blockIdx.x, threadIdx.x, "
+          f"{THREADS}, sf_smem, {names});",
+          "}",
+          _launcher(program, "sf_stream", f"dim3({ntk}, {ntj})", smem, slots,
+                    n_pool),
+          "#else",
+          'extern "C" void sf_host_launch(const void* const* in, '
+          "void* const* out, const unsigned char* scal) {",
+          "  SfScalars sc;", "  sc.unused_ = 0;",
+          copies.rstrip("\n"),
+          "  // uninitialised shared memory reads as NaN here",
+          f"  unsigned char* const sf_smem = (unsigned char*)malloc({smem});",
+          f"  memset(sf_smem, 0xff, {smem});",
+          f"  for (int by = 0; by < {ntj}; ++by)",
+          f"    for (int bx = 0; bx < {ntk}; ++bx)",
+          f"      sf_stream_block(by, bx, 0, 1, sf_smem, {args});",
+          "  free(sf_smem);", "}", "#endif"]
     return "\n".join(L)
 
 

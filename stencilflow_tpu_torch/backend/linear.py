@@ -1,15 +1,42 @@
-"""Affine-stage extraction (the planner half of the MXU lowering).
+"""Linear-stencil extraction and the banded-transform plan of a stage.
 
-Copied from ``stencilflow_tpu/backend/linear.py`` (``extract_linear`` and
-its helpers only): compile_chain_best uses it to recognize the stages the
-JAX package lowers to banded matmuls.  That lowering is not ported yet,
-so such chains take the dense lowering here.
+Copied from ``stencilflow_tpu/backend/linear.py``, cut to what the port
+uses, with no change of meaning.  A stage whose expression is an affine
+combination of field accesses,
+
+    out[x] = bias + sum_f sum_o  c_{f,o} * f[x + o],
+
+is computed per (j, k)-plane as banded transforms instead of a
+per-access sum: the coefficients are grouped by i-offset into small
+(2rj+1)x(2rk+1) matrices ``C``, each factored as ``C = sum_m u_m v_m^T``
+(SVD of a tiny matrix, at compile time), and each rank term applied as
+
+    term_m = L(u_m) @ P @ R(v_m),   L[j, j+oj] = u_m[oj], R[k+ok, k] = v_m[ok]
+
+with band truncation at the matrix edges implementing zero boundaries
+exactly and a static correction plane lifting them to any constant BC.
+The stream kernel (stream.py) executes the plans.
+
+Left out of the copy: the blocked-banded layout (``_blocked_rows``, which
+feeds 128-wide MXU blocks) and the origin-stacked per-tile matrices (the
+``j_contexts``/``k_contexts`` branch): the port's kernel tiles (j, k)
+itself and reads global coordinates, so one global band per side is
+exact.  The TPU's bf16 hi/lo operand split is left out too: the port's
+transforms run in f32 (see stream.py).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import hashlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from .. import ir
+from ..config import JUNK_VAL
+from ..dtypes import is_floating
+
+Offset2 = Tuple[int, int]
 
 
 class NotLinear(Exception):
@@ -66,6 +93,35 @@ def _linear_expr(expr: ir.Expr, env: Dict[str, Dict]) -> Dict:
     raise NotLinear(f"non-affine node {type(expr).__name__}")
 
 
+@dataclasses.dataclass
+class BandTerm:
+    """One rank term of one i-offset group: L @ P @ R (either side may be
+    identity, signaled by a None matrix key)."""
+    left_key: Optional[str]     # key into the shared matrix pool (J x J)
+    right_key: Optional[str]    # (K x K)
+    scale: float                # scalar factor applied to EVERY term (for
+    #                             one-sided terms it carries _normalize's
+    #                             magnitude)
+
+
+@dataclasses.dataclass
+class PlaneGroup:
+    """All contributions of one field at one i-offset."""
+    field: str
+    oi: Optional[int]
+    terms: List[BandTerm]
+    weight_sum: float            # sum of coefficients (i-OOB constant value)
+    bc_value: float              # constant BC value (JUNK for shrink)
+    correction_key: Optional[str]  # static j/k constant-BC correction plane
+
+
+@dataclasses.dataclass
+class LinearStagePlan:
+    groups: List[PlaneGroup]
+    bias: float
+    footprint: int                  # total weighted accesses (for gating)
+
+
 def extract_linear(kspec: ir.KernelSpec) -> Optional[Dict]:
     """Affine coefficient map of a kernel, or None if not affine."""
     env: Dict[str, Dict] = {}
@@ -75,3 +131,254 @@ def extract_linear(kspec: ir.KernelSpec) -> Optional[Dict]:
     except NotLinear:
         return None
     return env[kspec.output_statement.lhs]
+
+
+class MatrixPool:
+    """Deduplicated static matrices / planes the kernel reads."""
+
+    def __init__(self):
+        self.items: Dict[str, np.ndarray] = {}
+
+    def add(self, arr: np.ndarray, prefix: str) -> str:
+        # content digest, not Python's salted hash(): keys are
+        # deterministic across processes and equal to the JAX package's
+        digest = hashlib.sha256(arr.tobytes()).hexdigest()[:16]
+        key = f"{prefix}_{digest}_{'x'.join(map(str, arr.shape))}"
+        self.items.setdefault(key, arr)
+        return key
+
+
+def _ringed(program: ir.Program, field: str) -> bool:
+    return field in program.kernels or (
+        field in program.inputs and program.inputs[field].dim_mask[0])
+
+
+def finalize_pool(plans: Dict[str, object], pool: MatrixPool, program,
+                  mxu_precision: str = "split"):
+    """(pool_keys, pool_arrays, transform_keys) for a set of stage plans:
+    prune the pool to referenced matrices, order deterministically, and
+    collect the (field, L, R) transform-ring keys of i-streamed fields.
+
+    ``"split"`` and ``"exact"`` keep every matrix in f32: the port's
+    transforms are f32 sums, at least as accurate as the TPU's bf16 hi/lo
+    split, so there are no ``__lo`` residual matrices.  The opt-in
+    single-pass ``"bf16"`` mode is not ported yet."""
+    if mxu_precision not in ("split", "bf16", "exact"):
+        raise ValueError(f"unknown mxu_precision {mxu_precision!r} "
+                         "(expected split, bf16, or exact)")
+    if mxu_precision == "bf16":
+        raise NotImplementedError(
+            "mxu_precision='bf16' (single-pass bf16 transforms) is not "
+            "ported yet")
+    used = set()
+    tkeys = set()
+    for mp in plans.values():
+        if not hasattr(mp, "groups"):     # ComposedPlan (compose.py)
+            used.update(k for k in (mp.lkey, mp.rkey, mp.table_key) if k)
+            if (mp.lkey or mp.rkey) and _ringed(program, mp.field):
+                tkeys.add((mp.field, mp.lkey, mp.rkey))
+            continue
+        for grp in mp.groups:
+            if grp.correction_key:
+                used.add(grp.correction_key)
+            for t in grp.terms:
+                used.update(k for k in (t.left_key, t.right_key) if k)
+                if (t.left_key or t.right_key) and _ringed(program,
+                                                           grp.field):
+                    tkeys.add((grp.field, t.left_key, t.right_key))
+    pkeys = sorted(used)
+    parrs = [pool.items[k] for k in pkeys]
+    tkeys = sorted(tkeys, key=lambda t: (t[0], t[1] or "", t[2] or ""))
+    return pkeys, parrs, tkeys
+
+
+def plan_all_stages(program, plane, dims, pool: MatrixPool,
+                    min_footprint: int, exclude=()
+                    ) -> Dict[str, LinearStagePlan]:
+    """Banded plans for every eligible stage of a program.
+
+    Stages touching data wider than f32, or integer data, stay on the
+    per-cell path: the transforms compute in f32, which would silently
+    degrade f64 programs and cannot give integer wraparound."""
+    plans: Dict[str, LinearStagePlan] = {}
+    for kname, kspec in program.kernels.items():
+        if kname in exclude:
+            # composed segments get their exact plan from plan_composed;
+            # their interior-only IR must never be SVD-planned
+            continue
+        if np.dtype(kspec.dtype).itemsize > 4 or any(
+                np.dtype(program.field_dtype(f)).itemsize > 4
+                for f in kspec.accesses()):
+            continue
+        if not is_floating(kspec.dtype) or any(
+                not is_floating(program.field_dtype(f))
+                for f in kspec.accesses()):
+            continue
+        mp = plan_linear_stage(kspec, plane, dims, pool,
+                               min_footprint=min_footprint)
+        if mp is not None:
+            plans[kname] = mp
+    return plans
+
+
+def mxu_flops_per_cell(pool: Dict[str, np.ndarray], transform_keys
+                       ) -> float:
+    """Executed f32 flops per domain cell of the plan's band transforms.
+
+    Each unique ``(field, L, R)`` transform is computed once per source
+    plane (cached in a transform ring).  The port's kernel applies a side
+    as a direct sum over the band's diagonals, 2 flops (one FMA) per
+    diagonal per plane cell, whatever ``mxu_precision`` (both modes
+    compute in f32).  The JAX package counts MXU passes over 128-lane
+    contraction chunks here instead."""
+    total = 0.0
+    for _field, lkey, rkey in transform_keys:
+        for key, side in ((lkey, "L"), (rkey, "R")):
+            if key is not None:
+                total += 2.0 * len(band_diagonals(pool[key], side)[0])
+    return total
+
+
+def band_diagonals(matrix: np.ndarray, side: str):
+    """Diagonal form of a pooled band matrix, as the kernel applies it:
+    ``out[p] = sum_d coef[d - d0, p] * in[p + d]`` with reads outside
+    [0, n) contributing 0.  ``side`` "L": ``matrix`` is applied as
+    ``matrix @ P``; "R": as ``P @ matrix`` (stored transposed).  Returns
+    ``(offsets, coef)``: the contiguous offset range d0..d1 covering every
+    nonzero diagonal, and an (d1 - d0 + 1, n) float32 table whose row
+    ``d - d0`` holds ``M[p, p + d]`` (0 where p + d leaves [0, n))."""
+    m = np.asarray(matrix, np.float32)
+    if side == "R":
+        m = m.T
+    n = m.shape[0]
+    rows, cols = np.nonzero(m)
+    if rows.size == 0:
+        return [0], np.zeros((1, n), np.float32)
+    d0, d1 = int((cols - rows).min()), int((cols - rows).max())
+    coef = np.zeros((d1 - d0 + 1, n), np.float32)
+    for d in range(d0, d1 + 1):
+        p = np.arange(max(0, -d), min(n, n - d))
+        coef[d - d0, p] = m[p, p + d]
+    return list(range(d0, d1 + 1)), coef
+
+
+def _normalize(w):
+    """Scale a weight vector so its largest-|.| entry is 1 — identical
+    *patterns* then share one pooled matrix (and one cached transformed
+    plane) across i-offset groups and stages."""
+    a = w[int(np.argmax(np.abs(w)))]
+    return (w / a, float(a)) if a != 0 else (w, 1.0)
+
+
+def _band_matrix(n: int, offsets: List[int], weights: List[float]
+                 ) -> np.ndarray:
+    """Banded matrix M with M[p, p+o] = w_o (truncated at the window edges —
+    exactly the zero-boundary contribution when the window IS the domain)."""
+    m = np.zeros((n, n), np.float32)
+    for o, wt in zip(offsets, weights):
+        idx = np.arange(max(0, -o), min(n, n - o))
+        m[idx, idx + o] = wt
+    return m
+
+
+def plan_linear_stage(kspec: ir.KernelSpec,
+                      plane: Tuple[int, int],
+                      dims: Tuple[int, int, int],
+                      pool: MatrixPool,
+                      min_footprint: int = 9,
+                      max_rank: int = 2) -> Optional[LinearStagePlan]:
+    """Build the banded plan for one stage, or None if ineligible.
+
+    Eligibility: affine expression; every accessed array field has a
+    constant or shrink BC; footprint at least ``min_footprint``; every
+    i-offset group factors with rank <= ``max_rank``."""
+    coeffs = extract_linear(kspec)
+    if coeffs is None:
+        return None
+    bias = 0.0
+    by_field_oi: Dict[Tuple[str, Optional[int]], Dict[Offset2, float]] = {}
+    for key, c in coeffs.items():
+        if key == ("const",):
+            bias += c
+            continue
+        field, offsets = key
+        bc = kspec.boundary_conditions.get(field)
+        if bc is not None and bc.kind == ir.BCKind.COPY:
+            return None    # copy BC: per-cell path
+        oi, oj, ok = offsets
+        by_field_oi.setdefault((field, oi), {})[(oj or 0, ok or 0)] = \
+            by_field_oi.get((field, oi), {}).get((oj or 0, ok or 0),
+                                                 0.0) + c
+    footprint = sum(len(v) for v in by_field_oi.values())
+    if footprint < min_footprint:
+        return None
+
+    pj, pk = plane
+
+    def add_band(n, offs, wts, side):
+        full = _band_matrix(n, offs, wts)
+        if side == "R":   # stored transposed, applied as P @ full
+            full = np.ascontiguousarray(full.T)
+        return pool.add(full, side)
+
+    groups: List[PlaneGroup] = []
+    for (field, oi), cmap in by_field_oi.items():
+        ojs = sorted({o[0] for o in cmap})
+        oks = sorted({o[1] for o in cmap})
+        C = np.zeros((len(ojs), len(oks)), np.float64)
+        for (oj, ok), c in cmap.items():
+            C[ojs.index(oj), oks.index(ok)] = c
+        terms: List[BandTerm] = []
+        if not np.any(C):
+            continue   # fully cancelled coefficients: zero contribution
+        if C.shape == (1, 1) and ojs == [0] and oks == [0]:
+            terms.append(BandTerm(None, None, float(C[0, 0])))
+        elif len(ojs) == 1 and ojs == [0]:
+            nv, b = _normalize(C[0])
+            terms.append(BandTerm(None, add_band(pk, oks, list(nv), "R"),
+                                  b))
+        elif len(oks) == 1 and oks == [0]:
+            nu, a = _normalize(C[:, 0])
+            terms.append(BandTerm(add_band(pj, ojs, list(nu), "L"), None,
+                                  a))
+        else:
+            u, sv, vt = np.linalg.svd(C)
+            rank = int((sv > 1e-10 * max(1.0, sv[0])).sum())
+            if rank > max_rank:
+                return None
+            if rank == 0:
+                continue   # numerically zero group
+            for m in range(rank):
+                nu, a = _normalize(u[:, m])
+                nv, b = _normalize(vt[m])
+                terms.append(BandTerm(add_band(pj, ojs, list(nu), "L"),
+                                      add_band(pk, oks, list(nv), "R"),
+                                      float(sv[m] * a * b)))
+        wsum = float(sum(cmap.values()))
+
+        # constant-BC correction: j/k-OOB cells contribute bc.value, not 0
+        # (per group, so i-OOB replacement composes correctly)
+        bc = kspec.boundary_conditions.get(field)
+        if bc is not None and bc.kind == ir.BCKind.SHRINK:
+            bval = JUNK_VAL   # only affects halo cells (pruned)
+        else:
+            bval = float(bc.value) if bc is not None else 0.0
+        corr_key = None
+        if bval != 0.0:
+            J, K = dims[1], dims[2]
+            jj = np.arange(pj)[:, None]
+            kk = np.arange(pk)[None, :]
+            correction = np.zeros((pj, pk), np.float32)
+            for (oj, ok), c in cmap.items():
+                oob = ((jj + oj < 0) | (jj + oj >= J)
+                       | (kk + ok < 0) | (kk + ok >= K))
+                correction += np.float32(bval * c) * oob
+            if np.any(correction):
+                corr_key = pool.add(correction, "corr")
+        groups.append(PlaneGroup(field, oi, terms, wsum, bval, corr_key))
+
+    if not groups:
+        # every coefficient group cancelled: a constant stage — the
+        # per-cell path emits it
+        return None
+    return LinearStagePlan(groups=groups, bias=bias, footprint=footprint)

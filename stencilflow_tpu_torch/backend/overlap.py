@@ -36,7 +36,8 @@ from .. import ir
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
-                         check_scope, gather_global, or_mask, run_kernel,
+                         check_scope, gather_global, or_mask,
+                         resolve_device, run_kernel,
                          spanned_arrays, wave_cost)
 from .tile_eval import eval_kernel_statements
 
@@ -277,19 +278,19 @@ def run_overlap(program: ir.Program, analysis: ChainAnalysis,
 def compile_chain_overlap(program: ir.Program,
                           analysis: Optional[ChainAnalysis] = None,
                           tile: Optional[Tuple[int, int, int]] = None,
-                          device="cpu"):
+                          device="cuda"):
     """Plan the overlap kernel (ValueError / NotImplementedError when the
     program is out of its scope) and, for a CUDA ``device``, build it.
-    Returns ``fn(inputs) -> outputs`` at the program's raw dims, with the
-    plan as ``fn.plan``."""
+    Returns ``fn(inputs) -> outputs`` at the program's raw dims on
+    ``device`` (inputs are moved there), with the plan as ``fn.plan``."""
     analysis = analysis or ChainAnalysis.run(program)
     plan = OverlapPlan.build(analysis, tile)
-    lib = None
-    if torch.device(device).type == "cuda":
-        lib = build_overlap(program, analysis, plan)
+    device = resolve_device(device)
+    lib = build_overlap(program, analysis, plan) if device.type == "cuda" \
+        else None
 
     def forward(inputs):
-        arrays = spanned_arrays(program, inputs)
+        arrays = spanned_arrays(program, inputs, device=device)
         outs = run_overlap(program, analysis, plan, arrays, lib)
         return {o: v.reshape(program.raw_dimensions)
                 for o, v in outs.items()}

@@ -1,7 +1,7 @@
-"""Shared plumbing of the two streaming kernels (panel, overlap).
+"""Shared plumbing of the streaming kernels (panel, overlap, stream).
 
 Counterpart of ``stencilflow_tpu/backend/stacked_io.py``: how program
-inputs enter a kernel and results leave it is the same for both — the
+inputs enter a kernel and results leave it is the same for all — the
 copy-BC centre read, the planner's cost model, the plain versions'
 global gathers and boundary selects, and the wrapper that checks its
 tensors and either runs the plain version (CPU tensors) or launches the
@@ -37,7 +37,7 @@ def accesses_with_center(kspec: ir.KernelSpec):
 
 
 def check_scope(program: ir.Program) -> None:
-    """What both kernels refuse, with ValueError / NotImplementedError so
+    """What the kernels refuse, with ValueError / NotImplementedError so
     that compile_chain_best takes the dense lowering: float16 fields, and
     programs without an array input (the wrapper takes its device from
     one)."""
@@ -130,10 +130,20 @@ def check_arrays(program: ir.Program, arrays, device_type: str):
             raise ValueError(f"input {n!r} is not contiguous")
 
 
-def run_kernel(program, arrays, lib, plain):
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; a CUDA device must exist (an entry
+    point built for the card never falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch sees no GPU")
+    return device
+
+
+def run_kernel(program, arrays, lib, plain, extra=None):
     """Shared wrapper body: CPU tensors take ``plain``; CUDA tensors
-    launch ``lib()``'s kernel or raise.  Returns the (I, J, K) outputs and
-    whether the kernel was launched."""
+    launch ``lib()``'s kernel or raise.  ``extra(device)`` gives device
+    tensors the kernel reads after the array inputs.  Returns the (I, J,
+    K) outputs and whether the kernel was launched."""
     first = next(a for n, a in arrays.items()
                  if not program.inputs[n].is_scalar)
     if first.device.type == "cpu":
@@ -147,7 +157,8 @@ def run_kernel(program, arrays, lib, plain):
             for o in program.outputs]
     build.launch(lib(), program, arrays,
                  [arrays[n] for n, s in program.inputs.items()
-                  if not s.is_scalar], outs)
+                  if not s.is_scalar]
+                 + (list(extra(first.device)) if extra else []), outs)
     return dict(zip(program.outputs, outs)), True
 
 

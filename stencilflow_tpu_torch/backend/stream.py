@@ -1,0 +1,592 @@
+"""Plane streamer with banded transforms: the wide-affine-stage lowering.
+
+Hopper counterpart of ``stencilflow_tpu/backend/stream.py``
+(``_stream_kernel_body``, built by ``compile_chain_stream``): K3a, the
+per-cell (VPU) stages on plane rings, and K3b, the wide affine stages as
+banded transforms ``L @ P @ R`` (``_band_dot``, ``apply_transform_block``,
+``mxu_eval``), composed runs and constant-BC correction planes.  Not
+ported here: the HBM ring spill (K3c), j-tiling (the port tiles (j, k)
+itself), bf16 compute / ring storage, micro-step blocks, stage-major
+order and BC padding (pipeline workarounds for the TPU), and the opt-in
+single-pass ``mxu_precision="bf16"`` mode (NotImplementedError).
+
+Planning follows the JAX package's choices per stage, untiled: compose
+runs of separable stages (``compose.py``, ``compose="auto"``), then plan
+every other stage with a footprint of at least 12 as banded transforms
+(``linear.py``), the rest per cell.  ``StreamPlan.lags`` is the
+reference's lag / ring algebra at one plane per step.
+
+The kernel: one thread block owns a (tj, tk) core tile of the (j, k)
+plane and marches i, as the panel kernel does, with
+
+* a ring of raw planes per on-chip field, widened by the field's
+  cumulative j/k halo, only as deep as its per-cell reads need (a field
+  read only through transforms keeps one staging plane);
+* a ring of transformed planes per transform key ``(field, L, R)``,
+  filled when a plane of the field is produced: ``P @ R`` along k into a
+  scratch tile, then ``L @ .`` along j, as direct f32 sums over the
+  band's diagonals.  The diagonals are vectors over the global index
+  (``BandMat``'s form, rows of composed bands vary near the domain
+  edges), and reads outside [0, J) or [0, K) contribute 0 — exactly the
+  truncated band matrix;
+* banded stages sum their groups' transformed planes with the terms'
+  scales, add the correction plane (a global (J, K) array), take
+  ``bc_value * weight_sum`` for an i-out-of-domain group, and a composed
+  stage weights its transformed planes by the i-table row of its global
+  output plane.
+
+``mxu_precision`` "split" and "exact" both run the transforms in f32,
+which is at least as accurate as the TPU's bf16 hi/lo split (results
+agree with the oracle within ``MXU_VERIFY_RTOL``).  No library matmul or
+convolution is called on the card.
+
+What bounds it on the H100: the bound of the work is the larger of the
+HBM bytes (each input read once, each output written once) and the f32
+FMA count of the plan's executed transforms (``mxu_flops_per_cell``,
+2 flops per diagonal per side per cell) over the 67 TFLOP/s f32 rate;
+for box-r2 256^3 x 8 composed those are about 0.04 ms and 0.03 ms.  This
+first kernel is far from either: every tap is a shared-memory read plus
+a coefficient load, the widened tiles recompute the halo, and the
+transform rings (33 planes deep for the composed box) cap the tile; a
+deep per-stage chain (cross-r2 x 8, halo 16) only fits 4 x 8 tiles.  The design does the one thing that matters most for the bound
+— each transform is computed once per source plane and shared by every
+i-offset and group that reads it — and leaves tensor cores (wgmma), TMA
+loads and register blocking to a later PR.
+
+``stream_plain`` runs the same function under the same plan in torch
+ops on whole planes (band transforms through ``torch.matmul``, the
+i-combine, per-cell stages through ``tile_eval``); the wrapper
+``run_stream`` takes it for CPU tensors only, and launches the CUDA
+kernel (codegen.py ``stream_source``) for CUDA tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import ir
+from ..dtypes import to_torch_dtype
+from ..frontend.analysis import ChainAnalysis
+from . import build, codegen
+from .compose import ComposedPlan, compose_program, plan_composed
+from .linear import (MatrixPool, band_diagonals, finalize_pool,
+                     mxu_flops_per_cell, plan_all_stages)
+from .panel import ring_fields, tile_candidates
+from .stacked_io import (SM_COUNT, SMEM_PER_BLOCK, SMEM_PER_SM, THREADS,
+                         accesses_with_center, bc_select, check_scope,
+                         or_mask, resolve_device, run_kernel,
+                         spanned_arrays)
+from .tile_eval import eval_kernel_statements
+
+# number of kernel launches (CUDA tensors only)
+launches = 0
+
+# the JAX package's gate for banded stages (compile_chain_stream's
+# mxu_min_footprint default)
+MXU_MIN_FOOTPRINT = 12
+
+TKey = Tuple[str, Optional[str], Optional[str]]
+
+
+@dataclasses.dataclass
+class StreamPlan:
+    program: ir.Program            # the program the kernel runs (composed)
+    analysis: ChainAnalysis
+    lag: Dict[str, int]            # per field: newest plane at step t is
+    #                                t - lag (the reference's algebra)
+    ring: Dict[str, int]           # the reference's ring depths (B = 1)
+    lag_max: int
+    mxu_plans: Dict[str, object]   # banded stages: LinearStagePlan or
+    #                                ComposedPlan
+    composed: Dict[str, List[str]]  # composed stage -> replaced stages
+    pool: Dict[str, np.ndarray]    # referenced pool matrices / planes
+    tkeys: List[TKey]              # transform rings (on-chip fields)
+    raw_ring: Dict[str, int]       # per on-chip field: raw ring depth
+    tring: Dict[TKey, int]         # per transform key: ring depth
+    halo: Dict[str, Tuple[int, int]]   # per field: (j, k) tile widening
+    thalo: Dict[TKey, Tuple[int, int]]
+    tile: Tuple[int, int] = (0, 0)
+    # kernel_pool() arrays on each device the kernel ran on
+    device_pool: Dict[object, List[torch.Tensor]] = dataclasses.field(
+        default_factory=dict, repr=False)
+    bands: Dict[str, tuple] = dataclasses.field(default_factory=dict,
+                                                repr=False)
+
+    @staticmethod
+    def lags(analysis: ChainAnalysis):
+        """(lag, ring, lag_max) of ``stencilflow_tpu/backend/stream.py``
+        ``StreamPlan.build`` at block 1 with direct output emission."""
+        program = analysis.program
+
+        def i_range(kname, field):
+            accs = program.kernels[kname].accesses()[field]
+            offs = [a[0] for a in accs if a[0] is not None]
+            if not offs:
+                return (0, 0)
+            return (min(0, min(offs)), max(0, max(offs)))
+
+        lag: Dict[str, int] = {n: 0 for n in program.inputs}
+        for kname in analysis.graph.kernel_order:
+            lag[kname] = max((lag[f] + i_range(kname, f)[1]
+                              for f in analysis.graph.producers(kname)),
+                             default=0)
+        lag_max = max(lag[o] for o in program.outputs)
+        streamed = [n for n, sp in program.inputs.items()
+                    if not sp.is_scalar and sp.dim_mask[0]]
+        ring: Dict[str, int] = {}
+        for f in streamed + list(program.kernels):
+            depth = 1
+            consumed = f in program.inputs
+            for c in analysis.graph.consumers(f):
+                if c not in program.kernels:
+                    continue
+                consumed = True
+                depth = max(depth, 1 + lag[c] - i_range(c, f)[0] - lag[f])
+            if f in program.outputs and not consumed:
+                continue   # pure output: emitted directly, no ring
+            ring[f] = depth
+        return lag, ring, lag_max
+
+    # -- geometry ------------------------------------------------------------
+    def band(self, key: str, side: str):
+        """(offsets, coef) of pool matrix ``key`` (linear.band_diagonals)."""
+        if key not in self.bands:
+            self.bands[key] = band_diagonals(self.pool[key], side)
+        return self.bands[key]
+
+    def reach(self, key: Optional[str], side: str) -> int:
+        if key is None:
+            return 0
+        offs = self.band(key, side)[0]
+        return max(abs(offs[0]), abs(offs[-1]))
+
+    def region(self, f) -> Tuple[int, int]:
+        hj, hk = self.thalo[f] if isinstance(f, tuple) else self.halo[f]
+        return self.tile[0] + 2 * hj, self.tile[1] + 2 * hk
+
+    def scratch_shape(self, tkey: TKey) -> Tuple[int, int]:
+        """(rows, cols) of the k-pass scratch of a two-sided transform."""
+        TJ, TK = self.region(tkey)
+        return TJ + 2 * self.reach(tkey[1], "L"), TK
+
+    def smem_offsets(self) -> Dict[object, int]:
+        """Byte offset of every raw ring, transform ring and the k-pass
+        scratch (key "") in the block's shared memory; "end" = total."""
+        off, out = 0, {}
+        for f, depth in self.raw_ring.items():
+            out[f] = off
+            tj, tk = self.region(f)
+            size = depth * tj * tk * np.dtype(
+                self.program.field_dtype(f)).itemsize
+            off += -(-size // 16) * 16
+        for tkey, depth in self.tring.items():
+            out[tkey] = off
+            tj, tk = self.region(tkey)
+            off += -(-(depth * tj * tk * 4) // 16) * 16
+        out[""] = off
+        two = [math.prod(self.scratch_shape(t)) for t in self.tkeys
+               if t[1] is not None and t[2] is not None]
+        off += -(-(max(two, default=0) * 4) // 16) * 16
+        out["end"] = off
+        return out
+
+    def smem_bytes(self) -> int:
+        return self.smem_offsets()["end"]
+
+    def grid(self) -> Tuple[int, int]:
+        dims = self.program.dimensions
+        return -(-dims[1] // self.tile[0]), -(-dims[2] // self.tile[1])
+
+    def work(self) -> int:
+        """Modelled per-block work of one plane step: cells of every stage
+        and ring input region, plus transform taps / 8."""
+        program = self.program
+        cells = sum(math.prod(self.region(f)) for f in program.kernels)
+        cells += sum(math.prod(self.region(f)) for f in self.raw_ring
+                     if f in program.inputs)
+        taps = 0
+        for t in self.tkeys:
+            TJ, TK = self.region(t)
+            nl = len(self.band(t[1], "L")[0]) if t[1] else 0
+            nr = len(self.band(t[2], "R")[0]) if t[2] else 0
+            rows = self.scratch_shape(t)[0] if t[1] and t[2] else TJ
+            taps += rows * TK * nr + TJ * TK * nl
+        return cells + taps // 8
+
+    def kernel_pool(self) -> List[Tuple[str, np.ndarray]]:
+        """The device arrays the kernel reads, in argument order: the
+        diagonal table of every band it applies, correction planes and
+        composed i-tables."""
+        keys: Dict[str, str] = {}
+        for mp in self.mxu_plans.values():
+            if isinstance(mp, ComposedPlan):
+                for k, side in ((mp.lkey, "L"), (mp.rkey, "R")):
+                    if k:
+                        keys[k] = side
+                keys[mp.table_key] = ""
+                continue
+            for grp in mp.groups:
+                if grp.correction_key:
+                    keys[grp.correction_key] = ""
+                for t in grp.terms:
+                    for k, side in ((t.left_key, "L"), (t.right_key, "R")):
+                        if k:
+                            keys[k] = side
+        out = []
+        for k in sorted(keys):
+            arr = (self.band(k, keys[k])[1] if keys[k] else
+                   np.ascontiguousarray(self.pool[k], np.float32))
+            out.append((k, arr))
+        return out
+
+    def flops_per_cell(self) -> float:
+        """Executed f32 flops per cell of the plan's transforms."""
+        return mxu_flops_per_cell(self.pool, self.tkeys)
+
+    def last_config(self) -> dict:
+        """The JAX package's ``compile_chain_stream.last_config`` keys."""
+        return {"mxu_stages": sorted(self.mxu_plans),
+                "composed": {k: list(v) for k, v in self.composed.items()},
+                "jtiles": 1, "spilled": [], "tile": self.tile}
+
+
+# -- planner -------------------------------------------------------------------
+
+def _tile_cost(n_blocks: int, smem: int, work: int) -> float:
+    """Planner cost of a tile: ``stacked_io.wave_cost`` with the blocks
+    resident on one SM capped by the blocks there are to spread
+    (ceil(n_blocks / 132)).  A grid of fewer blocks than the SMs' slots
+    leaves warps idle: on an H100 SXM (700 W), ``python -m
+    stencilflow_tpu_torch.sweep`` ran box-r2 256^3 x 8 at (64, 8), 128
+    blocks, in 3.61 ms and at (32, 8), 256 blocks, in 2.55 ms, which
+    plain wave_cost ranks the other way round."""
+    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024),
+                        -(-n_blocks // SM_COUNT)))
+    waves = math.ceil(n_blocks / (SM_COUNT * per_sm))
+    latency = max(1.0, 16 / (per_sm * THREADS // 32))
+    return waves * per_sm * work * latency
+
+
+def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
+                mxu_precision: str, builds, tile) -> StreamPlan:
+    dims = program.dimensions
+    I, J, K = dims
+    pool = MatrixPool()
+    plans: Dict[str, object] = {}
+    if mxu != "off":
+        plans = plan_all_stages(program, (J, K), dims, pool,
+                                MXU_MIN_FOOTPRINT, exclude=tuple(builds))
+    for cname, b in builds.items():
+        cp = plan_composed(b, (J, K), dims, pool)
+        if cp is None:
+            raise ValueError(f"composed segment {cname} not plannable")
+        plans[cname] = cp
+    pkeys, parrs, tkeys_all = finalize_pool(plans, pool, program,
+                                            mxu_precision)
+    lag, ring, lag_max = StreamPlan.lags(analysis)
+    onchip = ring_fields(program, analysis)
+    tkeys = [t for t in tkeys_all if t[0] in onchip]
+
+    # ring depths from the reads each ring serves: per-cell reads of raw
+    # planes, and transformed-plane reads of the transform rings
+    raw: Dict[str, int] = {f: 1 for f in onchip}
+    tdepth: Dict[TKey, int] = {}
+    readers: Dict[TKey, List[str]] = {t: [] for t in tkeys}
+
+    def need(c, f, oi):
+        return lag[c] - lag[f] - (oi or 0) + 1
+
+    for c in analysis.graph.kernel_order:
+        mp = plans.get(c)
+        if mp is None:
+            for f, alist in accesses_with_center(program.kernels[c]).items():
+                if f in raw:
+                    for a in alist:
+                        raw[f] = max(raw[f], need(c, f, a[0]))
+            continue
+        if isinstance(mp, ComposedPlan):
+            reads = [((mp.field, mp.lkey, mp.rkey), d) for d in mp.offsets]
+        else:
+            reads = [((g.field, t.left_key, t.right_key), g.oi)
+                     for g in mp.groups for t in g.terms]
+        for tkey, oi in reads:
+            f = tkey[0]
+            if tkey in readers:
+                tdepth[tkey] = max(tdepth.get(tkey, 1), need(c, f, oi))
+                if c not in readers[tkey]:
+                    readers[tkey].append(c)
+            elif f in raw and tkey[1] is None and tkey[2] is None:
+                raw[f] = max(raw[f], need(c, f, oi))
+
+    stage = analysis.stage_halo()
+    inp = analysis.input_halo()
+    halo = {f: tuple((stage.get(f) or inp.get(f))[1:])
+            for f in list(onchip) + list(program.kernels)}
+    plan = StreamPlan(program, analysis, lag, ring, lag_max, plans,
+                      {n: list(b.stages) for n, b in builds.items()},
+                      dict(zip(pkeys, parrs)), tkeys, raw, tdepth, halo,
+                      {})
+    for t in tkeys:
+        plan.thalo[t] = tuple(max(halo[c][d] for c in readers[t])
+                              for d in range(2))
+        need_j = plan.thalo[t][0] + plan.reach(t[1], "L")
+        need_k = plan.thalo[t][1] + plan.reach(t[2], "R")
+        if halo[t[0]][0] < need_j or halo[t[0]][1] < need_k:
+            raise ValueError(f"field {t[0]} halo {halo[t[0]]} is narrower "
+                             f"than its transform's reach ({need_j}, "
+                             f"{need_k})")
+    if tile is not None:
+        plan.tile = tuple(tile)
+        if plan.smem_bytes() > SMEM_PER_BLOCK:
+            raise ValueError(f"stream tile {tile} exceeds shared memory")
+        return plan
+    best = None
+    for cand in tile_candidates(dims):
+        plan.tile = cand
+        smem = plan.smem_bytes()
+        if smem > SMEM_PER_BLOCK:
+            continue
+        ntj, ntk = plan.grid()
+        cost = (_tile_cost(ntj * ntk, smem, plan.work()),
+                -cand[0] * cand[1])
+        if best is None or cost < best[0]:
+            best = (cost, cand)
+    if best is None:
+        raise ValueError("stream rings exceed shared memory at every tile")
+    plan.tile = best[1]
+    return plan
+
+
+def check_options(mxu: str, mxu_precision: str) -> None:
+    """Raise on options the stream lowering does not take."""
+    if mxu not in ("auto", "off"):
+        raise ValueError(f"mxu must be 'auto' or 'off', got {mxu!r}")
+    if mxu_precision == "bf16":
+        raise NotImplementedError(
+            "mxu_precision='bf16' (single-pass bf16 transforms) is not "
+            "ported yet")
+    if mxu_precision not in ("split", "exact"):
+        raise ValueError(f"unknown mxu_precision {mxu_precision!r} "
+                         "(expected split, bf16, or exact)")
+
+
+def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
+                mxu: str = "auto", mxu_precision: str = "split",
+                compose: str = "auto",
+                tile: Optional[Tuple[int, int]] = None) -> StreamPlan:
+    """The stream lowering's plan, making the JAX package's per-stage
+    choice between composed, per-stage banded and per-cell.  Raises
+    ValueError / NotImplementedError when the program is out of scope
+    (nothing is built)."""
+    analysis = analysis or ChainAnalysis.run(program)
+    check_scope(program)
+    check_options(mxu, mxu_precision)
+    if compose != "off" and mxu != "off":
+        max_t = 0 if compose == "auto" else int(compose)
+        got = compose_program(program, analysis, max_t) if max_t >= 0 \
+            else None
+        if got is not None:
+            program2, builds = got
+            try:
+                return _build_plan(program2, ChainAnalysis.run(program2),
+                                   mxu, mxu_precision, builds, tile)
+            except ValueError:
+                pass   # the uncomposed program below
+    return _build_plan(program, analysis, mxu, mxu_precision, {}, tile)
+
+
+# -- plain version --------------------------------------------------------------
+
+def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+    """The plan's function in torch ops on whole (J, K) planes, streamed
+    along i: per-cell stages through tile_eval with the boundary rules of
+    the kernels, banded stages as ``L @ P @ R`` matmuls, the correction
+    planes and the composed i-combine.  ``arrays`` holds every input at
+    its spanned shape (0-d for scalars); returns (I, J, K) outputs."""
+    program = plan.program
+    I, J, K = dims = program.dimensions
+    device = next(a for n, a in arrays.items()
+                  if not program.inputs[n].is_scalar).device
+    f32 = torch.float32
+    mats = {k: torch.as_tensor(v).to(device) for k, v in plan.pool.items()}
+    planes: Dict[str, Dict[int, torch.Tensor]] = {}
+    tcache: Dict[Tuple[TKey, Optional[int]], torch.Tensor] = {}
+    outs = {o: torch.empty(dims, device=device,
+                           dtype=to_torch_dtype(program.kernels[o].dtype))
+            for o in program.outputs}
+    jj = torch.arange(J, device=device)[:, None]
+    kk = torch.arange(K, device=device)[None, :]
+
+    def plane(f, p):
+        """Raw (J, K) plane ``p`` of field ``f`` (broadcast for lower-rank
+        inputs and scalars)."""
+        if f in program.kernels:
+            return planes[f][p]
+        spec = program.inputs[f]
+        a = arrays[f].to(device)
+        if spec.is_scalar:
+            return a.expand(J, K)
+        if spec.dim_mask[0]:
+            a = a[p]
+        return a.reshape(J if spec.dim_mask[1] else 1,
+                         K if spec.dim_mask[2] else 1).expand(J, K)
+
+    def transformed(f, p, lkey, rkey):
+        key = ((f, lkey, rkey), p)
+        if key not in tcache:
+            v = plane(f, p).to(f32)
+            if lkey is not None:
+                v = torch.matmul(mats[lkey], v)
+            if rkey is not None:
+                v = torch.matmul(v, mats[rkey])
+            tcache[key] = v
+        return tcache[key]
+
+    def f32c(x):
+        return torch.tensor(np.float32(x), device=device)
+
+    def banded(mp, q):
+        if isinstance(mp, ComposedPlan):
+            tab = plan.pool[mp.table_key]
+            row = q if mp.full_table else (
+                q if q < mp.D else
+                mp.table_rows + q - I if q >= I - mp.D else mp.D)
+            row = min(max(row, 0), mp.table_rows - 1)
+            acc = torch.zeros((J, K), dtype=f32, device=device)
+            for idx, d in enumerate(mp.offsets):
+                if 0 <= q + d < I:
+                    acc = acc + transformed(mp.field, q + d, mp.lkey,
+                                            mp.rkey) * f32c(tab[row, idx])
+            return acc
+        acc = None
+        for grp in mp.groups:
+            p = None if grp.oi is None else q + grp.oi
+            if p is not None and not 0 <= p < I:
+                parts = f32c(grp.bc_value * grp.weight_sum).expand(J, K)
+            else:
+                parts = None
+                for term in grp.terms:
+                    val = transformed(grp.field, p, term.left_key,
+                                      term.right_key)
+                    if (term.left_key is None and term.right_key is None
+                            or term.scale != 1.0):
+                        val = val * f32c(term.scale)
+                    parts = val if parts is None else parts + val
+                if grp.correction_key is not None:
+                    parts = parts + mats[grp.correction_key]
+            acc = parts if acc is None else acc + parts
+        if mp.bias:
+            acc = acc + f32c(mp.bias)
+        return acc
+
+    def per_cell(kspec, q):
+        def read(field, offsets):
+            dt = np.dtype(program.field_dtype(field))
+            if field in program.inputs and program.inputs[field].is_scalar:
+                return arrays[field].to(device), dt
+            bc = kspec.boundary_conditions.get(field)
+            oi, oj, ok = (o or 0 for o in offsets)
+            mask = True if oi and not 0 <= q + oi < I else None
+            if mask is True:
+                val = plane(field, q)
+            else:
+                if oj:
+                    mask = or_mask(mask, (jj + oj < 0) | (jj + oj >= J))
+                if ok:
+                    mask = or_mask(mask, (kk + ok < 0) | (kk + ok >= K))
+                val = torch.roll(plane(field, q + oi), (-oj, -ok), (0, 1))
+            return bc_select(bc, dt, mask, val, lambda: plane(field, q)), dt
+        return eval_kernel_statements(kspec, read, (J, K), device)
+
+    for t in range(I + plan.lag_max):
+        for s in plan.analysis.graph.kernel_order:
+            q = t - plan.lag[s]
+            if not 0 <= q < I:
+                continue
+            mp = plan.mxu_plans.get(s)
+            val = banded(mp, q) if mp is not None else \
+                per_cell(program.kernels[s], q)
+            if s in plan.ring:
+                planes.setdefault(s, {})[q] = val.contiguous()
+                planes[s].pop(q - plan.ring[s], None)
+            if s in outs:
+                outs[s][q] = val
+        # drop transformed planes no reader can reach any more
+        for key in [k for k in tcache if k[1] is not None
+                    and k[1] < t - plan.lag[k[0][0]]
+                    - plan.ring.get(k[0][0], 1)]:
+            del tcache[key]
+    return outs
+
+
+# -- wrapper ---------------------------------------------------------------------
+
+def stream_source(plan: StreamPlan) -> str:
+    return codegen.stream_source(plan.program, plan.analysis, plan)
+
+
+def build_stream(plan: StreamPlan):
+    """Generate and compile the stream kernel for ``plan``."""
+    return build.load_library(stream_source(plan), "stream")
+
+
+def _pool_tensors(plan: StreamPlan, device) -> List[torch.Tensor]:
+    if device not in plan.device_pool:
+        plan.device_pool[device] = [
+            torch.as_tensor(a).to(device).contiguous()
+            for _k, a in plan.kernel_pool()]
+    return plan.device_pool[device]
+
+
+def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
+    """The stream kernel on ``arrays`` (spanned shapes, scalars 0-d).
+    ``lib`` is the built kernel (``build_stream``); it is built on demand
+    when omitted."""
+    global launches
+    outs, launched = run_kernel(
+        plan.program, arrays,
+        lambda: lib if lib is not None else build_stream(plan),
+        lambda: stream_plain(plan, arrays),
+        extra=lambda device: _pool_tensors(plan, device))
+    launches += launched
+    return outs
+
+
+def compile_stream_plan(plan: StreamPlan, device="cuda"):
+    """``fn(inputs) -> outputs`` at the program's raw dims running
+    ``plan`` on ``device`` (built now for a CUDA device)."""
+    device = resolve_device(device)
+    program = plan.program
+    lib = build_stream(plan) if device.type == "cuda" else None
+
+    def forward(inputs):
+        arrays = spanned_arrays(program, inputs, device=device)
+        outs = run_stream(plan, arrays, lib)
+        return {o: v.reshape(program.raw_dimensions)
+                for o, v in outs.items()}
+
+    forward.plan = plan
+    forward.last_config = plan.last_config()
+    return forward
+
+
+def compile_chain_stream(program: ir.Program,
+                         analysis: Optional[ChainAnalysis] = None,
+                         mxu: str = "auto", mxu_precision: str = "split",
+                         compose: str = "auto",
+                         tile: Optional[Tuple[int, int]] = None,
+                         device="cuda"):
+    """Plan the stream lowering (ValueError / NotImplementedError when the
+    program is out of its scope) and, for a CUDA ``device``, build its
+    kernel.  Returns ``fn(inputs) -> outputs`` at the program's raw dims,
+    with the plan as ``fn.plan`` and the JAX package's configuration keys
+    as ``fn.last_config``."""
+    plan = plan_stream(program, analysis, mxu=mxu,
+                       mxu_precision=mxu_precision, compose=compose,
+                       tile=tile)
+    return compile_stream_plan(plan, device)

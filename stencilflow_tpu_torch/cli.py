@@ -24,7 +24,8 @@ def _cmd_run(args) -> int:
             halo=args.halo, repetitions=args.repetitions,
             backend=args.backend, print_result=args.print_result,
             log_level=args.log_level, profile_dir=args.profile,
-            seed=args.seed, tolerance=args.tolerance)
+            seed=args.seed, tolerance=args.tolerance, mxu=args.mxu,
+            mxu_precision=args.mxu_precision)
     except VerificationError as exc:
         print(f"VERIFICATION FAILED: {exc}", file=sys.stderr)
         return 1
@@ -60,7 +61,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--backend", default="auto", choices=list(BACKENDS))
     p.add_argument("--tolerance", type=float, default=None,
                    help="relative verification tolerance (default: "
-                        "config.VERIFY_RTOL)")
+                        "config.VERIFY_RTOL, MXU_VERIFY_RTOL for a stream "
+                        "run with banded stages)")
+    p.add_argument("--mxu", default="auto", choices=["auto", "off"],
+                   help="auto: wide affine stages run as banded transforms "
+                        "on the stream lowering; off: per cell")
+    p.add_argument("--mxu-precision", default="split",
+                   choices=["split", "exact"],
+                   help="band transform precision (both compute in f32 "
+                        "on the card)")
     p.add_argument("--print-result", action="store_true")
     p.add_argument("--generate-input", action="store_true",
                    help="replace file-backed inputs with constant data")

@@ -3,9 +3,11 @@
 Port of ``stencilflow_tpu/driver.py`` ``run_program`` for one device:
 the same flow, flags and verification (the numpy oracle at
 ``VERIFY_RTOL`` after optional halo pruning), with the lowering chosen by
-``backend.compile_chain_best`` for a torch ``device``.  Not ported yet:
-the simulator cross-check, out-of-core chunking and the TPU-only
-precision knobs (MXU, ring storage, spill).
+``backend.compile_chain_best`` for a torch ``device``; a run whose
+stream lowering has banded stages verifies at ``MXU_VERIFY_RTOL``, as the
+JAX package's driver does.  Not ported yet: the simulator cross-check,
+out-of-core chunking, the single-pass bf16 transforms and the TPU-only
+knobs (ring storage, spill).
 """
 from __future__ import annotations
 
@@ -22,14 +24,15 @@ from . import ir
 from .backend import compile_chain, compile_chain_best
 from .backend.overlap import compile_chain_overlap
 from .backend.panel import compile_chain_panel
-from .config import VERIFY_RTOL
+from .backend.stream import compile_chain_stream
+from .config import MXU_VERIFY_RTOL, VERIFY_RTOL
 from .data import (arrays_are_equal, load_input_arrays, prune_halo,
                    save_output_arrays)
 from .frontend.analysis import ChainAnalysis
 from .frontend.parser import parse_program
 from .interpreter import run_interpreter
 
-BACKENDS = ("auto", "panel", "overlap", "dense", "interpreter")
+BACKENDS = ("auto", "stream", "panel", "overlap", "dense", "interpreter")
 
 
 class VerificationError(RuntimeError):
@@ -48,9 +51,14 @@ class RunResult:
     analysis: Optional[ChainAnalysis] = None
 
 
-def _compile(program, analysis, backend: str, device):
+def _compile(program, analysis, backend: str, device, mxu, mxu_precision):
     if backend == "auto":
-        return compile_chain_best(program, analysis, device=device)
+        return compile_chain_best(program, analysis, device=device, mxu=mxu,
+                                  mxu_precision=mxu_precision)
+    if backend == "stream":
+        return (compile_chain_stream(program, analysis, mxu=mxu,
+                                     mxu_precision=mxu_precision,
+                                     device=device), "stream")
     if backend == "panel":
         return compile_chain_panel(program, analysis, device=device), "panel"
     if backend == "overlap":
@@ -103,11 +111,15 @@ def run_program(stencil_file, device="cuda",
                 log_level: int = 1,
                 profile_dir: Optional[str] = None,
                 raise_on_mismatch: bool = True,
-                tolerance: Optional[float] = None) -> RunResult:
+                tolerance: Optional[float] = None,
+                mxu: str = "auto",
+                mxu_precision: str = "split") -> RunResult:
     """Run one stencil program end to end on ``device``.  ``stencil_file``
     may be a path, a JSON dict, or an already-parsed Program.
-    ``tolerance`` overrides the relative verification tolerance
-    (default: config.VERIFY_RTOL)."""
+    ``tolerance`` overrides the relative verification tolerance (default:
+    config.VERIFY_RTOL, or MXU_VERIFY_RTOL for a stream run with banded
+    stages).  ``mxu`` ("auto"/"off") and ``mxu_precision``
+    ("split"/"exact") forward to the stream lowering."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch sees no GPU")
@@ -133,9 +145,12 @@ def run_program(stencil_file, device="cuda",
     inputs = load_input_arrays(program, prefix=input_directory, seed=seed)
     result = RunResult(program=program, outputs={}, backend="none",
                        device=str(device), analysis=analysis)
+    banded = False
 
     if not skip_execution:
-        fn, result.backend = _compile(program, analysis, backend, device)
+        fn, result.backend = _compile(program, analysis, backend, device,
+                                      mxu, mxu_precision)
+        banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
         dev_inputs = {k: (torch.as_tensor(np.asarray(v)).to(device)
                           if not program.inputs[k].is_scalar else v)
                       for k, v in inputs.items()}
@@ -176,6 +191,10 @@ def run_program(stencil_file, device="cuda",
 
     raw = program.raw_dimensions
     rtol = tolerance if tolerance is not None else VERIFY_RTOL
+    if tolerance is None and banded:
+        # banded transforms re-associate f32 sums: the JAX package's
+        # driver verifies such runs at this envelope
+        rtol = MXU_VERIFY_RTOL
     if compare_to_reference and result.outputs:
         ref = run_interpreter(program, inputs)
         ok = True

@@ -230,12 +230,14 @@ class KernelSpec:
         version through its own name.  Excluding all lhs names would
         hide such reads from validation and the chain graph."""
         out: Dict[str, List[Offsets]] = {}
+        seen: set = set()      # (field, offsets): linear in the accesses
         assigned: set = set()
         for stmt in self.statements:
             for node in walk(stmt.rhs):
                 if isinstance(node, Access) and node.field not in assigned:
                     lst = out.setdefault(node.field, [])
-                    if node.offsets not in lst:
+                    if (node.field, node.offsets) not in seen:
+                        seen.add((node.field, node.offsets))
                         lst.append(node.offsets)
             assigned.add(stmt.lhs)
         return out

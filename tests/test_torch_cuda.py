@@ -9,7 +9,10 @@ installed; there, skip the jax-importing conftest:
 Tolerance: bit-exact (np.array_equal, NaN == NaN).  The kernels are built
 with -fmad=false and without fast math, and none of these programs calls
 a transcendental, so kernel, plain version and numpy oracle compute the
-same correctly rounded operations in the same order.
+same correctly rounded operations in the same order.  The stream kernel's
+banded stages sum in another order than its plain version (which applies
+the bands with torch.matmul): MXU_VERIFY_RTOL there, as in the JAX
+package.
 """
 import json
 import os
@@ -19,8 +22,9 @@ import pytest
 import torch
 
 import stencilflow_tpu_torch as port
-from stencilflow_tpu_torch.backend import overlap, panel
+from stencilflow_tpu_torch.backend import overlap, panel, stream
 from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
 from stencilflow_tpu_torch.driver import run_program
 from stencilflow_tpu_torch.synthesize import random_program, synthesize_stencil
 
@@ -95,3 +99,50 @@ def test_run_program_on_card(iters, backend, cuda):
     oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
     np.testing.assert_array_equal(res.outputs[p.outputs[0]],
                                   oracle[p.outputs[0]])
+
+
+STREAM_PROGRAMS = {
+    "box_r1_composed": lambda: synthesize_stencil(
+        num_stages=4, dimensions=(40, 48, 72), shape="box", extent=1,
+        seed_data="random:0,1"),
+    "box_r2_bc07": lambda: synthesize_stencil(
+        num_stages=3, dimensions=(40, 48, 72), shape="box", extent=2,
+        boundary_value=0.7, seed_data="random:0,1"),
+    "box_shrink": lambda: synthesize_stencil(
+        num_stages=3, dimensions=(40, 48, 72), shape="box", extent=1,
+        boundary="shrink", seed_data="random:0,1"),
+    "cross_r2": lambda: synthesize_stencil(
+        num_stages=4, dimensions=(40, 48, 72), shape="cross", extent=2,
+        seed_data="random:0,1"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(STREAM_PROGRAMS))
+def test_stream_kernel_matches_plain_on_card(name, cuda):
+    p = port.parse_program(STREAM_PROGRAMS[name]())
+    plan = stream.plan_stream(p)
+    assert plan.mxu_plans
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = stream.launches
+    got = stream.run_stream(plan, arrays)
+    torch.cuda.synchronize()
+    assert stream.launches == before + 1
+    want = stream.stream_plain(plan, arrays)
+    for o in want:
+        g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+        assert np.isfinite(g).all()
+        assert port.arrays_are_equal(w, g, MXU_VERIFY_RTOL)
+
+
+@pytest.mark.cuda
+def test_run_program_stream_on_card(cuda):
+    """A wide affine chain takes the stream kernel and matches the oracle
+    at MXU_VERIFY_RTOL."""
+    p = port.parse_program(synthesize_stencil(
+        num_stages=4, dimensions=(40, 48, 72), shape="box", extent=2,
+        seed_data="random:0,1"))
+    res = run_program(p, device=cuda, compare_to_reference=True,
+                      save_results=False, log_level=0)
+    assert res.backend == "stream" and res.verified_against_reference

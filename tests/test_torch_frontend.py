@@ -146,3 +146,12 @@ def test_errors_match():
     with pytest.raises(ValueError, match="unsupported dtype"):
         port.parse_program({**bad, "inputs": {"a": {
             "data": "constant:1", "data_type": "bfloat16"}}})
+
+
+def test_import_scan_covers_the_stream_slice():
+    """The scan above reaches the stream lowering's modules (the planner
+    copies of linear.py and compose.py, the streamer, its codegen)."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("linear", "compose", "stream", "codegen", "build"):
+        assert os.path.join("stencilflow_tpu_torch", "backend",
+                            mod + ".py") in scanned

@@ -61,7 +61,7 @@ def _check(spec, seed, **kw):
     jax_out = ref_panel(p_ref, interpret=True)(
         {k: jnp.asarray(v) for k, v in inputs.items()})
     oracle = ref.run_interpreter(p_ref, inputs)
-    fn = panel.compile_chain_panel(p, **kw)
+    fn = panel.compile_chain_panel(p, device="cpu", **kw)
     got = fn(inputs)
     for o in oracle:
         g = got[o].numpy()

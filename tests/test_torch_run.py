@@ -115,7 +115,7 @@ def test_every_lowering_matches_oracle(name, backend):
     ("diffusion", 256, 3, "panel"),
     ("hdiff", 256, 8, "panel"),
     ("hotspot", 256, 8, "panel"),
-    ("box", 64, 2, "dense"),             # banded-matmul candidate
+    ("box", 64, 2, "stream"),            # banded-transform candidate
 ])
 def test_backend_choice_on_card(shape, size, iters, expected):
     kw = {"extent": 2} if shape == "box" else {}
