@@ -19,19 +19,29 @@ Phases, one line each (any failure raises and exits non-zero):
    with correction planes), a shrink box, a radius-2 cross (rank 2, per
    stage) and a per-cell stage feeding a wide affine stage that reads two
    fields, within MXU_VERIFY_RTOL (the plain version applies the bands
-   with torch.matmul, another summation order);
+   with torch.matmul, another summation order); the group kernel against
+   its plain version, bit-exact, on jacobi2d 256 x 192 x 8 through rows
+   (constant / copy / shrink BCs), hotspot2d 256 x 192 x 8 (both at the
+   main path's g = 8, B = 64), the 2-D fuzz chain through rows, a 3-D
+   jacobi with i-offsets of 3 at g = 2, B = 2, and the 3-D fuzz chain with
+   a scalar and lower-rank inputs;
 4. the ``run`` main path at full size through ``run_program(...,
    device="cuda")``: jacobi3d 512^3 x 8 (panel), jacobi3d 512^3 x 2
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
    extent 2 (stream, all 8 stages composed) and cross3d 256^3 x 8 of
-   extent 2 (stream, per stage), each verified against the dense lowering
-   on the card and, up to 256^3, against the numpy oracle (bit-exact for
-   the per-cell kernels, MXU_VERIFY_RTOL for the stream ones); kernel
+   extent 2 (stream, per stage), jacobi2d and hotspot2d 8192^2 x 8
+   (rows+group_g8) and hdiff2d 8192^2 x 16 (rows+panel), each verified
+   against the dense lowering on the card and, up to 256^3 and for the
+   two 8192^2 x 8 cells, against the numpy oracle (bit-exact for the
+   per-cell kernels, MXU_VERIFY_RTOL for the stream ones); kernel
    launch counts are reset just before and read just after, and each
    kernel must have been launched.  The stream cells also print the
-   forced-panel time where the panel planner accepts the program; after
-   the main path, one ``F.conv3d`` per stage, chained (TF32 off), is timed
-   for the linear chains as a library yardstick the port never calls.
+   forced-panel time where the panel planner accepts the program, the 2-D
+   cells the forced overlap kernel on the unrotated plane (the port's
+   route before the rows path) and forced rows+panel; after the main
+   path, one ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained
+   (TF32 off), is timed for the linear chains as a library yardstick the
+   port never calls.
 
 The last lines are the card line, a JSON object of the kernels (launches
 from phase 4; error, kernel, plain-version and library times measured in
@@ -201,30 +211,52 @@ def _bound(program, flops: float):
 
 
 def _conv_chain_ms(program, radius: int) -> float:
-    """One ``F.conv3d`` per stage, chained, computing the same constant-0
-    linear chain with TF32 off: the library yardstick (timed only; the
-    port never calls it).  The stages of these chains are identical, so
-    the first stage's coefficients give the filter."""
+    """One ``F.conv3d`` (``F.conv2d`` for a 2-D program) per stage,
+    chained, computing the same constant-0 linear chain with TF32 off: the
+    library yardstick (timed only; the port never calls it).  The stages
+    of these chains are identical, so the first stage's coefficients give
+    the filter."""
     import torch
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False
     from stencilflow_tpu_torch.backend.linear import extract_linear
     stages = list(program.kernels.values())
-    w = np.zeros((1, 1) + (2 * radius + 1,) * 3, np.float32)
+    nd = len(program.raw_dimensions)
+    w = np.zeros((1, 1) + (2 * radius + 1,) * nd, np.float32)
     for key, c in extract_linear(stages[0]).items():
         if key != ("const",):
-            oi, oj, ok = key[1]
-            w[0, 0, oi + radius, oj + radius, ok + radius] = c
+            w[(0, 0) + tuple((o or 0) + radius
+                             for o in key[1][3 - nd:])] = c
     weight = torch.as_tensor(w, device="cuda")
-    x = torch.rand((1, 1) + tuple(program.dimensions), device="cuda",
+    x = torch.rand((1, 1) + tuple(program.raw_dimensions), device="cuda",
                    generator=torch.Generator("cuda").manual_seed(0))
+    conv = F.conv3d if nd == 3 else F.conv2d
 
     def run():
         y = x
         for _ in stages:
-            y = F.conv3d(y, weight, padding=radius)
+            y = conv(y, weight, padding=radius)
         return y
     return _time_ms(run, 3)
+
+
+def _wide_i_spec(dims, stages: int):
+    """A 3-D jacobi whose stages read i-offsets of 3: windows wider than a
+    panel of B = 2."""
+    program, prev = {}, "a"
+    for n in range(stages):
+        program[f"s{n}"] = {
+            "computation_string":
+                f"s{n} = 0.2 * ({prev}[i-3,j,k] + {prev}[i+3,j,k] + "
+                f"{prev}[i,j-1,k] + {prev}[i,j+1,k] + {prev}[i,j,k+1])",
+            "boundary_conditions": {prev: {"type": "constant",
+                                           "value": 0.5}},
+            "data_type": "float32"}
+        prev = f"s{n}"
+    return {"inputs": {"a": {"data": "random:0.0,1.0",
+                             "data_type": "float32"}},
+            "outputs": [prev], "dimensions": list(dims),
+            "program": program}
 
 
 def main() -> int:
@@ -239,13 +271,17 @@ def main() -> int:
     sys.path.insert(0, HERE)
 
     import stencilflow_tpu_torch as sft
-    from stencilflow_tpu_torch.backend import build, codegen
+    from stencilflow_tpu_torch.backend import (build, codegen,
+                                               compile_chain_rows)
+    from stencilflow_tpu_torch.backend import group as gp
     from stencilflow_tpu_torch.backend import overlap as ov
     from stencilflow_tpu_torch.backend import panel as pn
     from stencilflow_tpu_torch.backend import stream as st
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL, VERIFY_RTOL
     from stencilflow_tpu_torch.driver import run_program
+    from stencilflow_tpu_torch.frontend.canonicalize import \
+        rotate_2d_to_rows as rows
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
 
     # -- 1. device -----------------------------------------------------------
@@ -290,6 +326,32 @@ def main() -> int:
              (synth("hotspot", 256, 8), "panel"),
              (box256, "stream"), (cross256, "stream")]
 
+    def synth2d(shape, n, iters, **kw):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=n, shape=shape,
+            seed_data="random:0.0,1.0", **kw),
+            name=f"{shape}2d_{n[0]}_{iters}itr"
+                 f"{'_' + kw['boundary'] if 'boundary' in kw else ''}")
+
+    fuzz = {label.rsplit("-", 1)[0]: p for label, p in cases
+            if label.startswith("fuzz-")}
+    # (label, program the kernel runs, B, g)
+    group_cases = [(f"jacobi2d-{bc}", rows(synth2d(
+        "diffusion", (256, 192), 8, boundary=bc)), 64, 8)
+        for bc in ("constant", "copy", "shrink")]
+    group_cases += [
+        ("hotspot2d", rows(synth2d("hotspot", (256, 192), 8)), 64, 8),
+        ("fuzz-f32-2d", rows(fuzz["fuzz-f32-2d"]), 0, 2),
+        ("jacobi3d-i3", sft.parse_program(_wide_i_spec((24, 40, 72), 4),
+                                          name="jacobi3d_i3"), 2, 2),
+        ("fuzz-f32", fuzz["fuzz-f32"], 0, 2)]
+    jacobi2d = synth2d("diffusion", (8192, 8192), 8)
+    hotspot2d = synth2d("hotspot", (8192, 8192), 8)
+    hdiff2d = synth2d("hdiff", (8192, 8192), 16)
+    mains2d = [(jacobi2d, "rows+group_g8"), (hotspot2d, "rows+group_g8"),
+               (hdiff2d, "rows+panel")]
+    mains += mains2d
+
     # -- 2. build: every kernel, one nvcc each, all at once ------------------
     t0 = time.perf_counter()
     # name: (module, plan, build, wrapper, plain version)
@@ -329,6 +391,31 @@ def main() -> int:
             continue
         main_panel[p.name] = (an, plan)
         sources.append((codegen.panel_source(p, an, plan), "panel"))
+    # the group kernel: phase 3's cases, then the 2-D main path's plans
+    group_plans = []
+    for label, p, B, g in group_cases + [
+            (q.name, rows(q), 64, 8) for q, want in mains2d
+            if want == "rows+group_g8"]:
+        an = sft.ChainAnalysis.run(p)
+        plan = gp.plan_group(p, an, B, g)
+        src = codegen.group_source(p, an, plan)
+        group_plans.append((label, p, an, plan, src))
+        sources.append((src, "group"))
+    # beside the 2-D cells: forced overlap on the unrotated plane (the
+    # route before the rows path), forced rows+panel
+    forced2d = {}
+    for p, _ in mains2d:
+        an = sft.ChainAnalysis.run(p)
+        try:
+            oplan = ov.OverlapPlan.build(an)
+            sources.append((codegen.overlap_source(p, an, oplan), "overlap"))
+        except ValueError as exc:
+            oplan = str(exc)
+        rot = rows(p)
+        ran = sft.ChainAnalysis.run(rot)
+        pplan = pn.PanelPlan.build(ran)
+        sources.append((codegen.panel_source(rot, ran, pplan), "panel"))
+        forced2d[p.name] = (an, oplan, pplan)
     libs = build.load_libraries(sources)
     lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
     slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
@@ -379,6 +466,26 @@ def main() -> int:
                   flush=True)
             if not ok or n != 1:
                 raise RuntimeError(f"stream kernel disagrees with its plain "
+                                   f"version on {label}")
+
+    for label, p, an, plan, src in group_plans[:len(group_cases)]:
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        before = gp.launches
+        got = gp.run_group(p, an, plan, arrays, lib_of[src])
+        torch.cuda.synchronize()
+        want = gp.group_plain(p, an, plan, arrays)
+        rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
+        for o in p.outputs:
+            ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                               rtol)
+            n = gp.launches - before
+            print(f"compare: group   {label:28s} B {plan.B} groups "
+                  f"{len(plan.groups)} tile {plan.tile} max_abs_err "
+                  f"{err:.3g} launches {n} {'OK' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok or n != 1:
+                raise RuntimeError(f"group kernel disagrees with its plain "
                                    f"version on {label}")
 
     # -- 4. the main path at full size ---------------------------------------
@@ -474,11 +581,70 @@ def main() -> int:
         library.append(("stream" if label == "box3d_256_8itr" else label,
                         p, 2))
 
+    label, p, an, plan, src = group_plans[len(group_cases)]
+    arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                            device="cuda")
+    got = gp.run_group(p, an, plan, arrays, lib_of[src])
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    want = gp.group_plain(p, an, plan, arrays)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
+                       want[p.outputs[0]].cpu().numpy(), 0.0)
+    ms = _time_ms(lambda: gp.run_group(p, an, plan, arrays, lib_of[src]), 10)
+    del got, want, arrays
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(p, _ops_per_cell(p) * p.total_elements)
+    print(f"kernel: group {label} (rows) B {plan.B} g 8 tile {plan.tile} "
+          f"smem {plan.smem_bytes(p)} B: {ms:.3f} ms "
+          f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} | {smi}",
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"group kernel disagrees with its plain version "
+                           f"on {label}")
+    report["group"] = {
+        "name": "group", "route": "cuda",
+        "source": "stencilflow_tpu_torch/backend/codegen.py",
+        "replaces": "stencilflow_tpu/backend/group.py:195",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    library.append(("group", jacobi2d, 1))
+    for p, _ in mains2d:   # forced kernels beside the 2-D cells
+        an, oplan, pplan = forced2d[p.name]
+        inputs = {k: torch.as_tensor(np.asarray(v)).cuda()
+                  if not p.inputs[k].is_scalar else v
+                  for k, v in sft.load_input_arrays(p, seed=0).items()}
+        fr = compile_chain_rows(p, "panel", device="cuda")[0]
+        rms = _time_ms(lambda: fr(inputs), 5)
+        rout = fr(inputs)[p.outputs[0]].cpu().numpy()
+        if isinstance(oplan, str):
+            stream_extra[p.name] = f" | forced overlap: refused ({oplan})"
+        else:
+            fo = ov.compile_chain_overlap(p, an, device="cuda")
+            oms = _time_ms(lambda: fo(inputs), 5)
+            oeq, _ = _compare(fo(inputs)[p.outputs[0]].cpu().numpy(), rout,
+                              0.0)
+            if not oeq:
+                raise RuntimeError(f"{p.name}: forced overlap and forced "
+                                   "rows+panel disagree")
+            stream_extra[p.name] = (
+                f" | forced overlap (unrotated) tile {oplan.tile} "
+                f"{oms:.3f} ms")
+        stream_extra[p.name] += (f" | forced rows+panel tile {pplan.tile} "
+                                 f"{rms:.3f} ms")
+        forced2d[p.name] = rout
+        del inputs, fr
+        torch.cuda.empty_cache()
+
     pn.launches = 0
     ov.launches = 0
     st.launches = 0
+    gp.launches = 0
     for p, want_backend in mains:
-        oracle = max(p.dimensions) <= 256
+        oracle = max(p.dimensions) <= 256 or p is jacobi2d or p is hotspot2d
         res = run_program(p, device="cuda", repetitions=20,
                           compare_to_reference=oracle, save_results=False,
                           log_level=0)
@@ -493,6 +659,10 @@ def main() -> int:
             if not ok or not np.isfinite(res.outputs[o]).all():
                 raise RuntimeError(f"{p.name}: {res.backend} disagrees "
                                    f"with dense (max abs diff {err:.3g})")
+        if p.name in forced2d and not _compare(
+                res.outputs[p.outputs[0]], forced2d[p.name], 0.0)[0]:
+            raise RuntimeError(f"{p.name}: {res.backend} disagrees with "
+                               "forced rows+panel")
         cells = p.total_elements
         extra = stream_extra.get(p.name, "")
         print(f"main: {p.name} backend {res.backend} "
@@ -512,13 +682,15 @@ def main() -> int:
         lib_ms = _conv_chain_ms(p, radius)
         if key in report:
             report[key]["library_ms"] = lib_ms
-        print(f"library: {p.name} {len(p.kernels)} chained F.conv3d "
-              f"(filter {2 * radius + 1}^3, TF32 off) {lib_ms:.3f} ms "
+        nd = len(p.raw_dimensions)
+        print(f"library: {p.name} {len(p.kernels)} chained F.conv{nd}d "
+              f"(filter {2 * radius + 1}^{nd}, TF32 off) {lib_ms:.3f} ms "
               f"| {smi}", flush=True)
         torch.cuda.empty_cache()
     report["panel"]["launches"] = pn.launches
     report["overlap"]["launches"] = ov.launches
     report["stream"]["launches"] = st.launches
+    report["group"]["launches"] = gp.launches
     for name, entry in report.items():
         if entry["launches"] < 1:
             raise RuntimeError(f"the main path never launched {name}")

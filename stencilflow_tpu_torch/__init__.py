@@ -4,10 +4,12 @@ The same JSON program dialect, analyses and numpy oracle as the JAX
 package (copied, not imported: ``import stencilflow_tpu`` loads jax),
 lowered to torch tensors on one NVIDIA Hopper GPU.  The ``run`` main path —
 parse, analyse, ``backend.compile_chain_best``, execute, verify — goes
-through two CUDA C++ kernels generated per program from the IR: the panel
-streamer (backend/panel.py) for deep chains and the overlap streamer
-(backend/overlap.py) for shallow ones, with the whole-domain torch
-evaluator (backend/dense.py) as the fallback and the CPU path.
+through CUDA C++ kernels generated per program from the IR: the stream
+kernel (backend/stream.py) for wide affine chains, the group streamer
+(backend/group.py) for deep 2-D chains rotated to rows, the overlap
+streamer (backend/overlap.py) for shallow chains and the panel streamer
+(backend/panel.py) for deep ones, with the whole-domain torch evaluator
+(backend/dense.py) as the fallback and the CPU path.
 """
 
 __version__ = "0.1.0"

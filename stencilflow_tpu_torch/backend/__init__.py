@@ -1,24 +1,41 @@
 """Lowerings of a stencil chain to torch tensors on one device.
 
-``compile_chain_best`` keeps the JAX package's order
-(``stencilflow_tpu/backend/__init__.py``): a chain with no wide affine
-stage goes to the overlap kernel when its cumulative i-extent is at most
-2, else to the panel kernel; for a chain with one, the stream lowering is
-planned, and taken when it has a banded stage — when its planner declines
-every such stage, the chain goes to overlap or panel as before.  The
-whole-domain ``dense`` lowering comes last: for programs every planner
-refuses, and on a CPU device.
+``compile_chain_best`` keeps the JAX package's ladder
+(``stencilflow_tpu/backend/__init__.py``), for a CUDA device:
+
+1. a chain whose stream plan has a banded stage (a wide affine stage) →
+   ``stream``;
+2. a 2-D chain of at least 4 stages → ``rows+group_g8``: rotated to rows
+   and streamed by the group kernel, g = 8, B = 64, when its planner
+   accepts it.  The reference takes this rung for deep 2-D chains that
+   its plane streamer must j-tile; on the H100 every plane larger than
+   one block's tile is tiled, so the rung applies at every size (it
+   differs from the reference for small planes that fit a TPU's VMEM
+   whole);
+3. ``overlap`` when the chain's cumulative i-extent is at most 2, else
+   ``panel``;
+4. the stream kernel with every stage per cell;
+5. a 2-D chain → ``rows+<lowering>``: rotated, then this ladder again
+   (where the rotated chain lands on a kernel);
+6. ``dense``, the whole-domain lowering — also the lowering on a CPU
+   device.
 """
 import torch
 
 from .. import ir
 from ..frontend.analysis import ChainAnalysis
+from ..frontend.canonicalize import rotate_2d_to_rows
 from .dense import chain_halo, compile_chain
+from .group import compile_chain_group, plan_group
 from .linear import extract_linear
 from .overlap import OverlapPlan, compile_chain_overlap, shallow_extent
 from .panel import PanelPlan, compile_chain_panel
 from .stream import (MXU_MIN_FOOTPRINT, check_options,
                      compile_chain_stream, compile_stream_plan, plan_stream)
+
+# rung 2: the reference's rows+group configuration for deep 2-D chains
+ROWS_GROUP = 8
+ROWS_PANEL = 64
 
 
 def _any_mxu_candidate(program, min_footprint: int = MXU_MIN_FOOTPRINT
@@ -53,6 +70,10 @@ def choose_stacked(program, analysis):
         return None
 
 
+def _is_2d(program) -> bool:
+    return len(program.raw_dimensions) == 2
+
+
 def _route(program, analysis, device, mxu="auto", mxu_precision="split"):
     """(lowering name, stream plan or None) for ``device``; planning
     only."""
@@ -67,7 +88,27 @@ def _route(program, analysis, device, mxu="auto", mxu_precision="split"):
                 return "stream", plan
         except (ValueError, NotImplementedError):
             pass   # a planner refusal: the per-cell kernels below
-    return choose_stacked(program, analysis) or "dense", None
+    if _is_2d(program) and len(program.kernels) >= 4:
+        try:
+            plan_group(rotate_2d_to_rows(program), panel=ROWS_PANEL,
+                       group=ROWS_GROUP)
+            return f"rows+group_g{ROWS_GROUP}", None
+        except (ValueError, NotImplementedError):
+            pass
+    stacked = choose_stacked(program, analysis)
+    if stacked:
+        return stacked, None
+    try:
+        return "stream", plan_stream(program, analysis, mxu="off")
+    except (ValueError, NotImplementedError):
+        pass
+    if _is_2d(program):
+        rot = rotate_2d_to_rows(program)
+        inner = _route(rot, ChainAnalysis.run(rot), device, mxu,
+                       mxu_precision)[0]
+        if inner != "dense":
+            return "rows+" + inner, None
+    return "dense", None
 
 
 def choose_backend(program, analysis, device, mxu="auto",
@@ -82,6 +123,12 @@ def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
     ``mxu``/``mxu_precision`` forward to the stream lowering."""
     analysis = analysis or ChainAnalysis.run(program)
     name, plan = _route(program, analysis, device, mxu, mxu_precision)
+    if name == f"rows+group_g{ROWS_GROUP}":
+        return compile_chain_rows(program, "group", group=ROWS_GROUP,
+                                  panel=ROWS_PANEL, device=device)
+    if name.startswith("rows+"):
+        return compile_chain_rows(program, device=device, mxu=mxu,
+                                  mxu_precision=mxu_precision)
     if name == "stream":
         return compile_stream_plan(plan, device), name
     if name == "overlap":
@@ -91,5 +138,48 @@ def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
     return compile_chain(program, analysis), name
 
 
+def compile_chain_rows(program, backend: str = "auto", group: int = 2,
+                       panel: int = 0, device="cuda", mxu: str = "auto",
+                       mxu_precision: str = "split"):
+    """Row-streaming lowering of a 2-D program: rotate the padded domain
+    ``(1, J, K) -> (J, 1, K)`` (``frontend.canonicalize.rotate_2d_to_rows``)
+    and stream rows through a 3-D lowering — ``backend`` "group" (groups
+    of ``group`` stages, panel size ``panel``, 0 = auto), "panel",
+    "overlap", "stream", or "auto" (``compile_chain_best`` of the rotated
+    program).  Returns ``(fn, "rows+<lowering>")``, ``fn`` giving outputs
+    at the program's raw (J, K); raises ValueError when the program is
+    not 2-D or the lowering refuses it.  ``panel`` is the group kernel's
+    B only; ``mxu``/``mxu_precision`` forward to the stream lowering."""
+    rot = rotate_2d_to_rows(program)
+    if panel and backend != "group":
+        raise ValueError("panel= sets the group kernel's B "
+                         "(backend='group')")
+    if backend == "group":
+        fn, name = (compile_chain_group(rot, panel=panel, group=group,
+                                        device=device), f"group_g{group}")
+    elif backend == "panel":
+        fn, name = compile_chain_panel(rot, device=device), "panel"
+    elif backend == "overlap":
+        fn, name = compile_chain_overlap(rot, device=device), "overlap"
+    elif backend == "stream":
+        fn, name = (compile_chain_stream(rot, mxu=mxu,
+                                         mxu_precision=mxu_precision,
+                                         device=device), "stream")
+    elif backend == "auto":
+        fn, name = compile_chain_best(rot, device=device, mxu=mxu,
+                                      mxu_precision=mxu_precision)
+    else:
+        raise ValueError(f"unknown rows backend {backend!r} (choose from "
+                         "auto, group, panel, overlap, stream)")
+    raw = program.raw_dimensions
+
+    def forward(inputs):
+        return {o: v.reshape(raw) for o, v in fn(inputs).items()}
+
+    forward.last_config = getattr(fn, "last_config", {})
+    return forward, "rows+" + name
+
+
 __all__ = ["chain_halo", "choose_backend", "compile_chain",
-           "compile_chain_best", "compile_chain_stream"]
+           "compile_chain_best", "compile_chain_group", "compile_chain_rows",
+           "compile_chain_stream"]

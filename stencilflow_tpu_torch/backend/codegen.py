@@ -14,8 +14,9 @@ each program gets its own translation unit:
   out-of-range results probed from the running numpy;
 * one skeleton that evaluates those functions: the panel streamer
   (``panel_source``), the overlap streamer (``overlap_source``), the
-  stream kernel with its banded transforms (``stream_source``, whose block
-  body also compiles with g++), or a host loop nest over the whole domain
+  stream kernel with its banded transforms (``stream_source``), the group
+  streamer (``group_source``) — the last two with block bodies that also
+  compile with g++ — or a host loop nest over the whole domain
   (``host_source``), which compiles with g++ so the generated math is
   tested without a GPU.
 
@@ -864,31 +865,152 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
                 + ["        " + x for x in tl] + ["      }"]
         L.append("    }")
     L += ["  }", "}"]
-    smem = plan.smem_bytes()
-    names = _param_names(params)
+    L += _entry_points(program, "sf_stream", params, args, (ntj, ntk),
+                       plan.smem_bytes(), slots, n_pool)
+    return "\n".join(L)
+
+
+def _entry_points(program, kernel: str, params: str, args: str, grid,
+                  smem: int, slots, n_pool: int = 0) -> List[str]:
+    """The ``__global__`` kernel around the block body ``<kernel>_block``
+    and its ``sf_launch`` for nvcc; for g++, ``sf_host_launch``, which
+    runs every block with one thread (the barriers separate phases, so
+    that is a valid schedule) over shared memory filled with NaN."""
+    ntj, ntk = grid
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
-    L += ["#ifdef __CUDACC__",
-          f"__global__ void __launch_bounds__({THREADS}) "
-          f"sf_stream({params}) {{",
-          "  extern __shared__ __align__(16) unsigned char sf_smem[];",
-          "  sf_stream_block(blockIdx.y, blockIdx.x, threadIdx.x, "
-          f"{THREADS}, sf_smem, {names});",
-          "}",
-          _launcher(program, "sf_stream", f"dim3({ntk}, {ntj})", smem, slots,
-                    n_pool),
-          "#else",
-          'extern "C" void sf_host_launch(const void* const* in, '
-          "void* const* out, const unsigned char* scal) {",
-          "  SfScalars sc;", "  sc.unused_ = 0;",
-          copies.rstrip("\n"),
-          "  // uninitialised shared memory reads as NaN here",
-          f"  unsigned char* const sf_smem = (unsigned char*)malloc({smem});",
-          f"  memset(sf_smem, 0xff, {smem});",
-          f"  for (int by = 0; by < {ntj}; ++by)",
-          f"    for (int bx = 0; bx < {ntk}; ++bx)",
-          f"      sf_stream_block(by, bx, 0, 1, sf_smem, {args});",
-          "  free(sf_smem);", "}", "#endif"]
+    return ["#ifdef __CUDACC__",
+            f"__global__ void __launch_bounds__({THREADS}) "
+            f"{kernel}({params}) {{",
+            "  extern __shared__ __align__(16) unsigned char sf_smem[];",
+            f"  {kernel}_block(blockIdx.y, blockIdx.x, threadIdx.x, "
+            f"{THREADS}, sf_smem, {_param_names(params)});",
+            "}",
+            _launcher(program, kernel, f"dim3({ntk}, {ntj})", smem, slots,
+                      n_pool),
+            "#else",
+            'extern "C" void sf_host_launch(const void* const* in, '
+            "void* const* out, const unsigned char* scal) {",
+            "  SfScalars sc;", "  sc.unused_ = 0;",
+            copies.rstrip("\n"),
+            "  // uninitialised shared memory reads as NaN here",
+            f"  unsigned char* const sf_smem = (unsigned char*)malloc("
+            f"{max(smem, 1)});",
+            f"  memset(sf_smem, 0xff, {smem});",
+            f"  for (int by = 0; by < {ntj}; ++by)",
+            f"    for (int bx = 0; bx < {ntk}; ++bx)",
+            f"      {kernel}_block(by, bx, 0, 1, sf_smem, {args});",
+            "  free(sf_smem);", "}", "#endif"]
+
+
+def group_source(program: ir.Program, analysis: ChainAnalysis,
+                 plan) -> str:
+    """The group streamer for ``plan`` (backend/group.py GroupPlan): per
+    step, ingest one panel of B planes of every streamed input into its
+    ring, then evaluate each live group's stages over their i-widened
+    blocks.  Like ``stream_source``, the block body also compiles with
+    g++ into ``sf_host_launch``."""
+    I, J, K = dims = program.dimensions
+    order, head, slots = _common(program, analysis)
+    stage_fn = {k: i for i, k in enumerate(order)}
+    B = plan.B
+    n_panels = I // B
+    tj, tk = plan.tile
+    ring_off, temp_off, smem = plan.smem_layout(program)
+    params, args = _params(program)
+    L = [head, _STREAM_MACROS,
+         "// group streamer (backend/group.py): replaces the TPU kernel "
+         "stencilflow_tpu/backend/group.py _group_kernel_body (K5)",
+         "// plane index modulo a ring's plane count, for any sign",
+         "SF_DEV int sf_pmod(const int x, const int n) {",
+         "  const int r = x % n;", "  return r < 0 ? r + n : r;", "}",
+         "SF_DEV void sf_group_block(const int by, const int bx, "
+         "const int tid, const int nt, unsigned char* const sf_smem, "
+         f"{params}) {{",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
+    for f in plan.rings:
+        ct = ctype(program.field_dtype(f))
+        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {ring_off[f]});")
+    L.append(f"  for (int t = 0; t < {n_panels + plan.lag_max(program)}; "
+             "++t) {")
+    ring_inputs = [f for f in plan.rings if f in program.inputs]
+    if ring_inputs:
+        L.append(f"    if (t < {n_panels}) {{")
+        for f in ring_inputs:
+            RJ, RK = plan.region(f)
+            hj, hk = plan.halo[f]
+            mask = program.inputs[f].dim_mask
+            c = ("gi", "gj", "gk")
+            L += [f"      for (int p = tid; p < {B * RJ * RK}; p += nt) {{",
+                  f"        const int il = p / {RJ * RK}, "
+                  f"jl = (p / {RK}) % {RJ}, kl = p % {RK};",
+                  f"        const int gi = t * {B} + il, gj = j0 - {hj} + jl, "
+                  f"gk = k0 - {hk} + kl;",
+                  f"        r_{f}[(gi % {plan.depth[f] * B}) * {RJ * RK} + "
+                  f"p - il * {RJ * RK}] = ({_inb(mask, c, dims)}) ? g_{f}"
+                  f"[{_flat(mask, c, dims)}] : "
+                  f"{literal(0, program.field_dtype(f))};",
+                  "      }"]
+        L += ["    }", "    SF_SYNC();"]
+    for g, grp in enumerate(plan.groups):
+        live = plan.live(g)
+        if not live:
+            continue
+        nd, gset = plan.needs[g], set(grp)
+        L += [f"    {{  // group {g}: {' '.join(live)}",
+              f"      const int q = t - {plan.lag[g]};",
+              f"      if (q >= 0 && q < {n_panels}) {{"]
+        for s, off in temp_off[g].items():
+            ct = ctype(program.field_dtype(s))
+            L.append(f"        {ct}* const b_{s} = ({ct}*)(sf_smem + {off});")
+        for s in live:
+            R = plan.rows(g, s)
+            RJ, RK = plan.region(s)
+            hj, hk = plan.halo[s]
+            lo_s = nd[s][0]
+
+            def onchip(f, s=s, lo_s=lo_s):
+                if f not in gset and f not in plan.rings:
+                    return lambda o: None   # read from device memory
+                FJ, FK = plan.region(f)
+                dj = plan.halo[f][0] - plan.halo[s][0]
+                dk = plan.halo[f][1] - plan.halo[s][1]
+                if f in gset:
+                    dr = nd[f][0] - lo_s
+                    return lambda o: (f"b_{f}[(il + {dr + o[0]}) * "
+                                      f"{FJ * FK} + (jl + {dj + o[1]}) * "
+                                      f"{FK} + kl + {dk + o[2]}]")
+                n = plan.depth[f] * B
+                return lambda o: (f"r_{f}[sf_pmod(gi + {o[0]}, {n}) * "
+                                  f"{FJ * FK} + (jl + {dj + o[1]}) * {FK} "
+                                  f"+ kl + {dk + o[2]}]")
+
+            body = _stage_call(program, program.kernels[s], stage_fn[s],
+                               ("gi", "gj", "gk"), onchip, slots)
+            core = f"il >= {lo_s} && il < {lo_s + B}"
+            if s in temp_off[g]:
+                body.append(f"b_{s}[p] = r;")
+            if s in plan.rings:
+                body.append(f"if ({core}) r_{s}[(gi % {plan.depth[s] * B})"
+                            f" * {RJ * RK} + p - il * {RJ * RK}] = r;")
+            if s in program.outputs:
+                body.append(f"if ({core} && jl >= {hj} && jl < {hj + tj} && "
+                            f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
+                            f"gk < {K}) o_{s}[((long long)gi * {J} + gj) * "
+                            f"{K} + gk] = r;")
+            L += [f"        {{  // stage {s}: {R} x {RJ} x {RK}",
+                  f"          for (int p = tid; p < {R * RJ * RK}; "
+                  "p += nt) {",
+                  f"            const int il = p / {RJ * RK}, "
+                  f"jl = (p / {RK}) % {RJ}, kl = p % {RK};",
+                  f"            const int gi = q * {B} - {lo_s} + il, "
+                  f"gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;"]
+            L += ["            " + b for b in body]
+            L += ["          }", "          SF_SYNC();", "        }"]
+        L += ["      }", "    }"]
+    L += ["  }", "}"]
+    L += _entry_points(program, "sf_group", params, args,
+                       plan.grid(dims), smem, slots)
     return "\n".join(L)
 
 

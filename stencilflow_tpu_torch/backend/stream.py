@@ -76,10 +76,9 @@ from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      mxu_flops_per_cell, plan_all_stages)
 from .panel import ring_fields, tile_candidates
-from .stacked_io import (SM_COUNT, SMEM_PER_BLOCK, SMEM_PER_SM, THREADS,
-                         accesses_with_center, bc_select, check_scope,
-                         or_mask, resolve_device, run_kernel,
-                         spanned_arrays)
+from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
+                         check_scope, or_mask, resolve_device, run_kernel,
+                         spanned_arrays, tile_cost)
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only)
@@ -256,21 +255,6 @@ class StreamPlan:
 
 # -- planner -------------------------------------------------------------------
 
-def _tile_cost(n_blocks: int, smem: int, work: int) -> float:
-    """Planner cost of a tile: ``stacked_io.wave_cost`` with the blocks
-    resident on one SM capped by the blocks there are to spread
-    (ceil(n_blocks / 132)).  A grid of fewer blocks than the SMs' slots
-    leaves warps idle: on an H100 SXM (700 W), ``python -m
-    stencilflow_tpu_torch.sweep`` ran box-r2 256^3 x 8 at (64, 8), 128
-    blocks, in 3.61 ms and at (32, 8), 256 blocks, in 2.55 ms, which
-    plain wave_cost ranks the other way round."""
-    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024),
-                        -(-n_blocks // SM_COUNT)))
-    waves = math.ceil(n_blocks / (SM_COUNT * per_sm))
-    latency = max(1.0, 16 / (per_sm * THREADS // 32))
-    return waves * per_sm * work * latency
-
-
 def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 mxu_precision: str, builds, tile) -> StreamPlan:
     dims = program.dimensions
@@ -351,7 +335,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
         if smem > SMEM_PER_BLOCK:
             continue
         ntj, ntk = plan.grid()
-        cost = (_tile_cost(ntj * ntk, smem, plan.work()),
+        cost = (tile_cost(ntj * ntk, smem, plan.work()),
                 -cand[0] * cand[1])
         if best is None or cost < best[0]:
             best = (cost, cand)

@@ -7,7 +7,9 @@ the same flow, flags and verification (the numpy oracle at
 stream lowering has banded stages verifies at ``MXU_VERIFY_RTOL``, as the
 JAX package's driver does.  Not ported yet: the simulator cross-check,
 out-of-core chunking, the single-pass bf16 transforms and the TPU-only
-knobs (ring storage, spill).
+knobs (ring storage, spill).  ``backend="rows"`` streams a 2-D program's
+rows (``compile_chain_rows``, the auto lowering of the rotated program),
+as ``--backend rows`` does in the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from . import ir
-from .backend import compile_chain, compile_chain_best
+from .backend import (compile_chain, compile_chain_best,
+                      compile_chain_rows)
 from .backend.overlap import compile_chain_overlap
 from .backend.panel import compile_chain_panel
 from .backend.stream import compile_chain_stream
@@ -32,7 +35,8 @@ from .frontend.analysis import ChainAnalysis
 from .frontend.parser import parse_program
 from .interpreter import run_interpreter
 
-BACKENDS = ("auto", "stream", "panel", "overlap", "dense", "interpreter")
+BACKENDS = ("auto", "stream", "rows", "panel", "overlap", "dense",
+            "interpreter")
 
 
 class VerificationError(RuntimeError):
@@ -59,6 +63,9 @@ def _compile(program, analysis, backend: str, device, mxu, mxu_precision):
         return (compile_chain_stream(program, analysis, mxu=mxu,
                                      mxu_precision=mxu_precision,
                                      device=device), "stream")
+    if backend == "rows":
+        return compile_chain_rows(program, device=device, mxu=mxu,
+                                  mxu_precision=mxu_precision)
     if backend == "panel":
         return compile_chain_panel(program, analysis, device=device), "panel"
     if backend == "overlap":

@@ -13,9 +13,9 @@ get size-1 leading dims.  A field access stores a 3-long offset vector where
 ``None`` marks dimensions the field does not span (lower-dimensional inputs,
 or leading padded dims).
 
-Copied from ``stencilflow_tpu/ir.py`` with no change of meaning, less the
-expression-rewrite helpers of the canonicalization passes (not ported):
-the port cannot import the JAX package, whose ``__init__`` imports jax.
+Copied from ``stencilflow_tpu/ir.py`` with no change of meaning, less
+``rename_fields`` (no port module renames fields yet): the port cannot
+import the JAX package, whose ``__init__`` imports jax.
 """
 from __future__ import annotations
 
@@ -133,6 +133,30 @@ class Assign:
 
     def __repr__(self):
         return f"{self.lhs} = {self.rhs!r}"
+
+
+def rewrite_expr(expr: Expr, fn) -> Expr:
+    """Bottom-up expression rewrite: ``fn`` is applied to every node after
+    its children have been rewritten."""
+    if isinstance(expr, BinOp):
+        expr = BinOp(expr.op, rewrite_expr(expr.left, fn),
+                     rewrite_expr(expr.right, fn))
+    elif isinstance(expr, UnaryOp):
+        expr = UnaryOp(expr.op, rewrite_expr(expr.operand, fn))
+    elif isinstance(expr, Compare):
+        expr = Compare(expr.op, rewrite_expr(expr.left, fn),
+                       rewrite_expr(expr.right, fn))
+    elif isinstance(expr, BoolOp):
+        expr = BoolOp(expr.op, tuple(rewrite_expr(o, fn)
+                                     for o in expr.operands))
+    elif isinstance(expr, Select):
+        expr = Select(rewrite_expr(expr.cond, fn),
+                      rewrite_expr(expr.if_true, fn),
+                      rewrite_expr(expr.if_false, fn))
+    elif isinstance(expr, Call):
+        expr = Call(expr.fn, tuple(rewrite_expr(a, fn)
+                                   for a in expr.args))
+    return fn(expr)
 
 
 def walk(expr: Expr):

@@ -1,14 +1,16 @@
-"""Tile sweep of the stream kernel on the card.
+"""Tile sweep of the stream and group kernels on the card.
 
-    python -m stencilflow_tpu_torch.sweep            # box-r2 and cross-r2, 256^3 x 8
+    python -m stencilflow_tpu_torch.sweep            # every cell below
+    python -m stencilflow_tpu_torch.sweep jacobi2d   # named cells only
 
-Builds the stream kernel at every (tj, tk) tile whose shared memory fits
-(one nvcc per tile, all started together), times each on the same random
-inputs with CUDA events (one warm-up, then 2 launches), and prints the
-tiles fastest first beside the planner's pick, its modelled cost inputs
-and the card's ``nvidia-smi`` name and power limit.  It is how the stream
-planner's tile cost (``stream._tile_cost``) was checked; it needs a CUDA
-device.
+Cells: box-r2 and cross-r2 256^3 x 8 (stream), jacobi2d and hotspot2d
+8192^2 x 8 rotated to rows (group, g = 8, B = 64).  Builds the kernel at
+every (tj, tk) tile whose shared memory fits (one nvcc per tile, all
+started together), times each on the same random inputs with CUDA events
+(one warm-up, then 2 launches), and prints the tiles fastest first beside
+the planner's pick, its modelled cost inputs and the card's
+``nvidia-smi`` name and power limit.  It is how the planners' tile cost
+(``stacked_io.tile_cost``) was checked; it needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ import time
 import torch
 
 from . import ChainAnalysis, load_input_arrays, parse_program
-from .backend import build, panel, stream
+from .backend import (ROWS_GROUP, ROWS_PANEL, build, codegen, group,
+                      panel, stream)
 from .backend.stacked_io import spanned_arrays
+from .frontend.canonicalize import rotate_2d_to_rows
 from .synthesize import synthesize_stencil
 
 
@@ -38,8 +42,8 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def sweep(program, reps: int = 2):
-    """[(ms, plan)] for every tile that fits, fastest first, and the
-    planner's own plan."""
+    """[(ms, plan)] of the stream kernel for every tile that fits, fastest
+    first, and the planner's own plan."""
     analysis = ChainAnalysis.run(program)
     pick = stream.plan_stream(program, analysis)
     plans = []
@@ -57,6 +61,43 @@ def sweep(program, reps: int = 2):
     return sorted(rows, key=lambda r: r[0]), pick
 
 
+def sweep_group(program, reps: int = 2):
+    """``sweep`` for the group kernel at the rows route's g and B."""
+    analysis = ChainAnalysis.run(program)
+    pick = group.plan_group(program, analysis, ROWS_PANEL, ROWS_GROUP)
+    plans = []
+    for tile in panel.tile_candidates(program.dimensions):
+        try:
+            plans.append(group.plan_group(program, analysis, ROWS_PANEL,
+                                          ROWS_GROUP, tile))
+        except ValueError:
+            continue    # shared memory
+    libs = build.load_libraries([(codegen.group_source(program, analysis, p),
+                                  "group") for p in plans])
+    arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
+                            device="cuda")
+    rows = [(_time_ms(lambda: group.run_group(program, analysis, p, arrays,
+                                              lib), reps), p)
+            for p, lib in zip(plans, libs)]
+    return sorted(rows, key=lambda r: r[0]), pick
+
+
+def _cells():
+    """name: (program, sweep function)."""
+    def synth(shape, dims, **kw):
+        return synthesize_stencil(num_stages=8, dimensions=dims, shape=shape,
+                                  seed_data="random:0.0,1.0", **kw)
+    cells = {}
+    for shape in ("box", "cross"):
+        cells[shape] = (parse_program(synth(shape, (256,) * 3, extent=2),
+                                      name=f"{shape}3d_256_8itr"), sweep)
+    for name, shape in (("jacobi2d", "diffusion"), ("hotspot2d", "hotspot")):
+        cells[name] = (rotate_2d_to_rows(parse_program(
+            synth(shape, (8192, 8192)), name=f"{name}_8192_8itr")),
+            sweep_group)
+    return cells
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("error: the sweep needs a CUDA device", file=sys.stderr)
@@ -64,20 +105,30 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    for shape in ("box", "cross"):
-        program = parse_program(synthesize_stencil(
-            num_stages=8, dimensions=(256,) * 3, shape=shape, extent=2,
-            seed_data="random:0.0,1.0"), name=f"{shape}3d_256_8itr")
+    cells = _cells()
+    names = sys.argv[1:] or list(cells)
+    unknown = [n for n in names if n not in cells]
+    if unknown:
+        print(f"error: unknown cells {unknown} (choose from {list(cells)})",
+              file=sys.stderr)
+        return 1
+    for name in names:
+        program, fn = cells[name]
         t0 = time.perf_counter()
-        rows, pick = sweep(program)
+        rows, pick = fn(program)
         print(f"{program.name}: {len(rows)} tiles fit, built and timed in "
               f"{time.perf_counter() - t0:.1f}s; planner pick {pick.tile} "
               f"| {smi}", flush=True)
         for ms, p in rows:
             mark = " <- planner" if p.tile == pick.tile else ""
-            print(f"  tile {p.tile}: {ms:.3f} ms, smem {p.smem_bytes()} B, "
-                  f"grid {p.grid()}, modelled work {p.work()}{mark}",
-                  flush=True)
+            if fn is sweep:
+                smem, grid, work = p.smem_bytes(), p.grid(), p.work()
+            else:
+                smem, grid, work = (p.smem_bytes(program),
+                                    p.grid(program.dimensions),
+                                    p.work(program))
+            print(f"  tile {p.tile}: {ms:.3f} ms, smem {smem} B, grid "
+                  f"{grid}, modelled work {work}{mark}", flush=True)
         del rows
         torch.cuda.empty_cache()
     return 0

@@ -22,10 +22,11 @@ import pytest
 import torch
 
 import stencilflow_tpu_torch as port
-from stencilflow_tpu_torch.backend import overlap, panel, stream
+from stencilflow_tpu_torch.backend import group, overlap, panel, stream
 from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
 from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
 from stencilflow_tpu_torch.driver import run_program
+from stencilflow_tpu_torch.frontend.canonicalize import rotate_2d_to_rows
 from stencilflow_tpu_torch.synthesize import random_program, synthesize_stencil
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -146,3 +147,56 @@ def test_run_program_stream_on_card(cuda):
     res = run_program(p, device=cuda, compare_to_reference=True,
                       save_results=False, log_level=0)
     assert res.backend == "stream" and res.verified_against_reference
+
+
+def _jacobi2d(bc="constant", shape="diffusion", iters=8):
+    return synthesize_stencil(num_stages=iters, dimensions=(256, 192),
+                              shape=shape, boundary=bc,
+                              seed_data="random:0,1")
+
+
+# name: (spec, rotate to rows, B, g)
+GROUP_PROGRAMS = {
+    "rows_jacobi2d_constant": (lambda: _jacobi2d(), True, 64, 8),
+    "rows_jacobi2d_copy": (lambda: _jacobi2d("copy"), True, 64, 8),
+    "rows_jacobi2d_shrink": (lambda: _jacobi2d("shrink"), True, 64, 8),
+    "rows_hotspot2d": (lambda: _jacobi2d(shape="hotspot"), True, 64, 8),
+    "fuzz_f64_shrink": (lambda: random_program(
+        np.random.default_rng(5), ndim=3, data_type="float64",
+        bc_kinds=("constant", "copy", "shrink")), False, 0, 2),
+    "fuzz122": (lambda: random_program(np.random.default_rng(122)), False,
+                0, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GROUP_PROGRAMS))
+def test_group_kernel_matches_plain_on_card(name, cuda):
+    make, rows, B, g = GROUP_PROGRAMS[name]
+    p0 = port.parse_program(make())
+    p = rotate_2d_to_rows(p0) if rows else p0
+    an = port.ChainAnalysis.run(p)
+    plan = group.plan_group(p, an, B, g)
+    arrays = spanned_arrays(p, port.load_input_arrays(p0, seed=4),
+                            device=cuda)
+    before = group.launches
+    got = group.run_group(p, an, plan, arrays)
+    torch.cuda.synchronize()
+    assert group.launches == before + 1
+    want = group.group_plain(p, an, plan, arrays)
+    for o in want:
+        g_, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+        assert g_.dtype == w.dtype
+        np.testing.assert_array_equal(g_, w)
+
+
+@pytest.mark.cuda
+def test_run_program_rows_group_on_card(cuda):
+    """A deep 2-D chain routes to rows+group_g8 and equals the oracle."""
+    p = port.parse_program(_jacobi2d())
+    res = run_program(p, device=cuda, compare_to_reference=True,
+                      save_results=False, log_level=0)
+    assert res.backend == "rows+group_g8" and res.verified_against_reference
+    oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
+    np.testing.assert_array_equal(res.outputs[p.outputs[0]],
+                                  oracle[p.outputs[0]])

@@ -155,3 +155,11 @@ def test_import_scan_covers_the_stream_slice():
     for mod in ("linear", "compose", "stream", "codegen", "build"):
         assert os.path.join("stencilflow_tpu_torch", "backend",
                             mod + ".py") in scanned
+
+
+def test_import_scan_covers_the_rows_slice():
+    """The scan reaches the group lowering and the rows rotation."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("backend/group.py", "backend/__init__.py",
+                "frontend/canonicalize.py"):
+        assert os.path.join("stencilflow_tpu_torch", mod) in scanned

@@ -126,6 +126,63 @@ def test_backend_choice_on_card(shape, size, iters, expected):
     assert choose_backend(p, an, "cpu") == "dense"
 
 
+@pytest.mark.parametrize("shape,iters,expected", [
+    ("diffusion", 8, "rows+group_g8"),   # bench.py's jacobi2d workload
+    ("hotspot", 8, "rows+group_g8"),
+    ("diffusion", 2, "overlap"),         # < 4 stages: no rows+group rung
+    # group_g8 refuses the 10-panel coeff ring; the 2-D rescue rotates
+    # to rows and the panel planner accepts the rotated chain
+    ("hdiff", 16, "rows+panel"),
+])
+def test_backend_choice_on_card_2d(shape, iters, expected):
+    p = port.parse_program(synthesize_stencil(
+        num_stages=iters, dimensions=(8192, 8192), shape=shape))
+    an = port.ChainAnalysis.run(p)
+    assert choose_backend(p, an, "cuda") == expected
+    assert choose_backend(p, an, "cpu") == "dense"
+
+
+def test_ladder_order(monkeypatch):
+    """The reference's order, pinned by refusing one rung at a time:
+    rows+group, overlap / panel, the per-cell stream kernel, the 2-D
+    rescue, dense."""
+    import stencilflow_tpu_torch.backend as be
+    p = port.parse_program(synthesize_stencil(
+        num_stages=8, dimensions=(8192, 8192), shape="diffusion"))
+    an = port.ChainAnalysis.run(p)
+
+    def refuse(*a, **k):
+        raise ValueError("refused")
+
+    def not_2d(real, refused):
+        def fn(program, *a, **k):
+            if len(program.raw_dimensions) == 2:
+                return refused()
+            return real(program, *a, **k)
+        return fn
+
+    assert choose_backend(p, an, "cuda") == "rows+group_g8"
+    monkeypatch.setattr(be, "plan_group", refuse)
+    assert choose_backend(p, an, "cuda") == "overlap"
+    monkeypatch.setattr(be, "choose_stacked",
+                        not_2d(be.choose_stacked, lambda: None))
+    got = be._route(p, an, "cuda")
+    assert got[0] == "stream" and got[1].mxu_plans == {}
+    monkeypatch.setattr(be, "plan_stream", not_2d(be.plan_stream, refuse))
+    assert choose_backend(p, an, "cuda") == "rows+panel"
+    monkeypatch.setattr(be, "choose_stacked", lambda *a: None)
+    assert choose_backend(p, an, "cuda") == "rows+stream"
+    monkeypatch.setattr(be, "plan_stream", refuse)
+    assert choose_backend(p, an, "cuda") == "dense"
+    # a 3-D chain that overlap and panel refuse takes the per-cell
+    # stream kernel before dense
+    monkeypatch.undo()
+    monkeypatch.setattr(be, "choose_stacked", lambda *a: None)
+    q = port.parse_program(synthesize_stencil(
+        num_stages=8, dimensions=(64, 64, 64), shape="diffusion"))
+    assert choose_backend(q, port.ChainAnalysis.run(q), "cuda") == "stream"
+
+
 def test_verification_failure_raises(monkeypatch):
     import stencilflow_tpu_torch.driver as drv
     spec = SLICE["jacobi3d"]()

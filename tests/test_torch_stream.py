@@ -190,7 +190,13 @@ def _gxx():
 def run_host(plan, inputs, tmp_path):
     """Compile ``stream_source`` with g++ and run every block with one
     thread (``sf_host_launch``)."""
-    src = stream.stream_source(plan)
+    return run_source(stream.stream_source(plan), plan.program, inputs,
+                      [a for _k, a in plan.kernel_pool()], tmp_path)
+
+
+def run_source(src, p, inputs, extra, tmp_path):
+    """Compile a generated source with an ``sf_host_launch`` with g++ and
+    run it on ``inputs`` (then the float32 tables ``extra``)."""
     tag = hashlib.sha256(src.encode()).hexdigest()[:16]
     cpp, so = tmp_path / f"{tag}.cpp", tmp_path / f"{tag}.so"
     cpp.write_text(src)
@@ -200,11 +206,9 @@ def run_host(plan, inputs, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     lib = ctypes.CDLL(str(so))
     lib.sf_host_launch.argtypes = [ctypes.c_void_p] * 3
-    p = plan.program
     arrays = [np.ascontiguousarray(inputs[n])
               for n, s in p.inputs.items() if not s.is_scalar]
-    arrays += [np.ascontiguousarray(a, np.float32)
-               for _k, a in plan.kernel_pool()]
+    arrays += [np.ascontiguousarray(a, np.float32) for a in extra]
     outs = [np.zeros(p.dimensions, p.kernels[o].dtype) for o in p.outputs]
     ip = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
     op = (ctypes.c_void_p * len(outs))(*[a.ctypes.data for a in outs])
