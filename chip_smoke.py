@@ -24,7 +24,11 @@ Phases, one line each (any failure raises and exits non-zero):
    (constant / copy / shrink BCs), hotspot2d 256 x 192 x 8 (both at the
    main path's g = 8, B = 64), the 2-D fuzz chain through rows, a 3-D
    jacobi with i-offsets of 3 at g = 2, B = 2, and the 3-D fuzz chain with
-   a scalar and lower-rank inputs;
+   a scalar and lower-rank inputs; the local chunk kernel K4 against its
+   plain version, chunk by chunk, on jacobi3d 64^3 x 3 at 4 chunks
+   (constant / copy / shrink BCs), the hdiff DAG at 4 chunks (i-halo 0),
+   a box chain of extent 2 banded per stage at 2 chunks and the 3-D fuzz
+   chain (bit-exact per cell, MXU_VERIFY_RTOL banded);
 4. the ``run`` main path at full size through ``run_program(...,
    device="cuda")``: jacobi3d 512^3 x 8 (panel), jacobi3d 512^3 x 2
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
@@ -41,7 +45,17 @@ Phases, one line each (any failure raises and exits non-zero):
    route before the rows path) and forced rows+panel; after the main
    path, one ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained
    (TF32 off), is timed for the linear chains as a library yardstick the
-   port never calls.
+   port never calls;
+5. the out-of-core path (``run --host-chunks N``) through
+   ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
+   8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
+   the in-core route (panel) on the same inputs, K4 launched N times per
+   call (counts reset just before, read just after), the device memory
+   peak (jacobi: below a third of the in-core input and output), the time
+   per call with transfers, the bytes over the host link and the link
+   bound from the pinned copy rates measured with 1 GiB ``copy_``s; K4
+   alone on one jacobi chunk beside its plain version and 8 chained
+   ``F.conv3d`` over the widened chunk.
 
 The last lines are the card line, a JSON object of the kernels (launches
 from phase 4; error, kernel, plain-version and library times measured in
@@ -210,12 +224,12 @@ def _bound(program, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _conv_chain_ms(program, radius: int) -> float:
+def _conv_chain_ms(program, radius: int, shape=None) -> float:
     """One ``F.conv3d`` (``F.conv2d`` for a 2-D program) per stage,
-    chained, computing the same constant-0 linear chain with TF32 off: the
-    library yardstick (timed only; the port never calls it).  The stages
-    of these chains are identical, so the first stage's coefficients give
-    the filter."""
+    chained, computing the same constant-0 linear chain with TF32 off over
+    the program's domain (or ``shape``): the library yardstick (timed
+    only; the port never calls it).  The stages of these chains are
+    identical, so the first stage's coefficients give the filter."""
     import torch
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False
@@ -228,7 +242,8 @@ def _conv_chain_ms(program, radius: int) -> float:
             w[(0, 0) + tuple((o or 0) + radius
                              for o in key[1][3 - nd:])] = c
     weight = torch.as_tensor(w, device="cuda")
-    x = torch.rand((1, 1) + tuple(program.raw_dimensions), device="cuda",
+    x = torch.rand((1, 1) + tuple(shape or program.raw_dimensions),
+                   device="cuda",
                    generator=torch.Generator("cuda").manual_seed(0))
     conv = F.conv3d if nd == 3 else F.conv2d
 
@@ -238,6 +253,55 @@ def _conv_chain_ms(program, radius: int) -> float:
             y = conv(y, weight, padding=radius)
         return y
     return _time_ms(run, 3)
+
+
+def _link_rates():
+    """(host-to-device, device-to-host) bytes/s of 1 GiB ``copy_``s
+    between pinned host memory and the card."""
+    import torch
+    n = 1 << 28
+    host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.float32, device="cuda")
+    up = _time_ms(lambda: dev.copy_(host, non_blocking=True), 3)
+    down = _time_ms(lambda: host.copy_(dev, non_blocking=True), 3)
+    del host, dev
+    torch.cuda.empty_cache()
+    return 4 * n / up * 1e3, 4 * n / down * 1e3
+
+
+def _chunk_slabs(program, inputs, lo: int, Ii: int):
+    """One chunk's inputs on the card: i-spanning ones as host slabs of
+    ``Ii`` planes from global plane ``lo`` (zero outside the domain)."""
+    import torch
+    from stencilflow_tpu_torch.outofcore import _host_slab
+    I = program.dimensions[0]
+    slabs = {}
+    for n, spec in program.inputs.items():
+        a = np.asarray(inputs[n])
+        if spec.is_scalar:
+            slabs[n] = torch.as_tensor(a)
+        elif spec.dim_mask[0]:
+            slabs[n] = _host_slab(a, lo, lo + Ii, I).cuda()
+        else:
+            slabs[n] = torch.as_tensor(a).cuda()
+    return slabs
+
+
+def _local_plan(program, chunks: int):
+    """K4's plan of ``program`` at ``chunks`` chunks, as the out-of-core
+    path chooses it (``plan_local_stream``)."""
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    from stencilflow_tpu_torch.parallel.domain import (DomainDecomposition,
+                                                       plan_local_stream)
+    an = sft.ChainAnalysis.run(program)
+    I, J, K = program.dimensions
+    h = chain_halo(an)[0] if chunks > 1 else 0
+    got = plan_local_stream(program, an, DomainDecomposition(
+        program, None, (None, None, None), (h, 0, 0), (I // chunks, J, K)))
+    if got is None:
+        raise RuntimeError(f"{program.name}: K4's planner refused")
+    return got[0]
 
 
 def _wide_i_spec(dims, stages: int):
@@ -257,6 +321,142 @@ def _wide_i_spec(dims, stages: int):
                              "data_type": "float32"}},
             "outputs": [prev], "dimensions": list(dims),
             "program": program}
+
+
+def _fuzz_chunked(cases):
+    """(label, program, chunks): the 3-D fuzz chain of phase 3 drawn again
+    at (48, 20, 24), with the most chunks (of 4, 3, 2) its i-halo allows."""
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    from stencilflow_tpu_torch.synthesize import random_program
+    label = next(lb for lb, _p in cases
+                 if lb.rsplit("-", 1)[0] == "fuzz-f32")
+    spec = random_program(np.random.default_rng(int(label.rsplit("-", 1)[1])),
+                          ndim=3)
+    spec["dimensions"] = [48, 20, 24]
+    p = sft.parse_program(spec, name="fuzz_f32_chunked")
+    h = chain_halo(sft.ChainAnalysis.run(p))[0]
+    chunks = next(c for c in (4, 3, 2) if h < 48 // c)
+    return f"{label.rsplit('-', 1)[0]}-48", p, chunks
+
+
+def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
+               run_program):
+    """Phase 5: K4 alone on one jacobi chunk, then each out-of-core cell
+    against the in-core route.  Returns K4's entry of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch import outofcore
+    up_rate, down_rate = _link_rates()
+    print(f"link: pinned host-to-device {up_rate / 1e9:.2f} GB/s, "
+          f"device-to-host {down_rate / 1e9:.2f} GB/s (1 GiB copy_) | {smi}",
+          flush=True)
+
+    # K4 alone at the main path's shapes: the middle chunk of jacobi 1024^3
+    p, chunks = oc_cells[0]
+    plan = oc_plans[p.name]
+    lib = lib_of[st.stream_source(plan)]
+    _, J, K = p.dimensions
+    c = chunks // 2
+    lo = c * plan.block - plan.halo_i
+    inputs = sft.load_input_arrays(p, seed=0)
+    slabs = _chunk_slabs(p, inputs, lo, plan.extent())
+    del inputs
+    got = st.run_local_stream(plan, lo, slabs, lib)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    want = st.local_stream_plain(plan, lo, slabs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
+                       want[p.outputs[0]].cpu().numpy(), 0.0)
+    del got, want
+    ms = _time_ms(lambda: st.run_local_stream(plan, lo, slabs, lib), 10)
+    chunk_bytes = sum(t.numel() * t.element_size() for n, t in slabs.items()
+                      if not p.inputs[n].is_scalar)
+    chunk_bytes += sum(plan.block * J * K * np.dtype(p.kernels[o].dtype)
+                       .itemsize for o in p.outputs)
+    t_bytes = chunk_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = _ops_per_cell(p) * plan.block * J * K / F32_FLOPS_PER_S * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    del slabs
+    torch.cuda.empty_cache()
+    lib_ms = _conv_chain_ms(p, 1, shape=(plan.extent(), J, K))
+    torch.cuda.empty_cache()
+    print(f"kernel: local_stream {p.name} chunk {c} of {chunks} "
+          f"({plan.extent()} planes in, {plan.block} out) tile {plan.tile} "
+          f"smem {plan.smem_bytes()} B: {ms:.3f} ms per chunk, plain "
+          f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
+          f" {len(p.kernels)} chained F.conv3d over the widened chunk "
+          f"{lib_ms:.3f} ms, max_abs_err {err:.3g} "
+          f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
+    if not ok:
+        raise RuntimeError("local stream kernel disagrees with its plain "
+                           f"version on {p.name}")
+    entry = {"name": "local_stream", "route": "cuda",
+             "source": "stencilflow_tpu_torch/backend/codegen.py",
+             "replaces": "stencilflow_tpu/backend/stream.py:1735",
+             "launches": 0, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}
+
+    reps = 2
+    for p, chunks in oc_cells:
+        res = run_program(p, device="cuda", repetitions=reps,
+                          save_results=False, log_level=0)
+        if res.backend != "panel":
+            raise RuntimeError(f"{p.name}: in-core backend {res.backend}, "
+                               "expected panel")
+        in_core, in_ms = res.outputs, res.wall_time_s * 1e3
+        del res
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pn.launches = ov.launches = st.launches = gp.launches = 0
+        st.local_launches = 0
+        oc = run_program(p, device="cuda", host_chunks=chunks,
+                         repetitions=reps, save_results=False, log_level=0)
+        n = st.local_launches
+        other = pn.launches + ov.launches + st.launches + gp.launches
+        peak = torch.cuda.max_memory_allocated()
+        stats = oc.host_staging
+        label = f"outofcore[stream x{chunks} chunks]"
+        if oc.backend != label:
+            raise RuntimeError(f"{p.name}: backend {oc.backend}, expected "
+                               f"{label}")
+        if n != chunks * (reps + 1) or other:
+            raise RuntimeError(f"{p.name}: K4 launched {n} times over "
+                               f"{reps + 1} calls of {chunks} chunks "
+                               f"(other kernels {other})")
+        for o in p.outputs:
+            if not np.array_equal(oc.outputs[o], in_core[o]):
+                raise RuntimeError(f"{p.name}: out-of-core output {o} "
+                                   "differs from the in-core route")
+        up, down = outofcore.link_bytes(p, outofcore.ChunkPlan(
+            chunks, oc_plans[p.name].block, oc_plans[p.name].halo_i,
+            "stream", {}))
+        duplex = max(up / up_rate, down / down_rate) * 1e3
+        serial = (up / up_rate + down / down_rate) * 1e3
+        io = _io_bytes(p)
+        cells = p.total_elements
+        print(f"outofcore: {p.name} {oc.backend} {oc.wall_time_s * 1e3:.3f} "
+              f"ms per call (CUDA events over {reps} calls, transfers "
+              f"included; {cells / oc.wall_time_s / 1e9:.2f} GCell/s) | "
+              f"in-core panel {in_ms:.3f} ms (transfers excluded) | equal "
+              f"to in-core | K4 launches {n} over {reps + 1} calls | link "
+              f"{up / 2 ** 30:.3f} GiB up + {down / 2 ** 30:.3f} GiB down, "
+              f"bound {duplex:.3f} ms both ways at once, {serial:.3f} ms "
+              f"one after the other | host slab fill "
+              f"{stats['fill_s'] * 1e3:.1f} ms, drain "
+              f"{stats['drain_s'] * 1e3:.1f} ms (last call) | device peak "
+              f"{peak / 2 ** 30:.3f} GiB, in-core in+out "
+              f"{io / 2 ** 30:.3f} GiB | {smi}", flush=True)
+        if p is oc_cells[0][0] and peak >= io / 3:
+            raise RuntimeError(f"{p.name}: device peak {peak} B is not "
+                               f"below a third of {io} B")
+        entry["launches"] += n
+        del oc, in_core
+        torch.cuda.empty_cache()
+    return entry
 
 
 def main() -> int:
@@ -345,6 +545,24 @@ def main() -> int:
         ("jacobi3d-i3", sft.parse_program(_wide_i_spec((24, 40, 72), 4),
                                           name="jacobi3d_i3"), 2, 2),
         ("fuzz-f32", fuzz["fuzz-f32"], 0, 2)]
+    # K4, the local chunk kernel (phase 3): (label, program, chunks)
+    local_cases = [(f"jacobi3d-64-{bc}", sft.parse_program(
+        synthesize_stencil(num_stages=3, dimensions=(64,) * 3,
+                           shape="diffusion", boundary=bc,
+                           seed_data="random:0.0,1.0"),
+        name=f"jacobi3d_64_3itr_{bc}"), 4)
+        for bc in ("constant", "copy", "shrink")]
+    local_cases += [
+        ("hdiff-dag", sft.parse_program(synthesize_stencil(
+            num_stages=2, dimensions=(8, 12, 16), shape="hdiff"),
+            name="hdiff_dag"), 4),
+        ("box-r2-banded", synth("box", small, 2, 2), 2),
+        _fuzz_chunked(cases)]
+    # the out-of-core cells (phase 5): (program, chunks)
+    jacobi1024 = sft.parse_program(synthesize_stencil(
+        num_stages=8, dimensions=(1024,) * 3, shape="diffusion",
+        seed_data="random:0.0,1.0"), name="jacobi3d_1024_8itr")
+    oc_cells = [(jacobi1024, 8), (synth("hotspot", 512, 8), 4)]
     jacobi2d = synth2d("diffusion", (8192, 8192), 8)
     hotspot2d = synth2d("hotspot", (8192, 8192), 8)
     hdiff2d = synth2d("hdiff", (8192, 8192), 16)
@@ -416,6 +634,20 @@ def main() -> int:
         pplan = pn.PanelPlan.build(ran)
         sources.append((codegen.panel_source(rot, ran, pplan), "panel"))
         forced2d[p.name] = (an, oplan, pplan)
+    # K4: phase 3's chunk plans, then the out-of-core cells' chunk plans
+    # and their in-core (panel) plans
+    local_plans = []
+    for label, p, chunks in local_cases:
+        plan = _local_plan(p, chunks)
+        local_plans.append((label, p, chunks, plan))
+        sources.append((st.stream_source(plan), "local_stream"))
+    oc_plans = {}
+    for p, chunks in oc_cells:
+        oc_plans[p.name] = _local_plan(p, chunks)
+        sources.append((st.stream_source(oc_plans[p.name]), "local_stream"))
+        an = sft.ChainAnalysis.run(p)
+        sources.append((codegen.panel_source(p, an, pn.PanelPlan.build(an)),
+                        "panel"))
     libs = build.load_libraries(sources)
     lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
     slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
@@ -487,6 +719,44 @@ def main() -> int:
             if not ok or n != 1:
                 raise RuntimeError(f"group kernel disagrees with its plain "
                                    f"version on {label}")
+
+    for label, p, chunks, plan in local_plans:
+        lib = lib_of[st.stream_source(plan)]
+        inputs = sft.load_input_arrays(p, seed=7)
+        banded = bool(plan.mxu_plans)
+        rtol = MXU_VERIFY_RTOL if banded else (
+            VERIFY_RTOL if _has_transcendental(p) else 0.0)
+        if label == "box-r2-banded" and sorted(plan.mxu_plans) != sorted(
+                p.kernels):
+            raise RuntimeError(f"{label}: not banded per stage "
+                               f"({sorted(plan.mxu_plans)})")
+        worst, launched = 0.0, 0
+        for c in range(chunks):
+            lo = c * plan.block - plan.halo_i
+            slabs = _chunk_slabs(p, inputs, lo, plan.extent())
+            before = st.local_launches
+            got = st.run_local_stream(plan, lo, slabs, lib)
+            torch.cuda.synchronize()
+            launched += st.local_launches - before
+            want = st.local_stream_plain(plan, lo, slabs)
+            for o in p.outputs:
+                g = got[o].cpu().numpy()
+                ok, err = _compare(g, want[o].cpu().numpy(), rtol)
+                if banded:
+                    ok = ok and bool(np.isfinite(g).all())
+                worst = max(worst, err)
+                if not ok:
+                    raise RuntimeError(f"local stream kernel disagrees with "
+                                       f"its plain version on {label}, "
+                                       f"chunk {c} (max abs diff {err:.3g})")
+        print(f"compare: local   {label:28s} chunks {chunks} Ic "
+              f"{plan.block} h {plan.halo_i} tile {plan.tile} banded "
+              f"{sorted(plan.mxu_plans)} max_abs_err {worst:.3g} launches "
+              f"{launched} OK ({'MXU_VERIFY_RTOL' if banded else 'rtol %g' % rtol})",
+              flush=True)
+        if launched != chunks:
+            raise RuntimeError(f"local stream kernel launched {launched} "
+                               f"times over {chunks} chunks of {label}")
 
     # -- 4. the main path at full size ---------------------------------------
     # kernel vs plain version at the main path's shapes (counted out)
@@ -642,6 +912,7 @@ def main() -> int:
     pn.launches = 0
     ov.launches = 0
     st.launches = 0
+    st.local_launches = 0
     gp.launches = 0
     for p, want_backend in mains:
         oracle = max(p.dimensions) <= 256 or p is jacobi2d or p is hotspot2d
@@ -691,6 +962,13 @@ def main() -> int:
     report["overlap"]["launches"] = ov.launches
     report["stream"]["launches"] = st.launches
     report["group"]["launches"] = gp.launches
+    if st.local_launches:
+        raise RuntimeError("the in-core main path launched the local "
+                           "stream kernel")
+
+    # -- 5. the out-of-core path ---------------------------------------------
+    report["local_stream"] = _outofcore(sft, st, pn, ov, gp, oc_cells,
+                                        oc_plans, lib_of, smi, run_program)
     for name, entry in report.items():
         if entry["launches"] < 1:
             raise RuntimeError(f"the main path never launched {name}")

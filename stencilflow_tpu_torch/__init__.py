@@ -9,7 +9,9 @@ kernel (backend/stream.py) for wide affine chains, the group streamer
 (backend/group.py) for deep 2-D chains rotated to rows, the overlap
 streamer (backend/overlap.py) for shallow chains and the panel streamer
 (backend/panel.py) for deep ones, with the whole-domain torch evaluator
-(backend/dense.py) as the fallback and the CPU path.
+(backend/dense.py) as the fallback and the CPU path.  Out-of-core runs
+(outofcore.py, ``run --host-chunks N``) stream host i-chunks through the
+stream kernel's local mode (K4).
 """
 
 __version__ = "0.1.0"

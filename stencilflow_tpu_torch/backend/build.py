@@ -15,7 +15,10 @@ The C entry point is ``int sf_launch(const void* const* inputs,
 void* const* outputs, const unsigned char* scalars, void* stream)``:
 array-input and output device pointers in program order, the scalar
 inputs packed into 8-byte slots (``scalar_blob``), and the CUDA stream.
-It returns ``cudaGetLastError()`` after the launch.
+It returns ``cudaGetLastError()`` after the launch.  The local stream
+kernel (K4) has ``int sf_local_launch(inputs, outputs, scalars, int
+origin_i, stream)`` instead: the chunk's global origin is a launch
+argument, so one build serves every chunk.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -82,8 +85,12 @@ def load_library(source: str, name: str) -> ctypes.CDLL:
             os.replace(tmp_so, so_path)
         build_log.append((name, time.perf_counter() - t0))
     lib = ctypes.CDLL(so_path)
-    lib.sf_launch.argtypes = [ctypes.c_void_p] * 4
-    lib.sf_launch.restype = ctypes.c_int
+    vp = ctypes.c_void_p
+    for entry, args in (("sf_launch", [vp] * 4),
+                        ("sf_local_launch", [vp] * 3 + [ctypes.c_int, vp])):
+        if hasattr(lib, entry):
+            getattr(lib, entry).argtypes = args
+            getattr(lib, entry).restype = ctypes.c_int
     _loaded[digest] = lib
     return lib
 
@@ -114,17 +121,25 @@ def _ptrs(tensors) -> ctypes.Array:
 
 
 def launch(lib: ctypes.CDLL, program: ir.Program, inputs: Dict[str, object],
-           arrays: List[torch.Tensor], outputs: List[torch.Tensor]) -> None:
+           arrays: List[torch.Tensor], outputs: List[torch.Tensor],
+           origin_i: Optional[int] = None) -> None:
     """Launch ``lib``'s kernel on the current stream; raise on a refused
     launch.  ``arrays``/``outputs`` are checked, contiguous CUDA tensors in
-    program order."""
+    program order; ``origin_i`` goes to a local kernel's
+    ``sf_local_launch``."""
     blob = scalar_blob(program, inputs)
     device = outputs[0].device
     stream = torch.cuda.current_stream(device).cuda_stream
     in_ptrs, out_ptrs = _ptrs(arrays), _ptrs(outputs)
     with torch.cuda.device(device):
-        rc = lib.sf_launch(ctypes.addressof(in_ptrs),
-                           ctypes.addressof(out_ptrs),
-                           blob.ctypes.data, stream)
+        if origin_i is None:
+            rc = lib.sf_launch(ctypes.addressof(in_ptrs),
+                               ctypes.addressof(out_ptrs),
+                               blob.ctypes.data, stream)
+        else:
+            rc = lib.sf_local_launch(ctypes.addressof(in_ptrs),
+                                     ctypes.addressof(out_ptrs),
+                                     blob.ctypes.data, int(origin_i),
+                                     stream)
     if rc != 0:
         raise RuntimeError(f"kernel launch failed: CUDA error {rc}")

@@ -306,14 +306,18 @@ def _inb(dim_mask, coords, dims) -> str:
 
 def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
               offsets: ir.Offsets, pos: Tuple[str, str, str],
-              onchip, scalar_slot: Dict[str, int]) -> str:
+              onchip, scalar_slot: Dict[str, int], at_pos=None,
+              at_dims=None) -> str:
     """C expression reading ``field`` at ``offsets`` from the cell whose
     global coords are ``pos``, boundary condition applied.  ``onchip(o)``
     gives the shared-memory lvalue of an on-chip field at offset vector
-    ``o`` (or None: read the global array ``g_<field>``)."""
+    ``o`` (or None: read the global array ``g_<field>``, whose cell is at
+    ``at_pos`` in an array spanning ``at_dims`` — ``pos`` and the
+    program's dimensions unless a chunk's local slab is read)."""
     if field in program.inputs and program.inputs[field].is_scalar:
         return f"sc.x{scalar_slot[field]}"
     dims = program.dimensions
+    at_pos, at_dims = at_pos or pos, at_dims or dims
     dt = np.dtype(program.field_dtype(field))
     mask = program.field_dim_mask(field)
     offs = [o or 0 for o in offsets]
@@ -324,9 +328,9 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
         lv = onchip(o)
         if lv is not None:
             return lv
-        c = [f"({pos[d]} + {o[d]})" for d in range(3)]
-        return (f"(({_inb(mask, c, dims)}) ? g_{field}"
-                f"[{_flat(mask, c, dims)}] : {literal(0, dt)})")
+        c = [f"({at_pos[d]} + {o[d]})" for d in range(3)]
+        return (f"(({_inb(mask, c, at_dims)}) ? g_{field}"
+                f"[{_flat(mask, c, at_dims)}] : {literal(0, dt)})")
 
     val = at(offs)
     if not terms:
@@ -338,10 +342,12 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     return f"(({m}) ? {literal(fill_value(bc, dt), dt)} : {val})"
 
 
-def _stage_call(program, kspec, idx, pos, onchip, slots) -> List[str]:
+def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
+                at_dims=None) -> List[str]:
     em = StageEmitter(program, kspec)
     lines = [f"const {ctype(program.field_dtype(f))} v{i} = "
-             f"{read_expr(program, kspec, f, offs, pos, onchip(f), slots)};"
+             + read_expr(program, kspec, f, offs, pos, onchip(f), slots,
+                         at_pos, at_dims) + ";"
              for i, (f, offs) in enumerate(em.accesses)]
     args = ", ".join(f"v{i}" for i in range(len(em.accesses)))
     lines.append(f"const {ctype(kspec.dtype)} r = sf_stage_{idx}({args});")
@@ -362,9 +368,11 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=()):
     return order, prelude() + struct + "\n".join(funcs), slots
 
 
-def _params(program: ir.Program, n_pool: int = 0) -> Tuple[str, str]:
+def _params(program: ir.Program, n_pool: int = 0,
+            origin: bool = False) -> Tuple[str, str]:
     """Kernel parameter list and the matching launch arguments; ``n_pool``
-    float32 tables follow the array inputs in ``in``."""
+    float32 tables follow the array inputs in ``in``; ``origin`` adds the
+    local kernel's ``origin_i``."""
     params, args = [], []
     arrays = [n for n, s in program.inputs.items() if not s.is_scalar]
     for i, n in enumerate(arrays):
@@ -380,17 +388,22 @@ def _params(program: ir.Program, n_pool: int = 0) -> Tuple[str, str]:
         args.append(f"({ct}*)out[{i}]")
     params.append("const SfScalars sc")
     args.append("sc")
+    if origin:
+        params.append("const int origin_i")
+        args.append("origin_i")
     return ", ".join(params), ", ".join(args)
 
 
 def _launcher(program, kernel: str, grid: str, smem: int, slots,
-              n_pool: int = 0) -> str:
-    params, args = _params(program, n_pool)
+              n_pool: int = 0, origin: bool = False) -> str:
+    params, args = _params(program, n_pool, origin)
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
+    name = "sf_local_launch" if origin else "sf_launch"
+    origin_arg = "const int origin_i, " if origin else ""
     return f"""
-extern "C" int sf_launch(const void* const* in, void* const* out,
-                         const unsigned char* scal, void* stream) {{
+extern "C" int {name}(const void* const* in, void* const* out,
+    const unsigned char* scal, {origin_arg}void* stream) {{
   SfScalars sc;
   sc.unused_ = 0;
 {copies}  cudaError_t e = cudaFuncSetAttribute(
@@ -579,26 +592,36 @@ class _StreamEmitter:
     def __init__(self, program, plan, slots):
         self.program, self.plan, self.slots = program, plan, slots
         self.dims = program.dimensions
+        # the arrays' extents: a local kernel's slabs hold its planes
+        self.adims = (plan.extent(),) + tuple(self.dims[1:])
         self.pidx = {k: i for i, (k, _) in enumerate(plan.kernel_pool())}
         self.tidx = {t: n for n, t in enumerate(plan.tkeys)}
         self.n_otf = 0
 
+    def glob(self, pexpr: str) -> str:
+        """Global index of plane ``pexpr`` (a local kernel's plane 0 is
+        global plane ``origin_i``)."""
+        return f"(origin_i + {pexpr})" if self.plan.block else pexpr
+
     def raw(self, f, s, pexpr, o=(0, 0)) -> str:
         """Raw plane ``pexpr`` of field ``f`` at the cell (jl, kl) of stage
-        ``s``'s region, shifted by (j, k) offset ``o``."""
+        ``s``'s region, shifted by (j, k) offset ``o``.  A ring slot is
+        taken modulo its depth for any plane ``pexpr`` >= -depth (a local
+        kernel reads planes before its chunk's first for non-core cells)."""
         plan, program = self.plan, self.program
         if f in program.inputs and program.inputs[f].is_scalar:
             return f"sc.x{self.slots[f]}"
         if f in plan.raw_ring:
             FJ, FK = plan.region(f)
+            D = plan.raw_ring[f]
             dj = plan.halo[f][0] - plan.halo[s][0] + o[0]
             dk = plan.halo[f][1] - plan.halo[s][1] + o[1]
-            return (f"r_{f}[(({pexpr}) % {plan.raw_ring[f]}) * {FJ * FK}"
+            return (f"r_{f}[((({pexpr}) + {D}) % {D}) * {FJ * FK}"
                     f" + (jl + {dj}) * {FK} + kl + {dk}]")
         mask = program.field_dim_mask(f)
         c = (pexpr, f"(gj + {o[0]})", f"(gk + {o[1]})")
-        return (f"(({_inb(mask, c, self.dims)}) ? g_{f}"
-                f"[{_flat(mask, c, self.dims)}] : 0.0f)")
+        return (f"(({_inb(mask, c, self.adims)}) ? g_{f}"
+                f"[{_flat(mask, c, self.adims)}] : 0.0f)")
 
     def transformed(self, tkey, s, pexpr, pre: List[str]) -> str:
         """Transformed plane ``pexpr`` of ``tkey`` at stage ``s``'s cell:
@@ -608,9 +631,10 @@ class _StreamEmitter:
         f, lkey, rkey = tkey
         if tkey in self.tidx:
             TJ, TK = plan.region(tkey)
+            D = plan.tring[tkey]
             dj = plan.thalo[tkey][0] - plan.halo[s][0]
             dk = plan.thalo[tkey][1] - plan.halo[s][1]
-            return (f"t{self.tidx[tkey]}[(({pexpr}) % {plan.tring[tkey]})"
+            return (f"t{self.tidx[tkey]}[((({pexpr}) + {D}) % {D})"
                     f" * {TJ * TK} + (jl + {dj}) * {TK} + kl + {dk}]")
         if lkey is None and rkey is None:
             return self.raw(f, s, pexpr)
@@ -618,7 +642,7 @@ class _StreamEmitter:
         mask = self.program.field_dim_mask(f)
         v = f"tv{self.n_otf}"
         self.n_otf += 1
-        g = f"g_{f}[{_flat(mask, (pexpr, 'sj', 'sk'), self.dims)}]"
+        g = f"g_{f}[{_flat(mask, (pexpr, 'sj', 'sk'), self.adims)}]"
         pre += [f"float {v} = 0.0f;",
                 f"if (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) {{"]
         if lkey is not None:
@@ -677,8 +701,9 @@ class _StreamEmitter:
             pexpr = "q" if grp.oi is None else "pi"
             L.append("{")
             if grp.oi is not None:
+                gpi = self.glob("pi")
                 L += [f"  const int pi = q + {grp.oi};", "  float part;",
-                      f"  if (pi < 0 || pi >= {I}) part = "
+                      f"  if ({gpi} < 0 || {gpi} >= {I}) part = "
                       f"{literal(f32(grp.bc_value * grp.weight_sum), f32)};",
                       "  else {"]
             else:
@@ -778,20 +803,34 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     index, so the same source also compiles with g++ into
     ``sf_host_launch``, which runs every block with one thread (the
     barriers separate phases, so that is a valid schedule) — the CPU tests
-    run the generated kernel that way."""
+    run the generated kernel that way.
+
+    A local plan (``plan.block`` > 0) gives K4, ``sf_local_stream``: the
+    same streamer over one i-chunk's ``Ii = Ic + 2h`` planes, with the
+    chunk's global origin ``origin_i`` a launch argument (``sf_local_
+    launch``, and ``sf_host_launch`` takes it too).  Stage ``s`` at local
+    plane q works on global plane ``origin_i + q``: i-offset reads and
+    banded groups are masked against the global [0, I), array inputs are
+    read from the local (Ii, ...) slabs, and only core planes q in [h, h
+    + Ic) are written, to plane q - h of the (Ic, J, K) outputs."""
     I, J, K = dims = program.dimensions
+    local = bool(plan.block)
+    Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
+    kernel = "sf_local_stream" if local else "sf_stream"
     order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans))
     tj, tk = plan.tile
     ntj, ntk = plan.grid()
     offs = plan.smem_offsets()
     n_pool = len(plan.kernel_pool())
-    params, args = _params(program, n_pool)
+    params, args = _params(program, n_pool, origin=local)
     em = _StreamEmitter(program, plan, slots)
     L = [head, _STREAM_MACROS,
          "// stream streamer (backend/stream.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
-         "cell stages, K3b banded transforms)",
-         "SF_DEV void sf_stream_block(const int by, const int bx, "
+         "cell stages, K3b banded transforms)" + (
+             "; local chunk kernel K4, as built by compile_local_stream "
+             f"(chunk of {Ic} + 2 x {h} planes)" if local else ""),
+         f"SF_DEV void {kernel}_block(const int by, const int bx, "
          "const int tid, const int nt, unsigned char* const sf_smem, "
          f"{params}) {{",
          f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
@@ -801,10 +840,10 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     for n, t in enumerate(plan.tkeys):
         L.append(f"  float* const t{n} = (float*)(sf_smem + {offs[t]});")
     L.append(f"  float* const sf_u = (float*)(sf_smem + {offs['']});")
-    L += ["  (void)sf_u;", f"  for (int t = 0; t < {I + plan.lag_max}; ++t) {{"]
+    L += ["  (void)sf_u;", f"  for (int t = 0; t < {plan.steps()}; ++t) {{"]
     ring_inputs = [f for f in plan.raw_ring if f in program.inputs]
     if ring_inputs:
-        L.append(f"    if (t < {I}) {{")
+        L.append(f"    if (t < {Ii}) {{")
         for f in ring_inputs:
             RJ, RK = plan.region(f)
             hj, hk = plan.halo[f]
@@ -821,8 +860,12 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
         tl = [x for f in ring_inputs for t in plan.tkeys if t[0] == f
               for x in em.transform(t, "t")]
         if tl:
-            L += [f"    if (t < {I}) {{"] + ["      " + x for x in tl] \
+            L += [f"    if (t < {Ii}) {{"] + ["      " + x for x in tl] \
                 + ["    }"]
+    # per-cell reads: BC masks at the global plane gq, arrays at the
+    # local plane q of their slabs
+    pos = ("gq", "gj", "gk") if local else ("q", "gj", "gk")
+    at_pos = ("q", "gj", "gk") if local else None
     for idx, s in enumerate(order):
         kspec = program.kernels[s]
         RJ, RK = plan.region(s)
@@ -840,18 +883,23 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
                 return lambda o: (f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
                                   f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
                                   f"kl + {dk + o[2]}]")
-            body = _stage_call(program, kspec, idx, ("q", "gj", "gk"),
-                               onchip, slots)
+            body = _stage_call(program, kspec, idx, pos, onchip, slots,
+                               at_pos, em.adims)
         if s in plan.raw_ring:
             body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
                         "= r;")
         if s in program.outputs:
-            body.append(f"if (jl >= {hj} && jl < {hj + tj} && kl >= {hk} "
-                        f"&& kl < {hk + tk} && gj < {J} && gk < {K}) "
-                        f"o_{s}[((long long)q * {J} + gj) * {K} + gk] = r;")
+            core = f"q >= {h} && q < {h + Ic} && " if local else ""
+            body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
+                        f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
+                        f"gk < {K}) o_{s}[((long long)"
+                        f"{f'(q - {h})' if local else 'q'} * {J} + gj) * "
+                        f"{K} + gk] = r;")
         L += [f"    {{  // stage {s}",
-              f"      const int q = t - {plan.lag[s]};",
-              f"      if (q >= 0 && q < {I}) {{",
+              f"      const int q = t - {plan.lag[s]};"]
+        if local:
+            L.append("      const int gq = origin_i + q;  (void)gq;")
+        L += [f"      if (q >= 0 && q < {Ii}) {{",
               f"        for (int p = tid; p < {RJ * RK}; p += nt) {{",
               f"          const int jl = p / {RK}, kl = p - jl * {RK};",
               f"          const int gj = j0 - {hj} + jl, "
@@ -861,21 +909,23 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
         tl = [x for t in plan.tkeys if t[0] == s
               for x in em.transform(t, "q")]
         if tl:
-            L += [f"      if (q >= 0 && q < {I}) {{"] \
+            L += [f"      if (q >= 0 && q < {Ii}) {{"] \
                 + ["        " + x for x in tl] + ["      }"]
         L.append("    }")
     L += ["  }", "}"]
-    L += _entry_points(program, "sf_stream", params, args, (ntj, ntk),
-                       plan.smem_bytes(), slots, n_pool)
+    L += _entry_points(program, kernel, params, args, (ntj, ntk),
+                       plan.smem_bytes(), slots, n_pool, origin=local)
     return "\n".join(L)
 
 
 def _entry_points(program, kernel: str, params: str, args: str, grid,
-                  smem: int, slots, n_pool: int = 0) -> List[str]:
+                  smem: int, slots, n_pool: int = 0,
+                  origin: bool = False) -> List[str]:
     """The ``__global__`` kernel around the block body ``<kernel>_block``
-    and its ``sf_launch`` for nvcc; for g++, ``sf_host_launch``, which
-    runs every block with one thread (the barriers separate phases, so
-    that is a valid schedule) over shared memory filled with NaN."""
+    and its ``sf_launch`` (``sf_local_launch`` with ``origin``) for nvcc;
+    for g++, ``sf_host_launch``, which runs every block with one thread
+    (the barriers separate phases, so that is a valid schedule) over
+    shared memory filled with NaN."""
     ntj, ntk = grid
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
@@ -887,10 +937,11 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             f"{THREADS}, sf_smem, {_param_names(params)});",
             "}",
             _launcher(program, kernel, f"dim3({ntk}, {ntj})", smem, slots,
-                      n_pool),
+                      n_pool, origin),
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
-            "void* const* out, const unsigned char* scal) {",
+            "void* const* out, const unsigned char* scal"
+            + (", const int origin_i" if origin else "") + ") {",
             "  SfScalars sc;", "  sc.unused_ = 0;",
             copies.rstrip("\n"),
             "  // uninitialised shared memory reads as NaN here",

@@ -124,9 +124,11 @@ def bc_select(bc, dtype, mask, val, center_fn):
     return torch.where(mask, fill, val)
 
 
-def check_arrays(program: ir.Program, arrays, device_type: str):
-    """Device, dtype, shape and contiguity of every array input."""
-    dims = program.dimensions
+def check_arrays(program: ir.Program, arrays, device_type: str,
+                 dims=None):
+    """Device, dtype, shape and contiguity of every array input (spanning
+    ``dims``, the program's dimensions by default)."""
+    dims = dims or program.dimensions
     for n, spec in program.inputs.items():
         if spec.is_scalar:
             continue
@@ -154,26 +156,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def run_kernel(program, arrays, lib, plain, extra=None):
+def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
+               out_dims=None, origin_i=None):
     """Shared wrapper body: CPU tensors take ``plain``; CUDA tensors
     launch ``lib()``'s kernel or raise.  ``extra(device)`` gives device
-    tensors the kernel reads after the array inputs.  Returns the (I, J,
-    K) outputs and whether the kernel was launched."""
+    tensors the kernel reads after the array inputs.  Inputs span
+    ``in_dims`` and outputs are ``out_dims`` (both the program's (I, J,
+    K) by default); ``origin_i`` is the local kernel's launch argument.
+    Returns the outputs and whether the kernel was launched."""
     first = next(a for n, a in arrays.items()
                  if not program.inputs[n].is_scalar)
     if first.device.type == "cpu":
-        check_arrays(program, arrays, "cpu")
+        check_arrays(program, arrays, "cpu", in_dims)
         return plain(), False
     if first.device.type != "cuda":
         raise ValueError(f"unsupported device {first.device}")
-    check_arrays(program, arrays, "cuda")
-    outs = [torch.empty(program.dimensions, device=first.device,
+    check_arrays(program, arrays, "cuda", in_dims)
+    outs = [torch.empty(out_dims or program.dimensions, device=first.device,
                         dtype=to_torch_dtype(program.kernels[o].dtype))
             for o in program.outputs]
     build.launch(lib(), program, arrays,
                  [arrays[n] for n, s in program.inputs.items()
                   if not s.is_scalar]
-                 + (list(extra(first.device)) if extra else []), outs)
+                 + (list(extra(first.device)) if extra else []), outs,
+                 origin_i=origin_i)
     return dict(zip(program.outputs, outs)), True
 
 

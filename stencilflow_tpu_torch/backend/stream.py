@@ -4,11 +4,13 @@ Hopper counterpart of ``stencilflow_tpu/backend/stream.py``
 (``_stream_kernel_body``, built by ``compile_chain_stream``): K3a, the
 per-cell (VPU) stages on plane rings, and K3b, the wide affine stages as
 banded transforms ``L @ P @ R`` (``_band_dot``, ``apply_transform_block``,
-``mxu_eval``), composed runs and constant-BC correction planes.  Not
-ported here: the HBM ring spill (K3c), j-tiling (the port tiles (j, k)
-itself), bf16 compute / ring storage, micro-step blocks, stage-major
-order and BC padding (pipeline workarounds for the TPU), and the opt-in
-single-pass ``mxu_precision="bf16"`` mode (NotImplementedError).
+``mxu_eval``), composed runs and constant-BC correction planes, and K4,
+the same streamer over one out-of-core i-chunk (``compile_local_stream``,
+local mode below).  Not ported here: the HBM ring spill (K3c), j-tiling
+(the port tiles (j, k) itself), bf16 compute / ring storage, micro-step
+blocks, stage-major order and BC padding (pipeline workarounds for the
+TPU), and the opt-in single-pass ``mxu_precision="bf16"`` mode
+(NotImplementedError).
 
 Planning follows the JAX package's choices per stage, untiled: compose
 runs of separable stages (``compose.py``, ``compose="auto"``), then plan
@@ -58,6 +60,26 @@ ops on whole planes (band transforms through ``torch.matmul``, the
 i-combine, per-cell stages through ``tile_eval``); the wrapper
 ``run_stream`` takes it for CPU tensors only, and launches the CUDA
 kernel (codegen.py ``stream_source``) for CUDA tensors.
+
+Local mode (K4, the counterpart of ``compile_local_stream``): a plan
+built with ``block = Ic`` and ``halo_i = h`` streams one i-chunk of
+``Ii = Ic + 2h`` planes, the core widened by the chain's cumulative
+i-halo (``plan_local``).  The kernel, ``sf_local_stream``, takes the
+chunk's global ``origin_i`` (the global index of local plane 0) as a
+launch argument: a stage at local plane q works on global plane
+``origin_i + q``, every i-offset read and every banded group's
+``bc_value * weight_sum`` is masked against the global [0, I), inputs
+come from the local (Ii, J, K) slabs, and only the core planes [h, h +
+Ic) are written, to (Ic, J, K) outputs.  Reads that leave the chunk
+reach only planes outside the core (h covers the chain's reach), so
+whatever they find there never lands in an output.  Per-cell and
+uncomposed banded stages only, as the reference's chunk path builds it.
+``run_local_stream`` is its wrapper (count ``local_launches``) and
+``local_stream_plain`` its plain version.  Its bound is its chunk's
+bytes (slabs in, core planes out); it recomputes the chunk's 2h halo
+planes (1.125x the core at h = 8, Ic = 128) so that chunks need nothing
+from each other, and an out-of-core call is bound by the host copies
+around it, not by the kernel (PERF.md).
 """
 from __future__ import annotations
 
@@ -81,8 +103,10 @@ from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
                          spanned_arrays, tile_cost)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only)
+# number of kernel launches (CUDA tensors only): the whole-domain stream
+# kernel (K3) and the local chunk kernel (K4)
 launches = 0
+local_launches = 0
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -109,6 +133,9 @@ class StreamPlan:
     halo: Dict[str, Tuple[int, int]]   # per field: (j, k) tile widening
     thalo: Dict[TKey, Tuple[int, int]]
     tile: Tuple[int, int] = (0, 0)
+    block: int = 0                 # local mode: core i-planes of a chunk
+    #                                (0: the whole domain)
+    halo_i: int = 0                # local mode: i-halo each side of it
     # kernel_pool() arrays on each device the kernel ran on
     device_pool: Dict[object, List[torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
@@ -116,9 +143,11 @@ class StreamPlan:
                                                 repr=False)
 
     @staticmethod
-    def lags(analysis: ChainAnalysis):
+    def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
+             direct_emit: bool = True):
         """(lag, ring, lag_max) of ``stencilflow_tpu/backend/stream.py``
-        ``StreamPlan.build`` at block 1 with direct output emission."""
+        ``StreamPlan.build`` at block 1 (a local plan passes the
+        reference's ``min_lag_max=h, direct_emit=h == 0``)."""
         program = analysis.program
 
         def i_range(kname, field):
@@ -133,7 +162,7 @@ class StreamPlan:
             lag[kname] = max((lag[f] + i_range(kname, f)[1]
                               for f in analysis.graph.producers(kname)),
                              default=0)
-        lag_max = max(lag[o] for o in program.outputs)
+        lag_max = max(max(lag[o] for o in program.outputs), min_lag_max)
         streamed = [n for n, sp in program.inputs.items()
                     if not sp.is_scalar and sp.dim_mask[0]]
         ring: Dict[str, int] = {}
@@ -145,10 +174,25 @@ class StreamPlan:
                     continue
                 consumed = True
                 depth = max(depth, 1 + lag[c] - i_range(c, f)[0] - lag[f])
-            if f in program.outputs and not consumed:
-                continue   # pure output: emitted directly, no ring
+            if f in program.outputs:
+                if not direct_emit:
+                    depth = max(depth, 1 + lag_max - lag[f])
+                elif not consumed:
+                    continue   # pure output: emitted directly, no ring
             ring[f] = depth
         return lag, ring, lag_max
+
+    # -- the streamed extent -------------------------------------------------
+    def extent(self) -> int:
+        """Planes streamed: the chunk's Ic + 2h in local mode, else I."""
+        if self.block:
+            return self.block + 2 * self.halo_i
+        return self.program.dimensions[0]
+
+    def steps(self) -> int:
+        """Plane steps of the kernel's i loop, the reference's grid
+        ``Bi + halo_i + lag_max`` (I + lag_max for the whole domain)."""
+        return self.extent() + self.lag_max - self.halo_i
 
     # -- geometry ------------------------------------------------------------
     def band(self, key: str, side: str):
@@ -256,7 +300,8 @@ class StreamPlan:
 # -- planner -------------------------------------------------------------------
 
 def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
-                mxu_precision: str, builds, tile) -> StreamPlan:
+                mxu_precision: str, builds, tile, block: int = 0,
+                halo_i: int = 0) -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
     pool = MatrixPool()
@@ -271,7 +316,13 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
         plans[cname] = cp
     pkeys, parrs, tkeys_all = finalize_pool(plans, pool, program,
                                             mxu_precision)
-    lag, ring, lag_max = StreamPlan.lags(analysis)
+    # a local plan takes the reference's chunk algebra (lag_max at least
+    # h, rings for outputs when h > 0: the TPU emits outputs through them
+    # once the top halo is ingested); the kernel here writes each core
+    # plane to device memory when it is computed, so the rings it
+    # allocates (raw_ring, tring below) hold no output plane for that
+    lag, ring, lag_max = StreamPlan.lags(analysis, min_lag_max=halo_i,
+                                         direct_emit=halo_i == 0)
     onchip = ring_fields(program, analysis)
     tkeys = [t for t in tkeys_all if t[0] in onchip]
 
@@ -313,7 +364,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
     plan = StreamPlan(program, analysis, lag, ring, lag_max, plans,
                       {n: list(b.stages) for n, b in builds.items()},
                       dict(zip(pkeys, parrs)), tkeys, raw, tdepth, halo,
-                      {})
+                      {}, block=block, halo_i=halo_i)
     for t in tkeys:
         plan.thalo[t] = tuple(max(halo[c][d] for c in readers[t])
                               for d in range(2))
@@ -383,39 +434,83 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     return _build_plan(program, analysis, mxu, mxu_precision, {}, tile)
 
 
+def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
+               block: int, halo_i: int, mxu: str = "auto",
+               mxu_precision: str = "split",
+               tile: Optional[Tuple[int, int]] = None) -> StreamPlan:
+    """The local (chunk) plan of K4: ``block`` core i-planes widened by
+    ``halo_i`` planes each side; stages banded where ``mxu`` is "auto"
+    and the banded planner takes them (never composed), the rest per
+    cell.  Raises ValueError / NotImplementedError when the program is
+    out of scope or no tile fits shared memory."""
+    if block < 1 or halo_i < 0:
+        raise ValueError(f"bad local block {block} / i-halo {halo_i}")
+    analysis = analysis or ChainAnalysis.run(program)
+    check_scope(program)
+    check_options(mxu, mxu_precision)
+    return _build_plan(program, analysis, mxu, mxu_precision, {}, tile,
+                       block=block, halo_i=halo_i)
+
+
 # -- plain version --------------------------------------------------------------
 
-def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
+def _junk(dtype: torch.dtype, shape, device) -> torch.Tensor:
+    """A plane standing for one outside the chunk: NaN (largest negative
+    integer, True) — any of it reaching a core plane shows."""
+    if dtype.is_floating_point:
+        fill = float("nan")
+    elif dtype == torch.bool:
+        fill = True
+    else:
+        fill = torch.iinfo(dtype).min
+    return torch.full(shape, fill, dtype=dtype, device=device)
+
+
+def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
+                 origin_i: int = 0) -> Dict[str, torch.Tensor]:
     """The plan's function in torch ops on whole (J, K) planes, streamed
     along i: per-cell stages through tile_eval with the boundary rules of
     the kernels, banded stages as ``L @ P @ R`` matmuls, the correction
     planes and the composed i-combine.  ``arrays`` holds every input at
-    its spanned shape (0-d for scalars); returns (I, J, K) outputs."""
+    its spanned shape (0-d for scalars), i-spanning inputs at the plan's
+    extent; returns the core planes, (I, J, K) for a whole-domain plan
+    and (block, J, K) for a local one, whose local plane 0 is global
+    plane ``origin_i``.  A read of a plane outside the chunk gets a junk
+    plane (``_junk``)."""
     program = plan.program
-    I, J, K = dims = program.dimensions
+    I, J, K = program.dimensions
+    Ii, h = plan.extent(), plan.halo_i
+    Ic = Ii - 2 * h
     device = next(a for n, a in arrays.items()
                   if not program.inputs[n].is_scalar).device
     f32 = torch.float32
     mats = {k: torch.as_tensor(v).to(device) for k, v in plan.pool.items()}
     planes: Dict[str, Dict[int, torch.Tensor]] = {}
     tcache: Dict[Tuple[TKey, Optional[int]], torch.Tensor] = {}
-    outs = {o: torch.empty(dims, device=device,
+    outs = {o: torch.empty((Ic, J, K), device=device,
                            dtype=to_torch_dtype(program.kernels[o].dtype))
             for o in program.outputs}
     jj = torch.arange(J, device=device)[:, None]
     kk = torch.arange(K, device=device)[None, :]
 
+    def inside(p):
+        """Is global plane ``p`` in the domain?"""
+        return 0 <= origin_i + p < I
+
     def plane(f, p):
         """Raw (J, K) plane ``p`` of field ``f`` (broadcast for lower-rank
         inputs and scalars)."""
+        dt = to_torch_dtype(program.field_dtype(f))
         if f in program.kernels:
-            return planes[f][p]
+            got = planes.get(f, {}).get(p)
+            return got if got is not None else _junk(dt, (J, K), device)
         spec = program.inputs[f]
         a = arrays[f].to(device)
         if spec.is_scalar:
             return a.expand(J, K)
         if spec.dim_mask[0]:
+            if not 0 <= p < Ii:
+                return _junk(dt, (J, K), device)
             a = a[p]
         return a.reshape(J if spec.dim_mask[1] else 1,
                          K if spec.dim_mask[2] else 1).expand(J, K)
@@ -450,7 +545,7 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor]
         acc = None
         for grp in mp.groups:
             p = None if grp.oi is None else q + grp.oi
-            if p is not None and not 0 <= p < I:
+            if p is not None and not inside(p):
                 parts = f32c(grp.bc_value * grp.weight_sum).expand(J, K)
             else:
                 parts = None
@@ -475,7 +570,7 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor]
                 return arrays[field].to(device), dt
             bc = kspec.boundary_conditions.get(field)
             oi, oj, ok = (o or 0 for o in offsets)
-            mask = True if oi and not 0 <= q + oi < I else None
+            mask = True if oi and not inside(q + oi) else None
             if mask is True:
                 val = plane(field, q)
             else:
@@ -487,10 +582,10 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor]
             return bc_select(bc, dt, mask, val, lambda: plane(field, q)), dt
         return eval_kernel_statements(kspec, read, (J, K), device)
 
-    for t in range(I + plan.lag_max):
+    for t in range(plan.steps()):
         for s in plan.analysis.graph.kernel_order:
             q = t - plan.lag[s]
-            if not 0 <= q < I:
+            if not 0 <= q < Ii:
                 continue
             mp = plan.mxu_plans.get(s)
             val = banded(mp, q) if mp is not None else \
@@ -498,8 +593,8 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor]
             if s in plan.ring:
                 planes.setdefault(s, {})[q] = val.contiguous()
                 planes[s].pop(q - plan.ring[s], None)
-            if s in outs:
-                outs[s][q] = val
+            if s in outs and h <= q < h + Ic:
+                outs[s][q - h] = val
         # drop transformed planes no reader can reach any more
         for key in [k for k in tcache if k[1] is not None
                     and k[1] < t - plan.lag[k[0][0]]
@@ -515,8 +610,10 @@ def stream_source(plan: StreamPlan) -> str:
 
 
 def build_stream(plan: StreamPlan):
-    """Generate and compile the stream kernel for ``plan``."""
-    return build.load_library(stream_source(plan), "stream")
+    """Generate and compile the stream kernel for ``plan`` (the local
+    kernel K4 for a local plan)."""
+    return build.load_library(stream_source(plan),
+                              "local_stream" if plan.block else "stream")
 
 
 def _pool_tensors(plan: StreamPlan, device) -> List[torch.Tensor]:
@@ -532,6 +629,8 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
     ``lib`` is the built kernel (``build_stream``); it is built on demand
     when omitted."""
     global launches
+    if plan.block:
+        raise ValueError("a local plan runs through run_local_stream")
     outs, launched = run_kernel(
         plan.program, arrays,
         lambda: lib if lib is not None else build_stream(plan),
@@ -539,6 +638,55 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
         extra=lambda device: _pool_tensors(plan, device))
     launches += launched
     return outs
+
+
+def local_stream_plain(plan: StreamPlan, origin_i: int,
+                       slabs: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """K4's plain version: ``stream_plain`` of a local plan on one
+    chunk's slabs, local plane 0 at global plane ``origin_i``."""
+    return stream_plain(plan, slabs, origin_i)
+
+
+def _local_dims(plan: StreamPlan):
+    _, J, K = plan.program.dimensions
+    return (plan.extent(), J, K), (plan.block, J, K)
+
+
+def run_local_stream(plan: StreamPlan, origin_i: int,
+                     slabs: Dict[str, torch.Tensor], lib=None):
+    """K4 on one chunk: ``slabs`` holds the i-spanning inputs at the
+    plan's extent (Ic + 2h planes, zero outside the domain), the other
+    inputs whole, scalars 0-d; ``origin_i`` is the global index of the
+    slabs' first plane.  Returns the (Ic, J, K) core planes of every
+    output.  ``lib`` is the built kernel (``build_stream``)."""
+    global local_launches
+    if not plan.block:
+        raise ValueError("run_local_stream takes a local plan (plan_local)")
+    in_dims, out_dims = _local_dims(plan)
+    outs, launched = run_kernel(
+        plan.program, slabs,
+        lambda: lib if lib is not None else build_stream(plan),
+        lambda: stream_plain(plan, slabs, origin_i),
+        extra=lambda device: _pool_tensors(plan, device),
+        in_dims=in_dims, out_dims=out_dims, origin_i=origin_i)
+    local_launches += launched
+    return outs
+
+
+def compile_local_stream(plan: StreamPlan, device="cuda"):
+    """``chunk_fn(origin_i, slabs) -> outputs`` running the local plan
+    ``plan`` on ``device`` (K4 built now for a CUDA device, the plain
+    version on the CPU); ``slabs`` as ``run_local_stream`` takes them."""
+    device = resolve_device(device)
+    lib = build_stream(plan) if device.type == "cuda" else None
+
+    def chunk_fn(origin_i, slabs):
+        return run_local_stream(plan, int(origin_i), slabs, lib)
+
+    chunk_fn.plan = plan
+    chunk_fn.device = device
+    return chunk_fn
 
 
 def compile_stream_plan(plan: StreamPlan, device="cuda"):

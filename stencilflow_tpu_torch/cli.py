@@ -25,7 +25,7 @@ def _cmd_run(args) -> int:
             backend=args.backend, print_result=args.print_result,
             log_level=args.log_level, profile_dir=args.profile,
             seed=args.seed, tolerance=args.tolerance, mxu=args.mxu,
-            mxu_precision=args.mxu_precision)
+            mxu_precision=args.mxu_precision, host_chunks=args.host_chunks)
     except VerificationError as exc:
         print(f"VERIFICATION FAILED: {exc}", file=sys.stderr)
         return 1
@@ -34,9 +34,11 @@ def _cmd_run(args) -> int:
         gcell = res.program.total_elements / res.wall_time_s / 1e9
         clock = "CUDA events" if res.device.startswith("cuda") \
             else "host clock"
+        moved = ("included" if res.backend.startswith("outofcore")
+                 else "excluded")
         print(f"wall time: {res.wall_time_s * 1e3:.3f} ms/run on "
               f"{res.device} (~{gcell:.3g} GCell/s, {clock} over the "
-              "repetitions, transfers excluded)")
+              f"repetitions, transfers {moved})")
     if res.verified_against_reference is not None:
         print("verified against reference: "
               f"{'OK' if res.verified_against_reference else 'FAIL'}")
@@ -70,6 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["split", "exact"],
                    help="band transform precision (both compute in f32 "
                         "on the card)")
+    p.add_argument("--host-chunks", type=int, default=0, metavar="N",
+                   help="out-of-core: stream N host i-chunks (+ the "
+                        "chain's i-halo) through the chunk kernel; "
+                        "overrides --backend (default 0: in-core)")
     p.add_argument("--print-result", action="store_true")
     p.add_argument("--generate-input", action="store_true",
                    help="replace file-backed inputs with constant data")

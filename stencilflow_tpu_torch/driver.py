@@ -6,15 +6,21 @@ the same flow, flags and verification (the numpy oracle at
 ``backend.compile_chain_best`` for a torch ``device``; a run whose
 stream lowering has banded stages verifies at ``MXU_VERIFY_RTOL``, as the
 JAX package's driver does.  Not ported yet: the simulator cross-check,
-out-of-core chunking, the single-pass bf16 transforms and the TPU-only
-knobs (ring storage, spill).  ``backend="rows"`` streams a 2-D program's
-rows (``compile_chain_rows``, the auto lowering of the rotated program),
-as ``--backend rows`` does in the JAX package.
+the single-pass bf16 transforms and the TPU-only knobs (ring storage,
+spill).  ``backend="rows"`` streams a 2-D program's rows
+(``compile_chain_rows``, the auto lowering of the rotated program), as
+``--backend rows`` does in the JAX package.  ``host_chunks=N`` (N > 1)
+runs out-of-core (``outofcore.py``): inputs stay on the host and i-chunks
+stream through the chunk kernel K4 (``outofcore[stream xN chunks]``) or,
+on the CPU or where K4's planner refuses, the dense tile body
+(``outofcore[dense xN chunks]``); it overrides ``backend``, and its time
+includes the host-device transfers.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Dict, Optional
@@ -53,6 +59,8 @@ class RunResult:
     wall_time_s: Optional[float] = None
     results_dir: Optional[str] = None
     analysis: Optional[ChainAnalysis] = None
+    # out of core: host seconds of the last call's slab fill and drain
+    host_staging: Optional[Dict[str, float]] = None
 
 
 def _compile(program, analysis, backend: str, device, mxu, mxu_precision):
@@ -120,13 +128,16 @@ def run_program(stencil_file, device="cuda",
                 raise_on_mismatch: bool = True,
                 tolerance: Optional[float] = None,
                 mxu: str = "auto",
-                mxu_precision: str = "split") -> RunResult:
+                mxu_precision: str = "split",
+                host_chunks: int = 0) -> RunResult:
     """Run one stencil program end to end on ``device``.  ``stencil_file``
     may be a path, a JSON dict, or an already-parsed Program.
     ``tolerance`` overrides the relative verification tolerance (default:
     config.VERIFY_RTOL, or MXU_VERIFY_RTOL for a stream run with banded
     stages).  ``mxu`` ("auto"/"off") and ``mxu_precision``
-    ("split"/"exact") forward to the stream lowering."""
+    ("split"/"exact") forward to the stream lowering.  ``host_chunks`` > 1
+    runs out-of-core in that many i-chunks (overrides ``backend``; the
+    timing includes the transfers)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch sees no GPU")
@@ -155,12 +166,32 @@ def run_program(stencil_file, device="cuda",
     banded = False
 
     if not skip_execution:
-        fn, result.backend = _compile(program, analysis, backend, device,
-                                      mxu, mxu_precision)
-        banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
-        dev_inputs = {k: (torch.as_tensor(np.asarray(v)).to(device)
-                          if not program.inputs[k].is_scalar else v)
-                      for k, v in inputs.items()}
+        if host_chunks and host_chunks > 1:
+            # out-of-core: inputs stay host-resident, i-chunks stream
+            # through one built chunk kernel into host outputs allocated
+            # once for every repetition (outofcore.py)
+            from .outofcore import compile_chunked_chain, run_chunked
+            compiled = compile_chunked_chain(
+                program, host_chunks, analysis, device=device, mxu=mxu,
+                mxu_precision=mxu_precision)
+            host_out = {o: np.empty(tuple(program.raw_dimensions),
+                                    np.dtype(program.kernels[o].dtype))
+                        for o in program.outputs}
+            result.host_staging = {}
+            fn = functools.partial(run_chunked, program, chunks=host_chunks,
+                                   analysis=analysis, compiled=compiled,
+                                   out=host_out, stats=result.host_staging)
+            banded = bool(compiled[1].config.get("mxu_stages"))
+            result.backend = (f"outofcore[{compiled[1].backend}"
+                              f" x{host_chunks} chunks]")
+            dev_inputs = inputs
+        else:
+            fn, result.backend = _compile(program, analysis, backend,
+                                          device, mxu, mxu_precision)
+            banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
+            dev_inputs = {k: (torch.as_tensor(np.asarray(v)).to(device)
+                              if not program.inputs[k].is_scalar else v)
+                          for k, v in inputs.items()}
         fn(dev_inputs)   # warm-up: first-call work stays out of the timing
         cuda = device.type == "cuda"
         if cuda:
@@ -190,7 +221,8 @@ def run_program(stencil_file, device="cuda",
         if profile_dir:
             _write_profile(prof, profile_dir, result.wall_time_s * reps,
                            cuda)
-        result.outputs = {k: v.cpu().numpy() for k, v in out.items()}
+        result.outputs = {k: v if isinstance(v, np.ndarray)
+                          else v.cpu().numpy() for k, v in out.items()}
 
     if save_results and result.outputs:
         result.results_dir = os.path.join(results_base, program.name)

@@ -12,7 +12,7 @@ a transcendental, so kernel, plain version and numpy oracle compute the
 same correctly rounded operations in the same order.  The stream kernel's
 banded stages sum in another order than its plain version (which applies
 the bands with torch.matmul): MXU_VERIFY_RTOL there, as in the JAX
-package.
+package; the same holds for the local chunk kernel K4.
 """
 import json
 import os
@@ -188,6 +188,98 @@ def test_group_kernel_matches_plain_on_card(name, cuda):
         g_, w = got[o].cpu().numpy(), want[o].cpu().numpy()
         assert g_.dtype == w.dtype
         np.testing.assert_array_equal(g_, w)
+
+
+def _chunks(p, inputs, chunks, plan, device):
+    """(origin, slabs on ``device``) of every chunk of a local plan."""
+    from stencilflow_tpu_torch.outofcore import _host_slab
+    I = p.dimensions[0]
+    Ii = plan.extent()
+    for c in range(chunks):
+        lo = c * plan.block - plan.halo_i
+        slabs = {}
+        for n, s in p.inputs.items():
+            a = np.asarray(inputs[n])
+            if s.is_scalar:
+                slabs[n] = torch.as_tensor(a)
+            elif s.dim_mask[0]:
+                slabs[n] = _host_slab(a, lo, lo + Ii, I).to(device)
+            else:
+                slabs[n] = torch.as_tensor(a).to(device)
+        yield lo, slabs
+
+
+# name: (spec, chunks)
+LOCAL_PROGRAMS = {
+    "jacobi3d_shrink_c4": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(64, 40, 72), shape="diffusion",
+        boundary="shrink", seed_data="random:0,1"), 4),
+    "box_r2_c2": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(40, 48, 72), shape="box", extent=2,
+        seed_data="random:0,1"), 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LOCAL_PROGRAMS))
+def test_local_kernel_matches_plain_on_card(name, cuda):
+    """K4 chunk by chunk against local_stream_plain: bit-exact per cell,
+    MXU_VERIFY_RTOL with banded stages."""
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    make, chunks = LOCAL_PROGRAMS[name]
+    p = port.parse_program(make())
+    an = port.ChainAnalysis.run(p)
+    plan = stream.plan_local(p, an, p.dimensions[0] // chunks,
+                             chain_halo(an)[0])
+    lib = stream.build_stream(plan)
+    inputs = port.load_input_arrays(p, seed=4)
+    for lo, slabs in _chunks(p, inputs, chunks, plan, cuda):
+        before = stream.local_launches
+        got = stream.run_local_stream(plan, lo, slabs, lib)
+        torch.cuda.synchronize()
+        assert stream.local_launches == before + 1
+        want = stream.local_stream_plain(plan, lo, slabs)
+        for o in want:
+            g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+            assert np.isfinite(g).all()
+            if plan.mxu_plans:
+                assert port.arrays_are_equal(w, g, MXU_VERIFY_RTOL)
+            else:
+                np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_run_chunked_matches_in_core_on_card(cuda):
+    """jacobi3d 128^3 x 4 through 4 host chunks (K4) equals the in-core
+    route bit for bit."""
+    p = port.parse_program(synthesize_stencil(
+        num_stages=4, dimensions=(128,) * 3, shape="diffusion",
+        seed_data="random:0,1"))
+    res = run_program(p, device=cuda, save_results=False, log_level=0)
+    before = stream.local_launches
+    oc = run_program(p, device=cuda, host_chunks=4, save_results=False,
+                     log_level=0)
+    assert oc.backend == "outofcore[stream x4 chunks]"
+    assert stream.local_launches == before + 2 * 4   # warm-up + 1 run
+    np.testing.assert_array_equal(oc.outputs[p.outputs[0]],
+                                  res.outputs[p.outputs[0]])
+
+
+@pytest.mark.cuda
+def test_local_build_failure_raises(cuda, monkeypatch):
+    """A K4 that does not build raises: no plain version, no dense body."""
+    from stencilflow_tpu_torch.backend import build
+    from stencilflow_tpu_torch.outofcore import run_chunked
+    ran = []
+    monkeypatch.setattr(stream, "stream_source",
+                        lambda plan: "this is not C++\n")
+    monkeypatch.setattr(stream, "stream_plain",
+                        lambda *a, **k: ran.append(1))
+    p = port.parse_program(synthesize_stencil(
+        num_stages=2, dimensions=(16, 16, 16), shape="diffusion"))
+    with pytest.raises(build.KernelBuildError):
+        run_chunked(p, port.load_input_arrays(p, seed=0), 2, device=cuda)
+    assert ran == []
 
 
 @pytest.mark.cuda
