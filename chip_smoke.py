@@ -28,24 +28,36 @@ Phases, one line each (any failure raises and exits non-zero):
    plain version, chunk by chunk, on jacobi3d 64^3 x 3 at 4 chunks
    (constant / copy / shrink BCs), the hdiff DAG at 4 chunks (i-halo 0),
    a box chain of extent 2 banded per stage at 2 chunks and the 3-D fuzz
-   chain (bit-exact per cell, MXU_VERIFY_RTOL banded);
+   chain (bit-exact per cell, MXU_VERIFY_RTOL banded); the stream kernel
+   with rings spilled to device memory (K3c) against its plain version,
+   bit-exact, on the reconvergent 16-stage chain (a shared-memory budget
+   that forces the spill), jacobi3d 64^3 x 3 with every ring spilled
+   (constant / copy / shrink BCs), the hdiff DAG (every ring spilled) and
+   K4 with every ring spilled at 4 chunks; the overlapped-tile kernel
+   (K6), masked and fast, against its plain version on the example
+   programs and fuzz chains above (bit-exact or within VERIFY_RTOL where a
+   transcendental appears);
 4. the ``run`` main path at full size through ``run_program(...,
    device="cuda")``: jacobi3d 512^3 x 8 (panel), jacobi3d 512^3 x 2
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
    extent 2 (stream, all 8 stages composed) and cross3d 256^3 x 8 of
    extent 2 (stream, per stage), jacobi2d and hotspot2d 8192^2 x 8
-   (rows+group_g8) and hdiff2d 8192^2 x 16 (rows+panel), each verified
-   against the dense lowering on the card and, up to 256^3 and for the
-   two 8192^2 x 8 cells, against the numpy oracle (bit-exact for the
-   per-cell kernels, MXU_VERIFY_RTOL for the stream ones); kernel
-   launch counts are reset just before and read just after, and each
-   kernel must have been launched.  The stream cells also print the
-   forced-panel time where the panel planner accepts the program, the 2-D
-   cells the forced overlap kernel on the unrotated plane (the port's
-   route before the rows path) and forced rows+panel; after the main
-   path, one ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained
-   (TF32 off), is timed for the linear chains as a library yardstick the
-   port never calls;
+   (rows+group_g8), hdiff2d 8192^2 x 16 (rows+panel), the deep 3-D
+   chains jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x
+   32 (stream with spilled rings, K3c, 3 repetitions), and K6 forced
+   through ``backend="tile"`` on jacobi3d 512^3 x 2 and hdiff3d 256^3 x
+   8, each verified against the dense lowering on the card and, up to
+   256^3 and for the two 8192^2 x 8 cells, against the numpy oracle
+   (bit-exact for the per-cell kernels, MXU_VERIFY_RTOL for the banded
+   stream ones); kernel launch counts are reset just before and read
+   just after, and each kernel must have been launched.  The stream cells
+   also print the forced-panel time where the panel planner accepts the
+   program, the 2-D cells the forced overlap kernel on the unrotated
+   plane (the port's route before the rows path) and forced rows+panel,
+   the forced K6 cells the route's time; after the main path, one
+   ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained (TF32
+   off), is timed for the linear chains as a library yardstick the port
+   never calls;
 5. the out-of-core path (``run --host-chunks N``) through
    ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
    8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
@@ -67,6 +79,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -192,6 +205,28 @@ def _mixed_spec(dims):
                    "s1[i-1,j+1,k]",
                    "boundary_conditions": {"s1": bc(0.0)},
                    "data_type": "float32"}}}
+
+
+def _reconvergent_spec(stages=16, dims=(12, 24, 32)):
+    """A deep chain whose last stage reads the first again: one ring far
+    deeper than its read count."""
+    prog, prev = {}, "a"
+    for s in range(stages):
+        expr = (f"s{s} = 0.16 * ({prev}[i-1,j,k] + {prev}[i+1,j,k] + "
+                f"{prev}[i,j-1,k] + {prev}[i,j+1,k] + {prev}[i,j,k-1] + "
+                f"{prev}[i,j,k+1])")
+        fields = {prev}
+        if s == stages - 1:
+            expr += " + 0.1 * s0[i,j,k]"
+            fields.add("s0")
+        prog[f"s{s}"] = {"computation_string": expr,
+                         "boundary_conditions": {
+                             f: {"type": "constant", "value": 0.2}
+                             for f in fields},
+                         "data_type": "float32"}
+        prev = f"s{s}"
+    return {"inputs": {"a": {"data": "random:-1,1", "data_type": "float32"}},
+            "outputs": [prev], "dimensions": list(dims), "program": prog}
 
 
 def _io_bytes(program) -> int:
@@ -477,14 +512,17 @@ def main() -> int:
     from stencilflow_tpu_torch.backend import overlap as ov
     from stencilflow_tpu_torch.backend import panel as pn
     from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.backend import tile as tl
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL, VERIFY_RTOL
     from stencilflow_tpu_torch.driver import run_program
+    from stencilflow_tpu_torch.backend.dense import chain_halo
     from stencilflow_tpu_torch.frontend.canonicalize import \
         rotate_2d_to_rows as rows
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
 
     # -- 1. device -----------------------------------------------------------
+    t_run = time.perf_counter()
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {smi} | torch: {kind} | torch {torch.__version__} "
@@ -521,8 +559,8 @@ def main() -> int:
         seed_data="random:0.0,1.0"), name="jacobi3d_512_2itr")
     box256 = synth("box", 256, 8, 2)
     cross256 = synth("cross", 256, 8, 2)
-    mains = [(jacobi8, "panel"), (jacobi2, "overlap"),
-             (synth("hdiff", 256, 8), "panel"),
+    hdiff8 = synth("hdiff", 256, 8)
+    mains = [(jacobi8, "panel"), (jacobi2, "overlap"), (hdiff8, "panel"),
              (synth("hotspot", 256, 8), "panel"),
              (box256, "stream"), (cross256, "stream")]
 
@@ -569,6 +607,16 @@ def main() -> int:
     mains2d = [(jacobi2d, "rows+group_g8"), (hotspot2d, "rows+group_g8"),
                (hdiff2d, "rows+panel")]
     mains += mains2d
+    # K3c (phase 3): (label, program, shared-memory budget; 0 spills
+    # every ring)
+    spill_cases = [("reconvergent", sft.parse_program(
+        _reconvergent_spec(), name="reconvergent_16"), 40000)]
+    spill_cases += [(label, p, 0) for label, p, _c in local_cases[:3]]
+    spill_cases.append(("hdiff-dag", local_cases[3][1], 0))
+    # the deep 3-D cells (phase 4): the stream kernel's spill rung
+    jacobi32 = synth("diffusion", 512, 32)
+    deep = [jacobi32, synth("hdiff", 256, 16), synth("hotspot", 256, 32)]
+    deep_names = {p.name for p in deep}
 
     # -- 2. build: every kernel, one nvcc each, all at once ------------------
     t0 = time.perf_counter()
@@ -648,6 +696,34 @@ def main() -> int:
         an = sft.ChainAnalysis.run(p)
         sources.append((codegen.panel_source(p, an, pn.PanelPlan.build(an)),
                         "panel"))
+    # K3c: phase 3's spilled plans, K4 spilled at 4 chunks, the deep
+    # cells' route plans (rung 4: every stage per cell, spilled)
+    spill_plans = []
+    for label, p, budget in spill_cases:
+        plan = st.plan_stream(p, smem_budget=budget)
+        spill_plans.append((label, p, plan))
+        sources.append((st.stream_source(plan), "stream"))
+    lp = local_cases[1][1]   # jacobi3d 64^3 x 3, copy BCs
+    lan = sft.ChainAnalysis.run(lp)
+    local_spill = st.plan_local(lp, lan, lp.dimensions[0] // 4,
+                                chain_halo(lan)[0], smem_budget=0)
+    sources.append((st.stream_source(local_spill), "local_stream"))
+    deep_plans = {}
+    for p in deep:
+        deep_plans[p.name] = st.plan_stream(p, mxu="off")
+        sources.append((st.stream_source(deep_plans[p.name]), "stream"))
+    # K6: phase 3's programs in both modes, then the forced cells
+    tile_plans = []
+    for label, p in cases:
+        for mode in ("masked", "fast"):
+            plan = tl.plan_tile(p, mode=mode)
+            tile_plans.append((label, p, plan))
+            sources.append((tl.tile_source(plan), "tile"))
+    tile_main = {}
+    for p, mode in ((jacobi2, "masked"), (jacobi2, "fast"),
+                    (hdiff8, "masked")):
+        tile_main[p.name, mode] = tl.plan_tile(p, mode=mode)
+        sources.append((tl.tile_source(tile_main[p.name, mode]), "tile"))
     libs = build.load_libraries(sources)
     lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
     slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
@@ -656,7 +732,17 @@ def main() -> int:
           f"parallel, in {time.perf_counter() - t0:.1f}s (slowest "
           f"{slow[0]} {slow[1]:.1f}s)", flush=True)
 
+    # the numpy oracles of phase 4's cells, computed on host threads while
+    # the card works through phases 3 and 4 (the same inputs as
+    # run_program's: seed 0)
+    oracle_pool = ThreadPoolExecutor(max_workers=3)
+    oracle_of = {p.name: oracle_pool.submit(
+        lambda p=p: sft.run_interpreter(p, sft.load_input_arrays(p, seed=0)))
+        for p in [q for q, _w in mains] + deep
+        if max(p.dimensions) <= 256 or p is jacobi2d or p is hotspot2d}
+
     # -- 3. kernel vs plain on the card --------------------------------------
+    print(f"phase: 3 at {time.perf_counter() - t_run:.1f} s", flush=True)
     for (label, kname, p, an, plan), (src, _) in zip(plain_cases, sources):
         module, _, _, run, plain = kernels[kname]
         lib = lib_of[src]
@@ -758,7 +844,74 @@ def main() -> int:
             raise RuntimeError(f"local stream kernel launched {launched} "
                                f"times over {chunks} chunks of {label}")
 
+    # K3c: spilled rings, whole domain, then K4 spilled chunk by chunk
+    for label, p, plan in spill_plans:
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        before = st.spill_launches
+        got = st.run_stream(plan, arrays, lib_of[st.stream_source(plan)])
+        torch.cuda.synchronize()
+        want = st.stream_plain(plan, arrays)
+        n = st.spill_launches - before
+        for o in p.outputs:
+            ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                               0.0)
+            print(f"compare: spill   {label:28s} tile {plan.tile} spilled "
+                  f"{len(plan.spilled)} of {len(plan.raw_ring)} rings "
+                  f"({plan.spill_bytes()} B) smem {plan.smem_bytes()} B "
+                  f"max_abs_err {err:.3g} launches {n} "
+                  f"{'OK' if ok else 'MISMATCH'}", flush=True)
+            if not ok or n != 1:
+                raise RuntimeError(f"spilled stream kernel disagrees with "
+                                   f"its plain version on {label}")
+    inputs = sft.load_input_arrays(lp, seed=7)
+    launched, worst = 0, 0.0
+    for c in range(4):
+        lo = c * local_spill.block - local_spill.halo_i
+        slabs = _chunk_slabs(lp, inputs, lo, local_spill.extent())
+        before = st.spill_launches
+        got = st.run_local_stream(local_spill, lo, slabs,
+                                  lib_of[st.stream_source(local_spill)])
+        torch.cuda.synchronize()
+        launched += st.spill_launches - before
+        want = st.local_stream_plain(local_spill, lo, slabs)
+        for o in lp.outputs:
+            ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                               0.0)
+            worst = max(worst, err)
+            if not ok:
+                raise RuntimeError(f"spilled local stream kernel disagrees "
+                                   f"with its plain version, chunk {c}")
+    print(f"compare: spill   {lp.name + ' local':28s} chunks 4 tile "
+          f"{local_spill.tile} spilled {len(local_spill.spilled)} rings "
+          f"max_abs_err {worst:.3g} launches {launched} OK", flush=True)
+    if launched != 4:
+        raise RuntimeError(f"spilled K4 launched {launched} times over 4 "
+                           "chunks")
+
+    # K6, masked and fast
+    for label, p, plan in tile_plans:
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        before = tl.launches
+        got = tl.run_tile(plan, arrays, lib_of[tl.tile_source(plan)])
+        torch.cuda.synchronize()
+        want = tl.tile_plain(plan, arrays)
+        rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
+        n = tl.launches - before
+        for o in p.outputs:
+            ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                               rtol)
+            print(f"compare: tile    {label:28s} {plan.mode:6s} tile "
+                  f"{plan.tile} smem {plan.smem_bytes()} B max_abs_err "
+                  f"{err:.3g} launches {n} {'OK' if ok else 'MISMATCH'}",
+                  flush=True)
+            if not ok or n != 1:
+                raise RuntimeError(f"tile kernel ({plan.mode}) disagrees "
+                                   f"with its plain version on {label}")
+
     # -- 4. the main path at full size ---------------------------------------
+    print(f"phase: 4 at {time.perf_counter() - t_run:.1f} s", flush=True)
     # kernel vs plain version at the main path's shapes (counted out)
     report = {}
     library = []     # (report key or cell, program, filter radius)
@@ -851,6 +1004,82 @@ def main() -> int:
         library.append(("stream" if label == "box3d_256_8itr" else label,
                         p, 2))
 
+    # K3c on jacobi3d 512^3 x 32 (the route's spilled plan)
+    plan = deep_plans[jacobi32.name]
+    lib = lib_of[st.stream_source(plan)]
+    arrays = spanned_arrays(jacobi32, sft.load_input_arrays(jacobi32, seed=0),
+                            device="cuda")
+    got = st.run_stream(plan, arrays, lib)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    want = st.stream_plain(plan, arrays)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    o = jacobi32.outputs[0]
+    ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(), 0.0)
+    ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 2)
+    del got, want, arrays
+    plan.device_pool.clear()
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = _bound(jacobi32, _ops_per_cell(jacobi32)
+                                * jacobi32.total_elements)
+    print(f"kernel: stream_spill {jacobi32.name} tile {plan.tile} smem "
+          f"{plan.smem_bytes()} B, spilled {len(plan.spilled)} of "
+          f"{len(plan.raw_ring)} rings ({plan.spill_bytes() / 2 ** 30:.3f} "
+          f"GiB): {ms:.3f} ms ({jacobi32.total_elements / ms / 1e6:.2f} "
+          f"GCell/s), plain version {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
+          f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
+    if not ok:
+        raise RuntimeError("spilled stream kernel disagrees with its plain "
+                           f"version on {jacobi32.name}")
+    report["stream_spill"] = {
+        "name": "stream_spill", "route": "cuda",
+        "source": "stencilflow_tpu_torch/backend/codegen.py",
+        "replaces": "stencilflow_tpu/backend/stream.py:658",
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    library.append(("stream_spill", jacobi32, 1))
+    # K6 on jacobi3d 512^3 x 2: masked (the route's mode), then fast
+    arrays = spanned_arrays(jacobi2, sft.load_input_arrays(jacobi2, seed=0),
+                            device="cuda")
+    for mode in ("masked", "fast"):
+        plan = tile_main[jacobi2.name, mode]
+        lib = lib_of[tl.tile_source(plan)]
+        got = tl.run_tile(plan, arrays, lib)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = tl.tile_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        o = jacobi2.outputs[0]
+        ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(), 0.0)
+        ms = _time_ms(lambda: tl.run_tile(plan, arrays, lib), 10)
+        del got, want
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(jacobi2, _ops_per_cell(jacobi2)
+                                    * jacobi2.total_elements)
+        print(f"kernel: tile {jacobi2.name} {mode} tile {plan.tile} smem "
+              f"{plan.smem_bytes()} B: {ms:.3f} ms"
+              f"{' (with the shell fix-up)' if mode == 'fast' else ''}, "
+              f"plain version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), max_abs_err {err:.3g} "
+              f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
+        if not ok:
+            raise RuntimeError(f"tile kernel ({mode}) disagrees with its "
+                               f"plain version on {jacobi2.name}")
+        if mode == "masked":
+            report["tile"] = {
+                "name": "tile", "route": "cuda",
+                "source": "stencilflow_tpu_torch/backend/codegen.py",
+                "replaces": "stencilflow_tpu/backend/pallas.py:104",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+    library.append(("tile", jacobi2, 1))
+    del arrays
+    torch.cuda.empty_cache()
+
     label, p, an, plan, src = group_plans[len(group_cases)]
     arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
                             device="cuda")
@@ -909,44 +1138,77 @@ def main() -> int:
         del inputs, fr
         torch.cuda.empty_cache()
 
+    route_ms = {}
     pn.launches = 0
     ov.launches = 0
     st.launches = 0
     st.local_launches = 0
+    st.spill_launches = 0
     gp.launches = 0
-    for p, want_backend in mains:
-        oracle = max(p.dimensions) <= 256 or p is jacobi2d or p is hotspot2d
-        res = run_program(p, device="cuda", repetitions=20,
-                          compare_to_reference=oracle, save_results=False,
-                          log_level=0)
+    tl.launches = 0
+    for p, want_backend, backend in (
+            [(p, w, "auto") for p, w in mains]
+            + [(p, "stream", "auto") for p in deep]
+            + [(jacobi2, "tile", "tile"), (hdiff8, "tile", "tile")]):
+        spilled_before = st.spill_launches
+        res = run_program(p, device="cuda", backend=backend,
+                          repetitions=3 if p.name in deep_names else 20,
+                          save_results=False, log_level=0)
         if res.backend != want_backend:
             raise RuntimeError(f"{p.name}: backend {res.backend}, expected "
                                f"{want_backend}")
+        if p.name in deep_names and (not deep_plans[p.name].spilled
+                          or st.spill_launches - spilled_before != 4):
+            raise RuntimeError(f"{p.name}: the spilled stream kernel ran "
+                               f"{st.spill_launches - spilled_before} "
+                               "times over 4 calls")
         dense = run_program(p, device="cuda", backend="dense",
                             repetitions=2, save_results=False, log_level=0)
-        rtol = MXU_VERIFY_RTOL if res.backend == "stream" else 0.0
+        rtol = MXU_VERIFY_RTOL if p is box256 or p is cross256 else 0.0
         for o in p.outputs:
             ok, err = _compare(res.outputs[o], dense.outputs[o], rtol)
             if not ok or not np.isfinite(res.outputs[o]).all():
                 raise RuntimeError(f"{p.name}: {res.backend} disagrees "
                                    f"with dense (max abs diff {err:.3g})")
+        oracle = p.name in oracle_of
+        if oracle:   # run_program's own check (VERIFY_RTOL, banded: MXU)
+            want = oracle_of[p.name].result()
+            for o in p.outputs:
+                if not _compare(res.outputs[o], np.asarray(want[o]),
+                                rtol or VERIFY_RTOL)[0]:
+                    raise RuntimeError(f"{p.name}: {res.backend} disagrees "
+                                       "with the numpy oracle")
+            del want
         if p.name in forced2d and not _compare(
                 res.outputs[p.outputs[0]], forced2d[p.name], 0.0)[0]:
             raise RuntimeError(f"{p.name}: {res.backend} disagrees with "
                                "forced rows+panel")
         cells = p.total_elements
         extra = stream_extra.get(p.name, "")
+        if p.name in deep_names:
+            plan = deep_plans[p.name]
+            extra = (f" | tile {plan.tile}, spilled {len(plan.spilled)} of "
+                     f"{len(plan.raw_ring)} rings, smem "
+                     f"{plan.smem_bytes()} B, spill buffer "
+                     f"{plan.spill_bytes() / 2 ** 30:.3f} GiB")
+        if backend == "tile":
+            plan = tile_main[p.name, "masked"]
+            extra = (f" | tile {plan.tile}, smem {plan.smem_bytes()} B | "
+                     f"route {route_ms[p.name][0]} "
+                     f"{route_ms[p.name][1]:.3f} ms")
+        else:
+            route_ms[p.name] = (res.backend, res.wall_time_s * 1e3)
         print(f"main: {p.name} backend {res.backend} "
               f"{res.wall_time_s * 1e3:.3f} ms "
               f"({cells / res.wall_time_s / 1e9:.2f} GCell/s) | dense "
               f"{dense.wall_time_s * 1e3:.3f} ms "
               f"({cells / dense.wall_time_s / 1e9:.2f} GCell/s) | "
               f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} "
-              f"dense, oracle "
-              f"{'OK' if res.verified_against_reference else 'skipped'}"
+              f"dense, oracle {'OK' if oracle else 'skipped'}"
               f"{extra} | {smi}", flush=True)
         del res, dense
         torch.cuda.empty_cache()
+    oracle_pool.shutdown()
     # the library yardstick, after the main path (cuDNN state stays out
     # of the kernels' timings)
     for key, p, radius in library:
@@ -962,11 +1224,14 @@ def main() -> int:
     report["overlap"]["launches"] = ov.launches
     report["stream"]["launches"] = st.launches
     report["group"]["launches"] = gp.launches
+    report["stream_spill"]["launches"] = st.spill_launches
+    report["tile"]["launches"] = tl.launches
     if st.local_launches:
         raise RuntimeError("the in-core main path launched the local "
                            "stream kernel")
 
     # -- 5. the out-of-core path ---------------------------------------------
+    print(f"phase: 5 at {time.perf_counter() - t_run:.1f} s", flush=True)
     report["local_stream"] = _outofcore(sft, st, pn, ov, gp, oc_cells,
                                         oc_plans, lib_of, smi, run_program)
     for name, entry in report.items():
@@ -978,6 +1243,7 @@ def main() -> int:
            or m == "stencilflow_tpu"]
     if bad:
         raise RuntimeError(f"imported the JAX side: {bad[:5]}")
+    print(f"phase: end at {time.perf_counter() - t_run:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": list(report.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,17 @@
    whole);
 3. ``overlap`` when the chain's cumulative i-extent is at most 2, else
    ``panel``;
-4. the stream kernel with every stage per cell;
+4. the stream kernel with every stage per cell, and last its spill rung
+   (K3c: rings spilled to device memory, ``spill="auto"``) — the rung
+   that takes deep 3-D chains whose rings exceed shared memory at every
+   tile; rung 1 takes a spilled plan too, as the reference takes the
+   spilled plan its streamer returns for a chain with a wide affine
+   stage that fits no tile;
 5. a 2-D chain → ``rows+<lowering>``: rotated, then this ladder again
    (where the rotated chain lands on a kernel);
-6. ``dense``, the whole-domain lowering — also the lowering on a CPU
+6. ``tile``, the overlapped-tile kernel (K6, the reference's ``pallas``
+   rung), when a tile's live buffers fit shared memory;
+7. ``dense``, the whole-domain lowering — also the lowering on a CPU
    device.
 """
 import torch
@@ -30,8 +37,9 @@ from .group import compile_chain_group, plan_group
 from .linear import extract_linear
 from .overlap import OverlapPlan, compile_chain_overlap, shallow_extent
 from .panel import PanelPlan, compile_chain_panel
-from .stream import (MXU_MIN_FOOTPRINT, check_options,
+from .stream import (MXU_MIN_FOOTPRINT, check_options, check_spill,
                      compile_chain_stream, compile_stream_plan, plan_stream)
+from .tile import compile_chain_tile, plan_tile
 
 # rung 2: the reference's rows+group configuration for deep 2-D chains
 ROWS_GROUP = 8
@@ -74,17 +82,19 @@ def _is_2d(program) -> bool:
     return len(program.raw_dimensions) == 2
 
 
-def _route(program, analysis, device, mxu="auto", mxu_precision="split"):
+def _route(program, analysis, device, mxu="auto", mxu_precision="split",
+           spill="auto"):
     """(lowering name, stream plan or None) for ``device``; planning
     only."""
     check_options(mxu, mxu_precision)   # raised, never re-routed
+    check_spill(spill)
     if torch.device(device).type != "cuda":
         return "dense", None
     if mxu != "off" and _any_mxu_candidate(program):
         try:
             plan = plan_stream(program, analysis, mxu=mxu,
-                               mxu_precision=mxu_precision)
-            if plan.mxu_plans:
+                               mxu_precision=mxu_precision, spill=spill)
+            if plan.mxu_plans or plan.spilled:
                 return "stream", plan
         except (ValueError, NotImplementedError):
             pass   # a planner refusal: the per-cell kernels below
@@ -99,38 +109,47 @@ def _route(program, analysis, device, mxu="auto", mxu_precision="split"):
     if stacked:
         return stacked, None
     try:
-        return "stream", plan_stream(program, analysis, mxu="off")
+        return "stream", plan_stream(program, analysis, mxu="off",
+                                     spill=spill)
     except (ValueError, NotImplementedError):
         pass
     if _is_2d(program):
         rot = rotate_2d_to_rows(program)
         inner = _route(rot, ChainAnalysis.run(rot), device, mxu,
-                       mxu_precision)[0]
+                       mxu_precision, spill)[0]
         if inner != "dense":
             return "rows+" + inner, None
+    try:
+        plan_tile(program, analysis)
+        return "tile", None
+    except (ValueError, NotImplementedError):
+        pass
     return "dense", None
 
 
 def choose_backend(program, analysis, device, mxu="auto",
-                   mxu_precision="split") -> str:
+                   mxu_precision="split", spill="auto") -> str:
     """The lowering compile_chain_best takes for ``device``."""
-    return _route(program, analysis, device, mxu, mxu_precision)[0]
+    return _route(program, analysis, device, mxu, mxu_precision, spill)[0]
 
 
 def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
-                       mxu_precision="split"):
+                       mxu_precision="split", spill="auto"):
     """Pick the lowering for ``device``; returns ``(fn, backend_name)``.
-    ``mxu``/``mxu_precision`` forward to the stream lowering."""
+    ``mxu``/``mxu_precision``/``spill`` forward to the stream lowering."""
     analysis = analysis or ChainAnalysis.run(program)
-    name, plan = _route(program, analysis, device, mxu, mxu_precision)
+    name, plan = _route(program, analysis, device, mxu, mxu_precision,
+                        spill)
     if name == f"rows+group_g{ROWS_GROUP}":
         return compile_chain_rows(program, "group", group=ROWS_GROUP,
                                   panel=ROWS_PANEL, device=device)
     if name.startswith("rows+"):
         return compile_chain_rows(program, device=device, mxu=mxu,
-                                  mxu_precision=mxu_precision)
+                                  mxu_precision=mxu_precision, spill=spill)
     if name == "stream":
         return compile_stream_plan(plan, device), name
+    if name == "tile":
+        return compile_chain_tile(program, analysis, device=device), name
     if name == "overlap":
         return compile_chain_overlap(program, analysis, device=device), name
     if name == "panel":
@@ -140,7 +159,7 @@ def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
 
 def compile_chain_rows(program, backend: str = "auto", group: int = 2,
                        panel: int = 0, device="cuda", mxu: str = "auto",
-                       mxu_precision: str = "split"):
+                       mxu_precision: str = "split", spill: str = "auto"):
     """Row-streaming lowering of a 2-D program: rotate the padded domain
     ``(1, J, K) -> (J, 1, K)`` (``frontend.canonicalize.rotate_2d_to_rows``)
     and stream rows through a 3-D lowering — ``backend`` "group" (groups
@@ -149,7 +168,8 @@ def compile_chain_rows(program, backend: str = "auto", group: int = 2,
     program).  Returns ``(fn, "rows+<lowering>")``, ``fn`` giving outputs
     at the program's raw (J, K); raises ValueError when the program is
     not 2-D or the lowering refuses it.  ``panel`` is the group kernel's
-    B only; ``mxu``/``mxu_precision`` forward to the stream lowering."""
+    B only; ``mxu``/``mxu_precision``/``spill`` forward to the stream
+    lowering."""
     rot = rotate_2d_to_rows(program)
     if panel and backend != "group":
         raise ValueError("panel= sets the group kernel's B "
@@ -164,10 +184,12 @@ def compile_chain_rows(program, backend: str = "auto", group: int = 2,
     elif backend == "stream":
         fn, name = (compile_chain_stream(rot, mxu=mxu,
                                          mxu_precision=mxu_precision,
-                                         device=device), "stream")
+                                         device=device, spill=spill),
+                    "stream")
     elif backend == "auto":
         fn, name = compile_chain_best(rot, device=device, mxu=mxu,
-                                      mxu_precision=mxu_precision)
+                                      mxu_precision=mxu_precision,
+                                      spill=spill)
     else:
         raise ValueError(f"unknown rows backend {backend!r} (choose from "
                          "auto, group, panel, overlap, stream)")
@@ -182,4 +204,4 @@ def compile_chain_rows(program, backend: str = "auto", group: int = 2,
 
 __all__ = ["chain_halo", "choose_backend", "compile_chain",
            "compile_chain_best", "compile_chain_group", "compile_chain_rows",
-           "compile_chain_stream"]
+           "compile_chain_stream", "compile_chain_tile"]

@@ -307,13 +307,15 @@ def _inb(dim_mask, coords, dims) -> str:
 def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
               offsets: ir.Offsets, pos: Tuple[str, str, str],
               onchip, scalar_slot: Dict[str, int], at_pos=None,
-              at_dims=None) -> str:
+              at_dims=None, masked: bool = True) -> str:
     """C expression reading ``field`` at ``offsets`` from the cell whose
-    global coords are ``pos``, boundary condition applied.  ``onchip(o)``
-    gives the shared-memory lvalue of an on-chip field at offset vector
-    ``o`` (or None: read the global array ``g_<field>``, whose cell is at
-    ``at_pos`` in an array spanning ``at_dims`` — ``pos`` and the
-    program's dimensions unless a chunk's local slab is read)."""
+    global coords are ``pos``, boundary condition applied (unless
+    ``masked`` is False: the mask-free interior read, zero beyond the
+    domain).  ``onchip(o)`` gives the shared-memory lvalue of an on-chip
+    field at offset vector ``o`` (or None: read the global array
+    ``g_<field>``, whose cell is at ``at_pos`` in an array spanning
+    ``at_dims`` — ``pos`` and the program's dimensions unless a chunk's
+    local slab is read)."""
     if field in program.inputs and program.inputs[field].is_scalar:
         return f"sc.x{scalar_slot[field]}"
     dims = program.dimensions
@@ -333,7 +335,7 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
                 f"[{_flat(mask, c, at_dims)}] : {literal(0, dt)})")
 
     val = at(offs)
-    if not terms:
+    if not terms or not masked:
         return val
     m = " || ".join(terms)
     bc = kspec.boundary_conditions.get(field)
@@ -343,11 +345,11 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
 
 
 def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
-                at_dims=None) -> List[str]:
+                at_dims=None, masked: bool = True) -> List[str]:
     em = StageEmitter(program, kspec)
     lines = [f"const {ctype(program.field_dtype(f))} v{i} = "
              + read_expr(program, kspec, f, offs, pos, onchip(f), slots,
-                         at_pos, at_dims) + ";"
+                         at_pos, at_dims, masked) + ";"
              for i, (f, offs) in enumerate(em.accesses)]
     args = ", ".join(f"v{i}" for i in range(len(em.accesses)))
     lines.append(f"const {ctype(kspec.dtype)} r = sf_stage_{idx}({args});")
@@ -369,10 +371,12 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=()):
 
 
 def _params(program: ir.Program, n_pool: int = 0,
-            origin: bool = False) -> Tuple[str, str]:
+            origin: bool = False, spill: bool = False) -> Tuple[str, str]:
     """Kernel parameter list and the matching launch arguments; ``n_pool``
     float32 tables follow the array inputs in ``in``; ``origin`` adds the
-    local kernel's ``origin_i``."""
+    local kernel's ``origin_i``; ``spill`` the stream kernel's spill
+    buffer ``sf_spill`` (written and read back by the block, so neither
+    const nor restrict: no read goes through the non-coherent path)."""
     params, args = [], []
     arrays = [n for n, s in program.inputs.items() if not s.is_scalar]
     for i, n in enumerate(arrays):
@@ -391,14 +395,22 @@ def _params(program: ir.Program, n_pool: int = 0,
     if origin:
         params.append("const int origin_i")
         args.append("origin_i")
+    if spill:
+        params.append("unsigned char* const sf_spill")
+        args.append("sf_spill")
     return ", ".join(params), ", ".join(args)
 
 
 def _launcher(program, kernel: str, grid: str, smem: int, slots,
-              n_pool: int = 0, origin: bool = False) -> str:
-    params, args = _params(program, n_pool, origin)
+              n_pool: int = 0, origin: bool = False,
+              spill: bool = False) -> str:
+    params, args = _params(program, n_pool, origin, spill)
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
+    if spill:   # the spill buffer follows the tables in ``in``
+        n_arrays = sum(not s.is_scalar for s in program.inputs.values())
+        copies += (f"  unsigned char* const sf_spill = (unsigned char*)"
+                   f"in[{n_arrays + n_pool}];\n")
     name = "sf_local_launch" if origin else "sf_launch"
     origin_arg = "const int origin_i, " if origin else ""
     return f"""
@@ -812,7 +824,15 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     plane q works on global plane ``origin_i + q``: i-offset reads and
     banded groups are masked against the global [0, I), array inputs are
     read from the local (Ii, ...) slabs, and only core planes q in [h, h
-    + Ic) are written, to plane q - h of the (Ic, J, K) outputs."""
+    + Ic) are written, to plane q - h of the (Ic, J, K) outputs.
+
+    Spilled rings (K3c, ``plan.spilled``) live in the block's own region
+    of the spill buffer ``sf_spill`` (one more kernel argument, the last
+    pointer in ``in``) instead of shared memory, with the same slot
+    arithmetic; the barriers between stages make each plane written
+    there visible to the block's threads before they read it.  The g++
+    entry point mallocs that buffer filled with 0xff bytes (NaN), as it
+    does shared memory."""
     I, J, K = dims = program.dimensions
     local = bool(plan.block)
     Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
@@ -821,22 +841,31 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     tj, tk = plan.tile
     ntj, ntk = plan.grid()
     offs = plan.smem_offsets()
+    soffs = plan.spill_offsets()
     n_pool = len(plan.kernel_pool())
-    params, args = _params(program, n_pool, origin=local)
+    spill = bool(plan.spilled)
+    params, args = _params(program, n_pool, origin=local, spill=spill)
     em = _StreamEmitter(program, plan, slots)
     L = [head, _STREAM_MACROS,
          "// stream streamer (backend/stream.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
          "cell stages, K3b banded transforms)" + (
              "; local chunk kernel K4, as built by compile_local_stream "
-             f"(chunk of {Ic} + 2 x {h} planes)" if local else ""),
+             f"(chunk of {Ic} + 2 x {h} planes)" if local else "") + (
+             "; rings spilled to device memory (K3c, spill_read / "
+             f"spill_write / choose_spill): {', '.join(plan.spilled)}"
+             if spill else ""),
          f"SF_DEV void {kernel}_block(const int by, const int bx, "
          "const int tid, const int nt, unsigned char* const sf_smem, "
          f"{params}) {{",
          f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
     for f in plan.raw_ring:
         ct = ctype(program.field_dtype(f))
-        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
+        if f in plan.spilled:
+            L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_spill + (long long)"
+                     f"(by * {ntk} + bx) * {soffs['end']}LL + {soffs[f]});")
+        else:
+            L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
     for n, t in enumerate(plan.tkeys):
         L.append(f"  float* const t{n} = (float*)(sf_smem + {offs[t]});")
     L.append(f"  float* const sf_u = (float*)(sf_smem + {offs['']});")
@@ -914,21 +943,27 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
         L.append("    }")
     L += ["  }", "}"]
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
-                       plan.smem_bytes(), slots, n_pool, origin=local)
+                       plan.smem_bytes(), slots, n_pool, origin=local,
+                       spill_bytes=plan.spill_bytes() if spill else 0)
     return "\n".join(L)
 
 
 def _entry_points(program, kernel: str, params: str, args: str, grid,
                   smem: int, slots, n_pool: int = 0,
-                  origin: bool = False) -> List[str]:
+                  origin: bool = False, spill_bytes: int = 0) -> List[str]:
     """The ``__global__`` kernel around the block body ``<kernel>_block``
     and its ``sf_launch`` (``sf_local_launch`` with ``origin``) for nvcc;
     for g++, ``sf_host_launch``, which runs every block with one thread
     (the barriers separate phases, so that is a valid schedule) over
-    shared memory filled with NaN."""
+    shared memory filled with NaN, and a spill buffer of ``spill_bytes``
+    (when nonzero) filled the same way."""
     ntj, ntk = grid
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
+    spill = [f"  unsigned char* const sf_spill = (unsigned char*)malloc("
+             f"{spill_bytes}LL);",
+             f"  memset(sf_spill, 0xff, {spill_bytes}LL);"] \
+        if spill_bytes else []
     return ["#ifdef __CUDACC__",
             f"__global__ void __launch_bounds__({THREADS}) "
             f"{kernel}({params}) {{",
@@ -937,7 +972,7 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             f"{THREADS}, sf_smem, {_param_names(params)});",
             "}",
             _launcher(program, kernel, f"dim3({ntk}, {ntj})", smem, slots,
-                      n_pool, origin),
+                      n_pool, origin, bool(spill_bytes)),
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
             "void* const* out, const unsigned char* scal"
@@ -947,11 +982,12 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             "  // uninitialised shared memory reads as NaN here",
             f"  unsigned char* const sf_smem = (unsigned char*)malloc("
             f"{max(smem, 1)});",
-            f"  memset(sf_smem, 0xff, {smem});",
+            f"  memset(sf_smem, 0xff, {smem});"] + spill + [
             f"  for (int by = 0; by < {ntj}; ++by)",
             f"    for (int bx = 0; bx < {ntk}; ++bx)",
             f"      {kernel}_block(by, bx, 0, 1, sf_smem, {args});",
-            "  free(sf_smem);", "}", "#endif"]
+            "  free(sf_smem);"] + (["  free(sf_spill);"] if spill else []) + [
+            "}", "#endif"]
 
 
 def group_source(program: ir.Program, analysis: ChainAnalysis,
@@ -1062,6 +1098,87 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
     L += ["  }", "}"]
     L += _entry_points(program, "sf_group", params, args,
                        plan.grid(dims), smem, slots)
+    return "\n".join(L)
+
+
+def tile_source(program: ir.Program, analysis: ChainAnalysis,
+                plan) -> str:
+    """The overlapped-tile kernel for ``plan`` (backend/tile.py TilePlan):
+    one block per 3-D core tile (ti, tj, tk); the full-rank inputs' tiles
+    widened by the chain halo are loaded into shared memory (zero beyond
+    the domain), then every stage is evaluated over its tile widened by
+    its stage halo, in chain order, into a shared-memory buffer placed by
+    liveness, and the core cells inside the domain are written out.
+    ``plan.mode`` "masked" applies boundary conditions at every read from
+    global coordinates; "fast" reads mask-free (the border shell is fixed
+    up outside the kernel).  Like ``stream_source``, the block body also
+    compiles with g++ into ``sf_host_launch``."""
+    I, J, K = dims = program.dimensions
+    order, head, slots = _common(program, analysis)
+    ti, tj, tk = plan.tile
+    nti, ntj, ntk = plan.grid(dims)
+    offs = plan.smem_offsets()
+    masked = plan.mode == "masked"
+    params, args = _params(program)
+    L = [head, _STREAM_MACROS,
+         "// overlapped-tile kernel (backend/tile.py): replaces the TPU "
+         "kernel stencilflow_tpu/backend/pallas.py "
+         + ("_kernel_body (K6, masked)" if masked else
+            "_fast_kernel_body (K6, mask-free interior)"),
+         "SF_DEV void sf_tile_block(const int by, const int bx, "
+         "const int tid, const int nt, unsigned char* const sf_smem, "
+         f"{params}) {{",
+         f"  const int bi = by / {ntj}, bj = by - bi * {ntj};",
+         f"  const int i0 = bi * {ti}, j0 = bj * {tj}, k0 = bx * {tk};"]
+    for f in plan.onchip:
+        ct = ctype(program.field_dtype(f))
+        L.append(f"  {ct}* const b_{f} = ({ct}*)(sf_smem + {offs[f]});")
+
+    def loop(f):
+        EI, EJ, EK = plan.region(f)
+        mi, mj, mk = plan.margin[f]
+        return [f"  for (int p = tid; p < {EI * EJ * EK}; p += nt) {{",
+                f"    const int il = p / {EJ * EK}, jl = (p / {EK}) % {EJ},"
+                f" kl = p % {EK};",
+                f"    const int gi = i0 - {mi} + il, gj = j0 - {mj} + jl, "
+                f"gk = k0 - {mk} + kl;"]
+
+    for f in plan.onchip:
+        if f in program.inputs:
+            L += loop(f)
+            L += [f"    b_{f}[p] = (gi >= 0 && gi < {I} && gj >= 0 && "
+                  f"gj < {J} && gk >= 0 && gk < {K}) ? g_{f}[((long long)"
+                  f"gi * {J} + gj) * {K} + gk] : "
+                  f"{literal(0, program.field_dtype(f))};", "  }"]
+    L.append("  SF_SYNC();")
+    for idx, s in enumerate(order):
+        def onchip(f, s=s):
+            if f not in plan.onchip:
+                return lambda o: None
+            _, FJ, FK = plan.region(f)
+            d = [plan.margin[f][x] - plan.margin[s][x] for x in range(3)]
+            return lambda o: (f"b_{f}[(il + {d[0] + o[0]}) * {FJ * FK} + "
+                              f"(jl + {d[1] + o[1]}) * {FK} + "
+                              f"kl + {d[2] + o[2]}]")
+
+        body = _stage_call(program, program.kernels[s], idx,
+                           ("gi", "gj", "gk"), onchip, slots, masked=masked)
+        if s in plan.onchip:
+            body.append(f"b_{s}[p] = r;")
+        if s in program.outputs:
+            mi, mj, mk = plan.margin[s]
+            body.append(
+                f"if (il >= {mi} && il < {mi + ti} && jl >= {mj} && "
+                f"jl < {mj + tj} && kl >= {mk} && kl < {mk + tk} && "
+                f"gi < {I} && gj < {J} && gk < {K}) "
+                f"o_{s}[((long long)gi * {J} + gj) * {K} + gk] = r;")
+        L.append(f"  // stage {s}")
+        L += loop(s)
+        L += ["    " + b for b in body]
+        L += ["  }", "  SF_SYNC();"]
+    L.append("}")
+    L += _entry_points(program, "sf_tile", params, args, (nti * ntj, ntk),
+                       plan.smem_bytes(), slots)
     return "\n".join(L)
 
 

@@ -185,7 +185,11 @@ def overlap_plain(program: ir.Program, analysis: ChainAnalysis,
     at its spanned shape (0-d for scalars); returns (I, J, K) outputs."""
     dims = program.dimensions
     grid = plan.grid(dims)
-    device = next(iter(arrays.values())).device
+    device = next(a for n, a in arrays.items()
+                  if not program.inputs[n].is_scalar).device
+    order = analysis.graph.kernel_order
+    last = {f: idx for idx, k in enumerate(order)
+            for f in program.kernels[k].accesses()}
 
     def coords(f):
         out = []
@@ -206,7 +210,7 @@ def overlap_plain(program: ir.Program, analysis: ChainAnalysis,
             vals[f] = gather_global(arrays[f], (True, True, True),
                                     coords(f), dims)
     outs = {}
-    for s in analysis.graph.kernel_order:
+    for idx, s in enumerate(order):
         kspec = program.kernels[s]
         gs = coords(s)
         E = plan.region(s)
@@ -249,6 +253,8 @@ def overlap_plain(program: ir.Program, analysis: ChainAnalysis,
             outs[s] = core.reshape(tuple(
                 n * t for n, t in zip(grid, plan.tile)))[
                 :dims[0], :dims[1], :dims[2]].contiguous()
+        for f in [f for f in vals if last.get(f, -1) <= idx]:
+            del vals[f]   # no later stage reads it
     return {o: outs[o] for o in program.outputs}
 
 

@@ -24,6 +24,10 @@ SMEM_PER_BLOCK = 232448
 SMEM_PER_SM = 233472
 SM_COUNT = 132
 THREADS = 256
+# the stream kernel's ring spill (K3c): the most device memory one plan's
+# spilled rings may take (every block's region of the spill buffer); a
+# tile whose spill buffer is larger is refused
+SPILL_BYTES_CAP = 4 << 30
 
 
 def accesses_with_center(kspec: ir.KernelSpec):

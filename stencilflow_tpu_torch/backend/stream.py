@@ -6,10 +6,11 @@ per-cell (VPU) stages on plane rings, and K3b, the wide affine stages as
 banded transforms ``L @ P @ R`` (``_band_dot``, ``apply_transform_block``,
 ``mxu_eval``), composed runs and constant-BC correction planes, and K4,
 the same streamer over one out-of-core i-chunk (``compile_local_stream``,
-local mode below).  Not ported here: the HBM ring spill (K3c), j-tiling
-(the port tiles (j, k) itself), bf16 compute / ring storage, micro-step
-blocks, stage-major order and BC padding (pipeline workarounds for the
-TPU), and the opt-in single-pass ``mxu_precision="bf16"`` mode
+local mode below), and K3c, the ring spill (``choose_spill`` and the
+spill rung, spill below).  Not ported here: j-tiling (the port tiles
+(j, k) itself), bf16 compute / ring storage, micro-step blocks,
+stage-major order and BC padding (pipeline workarounds for the TPU), and
+the opt-in single-pass ``mxu_precision="bf16"`` mode
 (NotImplementedError).
 
 Planning follows the JAX package's choices per stage, untiled: compose
@@ -80,6 +81,29 @@ bytes (slabs in, core planes out); it recomputes the chunk's 2h halo
 planes (1.125x the core at h = 8, Ic = 128) so that chunks need nothing
 from each other, and an out-of-core call is bound by the host copies
 around it, not by the kernel (PERF.md).
+
+Spill (K3c, the counterpart of ``choose_spill`` and the last rung of the
+reference's ``compile_chain_stream``): when no tile fits the shared-memory
+budget (``smem_budget``) with every ring on chip, a per-cell plan (no
+banded or composed stage, as the reference's rung) moves rings to a
+buffer in device memory, in ``choose_spill``'s order — each ring's read
+deltas collected as the reference does (``lag[c] - oi`` per read, plus
+the copy-BC centre read), candidates sorted by ``ring / (1 + |deltas|)``
+descending — until the rest fits.  One thing differs, because device
+memory here is read in place through L1/L2 rather than copied in by DMA:
+a spilled ring keeps no plane on chip (the TPU keeps a staging plane and
+one read buffer per delta), so it frees its whole ring and a depth-1
+ring can spill too; the traffic it adds per step is still the
+reference's, one plane written and |deltas| planes read.  Each tile is
+costed by ``tile_cost`` with that traffic added, and a tile whose spill
+buffer (blocks x spilled bytes per block) exceeds ``SPILL_BYTES_CAP`` is
+refused.  The kernel's spilled ring pointers point into the block's own
+region of that buffer (``sf_spill``, allocated once per plan and device
+beside ``device_pool``), with the same slot arithmetic as shared memory;
+the plain version does not change (spilling moves storage, not
+arithmetic).  Launches of a spilled plan count in ``spill_launches``.
+Bound: the same bytes as the unspilled kernel; it pays the halo
+recompute of small tiles and the spilled rings' traffic through L2.
 """
 from __future__ import annotations
 
@@ -98,15 +122,18 @@ from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      mxu_flops_per_cell, plan_all_stages)
 from .panel import ring_fields, tile_candidates
-from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
-                         check_scope, or_mask, resolve_device, run_kernel,
+from .stacked_io import (SMEM_PER_BLOCK, SPILL_BYTES_CAP,
+                         accesses_with_center, bc_select, check_scope,
+                         or_mask, resolve_device, run_kernel,
                          spanned_arrays, tile_cost)
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only): the whole-domain stream
-# kernel (K3) and the local chunk kernel (K4)
+# kernel (K3), the local chunk kernel (K4), and either with spilled rings
+# (K3c)
 launches = 0
 local_launches = 0
+spill_launches = 0
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -136,7 +163,11 @@ class StreamPlan:
     block: int = 0                 # local mode: core i-planes of a chunk
     #                                (0: the whole domain)
     halo_i: int = 0                # local mode: i-halo each side of it
-    # kernel_pool() arrays on each device the kernel ran on
+    # K3c: spilled raw rings -> their sorted read deltas (choose_spill's)
+    spilled: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
+    # kernel_pool() arrays (then the spill buffer) on each device the
+    # kernel ran on
     device_pool: Dict[object, List[torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
     bands: Dict[str, tuple] = dataclasses.field(default_factory=dict,
@@ -216,16 +247,22 @@ class StreamPlan:
         TJ, TK = self.region(tkey)
         return TJ + 2 * self.reach(tkey[1], "L"), TK
 
+    def ring_bytes(self, f: str) -> int:
+        """Bytes of field ``f``'s raw ring, rounded up to 16."""
+        tj, tk = self.region(f)
+        size = self.raw_ring[f] * tj * tk * np.dtype(
+            self.program.field_dtype(f)).itemsize
+        return -(-size // 16) * 16
+
     def smem_offsets(self) -> Dict[object, int]:
-        """Byte offset of every raw ring, transform ring and the k-pass
-        scratch (key "") in the block's shared memory; "end" = total."""
+        """Byte offset of every on-chip raw ring (spilled ones excepted),
+        transform ring and the k-pass scratch (key "") in the block's
+        shared memory; "end" = total."""
         off, out = 0, {}
-        for f, depth in self.raw_ring.items():
-            out[f] = off
-            tj, tk = self.region(f)
-            size = depth * tj * tk * np.dtype(
-                self.program.field_dtype(f)).itemsize
-            off += -(-size // 16) * 16
+        for f in self.raw_ring:
+            if f not in self.spilled:
+                out[f] = off
+                off += self.ring_bytes(f)
         for tkey, depth in self.tring.items():
             out[tkey] = off
             tj, tk = self.region(tkey)
@@ -240,17 +277,37 @@ class StreamPlan:
     def smem_bytes(self) -> int:
         return self.smem_offsets()["end"]
 
+    def spill_offsets(self) -> Dict[str, int]:
+        """Byte offset of every spilled ring in one block's region of the
+        spill buffer; "end" = the region's size (a multiple of 128)."""
+        off, out = 0, {}
+        for f in self.raw_ring:
+            if f in self.spilled:
+                out[f] = off
+                off += self.ring_bytes(f)
+        out["end"] = -(-off // 128) * 128
+        return out
+
+    def spill_bytes(self) -> int:
+        """Bytes of the spill buffer: every block's region."""
+        ntj, ntk = self.grid()
+        return ntj * ntk * self.spill_offsets()["end"]
+
     def grid(self) -> Tuple[int, int]:
         dims = self.program.dimensions
         return -(-dims[1] // self.tile[0]), -(-dims[2] // self.tile[1])
 
     def work(self) -> int:
         """Modelled per-block work of one plane step: cells of every stage
-        and ring input region, plus transform taps / 8."""
+        and ring input region, plus transform taps / 8, plus each spilled
+        ring's device-memory traffic (one plane written, one read per
+        delta)."""
         program = self.program
         cells = sum(math.prod(self.region(f)) for f in program.kernels)
         cells += sum(math.prod(self.region(f)) for f in self.raw_ring
                      if f in program.inputs)
+        cells += sum(math.prod(self.region(f)) * (1 + len(d))
+                     for f, d in self.spilled.items())
         taps = 0
         for t in self.tkeys:
             TJ, TK = self.region(t)
@@ -294,14 +351,57 @@ class StreamPlan:
         """The JAX package's ``compile_chain_stream.last_config`` keys."""
         return {"mxu_stages": sorted(self.mxu_plans),
                 "composed": {k: list(v) for k, v in self.composed.items()},
-                "jtiles": 1, "spilled": [], "tile": self.tile}
+                "jtiles": 1, "spilled": sorted(self.spilled),
+                "tile": self.tile}
 
 
 # -- planner -------------------------------------------------------------------
 
+def spill_deltas(plan: StreamPlan) -> Dict[str, set]:
+    """``choose_spill``'s read deltas of every raw ring: ``lag[c] - oi``
+    for each read of the field by stage ``c``, plus ``lag[c]`` for a
+    copy-BC centre read."""
+    program = plan.program
+    deltas: Dict[str, set] = {f: set() for f in plan.raw_ring}
+    for kname in plan.analysis.graph.kernel_order:
+        kspec = program.kernels[kname]
+        for f, accs in kspec.accesses().items():
+            if f not in deltas:
+                continue
+            for a in accs:
+                deltas[f].add(plan.lag[kname] - (a[0] or 0))
+            bc = kspec.boundary_conditions.get(f)
+            if bc is not None and bc.kind == ir.BCKind.COPY:
+                deltas[f].add(plan.lag[kname])
+    return deltas
+
+
+def spill_order(plan: StreamPlan, deltas: Dict[str, set]) -> List[str]:
+    """The raw rings in ``choose_spill``'s order: the reference's ring
+    depth per read delta, descending (a stable sort of the ring order)."""
+    return sorted([f for f in plan.ring if f in plan.raw_ring],
+                  key=lambda f: -(plan.ring[f] / (1 + len(deltas[f]))))
+
+
+def _spill_to_fit(plan: StreamPlan, order: List[str], deltas, budget: int
+                  ) -> bool:
+    """Spill rings of ``plan`` at its tile in ``order`` until the rest
+    fits ``budget`` bytes of shared memory; False when nothing does or
+    the spill buffer exceeds ``SPILL_BYTES_CAP``."""
+    plan.spilled = {}
+    for f in order:
+        if plan.smem_bytes() <= budget:
+            break
+        if deltas[f]:
+            plan.spilled[f] = tuple(sorted(deltas[f]))
+    return (plan.smem_bytes() <= budget
+            and plan.spill_bytes() <= SPILL_BYTES_CAP)
+
+
 def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 mxu_precision: str, builds, tile, block: int = 0,
-                halo_i: int = 0) -> StreamPlan:
+                halo_i: int = 0, smem_budget: int = SMEM_PER_BLOCK,
+                spill: str = "off") -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
     pool = MatrixPool()
@@ -374,26 +474,45 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
             raise ValueError(f"field {t[0]} halo {halo[t[0]]} is narrower "
                              f"than its transform's reach ({need_j}, "
                              f"{need_k})")
+    # the spill rung: per-cell plans only, as the reference's
+    spillable = spill != "off" and not plans
+    if spillable:
+        deltas = spill_deltas(plan)
+        order = spill_order(plan, deltas)
     if tile is not None:
         plan.tile = tuple(tile)
-        if plan.smem_bytes() > SMEM_PER_BLOCK:
-            raise ValueError(f"stream tile {tile} exceeds shared memory")
-        return plan
+        if plan.smem_bytes() <= smem_budget or (
+                spillable and _spill_to_fit(plan, order, deltas,
+                                            smem_budget)):
+            return plan
+        raise ValueError(f"stream tile {tile} exceeds shared memory")
     best = None
-    for cand in tile_candidates(dims):
-        plan.tile = cand
-        smem = plan.smem_bytes()
-        if smem > SMEM_PER_BLOCK:
-            continue
-        ntj, ntk = plan.grid()
-        cost = (tile_cost(ntj * ntk, smem, plan.work()),
-                -cand[0] * cand[1])
-        if best is None or cost < best[0]:
-            best = (cost, cand)
+    for leg in ("on chip", "spill") if spillable else ("on chip",):
+        for cand in tile_candidates(dims):
+            plan.tile = cand
+            if leg == "spill":
+                if not _spill_to_fit(plan, order, deltas, smem_budget):
+                    continue
+            elif plan.smem_bytes() > smem_budget:
+                continue
+            ntj, ntk = plan.grid()
+            cost = (tile_cost(ntj * ntk, plan.smem_bytes(), plan.work()),
+                    -cand[0] * cand[1])
+            if best is None or cost < best[0]:
+                best = (cost, cand, plan.spilled)
+        if best is not None:
+            break
     if best is None:
-        raise ValueError("stream rings exceed shared memory at every tile")
-    plan.tile = best[1]
+        raise ValueError("stream rings exceed shared memory at every tile"
+                         + (" (spilled: over the device-memory cap)"
+                            if spillable else ""))
+    plan.tile, plan.spilled = best[1], best[2]
     return plan
+
+
+def check_spill(spill: str) -> None:
+    if spill not in ("auto", "off"):
+        raise ValueError(f"spill must be 'auto' or 'off', got {spill!r}")
 
 
 def check_options(mxu: str, mxu_precision: str) -> None:
@@ -412,14 +531,21 @@ def check_options(mxu: str, mxu_precision: str) -> None:
 def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                 mxu: str = "auto", mxu_precision: str = "split",
                 compose: str = "auto",
-                tile: Optional[Tuple[int, int]] = None) -> StreamPlan:
+                tile: Optional[Tuple[int, int]] = None,
+                smem_budget: int = SMEM_PER_BLOCK,
+                spill: str = "auto") -> StreamPlan:
     """The stream lowering's plan, making the JAX package's per-stage
-    choice between composed, per-stage banded and per-cell.  Raises
-    ValueError / NotImplementedError when the program is out of scope
-    (nothing is built)."""
+    choice between composed, per-stage banded and per-cell, in the
+    reference's order: composed, banded, every stage per cell, and last
+    the spill rung (``spill="auto"``: per cell, rings spilled to device
+    memory).  ``smem_budget`` is the shared memory one block may take
+    (the reference's ``vmem_budget``).  Raises ValueError /
+    NotImplementedError when the program is out of scope (nothing is
+    built)."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
+    check_spill(spill)
     if compose != "off" and mxu != "off":
         max_t = 0 if compose == "auto" else int(compose)
         got = compose_program(program, analysis, max_t) if max_t >= 0 \
@@ -428,28 +554,42 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
             program2, builds = got
             try:
                 return _build_plan(program2, ChainAnalysis.run(program2),
-                                   mxu, mxu_precision, builds, tile)
+                                   mxu, mxu_precision, builds, tile,
+                                   smem_budget=smem_budget)
             except ValueError:
                 pass   # the uncomposed program below
-    return _build_plan(program, analysis, mxu, mxu_precision, {}, tile)
+    if mxu != "off":
+        try:
+            return _build_plan(program, analysis, mxu, mxu_precision, {},
+                               tile, smem_budget=smem_budget, spill=spill)
+        except ValueError:
+            pass   # every stage per cell below
+    return _build_plan(program, analysis, "off", mxu_precision, {}, tile,
+                       smem_budget=smem_budget, spill=spill)
 
 
 def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
                block: int, halo_i: int, mxu: str = "auto",
                mxu_precision: str = "split",
-               tile: Optional[Tuple[int, int]] = None) -> StreamPlan:
+               tile: Optional[Tuple[int, int]] = None,
+               smem_budget: int = SMEM_PER_BLOCK,
+               spill: str = "auto") -> StreamPlan:
     """The local (chunk) plan of K4: ``block`` core i-planes widened by
     ``halo_i`` planes each side; stages banded where ``mxu`` is "auto"
     and the banded planner takes them (never composed), the rest per
-    cell.  Raises ValueError / NotImplementedError when the program is
-    out of scope or no tile fits shared memory."""
+    cell; a per-cell plan spills rings (``spill="auto"``) when no tile
+    fits ``smem_budget`` otherwise.  Raises ValueError /
+    NotImplementedError when the program is out of scope or no tile
+    fits."""
     if block < 1 or halo_i < 0:
         raise ValueError(f"bad local block {block} / i-halo {halo_i}")
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
+    check_spill(spill)
     return _build_plan(program, analysis, mxu, mxu_precision, {}, tile,
-                       block=block, halo_i=halo_i)
+                       block=block, halo_i=halo_i, smem_budget=smem_budget,
+                       spill=spill)
 
 
 # -- plain version --------------------------------------------------------------
@@ -617,18 +757,32 @@ def build_stream(plan: StreamPlan):
 
 
 def _pool_tensors(plan: StreamPlan, device) -> List[torch.Tensor]:
+    """The kernel's device tables, then its spill buffer (one per plan
+    and device: launches on one stream reuse it in turn)."""
     if device not in plan.device_pool:
         plan.device_pool[device] = [
             torch.as_tensor(a).to(device).contiguous()
             for _k, a in plan.kernel_pool()]
+        if plan.spilled:
+            plan.device_pool[device].append(torch.empty(
+                plan.spill_bytes(), dtype=torch.uint8, device=device))
     return plan.device_pool[device]
+
+
+def _count(plan: StreamPlan, launched: int) -> None:
+    global launches, local_launches, spill_launches
+    if plan.spilled:
+        spill_launches += launched
+    elif plan.block:
+        local_launches += launched
+    else:
+        launches += launched
 
 
 def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
     """The stream kernel on ``arrays`` (spanned shapes, scalars 0-d).
     ``lib`` is the built kernel (``build_stream``); it is built on demand
     when omitted."""
-    global launches
     if plan.block:
         raise ValueError("a local plan runs through run_local_stream")
     outs, launched = run_kernel(
@@ -636,7 +790,7 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
         lambda: lib if lib is not None else build_stream(plan),
         lambda: stream_plain(plan, arrays),
         extra=lambda device: _pool_tensors(plan, device))
-    launches += launched
+    _count(plan, launched)
     return outs
 
 
@@ -660,7 +814,6 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
     inputs whole, scalars 0-d; ``origin_i`` is the global index of the
     slabs' first plane.  Returns the (Ic, J, K) core planes of every
     output.  ``lib`` is the built kernel (``build_stream``)."""
-    global local_launches
     if not plan.block:
         raise ValueError("run_local_stream takes a local plan (plan_local)")
     in_dims, out_dims = _local_dims(plan)
@@ -670,7 +823,7 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
         lambda: stream_plain(plan, slabs, origin_i),
         extra=lambda device: _pool_tensors(plan, device),
         in_dims=in_dims, out_dims=out_dims, origin_i=origin_i)
-    local_launches += launched
+    _count(plan, launched)
     return outs
 
 
@@ -712,13 +865,15 @@ def compile_chain_stream(program: ir.Program,
                          mxu: str = "auto", mxu_precision: str = "split",
                          compose: str = "auto",
                          tile: Optional[Tuple[int, int]] = None,
-                         device="cuda"):
+                         device="cuda", smem_budget: int = SMEM_PER_BLOCK,
+                         spill: str = "auto"):
     """Plan the stream lowering (ValueError / NotImplementedError when the
     program is out of its scope) and, for a CUDA ``device``, build its
     kernel.  Returns ``fn(inputs) -> outputs`` at the program's raw dims,
     with the plan as ``fn.plan`` and the JAX package's configuration keys
-    as ``fn.last_config``."""
+    as ``fn.last_config``.  ``smem_budget`` and ``spill`` go to
+    ``plan_stream``."""
     plan = plan_stream(program, analysis, mxu=mxu,
                        mxu_precision=mxu_precision, compose=compose,
-                       tile=tile)
+                       tile=tile, smem_budget=smem_budget, spill=spill)
     return compile_stream_plan(plan, device)

@@ -25,7 +25,8 @@ def _cmd_run(args) -> int:
             backend=args.backend, print_result=args.print_result,
             log_level=args.log_level, profile_dir=args.profile,
             seed=args.seed, tolerance=args.tolerance, mxu=args.mxu,
-            mxu_precision=args.mxu_precision, host_chunks=args.host_chunks)
+            mxu_precision=args.mxu_precision, host_chunks=args.host_chunks,
+            spill="off" if args.no_spill else "auto")
     except VerificationError as exc:
         print(f"VERIFICATION FAILED: {exc}", file=sys.stderr)
         return 1
@@ -68,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mxu", default="auto", choices=["auto", "off"],
                    help="auto: wide affine stages run as banded transforms "
                         "on the stream lowering; off: per cell")
+    p.add_argument("--no-spill", action="store_true",
+                   help="keep every stream ring in shared memory (no ring "
+                        "spill to device memory when rings exceed it)")
     p.add_argument("--mxu-precision", default="split",
                    choices=["split", "exact"],
                    help="band transform precision (both compute in f32 "

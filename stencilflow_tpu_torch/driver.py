@@ -5,11 +5,14 @@ the same flow, flags and verification (the numpy oracle at
 ``VERIFY_RTOL`` after optional halo pruning), with the lowering chosen by
 ``backend.compile_chain_best`` for a torch ``device``; a run whose
 stream lowering has banded stages verifies at ``MXU_VERIFY_RTOL``, as the
-JAX package's driver does.  Not ported yet: the simulator cross-check,
-the single-pass bf16 transforms and the TPU-only knobs (ring storage,
-spill).  ``backend="rows"`` streams a 2-D program's rows
-(``compile_chain_rows``, the auto lowering of the rotated program), as
-``--backend rows`` does in the JAX package.  ``host_chunks=N`` (N > 1)
+JAX package's driver does.  ``spill`` ("auto"/"off") is the stream
+kernel's ring spill to device memory (K3c), as ``spill`` is in the JAX
+package.  Not ported yet: the simulator cross-check, the single-pass
+bf16 transforms and bf16 ring storage.  ``backend="rows"`` streams a 2-D
+program's rows (``compile_chain_rows``, the auto lowering of the rotated
+program), as ``--backend rows`` does in the JAX package;
+``backend="tile"`` forces the overlapped-tile kernel (K6), the JAX
+package's ``pallas``; its ``xla`` is ``dense`` here.  ``host_chunks=N`` (N > 1)
 runs out-of-core (``outofcore.py``): inputs stay on the host and i-chunks
 stream through the chunk kernel K4 (``outofcore[stream xN chunks]``) or,
 on the CPU or where K4's planner refuses, the dense tile body
@@ -34,6 +37,7 @@ from .backend import (compile_chain, compile_chain_best,
 from .backend.overlap import compile_chain_overlap
 from .backend.panel import compile_chain_panel
 from .backend.stream import compile_chain_stream
+from .backend.tile import compile_chain_tile
 from .config import MXU_VERIFY_RTOL, VERIFY_RTOL
 from .data import (arrays_are_equal, load_input_arrays, prune_halo,
                    save_output_arrays)
@@ -41,7 +45,7 @@ from .frontend.analysis import ChainAnalysis
 from .frontend.parser import parse_program
 from .interpreter import run_interpreter
 
-BACKENDS = ("auto", "stream", "rows", "panel", "overlap", "dense",
+BACKENDS = ("auto", "stream", "rows", "panel", "overlap", "tile", "dense",
             "interpreter")
 
 
@@ -63,17 +67,20 @@ class RunResult:
     host_staging: Optional[Dict[str, float]] = None
 
 
-def _compile(program, analysis, backend: str, device, mxu, mxu_precision):
+def _compile(program, analysis, backend: str, device, mxu, mxu_precision,
+             spill):
     if backend == "auto":
         return compile_chain_best(program, analysis, device=device, mxu=mxu,
-                                  mxu_precision=mxu_precision)
+                                  mxu_precision=mxu_precision, spill=spill)
     if backend == "stream":
         return (compile_chain_stream(program, analysis, mxu=mxu,
                                      mxu_precision=mxu_precision,
-                                     device=device), "stream")
+                                     device=device, spill=spill), "stream")
     if backend == "rows":
         return compile_chain_rows(program, device=device, mxu=mxu,
-                                  mxu_precision=mxu_precision)
+                                  mxu_precision=mxu_precision, spill=spill)
+    if backend == "tile":
+        return compile_chain_tile(program, analysis, device=device), "tile"
     if backend == "panel":
         return compile_chain_panel(program, analysis, device=device), "panel"
     if backend == "overlap":
@@ -129,13 +136,15 @@ def run_program(stencil_file, device="cuda",
                 tolerance: Optional[float] = None,
                 mxu: str = "auto",
                 mxu_precision: str = "split",
-                host_chunks: int = 0) -> RunResult:
+                host_chunks: int = 0,
+                spill: str = "auto") -> RunResult:
     """Run one stencil program end to end on ``device``.  ``stencil_file``
     may be a path, a JSON dict, or an already-parsed Program.
     ``tolerance`` overrides the relative verification tolerance (default:
     config.VERIFY_RTOL, or MXU_VERIFY_RTOL for a stream run with banded
-    stages).  ``mxu`` ("auto"/"off") and ``mxu_precision``
-    ("split"/"exact") forward to the stream lowering.  ``host_chunks`` > 1
+    stages).  ``mxu`` ("auto"/"off"), ``mxu_precision``
+    ("split"/"exact") and ``spill`` ("auto"/"off") forward to the stream
+    lowering.  ``host_chunks`` > 1
     runs out-of-core in that many i-chunks (overrides ``backend``; the
     timing includes the transfers)."""
     device = torch.device(device)
@@ -173,7 +182,7 @@ def run_program(stencil_file, device="cuda",
             from .outofcore import compile_chunked_chain, run_chunked
             compiled = compile_chunked_chain(
                 program, host_chunks, analysis, device=device, mxu=mxu,
-                mxu_precision=mxu_precision)
+                mxu_precision=mxu_precision, spill=spill)
             host_out = {o: np.empty(tuple(program.raw_dimensions),
                                     np.dtype(program.kernels[o].dtype))
                         for o in program.outputs}
@@ -187,7 +196,7 @@ def run_program(stencil_file, device="cuda",
             dev_inputs = inputs
         else:
             fn, result.backend = _compile(program, analysis, backend,
-                                          device, mxu, mxu_precision)
+                                          device, mxu, mxu_precision, spill)
             banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
             dev_inputs = {k: (torch.as_tensor(np.asarray(v)).to(device)
                               if not program.inputs[k].is_scalar else v)

@@ -13,8 +13,9 @@ residency is O(N / C): two chunks in flight.
 
 The chunk body on a CUDA device is K4, the local stream kernel
 (``backend/stream.py`` local mode, chosen by
-``parallel/domain.py plan_local_stream``); where no (j, k) tile fits
-shared memory, or on the CPU, it is the dense tile body
+``parallel/domain.py plan_local_stream``, with rings spilled to device
+memory where no (j, k) tile fits shared memory otherwise); where no plan
+fits, or on the CPU, it is the dense tile body
 (``backend/tile_eval.py evaluate_chain_tile`` at the core origin), as the
 reference falls back to its XLA body.  ``backend="stream"`` on the CPU
 runs K4's plain version.
@@ -67,7 +68,9 @@ def _fake_plan(program: ir.Program, block, halo) -> DomainDecomposition:
 def compile_chunked_chain(program: ir.Program, chunks: int,
                           analysis: Optional[ChainAnalysis] = None,
                           backend: str = "auto", mxu: str = "auto",
-                          mxu_precision: str = "split", device="cuda"):
+                          mxu_precision: str = "split", device="cuda",
+                          spill: str = "auto",
+                          smem_budget: Optional[int] = None):
     """Build ``(chunk_fn, plan)``: ``chunk_fn(origin_i, tiles) ->
     outputs`` evaluating one i-chunk on ``device``, built once for all
     chunks.
@@ -78,7 +81,8 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     the chunk's first *widened* plane (core start minus halo).  Outputs
     are the chunk's core planes at the program's raw rank.  ``backend``:
     "stream" (K4; its plain version on the CPU), "dense", or "auto"
-    (stream on a CUDA device, dense on the CPU)."""
+    (stream on a CUDA device, dense on the CPU).  ``spill`` and
+    ``smem_budget`` go to K4's planner (``plan_local_stream``)."""
     analysis = analysis or ChainAnalysis.run(program)
     dims = program.dimensions
     I, J, K = dims
@@ -106,7 +110,8 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     if backend == "stream":
         from .backend.stream import compile_local_stream
         got = plan_local_stream(program, analysis, plan3, mxu=mxu,
-                                mxu_precision=mxu_precision)
+                                mxu_precision=mxu_precision, spill=spill,
+                                smem_budget=smem_budget)
         if got is not None:
             splan, cfg = got
             kern = compile_local_stream(splan, device)

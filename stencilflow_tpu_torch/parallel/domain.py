@@ -36,32 +36,41 @@ class DomainDecomposition:
 
 def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
                       plan: DomainDecomposition, mxu: str = "auto",
-                      mxu_precision: str = "split"):
+                      mxu_precision: str = "split", spill: str = "auto",
+                      smem_budget: Optional[int] = None):
     """Choose the per-block streaming kernel (K4) for a local block of
     ``plan.block`` with i-halo ``plan.halo[0]``.
 
-    Candidate order, as the reference's: the block with banded stages
-    (uncomposed), then every stage per cell.  The (j, k) tile is the
-    port's own choice within each candidate (the reference's j-tiles).
+    Candidate order, as the reference's rescue: the block with banded
+    stages (uncomposed), then every stage per cell, then (``spill="auto"``)
+    every stage per cell with rings spilled to device memory (K3c).
+    Outputs may spill here: the kernel writes core planes directly, not
+    through their ring.  The (j, k) tile is the port's own choice within
+    each candidate (the reference's j-tiles); ``smem_budget`` is the
+    shared memory a block may take (``SMEM_PER_BLOCK`` by default).
     Returns ``(stream_plan, config)``, ``config`` with the reference's
     keys (``backend``, ``jtiles``, ``mxu_stages``, ``spilled``), or None
-    when the program is out of the kernel's scope or no tile fits shared
-    memory (the caller then takes the dense tile body, as the reference
-    takes its fused-XLA one).  No ring spill yet (K3c): ``spilled`` stays
-    empty."""
-    from ..backend.stream import check_options, plan_local
+    when the program is out of the kernel's scope or no candidate fits
+    (the caller then takes the dense tile body, as the reference takes
+    its fused-XLA one)."""
+    from ..backend.stacked_io import SMEM_PER_BLOCK
+    from ..backend.stream import check_options, check_spill, plan_local
     check_options(mxu, mxu_precision)   # raised, never re-routed
-    legs = ["auto", "off"] if mxu != "off" else ["off"]
-    for leg in legs:
+    check_spill(spill)
+    budget = SMEM_PER_BLOCK if smem_budget is None else smem_budget
+    legs = [("auto", "off")] if mxu != "off" else []
+    legs += [("off", "off")] + ([("off", spill)] if spill != "off" else [])
+    for leg, leg_spill in legs:
         try:
             splan = plan_local(program, analysis, plan.block[0],
                                plan.halo[0], mxu=leg,
-                               mxu_precision=mxu_precision)
+                               mxu_precision=mxu_precision,
+                               smem_budget=budget, spill=leg_spill)
         except (ValueError, NotImplementedError):
             continue
         if leg == "auto" and not splan.mxu_plans:
             continue   # no banded stage: the same as the per-cell leg
         return splan, {"backend": "stream", "jtiles": 1,
                        "mxu_stages": sorted(splan.mxu_plans),
-                       "spilled": []}
+                       "spilled": sorted(splan.spilled)}
     return None

@@ -4,12 +4,15 @@
     python -m stencilflow_tpu_torch.sweep jacobi2d   # named cells only
 
 Cells: box-r2 and cross-r2 256^3 x 8 (stream), jacobi2d and hotspot2d
-8192^2 x 8 rotated to rows (group, g = 8, B = 64).  Builds the kernel at
-every (tj, tk) tile whose shared memory fits (one nvcc per tile, all
-started together), times each on the same random inputs with CUDA events
-(one warm-up, then 2 launches), and prints the tiles fastest first beside
-the planner's pick, its modelled cost inputs and the card's
-``nvidia-smi`` name and power limit.  It is how the planners' tile cost
+8192^2 x 8 rotated to rows (group, g = 8, B = 64), and the deep 3-D
+chains jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32
+(stream with rings spilled to device memory, K3c: at each tile the
+planner spills rings until the rest fits shared memory).  Builds the
+kernel at every (tj, tk) tile whose shared memory fits (one nvcc per
+tile, all started together), times each on the same random inputs with
+CUDA events (one warm-up, then 2 launches), and prints the tiles fastest
+first beside the planner's pick, its modelled cost inputs (and spilled
+rings) and the card's ``nvidia-smi`` name and power limit.  It is how the planners' tile cost
 (``stacked_io.tile_cost``) was checked; it needs a CUDA device.
 """
 from __future__ import annotations
@@ -56,8 +59,11 @@ def sweep(program, reps: int = 2):
                                  for p in plans])
     arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
                             device="cuda")
-    rows = [(_time_ms(lambda: stream.run_stream(p, arrays, lib), reps), p)
-            for p, lib in zip(plans, libs)]
+    rows = []
+    for p, lib in zip(plans, libs):
+        rows.append((_time_ms(lambda: stream.run_stream(p, arrays, lib),
+                              reps), p))
+        p.device_pool.clear()   # a spilled plan's buffer
     return sorted(rows, key=lambda r: r[0]), pick
 
 
@@ -95,6 +101,12 @@ def _cells():
         cells[name] = (rotate_2d_to_rows(parse_program(
             synth(shape, (8192, 8192)), name=f"{name}_8192_8itr")),
             sweep_group)
+    for name, shape, n, iters in (("jacobi3d32", "diffusion", 512, 32),
+                                  ("hdiff3d16", "hdiff", 256, 16),
+                                  ("hotspot3d32", "hotspot", 256, 32)):
+        cells[name] = (parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape,
+            seed_data="random:0.0,1.0"), name=f"{name}_{n}"), sweep)
     return cells
 
 
@@ -123,6 +135,10 @@ def main() -> int:
             mark = " <- planner" if p.tile == pick.tile else ""
             if fn is sweep:
                 smem, grid, work = p.smem_bytes(), p.grid(), p.work()
+                if p.spilled:
+                    mark = (f", spilled {len(p.spilled)} of "
+                            f"{len(p.raw_ring)} rings "
+                            f"({p.spill_bytes() / 2 ** 20:.0f} MiB){mark}")
             else:
                 smem, grid, work = (p.smem_bytes(program),
                                     p.grid(program.dimensions),

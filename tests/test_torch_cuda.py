@@ -292,3 +292,118 @@ def test_run_program_rows_group_on_card(cuda):
     oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
     np.testing.assert_array_equal(res.outputs[p.outputs[0]],
                                   oracle[p.outputs[0]])
+
+
+def reconvergent_chain(stages=16, dims=(12, 24, 32), bc="constant"):
+    """A deep chain whose last stage reads the first again: one ring far
+    deeper than its read count (the JAX package's spill fixture)."""
+    prog, prev = {}, "a"
+    for s in range(stages):
+        expr = (f"s{s} = 0.16 * ({prev}[i-1,j,k] + {prev}[i+1,j,k] + "
+                f"{prev}[i,j-1,k] + {prev}[i,j+1,k] + {prev}[i,j,k-1] + "
+                f"{prev}[i,j,k+1])")
+        fields = {prev}
+        if s == stages - 1:
+            expr += " + 0.1 * s0[i,j,k]"
+            fields.add("s0")
+        cond = {"type": "constant", "value": 0.2} if bc == "constant" \
+            else {"type": bc}
+        prog[f"s{s}"] = {"computation_string": expr,
+                         "boundary_conditions": {f: dict(cond)
+                                                 for f in fields},
+                         "data_type": "float32"}
+        prev = f"s{s}"
+    return {"inputs": {"a": {"data": "random:-1,1", "data_type": "float32"}},
+            "outputs": [prev], "dimensions": list(dims), "program": prog}
+
+
+# name: (spec, smem_budget): every ring spilled at budget 0
+SPILL_PROGRAMS = {
+    "reconvergent": (lambda: reconvergent_chain(), 40000),
+    "reconvergent_copy": (lambda: reconvergent_chain(12, bc="copy"), 0),
+    "jacobi3d_shrink": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(24, 40, 72), shape="diffusion",
+        boundary="shrink", seed_data="random:0,1"), 0),
+    "hdiff_dag": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(8, 40, 72), shape="hdiff"), 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPILL_PROGRAMS))
+def test_spill_kernel_matches_plain_on_card(name, cuda):
+    """K3c: the stream kernel with rings spilled to device memory equals
+    its plain version bit for bit."""
+    make, budget = SPILL_PROGRAMS[name]
+    p = port.parse_program(make())
+    plan = stream.plan_stream(p, smem_budget=budget)
+    assert plan.spilled and plan.smem_bytes() <= budget
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = stream.spill_launches
+    got = stream.run_stream(plan, arrays)
+    torch.cuda.synchronize()
+    assert stream.spill_launches == before + 1
+    want = stream.stream_plain(plan, arrays)
+    for o in want:
+        np.testing.assert_array_equal(got[o].cpu().numpy(),
+                                      want[o].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_local_spill_kernel_matches_plain_on_card(cuda):
+    """K4 with every ring spilled, chunk by chunk at 4 chunks."""
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    p = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(64, 40, 72), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"))
+    an = port.ChainAnalysis.run(p)
+    plan = stream.plan_local(p, an, 16, chain_halo(an)[0], smem_budget=0)
+    assert plan.spilled
+    lib = stream.build_stream(plan)
+    inputs = port.load_input_arrays(p, seed=4)
+    for lo, slabs in _chunks(p, inputs, 4, plan, cuda):
+        before = stream.spill_launches
+        got = stream.run_local_stream(plan, lo, slabs, lib)
+        torch.cuda.synchronize()
+        assert stream.spill_launches == before + 1
+        want = stream.local_stream_plain(plan, lo, slabs)
+        for o in want:
+            np.testing.assert_array_equal(got[o].cpu().numpy(),
+                                          want[o].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["masked", "fast"])
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_tile_kernel_matches_plain_on_card(name, mode, cuda):
+    """K6, the overlapped-tile kernel, equals its plain version."""
+    from stencilflow_tpu_torch.backend import tile
+    p = port.parse_program(PROGRAMS[name]())
+    plan = tile.plan_tile(p, mode=mode)
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = tile.launches
+    got = tile.run_tile(plan, arrays)
+    torch.cuda.synchronize()
+    assert tile.launches == before + 1
+    want = tile.tile_plain(plan, arrays)
+    for o in want:
+        g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_run_program_tile_on_card(cuda):
+    """``run --backend tile`` reaches K6 and matches the oracle."""
+    p = port.parse_program(synthesize_stencil(
+        num_stages=2, dimensions=(40, 48, 72), shape="diffusion",
+        seed_data="random:0,1"))
+    res = run_program(p, device=cuda, backend="tile",
+                      compare_to_reference=True, save_results=False,
+                      log_level=0)
+    assert res.backend == "tile" and res.verified_against_reference
+    oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
+    np.testing.assert_array_equal(res.outputs[p.outputs[0]],
+                                  oracle[p.outputs[0]])

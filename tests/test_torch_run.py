@@ -145,7 +145,9 @@ def test_backend_choice_on_card_2d(shape, iters, expected):
 def test_ladder_order(monkeypatch):
     """The reference's order, pinned by refusing one rung at a time:
     rows+group, overlap / panel, the per-cell stream kernel, the 2-D
-    rescue, dense."""
+    rescue, the overlapped-tile kernel, dense; and the deep 3-D chains,
+    whose rings fit shared memory at no tile, on the stream kernel's
+    spill rung."""
     import stencilflow_tpu_torch.backend as be
     p = port.parse_program(synthesize_stencil(
         num_stages=8, dimensions=(8192, 8192), shape="diffusion"))
@@ -173,14 +175,39 @@ def test_ladder_order(monkeypatch):
     monkeypatch.setattr(be, "choose_stacked", lambda *a: None)
     assert choose_backend(p, an, "cuda") == "rows+stream"
     monkeypatch.setattr(be, "plan_stream", refuse)
+    assert choose_backend(p, an, "cuda") == "rows+tile"
+    real_tile = be.plan_tile
+    monkeypatch.setattr(be, "plan_tile", lambda program, *a, **k: (
+        real_tile(program, *a, **k) if len(program.raw_dimensions) == 2
+        else refuse()))   # the rotated chain is 3-D
+    assert choose_backend(p, an, "cuda") == "tile"
+    monkeypatch.setattr(be, "plan_tile", refuse)
     assert choose_backend(p, an, "cuda") == "dense"
     # a 3-D chain that overlap and panel refuse takes the per-cell
-    # stream kernel before dense
+    # stream kernel before tile and dense
     monkeypatch.undo()
     monkeypatch.setattr(be, "choose_stacked", lambda *a: None)
     q = port.parse_program(synthesize_stencil(
         num_stages=8, dimensions=(64, 64, 64), shape="diffusion"))
-    assert choose_backend(q, port.ChainAnalysis.run(q), "cuda") == "stream"
+    qa = port.ChainAnalysis.run(q)
+    assert choose_backend(q, qa, "cuda") == "stream"
+    assert choose_backend(q, qa, "cuda", spill="off") == "stream"
+    monkeypatch.setattr(be, "plan_stream", refuse)
+    assert choose_backend(q, qa, "cuda") == "tile"
+    monkeypatch.undo()
+    # deep 3-D chains: the spill rung; without it, the overlapped-tile
+    # kernel where its live buffers fit (hdiff: no i-halo), else dense
+    for shape, n, iters, no_spill in (("diffusion", 512, 32, "dense"),
+                                      ("hdiff", 256, 16, "tile"),
+                                      ("hotspot", 256, 32, "dense")):
+        d = port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape))
+        da = port.ChainAnalysis.run(d)
+        name, plan = be._route(d, da, "cuda")
+        assert name == "stream" and plan.last_config()["spilled"]
+        assert plan.smem_bytes() <= be.stream.SMEM_PER_BLOCK
+        assert choose_backend(d, da, "cpu") == "dense"
+        assert choose_backend(d, da, "cuda", spill="off") == no_spill
 
 
 def test_verification_failure_raises(monkeypatch):
