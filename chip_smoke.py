@@ -67,12 +67,31 @@ Phases, one line each (any failure raises and exits non-zero):
    per call with transfers, the bytes over the host link and the link
    bound from the pinned copy rates measured with 1 GiB ``copy_``s; K4
    alone on one jacobi chunk beside its plain version and 8 chained
-   ``F.conv3d`` over the widened chunk.
+   ``F.conv3d`` over the widened chunk;
+6. the measurement path: the probes' kernels against their plain
+   versions on the card (P4's copy of 512 x 512^2 bit-equal to its input
+   and timed beside ``copy_``; P1's every op at 8 steps, bit-exact or
+   within ``alu_ceiling.TOLERANCE``), then, each with its launch count
+   reset just before and read just after, P4's flat and tiled copies, one
+   differenced P1 timing of add, fma, fma_fused and the shared-memory
+   add, P7 at U = 1 and 2, eager and graph, at 512 and 8 planes (both
+   ping-pong buffers bit-equal to the input after every case; its
+   launches are P4's count over P7's run), and one session of ``python
+   -m stencilflow_tpu_torch.bench --workload jacobi`` (its JSON line
+   printed), each of whose bound fractions must be at most 1; then P7's
+   loop at 512 planes, U = 2, with its plain version and with ``copy_``
+   as the body.  The graph-timed probes (P4, P7) count eager launches
+   and graph captures: a replay re-runs the captured launches without
+   passing through the wrapper.
 
-The last lines are the card line, a JSON object of the kernels (launches
-from phase 4; error, kernel, plain-version and library times measured in
-this run at the main path's shapes, bounds computed from its inputs) and
-``{"ok": true, "device": {...}}``.
+Every bound comes from the port's report (report.py): the larger of the
+minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
+strategy's operations over the single-instruction FP32 rate.  The last
+lines are the card line, a JSON object of the kernels (launches from
+phase 4, K4's from phase 5 and the probes' from phase 6; error, kernel,
+plain-version and library times measured in this run at the main path's
+shapes, bounds computed from its inputs) and ``{"ok": true, "device":
+{...}}``.
 """
 import json
 import os
@@ -84,10 +103,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 flop/s
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 
 
 def _smi() -> str:
@@ -229,34 +244,15 @@ def _reconvergent_spec(stages=16, dims=(12, 24, 32)):
             "outputs": [prev], "dimensions": list(dims), "program": prog}
 
 
-def _io_bytes(program) -> int:
-    """Bytes a chain must move: each array input read once, each output
-    written once."""
-    dims = program.dimensions
-    total = 0
-    for spec in program.inputs.values():
-        if not spec.is_scalar:
-            total += int(np.prod([d for d, m in zip(dims, spec.dim_mask)
-                                  if m])) * np.dtype(spec.dtype).itemsize
-    for o in program.outputs:
-        total += program.total_elements * np.dtype(
-            program.kernels[o].dtype).itemsize
-    return total
-
-
-def _ops_per_cell(program) -> int:
-    """Arithmetic nodes of every stage (no common-subexpression credit)."""
-    from stencilflow_tpu_torch import ir
-    kinds = (ir.BinOp, ir.UnaryOp, ir.Compare, ir.BoolOp, ir.Select, ir.Call)
-    return sum(isinstance(n, kinds) for k in program.kernels.values()
-               for s in k.statements for n in ir.walk(s.rhs))
-
-
-def _bound(program, flops: float):
-    """(bound ms, "bytes" or "operations") on the H100 SXM peaks."""
-    t_bytes = _io_bytes(program) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(program):
+    """(bound ms, "bytes" or "operations") of one chain evaluation: the
+    port's report (report.py, the H100 model of config.py), the memory
+    floor against the faster compute strategy — one yardstick for this
+    script, ``cli report`` and the bench."""
+    from stencilflow_tpu_torch.report import Report
+    rep = Report.build(program)
+    return (rep.roofline_time_s() * 1e3,
+            "bytes" if rep.bound() == "hbm" else "operations")
 
 
 def _conv_chain_ms(program, radius: int, shape=None) -> float:
@@ -381,6 +377,7 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
     against the in-core route.  Returns K4's entry of the kernels line."""
     import torch
     from stencilflow_tpu_torch import outofcore
+    from stencilflow_tpu_torch.report import Report
     up_rate, down_rate = _link_rates()
     print(f"link: pinned host-to-device {up_rate / 1e9:.2f} GB/s, "
           f"device-to-host {down_rate / 1e9:.2f} GB/s (1 GiB copy_) | {smi}",
@@ -410,8 +407,9 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
                       if not p.inputs[n].is_scalar)
     chunk_bytes += sum(plan.block * J * K * np.dtype(p.kernels[o].dtype)
                        .itemsize for o in p.outputs)
-    t_bytes = chunk_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = _ops_per_cell(p) * plan.block * J * K / F32_FLOPS_PER_S * 1e3
+    rep = Report.build(p)
+    t_bytes = chunk_bytes / rep.hw.hbm_bandwidth * 1e3
+    t_ops = rep.alu_time_s() * plan.block / p.dimensions[0] * 1e3
     bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
         (t_ops, "operations")
     del slabs
@@ -471,7 +469,7 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
             "stream", {}))
         duplex = max(up / up_rate, down / down_rate) * 1e3
         serial = (up / up_rate + down / down_rate) * 1e3
-        io = _io_bytes(p)
+        io = Report.build(p).hbm_footprint_bytes()
         cells = p.total_elements
         print(f"outofcore: {p.name} {oc.backend} {oc.wall_time_s * 1e3:.3f} "
               f"ms per call (CUDA events over {reps} calls, transfers "
@@ -492,6 +490,153 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
         del oc, in_core
         torch.cuda.empty_cache()
     return entry
+
+
+def _measurement(pn, smi):
+    """Phase 6: the probes P4, P1 and P7 against their plain versions,
+    then the measurement path with the counts reset (the probes' entry
+    points, and one bench session whose fractions of every bound must be
+    at most 1).  Returns the probes' entries of the kernels line."""
+    import contextlib
+    import io
+    import torch
+    from stencilflow_tpu_torch import bench
+    from stencilflow_tpu_torch.probes import alu_ceiling as pa
+    from stencilflow_tpu_torch.probes import copy_floor as pc
+    from stencilflow_tpu_torch.probes import differenced_ms
+    from stencilflow_tpu_torch.probes import loop_copy as pl
+    from stencilflow_tpu_torch.report import HardwareModel
+    hw = HardwareModel()
+    entry = dict(route="cuda", launches=0, library_ms=None)
+
+    # P4 at 512 x 512^2 (512 MiB each way), beside copy_
+    x = torch.rand(pc.BIG, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    y = pc.copy(x, torch.full_like(x, float("nan")))
+    torch.cuda.synchronize()
+    if not torch.equal(x, y):
+        raise RuntimeError("the copy kernel's output differs from its input")
+    p4 = dict(entry, name="copy_floor",
+              source="stencilflow_tpu_torch/csrc/probes/copy.cu",
+              replaces="scripts/dma_matrix_probe.py:36",
+              max_abs_err=float((y - x).abs().max()),
+              ms=_time_ms(lambda: pc.copy(x, y), 10),
+              plain_ms=_time_ms(lambda: pc.copy_plain(x), 3),
+              library_ms=_time_ms(lambda: y.copy_(x), 10),
+              bound_ms=8 * x.numel() / hw.hbm_bandwidth * 1e3,
+              bound_by="bytes")
+    print(f"kernel: copy_floor {tuple(x.shape)} {pc.DEFAULT}: "
+          f"{p4['ms']:.4f} ms ({8 * x.numel() / p4['ms'] / 1e6:.1f} GB/s), "
+          f"plain version {p4['plain_ms']:.4f} ms, copy_ "
+          f"{p4['library_ms']:.4f} ms, bound {p4['bound_ms']:.4f} ms "
+          f"(bytes), bit-equal OK | {smi}", flush=True)
+    del x, y
+    torch.cuda.empty_cache()
+
+    # P1: every op at 8 steps against its plain version on the card
+    xa = pa.inputs(pa.elements(), "cuda")
+    worst = 0.0
+    for op, smem in [(op, False) for op in pa.OPS] + [("add", True)]:
+        got = pa.alu(op, xa, 8, smem=smem)
+        torch.cuda.synchronize()
+        ok, err = pa.compare(op, got, pa.alu_plain(op, xa, 8))
+        if not ok:
+            raise RuntimeError(f"alu kernel ({op}{', smem' if smem else ''})"
+                               f" disagrees with its plain version: max "
+                               f"abs diff {err:.3g}")
+        worst = max(worst, err)
+    steps = 64
+    t_plain = time.perf_counter()
+    pa.alu_plain("add", xa, steps)
+    torch.cuda.synchronize()
+    p1 = dict(entry, name="alu_ceiling",
+              source="stencilflow_tpu_torch/csrc/probes/alu.cu",
+              replaces="scripts/vpu_ceiling.py:240", max_abs_err=worst,
+              ms=_time_ms(lambda: pa.alu("add", xa, steps), 10),
+              plain_ms=(time.perf_counter() - t_plain) * 1e3,
+              bound_ms=xa.numel() * pa.UNROLL * steps / hw.alu_ops * 1e3,
+              bound_by="operations")
+    print(f"compare: alu {len(pa.OPS)} ops and the shared-memory add at 8 "
+          f"steps: max_abs_err {worst:.3g} OK | kernel: alu_ceiling add "
+          f"{xa.numel()} x {pa.UNROLL} x {steps}: {p1['ms']:.4f} ms, plain "
+          f"version {p1['plain_ms']:.1f} ms, bound {p1['bound_ms']:.4f} ms "
+          f"(operations) | {smi}", flush=True)
+
+    # the measurement path, each probe with its count reset just before it
+    # and read just after; P7 launches P4's kernel, so its launches are
+    # P4's count over P7's run.  Graph-timed probes count the warm-up and
+    # each capture's recorded launches; the replays re-run those without
+    # passing through a wrapper and are not counted.
+    counted = "eager launches and graph captures; replays not counted"
+    pc.launches = 0
+    copy_rows = pc.measure([c for c in pc.CASES if c[1] == pc.BIG
+                            and c[0] in ("flat f4 256t 8/SM",
+                                         "tile f4 256t 4 rows")], trials=3)
+    p4.update(launches=pc.launches, launches_counted=counted)
+    pa.launches = 0
+    alu_rows = pa.measure(("add", "fma", "fma_fused"), trials=3)
+    p1["launches"] = pa.launches
+    pc.launches = 0
+    loops = pl.measure(unrolls=(1, 2), trials=3)
+    p7_launches = pc.launches
+    pn.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--workload", "jacobi", "--sessions", "1"])
+    bench_launches = pn.launches
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"bench: {line}", flush=True)
+    rec = json.loads(line)
+    fractions = dict(rec["bounds"], vs_baseline=rec["vs_baseline"])
+    if not all(0 < v <= 1.0 for v in fractions.values()):
+        raise RuntimeError(f"a bound fraction outside (0, 1]: {fractions}")
+    counts = {"copy_floor": p4["launches"], "alu_ceiling": p1["launches"],
+              "loop_copy": p7_launches, "panel (bench)": bench_launches}
+    if min(counts.values()) < 1:
+        raise RuntimeError(f"the measurement path skipped a kernel: "
+                           f"{counts}")
+    for r in copy_rows:
+        print(f"probe: P4 {r['case']} {r['ms']:.4f} ms {r['gb_s']:.1f} GB/s "
+              f"| {smi}", flush=True)
+    for r in alu_rows:
+        print(f"probe: P1 {r['op']} {r['ops_per_s'] / 1e12:.3f} Top/s "
+              f"({r['vs_add']:.2f} x add) | {smi}", flush=True)
+    for r in loops["cases"]:
+        print(f"probe: P7 planes {r['planes']} U={r['unroll']} {r['mode']} "
+              f"{r['ms'] * 1e3:.3f} us per application, max_abs_err "
+              f"{r['max_abs_err']:.3g} | {smi}", flush=True)
+    print(f"probe: P7 host cost of one eager launch "
+          f"{loops['host_us_per_launch']:.2f} us | launches {counts} "
+          f"({counted})", flush=True)
+
+    # P7 at its main shape: 512 planes, two applications per iteration,
+    # eager; its plain version (a new tensor per application) and copy_
+    # between the same ping-pong buffers, timed the same way
+    eager = next(r for r in loops["cases"] if r["planes"] == 512
+                 and r["unroll"] == 2 and r["mode"] == "eager")
+    a = torch.rand(pc.BIG, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(0))
+    b = torch.empty_like(a)
+    plain_ms = differenced_ms(lambda n: pl.loop_plain(a, n, 2), 2, 10,
+                              3) / 2
+    library_ms = differenced_ms(
+        lambda n: pl.loop(a, b, n, 2, body=lambda s, d: d.copy_(s)), 2, 10,
+        3) / 2
+    p7 = dict(entry, name="loop_copy",
+              source="stencilflow_tpu_torch/probes/loop_copy.py",
+              replaces="scripts/loop_copy_probe.py:37",
+              launches=p7_launches, launches_counted=counted,
+              max_abs_err=max(r["max_abs_err"] for r in loops["cases"]),
+              ms=eager["ms"], plain_ms=plain_ms, library_ms=library_ms,
+              bound_ms=8 * a.numel() / hw.hbm_bandwidth * 1e3,
+              bound_by="bytes")
+    print(f"kernel: loop_copy {tuple(a.shape)} U=2 eager: {p7['ms']:.4f} "
+          f"ms per application, plain version {plain_ms:.4f} ms, copy_ "
+          f"{library_ms:.4f} ms, bound {p7['bound_ms']:.4f} ms (bytes), "
+          f"max_abs_err {p7['max_abs_err']:.3g} | {smi}", flush=True)
+    del a, b
+    torch.cuda.empty_cache()
+    return {"copy_floor": p4, "alu_ceiling": p1, "loop_copy": p7}
 
 
 def main() -> int:
@@ -724,6 +869,10 @@ def main() -> int:
                     (hdiff8, "masked")):
         tile_main[p.name, mode] = tl.plan_tile(p, mode=mode)
         sources.append((tl.tile_source(tile_main[p.name, mode]), "tile"))
+    # the probes of phase 6, built from csrc/probes/ (the names and text
+    # probes.load builds them with, so phase 6 finds them built)
+    from stencilflow_tpu_torch import probes
+    sources += [(probes.source(n), f"probe_{n}") for n in ("copy", "alu")]
     libs = build.load_libraries(sources)
     lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
     slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
@@ -930,7 +1079,7 @@ def main() -> int:
         plain_ms = _time_ms(lambda: plain(p, an, plan, arrays), 1)
         del got, want, arrays
         torch.cuda.empty_cache()
-        bound_ms, bound_by = _bound(p, _ops_per_cell(p) * p.total_elements)
+        bound_ms, bound_by = _bound(p)
         print(f"kernel: {kname} {p.name} tile {plan.tile} smem "
               f"{plan.smem_bytes(p)} B: {ms:.3f} ms, plain version "
               f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -983,7 +1132,7 @@ def main() -> int:
         del got, want, arrays
         torch.cuda.empty_cache()
         flops = plan.flops_per_cell() * p.total_elements
-        bound_ms, bound_by = _bound(p, flops)
+        bound_ms, bound_by = _bound(p)
         print(f"kernel: stream {label} tile {plan.tile} smem "
               f"{plan.smem_bytes()} B: {ms:.3f} ms "
               f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
@@ -1021,8 +1170,7 @@ def main() -> int:
     del got, want, arrays
     plan.device_pool.clear()
     torch.cuda.empty_cache()
-    bound_ms, bound_by = _bound(jacobi32, _ops_per_cell(jacobi32)
-                                * jacobi32.total_elements)
+    bound_ms, bound_by = _bound(jacobi32)
     print(f"kernel: stream_spill {jacobi32.name} tile {plan.tile} smem "
           f"{plan.smem_bytes()} B, spilled {len(plan.spilled)} of "
           f"{len(plan.raw_ring)} rings ({plan.spill_bytes() / 2 ** 30:.3f} "
@@ -1057,8 +1205,7 @@ def main() -> int:
         ms = _time_ms(lambda: tl.run_tile(plan, arrays, lib), 10)
         del got, want
         torch.cuda.empty_cache()
-        bound_ms, bound_by = _bound(jacobi2, _ops_per_cell(jacobi2)
-                                    * jacobi2.total_elements)
+        bound_ms, bound_by = _bound(jacobi2)
         print(f"kernel: tile {jacobi2.name} {mode} tile {plan.tile} smem "
               f"{plan.smem_bytes()} B: {ms:.3f} ms"
               f"{' (with the shell fix-up)' if mode == 'fast' else ''}, "
@@ -1094,7 +1241,7 @@ def main() -> int:
     ms = _time_ms(lambda: gp.run_group(p, an, plan, arrays, lib_of[src]), 10)
     del got, want, arrays
     torch.cuda.empty_cache()
-    bound_ms, bound_by = _bound(p, _ops_per_cell(p) * p.total_elements)
+    bound_ms, bound_by = _bound(p)
     print(f"kernel: group {label} (rows) B {plan.B} g 8 tile {plan.tile} "
           f"smem {plan.smem_bytes(p)} B: {ms:.3f} ms "
           f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
@@ -1234,6 +1381,10 @@ def main() -> int:
     print(f"phase: 5 at {time.perf_counter() - t_run:.1f} s", flush=True)
     report["local_stream"] = _outofcore(sft, st, pn, ov, gp, oc_cells,
                                         oc_plans, lib_of, smi, run_program)
+
+    # -- 6. the measurement path ---------------------------------------------
+    print(f"phase: 6 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    report.update(_measurement(pn, smi))
     for name, entry in report.items():
         if entry["launches"] < 1:
             raise RuntimeError(f"the main path never launched {name}")

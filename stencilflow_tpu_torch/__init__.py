@@ -11,7 +11,9 @@ streamer (backend/overlap.py) for shallow chains and the panel streamer
 (backend/panel.py) for deep ones, with the whole-domain torch evaluator
 (backend/dense.py) as the fallback and the CPU path.  Out-of-core runs
 (outofcore.py, ``run --host-chunks N``) stream host i-chunks through the
-stream kernel's local mode (K4).
+stream kernel's local mode (K4).  The measurement path: the analytic
+report on the H100 hardware model (report.py, ``cli report``), the bench
+(bench.py) and the probes that measure the model's constants (probes/).
 """
 
 __version__ = "0.1.0"

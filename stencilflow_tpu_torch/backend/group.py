@@ -64,11 +64,12 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..config import H100_SMEM_PER_BLOCK
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .panel import tile_candidates
-from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
+from .stacked_io import (accesses_with_center, bc_select,
                          check_scope, gather_global, or_mask,
                          resolve_device, run_kernel, spanned_arrays,
                          tile_cost)
@@ -284,12 +285,13 @@ def _fit(program: ir.Program, analysis: ChainAnalysis, B: int, group: int,
     plan.place(program, analysis)
     if tile is not None:
         plan.tile = tuple(tile)
-        return plan if plan.smem_bytes(program) <= SMEM_PER_BLOCK else None
+        return (plan if plan.smem_bytes(program) <= H100_SMEM_PER_BLOCK
+                else None)
     best = None
     for cand in tile_candidates(program.dimensions):
         plan.tile = cand
         smem = plan.smem_bytes(program)
-        if smem > SMEM_PER_BLOCK:
+        if smem > H100_SMEM_PER_BLOCK:
             continue
         ntj, ntk = plan.grid(program.dimensions)
         cost = (tile_cost(ntj * ntk, smem, plan.work(program)),

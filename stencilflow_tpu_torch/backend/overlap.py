@@ -33,9 +33,10 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..config import H100_SMEM_PER_BLOCK
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
-from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
+from .stacked_io import (accesses_with_center, bc_select,
                          check_scope, gather_global, or_mask,
                          resolve_device, run_kernel,
                          spanned_arrays, wave_cost)
@@ -126,7 +127,7 @@ class OverlapPlan:
         plan = cls(needs, onchip, (0, 0, 0))
         if tile is not None:
             plan.tile = tuple(tile)
-            if plan.smem_bytes(program) > SMEM_PER_BLOCK:
+            if plan.smem_bytes(program) > H100_SMEM_PER_BLOCK:
                 raise ValueError(f"overlap tile {tile} exceeds shared "
                                  "memory")
             return plan
@@ -140,7 +141,7 @@ class OverlapPlan:
                      and tk <= max(8, caps[2])]:
             plan.tile = cand
             smem = plan.smem_bytes(program)
-            if smem > SMEM_PER_BLOCK:
+            if smem > H100_SMEM_PER_BLOCK:
                 continue
             work = sum(math.prod(plan.region(f)) for f in
                        list(program.kernels) + [f for f in onchip

@@ -47,10 +47,11 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..config import H100_SMEM_PER_BLOCK
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
-from .stacked_io import (SMEM_PER_BLOCK, accesses_with_center, bc_select,
+from .stacked_io import (accesses_with_center, bc_select,
                          check_scope, gather_global, or_mask,
                          resolve_device, run_kernel,
                          spanned_arrays, wave_cost)
@@ -127,7 +128,7 @@ class PanelPlan:
         ring_inputs = [f for f in ring if f in program.inputs]
         if tile is not None:
             plan.tile = tuple(tile)
-            if plan.smem_bytes(program) > SMEM_PER_BLOCK:
+            if plan.smem_bytes(program) > H100_SMEM_PER_BLOCK:
                 raise ValueError(f"panel tile {tile} exceeds shared memory")
             return plan
         best = None
@@ -135,7 +136,7 @@ class PanelPlan:
         for cand in tile_candidates(dims):
             plan.tile = cand
             smem = plan.smem_bytes(program)
-            if smem > SMEM_PER_BLOCK:
+            if smem > H100_SMEM_PER_BLOCK:
                 continue
             ntj, ntk = plan.grid(dims)
             work = sum(plan.region(f)[0] * plan.region(f)[1]

@@ -15,14 +15,11 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..config import H100_SM_COUNT, H100_SMEM_PER_SM
 from ..dtypes import to_torch_dtype
 from . import build
 from .promotion import check_kernel_dtypes, fill_value
 
-# H100 SXM: dynamic shared memory one block may take, per SM, SM count
-SMEM_PER_BLOCK = 232448
-SMEM_PER_SM = 233472
-SM_COUNT = 132
 THREADS = 256
 # the stream kernel's ring spill (K3c): the most device memory one plan's
 # spilled rings may take (every block's region of the spill buffer); a
@@ -55,8 +52,9 @@ def wave_cost(n_blocks: int, smem: int, work: int) -> float:
     time goes as waves x blocks per SM x per-block work (cells), scaled
     up when fewer than 16 warps per SM are left to hide latency.  A model
     to be calibrated on the card, not a measurement."""
-    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024)))
-    waves = math.ceil(n_blocks / (SM_COUNT * per_sm))
+    per_sm = max(1, min(2048 // THREADS,
+                        H100_SMEM_PER_SM // (smem + 1024)))
+    waves = math.ceil(n_blocks / (H100_SM_COUNT * per_sm))
     latency = max(1.0, 16 / (per_sm * THREADS // 32))
     return waves * per_sm * work * latency
 
@@ -69,9 +67,9 @@ def tile_cost(n_blocks: int, smem: int, work: int) -> float:
     box-r2 256^3 x 8 at (64, 8), 128 blocks, in 3.61 ms and at (32, 8),
     256 blocks, in 2.55 ms, which plain wave_cost ranks the other way
     round."""
-    per_sm = max(1, min(2048 // THREADS, SMEM_PER_SM // (smem + 1024),
-                        -(-n_blocks // SM_COUNT)))
-    waves = math.ceil(n_blocks / (SM_COUNT * per_sm))
+    per_sm = max(1, min(2048 // THREADS, H100_SMEM_PER_SM // (smem + 1024),
+                        -(-n_blocks // H100_SM_COUNT)))
+    waves = math.ceil(n_blocks / (H100_SM_COUNT * per_sm))
     latency = max(1.0, 16 / (per_sm * THREADS // 32))
     return waves * per_sm * work * latency
 

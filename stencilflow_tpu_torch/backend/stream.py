@@ -115,6 +115,7 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..config import H100_SMEM_PER_BLOCK
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
@@ -122,7 +123,7 @@ from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      mxu_flops_per_cell, plan_all_stages)
 from .panel import ring_fields, tile_candidates
-from .stacked_io import (SMEM_PER_BLOCK, SPILL_BYTES_CAP,
+from .stacked_io import (SPILL_BYTES_CAP,
                          accesses_with_center, bc_select, check_scope,
                          or_mask, resolve_device, run_kernel,
                          spanned_arrays, tile_cost)
@@ -400,7 +401,7 @@ def _spill_to_fit(plan: StreamPlan, order: List[str], deltas, budget: int
 
 def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 mxu_precision: str, builds, tile, block: int = 0,
-                halo_i: int = 0, smem_budget: int = SMEM_PER_BLOCK,
+                halo_i: int = 0, smem_budget: int = H100_SMEM_PER_BLOCK,
                 spill: str = "off") -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
@@ -532,7 +533,7 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                 mxu: str = "auto", mxu_precision: str = "split",
                 compose: str = "auto",
                 tile: Optional[Tuple[int, int]] = None,
-                smem_budget: int = SMEM_PER_BLOCK,
+                smem_budget: int = H100_SMEM_PER_BLOCK,
                 spill: str = "auto") -> StreamPlan:
     """The stream lowering's plan, making the JAX package's per-stage
     choice between composed, per-stage banded and per-cell, in the
@@ -572,7 +573,7 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
                block: int, halo_i: int, mxu: str = "auto",
                mxu_precision: str = "split",
                tile: Optional[Tuple[int, int]] = None,
-               smem_budget: int = SMEM_PER_BLOCK,
+               smem_budget: int = H100_SMEM_PER_BLOCK,
                spill: str = "auto") -> StreamPlan:
     """The local (chunk) plan of K4: ``block`` core i-planes widened by
     ``halo_i`` planes each side; stages banded where ``mxu`` is "auto"
@@ -865,7 +866,8 @@ def compile_chain_stream(program: ir.Program,
                          mxu: str = "auto", mxu_precision: str = "split",
                          compose: str = "auto",
                          tile: Optional[Tuple[int, int]] = None,
-                         device="cuda", smem_budget: int = SMEM_PER_BLOCK,
+                         device="cuda",
+                         smem_budget: int = H100_SMEM_PER_BLOCK,
                          spill: str = "auto"):
     """Plan the stream lowering (ValueError / NotImplementedError when the
     program is out of its scope) and, for a CUDA ``device``, build its

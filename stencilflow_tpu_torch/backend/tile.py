@@ -55,12 +55,13 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..config import H100_SMEM_PER_BLOCK
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .dense import chain_halo
 from .fast_tile import evaluate_chain_fast, field_margins
 from .overlap import overlap_plain
-from .stacked_io import (SMEM_PER_BLOCK, check_scope, gather_global,
+from .stacked_io import (check_scope, gather_global,
                          resolve_device, run_kernel, spanned_arrays,
                          tile_cost)
 from .tile_eval import evaluate_chain_tile
@@ -144,7 +145,7 @@ class TilePlan:
 
 def plan_tile(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
               tile: Optional[Vec3] = None, mode: str = "masked",
-              smem_budget: int = SMEM_PER_BLOCK) -> TilePlan:
+              smem_budget: int = H100_SMEM_PER_BLOCK) -> TilePlan:
     """The overlapped-tile plan: ``tile`` or the cheapest (``tile_cost``)
     tile whose live buffers fit ``smem_budget``.  Raises ValueError /
     NotImplementedError when the program is out of scope or no tile

@@ -47,6 +47,8 @@ from .interpreter import run_interpreter
 
 BACKENDS = ("auto", "stream", "rows", "panel", "overlap", "tile", "dense",
             "interpreter")
+# the JAX package's names for the port's lowerings (its ``--backend``)
+BACKEND_ALIASES = {"pallas": "tile", "xla": "dense"}
 
 
 class VerificationError(RuntimeError):

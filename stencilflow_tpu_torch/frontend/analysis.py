@@ -1,13 +1,14 @@
 """Static analyses of a stencil chain: access extents, internal (line) buffer
-sizes, inter-kernel delay alignment, pipeline latencies, critical path and
-the cumulative halos.
+sizes, inter-kernel delay alignment, pipeline latencies, critical path, op
+counts, communication volume and the cumulative halos.
 
 These reproduce the semantics of the reference's analyses —
 ``ComputeGraph.setup_internal_buffers`` (compute_graph.py:112-171),
 ``KernelChainGraph.compute_delay_buffer`` (kernel_chain_graph.py:476-559),
 ``calculate_latency`` (compute_graph.py:461-474), critical path
-(kernel_chain_graph.py:576-601) — but as pure functions over the typed IR
-instead of mutating queue objects.
+(kernel_chain_graph.py:576-601), ``operation_count`` / communication volume /
+runtime lower bound (kernel_chain_graph.py:721-774) — but as pure functions
+over the typed IR instead of mutating queue objects.
 
 One deliberate deviation: per-edge delay buffers are computed from a single
 per-node arrival time (max over *all* paths), rather than the reference's
@@ -15,14 +16,13 @@ per-source-array bookkeeping whose per-edge results depend on dict iteration
 order when multiple source arrays share a predecessor.  For well-formed
 programs the results coincide.
 
-In the port these numbers drive the kernel planners: ``stage_halo`` and
+In the port these numbers drive the kernel planners (``stage_halo`` and
 ``input_halo`` size the halo-widened tiles of backend/panel.py and
-backend/overlap.py.
+backend/overlap.py) and the analytic report (report.py).
 
 Copied from ``stencilflow_tpu/frontend/analysis.py`` with no change of
-meaning, less the analytic models (op counts, communication volume,
-runtime bound, fast-memory totals) that nothing in the port reads yet:
-the port cannot import the JAX package, whose ``__init__`` imports jax.
+meaning: the port cannot import the JAX package, whose ``__init__``
+imports jax.
 """
 from __future__ import annotations
 
@@ -112,7 +112,7 @@ def analyze_kernel_accesses(kspec: ir.KernelSpec, dimensions: Vec3,
 
 
 # ---------------------------------------------------------------------------
-# Per-kernel compute latency
+# Per-kernel compute latency and op counts
 # ---------------------------------------------------------------------------
 
 _CALL_LATENCY_KEYS = {
@@ -170,6 +170,31 @@ def kernel_latency(kspec: ir.KernelSpec, vectorization: int) -> int:
     return max(1, math.ceil(total / vectorization))
 
 
+def operation_count(kspec: ir.KernelSpec) -> Dict[str, int]:
+    """Count arithmetic ops per output element (reference: helper.OpCounter +
+    kernel_chain_graph.operation_count)."""
+    counts: Dict[str, int] = {}
+
+    def bump(key: str):
+        counts[key] = counts.get(key, 0) + 1
+
+    for stmt in kspec.statements:
+        for node in ir.walk(stmt.rhs):
+            if isinstance(node, ir.BinOp):
+                bump(node.op)
+            elif isinstance(node, ir.UnaryOp):
+                bump("neg")
+            elif isinstance(node, ir.Compare):
+                bump("comp")
+            elif isinstance(node, ir.BoolOp):
+                bump("bool")
+            elif isinstance(node, ir.Select):
+                bump("cond")
+            elif isinstance(node, ir.Call):
+                bump(node.fn)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Chain-level analysis
 # ---------------------------------------------------------------------------
@@ -183,6 +208,13 @@ class EdgeBuffers:
     delay_size: int           # flattened element count
     internal_size: int        # line-buffer span the consumer keeps for src
     dtype: np.dtype
+
+    @property
+    def total_elements(self) -> int:
+        return self.delay_size + self.internal_size
+
+    def total_bytes(self) -> int:
+        return self.total_elements * np.dtype(self.dtype).itemsize
 
 
 @dataclasses.dataclass
@@ -263,6 +295,43 @@ class ChainAnalysis:
 
         return cls(program, graph, accesses, latencies, arrival,
                    contribution, edges, critical_path)
+
+    # -- analytic models ------------------------------------------------------
+    def operation_counts(self) -> Dict[str, Tuple[int, int]]:
+        """{op: (per cycle, total)} over all kernels
+        (reference: kernel_chain_graph.py:721-747)."""
+        n = self.program.total_elements
+        totals: Dict[str, Tuple[int, int]] = {}
+        for kspec in self.program.kernels.values():
+            for op, cnt in operation_count(kspec).items():
+                per_cycle, total = totals.get(op, (0, 0))
+                totals[op] = (per_cycle + cnt, total + cnt * n)
+        return totals
+
+    def minimum_communication_volume(self) -> int:
+        """Bytes: every input + output array moved exactly once
+        (reference: kernel_chain_graph.py:749-768)."""
+        vol = 0
+        dims = self.program.dimensions
+        for spec in self.program.inputs.values():
+            n = reduce(lambda a, b: a * b, spec.shape(dims), 1)
+            vol += np.dtype(spec.dtype).itemsize * n
+        n = self.program.total_elements
+        for out in self.program.outputs:
+            vol += np.dtype(self.program.kernels[out].dtype).itemsize * n
+        return vol
+
+    def runtime_lower_bound(self) -> int:
+        """Cycles (reference: kernel_chain_graph.py:770-774)."""
+        return ((self.program.total_elements + self.critical_path_cycles)
+                // self.program.vectorization)
+
+    def fast_memory_elements(self) -> int:
+        """Total on-chip buffer elements (delay + internal across all edges)."""
+        return sum(e.total_elements for e in self.edges.values())
+
+    def fast_memory_bytes(self) -> int:
+        return sum(e.total_bytes() for e in self.edges.values())
 
     def stage_halo(self) -> Dict[str, Vec3]:
         """Cumulative halo each kernel's *output tile* must carry so that a

@@ -47,17 +47,17 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
     Outputs may spill here: the kernel writes core planes directly, not
     through their ring.  The (j, k) tile is the port's own choice within
     each candidate (the reference's j-tiles); ``smem_budget`` is the
-    shared memory a block may take (``SMEM_PER_BLOCK`` by default).
+    shared memory a block may take (``H100_SMEM_PER_BLOCK`` by default).
     Returns ``(stream_plan, config)``, ``config`` with the reference's
     keys (``backend``, ``jtiles``, ``mxu_stages``, ``spilled``), or None
     when the program is out of the kernel's scope or no candidate fits
     (the caller then takes the dense tile body, as the reference takes
     its fused-XLA one)."""
-    from ..backend.stacked_io import SMEM_PER_BLOCK
+    from ..config import H100_SMEM_PER_BLOCK
     from ..backend.stream import check_options, check_spill, plan_local
     check_options(mxu, mxu_precision)   # raised, never re-routed
     check_spill(spill)
-    budget = SMEM_PER_BLOCK if smem_budget is None else smem_budget
+    budget = H100_SMEM_PER_BLOCK if smem_budget is None else smem_budget
     legs = [("auto", "off")] if mxu != "off" else []
     legs += [("off", "off")] + ([("off", spill)] if spill != "off" else [])
     for leg, leg_spill in legs:

@@ -407,3 +407,74 @@ def test_run_program_tile_on_card(cuda):
     oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
     np.testing.assert_array_equal(res.outputs[p.outputs[0]],
                                   oracle[p.outputs[0]])
+
+
+# -- the probes (P1, P4, P7) and the bench ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,mode,vec", [
+    ((3, 17, 33), "flat", 1), ((3, 17, 33), "flat", 4),
+    ((3, 17, 33), "tile", 1), ((5, 24, 40), "tile", 4),
+    ((16, 512, 512), "flat", 4)])
+def test_copy_probe_on_card(shape, mode, vec, cuda):
+    """P4's kernel returns its input bit for bit, ragged edges too."""
+    from stencilflow_tpu_torch.probes import copy_floor
+    x = torch.rand(shape, device=cuda)
+    before = copy_floor.launches
+    out = copy_floor.copy(x, torch.full_like(x, float("nan")), mode=mode,
+                          vec=vec, grid=3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, x) and copy_floor.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["add", "fma", "fma_fused", "div", "sqrt",
+                                "select", "min", "abs", "sin", "exp",
+                                "add8", "expr_hs"])
+def test_alu_probe_matches_plain_on_card(op, cuda):
+    """P1's kernel equals its plain version: bit-exact, or within
+    ``alu_ceiling.TOLERANCE`` where stated."""
+    from stencilflow_tpu_torch.probes import alu_ceiling
+    x = alu_ceiling.inputs(1000, cuda)
+    for steps in (1, 3):
+        got = alu_ceiling.alu(op, x, steps)
+        torch.cuda.synchronize()
+        ok, err = alu_ceiling.compare(op, got,
+                                      alu_ceiling.alu_plain(op, x, steps))
+        assert ok, f"{op}: max abs diff {err}"
+    got = alu_ceiling.alu("add", x, 2, smem=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alu_ceiling.alu_plain("add", x, 2))
+
+
+@pytest.mark.cuda
+def test_loop_copy_graph_on_card(cuda):
+    """P7's loop, eager and replayed from a CUDA graph, ends on the input
+    values; its launches count in P4's wrapper."""
+    from stencilflow_tpu_torch.probes import (copy_floor, differenced_ms,
+                                              loop_copy)
+    a = torch.rand(4, 32, 64, device=cuda)
+    keep = a.clone()
+    b = torch.empty_like(a)
+    before = copy_floor.launches
+    ms = differenced_ms(lambda n: loop_copy.loop(a, b, n, 2), 2, 4, 2,
+                        graph=True)
+    # the warm-up (4 launches) and the two captures (4 + 8): replays
+    # launch from the graphs, not from the wrapper
+    assert copy_floor.launches - before == 16
+    assert np.isfinite(ms) and torch.equal(a, keep) and torch.equal(b, keep)
+
+
+@pytest.mark.cuda
+def test_bench_on_card(cuda, capsys):
+    """The bench at a small size: one JSON line, every bound fraction at
+    most 1 (a fraction above 1 would mean the yardstick is wrong)."""
+    from stencilflow_tpu_torch import bench
+    assert bench.main(["--workload", "jacobi", "--size", "64",
+                       "--sessions", "2"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"].startswith("jacobi3d_64^3_8itr_")
+    assert rec["value"] > 0 and 0 < rec["vs_baseline"] <= 1.0
+    assert rec["bounds"] and all(0 < v <= 1.0
+                                 for v in rec["bounds"].values())
+    assert rec["device"]["name"] and len(rec["session_clocks"]) == 2

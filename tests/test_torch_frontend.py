@@ -81,6 +81,16 @@ def test_parse_and_analysis_match(path):
     assert an.critical_path_cycles == bn.critical_path_cycles
     assert {k: (e.delay_size, e.internal_size) for k, e in an.edges.items()} \
         == {k: (e.delay_size, e.internal_size) for k, e in bn.edges.items()}
+    # the analytic counters the report reads
+    assert an.operation_counts() == bn.operation_counts()
+    assert an.minimum_communication_volume() == \
+        bn.minimum_communication_volume()
+    assert an.runtime_lower_bound() == bn.runtime_lower_bound()
+    assert an.fast_memory_elements() == bn.fast_memory_elements()
+    assert an.fast_memory_bytes() == bn.fast_memory_bytes()
+    assert {k: (e.total_elements, e.total_bytes())
+            for k, e in an.edges.items()} == \
+        {k: (e.total_elements, e.total_bytes()) for k, e in bn.edges.items()}
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -155,6 +165,57 @@ def test_import_scan_covers_the_stream_slice():
     for mod in ("linear", "compose", "stream", "codegen", "build"):
         assert os.path.join("stencilflow_tpu_torch", "backend",
                             mod + ".py") in scanned
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
+def test_kernel_strings_match(path):
+    """``frontend/export.py``: both kernel-string forms as the JAX
+    package's, per kernel (``report --verbose`` prints them)."""
+    from stencilflow_tpu.frontend import export as rx
+    from stencilflow_tpu_torch.frontend import export as px
+    from stencilflow_tpu_torch.frontend.analysis import operation_count
+    from stencilflow_tpu.frontend.analysis import \
+        operation_count as ref_operation_count
+    a, b = ref.parse_program(path), port.parse_program(path)
+    rank = len(a.raw_dimensions)
+    for k in a.kernels:
+        assert rx.kernel_to_string(a.kernels[k], rank) == \
+            px.kernel_to_string(b.kernels[k], rank)
+        assert rx.kernel_to_relative(a.kernels[k]) == \
+            px.kernel_to_relative(b.kernels[k])
+        assert ref_operation_count(a.kernels[k]) == \
+            operation_count(b.kernels[k])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_optimizer_matches(seed):
+    """``optimizer.py``: the same buffers and the same placements under
+    each strategy as the JAX package's, on fuzz programs."""
+    from stencilflow_tpu.optimizer import Optimizer as RefOptimizer
+    from stencilflow_tpu_torch.optimizer import Optimizer
+    spec = make_random_program(np.random.default_rng(seed), seed)
+    ra = RefOptimizer(ref.parse_program(spec))
+    pa = Optimizer(port.parse_program(spec))
+    total = ra.fast_bytes()
+    assert total == pa.fast_bytes()
+    for run in (lambda o: o.minimize_fast_mem(total * 2),
+                lambda o: o.optimize_to_ratio(0.5),
+                lambda o: o.minimize_comm_vol(total // 2, 10 * total + 1)):
+        for o in (ra, pa):
+            run(o)
+        assert ra.placement() == pa.placement()
+        assert ra.summary() == pa.summary()
+        assert ra.comm_volume() == pa.comm_volume()
+
+
+def test_import_scan_covers_the_measurement_slice():
+    """The scan reaches the report, the bench, the copied optimizer and
+    exporter, and the probes."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("report.py", "bench.py", "optimizer.py", "frontend/export.py",
+                "probes/__init__.py", "probes/copy_floor.py",
+                "probes/alu_ceiling.py", "probes/loop_copy.py"):
+        assert os.path.join("stencilflow_tpu_torch", mod) in scanned
 
 
 def test_import_scan_covers_the_rows_slice():

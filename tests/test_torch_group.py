@@ -247,7 +247,7 @@ def test_planner_rules():
     # the auto rule steps B down by divisors of I until a tile fits
     plan = group.plan_group(big)
     assert plan.B < 4096 and 4096 % plan.B == 0
-    assert plan.smem_bytes(big) <= group.SMEM_PER_BLOCK
+    assert plan.smem_bytes(big) <= group.H100_SMEM_PER_BLOCK
     # 2-D rows at the reference's g = 8, B = 64: the 10-panel coeff ring
     # of hdiff2d 8192^2 x 16 fits no tile
     hd = rotate_2d_to_rows(port.parse_program(synth("hdiff", (8192, 8192),

@@ -106,7 +106,7 @@ def test_jacobi512x2_is_shallow_and_fits():
     an = port.ChainAnalysis.run(p)
     assert overlap.shallow_extent(p, an) == 2
     plan = overlap.OverlapPlan.build(an)
-    assert 0 < plan.smem_bytes(p) <= overlap.SMEM_PER_BLOCK
+    assert 0 < plan.smem_bytes(p) <= overlap.H100_SMEM_PER_BLOCK
     assert plan.needs["a"] == ((2, 2), (2, 2), (2, 2))
     assert plan.onchip == ("a", "s0")
 

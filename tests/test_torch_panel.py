@@ -103,7 +103,7 @@ def test_jacobi512_plan_fits_shared_memory():
     p = port.parse_program(synthesize_stencil(
         num_stages=8, dimensions=(512, 512, 512)))
     plan = panel.PanelPlan.build(port.ChainAnalysis.run(p))
-    assert 0 < plan.smem_bytes(p) <= panel.SMEM_PER_BLOCK
+    assert 0 < plan.smem_bytes(p) <= panel.H100_SMEM_PER_BLOCK
     assert plan.ring["a"] == 3 and plan.lag_max == 8
     assert plan.halo["a"] == (8, 8) and plan.halo["s7"] == (0, 0)
 

@@ -205,7 +205,7 @@ def test_ladder_order(monkeypatch):
         da = port.ChainAnalysis.run(d)
         name, plan = be._route(d, da, "cuda")
         assert name == "stream" and plan.last_config()["spilled"]
-        assert plan.smem_bytes() <= be.stream.SMEM_PER_BLOCK
+        assert plan.smem_bytes() <= be.stream.H100_SMEM_PER_BLOCK
         assert choose_backend(d, da, "cpu") == "dense"
         assert choose_backend(d, da, "cuda", spill="off") == no_spill
 

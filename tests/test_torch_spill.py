@@ -28,9 +28,9 @@ import stencilflow_tpu_torch as port
 from stencilflow_tpu.backend import stream as ref_stream
 from stencilflow_tpu_torch.backend import choose_backend, stream
 from stencilflow_tpu_torch.backend.dense import chain_halo
-from stencilflow_tpu_torch.backend.stacked_io import (SMEM_PER_BLOCK,
-                                                      SPILL_BYTES_CAP,
+from stencilflow_tpu_torch.backend.stacked_io import (SPILL_BYTES_CAP,
                                                       spanned_arrays)
+from stencilflow_tpu_torch.config import H100_SMEM_PER_BLOCK
 from stencilflow_tpu_torch.cli import main as cli_main
 from stencilflow_tpu_torch.driver import run_program
 from stencilflow_tpu_torch.outofcore import run_chunked
@@ -260,7 +260,7 @@ def test_deep_chains_route_to_spilled_stream(shape, size, iters):
         stream.plan_stream(p, an, mxu="off", spill="off")
     plan = stream.plan_stream(p, an, mxu="off")
     assert plan.last_config()["spilled"]
-    assert plan.smem_bytes() <= SMEM_PER_BLOCK
+    assert plan.smem_bytes() <= H100_SMEM_PER_BLOCK
     assert 0 < plan.spill_bytes() <= SPILL_BYTES_CAP
 
 

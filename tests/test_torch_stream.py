@@ -292,7 +292,7 @@ def test_main_path_plans_fit():
         plan = stream.plan_stream(p)
         assert plan.last_config()["mxu_stages"] == mxu
         assert plan.last_config()["composed"] == composed
-        assert 0 < plan.smem_bytes() <= stream.SMEM_PER_BLOCK
+        assert 0 < plan.smem_bytes() <= stream.H100_SMEM_PER_BLOCK
 
 
 def test_options():

@@ -28,10 +28,9 @@ import stencilflow_tpu as ref
 import stencilflow_tpu_torch as port
 from stencilflow_tpu.backend.pallas import run_chain_pallas
 from stencilflow_tpu_torch.backend import choose_backend, tile
-from stencilflow_tpu_torch.backend.stacked_io import (SMEM_PER_BLOCK,
-                                                      spanned_arrays)
+from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
 from stencilflow_tpu_torch.cli import main as cli_main
-from stencilflow_tpu_torch.config import VERIFY_RTOL
+from stencilflow_tpu_torch.config import H100_SMEM_PER_BLOCK, VERIFY_RTOL
 from stencilflow_tpu_torch.driver import run_program
 from stencilflow_tpu_torch.synthesize import random_program, synthesize_stencil
 from test_torch_stream import run_source
@@ -123,7 +122,7 @@ def test_plan_fits_shared_memory_and_refuses_beyond():
     p = port.parse_program(synthesize_stencil(
         num_stages=2, dimensions=(512,) * 3, shape="diffusion"))
     plan = tile.plan_tile(p)
-    assert 0 < plan.smem_bytes() <= SMEM_PER_BLOCK
+    assert 0 < plan.smem_bytes() <= H100_SMEM_PER_BLOCK
     assert plan.halo == (2, 2, 2) and plan.margin["s0"] == (1, 1, 1)
     with pytest.raises(ValueError, match="shared memory"):
         tile.plan_tile(p, tile=(32, 32, 128))
