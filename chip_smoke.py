@@ -82,7 +82,16 @@ Phases, one line each (any failure raises and exits non-zero):
    loop at 512 planes, U = 2, with its plain version and with ``copy_``
    as the body.  The graph-timed probes (P4, P7) count eager launches
    and graph captures: a replay re-runs the captured launches without
-   passing through the wrapper.
+   passing through the wrapper.  Then the design probes: P6 (dep and
+   indep, out and acc) and P3 (direct and the cp.async ring, every S) at
+   1, 2 and all blocks per SM, P2 in every variant and P5 in every walk,
+   each against its plain version bit for bit at ragged shapes and at
+   the main shape (512^3; P2 33 x 33 over 256 steps of 256^2), P5
+   against K2 (the overlap kernel) on the same chain written as a
+   StencilFlow program; one timed case per probe (P6 dep N = 16, P3 ring
+   S = 4 N = 16 at 1 block per SM, P2's four variants, P5 B = 8 (16, 64)
+   beside K2 and two chained ``F.conv3d``), each count reset just before
+   and read just after.
 
 Every bound comes from the port's report (report.py): the larger of the
 minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
@@ -90,8 +99,8 @@ strategy's operations over the single-instruction FP32 rate.  The last
 lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5 and the probes' from phase 6; error, kernel,
 plain-version and library times measured in this run at the main path's
-shapes, bounds computed from its inputs) and ``{"ok": true, "device":
-{...}}``.
+shapes, bounds computed from its inputs; 14 entries) and ``{"ok": true,
+"device": {...}}``.
 """
 import json
 import os
@@ -639,6 +648,162 @@ def _measurement(pn, smi):
     return {"copy_floor": p4, "alu_ceiling": p1, "loop_copy": p7}
 
 
+def _design_probes(ov, smi):
+    """Phase 6, continued: P6, P3, P2 and P5 against their plain versions
+    at a ragged and at the main shape (bit-exact; P6's out and acc, P3's
+    ring == direct == plain for every S, P2 in every variant, P5 in every
+    walk), P5 beside K2 on the shared program, then one timed case per
+    probe, each with its count reset just before and read just after.
+    Returns their entries of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch.probes import async_ring as ar
+    from stencilflow_tpu_torch.probes import dma_overlap as do
+    from stencilflow_tpu_torch.probes import pingpong_ms, roofline
+    from stencilflow_tpu_torch.probes import stateless_panel as sp
+    from stencilflow_tpu_torch.probes import table_read as tr
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def rand(shape):
+        return torch.rand(shape, device="cuda", generator=gen) * 0.5 + 0.5
+
+    worst = {}
+
+    def same(probe, label, got, want):
+        err = float((got - want).abs().max())
+        worst[probe] = max(worst.get(probe, 0.0), err)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{label} disagrees with its plain version: "
+                               f"max abs diff {err:.3g}")
+
+    # P6 and P3: ragged (float4 and scalar units) and main shapes
+    for shape in ((45, 37, 200), (13, 19, 37), do.MAIN):
+        x = rand(shape)
+        for mode in do.MODES:
+            want, want_acc = do.overlap_plain(x, mode, 16)
+            for bps in (1, 2, 0):
+                out, acc = do.overlap(x, mode, 16, blocks_per_sm=bps)
+                torch.cuda.synchronize()
+                same("dma_overlap", f"dma_overlap {mode}-16 {shape} "
+                     f"{bps}/SM", out, want)
+                if mode == "indep":
+                    same("dma_overlap", f"dma_overlap indep acc {shape}",
+                         acc, want_acc)
+        want = ar.ring_plain(x, 16)
+        for mode, slots in ar.cases():
+            for bps in (1, 2, 0):
+                got = ar.ring(x, 16, mode, slots, blocks_per_sm=bps)
+                torch.cuda.synchronize()
+                same("async_ring", f"async_ring {mode} S={slots} {shape} "
+                     f"{bps}/SM", got, want)
+        del x, want, want_acc, out, acc, got
+    # P2: the TPU's shape, a ragged one, the timed one
+    for shape in (tr.PARITY, dict(ntab=33, noff=33, rows=5, cols=37,
+                                  steps=41), tr.TIMED):
+        tab, x = tr.inputs(shape["ntab"], shape["noff"], shape["rows"],
+                           shape["cols"], device="cuda")
+        want = tr.table_read_plain(tab, x, shape["steps"])
+        for v in tr.VARIANTS:
+            got = tr.table_read(tab, x, shape["steps"], v)
+            torch.cuda.synchronize()
+            same("table_read", f"table_read {v} {shape}", got, want)
+    # P5: every walk, ragged and main; K2 on the shared program
+    for shape in ((37, 45, 70), sp.MAIN):
+        x = rand(shape)
+        want = sp.panel_plain(x)
+        for walk in sp.WALKS:
+            for _ in range(1 if walk == "box" else sp.PERSIST_CHECKS):
+                got = sp.panel(x, torch.full_like(x, float("nan")),
+                               walk=walk)
+                torch.cuda.synchronize()
+                same("stateless_panel", f"stateless_panel {walk} {shape}",
+                     got, want)
+    k2 = sp.overlap_k2(sp.MAIN)
+    k2_out = k2(x)
+    torch.cuda.synchronize()
+    same("stateless_panel", "K2 on P5's program", k2_out, want)
+    del k2_out, got, want
+    print(f"compare: P6 dep/indep, P3 direct and ring S={ar.SLOTS} at 1, 2 "
+          f"and all blocks per SM, P2 {tr.VARIANTS}, P5 {sp.WALKS}: ragged "
+          f"and main shapes bit-exact; K2 equal to P5 on "
+          f"{sp.MAIN} | {smi}", flush=True)
+
+    entry = dict(route="cuda", library_ms=None,
+                 launches_counted="eager launches and graph captures; "
+                 "replays not counted")
+    out = {}
+    # one timed case per probe at its main shape
+    a, b = x, torch.empty_like(x)
+    do.launches = 0
+    ms = pingpong_ms(lambda s, d: do.overlap(s, "dep", 16, d), a, b, 3)
+    n = do.launches
+    out["dma_overlap"] = dict(
+        entry, name="dma_overlap",
+        source="stencilflow_tpu_torch/csrc/probes/dma_overlap.cu",
+        replaces="scripts/dma_overlap_probe.py:56", launches=n, ms=ms,
+        max_abs_err=worst["dma_overlap"],
+        case="dep N=16, all blocks per SM",
+        plain_ms=_time_ms(lambda: do.overlap_plain(a, "dep", 16), 3),
+        **{k: v for k, v in roofline(*do.work(do.MAIN, "dep", 16), ms)
+           .items() if k in ("bound_ms", "bound_by")})
+    ar.launches = 0
+    ms = pingpong_ms(lambda s, d: ar.ring(s, 16, "ring", 4, d,
+                                          blocks_per_sm=1), a, b, 3)
+    n = ar.launches
+    out["async_ring"] = dict(
+        entry, name="async_ring",
+        source="stencilflow_tpu_torch/csrc/probes/dma_overlap.cu",
+        replaces="scripts/dma_manual_probe.py:96", launches=n, ms=ms,
+        max_abs_err=worst["async_ring"],
+        case="ring S=4 N=16, 1 block per SM",
+        plain_ms=_time_ms(lambda: ar.ring_plain(a, 16), 3),
+        **{k: v for k, v in roofline(*do.work(do.MAIN, "dep", 16), ms)
+           .items() if k in ("bound_ms", "bound_by")})
+    tr.launches = 0
+    rows = tr.measure(trials=3)
+    n = tr.launches
+    tab, x2 = tr.inputs(*(tr.TIMED[k] for k in ("ntab", "noff", "rows",
+                                                "cols")), device="cuda")
+    out["table_read"] = dict(
+        entry, name="table_read",
+        source="stencilflow_tpu_torch/csrc/probes/table_read.cu",
+        replaces="scripts/smem_table_probe.py:39", launches=n,
+        max_abs_err=worst["table_read"],
+        ms=rows[0]["ms"], case="ldg, 33 x 33 table, 256 steps of 256^2",
+        variants_ms={r["variant"]: r["ms"] for r in rows},
+        plain_ms=_time_ms(lambda: tr.table_read_plain(
+            tab, x2, tr.TIMED["steps"]), 3),
+        bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"])
+    sp.launches = 0
+    ms = pingpong_ms(lambda s, d: sp.panel(s, d), a, b, 3)
+    n = sp.launches
+    ov_before = ov.launches
+    k2_ms = sp.k2_ms(k2, a, 3)      # timed as P5 is: graphs, fed back
+    k2_n = ov.launches - ov_before
+    out["stateless_panel"] = dict(
+        entry, name="stateless_panel",
+        source="stencilflow_tpu_torch/csrc/probes/stateless_panel.cu",
+        replaces="scripts/stateless_panel_probe.py:82", launches=n, ms=ms,
+        max_abs_err=worst["stateless_panel"],
+        case=f"B={sp.DEFAULT['B']} tile {sp.DEFAULT['tile']} "
+             f"{sp.DEFAULT['walk']}",
+        plain_ms=_time_ms(lambda: sp.panel_plain(a), 3),
+        library_ms=sp.library_ms(a), k2_ms=k2_ms,
+        **{k: v for k, v in roofline(8.0 * a.numel(), 14.0 * a.numel(), ms)
+           .items() if k in ("bound_ms", "bound_by")})
+    for e in out.values():
+        print(f"kernel: {e['name']} ({e['case']}): {e['ms']:.4f} ms, plain "
+              f"version {e['plain_ms']:.4f} ms, library "
+              f"{'none' if e['library_ms'] is None else '%.4f ms' % e['library_ms']}"
+              f", bound {e['bound_ms']:.4f} ms ({e['bound_by']}), launches "
+              f"{e['launches']} | {smi}", flush=True)
+    print(f"probe: P2 variants {out['table_read']['variants_ms']} ms | P5 "
+          f"beside K2 (tile {k2.plan.tile}, {k2_n} launches) "
+          f"{k2_ms:.4f} ms | {smi}", flush=True)
+    del a, b, x, x2, tab
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -872,7 +1037,14 @@ def main() -> int:
     # the probes of phase 6, built from csrc/probes/ (the names and text
     # probes.load builds them with, so phase 6 finds them built)
     from stencilflow_tpu_torch import probes
-    sources += [(probes.source(n), f"probe_{n}") for n in ("copy", "alu")]
+    from stencilflow_tpu_torch.probes import stateless_panel as sp
+    sources += [(probes.source(n), f"probe_{n}") for n in (
+        "copy", "alu", "dma_overlap", "table_read", "stateless_panel")]
+    # K2 on P5's program at its main shape (phase 6)
+    p5 = sp.program(sp.MAIN)
+    an5 = sft.ChainAnalysis.run(p5)
+    sources.append((codegen.overlap_source(p5, an5, ov.OverlapPlan.build(
+        an5)), "overlap"))
     libs = build.load_libraries(sources)
     lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
     slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
@@ -1385,6 +1557,7 @@ def main() -> int:
     # -- 6. the measurement path ---------------------------------------------
     print(f"phase: 6 at {time.perf_counter() - t_run:.1f} s", flush=True)
     report.update(_measurement(pn, smi))
+    report.update(_design_probes(ov, smi))
     for name, entry in report.items():
         if entry["launches"] < 1:
             raise RuntimeError(f"the main path never launched {name}")

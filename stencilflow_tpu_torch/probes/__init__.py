@@ -7,11 +7,18 @@ count, run on the card as
     python -m stencilflow_tpu_torch.probes.copy_floor    # P4, copy floor
     python -m stencilflow_tpu_torch.probes.alu_ceiling   # P1, FP32 ceiling
     python -m stencilflow_tpu_torch.probes.loop_copy     # P7, launch/loop
+    python -m stencilflow_tpu_torch.probes.dma_overlap   # P6, overlap
+    python -m stencilflow_tpu_torch.probes.async_ring    # P3, cp.async ring
+    python -m stencilflow_tpu_torch.probes.table_read    # P2, weight table
+    python -m stencilflow_tpu_torch.probes.stateless_panel  # P5, vs K2
 
-Their readings are ``config.H100_*`` and ``config.H100_OP_COST``, which
-``report.py`` divides by.  This module holds what the three share: the
-build of a probe source with the port's nvcc flags, differenced CUDA-event
-timing, and the card's name, power limit and clocks from ``nvidia-smi``.
+The readings of the first three are ``config.H100_*`` and
+``config.H100_OP_COST``, which ``report.py`` divides by; the last four
+answer design questions of the kernels (PERF.md).  This module holds what
+they share: the build of a probe source with the port's nvcc flags, the
+shared memory that caps a kernel's residency, differenced CUDA-event
+timing, the bound of a case, and the card's name, power limit and clocks
+from ``nvidia-smi``.
 """
 from __future__ import annotations
 
@@ -19,9 +26,12 @@ import ctypes
 import functools
 import os
 import subprocess
+import sys
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from ..config import H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "probes")
@@ -56,6 +66,45 @@ def check_cuda(t: torch.Tensor) -> None:
     if t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError("the probes take contiguous float32 tensors, got "
                          f"{t.dtype} (contiguous: {t.is_contiguous()})")
+
+
+def vec_of(K: int, *tensors: torch.Tensor) -> int:
+    """4 (float4 units) when rows of ``K`` floats and every tensor's base
+    are 16-byte aligned, else 1."""
+    return 4 if K % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in tensors) else 1
+
+
+def occupancy_smem(blocks_per_sm: int, least: int = 0) -> int:
+    """Dynamic shared memory bytes per block that let exactly
+    ``blocks_per_sm`` blocks reside on an SM (0: no cap, ``least``): the
+    midpoint between what ``blocks_per_sm`` and one more block would need,
+    less the 1 KB the runtime reserves per block.  Raises when the cap is
+    below ``least``, the bytes the kernel itself uses."""
+    if blocks_per_sm == 0:
+        return least
+    cap = min(H100_SMEM_PER_BLOCK,
+              int(H100_SMEM_PER_SM / (blocks_per_sm + 0.5)) - 1024)
+    if blocks_per_sm < 0 or cap < least:
+        raise ValueError(f"{blocks_per_sm} blocks per SM leave {cap} B of "
+                         f"shared memory a block; the kernel needs {least}")
+    return cap
+
+
+def roofline(bytes_moved: float, ops: float, ms: float) -> Dict[str, object]:
+    """The bound of a case (report.HardwareModel: bytes over the data
+    sheet's rate against operations over the single-instruction rate) and
+    the fractions of it, of P4's copy floor and of P1's issue ceiling
+    that ``ms`` reaches."""
+    from ..report import HardwareModel
+    hw = HardwareModel()
+    t_bytes = bytes_moved / hw.hbm_bandwidth * 1e3
+    t_ops = ops / hw.alu_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "vs_bound": max(t_bytes, t_ops) / ms,
+            "vs_copy_floor": bytes_moved / hw.copy_floor * 1e3 / ms,
+            "vs_alu_issue": ops / hw.alu_issue_rate * 1e3 / ms}
 
 
 def sm_count() -> int:
@@ -111,6 +160,30 @@ def differenced_ms(run: Callable[[int], None], n1: int, n2: int,
             best[n] = min(best.get(n, float("inf")),
                           start.elapsed_time(stop))
     return (best[n2] - best[n1]) / (n2 - n1)
+
+
+def pingpong_ms(apply: Callable[[torch.Tensor, torch.Tensor], object],
+                a: torch.Tensor, b: torch.Tensor, trials: int,
+                graph: bool = True, n1: int = 2, n2: int = 10) -> float:
+    """Milliseconds per ``apply(src, dst)``, which writes ``dst`` from
+    ``src``, fed output to input between ``a`` and ``b`` (as P7 runs P4's
+    copy): ``differenced_ms`` of ``n1`` and ``n2`` applications."""
+    def run(n):
+        src, dst = a, b
+        for _ in range(n):
+            apply(src, dst)
+            src, dst = dst, src
+    return differenced_ms(run, n1, n2, trials, graph=graph)
+
+
+def require_cuda(what: str) -> bool:
+    """The probes' entry points measure the card only: False, with an
+    ``error:`` line, when torch sees none."""
+    if torch.cuda.is_available():
+        return True
+    print(f"error: {what} is measured on a CUDA device; torch sees none",
+          file=sys.stderr)
+    return False
 
 
 def card() -> Dict[str, object]:

@@ -32,7 +32,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import ClockSampler, card, check_cuda, differenced_ms, load, sm_count
+from . import (ClockSampler, card, check_cuda, differenced_ms, load,
+               require_cuda, sm_count)
 
 launches = 0
 
@@ -248,9 +249,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ops", default=None,
                     help="comma-separated subset of OPS (default: all)")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("error: the FP32 ceiling is measured on a CUDA device; torch "
-              "sees none", file=sys.stderr)
+    if not require_cuda("the FP32 ceiling"):
         return 1
     dev = card()
     ops = tuple(args.ops.split(",")) if args.ops else OPS

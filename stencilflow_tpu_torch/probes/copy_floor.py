@@ -26,7 +26,8 @@ from typing import Dict, List, Optional
 import torch
 
 from ..config import H100_L2_BYTES
-from . import ClockSampler, card, check_cuda, differenced_ms, load, sm_count
+from . import (ClockSampler, card, check_cuda, differenced_ms, load,
+               require_cuda, sm_count)
 
 launches = 0
 
@@ -149,9 +150,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="copy_floor", description=__doc__)
     ap.add_argument("--trials", type=int, default=5)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("error: the copy floor is measured on a CUDA device; torch "
-              "sees none", file=sys.stderr)
+    if not require_cuda("the copy floor"):
         return 1
     dev = card()
     with ClockSampler() as clocks:

@@ -37,7 +37,7 @@ from typing import Callable, Dict, List
 
 import torch
 
-from . import ClockSampler, card, differenced_ms
+from . import ClockSampler, card, differenced_ms, require_cuda
 from .copy_floor import copy, copy_plain, gbs
 
 PLANES = (512, 8)
@@ -113,9 +113,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="loop_copy", description=__doc__)
     ap.add_argument("--trials", type=int, default=3)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("error: the loop harness is measured on a CUDA device; torch "
-              "sees none", file=sys.stderr)
+    if not require_cuda("the loop harness"):
         return 1
     dev = card()
     with ClockSampler() as clocks:

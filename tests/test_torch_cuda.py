@@ -478,3 +478,117 @@ def test_bench_on_card(cuda, capsys):
     assert rec["bounds"] and all(0 < v <= 1.0
                                  for v in rec["bounds"].values())
     assert rec["device"]["name"] and len(rec["session_clocks"]) == 2
+
+
+# -- the probes P6, P3, P2 and P5 -------------------------------------------
+
+# ragged: J not a multiple of the 8-row tile, K of the 32-unit tile (float4
+# units at K = 200, scalar at K = 37), P not a multiple of the 32-plane
+# chunk; then the main shape
+PLANE_SHAPES = [(45, 37, 200), (13, 19, 37), (512, 512, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PLANE_SHAPES)
+@pytest.mark.parametrize("bps", [1, 0])
+def test_dma_overlap_probe_matches_plain_on_card(shape, bps, cuda):
+    """P6's out and acc equal the plain version bit for bit."""
+    from stencilflow_tpu_torch.probes import dma_overlap as do
+    x = torch.rand(shape, device=cuda) * 0.5 + 0.5
+    for mode in do.MODES:
+        before = do.launches
+        out, acc = do.overlap(x, mode, 16, blocks_per_sm=bps)
+        torch.cuda.synchronize()
+        want, want_acc = do.overlap_plain(x, mode, 16)
+        assert torch.equal(out, want) and do.launches == before + 1
+        if mode == "indep":
+            assert torch.equal(acc, want_acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PLANE_SHAPES)
+@pytest.mark.parametrize("bps", [1, 0])
+def test_async_ring_probe_matches_plain_on_card(shape, bps, cuda):
+    """P3: ring == direct == plain, bit for bit, for every S."""
+    from stencilflow_tpu_torch.probes import async_ring as ar
+    x = torch.rand(shape, device=cuda) * 0.5 + 0.5
+    want = ar.ring_plain(x, 16)
+    before = ar.launches
+    for mode, s in ar.cases():
+        got = ar.ring(x, 16, mode, s, torch.full_like(x, float("nan")),
+                      blocks_per_sm=bps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (mode, s)
+    assert ar.launches == before + len(ar.cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [dict(ntab=7, noff=5, rows=64, cols=256,
+                                        steps=9),
+                                   dict(ntab=33, noff=33, rows=5, cols=37,
+                                        steps=41),
+                                   dict(ntab=33, noff=33, rows=256,
+                                        cols=256, steps=256)])
+def test_table_read_probe_matches_plain_on_card(shape, cuda):
+    """P2: every variant equals the plain version bit for bit (the
+    TPU's shape, a ragged one and the timed one)."""
+    from stencilflow_tpu_torch.probes import table_read as tr
+    tab, x = tr.inputs(shape["ntab"], shape["noff"], shape["rows"],
+                       shape["cols"], device=cuda)
+    want = tr.table_read_plain(tab, x, shape["steps"])
+    for v in tr.VARIANTS:
+        before = tr.launches
+        got = tr.table_read(tab, x, shape["steps"], v,
+                            torch.full_like(want, float("nan")))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), v
+        assert tr.launches - before == (
+            len(tr.row_runs(shape["steps"], shape["ntab"]))
+            if v == "param" else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,B,tile", [((37, 45, 70), 8, (16, 32)),
+                                          ((20, 9, 100), 4, (8, 64)),
+                                          ((512, 512, 512), 8, (16, 32))])
+def test_stateless_panel_probe_matches_plain_on_card(shape, B, tile, cuda):
+    """P5 in every walk equals the plain version bit for bit; the
+    persistent walks, which reuse a block's shared memory box after box,
+    several times over, so a race between boxes shows."""
+    from stencilflow_tpu_torch.probes import stateless_panel as sp
+    x = torch.rand(shape, device=cuda) * 0.5 + 0.5
+    want = sp.panel_plain(x)
+    for walk in sp.WALKS:
+        for rep in range(1 if walk == "box" else 8):
+            got = sp.panel(x, torch.full_like(x, float("nan")), B, tile,
+                           walk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (walk, rep)
+
+
+@pytest.mark.cuda
+def test_stateless_panel_probe_equals_k2_on_card(cuda):
+    """The shared StencilFlow program through the overlap kernel (K2)
+    equals P5 bit for bit."""
+    from stencilflow_tpu_torch.probes import stateless_panel as sp
+    shape = (40, 48, 72)
+    x = torch.rand(shape, device=cuda) * 0.5 + 0.5
+    before = overlap.launches
+    got = sp.overlap_k2(shape)(x)
+    torch.cuda.synchronize()
+    assert overlap.launches == before + 1
+    assert torch.equal(got, sp.panel(x))
+
+
+@pytest.mark.cuda
+def test_probe_launch_refused_for_shared_memory_raises(cuda):
+    """A launch asking for more shared memory than a block may have never
+    runs: the wrapper raises (P5's box of 66^3 stage-1 values, 1.15 MB);
+    a ring larger than a residency cap leaves is refused before it."""
+    from stencilflow_tpu_torch.probes import async_ring as ar
+    from stencilflow_tpu_torch.probes import stateless_panel as sp
+    x = torch.rand(4, 16, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sp.panel(x, B=64, tile=(64, 64))
+    with pytest.raises(ValueError):
+        ar.ring(x, 4, slots=4, blocks_per_sm=16)   # ring above the cap

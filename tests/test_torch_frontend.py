@@ -214,7 +214,9 @@ def test_import_scan_covers_the_measurement_slice():
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for mod in ("report.py", "bench.py", "optimizer.py", "frontend/export.py",
                 "probes/__init__.py", "probes/copy_floor.py",
-                "probes/alu_ceiling.py", "probes/loop_copy.py"):
+                "probes/alu_ceiling.py", "probes/loop_copy.py",
+                "probes/dma_overlap.py", "probes/async_ring.py",
+                "probes/table_read.py", "probes/stateless_panel.py"):
         assert os.path.join("stencilflow_tpu_torch", mod) in scanned
 
 
