@@ -29,11 +29,13 @@ Phases, one line each (any failure raises and exits non-zero):
    (constant / copy / shrink BCs), the hdiff DAG at 4 chunks (i-halo 0),
    a box chain of extent 2 banded per stage at 2 chunks and the 3-D fuzz
    chain (bit-exact per cell, MXU_VERIFY_RTOL banded); the stream kernel
-   with rings spilled to device memory (K3c) against its plain version,
-   bit-exact, on the reconvergent 16-stage chain (a shared-memory budget
-   that forces the spill), jacobi3d 64^3 x 3 with every ring spilled
-   (constant / copy / shrink BCs), the hdiff DAG (every ring spilled) and
-   K4 with every ring spilled at 4 chunks; the overlapped-tile kernel
+   of the spill rung (K3c: shared memory packed by liveness, spilled
+   rings staged and moved by bulk asynchronous copies) against its plain
+   version, bit-exact, on the reconvergent 16-stage chain (a
+   shared-memory budget that forces the spill), jacobi3d 64^3 x 3 with
+   every ring spilled (constant / copy / shrink BCs), the hdiff DAG and a
+   32-stage hotspot chain (``spill="all"``) and K4 with every ring
+   spilled at 4 chunks; the overlapped-tile kernel
    (K6), masked and fast, against its plain version on the example
    programs and fuzz chains above (bit-exact or within VERIFY_RTOL where a
    transcendental appears);
@@ -42,9 +44,10 @@ Phases, one line each (any failure raises and exits non-zero):
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
    extent 2 (stream, all 8 stages composed) and cross3d 256^3 x 8 of
    extent 2 (stream, per stage), jacobi2d and hotspot2d 8192^2 x 8
-   (rows+group_g8), hdiff2d 8192^2 x 16 (rows+panel), the deep 3-D
-   chains jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x
-   32 (stream with spilled rings, K3c, 3 repetitions), and K6 forced
+   (rows+group_g8), hdiff2d 8192^2 x 16 (stream: the spill rung's
+   layout, its rings packed by liveness), the deep 3-D chains jacobi3d
+   512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32 (the spill
+   rung, K3c, 3 repetitions), and K6 forced
    through ``backend="tile"`` on jacobi3d 512^3 x 2 and hdiff3d 256^3 x
    8, each verified against the dense lowering on the card and, up to
    256^3 and for the two 8192^2 x 8 cells, against the numpy oracle
@@ -54,7 +57,11 @@ Phases, one line each (any failure raises and exits non-zero):
    also print the forced-panel time where the panel planner accepts the
    program, the 2-D cells the forced overlap kernel on the unrotated
    plane (the port's route before the rows path) and forced rows+panel,
-   the forced K6 cells the route's time; after the main path, one
+   the forced K6 cells the route's time; before the main path, K3c on
+   each deep cell against its plain version bit for bit, with its time,
+   share of the bound, spill traffic a call against the copy floor,
+   spilled rings, loads a step and resident blocks per SM, and the dense
+   lowering's time beside it; after the main path, one
    ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained (TF32
    off), is timed for the linear chains as a library yardstick the port
    never calls;
@@ -915,14 +922,18 @@ def main() -> int:
     hotspot2d = synth2d("hotspot", (8192, 8192), 8)
     hdiff2d = synth2d("hdiff", (8192, 8192), 16)
     mains2d = [(jacobi2d, "rows+group_g8"), (hotspot2d, "rows+group_g8"),
-               (hdiff2d, "rows+panel")]
+               (hdiff2d, "stream")]
     mains += mains2d
-    # K3c (phase 3): (label, program, shared-memory budget; 0 spills
-    # every ring)
+    # K3c (phase 3): (label, program, planner options; spill="all" spills
+    # every ring read at an earlier step)
     spill_cases = [("reconvergent", sft.parse_program(
-        _reconvergent_spec(), name="reconvergent_16"), 40000)]
-    spill_cases += [(label, p, 0) for label, p, _c in local_cases[:3]]
-    spill_cases.append(("hdiff-dag", local_cases[3][1], 0))
+        _reconvergent_spec(), name="reconvergent_16"),
+        {"smem_budget": 40000})]
+    spill_cases += [(label, p, {"spill": "all"})
+                    for label, p, _c in local_cases[:3]]
+    spill_cases.append(("hdiff-dag", local_cases[3][1], {"spill": "all"}))
+    spill_cases.append(("hotspot-deep", synth("hotspot", (40, 40, 72), 32),
+                        {"spill": "all"}))
     # the deep 3-D cells (phase 4): the stream kernel's spill rung
     jacobi32 = synth("diffusion", 512, 32)
     deep = [jacobi32, synth("hdiff", 256, 16), synth("hotspot", 256, 32)]
@@ -1009,14 +1020,14 @@ def main() -> int:
     # K3c: phase 3's spilled plans, K4 spilled at 4 chunks, the deep
     # cells' route plans (rung 4: every stage per cell, spilled)
     spill_plans = []
-    for label, p, budget in spill_cases:
-        plan = st.plan_stream(p, smem_budget=budget)
+    for label, p, kw in spill_cases:
+        plan = st.plan_stream(p, **kw)
         spill_plans.append((label, p, plan))
         sources.append((st.stream_source(plan), "stream"))
     lp = local_cases[1][1]   # jacobi3d 64^3 x 3, copy BCs
     lan = sft.ChainAnalysis.run(lp)
     local_spill = st.plan_local(lp, lan, lp.dimensions[0] // 4,
-                                chain_halo(lan)[0], smem_budget=0)
+                                chain_halo(lan)[0], spill="all")
     sources.append((st.stream_source(local_spill), "local_stream"))
     deep_plans = {}
     for p in deep:
@@ -1325,40 +1336,60 @@ def main() -> int:
         library.append(("stream" if label == "box3d_256_8itr" else label,
                         p, 2))
 
-    # K3c on jacobi3d 512^3 x 32 (the route's spilled plan)
-    plan = deep_plans[jacobi32.name]
-    lib = lib_of[st.stream_source(plan)]
-    arrays = spanned_arrays(jacobi32, sft.load_input_arrays(jacobi32, seed=0),
-                            device="cuda")
-    got = st.run_stream(plan, arrays, lib)
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter()
-    want = st.stream_plain(plan, arrays)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t_plain) * 1e3
-    o = jacobi32.outputs[0]
-    ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(), 0.0)
-    ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 2)
-    del got, want, arrays
-    plan.device_pool.clear()
-    torch.cuda.empty_cache()
-    bound_ms, bound_by = _bound(jacobi32)
-    print(f"kernel: stream_spill {jacobi32.name} tile {plan.tile} smem "
-          f"{plan.smem_bytes()} B, spilled {len(plan.spilled)} of "
-          f"{len(plan.raw_ring)} rings ({plan.spill_bytes() / 2 ** 30:.3f} "
-          f"GiB): {ms:.3f} ms ({jacobi32.total_elements / ms / 1e6:.2f} "
-          f"GCell/s), plain version {plain_ms:.1f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
-          f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
-    if not ok:
-        raise RuntimeError("spilled stream kernel disagrees with its plain "
-                           f"version on {jacobi32.name}")
-    report["stream_spill"] = {
-        "name": "stream_spill", "route": "cuda",
-        "source": "stencilflow_tpu_torch/backend/codegen.py",
-        "replaces": "stencilflow_tpu/backend/stream.py:658",
-        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    # K3c on the deep cells (the route's spill-rung plans): kernel and
+    # plain version bit for bit, the dense lowering's time beside, spill
+    # traffic against the copy floor, the layout's loads and residency
+    from stencilflow_tpu_torch.backend.dense import compile_chain
+    from stencilflow_tpu_torch.config import H100_COPY_FLOOR
+    for p in deep:
+        plan = deep_plans[p.name]
+        lib = lib_of[st.stream_source(plan)]
+        inputs = sft.load_input_arrays(p, seed=0)
+        arrays = spanned_arrays(p, inputs, device="cuda")
+        got = st.run_stream(plan, arrays, lib)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = st.stream_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        o = p.outputs[0]
+        ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(), 0.0)
+        del got, want
+        ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 2)
+        dense_fn = compile_chain(p)
+        tensors = {k: torch.as_tensor(np.asarray(v)).cuda()
+                   for k, v in inputs.items()}
+        dense_ms = _time_ms(lambda: dense_fn(tensors), 1)
+        del arrays, tensors
+        plan.device_pool.clear()
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(p)
+        ntj, ntk = plan.grid()
+        moved = plan.spill_traffic() * plan.steps() * ntj * ntk
+        print(f"kernel: stream_spill {p.name} tile {plan.tile} smem "
+              f"{plan.smem_bytes()} B, {plan.residency()} blocks per SM, "
+              f"spilled {len(plan.spilled)} of {len(plan.raw_ring)} rings, "
+              f"{len(plan.spill_layout().loads)} loads a step "
+              f"({plan.spill_bytes() / 2 ** 30:.3f} GiB): {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s, "
+              f"{bound_ms / ms:.4f} of the bound {bound_ms:.4f} ms, "
+              f"{bound_by}), spill traffic {moved / 1e9:.2f} GB a call at "
+              f"{moved / ms / 1e6:.1f} GB/s ({moved / ms * 1e3 / H100_COPY_FLOOR:.3f} "
+              f"of the copy floor), modelled {plan.spill_seconds() * 1e3:.1f} "
+              f"ms | plain version {plain_ms:.1f} ms, max_abs_err {err:.3g} "
+              f"{'OK' if ok else 'MISMATCH'} | dense {dense_ms:.3f} ms | {smi}",
+              flush=True)
+        if not ok:
+            raise RuntimeError("spilled stream kernel disagrees with its "
+                               f"plain version on {p.name}")
+        if p is jacobi32:
+            report["stream_spill"] = {
+                "name": "stream_spill", "route": "cuda",
+                "source": "stencilflow_tpu_torch/backend/codegen.py",
+                "replaces": "stencilflow_tpu/backend/stream.py:658",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
     library.append(("stream_spill", jacobi32, 1))
     # K6 on jacobi3d 512^3 x 2: masked (the route's mode), then fast
     arrays = spanned_arrays(jacobi2, sft.load_input_arrays(jacobi2, seed=0),
@@ -1476,7 +1507,7 @@ def main() -> int:
         if res.backend != want_backend:
             raise RuntimeError(f"{p.name}: backend {res.backend}, expected "
                                f"{want_backend}")
-        if p.name in deep_names and (not deep_plans[p.name].spilled
+        if p.name in deep_names and (not deep_plans[p.name].packed
                           or st.spill_launches - spilled_before != 4):
             raise RuntimeError(f"{p.name}: the spilled stream kernel ran "
                                f"{st.spill_launches - spilled_before} "

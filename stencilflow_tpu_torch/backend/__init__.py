@@ -94,7 +94,7 @@ def _route(program, analysis, device, mxu="auto", mxu_precision="split",
         try:
             plan = plan_stream(program, analysis, mxu=mxu,
                                mxu_precision=mxu_precision, spill=spill)
-            if plan.mxu_plans or plan.spilled:
+            if plan.mxu_plans or plan.packed:
                 return "stream", plan
         except (ValueError, NotImplementedError):
             pass   # a planner refusal: the per-cell kernels below

@@ -594,6 +594,62 @@ _STREAM_MACROS = """#ifdef __CUDACC__
 """
 
 
+# the spill rung's asynchronous copies (K3c): bulk stores of staging planes
+# to the spill buffer, bulk loads completed on mbarriers; on the host the
+# copies are memcpy at the point of issue and the waits do nothing
+_SPILL_MACROS = """#ifdef __CUDACC__
+SF_DEV unsigned sf_saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p); }
+#define SF_FENCE_ASYNC() asm volatile("fence.proxy.async.shared::cta;" ::: "memory")
+#define SF_MBAR_INIT(b) asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(sf_saddr(b)) : "memory")
+#define SF_MBAR_FENCE_INIT() asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory")
+#define SF_BULK_COMMIT() asm volatile("cp.async.bulk.commit_group;" ::: "memory")
+#define SF_BULK_WAIT_READ() asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory")
+#define SF_BULK_WAIT() asm volatile("cp.async.bulk.wait_group 0;\\n\\tfence.proxy.async.global;" ::: "memory")
+SF_DEV void sf_bulk_store(void* dst, const void* src, const unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               :: "l"(dst), "r"(sf_saddr(src)), "r"(bytes) : "memory");
+}
+SF_DEV void sf_bulk_load(void* dst, const void* src, const unsigned bytes,
+                         unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(sf_saddr(bar)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1], %2, [%3];"
+               :: "r"(sf_saddr(dst)), "l"(src), "r"(bytes), "r"(sf_saddr(bar))
+               : "memory");
+}
+SF_DEV void sf_mbar_wait(unsigned long long* bar, const unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\\n\\t.reg .pred p;\\n\\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n\\t"
+                 "selp.u32 %0, 1, 0, p;\\n\\t}"
+                 : "=r"(done) : "r"(sf_saddr(bar)), "r"(parity) : "memory");
+}
+#else
+#define SF_FENCE_ASYNC()
+#define SF_MBAR_INIT(b)
+#define SF_MBAR_FENCE_INIT()
+#define SF_BULK_COMMIT()
+#define SF_BULK_WAIT_READ()
+#define SF_BULK_WAIT()
+SF_DEV void sf_bulk_store(void* dst, const void* src, const unsigned bytes) {
+  memcpy(dst, src, bytes);
+}
+SF_DEV void sf_bulk_load(void* dst, const void* src, const unsigned bytes,
+                         unsigned long long* bar) {
+  (void)bar;
+  memcpy(dst, src, bytes);
+}
+SF_DEV void sf_mbar_wait(unsigned long long* bar, const unsigned parity) {
+  (void)bar;
+  (void)parity;
+}
+#endif
+"""
+
+
 def _param_names(params: str) -> str:
     return ", ".join(p.split()[-1] for p in params.split(", "))
 
@@ -826,13 +882,14 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     read from the local (Ii, ...) slabs, and only core planes q in [h, h
     + Ic) are written, to plane q - h of the (Ic, J, K) outputs.
 
-    Spilled rings (K3c, ``plan.spilled``) live in the block's own region
-    of the spill buffer ``sf_spill`` (one more kernel argument, the last
-    pointer in ``in``) instead of shared memory, with the same slot
-    arithmetic; the barriers between stages make each plane written
-    there visible to the block's threads before they read it.  The g++
-    entry point mallocs that buffer filled with 0xff bytes (NaN), as it
-    does shared memory."""
+    A plan of the spill rung (K3c, ``plan.packed``) takes
+    ``_packed_stream_body``: shared memory packed by liveness, and
+    spilled rings (``plan.spilled``) kept in the block's own region of
+    the spill buffer ``sf_spill`` (one more kernel argument, the last
+    pointer in ``in``), which only bulk asynchronous copies touch, with
+    the macros of ``_SPILL_MACROS`` (memcpy on the host).  The g++ entry
+    point mallocs that buffer filled with 0xff bytes (NaN), as it does
+    shared memory."""
     I, J, K = dims = program.dimensions
     local = bool(plan.block)
     Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
@@ -840,32 +897,31 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans))
     tj, tk = plan.tile
     ntj, ntk = plan.grid()
-    offs = plan.smem_offsets()
-    soffs = plan.spill_offsets()
     n_pool = len(plan.kernel_pool())
     spill = bool(plan.spilled)
     params, args = _params(program, n_pool, origin=local, spill=spill)
     em = _StreamEmitter(program, plan, slots)
+    if plan.packed:
+        L = [head, _STREAM_MACROS, _SPILL_MACROS] + _packed_stream_body(
+            program, plan, em, order, slots, kernel, params)
+        L += _entry_points(program, kernel, params, args, (ntj, ntk),
+                           plan.smem_bytes(), slots, n_pool, origin=local,
+                           spill_bytes=plan.spill_bytes() if spill else 0)
+        return "\n".join(L)
+    offs = plan.smem_offsets()
     L = [head, _STREAM_MACROS,
          "// stream streamer (backend/stream.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
          "cell stages, K3b banded transforms)" + (
              "; local chunk kernel K4, as built by compile_local_stream "
-             f"(chunk of {Ic} + 2 x {h} planes)" if local else "") + (
-             "; rings spilled to device memory (K3c, spill_read / "
-             f"spill_write / choose_spill): {', '.join(plan.spilled)}"
-             if spill else ""),
+             f"(chunk of {Ic} + 2 x {h} planes)" if local else ""),
          f"SF_DEV void {kernel}_block(const int by, const int bx, "
          "const int tid, const int nt, unsigned char* const sf_smem, "
          f"{params}) {{",
          f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
     for f in plan.raw_ring:
         ct = ctype(program.field_dtype(f))
-        if f in plan.spilled:
-            L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_spill + (long long)"
-                     f"(by * {ntk} + bx) * {soffs['end']}LL + {soffs[f]});")
-        else:
-            L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
+        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
     for n, t in enumerate(plan.tkeys):
         L.append(f"  float* const t{n} = (float*)(sf_smem + {offs[t]});")
     L.append(f"  float* const sf_u = (float*)(sf_smem + {offs['']});")
@@ -946,6 +1002,190 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
                        plan.smem_bytes(), slots, n_pool, origin=local,
                        spill_bytes=plan.spill_bytes() if spill else 0)
     return "\n".join(L)
+
+
+def _packed_stream_body(program, plan, em, order, slots, kernel: str,
+                        params: str) -> List[str]:
+    """The block body of a spill-rung plan (K3c; ``plan.packed``): shared
+    memory as ``plan.spill_layout()`` places it, and per plane step t the
+    phases of the layout, each closed by a barrier — phase 0 ingests the
+    ring inputs, phase 1 + n runs the n-th stage.  Thread 0 opens each
+    phase: it issues the bulk stores of the staging planes the phase
+    before wrote (into slot q % depth of the ring's part of the block's
+    region of ``sf_spill``), at the top of the step waits until every
+    store of the earlier steps has landed, and issues the phase's bulk
+    loads, each arriving on its own mbarrier; then every thread waits on
+    the mbarrier of each load first read in the phase (parity t & 1:
+    each completes once a step).  Before the barrier that closes a
+    phase, every thread fences
+    its shared-memory writes against the async proxy and thread 0 waits
+    until its stores have read their staging planes.  A spilled ring's
+    readers read its staging plane or a load buffer, never device
+    memory."""
+    I, J, K = program.dimensions
+    local = bool(plan.block)
+    Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
+    tj, tk = plan.tile
+    ntj, ntk = plan.grid()
+    lay = plan.spill_layout()
+    soffs = plan.spill_offsets()
+    n = plan.phases()
+    bar = {key: i for i, key in enumerate(lay.loads)}
+    L = ["// stream streamer (backend/stream.py): replaces the TPU kernel "
+         "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
+         "cell stages)" + (
+             "; local chunk kernel K4, as built by compile_local_stream "
+             f"(chunk of {Ic} + 2 x {h} planes)" if local else "")
+         + "; the spill rung (K3c: choose_spill, spill_prefetch, spill_read, "
+         "spill_write): shared memory packed by liveness"
+         + (f", rings staged and spilled to device memory: "
+            f"{', '.join(plan.spilled)}" if plan.spilled else ""),
+         f"SF_DEV void {kernel}_block(const int by, const int bx, "
+         "const int tid, const int nt, unsigned char* const sf_smem, "
+         f"{params}) {{",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
+    if lay.loads:
+        L.append("  unsigned long long* const sf_bar = "
+                 "(unsigned long long*)sf_smem;")
+    if plan.spilled:
+        L.append(f"  unsigned char* const sf_region = sf_spill + (long long)"
+                 f"(by * {ntk} + bx) * {soffs['end']}LL;")
+    for f in plan.raw_ring:
+        ct = ctype(program.field_dtype(f))
+        if f in plan.spilled:
+            L.append(f"  {ct}* const st_{f} = ({ct}*)(sf_smem + "
+                     f"{lay.offset['stage', f]});")
+        else:
+            off = lay.offset[f] if f in lay.offset else lay.offset["ring", f]
+            L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {off});")
+    for key, i in bar.items():
+        ct = ctype(program.field_dtype(key[0]))
+        L.append(f"  {ct}* const ld{i} = ({ct}*)(sf_smem + "
+                 f"{lay.offset[('read',) + key]});")
+    if lay.loads:
+        L += ["  if (tid == 0) {",
+              f"    for (int b = 0; b < {len(lay.loads)}; ++b) "
+              "SF_MBAR_INIT(sf_bar + b);", "    SF_MBAR_FENCE_INIT();", "  }",
+              "  SF_SYNC();"]
+    L.append(f"  for (int t = 0; t < {plan.steps()}; ++t) {{")
+    L.append("    const unsigned par = t & 1;  (void)par;")
+
+    def q_of(f: str, step: str) -> Tuple[str, str]:
+        """(plane, guard) of ``f``'s producer at step ``step``."""
+        if f in program.inputs:
+            return step, f"{step} < {Ii}"
+        q = f"({step} - {plan.lag[f]})"
+        return q, f"{q} >= 0 && {q} < {Ii}"
+
+    def store(f: str, step: str) -> List[str]:
+        q, guard = q_of(f, step)
+        pb = plan.plane_bytes(f)
+        return [f"      if ({guard}) sf_bulk_store(sf_region + {soffs[f]} + "
+                f"({q} % {plan.raw_ring[f]}) * {pb}, st_{f}, {pb}u);"]
+
+    def prologue(ph: int) -> List[str]:
+        """Thread 0's stores and loads at the start of phase ``ph``."""
+        body: List[str] = []
+        prev = [f for f in plan.spilled if plan.phase(f) == (ph - 1) % n]
+        for f in prev:
+            body += store(f, "t" if ph else "(t - 1)")
+        if prev:
+            if not ph:
+                body = ["      if (t > 0) {"] + ["  " + b for b in body] \
+                    + ["      }"]
+            body.append("      SF_BULK_COMMIT();")
+        if not ph and lay.loads:
+            body.append("      SF_BULK_WAIT();  // stores landed")
+        for key in [k for k in lay.loads if lay.issue[k] == ph]:
+            f, d = key
+            D, pb = plan.raw_ring[f], plan.plane_bytes(f)
+            body.append(f"      sf_bulk_load(ld{bar[key]}, sf_region + "
+                        f"{soffs[f]} + (((t - {d}) % {D} + {D}) % {D}) * "
+                        f"{pb}, {pb}u, sf_bar + {bar[key]});")
+        out = ["    if (tid == 0) {"] + body + ["    }"] if body else []
+        out += [f"    sf_mbar_wait(sf_bar + {bar[key]}, par);"
+                for key in lay.loads if lay.readers[key][0] == ph]
+        return out
+
+    close = ["    SF_FENCE_ASYNC();", "    if (tid == 0) SF_BULK_WAIT_READ();",
+             "    SF_SYNC();"]
+    # phase 0: ingest the ring inputs
+    L.append("    // phase 0")
+    L += prologue(0)
+    ring_inputs = [f for f in plan.raw_ring if f in program.inputs]
+    if ring_inputs:
+        L.append(f"    if (t < {Ii}) {{")
+        for f in ring_inputs:
+            RJ, RK = plan.region(f)
+            hj, hk = plan.halo[f]
+            dst = (f"st_{f}[p]" if f in plan.spilled else
+                   f"r_{f}[(t % {plan.raw_ring[f]}) * {RJ * RK} + p]")
+            L += [f"      for (int p = tid; p < {RJ * RK}; p += nt) {{",
+                  f"        const int jl = p / {RK}, kl = p - jl * {RK};",
+                  f"        const int gj = j0 - {hj} + jl, "
+                  f"gk = k0 - {hk} + kl;",
+                  f"        {dst} = (gj >= 0 && gj < {J} && gk >= 0 && "
+                  f"gk < {K}) ? g_{f}[((long long)t * {J} + gj) * {K} + gk]"
+                  f" : {literal(0, program.field_dtype(f))};",
+                  "      }"]
+        L.append("    }")
+    L += close
+    pos = ("gq", "gj", "gk") if local else ("q", "gj", "gk")
+    at_pos = ("q", "gj", "gk") if local else None
+    for idx, s in enumerate(order):
+        kspec = program.kernels[s]
+        RJ, RK = plan.region(s)
+        hj, hk = plan.halo[s]
+        ph = plan.phase(s)
+
+        def onchip(f, s=s):
+            if f not in plan.raw_ring:
+                return lambda o: None
+            fj, fk = plan.region(f)
+            dj = plan.halo[f][0] - plan.halo[s][0]
+            dk = plan.halo[f][1] - plan.halo[s][1]
+            if f not in plan.spilled:
+                D = plan.raw_ring[f]
+                return lambda o: (f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
+                                  f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
+                                  f"kl + {dk + o[2]}]")
+
+            def at(o):
+                d = plan.lag[s] - o[0]
+                buf = f"st_{f}" if d == plan.lag[f] else f"ld{bar[f, d]}"
+                return (f"{buf}[(jl + {dj + o[1]}) * {fk} + kl + "
+                        f"{dk + o[2]}]")
+            return at
+
+        body = _stage_call(program, kspec, idx, pos, onchip, slots, at_pos,
+                           em.adims)
+        if s in plan.spilled:
+            body.append(f"st_{s}[p] = r;")
+        elif s in plan.raw_ring:
+            body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
+                        "= r;")
+        if s in program.outputs:
+            core = f"q >= {h} && q < {h + Ic} && " if local else ""
+            body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
+                        f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
+                        f"gk < {K}) o_{s}[((long long)"
+                        f"{f'(q - {h})' if local else 'q'} * {J} + gj) * "
+                        f"{K} + gk] = r;")
+        L.append(f"    // phase {ph}: stage {s}")
+        L += prologue(ph)
+        L += ["    {", f"      const int q = t - {plan.lag[s]};"]
+        if local:
+            L.append("      const int gq = origin_i + q;  (void)gq;")
+        L += [f"      if (q >= 0 && q < {Ii}) {{",
+              f"        for (int p = tid; p < {RJ * RK}; p += nt) {{",
+              f"          const int jl = p / {RK}, kl = p - jl * {RK};",
+              f"          const int gj = j0 - {hj} + jl, "
+              f"gk = k0 - {hk} + kl;"]
+        L += ["          " + b for b in body]
+        L += ["        }", "      }", "    }"]
+        L += close
+    L += ["  }", "  if (tid == 0) SF_BULK_WAIT();", "}"]
+    return L
 
 
 def _entry_points(program, kernel: str, params: str, args: str, grid,

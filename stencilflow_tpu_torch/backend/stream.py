@@ -82,32 +82,49 @@ planes (1.125x the core at h = 8, Ic = 128) so that chunks need nothing
 from each other, and an out-of-core call is bound by the host copies
 around it, not by the kernel (PERF.md).
 
-Spill (K3c, the counterpart of ``choose_spill`` and the last rung of the
-reference's ``compile_chain_stream``): when no tile fits the shared-memory
-budget (``smem_budget``) with every ring on chip, a per-cell plan (no
-banded or composed stage, as the reference's rung) moves rings to a
-buffer in device memory, in ``choose_spill``'s order — each ring's read
-deltas collected as the reference does (``lag[c] - oi`` per read, plus
-the copy-BC centre read), candidates sorted by ``ring / (1 + |deltas|)``
-descending — until the rest fits.  One thing differs, because device
-memory here is read in place through L1/L2 rather than copied in by DMA:
-a spilled ring keeps no plane on chip (the TPU keeps a staging plane and
-one read buffer per delta), so it frees its whole ring and a depth-1
-ring can spill too; the traffic it adds per step is still the
-reference's, one plane written and |deltas| planes read.  Each tile is
-costed by ``tile_cost`` with that traffic added, and a tile whose spill
-buffer (blocks x spilled bytes per block) exceeds ``SPILL_BYTES_CAP`` is
-refused.  The kernel's spilled ring pointers point into the block's own
-region of that buffer (``sf_spill``, allocated once per plan and device
-beside ``device_pool``), with the same slot arithmetic as shared memory;
-the plain version does not change (spilling moves storage, not
-arithmetic).  Launches of a spilled plan count in ``spill_launches``.
-Bound: the same bytes as the unspilled kernel; it pays the halo
-recompute of small tiles and the spilled rings' traffic through L2.
+Spill (K3c, the counterpart of ``choose_spill``, ``spill_prefetch``,
+``spill_read`` and ``spill_write``, the last rung of the reference's
+``compile_chain_stream``): when no tile fits the shared-memory budget
+(``smem_budget``) with every ring on chip, a per-cell plan (no banded or
+composed stage, as the reference's rung) takes the spill rung's layout
+(``packed``, ``spill_layout``).  Shared memory is packed by liveness over
+the phases of one plane step (phase 0 ingests the ring inputs, phase
+1 + n runs the n-th stage): a ring read only in the step that writes it
+(every read delta equals the producer's lag) shares space first-fit with
+the other short-lived items, as the group kernel places its in-group
+blocks.  Then, while the rest does not fit, rings move to a buffer in
+device memory in ``choose_spill``'s order (each ring's read deltas
+collected as the reference does, ``lag[c] - oi`` per read plus the
+copy-BC centre read; candidates sorted by ``ring / (1 + |deltas|)``
+descending), rings of one step excepted.  A spilled ring keeps two kinds
+of short-lived planes on chip, as the TPU keeps a staging plane and a
+read buffer per delta: its producer writes a staging plane, which the
+stage's readers later in the same step read (delta equal to the
+producer's lag) and one thread sends to the block's region of the spill
+buffer with a bulk asynchronous store (``spill_write``); every plane
+read at a larger delta was written at an earlier step and is fetched
+once per step by a bulk asynchronous load into a buffer of its own,
+completed on an ``mbarrier`` the readers wait on (``spill_prefetch`` and
+``spill_read``'s cache), issued as many phases ahead of its first reader
+as the layout leaves room for.  A spilled plan's device-memory traffic
+per block and step is one plane written per spilled ring and one read
+per earlier-step delta.  The tile of the rung is the one of least
+modelled time (``spill_seconds``): the cells of every stage at the
+per-SM cell rate of the streaming kernels, per wave of blocks (idle SMs
+counted), plus the spill traffic at the share of the copy floor that
+blocks streaming planes asynchronously reach at the plan's residency
+(``config.H100_*``); a tile whose spill buffer exceeds
+``SPILL_BYTES_CAP`` is refused.  ``spill="all"`` spills every ring read at an earlier step
+whatever the budget (the CPU tests and the card tests use it on small
+programs).  The plain version does not change (spilling moves storage,
+not arithmetic).  Launches of a spill-rung plan count in
+``spill_launches``.  Bound: the same bytes as the unspilled kernel; it
+pays the halo recompute of small tiles and the spilled rings' traffic.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -115,7 +132,9 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..config import H100_SMEM_PER_BLOCK
+from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
+                      H100_SM_COUNT, H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM,
+                      H100_STREAM_CELL_RATE)
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
@@ -123,7 +142,7 @@ from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      mxu_flops_per_cell, plan_all_stages)
 from .panel import ring_fields, tile_candidates
-from .stacked_io import (SPILL_BYTES_CAP,
+from .stacked_io import (SPILL_BYTES_CAP, THREADS,
                          accesses_with_center, bc_select, check_scope,
                          or_mask, resolve_device, run_kernel,
                          spanned_arrays, tile_cost)
@@ -167,6 +186,11 @@ class StreamPlan:
     # K3c: spilled raw rings -> their sorted read deltas (choose_spill's)
     spilled: Dict[str, Tuple[int, ...]] = dataclasses.field(
         default_factory=dict)
+    # the spill rung's layout (shared memory packed by liveness, spilled
+    # rings staged and prefetched): set for every plan of the rung
+    packed: bool = False
+    layouts: Dict[tuple, "SpillLayout"] = dataclasses.field(
+        default_factory=dict, repr=False)   # spill_layout's cache
     # kernel_pool() arrays (then the spill buffer) on each device the
     # kernel ran on
     device_pool: Dict[object, List[torch.Tensor]] = dataclasses.field(
@@ -256,14 +280,13 @@ class StreamPlan:
         return -(-size // 16) * 16
 
     def smem_offsets(self) -> Dict[object, int]:
-        """Byte offset of every on-chip raw ring (spilled ones excepted),
-        transform ring and the k-pass scratch (key "") in the block's
-        shared memory; "end" = total."""
+        """Byte offset of every on-chip raw ring, transform ring and the
+        k-pass scratch (key "") in the block's shared memory; "end" =
+        total.  The spill rung's plans place theirs by ``spill_layout``."""
         off, out = 0, {}
         for f in self.raw_ring:
-            if f not in self.spilled:
-                out[f] = off
-                off += self.ring_bytes(f)
+            out[f] = off
+            off += self.ring_bytes(f)
         for tkey, depth in self.tring.items():
             out[tkey] = off
             tj, tk = self.region(tkey)
@@ -276,17 +299,75 @@ class StreamPlan:
         return out
 
     def smem_bytes(self) -> int:
+        if self.packed:
+            return self.spill_layout(ahead=False).end
         return self.smem_offsets()["end"]
+
+    # -- the spill rung ------------------------------------------------------
+    @functools.cached_property
+    def _stage_phase(self) -> Dict[str, int]:
+        return {k: 1 + n for n, k in enumerate(
+            self.analysis.graph.kernel_order)}
+
+    def phase(self, f: str) -> int:
+        """The phase of a plane step that writes field ``f``: 0 for a ring
+        input (ingested at the top of the step), 1 + n for the n-th stage
+        in chain order."""
+        return self._stage_phase.get(f, 0)
+
+    def phases(self) -> int:
+        return 1 + len(self.program.kernels)
+
+    def plane_bytes(self, f: str) -> int:
+        """Bytes of one plane of ``f``'s region, rounded up to 16 (the
+        stride of its slots in the spill buffer and of its on-chip
+        copies; bulk copies move multiples of 16 bytes)."""
+        tj, tk = self.region(f)
+        size = tj * tk * np.dtype(self.program.field_dtype(f)).itemsize
+        return -(-size // 16) * 16
+
+    def read_phases(self) -> Dict[str, Dict[int, List[int]]]:
+        """Per raw ring, per read delta (``spill_deltas``'s), the phases of
+        the stages that read it at that delta."""
+        return self._read_phases
+
+    @functools.cached_property
+    def _read_phases(self) -> Dict[str, Dict[int, List[int]]]:
+        out: Dict[str, Dict[int, List[int]]] = {f: {} for f in self.raw_ring}
+        for c in self.analysis.graph.kernel_order:
+            for f, accs in accesses_with_center(
+                    self.program.kernels[c]).items():
+                if f in out:
+                    for a in accs:
+                        ph = out[f].setdefault(self.lag[c] - (a[0] or 0), [])
+                        if self.phase(c) not in ph:
+                            ph.append(self.phase(c))
+        return out
+
+    def in_step(self, f: str) -> bool:
+        """Is every read of ring ``f`` in the step that writes it?"""
+        return all(d == self.lag[f] for d in self.read_phases()[f])
+
+    def spill_layout(self, ahead: bool = True) -> "SpillLayout":
+        """The spill rung's shared-memory layout at the plan's tile and
+        spilled rings (``pack_layout``, cached; ``ahead=False`` leaves
+        every load at its first reader's phase, the same bytes)."""
+        key = (self.tile, tuple(self.spilled), ahead)
+        if key not in self.layouts:
+            self.layouts[key] = pack_layout(self, ahead)
+        return self.layouts[key]
 
     def spill_offsets(self) -> Dict[str, int]:
         """Byte offset of every spilled ring in one block's region of the
-        spill buffer; "end" = the region's size (a multiple of 128)."""
+        spill buffer, each at a multiple of 128 with its planes
+        ``plane_bytes`` apart; "end" = the region's size (a multiple of
+        128)."""
         off, out = 0, {}
         for f in self.raw_ring:
             if f in self.spilled:
                 out[f] = off
-                off += self.ring_bytes(f)
-        out["end"] = -(-off // 128) * 128
+                off += -(-self.raw_ring[f] * self.plane_bytes(f) // 128) * 128
+        out["end"] = off
         return out
 
     def spill_bytes(self) -> int:
@@ -294,21 +375,58 @@ class StreamPlan:
         ntj, ntk = self.grid()
         return ntj * ntk * self.spill_offsets()["end"]
 
+    def spill_traffic(self) -> int:
+        """Device-memory bytes one block moves per plane step for its
+        spilled rings: each writes one plane and loads one per delta
+        beyond its producer's lag (planes of an earlier step)."""
+        return sum(self.plane_bytes(f) * (1 + sum(d > self.lag[f]
+                                                  for d in dl))
+                   for f, dl in self.spilled.items())
+
+    def residency(self) -> int:
+        """Blocks of the plan resident per SM: the threads', the shared
+        memory's and the grid's limit."""
+        ntj, ntk = self.grid()
+        return max(1, min(2048 // THREADS,
+                          H100_SMEM_PER_SM // (self.smem_bytes() + 1024),
+                          -(-ntj * ntk // H100_SM_COUNT)))
+
+    def spill_seconds(self) -> float:
+        """The spill rung's tile rule, a model in seconds: per wave of
+        resident blocks, every SM evaluates its blocks' cells of every
+        plane step at ``H100_STREAM_CELL_RATE`` (a wave of fewer blocks
+        than SMs takes as long as a full one: its idle SMs count); then
+        the grid's spill traffic moves at ``H100_ASYNC_COPY_SHARE`` (at
+        the plan's residency) of the copy floor.  On an NVIDIA H100 80GB
+        HBM3 (700 W), ``python -m stencilflow_tpu_torch.sweep`` over every
+        tile of jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d
+        256^3 x 32 ran this rule's pick fastest on each; pricing the
+        traffic per SM instead (idle SMs moving none) picked hotspot's
+        (16, 32), 8.7 % slower than its (32, 32) of 64 blocks."""
+        ntj, ntk = self.grid()
+        per_sm = self.residency()
+        waves = math.ceil(ntj * ntk / (H100_SM_COUNT * per_sm))
+        share = H100_ASYNC_COPY_SHARE[min(per_sm, 3) - 1]
+        return self.steps() * (
+            waves * per_sm * self.cells() / H100_STREAM_CELL_RATE
+            + ntj * ntk * self.spill_traffic() / (H100_COPY_FLOOR * share))
+
     def grid(self) -> Tuple[int, int]:
         dims = self.program.dimensions
         return -(-dims[1] // self.tile[0]), -(-dims[2] // self.tile[1])
 
-    def work(self) -> int:
-        """Modelled per-block work of one plane step: cells of every stage
-        and ring input region, plus transform taps / 8, plus each spilled
-        ring's device-memory traffic (one plane written, one read per
-        delta)."""
+    def cells(self) -> int:
+        """Cells one block evaluates per plane step: every stage's region
+        and every ring input's."""
         program = self.program
-        cells = sum(math.prod(self.region(f)) for f in program.kernels)
-        cells += sum(math.prod(self.region(f)) for f in self.raw_ring
-                     if f in program.inputs)
-        cells += sum(math.prod(self.region(f)) * (1 + len(d))
-                     for f, d in self.spilled.items())
+        return (sum(math.prod(self.region(f)) for f in program.kernels)
+                + sum(math.prod(self.region(f)) for f in self.raw_ring
+                      if f in program.inputs))
+
+    def work(self) -> int:
+        """Modelled per-block work of one plane step: ``cells`` plus
+        transform taps / 8 (the on-chip legs' ``tile_cost``; the spill
+        rung takes ``spill_seconds``)."""
         taps = 0
         for t in self.tkeys:
             TJ, TK = self.region(t)
@@ -316,7 +434,7 @@ class StreamPlan:
             nr = len(self.band(t[2], "R")[0]) if t[2] else 0
             rows = self.scratch_shape(t)[0] if t[1] and t[2] else TJ
             taps += rows * TK * nr + TJ * TK * nl
-        return cells + taps // 8
+        return self.cells() + taps // 8
 
     def kernel_pool(self) -> List[Tuple[str, np.ndarray]]:
         """The device arrays the kernel reads, in argument order: the
@@ -353,7 +471,106 @@ class StreamPlan:
         return {"mxu_stages": sorted(self.mxu_plans),
                 "composed": {k: list(v) for k, v in self.composed.items()},
                 "jtiles": 1, "spilled": sorted(self.spilled),
-                "tile": self.tile}
+                "tile": self.tile, "packed": self.packed}
+
+
+def _align(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+@dataclasses.dataclass
+class SpillLayout:
+    """The spill rung's shared memory for one tile and set of spilled
+    rings.  One ``mbarrier`` per load comes first (8 bytes each), then the
+    rings read across steps that stay on chip, each in its own region,
+    then the arena of the short-lived items, placed first-fit by the
+    phases they are live in: rings read only in the step that writes them
+    (``("ring", f)``), the staging plane of every spilled ring
+    (``("stage", f)``: live from its producer to its last reader in the
+    step, and at least the phase after its producer, while its bulk store
+    reads it) and the buffer of every load (``("read", f, d)``: the plane
+    of spilled ring ``f`` its readers take at delta ``d`` beyond the
+    producer's lag, written at an earlier step and loaded once a step;
+    live from the phase at whose start the load is issued to its last
+    reader).  Every region starts at a multiple of 128 bytes."""
+    loads: List[Tuple[str, int]]        # (field, delta): barrier order
+    issue: Dict[Tuple[str, int], int]   # phase the load is issued in
+    readers: Dict[Tuple[str, int], List[int]]   # its readers' phases
+    offset: Dict[object, int]           # ring name or arena item -> bytes
+    live: Dict[object, int]             # arena item -> mask of its phases
+    end: int
+
+
+def _first_fit(placed, size: int, mask: int) -> int:
+    """The lowest offset where ``size`` bytes overlap no placed ``(offset,
+    size, mask)`` live in a phase of ``mask``."""
+    off = 0
+    for o, n in sorted((o, n) for o, n, m in placed if m & mask):
+        if o - off >= size:
+            break
+        off = max(off, o + n)
+    return off
+
+
+def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
+    """Place ``plan``'s shared memory for the spill rung (``SpillLayout``):
+    the short-lived items first-fit in order of their first phase, every
+    load issued at the start of its first reader's phase; then each load
+    moves earlier, one phase at a time, while its buffer is free there
+    and the phase is in its step, so that loads run ahead of their
+    readers where the layout has room (``ahead``)."""
+    n = plan.phases()
+    rp = plan.read_phases()
+
+    def span(a: int, b: int) -> int:
+        """Phases a..b of a step; b = n is phase 0 of the next."""
+        return sum(1 << (x % n) for x in range(a, b + 1))
+
+    ring_order = list(plan.raw_ring)
+    loads = sorted((min(ph), ring_order.index(f), f, d)
+                   for f in plan.spilled for d, ph in rp[f].items()
+                   if d > plan.lag[f])
+    offset: Dict[object, int] = {}
+    off = _align(8 * len(loads), 128)
+    for f in plan.raw_ring:
+        if f not in plan.spilled and not plan.in_step(f):
+            offset[f] = off
+            off += _align(plan.ring_bytes(f), 128)
+    base = off
+    items = []   # (first phase, key, bytes, mask)
+    for f in plan.raw_ring:
+        p = plan.phase(f)
+        if f in plan.spilled:
+            last = max([p + 1] + rp[f].get(plan.lag[f], []))
+            items.append((p, ("stage", f), _align(plan.plane_bytes(f), 128),
+                          span(p, last)))
+        elif plan.in_step(f):
+            items.append((p, ("ring", f), _align(plan.ring_bytes(f), 128),
+                          span(p, max(rp[f][plan.lag[f]]))))
+    issue, readers = {}, {}
+    for ph, _i, f, d in loads:
+        issue[f, d], readers[f, d] = ph, sorted(rp[f][d])
+        items.append((ph, ("read", f, d), _align(plan.plane_bytes(f), 128),
+                      span(ph, readers[f, d][-1])))
+    placed, live, size = [], {}, {}
+    for _p, key, nbytes, mask in sorted(items, key=lambda it: it[0]):
+        at = _first_fit(placed, nbytes, mask)
+        placed.append((at, nbytes, mask))
+        offset[key], live[key], size[key] = base + at, mask, nbytes
+    end = base + max((o + n for o, n, _m in placed), default=0)
+    # loads run ahead where their buffer is free one phase earlier
+    for _ph, _i, f, d in loads if ahead else ():
+        key = ("read", f, d)
+        lo, hi = offset[key], offset[key] + size[key]
+        while issue[f, d] > 0:
+            bit = 1 << (issue[f, d] - 1)
+            if any(live[k] & bit and offset[k] < hi
+                   and offset[k] + size[k] > lo for k in live if k != key):
+                break
+            issue[f, d] -= 1
+            live[key] |= bit
+    return SpillLayout([(f, d) for _p, _i, f, d in loads], issue, readers,
+                       offset, live, end)
 
 
 # -- planner -------------------------------------------------------------------
@@ -384,16 +601,18 @@ def spill_order(plan: StreamPlan, deltas: Dict[str, set]) -> List[str]:
                   key=lambda f: -(plan.ring[f] / (1 + len(deltas[f]))))
 
 
-def _spill_to_fit(plan: StreamPlan, order: List[str], deltas, budget: int
-                  ) -> bool:
-    """Spill rings of ``plan`` at its tile in ``order`` until the rest
-    fits ``budget`` bytes of shared memory; False when nothing does or
-    the spill buffer exceeds ``SPILL_BYTES_CAP``."""
-    plan.spilled = {}
+def _spill_to_fit(plan: StreamPlan, order: List[str], deltas, budget: int,
+                  every: bool = False) -> bool:
+    """Take the spill rung's layout at ``plan``'s tile and spill rings in
+    ``order`` until it fits ``budget`` bytes of shared memory (``every``:
+    spill every candidate); rings of one step are packed, never spilled.
+    False when nothing fits or the spill buffer exceeds
+    ``SPILL_BYTES_CAP``."""
+    plan.packed, plan.spilled = True, {}
     for f in order:
-        if plan.smem_bytes() <= budget:
+        if not every and plan.smem_bytes() <= budget:
             break
-        if deltas[f]:
+        if deltas[f] and not plan.in_step(f):
             plan.spilled[f] = tuple(sorted(deltas[f]))
     return (plan.smem_bytes() <= budget
             and plan.spill_bytes() <= SPILL_BYTES_CAP)
@@ -477,28 +696,34 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                              f"{need_k})")
     # the spill rung: per-cell plans only, as the reference's
     spillable = spill != "off" and not plans
+    every = spill == "all"
     if spillable:
         deltas = spill_deltas(plan)
         order = spill_order(plan, deltas)
     if tile is not None:
         plan.tile = tuple(tile)
-        if plan.smem_bytes() <= smem_budget or (
+        if (not every and plan.smem_bytes() <= smem_budget) or (
                 spillable and _spill_to_fit(plan, order, deltas,
-                                            smem_budget)):
+                                            smem_budget, every)):
             return plan
         raise ValueError(f"stream tile {tile} exceeds shared memory")
     best = None
-    for leg in ("on chip", "spill") if spillable else ("on chip",):
+    legs = ("spill",) if every else ("on chip", "spill") if spillable \
+        else ("on chip",)
+    for leg in legs:
         for cand in tile_candidates(dims):
             plan.tile = cand
             if leg == "spill":
-                if not _spill_to_fit(plan, order, deltas, smem_budget):
+                if not _spill_to_fit(plan, order, deltas, smem_budget,
+                                     every):
                     continue
+                cost = (plan.spill_seconds(), -cand[0] * cand[1])
             elif plan.smem_bytes() > smem_budget:
                 continue
-            ntj, ntk = plan.grid()
-            cost = (tile_cost(ntj * ntk, plan.smem_bytes(), plan.work()),
-                    -cand[0] * cand[1])
+            else:
+                ntj, ntk = plan.grid()
+                cost = (tile_cost(ntj * ntk, plan.smem_bytes(),
+                                  plan.work()), -cand[0] * cand[1])
             if best is None or cost < best[0]:
                 best = (cost, cand, plan.spilled)
         if best is not None:
@@ -508,12 +733,14 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                          + (" (spilled: over the device-memory cap)"
                             if spillable else ""))
     plan.tile, plan.spilled = best[1], best[2]
+    plan.packed = leg == "spill"
     return plan
 
 
 def check_spill(spill: str) -> None:
-    if spill not in ("auto", "off"):
-        raise ValueError(f"spill must be 'auto' or 'off', got {spill!r}")
+    if spill not in ("auto", "off", "all"):
+        raise ValueError(f"spill must be 'auto', 'off' or 'all', got "
+                         f"{spill!r}")
 
 
 def check_options(mxu: str, mxu_precision: str) -> None:
@@ -547,6 +774,9 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     check_scope(program)
     check_options(mxu, mxu_precision)
     check_spill(spill)
+    if spill == "all":   # the spill rung alone
+        return _build_plan(program, analysis, "off", mxu_precision, {},
+                           tile, smem_budget=smem_budget, spill=spill)
     if compose != "off" and mxu != "off":
         max_t = 0 if compose == "auto" else int(compose)
         got = compose_program(program, analysis, max_t) if max_t >= 0 \
@@ -588,9 +818,9 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
     check_scope(program)
     check_options(mxu, mxu_precision)
     check_spill(spill)
-    return _build_plan(program, analysis, mxu, mxu_precision, {}, tile,
-                       block=block, halo_i=halo_i, smem_budget=smem_budget,
-                       spill=spill)
+    return _build_plan(program, analysis, "off" if spill == "all" else mxu,
+                       mxu_precision, {}, tile, block=block, halo_i=halo_i,
+                       smem_budget=smem_budget, spill=spill)
 
 
 # -- plain version --------------------------------------------------------------
@@ -772,7 +1002,7 @@ def _pool_tensors(plan: StreamPlan, device) -> List[torch.Tensor]:
 
 def _count(plan: StreamPlan, launched: int) -> None:
     global launches, local_launches, spill_launches
-    if plan.spilled:
+    if plan.packed:
         spill_launches += launched
     elif plan.block:
         local_launches += launched

@@ -90,6 +90,20 @@ H100_COPY_FLOOR = 3.0372e12
 # accumulator goes through shared memory and a __syncthreads every op.
 H100_ALU_ISSUE_RATE = 33.098e12
 H100_SMEM_PASS_RATE = 2.926e12
+# The share of H100_COPY_FLOOR that the blocks of a streaming kernel reach
+# with 1, 2 and more blocks resident per SM when they move planes
+# asynchronously: P3 (probes/async_ring.py, 512^3 f32, a 4-slot cp.async
+# ring, no ALU work) took 0.4580 and 0.3761 ms at 1 and 2 blocks per SM,
+# P6's passthrough (probes/dma_overlap.py) 0.3720 ms with every block
+# resident, against the floor's 0.3535 ms.  The spill rung of the stream
+# kernel prices its device-memory traffic with it.
+H100_ASYNC_COPY_SHARE = (0.772, 0.940, 0.950)
+# Cell evaluations per second per SM of a per-cell stage in the streaming
+# kernels at 2 blocks per SM: the panel kernel on jacobi3d 512^3 x 8
+# (bench.py --workload jacobi, 6.168 ms an application) evaluates
+# 2.364e9 stage and input cells (8880 a block and plane step at the
+# (16, 32) tile, 520 steps, 512 blocks) over 132 SMs.
+H100_STREAM_CELL_RATE = 2.904e9
 # P1: cost of each op in add-equivalents (its time over an add's, less
 # the IR ops the probe adds around it); sinh and cosh are not measured
 # and keep the JAX package's rule, exp's cost scaled by 4 / 1.5.

@@ -60,6 +60,8 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
     budget = H100_SMEM_PER_BLOCK if smem_budget is None else smem_budget
     legs = [("auto", "off")] if mxu != "off" else []
     legs += [("off", "off")] + ([("off", spill)] if spill != "off" else [])
+    if spill == "all":   # the spill rung alone
+        legs = [("off", "all")]
     for leg, leg_spill in legs:
         try:
             splan = plan_local(program, analysis, plan.block[0],

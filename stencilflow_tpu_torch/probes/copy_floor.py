@@ -1,6 +1,7 @@
 """P4, the copy floor: ``out = in`` over (planes, J, K) float32 on the card.
 
     python -m stencilflow_tpu_torch.probes.copy_floor [--trials 5]
+    python -m stencilflow_tpu_torch.probes.copy_floor --versus-copy 3
 
 Port of ``scripts/dma_matrix_probe.py`` (``build`` :29, ``pallas_call``
 :36) as the CUDA kernel ``csrc/probes/copy.cu``.  The TPU swept block
@@ -13,7 +14,9 @@ prints GB/s moved (bytes read plus bytes written over the kernel's time:
 two launch counts, each captured in a CUDA graph, differenced, best of
 trials, so the host's cost per launch drops out); the best sustained rate
 beyond L2 is ``config.H100_COPY_FLOOR``, the report's ``vs_copy_floor``.
-The last line is a JSON object of every case.
+The last line is a JSON object of every case.  ``--versus-copy N`` times
+the configuration the port launches against ``copy_`` instead, in turns
+within each of N sessions (``versus_copy``).
 """
 from __future__ import annotations
 
@@ -140,6 +143,36 @@ def measure(cases=CASES, trials: int = 5) -> List[Dict[str, object]]:
     return rows
 
 
+def versus_copy(sessions: int = 3,
+                trials: int = 5) -> List[Dict[str, object]]:
+    """P4's ``DEFAULT`` configuration against ``copy_`` on the same 512^3
+    float32 buffers, in turns (P4, ``copy_``, ``copy_``, P4) in each of
+    ``sessions`` sessions; each reading is ``differenced_ms`` of graphs of
+    2 and 10 copies, best of ``trials``.  Per session: both readings of
+    each and P4's mean over ``copy_``'s."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.rand(BIG, device="cuda", generator=gen)
+    y = torch.empty_like(x)
+
+    def p4(n):
+        for _ in range(n):
+            copy(x, y)
+
+    def lib(n):
+        for _ in range(n):
+            y.copy_(x)
+    rows = []
+    for s in range(sessions):
+        got = [differenced_ms(fn, 2, 10, trials, graph=True)
+               for fn in (p4, lib, lib, p4)]
+        if not torch.equal(x, y):
+            raise RuntimeError("copy: out differs from in")
+        p4_ms, lib_ms = (got[0] + got[3]) / 2, (got[1] + got[2]) / 2
+        rows.append({"session": s, "p4_ms": [got[0], got[3]],
+                     "copy_ms": [got[1], got[2]], "ratio": p4_ms / lib_ms})
+    return rows
+
+
 def floor(rows) -> Dict[str, object]:
     """The best sustained case that does not fit the L2."""
     return max((r for r in rows if not r["fits_l2"]),
@@ -149,10 +182,26 @@ def floor(rows) -> Dict[str, object]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="copy_floor", description=__doc__)
     ap.add_argument("--trials", type=int, default=5)
+    ap.add_argument("--versus-copy", type=int, default=0, metavar="N",
+                    help="time P4 against copy_ in turns over N sessions "
+                         "instead of the sweep")
     args = ap.parse_args(argv)
     if not require_cuda("the copy floor"):
         return 1
     dev = card()
+    if args.versus_copy:
+        with ClockSampler() as clocks:
+            rows = versus_copy(args.versus_copy, args.trials)
+        for r in rows:
+            print(f"session {r['session']}: P4 {r['p4_ms'][0]:.4f} "
+                  f"{r['p4_ms'][1]:.4f} ms, copy_ {r['copy_ms'][0]:.4f} "
+                  f"{r['copy_ms'][1]:.4f} ms, P4 / copy_ {r['ratio']:.4f}",
+                  flush=True)
+        print(f"{dev['name']}, {dev['power_limit_w']} W | "
+              f"{clocks.summary()}")
+        print(json.dumps({"device": dev, "clocks": clocks.summary(),
+                          "versus_copy": rows}))
+        return 0
     with ClockSampler() as clocks:
         rows = measure(trials=args.trials)
     for r in rows:

@@ -6,8 +6,10 @@
 Cells: box-r2 and cross-r2 256^3 x 8 (stream), jacobi2d and hotspot2d
 8192^2 x 8 rotated to rows (group, g = 8, B = 64), and the deep 3-D
 chains jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32
-(stream with rings spilled to device memory, K3c: at each tile the
-planner spills rings until the rest fits shared memory).  Builds the
+(the stream kernel's spill rung, K3c: at each tile the planner packs
+shared memory by liveness and spills rings until the rest fits; each
+such tile also prints the rung's modelled time, ``spill_seconds``, and
+its resident blocks per SM).  Builds the
 kernel at every (tj, tk) tile whose shared memory fits (one nvcc per
 tile, all started together), times each on the same random inputs with
 CUDA events (one warm-up, then 2 launches), and prints the tiles fastest
@@ -135,9 +137,10 @@ def main() -> int:
             mark = " <- planner" if p.tile == pick.tile else ""
             if fn is sweep:
                 smem, grid, work = p.smem_bytes(), p.grid(), p.work()
-                if p.spilled:
-                    mark = (f", spilled {len(p.spilled)} of "
-                            f"{len(p.raw_ring)} rings "
+                if p.packed:
+                    mark = (f", modelled {p.spill_seconds() * 1e3:.1f} ms, "
+                            f"{p.residency()} blocks per SM, spilled "
+                            f"{len(p.spilled)} of {len(p.raw_ring)} rings "
                             f"({p.spill_bytes() / 2 ** 20:.0f} MiB){mark}")
             else:
                 smem, grid, work = (p.smem_bytes(program),

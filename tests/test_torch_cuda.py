@@ -317,27 +317,39 @@ def reconvergent_chain(stages=16, dims=(12, 24, 32), bc="constant"):
             "outputs": [prev], "dimensions": list(dims), "program": prog}
 
 
-# name: (spec, smem_budget): every ring spilled at budget 0
+# name: (spec, planner options): spill="all" spills every ring read at an
+# earlier step, whatever the budget (hdiff's rings all live within one)
 SPILL_PROGRAMS = {
-    "reconvergent": (lambda: reconvergent_chain(), 40000),
-    "reconvergent_copy": (lambda: reconvergent_chain(12, bc="copy"), 0),
+    "reconvergent": (lambda: reconvergent_chain(), {"smem_budget": 40000}),
+    "reconvergent_copy": (lambda: reconvergent_chain(12, bc="copy"),
+                          {"spill": "all"}),
     "jacobi3d_shrink": (lambda: synthesize_stencil(
         num_stages=3, dimensions=(24, 40, 72), shape="diffusion",
-        boundary="shrink", seed_data="random:0,1"), 0),
+        boundary="shrink", seed_data="random:0,1"), {"spill": "all"}),
     "hdiff_dag": (lambda: synthesize_stencil(
-        num_stages=2, dimensions=(8, 40, 72), shape="hdiff"), 0),
+        num_stages=2, dimensions=(8, 40, 72), shape="hdiff"),
+        {"spill": "all"}),
+    "hotspot_deep": (lambda: synthesize_stencil(
+        num_stages=32, dimensions=(40, 40, 72), shape="hotspot"),
+        {"spill": "all"}),
+    "jacobi3d_deep": (lambda: synthesize_stencil(
+        num_stages=12, dimensions=(40, 96, 136), shape="diffusion",
+        seed_data="random:0,1"), {"smem_budget": 20000}),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(SPILL_PROGRAMS))
 def test_spill_kernel_matches_plain_on_card(name, cuda):
-    """K3c: the stream kernel with rings spilled to device memory equals
-    its plain version bit for bit."""
-    make, budget = SPILL_PROGRAMS[name]
+    """K3c: the stream kernel of the spill rung (staging planes, bulk
+    stores and mbarrier-completed bulk loads) equals its plain version
+    bit for bit."""
+    make, kw = SPILL_PROGRAMS[name]
     p = port.parse_program(make())
-    plan = stream.plan_stream(p, smem_budget=budget)
-    assert plan.spilled and plan.smem_bytes() <= budget
+    plan = stream.plan_stream(p, **kw)
+    assert plan.packed and (plan.spilled or name == "hdiff_dag")
+    assert plan.smem_bytes() <= kw.get("smem_budget",
+                                       stream.H100_SMEM_PER_BLOCK)
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
     before = stream.spill_launches
@@ -358,7 +370,7 @@ def test_local_spill_kernel_matches_plain_on_card(cuda):
         num_stages=3, dimensions=(64, 40, 72), shape="diffusion",
         boundary="copy", seed_data="random:0,1"))
     an = port.ChainAnalysis.run(p)
-    plan = stream.plan_local(p, an, 16, chain_halo(an)[0], smem_budget=0)
+    plan = stream.plan_local(p, an, 16, chain_halo(an)[0], spill="all")
     assert plan.spilled
     lib = stream.build_stream(plan)
     inputs = port.load_input_arrays(p, seed=4)

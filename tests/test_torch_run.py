@@ -130,9 +130,9 @@ def test_backend_choice_on_card(shape, size, iters, expected):
     ("diffusion", 8, "rows+group_g8"),   # bench.py's jacobi2d workload
     ("hotspot", 8, "rows+group_g8"),
     ("diffusion", 2, "overlap"),         # < 4 stages: no rows+group rung
-    # group_g8 refuses the 10-panel coeff ring; the 2-D rescue rotates
-    # to rows and the panel planner accepts the rotated chain
-    ("hdiff", 16, "rows+panel"),
+    # group_g8 refuses the 10-panel coeff ring; the stream kernel's spill
+    # rung packs its rings, which all live within one plane, by liveness
+    ("hdiff", 16, "stream"),
 ])
 def test_backend_choice_on_card_2d(shape, iters, expected):
     p = port.parse_program(synthesize_stencil(
@@ -204,7 +204,9 @@ def test_ladder_order(monkeypatch):
             num_stages=iters, dimensions=(n,) * 3, shape=shape))
         da = port.ChainAnalysis.run(d)
         name, plan = be._route(d, da, "cuda")
-        assert name == "stream" and plan.last_config()["spilled"]
+        assert name == "stream" and plan.last_config()["packed"]
+        # hdiff's rings all live within one plane step: packing alone
+        assert bool(plan.last_config()["spilled"]) == (shape != "hdiff")
         assert plan.smem_bytes() <= be.stream.H100_SMEM_PER_BLOCK
         assert choose_backend(d, da, "cpu") == "dense"
         assert choose_backend(d, da, "cuda", spill="off") == no_spill

@@ -5,13 +5,15 @@ The reconvergent 16-stage chain of the JAX package's spill tests is
 rebuilt here (``reconvergent_chain``): its last stage reads the first
 again, so one ring is far deeper than its read count.  A shared-memory
 budget (``smem_budget``) small enough that no tile fits forces the spill
-rung at these sizes.  The port's spill order and read deltas equal the
+rung at these sizes; ``spill="all"`` spills every ring read at an
+earlier step.  The port's spill order and read deltas equal the
 JAX package's ``choose_spill`` on the same lags; the generated K3c source,
 compiled with g++ (``sf_host_launch``: one thread per block, shared memory
-and the spill buffer filled with NaN), equals ``stream_plain`` and the
-numpy oracle bit for bit; and the port agrees with the JAX package's
-spilled streamer in interpret mode within its own test's tolerance
-(``rtol=3e-5, atol=1e-6``).  On the card, chip_smoke.py and
+and the spill buffer filled with NaN, bulk copies as memcpy at the point
+of issue), equals ``stream_plain`` and the numpy oracle bit for bit; and
+the port agrees with the JAX package's spilled streamer in interpret mode
+within its own test's tolerance (``rtol=3e-5, atol=1e-6``).  The layout
+and the generated code's shape are held in test_torch_spill_async.py.  On the card, chip_smoke.py and
 tests/test_torch_cuda.py compare the CUDA kernel with the plain version.
 """
 import ctypes
@@ -49,17 +51,30 @@ def _jacobi(bc="constant", dims=(24, 24, 24)):
                               seed_data="random:0,1")
 
 
-# name: (spec, smem_budget): budget 0 spills every ring
+# name: (spec, planner options): spill="all" spills every ring read at
+# an earlier step
+ALL = {"spill": "all"}
 PROGRAMS = {
-    "reconvergent": (lambda: reconvergent_chain(), BUDGET),
+    "reconvergent": (lambda: reconvergent_chain(), {"smem_budget": BUDGET}),
     "reconvergent_copy": (lambda: reconvergent_chain(12, bc="copy"),
-                          BUDGET),
-    "jacobi3d_all": (lambda: _jacobi(), 0),
-    "jacobi3d_copy_all": (lambda: _jacobi("copy"), 0),
-    "jacobi3d_shrink_all": (lambda: _jacobi("shrink"), 0),
+                          {"smem_budget": BUDGET}),
+    "jacobi3d_all": (lambda: _jacobi(), ALL),
+    "jacobi3d_copy_all": (lambda: _jacobi("copy"), ALL),
+    "jacobi3d_shrink_all": (lambda: _jacobi("shrink"), ALL),
     "hdiff_dag_all": (lambda: synthesize_stencil(
-        num_stages=2, dimensions=(8, 12, 16), shape="hdiff"), 0),
+        num_stages=2, dimensions=(8, 12, 16), shape="hdiff"), ALL),
+    # rings read at 3 deltas and an input ring read at 32
+    "hotspot_deep_all": (lambda: synthesize_stencil(
+        num_stages=32, dimensions=(36, 12, 16), shape="hotspot"), ALL),
+    "jacobi3d_deep": (lambda: synthesize_stencil(
+        num_stages=12, dimensions=(16, 40, 48), shape="diffusion",
+        seed_data="random:0,1"), {"smem_budget": 20000}),
 }
+
+
+def _spillable(plan):
+    """The rings ``spill="all"`` spills."""
+    return sorted(f for f in plan.raw_ring if not plan.in_step(f))
 
 
 def _jax_order(p_ref):
@@ -84,11 +99,12 @@ def _jax_order(p_ref):
 @pytest.mark.parametrize("name", ["reconvergent", "reconvergent_copy",
                                   "jacobi3d_copy_all"])
 def test_spill_order_and_deltas_match_choose_spill(name):
-    make, budget = PROGRAMS[name]
+    make, kw = PROGRAMS[name]
+    budget = kw.get("smem_budget", H100_SMEM_PER_BLOCK)
     spec = make()
     p_ref, p = ref.parse_program(spec), port.parse_program(spec)
     rp, jax_order, jax_deltas = _jax_order(p_ref)
-    plan = stream.plan_stream(p, smem_budget=budget)
+    plan = stream.plan_stream(p, **kw)
     assert (plan.lag, plan.ring) == (rp.lag, rp.ring)
     deltas = stream.spill_deltas(plan)
     order = stream.spill_order(plan, deltas)
@@ -102,21 +118,25 @@ def test_spill_order_and_deltas_match_choose_spill(name):
     assert plan.last_config()["spilled"] == sorted(plan.spilled)
     for f, d in plan.spilled.items():
         assert d == tuple(sorted(deltas[f]))
-    # spilled in order: a prefix of the candidates
-    assert list(plan.spilled) == order[:len(plan.spilled)]
+    # spilled in order: a prefix of the candidates read at an earlier step
+    cands = [f for f in order if not plan.in_step(f)]
+    assert list(plan.spilled) == cands[:len(plan.spilled)]
     if name == "reconvergent":
         assert order[0] == "s0"
 
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
 def test_generated_spill_kernel_matches_plain_and_oracle(name, tmp_path):
-    make, budget = PROGRAMS[name]
+    make, kw = PROGRAMS[name]
     p = port.parse_program(make())
-    plan = stream.plan_stream(p, smem_budget=budget)
-    assert plan.spilled and plan.mxu_plans == {}
-    if budget == 0:
-        assert sorted(plan.spilled) == sorted(plan.raw_ring)
-        assert plan.smem_bytes() == 0
+    plan = stream.plan_stream(p, **kw)
+    assert plan.packed and plan.mxu_plans == {}
+    assert plan.smem_bytes() <= kw.get("smem_budget", H100_SMEM_PER_BLOCK)
+    if kw is ALL:   # hdiff's rings all live within a step: none spills
+        assert sorted(plan.spilled) == _spillable(plan)
+    else:
+        assert plan.spilled
+        assert plan.smem_bytes() == plan.spill_layout().end > 0
     inputs = port.load_input_arrays(p, seed=2)
     got = run_host(plan, inputs, tmp_path)
     want = stream.stream_plain(plan, spanned_arrays(p, inputs))
@@ -159,14 +179,14 @@ def test_large_budget_spills_nothing():
     p = port.parse_program(reconvergent_chain())
     plan = stream.plan_stream(p)
     assert plan.spilled == {} and plan.last_config()["spilled"] == []
-    assert plan.spill_bytes() == 0
+    assert not plan.packed and plan.spill_bytes() == 0
     assert "sf_spill" not in stream.stream_source(plan)
 
 
 def test_spilled_source_reads_its_own_region():
-    """Spilled rings are plain (coherent) pointers into the block's
-    region, offsets in 64 bits; the launcher takes the buffer after the
-    arrays in ``in``."""
+    """The block's region of the spill buffer is a plain (coherent)
+    pointer, offset in 64 bits, that only the bulk copies touch; the
+    launcher takes the buffer after the arrays in ``in``."""
     p = port.parse_program(reconvergent_chain())
     plan = stream.plan_stream(p, smem_budget=BUDGET)
     src = stream.stream_source(plan)
@@ -174,8 +194,8 @@ def test_spilled_source_reads_its_own_region():
     assert "const unsigned char* sf_spill" not in src
     assert "__restrict__ sf_spill" not in src
     region = plan.spill_offsets()["end"]
-    assert f"(sf_spill + (long long)(by * {plan.grid()[1]} + bx) * " \
-        f"{region}LL" in src
+    assert f"sf_region = sf_spill + (long long)(by * {plan.grid()[1]} + " \
+        f"bx) * {region}LL" in src
     assert "sf_spill = (unsigned char*)in[1]" in src
     assert plan.spill_bytes() == region * plan.grid()[0] * plan.grid()[1]
 
@@ -191,8 +211,8 @@ def test_local_spill_matches_in_core(name, chunks, tmp_path):
     an = port.ChainAnalysis.run(p)
     I = p.dimensions[0]
     Ic, h = I // chunks, chain_halo(an)[0]
-    plan = stream.plan_local(p, an, Ic, h, smem_budget=0)
-    assert sorted(plan.spilled) == sorted(plan.raw_ring)
+    plan = stream.plan_local(p, an, Ic, h, spill="all")
+    assert plan.packed and sorted(plan.spilled) == _spillable(plan)
     src = stream.stream_source(plan)
     tag = hashlib.sha256(src.encode()).hexdigest()[:16]
     cpp, so = tmp_path / f"{tag}.cpp", tmp_path / f"{tag}.so"
@@ -226,20 +246,21 @@ def test_local_spill_matches_in_core(name, chunks, tmp_path):
                                                          (c + 1) * Ic])
     stats = {}
     got = run_chunked(p, inputs, chunks, backend="stream", device="cpu",
-                      smem_budget=0, stats=stats)
+                      spill="all", stats=stats)
     for o in p.outputs:
         np.testing.assert_array_equal(got[o], oracle[o])
 
 
 def test_local_planner_rescue_order():
-    """plan_local_stream: per cell before spilled per cell; spill="off"
-    leaves the dense body."""
+    """plan_local_stream: per cell before spilled per cell; spill="all"
+    takes the spill rung alone; with no budget, spill="off" leaves the
+    dense body."""
     from stencilflow_tpu_torch.outofcore import compile_chunked_chain
     p = port.parse_program(_jacobi())
     _fn, plan = compile_chunked_chain(p, 2, backend="stream", device="cpu")
     assert plan.backend == "stream" and plan.config["spilled"] == []
     _fn, plan = compile_chunked_chain(p, 2, backend="stream", device="cpu",
-                                      smem_budget=0)
+                                      spill="all")
     assert plan.config["spilled"] == ["a", "s0", "s1"]
     _fn, plan = compile_chunked_chain(p, 2, backend="stream", device="cpu",
                                       smem_budget=0, spill="off")
@@ -250,7 +271,9 @@ def test_local_planner_rescue_order():
     ("diffusion", 512, 32), ("hdiff", 256, 16), ("hotspot", 256, 32)])
 def test_deep_chains_route_to_spilled_stream(shape, size, iters):
     """By planning only, at full size: rings that fit shared memory at no
-    tile spill to device memory under the cap."""
+    tile take the spill rung, packed by liveness (hdiff's rings all live
+    within a step: packing alone fits) or spilled to device memory under
+    the cap."""
     p = port.parse_program(synthesize_stencil(
         num_stages=iters, dimensions=(size,) * 3, shape=shape))
     an = port.ChainAnalysis.run(p)
@@ -259,9 +282,11 @@ def test_deep_chains_route_to_spilled_stream(shape, size, iters):
     with pytest.raises(ValueError, match="shared memory"):
         stream.plan_stream(p, an, mxu="off", spill="off")
     plan = stream.plan_stream(p, an, mxu="off")
-    assert plan.last_config()["spilled"]
+    assert plan.packed and plan.last_config()["packed"]
     assert plan.smem_bytes() <= H100_SMEM_PER_BLOCK
-    assert 0 < plan.spill_bytes() <= SPILL_BYTES_CAP
+    assert plan.spill_bytes() <= SPILL_BYTES_CAP
+    assert bool(plan.spilled) == (shape != "hdiff")
+    assert bool(plan.spill_bytes()) == bool(plan.spilled)
 
 
 def test_run_program_and_cli_spill(tmp_path, monkeypatch, capsys):
