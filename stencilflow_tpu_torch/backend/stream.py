@@ -512,13 +512,33 @@ def _first_fit(placed, size: int, mask: int) -> int:
     return off
 
 
+def _place(items, base: int, cap: int = 0):
+    """First-fit ``(first phase, key, bytes, mask, early mask)`` items in
+    order of their first phase, each live in ``early mask`` where that
+    still ends by ``cap`` bytes (else in ``mask``): ({key: offset}, {key:
+    mask}, {key: bytes}, end)."""
+    placed, offset, live, size = [], {}, {}, {}
+    for _p, key, nbytes, mask, early in sorted(items, key=lambda it: it[0]):
+        at = _first_fit(placed, nbytes, early)
+        if base + at + nbytes <= cap:
+            mask = early
+        else:
+            at = _first_fit(placed, nbytes, mask)
+        placed.append((at, nbytes, mask))
+        offset[key], live[key], size[key] = base + at, mask, nbytes
+    return offset, live, size, base + max((o + n for o, n, _m in placed),
+                                          default=0)
+
+
 def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
     """Place ``plan``'s shared memory for the spill rung (``SpillLayout``):
     the short-lived items first-fit in order of their first phase, every
-    load issued at the start of its first reader's phase; then each load
-    moves earlier, one phase at a time, while its buffer is free there
-    and the phase is in its step, so that loads run ahead of their
-    readers where the layout has room (``ahead``)."""
+    load issued at the start of its first reader's phase.  With
+    ``ahead``, loads then run ahead of their readers where the layout
+    has room, in the same bytes: placed again, each load is issued a
+    phase before its first reader where that still ends below the first
+    placement's end; then each moves earlier, one phase at a time, while
+    its buffer is free there and the phase is in its step."""
     n = plan.phases()
     rp = plan.read_phases()
 
@@ -547,17 +567,21 @@ def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
         elif plan.in_step(f):
             items.append((p, ("ring", f), _align(plan.ring_bytes(f), 128),
                           span(p, max(rp[f][plan.lag[f]]))))
-    issue, readers = {}, {}
+    readers = {(f, d): sorted(rp[f][d]) for _ph, _i, f, d in loads}
+    items = [it + (it[3],) for it in items]
     for ph, _i, f, d in loads:
-        issue[f, d], readers[f, d] = ph, sorted(rp[f][d])
         items.append((ph, ("read", f, d), _align(plan.plane_bytes(f), 128),
-                      span(ph, readers[f, d][-1])))
-    placed, live, size = [], {}, {}
-    for _p, key, nbytes, mask in sorted(items, key=lambda it: it[0]):
-        at = _first_fit(placed, nbytes, mask)
-        placed.append((at, nbytes, mask))
-        offset[key], live[key], size[key] = base + at, mask, nbytes
-    end = base + max((o + n for o, n, _m in placed), default=0)
+                      span(ph, readers[f, d][-1]),
+                      span(max(ph - 1, 0), readers[f, d][-1])))
+    got = _place(items, base)
+    if ahead and loads:
+        tried = _place(items, base, got[3])
+        if tried[3] <= got[3]:
+            got = tried
+    placed, live, size, end = got
+    offset.update(placed)
+    issue = {(f, d): (ph - 1 if live["read", f, d] >> (ph - 1) & 1 else ph)
+             for ph, _i, f, d in loads}
     # loads run ahead where their buffer is free one phase earlier
     for _ph, _i, f, d in loads if ahead else ():
         key = ("read", f, d)

@@ -105,13 +105,14 @@ def test_layout_packs_without_overlap(name):
     ("diffusion", 512, 32), ("hdiff", 256, 16), ("hotspot", 256, 32)])
 def test_deep_cell_layouts(shape, size, iters):
     """By planning only, at full size: the route's layouts hold the same
-    rules, and spilled planes are loaded ahead of their readers where
-    the layout leaves room."""
+    rules, and most spilled planes are loaded at least a phase ahead of
+    their readers in the bytes the layout needs anyway."""
     p = _synth(shape, (size,) * 3, iters)
     plan = stream.plan_stream(p, mxu="off")
     lay = _check_layout(plan, H100_SMEM_PER_BLOCK)
     if plan.spilled:
-        assert any(lay.issue[k] < lay.readers[k][0] for k in lay.loads)
+        ahead = sum(lay.issue[k] < lay.readers[k][0] for k in lay.loads)
+        assert 2 * ahead > len(lay.loads)
         # one plane written per spilled ring and one loaded per load
         assert plan.spill_traffic() == sum(
             plan.plane_bytes(f) for f in plan.spilled) + sum(
