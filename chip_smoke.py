@@ -44,8 +44,9 @@ Phases, one line each (any failure raises and exits non-zero):
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
    extent 2 (stream, all 8 stages composed) and cross3d 256^3 x 8 of
    extent 2 (stream, per stage), jacobi2d and hotspot2d 8192^2 x 8
-   (rows+group_g8), hdiff2d 8192^2 x 16 (stream: the spill rung's
-   layout, its rings packed by liveness), the deep 3-D chains jacobi3d
+   (rows+group_g8), hdiff2d 8192^2 x 16 (panel: its rings of one plane
+   packed by liveness; the stream kernel's packed plan timed beside), the
+   deep 3-D chains jacobi3d
    512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32 (the spill
    rung, K3c, 3 repetitions), and K6 forced
    through ``backend="tile"`` on jacobi3d 512^3 x 2 and hdiff3d 256^3 x
@@ -57,7 +58,12 @@ Phases, one line each (any failure raises and exits non-zero):
    also print the forced-panel time where the panel planner accepts the
    program, the 2-D cells the forced overlap kernel on the unrotated
    plane (the port's route before the rows path) and forced rows+panel,
-   the forced K6 cells the route's time; before the main path, K3c on
+   the forced K6 cells the route's time; before the main path, K1 on
+   each panel cell (jacobi3d 512^3 x 8, hdiff3d and hotspot3d 256^3 x 8)
+   against its plain version bit for bit, with its tile, packed and
+   unpacked shared memory, resident blocks per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), masked share,
+   time and bound, and K3c on
    each deep cell against its plain version bit for bit, with its time,
    share of the bound, spill traffic a call against the copy floor,
    spilled rings, loads a step and resident blocks per SM, and the dense
@@ -877,8 +883,9 @@ def main() -> int:
     box256 = synth("box", 256, 8, 2)
     cross256 = synth("cross", 256, 8, 2)
     hdiff8 = synth("hdiff", 256, 8)
+    hotspot8 = synth("hotspot", 256, 8)
     mains = [(jacobi8, "panel"), (jacobi2, "overlap"), (hdiff8, "panel"),
-             (synth("hotspot", 256, 8), "panel"),
+             (hotspot8, "panel"),
              (box256, "stream"), (cross256, "stream")]
 
     def synth2d(shape, n, iters, **kw):
@@ -922,7 +929,7 @@ def main() -> int:
     hotspot2d = synth2d("hotspot", (8192, 8192), 8)
     hdiff2d = synth2d("hdiff", (8192, 8192), 16)
     mains2d = [(jacobi2d, "rows+group_g8"), (hotspot2d, "rows+group_g8"),
-               (hdiff2d, "stream")]
+               (hdiff2d, "panel")]
     mains += mains2d
     # K3c (phase 3): (label, program, planner options; spill="all" spills
     # every ring read at an earlier step)
@@ -989,10 +996,17 @@ def main() -> int:
         group_plans.append((label, p, an, plan, src))
         sources.append((src, "group"))
     # beside the 2-D cells: forced overlap on the unrotated plane (the
-    # route before the rows path), forced rows+panel
-    forced2d = {}
-    for p, _ in mains2d:
+    # route before the rows path), forced rows+panel; a panel route's
+    # kernel, and beside it the stream kernel's packed plan (its route
+    # before the panel kernel packed its rings)
+    forced2d, stream2d = {}, {}
+    for p, want in mains2d:
         an = sft.ChainAnalysis.run(p)
+        if want == "panel":
+            sources.append((codegen.panel_source(p, an, pn.PanelPlan.build(
+                an)), "panel"))
+            stream2d[p.name] = st.plan_stream(p, an, mxu="off")
+            sources.append((st.stream_source(stream2d[p.name]), "stream"))
         try:
             oplan = ov.OverlapPlan.build(an)
             sources.append((codegen.overlap_source(p, an, oplan), "overlap"))
@@ -1247,11 +1261,17 @@ def main() -> int:
     # kernel vs plain version at the main path's shapes (counted out)
     report = {}
     library = []     # (report key or cell, program, filter radius)
-    for p, kname in ((jacobi8, "panel"), (jacobi2, "overlap")):
+    for p, kname in ((jacobi8, "panel"), (hdiff8, "panel"),
+                     (hotspot8, "panel"), (jacobi2, "overlap")):
         _, plan_cls, build_fn, run, plain = kernels[kname]
         an = sft.ChainAnalysis.run(p)
         plan = plan_cls.build(an)
         lib = build_fn(p, an, plan)
+        # K1: packed and unpacked shared memory, resident blocks per SM
+        smem = (f"smem {plan.smem_bytes(p)} B (unpacked "
+                f"{plan.unpacked_bytes(p)}), {pn.occupancy(lib)} blocks "
+                f"per SM, masked share {plan.masked_share(p):.3f}"
+                if kname == "panel" else f"smem {plan.smem_bytes(p)} B")
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
                                 device="cuda")
         got = run(p, an, plan, arrays, lib)
@@ -1263,14 +1283,16 @@ def main() -> int:
         del got, want, arrays
         torch.cuda.empty_cache()
         bound_ms, bound_by = _bound(p)
-        print(f"kernel: {kname} {p.name} tile {plan.tile} smem "
-              f"{plan.smem_bytes(p)} B: {ms:.3f} ms, plain version "
-              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} | {smi}",
-              flush=True)
+        print(f"kernel: {kname} {p.name} tile {plan.tile} {smem}: "
+              f"{ms:.3f} ms, plain version {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), max_abs_err {err:.3g} "
+              f"{'bit-equal to the plain version' if ok else 'MISMATCH'} "
+              f"| {smi}", flush=True)
         if not ok:
             raise RuntimeError(f"{kname} kernel disagrees with its plain "
                                f"version on {p.name}")
+        if kname in report:
+            continue
         report[kname] = {
             "name": kname, "route": "cuda",
             "source": "stencilflow_tpu_torch/backend/codegen.py",
@@ -1484,6 +1506,20 @@ def main() -> int:
                 f"{oms:.3f} ms")
         stream_extra[p.name] += (f" | forced rows+panel tile {pplan.tile} "
                                  f"{rms:.3f} ms")
+        if p.name in stream2d:
+            splan = stream2d[p.name]
+            slib = lib_of[st.stream_source(splan)]
+            sarr = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                                  device="cuda")
+            sout = st.run_stream(splan, sarr, slib)[p.outputs[0]]
+            if not _compare(sout.cpu().numpy().reshape(rout.shape), rout,
+                            0.0)[0]:
+                raise RuntimeError(f"{p.name}: the stream kernel and "
+                                   "forced rows+panel disagree")
+            sms = _time_ms(lambda: st.run_stream(splan, sarr, slib), 5)
+            stream_extra[p.name] += (f" | stream kernel (packed) tile "
+                                     f"{splan.tile} {sms:.3f} ms")
+            del sarr, sout
         forced2d[p.name] = rout
         del inputs, fr
         torch.cuda.empty_cache()

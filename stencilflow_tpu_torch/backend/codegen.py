@@ -403,7 +403,7 @@ def _params(program: ir.Program, n_pool: int = 0,
 
 def _launcher(program, kernel: str, grid: str, smem: int, slots,
               n_pool: int = 0, origin: bool = False,
-              spill: bool = False) -> str:
+              spill: bool = False, threads: int = THREADS) -> str:
     params, args = _params(program, n_pool, origin, spill)
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
@@ -421,85 +421,236 @@ extern "C" int {name}(const void* const* in, void* const* out,
 {copies}  cudaError_t e = cudaFuncSetAttribute(
       {kernel}, cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});
   if (e != cudaSuccess) return (int)e;
-  {kernel}<<<{grid}, {THREADS}, {smem}, (cudaStream_t)stream>>>({args});
+  {kernel}<<<{grid}, {threads}, {smem}, (cudaStream_t)stream>>>({args});
   return (int)cudaGetLastError();
 }}
 """
 
 
+# the panel kernel's input loads (K1): one element per cp.async (4 or 8
+# bytes), zero-filled where the source lies outside the domain (src-size
+# 0), completed by commit groups; on the host the copies happen at the
+# point of issue and the waits do nothing
+_PANEL_MACROS = """#ifdef __CUDACC__
+SF_DEV void sf_cp4(void* dst, const void* src, const bool inb) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(inb ? 4 : 0) : "memory");
+}
+SF_DEV void sf_cp8(void* dst, const void* src, const bool inb) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(inb ? 8 : 0) : "memory");
+}
+#define SF_CP_COMMIT() asm volatile("cp.async.commit_group;" ::: "memory")
+#define SF_CP_WAIT_AHEAD() asm volatile("cp.async.wait_group %0;" :: "n"(SF_AHEAD) : "memory")
+#else
+SF_DEV void sf_cp4(void* dst, const void* src, const bool inb) {
+  if (inb) memcpy(dst, src, 4); else memset(dst, 0, 4);
+}
+SF_DEV void sf_cp8(void* dst, const void* src, const bool inb) {
+  if (inb) memcpy(dst, src, 8); else memset(dst, 0, 8);
+}
+#define SF_CP_COMMIT()
+#define SF_CP_WAIT_AHEAD()
+#endif
+// x - n where x reaches n: a ring slot kept in [0, n) without a modulo
+SF_DEV int sf_wrap(const int x, const int n) { return x >= n ? x - n : x; }
+"""
+
+
+def _slot(plan, f: str, d: int) -> str:
+    """Slot of ring ``f`` holding plane t - d at step t, from the step's
+    counter m<S> = t mod S (S the ring's slots)."""
+    S = plan.slots(f)
+    c = (-d) % S
+    if S == 1:
+        return "0"
+    return f"m{S}" if c == 0 else f"sf_wrap(m{S} + {c}, {S})"
+
+
+def _region_loop(RJ: int, RK: int, body: List[str]) -> List[str]:
+    """The passes of a block's threads over an RJ x RK region in
+    row-major order: the thread's first row jl and column kl come from
+    one division by a constant before the i-march, later ones by adding
+    the stride's constant row and column steps (no division in a pass).
+    The loop is not unrolled: unrolled, nvcc keeps every pass's addresses
+    live and needs 180-240 registers, one block per SM."""
+    return ["{",
+            f"  int jl = jl0_{RK}, kl = kl0_{RK};",
+            "#pragma unroll 1",
+            f"  for (int p = tid; p < {RJ * RK}; p += SF_NT) {{"] \
+        + ["    " + b for b in body] \
+        + [f"    kl += SF_NT % {RK};", f"    jl += SF_NT / {RK};",
+           f"    if (kl >= {RK}) {{ kl -= {RK}; ++jl; }}", "  }", "}"]
+
+
 def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
-    """The panel streamer for ``plan`` (backend/panel.py PanelPlan)."""
+    """The panel streamer for ``plan`` (backend/panel.py PanelPlan), K1.
+
+    Per plane step t: the threads issue the cp.async loads of plane t +
+    AHEAD of every ring input into its slot, wait until plane t has
+    landed, and after a barrier every live stage s evaluates its region
+    for plane q = t - lag(s), then a barrier.  Ring slots rotate by
+    per-step counters (t mod S for each slot count S), so every ring
+    read is one shared-memory load at a constant offset from a per-step
+    slot base plus the thread's cell: no modulo or division in a read.
+    Each stage has a mask-free body and a masked one (boundary conditions
+    from global coordinates), taken per block and step: mask-free where
+    the block's widest reach lies inside the (j, k) domain and the
+    stage's i reach inside [0, I).  Shared memory is
+    ``plan.ring_offsets``: rings of one step packed by liveness;
+    ``__launch_bounds__`` asks for the blocks per SM that it leaves room
+    for, and a block has ``plan.threads`` threads.  Like
+    ``stream_source``, the block body also compiles with g++ into
+    ``sf_host_launch`` (one thread a block, shared memory NaN-filled)."""
     I, J, K = dims = program.dimensions
     order, head, slots = _common(program, analysis)
     tj, tk = plan.tile
     ntj, ntk = plan.grid(dims)
     offs = plan.ring_offsets(program)
-    params, _ = _params(program)
-    L = [head, "// panel streamer (backend/panel.py): replaces the TPU kernel "
-               "stencilflow_tpu/backend/panel.py _panel_kernel_body",
-         f"__global__ void __launch_bounds__({THREADS}) "
-         f"sf_panel({params}) {{",
-         "  extern __shared__ __align__(16) unsigned char sf_smem[];",
-         f"  const int j0 = blockIdx.y * {tj}, k0 = blockIdx.x * {tk};"]
+    params, args = _params(program)
+    from .panel import AHEAD, i_reach, reach
+    Hj, Hk = reach(program, plan)
+    # SF_NT: the threads of a block (one runs a block on the host)
+    L = [head, _STREAM_MACROS, f"#define SF_AHEAD {AHEAD}",
+         f"#ifdef __CUDACC__\n#define SF_NT {plan.threads}\n#else\n"
+         "#define SF_NT 1\n#endif", _PANEL_MACROS,
+         "// panel streamer (backend/panel.py): replaces the TPU kernel "
+         "stencilflow_tpu/backend/panel.py _panel_kernel_body (K1)",
+         "SF_DEV void sf_panel_block(const int by, const int bx, "
+         "const int tid, const int nt, unsigned char* const sf_smem, "
+         f"{params}) {{",
+         "  (void)nt;",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};",
+         "  // every cell and read of the block inside the (j, k) domain",
+         f"  const bool inner = j0 >= {Hj} && j0 + {tj + Hj} <= {J} && "
+         f"k0 >= {Hk} && k0 + {tk + Hk} <= {K};",
+         "  (void)inner;"]
     for f in plan.ring:
-        L.append(f"  {ctype(program.field_dtype(f))}* const r_{f} = "
-                 f"({ctype(program.field_dtype(f))}*)(sf_smem + {offs[f]});")
-    L.append(f"  for (int t = 0; t < {I + plan.lag_max}; ++t) {{")
-    ring_inputs = [f for f in plan.ring if f in program.inputs]
-    if ring_inputs:
-        L.append(f"    if (t < {I}) {{")
-        for f in ring_inputs:
+        ct = ctype(program.field_dtype(f))
+        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
+    widths = sorted({plan.region(f)[1]
+                     for f in list(program.kernels) + list(plan.inputs)})
+    counters = sorted({plan.slots(f) for f in plan.ring} - {1})
+    L += [f"  int m{S} = 0;  // t mod {S}" for S in counters]
+
+    def load(t_expr: str, slot) -> List[str]:
+        """cp.async of plane ``t_expr`` of every ring input into its
+        ``slot(f)`` (synchronous stores for 1- and 2-byte types)."""
+        out = []
+        for f in plan.inputs:
             RJ, RK = plan.region(f)
             hj, hk = plan.halo[f]
-            L += [f"      for (int p = threadIdx.x; p < {RJ * RK}; "
-                  f"p += {THREADS}) {{",
-                  f"        const int jl = p / {RK}, kl = p - jl * {RK};",
-                  f"        const int gj = j0 - {hj} + jl, "
-                  f"gk = k0 - {hk} + kl;",
-                  f"        r_{f}[(t % {plan.ring[f]}) * {RJ * RK} + p] = "
-                  f"(gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) ? "
-                  f"g_{f}[((long long)t * {J} + gj) * {K} + gk] : "
-                  f"{literal(0, program.field_dtype(f))};",
-                  "      }"]
-        L.append("    }")
-        L.append("    __syncthreads();")
+            size = np.dtype(program.field_dtype(f)).itemsize
+            src = (f"g_{f} + (long long)({t_expr}) * {J * K}LL + "
+                   f"(inb ? gj * {K} + gk : 0)")
+            dst = f"r_{f} + {slot(f)} * {RJ * RK} + p"
+            st = (f"sf_cp{size}({dst}, {src}, inb);" if size in (4, 8) else
+                  f"*({dst}) = inb ? *({src}) : "
+                  f"{literal(0, program.field_dtype(f))};")
+            out += _region_loop(RJ, RK, [
+                f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
+                f"const bool inb = gj >= 0 && gj < {J} && gk >= 0 && "
+                f"gk < {K};", st])
+        return out
+
+    L += [f"  const int jl0_{w} = tid / {w}, kl0_{w} = tid - jl0_{w} * {w};"
+          for w in widths]
+    if plan.inputs:
+        L.append("  // prologue: the first AHEAD planes in flight")
+        for a in range(min(AHEAD, I)):
+            L += ["  " + y for y in load(str(a), lambda f, a=a: str(
+                a % plan.slots(f)))] + ["  SF_CP_COMMIT();"]
+    L.append(f"  for (int t = 0; t < {plan.steps()}; ++t) {{")
+    if plan.inputs:
+        L += ["    // plane t + AHEAD in flight, then wait for plane t",
+              f"    if (t + {AHEAD} < {I}) {{"]
+        L += ["      " + y for y in load(
+            f"t + {AHEAD}", lambda f: _slot(plan, f, -AHEAD))]
+        L += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();",
+              "    SF_SYNC();"]
     for idx, s in enumerate(order):
         kspec = program.kernels[s]
         RJ, RK = plan.region(s)
         hj, hk = plan.halo[s]
+        lo, hi = i_reach(program, s)
+        ptrs: Dict[Tuple[str, int], str] = {}
+        xs = set()
 
-        def onchip(f, s=s):
+        def onchip(f, s=s, RK=RK, ptrs=ptrs, xs=xs):
             if f not in plan.ring:
                 return lambda o: None
-            fj, fk = plan.region(f)
+            FK = plan.region(f)[1]
             dj = plan.halo[f][0] - plan.halo[s][0]
             dk = plan.halo[f][1] - plan.halo[s][1]
-            D = plan.ring[f]
-            return lambda o: (f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
-                              f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
-                              f"kl + {dk + o[2]}]")
 
-        body = _stage_call(program, kspec, idx, ("q", "gj", "gk"), onchip,
-                           slots)
-        if s in plan.ring:
-            body.append(f"r_{s}[(q % {plan.ring[s]}) * {RJ * RK} + p] = r;")
-        if s in program.outputs:
-            body.append(f"if (jl >= {hj} && jl < {hj + tj} && kl >= {hk} "
-                        f"&& kl < {hk + tk} && gj < {J} && gk < {K}) "
-                        f"o_{s}[((long long)q * {J} + gj) * {K} + gk] = r;")
-        L += [f"    {{  // stage {s}",
+            def at(o):
+                d = plan.lag[s] - o[0]
+                ptrs[f, d] = f"b_{f}_{d}"
+                x = "p" if FK == RK else f"x{FK}"
+                if FK != RK:
+                    xs.add(FK)
+                return (f"b_{f}_{d}[{x} + {(dj + o[1]) * FK + dk + o[2]}]")
+            return at
+
+        bodies = []
+        for masked in (False, True):
+            body = _stage_call(program, kspec, idx, ("q", "gj", "gk"),
+                               onchip, slots, masked=masked)
+            if s in plan.ring:
+                body.append("w[p] = r;")
+            if s in program.outputs:
+                cond = []
+                if hj:
+                    cond.append(f"jl >= {hj} && jl < {hj + tj}")
+                if hk:
+                    cond.append(f"kl >= {hk} && kl < {hk + tk}")
+                if masked:
+                    cond.append(f"gj < {J} && gk < {K}")
+                write = f"o_{s}[((long long)q * {J} + gj) * {K} + gk] = r;"
+                body.append(f"if ({' && '.join(cond)}) {write}" if cond
+                            else write)
+            bodies.append(body)
+        pre = [f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
+               "(void)gj; (void)gk;"]
+        pre += [f"const int x{w} = jl * {w} + kl;" for w in sorted(xs)]
+        L += [f"    {{  // stage {s}: {RJ} x {RK}",
               f"      const int q = t - {plan.lag[s]};",
-              f"      if (q >= 0 && q < {I}) {{",
-              f"        for (int p = threadIdx.x; p < {RJ * RK}; "
-              f"p += {THREADS}) {{",
-              f"          const int jl = p / {RK}, kl = p - jl * {RK};",
-              f"          const int gj = j0 - {hj} + jl, "
-              f"gk = k0 - {hk} + kl;"]
-        L += ["          " + b for b in body]
-        L += ["        }", "      }", "      __syncthreads();", "    }"]
+              f"      if (q >= 0 && q < {I}) {{"]
+        if s in plan.ring:
+            ct = ctype(program.field_dtype(s))
+            L.append(f"        {ct}* const w = r_{s} + "
+                     f"{_slot(plan, s, plan.lag[s])} * {RJ * RK};")
+        for (f, d), name in sorted(ptrs.items()):
+            ct = ctype(program.field_dtype(f))
+            L.append(f"        const {ct}* const {name} = r_{f} + "
+                     f"{_slot(plan, f, d)} * {math.prod(plan.region(f))};")
+        free = f"inner && q >= {lo} && q < {I - hi}"
+        L.append(f"        if ({free}) {{  // mask-free")
+        L += ["          " + y for y in _region_loop(RJ, RK,
+                                                      pre + bodies[0])]
+        L.append("        } else {  // masked")
+        L += ["          " + y for y in _region_loop(RJ, RK,
+                                                      pre + bodies[1])]
+        L += ["        }", "        SF_SYNC();", "      }", "    }"]
+    L += [f"    m{S} = sf_wrap(m{S} + 1, {S});" for S in counters]
     L += ["  }", "}"]
-    L.append(_launcher(program, "sf_panel", f"dim3({ntk}, {ntj})",
-                       plan.smem_bytes(program), slots))
+    L += _entry_points(program, "sf_panel", params, args, (ntj, ntk),
+                       plan.smem_bytes(program), slots,
+                       min_blocks=plan.min_blocks(program),
+                       threads=plan.threads)
+    L += ["#ifdef __CUDACC__",
+          "// resident blocks per SM at this shared memory",
+          'extern "C" int sf_occupancy(int* blocks) {',
+          "  cudaError_t e = cudaFuncSetAttribute(sf_panel, "
+          "cudaFuncAttributeMaxDynamicSharedMemorySize, "
+          f"{plan.smem_bytes(program)});",
+          "  if (e != cudaSuccess) return (int)e;",
+          "  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor("
+          f"blocks, sf_panel, {plan.threads}, "
+          f"{plan.smem_bytes(program)});",
+          "}", "#endif"]
     return "\n".join(L)
 
 
@@ -1190,14 +1341,18 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
 
 def _entry_points(program, kernel: str, params: str, args: str, grid,
                   smem: int, slots, n_pool: int = 0,
-                  origin: bool = False, spill_bytes: int = 0) -> List[str]:
+                  origin: bool = False, spill_bytes: int = 0,
+                  min_blocks: int = 0, threads: int = THREADS) -> List[str]:
     """The ``__global__`` kernel around the block body ``<kernel>_block``
     and its ``sf_launch`` (``sf_local_launch`` with ``origin``) for nvcc;
     for g++, ``sf_host_launch``, which runs every block with one thread
     (the barriers separate phases, so that is a valid schedule) over
     shared memory filled with NaN, and a spill buffer of ``spill_bytes``
-    (when nonzero) filled the same way."""
+    (when nonzero) filled the same way.  Blocks have ``threads`` threads;
+    ``min_blocks`` > 1 asks nvcc for that many resident blocks per SM
+    (``__launch_bounds__``: a register budget)."""
     ntj, ntk = grid
+    bounds = f"{threads}, {min_blocks}" if min_blocks > 1 else f"{threads}"
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
     spill = [f"  unsigned char* const sf_spill = (unsigned char*)malloc("
@@ -1205,14 +1360,14 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
              f"  memset(sf_spill, 0xff, {spill_bytes}LL);"] \
         if spill_bytes else []
     return ["#ifdef __CUDACC__",
-            f"__global__ void __launch_bounds__({THREADS}) "
+            f"__global__ void __launch_bounds__({bounds}) "
             f"{kernel}({params}) {{",
             "  extern __shared__ __align__(16) unsigned char sf_smem[];",
             f"  {kernel}_block(blockIdx.y, blockIdx.x, threadIdx.x, "
-            f"{THREADS}, sf_smem, {_param_names(params)});",
+            f"{threads}, sf_smem, {_param_names(params)});",
             "}",
             _launcher(program, kernel, f"dim3({ntk}, {ntj})", smem, slots,
-                      n_pool, origin, bool(spill_bytes)),
+                      n_pool, origin, bool(spill_bytes), threads),
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
             "void* const* out, const unsigned char* scal"

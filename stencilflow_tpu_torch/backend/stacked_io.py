@@ -74,6 +74,36 @@ def tile_cost(n_blocks: int, smem: int, work: int) -> float:
     return waves * per_sm * work * latency
 
 
+def first_fit(placed, size: int, mask: int) -> int:
+    """The lowest offset where ``size`` bytes overlap no placed ``(offset,
+    size, mask)`` live in a phase of ``mask``."""
+    off = 0
+    for o, n in sorted((o, n) for o, n, m in placed if m & mask):
+        if o - off >= size:
+            break
+        off = max(off, o + n)
+    return off
+
+
+def place_by_phase(items, base: int, cap: int = 0):
+    """Shared memory packed by liveness (the panel kernel's rings of one
+    step, the spill rung's arena): first-fit ``(first phase, key, bytes,
+    mask, early mask)`` items in order of their first phase, each live
+    in ``early mask`` where that still ends by ``cap`` bytes (else in
+    ``mask``): ({key: offset}, {key: mask}, {key: bytes}, end)."""
+    placed, offset, live, size = [], {}, {}, {}
+    for _p, key, nbytes, mask, early in sorted(items, key=lambda it: it[0]):
+        at = first_fit(placed, nbytes, early)
+        if base + at + nbytes <= cap:
+            mask = early
+        else:
+            at = first_fit(placed, nbytes, mask)
+        placed.append((at, nbytes, mask))
+        offset[key], live[key], size[key] = base + at, mask, nbytes
+    return offset, live, size, base + max((o + n for o, n, _m in placed),
+                                          default=0)
+
+
 def or_mask(a, b):
     if a is None:
         return b

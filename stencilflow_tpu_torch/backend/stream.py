@@ -144,8 +144,8 @@ from .linear import (MatrixPool, band_diagonals, finalize_pool,
 from .panel import ring_fields, tile_candidates
 from .stacked_io import (SPILL_BYTES_CAP, THREADS,
                          accesses_with_center, bc_select, check_scope,
-                         or_mask, resolve_device, run_kernel,
-                         spanned_arrays, tile_cost)
+                         or_mask, place_by_phase, resolve_device,
+                         run_kernel, spanned_arrays, tile_cost)
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only): the whole-domain stream
@@ -501,35 +501,6 @@ class SpillLayout:
     end: int
 
 
-def _first_fit(placed, size: int, mask: int) -> int:
-    """The lowest offset where ``size`` bytes overlap no placed ``(offset,
-    size, mask)`` live in a phase of ``mask``."""
-    off = 0
-    for o, n in sorted((o, n) for o, n, m in placed if m & mask):
-        if o - off >= size:
-            break
-        off = max(off, o + n)
-    return off
-
-
-def _place(items, base: int, cap: int = 0):
-    """First-fit ``(first phase, key, bytes, mask, early mask)`` items in
-    order of their first phase, each live in ``early mask`` where that
-    still ends by ``cap`` bytes (else in ``mask``): ({key: offset}, {key:
-    mask}, {key: bytes}, end)."""
-    placed, offset, live, size = [], {}, {}, {}
-    for _p, key, nbytes, mask, early in sorted(items, key=lambda it: it[0]):
-        at = _first_fit(placed, nbytes, early)
-        if base + at + nbytes <= cap:
-            mask = early
-        else:
-            at = _first_fit(placed, nbytes, mask)
-        placed.append((at, nbytes, mask))
-        offset[key], live[key], size[key] = base + at, mask, nbytes
-    return offset, live, size, base + max((o + n for o, n, _m in placed),
-                                          default=0)
-
-
 def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
     """Place ``plan``'s shared memory for the spill rung (``SpillLayout``):
     the short-lived items first-fit in order of their first phase, every
@@ -573,9 +544,9 @@ def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
         items.append((ph, ("read", f, d), _align(plan.plane_bytes(f), 128),
                       span(ph, readers[f, d][-1]),
                       span(max(ph - 1, 0), readers[f, d][-1])))
-    got = _place(items, base)
+    got = place_by_phase(items, base)
     if ahead and loads:
-        tried = _place(items, base, got[3])
+        tried = place_by_phase(items, base, got[3])
         if tried[3] <= got[3]:
             got = tried
     placed, live, size, end = got

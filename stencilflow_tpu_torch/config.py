@@ -104,6 +104,14 @@ H100_ASYNC_COPY_SHARE = (0.772, 0.940, 0.950)
 # 2.364e9 stage and input cells (8880 a block and plane step at the
 # (16, 32) tile, 520 steps, 512 blocks) over 132 SMs.
 H100_STREAM_CELL_RATE = 2.904e9
+# Thread-evaluations per second per SM of the redesigned panel kernel
+# (K1: per-step ring bases, mask-free interior bodies, cp.async input
+# planes) at 2 blocks of 256 threads per SM, lanes of idle last passes
+# included; its tile rule (``PanelPlan.seconds``) prices a tile with it.
+# On an NVIDIA H100 80GB HBM3 (700 W), python -m
+# stencilflow_tpu_torch.sweep ran jacobi3d 512^3 x 8 at (16, 32) in
+# 4.649 ms: 520 steps x 2 waves x 2 blocks x 8192 lanes a block and step.
+H100_PANEL_CELL_RATE = 3.665e9
 # P1: cost of each op in add-equivalents (its time over an add's, less
 # the IR ops the probe adds around it); sinh and cosh are not measured
 # and keep the JAX package's rule, exp's cost scaled by 4 / 1.5.

@@ -1,19 +1,27 @@
-"""Time the stream kernel's route plans on the deep 3-D cells (K3c).
+"""Time the route plans of the stream kernel's deep cells (K3c) or of
+the panel kernel's cells (K1) for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
+        [--cells deep|panel]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
 file's own checkout by default), so the same file times another commit
 of the port on the same card: run it for one commit, then the other,
 then the second again and the first again, and compare only within one
-such sequence.  For each deep cell (jacobi3d 512^3 x 32, hdiff3d 256^3 x
-16, hotspot3d 256^3 x 32; random inputs from seed 0) it plans the route's
-stream kernel (``plan_stream(..., mxu="off")``), builds every kernel at
-once (one nvcc each), checks one launch against the dense lowering on the
-card bit for bit, then times ``--reps`` launches with CUDA events after a
-warm-up.  The last line is one JSON object: the card (``nvidia-smi``
-name and power limit), and per cell the kernel's ms, tile, spilled rings
-and shared memory per block.  It needs a CUDA device.
+such sequence.  ``--cells deep`` (the default): jacobi3d 512^3 x 32,
+hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32 on their stream plans
+(``plan_stream(..., mxu="off")``).  ``--cells panel``: jacobi3d 512^3 x
+8, hdiff3d 256^3 x 8 and hotspot3d 256^3 x 8 on the panel kernel's own
+plan (``PanelPlan.build``, their route), then panel forced on cross-r2
+256^3 x 8 and on hdiff2d 8192^2 x 16 where the checkout's planner
+accepts them.  Random inputs from seed 0.  It builds every kernel at
+once (one nvcc each), checks one launch against the dense lowering on
+the card bit for bit, then times ``--reps`` launches with CUDA events
+after a warm-up.  The last line is one JSON object: the card
+(``nvidia-smi`` name and power limit), and per cell the kernel's ms,
+tile and shared memory per block (panel: packed and unpacked, and the
+resident blocks per SM the card reports, where the checkout has them).
+It needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,11 +38,49 @@ if sys.path and os.path.abspath(sys.path[0]) == os.path.dirname(
     sys.path.pop(0)
 
 
+def _deep(sft, synthesize_stencil):
+    """[(program, stream plan, source)] of the deep cells."""
+    from stencilflow_tpu_torch.backend import stream as st
+    out = []
+    for shape, n, iters in (("diffusion", 512, 32), ("hdiff", 256, 16),
+                            ("hotspot", 256, 32)):
+        p = sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape,
+            seed_data="random:0.0,1.0"), name=f"{shape}3d_{n}_{iters}itr")
+        plan = st.plan_stream(p, mxu="off")
+        out.append((p, plan, st.stream_source(plan)))
+    return out
+
+
+def _panel(sft, synthesize_stencil):
+    """[(program, panel plan or refusal, source)] of the panel cells."""
+    from stencilflow_tpu_torch.backend import codegen
+    from stencilflow_tpu_torch.backend import panel as pn
+    out = []
+    for shape, dims, iters, extent in (
+            ("diffusion", (512,) * 3, 8, 1), ("hdiff", (256,) * 3, 8, 1),
+            ("hotspot", (256,) * 3, 8, 1), ("cross", (256,) * 3, 8, 2),
+            ("hdiff", (8192, 8192), 16, 1)):
+        p = sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape, extent=extent,
+            seed_data="random:0.0,1.0"),
+            name=f"{shape}{len(dims)}d_{dims[0]}_{iters}itr")
+        an = sft.ChainAnalysis.run(p)
+        try:
+            plan = pn.PanelPlan.build(an)
+        except ValueError as exc:
+            out.append((p, str(exc), None))
+            continue
+        out.append((p, plan, codegen.panel_source(p, an, plan)))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="deep_time", description=__doc__)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--cells", choices=("deep", "panel"), default="deep")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -44,6 +90,7 @@ def main(argv=None) -> int:
         return 1
     import stencilflow_tpu_torch as sft
     from stencilflow_tpu_torch.backend import build
+    from stencilflow_tpu_torch.backend import panel as pn
     from stencilflow_tpu_torch.backend import stream as st
     from stencilflow_tpu_torch.backend.dense import compile_chain
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
@@ -51,20 +98,31 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    cells = []
-    for shape, n, iters in (("diffusion", 512, 32), ("hdiff", 256, 16),
-                            ("hotspot", 256, 32)):
-        p = sft.parse_program(synthesize_stencil(
-            num_stages=iters, dimensions=(n,) * 3, shape=shape,
-            seed_data="random:0.0,1.0"), name=f"{shape}3d_{n}_{iters}itr")
-        cells.append((p, st.plan_stream(p, mxu="off")))
-    libs = build.load_libraries([(st.stream_source(plan), "stream")
-                                 for _p, plan in cells])
+    cells = (_deep if args.cells == "deep" else _panel)(sft,
+                                                        synthesize_stencil)
+    built = [c for c in cells if c[2] is not None]
+    libs = dict(zip([id(c) for c in built], build.load_libraries(
+        [(src, "stream" if args.cells == "deep" else "panel")
+         for _p, _plan, src in built])))
     out = {}
-    for (p, plan), lib in zip(cells, libs):
+    for cell in cells:
+        p, plan, _src = cell
+        if isinstance(plan, str):
+            out[p.name] = {"refused": plan}
+            print(f"{p.name}: refused ({plan}) | {smi}", flush=True)
+            continue
+        lib = libs[id(cell)]
+        if args.cells == "deep":
+            def run(arrays, plan=plan, lib=lib):
+                return st.run_stream(plan, arrays, lib)
+        else:
+            an = sft.ChainAnalysis.run(p)
+
+            def run(arrays, p=p, an=an, plan=plan, lib=lib):
+                return pn.run_panel(p, an, plan, arrays, lib)
         inputs = sft.load_input_arrays(p, seed=0)
         arrays = spanned_arrays(p, inputs, device="cuda")
-        got = st.run_stream(plan, arrays, lib)[p.outputs[0]]
+        got = run(arrays)[p.outputs[0]]
         want = compile_chain(p)({k: torch.as_tensor(np.asarray(v)).cuda()
                                  for k, v in inputs.items()})[p.outputs[0]]
         equal = torch.equal(got.reshape(want.shape), want)
@@ -74,20 +132,31 @@ def main(argv=None) -> int:
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.reps):
-            st.run_stream(plan, arrays, lib)
+            run(arrays)
         stop.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(stop) / args.reps
-        out[p.name] = {"ms": ms, "tile": list(plan.tile),
-                       "spilled": len(plan.spilled),
-                       "rings": len(plan.raw_ring),
-                       "smem": plan.smem_bytes(), "equal_dense": equal}
-        print(f"{p.name}: {ms:.3f} ms, tile {plan.tile}, spilled "
-              f"{len(plan.spilled)} of {len(plan.raw_ring)} rings, smem "
-              f"{plan.smem_bytes()} B, equal to dense: {equal} | {smi}",
-              flush=True)
+        if args.cells == "deep":
+            row = {"ms": ms, "tile": list(plan.tile),
+                   "spilled": len(plan.spilled),
+                   "rings": len(plan.raw_ring),
+                   "smem": plan.smem_bytes(), "equal_dense": equal}
+            text = (f"spilled {len(plan.spilled)} of {len(plan.raw_ring)} "
+                    f"rings, smem {plan.smem_bytes()} B")
+            plan.device_pool.clear()
+        else:
+            row = {"ms": ms, "tile": list(plan.tile),
+                   "smem": plan.smem_bytes(p), "equal_dense": equal}
+            if hasattr(plan, "unpacked_bytes"):
+                row.update(unpacked=plan.unpacked_bytes(p),
+                           blocks_per_sm=pn.occupancy(lib),
+                           masked_share=plan.masked_share(p))
+            text = ", ".join(f"{k} {v}" for k, v in row.items()
+                             if k not in ("ms", "tile", "equal_dense"))
+        out[p.name] = row
+        print(f"{p.name}: {ms:.3f} ms, tile {plan.tile}, {text}, equal to "
+              f"dense: {equal} | {smi}", flush=True)
         del arrays
-        plan.device_pool.clear()
         torch.cuda.empty_cache()
         if not equal:
             print(f"error: {p.name} differs from dense", file=sys.stderr)

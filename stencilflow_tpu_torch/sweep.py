@@ -1,10 +1,15 @@
-"""Tile sweep of the stream and group kernels on the card.
+"""Tile sweep of the stream, group and panel kernels on the card.
 
     python -m stencilflow_tpu_torch.sweep            # every cell below
     python -m stencilflow_tpu_torch.sweep jacobi2d   # named cells only
 
 Cells: box-r2 and cross-r2 256^3 x 8 (stream), jacobi2d and hotspot2d
-8192^2 x 8 rotated to rows (group, g = 8, B = 64), and the deep 3-D
+8192^2 x 8 rotated to rows (group, g = 8, B = 64), the panel cells
+jacobi3d 512^3 x 8, hdiff3d and hotspot3d 256^3 x 8 (K1, ``sweep_panel``:
+every tile at 256 and at 512 threads a block, the rings of one step
+packed by liveness; each also prints the tile rule's modelled time,
+``PanelPlan.seconds``, the resident blocks per SM the card reports and
+the masked share of the stage evaluations), and the deep 3-D
 chains jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32
 (the stream kernel's spill rung, K3c: at each tile the planner packs
 shared memory by liveness and spills rings until the rest fits; each
@@ -90,6 +95,31 @@ def sweep_group(program, reps: int = 2):
     return sorted(rows, key=lambda r: r[0]), pick
 
 
+def sweep_panel(program, reps: int = 2):
+    """``sweep`` for the panel kernel (K1): every tile whose packed shared
+    memory fits, at each thread count of ``panel.PANEL_THREADS``, fastest
+    first, and the planner's own plan."""
+    analysis = ChainAnalysis.run(program)
+    pick = panel.PanelPlan.build(analysis)
+    plans = []
+    for tile in panel.tile_candidates(program.dimensions):
+        for threads in panel.PANEL_THREADS:
+            try:
+                plans.append(panel.PanelPlan.build(analysis, tile, threads))
+            except ValueError:
+                continue    # shared memory
+    libs = build.load_libraries([(codegen.panel_source(program, analysis, p),
+                                  "panel") for p in plans])
+    arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
+                            device="cuda")
+    rows = []
+    for p, lib in zip(plans, libs):
+        p.blocks_per_sm = panel.occupancy(lib)
+        rows.append((_time_ms(lambda: panel.run_panel(
+            program, analysis, p, arrays, lib), reps), p))
+    return sorted(rows, key=lambda r: r[0]), pick
+
+
 def _cells():
     """name: (program, sweep function)."""
     def synth(shape, dims, **kw):
@@ -103,6 +133,11 @@ def _cells():
         cells[name] = (rotate_2d_to_rows(parse_program(
             synth(shape, (8192, 8192)), name=f"{name}_8192_8itr")),
             sweep_group)
+    for name, shape, n in (("jacobi3d8", "diffusion", 512),
+                           ("hdiff3d8", "hdiff", 256),
+                           ("hotspot3d8", "hotspot", 256)):
+        cells[name] = (parse_program(synth(shape, (n,) * 3),
+                                     name=f"{name}_{n}"), sweep_panel)
     for name, shape, n, iters in (("jacobi3d32", "diffusion", 512, 32),
                                   ("hdiff3d16", "hdiff", 256, 16),
                                   ("hotspot3d32", "hotspot", 256, 32)):
@@ -134,7 +169,8 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f}s; planner pick {pick.tile} "
               f"| {smi}", flush=True)
         for ms, p in rows:
-            mark = " <- planner" if p.tile == pick.tile else ""
+            mark = " <- planner" if p.tile == pick.tile and getattr(
+                p, "threads", 0) == getattr(pick, "threads", 0) else ""
             if fn is sweep:
                 smem, grid, work = p.smem_bytes(), p.grid(), p.work()
                 if p.packed:
@@ -142,6 +178,15 @@ def main() -> int:
                             f"{p.residency()} blocks per SM, spilled "
                             f"{len(p.spilled)} of {len(p.raw_ring)} rings "
                             f"({p.spill_bytes() / 2 ** 20:.0f} MiB){mark}")
+            elif fn is sweep_panel:
+                smem, grid, work = (p.smem_bytes(program),
+                                    p.grid(program.dimensions),
+                                    p.lanes(program))
+                mark = (f", {p.threads} threads, modelled "
+                        f"{p.seconds(program) * 1e3:.2f} ms, "
+                        f"{p.blocks_per_sm} blocks per SM, unpacked "
+                        f"{p.unpacked_bytes(program)} B, masked share "
+                        f"{p.masked_share(program):.3f}{mark}")
             else:
                 smem, grid, work = (p.smem_bytes(program),
                                     p.grid(program.dimensions),

@@ -152,7 +152,10 @@ def test_kernel_sources_contract():
         assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
         assert "(cudaStream_t)stream" in src
         assert "return (int)cudaGetLastError();" in src
-        assert "__syncthreads();" in src
+        # barriers: written out, or through the SF_SYNC() macro
+        assert "__syncthreads();" in src or (
+            "#define SF_SYNC() __syncthreads()" in src
+            and "SF_SYNC();" in src)
         assert "#include <torch" not in src
     assert "-fmad=false" in NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS

@@ -102,6 +102,79 @@ def test_run_program_on_card(iters, backend, cuda):
                                   oracle[p.outputs[0]])
 
 
+# the panel cells of chip_smoke.py (jacobi3d 512^3 x 8, hdiff3d and
+# hotspot3d 256^3 x 8) at a reduced size, at tiles of their full-size
+# plans, each with blocks that take the mask-free bodies
+PANEL_CELLS = {
+    "jacobi3d": (("diffusion", (16, 64, 96), 8), (16, 32)),
+    "hdiff3d": (("hdiff", (10, 96, 96), 8), (16, 16)),
+    "hdiff3d_16x32": (("hdiff", (10, 112, 128), 8), (16, 32)),
+    "hotspot3d": (("hotspot", (12, 64, 64), 8), (16, 16)),
+}
+
+
+def _panel_matches_plain(p, plan, cuda):
+    an = port.ChainAnalysis.run(p)
+    lib = panel.build_panel(p, an, plan)
+    assert panel.occupancy(lib) >= 1
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = panel.launches
+    got = panel.run_panel(p, an, plan, arrays, lib)
+    torch.cuda.synchronize()
+    assert panel.launches == before + 1
+    want = panel.panel_plain(p, an, plan, arrays)
+    for o in want:
+        np.testing.assert_array_equal(got[o].cpu().numpy(),
+                                      want[o].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PANEL_CELLS))
+def test_panel_cell_plans_match_plain_on_card(name, cuda):
+    """K1 on the panel cells' programs at a reduced size: boundary and
+    mask-free blocks, rings of one step packed, input planes by
+    cp.async, bit for bit against its plain version."""
+    (shape, dims, iters), tile = PANEL_CELLS[name]
+    p = port.parse_program(synthesize_stencil(
+        num_stages=iters, dimensions=dims, shape=shape,
+        seed_data="random:0,1"))
+    plan = panel.PanelPlan.build(port.ChainAnalysis.run(p), tile)
+    assert plan.inner_blocks(p) > 0
+    if shape == "hdiff":
+        assert plan.smem_bytes(p) < plan.unpacked_bytes(p)
+    _panel_matches_plain(p, plan, cuda)
+
+
+@pytest.mark.cuda
+def test_rows_panel_plan_matches_plain_on_card(cuda):
+    """K1 on a rows+panel plan (J = 1, tiles (1, tk))."""
+    p = rotate_2d_to_rows(port.parse_program(synthesize_stencil(
+        num_stages=6, dimensions=(96, 640), shape="diffusion",
+        seed_data="random:0,1")))
+    plan = panel.PanelPlan.build(port.ChainAnalysis.run(p))
+    assert plan.tile[0] == 1 and p.dimensions[1] == 1
+    _panel_matches_plain(p, plan, cuda)
+
+
+@pytest.mark.cuda
+def test_panel_build_failure_raises(cuda, monkeypatch):
+    """A K1 that does not build raises: no plain version, no
+    synchronous-load variant."""
+    from stencilflow_tpu_torch.backend import build, codegen
+    ran = []
+    monkeypatch.setattr(codegen, "panel_source",
+                        lambda *a, **k: "this is not C++\n")
+    monkeypatch.setattr(panel, "panel_plain",
+                        lambda *a, **k: ran.append(1))
+    p = port.parse_program(synthesize_stencil(
+        num_stages=4, dimensions=(16, 16, 16), shape="diffusion"))
+    with pytest.raises(build.KernelBuildError):
+        panel.compile_chain_panel(p, device=cuda)(
+            port.load_input_arrays(p, seed=0))
+    assert ran == []
+
+
 STREAM_PROGRAMS = {
     "box_r1_composed": lambda: synthesize_stencil(
         num_stages=4, dimensions=(40, 48, 72), shape="box", extent=1,

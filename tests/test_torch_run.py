@@ -130,9 +130,9 @@ def test_backend_choice_on_card(shape, size, iters, expected):
     ("diffusion", 8, "rows+group_g8"),   # bench.py's jacobi2d workload
     ("hotspot", 8, "rows+group_g8"),
     ("diffusion", 2, "overlap"),         # < 4 stages: no rows+group rung
-    # group_g8 refuses the 10-panel coeff ring; the stream kernel's spill
-    # rung packs its rings, which all live within one plane, by liveness
-    ("hdiff", 16, "stream"),
+    # group_g8 refuses the 10-panel coeff ring; the panel kernel packs
+    # the rings, which all live within one plane, by liveness
+    ("hdiff", 16, "panel"),
 ])
 def test_backend_choice_on_card_2d(shape, iters, expected):
     p = port.parse_program(synthesize_stencil(
