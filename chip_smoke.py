@@ -18,8 +18,10 @@ Phases, one line each (any failure raises and exits non-zero):
    extent 1 and 2 (composed), a box with constant BC 0.7 (per-stage plans
    with correction planes), a shrink box, a radius-2 cross (rank 2, per
    stage) and a per-cell stage feeding a wide affine stage that reads two
-   fields, within MXU_VERIFY_RTOL (the plain version applies the bands
-   with torch.matmul, another summation order); the group kernel against
+   fields, each banded case also with its band passes on the other route
+   (tensor cores against CUDA cores), within MXU_VERIFY_RTOL (the plain
+   version applies the bands with torch.matmul, another summation order);
+   the group kernel against
    its plain version, bit-exact, on jacobi2d 256 x 192 x 8 through rows
    (constant / copy / shrink BCs), hotspot2d 256 x 192 x 8 (both at the
    main path's g = 8, B = 64), the 2-D fuzz chain through rows, a 3-D
@@ -56,7 +58,12 @@ Phases, one line each (any failure raises and exits non-zero):
    stream ones); kernel launch counts are reset just before and read
    just after, and each kernel must have been launched.  The stream cells
    also print the forced-panel time where the panel planner accepts the
-   program, the 2-D cells the forced overlap kernel on the unrotated
+   program; before the main path, box and cross on the stream kernel
+   against its plain version with their tile, threads, packed and
+   unpacked shared memory, resident blocks per SM, stage evaluations a
+   cell and the band passes' route, each timed in turns with its plan on
+   the other route (route, other, other, route); the 2-D cells the forced
+   overlap kernel on the unrotated
    plane (the port's route before the rows path) and forced rows+panel,
    the forced K6 cells the route's time; before the main path, K1 on
    each panel cell (jacobi3d 512^3 x 8, hdiff3d and hotspot3d 256^3 x 8)
@@ -80,7 +87,8 @@ Phases, one line each (any failure raises and exits non-zero):
    per call with transfers, the bytes over the host link and the link
    bound from the pinned copy rates measured with 1 GiB ``copy_``s; K4
    alone on one jacobi chunk beside its plain version and 8 chained
-   ``F.conv3d`` over the widened chunk;
+   ``F.conv3d`` over the widened chunk, with its tile, threads, packed
+   and unpacked shared memory, resident blocks and evaluations a cell;
 6. the measurement path: the probes' kernels against their plain
    versions on the card (P4's copy of 512 x 512^2 bit-equal to its input
    and timed beside ``copy_``; P1's every op at 8 steps, bit-exact or
@@ -112,7 +120,8 @@ strategy's operations over the single-instruction FP32 rate.  The last
 lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5 and the probes' from phase 6; error, kernel,
 plain-version and library times measured in this run at the main path's
-shapes, bounds computed from its inputs; 14 entries) and ``{"ok": true,
+shapes, bounds computed from its inputs; 15 entries: the stream
+kernel's on box and on cross) and ``{"ok": true,
 "device": {...}}``.
 """
 import json
@@ -133,6 +142,15 @@ def _smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def _routes(plan) -> str:
+    """The band passes of an on-chip stream plan by width: "33-tap mma"
+    (tensor cores) or "5-tap fma" (CUDA cores)."""
+    return ", ".join(sorted({
+        f"{plan.band_info(k, side).taps}-tap {plan.route(k, side)}"
+        for t in plan.tkeys for k, side in ((t[1], "L"), (t[2], "R"))
+        if k is not None}))
 
 
 def _has_transcendental(program) -> bool:
@@ -440,7 +458,10 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
     torch.cuda.empty_cache()
     print(f"kernel: local_stream {p.name} chunk {c} of {chunks} "
           f"({plan.extent()} planes in, {plan.block} out) tile {plan.tile} "
-          f"smem {plan.smem_bytes()} B: {ms:.3f} ms per chunk, plain "
+          f"x {plan.threads} threads, smem {plan.smem_bytes()} B packed "
+          f"(unpacked {plan.unpacked_bytes()}), {pn.occupancy(lib)} blocks "
+          f"per SM, {plan.evaluations():.2f} evaluations a cell, passes "
+          f"{_routes(plan) or 'none (per cell)'}: {ms:.3f} ms per chunk, plain "
           f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}),"
           f" {len(p.kernels)} chained F.conv3d over the widened chunk "
           f"{lib_ms:.3f} ms, max_abs_err {err:.3g} "
@@ -969,6 +990,16 @@ def main() -> int:
         plan = st.plan_stream(p)
         stream_plans.append((label, p, plan))
         sources.append((st.stream_source(plan), "stream"))
+    # the band passes on their other route (tensor cores against CUDA
+    # cores): phase 3's banded cases, and box and cross 256^3 x 8, timed
+    # in turns with their routes' plans in phase 4
+    other_route = {}
+    for label, p, plan in stream_plans:
+        if plan.tkeys:
+            other = "fma" if "mma" in _routes(plan) else "mma"
+            other_route[label] = (p, st.plan_stream(p, passes=other))
+            sources.append((st.stream_source(other_route[label][1]),
+                            "stream"))
     main_panel = {}
     for p, _ in mains[:4]:
         an = sft.ChainAnalysis.run(p)
@@ -1109,7 +1140,10 @@ def main() -> int:
             if not ok or n != 1:
                 raise RuntimeError(f"{kname} kernel disagrees with its "
                                    f"plain version on {label}")
-    for label, p, plan in stream_plans[:len(stream_cases)]:
+    for label, p, plan in stream_plans[:len(stream_cases)] + [
+            (label + " (" + _routes(q) + ")", p, q)
+            for label, (p, q) in other_route.items()
+            if label in dict(stream_cases)]:
         lib = lib_of[st.stream_source(plan)]
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
@@ -1123,7 +1157,8 @@ def main() -> int:
             ok = ok and bool(np.isfinite(g).all())
             n = st.launches - before
             cfg = plan.last_config()
-            print(f"compare: stream  {label:28s} tile {plan.tile} banded "
+            print(f"compare: stream  {label:28s} tile {plan.tile} x "
+                  f"{plan.threads} passes {_routes(plan) or '-'} banded "
                   f"{cfg['mxu_stages']} composed {cfg['composed']} "
                   f"max_abs_err {err:.3g} launches {n} "
                   f"{'OK' if ok else 'MISMATCH'} (MXU_VERIFY_RTOL)",
@@ -1316,7 +1351,20 @@ def main() -> int:
         plain_ms = (time.perf_counter() - t_plain) * 1e3
         ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
                            want[p.outputs[0]].cpu().numpy(), MXU_VERIFY_RTOL)
-        ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 5)
+        # the other route of the band passes, checked, then both timed in
+        # turns (route, other, other, route)
+        oplan = other_route[label][1]
+        olib = lib_of[st.stream_source(oplan)]
+        oout = st.run_stream(oplan, arrays, olib)
+        ook, oerr = _compare(oout[p.outputs[0]].cpu().numpy(),
+                             want[p.outputs[0]].cpu().numpy(),
+                             MXU_VERIFY_RTOL)
+        del oout
+        turns = [_time_ms(lambda q=q, lb=lb: st.run_stream(q, arrays, lb), 5)
+                 for q, lb in ((plan, lib), (oplan, olib), (oplan, olib),
+                               (plan, lib))]
+        ms = (turns[0] + turns[3]) / 2
+        oms = (turns[1] + turns[2]) / 2
         # forced panel on the same inputs, where its planner fits
         forced = main_panel[p.name]
         if isinstance(forced, str):
@@ -1338,25 +1386,32 @@ def main() -> int:
         torch.cuda.empty_cache()
         flops = plan.flops_per_cell() * p.total_elements
         bound_ms, bound_by = _bound(p)
-        print(f"kernel: stream {label} tile {plan.tile} smem "
-              f"{plan.smem_bytes()} B: {ms:.3f} ms "
-              f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
+        print(f"kernel: stream {label} tile {plan.tile} x {plan.threads} "
+              f"threads, {_routes(plan)} passes, smem {plan.smem_bytes()} B "
+              f"packed (unpacked {plan.unpacked_bytes()}), "
+              f"{pn.occupancy(lib)} blocks per SM, "
+              f"{plan.evaluations():.2f} evaluations a cell: {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s; in turns "
+              f"{turns[0]:.3f} / {turns[3]:.3f}), plain version "
               f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
               f"transforms {flops / 1e9:.2f} GFLOP), max_abs_err {err:.3g} "
-              f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
-        if not ok:
+              f"{'OK' if ok else 'MISMATCH'} | {_routes(oplan)} passes "
+              f"beside: tile {oplan.tile} x {oplan.threads}, smem "
+              f"{oplan.smem_bytes()} B, {oms:.3f} ms (in turns "
+              f"{turns[1]:.3f} / {turns[2]:.3f}), max_abs_err {oerr:.3g} "
+              f"{'OK' if ook else 'MISMATCH'} | {smi}", flush=True)
+        if not ok or not ook:
             raise RuntimeError(f"stream kernel disagrees with its plain "
                                f"version on {label}")
-        if label == "box3d_256_8itr":
-            report["stream"] = {
-                "name": "stream", "route": "cuda",
-                "source": "stencilflow_tpu_torch/backend/codegen.py",
-                "replaces": "stencilflow_tpu/backend/stream.py:297",
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
-        library.append(("stream" if label == "box3d_256_8itr" else label,
-                        p, 2))
+        key = "stream" if label == "box3d_256_8itr" else "stream_cross"
+        report[key] = {
+            "name": key, "route": "cuda",
+            "source": "stencilflow_tpu_torch/backend/codegen.py",
+            "replaces": "stencilflow_tpu/backend/stream.py:297",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+        library.append((key, p, 2))
 
     # K3c on the deep cells (the route's spill-rung plans): kernel and
     # plain version bit for bit, the dense lowering's time beside, spill
@@ -1609,6 +1664,7 @@ def main() -> int:
     report["panel"]["launches"] = pn.launches
     report["overlap"]["launches"] = ov.launches
     report["stream"]["launches"] = st.launches
+    report["stream_cross"]["launches"] = st.launches
     report["group"]["launches"] = gp.launches
     report["stream_spill"]["launches"] = st.spill_launches
     report["tile"]["launches"] = tl.launches

@@ -462,7 +462,11 @@ SF_DEV int sf_wrap(const int x, const int n) { return x >= n ? x - n : x; }
 def _slot(plan, f: str, d: int) -> str:
     """Slot of ring ``f`` holding plane t - d at step t, from the step's
     counter m<S> = t mod S (S the ring's slots)."""
-    S = plan.slots(f)
+    return _slot_of(plan.slots(f), d)
+
+
+def _slot_of(S: int, d: int) -> str:
+    """Slot of a ring of ``S`` planes holding plane t - d at step t."""
     c = (-d) % S
     if S == 1:
         return "0"
@@ -483,6 +487,119 @@ def _region_loop(RJ: int, RK: int, body: List[str]) -> List[str]:
         + ["    " + b for b in body] \
         + [f"    kl += SF_NT % {RK};", f"    jl += SF_NT / {RK};",
            f"    if (kl >= {RK}) {{ kl -= {RK}; ++jl; }}", "  }", "}"]
+
+
+def _skeleton_macros(threads: int) -> List[str]:
+    """K1's skeleton (the panel streamer, shared by the stream kernel's
+    on-chip body): the input planes' lead, the threads of a block (one
+    runs a block on the host) and the cp.async / slot macros."""
+    from .panel import AHEAD
+    return [f"#define SF_AHEAD {AHEAD}",
+            f"#ifdef __CUDACC__\n#define SF_NT {threads}\n#else\n"
+            "#define SF_NT 1\n#endif", _PANEL_MACROS]
+
+
+def _thread_origins(widths) -> List[str]:
+    """A thread's first (jl, kl) in a region of each width: the one
+    division before the i-march (``_region_loop``)."""
+    return [f"  const int jl0_{w} = tid / {w}, kl0_{w} = tid - jl0_{w} * {w};"
+            for w in widths]
+
+
+def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
+    """cp.async of plane ``t_expr`` of every ring input in ``fields`` into
+    its ``slot(f)`` (synchronous stores for 1- and 2-byte types), zero
+    beyond the (j, k) domain; the arrays' planes are (J, K) (a chunk's
+    slabs too)."""
+    _, J, K = program.dimensions
+    out = []
+    for f in fields:
+        RJ, RK = plan.region(f)
+        hj, hk = plan.halo[f]
+        size = np.dtype(program.field_dtype(f)).itemsize
+        src = (f"g_{f} + (long long)({t_expr}) * {J * K}LL + "
+               f"(inb ? gj * {K} + gk : 0)")
+        dst = f"r_{f} + {slot(f)} * {RJ * RK} + p"
+        st = (f"sf_cp{size}({dst}, {src}, inb);" if size in (4, 8) else
+              f"*({dst}) = inb ? *({src}) : "
+              f"{literal(0, program.field_dtype(f))};")
+        out += _region_loop(RJ, RK, [
+            f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
+            f"const bool inb = gj >= 0 && gj < {J} && gk >= 0 && "
+            f"gk < {K};", st])
+    return out
+
+
+def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
+                                                          List[str]]:
+    """(prologue, the step's ingest) of K1's input planes: the prologue
+    puts the first AHEAD planes in flight; step t issues plane t + AHEAD
+    into its own slot, then waits for plane t and a barrier."""
+    from .panel import AHEAD
+    if not fields:
+        return [], []
+    pro = ["  // prologue: the first AHEAD planes in flight"]
+    for a in range(min(AHEAD, planes)):
+        pro += ["  " + y for y in _input_loads(
+            program, plan, fields, str(a),
+            lambda f, a=a: str(a % plan.slots(f)))] + ["  SF_CP_COMMIT();"]
+    step = ["    // plane t + AHEAD in flight, then wait for plane t",
+            f"    if (t + {AHEAD} < {planes}) {{"]
+    step += ["      " + y for y in _input_loads(
+        program, plan, fields, f"t + {AHEAD}",
+        lambda f: _slot(plan, f, -AHEAD))]
+    step += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();",
+             "    SF_SYNC();"]
+    return pro, step
+
+
+def _ring_reader(plan, s: str, RK: int, ptrs: Dict, xs: set, ringed):
+    """``onchip`` of ``read_expr`` for stage ``s`` over rings ``ringed``:
+    a read of field f at offset o is one load from the base ``b_f_d``
+    (ring slot of plane delta d, set once per stage and step: ``ptrs``)
+    at the thread's cell (``p``, or ``x<FK>`` for a region of another
+    width: ``xs``) plus a constant."""
+    def onchip(f):
+        if f not in ringed:
+            return lambda o: None
+        FK = plan.region(f)[1]
+        dj = plan.halo[f][0] - plan.halo[s][0]
+        dk = plan.halo[f][1] - plan.halo[s][1]
+
+        def at(o):
+            d = plan.lag[s] - o[0]
+            ptrs[f, d] = f"b_{f}_{d}"
+            x = "p" if FK == RK else f"x{FK}"
+            if FK != RK:
+                xs.add(FK)
+            return (f"b_{f}_{d}[{x} + {(dj + o[1]) * FK + dk + o[2]}]")
+        return at
+    return onchip
+
+
+def _ring_bases(program, plan, ptrs, ind: str) -> List[str]:
+    return [f"{ind}const {ctype(program.field_dtype(f))}* const {name} = "
+            f"r_{f} + {_slot(plan, f, d)} * {math.prod(plan.region(f))};"
+            for (f, d), name in sorted(ptrs.items())]
+
+
+def _cell_pre(hj: int, hk: int, xs) -> List[str]:
+    """A region loop's cell: global (gj, gk), and its flat index in
+    regions of other widths."""
+    return ([f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
+             "(void)gj; (void)gk;"]
+            + [f"const int x{w} = jl * {w} + kl;" for w in sorted(xs)])
+
+
+def _two_bodies(RJ: int, RK: int, pre, bodies, free: str,
+                ind: str) -> List[str]:
+    """The mask-free body where ``free`` holds (the block and step), the
+    masked one elsewhere, each a region loop."""
+    return ([f"{ind}if ({free}) {{  // mask-free"]
+            + [ind + "  " + y for y in _region_loop(RJ, RK, pre + bodies[0])]
+            + [f"{ind}}} else {{  // masked"]
+            + [ind + "  " + y for y in _region_loop(RJ, RK, pre + bodies[1])]
+            + [f"{ind}}}"])
 
 
 def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
@@ -510,12 +627,9 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
     ntj, ntk = plan.grid(dims)
     offs = plan.ring_offsets(program)
     params, args = _params(program)
-    from .panel import AHEAD, i_reach, reach
+    from .panel import i_reach, reach
     Hj, Hk = reach(program, plan)
-    # SF_NT: the threads of a block (one runs a block on the host)
-    L = [head, _STREAM_MACROS, f"#define SF_AHEAD {AHEAD}",
-         f"#ifdef __CUDACC__\n#define SF_NT {plan.threads}\n#else\n"
-         "#define SF_NT 1\n#endif", _PANEL_MACROS,
+    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + [
          "// panel streamer (backend/panel.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/panel.py _panel_kernel_body (K1)",
          "SF_DEV void sf_panel_block(const int by, const int bx, "
@@ -534,42 +648,11 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
                      for f in list(program.kernels) + list(plan.inputs)})
     counters = sorted({plan.slots(f) for f in plan.ring} - {1})
     L += [f"  int m{S} = 0;  // t mod {S}" for S in counters]
-
-    def load(t_expr: str, slot) -> List[str]:
-        """cp.async of plane ``t_expr`` of every ring input into its
-        ``slot(f)`` (synchronous stores for 1- and 2-byte types)."""
-        out = []
-        for f in plan.inputs:
-            RJ, RK = plan.region(f)
-            hj, hk = plan.halo[f]
-            size = np.dtype(program.field_dtype(f)).itemsize
-            src = (f"g_{f} + (long long)({t_expr}) * {J * K}LL + "
-                   f"(inb ? gj * {K} + gk : 0)")
-            dst = f"r_{f} + {slot(f)} * {RJ * RK} + p"
-            st = (f"sf_cp{size}({dst}, {src}, inb);" if size in (4, 8) else
-                  f"*({dst}) = inb ? *({src}) : "
-                  f"{literal(0, program.field_dtype(f))};")
-            out += _region_loop(RJ, RK, [
-                f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
-                f"const bool inb = gj >= 0 && gj < {J} && gk >= 0 && "
-                f"gk < {K};", st])
-        return out
-
-    L += [f"  const int jl0_{w} = tid / {w}, kl0_{w} = tid - jl0_{w} * {w};"
-          for w in widths]
-    if plan.inputs:
-        L.append("  // prologue: the first AHEAD planes in flight")
-        for a in range(min(AHEAD, I)):
-            L += ["  " + y for y in load(str(a), lambda f, a=a: str(
-                a % plan.slots(f)))] + ["  SF_CP_COMMIT();"]
+    L += _thread_origins(widths)
+    prologue, ingest = _ingest(program, plan, plan.inputs, I)
+    L += prologue
     L.append(f"  for (int t = 0; t < {plan.steps()}; ++t) {{")
-    if plan.inputs:
-        L += ["    // plane t + AHEAD in flight, then wait for plane t",
-              f"    if (t + {AHEAD} < {I}) {{"]
-        L += ["      " + y for y in load(
-            f"t + {AHEAD}", lambda f: _slot(plan, f, -AHEAD))]
-        L += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();",
-              "    SF_SYNC();"]
+    L += ingest
     for idx, s in enumerate(order):
         kspec = program.kernels[s]
         RJ, RK = plan.region(s)
@@ -577,23 +660,7 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
         lo, hi = i_reach(program, s)
         ptrs: Dict[Tuple[str, int], str] = {}
         xs = set()
-
-        def onchip(f, s=s, RK=RK, ptrs=ptrs, xs=xs):
-            if f not in plan.ring:
-                return lambda o: None
-            FK = plan.region(f)[1]
-            dj = plan.halo[f][0] - plan.halo[s][0]
-            dk = plan.halo[f][1] - plan.halo[s][1]
-
-            def at(o):
-                d = plan.lag[s] - o[0]
-                ptrs[f, d] = f"b_{f}_{d}"
-                x = "p" if FK == RK else f"x{FK}"
-                if FK != RK:
-                    xs.add(FK)
-                return (f"b_{f}_{d}[{x} + {(dj + o[1]) * FK + dk + o[2]}]")
-            return at
-
+        onchip = _ring_reader(plan, s, RK, ptrs, xs, plan.ring)
         bodies = []
         for masked in (False, True):
             body = _stage_call(program, kspec, idx, ("q", "gj", "gk"),
@@ -612,9 +679,6 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
                 body.append(f"if ({' && '.join(cond)}) {write}" if cond
                             else write)
             bodies.append(body)
-        pre = [f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
-               "(void)gj; (void)gk;"]
-        pre += [f"const int x{w} = jl * {w} + kl;" for w in sorted(xs)]
         L += [f"    {{  // stage {s}: {RJ} x {RK}",
               f"      const int q = t - {plan.lag[s]};",
               f"      if (q >= 0 && q < {I}) {{"]
@@ -622,36 +686,33 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
             ct = ctype(program.field_dtype(s))
             L.append(f"        {ct}* const w = r_{s} + "
                      f"{_slot(plan, s, plan.lag[s])} * {RJ * RK};")
-        for (f, d), name in sorted(ptrs.items()):
-            ct = ctype(program.field_dtype(f))
-            L.append(f"        const {ct}* const {name} = r_{f} + "
-                     f"{_slot(plan, f, d)} * {math.prod(plan.region(f))};")
-        free = f"inner && q >= {lo} && q < {I - hi}"
-        L.append(f"        if ({free}) {{  // mask-free")
-        L += ["          " + y for y in _region_loop(RJ, RK,
-                                                      pre + bodies[0])]
-        L.append("        } else {  // masked")
-        L += ["          " + y for y in _region_loop(RJ, RK,
-                                                      pre + bodies[1])]
-        L += ["        }", "        SF_SYNC();", "      }", "    }"]
+        L += _ring_bases(program, plan, ptrs, "        ")
+        L += _two_bodies(RJ, RK, _cell_pre(hj, hk, xs), bodies,
+                         f"inner && q >= {lo} && q < {I - hi}", "        ")
+        L += ["        SF_SYNC();", "      }", "    }"]
     L += [f"    m{S} = sf_wrap(m{S} + 1, {S});" for S in counters]
     L += ["  }", "}"]
     L += _entry_points(program, "sf_panel", params, args, (ntj, ntk),
                        plan.smem_bytes(program), slots,
                        min_blocks=plan.min_blocks(program),
                        threads=plan.threads)
-    L += ["#ifdef __CUDACC__",
-          "// resident blocks per SM at this shared memory",
-          'extern "C" int sf_occupancy(int* blocks) {',
-          "  cudaError_t e = cudaFuncSetAttribute(sf_panel, "
-          "cudaFuncAttributeMaxDynamicSharedMemorySize, "
-          f"{plan.smem_bytes(program)});",
-          "  if (e != cudaSuccess) return (int)e;",
-          "  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor("
-          f"blocks, sf_panel, {plan.threads}, "
-          f"{plan.smem_bytes(program)});",
-          "}", "#endif"]
+    L += _occupancy(plan.smem_bytes(program), plan.threads)
     return "\n".join(L)
+
+
+def _occupancy(smem: int, threads: int, kernel: str = "sf_panel"
+               ) -> List[str]:
+    return ["#ifdef __CUDACC__",
+            "// resident blocks per SM at this shared memory",
+            'extern "C" int sf_occupancy(int* blocks) {',
+            f"  cudaError_t e = cudaFuncSetAttribute({kernel}, "
+            "cudaFuncAttributeMaxDynamicSharedMemorySize, "
+            f"{smem});",
+            "  if (e != cudaSuccess) return (int)e;",
+            "  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor("
+            f"blocks, {kernel}, {threads}, "
+            f"{smem});",
+            "}", "#endif"]
 
 
 def overlap_source(program: ir.Program, analysis: ChainAnalysis,
@@ -805,6 +866,170 @@ def _param_names(params: str) -> str:
     return ", ".join(p.split()[-1] for p in params.split(", "))
 
 
+# the band passes' warp-level product on tensor cores (K3b under
+# mxu_precision="split"): one 16 x 8 output tile of D = X . B, X read from
+# shared memory with any strides (a k-pass's source rows, or a j-pass's
+# source columns: the j-pass runs transposed), B the band (tap m - n of
+# output n) from a weight vector (w_cs 0) or a table window (w_ts the
+# window's width, w_cs 1); X and B zero outside their extents.  Both
+# operands split into TF32 hi = cvt.rna(v) and lo = cvt.rna(v - hi), three
+# products a k-step of 8 (lo.hi + hi.lo + hi.hi) with f32 accumulation.
+# The host version computes the same three products per element (one
+# thread runs every tile there).
+_MMA_MACROS = """#ifdef __CUDACC__
+SF_DEV unsigned sf_tf32(const float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+SF_DEV void sf_mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                        const unsigned (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                 "r"(b[0]), "r"(b[1]));
+}
+template <int KS>
+SF_DEV void sf_mma_band(float* const d, const int d_rs, const int d_cs,
+                        const int d_rows, const int d_cols,
+                        const float* const x, const int x_rs, const int x_cs,
+                        const int x_rows, const int x_cols,
+                        const float* const w, const int w_ts, const int w_cs,
+                        const int taps, const int lane) {
+  const int g = lane >> 2, c = lane & 3;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int m0 = 8 * s + c, m1 = m0 + 4;
+    const float av[4] = {
+        (g < x_rows && m0 < x_cols) ? x[g * x_rs + m0 * x_cs] : 0.0f,
+        (g + 8 < x_rows && m0 < x_cols) ? x[(g + 8) * x_rs + m0 * x_cs] : 0.0f,
+        (g < x_rows && m1 < x_cols) ? x[g * x_rs + m1 * x_cs] : 0.0f,
+        (g + 8 < x_rows && m1 < x_cols) ? x[(g + 8) * x_rs + m1 * x_cs]
+                                        : 0.0f};
+    const int t0 = m0 - g, t1 = m1 - g;
+    const float bv[2] = {
+        (t0 >= 0 && t0 < taps) ? w[t0 * w_ts + g * w_cs] : 0.0f,
+        (t1 >= 0 && t1 < taps) ? w[t1 * w_ts + g * w_cs] : 0.0f};
+    unsigned ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = sf_tf32(av[i]);
+      al[i] = sf_tf32(av[i] - __uint_as_float(ah[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      bh[i] = sf_tf32(bv[i]);
+      bl[i] = sf_tf32(bv[i] - __uint_as_float(bh[i]));
+    }
+    sf_mma_tf32(acc, al, bh);
+    sf_mma_tf32(acc, ah, bl);
+    sf_mma_tf32(acc, ah, bh);
+  }
+  const int n0 = 2 * c, n1 = n0 + 1;
+  if (g < d_rows && n0 < d_cols) d[g * d_rs + n0 * d_cs] = acc[0];
+  if (g < d_rows && n1 < d_cols) d[g * d_rs + n1 * d_cs] = acc[1];
+  if (g + 8 < d_rows && n0 < d_cols) d[(g + 8) * d_rs + n0 * d_cs] = acc[2];
+  if (g + 8 < d_rows && n1 < d_cols) d[(g + 8) * d_rs + n1 * d_cs] = acc[3];
+}
+#else
+// cvt.rna.tf32.f32: round to 10 mantissa bits, ties away from zero
+SF_DEV float sf_tf32h(const float v) {
+  unsigned u;
+  memcpy(&u, &v, 4);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0x1000u) & 0xffffe000u;
+  float r;
+  memcpy(&r, &u, 4);
+  return r;
+}
+template <int KS>
+SF_DEV void sf_mma_band(float* const d, const int d_rs, const int d_cs,
+                        const int d_rows, const int d_cols,
+                        const float* const x, const int x_rs, const int x_cs,
+                        const int x_rows, const int x_cols,
+                        const float* const w, const int w_ts, const int w_cs,
+                        const int taps, const int lane) {
+  (void)lane;
+  for (int r = 0; r < 16 && r < d_rows; ++r)
+    for (int n = 0; n < 8 && n < d_cols; ++n) {
+      float acc = 0.0f;
+      for (int m = 0; m < 8 * KS; ++m) {
+        const float a = (r < x_rows && m < x_cols) ? x[r * x_rs + m * x_cs]
+                                                   : 0.0f;
+        const int tp = m - n;
+        const float b = (tp >= 0 && tp < taps) ? w[tp * w_ts + n * w_cs]
+                                               : 0.0f;
+        const float ah = sf_tf32h(a), al = sf_tf32h(a - ah);
+        const float bh = sf_tf32h(b), bl = sf_tf32h(b - bh);
+        acc = acc + al * bh;
+        acc = acc + ah * bl;
+        acc = acc + ah * bh;
+      }
+      d[r * d_rs + n * d_cs] = acc;
+    }
+}
+#endif
+"""
+
+
+def mma_probe_source(ksteps=(2, 5, 6)) -> str:
+    """``sf_mma_band`` alone, for the tests: ``int sf_mma_probe(x, w, d,
+    x_rs, x_cs, x_rows, x_cols, w_ts, w_cs, taps, ks, stream)`` runs one
+    warp on the card over device arrays (one 16 x 8 tile, X of 16 x 8 ks
+    and the band as ``sf_mma_band`` takes them); g++ builds
+    ``sf_mma_probe_host`` with the same arguments (host arrays, no
+    stream) around the host version."""
+    cases = "".join(f"    case {k}: CALL({k}); break;\n" for k in ksteps)
+    args = ("d, 8, 1, 16, 8, x, x_rs, x_cs, x_rows, x_cols, w, w_ts, "
+            "w_cs, taps")
+    return (prelude() + _STREAM_MACROS + _MMA_MACROS + f"""
+#define SF_PROBE_ARGS const float* x, const float* w, float* d, \\
+    int x_rs, int x_cs, int x_rows, int x_cols, int w_ts, int w_cs, \\
+    int taps, int ks
+#ifdef __CUDACC__
+template <int KS>
+__global__ void sf_mma_probe_kernel(const float* x, const float* w,
+                                    float* d, int x_rs, int x_cs,
+                                    int x_rows, int x_cols, int w_ts,
+                                    int w_cs, int taps) {{
+  sf_mma_band<KS>({args}, threadIdx.x);
+}}
+#define CALL(K) sf_mma_probe_kernel<K><<<1, 32, 0, (cudaStream_t)stream>>>(\\
+    x, w, d, x_rs, x_cs, x_rows, x_cols, w_ts, w_cs, taps)
+extern "C" int sf_mma_probe(SF_PROBE_ARGS, void* stream) {{
+  switch (ks) {{
+{cases}    default: return -1;
+  }}
+  return (int)cudaGetLastError();
+}}
+#else
+#define CALL(K) sf_mma_band<K>({args}, 0)
+extern "C" int sf_mma_probe_host(SF_PROBE_ARGS) {{
+  switch (ks) {{
+{cases}    default: return -1;
+  }}
+  return 0;
+}}
+#endif
+""")
+
+
+def _tile_loop(NR: int, NC: int, body: List[str]) -> List[str]:
+    """The warps of a block over an NR x NC grid of tiles in row-major
+    order, as ``_region_loop`` walks cells: a warp's first tile (tr, tc)
+    from one division before the i-march, later ones by constant
+    steps."""
+    return ["{",
+            f"  int tr = tr0_{NC}, tc = tc0_{NC};",
+            "#pragma unroll 1",
+            f"  for (int w = warp; w < {NR * NC}; w += SF_NW) {{"] \
+        + ["    " + b for b in body] \
+        + [f"    tc += SF_NW % {NC};", f"    tr += SF_NW / {NC};",
+           f"    if (tc >= {NC}) {{ tc -= {NC}; ++tr; }}", "  }", "}"]
+
+
 class _StreamEmitter:
     """The block body of the stream kernel for one StreamPlan."""
 
@@ -816,47 +1041,36 @@ class _StreamEmitter:
         self.pidx = {k: i for i, (k, _) in enumerate(plan.kernel_pool())}
         self.tidx = {t: n for n, t in enumerate(plan.tkeys)}
         self.n_otf = 0
+        self.widths = set()     # widths of the region loops
+        self.tiles = set()      # column counts of the tile loops
+        self.routes = set()     # the band passes' routes
+        self.vectors = set()    # bands whose weight vector is written
 
     def glob(self, pexpr: str) -> str:
         """Global index of plane ``pexpr`` (a local kernel's plane 0 is
         global plane ``origin_i``)."""
         return f"(origin_i + {pexpr})" if self.plan.block else pexpr
 
-    def raw(self, f, s, pexpr, o=(0, 0)) -> str:
-        """Raw plane ``pexpr`` of field ``f`` at the cell (jl, kl) of stage
-        ``s``'s region, shifted by (j, k) offset ``o``.  A ring slot is
-        taken modulo its depth for any plane ``pexpr`` >= -depth (a local
-        kernel reads planes before its chunk's first for non-core cells)."""
-        plan, program = self.plan, self.program
-        if f in program.inputs and program.inputs[f].is_scalar:
+    def tslot(self, tkey, d: int) -> str:
+        """Slot of ``tkey``'s transform ring holding plane t - d at step
+        t (its depth's counter)."""
+        return _slot_of(self.plan.tring[tkey], d)
+
+    def raw(self, f, pexpr) -> str:
+        """Raw plane ``pexpr`` of a field without a ring (a lower-rank
+        input) at the stage's cell."""
+        if f in self.program.inputs and self.program.inputs[f].is_scalar:
             return f"sc.x{self.slots[f]}"
-        if f in plan.raw_ring:
-            FJ, FK = plan.region(f)
-            D = plan.raw_ring[f]
-            dj = plan.halo[f][0] - plan.halo[s][0] + o[0]
-            dk = plan.halo[f][1] - plan.halo[s][1] + o[1]
-            return (f"r_{f}[((({pexpr}) + {D}) % {D}) * {FJ * FK}"
-                    f" + (jl + {dj}) * {FK} + kl + {dk}]")
-        mask = program.field_dim_mask(f)
-        c = (pexpr, f"(gj + {o[0]})", f"(gk + {o[1]})")
+        mask = self.program.field_dim_mask(f)
+        c = (pexpr, "(gj + 0)", "(gk + 0)")
         return (f"(({_inb(mask, c, self.adims)}) ? g_{f}"
                 f"[{_flat(mask, c, self.adims)}] : 0.0f)")
 
-    def transformed(self, tkey, s, pexpr, pre: List[str]) -> str:
-        """Transformed plane ``pexpr`` of ``tkey`` at stage ``s``'s cell:
-        from its ring, the raw plane (no band), or summed on the fly
-        (fields without a ring; statements appended to ``pre``)."""
+    def otf(self, tkey, pexpr, pre: List[str]) -> str:
+        """Transformed plane ``pexpr`` of a field without a ring, summed
+        on the fly from device memory (statements appended to ``pre``)."""
         plan = self.plan
         f, lkey, rkey = tkey
-        if tkey in self.tidx:
-            TJ, TK = plan.region(tkey)
-            D = plan.tring[tkey]
-            dj = plan.thalo[tkey][0] - plan.halo[s][0]
-            dk = plan.thalo[tkey][1] - plan.halo[s][1]
-            return (f"t{self.tidx[tkey]}[((({pexpr}) + {D}) % {D})"
-                    f" * {TJ * TK} + (jl + {dj}) * {TK} + kl + {dk}]")
-        if lkey is None and rkey is None:
-            return self.raw(f, s, pexpr)
         _, J, K = self.dims
         mask = self.program.field_dim_mask(f)
         v = f"tv{self.n_otf}"
@@ -891,138 +1105,487 @@ class _StreamEmitter:
         pre += ["  }", "}"]
         return v
 
-    def banded(self, s) -> List[str]:
-        """Statements computing ``const float r`` for banded stage ``s``."""
+    def tread(self, tkey, s, d: int, RK: int, tptrs, xs, pre) -> str:
+        """Transformed plane t - ``d`` of ``tkey`` at stage ``s``'s cell:
+        its plane of the step, its ring's slot base (``tptrs``), or, for a
+        ``fused`` transform, its j-pass summed here (statements appended
+        to ``pre``)."""
+        plan = self.plan
+        n = self.tidx[tkey]
+        TJ, TK = plan.region(tkey)
+        dj = plan.thalo[tkey][0] - plan.halo[s][0]
+        dk = plan.thalo[tkey][1] - plan.halo[s][1]
+        x = "p" if TK == RK else f"x{TK}"
+        if TK != RK:
+            xs.add(TK)
+        if plan.fused(tkey):
+            # the j-pass at this cell: the j-band's taps of the scratch
+            info = plan.band_info(tkey[1], "L")
+            bj = plan.reach(tkey[1], "L")
+            v = f"tj{self.n_otf}"
+            self.n_otf += 1
+            pre.append(f"float {v} = 0.0f;")
+            pre += [f"{v} = fmaf({literal(np.float32(w), np.float32)}, "
+                    f"u{n}[{x} + {(dj + bj + d) * TK + dk}], {v});"
+                    for d, w in zip(info.offsets, info.w) if w != 0]
+            return v
+        if tkey in plan.instep:
+            base = f"tp{n}"
+        else:
+            base = f"tb{n}_{d}"
+            tptrs[base] = f"t{n} + {self.tslot(tkey, d)} * {TJ * TK}"
+        return f"{base}[{x} + {dj * TK + dk}]"
+
+    def banded(self, s, masked: bool, onchip, tptrs, xs) -> List[str]:
+        """Statements computing ``const float r`` for banded stage ``s``,
+        mask-free (every group's plane inside [0, I), the cell inside the
+        (j, k) domain, a composed stage's interior i-weights as literals)
+        or masked."""
         from .compose import ComposedPlan
         plan, mp = self.plan, self.plan.mxu_plans[s]
         I, J, K = self.dims
+        RK = plan.region(s)[1]
         f32 = np.float32
         L = ["float acc = 0.0f;"]
         if isinstance(mp, ComposedPlan):
+            tkey = (mp.field, mp.lkey, mp.rkey)
             D, rows = mp.D, mp.table_rows
-            row = "q" if mp.full_table else (
-                f"(q < {D} ? q : (q >= {I - D} ? {rows - I} + q : {D}))")
-            L.append(f"const int row = sf_clamp({row}, {rows});")
-            ncol = len(mp.offsets)
-            tab = f"pc{self.pidx[mp.table_key]}"
+            tab = plan.pool[mp.table_key]
+            TJ, TK = plan.region(tkey)
+            # the planes q + d, d ascending, sit in consecutive slots of
+            # the mirrored ring from the first one's on
+            first = self.tread(tkey, s, plan.lag[s] - mp.offsets[0], RK,
+                               tptrs, xs, [])
+            base, cell = first[:first.index("[")], first[
+                first.index("[") + 1:-1].split(" + ")
+            if masked:
+                row = "q" if mp.full_table else (
+                    f"(q < {D} ? q : (q >= {I - D} ? {rows - I} + q : {D}))")
+                L.append(f"const int row = sf_clamp({row}, {rows});")
+            w_in = tab[min(D, rows - 1)]
             for idx, d in enumerate(mp.offsets):
-                pre: List[str] = []
-                val = self.transformed((mp.field, mp.lkey, mp.rkey), s,
-                                       "pi", pre)
-                L += ["{", f"  const int pi = q + {d};",
-                      f"  if (pi >= 0 && pi < {I}) {{"]
-                L += ["    " + x for x in pre]
-                L += [f"    acc = acc + ({val}) * SF_LDG({tab} + row * "
-                      f"{ncol} + {idx});", "  }", "}"]
+                v = f"{base}[{cell[0]} + {int(cell[1]) + idx * TJ * TK}]"
+                if masked:
+                    L.append(f"if (q + {d} >= 0 && q + {d} < {I}) acc = "
+                             f"fmaf({v}, SF_LDG(pc{self.pidx[mp.table_key]}"
+                             f" + row * {len(mp.offsets)} + {idx}), acc);")
+                elif w_in[idx] != 0:
+                    L.append(f"acc = fmaf({v}, "
+                             f"{literal(f32(w_in[idx]), f32)}, acc);")
             L.append("const float r = acc;")
             return L
         for grp in mp.groups:
             pexpr = "q" if grp.oi is None else "pi"
             L.append("{")
             if grp.oi is not None:
+                L.append(f"  const int pi = q + {grp.oi};  (void)pi;")
+            if grp.oi is not None and masked:
                 gpi = self.glob("pi")
-                L += [f"  const int pi = q + {grp.oi};", "  float part;",
+                L += ["  float part;",
                       f"  if ({gpi} < 0 || {gpi} >= {I}) part = "
                       f"{literal(f32(grp.bc_value * grp.weight_sum), f32)};",
                       "  else {"]
             else:
                 L += ["  float part;", "  {"]
-            for n, term in enumerate(grp.terms):
+            for n_, term in enumerate(grp.terms):
+                tkey = (grp.field, term.left_key, term.right_key)
                 pre: List[str] = []
-                val = self.transformed((grp.field, term.left_key,
-                                        term.right_key), s, pexpr, pre)
-                if (term.left_key is None and term.right_key is None
-                        or term.scale != 1.0):
-                    val = f"({val}) * {literal(f32(term.scale), f32)}"
+                ident = term.left_key is None and term.right_key is None
+                if tkey in self.tidx:
+                    val = self.tread(tkey, s, plan.lag[s] - (grp.oi or 0),
+                                     RK, tptrs, xs, pre)
+                elif ident and grp.field in plan.raw_ring:
+                    val = onchip(grp.field)((grp.oi or 0, 0, 0))
+                elif ident:
+                    val = self.raw(grp.field, pexpr)
+                else:
+                    val = self.otf(tkey, pexpr, pre)
                 L += ["    " + x for x in pre]
-                L.append(f"    part = {val};" if n == 0 else
-                         f"    part = part + {val};")
+                scaled = ident or term.scale != 1.0
+                sc = literal(f32(term.scale), f32)
+                if n_ == 0:
+                    L.append(f"    part = ({val}) * {sc};" if scaled else
+                             f"    part = {val};")
+                else:
+                    L.append(f"    part = fmaf({val}, {sc}, part);" if scaled
+                             else f"    part = part + {val};")
             if grp.correction_key is not None:
                 c = f"pc{self.pidx[grp.correction_key]}"
-                L.append(f"    part = part + ((gj >= 0 && gj < {J} && gk >= 0"
-                         f" && gk < {K}) ? SF_LDG({c} + gj * {K} + gk) : "
-                         "0.0f);")
+                if masked:
+                    L.append(f"    part = part + ((gj >= 0 && gj < {J} && "
+                             f"gk >= 0 && gk < {K}) ? SF_LDG({c} + gj * {K}"
+                             " + gk) : 0.0f);")
+                else:
+                    L.append(f"    part = part + SF_LDG({c} + gj * {K} + "
+                             "gk);")
             L += ["  }", "  acc = acc + part;", "}"]
         if mp.bias:
             L.append(f"acc = acc + {literal(f32(mp.bias), f32)};")
         L.append("const float r = acc;")
         return L
 
-    def transform(self, tkey, pexpr) -> List[str]:
-        """Fill the transform ring of ``tkey`` for plane ``pexpr`` of its
-        field (raw ring slot): k-pass, then j-pass, with barriers."""
+    # -- the band passes -----------------------------------------------------
+    def band_setup(self, tkey, side: str, off) -> List[str]:
+        """The block's copies of the band of ``tkey``'s ``side`` pass
+        (``off``: the layout's offsets): its weight vector (written once
+        per band) and its table window, and, for a band with
+        non-Toeplitz columns, the block's flag ``tb<n><side>``: does the
+        pass meet them?"""
+        plan = self.plan
+        n = self.tidx[tkey]
+        key = tkey[2] if side == "R" else tkey[1]
+        info = plan.band_info(key, side)
+        vec, tab = plan.band_floats(tkey, side)
+        name = f"{n}{side}"
+        L = []
+        if vec:
+            L.append(f"  float* const bv{name} = (float*)(sf_smem + "
+                     f"{off['bvec', key, side]});")
+            if (key, side) not in self.vectors:
+                self.vectors.add((key, side))
+                L += ["  if (tid == 0) {"] + [
+                    f"    bv{name}[{i}] = "
+                    f"{literal(np.float32(w), np.float32)};"
+                    for i, w in enumerate(info.w)] + ["  }"]
+        if tab:
+            htj, htk = plan.thalo[tkey]
+            width = tab // info.taps
+            base = f"k0 - {htk}" if side == "R" else f"j0 - {htj}"
+            L += [f"  float* const bt{name} = (float*)(sf_smem + "
+                  f"{off['btab', tkey, side]});",
+                  f"  for (int d = 0; d < {info.taps}; ++d)",
+                  f"    for (int x = tid; x < {width}; x += SF_NT) {{",
+                  f"      const int g = {base} + x;",
+                  f"      bt{name}[d * {width} + x] = (g >= 0 && g < "
+                  f"{info.n}) ? SF_LDG(pc{self.pidx[key]} + d * {info.n} + "
+                  f"g) : 0.0f;", "    }",
+                  f"  const bool tb{name} = !({base} >= {info.lo} && "
+                  f"{base} + {width} <= {info.hi}) && !({base} + {width} "
+                  f"<= 0 || {base} >= {info.n});"]
+        return L
+
+    def mirror(self, tkey) -> List[str]:
+        """The second copy of the step's plane of a ``mirrored`` ring that
+        a tensor-core pass wrote."""
+        plan = self.plan
+        n = self.tidx[tkey]
+        TJ, TK = plan.region(tkey)
+        S = plan.tring[tkey]
+        slot = self.tslot(tkey, plan.lag[tkey[0]])
+        self.widths.add(TK)
+        return ([f"if ({slot} < {S - 1}) {{  // mirror of transform {n}",
+                 f"  float* const so = t{n} + {slot} * {TJ * TK};"]
+                + ["  " + x for x in _region_loop(TJ, TK, [
+                    f"so[p + {S * TJ * TK}] = so[p];"])] + ["}"])
+
+    def fused_kpass(self, tkeys) -> List[str]:
+        """The k-passes of ``fused`` transforms of one source plane and
+        shape into their scratch tiles: one loop, each source value read
+        once for every band (literal Toeplitz weights, CUDA cores)."""
+        plan = self.plan
+        f = tkeys[0][0]
+        FJ, FK = plan.region(f)
+        htj, htk = plan.thalo[tkeys[0]]
+        oj, ok = plan.halo[f][0] - htj, plan.halo[f][1] - htk
+        rows, cols = plan.scratch_shape(tkeys[0])
+        roff = oj - plan.reach(tkeys[0][1], "L")
+        raw = f"r_{f} + {_slot(plan, f, plan.instep[tkeys[0]])} * {FJ * FK}"
+        self.widths.add(cols)
+        self.routes.add("fma")
+        names = [self.tidx[t] for t in tkeys]
+        body = [f"const float* const sr = sx + (jl + {roff}) * {FK} + kl + "
+                f"{ok};"] + [f"float s{n} = 0.0f;" for n in names]
+        infos = [plan.band_info(t[2], "R") for t in tkeys]
+        for d in sorted({d for i in infos for d in i.offsets}):
+            for n, info in zip(names, infos):
+                if d in info.offsets and info.w[d - info.offsets[0]] != 0:
+                    w = info.w[d - info.offsets[0]]
+                    body.append(f"s{n} = fmaf("
+                                f"{literal(np.float32(w), np.float32)}, "
+                                f"sr[{d}], s{n});")
+        body += [f"u{n}[p] = s{n};" for n in names]
+        return ([f"{{  // k-passes of transforms "
+                 f"{', '.join(map(str, names))}: {f} (CUDA cores; their "
+                 "j-passes run in their readers)",
+                 f"  const float* const sx = {raw};"]
+                + ["  " + x for x in _region_loop(rows, cols, body)] + ["}"])
+
+    def tpass(self, tkey, side: str) -> List[str]:
+        """``tkey``'s pass along ``side``'s axis ("R": the k-pass, into
+        the scratch of a two-sided transform; "L": the j-pass) for the
+        step's plane of the transform: one fmaf a tap on CUDA cores
+        (literal Toeplitz weights, the block's table window where the
+        band is not Toeplitz), or ``sf_mma_band`` tiles on tensor cores.
+        The source planes hold 0 beyond the domain, so no read is
+        masked."""
         plan = self.plan
         f, lkey, rkey = tkey
-        _, J, K = self.dims
         n = self.tidx[tkey]
         FJ, FK = plan.region(f)
         TJ, TK = plan.region(tkey)
         htj, htk = plan.thalo[tkey]
-        oj = plan.halo[f][0] - htj
-        ok = plan.halo[f][1] - htk
-        L = [f"{{  // transform {n}: {f} (L {lkey}, R {rkey})",
-             f"  const float* const src = r_{f} + (({pexpr}) % "
-             f"{plan.raw_ring[f]}) * {FJ * FK};",
-             f"  float* const dst = t{n} + (({pexpr}) % {plan.tring[tkey]})"
-             f" * {TJ * TK};"]
-
-        def kpass(out, rows, row_off):
-            offs = plan.band(rkey, "R")[0]
-            d0, d1 = offs[0], offs[-1]
-            c = f"pc{self.pidx[rkey]}"
-            return [f"  for (int c = tid; c < {rows * TK}; c += nt) {{",
-                    f"    const int jr = c / {TK}, kl = c - jr * {TK};",
-                    f"    const int gk = k0 - {htk} + kl;",
-                    "    float s = 0.0f;",
-                    f"    if (gk >= 0 && gk < {K}) {{",
-                    f"      const float* const row = src + (jr + {row_off})"
-                    f" * {FK} + kl + {ok};",
-                    f"      for (int d = {d0}; d <= {d1}; ++d) {{",
-                    "        const int sk = gk + d;",
-                    f"        if (sk >= 0 && sk < {K}) s = s + SF_LDG({c} + "
-                    f"(d - ({d0})) * {K} + gk) * row[d];",
-                    "      }", "    }", f"    {out}[c] = s;", "  }",
-                    "  SF_SYNC();"]
-
-        def jpass(inp, stride, col_off, row_off):
-            offs = plan.band(lkey, "L")[0]
-            d0, d1 = offs[0], offs[-1]
-            c = f"pc{self.pidx[lkey]}"
-            return [f"  for (int c = tid; c < {TJ * TK}; c += nt) {{",
-                    f"    const int jl = c / {TK}, kl = c - jl * {TK};",
-                    f"    const int gj = j0 - {htj} + jl;",
-                    "    float s = 0.0f;",
-                    f"    if (gj >= 0 && gj < {J}) {{",
-                    f"      const float* const col = {inp} + (jl + {row_off})"
-                    f" * {stride} + kl + {col_off};",
-                    f"      for (int d = {d0}; d <= {d1}; ++d) {{",
-                    "        const int sj = gj + d;",
-                    f"        if (sj >= 0 && sj < {J}) s = s + SF_LDG({c} + "
-                    f"(d - ({d0})) * {J} + gj) * col[d * {stride}];",
-                    "      }", "    }", "    dst[c] = s;", "  }",
-                    "  SF_SYNC();"]
-
-        if lkey is not None and rkey is not None:
-            bj = plan.reach(lkey, "L")
-            L += kpass("sf_u", TJ + 2 * bj, oj - bj)
-            L += jpass("sf_u", TK, 0, bj)
-        elif rkey is not None:
-            L += kpass("dst", TJ, oj)
+        oj, ok = plan.halo[f][0] - htj, plan.halo[f][1] - htk
+        key = rkey if side == "R" else lkey
+        info = plan.band_info(key, side)
+        d0, taps = info.offsets[0], info.taps
+        two = lkey is not None and rkey is not None
+        route = plan.route(key, side)
+        self.routes.add(route)
+        dsrc = plan.instep.get(tkey, plan.lag[f])
+        raw = f"r_{f} + {_slot(plan, f, dsrc)} * {FJ * FK}"
+        out = f"tp{n}" if tkey in plan.instep else \
+            f"t{n} + {self.tslot(tkey, plan.lag[f])} * {TJ * TK}"
+        name = f"{n}{side}"
+        if side == "R":
+            rows, cols = plan.pass_shape(tkey, "R")
+            src, stride = raw, FK
+            roff = oj - plan.reach(lkey, "L") if two else oj
+            coff, srows = ok, FJ
+            if two:
+                out = f"u{n}"
         else:
-            L += jpass("src", FK, ok, oj)
+            rows, cols = TJ, TK
+            if two:
+                src, stride, roff, coff = f"u{n}", TK, plan.reach(lkey, "L"), 0
+                srows = plan.scratch_shape(tkey)[0]
+            else:
+                src, stride, roff, coff, srows = raw, FK, oj, ok, FJ
+        L = [f"{{  // {'k' if side == 'R' else 'j'}-pass of transform {n}: "
+             f"{f} ({taps} taps, {'tensor' if route == 'mma' else 'CUDA'} "
+             "cores)",
+             f"  const float* const sx = {src};",
+             f"  float* const so = {out};"]
+        # a mirrored ring's plane also goes to slot s + S (s < S - 1)
+        mirror = (plan.mirrored(tkey) and route == "fma"
+                  and (side == "L" or not two))
+        if mirror:
+            S = plan.tring[tkey]
+            L.append(f"  const bool mir = {self.tslot(tkey, plan.lag[f])} "
+                     f"< {S - 1};")
+        width = cols if side == "R" else TJ
+        if route == "fma":
+            self.widths.add(cols)
+
+            def body(table: bool) -> List[str]:
+                at = (f"sx + (jl + {roff}) * {stride} + kl + {coff}")
+                b = [f"const float* const sr = {at};", "float s = 0.0f;"]
+                for i, d in enumerate(info.offsets):
+                    step = d if side == "R" else d * stride
+                    if table:
+                        pos = "kl" if side == "R" else "jl"
+                        b.append(f"s = fmaf(bt{name}[{i * width} + {pos}], "
+                                 f"sr[{step}], s);")
+                    elif info.w[i] != 0:
+                        b.append(f"s = fmaf({literal(np.float32(info.w[i]), np.float32)}, "
+                                 f"sr[{step}], s);")
+                return b + ["so[p] = s;"] + (
+                    [f"if (mir) so[p + {S * TJ * TK}] = s;"] if mirror
+                    else [])
+            lit = _region_loop(rows, cols, body(False))
+            if info.toeplitz:
+                L += ["  " + x for x in lit]
+            else:
+                L += [f"  if (tb{name}) {{"] + ["    " + x for x in
+                                                _region_loop(rows, cols,
+                                                             body(True))] \
+                    + ["  } else {"] + ["    " + x for x in lit] + ["  }"]
+            L.append("}")
+            return L
+        from .stream import mma_ksteps
+        ks = mma_ksteps(taps)
+        if info.toeplitz:
+            band = f"bv{name}, 1, 0"
+        else:
+            band = (f"tb{name} ? bt{name} + {'c0' if side == 'R' else 'r0'}"
+                    f" : bv{name}, tb{name} ? {width} : 1, tb{name} ? 1 : 0")
+        if side == "R":
+            NR, NC = -(-rows // 16), -(-cols // 8)
+            body = ["const int r0 = tr * 16, c0 = tc * 8;",
+                    f"sf_mma_band<{ks}>(so + r0 * {cols} + c0, {cols}, 1, "
+                    f"{rows} - r0, {cols} - c0,",
+                    f"    sx + (r0 + {roff}) * {stride} + c0 + {coff + d0}, "
+                    f"{stride}, 1, {rows} - r0, {stride - coff - d0} - c0,",
+                    f"    {band}, {taps}, lane);"]
+        else:   # transposed: 16 columns by 8 rows a tile
+            NR, NC = -(-cols // 16), -(-rows // 8)
+            body = ["const int c0 = tr * 16, r0 = tc * 8;",
+                    f"sf_mma_band<{ks}>(so + r0 * {cols} + c0, 1, {cols}, "
+                    f"{cols} - c0, {rows} - r0,",
+                    f"    sx + (r0 + {roff + d0}) * {stride} + c0 + {coff}, "
+                    f"1, {stride}, {cols} - c0, {srows - roff - d0} - r0,",
+                    f"    {band}, {taps}, lane);"]
+        self.tiles.add(NC)
+        L += ["  " + x for x in _tile_loop(NR, NC, body)]
         L.append("}")
         return L
 
 
+def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
+                        params: str) -> List[str]:
+    """The block body of an on-chip plan (K3a/K3b, K4): K1's skeleton —
+    ring slots from per-step counters, a thread's cell from one division
+    before the march, the mask-free or the masked stage body per block
+    and step (in local mode mask-free only where the chunk's global
+    planes lie inside [0, I)), ring inputs loaded a step ahead with
+    cp.async — over the phases of ``plan.schedule``, each closed by a
+    barrier, with shared memory as ``pack_layout`` places it."""
+    from .panel import i_reach
+    I, J, K = program.dimensions
+    local = bool(plan.block)
+    Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
+    tj, tk = plan.tile
+    off = plan.spill_layout(ahead=False).offset
+    ring_inputs = [f for f in plan.raw_ring if f in program.inputs]
+    sources = {t[0] for t in plan.tkeys}
+    Hj, Hk = plan.inner_reach()
+    L = ["// stream streamer (backend/stream.py): replaces the TPU kernel "
+         "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
+         "cell stages, K3b banded transforms)" + (
+             "; local chunk kernel K4, as built by compile_local_stream "
+             f"(chunk of {Ic} + 2 x {h} planes)" if local else ""),
+         "#define SF_NW (SF_NT >= 32 ? SF_NT / 32 : 1)",
+         f"SF_DEV void {kernel}_block(const int by, const int bx, "
+         "const int tid, const int nt, unsigned char* const sf_smem, "
+         f"{params}) {{",
+         "  (void)nt;",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};",
+         "  const int warp = tid >> 5, lane = tid & 31;",
+         "  (void)warp; (void)lane;",
+         "  // every cell and read of the block inside the (j, k) domain",
+         f"  const bool inner = j0 >= {Hj} && j0 + {tj + Hj} <= {J} && "
+         f"k0 >= {Hk} && k0 + {tk + Hk} <= {K};",
+         "  (void)inner;"]
+    for f in plan.raw_ring:
+        ct = ctype(program.field_dtype(f))
+        at = off[f] if f in off else off["ring", f]
+        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {at});")
+    for t in plan.tkeys:
+        n = em.tidx[t]
+        for kind, name in (("tring", "t"), ("tplane", "tp"),
+                           ("scratch", "u")):
+            if (kind, t) in off:
+                L.append(f"  float* const {name}{n} = (float*)(sf_smem + "
+                         f"{off[kind, t]});")
+    setup = []
+    for e in plan.schedule:
+        if e[0] == "pass":
+            setup += em.band_setup(e[1], e[2], off)
+    counters = sorted(({plan.slots(f) for f in plan.raw_ring}
+                       | set(plan.tring.values())) - {1})
+    L += [f"  int m{S} = 0;  // t mod {S}" for S in counters]
+
+    def guard(q: str) -> List[str]:
+        head = [f"      const int q = {q};"]
+        if local:
+            head.append("      const int gq = origin_i + q;  (void)gq;")
+        return head + [f"      if (q >= 0 && q < {Ii}) {{"]
+
+    step: List[str] = []
+    pos = ("gq", "gj", "gk") if local else ("q", "gj", "gk")
+    at_pos = ("q", "gj", "gk") if local else None
+    stage_idx = {s: i for i, s in enumerate(order)}
+    for e in plan.schedule[1:]:
+        if e[0] == "fused":
+            c = next(c for c in order if c in plan.readers(e[1][0]))
+            step += [f"    {{  // phase: k-passes of transforms "
+                     f"{', '.join(str(em.tidx[t]) for t in e[1])}"] + guard(
+                f"t - {plan.lag[c]}")
+            step += ["        " + x for x in em.fused_kpass(e[1])]
+            step += ["        SF_SYNC();", "      }", "    }"]
+            continue
+        if e[0] in ("pass", "mirror"):
+            t = e[1]
+            f = t[0]
+            if t in plan.instep:
+                c = next(c for c in order if c in plan.readers(t))
+                q = f"t - {plan.lag[c]}"
+            else:
+                q = "t" if f in program.inputs else f"t - {plan.lag[f]}"
+            step += [f"    {{  // phase: {' '.join(map(str, e[::2]))} of "
+                     f"transform {em.tidx[t]}"] + guard(q)
+            step += ["        " + x for x in (
+                em.tpass(t, e[2]) if e[0] == "pass" else em.mirror(t))]
+            step += ["        SF_SYNC();", "      }", "    }"]
+            continue
+        s = e[1]
+        idx = stage_idx[s]
+        kspec = program.kernels[s]
+        RJ, RK = plan.region(s)
+        hj, hk = plan.halo[s]
+        lo, hi = i_reach(program, s)
+        em.widths.add(RK)
+        ptrs: Dict[Tuple[str, int], str] = {}
+        tptrs: Dict[str, str] = {}
+        xs = set()
+        onchip = _ring_reader(plan, s, RK, ptrs, xs, plan.raw_ring)
+        bodies = []
+        for masked in (False, True):
+            if s in plan.mxu_plans:
+                body = em.banded(s, masked, onchip, tptrs, xs)
+            else:
+                body = _stage_call(program, kspec, idx, pos, onchip, slots,
+                                   at_pos, em.adims, masked)
+            if s in plan.raw_ring:
+                if masked and s in sources:   # the passes read 0 beyond
+                    body.append(f"w[p] = (gj >= 0 && gj < {J} && gk >= 0 "
+                                f"&& gk < {K}) ? r : "
+                                f"{literal(0, program.field_dtype(s))};")
+                else:
+                    body.append("w[p] = r;")
+            if s in program.outputs:
+                cond = [f"q >= {h} && q < {h + Ic}"] if local else []
+                if hj:
+                    cond.append(f"jl >= {hj} && jl < {hj + tj}")
+                if hk:
+                    cond.append(f"kl >= {hk} && kl < {hk + tk}")
+                if masked:
+                    cond.append(f"gj < {J} && gk < {K}")
+                qo = f"(q - {h})" if local else "q"
+                write = (f"o_{s}[((long long){qo} * {J} + gj) * {K} + gk]"
+                         " = r;")
+                body.append(f"if ({' && '.join(cond)}) {write}" if cond
+                            else write)
+            bodies.append(body)
+        step += [f"    {{  // phase: stage {s}: {RJ} x {RK}"] + guard(
+            f"t - {plan.lag[s]}")
+        if s in plan.raw_ring:
+            ct = ctype(program.field_dtype(s))
+            step.append(f"        {ct}* const w = r_{s} + "
+                        f"{_slot(plan, s, plan.lag[s])} * {RJ * RK};")
+        step += _ring_bases(program, plan, ptrs, "        ")
+        step += [f"        const float* const {b} = {v};"
+                 for b, v in sorted(tptrs.items())]
+        gplane = "gq" if local else "q"
+        step += _two_bodies(RJ, RK, _cell_pre(hj, hk, xs), bodies,
+                            f"inner && {gplane} >= {lo} && "
+                            f"{gplane} < {I - hi}", "        ")
+        step += ["        SF_SYNC();", "      }", "    }"]
+    widths = sorted(em.widths | {plan.region(f)[1] for f in ring_inputs})
+    L += _thread_origins(widths)
+    L += [f"  const int tr0_{c} = warp / {c}, tc0_{c} = warp - tr0_{c} * "
+          f"{c};" for c in sorted(em.tiles)]
+    prologue, ingest = _ingest(program, plan, ring_inputs, Ii)
+    L += prologue
+    if setup:
+        L += ["  // the bands' copies, once a block"] + setup + \
+            ["  SF_SYNC();"]
+    L.append(f"  for (int t = 0; t < {plan.steps()}; ++t) {{")
+    L += ingest + step
+    L += [f"    m{S} = sf_wrap(m{S} + 1, {S});" for S in counters]
+    L += ["  }", "}"]
+    return L
+
+
 def stream_source(program: ir.Program, analysis: ChainAnalysis,
                   plan) -> str:
-    """The stream kernel for ``plan`` (backend/stream.py StreamPlan):
-    per-cell stages as in the panel kernel, banded stages from transform
-    rings.  The block body is a plain function of the block and thread
-    index, so the same source also compiles with g++ into
-    ``sf_host_launch``, which runs every block with one thread (the
-    barriers separate phases, so that is a valid schedule) — the CPU tests
-    run the generated kernel that way.
+    """The stream kernel for ``plan`` (backend/stream.py StreamPlan): an
+    on-chip plan takes ``_onchip_stream_body`` (K3a per-cell stages and
+    K3b banded transforms on the panel kernel's skeleton, the band passes
+    on CUDA cores or, ``_MMA_MACROS``, on tensor cores).  The block body
+    is a plain function of the block and thread index, so the same source
+    also compiles with g++ into ``sf_host_launch``, which runs every
+    block with one thread (the barriers separate phases, so that is a
+    valid schedule) — the CPU tests run the generated kernel that way.
 
     A local plan (``plan.block`` > 0) gives K4, ``sf_local_stream``: the
     same streamer over one i-chunk's ``Ii = Ic + 2h`` planes, with the
@@ -1059,99 +1622,14 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
                            plan.smem_bytes(), slots, n_pool, origin=local,
                            spill_bytes=plan.spill_bytes() if spill else 0)
         return "\n".join(L)
-    offs = plan.smem_offsets()
-    L = [head, _STREAM_MACROS,
-         "// stream streamer (backend/stream.py): replaces the TPU kernel "
-         "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
-         "cell stages, K3b banded transforms)" + (
-             "; local chunk kernel K4, as built by compile_local_stream "
-             f"(chunk of {Ic} + 2 x {h} planes)" if local else ""),
-         f"SF_DEV void {kernel}_block(const int by, const int bx, "
-         "const int tid, const int nt, unsigned char* const sf_smem, "
-         f"{params}) {{",
-         f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
-    for f in plan.raw_ring:
-        ct = ctype(program.field_dtype(f))
-        L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
-    for n, t in enumerate(plan.tkeys):
-        L.append(f"  float* const t{n} = (float*)(sf_smem + {offs[t]});")
-    L.append(f"  float* const sf_u = (float*)(sf_smem + {offs['']});")
-    L += ["  (void)sf_u;", f"  for (int t = 0; t < {plan.steps()}; ++t) {{"]
-    ring_inputs = [f for f in plan.raw_ring if f in program.inputs]
-    if ring_inputs:
-        L.append(f"    if (t < {Ii}) {{")
-        for f in ring_inputs:
-            RJ, RK = plan.region(f)
-            hj, hk = plan.halo[f]
-            L += [f"      for (int p = tid; p < {RJ * RK}; p += nt) {{",
-                  f"        const int jl = p / {RK}, kl = p - jl * {RK};",
-                  f"        const int gj = j0 - {hj} + jl, "
-                  f"gk = k0 - {hk} + kl;",
-                  f"        r_{f}[(t % {plan.raw_ring[f]}) * {RJ * RK} + p]"
-                  f" = (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) ? "
-                  f"g_{f}[((long long)t * {J} + gj) * {K} + gk] : "
-                  f"{literal(0, program.field_dtype(f))};",
-                  "      }"]
-        L += ["    }", "    SF_SYNC();"]
-        tl = [x for f in ring_inputs for t in plan.tkeys if t[0] == f
-              for x in em.transform(t, "t")]
-        if tl:
-            L += [f"    if (t < {Ii}) {{"] + ["      " + x for x in tl] \
-                + ["    }"]
-    # per-cell reads: BC masks at the global plane gq, arrays at the
-    # local plane q of their slabs
-    pos = ("gq", "gj", "gk") if local else ("q", "gj", "gk")
-    at_pos = ("q", "gj", "gk") if local else None
-    for idx, s in enumerate(order):
-        kspec = program.kernels[s]
-        RJ, RK = plan.region(s)
-        hj, hk = plan.halo[s]
-        if s in plan.mxu_plans:
-            body = em.banded(s)
-        else:
-            def onchip(f, s=s):
-                if f not in plan.raw_ring:
-                    return lambda o: None
-                fj, fk = plan.region(f)
-                dj = plan.halo[f][0] - plan.halo[s][0]
-                dk = plan.halo[f][1] - plan.halo[s][1]
-                D = plan.raw_ring[f]
-                return lambda o: (f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
-                                  f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
-                                  f"kl + {dk + o[2]}]")
-            body = _stage_call(program, kspec, idx, pos, onchip, slots,
-                               at_pos, em.adims)
-        if s in plan.raw_ring:
-            body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
-                        "= r;")
-        if s in program.outputs:
-            core = f"q >= {h} && q < {h + Ic} && " if local else ""
-            body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
-                        f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
-                        f"gk < {K}) o_{s}[((long long)"
-                        f"{f'(q - {h})' if local else 'q'} * {J} + gj) * "
-                        f"{K} + gk] = r;")
-        L += [f"    {{  // stage {s}",
-              f"      const int q = t - {plan.lag[s]};"]
-        if local:
-            L.append("      const int gq = origin_i + q;  (void)gq;")
-        L += [f"      if (q >= 0 && q < {Ii}) {{",
-              f"        for (int p = tid; p < {RJ * RK}; p += nt) {{",
-              f"          const int jl = p / {RK}, kl = p - jl * {RK};",
-              f"          const int gj = j0 - {hj} + jl, "
-              f"gk = k0 - {hk} + kl;"]
-        L += ["          " + b for b in body]
-        L += ["        }", "      }", "      SF_SYNC();"]
-        tl = [x for t in plan.tkeys if t[0] == s
-              for x in em.transform(t, "q")]
-        if tl:
-            L += [f"      if (q >= 0 && q < {Ii}) {{"] \
-                + ["        " + x for x in tl] + ["      }"]
-        L.append("    }")
-    L += ["  }", "}"]
+    body = _onchip_stream_body(program, plan, em, order, slots, kernel,
+                               params)
+    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + (
+        [_MMA_MACROS] if "mma" in em.routes else []) + body
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
                        plan.smem_bytes(), slots, n_pool, origin=local,
-                       spill_bytes=plan.spill_bytes() if spill else 0)
+                       min_blocks=plan.min_blocks(), threads=plan.threads)
+    L += _occupancy(plan.smem_bytes(), plan.threads, kernel)
     return "\n".join(L)
 
 

@@ -21,8 +21,9 @@ Left out of the copy: the blocked-banded layout (``_blocked_rows``, which
 feeds 128-wide MXU blocks) and the origin-stacked per-tile matrices (the
 ``j_contexts``/``k_contexts`` branch): the port's kernel tiles (j, k)
 itself and reads global coordinates, so one global band per side is
-exact.  The TPU's bf16 hi/lo operand split is left out too: the port's
-transforms run in f32 (see stream.py).
+exact.  The TPU's bf16 hi/lo operand split becomes a TF32 hi/lo split
+on the H100's tensor cores for wide bands under ``mxu_precision="split"``
+(see stream.py); the matrices stay f32.
 """
 from __future__ import annotations
 
@@ -160,9 +161,9 @@ def finalize_pool(plans: Dict[str, object], pool: MatrixPool, program,
     collect the (field, L, R) transform-ring keys of i-streamed fields.
 
     ``"split"`` and ``"exact"`` keep every matrix in f32: the port's
-    transforms are f32 sums, at least as accurate as the TPU's bf16 hi/lo
-    split, so there are no ``__lo`` residual matrices.  The opt-in
-    single-pass ``"bf16"`` mode is not ported yet."""
+    kernel splits operands itself (TF32 hi/lo on tensor cores for wide
+    bands under "split"), so there are no ``__lo`` residual matrices.
+    The opt-in single-pass ``"bf16"`` mode is not ported yet."""
     if mxu_precision not in ("split", "bf16", "exact"):
         raise ValueError(f"unknown mxu_precision {mxu_precision!r} "
                          "(expected split, bf16, or exact)")
@@ -226,11 +227,11 @@ def mxu_flops_per_cell(pool: Dict[str, np.ndarray], transform_keys
     """Executed f32 flops per domain cell of the plan's band transforms.
 
     Each unique ``(field, L, R)`` transform is computed once per source
-    plane (cached in a transform ring).  The port's kernel applies a side
-    as a direct sum over the band's diagonals, 2 flops (one FMA) per
-    diagonal per plane cell, whatever ``mxu_precision`` (both modes
-    compute in f32).  The JAX package counts MXU passes over 128-lane
-    contraction chunks here instead."""
+    plane (in a transform ring, or at its reader's step).  A side counts
+    2 flops (one FMA) per diagonal per plane cell: the band's own work,
+    whatever route the kernel takes (tensor-core passes multiply padded
+    16 x 8 fragments three times over).  The JAX package counts MXU
+    passes over 128-lane contraction chunks here instead."""
     total = 0.0
     for _field, lkey, rkey in transform_keys:
         for key, side in ((lkey, "L"), (rkey, "R")):

@@ -19,42 +19,68 @@ every other stage with a footprint of at least 12 as banded transforms
 (``linear.py``), the rest per cell.  ``StreamPlan.lags`` is the
 reference's lag / ring algebra at one plane per step.
 
-The kernel: one thread block owns a (tj, tk) core tile of the (j, k)
-plane and marches i, as the panel kernel does, with
+The kernel's on-chip body (K3a, K3b, and K4 below): one thread block owns
+a (tj, tk) core tile of the (j, k) plane and marches i on the panel
+kernel's (K1's) skeleton, shared with it in codegen.py — ring slots from
+per-step counters (no ``%`` in a read), a thread's cell from one
+division before the march, a mask-free and a masked body per stage taken
+per block and step, ring inputs loaded a step ahead with ``cp.async``
+into a slot of their own, ``__launch_bounds__`` with the blocks per SM
+the shared memory leaves room for — over the phases of
+``StreamPlan.schedule``, each closed by a barrier:
 
 * a ring of raw planes per on-chip field, widened by the field's
-  cumulative j/k halo, only as deep as its per-cell reads need (a field
-  read only through transforms keeps one staging plane);
-* a ring of transformed planes per transform key ``(field, L, R)``,
-  filled when a plane of the field is produced: ``P @ R`` along k into a
-  scratch tile, then ``L @ .`` along j, as direct f32 sums over the
-  band's diagonals.  The diagonals are vectors over the global index
-  (``BandMat``'s form, rows of composed bands vary near the domain
-  edges), and reads outside [0, J) or [0, K) contribute 0 — exactly the
-  truncated band matrix;
+  cumulative j/k halo, as deep as its per-cell reads and its
+  transforms' source planes need;
+* a transform ``(field, L, R)`` read at one plane delta (every per-stage
+  plan whose groups read it at one i-offset, as cross does) is computed
+  in the phases right before its first reader's stage, from the raw
+  ring the reader reads anyway, and lives within the step
+  (``StreamPlan.instep``); one read at several deltas (a composed
+  stage's 33-plane i-table, a per-stage box's five groups) keeps a ring
+  filled right after its field's producer;
+* a transform is ``P @ R`` along k into a scratch tile, then ``L @ .``
+  along j.  Sources hold 0 beyond the domain (inputs are loaded so, a
+  transform's source stage writes 0 there), so a band whose columns are
+  Toeplitz applies literal weights with no mask; a composed band's edge
+  columns (``BandInfo``) read a window of its coefficient table that
+  the block copies to shared memory once.  A pass runs on CUDA cores (one
+  ``fmaf`` a tap) or, under ``mxu_precision="split"`` for bands of at
+  least ``MMA_MIN_TAPS`` taps (``StreamPlan.route``), on tensor cores:
+  ``sf_mma_band``, 16 x 8 tiles of ``mma.sync`` m16n8k8 TF32 with each
+  operand split hi/lo and three products a k-step (the TPU's bf16 hi/lo
+  split's counterpart); "exact" sums on CUDA cores;
 * banded stages sum their groups' transformed planes with the terms'
   scales, add the correction plane (a global (J, K) array), take
   ``bc_value * weight_sum`` for an i-out-of-domain group, and a composed
   stage weights its transformed planes by the i-table row of its global
-  output plane.
+  output plane (the interior row's weights as literals in the mask-free
+  body);
+* shared memory is ``pack_layout``'s, the spill rung's placer run with
+  nothing spilled: rings read across steps, transform rings and band
+  copies have regions of their own; rings of one step, transform planes
+  and scratch tiles share the rest first-fit by the phases they live in.
+  A per-cell plan takes the on-chip body only where its rings fit
+  unpacked, as before (packing those alone is the spill rung's).
 
-``mxu_precision`` "split" and "exact" both run the transforms in f32,
-which is at least as accurate as the TPU's bf16 hi/lo split (results
-agree with the oracle within ``MXU_VERIFY_RTOL``).  No library matmul or
-convolution is called on the card.
+The tile and the threads of a block (256 or 512) are the pair of least
+modelled time (``StreamPlan.seconds``, the panel kernel's rule with the
+band passes priced per route).  Both precisions agree with the oracle
+within ``MXU_VERIFY_RTOL``.  No library matmul or convolution is called
+on the card.
 
 What bounds it on the H100: the bound of the work is the larger of the
 HBM bytes (each input read once, each output written once) and the f32
 FMA count of the plan's executed transforms (``mxu_flops_per_cell``,
-2 flops per diagonal per side per cell) over the 67 TFLOP/s f32 rate;
-for box-r2 256^3 x 8 composed those are about 0.04 ms and 0.03 ms.  This
-first kernel is far from either: every tap is a shared-memory read plus
-a coefficient load, the widened tiles recompute the halo, and the
-transform rings (33 planes deep for the composed box) cap the tile; a
-deep per-stage chain (cross-r2 x 8, halo 16) only fits 4 x 8 tiles.  The design does the one thing that matters most for the bound
-— each transform is computed once per source plane and shared by every
-i-offset and group that reads it — and leaves tensor cores (wgmma), TMA
-loads and register blocking to a later PR.
+2 flops per diagonal per side per cell) over the FP32 rate; for box-r2
+256^3 x 8 composed those are about 0.04 ms and 0.03 ms.  The kernel is
+bound by issue and latency inside the block: the halo recompute of the
+widened tiles (cross-r2 x 8 at (16, 16): 30.75 stage evaluations a
+cell), the passes' shared-memory reads, and a barrier a phase.  On an
+NVIDIA H100 80GB HBM3 (700 W; ``chip_smoke.py``, ``deep_time.py --cells
+banded|local``) cross-r2 256^3 x 8 takes 3.68 ms (64.9 before this
+design), box-r2 256^3 x 8 0.767 (2.55) and K4 on a jacobi3d 1024^3 x 8
+chunk 4.46 (6.85).
 
 ``stream_plain`` runs the same function under the same plan in torch
 ops on whole planes (band transforms through ``torch.matmul``, the
@@ -133,7 +159,8 @@ import torch
 
 from .. import ir
 from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
-                      H100_SM_COUNT, H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM,
+                      H100_PANEL_CELL_RATE, H100_SM_COUNT,
+                      H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM,
                       H100_STREAM_CELL_RATE)
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
@@ -141,11 +168,12 @@ from . import build, codegen
 from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      mxu_flops_per_cell, plan_all_stages)
-from .panel import ring_fields, tile_candidates
+from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
+                    tile_candidates)
 from .stacked_io import (SPILL_BYTES_CAP, THREADS,
                          accesses_with_center, bc_select, check_scope,
                          or_mask, place_by_phase, resolve_device,
-                         run_kernel, spanned_arrays, tile_cost)
+                         run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only): the whole-domain stream
@@ -159,7 +187,71 @@ spill_launches = 0
 # mxu_min_footprint default)
 MXU_MIN_FOOTPRINT = 12
 
+# band passes under mxu_precision="split" run on tensor cores (mma.sync
+# TF32, hi/lo split, three products) for bands of at least this many
+# taps, on CUDA cores (one fmaf a tap) below it.  On an NVIDIA H100 80GB
+# HBM3 (700 W; python -m stencilflow_tpu_torch.sweep box_fma box_mma
+# cross_fma cross_mma) the 33-tap bands of box-r2 256^3 x 8 ran 0.819 ms
+# on tensor cores against 0.863 on CUDA cores at each route's fastest
+# tile, the 5-tap bands of cross-r2 256^3 x 8 9.408 against 3.784: widths
+# between are not measured and stay on CUDA cores
+MMA_MIN_TAPS = 33
+# the on-chip tile rule's price of a band pass, in stage lanes (the
+# panel kernel's ``H100_PANEL_CELL_RATE`` unit): a CUDA-core pass cell
+# costs one lane per this many taps (at least one lane), a tensor-core
+# 16 x 8 tile this many lanes per k-step of 8
+FMA_TAPS_PER_LANE = 7
+MMA_KSTEP_LANES = 48
+# a stage cell costs one lane per this many shared-memory reads (at least
+# one lane: the 7-point jacobi stage the lane rate was measured on)
+STAGE_READS_PER_LANE = 7
+# the on-chip rule's cost of a lane at (resident blocks per SM, threads):
+# the panel kernel's, with one resident block refitted to the same sweep
+# (box, cross and K4's chunk): a step's phases each end in a barrier, so
+# a lone block's warps wait longer than K1's (1.4 and 1.15 there)
+STREAM_LANE_COST = {**PANEL_LANE_COST, (1, 256): 1.75, (1, 512): 1.6}
+
 TKey = Tuple[str, Optional[str], Optional[str]]
+
+
+@dataclasses.dataclass(frozen=True)
+class BandInfo:
+    """A pooled band as the on-chip passes apply it: ``offsets`` d0..d1,
+    the Toeplitz weights ``w`` of its interior columns (``w[d - d0]``),
+    and the global columns [lo, hi) whose coefficients are ``w`` wherever
+    ``p + d`` lies inside [0, n) (outside, the source planes hold 0, so
+    the literal weights give the truncated band exactly).  Columns outside
+    [lo, hi) read the coefficient table."""
+    offsets: Tuple[int, ...]
+    w: Tuple[float, ...]
+    lo: int
+    hi: int
+    n: int
+
+    @property
+    def taps(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def toeplitz(self) -> bool:
+        return self.lo == 0 and self.hi == self.n
+
+
+def band_info(offsets, coef: np.ndarray) -> BandInfo:
+    """``BandInfo`` of a ``band_diagonals`` table."""
+    n = coef.shape[1]
+    d = np.asarray(offsets)[:, None]
+    p = np.arange(n)[None, :]
+    inside = (p + d >= 0) & (p + d < n)
+    w = coef[:, n // 2]
+    ok = np.all(~inside | (coef == w[:, None]), axis=0)
+    lo = n // 2
+    while lo > 0 and ok[lo - 1]:
+        lo -= 1
+    hi = n // 2
+    while hi < n and ok[hi]:
+        hi += 1
+    return BandInfo(tuple(offsets), tuple(float(x) for x in w), lo, hi, n)
 
 
 @dataclasses.dataclass
@@ -195,8 +287,17 @@ class StreamPlan:
     # kernel ran on
     device_pool: Dict[object, List[torch.Tensor]] = dataclasses.field(
         default_factory=dict, repr=False)
-    bands: Dict[str, tuple] = dataclasses.field(default_factory=dict,
-                                                repr=False)
+    # band(): key -> (offsets, coef); band_info(): (key, side) -> BandInfo
+    bands: Dict[object, object] = dataclasses.field(default_factory=dict,
+                                                    repr=False)
+    # the on-chip body (K3a/K3b/K4): threads of a block; transforms
+    # computed at their reader's step (every read one plane delta back:
+    # transform key -> that delta); the band passes' precision and
+    # route ("auto": tensor cores from MMA_MIN_TAPS taps under "split")
+    threads: int = THREADS
+    instep: Dict[TKey, int] = dataclasses.field(default_factory=dict)
+    mxu_precision: str = "split"
+    passes: str = "auto"
 
     @staticmethod
     def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
@@ -272,51 +373,344 @@ class StreamPlan:
         TJ, TK = self.region(tkey)
         return TJ + 2 * self.reach(tkey[1], "L"), TK
 
+    def slots(self, f: str) -> int:
+        """Planes of raw ring ``f`` in shared memory: its depth, and (on
+        chip) AHEAD more for a ring input, the planes in flight."""
+        ahead = AHEAD if not self.packed and f in self.program.inputs else 0
+        return self.raw_ring[f] + ahead
+
     def ring_bytes(self, f: str) -> int:
         """Bytes of field ``f``'s raw ring, rounded up to 16."""
         tj, tk = self.region(f)
-        size = self.raw_ring[f] * tj * tk * np.dtype(
+        size = self.slots(f) * tj * tk * np.dtype(
             self.program.field_dtype(f)).itemsize
         return -(-size // 16) * 16
 
-    def smem_offsets(self) -> Dict[object, int]:
-        """Byte offset of every on-chip raw ring, transform ring and the
-        k-pass scratch (key "") in the block's shared memory; "end" =
-        total.  The spill rung's plans place theirs by ``spill_layout``."""
-        off, out = 0, {}
+    def smem_bytes(self) -> int:
+        """Shared memory of a block: ``spill_layout``'s (the spill rung's
+        packing, or the on-chip body's with nothing spilled)."""
+        return self.spill_layout(ahead=False).end
+
+    def unpacked_bytes(self) -> int:
+        """Shared memory of an on-chip plan with every ring, transform
+        plane and scratch in a region of its own."""
+        return (sum(_align(self.ring_bytes(f), 128) for f in self.raw_ring)
+                + sum(_align(n, 128) for _k, n in self.onchip_regions())
+                + sum(_align(it[2], 128) for it in self.onchip_items()))
+
+    # -- the on-chip body: band passes and the step's phases -----------------
+    def band_info(self, key: str, side: str) -> BandInfo:
+        if (key, side) not in self.bands:
+            self.bands[key, side] = band_info(*self.band(key, side))
+        return self.bands[key, side]
+
+    def route(self, key: str, side: str) -> str:
+        """"mma" (tensor cores) or "fma" (CUDA cores) for the pass that
+        applies band ``key``."""
+        if self.passes != "auto":
+            return self.passes
+        taps = self.band_info(key, side).taps
+        return "mma" if (self.mxu_precision == "split"
+                         and taps >= MMA_MIN_TAPS) else "fma"
+
+    def pass_shape(self, tkey: TKey, side: str):
+        """(rows, cols, source field's region) of ``tkey``'s pass along
+        ``side``'s axis: the k-pass ("R") of a two-sided transform covers
+        the j-pass's widened rows."""
+        TJ, TK = self.region(tkey)
+        if side == "R" and tkey[1] is not None:
+            return self.scratch_shape(tkey)
+        return TJ, TK
+
+    def fused(self, tkey: TKey) -> bool:
+        """Is ``tkey`` a two-sided transform of ``instep`` whose j-pass
+        runs inside its readers' stage (CUDA-core passes, Toeplitz
+        bands): its k-pass fills a scratch tile, and each reader sums the
+        j-band's taps of it at its own cell, with no transformed plane?"""
+        f, lkey, rkey = tkey
+        return (tkey in self.instep and lkey is not None
+                and rkey is not None
+                and self.route(lkey, "L") == self.route(rkey, "R") == "fma"
+                and self.band_info(lkey, "L").toeplitz
+                and self.band_info(rkey, "R").toeplitz)
+
+    def mirrored(self, tkey: TKey) -> bool:
+        """Does ``tkey``'s transform ring (S planes) keep its first S - 1
+        slots twice, slot s also at s + S?  A composed stage reads its S
+        consecutive planes from one base then, at constant offsets: its
+        readers' planes sit in slots s0 .. s0 + S - 1 of the 2S - 1."""
+        return tkey in self.tring and any(
+            isinstance(self.mxu_plans[c], ComposedPlan)
+            for c in self.readers(tkey))
+
+    @functools.cached_property
+    def schedule(self) -> List[tuple]:
+        """The phases of one plane step of the on-chip body, each closed
+        by a barrier: ("ingest",) the ring inputs, ("stage", s), ("pass",
+        tkey, side) a transform pass — the k-pass ("R") of a two-sided
+        transform into its scratch, then its j-pass ("L") into the
+        transformed plane — ("fused", tkeys) the k-passes of ``fused``
+        transforms of one source plane and shape, one loop over their
+        shared source reads, and ("mirror", tkey) the copy of a
+        ``mirrored`` ring's new plane that a tensor-core pass wrote (a
+        CUDA-core pass writes both copies itself).  A transform of ``instep`` runs right before
+        its first reader's stage; a transform ring is filled right after
+        its field's producer (the ingest for a ring input)."""
+        def passes(t):
+            out = [("pass", t, side) for side, key in (("R", t[2]),
+                                                       ("L", t[1]))
+                   if key is not None]
+            last = t[1] if t[1] is not None else t[2]
+            if self.mirrored(t) and self.route(
+                    last, "L" if t[1] is not None else "R") == "mma":
+                out.append(("mirror", t))
+            return out
+        first = {t: next(c for c in self.analysis.graph.kernel_order
+                         if c in self.readers(t)) for t in self.instep}
+        out = [("ingest",)]
         for f in self.raw_ring:
-            out[f] = off
-            off += self.ring_bytes(f)
-        for tkey, depth in self.tring.items():
-            out[tkey] = off
-            tj, tk = self.region(tkey)
-            off += -(-(depth * tj * tk * 4) // 16) * 16
-        out[""] = off
-        two = [math.prod(self.scratch_shape(t)) for t in self.tkeys
-               if t[1] is not None and t[2] is not None]
-        off += -(-(max(two, default=0) * 4) // 16) * 16
-        out["end"] = off
+            if f in self.program.inputs:
+                out += [x for t in self.tring if t[0] == f
+                        for x in passes(t)]
+        for s in self.analysis.graph.kernel_order:
+            mine = [t for t in self.instep if first[t] == s]
+            groups: Dict[tuple, List[TKey]] = {}
+            for t in mine:
+                if self.fused(t):
+                    groups.setdefault((t[0], self.instep[t], self.thalo[t],
+                                       self.scratch_shape(t)), []).append(t)
+            out += [("fused", tuple(g)) for g in groups.values()]
+            out += [x for t in mine if not self.fused(t)
+                    for x in passes(t)]
+            out.append(("stage", s))
+            out += [x for t in self.tring if t[0] == s for x in passes(t)]
         return out
 
-    def smem_bytes(self) -> int:
-        if self.packed:
-            return self.spill_layout(ahead=False).end
-        return self.smem_offsets()["end"]
+    def readers(self, tkey: TKey) -> List[str]:
+        """The banded stages that read transform ``tkey``."""
+        out = []
+        for c, mp in self.mxu_plans.items():
+            if isinstance(mp, ComposedPlan):
+                keys = [(mp.field, mp.lkey, mp.rkey)]
+            else:
+                keys = [(g.field, t.left_key, t.right_key)
+                        for g in mp.groups for t in g.terms]
+            if tkey in keys:
+                out.append(c)
+        return out
 
-    # -- the spill rung ------------------------------------------------------
     @functools.cached_property
     def _stage_phase(self) -> Dict[str, int]:
-        return {k: 1 + n for n, k in enumerate(
-            self.analysis.graph.kernel_order)}
+        return {e[1]: n for n, e in enumerate(self.schedule)
+                if e[0] == "stage"}
 
     def phase(self, f: str) -> int:
         """The phase of a plane step that writes field ``f``: 0 for a ring
-        input (ingested at the top of the step), 1 + n for the n-th stage
-        in chain order."""
+        input (ingested at the top of the step), the stage's own for a
+        kernel (1 + n for the n-th stage in chain order in a plan without
+        transforms)."""
         return self._stage_phase.get(f, 0)
 
     def phases(self) -> int:
-        return 1 + len(self.program.kernels)
+        return len(self.schedule)
+
+    def pass_phase(self, tkey: TKey, side: str) -> int:
+        """The phase of ``tkey``'s pass along ``side`` (a fused k-pass:
+        its group's)."""
+        if side == "R" and self.fused(tkey):
+            return next(n for n, e in enumerate(self.schedule)
+                        if e[0] == "fused" and tkey in e[1])
+        return self.schedule.index(("pass", tkey, side))
+
+    def stage_reads(self, s: str) -> int:
+        """Shared-memory reads of one cell of stage ``s``: its accesses
+        per cell; a banded stage's transformed planes (the j-band's taps
+        of a ``fused`` transform's scratch), raw terms and correction
+        planes; a composed stage's i-offsets."""
+        mp = self.mxu_plans.get(s)
+        if mp is None:
+            return sum(len(v) for v in accesses_with_center(
+                self.program.kernels[s]).values())
+        if isinstance(mp, ComposedPlan):
+            return len(mp.offsets)
+        n = 0
+        for g in mp.groups:
+            n += bool(g.correction_key)
+            for t in g.terms:
+                tkey = (g.field, t.left_key, t.right_key)
+                n += self.band_info(t.left_key, "L").taps \
+                    if self.fused(tkey) else 1
+        return n
+
+    def band_floats(self, tkey: TKey, side: str) -> Tuple[int, int]:
+        """Floats of the block's shared-memory copies of the band that
+        ``tkey``'s ``side`` pass applies: (weight vector, table window).
+        A tensor-core pass reads its Toeplitz weights from the band's
+        vector (one per band, shared by its passes); a band with columns
+        outside its Toeplitz range keeps a window of its coefficient table
+        over the pass's columns (rows for "L")."""
+        key = tkey[2] if side == "R" else tkey[1]
+        info = self.band_info(key, side)
+        width = self.region(tkey)[1 if side == "R" else 0]
+        vec = info.taps if self.route(key, side) == "mma" else 0
+        return vec, 0 if info.toeplitz else info.taps * width
+
+    def onchip_regions(self) -> List[Tuple[object, int]]:
+        """(key, bytes) of the on-chip body's regions beside the rings:
+        every transform ring, every band's weight vector ("bvec") and
+        every pass's table window ("btab")."""
+        if self.packed:
+            return []
+        out = []
+        for t, depth in self.tring.items():
+            TJ, TK = self.region(t)
+            depth = 2 * depth - 1 if self.mirrored(t) else depth
+            out.append((("tring", t), depth * TJ * TK * 4))
+        for e in self.schedule:
+            if e[0] == "pass":
+                t, side = e[1], e[2]
+                key = t[2] if side == "R" else t[1]
+                vec, tab = self.band_floats(t, side)
+                if vec and ("bvec", key, side) not in dict(out):
+                    out.append((("bvec", key, side), 4 * vec))
+                if tab:
+                    out.append((("btab", t, side), 4 * tab))
+        return out
+
+    def onchip_items(self) -> List[tuple]:
+        """The on-chip body's short-lived items (``place_by_phase``'s
+        form, masks over the step's phases): the scratch of every
+        two-sided transform (its k-pass and j-pass) and the plane of every
+        transform of ``instep`` (its last pass to its last reader)."""
+        if self.packed:
+            return []
+        n = self.phases()
+        out = []
+        for t in self.tkeys:
+            if self.fused(t):
+                a = self.pass_phase(t, "R")
+                b = max(self.phase(c) for c in self.readers(t))
+                m = sum(1 << (x % n) for x in range(a, b + 1))
+                out.append((a, ("scratch", t),
+                            4 * math.prod(self.scratch_shape(t)), m, m))
+                continue
+            if t[1] is not None and t[2] is not None:
+                a, b = self.pass_phase(t, "R"), self.pass_phase(t, "L")
+                m = sum(1 << x for x in range(a, b + 1))
+                out.append((a, ("scratch", t),
+                            4 * math.prod(self.scratch_shape(t)), m, m))
+            if t in self.instep:
+                a = self.pass_phase(t, "L" if t[1] is not None else "R")
+                b = max(self.phase(c) for c in self.readers(t))
+                m = sum(1 << (x % n) for x in range(a, b + 1))
+                out.append((a, ("tplane", t),
+                            4 * math.prod(self.region(t)), m, m))
+        return out
+
+    def min_blocks(self) -> int:
+        """Blocks per SM an on-chip plan's shared memory leaves room for
+        (at most 4): ``__launch_bounds__`` asks nvcc for them."""
+        return max(1, min(4, 2048 // self.threads, H100_SMEM_PER_SM
+                          // (self.smem_bytes() + 1024)))
+
+    def lanes(self) -> float:
+        """Stage lanes one block issues per plane step: every stage's
+        region in passes of ``threads`` cells (idle lanes of a last pass
+        included), and every band pass at its route's price."""
+        nt = self.threads
+
+        def fill(cells):
+            return -(-cells // nt) * nt
+        total = float(sum(fill(math.prod(self.region(s))) * max(
+            1.0, self.stage_reads(s) / STAGE_READS_PER_LANE)
+            for s in self.program.kernels))
+        for e in self.schedule:
+            if e[0] == "fused":
+                taps = sum(self.band_info(t[2], "R").taps for t in e[1])
+                total += fill(math.prod(self.scratch_shape(e[1][0]))) * max(
+                    1.0, taps / FMA_TAPS_PER_LANE)
+            if e[0] != "pass":
+                continue
+            t, side = e[1], e[2]
+            key = t[2] if side == "R" else t[1]
+            info = self.band_info(key, side)
+            rows, cols = self.pass_shape(t, side)
+            if self.route(key, side) == "fma":
+                total += fill(rows * cols) * max(1.0, info.taps
+                                                 / FMA_TAPS_PER_LANE)
+                continue
+            # the j-pass runs transposed: 16 columns by 8 rows a tile
+            m, n = (rows, cols) if side == "R" else (cols, rows)
+            tiles = -(-m // 16) * -(-n // 8)
+            warps = nt // 32
+            total += (-(-tiles // warps) * warps * mma_ksteps(info.taps)
+                      * MMA_KSTEP_LANES)
+        return total
+
+    def seconds(self) -> float:
+        """The on-chip tile rule, a model in seconds (as the panel
+        kernel's ``PanelPlan.seconds``): per wave of resident blocks,
+        every SM issues its blocks' ``lanes`` of every plane step at
+        ``H100_PANEL_CELL_RATE``, scaled by ``STREAM_LANE_COST`` at the
+        plan's residency and threads; the ring inputs' planes (halo
+        included) and the outputs move at the share of the copy floor
+        that the residency reaches, overlapped: the larger term counts."""
+        ntj, ntk = self.grid()
+        per_sm = self.residency()
+        waves = math.ceil(ntj * ntk / (H100_SM_COUNT * per_sm))
+        latency = STREAM_LANE_COST[min(per_sm, 4 if self.threads == 256
+                                       else 2), self.threads]
+        compute = self.steps() * waves * per_sm * self.lanes() * latency \
+            / H100_PANEL_CELL_RATE
+        _, J, K = self.program.dimensions
+        moved = ntj * ntk * self.extent() * sum(
+            math.prod(self.region(f)) * np.dtype(
+                self.program.field_dtype(f)).itemsize
+            for f in self.raw_ring if f in self.program.inputs)
+        moved += sum(self.extent() * J * K * np.dtype(
+            self.program.kernels[o].dtype).itemsize
+            for o in self.program.outputs)
+        share = H100_ASYNC_COPY_SHARE[min(per_sm, 3) - 1]
+        return max(compute, moved / (H100_COPY_FLOOR * share))
+
+    def inner_reach(self) -> Tuple[int, int]:
+        """(Hj, Hk): how far beyond the core tile any region, stage read
+        or transform reaches; a block whose core widened by it lies
+        inside the (j, k) domain runs mask-free bodies."""
+        from .panel import reach
+        Hj, Hk = reach(self.program, self)
+        return (max([Hj] + [self.halo[f][0] for f in self.raw_ring]),
+                max([Hk] + [self.halo[f][1] for f in self.raw_ring]))
+
+    def inner_blocks(self) -> int:
+        """Blocks that take the mask-free bodies (on steps whose planes
+        lie away from the i ends)."""
+        (Hj, Hk), (tj, tk) = self.inner_reach(), self.tile
+        _, J, K = self.program.dimensions
+        ntj, ntk = self.grid()
+        return sum(1 for b in range(ntj)
+                   if b * tj >= Hj and b * tj + tj + Hj <= J) * sum(
+            1 for b in range(ntk) if b * tk >= Hk and b * tk + tk + Hk <= K)
+
+    def kpass_cells(self) -> int:
+        """Cells of a step's k-passes: the tile rule's tie-break.  Tiles
+        of one area can price alike on tensor cores, whose passes round to
+        whole 16 x 8 tiles; on box-r2 256^3 x 8 (32, 8) ran 0.819 ms and
+        (16, 16), with 1.5x the k-pass cells, 0.912 (``sweep``, NVIDIA
+        H100 80GB HBM3, 700 W)."""
+        return sum(math.prod(self.pass_shape(e[1][0] if e[0] == "fused"
+                                             else e[1], "R"))
+                   * (len(e[1]) if e[0] == "fused" else 1)
+                   for e in self.schedule
+                   if e[0] == "fused" or e[0] == "pass" and e[2] == "R")
+
+    def evaluations(self) -> float:
+        """Stage evaluations per output cell of a block: every stage's
+        region over the core tile (1.0 per stage without halo recompute)."""
+        return sum(math.prod(self.region(s)) for s in self.program.kernels) \
+            / math.prod(self.tile)
+
+    # -- the spill rung ------------------------------------------------------
 
     def plane_bytes(self, f: str) -> int:
         """Bytes of one plane of ``f``'s region, rounded up to 16 (the
@@ -352,7 +746,7 @@ class StreamPlan:
         """The spill rung's shared-memory layout at the plan's tile and
         spilled rings (``pack_layout``, cached; ``ahead=False`` leaves
         every load at its first reader's phase, the same bytes)."""
-        key = (self.tile, tuple(self.spilled), ahead)
+        key = (self.tile, tuple(self.spilled), ahead, self.packed)
         if key not in self.layouts:
             self.layouts[key] = pack_layout(self, ahead)
         return self.layouts[key]
@@ -387,7 +781,7 @@ class StreamPlan:
         """Blocks of the plan resident per SM: the threads', the shared
         memory's and the grid's limit."""
         ntj, ntk = self.grid()
-        return max(1, min(2048 // THREADS,
+        return max(1, min(2048 // self.threads,
                           H100_SMEM_PER_SM // (self.smem_bytes() + 1024),
                           -(-ntj * ntk // H100_SM_COUNT)))
 
@@ -422,19 +816,6 @@ class StreamPlan:
         return (sum(math.prod(self.region(f)) for f in program.kernels)
                 + sum(math.prod(self.region(f)) for f in self.raw_ring
                       if f in program.inputs))
-
-    def work(self) -> int:
-        """Modelled per-block work of one plane step: ``cells`` plus
-        transform taps / 8 (the on-chip legs' ``tile_cost``; the spill
-        rung takes ``spill_seconds``)."""
-        taps = 0
-        for t in self.tkeys:
-            TJ, TK = self.region(t)
-            nl = len(self.band(t[1], "L")[0]) if t[1] else 0
-            nr = len(self.band(t[2], "R")[0]) if t[2] else 0
-            rows = self.scratch_shape(t)[0] if t[1] and t[2] else TJ
-            taps += rows * TK * nr + TJ * TK * nl
-        return self.cells() + taps // 8
 
     def kernel_pool(self) -> List[Tuple[str, np.ndarray]]:
         """The device arrays the kernel reads, in argument order: the
@@ -476,6 +857,12 @@ class StreamPlan:
 
 def _align(n: int, to: int) -> int:
     return -(-n // to) * to
+
+
+def mma_ksteps(taps: int) -> int:
+    """k-steps of 8 of a tensor-core band pass: 8 outputs along the
+    band's axis read 8 + taps - 1 source values."""
+    return -(-(7 + taps) // 8)
 
 
 @dataclasses.dataclass
@@ -523,10 +910,15 @@ def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
                    if d > plan.lag[f])
     offset: Dict[object, int] = {}
     off = _align(8 * len(loads), 128)
+    # on chip, a ring input has a plane in flight: a region of its own
+    inflight = set() if plan.packed else set(plan.program.inputs)
     for f in plan.raw_ring:
-        if f not in plan.spilled and not plan.in_step(f):
+        if f not in plan.spilled and (not plan.in_step(f) or f in inflight):
             offset[f] = off
             off += _align(plan.ring_bytes(f), 128)
+    for key, nbytes in plan.onchip_regions():
+        offset[key] = off
+        off += _align(nbytes, 128)
     base = off
     items = []   # (first phase, key, bytes, mask)
     for f in plan.raw_ring:
@@ -535,11 +927,13 @@ def pack_layout(plan: StreamPlan, ahead: bool = True) -> SpillLayout:
             last = max([p + 1] + rp[f].get(plan.lag[f], []))
             items.append((p, ("stage", f), _align(plan.plane_bytes(f), 128),
                           span(p, last)))
-        elif plan.in_step(f):
+        elif plan.in_step(f) and f not in inflight:
             items.append((p, ("ring", f), _align(plan.ring_bytes(f), 128),
                           span(p, max(rp[f][plan.lag[f]]))))
     readers = {(f, d): sorted(rp[f][d]) for _ph, _i, f, d in loads}
     items = [it + (it[3],) for it in items]
+    items += [(p, key, _align(nbytes, 128), mask, early)
+              for p, key, nbytes, mask, early in plan.onchip_items()]
     for ph, _i, f, d in loads:
         items.append((ph, ("read", f, d), _align(plan.plane_bytes(f), 128),
                       span(ph, readers[f, d][-1]),
@@ -616,7 +1010,8 @@ def _spill_to_fit(plan: StreamPlan, order: List[str], deltas, budget: int,
 def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 mxu_precision: str, builds, tile, block: int = 0,
                 halo_i: int = 0, smem_budget: int = H100_SMEM_PER_BLOCK,
-                spill: str = "off") -> StreamPlan:
+                spill: str = "off", passes: str = "auto",
+                threads: Optional[int] = None) -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
     pool = MatrixPool()
@@ -646,6 +1041,9 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
     raw: Dict[str, int] = {f: 1 for f in onchip}
     tdepth: Dict[TKey, int] = {}
     readers: Dict[TKey, List[str]] = {t: [] for t in tkeys}
+    # each transform's plane deltas (lag[c] - oi) and raw depth needs
+    tdeltas: Dict[TKey, set] = {t: set() for t in tkeys}
+    src_need: Dict[TKey, int] = {}
 
     def need(c, f, oi):
         return lag[c] - lag[f] - (oi or 0) + 1
@@ -667,19 +1065,31 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
             f = tkey[0]
             if tkey in readers:
                 tdepth[tkey] = max(tdepth.get(tkey, 1), need(c, f, oi))
+                tdeltas[tkey].add(lag[c] - (oi or 0))
+                src_need[tkey] = max(src_need.get(tkey, 1),
+                                     need(c, f, oi))
                 if c not in readers[tkey]:
                     readers[tkey].append(c)
             elif f in raw and tkey[1] is None and tkey[2] is None:
                 raw[f] = max(raw[f], need(c, f, oi))
 
+    # a transform read at one plane delta is computed at its readers'
+    # step from the raw ring they read (deep enough for that plane), and
+    # lives within the step; the others keep a ring filled at their
+    # field's producer's step
+    instep = {t: min(d) for t, d in tdeltas.items() if len(d) == 1}
+    for t in instep:
+        raw[t[0]] = max(raw[t[0]], src_need[t])
     stage = analysis.stage_halo()
     inp = analysis.input_halo()
     halo = {f: tuple((stage.get(f) or inp.get(f))[1:])
             for f in list(onchip) + list(program.kernels)}
     plan = StreamPlan(program, analysis, lag, ring, lag_max, plans,
                       {n: list(b.stages) for n, b in builds.items()},
-                      dict(zip(pkeys, parrs)), tkeys, raw, tdepth, halo,
-                      {}, block=block, halo_i=halo_i)
+                      dict(zip(pkeys, parrs)), tkeys, raw,
+                      {t: d for t, d in tdepth.items() if t not in instep},
+                      halo, {}, block=block, halo_i=halo_i, instep=instep,
+                      mxu_precision=mxu_precision, passes=passes)
     for t in tkeys:
         plan.thalo[t] = tuple(max(halo[c][d] for c in readers[t])
                               for d in range(2))
@@ -695,11 +1105,32 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
     if spillable:
         deltas = spill_deltas(plan)
         order = spill_order(plan, deltas)
+
+    def on_chip() -> bool:
+        """Does the on-chip body fit?  A per-cell plan only where its
+        rings fit unpacked, as before the body packed them: packing those
+        alone is the spill rung's (K3c)."""
+        plan.packed, plan.spilled = False, {}
+        size = plan.smem_bytes() if plans else plan.unpacked_bytes()
+        return not every and size <= smem_budget
+
+    def best_threads() -> tuple:
+        """(modelled seconds, threads) of the on-chip plan's best thread
+        count (``threads`` when given)."""
+        got = []
+        for n in (threads,) if threads else PANEL_THREADS:
+            plan.threads = n
+            got.append((plan.seconds(), n))
+        return min(got)
+
     if tile is not None:
         plan.tile = tuple(tile)
-        if (not every and plan.smem_bytes() <= smem_budget) or (
-                spillable and _spill_to_fit(plan, order, deltas,
-                                            smem_budget, every)):
+        if on_chip():
+            plan.threads = best_threads()[1]
+            return plan
+        plan.threads = THREADS
+        if spillable and _spill_to_fit(plan, order, deltas, smem_budget,
+                                       every):
             return plan
         raise ValueError(f"stream tile {tile} exceeds shared memory")
     best = None
@@ -709,25 +1140,26 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
         for cand in tile_candidates(dims):
             plan.tile = cand
             if leg == "spill":
+                plan.threads = THREADS
                 if not _spill_to_fit(plan, order, deltas, smem_budget,
                                      every):
                     continue
                 cost = (plan.spill_seconds(), -cand[0] * cand[1])
-            elif plan.smem_bytes() > smem_budget:
+                n = THREADS
+            elif not on_chip():
                 continue
             else:
-                ntj, ntk = plan.grid()
-                cost = (tile_cost(ntj * ntk, plan.smem_bytes(),
-                                  plan.work()), -cand[0] * cand[1])
+                secs, n = best_threads()
+                cost = (secs, -cand[0] * cand[1], plan.kpass_cells(), n)
             if best is None or cost < best[0]:
-                best = (cost, cand, plan.spilled)
+                best = (cost, cand, plan.spilled, n)
         if best is not None:
             break
     if best is None:
         raise ValueError("stream rings exceed shared memory at every tile"
                          + (" (spilled: over the device-memory cap)"
                             if spillable else ""))
-    plan.tile, plan.spilled = best[1], best[2]
+    plan.tile, plan.spilled, plan.threads = best[1], best[2], best[3]
     plan.packed = leg == "spill"
     return plan
 
@@ -736,6 +1168,15 @@ def check_spill(spill: str) -> None:
     if spill not in ("auto", "off", "all"):
         raise ValueError(f"spill must be 'auto', 'off' or 'all', got "
                          f"{spill!r}")
+
+
+def check_passes(passes: str, mxu_precision: str) -> None:
+    if passes not in ("auto", "mma", "fma"):
+        raise ValueError(f"passes must be 'auto', 'mma' or 'fma', got "
+                         f"{passes!r}")
+    if passes == "mma" and mxu_precision != "split":
+        raise ValueError("tensor-core passes (passes='mma') take "
+                         "mxu_precision='split'")
 
 
 def check_options(mxu: str, mxu_precision: str) -> None:
@@ -751,47 +1192,63 @@ def check_options(mxu: str, mxu_precision: str) -> None:
                          "(expected split, bf16, or exact)")
 
 
+def _composed(program: ir.Program, analysis: ChainAnalysis, max_t: int):
+    """``compose_program``'s (composed program, builds) and the composed
+    program's analysis, or None; kept on ``program`` (planning it at many
+    tiles, as the sweep does, composes and analyses it once)."""
+    memo = program.__dict__.setdefault("_composed", {})
+    if max_t not in memo:
+        got = compose_program(program, analysis, max_t)
+        memo[max_t] = None if got is None else (
+            got[0], got[1], ChainAnalysis.run(got[0]))
+    return memo[max_t]
+
+
 def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                 mxu: str = "auto", mxu_precision: str = "split",
                 compose: str = "auto",
                 tile: Optional[Tuple[int, int]] = None,
                 smem_budget: int = H100_SMEM_PER_BLOCK,
-                spill: str = "auto") -> StreamPlan:
+                spill: str = "auto", passes: str = "auto",
+                threads: Optional[int] = None) -> StreamPlan:
     """The stream lowering's plan, making the JAX package's per-stage
     choice between composed, per-stage banded and per-cell, in the
     reference's order: composed, banded, every stage per cell, and last
     the spill rung (``spill="auto"``: per cell, rings spilled to device
     memory).  ``smem_budget`` is the shared memory one block may take
-    (the reference's ``vmem_budget``).  Raises ValueError /
+    (the reference's ``vmem_budget``).  ``passes`` forces the band
+    passes' route ("mma": tensor cores, "fma": CUDA cores; "auto" by band
+    width, ``StreamPlan.route``) and ``threads`` a block's threads (256
+    or 512; by default the tile rule's pick).  Raises ValueError /
     NotImplementedError when the program is out of scope (nothing is
     built)."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
     check_spill(spill)
+    check_passes(passes, mxu_precision)
+    kw = dict(smem_budget=smem_budget, passes=passes, threads=threads)
     if spill == "all":   # the spill rung alone
         return _build_plan(program, analysis, "off", mxu_precision, {},
-                           tile, smem_budget=smem_budget, spill=spill)
+                           tile, spill=spill, **kw)
     if compose != "off" and mxu != "off":
         max_t = 0 if compose == "auto" else int(compose)
-        got = compose_program(program, analysis, max_t) if max_t >= 0 \
-            else None
+        got = _composed(program, analysis, max_t) if max_t >= 0 else None
         if got is not None:
-            program2, builds = got
+            program2, builds, analysis2 = got
             try:
-                return _build_plan(program2, ChainAnalysis.run(program2),
-                                   mxu, mxu_precision, builds, tile,
-                                   smem_budget=smem_budget)
+                return _build_plan(program2, analysis2, mxu, mxu_precision,
+                                   builds, tile, **kw)
             except ValueError:
                 pass   # the uncomposed program below
     if mxu != "off":
         try:
             return _build_plan(program, analysis, mxu, mxu_precision, {},
-                               tile, smem_budget=smem_budget, spill=spill)
+                               tile, spill=spill, **kw)
         except ValueError:
             pass   # every stage per cell below
     return _build_plan(program, analysis, "off", mxu_precision, {}, tile,
-                       smem_budget=smem_budget, spill=spill)
+                       spill=spill, **kw)
 
 
 def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
@@ -799,12 +1256,14 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
                mxu_precision: str = "split",
                tile: Optional[Tuple[int, int]] = None,
                smem_budget: int = H100_SMEM_PER_BLOCK,
-               spill: str = "auto") -> StreamPlan:
+               spill: str = "auto", passes: str = "auto",
+               threads: Optional[int] = None) -> StreamPlan:
     """The local (chunk) plan of K4: ``block`` core i-planes widened by
     ``halo_i`` planes each side; stages banded where ``mxu`` is "auto"
     and the banded planner takes them (never composed), the rest per
     cell; a per-cell plan spills rings (``spill="auto"``) when no tile
-    fits ``smem_budget`` otherwise.  Raises ValueError /
+    fits ``smem_budget`` otherwise; ``passes`` and ``threads`` as
+    ``plan_stream`` takes them.  Raises ValueError /
     NotImplementedError when the program is out of scope or no tile
     fits."""
     if block < 1 or halo_i < 0:
@@ -813,9 +1272,11 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
     check_scope(program)
     check_options(mxu, mxu_precision)
     check_spill(spill)
+    check_passes(passes, mxu_precision)
     return _build_plan(program, analysis, "off" if spill == "all" else mxu,
                        mxu_precision, {}, tile, block=block, halo_i=halo_i,
-                       smem_budget=smem_budget, spill=spill)
+                       smem_budget=smem_budget, spill=spill, passes=passes,
+                       threads=threads)
 
 
 # -- plain version --------------------------------------------------------------

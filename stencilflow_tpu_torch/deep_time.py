@@ -1,8 +1,9 @@
-"""Time the route plans of the stream kernel's deep cells (K3c) or of
-the panel kernel's cells (K1) for one checkout.
+"""Time the route plans of the stream kernel's deep cells (K3c), of the
+panel kernel's cells (K1), of the stream kernel's banded cells (K3b) or
+of K4's out-of-core chunk, for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
-        [--cells deep|panel]
+        [--cells deep|panel|banded|local] [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
 file's own checkout by default), so the same file times another commit
@@ -14,14 +15,21 @@ hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32 on their stream plans
 8, hdiff3d 256^3 x 8 and hotspot3d 256^3 x 8 on the panel kernel's own
 plan (``PanelPlan.build``, their route), then panel forced on cross-r2
 256^3 x 8 and on hdiff2d 8192^2 x 16 where the checkout's planner
-accepts them.  Random inputs from seed 0.  It builds every kernel at
-once (one nvcc each), checks one launch against the dense lowering on
-the card bit for bit, then times ``--reps`` launches with CUDA events
-after a warm-up.  The last line is one JSON object: the card
+accepts them.  ``--cells banded``: box-r2 and cross-r2 256^3 x 8 on
+their stream plans (``plan_stream``), then, where the checkout's planner
+takes ``passes``, each on the other route of its band passes (tensor
+cores against CUDA cores).  ``--cells local``: K4 on the middle chunk of
+jacobi3d 1024^3 x 8 at 8 chunks (``plan_local``, random slabs).  Random
+inputs from seed 0.  It builds every kernel at once (one nvcc each),
+checks one launch against the dense lowering on the card (bit for bit;
+within MXU_VERIFY_RTOL for banded plans; K4 against its plain version),
+then times ``--reps`` launches with CUDA events after a warm-up.
+``--ptxas`` prints nvcc's ``-Xptxas -v`` report (registers, spills) of
+every kernel first.  The last line is one JSON object: the card
 (``nvidia-smi`` name and power limit), and per cell the kernel's ms,
-tile and shared memory per block (panel: packed and unpacked, and the
-resident blocks per SM the card reports, where the checkout has them).
-It needs a CUDA device.
+tile and shared memory per block (panel and the on-chip stream plans:
+packed and unpacked, and the resident blocks per SM the card reports,
+where the checkout has them).  It needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -75,12 +83,70 @@ def _panel(sft, synthesize_stencil):
     return out
 
 
+def _banded(sft, synthesize_stencil):
+    """[(program, stream plan, source)] of the banded cells, and each on
+    the other route of its band passes where the checkout has routes."""
+    from stencilflow_tpu_torch.backend import stream as st
+    out = []
+    for shape in ("box", "cross"):
+        p = sft.parse_program(synthesize_stencil(
+            num_stages=8, dimensions=(256,) * 3, shape=shape, extent=2,
+            seed_data="random:0.0,1.0"), name=f"{shape}3d_256_8itr")
+        plan = st.plan_stream(p)
+        out.append((p, plan, st.stream_source(plan)))
+        if not hasattr(plan, "route"):
+            continue   # a checkout without tensor-core passes
+        t = plan.tkeys[0]
+        other = "fma" if plan.route(t[2] or t[1], "R" if t[2] else "L") \
+            == "mma" else "mma"
+        q = sft.parse_program(synthesize_stencil(
+            num_stages=8, dimensions=(256,) * 3, shape=shape, extent=2,
+            seed_data="random:0.0,1.0"), name=f"{shape}3d_256_8itr_{other}")
+        oplan = st.plan_stream(q, passes=other)
+        out.append((q, oplan, st.stream_source(oplan)))
+    return out
+
+
+def _local(sft, synthesize_stencil):
+    """[(program, K4's plan, source)] of jacobi3d 1024^3 x 8's chunk."""
+    from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    p = sft.parse_program(synthesize_stencil(
+        num_stages=8, dimensions=(1024,) * 3, shape="diffusion",
+        seed_data="random:0.0,1.0"), name="jacobi3d_1024_8itr_chunk")
+    an = sft.ChainAnalysis.run(p)
+    plan = st.plan_local(p, an, 128, chain_halo(an)[0])
+    return [(p, plan, st.stream_source(plan))]
+
+
+def _ptxas(sources) -> None:
+    """nvcc's register and spill report of every source."""
+    import tempfile
+    from stencilflow_tpu_torch.backend import build
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, src in enumerate(sources):
+            cu = os.path.join(tmp, f"k{n}.cu")
+            with open(cu, "w") as f:
+                f.write(src)
+            proc = subprocess.run(
+                [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
+                 "-o", os.path.join(tmp, f"k{n}.so"), cu],
+                capture_output=True, text=True)
+            lines = [x for x in proc.stderr.splitlines()
+                     if "registers" in x or "spill" in x
+                     or "Compiling entry" in x]
+            print(f"ptxas: source {n}: " + " | ".join(
+                x.strip() for x in lines[-6:]), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="deep_time", description=__doc__)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--cells", choices=("deep", "panel"), default="deep")
+    ap.add_argument("--cells", choices=("deep", "panel", "banded", "local"),
+                    default="deep")
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import numpy as np
@@ -98,12 +164,15 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    cells = (_deep if args.cells == "deep" else _panel)(sft,
-                                                        synthesize_stencil)
+    cells = {"deep": _deep, "panel": _panel, "banded": _banded,
+             "local": _local}[args.cells](sft, synthesize_stencil)
     built = [c for c in cells if c[2] is not None]
+    if args.ptxas:
+        _ptxas([src for _p, _plan, src in built])
     libs = dict(zip([id(c) for c in built], build.load_libraries(
-        [(src, "stream" if args.cells == "deep" else "panel")
+        [(src, "panel" if args.cells == "panel" else "stream")
          for _p, _plan, src in built])))
+    from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
     out = {}
     for cell in cells:
         p, plan, _src = cell
@@ -112,7 +181,12 @@ def main(argv=None) -> int:
             print(f"{p.name}: refused ({plan}) | {smi}", flush=True)
             continue
         lib = libs[id(cell)]
-        if args.cells == "deep":
+        if args.cells == "local":
+            origin = p.dimensions[0] // 2 - plan.halo_i
+
+            def run(arrays, plan=plan, lib=lib, origin=origin):
+                return st.run_local_stream(plan, origin, arrays, lib)
+        elif args.cells != "panel":
             def run(arrays, plan=plan, lib=lib):
                 return st.run_stream(plan, arrays, lib)
         else:
@@ -120,12 +194,25 @@ def main(argv=None) -> int:
 
             def run(arrays, p=p, an=an, plan=plan, lib=lib):
                 return pn.run_panel(p, an, plan, arrays, lib)
-        inputs = sft.load_input_arrays(p, seed=0)
-        arrays = spanned_arrays(p, inputs, device="cuda")
-        got = run(arrays)[p.outputs[0]]
-        want = compile_chain(p)({k: torch.as_tensor(np.asarray(v)).cuda()
-                                 for k, v in inputs.items()})[p.outputs[0]]
-        equal = torch.equal(got.reshape(want.shape), want)
+        if args.cells == "local":
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            arrays = {n: torch.rand((plan.extent(),) + p.dimensions[1:],
+                                    generator=gen, device="cuda")
+                      for n in p.inputs}
+            got = run(arrays)[p.outputs[0]]
+            want = st.local_stream_plain(plan, origin, arrays)[p.outputs[0]]
+            equal = torch.equal(got, want)
+        else:
+            inputs = sft.load_input_arrays(p, seed=0)
+            arrays = spanned_arrays(p, inputs, device="cuda")
+            got = run(arrays)[p.outputs[0]]
+            want = compile_chain(p)({k: torch.as_tensor(np.asarray(v)).cuda()
+                                     for k, v in inputs.items()})[
+                p.outputs[0]]
+            got = got.reshape(want.shape)
+            equal = torch.equal(got, want) if args.cells != "banded" else \
+                sft.arrays_are_equal(want.cpu().numpy(), got.cpu().numpy(),
+                                     MXU_VERIFY_RTOL)
         del got, want
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
@@ -136,7 +223,24 @@ def main(argv=None) -> int:
         stop.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(stop) / args.reps
-        if args.cells == "deep":
+        if args.cells in ("banded", "local"):
+            row = {"ms": ms, "tile": list(plan.tile),
+                   "smem": plan.smem_bytes(), "equal": bool(equal)}
+            if hasattr(plan, "unpacked_bytes"):
+                t = plan.tkeys[0] if plan.tkeys else None
+                row.update(threads=plan.threads,
+                           unpacked=plan.unpacked_bytes(),
+                           blocks_per_sm=pn.occupancy(lib),
+                           evaluations=plan.evaluations(),
+                           passes=sorted({plan.route(k, side)
+                                          for t in plan.tkeys
+                                          for k, side in ((t[1], "L"),
+                                                          (t[2], "R"))
+                                          if k is not None}))
+            text = ", ".join(f"{k} {v}" for k, v in row.items()
+                             if k not in ("ms", "tile", "equal"))
+            plan.device_pool.clear()
+        elif args.cells == "deep":
             row = {"ms": ms, "tile": list(plan.tile),
                    "spilled": len(plan.spilled),
                    "rings": len(plan.raw_ring),
@@ -155,7 +259,9 @@ def main(argv=None) -> int:
                              if k not in ("ms", "tile", "equal_dense"))
         out[p.name] = row
         print(f"{p.name}: {ms:.3f} ms, tile {plan.tile}, {text}, equal to "
-              f"dense: {equal} | {smi}", flush=True)
+              f"{'its plain version' if args.cells == 'local' else 'dense'}"
+              f"{' within MXU_VERIFY_RTOL' if args.cells == 'banded' else ''}"
+              f": {equal} | {smi}", flush=True)
         del arrays
         torch.cuda.empty_cache()
         if not equal:

@@ -252,7 +252,17 @@ class KernelSpec:
         lhs is a real field read — the parser resolves earlier-assigned
         center reads to Refs, and op lists read a target's previous
         version through its own name.  Excluding all lhs names would
-        hide such reads from validation and the chain graph."""
+        hide such reads from validation and the chain graph.  The walk
+        is kept for the statements it ran over (a composed stage's IR has
+        tens of thousands of accesses, which the planners read often);
+        each call returns fresh lists."""
+        key = tuple(map(id, self.statements))
+        memo = self.__dict__.get("_accesses")
+        if memo is None or memo[0] != key:
+            memo = self.__dict__["_accesses"] = (key, self._walk_accesses())
+        return {f: list(v) for f, v in memo[1].items()}
+
+    def _walk_accesses(self) -> Dict[str, List[Offsets]]:
         out: Dict[str, List[Offsets]] = {}
         seen: set = set()      # (field, offsets): linear in the accesses
         assigned: set = set()

@@ -3,24 +3,30 @@
     python -m stencilflow_tpu_torch.sweep            # every cell below
     python -m stencilflow_tpu_torch.sweep jacobi2d   # named cells only
 
-Cells: box-r2 and cross-r2 256^3 x 8 (stream), jacobi2d and hotspot2d
-8192^2 x 8 rotated to rows (group, g = 8, B = 64), the panel cells
-jacobi3d 512^3 x 8, hdiff3d and hotspot3d 256^3 x 8 (K1, ``sweep_panel``:
-every tile at 256 and at 512 threads a block, the rings of one step
-packed by liveness; each also prints the tile rule's modelled time,
-``PanelPlan.seconds``, the resident blocks per SM the card reports and
-the masked share of the stage evaluations), and the deep 3-D
-chains jacobi3d 512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32
-(the stream kernel's spill rung, K3c: at each tile the planner packs
-shared memory by liveness and spills rings until the rest fits; each
-such tile also prints the rung's modelled time, ``spill_seconds``, and
-its resident blocks per SM).  Builds the
-kernel at every (tj, tk) tile whose shared memory fits (one nvcc per
-tile, all started together), times each on the same random inputs with
-CUDA events (one warm-up, then 2 launches), and prints the tiles fastest
-first beside the planner's pick, its modelled cost inputs (and spilled
-rings) and the card's ``nvidia-smi`` name and power limit.  It is how the planners' tile cost
-(``stacked_io.tile_cost``) was checked; it needs a CUDA device.
+Cells: box-r2 and cross-r2 256^3 x 8 (the stream kernel's on-chip body,
+K3a/K3b: every tile at 256 and at 512 threads a block, each printing the
+tile rule's modelled time, ``StreamPlan.seconds``, its resident blocks
+per SM, packed and unpacked shared memory and stage evaluations a cell;
+``box_fma``, ``box_mma``, ``cross_fma``, ``cross_mma``: the same with
+every band pass on CUDA cores or on tensor cores),
+``chunk``: K4 on the middle chunk of jacobi3d 1024^3 x 8 at 8 chunks (the
+same, on random slabs), jacobi2d and hotspot2d 8192^2 x 8 rotated to
+rows (group, g = 8, B = 64), the panel cells jacobi3d 512^3 x 8, hdiff3d
+and hotspot3d 256^3 x 8 (K1, ``sweep_panel``: every tile at 256 and at
+512 threads a block, the rings of one step packed by liveness; each also
+prints the tile rule's modelled time, ``PanelPlan.seconds``, the
+resident blocks per SM the card reports and the masked share of the
+stage evaluations), and the deep 3-D chains jacobi3d 512^3 x 32, hdiff3d
+256^3 x 16 and hotspot3d 256^3 x 32 (the stream kernel's spill rung,
+K3c: at each tile the planner packs shared memory by liveness and spills
+rings until the rest fits; each such tile also prints the rung's
+modelled time, ``spill_seconds``, and its resident blocks per SM).
+Builds the kernel at every tile whose shared memory fits (one nvcc per
+plan, all started together), times each on the same random inputs with
+CUDA events (one warm-up, then 2 launches), and prints the plans fastest
+first beside the planner's pick and the card's ``nvidia-smi`` name and
+power limit.  It is how the planners' tile rules were checked; it needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -51,25 +57,56 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def sweep(program, reps: int = 2):
-    """[(ms, plan)] of the stream kernel for every tile that fits, fastest
-    first, and the planner's own plan."""
+def sweep(program, reps: int = 2, chunk=None, passes: str = "auto"):
+    """[(ms, plan)] of the stream kernel for every (tile, threads) that
+    fits (the spill rung's tiles at its 256 threads), fastest first, and
+    the planner's own plan; plans of another kind than the pick (per-cell
+    where the pick is banded) are left out.  ``chunk`` = (block, i-halo)
+    sweeps K4, the local plan, on one chunk of random slabs; ``passes``
+    forces the band passes' route ("fma" CUDA cores, "mma" tensor
+    cores)."""
     analysis = ChainAnalysis.run(program)
-    pick = stream.plan_stream(program, analysis)
-    plans = []
+
+    def plan(**kw):
+        if chunk:
+            return stream.plan_local(program, analysis, *chunk,
+                                     passes=passes, **kw)
+        return stream.plan_stream(program, analysis, passes=passes, **kw)
+    pick = plan()
+    plans, seen = [], set()
     for tile in panel.tile_candidates(program.dimensions):
-        try:
-            plans.append(stream.plan_stream(program, analysis, tile=tile))
-        except ValueError:
-            continue    # shared memory
+        for threads in panel.PANEL_THREADS:
+            try:
+                p = plan(tile=tile, threads=threads)
+            except ValueError:
+                continue    # shared memory
+            key = (p.tile, p.threads, p.packed)
+            if key in seen or bool(p.mxu_plans) != bool(pick.mxu_plans):
+                continue
+            seen.add(key)
+            plans.append(p)
     libs = build.load_libraries([(stream.stream_source(p), "stream")
                                  for p in plans])
-    arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
-                            device="cuda")
+    if chunk:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        arrays = {n: torch.rand((pick.extent(),) + program.dimensions[1:],
+                                generator=gen, device="cuda")
+                  for n in program.inputs}
+        origin = program.dimensions[0] // 2 - chunk[1]
+    else:
+        arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
+                                device="cuda")
     rows = []
     for p, lib in zip(plans, libs):
-        rows.append((_time_ms(lambda: stream.run_stream(p, arrays, lib),
-                              reps), p))
+        if chunk:
+            def run(p=p, lib=lib):
+                return stream.run_local_stream(p, origin, arrays, lib)
+        else:
+            def run(p=p, lib=lib):
+                return stream.run_stream(p, arrays, lib)
+        p.blocks_per_sm = panel.occupancy(lib) if not p.packed else \
+            p.residency()
+        rows.append((_time_ms(run, reps), p))
         p.device_pool.clear()   # a spilled plan's buffer
     return sorted(rows, key=lambda r: r[0]), pick
 
@@ -120,6 +157,24 @@ def sweep_panel(program, reps: int = 2):
     return sorted(rows, key=lambda r: r[0]), pick
 
 
+def sweep_fma(program, reps: int = 2):
+    """``sweep`` with every band pass on CUDA cores."""
+    return sweep(program, reps, passes="fma")
+
+
+def sweep_mma(program, reps: int = 2):
+    """``sweep`` with every band pass on tensor cores."""
+    return sweep(program, reps, passes="mma")
+
+
+def sweep_chunk(program, reps: int = 2):
+    """``sweep`` of K4 on the middle chunk of ``program`` at 8 chunks
+    (the out-of-core cell's)."""
+    from .backend.dense import chain_halo
+    h = chain_halo(ChainAnalysis.run(program))[0]
+    return sweep(program, reps, (program.dimensions[0] // 8, h))
+
+
 def _cells():
     """name: (program, sweep function)."""
     def synth(shape, dims, **kw):
@@ -127,8 +182,13 @@ def _cells():
                                   seed_data="random:0.0,1.0", **kw)
     cells = {}
     for shape in ("box", "cross"):
-        cells[shape] = (parse_program(synth(shape, (256,) * 3, extent=2),
-                                      name=f"{shape}3d_256_8itr"), sweep)
+        for route, fn in (("", sweep), ("_fma", sweep_fma),
+                          ("_mma", sweep_mma)):
+            cells[shape + route] = (parse_program(
+                synth(shape, (256,) * 3, extent=2),
+                name=f"{shape}3d_256_8itr{route}"), fn)
+    cells["chunk"] = (parse_program(synth("diffusion", (1024,) * 3),
+                                    name="jacobi3d_1024_8itr"), sweep_chunk)
     for name, shape in (("jacobi2d", "diffusion"), ("hotspot2d", "hotspot")):
         cells[name] = (rotate_2d_to_rows(parse_program(
             synth(shape, (8192, 8192)), name=f"{name}_8192_8itr")),
@@ -171,13 +231,19 @@ def main() -> int:
         for ms, p in rows:
             mark = " <- planner" if p.tile == pick.tile and getattr(
                 p, "threads", 0) == getattr(pick, "threads", 0) else ""
-            if fn is sweep:
-                smem, grid, work = p.smem_bytes(), p.grid(), p.work()
+            if fn in (sweep, sweep_fma, sweep_mma, sweep_chunk):
+                smem, grid, work = p.smem_bytes(), p.grid(), p.cells()
                 if p.packed:
                     mark = (f", modelled {p.spill_seconds() * 1e3:.1f} ms, "
                             f"{p.residency()} blocks per SM, spilled "
                             f"{len(p.spilled)} of {len(p.raw_ring)} rings "
                             f"({p.spill_bytes() / 2 ** 20:.0f} MiB){mark}")
+                else:
+                    mark = (f", {p.threads} threads, modelled "
+                            f"{p.seconds() * 1e3:.2f} ms, {p.blocks_per_sm} "
+                            f"blocks per SM, unpacked {p.unpacked_bytes()} "
+                            f"B, {p.evaluations():.2f} evaluations a "
+                            f"cell{mark}")
             elif fn is sweep_panel:
                 smem, grid, work = (p.smem_bytes(program),
                                     p.grid(program.dimensions),

@@ -338,6 +338,151 @@ def test_run_chunked_matches_in_core_on_card(cuda):
                                   res.outputs[p.outputs[0]])
 
 
+def _mma_probe_libs(tmp_path):
+    """``codegen.mma_probe_source`` built by nvcc (the card) and by g++
+    (its host version)."""
+    import ctypes
+    import shutil
+    import subprocess
+    from stencilflow_tpu_torch.backend import build, codegen
+    src = codegen.mma_probe_source()
+    dev = build.load_library(src, "mma_probe")
+    gxx = shutil.which("g++") or shutil.which("c++")
+    assert gxx, "the card's machine has no host C++ compiler"
+    cpp, so = tmp_path / "probe.cpp", tmp_path / "probe.so"
+    cpp.write_text(src)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                           "-shared", "-fPIC", "-o", str(so), str(cpp)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return dev, ctypes.CDLL(str(so))
+
+
+@pytest.mark.cuda
+def test_mma_band_matches_host_version_on_card(cuda, tmp_path):
+    """``sf_mma_band`` on tensor cores (mma.sync TF32, hi/lo split, three
+    products) against its host version on one tile: a 5- and a 33-tap
+    band from a weight vector, a 33- and a 41-tap band from a table.  The
+    two sum the same products in another order: each element within
+    1e-6 of the sum of its products' magnitudes."""
+    import ctypes
+    dev, host = _mma_probe_libs(tmp_path)
+    rng = np.random.default_rng(11)
+    for taps, ks, table in ((5, 2, False), (33, 5, False), (33, 5, True),
+                            (41, 6, True)):
+        x = rng.standard_normal((16, 8 * ks)).astype(np.float32)
+        w = rng.standard_normal((taps, 8) if table else (taps,)).astype(
+            np.float32)
+        args = [8 * ks, 1, 16, 8 * ks, 8 if table else 1,
+                1 if table else 0, taps, ks]
+        want = np.zeros((16, 8), np.float32)
+        host.sf_mma_probe_host.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 8
+        assert host.sf_mma_probe_host(x.ctypes.data, w.ctypes.data,
+                                      want.ctypes.data, *args) == 0
+        xt, wt = torch.as_tensor(x).to(cuda), torch.as_tensor(w).to(cuda)
+        dt = torch.zeros((16, 8), dtype=torch.float32, device=cuda)
+        dev.sf_mma_probe.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
+        assert dev.sf_mma_probe(xt.data_ptr(), wt.data_ptr(),
+                                dt.data_ptr(), *args,
+                                torch.cuda.current_stream(cuda).cuda_stream
+                                ) == 0
+        torch.cuda.synchronize()
+        got = dt.cpu().numpy()
+        band = np.zeros((8 * ks, 8), np.float32)
+        for m in range(8 * ks):
+            for n in range(8):
+                if 0 <= m - n < taps:
+                    band[m, n] = w[m - n, n] if table else w[m - n]
+        scale = np.abs(x) @ np.abs(band)
+        assert np.all(np.abs(got - want) <= 1e-6 * scale + 1e-30), \
+            (taps, np.max(np.abs(got - want) / (scale + 1e-30)))
+
+
+# (program, planner options): the on-chip body per cell (K3a, bit-exact)
+# and banded on each route (K3b: CUDA-core passes, tensor-core passes
+# under "split", and "exact")
+ONCHIP = {
+    "jacobi_copy_k3a": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(40, 48, 72), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"),
+        {"mxu": "off", "spill": "off"}),
+    "hdiff_k3a": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(12, 52, 72), shape="hdiff",
+        seed_data="random:0,1"), {"mxu": "off", "spill": "off"}),
+}
+ONCHIP_BANDED = dict(STREAM_PROGRAMS, box_r2=lambda: synthesize_stencil(
+    num_stages=4, dimensions=(40, 48, 72), shape="box", extent=2,
+    seed_data="random:0,1"))
+for _name in ("box_r2", "box_r2_bc07", "cross_r2"):
+    for _route, _kw in (("fma", {"passes": "fma"}),
+                        ("mma", {"passes": "mma"}),
+                        ("exact", {"mxu_precision": "exact"})):
+        ONCHIP[f"{_name}_{_route}"] = (ONCHIP_BANDED[_name], _kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ONCHIP))
+def test_onchip_stream_matches_plain_on_card(name, cuda):
+    make, kw = ONCHIP[name]
+    p = port.parse_program(make())
+    plan = stream.plan_stream(p, **kw)
+    assert not plan.packed and bool(plan.mxu_plans) == ("mxu" not in kw)
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = stream.launches
+    got = stream.run_stream(plan, arrays)
+    torch.cuda.synchronize()
+    assert stream.launches == before + 1
+    want = stream.stream_plain(plan, arrays)
+    for o in want:
+        g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+        if plan.mxu_plans:
+            assert np.isfinite(g).all()
+            assert port.arrays_are_equal(w, g, MXU_VERIFY_RTOL)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", ["fma", "mma"])
+def test_local_banded_routes_match_plain_on_card(passes, cuda):
+    """K4 with per-stage banded stages on either route, chunk by chunk."""
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    p = port.parse_program(synthesize_stencil(
+        num_stages=2, dimensions=(48, 48, 72), shape="cross", extent=2,
+        seed_data="random:0,1"))
+    an = port.ChainAnalysis.run(p)
+    plan = stream.plan_local(p, an, 16, chain_halo(an)[0], passes=passes)
+    assert plan.mxu_plans and not plan.packed
+    lib = stream.build_stream(plan)
+    inputs = port.load_input_arrays(p, seed=4)
+    for lo, slabs in _chunks(p, inputs, 3, plan, cuda):
+        got = stream.run_local_stream(plan, lo, slabs, lib)
+        want = stream.local_stream_plain(plan, lo, slabs)
+        for o in want:
+            g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
+            assert np.isfinite(g).all()
+            assert port.arrays_are_equal(w, g, MXU_VERIFY_RTOL)
+
+
+@pytest.mark.cuda
+def test_stream_build_failure_raises(cuda, monkeypatch):
+    """A K3b that does not build raises: no plain version."""
+    from stencilflow_tpu_torch.backend import build
+    ran = []
+    monkeypatch.setattr(stream, "stream_source",
+                        lambda plan: "this is not C++\n")
+    monkeypatch.setattr(stream, "stream_plain",
+                        lambda *a, **k: ran.append(1))
+    p = port.parse_program(ONCHIP_BANDED["cross_r2"]())
+    with pytest.raises(build.KernelBuildError):
+        stream.compile_chain_stream(p, device=cuda)(
+            port.load_input_arrays(p, seed=0))
+    assert ran == []
+
+
 @pytest.mark.cuda
 def test_local_build_failure_raises(cuda, monkeypatch):
     """A K4 that does not build raises: no plain version, no dense body."""

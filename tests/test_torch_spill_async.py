@@ -181,17 +181,18 @@ def test_a_load_after_its_readers_shows(tmp_path):
 
 
 # sha256 (16 hex digits) of the generated source after its stage
-# functions, for plans off the spill rung; unchanged by the rung's
-# redesign (and (tile, shared-memory bytes) of the full-size plans)
+# functions, for plans off the spill rung (the on-chip body), and (tile,
+# shared-memory bytes) of the full-size plans: a change to the spill rung
+# moves none of them
 UNSPILLED = {
-    "box_r2_composed": "f26af9b6a723cae7",
-    "cross_r2_banded": "12e2dbe54be44219",
-    "jacobi_per_cell": "c66bfc33e6882ff6",
-    "hdiff_per_cell": "860f037d4eeb6a5a",
-    "jacobi_local_k4": "284b8ea67c28eafb",
-    "box3d_256_8_r2": ("327e81e9480c772b", (32, 8), 46080),
-    "cross3d_256_8_r2": ("c086e16e2749b1d4", (4, 8), 202304),
-    "jacobi3d_1024_8_chunk": ("85fed3644ec21b9d", (16, 32), 100416),
+    "box_r2_composed": "9e83c82e50bd6830",
+    "cross_r2_banded": "a894d70bcba7f16a",
+    "jacobi_per_cell": "ecac74c2c43d7c05",
+    "hdiff_per_cell": "5802ee98aaf99b00",
+    "jacobi_local_k4": "3a0ebf902d59cb6d",
+    "box3d_256_8_r2": ("5b9d1b8c58c49a4f", (32, 8), 94976),
+    "cross3d_256_8_r2": ("4f80c9c896200ff8", (16, 16), 224768),
+    "jacobi3d_1024_8_chunk": ("39a775c178ccad3a", (16, 32), 107008),
 }
 
 

@@ -239,12 +239,16 @@ def test_generated_kernel_matches_plain(name, tile, tmp_path):
 
 def test_kernel_source_calls_no_library():
     """The band transforms are the kernel's own sums: no cuBLAS / cuDNN
-    or torch call in the generated source, and a ring per transform."""
+    or torch call in the generated source (its 3-tap bands sum on CUDA
+    cores), and one pass block per pass of the plan's schedule."""
     plan = stream.plan_stream(port.parse_program(PROGRAMS["mixed"][0]()))
     src = stream.stream_source(plan)
     for word in ("cublas", "cudnn", "wmma", "mma.sync", "#include <cub"):
         assert word not in src.lower()
-    assert src.count("// transform") == len(plan.tkeys) >= 2
+    passes = [e for e in plan.schedule if e[0] in ("pass", "fused")]
+    assert src.count("-pass of transform") + src.count(
+        "// k-passes of transforms") == len(passes)
+    assert len(plan.tkeys) >= 2
 
 
 # -- routing -------------------------------------------------------------------
