@@ -26,7 +26,8 @@ Phases, one line each (any failure raises and exits non-zero):
    (constant / copy / shrink BCs), hotspot2d 256 x 192 x 8 (both at the
    main path's g = 8, B = 64), the 2-D fuzz chain through rows, a 3-D
    jacobi with i-offsets of 3 at g = 2, B = 2, and the 3-D fuzz chain with
-   a scalar and lower-rank inputs; the local chunk kernel K4 against its
+   a scalar and lower-rank inputs, and the shrink jacobi2d and the 3-D
+   jacobi again cut into 4 i-segments; the local chunk kernel K4 against its
    plain version, chunk by chunk, on jacobi3d 64^3 x 3 at 4 chunks
    (constant / copy / shrink BCs), the hdiff DAG at 4 chunks (i-halo 0),
    a box chain of extent 2 banded per stage at 2 chunks and the 3-D fuzz
@@ -38,9 +39,11 @@ Phases, one line each (any failure raises and exits non-zero):
    every ring spilled (constant / copy / shrink BCs), the hdiff DAG and a
    32-stage hotspot chain (``spill="all"``) and K4 with every ring
    spilled at 4 chunks; the overlapped-tile kernel
-   (K6), masked and fast, against its plain version on the example
-   programs and fuzz chains above (bit-exact or within VERIFY_RTOL where a
-   transcendental appears);
+   (K6), masked and fast (one launch: mask-free interior blocks, masked
+   border blocks), against its plain version (fast: mask-free plus the
+   torch fix-up of the border shell) on the example programs and fuzz
+   chains above (bit-exact or within VERIFY_RTOL where a transcendental
+   appears);
 4. the ``run`` main path at full size through ``run_program(...,
    device="cuda")``: jacobi3d 512^3 x 8 (panel), jacobi3d 512^3 x 2
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
@@ -51,9 +54,10 @@ Phases, one line each (any failure raises and exits non-zero):
    deep 3-D chains jacobi3d
    512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32 (the spill
    rung, K3c, 3 repetitions), and K6 forced
-   through ``backend="tile"`` on jacobi3d 512^3 x 2 and hdiff3d 256^3 x
-   8, each verified against the dense lowering on the card and, up to
-   256^3 and for the two 8192^2 x 8 cells, against the numpy oracle
+   through ``backend="tile"`` (its fast mode) on jacobi3d 512^3 x 2 and
+   hdiff3d 256^3 x 8, each verified against the dense lowering on the
+   card and, up to 256^3 and for the two 8192^2 x 8 cells, against the
+   numpy oracle
    (bit-exact for the per-cell kernels, MXU_VERIFY_RTOL for the banded
    stream ones); kernel launch counts are reset just before and read
    just after, and each kernel must have been launched.  The stream cells
@@ -74,7 +78,10 @@ Phases, one line each (any failure raises and exits non-zero):
    each deep cell against its plain version bit for bit, with its time,
    share of the bound, spill traffic a call against the copy floor,
    spilled rings, loads a step and resident blocks per SM, and the dense
-   lowering's time beside it; after the main path, one
+   lowering's time beside it, and K5 on jacobi2d and hotspot2d 8192^2 x 8
+   and K6 on jacobi3d 512^3 x 2 (masked, then fast) against their plain
+   versions bit for bit, with tile, threads, i-segments, shared memory,
+   resident blocks per SM, time and bound; after the main path, one
    ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained (TF32
    off), is timed for the linear chains as a library yardstick the port
    never calls;
@@ -1016,16 +1023,22 @@ def main() -> int:
             continue
         main_panel[p.name] = (an, plan)
         sources.append((codegen.panel_source(p, an, plan), "panel"))
-    # the group kernel: phase 3's cases, then the 2-D main path's plans
+    # the group kernel: phase 3's cases (then two of them cut into
+    # i-segments), then the 2-D main path's plans
     group_plans = []
-    for label, p, B, g in group_cases + [
-            (q.name, rows(q), 64, 8) for q, want in mains2d
+    for label, p, B, g, segments in [c + (None,) for c in group_cases] + [
+            (label + f"-S{S}", p, B, g, S) for label, p, B, g in group_cases
+            for want, S in (("jacobi2d-shrink", 4), ("jacobi3d-i3", 4))
+            if label == want] + [
+            (q.name, rows(q), 64, 8, None) for q, want in mains2d
             if want == "rows+group_g8"]:
         an = sft.ChainAnalysis.run(p)
-        plan = gp.plan_group(p, an, B, g)
+        plan = gp.plan_group(p, an, B, g, segments=segments)
         src = codegen.group_source(p, an, plan)
         group_plans.append((label, p, an, plan, src))
         sources.append((src, "group"))
+    n_group3 = len(group_plans) - sum(w == "rows+group_g8"
+                                      for _, w in mains2d)
     # beside the 2-D cells: forced overlap on the unrotated plane (the
     # route before the rows path), forced rows+panel; a panel route's
     # kernel, and beside it the stream kernel's packed plan (its route
@@ -1087,7 +1100,7 @@ def main() -> int:
             sources.append((tl.tile_source(plan), "tile"))
     tile_main = {}
     for p, mode in ((jacobi2, "masked"), (jacobi2, "fast"),
-                    (hdiff8, "masked")):
+                    (hdiff8, tl.AUTO_MODE)):
         tile_main[p.name, mode] = tl.plan_tile(p, mode=mode)
         sources.append((tl.tile_source(tile_main[p.name, mode]), "tile"))
     # the probes of phase 6, built from csrc/probes/ (the names and text
@@ -1167,7 +1180,7 @@ def main() -> int:
                 raise RuntimeError(f"stream kernel disagrees with its plain "
                                    f"version on {label}")
 
-    for label, p, an, plan, src in group_plans[:len(group_cases)]:
+    for label, p, an, plan, src in group_plans[:n_group3]:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
         before = gp.launches
@@ -1180,7 +1193,8 @@ def main() -> int:
                                rtol)
             n = gp.launches - before
             print(f"compare: group   {label:28s} B {plan.B} groups "
-                  f"{len(plan.groups)} tile {plan.tile} max_abs_err "
+                  f"{len(plan.groups)} tile {plan.tile} x {plan.threads} "
+                  f"segments {plan.segments} max_abs_err "
                   f"{err:.3g} launches {n} {'OK' if ok else 'MISMATCH'}",
                   flush=True)
             if not ok or n != 1:
@@ -1468,7 +1482,8 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
     library.append(("stream_spill", jacobi32, 1))
-    # K6 on jacobi3d 512^3 x 2: masked (the route's mode), then fast
+    # K6 on jacobi3d 512^3 x 2: masked, then fast (the route's mode,
+    # tl.AUTO_MODE, whose entry the kernels line carries)
     arrays = spanned_arrays(jacobi2, sft.load_input_arrays(jacobi2, seed=0),
                             device="cuda")
     for mode in ("masked", "fast"):
@@ -1487,19 +1502,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         bound_ms, bound_by = _bound(jacobi2)
         print(f"kernel: tile {jacobi2.name} {mode} tile {plan.tile} smem "
-              f"{plan.smem_bytes()} B: {ms:.3f} ms"
-              f"{' (with the shell fix-up)' if mode == 'fast' else ''}, "
+              f"{plan.smem_bytes()} B, {pn.occupancy(lib)} blocks per SM: "
+              f"{ms:.3f} ms, "
               f"plain version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), max_abs_err {err:.3g} "
               f"{'OK' if ok else 'MISMATCH'} | {smi}", flush=True)
         if not ok:
             raise RuntimeError(f"tile kernel ({mode}) disagrees with its "
                                f"plain version on {jacobi2.name}")
-        if mode == "masked":
+        if mode == tl.AUTO_MODE:
             report["tile"] = {
                 "name": "tile", "route": "cuda",
                 "source": "stencilflow_tpu_torch/backend/codegen.py",
-                "replaces": "stencilflow_tpu/backend/pallas.py:104",
+                "replaces": "stencilflow_tpu/backend/pallas.py:"
+                            + ("123" if mode == "fast" else "104"),
                 "launches": 0, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
@@ -1507,36 +1523,41 @@ def main() -> int:
     del arrays
     torch.cuda.empty_cache()
 
-    label, p, an, plan, src = group_plans[len(group_cases)]
-    arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
-                            device="cuda")
-    got = gp.run_group(p, an, plan, arrays, lib_of[src])
-    torch.cuda.synchronize()
-    t_plain = time.perf_counter()
-    want = gp.group_plain(p, an, plan, arrays)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t_plain) * 1e3
-    ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
-                       want[p.outputs[0]].cpu().numpy(), 0.0)
-    ms = _time_ms(lambda: gp.run_group(p, an, plan, arrays, lib_of[src]), 10)
-    del got, want, arrays
-    torch.cuda.empty_cache()
-    bound_ms, bound_by = _bound(p)
-    print(f"kernel: group {label} (rows) B {plan.B} g 8 tile {plan.tile} "
-          f"smem {plan.smem_bytes(p)} B: {ms:.3f} ms "
-          f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
-          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} | {smi}",
-          flush=True)
-    if not ok:
-        raise RuntimeError(f"group kernel disagrees with its plain version "
-                           f"on {label}")
-    report["group"] = {
-        "name": "group", "route": "cuda",
-        "source": "stencilflow_tpu_torch/backend/codegen.py",
-        "replaces": "stencilflow_tpu/backend/group.py:195",
-        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    for label, p, an, plan, src in group_plans[n_group3:]:
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                                device="cuda")
+        lib = lib_of[src]
+        got = gp.run_group(p, an, plan, arrays, lib)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = gp.group_plain(p, an, plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
+                           want[p.outputs[0]].cpu().numpy(), 0.0)
+        ms = _time_ms(lambda: gp.run_group(p, an, plan, arrays, lib), 10)
+        del got, want, arrays
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(p)
+        print(f"kernel: group {label} (rows) B {plan.B} g 8 tile {plan.tile} "
+              f"x {plan.threads} segments {plan.segments} smem "
+              f"{plan.smem_bytes(p)} B, {pn.occupancy(lib)} blocks per SM, "
+              f"modelled {plan.seconds(p) * 1e3:.3f} ms: {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s), plain version "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} | {smi}",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"group kernel disagrees with its plain "
+                               f"version on {label}")
+        if "group" not in report:   # jacobi2d's, the first 2-D cell
+            report["group"] = {
+                "name": "group", "route": "cuda",
+                "source": "stencilflow_tpu_torch/backend/codegen.py",
+                "replaces": "stencilflow_tpu/backend/group.py:195",
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
     library.append(("group", jacobi2d, 1))
     for p, _ in mains2d:   # forced kernels beside the 2-D cells
         an, oplan, pplan = forced2d[p.name]
@@ -1633,8 +1654,9 @@ def main() -> int:
                      f"{plan.smem_bytes()} B, spill buffer "
                      f"{plan.spill_bytes() / 2 ** 30:.3f} GiB")
         if backend == "tile":
-            plan = tile_main[p.name, "masked"]
-            extra = (f" | tile {plan.tile}, smem {plan.smem_bytes()} B | "
+            plan = tile_main[p.name, tl.AUTO_MODE]
+            extra = (f" | {plan.mode}, tile {plan.tile}, smem "
+                     f"{plan.smem_bytes()} B | "
                      f"route {route_ms[p.name][0]} "
                      f"{route_ms[p.name][1]:.3f} ms")
         else:

@@ -602,6 +602,113 @@ def _two_bodies(RJ: int, RK: int, pre, bodies, free: str,
             + [f"{ind}}}"])
 
 
+def _region_loop3(RI: int, RJ: int, RK: int, body: List[str]) -> List[str]:
+    """``_region_loop`` over an RI x RJ x RK region (rows il of RJ x RK
+    cells, flat index p): a thread's first (il, jl, kl) comes from
+    ``_thread_origins3`` before the march, later ones by constant steps
+    with carries (no division in a pass)."""
+    s = f"{RJ}x{RK}"
+    if RJ == 1:
+        head = [f"  int il = il0_{s}, kl = kl0_{s};", "  const int jl = 0;"]
+        step = [f"    kl += SF_NT % {RK};", f"    il += SF_NT / {RK};",
+                f"    if (kl >= {RK}) {{ kl -= {RK}; ++il; }}"]
+    else:
+        head = [f"  int il = il0_{s}, jl = jl0_{s}, kl = kl0_{s};"]
+        step = [f"    kl += SF_NT % {RK};", f"    jl += SF_NT / {RK} % {RJ};",
+                f"    il += SF_NT / {RJ * RK};",
+                f"    if (kl >= {RK}) {{ kl -= {RK}; ++jl; }}",
+                f"    if (jl >= {RJ}) {{ jl -= {RJ}; ++il; }}"]
+    return (["{"] + head
+            + ["#pragma unroll 1",
+               f"  for (int p = tid; p < {RI * RJ * RK}; p += SF_NT) {{"]
+            + ["    " + b for b in body] + step + ["  }", "}"])
+
+
+def _thread_origins3(shapes) -> List[str]:
+    """A thread's first (il, jl, kl) in a region of each (RJ, RK) row
+    shape: the divisions before the march (``_region_loop3``)."""
+    out = []
+    for RJ, RK in sorted(shapes):
+        s, n = f"{RJ}x{RK}", RJ * RK
+        out.append(f"  const int il0_{s} = tid / {n}, jl0_{s} = (tid - "
+                   f"il0_{s} * {n}) / {RK}, kl0_{s} = tid - il0_{s} * {n} "
+                   f"- jl0_{s} * {RK};  (void)jl0_{s};")
+    return out
+
+
+def _block_reader(name: str, shape_f, shape_s, drow: int, dj: int, dk: int,
+                  xs: set):
+    """A read of a row-major block ``name`` of rows of ``shape_f`` (FJ x
+    FK cells) by a region loop over rows of ``shape_s``: one load at a
+    constant offset from the thread's cell (``p``, or ``x<FJ>_<FK>`` for
+    another row shape: ``xs``), the block's row ``drow`` being the
+    reader's row 0."""
+    FJ, FK = shape_f
+
+    def at(o):
+        x = "p"
+        if tuple(shape_f) != tuple(shape_s):
+            x = f"x{FJ}_{FK}"
+            xs.add((FJ, FK))
+        return (f"{name}[{x} + "
+                f"{(drow + o[0]) * FJ * FK + (dj + o[1]) * FK + dk + o[2]}]")
+    return at
+
+
+def _cell_pre3(gi: str, hj: int, hk: int, xs) -> List[str]:
+    """A 3-D region loop's cell: global (gi, gj, gk) from row ``gi`` + il,
+    and its flat index in blocks of other row shapes."""
+    return ([f"const int gi = {gi} + il, gj = j0 - {hj} + jl, "
+             f"gk = k0 - {hk} + kl;", "(void)gi; (void)gj; (void)gk;"]
+            + [f"const int x{FJ}_{FK} = (il * {FJ} + jl) * {FK} + kl;"
+               for FJ, FK in sorted(xs)])
+
+
+def _two_bodies3(R: int, RJ: int, RK: int, pres, bodies, free: str,
+                 ind: str) -> List[str]:
+    """``_two_bodies`` over a 3-D region; ``free`` None keeps the masked
+    body alone."""
+    if free is None:
+        return [ind + y for y in _region_loop3(R, RJ, RK,
+                                               pres[1] + bodies[1])]
+    return ([f"{ind}if ({free}) {{  // mask-free"]
+            + [ind + "  " + y for y in _region_loop3(R, RJ, RK,
+                                                     pres[0] + bodies[0])]
+            + [f"{ind}}} else {{  // masked"]
+            + [ind + "  " + y for y in _region_loop3(R, RJ, RK,
+                                                     pres[1] + bodies[1])]
+            + [f"{ind}}}"])
+
+
+def _flat_at(dim_mask, coords, dims) -> str:
+    """Row-major flat index of in-range coords over the spanned dims."""
+    idx = None
+    for d in range(3):
+        if dim_mask[d]:
+            idx = (f"(long long)({coords[d]})" if idx is None
+                   else f"({idx}) * {dims[d]}LL + ({coords[d]})")
+    return idx or "0LL"
+
+
+def _async_copy(program, f: str, dst: str, src: str) -> str:
+    """One element of ``f`` from ``src`` to shared ``dst``: a cp.async
+    zero-filled where ``inb`` is false (synchronous for 1- and 2-byte
+    types)."""
+    size = np.dtype(program.field_dtype(f)).itemsize
+    if size in (4, 8):
+        return f"sf_cp{size}({dst}, {src}, inb);"
+    return (f"*({dst}) = inb ? *({src}) : "
+            f"{literal(0, program.field_dtype(f))};")
+
+
+_CP_WAIT_ALL = """#ifdef __CUDACC__
+#define SF_CP_WAIT_ALL() asm volatile("cp.async.wait_group 0;" ::: "memory")
+#else
+#define SF_CP_WAIT_ALL()
+#endif
+"""
+
+
 def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
     """The panel streamer for ``plan`` (backend/panel.py PanelPlan), K1.
 
@@ -1820,7 +1927,8 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
 def _entry_points(program, kernel: str, params: str, args: str, grid,
                   smem: int, slots, n_pool: int = 0,
                   origin: bool = False, spill_bytes: int = 0,
-                  min_blocks: int = 0, threads: int = THREADS) -> List[str]:
+                  min_blocks: int = 0, threads: int = THREADS,
+                  segments: int = 0) -> List[str]:
     """The ``__global__`` kernel around the block body ``<kernel>_block``
     and its ``sf_launch`` (``sf_local_launch`` with ``origin``) for nvcc;
     for g++, ``sf_host_launch``, which runs every block with one thread
@@ -1828,7 +1936,10 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
     shared memory filled with NaN, and a spill buffer of ``spill_bytes``
     (when nonzero) filled the same way.  Blocks have ``threads`` threads;
     ``min_blocks`` > 1 asks nvcc for that many resident blocks per SM
-    (``__launch_bounds__``: a register budget)."""
+    (``__launch_bounds__``: a register budget).  ``segments`` > 0 adds a
+    grid dimension z of that many blocks, passed first to the block body
+    (the group kernel's i-segments); the host then fills shared memory
+    with NaN before every block, so a block reads nothing another left."""
     ntj, ntk = grid
     bounds = f"{threads}, {min_blocks}" if min_blocks > 1 else f"{threads}"
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
@@ -1837,15 +1948,22 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
              f"{spill_bytes}LL);",
              f"  memset(sf_spill, 0xff, {spill_bytes}LL);"] \
         if spill_bytes else []
+    z, dim_z, host_z = ("", "", []) if not segments else (
+        "blockIdx.z, ", f", {segments}",
+        [f"  for (int bz = 0; bz < {segments}; ++bz)"])
+    host_call = f"{kernel}_block({'bz, ' if segments else ''}by, bx, 0, 1, " \
+        f"sf_smem, {args});"
+    if segments:
+        host_call = f"{{ memset(sf_smem, 0xff, {smem}); {host_call} }}"
     return ["#ifdef __CUDACC__",
             f"__global__ void __launch_bounds__({bounds}) "
             f"{kernel}({params}) {{",
             "  extern __shared__ __align__(16) unsigned char sf_smem[];",
-            f"  {kernel}_block(blockIdx.y, blockIdx.x, threadIdx.x, "
+            f"  {kernel}_block({z}blockIdx.y, blockIdx.x, threadIdx.x, "
             f"{threads}, sf_smem, {_param_names(params)});",
             "}",
-            _launcher(program, kernel, f"dim3({ntk}, {ntj})", smem, slots,
-                      n_pool, origin, bool(spill_bytes), threads),
+            _launcher(program, kernel, f"dim3({ntk}, {ntj}{dim_z})", smem,
+                      slots, n_pool, origin, bool(spill_bytes), threads),
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
             "void* const* out, const unsigned char* scal"
@@ -1855,21 +1973,43 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             "  // uninitialised shared memory reads as NaN here",
             f"  unsigned char* const sf_smem = (unsigned char*)malloc("
             f"{max(smem, 1)});",
-            f"  memset(sf_smem, 0xff, {smem});"] + spill + [
+            f"  memset(sf_smem, 0xff, {smem});"] + spill + host_z + [
             f"  for (int by = 0; by < {ntj}; ++by)",
             f"    for (int bx = 0; bx < {ntk}; ++bx)",
-            f"      {kernel}_block(by, bx, 0, 1, sf_smem, {args});",
+            f"      {host_call}",
             "  free(sf_smem);"] + (["  free(sf_spill);"] if spill else []) + [
             "}", "#endif"]
 
 
 def group_source(program: ir.Program, analysis: ChainAnalysis,
                  plan) -> str:
-    """The group streamer for ``plan`` (backend/group.py GroupPlan): per
-    step, ingest one panel of B planes of every streamed input into its
-    ring, then evaluate each live group's stages over their i-widened
-    blocks.  Like ``stream_source``, the block body also compiles with
-    g++ into ``sf_host_launch``."""
+    """The group streamer for ``plan`` (backend/group.py GroupPlan), K5,
+    on K1's skeleton.
+
+    One block per (segment, j tile, k tile) marches panels of B planes.
+    At step t every group whose panel q = t - lag(g) the block needs
+    evaluates its live stages, each over its i-widened block, a barrier
+    after each.  Panel t + 1 of every streamed input is issued by
+    ``cp.async`` (zero-filled beyond the domain) right after the last
+    stage that reads the panel it replaces (``plan.issue``), or, where
+    that is the step's last stage, at the step's top into an extra panel
+    slot; every thread waits for its copies before the step's last
+    barrier, which so also lands panel t + 1 (8 barriers a step for 8
+    stages).  A ring keeps its panels in slots that rotate by per-step
+    counters (t mod slots), at a shift chosen so its readers' windows
+    wrap the least, with the planes a window can wrap into mirrored past
+    its end: each group sets one base per ring it reads once a step, and
+    a ring read is one shared-memory load at a constant offset from it
+    and the thread's cell.  A
+    thread's first cell of each row shape comes from one division before
+    the march, later ones from constant steps.  Each stage has a
+    mask-free body, taken where the block's widest (j, k) reach and the
+    stage's rows and i reads lie inside the domain, and a masked one
+    (boundary conditions from global coordinates).  A segment's block
+    starts early enough to fill its rings (``GroupPlan.warmup``),
+    evaluates each group only on the panels its own panels need, and
+    writes only its own panels.  Like ``panel_source``, the block body
+    also compiles with g++ into ``sf_host_launch``."""
     I, J, K = dims = program.dimensions
     order, head, slots = _common(program, analysis)
     stage_fn = {k: i for i, k in enumerate(order)}
@@ -1878,114 +2018,211 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
     tj, tk = plan.tile
     ring_off, temp_off, smem = plan.smem_layout(program)
     params, args = _params(program)
-    L = [head, _STREAM_MACROS,
+    Hj, Hk = plan.reach(program)
+    warm = plan.warmup(program)
+    S, Ps = plan.segments, plan.panels_per_segment(program)
+    lag_max = plan.lag_max(program)
+    ring_inputs = [f for f in plan.rings if f in program.inputs]
+    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + [
+         _CP_WAIT_ALL,
          "// group streamer (backend/group.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/group.py _group_kernel_body (K5)",
-         "// plane index modulo a ring's plane count, for any sign",
-         "SF_DEV int sf_pmod(const int x, const int n) {",
-         "  const int r = x % n;", "  return r < 0 ? r + n : r;", "}",
-         "SF_DEV void sf_group_block(const int by, const int bx, "
-         "const int tid, const int nt, unsigned char* const sf_smem, "
-         f"{params}) {{",
-         f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
+         "SF_DEV void sf_group_block(const int bz, const int by, "
+         "const int bx, const int tid, const int nt, "
+         f"unsigned char* const sf_smem, {params}) {{",
+         "  (void)nt;",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};",
+         "  // every cell and read of the block inside the (j, k) domain",
+         f"  const bool inner = j0 >= {Hj} && j0 + {tj + Hj} <= {J} && "
+         f"k0 >= {Hk} && k0 + {tk + Hk} <= {K};",
+         "  (void)inner;",
+         "  // the segment's panels [P0, P1), its first step T0 (the "
+         "warm-up that fills its rings) and the last panel it loads",
+         f"  const int P0 = bz * {Ps}, P1 = P0 + {Ps} < {n_panels} ? "
+         f"P0 + {Ps} : {n_panels};",
+         f"  const int T0 = P0 > {warm['steps']} ? P0 - {warm['steps']} : 0;",
+         f"  const int Pin = P1 + {warm['in_hi']} < {n_panels} ? "
+         f"P1 + {warm['in_hi']} : {n_panels};",
+         "  (void)P1; (void)Pin;"]
     for f in plan.rings:
         ct = ctype(program.field_dtype(f))
         L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {ring_off[f]});")
-    L.append(f"  for (int t = 0; t < {n_panels + plan.lag_max(program)}; "
-             "++t) {")
-    ring_inputs = [f for f in plan.rings if f in program.inputs]
-    if ring_inputs:
-        L.append(f"    if (t < {n_panels}) {{")
-        for f in ring_inputs:
+    counters = sorted({plan.slots(f) for f in plan.rings} - {1})
+    L += [f"  int m{D} = T0 % {D};  // t mod {D}" for D in counters]
+    for g in range(len(plan.groups)):
+        if plan.live(g):
+            lo_w, hi_w = warm["group"][g]
+            L.append(f"  const int qlo{g} = P0 > {lo_w} ? P0 - {lo_w} : 0, "
+                     f"qhi{g} = P1 + {hi_w} < {n_panels} ? P1 + {hi_w} : "
+                     f"{n_panels};")
+    shapes = {plan.region(f) for f in plan.rings}
+    shapes |= {plan.region(s) for g in range(len(plan.groups))
+               for s in plan.live(g)}
+    L += _thread_origins3(shapes)
+
+    def loads(fields, t_expr: str, slot) -> List[str]:
+        out = []
+        for f in fields:
             RJ, RK = plan.region(f)
             hj, hk = plan.halo[f]
+            n, M = plan.slots(f) * B, plan.mirror[f]
             mask = program.inputs[f].dim_mask
-            c = ("gi", "gj", "gk")
-            L += [f"      for (int p = tid; p < {B * RJ * RK}; p += nt) {{",
-                  f"        const int il = p / {RJ * RK}, "
-                  f"jl = (p / {RK}) % {RJ}, kl = p % {RK};",
-                  f"        const int gi = t * {B} + il, gj = j0 - {hj} + jl, "
-                  f"gk = k0 - {hk} + kl;",
-                  f"        r_{f}[(gi % {plan.depth[f] * B}) * {RJ * RK} + "
-                  f"p - il * {RJ * RK}] = ({_inb(mask, c, dims)}) ? g_{f}"
-                  f"[{_flat(mask, c, dims)}] : "
-                  f"{literal(0, program.field_dtype(f))};",
-                  "      }"]
-        L += ["    }", "    SF_SYNC();"]
+            inb = " && ".join(
+                [f"gj >= 0 && gj < {J}"] * bool(mask[1])
+                + [f"gk >= 0 && gk < {K}"] * bool(mask[2])) or "true"
+            src = (f"g_{f} + (inb ? "
+                   f"{_flat_at(mask, ('gi', 'gj', 'gk'), dims)} : 0LL)")
+            ct = ctype(program.field_dtype(f))
+            body = [f"const int gi = ({t_expr}) * {B} + il, "
+                    f"gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
+                    f"const bool inb = {inb};",
+                    f"const int pr = sf_wrap(u + il, {n});",
+                    f"{ct}* const d = r_{f} + p + (pr - il) * {RJ * RK};",
+                    _async_copy(program, f, "d", src)]
+            if M:
+                body.append(f"if (pr < {M}) "
+                            + _async_copy(program, f, f"d + {n * RJ * RK}",
+                                          src))
+            out += ["{", f"  const int u = {slot(f)} * {B} + "
+                         f"{plan.shift[f]};"]
+            out += ["  " + y for y in _region_loop3(B, RJ, RK, body)]
+            out.append("}")
+        return out
+
+    top = [f for f in ring_inputs if plan.issue[f] in (None, -1)]
+    if ring_inputs:
+        L += ["  // prologue: panel T0 in flight", "  if (T0 < Pin) {"]
+        L += ["    " + y for y in loads(
+            ring_inputs, "T0", lambda f: _slot_of(plan.slots(f), 0))]
+        L += ["  }", "  SF_CP_COMMIT();", "  SF_CP_WAIT_ALL();",
+              "  SF_SYNC();"]
+    L.append("  for (int t = T0; t < P1 + " f"{lag_max}; ++t) {{")
+    if top:
+        L += ["    // panel t + 1 in flight (its slot's last reader ran in "
+              "step t - 1)", "    if (t + 1 < Pin) {"]
+        L += ["      " + y for y in loads(
+            top, "t + 1", lambda f: _slot_of(plan.slots(f), -1))]
+        L += ["    }", "    SF_CP_COMMIT();"]
+    phase, last = 0, len(plan.phases()) - 1
     for g, grp in enumerate(plan.groups):
         live = plan.live(g)
         if not live:
             continue
         nd, gset = plan.needs[g], set(grp)
-        L += [f"    {{  // group {g}: {' '.join(live)}",
-              f"      const int q = t - {plan.lag[g]};",
-              f"      if (q >= 0 && q < {n_panels}) {{"]
+        L += [f"    // group {g}: {' '.join(live)}",
+              f"    const int q{g} = t - {plan.lag[g]};",
+              f"    const bool run{g} = q{g} >= qlo{g} && q{g} < qhi{g};"]
+        if any(s in program.outputs for s in live) and S > 1:
+            L.append(f"    const bool own{g} = q{g} >= P0 && q{g} < P1;")
         for s, off in temp_off[g].items():
             ct = ctype(program.field_dtype(s))
-            L.append(f"        {ct}* const b_{s} = ({ct}*)(sf_smem + {off});")
+            L.append(f"    {ct}* const b_{s} = ({ct}*)(sf_smem + {off});")
+        for f in nd:
+            if f in gset or f not in plan.rings:
+                continue
+            ct = ctype(program.field_dtype(f))
+            D = plan.slots(f)
+            e = (plan.shift[f] - nd[f][0]) % (D * B)
+            L.append(f"    const {ct}* const rb{g}_{f} = r_{f} + "
+                     f"sf_wrap({_slot_of(D, plan.lag[g])} * {B} + {e}, "
+                     f"{D * B}) * {math.prod(plan.region(f))};")
         for s in live:
             R = plan.rows(g, s)
             RJ, RK = plan.region(s)
             hj, hk = plan.halo[s]
             lo_s = nd[s][0]
+            xs = set()
 
-            def onchip(f, s=s, lo_s=lo_s):
+            def onchip(f, s=s, lo_s=lo_s, xs=xs):
                 if f not in gset and f not in plan.rings:
                     return lambda o: None   # read from device memory
-                FJ, FK = plan.region(f)
-                dj = plan.halo[f][0] - plan.halo[s][0]
-                dk = plan.halo[f][1] - plan.halo[s][1]
-                if f in gset:
-                    dr = nd[f][0] - lo_s
-                    return lambda o: (f"b_{f}[(il + {dr + o[0]}) * "
-                                      f"{FJ * FK} + (jl + {dj + o[1]}) * "
-                                      f"{FK} + kl + {dk + o[2]}]")
-                n = plan.depth[f] * B
-                return lambda o: (f"r_{f}[sf_pmod(gi + {o[0]}, {n}) * "
-                                  f"{FJ * FK} + (jl + {dj + o[1]}) * {FK} "
-                                  f"+ kl + {dk + o[2]}]")
+                name = f"b_{f}" if f in gset else f"rb{g}_{f}"
+                return _block_reader(
+                    name, plan.region(f), plan.region(s), nd[f][0] - lo_s,
+                    plan.halo[f][0] - plan.halo[s][0],
+                    plan.halo[f][1] - plan.halo[s][1], xs)
 
-            body = _stage_call(program, program.kernels[s], stage_fn[s],
-                               ("gi", "gj", "gk"), onchip, slots)
-            core = f"il >= {lo_s} && il < {lo_s + B}"
-            if s in temp_off[g]:
-                body.append(f"b_{s}[p] = r;")
+            bodies = []
+            for masked in (False, True):
+                body = _stage_call(program, program.kernels[s], stage_fn[s],
+                                   ("gi", "gj", "gk"), onchip, slots,
+                                   masked=masked)
+                core = f"il >= {lo_s} && il < {lo_s + B}"
+                if s in temp_off[g]:
+                    body.append(f"b_{s}[p] = r;")
+                if s in plan.rings:
+                    n, M = plan.slots(s) * B, plan.mirror[s]
+                    body += [f"if ({core}) {{",
+                             f"  const int pr = sf_wrap(ub + il, {n});",
+                             f"  w[p + (pr - il) * {RJ * RK}] = r;"]
+                    if M:
+                        body.append(f"  if (pr < {M}) w[p + (pr - il + {n})"
+                                    f" * {RJ * RK}] = r;")
+                    body.append("}")
+                if s in program.outputs:
+                    cond = [core]
+                    if hj or RJ != tj:
+                        cond.append(f"jl >= {hj} && jl < {hj + tj}")
+                    if hk or RK != tk:
+                        cond.append(f"kl >= {hk} && kl < {hk + tk}")
+                    if masked:
+                        cond.append(f"gj < {J} && gk < {K}")
+                    if S > 1:
+                        cond.append(f"own{g}")
+                    body.append(f"if ({' && '.join(cond)}) o_{s}[((long long)"
+                                f"gi * {J} + gj) * {K} + gk] = r;")
+                bodies.append(body)
+            pre = _cell_pre3(f"q{g} * {B} - {lo_s}", hj, hk, xs)
+            qlo, qhi = plan.free_panels(program, g, s)
+            L += [f"    if (run{g}) {{  // stage {s}: {R} x {RJ} x {RK}"]
             if s in plan.rings:
-                body.append(f"if ({core}) r_{s}[(gi % {plan.depth[s] * B})"
-                            f" * {RJ * RK} + p - il * {RJ * RK}] = r;")
-            if s in program.outputs:
-                body.append(f"if ({core} && jl >= {hj} && jl < {hj + tj} && "
-                            f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
-                            f"gk < {K}) o_{s}[((long long)gi * {J} + gj) * "
-                            f"{K} + gk] = r;")
-            L += [f"        {{  // stage {s}: {R} x {RJ} x {RK}",
-                  f"          for (int p = tid; p < {R * RJ * RK}; "
-                  "p += nt) {",
-                  f"            const int il = p / {RJ * RK}, "
-                  f"jl = (p / {RK}) % {RJ}, kl = p % {RK};",
-                  f"            const int gi = q * {B} - {lo_s} + il, "
-                  f"gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;"]
-            L += ["            " + b for b in body]
-            L += ["          }", "          SF_SYNC();", "        }"]
-        L += ["      }", "    }"]
+                ct = ctype(program.field_dtype(s))
+                L += [f"      {ct}* const w = r_{s};",
+                      f"      const int ub = "
+                      f"{_slot_of(plan.slots(s), plan.lag[g])} * {B} + "
+                      f"{plan.shift[s] - lo_s};"]
+            L += _two_bodies3(R, RJ, RK, (pre, pre), bodies,
+                              f"inner && q{g} >= {qlo} && q{g} < {qhi}"
+                              if qlo < qhi else None, "      ")
+            if phase < last or not ring_inputs:
+                L += ["      SF_SYNC();", "    }"]
+            else:   # the step's last barrier also lands panel t + 1
+                L += ["    }", "    SF_CP_WAIT_ALL();", "    SF_SYNC();"]
+            late = [f for f in ring_inputs if plan.issue[f] == phase]
+            if late:
+                L += ["    // the last reader is done: panel t + 1 into "
+                      "the slot it freed", "    if (t + 1 < Pin) {"]
+                L += ["      " + y for y in loads(
+                    late, "t + 1", lambda f: _slot_of(plan.slots(f), -1))]
+                L += ["    }", "    SF_CP_COMMIT();"]
+            phase += 1
+    L += [f"    m{D} = sf_wrap(m{D} + 1, {D});" for D in counters]
     L += ["  }", "}"]
     L += _entry_points(program, "sf_group", params, args,
-                       plan.grid(dims), smem, slots)
+                       plan.grid(dims), smem, slots,
+                       min_blocks=plan.min_blocks(program),
+                       threads=plan.threads, segments=S)
+    L += _occupancy(smem, plan.threads, "sf_group")
     return "\n".join(L)
 
 
 def tile_source(program: ir.Program, analysis: ChainAnalysis,
                 plan) -> str:
-    """The overlapped-tile kernel for ``plan`` (backend/tile.py TilePlan):
-    one block per 3-D core tile (ti, tj, tk); the full-rank inputs' tiles
-    widened by the chain halo are loaded into shared memory (zero beyond
-    the domain), then every stage is evaluated over its tile widened by
-    its stage halo, in chain order, into a shared-memory buffer placed by
-    liveness, and the core cells inside the domain are written out.
-    ``plan.mode`` "masked" applies boundary conditions at every read from
-    global coordinates; "fast" reads mask-free (the border shell is fixed
-    up outside the kernel).  Like ``stream_source``, the block body also
-    compiles with g++ into ``sf_host_launch``."""
+    """The overlapped-tile kernel for ``plan`` (backend/tile.py TilePlan),
+    K6: one block per 3-D core tile (ti, tj, tk).  The full-rank inputs'
+    tiles widened by the chain halo are loaded into shared memory by
+    ``cp.async`` (zero-filled beyond the domain), then every stage is
+    evaluated over its tile widened by its stage halo, in chain order,
+    into a shared-memory buffer placed by liveness, and the core cells
+    inside the domain are written out.  Region loops take a thread's first
+    (il, jl, kl) from one division and advance by constant steps; a read
+    is one load at a constant offset from the thread's cell.  ``plan.mode``
+    "masked" applies boundary conditions at every read from global
+    coordinates in every block; "fast" takes a mask-free body in blocks
+    whose widened tile lies inside the domain and the masked body in the
+    others, which so compute the border shell exactly: one launch, no
+    fix-up.  Like ``panel_source``, the block body also compiles with g++
+    into ``sf_host_launch``."""
     I, J, K = dims = program.dimensions
     order, head, slots = _common(program, analysis)
     ti, tj, tk = plan.tile
@@ -1993,65 +2230,81 @@ def tile_source(program: ir.Program, analysis: ChainAnalysis,
     offs = plan.smem_offsets()
     masked = plan.mode == "masked"
     params, args = _params(program)
-    L = [head, _STREAM_MACROS,
+    H = plan.halo
+    L = [head, _STREAM_MACROS] + _skeleton_macros(THREADS) + [
+         _CP_WAIT_ALL,
          "// overlapped-tile kernel (backend/tile.py): replaces the TPU "
          "kernel stencilflow_tpu/backend/pallas.py "
          + ("_kernel_body (K6, masked)" if masked else
-            "_fast_kernel_body (K6, mask-free interior)"),
+            "_fast_kernel_body and _shell_fixup (K6, mask-free interior "
+            "blocks, masked border blocks)"),
          "SF_DEV void sf_tile_block(const int by, const int bx, "
          "const int tid, const int nt, unsigned char* const sf_smem, "
          f"{params}) {{",
+         "  (void)nt;",
          f"  const int bi = by / {ntj}, bj = by - bi * {ntj};",
          f"  const int i0 = bi * {ti}, j0 = bj * {tj}, k0 = bx * {tk};"]
+    if not masked:
+        L += ["  // the widened tile inside the domain: no read to mask",
+              f"  const bool inner = i0 >= {H[0]} && i0 + {ti + H[0]} <= {I} "
+              f"&& j0 >= {H[1]} && j0 + {tj + H[1]} <= {J} && k0 >= {H[2]} "
+              f"&& k0 + {tk + H[2]} <= {K};"]
     for f in plan.onchip:
         ct = ctype(program.field_dtype(f))
         L.append(f"  {ct}* const b_{f} = ({ct}*)(sf_smem + {offs[f]});")
-
-    def loop(f):
+    fields = list(plan.onchip) + list(order)
+    L += _thread_origins3({plan.region(f)[1:] for f in fields})
+    for f in plan.onchip:
+        if f not in program.inputs:
+            continue
         EI, EJ, EK = plan.region(f)
         mi, mj, mk = plan.margin[f]
-        return [f"  for (int p = tid; p < {EI * EJ * EK}; p += nt) {{",
-                f"    const int il = p / {EJ * EK}, jl = (p / {EK}) % {EJ},"
-                f" kl = p % {EK};",
-                f"    const int gi = i0 - {mi} + il, gj = j0 - {mj} + jl, "
-                f"gk = k0 - {mk} + kl;"]
-
-    for f in plan.onchip:
-        if f in program.inputs:
-            L += loop(f)
-            L += [f"    b_{f}[p] = (gi >= 0 && gi < {I} && gj >= 0 && "
-                  f"gj < {J} && gk >= 0 && gk < {K}) ? g_{f}[((long long)"
-                  f"gi * {J} + gj) * {K} + gk] : "
-                  f"{literal(0, program.field_dtype(f))};", "  }"]
-    L.append("  SF_SYNC();")
+        L += ["  " + y for y in _region_loop3(EI, EJ, EK, [
+            f"const int gi = i0 - {mi} + il, gj = j0 - {mj} + jl, "
+            f"gk = k0 - {mk} + kl;",
+            f"const bool inb = gi >= 0 && gi < {I} && gj >= 0 && gj < {J} "
+            f"&& gk >= 0 && gk < {K};",
+            _async_copy(program, f, f"b_{f} + p", f"g_{f} + (inb ? "
+                        f"{_flat_at((1, 1, 1), ('gi', 'gj', 'gk'), dims)} "
+                        ": 0LL)")])]
+    L += ["  SF_CP_COMMIT();", "  SF_CP_WAIT_ALL();", "  SF_SYNC();"]
     for idx, s in enumerate(order):
-        def onchip(f, s=s):
+        EI, EJ, EK = plan.region(s)
+        mi, mj, mk = plan.margin[s]
+        xs = set()
+
+        def onchip(f, s=s, xs=xs):
             if f not in plan.onchip:
                 return lambda o: None
-            _, FJ, FK = plan.region(f)
             d = [plan.margin[f][x] - plan.margin[s][x] for x in range(3)]
-            return lambda o: (f"b_{f}[(il + {d[0] + o[0]}) * {FJ * FK} + "
-                              f"(jl + {d[1] + o[1]}) * {FK} + "
-                              f"kl + {d[2] + o[2]}]")
+            return _block_reader(f"b_{f}", plan.region(f)[1:],
+                                 plan.region(s)[1:], d[0], d[1], d[2], xs)
 
-        body = _stage_call(program, program.kernels[s], idx,
-                           ("gi", "gj", "gk"), onchip, slots, masked=masked)
-        if s in plan.onchip:
-            body.append(f"b_{s}[p] = r;")
-        if s in program.outputs:
-            mi, mj, mk = plan.margin[s]
-            body.append(
-                f"if (il >= {mi} && il < {mi + ti} && jl >= {mj} && "
-                f"jl < {mj + tj} && kl >= {mk} && kl < {mk + tk} && "
-                f"gi < {I} && gj < {J} && gk < {K}) "
-                f"o_{s}[((long long)gi * {J} + gj) * {K} + gk] = r;")
-        L.append(f"  // stage {s}")
-        L += loop(s)
-        L += ["    " + b for b in body]
-        L += ["  }", "  SF_SYNC();"]
+        bodies = []
+        for m in (False, True):
+            body = _stage_call(program, program.kernels[s], idx,
+                               ("gi", "gj", "gk"), onchip, slots, masked=m)
+            if s in plan.onchip:
+                body.append(f"b_{s}[p] = r;")
+            if s in program.outputs:
+                cond = (f"il >= {mi} && il < {mi + ti} && jl >= {mj} && "
+                        f"jl < {mj + tj} && kl >= {mk} && kl < {mk + tk}")
+                if m:
+                    cond += f" && gi < {I} && gj < {J} && gk < {K}"
+                body.append(f"if ({cond}) "
+                            f"o_{s}[((long long)gi * {J} + gj) * {K} + gk] "
+                            "= r;")
+            bodies.append(body)
+        pre = _cell_pre3(f"i0 - {mi}", mj, mk, xs)
+        L.append(f"  // stage {s}: {EI} x {EJ} x {EK}")
+        L += _two_bodies3(EI, EJ, EK, (pre, pre), bodies,
+                          None if masked else "inner", "  ")
+        if idx < len(order) - 1:
+            L.append("  SF_SYNC();")
     L.append("}")
     L += _entry_points(program, "sf_tile", params, args, (nti * ntj, ntk),
                        plan.smem_bytes(), slots)
+    L += _occupancy(plan.smem_bytes(), THREADS, "sf_tile")
     return "\n".join(L)
 
 

@@ -11,8 +11,10 @@ field ``f`` at offset ``o`` for a result of margin ``m`` is the slice
 
 — in bounds because ``margin_f >= m + |o|`` (the stage-halo recurrence).
 Cells within ``H`` of a border see the zero padding instead of their
-boundary condition; the overlapped-tile lowering (``tile.py``) overwrites
-that shell with the exact evaluator (``shell_fixup``).
+boundary condition; the plain version of the overlapped-tile lowering's
+fast mode (``tile.py``) overwrites that shell with the exact evaluator
+(``shell_fixup``), where its kernel evaluates the blocks that touch the
+shell with their boundary conditions.
 
 Here the slices act on the last three dims, so one call evaluates a whole
 batch of tiles (leading dims) at once: ``tile.py``'s plain version of the

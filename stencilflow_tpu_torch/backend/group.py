@@ -11,72 +11,105 @@ drop by about g against the panel kernel, for a recompute of about
 is the reference's lag / depth / needs / ring-field algebra, copied
 exactly.
 
-The schedule here is the port's own.  One thread block owns a
-halo-widened (tj, tk) core tile of the (j, k) plane (after the rows
-rotation J = 1, so the blocks tile k) and marches i in panels of B
-planes:
+The schedule here is the port's own, on the panel kernel's (K1's)
+skeleton.  One thread block owns a halo-widened (tj, tk) core tile of
+the (j, k) plane (after the rows rotation J = 1, so the blocks tile k)
+and one i-segment of its panels, and marches i in panels of B planes:
 
-* step t ingests panel t of every streamed input into its ring;
-* then every group whose panel ``q = t - lag[g]`` lies in [0, I/B)
-  evaluates its live stages in order, each over its widened block
-  (rows x its (j, k) halo-widened region), one cell per thread;
-  stages read by a later stage of the same group keep their block in
-  shared scratch, placed by liveness (a block's bytes are reused once
-  its last reader in the group has run); ring fields store their B core
-  planes into their ring, program outputs write them to device memory;
-* a ring is a circular buffer of ``depth * B`` planes, indexed by the
-  global plane modulo its length (panel p sits in slot p mod depth, as
-  on the TPU); reads of other groups' fields take the plane they need
-  from it directly, so no window is ever assembled;
-* boundary conditions come from global coordinates (constant fill,
-  shrink JUNK_VAL, copy centre), as in the panel kernel: rows whose
-  plane lies outside [0, I) hold stale ring data or junk, and every read
-  with an i-offset that could carry such a row into an in-range plane
-  is masked, the invariant of the TPU kernel;
+* step t issues the ``cp.async`` loads of panel t + 1 of every streamed
+  input (zero-filled beyond the domain) into the slot of the panel it
+  replaces, right after the last stage that reads that panel
+  (``GroupPlan.issue``), or, where that stage is the step's last, at the
+  step's top into an extra panel slot (``GroupPlan.slots``); it waits for
+  panel t, and after a barrier every
+  group whose panel ``q = t - lag[g]`` the block needs evaluates its live
+  stages in order, each over its widened block (rows x its (j, k)
+  halo-widened region), a barrier after each; stages read by a later
+  stage of the same group keep their block in shared scratch, placed by
+  liveness; ring fields store their B core planes into their ring,
+  program outputs write them to device memory;
+* a ring's panels sit in slots that rotate by per-step counters (t mod
+  slots), its planes at a shift (``shift``) chosen so that its readers'
+  windows wrap the ring's end the least, and the planes a window can
+  wrap into are kept twice, past the end (``mirror``): each group sets
+  one base per ring it reads once a step, and a read is one shared-memory
+  load at a constant offset from it and the thread's cell; a thread's
+  first cell of each row shape comes from one division before the march;
+* each stage has a mask-free body, taken where the block's widest (j, k)
+  reach lies inside the domain and the stage's rows and i reads lie in
+  [0, I) (the reference's ``interior_split``), and a masked one:
+  boundary conditions from global coordinates (constant fill, shrink
+  JUNK_VAL, copy centre) as in the panel kernel, so rows whose plane lies
+  outside [0, I) hold stale ring data or junk that no read carries into
+  an in-range plane;
+* i-segments (``segments``): the grid has one block per (segment, tile);
+  a segment's block starts ``warmup`` panels early, so that its rings
+  hold what its first panels read, evaluates each group only on the
+  panels its own panels need, and writes only its own panels;
 * inputs that do not span i, and scalars, are read from device memory
   and kernel arguments.
 
 What bounds it on the H100: as the panel kernel, instruction rate and
 latency inside the block rather than device-memory bytes (jacobi2d
-8192^2 x 8 moves 512 MiB, 0.160 ms at 3.35 TB/s): a __syncthreads() after every
-stage of every panel, index and boundary arithmetic on every read, and
-shared memory.  The rings and the widest group's live blocks must fit
-227 KB, which caps B and the tile, and with J = 1 a row of 8192 cells
-gives few blocks to spread over 132 SMs; the planner weighs that
-(``stacked_io.tile_cost``).  Tensor cores, TMA loads, i-segments and
-register blocking are later work.
+8192^2 x 8 moves 512 MiB, 0.160 ms at 3.35 TB/s): a barrier after every
+stage of every panel and the recompute of the widened blocks.  The rings
+and the widest group's live blocks must fit 227 KB, which caps B and the
+tile, and with J = 1 a row of 8192 cells gives 256 blocks of (1, 32) to
+spread over 132 SMs; i-segments multiply the blocks for a few panels of
+warm-up each.  ``GroupPlan.seconds`` prices (tile, threads, segments) in
+seconds, as ``PanelPlan.seconds`` prices the panel kernel's tiles.  On an
+NVIDIA H100 80GB HBM3 (700 W; ``deep_time.py --cells group`` in turns
+with the kernel before this design) jacobi2d 8192^2 x 8 takes 0.83-0.86
+ms (2.10-2.12 before) at (1, 64) x 256 with 8 segments, and hotspot2d
+1.49-1.52 (2.82-2.83) at (1, 32) x 256 with 4; one barrier fewer a step
+moved neither.
 
-Not ported (TPU-only, ROADMAP ground rules): the interior split, direct
-input windows, the bool wire and narrow stores, VMEM limits, bf16 ring
-storage, and the auto-B preference for sublane multiples of 8.
+Not ported (TPU-only, ROADMAP ground rules): direct input windows, the
+bool wire and narrow stores, VMEM limits, bf16 ring storage, and the
+auto-B preference for sublane multiples of 8.
 
-``group_plain`` runs the same schedule from the same plan in torch ops,
-all tiles at once; the wrapper ``run_group`` takes it for CPU tensors
-only and launches the CUDA kernel (codegen.py ``group_source``) for CUDA
-tensors.
+``group_plain`` runs the reference's schedule from the same plan in
+torch ops, all tiles at once, one segment; the wrapper ``run_group``
+takes it for CPU tensors only and launches the CUDA kernel (codegen.py
+``group_source``) for CUDA tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import ir
-from ..config import H100_SMEM_PER_BLOCK
+from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
+                      H100_GROUP_CELL_RATE, H100_SM_COUNT,
+                      H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM)
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
-from .panel import tile_candidates
-from .stacked_io import (accesses_with_center, bc_select,
+from .panel import AHEAD, PANEL_THREADS, reach, tile_candidates
+from .stacked_io import (THREADS, accesses_with_center, bc_select,
                          check_scope, gather_global, or_mask,
-                         resolve_device, run_kernel, spanned_arrays,
-                         tile_cost)
+                         resolve_device, run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only)
 launches = 0
+# the i-segments a plan may cut I into (one block per segment and tile)
+SEGMENTS = (1, 2, 3, 4, 6, 8)
+# the plan rule's cost of a lane at (resident blocks per SM, threads a
+# block), relative to two blocks of 256, and its tail: a launch lasts its
+# blocks' waves over the SMs and GROUP_TAIL of one block more (the last
+# blocks finish alone).  Fitted (``sweep.fit_group``) to the times of 108
+# plans of jacobi2d and hotspot2d 8192^2 x 8 on an NVIDIA H100 80GB HBM3
+# (700 W), RMS error 8 % in log time: one block of 256 runs a lane 1.52x
+# as long as two, one of 512 1.13x; more segments (shorter blocks) win by
+# up to 1.6x over one, which the tail and the fractional waves carry.
+GROUP_LANE_COST = {(1, 256): 1.52, (2, 256): 1.0, (3, 256): 1.01,
+                   (4, 256): 1.02, (1, 512): 1.13, (2, 512): 1.02}
+GROUP_TAIL = 0.45
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -103,6 +136,19 @@ class GroupPlan:
         default_factory=dict)
     rings: List[str] = dataclasses.field(default_factory=list)
     tile: Tuple[int, int] = (0, 0)
+    # per ring: the shift of its planes in its slots, and the planes kept
+    # twice past its end (a reader's window wraps into them)
+    shift: Dict[str, int] = dataclasses.field(default_factory=dict)
+    mirror: Dict[str, int] = dataclasses.field(default_factory=dict)
+    inputs: Tuple[str, ...] = ()             # ring inputs (loaded ahead)
+    # per ring input: the phase (``phases``) after which panel t + 1 is
+    # issued into the slot of the panel its last reader freed (-1: at the
+    # step's top, no stage reads that panel), or None: at the step's top,
+    # into an extra slot
+    issue: Dict[str, Optional[int]] = dataclasses.field(
+        default_factory=dict)
+    threads: int = THREADS                   # threads of a block
+    segments: int = 1                        # i-segments of the grid
 
     @classmethod
     def build(cls, program: ir.Program, analysis: ChainAnalysis,
@@ -195,6 +241,31 @@ class GroupPlan:
                       if f in program.kernels or f in read]
         self.halo = {f: tuple((stage.get(f) or inp.get(f))[1:])
                      for f in self.rings + list(program.kernels)}
+        self.inputs = tuple(f for f in self.rings if f in program.inputs)
+        B = self.B
+        phases = self.phases()
+        for f in self.inputs:
+            # panel t + 1 takes the slot of panel t + 1 - depth: issue it
+            # after the last stage that reads that panel, unless that is
+            # the step's last (-1: no stage reads it, issue at the top)
+            last = -1
+            for n, (g, s) in enumerate(phases):
+                offs = [a[0] or 0 for a in accesses_with_center(
+                    program.kernels[s]).get(f, [])]
+                if offs and (min(offs) - self.needs[g][s][0]) // B <= \
+                        self.lag[g] + 1 - self.depth[f]:
+                    last = n
+            self.issue[f] = last if last < len(phases) - 1 else None
+        for f in self.rings:
+            # a window of lo + B + hi planes starting at a shift e0 into a
+            # slot reaches e0 + lo + hi planes past the ring's end; the
+            # shift that zeroes e0 for some reader minimises the worst
+            readers = [self.needs[g][f] for g in range(len(self.groups))
+                       if f in self.needs[g] and f not in self.groups[g]]
+            self.mirror[f], self.shift[f] = min(
+                (max([(c - lo) % B + lo + hi for lo, hi in readers],
+                     default=0), c)
+                for c in sorted({lo % B for lo, _ in readers} | {0}))
 
     def lag_max(self, program: ir.Program) -> int:
         return max(self.lag[self.group_of[o]] for o in program.outputs)
@@ -244,6 +315,22 @@ class GroupPlan:
             active.append((off, size, last[s]))
         return out
 
+    def phases(self) -> List[Tuple[int, str]]:
+        """(group, stage) of each stage a step evaluates, in order."""
+        return [(g, s) for g in range(len(self.groups)) for s in self.live(g)]
+
+    def slots(self, f: str) -> int:
+        """Panel slots of ring ``f``: its depth, and AHEAD more for a ring
+        input whose next panel is issued at the step's top (the panel in
+        flight beside every panel the step reads)."""
+        return self.depth[f] + (AHEAD if f in self.issue
+                                and self.issue[f] is None else 0)
+
+    def ring_planes(self, f: str) -> int:
+        """Planes of ring ``f`` in shared memory: its slots' and the
+        mirrored ones."""
+        return self.slots(f) * self.B + self.mirror[f]
+
     def smem_layout(self, program: ir.Program):
         """(byte offset of each ring, per group {stage: byte offset of its
         block}, total bytes) of the block's shared memory."""
@@ -251,7 +338,7 @@ class GroupPlan:
         for f in self.rings:
             rings[f] = off
             RJ, RK = self.region(f)
-            off += _align16(self.depth[f] * self.B * RJ * RK * np.dtype(
+            off += _align16(self.ring_planes(f) * RJ * RK * np.dtype(
                 program.field_dtype(f)).itemsize)
         temps, peak = [], 0
         for gi in range(len(self.groups)):
@@ -263,55 +350,183 @@ class GroupPlan:
     def smem_bytes(self, program: ir.Program) -> int:
         return self.smem_layout(program)[2]
 
-    def work(self, program: ir.Program) -> int:
-        """Cells one block evaluates per step: ingested planes plus every
-        live stage's widened block."""
-        cells = sum(self.B * self.region(f)[0] * self.region(f)[1]
-                    for f in self.rings if f in program.inputs)
-        for gi in range(len(self.groups)):
-            for s in self.live(gi):
-                RJ, RK = self.region(s)
-                cells += self.rows(gi, s) * RJ * RK
-        return cells
+    # -- the kernel's schedule ---------------------------------------------
+    def panels_per_segment(self, program: ir.Program) -> int:
+        return -(-(program.dimensions[0] // self.B) // self.segments)
+
+    def warmup(self, program: ir.Program) -> Dict[str, object]:
+        """What a segment of panels [P0, P1) evaluates beyond its own:
+        ``group`` gives per live group (panels before P0, panels after
+        P1) it evaluates, so that its readers in later groups find every
+        panel they read (a group with an output reads from P0 on); the
+        ring inputs are loaded from ``steps`` panels before P0 up to
+        ``in_hi`` panels past P1, and the block's first step is P0 -
+        ``steps`` (the earliest step any of it runs)."""
+        B = self.B
+        lo_w: Dict[int, int] = {}
+        hi_w: Dict[int, int] = {}
+
+        def readers(f):
+            return [(g, self.needs[g][f]) for g in lo_w
+                    if f in self.needs[g] and f not in self.groups[g]]
+        for g in reversed(range(len(self.groups))):
+            if not self.live(g):
+                continue
+            lw = hw = 0
+            for f in self.groups[g]:
+                if f in self.rings:
+                    for g2, (lo, hi) in readers(f):
+                        lw = max(lw, lo_w[g2] + _ceil_div(lo, B))
+                        hw = max(hw, hi_w[g2] + _ceil_div(hi, B))
+            lo_w[g], hi_w[g] = lw, hw
+        in_lo = in_hi = 0
+        for f in self.inputs:
+            for g2, (lo, hi) in readers(f):
+                in_lo = max(in_lo, lo_w[g2] + _ceil_div(lo, B))
+                in_hi = max(in_hi, hi_w[g2] + _ceil_div(hi, B))
+        steps = max([in_lo] + [lo_w[g] - self.lag[g] for g in lo_w])
+        return {"group": {g: (lo_w[g], hi_w[g]) for g in lo_w},
+                "steps": max(0, steps), "in_hi": in_hi}
+
+    def steps(self, program: ir.Program) -> int:
+        """Panel steps of the longest segment's block, warm-up included."""
+        n = program.dimensions[0] // self.B
+        Ps, W = self.panels_per_segment(program), \
+            self.warmup(program)["steps"]
+        return max(min(P0 + Ps, n) - max(0, P0 - W)
+                   for P0 in range(0, n, Ps)) + self.lag_max(program)
+
+    def reach(self, program: ir.Program) -> Tuple[int, int]:
+        """(Hj, Hk): how far beyond the core tile any stage's cell or read
+        reaches (``panel.reach``); a block whose core widened by it lies
+        inside the (j, k) domain has no read to mask there."""
+        return reach(program, self)
+
+    def free_panels(self, program: ir.Program, gi: int,
+                    s: str) -> Tuple[int, int]:
+        """Panels [qlo, qhi) on which stage ``s`` of group ``gi`` has every
+        row and every i read inside [0, I): there (in a block inside the
+        (j, k) domain) it takes its mask-free body."""
+        lo, hi = self.needs[gi][s]
+        offs = [a[0] or 0
+                for f, lst in program.kernels[s].accesses().items()
+                for a in lst
+                if not (f in program.inputs and program.inputs[f].is_scalar)]
+        lo += max([0] + [-o for o in offs])
+        hi += max([0] + offs)
+        return _ceil_div(lo, self.B), \
+            (program.dimensions[0] - self.B - hi) // self.B + 1
+
+    def inner_blocks(self, program: ir.Program) -> int:
+        """Tiles whose widest reach lies inside the (j, k) domain."""
+        (Hj, Hk), (tj, tk) = self.reach(program), self.tile
+        _, J, K = program.dimensions
+        ntj, ntk = self.grid(program.dimensions)
+        return sum(1 for b in range(ntj)
+                   if b * tj - Hj >= 0 and b * tj + tj + Hj <= J) \
+            * sum(1 for b in range(ntk)
+                  if b * tk - Hk >= 0 and b * tk + tk + Hk <= K)
+
+    def lanes(self, program: ir.Program) -> int:
+        """Thread-evaluations one block issues per panel step: the input
+        panels' loads and every live stage's widened block, in passes of
+        ``threads`` cells (idle lanes of a last pass included)."""
+        n = self.threads
+        cells = [self.B * math.prod(self.region(f)) for f in self.inputs]
+        cells += [self.rows(g, s) * math.prod(self.region(s))
+                  for g in range(len(self.groups)) for s in self.live(g)]
+        return sum(-(-c // n) * n for c in cells)
+
+    def blocks(self, program: ir.Program) -> int:
+        ntj, ntk = self.grid(program.dimensions)
+        return ntj * ntk * self.segments
+
+    def min_blocks(self, program: ir.Program) -> int:
+        """Blocks per SM the shared memory leaves room for (at most 4),
+        asked of nvcc by ``__launch_bounds__``."""
+        return max(1, min(4, 2048 // self.threads, H100_SMEM_PER_SM
+                          // (self.smem_bytes(program) + 1024)))
+
+    def residency(self, program: ir.Program) -> int:
+        """Blocks resident per SM: the threads', the shared memory's and
+        the grid's limit."""
+        return max(1, min(2048 // self.threads,
+                          H100_SMEM_PER_SM // (self.smem_bytes(program)
+                                               + 1024),
+                          -(-self.blocks(program) // H100_SM_COUNT)))
+
+    def seconds(self, program: ir.Program) -> float:
+        """The plan rule, a model in seconds: every SM issues the lanes of
+        every panel step (warm-up included) of its share of the blocks,
+        ``blocks / (132 x resident blocks)`` waves and ``GROUP_TAIL`` of a
+        block more, at ``H100_GROUP_CELL_RATE``, scaled by
+        ``GROUP_LANE_COST`` at the plan's residency and threads; the input
+        panels (halo and warm-up included) stream asynchronously at
+        ``H100_ASYNC_COPY_SHARE`` of the copy floor beside the outputs;
+        the larger term counts."""
+        per_sm = self.residency(program)
+        blocks = self.blocks(program)
+        waves = blocks / (H100_SM_COUNT * per_sm) + GROUP_TAIL
+        latency = GROUP_LANE_COST[
+            min(per_sm, 4 if self.threads == 256 else 2), self.threads]
+        steps = self.steps(program)
+        compute = steps * waves * per_sm * self.lanes(program) * latency \
+            / H100_GROUP_CELL_RATE
+        I, J, K = program.dimensions
+        moved = blocks * steps * self.B * sum(
+            math.prod(self.region(f)) * np.dtype(
+                program.field_dtype(f)).itemsize for f in self.inputs) \
+            + sum(I * J * K * np.dtype(program.kernels[o].dtype).itemsize
+                  for o in program.outputs)
+        share = H100_ASYNC_COPY_SHARE[min(per_sm, 3) - 1]
+        return max(compute, moved / (H100_COPY_FLOOR * share))
 
 
 # -- planner ---------------------------------------------------------------
 
 def _fit(program: ir.Program, analysis: ChainAnalysis, B: int, group: int,
-         tile: Optional[Tuple[int, int]]) -> Optional[GroupPlan]:
-    """The plan at panel size B on ``tile``, or on the tile of least
-    modelled cost; None when nothing fits shared memory."""
+         tile: Optional[Tuple[int, int]], threads: Optional[int] = None,
+         segments: Optional[int] = None) -> Optional[GroupPlan]:
+    """The plan at panel size B of least modelled time
+    (``GroupPlan.seconds``) over the tiles (or ``tile``), the thread
+    counts of ``PANEL_THREADS`` (or ``threads``) and the i-segments of
+    ``SEGMENTS`` (or ``segments``) whose shared memory fits a block; None
+    when nothing fits."""
     plan = GroupPlan.build(program, analysis, B, group)
     plan.place(program, analysis)
-    if tile is not None:
-        plan.tile = tuple(tile)
-        return (plan if plan.smem_bytes(program) <= H100_SMEM_PER_BLOCK
-                else None)
+    n_panels = program.dimensions[0] // B
+    segs = [segments] if segments else [
+        S for S in SEGMENTS if S <= n_panels
+        and -(-n_panels // -(-n_panels // S)) == S]
     best = None
-    for cand in tile_candidates(program.dimensions):
+    for cand in ([tuple(tile)] if tile is not None
+                 else tile_candidates(program.dimensions)):
         plan.tile = cand
-        smem = plan.smem_bytes(program)
-        if smem > H100_SMEM_PER_BLOCK:
+        if plan.smem_bytes(program) > H100_SMEM_PER_BLOCK:
             continue
-        ntj, ntk = plan.grid(program.dimensions)
-        cost = (tile_cost(ntj * ntk, smem, plan.work(program)),
-                -cand[0] * cand[1])
-        if best is None or cost < best[0]:
-            best = (cost, cand)
+        for n in (threads,) if threads else PANEL_THREADS:
+            for S in segs:
+                plan.threads, plan.segments = n, S
+                cost = (plan.seconds(program), -cand[0] * cand[1], n, S)
+                if best is None or cost < best[0]:
+                    best = (cost, cand, n, S)
     if best is None:
         return None
-    plan.tile = best[1]
+    plan.tile, plan.threads, plan.segments = best[1:]
     return plan
 
 
 def plan_group(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                panel: int = 0, group: int = 2,
-               tile: Optional[Tuple[int, int]] = None) -> GroupPlan:
+               tile: Optional[Tuple[int, int]] = None,
+               threads: Optional[int] = None,
+               segments: Optional[int] = None) -> GroupPlan:
     """The group kernel's plan: panel size B (``panel``, 0 = the JAX
-    package's auto rule), groups of at most ``group`` stages, and a (tj,
-    tk) tile that fits shared memory.  An auto B steps down by divisors
-    of I until some tile fits; an explicit B that fits nowhere, or does
-    not divide I, raises ValueError (nothing is built)."""
+    package's auto rule), groups of at most ``group`` stages, and the
+    (tj, tk) tile, threads and i-segments of least modelled time whose
+    shared memory fits (each fixed where given).  An auto B steps down by
+    divisors of I until some tile fits; an explicit B that fits nowhere,
+    or does not divide I, raises ValueError (nothing is built)."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     if group < 1:
@@ -333,10 +548,17 @@ def plan_group(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     B = panel
     if I % B or B < 1:
         raise ValueError(f"panel {B} must divide I={I}")
-    plan = _fit(program, analysis, B, group, tile)
+    if segments is not None:
+        if not 1 <= segments <= I // B:
+            raise ValueError(f"segments {segments} must lie in "
+                             f"[1, {I // B}]")
+        # as many segments as runs of ceil(panels / segments) panels
+        segments = -(-(I // B) // -(-(I // B) // segments))
+    plan = _fit(program, analysis, B, group, tile, threads, segments)
     while auto and plan is None and B > 1:
         B = max(d for d in range(1, B // 2 + 1) if I % d == 0)
-        plan = _fit(program, analysis, B, group, tile)
+        plan = _fit(program, analysis, B, group, tile, threads,
+                    min(segments, I // B) if segments else None)
     if plan is None:
         where = f"tile {tuple(tile)}" if tile else "every tile"
         raise ValueError(f"group rings and blocks exceed shared memory at "

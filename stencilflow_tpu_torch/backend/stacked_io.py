@@ -59,21 +59,6 @@ def wave_cost(n_blocks: int, smem: int, work: int) -> float:
     return waves * per_sm * work * latency
 
 
-def tile_cost(n_blocks: int, smem: int, work: int) -> float:
-    """``wave_cost`` with the blocks resident on one SM capped by the
-    blocks there are to spread (ceil(n_blocks / 132)).  A grid of fewer
-    blocks than the SMs' slots leaves warps idle: on an H100 SXM (700 W),
-    ``python -m stencilflow_tpu_torch.sweep`` ran the stream kernel on
-    box-r2 256^3 x 8 at (64, 8), 128 blocks, in 3.61 ms and at (32, 8),
-    256 blocks, in 2.55 ms, which plain wave_cost ranks the other way
-    round."""
-    per_sm = max(1, min(2048 // THREADS, H100_SMEM_PER_SM // (smem + 1024),
-                        -(-n_blocks // H100_SM_COUNT)))
-    waves = math.ceil(n_blocks / (H100_SM_COUNT * per_sm))
-    latency = max(1.0, 16 / (per_sm * THREADS // 32))
-    return waves * per_sm * work * latency
-
-
 def first_fit(placed, size: int, mask: int) -> int:
     """The lowest offset where ``size`` bytes overlap no placed ``(offset,
     size, mask)`` live in a phase of ``mask``."""

@@ -11,14 +11,18 @@ by its stage halo (``fast_tile.field_margins``), in chain order, and the
 core cells inside the domain are written out.  Nothing streams and
 nothing is carried between blocks.
 
-* Boundary conditions.  ``mode="masked"`` (the default, as the
-  reference's ``"auto"``) applies each read's boundary condition from
-  global coordinates, as every other kernel of the port does.
-  ``mode="fast"`` reads mask-free — exact everywhere farther than H from
-  a border — and the H-wide border shell is then overwritten by the
-  exact plain evaluator (``shell_fixup``, ``tile_eval.evaluate_chain_tile``
-  on the shell's slabs, torch ops outside the kernel), as the reference
-  fixes it in XLA.
+* Boundary conditions.  ``mode="masked"`` (the reference's ``"auto"``)
+  applies each read's boundary condition from global coordinates in
+  every block, as every other kernel of the port does.  ``mode="fast"``
+  (the port's ``"auto"``, ``AUTO_MODE``: faster on both measured cells)
+  reads mask-free in the blocks whose widened tile
+  lies inside the domain (no read there leaves it) and masked in the
+  others, which so compute the H-wide border shell exactly: one launch,
+  with no fix-up after it.  The reference reads mask-free everywhere and
+  overwrites the shell with an exact evaluation in XLA (``_shell_fixup``);
+  the plain version of fast mode (``tile_plain``) keeps that form
+  (``shell_fixup``, ``tile_eval.evaluate_chain_tile`` on the shell's
+  slabs), so the kernel's one launch is held to it.
 * Edge tiles.  A tile that overhangs the domain is masked (its loads
   read zero, its writes are dropped); the reference pads the domain to a
   multiple of the tile instead.
@@ -27,16 +31,26 @@ nothing is carried between blocks.
   reader, so the footprint is the peak of live widened tiles (the
   reference's peak live-field count).  ``plan_tile`` is the H100's own
   tile choice — every (ti, tj, tk) whose footprint fits ``smem_budget``
-  (227 KB by default), ranked by ``tile_cost`` — not the TPU's (8, 128)
-  lane shapes; it raises ValueError when no tile fits (deep chains such
-  as hdiff3d x 16 widen beyond a block: those belong to the stream
-  kernel's spill rung).
+  (227 KB by default), priced in seconds by ``TilePlan.seconds`` (the
+  panel kernel's rule: its sweep of K6's candidates found the older
+  cell-count rule's hdiff3d 256^3 x 8 pick 38 % slower than the fastest
+  tile, this rule's pick the fastest on both swept cells) — not the
+  TPU's (8, 128) lane shapes; it raises ValueError when no tile fits
+  (deep chains such as hdiff3d x 16 widen beyond a block: those belong
+  to the stream kernel's spill rung).
 
 What bounds it on the H100: device-memory bytes, inflated by the halo —
 each input tile is read with (t + 2H) / t per dim — and the halo
 recompute of every stage over its widened tile, which only shallow
-chains keep small.  It streams nothing along i, so it loses to the
-overlap kernel on chains both take (PERF.md).
+chains keep small.  It streams nothing along i; even so, in fast mode
+it ran jacobi3d 512^3 x 2 in 0.895 ms against the overlap kernel's 1.201
+and hdiff3d 256^3 x 8 in 2.816 against the panel kernel's 4.123 on an
+NVIDIA H100 80GB HBM3 (700 W, ``chip_smoke.py``'s routes), which the
+ladder, the reference's, does not yet use (PERF.md).  The kernel's
+design (the panel kernel's skeleton): inputs loaded by ``cp.async``
+zero-filled beyond the domain, a thread's first cell of each region from
+one division and constant steps after it, every read one shared-memory
+load at a constant offset from the thread's cell.
 
 ``tile_plain`` is the plain version: all tiles at once in torch ops under
 the same plan, masked (``overlap_plain``'s tile evaluator on these
@@ -55,15 +69,17 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..config import H100_SMEM_PER_BLOCK
+from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
+                      H100_PANEL_CELL_RATE, H100_SM_COUNT,
+                      H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM)
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .dense import chain_halo
 from .fast_tile import evaluate_chain_fast, field_margins
 from .overlap import overlap_plain
-from .stacked_io import (check_scope, gather_global,
-                         resolve_device, run_kernel, spanned_arrays,
-                         tile_cost)
+from .panel import PANEL_LANE_COST
+from .stacked_io import (THREADS, check_scope, gather_global,
+                         resolve_device, run_kernel, spanned_arrays)
 from .tile_eval import evaluate_chain_tile
 
 # number of kernel launches (CUDA tensors only)
@@ -73,6 +89,12 @@ Vec3 = Tuple[int, int, int]
 
 # a CUDA grid's y extent: the kernel runs nti * ntj blocks along y
 _MAX_GRID_Y = 65535
+# the mode ``mode="auto"`` takes: on an NVIDIA H100 80GB HBM3 (700 W),
+# deep_time.py --cells tile in turns with the masked kernel ran fast mode
+# (one launch, mask-free interior blocks) in 0.922-0.925 ms against
+# 1.217-1.219 on jacobi3d 512^3 x 2 and 3.938-3.943 against 4.136 on
+# hdiff3d 256^3 x 8, both bit-equal to dense
+AUTO_MODE = "fast"
 
 
 @dataclasses.dataclass
@@ -135,21 +157,59 @@ class TilePlan:
     def smem_bytes(self) -> int:
         return self.smem_offsets()[""]
 
-    def work(self) -> int:
-        """Modelled per-block work: cells of every stage's region and of
-        the on-chip input tiles."""
+    def lanes(self) -> int:
+        """Thread-evaluations of a block: every stage's region and the
+        on-chip input tiles' loads, in passes of THREADS cells (idle lanes
+        of a last pass included)."""
         fields = list(self.program.kernels) + [
             f for f in self.onchip if f in self.program.inputs]
-        return sum(math.prod(self.region(f)) for f in fields)
+        return sum(-(-math.prod(self.region(f)) // THREADS) * THREADS
+                   for f in fields)
+
+    def residency(self) -> int:
+        """Blocks resident per SM: the threads', the shared memory's and
+        the grid's limit."""
+        return max(1, min(2048 // THREADS,
+                          H100_SMEM_PER_SM // (self.smem_bytes() + 1024),
+                          -(-math.prod(self.grid()) // H100_SM_COUNT)))
+
+    def seconds(self) -> float:
+        """The tile rule, a model in seconds (``PanelPlan.seconds``'s, one
+        step): every SM issues the lanes of its share of the blocks at
+        ``H100_PANEL_CELL_RATE``, scaled by ``PANEL_LANE_COST`` at the
+        plan's residency; the input tiles (halo included) stream at
+        ``H100_ASYNC_COPY_SHARE`` of the copy floor beside the outputs;
+        the larger term counts."""
+        program, per_sm = self.program, self.residency()
+        blocks = math.prod(self.grid())
+        compute = self.lanes() * blocks / H100_SM_COUNT * PANEL_LANE_COST[
+            min(per_sm, 4), THREADS] / H100_PANEL_CELL_RATE
+        moved = blocks * sum(
+            math.prod(self.region(f)) * np.dtype(
+                program.field_dtype(f)).itemsize
+            for f in self.onchip if f in program.inputs) + sum(
+            math.prod(program.dimensions) * np.dtype(
+                program.kernels[o].dtype).itemsize for o in program.outputs)
+        share = H100_ASYNC_COPY_SHARE[min(per_sm, 3) - 1]
+        return max(compute, moved / (H100_COPY_FLOOR * share))
+
+
+def tile_candidates(dims) -> list:
+    """(ti, tj, tk) core tiles to try, capped near the domain's size."""
+    caps = [max(1, 1 << math.ceil(math.log2(max(1, n)))) for n in dims]
+    return [(ti, tj, tk) for ti in (1, 2, 4, 8, 16, 32)
+            for tj in (1, 2, 4, 8, 16, 32)
+            for tk in (8, 16, 32, 64, 128)
+            if ti <= caps[0] and tj <= caps[1] and tk <= max(8, caps[2])]
 
 
 def plan_tile(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
               tile: Optional[Vec3] = None, mode: str = "masked",
               smem_budget: int = H100_SMEM_PER_BLOCK) -> TilePlan:
-    """The overlapped-tile plan: ``tile`` or the cheapest (``tile_cost``)
-    tile whose live buffers fit ``smem_budget``.  Raises ValueError /
-    NotImplementedError when the program is out of scope or no tile
-    fits."""
+    """The overlapped-tile plan: ``tile`` or the tile of least modelled
+    time (``TilePlan.seconds``) whose live buffers fit ``smem_budget``.
+    Raises ValueError / NotImplementedError when the program is out of
+    scope or no tile fits."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     if mode not in ("masked", "fast"):
@@ -175,17 +235,11 @@ def plan_tile(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
             raise ValueError(f"overlapped tile {tuple(tile)} exceeds shared "
                              "memory")
         return plan
-    caps = [max(1, 1 << math.ceil(math.log2(max(1, n)))) for n in dims]
     best = None
-    for cand in [(ti, tj, tk) for ti in (1, 2, 4, 8, 16, 32)
-                 for tj in (1, 2, 4, 8, 16, 32)
-                 for tk in (8, 16, 32, 64, 128)
-                 if ti <= caps[0] and tj <= caps[1]
-                 and tk <= max(8, caps[2])]:
+    for cand in tile_candidates(dims):
         if not fits(cand):
             continue
-        cost = (tile_cost(math.prod(plan.grid()), plan.smem_bytes(),
-                          plan.work()), -math.prod(cand))
+        cost = (plan.seconds(), -math.prod(cand))
         if best is None or cost < best[0]:
             best = (cost, cand)
     if best is None:
@@ -299,16 +353,14 @@ def build_tile(plan: TilePlan):
 
 def run_tile(plan: TilePlan, arrays: Dict[str, torch.Tensor], lib=None):
     """The overlapped-tile kernel on ``arrays`` (spanned shapes, scalars
-    0-d), then, in fast mode, the shell fix-up.  ``lib`` is the built
-    kernel (``build_tile``); it is built on demand when omitted."""
+    0-d): one launch in either mode.  ``lib`` is the built kernel
+    (``build_tile``); it is built on demand when omitted."""
     global launches
     outs, launched = run_kernel(
         plan.program, arrays,
         lambda: lib if lib is not None else build_tile(plan),
         lambda: tile_plain(plan, arrays))
     launches += launched
-    if launched and plan.mode == "fast":
-        outs = shell_fixup(plan, arrays, outs)
     return outs
 
 
@@ -318,12 +370,12 @@ def compile_chain_tile(program: ir.Program,
                        device="cuda"):
     """Plan the overlapped-tile lowering (ValueError / NotImplementedError
     when the program is out of its scope) and, for a CUDA ``device``,
-    build its kernel.  ``mode``: "masked", "fast", or "auto" (masked, as
-    the reference picks).  Returns ``fn(inputs) -> outputs`` at the
-    program's raw dims on ``device``, with the plan as ``fn.plan``."""
+    build its kernel.  ``mode``: "masked", "fast", or "auto"
+    (``AUTO_MODE``).  Returns ``fn(inputs) -> outputs`` at the program's
+    raw dims on ``device``, with the plan as ``fn.plan``."""
     analysis = analysis or ChainAnalysis.run(program)
     plan = plan_tile(program, analysis, tile,
-                     "masked" if mode == "auto" else mode)
+                     AUTO_MODE if mode == "auto" else mode)
     device = resolve_device(device)
     lib = build_tile(plan) if device.type == "cuda" else None
 

@@ -21,11 +21,12 @@ import sys
 # option (as given) -> the ROADMAP item that ports it
 NOT_PORTED = {
     "--run-simulation": "Queue 1 item 5 (M1, the simulator)",
-    "--ring-storage bfloat16": "Queue 1 item 10 (bf16)",
-    "--mxu-precision bf16": "Queue 1 item 10 (bf16)",
-    "--backend autotuned": "Queue 1 item 6 (M14, autotune)",
-    "--plot": "Queue 1 item 9 (M15; the card's machine has no matplotlib)",
-    "--mesh": "Queue 1 item 7 (M12, the mesh-scaling model with the "
+    "--ring-storage bfloat16": "Queue 1 item 11 (bf16)",
+    "--mxu-precision bf16": "Queue 1 item 11 (bf16)",
+    "--backend autotuned": "Queue 1 item 7 (M14, autotune)",
+    "--plot": "Queue 1 item 10 (M15; the card's machine has no "
+              "matplotlib)",
+    "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model with the "
               "sharded engine)",
 }
 

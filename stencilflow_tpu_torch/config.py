@@ -112,6 +112,13 @@ H100_STREAM_CELL_RATE = 2.904e9
 # stencilflow_tpu_torch.sweep ran jacobi3d 512^3 x 8 at (16, 32) in
 # 4.649 ms: 520 steps x 2 waves x 2 blocks x 8192 lanes a block and step.
 H100_PANEL_CELL_RATE = 3.665e9
+# Thread-evaluations per second per SM of the group kernel (K5) at 2
+# blocks of 256 threads per SM on jacobi2d 8192^2 x 8's stages, its plan
+# rule's rate (``GroupPlan.seconds``): python -m stencilflow_tpu_torch.sweep
+# jacobi2d hotspot2d on an NVIDIA H100 80GB HBM3 (700 W) timed 108 plans
+# (tile x threads x i-segments), and ``sweep.fit_group`` fitted the rule's
+# constants to them.
+H100_GROUP_CELL_RATE = 8.416e9
 # P1: cost of each op in add-equivalents (its time over an add's, less
 # the IR ops the probe adds around it); sinh and cosh are not measured
 # and keep the JAX package's rule, exp's cost scaled by 4 / 1.5.

@@ -1,9 +1,10 @@
 """Time the route plans of the stream kernel's deep cells (K3c), of the
-panel kernel's cells (K1), of the stream kernel's banded cells (K3b) or
-of K4's out-of-core chunk, for one checkout.
+panel kernel's cells (K1), of the stream kernel's banded cells (K3b), of
+K4's out-of-core chunk, of the group kernel's cells (K5) or of the
+overlapped-tile kernel's cells (K6), for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
-        [--cells deep|panel|banded|local] [--ptxas]
+        [--cells deep|panel|banded|local|group|tile] [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
 file's own checkout by default), so the same file times another commit
@@ -19,7 +20,13 @@ accepts them.  ``--cells banded``: box-r2 and cross-r2 256^3 x 8 on
 their stream plans (``plan_stream``), then, where the checkout's planner
 takes ``passes``, each on the other route of its band passes (tensor
 cores against CUDA cores).  ``--cells local``: K4 on the middle chunk of
-jacobi3d 1024^3 x 8 at 8 chunks (``plan_local``, random slabs).  Random
+jacobi3d 1024^3 x 8 at 8 chunks (``plan_local``, random slabs).
+``--cells group``: jacobi2d and hotspot2d 8192^2 x 8 rotated to rows on
+the group kernel's plan at the rows route's B = 64, g = 8
+(``plan_group``).  ``--cells tile``: jacobi3d 512^3 x 2 and hdiff3d
+256^3 x 8 on the overlapped-tile kernel's plans (``plan_tile``), masked
+and fast (the call the checkout makes: a parent's fast mode includes its
+torch fix-up of the border shell).  Random
 inputs from seed 0.  It builds every kernel at once (one nvcc each),
 checks one launch against the dense lowering on the card (bit for bit;
 within MXU_VERIFY_RTOL for banded plans; K4 against its plain version),
@@ -119,6 +126,39 @@ def _local(sft, synthesize_stencil):
     return [(p, plan, st.stream_source(plan))]
 
 
+def _group(sft, synthesize_stencil):
+    """[(rotated program, group plan, source)] of the 2-D cells."""
+    from stencilflow_tpu_torch.backend import codegen
+    from stencilflow_tpu_torch.backend import group as gp
+    from stencilflow_tpu_torch.frontend.canonicalize import \
+        rotate_2d_to_rows
+    out = []
+    for shape in ("diffusion", "hotspot"):
+        p = rotate_2d_to_rows(sft.parse_program(synthesize_stencil(
+            num_stages=8, dimensions=(8192, 8192), shape=shape,
+            seed_data="random:0.0,1.0"), name=f"{shape}2d_8192_8itr"))
+        an = sft.ChainAnalysis.run(p)
+        plan = gp.plan_group(p, an, 64, 8)
+        out.append((p, plan, codegen.group_source(p, an, plan)))
+    return out
+
+
+def _tile(sft, synthesize_stencil):
+    """[(program, tile plan, source)] of the forced-K6 cells, masked and
+    fast."""
+    from stencilflow_tpu_torch.backend import tile as tl
+    out = []
+    for shape, n, iters in (("diffusion", 512, 2), ("hdiff", 256, 8)):
+        for mode in ("masked", "fast"):
+            p = sft.parse_program(synthesize_stencil(
+                num_stages=iters, dimensions=(n,) * 3, shape=shape,
+                seed_data="random:0.0,1.0"),
+                name=f"{shape}3d_{n}_{iters}itr_{mode}")
+            plan = tl.plan_tile(p, mode=mode)
+            out.append((p, plan, tl.tile_source(plan)))
+    return out
+
+
 def _ptxas(sources) -> None:
     """nvcc's register and spill report of every source."""
     import tempfile
@@ -144,8 +184,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--cells", choices=("deep", "panel", "banded", "local"),
-                    default="deep")
+    ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
+                                        "group", "tile"), default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
@@ -165,13 +205,15 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     cells = {"deep": _deep, "panel": _panel, "banded": _banded,
-             "local": _local}[args.cells](sft, synthesize_stencil)
+             "local": _local, "group": _group,
+             "tile": _tile}[args.cells](sft, synthesize_stencil)
     built = [c for c in cells if c[2] is not None]
     if args.ptxas:
         _ptxas([src for _p, _plan, src in built])
+    kind = args.cells if args.cells in ("panel", "group", "tile") \
+        else "stream"
     libs = dict(zip([id(c) for c in built], build.load_libraries(
-        [(src, "panel" if args.cells == "panel" else "stream")
-         for _p, _plan, src in built])))
+        [(src, kind) for _p, _plan, src in built])))
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
     out = {}
     for cell in cells:
@@ -186,6 +228,17 @@ def main(argv=None) -> int:
 
             def run(arrays, plan=plan, lib=lib, origin=origin):
                 return st.run_local_stream(plan, origin, arrays, lib)
+        elif args.cells == "group":
+            from stencilflow_tpu_torch.backend import group as gp
+            an = sft.ChainAnalysis.run(p)
+
+            def run(arrays, p=p, an=an, plan=plan, lib=lib):
+                return gp.run_group(p, an, plan, arrays, lib)
+        elif args.cells == "tile":
+            from stencilflow_tpu_torch.backend import tile as tl
+
+            def run(arrays, plan=plan, lib=lib):
+                return tl.run_tile(plan, arrays, lib)
         elif args.cells != "panel":
             def run(arrays, plan=plan, lib=lib):
                 return st.run_stream(plan, arrays, lib)
@@ -240,6 +293,17 @@ def main(argv=None) -> int:
             text = ", ".join(f"{k} {v}" for k, v in row.items()
                              if k not in ("ms", "tile", "equal"))
             plan.device_pool.clear()
+        elif args.cells in ("group", "tile"):
+            row = {"ms": ms, "tile": list(plan.tile),
+                   "smem": plan.smem_bytes(p) if args.cells == "group"
+                   else plan.smem_bytes(), "equal_dense": equal}
+            for key in ("threads", "segments", "mode"):
+                if hasattr(plan, key):
+                    row[key] = getattr(plan, key)
+            if hasattr(lib, "sf_occupancy"):
+                row["blocks_per_sm"] = pn.occupancy(lib)
+            text = ", ".join(f"{k} {v}" for k, v in row.items()
+                             if k not in ("ms", "tile", "equal_dense"))
         elif args.cells == "deep":
             row = {"ms": ms, "tile": list(plan.tile),
                    "spilled": len(plan.spilled),

@@ -2,6 +2,7 @@
 
     python -m stencilflow_tpu_torch.sweep            # every cell below
     python -m stencilflow_tpu_torch.sweep jacobi2d   # named cells only
+    python -m stencilflow_tpu_torch.sweep --reps 5 jacobi2d   # 5 launches each
 
 Cells: box-r2 and cross-r2 256^3 x 8 (the stream kernel's on-chip body,
 K3a/K3b: every tile at 256 and at 512 threads a block, each printing the
@@ -11,8 +12,14 @@ per SM, packed and unpacked shared memory and stage evaluations a cell;
 every band pass on CUDA cores or on tensor cores),
 ``chunk``: K4 on the middle chunk of jacobi3d 1024^3 x 8 at 8 chunks (the
 same, on random slabs), jacobi2d and hotspot2d 8192^2 x 8 rotated to
-rows (group, g = 8, B = 64), the panel cells jacobi3d 512^3 x 8, hdiff3d
-and hotspot3d 256^3 x 8 (K1, ``sweep_panel``: every tile at 256 and at
+rows (group, K5, g = 8, B = 64: every tile at 256 and 512 threads and
+each i-segment count of ``group.SEGMENTS``, printing the plan rule's
+modelled time, ``GroupPlan.seconds``, and the resident blocks per SM the
+card reports; after them, the rule's constants fitted to their times,
+``fit_group``), ``tile_jacobi3d2`` and ``tile_hdiff3d8``: the
+overlapped-tile kernel (K6, the route's mode) on jacobi3d 512^3 x 2 and
+hdiff3d 256^3 x 8 at every tile whose buffers fit, the panel cells
+jacobi3d 512^3 x 8, hdiff3d and hotspot3d 256^3 x 8 (K1, ``sweep_panel``: every tile at 256 and at
 512 threads a block, the rings of one step packed by liveness; each also
 prints the tile rule's modelled time, ``PanelPlan.seconds``, the
 resident blocks per SM the card reports and the masked share of the
@@ -23,10 +30,10 @@ rings until the rest fits; each such tile also prints the rung's
 modelled time, ``spill_seconds``, and its resident blocks per SM).
 Builds the kernel at every tile whose shared memory fits (one nvcc per
 plan, all started together), times each on the same random inputs with
-CUDA events (one warm-up, then 2 launches), and prints the plans fastest
-first beside the planner's pick and the card's ``nvidia-smi`` name and
-power limit.  It is how the planners' tile rules were checked; it needs
-a CUDA device.
+CUDA events (one warm-up, then ``--reps`` launches, 2 by default), and
+prints the plans fastest first beside the planner's pick and the card's
+``nvidia-smi`` name and power limit.  It is how the planners' tile rules
+were checked; it needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ import torch
 
 from . import ChainAnalysis, load_input_arrays, parse_program
 from .backend import (ROWS_GROUP, ROWS_PANEL, build, codegen, group,
-                      panel, stream)
+                      panel, stream, tile)
 from .backend.stacked_io import spanned_arrays
 from .frontend.canonicalize import rotate_2d_to_rows
 from .synthesize import synthesize_stencil
@@ -112,23 +119,93 @@ def sweep(program, reps: int = 2, chunk=None, passes: str = "auto"):
 
 
 def sweep_group(program, reps: int = 2):
-    """``sweep`` for the group kernel at the rows route's g and B."""
+    """``sweep`` for the group kernel (K5) at the rows route's g and B:
+    every tile that fits at each thread count of ``panel.PANEL_THREADS``
+    and each i-segment count of ``group.SEGMENTS``, fastest first, and
+    the planner's own plan."""
     analysis = ChainAnalysis.run(program)
     pick = group.plan_group(program, analysis, ROWS_PANEL, ROWS_GROUP)
-    plans = []
+    plans, seen = [], set()
     for tile in panel.tile_candidates(program.dimensions):
-        try:
-            plans.append(group.plan_group(program, analysis, ROWS_PANEL,
-                                          ROWS_GROUP, tile))
-        except ValueError:
-            continue    # shared memory
+        for threads in panel.PANEL_THREADS:
+            for segments in group.SEGMENTS:
+                try:
+                    p = group.plan_group(program, analysis, ROWS_PANEL,
+                                         ROWS_GROUP, tile, threads, segments)
+                except ValueError:
+                    continue    # shared memory, or more segments than panels
+                if (p.tile, p.threads, p.segments) not in seen:
+                    seen.add((p.tile, p.threads, p.segments))
+                    plans.append(p)
     libs = build.load_libraries([(codegen.group_source(program, analysis, p),
                                   "group") for p in plans])
     arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
                             device="cuda")
-    rows = [(_time_ms(lambda: group.run_group(program, analysis, p, arrays,
-                                              lib), reps), p)
-            for p, lib in zip(plans, libs)]
+    rows = []
+    for p, lib in zip(plans, libs):
+        p.blocks_per_sm = panel.occupancy(lib)
+        rows.append((_time_ms(lambda: group.run_group(
+            program, analysis, p, arrays, lib), reps), p))
+    return sorted(rows, key=lambda r: r[0]), pick
+
+
+def fit_group(swept):
+    """The group rule's constants fitted to group sweeps: ``swept`` is
+    [(program, [(ms, plan)])].  Least squares on log(ms) of ``steps x
+    lanes x r x (blocks / (132 r) + tail)`` (r the resident blocks per SM,
+    ``GroupPlan.residency``) times one cost per (r, threads) key of
+    ``group.GROUP_LANE_COST`` and one factor per program beyond the first,
+    over a grid of tails.  Returns (tail, {key: cost relative to two
+    blocks of 256}, lane-steps per second per SM of the first program at
+    that key): the values of ``group.GROUP_TAIL``, ``GROUP_LANE_COST``
+    and ``config.H100_GROUP_CELL_RATE``."""
+    import numpy as np
+    obs = []
+    for n, (program, rows) in enumerate(swept):
+        for ms, p in rows:
+            r = p.residency(program)
+            key = (min(r, 4 if p.threads == 256 else 2), p.threads)
+            obs.append((ms, n, key, p.steps(program) * p.lanes(program) * r,
+                        p.blocks(program) / (group.H100_SM_COUNT * r)))
+    keys = sorted({o[2] for o in obs})
+    best = None
+    for tail in np.arange(0.0, 1.51, 0.05):
+        X = np.array([[float(k == key) for key in keys]
+                      + [float(n == m) for m in range(1, len(swept))]
+                      for _ms, n, k, _w, _v in obs])
+        y = np.array([np.log(ms * 1e-3 / (w * (waves + tail)))
+                      for ms, _n, _k, w, waves in obs])
+        coef = np.linalg.lstsq(X, y, rcond=None)[0]
+        sse = float(((y - X @ coef) ** 2).sum())
+        if best is None or sse < best[0]:
+            best = (sse, float(tail), dict(zip(keys, np.exp(coef))))
+    _sse, tail, cost = best
+    ref = cost[(2, 256)]
+    return tail, {k: float(v / ref) for k, v in cost.items()}, 1.0 / ref
+
+
+def sweep_tile(program, reps: int = 2):
+    """``sweep`` for the overlapped-tile kernel (K6) in the route's mode
+    (``tile.AUTO_MODE``): every tile of ``tile.tile_candidates`` whose
+    buffers fit, fastest first, and the planner's own pick."""
+    analysis = ChainAnalysis.run(program)
+    mode = tile.AUTO_MODE
+    pick = tile.plan_tile(program, analysis, mode=mode)
+    plans = []
+    for cand in tile.tile_candidates(program.dimensions):
+        try:
+            plans.append(tile.plan_tile(program, analysis, cand, mode))
+        except ValueError:
+            continue    # shared memory
+    libs = build.load_libraries([(tile.tile_source(p), "tile")
+                                 for p in plans])
+    arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
+                            device="cuda")
+    rows = []
+    for p, lib in zip(plans, libs):
+        p.blocks_per_sm = panel.occupancy(lib)
+        rows.append((_time_ms(lambda: tile.run_tile(p, arrays, lib), reps),
+                     p))
     return sorted(rows, key=lambda r: r[0]), pick
 
 
@@ -198,6 +275,11 @@ def _cells():
                            ("hotspot3d8", "hotspot", 256)):
         cells[name] = (parse_program(synth(shape, (n,) * 3),
                                      name=f"{name}_{n}"), sweep_panel)
+    for name, shape, n, iters in (("tile_jacobi3d2", "diffusion", 512, 2),
+                                  ("tile_hdiff3d8", "hdiff", 256, 8)):
+        cells[name] = (parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape,
+            seed_data="random:0.0,1.0"), name=f"{name}_{n}"), sweep_tile)
     for name, shape, n, iters in (("jacobi3d32", "diffusion", 512, 32),
                                   ("hdiff3d16", "hdiff", 256, 16),
                                   ("hotspot3d32", "hotspot", 256, 32)):
@@ -214,23 +296,33 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    args = sys.argv[1:]
+    reps = 2
+    if "--reps" in args:
+        at = args.index("--reps")
+        reps = int(args[at + 1])
+        del args[at:at + 2]
     cells = _cells()
-    names = sys.argv[1:] or list(cells)
+    names = args or list(cells)
     unknown = [n for n in names if n not in cells]
     if unknown:
         print(f"error: unknown cells {unknown} (choose from {list(cells)})",
               file=sys.stderr)
         return 1
+    swept = []
     for name in names:
         program, fn = cells[name]
         t0 = time.perf_counter()
-        rows, pick = fn(program)
+        rows, pick = fn(program, reps)
+        if fn is sweep_group:
+            swept.append((program, rows))
         print(f"{program.name}: {len(rows)} tiles fit, built and timed in "
               f"{time.perf_counter() - t0:.1f}s; planner pick {pick.tile} "
               f"| {smi}", flush=True)
         for ms, p in rows:
-            mark = " <- planner" if p.tile == pick.tile and getattr(
-                p, "threads", 0) == getattr(pick, "threads", 0) else ""
+            mark = " <- planner" if p.tile == pick.tile and all(
+                getattr(p, k, 0) == getattr(pick, k, 0)
+                for k in ("threads", "segments")) else ""
             if fn in (sweep, sweep_fma, sweep_mma, sweep_chunk):
                 smem, grid, work = p.smem_bytes(), p.grid(), p.cells()
                 if p.packed:
@@ -253,14 +345,28 @@ def main() -> int:
                         f"{p.blocks_per_sm} blocks per SM, unpacked "
                         f"{p.unpacked_bytes(program)} B, masked share "
                         f"{p.masked_share(program):.3f}{mark}")
-            else:
+            elif fn is sweep_group:
                 smem, grid, work = (p.smem_bytes(program),
                                     p.grid(program.dimensions),
-                                    p.work(program))
+                                    p.lanes(program))
+                mark = (f", {p.threads} threads, {p.segments} segments, "
+                        f"modelled {p.seconds(program) * 1e3:.3f} ms, "
+                        f"{p.blocks_per_sm} blocks per SM{mark}"
+                        if hasattr(p, "segments") else mark)
+            else:
+                smem, grid, work = p.smem_bytes(), p.grid(), p.lanes()
+                mark = (f", modelled {p.seconds() * 1e3:.3f} ms, "
+                        f"{p.blocks_per_sm} blocks per SM{mark}")
             print(f"  tile {p.tile}: {ms:.3f} ms, smem {smem} B, grid "
                   f"{grid}, modelled work {work}{mark}", flush=True)
         del rows
         torch.cuda.empty_cache()
+    if swept:
+        tail, cost, rate = fit_group(swept)
+        print(f"group rule fitted to {[p.name for p, _ in swept]}: tail "
+              f"{tail:.2f}, lane costs "
+              f"{ {k: round(v, 3) for k, v in cost.items()} }, rate "
+              f"{rate:.4g} lane-steps/s per SM | {smi}", flush=True)
     return 0
 
 

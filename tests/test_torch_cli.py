@@ -9,12 +9,14 @@ reference's keys with the same hardware-independent numbers.
 """
 import argparse
 import json
+import os
+import re
 
 import pytest
 
 from stencilflow_tpu.cli import build_parser as ref_parser
 from stencilflow_tpu.cli import main as ref_main
-from stencilflow_tpu_torch.cli import build_parser, main
+from stencilflow_tpu_torch.cli import NOT_PORTED, build_parser, main
 from stencilflow_tpu_torch.synthesize import synthesize_stencil
 
 
@@ -97,9 +99,9 @@ def test_no_mxu_is_mxu_off(monkeypatch, prog):
 
 @pytest.mark.parametrize("extra,item", [
     (["--run-simulation"], "item 5"),
-    (["--ring-storage", "bfloat16"], "item 10"),
-    (["--mxu-precision", "bf16"], "item 10"),
-    (["--backend", "autotuned"], "item 6"),
+    (["--ring-storage", "bfloat16"], "item 11"),
+    (["--mxu-precision", "bf16"], "item 11"),
+    (["--backend", "autotuned"], "item 7"),
 ])
 def test_run_refuses_unported_options(prog, capsys, extra, item):
     assert main(["run", prog, "--device", "cpu"] + extra) == 2
@@ -107,12 +109,34 @@ def test_run_refuses_unported_options(prog, capsys, extra, item):
     assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
 
 
-@pytest.mark.parametrize("extra,item", [(["--plot"], "item 9"),
-                                        (["--mesh", "x=2"], "item 7")])
+@pytest.mark.parametrize("extra,item", [(["--plot"], "item 10"),
+                                        (["--mesh", "x=2"], "item 8")])
 def test_report_refuses_unported_options(prog, capsys, extra, item):
     assert main(["report", prog] + extra) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
+
+
+def _queue1_items():
+    """{number: title} of ROADMAP.md's Queue 1."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text = open(os.path.join(root, "ROADMAP.md")).read()
+    queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    return {int(n): title for n, title in
+            re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M)}
+
+
+@pytest.mark.parametrize("option", sorted(NOT_PORTED))
+def test_refusals_name_items_of_roadmap_queue_1(option):
+    """Each refusal names an item of ROADMAP Queue 1 whose title carries
+    the milestone (or bf16) the refusal gives."""
+    m = re.fullmatch(r"Queue 1 item (\d+) \(([^,;)]+).*\)",
+                     NOT_PORTED[option])
+    assert m, NOT_PORTED[option]
+    items = _queue1_items()
+    n, code = int(m.group(1)), m.group(2)
+    assert n in items, (option, n)
+    assert re.search(rf"\b{code}\b", items[n]), (option, items[n])
 
 
 @pytest.mark.parametrize("shape,extent", [("box", 2), ("hdiff", 1),

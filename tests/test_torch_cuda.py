@@ -263,6 +263,36 @@ def test_group_kernel_matches_plain_on_card(name, cuda):
         np.testing.assert_array_equal(g_, w)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,segments", [
+    ("rows_jacobi2d_constant", 4), ("rows_jacobi2d_copy", 2),
+    ("rows_jacobi2d_shrink", 3), ("rows_hotspot2d", 2), ("fuzz122", 3)])
+def test_group_segments_match_plain_on_card(name, segments, cuda):
+    """K5 with its panels cut into i-segments (one block per segment and
+    tile, each warming its rings up) equals its plain version and the
+    oracle."""
+    make, rows, B, g = GROUP_PROGRAMS[name]
+    p0 = port.parse_program(make())
+    p = rotate_2d_to_rows(p0) if rows else p0
+    an = port.ChainAnalysis.run(p)
+    if not B:
+        B = 2 if p.dimensions[0] % 2 == 0 else 1
+    plan = group.plan_group(p, an, B, g, segments=segments)
+    assert plan.segments > 1
+    inputs = port.load_input_arrays(p0, seed=4)
+    arrays = spanned_arrays(p, inputs, device=cuda)
+    before = group.launches
+    got = group.run_group(p, an, plan, arrays)
+    torch.cuda.synchronize()
+    assert group.launches == before + 1
+    want = group.group_plain(p, an, plan, arrays)
+    oracle = port.run_interpreter(p0, inputs)
+    for o in want:
+        g_ = got[o].cpu().numpy()
+        np.testing.assert_array_equal(g_, want[o].cpu().numpy())
+        np.testing.assert_array_equal(g_.reshape(oracle[o].shape), oracle[o])
+
+
 def _chunks(p, inputs, chunks, plan, device):
     """(origin, slabs on ``device``) of every chunk of a local plan."""
     from stencilflow_tpu_torch.outofcore import _host_slab
@@ -622,6 +652,53 @@ def test_tile_kernel_matches_plain_on_card(name, mode, cuda):
         g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+def test_tile_fast_equals_masked_and_oracle_on_card(name, cuda):
+    """K6's fast mode is one launch (mask-free interior blocks, masked
+    border blocks, no fix-up) and equals masked mode and the oracle."""
+    from stencilflow_tpu_torch.backend import tile
+    p = port.parse_program(PROGRAMS[name]())
+    inputs = port.load_input_arrays(p, seed=4)
+    arrays = spanned_arrays(p, inputs, device=cuda)
+    oracle = port.run_interpreter(p, inputs)
+    got = {}
+    for mode in ("masked", "fast"):
+        plan = tile.plan_tile(p, mode=mode)
+        before = tile.launches
+        got[mode] = tile.run_tile(plan, arrays)
+        torch.cuda.synchronize()
+        assert tile.launches == before + 1
+    for o in oracle:
+        f, m = got["fast"][o].cpu().numpy(), got["masked"][o].cpu().numpy()
+        np.testing.assert_array_equal(f, m)
+        np.testing.assert_array_equal(f.reshape(oracle[o].shape), oracle[o])
+
+
+def float16_chain(shape, extent):
+    return synthesize_stencil(num_stages=4, dimensions=(12, 12, 12),
+                              shape=shape, extent=extent,
+                              data_type="float16",
+                              seed_data="random:0.0,1.0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,extent", [("box", 1), ("cross", 2),
+                                          ("diffusion", 1)])
+def test_float16_dense_matches_oracle_on_card(shape, extent, cuda):
+    """float16 runs on ``dense`` on the card (the kernels refuse it), one
+    op at a time in float32 rounded to float16, as numpy does: equal to
+    the oracle bit for bit (tests/test_torch_float16.py on the CPU)."""
+    p = port.parse_program(float16_chain(shape, extent))
+    res = run_program(p, device=cuda, save_results=False, log_level=0)
+    assert res.backend == "dense"
+    oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
+    for o in oracle:
+        got = np.asarray(res.outputs[o]).reshape(oracle[o].shape)
+        assert got.dtype == np.float16
+        np.testing.assert_array_equal(got, oracle[o])
 
 
 @pytest.mark.cuda

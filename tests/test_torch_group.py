@@ -231,7 +231,13 @@ def test_scratch_is_reused_by_liveness():
     assert len(temps) == 7 and peak <= sizes[-1] + sizes[-2]
     rings, _, total = plan.smem_layout(p)
     assert list(rings) == ["a"] and plan.depth["a"] == 3
-    assert total == rings["a"] + 3 * 64 * plan.region("a")[1] * 4 + peak
+    # the ring: its three panels (its next panel loads into the slot its
+    # only reader, the first stage, frees) and the 16 planes a window of
+    # 8 + 64 + 8 rows can wrap into, kept twice past its end
+    assert plan.issue["a"] == 0 and plan.slots("a") == 3
+    assert plan.shift["a"] == 8 and plan.mirror["a"] == 16
+    assert total == rings["a"] + (3 * 64 + 16) * plan.region("a")[1] * 4 \
+        + peak
 
 
 def test_planner_rules():

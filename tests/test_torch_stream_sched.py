@@ -535,7 +535,8 @@ def _local_spill(p, chunks):
         p, an, p.dimensions[0] // chunks, chain_halo(an)[0], spill="all"))
 
 
-# kernel and fixture: (source, sha256 of the parent's source)
+# kernel and fixture: (source, sha256 of the source: K1-K3c the
+# parent's, K5 and K6 the redesigned ones)
 FROZEN = {
     "K1 jacobi3d": (lambda: _panel(_example(
         "jacobi3d_32x32x32_8itr.json", 10)),
@@ -573,15 +574,15 @@ FROZEN = {
         "2d7996d909942af075e030c37dee5057fbe10303c06758428883ce9399148f4e"),
     "K5 rows jacobi2d": (lambda: _group(rotate_2d_to_rows(_synth(
         "diffusion", (256, 192), 8)), 64, 8),
-        "78968d3bb5c7cf3fcd73660ef324225193a62e50f489458d8419915f1e7a8db6"),
+        "42691b2977a08c63d3c4995bff669b77b93b10a73f7cfe65695e8dce5bf633a8"),
     "K5 fuzz": (lambda: _group(_fuzz(122), 0, 2),
-                "9c28f746d5f66bea36657d33f7fbd2e13092e419e78de002cfdf9cbac45ca444"),
+                "11c0fc29378503d3503c9e99ceaad1a5ae8dd02ea7ded4b0366d5689cdcb7c33"),
     "K6 jacobi3d masked": (lambda: tile.tile_source(tile.plan_tile(
         _example("jacobi3d_32x32x32_8itr.json", 10), mode="masked")),
-        "e3c08c0cfcc6299f3f3bb6d7594c1aadd85b3a1cca68253e816d3f7468977b35"),
+        "5b9dcfa623498ee9ecd1be1d6ba4305f05079e2bbab2fe4ac5d717f244776f3a"),
     "K6 hdiff fast": (lambda: tile.tile_source(tile.plan_tile(
         _example("hdiff_64x64x64.json", 12), mode="fast")),
-        "6012c212a27a9573fd9efc5e5406eca75272750c7eea62a5083cedf32ac1d612"),
+        "6c56d03bb1519050d12aa9a809e34cdb28b75a7d19fe371d2c0cab10596371cf"),
 }
 
 
