@@ -14,7 +14,10 @@ Phases, one line each (any failure raises and exits non-zero):
    on three example programs and five random chains (constant / copy /
    shrink BCs, scalar and lower-rank inputs, float32 / float64 / int32
    fields), bit-exact or within VERIFY_RTOL where a transcendental
-   appears; the stream kernel against its plain version on box chains of
+   appears, and the overlap kernel alone on hotspot3d 24 x 40 x 72 x 2 (on
+   its rule's plan, at B = 4 with runs of 4 j cells and the register
+   window, and as the skeleton alone) and jacobi2d 96 x 200 x 2 (I = 1);
+   the stream kernel against its plain version on box chains of
    extent 1 and 2 (composed), a box with constant BC 0.7 (per-stage plans
    with correction planes), a shrink box, a radius-2 cross (rank 2, per
    stage) and a per-cell stage feeding a wide affine stage that reads two
@@ -74,7 +77,9 @@ Phases, one line each (any failure raises and exits non-zero):
    against its plain version bit for bit, with its tile, packed and
    unpacked shared memory, resident blocks per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), masked share,
-   time and bound, and K3c on
+   time and bound, K2 on jacobi3d 512^3 x 2 with its plan ((B, tj, tk),
+   R, register window, blocks along i, threads, resident blocks per SM,
+   shared memory), and K3c on
    each deep cell against its plain version bit for bit, with its time,
    share of the bound, spill traffic a call against the copy floor,
    spilled rings, loads a step and resident blocks per SM, and the dense
@@ -991,6 +996,22 @@ def main() -> int:
             src = (codegen.panel_source if kname == "panel" else
                    codegen.overlap_source)(p, an, plan)
             sources.append((src, kname))
+    # K2 alone: hotspot3d (two streamed inputs, scalars) on the rule's
+    # plan, with runs of 4 j cells and as the skeleton alone, and a 2-D
+    # chain of 2 stages (I = 1)
+    for label, p, kw in (
+            ("hotspot3d-2", synth("hotspot", (24, 40, 72), 2), {}),
+            ("hotspot3d-2-R4", synth("hotspot", (24, 40, 72), 2),
+             dict(tile=(4, 8, 32), R=4, window=True)),
+            ("hotspot3d-2-skeleton", synth("hotspot", (24, 40, 72), 2),
+             dict(tile=(4, 8, 32), R=1, window=False)),
+            ("jacobi2d-2", sft.parse_program(synthesize_stencil(
+                num_stages=2, dimensions=(96, 200), shape="diffusion",
+                seed_data="random:0.0,1.0"), name="jacobi2d_96_2itr"), {})):
+        an = sft.ChainAnalysis.run(p)
+        plan = ov.OverlapPlan.build(an, **kw)
+        plain_cases.append((label, "overlap", p, an, plan))
+        sources.append((codegen.overlap_source(p, an, plan), "overlap"))
     stream_plans = []
     for label, p in stream_cases + [("box3d_256_8itr", box256),
                                     ("cross3d_256_8itr", cross256)]:
@@ -1316,11 +1337,17 @@ def main() -> int:
         an = sft.ChainAnalysis.run(p)
         plan = plan_cls.build(an)
         lib = build_fn(p, an, plan)
-        # K1: packed and unpacked shared memory, resident blocks per SM
+        # K1: packed and unpacked shared memory, resident blocks per SM;
+        # K2: B, run, register window, blocks along i, threads
         smem = (f"smem {plan.smem_bytes(p)} B (unpacked "
                 f"{plan.unpacked_bytes(p)}), {pn.occupancy(lib)} blocks "
                 f"per SM, masked share {plan.masked_share(p):.3f}"
-                if kname == "panel" else f"smem {plan.smem_bytes(p)} B")
+                if kname == "panel" else
+                f"(B {plan.tile[0]}), R {plan.R} along j, window "
+                f"{plan.window}, {plan.grid(p.dimensions)[0]} blocks along "
+                f"i, {plan.threads} threads, "
+                f"{pn.occupancy(lib)} blocks per SM, smem "
+                f"{plan.smem_bytes(p)} B")
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
                                 device="cuda")
         got = run(p, an, plan, arrays, lib)

@@ -37,7 +37,7 @@ from .. import ir
 from ..frontend.analysis import ChainAnalysis
 from .promotion import (const_dtype_of, const_type, fill_value, is_bool,
                         is_float, is_weak, result_type, strong)
-from .stacked_io import THREADS
+from .stacked_io import THREADS, accesses_with_center
 
 _CT = {"float32": "float", "float64": "double", "int8": "int8_t",
        "int16": "int16_t", "int32": "int32_t", "int64": "int64_t",
@@ -820,82 +820,6 @@ def _occupancy(smem: int, threads: int, kernel: str = "sf_panel"
             f"blocks, {kernel}, {threads}, "
             f"{smem});",
             "}", "#endif"]
-
-
-def overlap_source(program: ir.Program, analysis: ChainAnalysis,
-                   plan) -> str:
-    """The overlap streamer for ``plan`` (backend/overlap.py OverlapPlan)."""
-    dims = program.dimensions
-    order, head, slots = _common(program, analysis)
-    ti, tj, tk = plan.tile
-    nti, ntj, ntk = plan.grid(dims)
-    offs = plan.smem_offsets(program)
-    params, _ = _params(program)
-    L = [head, "// overlap streamer (backend/overlap.py): replaces the TPU "
-               "kernel stencilflow_tpu/backend/overlap.py _overlap_kernel_body",
-         f"__global__ void __launch_bounds__({THREADS}) "
-         f"sf_overlap({params}) {{",
-         "  extern __shared__ __align__(16) unsigned char sf_smem[];",
-         f"  const int bk = blockIdx.x % {ntk};",
-         f"  const int bj = (blockIdx.x / {ntk}) % {ntj};",
-         f"  const int bi = blockIdx.x / {ntk * ntj};",
-         f"  const int i0 = bi * {ti}, j0 = bj * {tj}, k0 = bk * {tk};"]
-    for f in plan.onchip:
-        L.append(f"  {ctype(program.field_dtype(f))}* const b_{f} = "
-                 f"({ctype(program.field_dtype(f))}*)(sf_smem + {offs[f]});")
-
-    def loop(f, indent):
-        EI, EJ, EK = plan.region(f)
-        (li, _), (lj, _), (lk, _) = plan.needs[f]
-        return [f"{indent}for (int p = threadIdx.x; p < {EI * EJ * EK}; "
-                f"p += {THREADS}) {{",
-                f"{indent}  const int il = p / {EJ * EK}, "
-                f"jl = (p / {EK}) % {EJ}, kl = p % {EK};",
-                f"{indent}  const int gi = i0 - {li} + il, "
-                f"gj = j0 - {lj} + jl, gk = k0 - {lk} + kl;"]
-
-    for f in plan.onchip:
-        if f not in program.inputs:
-            continue
-        I, J, K = dims
-        L += loop(f, "  ")
-        L += [f"    b_{f}[p] = (gi >= 0 && gi < {I} && gj >= 0 && gj < {J} "
-              f"&& gk >= 0 && gk < {K}) ? g_{f}[((long long)gi * {J} + gj)"
-              f" * {K} + gk] : {literal(0, program.field_dtype(f))};",
-              "  }"]
-    L.append("  __syncthreads();")
-    for idx, s in enumerate(order):
-        kspec = program.kernels[s]
-
-        def onchip(f, s=s):
-            if f not in plan.onchip:
-                return lambda o: None
-            _, FJ, FK = plan.region(f)
-            d = [plan.needs[f][x][0] - plan.needs[s][x][0] for x in range(3)]
-            return lambda o: (f"b_{f}[(il + {d[0] + o[0]}) * {FJ * FK} + "
-                              f"(jl + {d[1] + o[1]}) * {FK} + "
-                              f"kl + {d[2] + o[2]}]")
-
-        body = _stage_call(program, kspec, idx, ("gi", "gj", "gk"), onchip,
-                           slots)
-        if s in plan.onchip:
-            body.append(f"b_{s}[p] = r;")
-        if s in program.outputs:
-            (li, _), (lj, _), (lk, _) = plan.needs[s]
-            I, J, K = dims
-            body.append(
-                f"if (il >= {li} && il < {li + ti} && jl >= {lj} && "
-                f"jl < {lj + tj} && kl >= {lk} && kl < {lk + tk} && "
-                f"gi < {I} && gj < {J} && gk < {K}) "
-                f"o_{s}[((long long)gi * {J} + gj) * {K} + gk] = r;")
-        L.append(f"  // stage {s}")
-        L += loop(s, "  ")
-        L += ["    " + b for b in body]
-        L += ["  }", "  __syncthreads();"]
-    L.append("}")
-    L.append(_launcher(program, "sf_overlap", f"{nti * ntj * ntk}",
-                       plan.smem_bytes(program), slots))
-    return "\n".join(L)
 
 
 # -- stream streamer (backend/stream.py) ---------------------------------------
@@ -1938,8 +1862,9 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
     ``min_blocks`` > 1 asks nvcc for that many resident blocks per SM
     (``__launch_bounds__``: a register budget).  ``segments`` > 0 adds a
     grid dimension z of that many blocks, passed first to the block body
-    (the group kernel's i-segments); the host then fills shared memory
-    with NaN before every block, so a block reads nothing another left."""
+    (the group kernel's i-segments, the overlap kernel's blocks along i);
+    the host then fills shared memory with NaN before every block, so a
+    block reads nothing another left."""
     ntj, ntk = grid
     bounds = f"{threads}, {min_blocks}" if min_blocks > 1 else f"{threads}"
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
@@ -2305,6 +2230,271 @@ def tile_source(program: ir.Program, analysis: ChainAnalysis,
     L += _entry_points(program, "sf_tile", params, args, (nti * ntj, ntk),
                        plan.smem_bytes(), slots)
     L += _occupancy(plan.smem_bytes(), THREADS, "sf_tile")
+    return "\n".join(L)
+
+
+# 16-byte copies of the overlap streamer's input rows (K2), zero-filled
+# where the source lies outside the domain; on the host a copy happens at
+# the point of issue
+_CP16_MACROS = """#ifdef __CUDACC__
+SF_DEV void sf_cp16(void* dst, const void* src, const bool inb) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(inb ? 16 : 0) : "memory");
+}
+#else
+SF_DEV void sf_cp16(void* dst, const void* src, const bool inb) {
+  if (inb) memcpy(dst, src, 16); else memset(dst, 0, 16);
+}
+#endif
+"""
+
+
+def _mangle(v: int) -> str:
+    return f"m{-v}" if v < 0 else str(v)
+
+
+def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
+                masked: bool, bases: Dict[str, str]) -> List[str]:
+    """One stage of the overlap streamer over its region: each thread
+    takes walk positions (a run of R adjacent j cells from (jl, kl)), the
+    first from one division before the walk and the later ones by
+    constant steps, and walks the region's planes il.  At a plane it loads
+    the reads of its R cells (with ``plan.window``, only the newest plane
+    of each (field, j, k) register window, the older planes kept from the
+    planes before), evaluates the R cells, then stores them.  Every
+    shared-memory read is one load at a constant offset from a
+    per-position pointer advanced by a plane a step."""
+    from .overlap import walk_keys
+    I, J, K = program.dimensions
+    B, tj, tk = plan.tile
+    R = plan.R
+    RI, RJ, RK = plan.region(s)
+    (lo, _), (lj, _), (lk, _) = plan.needs[s]
+    NPJ, NPK = plan.positions(s)
+    cell = [(r, 0) for r in range(R)]
+    keys = walk_keys(program, s, plan.onchip, R)
+    fields = sorted({f for f, _dj, _dk in keys})
+    ct = {f: ctype(program.field_dtype(f)) for f in fields}
+
+    def off(f, di, dj, dk):
+        (lf, _), (ljf, _), _ = plan.needs[f]
+        return ((lf - lo + di) * plan.plane(f) + (ljf - lj + dj) * plan.row(f)
+                + plan.korigin(f) - lk + dk)
+
+    def reg(f, dj, dk, x):
+        return f"w_{f}_{_mangle(dj)}_{_mangle(dk)}_{x}"
+
+    def val(f, di, dj, dk):
+        return f"v_{f}_{_mangle(di)}_{_mangle(dj)}_{_mangle(dk)}"
+
+    pre, load, shift = [], [], []
+    if plan.window:
+        for (f, dj, dk), (a, b) in sorted(keys.items()):
+            for x in range(b - a):
+                pre.append(f"{ct[f]} {reg(f, dj, dk, x)} = q_{f}"
+                           f"[{off(f, a + x, dj, dk)}];")
+            if b > a:
+                pre.append(f"{ct[f]} {reg(f, dj, dk, b - a)};")
+                load.append(f"{reg(f, dj, dk, b - a)} = q_{f}"
+                            f"[{off(f, b, dj, dk)}];")
+                shift += [f"{reg(f, dj, dk, x)} = {reg(f, dj, dk, x + 1)};"
+                          for x in range(b - a)]
+            else:
+                load.append(f"const {ct[f]} {reg(f, dj, dk, 0)} = q_{f}"
+                            f"[{off(f, a, dj, dk)}];")
+    else:
+        seen = set()
+        for f, alist in accesses_with_center(kspec).items():
+            if f not in plan.onchip:
+                continue
+            for a in alist:
+                oi, oj, ok = (x or 0 for x in a)
+                for rj, rk in cell:
+                    k = (f, oi, oj + rj, ok + rk)
+                    if k not in seen:
+                        seen.add(k)
+                        load.append(f"const {ct[f]} {val(*k)} = q_{f}"
+                                    f"[{off(*k)}];")
+
+    def onchip_of(rj, rk):
+        def onchip(f):
+            if f not in plan.onchip:
+                return lambda o: None
+            if plan.window:
+                return lambda o: reg(f, o[1] + rj, o[2] + rk,
+                                     o[0] - keys[f, o[1] + rj, o[2] + rk][0])
+            return lambda o: val(f, o[0], o[1] + rj, o[2] + rk)
+        return onchip
+
+    em = StageEmitter(program, kspec)
+    kt = ctype(kspec.dtype)
+    cells = []
+    def at(g, x):
+        return g if not x else f"({g} + {x})"
+
+    for r, (rj, rk) in enumerate(cell):
+        pos = ("gi", at("gj", rj), at("gk", rk))
+        args = ", ".join(read_expr(program, kspec, f, offs, pos,
+                                   onchip_of(rj, rk)(f), slots,
+                                   masked=masked)
+                         for f, offs in em.accesses)
+        cells.append(f"const {kt} x{r} = sf_stage_{idx}({args});")
+    store = []
+    if s in plan.onchip:
+        store += [f"w[{rj * plan.row(s) + rk}] = x{r};"
+                  for r, (rj, rk) in enumerate(cell)]
+    if s in program.outputs:
+        cond = []
+        if lo or RI != B:
+            cond.append(f"il >= {lo} && il < {lo + B}")
+        if masked:
+            cond.append(f"gi < {I}")
+        writes = []
+        for r, (rj, rk) in enumerate(cell):
+            c = []
+            if lj or RJ != tj or rj:
+                c.append(f"jl + {rj} >= {lj} && jl + {rj} < {lj + tj}")
+            if lk or RK != tk or rk:
+                c.append(f"kl + {rk} >= {lk} && kl + {rk} < {lk + tk}")
+            if masked:
+                c.append(f"{at('gj', rj)} < {J} && {at('gk', rk)} < {K}")
+            w = (f"o_{s}[((long long)gi * {J} + {at('gj', rj)}) * {K} + "
+                 f"{at('gk', rk)}] = x{r};")
+            writes.append(f"if ({' && '.join(c)}) {w}" if c else w)
+        if cond:
+            store += [f"if ({' && '.join(cond)}) {{"] \
+                + ["  " + w for w in writes] + ["}"]
+        else:
+            store += writes
+    body = ["{", f"  int pj = jl0_{NPK}, pk = kl0_{NPK};", "#pragma unroll 1",
+            f"  for (int p = tid; p < {NPJ * NPK}; p += SF_NT) {{",
+            f"    const int jl = pj{f' * {R}' if R > 1 else ''}, kl = pk;",
+            f"    const int gj = j0 - {lj} + jl, gk = k0 - {lk} + kl;",
+            "    (void)gj; (void)gk;"]
+    body += [f"    const {ct[f]}* q_{f} = {bases[f]} + jl * {plan.row(f)} "
+             "+ kl;" for f in fields]
+    if s in plan.onchip:
+        body.append(f"    {kt}* w = b_{s} + jl * {plan.row(s)} + kl;")
+    body += ["    " + y for y in pre]
+    body += ["#pragma unroll 1", f"    for (int il = 0; il < {RI}; ++il) {{",
+             f"      const int gi = t * {B} - {lo} + il;  (void)gi;"]
+    body += ["      " + y for y in load + cells + store + shift]
+    body += [f"      q_{f} += {plan.plane(f)};" for f in fields]
+    if s in plan.onchip:
+        body.append(f"      w += {plan.plane(s)};")
+    body += ["    }",
+             f"    pk += SF_NT % {NPK};", f"    pj += SF_NT / {NPK};",
+             f"    if (pk >= {NPK}) {{ pk -= {NPK}; ++pj; }}", "  }", "}"]
+    return body
+
+
+def overlap_source(program: ir.Program, analysis: ChainAnalysis,
+                   plan) -> str:
+    """The overlap streamer for ``plan`` (backend/overlap.py OverlapPlan),
+    K2, on K1's skeleton.
+
+    One block per (i block of B output planes, j tile, k tile), the
+    reference's i-walk spread over the grid: it loads the window of every
+    streamed full-rank input (B + need_lo + need_hi planes, (j,
+    k)-widened) by ``cp.async`` (zero-filled beyond the domain; 16-byte
+    copies from an aligned column where K allows), waits for it, then
+    evaluates every stage over its i-overlapped region into shared
+    scratch placed by liveness, a barrier after each; no stage value
+    leaves the block.  Each stage walks its region (``_walk_stage``: runs
+    of R adjacent j cells a thread, i-neighbours from registers with
+    ``plan.window``) in a mask-free body where the column's widest reach
+    lies inside the (j, k) domain and the block's i reach inside [0, I),
+    and a masked one elsewhere (boundary conditions from global
+    coordinates).  Like ``panel_source``, the block body also compiles
+    with g++ into ``sf_host_launch``."""
+    I, J, K = dims = program.dimensions
+    order, head, slots = _common(program, analysis)
+    B, tj, tk = plan.tile
+    n_blocks, ntj, ntk = plan.grid(dims)
+    offs = plan.smem_offsets(program)
+    params, args = _params(program)
+    jlo, jhi, klo, khi = plan.reach(program)
+    inputs = plan.window_inputs(program)
+    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + [
+         _CP_WAIT_ALL, _CP16_MACROS,
+         "// overlap streamer (backend/overlap.py): replaces the TPU kernel "
+         "stencilflow_tpu/backend/overlap.py _overlap_kernel_body (K2)",
+         "SF_DEV void sf_overlap_block(const int t, const int by, "
+         "const int bx, const int tid, const int nt, "
+         f"unsigned char* const sf_smem, {params}) {{",
+         "  (void)nt;",
+         f"  const int j0 = by * {tj}, k0 = bx * {tk};",
+         "  // every cell and read of the column inside the (j, k) domain",
+         f"  const bool inner = j0 >= {jlo} && j0 + {tj + jhi} <= {J} && "
+         f"k0 >= {klo} && k0 + {tk + khi} <= {K};",
+         "  (void)inner;"]
+    for f in plan.onchip:
+        ct = ctype(program.field_dtype(f))
+        L.append(f"  {ct}* const b_{f} = ({ct}*)(sf_smem + {offs[f]});")
+
+    def chunks(f) -> Tuple[int, int]:
+        """(rows, copies a row) of input f's loads: 16-byte copies of
+        ``vec`` elements from its aligned ``korigin``, or one element a
+        copy over its region's columns."""
+        _, RJ, RK = plan.region(f)
+        V = plan.vec.get(f, 1)
+        if V == 1:
+            return RJ, RK
+        return RJ, -(-(plan.korigin(f) + tk + plan.needs[f][2][1]) // V)
+
+    def loads(f) -> List[str]:
+        """Input f's window: its region's planes from the block's first
+        output plane less need_lo."""
+        RI, _, _ = plan.region(f)
+        RJ, NC = chunks(f)
+        V = plan.vec.get(f, 1)
+        (lo, _), (lj, _), _ = plan.needs[f]
+        ct = ctype(program.field_dtype(f))
+        src = (f"g_{f} + (inb ? "
+               f"{_flat_at((1, 1, 1), ('gi', 'gj', 'gk'), dims)} : 0LL)")
+        body = [f"const int gi = t * {B} - {lo} + il, gj = j0 - {lj} + jl, "
+                f"gk = k0 - {plan.korigin(f)} + kl"
+                f"{f' * {V}' if V > 1 else ''};",
+                f"const bool inb = gi >= 0 && gi < {I} && gj >= 0 && "
+                f"gj < {J} && gk >= 0 && gk < {K};",
+                f"{ct}* const d = b_{f} + il * {plan.plane(f)} + "
+                f"jl * {plan.row(f)} + kl{f' * {V}' if V > 1 else ''};"]
+        body.append(f"sf_cp16(d, {src}, inb);" if V > 1 else
+                    _async_copy(program, f, "d", src))
+        return _region_loop3(RI, RJ, NC, body)
+
+    L += _thread_origins3({chunks(f) for f in inputs})
+    L += _thread_origins(sorted({plan.positions(s)[1] for s in order}))
+    if inputs:
+        L.append("  // the block's input windows, need_lo planes before "
+                 "its first output plane included")
+        for f in inputs:
+            L += ["  " + y for y in loads(f)]
+        L += ["  SF_CP_COMMIT();", "  SF_CP_WAIT_ALL();", "  SF_SYNC();"]
+    bases = {f: f"b_{f}" for f in plan.onchip}
+    for idx, s in enumerate(order):
+        kspec = program.kernels[s]
+        RI, RJ, RK = plan.region(s)
+        bodies = [_walk_stage(program, kspec, idx, s, plan, slots, m, bases)
+                  for m in (False, True)]
+        tlo, thi = plan.free_steps(program, s)
+        L.append(f"  // stage {s}: {RI} x {RJ} x {RK}, runs of {plan.R} "
+                 "along j")
+        if tlo < thi:
+            L += [f"  if (inner && t >= {tlo} && t < {thi}) {{  "
+                  "// mask-free"] + ["    " + y for y in bodies[0]] + [
+                  "  } else {  // masked"] + ["    " + y
+                                              for y in bodies[1]] + ["  }"]
+        else:
+            L += ["  " + y for y in bodies[1]]
+        if idx < len(order) - 1:
+            L.append("  SF_SYNC();")
+    L.append("}")
+    L += _entry_points(program, "sf_overlap", params, args, (ntj, ntk),
+                       offs[""], slots, min_blocks=plan.min_blocks(program),
+                       threads=plan.threads, segments=n_blocks)
+    L += _occupancy(offs[""], plan.threads, "sf_overlap")
     return "\n".join(L)
 
 

@@ -2,20 +2,17 @@
 
 Counterpart of ``stencilflow_tpu/backend/stacked_io.py``: how program
 inputs enter a kernel and results leave it is the same for all — the
-copy-BC centre read, the planner's cost model, the plain versions'
-global gathers and boundary selects, and the wrapper that checks its
-tensors and either runs the plain version (CPU tensors) or launches the
-generated CUDA kernel (CUDA tensors, no fallback).
+copy-BC centre read, the plain versions' global gathers and boundary
+selects, and the wrapper that checks its tensors and either runs the
+plain version (CPU tensors) or launches the generated CUDA kernel (CUDA
+tensors, no fallback).
 """
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from .. import ir
-from ..config import H100_SM_COUNT, H100_SMEM_PER_SM
 from ..dtypes import to_torch_dtype
 from . import build
 from .promotion import check_kernel_dtypes, fill_value
@@ -45,18 +42,6 @@ def check_scope(program: ir.Program) -> None:
     check_kernel_dtypes(program)
     if all(s.is_scalar for s in program.inputs.values()):
         raise ValueError("the kernels need an array input")
-
-
-def wave_cost(n_blocks: int, smem: int, work: int) -> float:
-    """Planner cost of a tile: the blocks resident on one SM share it, so
-    time goes as waves x blocks per SM x per-block work (cells), scaled
-    up when fewer than 16 warps per SM are left to hide latency.  A model
-    to be calibrated on the card, not a measurement."""
-    per_sm = max(1, min(2048 // THREADS,
-                        H100_SMEM_PER_SM // (smem + 1024)))
-    waves = math.ceil(n_blocks / (H100_SM_COUNT * per_sm))
-    latency = max(1.0, 16 / (per_sm * THREADS // 32))
-    return waves * per_sm * work * latency
 
 
 def first_fit(placed, size: int, mask: int) -> int:

@@ -46,7 +46,9 @@ chains keep small.  It streams nothing along i; even so, in fast mode
 it ran jacobi3d 512^3 x 2 in 0.895 ms against the overlap kernel's 1.201
 and hdiff3d 256^3 x 8 in 2.816 against the panel kernel's 4.123 on an
 NVIDIA H100 80GB HBM3 (700 W, ``chip_smoke.py``'s routes), which the
-ladder, the reference's, does not yet use (PERF.md).  The kernel's
+ladder, the reference's, does not yet use (PERF.md); the overlap
+kernel's redesign since runs the jacobi cell in 0.495 ms against this
+kernel's 0.864 (an H100 80GB HBM3 at 700 W).  The kernel's
 design (the panel kernel's skeleton): inputs loaded by ``cp.async``
 zero-filled beyond the domain, a thread's first cell of each region from
 one division and constant steps after it, every read one shared-memory

@@ -119,6 +119,15 @@ H100_PANEL_CELL_RATE = 3.665e9
 # (tile x threads x i-segments), and ``sweep.fit_group`` fitted the rule's
 # constants to them.
 H100_GROUP_CELL_RATE = 8.416e9
+# Cell evaluations and shared-memory loads (an input copy counts as a
+# load) per second per SM of the overlap streamer (K2) at 2 blocks of 256
+# threads per SM, its plan rule's rate (``OverlapPlan.terms``; loads
+# outnumber evaluations 3.5-10x on every swept plan, so the unit is
+# mostly loads): python -m stencilflow_tpu_torch.sweep overlap_jacobi3d2
+# overlap_hotspot3d2 overlap_jacobi2d2 on an NVIDIA H100 80GB HBM3
+# (700 W) timed 576 plans (tile x threads x runs), and
+# ``sweep.fit_overlap`` fitted the rule's constants to them.
+H100_OVERLAP_CELL_RATE = 2.796e+10
 # P1: cost of each op in add-equivalents (its time over an add's, less
 # the IR ops the probe adds around it); sinh and cosh are not measured
 # and keep the JAX package's rule, exp's cost scaled by 4 / 1.5.

@@ -1,10 +1,11 @@
 """Time the route plans of the stream kernel's deep cells (K3c), of the
 panel kernel's cells (K1), of the stream kernel's banded cells (K3b), of
-K4's out-of-core chunk, of the group kernel's cells (K5) or of the
-overlapped-tile kernel's cells (K6), for one checkout.
+K4's out-of-core chunk, of the group kernel's cells (K5), of the
+overlapped-tile kernel's cells (K6) or of the overlap kernel's cells
+(K2), for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
-        [--cells deep|panel|banded|local|group|tile] [--ptxas]
+        [--cells deep|panel|banded|local|group|tile|overlap] [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
 file's own checkout by default), so the same file times another commit
@@ -26,7 +27,10 @@ the group kernel's plan at the rows route's B = 64, g = 8
 (``plan_group``).  ``--cells tile``: jacobi3d 512^3 x 2 and hdiff3d
 256^3 x 8 on the overlapped-tile kernel's plans (``plan_tile``), masked
 and fast (the call the checkout makes: a parent's fast mode includes its
-torch fix-up of the border shell).  Random
+torch fix-up of the border shell).  ``--cells overlap``: jacobi3d and
+hotspot3d 512^3 x 2 and jacobi2d 8192^2 x 2 (I = 1) on the overlap
+kernel's plan (``OverlapPlan.build``, their route), each followed by
+the overlapped-tile kernel's fast mode on the same program.  Random
 inputs from seed 0.  It builds every kernel at once (one nvcc each),
 checks one launch against the dense lowering on the card (bit for bit;
 within MXU_VERIFY_RTOL for banded plans; K4 against its plain version),
@@ -159,6 +163,31 @@ def _tile(sft, synthesize_stencil):
     return out
 
 
+def _overlap(sft, synthesize_stencil):
+    """[(program, plan, source)] of the overlap kernel's cells (K2) on the
+    checkout's own plan (``OverlapPlan.build``), each followed by the
+    overlapped-tile kernel in fast mode (K6) on the same program."""
+    from stencilflow_tpu_torch.backend import codegen
+    from stencilflow_tpu_torch.backend import overlap as ov
+    from stencilflow_tpu_torch.backend import tile as tl
+    out = []
+    for shape, dims in (("diffusion", (512,) * 3), ("hotspot", (512,) * 3),
+                        ("diffusion", (8192, 8192))):
+        for kernel in ("overlap", "tile"):
+            p = sft.parse_program(synthesize_stencil(
+                num_stages=2, dimensions=dims, shape=shape,
+                seed_data="random:0.0,1.0"),
+                name=f"{shape}{len(dims)}d_{dims[0]}_2itr_{kernel}")
+            if kernel == "overlap":
+                an = sft.ChainAnalysis.run(p)
+                plan = ov.OverlapPlan.build(an)
+                out.append((p, plan, codegen.overlap_source(p, an, plan)))
+            else:
+                plan = tl.plan_tile(p, mode="fast")
+                out.append((p, plan, tl.tile_source(plan)))
+    return out
+
+
 def _ptxas(sources) -> None:
     """nvcc's register and spill report of every source."""
     import tempfile
@@ -185,7 +214,8 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
-                                        "group", "tile"), default="deep")
+                                        "group", "tile", "overlap"),
+                    default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
@@ -205,13 +235,13 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     cells = {"deep": _deep, "panel": _panel, "banded": _banded,
-             "local": _local, "group": _group,
-             "tile": _tile}[args.cells](sft, synthesize_stencil)
+             "local": _local, "group": _group, "tile": _tile,
+             "overlap": _overlap}[args.cells](sft, synthesize_stencil)
     built = [c for c in cells if c[2] is not None]
     if args.ptxas:
         _ptxas([src for _p, _plan, src in built])
-    kind = args.cells if args.cells in ("panel", "group", "tile") \
-        else "stream"
+    kind = args.cells if args.cells in ("panel", "group", "tile",
+                                        "overlap") else "stream"
     libs = dict(zip([id(c) for c in built], build.load_libraries(
         [(src, kind) for _p, _plan, src in built])))
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
@@ -234,11 +264,18 @@ def main(argv=None) -> int:
 
             def run(arrays, p=p, an=an, plan=plan, lib=lib):
                 return gp.run_group(p, an, plan, arrays, lib)
-        elif args.cells == "tile":
+        elif args.cells == "tile" or (args.cells == "overlap"
+                                      and p.name.endswith("_tile")):
             from stencilflow_tpu_torch.backend import tile as tl
 
             def run(arrays, plan=plan, lib=lib):
                 return tl.run_tile(plan, arrays, lib)
+        elif args.cells == "overlap":
+            from stencilflow_tpu_torch.backend import overlap as ov
+            an = sft.ChainAnalysis.run(p)
+
+            def run(arrays, p=p, an=an, plan=plan, lib=lib):
+                return ov.run_overlap(p, an, plan, arrays, lib)
         elif args.cells != "panel":
             def run(arrays, plan=plan, lib=lib):
                 return st.run_stream(plan, arrays, lib)
@@ -293,11 +330,11 @@ def main(argv=None) -> int:
             text = ", ".join(f"{k} {v}" for k, v in row.items()
                              if k not in ("ms", "tile", "equal"))
             plan.device_pool.clear()
-        elif args.cells in ("group", "tile"):
+        elif args.cells in ("group", "tile", "overlap"):
             row = {"ms": ms, "tile": list(plan.tile),
-                   "smem": plan.smem_bytes(p) if args.cells == "group"
-                   else plan.smem_bytes(), "equal_dense": equal}
-            for key in ("threads", "segments", "mode"):
+                   "smem": plan.smem_bytes() if hasattr(plan, "mode")
+                   else plan.smem_bytes(p), "equal_dense": equal}
+            for key in ("threads", "segments", "mode", "R", "window"):
                 if hasattr(plan, key):
                     row[key] = getattr(plan, key)
             if hasattr(lib, "sf_occupancy"):

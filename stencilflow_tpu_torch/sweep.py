@@ -1,4 +1,5 @@
-"""Tile sweep of the stream, group and panel kernels on the card.
+"""Tile sweep of the stream, group, overlap, tile and panel kernels on
+the card.
 
     python -m stencilflow_tpu_torch.sweep            # every cell below
     python -m stencilflow_tpu_torch.sweep jacobi2d   # named cells only
@@ -16,7 +17,12 @@ rows (group, K5, g = 8, B = 64: every tile at 256 and 512 threads and
 each i-segment count of ``group.SEGMENTS``, printing the plan rule's
 modelled time, ``GroupPlan.seconds``, and the resident blocks per SM the
 card reports; after them, the rule's constants fitted to their times,
-``fit_group``), ``tile_jacobi3d2`` and ``tile_hdiff3d8``: the
+``fit_group``), ``overlap_jacobi3d2``, ``overlap_hotspot3d2`` and
+``overlap_jacobi2d2``: the overlap kernel (K2) on jacobi3d and hotspot3d
+512^3 x 2 and jacobi2d 8192^2 x 2 at the plans of ``overlap_sample``
+(tile (B, tj, tk) x threads x runs (R, window); after them, the
+rule's constants fitted to their times, ``fit_overlap``),
+``tile_jacobi3d2`` and ``tile_hdiff3d8``: the
 overlapped-tile kernel (K6, the route's mode) on jacobi3d 512^3 x 2 and
 hdiff3d 256^3 x 8 at every tile whose buffers fit, the panel cells
 jacobi3d 512^3 x 8, hdiff3d and hotspot3d 256^3 x 8 (K1, ``sweep_panel``: every tile at 256 and at
@@ -45,7 +51,7 @@ import torch
 
 from . import ChainAnalysis, load_input_arrays, parse_program
 from .backend import (ROWS_GROUP, ROWS_PANEL, build, codegen, group,
-                      panel, stream, tile)
+                      overlap, panel, stream, tile)
 from .backend.stacked_io import spanned_arrays
 from .frontend.canonicalize import rotate_2d_to_rows
 from .synthesize import synthesize_stencil
@@ -184,6 +190,82 @@ def fit_group(swept):
     return tail, {k: float(v / ref) for k, v in cost.items()}, 1.0 / ref
 
 
+def overlap_sample(program, analysis, top: int = 24):
+    """The overlap plans a sweep times: for each run (R, window) of
+    ``overlap.RUNS`` and thread count, the ``top`` plans of least
+    modelled time, and the rule's pick."""
+    plan = overlap.OverlapPlan.empty(analysis)
+    rows = sorted(plan.candidates(program))
+    chosen = []
+    for run in overlap.RUNS:
+        for n in overlap.PANEL_THREADS:
+            chosen += [c for c in rows if c[2:5] == (n,) + run][:top]
+    chosen.append(rows[0])
+    plans, seen = [], set()
+    for _cost, t, n, r, w in chosen:
+        if (t, n, r, w) not in seen:
+            seen.add((t, n, r, w))
+            plans.append(overlap.OverlapPlan.build(analysis, t, n, r, w))
+    return plans
+
+
+def sweep_overlap(program, reps: int = 2):
+    """``sweep`` for the overlap kernel (K2): the plans of
+    ``overlap_sample`` (tile (B, tj, tk) x threads x runs (R, window)),
+    fastest first, and the planner's own plan."""
+    analysis = ChainAnalysis.run(program)
+    pick = overlap.OverlapPlan.build(analysis)
+    plans = overlap_sample(program, analysis)
+    libs = build.load_libraries([
+        (codegen.overlap_source(program, analysis, p), "overlap")
+        for p in plans])
+    arrays = spanned_arrays(program, load_input_arrays(program, seed=0),
+                            device="cuda")
+    rows = []
+    for p, lib in zip(plans, libs):
+        p.blocks_per_sm = panel.occupancy(lib)
+        rows.append((_time_ms(lambda: overlap.run_overlap(
+            program, analysis, p, arrays, lib), reps), p))
+    return sorted(rows, key=lambda r: r[0]), pick
+
+
+def fit_overlap(swept):
+    """The overlap rule's constants fitted to overlap sweeps: ``swept``
+    is [(program, [(ms, plan)])].  Least squares on log(ms) of ``r x
+    (blocks / (132 r) + 1) x (evaluations + loads)`` (r the resident
+    blocks per SM, ``OverlapPlan.residency``; the terms of
+    ``OverlapPlan.work_terms``) times one cost per (r, threads) key of
+    ``overlap.OVERLAP_LANE_COST`` and one per run of ``overlap.RUNS``
+    beyond the first (``OVERLAP_RUN_COST``).  Returns ({key: cost
+    relative to two blocks of 256}, {run: cost relative to the first},
+    evaluations and loads per second per SM at that key, RMS error in log
+    time): the values of ``OVERLAP_LANE_COST``, ``OVERLAP_RUN_COST`` and
+    ``config.H100_OVERLAP_CELL_RATE``."""
+    import numpy as np
+    obs = []
+    for program, rows in swept:
+        for ms, p in rows:
+            r = p.residency(program)
+            obs.append((ms, (min(r, 4 if p.threads == 256 else 2),
+                             p.threads), r * p.waves(program)
+                        * sum(p.work_terms(program)), (p.R, p.window)))
+    keys = sorted({o[1] for o in obs})
+    runs = [run for run in overlap.RUNS[1:] if any(o[-1] == run
+                                                    for o in obs)]
+    X = np.array([[float(o[1] == key) for key in keys]
+                  + [float(o[-1] == run) for run in runs] for o in obs])
+    y = np.array([np.log(ms * 1e-3 / work) for ms, _k, work, _run in obs])
+    coef = np.linalg.lstsq(X, y, rcond=None)[0]
+    sse = float(((y - X @ coef) ** 2).sum())
+    cost = dict(zip(keys, np.exp(coef[:len(keys)])))
+    run_cost = dict(zip(runs, np.exp(coef[len(keys):])))
+    ref = cost.get((2, 256), min(cost.values()))
+    run_cost[overlap.RUNS[0]] = 1.0
+    return ({k: float(v / ref) for k, v in cost.items()},
+            {k: float(v) for k, v in run_cost.items()}, 1.0 / ref,
+            (sse / len(obs)) ** 0.5)
+
+
 def sweep_tile(program, reps: int = 2):
     """``sweep`` for the overlapped-tile kernel (K6) in the route's mode
     (``tile.AUTO_MODE``): every tile of ``tile.tile_candidates`` whose
@@ -275,6 +357,14 @@ def _cells():
                            ("hotspot3d8", "hotspot", 256)):
         cells[name] = (parse_program(synth(shape, (n,) * 3),
                                      name=f"{name}_{n}"), sweep_panel)
+    for name, shape, dims in (("overlap_jacobi3d2", "diffusion", (512,) * 3),
+                              ("overlap_hotspot3d2", "hotspot", (512,) * 3),
+                              ("overlap_jacobi2d2", "diffusion",
+                               (8192, 8192))):
+        cells[name] = (parse_program(synthesize_stencil(
+            num_stages=2, dimensions=dims, shape=shape,
+            seed_data="random:0.0,1.0"), name=f"{name}_{dims[0]}"),
+            sweep_overlap)
     for name, shape, n, iters in (("tile_jacobi3d2", "diffusion", 512, 2),
                                   ("tile_hdiff3d8", "hdiff", 256, 8)):
         cells[name] = (parse_program(synthesize_stencil(
@@ -314,15 +404,16 @@ def main() -> int:
         program, fn = cells[name]
         t0 = time.perf_counter()
         rows, pick = fn(program, reps)
-        if fn is sweep_group:
-            swept.append((program, rows))
+        if fn in (sweep_group, sweep_overlap):
+            swept.append((fn, program, rows))
         print(f"{program.name}: {len(rows)} tiles fit, built and timed in "
               f"{time.perf_counter() - t0:.1f}s; planner pick {pick.tile} "
               f"| {smi}", flush=True)
         for ms, p in rows:
             mark = " <- planner" if p.tile == pick.tile and all(
                 getattr(p, k, 0) == getattr(pick, k, 0)
-                for k in ("threads", "segments")) else ""
+                for k in ("threads", "segments", "R", "window")) \
+                else ""
             if fn in (sweep, sweep_fma, sweep_mma, sweep_chunk):
                 smem, grid, work = p.smem_bytes(), p.grid(), p.cells()
                 if p.packed:
@@ -345,6 +436,14 @@ def main() -> int:
                         f"{p.blocks_per_sm} blocks per SM, unpacked "
                         f"{p.unpacked_bytes(program)} B, masked share "
                         f"{p.masked_share(program):.3f}{mark}")
+            elif fn is sweep_overlap:
+                smem, grid, work = (p.smem_bytes(program),
+                                    p.grid(program.dimensions),
+                                    p.work(program))
+                mark = (f", {p.threads} threads, R {p.R}, window "
+                        f"{p.window}, modelled "
+                        f"{p.seconds(program) * 1e3:.3f} ms, "
+                        f"{p.blocks_per_sm} blocks per SM{mark}")
             elif fn is sweep_group:
                 smem, grid, work = (p.smem_bytes(program),
                                     p.grid(program.dimensions),
@@ -361,12 +460,24 @@ def main() -> int:
                   f"{grid}, modelled work {work}{mark}", flush=True)
         del rows
         torch.cuda.empty_cache()
-    if swept:
-        tail, cost, rate = fit_group(swept)
-        print(f"group rule fitted to {[p.name for p, _ in swept]}: tail "
+    groups = [(p, rows) for fn, p, rows in swept if fn is sweep_group]
+    if groups:
+        tail, cost, rate = fit_group(groups)
+        print(f"group rule fitted to {[p.name for p, _ in groups]}: tail "
               f"{tail:.2f}, lane costs "
               f"{ {k: round(v, 3) for k, v in cost.items()} }, rate "
               f"{rate:.4g} lane-steps/s per SM | {smi}", flush=True)
+    overlaps = [(p, rows) for fn, p, rows in swept if fn is sweep_overlap]
+    if overlaps:
+        cost, run_cost, rate, rms = fit_overlap(overlaps)
+        print(f"overlap rule fitted to {[p.name for p, _ in overlaps]}: "
+              f"lane "
+              f"costs { {k: round(v, 3) for k, v in cost.items()} }, run "
+              f"costs { {k: round(v, 3) for k, v in run_cost.items()} }, "
+              f"rate "
+              f"{rate:.4g} evaluations and loads/s per SM, RMS error "
+              f"{rms:.3f} in "
+              f"log time | {smi}", flush=True)
     return 0
 
 

@@ -677,6 +677,95 @@ def test_tile_fast_equals_masked_and_oracle_on_card(name, cuda):
         np.testing.assert_array_equal(f.reshape(oracle[o].shape), oracle[o])
 
 
+# K2's redesigned schedule on the card: (program maker, plan options) --
+# several blocks along i (constant, copy and shrink BCs, register windows
+# and runs of j cells, the skeleton alone), the I = 1 regime, an integer
+# program and hotspot's two streamed inputs and scalars
+OVERLAP_CASES = {
+    "jacobi3d-R4": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(24, 40, 72), shape="diffusion",
+        seed_data="random:0,1"), dict(tile=(4, 8, 32), R=4, window=True)),
+    "jacobi3d-copy-R2": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(20, 40, 72), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"),
+        dict(tile=(2, 16, 32), R=2, window=True)),
+    "jacobi3d-shrink-skeleton": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(18, 40, 72), shape="diffusion",
+        boundary="shrink", seed_data="random:0,1"),
+        dict(tile=(4, 8, 32), R=1, window=False)),
+    "jacobi3d-R1-window": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(16, 40, 72), shape="diffusion",
+        seed_data="random:0,1"), dict(tile=(4, 8, 32), R=1, window=True)),
+    "hotspot3d-R4": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(16, 48, 64), shape="hotspot",
+        seed_data="random:0,1"), dict(tile=(4, 16, 16), R=4, window=True)),
+    "hotspot3d-R2-ragged": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(20, 48, 64), shape="hotspot",
+        seed_data="random:0,1"), dict(tile=(8, 16, 16), R=2, window=True)),
+    "jacobi3d-copy-R2-ragged": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(20, 42, 72), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"),
+        dict(tile=(8, 8, 32), R=2, window=True)),
+    "jacobi2d-I1": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(96, 200), shape="diffusion",
+        seed_data="random:0,1"), dict(R=4, window=True)),
+    "fuzz_i32": (lambda: random_program(
+        np.random.default_rng(6), ndim=3, data_type="int32",
+        data="random:-20,20"), dict(tile=(2, 4, 8), R=4, window=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OVERLAP_CASES))
+def test_overlap_schedule_matches_plain_on_card(name, cuda):
+    """K2 (cp.async input windows, mask-free and masked bodies, register
+    windows) equals its plain version and the oracle bit for bit."""
+    make, kw = OVERLAP_CASES[name]
+    p = port.parse_program(make())
+    an = port.ChainAnalysis.run(p)
+    plan = overlap.OverlapPlan.build(an, **kw)
+    inputs = port.load_input_arrays(p, seed=4)
+    arrays = spanned_arrays(p, inputs, device=cuda)
+    lib = overlap.build_overlap(p, an, plan)
+    assert panel.occupancy(lib) >= 1
+    before = overlap.launches
+    got = overlap.run_overlap(p, an, plan, arrays, lib)
+    torch.cuda.synchronize()
+    assert overlap.launches == before + 1
+    want = overlap.overlap_plain(p, an, plan, arrays)
+    oracle = port.run_interpreter(p, inputs)
+    for o in want:
+        g = got[o].cpu().numpy()
+        np.testing.assert_array_equal(g, want[o].cpu().numpy())
+        np.testing.assert_array_equal(g.reshape(oracle[o].shape), oracle[o])
+
+
+@pytest.mark.cuda
+def test_overlap_input_at_a_storage_offset_matches_plain_on_card(cuda):
+    """An input that starts 4 bytes off a 16-byte boundary (a contiguous
+    view at a storage offset) still loads by 16-byte copies: the wrapper
+    copies it into fresh storage, and the result equals the plain
+    version."""
+    p = port.parse_program(synthesize_stencil(
+        num_stages=2, dimensions=(16, 24, 32), shape="diffusion",
+        seed_data="random:0,1"))
+    an = port.ChainAnalysis.run(p)
+    plan = overlap.OverlapPlan.build(an)
+    assert plan.vec == {"a": 4}
+    a = port.load_input_arrays(p, seed=5)["a"]
+    flat = torch.empty(a.size + 1, dtype=torch.float32, device=cuda)
+    view = flat[1:].view(16, 24, 32)
+    view.copy_(torch.as_tensor(a.reshape(16, 24, 32)))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    fn = overlap.compile_chain_overlap(p, an)
+    got = fn({"a": view})
+    torch.cuda.synchronize()
+    want = overlap.overlap_plain(p, an, fn.plan, {"a": view.clone()})
+    for o in want:
+        np.testing.assert_array_equal(got[o].reshape(want[o].shape)
+                                      .cpu().numpy(), want[o].cpu().numpy())
+
+
 def float16_chain(shape, extent):
     return synthesize_stencil(num_stages=4, dimensions=(12, 12, 12),
                               shape=shape, extent=extent,

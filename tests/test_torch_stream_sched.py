@@ -535,8 +535,8 @@ def _local_spill(p, chunks):
         p, an, p.dimensions[0] // chunks, chain_halo(an)[0], spill="all"))
 
 
-# kernel and fixture: (source, sha256 of the source: K1-K3c the
-# parent's, K5 and K6 the redesigned ones)
+# kernel and fixture: (source, sha256 of the source: K1 and K3c the
+# parent's, K2, K5 and K6 the redesigned ones)
 FROZEN = {
     "K1 jacobi3d": (lambda: _panel(_example(
         "jacobi3d_32x32x32_8itr.json", 10)),
@@ -556,9 +556,9 @@ FROZEN = {
         "62c5fd250232a3b9d9852145683edaa7ede35bc74460febb0eddb11050c3cdd0"),
     "K2 jacobi3d": (lambda: _overlap(_example(
         "jacobi3d_32x32x32_8itr.json", 10)),
-        "91314a2cc927145c1882178ca069efeb9841be847d8674485889dd4c3cde2d8b"),
+        "c0be116f9aaa000c5278fa4e5e1a7095dde57b91e68bcc2d0e386976d49fd41a"),
     "K2 hdiff": (lambda: _overlap(_example("hdiff_64x64x64.json", 12)),
-                 "a0ef621717097e5232b5c23f25ca47903f767c6b5c95113feb8d3351a45b3eba"),
+                 "29f26952f0f6e5453efa564c0a4d6698144b99018d130731836f24f13cfc917e"),
     "K3c jacobi copy": (lambda: stream.stream_source(stream.plan_stream(
         _synth("diffusion", (24, 24, 24), 3, boundary="copy"),
         spill="all")),
