@@ -6,9 +6,10 @@
 Phases, one line each (any failure raises and exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: every kernel of phases 3 and 4 generated and compiled at once,
+2. build: every kernel of phases 3 to 7 generated and compiled at once,
    one nvcc per source, all started together (kernels are built from the
-   checkout's sources);
+   checkout's sources; phase 7's through the entry points' own compile
+   calls, on threads beside);
 3. kernel vs plain version on the card: the panel and overlap kernels,
    each forced through its own plan, against their plain torch versions
    on three example programs and five random chains (constant / copy /
@@ -125,6 +126,29 @@ Phases, one line each (any failure raises and exits non-zero):
    S = 4 N = 16 at 1 block per SM, P2's four variants, P5 B = 8 (16, 64)
    beside K2 and two chained ``F.conv3d``), each count reset just before
    and read just after.
+
+7. the solver entry points at full width, each wrapper's count reset
+   just before and read just after (K1, K2 and K4 must launch, and K5
+   where Gray-Scott routes there; a graph replay re-runs its captured
+   launches without the wrappers, so the counts see warm-ups and
+   captures): ``iterate`` on jacobi3d 512^3 (one stage), 64 steps, fused
+   by 8 (K1) and one stage a step (K2), the two bit-equal and equal to
+   the dense lowering stepped 64 times eagerly, each with its ms a step
+   from a CUDA-graph replay beside K1's one-shot 8-stage time; Gray-Scott
+   8192^2 (the two fields of ``examples/gray_scott.py`` fed back, copy
+   BCs) fused by 4 and not fused, bit-equal to each other and to dense
+   stepping, 16 steps; ``iterate --host-chunks 8`` on jacobi3d 1024^3
+   fused by 8 (K4), 16 steps, bit-equal to in-core ``iterate`` (K1);
+   ``fast_value_and_grad`` on jacobi3d 512^3 x 8 and on the same chain
+   at 256^3 with copy BCs (the adjoint's 1-D indicator inputs on a
+   kernel), each gradient equal to the dense lowering of the adjoint
+   program on the same cotangent bit for bit, with routes, ms and the
+   device's peak memory, and ``value_and_grad`` (dense autodiff) beside
+   each within VERIFY_RTOL, with its time and peak; ``solve_cg`` on backward-Euler
+   diffusion 512^3 and ``solve_cgnr`` on an upwind operator at 512^3,
+   their iterations, true relative residuals (at most 100 tol) and ms an
+   iteration split into operator and vector passes, and CG at 4 host
+   chunks within 10 tol of the in-core x.
 
 Every bound comes from the port's report (report.py): the larger of the
 minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
@@ -694,6 +718,275 @@ def _measurement(pn, smi):
     return {"copy_floor": p4, "alu_ceiling": p1, "loop_copy": p7}
 
 
+def _solver_setup(sft, jacobi8):
+    """The solvers phase's programs (phase 7), and one thunk per lowering
+    it compiles: phase 2 runs them beside its other builds, so that every
+    composed and adjoint program's kernel is built in parallel."""
+    from stencilflow_tpu_torch import solver_cells as sc
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.grad import adjoint_program
+    from stencilflow_tpu_torch.iterate import compose_iterations
+    from stencilflow_tpu_torch.outofcore import compile_chunked_chain
+    from stencilflow_tpu_torch.synthesize import jacobi, synthesize_stencil
+    progs = {
+        "jacobi512": sft.parse_program(jacobi(3, 512, 1),
+                                       name="jacobi3d_512"),
+        "jacobi1024": sft.parse_program(jacobi(3, 1024, 1),
+                                        name="jacobi3d_1024"),
+        "gray_scott": sc.gray_scott(8192),
+        "grad": jacobi8,
+        "grad_copy": sft.parse_program(synthesize_stencil(
+            num_stages=8, dimensions=(256,) * 3, shape="diffusion",
+            boundary="copy", seed_data="random:0.0,1.0"),
+            name="jacobi3d_256_8itr_copy"),
+        "diffusion": sc.implicit_diffusion(512),
+        "upwind": sc.upwind(512),
+    }
+    fused1024 = compose_iterations(progs["jacobi1024"], 8)
+    in_core = [compose_iterations(progs["jacobi512"], 8),
+               progs["jacobi512"], fused1024,
+               compose_iterations(progs["gray_scott"], 4,
+                                  sc.GRAY_SCOTT_FEED),
+               progs["gray_scott"], adjoint_program(jacobi8)[0],
+               progs["grad_copy"], adjoint_program(progs["grad_copy"])[0],
+               progs["diffusion"], progs["upwind"],
+               adjoint_program(progs["upwind"], wrt=["x"])[0]]
+    thunks = [lambda p=p: compile_chain_best(p, device="cuda")
+              for p in in_core]
+    thunks += [lambda: compile_chunked_chain(fused1024, 8, device="cuda"),
+               lambda: compile_chunked_chain(progs["diffusion"], 4,
+                                             device="cuda")]
+    return progs, thunks
+
+
+def _device_random(shape, seed: int) -> np.ndarray:
+    """Uniform [0, 1) float32 host data drawn on the card (fast at 1024^3)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(shape, generator=gen, device="cuda").cpu().numpy()
+
+
+def _eager(step, inputs, n: int):
+    """``n`` eager steps of ``step`` from host ``inputs``; host arrays."""
+    import torch
+    state = {k: (torch.as_tensor(v).cuda() if np.ndim(v) else v)
+             for k, v in inputs.items()}
+    for _ in range(n):
+        state = step(state)
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in state.items()}
+
+
+def _replay_ms(program, inputs, fuse: int, n: int, feed=None) -> float:
+    """ms per original step of one replay of the graph of ``n`` fused
+    steps, as ``iterate`` captures it (CUDA events, after the capturing
+    replay)."""
+    import torch
+    from stencilflow_tpu_torch.iterate import (GraphLoop, compose_iterations,
+                                               make_step)
+    if fuse > 1:
+        program = compose_iterations(program, fuse, feed)
+    step, feed = make_step(program, feed, device="cuda")
+    state = {k: (torch.as_tensor(v).cuda() if np.ndim(v) else v)
+             for k, v in inputs.items()}
+    loop = GraphLoop(step, state, feed, torch.device("cuda"))
+    ms = _time_ms(lambda: loop.run(n), 1)
+    del loop, state
+    torch.cuda.empty_cache()
+    return ms / (n * fuse)
+
+
+def _solvers(sft, progs, smi, k1_ms: float):
+    """Phase 7: the solver entry points at full width, each against its
+    reference (module docstring), with the kernels' counts reset just
+    before and read just after.  Returns the counts."""
+    import torch
+    from stencilflow_tpu_torch import solver_cells as sc
+    from stencilflow_tpu_torch.backend import group as gp
+    from stencilflow_tpu_torch.backend import overlap as ov
+    from stencilflow_tpu_torch.backend import panel as pn
+    from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.backend.dense import compile_chain
+    from stencilflow_tpu_torch.config import VERIFY_RTOL
+    from stencilflow_tpu_torch.iterate import make_step
+    pn.launches = ov.launches = gp.launches = 0
+    st.launches = st.local_launches = st.spill_launches = 0
+
+    def check(ok, what):
+        if not ok:
+            raise RuntimeError(f"solvers: {what}")
+
+    # iterate on jacobi3d 512^3, 64 steps: fused by 8 (K1) and one step a
+    # stage (K2), bit for bit with each other and with dense stepping
+    j = progs["jacobi512"]
+    inputs = {"a": _device_random((512,) * 3, 0)}
+    got, ms, route = {}, {}, {}
+    for fuse in (8, 1):
+        stats = {}
+        got[fuse] = sft.iterate(j, inputs, 64, fuse=fuse, stats=stats)["a"]
+        route[fuse] = stats["backend"]
+        ms[fuse] = _replay_ms(j, inputs, fuse, 64 // fuse)
+    dense = _eager(make_step(j, backend="dense")[0], inputs, 64)["a"]
+    equal = (np.array_equal(got[8], got[1]),
+             np.array_equal(got[1], dense))
+    print(f"solvers: iterate {j.name} x 64 steps: fuse 8 {route[8]} "
+          f"{ms[8]:.4f} ms a step, fuse 1 {route[1]} {ms[1]:.4f} ms a step "
+          f"(graph replays; K1's one-shot 8 stages {k1_ms / 8:.4f} ms a "
+          f"stage); fuse 8 == fuse 1: {equal[0]}, == dense x 64: "
+          f"{equal[1]} | {smi}", flush=True)
+    check(all(equal), "iterate fuse 8 / fuse 1 / dense differ")
+    del got, dense, inputs
+    torch.cuda.empty_cache()
+
+    # Gray-Scott 8192^2, two fields fed, copy BCs: fused by 4 against one
+    # step a chain and dense stepping, 16 steps
+    gs, feed = progs["gray_scott"], sc.GRAY_SCOTT_FEED
+    inputs = sft.load_input_arrays(gs)
+    stats = {}
+    fused = sft.iterate(gs, inputs, 16, feed=feed, fuse=4, stats=stats)
+    one_stats = {}
+    one = sft.iterate(gs, inputs, 16, feed=feed, fuse=1, stats=one_stats)
+    dense = _eager(make_step(gs, feed, backend="dense")[0], inputs, 16)
+    equal = all(np.array_equal(fused[k], one[k]) and
+                np.array_equal(one[k], dense[k]) for k in feed)
+    finite = all(np.isfinite(fused[k]).all() for k in feed)
+    ms4 = _replay_ms(gs, inputs, 4, 4, feed)
+    ms1 = _replay_ms(gs, inputs, 1, 16, feed)
+    print(f"solvers: iterate gray_scott 8192^2 x 16 steps: fuse 4 "
+          f"{stats['backend']} {ms4:.4f} ms a step, fuse 1 "
+          f"{one_stats['backend']} {ms1:.4f} ms a step; bit-equal across "
+          f"fuse and to dense: {equal}, finite: {finite} | {smi}",
+          flush=True)
+    check(equal and finite, "gray-scott fuse 4 / fuse 1 / dense differ")
+    gs_route = stats["backend"]
+    del fused, one, dense, inputs
+    torch.cuda.empty_cache()
+
+    # out of core: jacobi3d 1024^3 fused by 8, 16 steps at 8 chunks (K4)
+    # against in-core iterate (K1)
+    j = progs["jacobi1024"]
+    inputs = {"a": _device_random((1024,) * 3, 1)}
+    oc_stats, ic_stats = {}, {}
+    t0 = time.perf_counter()
+    oc = sft.iterate(j, inputs, 16, fuse=8, host_chunks=8,
+                     stats=oc_stats)["a"]
+    oc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ic = sft.iterate(j, inputs, 16, fuse=8, stats=ic_stats)["a"]
+    ic_s = time.perf_counter() - t0
+    equal = np.array_equal(oc, ic)
+    print(f"solvers: iterate {j.name} x 16 steps, fuse 8: "
+          f"{oc_stats['backend']} {oc_s:.2f} s against in-core "
+          f"{ic_stats['backend']} {ic_s:.2f} s (host clock, transfers and "
+          f"set-up included); bit-equal: {equal} | {smi}", flush=True)
+    check(equal, "out-of-core iterate differs from in-core")
+    del oc, ic, inputs
+    torch.cuda.empty_cache()
+
+    # gradients: the bench's chain (512^3 x 8) through the kernels, the
+    # gradient against dense of the adjoint program on the same cotangent
+    for key in ("grad", "grad_copy"):
+        p = progs[key]
+        inputs = {n: torch.as_tensor(v).cuda() for n, v in
+                  sft.load_input_arrays(p, seed=0).items()}
+        torch.cuda.reset_peak_memory_stats()
+        f = sft.fast_value_and_grad(p)
+        val, grads = f(inputs)
+        fast_ms = _time_ms(lambda: f(inputs), 3)
+        fast_peak = torch.cuda.max_memory_allocated()
+        adj, cot = sft.adjoint_program(p)
+        adj_in = {n: torch.as_tensor(np.asarray(v)).cuda()
+                  for n, v in sft.load_input_arrays(adj).items()}
+        want = compile_chain(adj)(adj_in)["adj_a"].reshape(grads["a"].shape)
+        equal = torch.equal(grads["a"], want)
+        del adj_in, want
+        line = (f"solvers: fast_value_and_grad {p.name}: forward "
+                f"{f.lowering['forward']}, adjoint {f.lowering['adjoint']} "
+                f"({len(adj.inputs) - 1} 1-D indicator inputs), "
+                f"{fast_ms:.3f} ms a call, peak {fast_peak / 2 ** 30:.2f} "
+                f"GiB; gradient == dense of the adjoint: {equal}")
+        check(equal, f"{p.name}: fast gradient differs from dense of the "
+                     "adjoint")
+        # dense autodiff (value_and_grad) beside, with its peak memory
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        g = sft.value_and_grad(p)
+        dval, dgrads = g(inputs)
+        dense_ms = _time_ms(lambda: g(inputs), 1)
+        dense_peak = torch.cuda.max_memory_allocated()
+        close = sft.arrays_are_equal(dgrads["a"].cpu().numpy(),
+                                     grads["a"].cpu().numpy(),
+                                     VERIFY_RTOL) and \
+            abs(float(dval) - float(val)) <= \
+            VERIFY_RTOL * abs(float(dval))
+        line += (f" | value_and_grad (dense autodiff) {dense_ms:.3f} ms "
+                 f"a call ({dense_ms / fast_ms:.1f}x), peak "
+                 f"{dense_peak / 2 ** 30:.2f} GiB; within VERIFY_RTOL: "
+                 f"{close}")
+        check(close, f"{p.name}: value_and_grad differs from the fast "
+                     "gradient")
+        del dgrads, g
+        print(line + f" | {smi}", flush=True)
+        del f, grads, inputs
+        torch.cuda.empty_cache()
+
+    # CG and CGNR at 512^3: iterations, true residual, ms an iteration
+    # split into the operator and the vector passes; then CG out of core
+    rhs = _device_random((512,) * 3, 2)
+    rhs_dev = torch.as_tensor(rhs).cuda()
+    tol = 1e-6
+    x_in = None
+    for key, method in (("diffusion", "cg"), ("upwind", "cgnr")):
+        solver = sft.make_solver(progs[key], method=method, tol=tol,
+                                 maxiter=3000)
+        solver(rhs_dev)   # first use (cuBLAS, the caching allocator)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x, info = solver(rhs_dev)
+        stop.record()
+        torch.cuda.synchronize()
+        total = start.elapsed_time(stop)
+        op_ms = _time_ms(lambda: solver.operator(x), 5)
+        per = total / max(info["iterations"], 1)
+        print(f"solvers: {method} {progs[key].name}: "
+              f"{solver.lowering}, {info['iterations']} iterations, true "
+              f"relative residual {info['residual']:.3e} (tol {tol}), "
+              f"{per:.3f} ms an iteration: operator {op_ms:.3f}, vector "
+              f"passes {per - op_ms:.3f} | {smi}", flush=True)
+        check(info["residual"] <= tol * 100,
+              f"{method} residual {info['residual']} above tol * 100")
+        if key == "diffusion":
+            x_in = x.cpu().numpy()
+        del solver, x
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    x_oc, info = sft.make_solver(progs["diffusion"], tol=tol,
+                                 host_chunks=4)(rhs)
+    oc_s = time.perf_counter() - t0
+    rel = float(np.linalg.norm(x_oc - x_in) / np.linalg.norm(x_in))
+    print(f"solvers: cg {progs['diffusion'].name} at 4 host chunks: "
+          f"{info['iterations']} iterations, residual "
+          f"{info['residual']:.3e}, {oc_s:.2f} s (host clock); relative "
+          f"distance to the in-core x {rel:.3e} (limit {10 * tol}) | {smi}",
+          flush=True)
+    check(rel <= 10 * tol, "out-of-core CG differs from in-core")
+
+    counts = {"panel": pn.launches, "overlap": ov.launches,
+              "group": gp.launches, "local_stream": st.local_launches,
+              "stream": st.launches, "stream_spill": st.spill_launches}
+    print(f"solvers: launches {counts} (warm-up and capture launches; a "
+          f"graph replay re-runs its captured launches without the "
+          f"wrappers) | {smi}", flush=True)
+    need = ["panel", "overlap", "local_stream"]
+    if gs_route == "rows+group_g8":
+        need.append("group")
+    for name in need:
+        check(counts[name] > 0, f"the solver paths never launched {name}")
+    return counts
+
+
 def _design_probes(ov, smi):
     """Phase 6, continued: P6, P3, P2 and P5 against their plain versions
     at a ragged and at the main shape (bit-exact; P6's out and acc, P3's
@@ -1135,7 +1428,14 @@ def main() -> int:
     an5 = sft.ChainAnalysis.run(p5)
     sources.append((codegen.overlap_source(p5, an5, ov.OverlapPlan.build(
         an5)), "overlap"))
-    libs = build.load_libraries(sources)
+    # the solvers phase's lowerings (composed and adjoint programs among
+    # them) compile on threads beside, each through its entry point
+    solver_progs, solver_thunks = _solver_setup(sft, jacobi8)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        solver_built = [pool.submit(t) for t in solver_thunks]
+        libs = build.load_libraries(sources)
+        for fut in solver_built:
+            fut.result()
     lib_of = {src: lib for (src, _), lib in zip(sources, libs)}
     slow = max(build.build_log, key=lambda x: x[1]) if build.build_log \
         else ("-", 0.0)
@@ -1733,6 +2033,10 @@ def main() -> int:
     for name, entry in report.items():
         if entry["launches"] < 1:
             raise RuntimeError(f"the main path never launched {name}")
+
+    # -- 7. the solver entry points ------------------------------------------
+    print(f"phase: 7 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    _solvers(sft, solver_progs, smi, report["panel"]["ms"])
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith(("jax.", "stencilflow_tpu."))

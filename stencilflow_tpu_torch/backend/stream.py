@@ -1445,7 +1445,11 @@ def build_stream(plan: StreamPlan):
 
 def _pool_tensors(plan: StreamPlan, device) -> List[torch.Tensor]:
     """The kernel's device tables, then its spill buffer (one per plan
-    and device: launches on one stream reuse it in turn)."""
+    and device: launches on one stream reuse it in turn).  The compile
+    entry points fill it for their device, so that no launch copies from
+    the host (a copy a CUDA graph capture refuses)."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if device not in plan.device_pool:
         plan.device_pool[device] = [
             torch.as_tensor(a).to(device).contiguous()
@@ -1520,6 +1524,8 @@ def compile_local_stream(plan: StreamPlan, device="cuda"):
     version on the CPU); ``slabs`` as ``run_local_stream`` takes them."""
     device = resolve_device(device)
     lib = build_stream(plan) if device.type == "cuda" else None
+    if lib is not None:
+        _pool_tensors(plan, device)
 
     def chunk_fn(origin_i, slabs):
         return run_local_stream(plan, int(origin_i), slabs, lib)
@@ -1535,6 +1541,8 @@ def compile_stream_plan(plan: StreamPlan, device="cuda"):
     device = resolve_device(device)
     program = plan.program
     lib = build_stream(plan) if device.type == "cuda" else None
+    if lib is not None:
+        _pool_tensors(plan, device)
 
     def forward(inputs):
         arrays = spanned_arrays(program, inputs, device=device)

@@ -30,12 +30,23 @@ from .promotion import (const_dtype_of, const_type, fill_value, is_bool,
 Vec3 = Tuple[int, int, int]
 
 
+def device_const(value, tdt: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(value, dtype=tdt)`` on ``device``.  On a GPU the
+    value, rounded on the host as ``torch.tensor`` rounds it, is written
+    by a fill kernel, not copied from host memory: a copy waits for the
+    device, which a CUDA graph capture refuses."""
+    host = torch.tensor(value, dtype=tdt)
+    if torch.device(device).type == "cpu":
+        return host
+    return torch.full((), host.item(), dtype=tdt, device=device)
+
+
 def as_type(value, ty_from, ty_to, device):
     """``value`` (a tensor, or a python number when ``ty_from`` is weak)
     converted to the strong numpy dtype ``ty_to`` as a tensor."""
     tdt = to_torch_dtype(ty_to)
     if is_weak(ty_from) or not torch.is_tensor(value):
-        return torch.tensor(value, dtype=tdt, device=device)
+        return device_const(value, tdt, device)
     return value if value.dtype == tdt else value.to(tdt)
 
 
@@ -85,8 +96,24 @@ def read_access_tile(buf, offsets: ir.Offsets,
     if bc is not None and bc.kind == ir.BCKind.COPY:
         return torch.where(mask, buf, shifted)
     fill = fill_value(bc, to_numpy_dtype(buf.dtype))
-    return torch.where(mask, torch.tensor(fill.item(), dtype=buf.dtype,
-                                          device=buf.device), shifted)
+    return torch.where(mask, device_const(fill.item(), buf.dtype,
+                                          buf.device), shifted)
+
+
+class _Abs(torch.autograd.Function):
+    """``torch.abs`` differentiated as JAX differentiates ``abs``:
+    ``select(x >= 0, g, -g)``, so the derivative at 0 is 1 (torch's own
+    is 0).  Used where the operand requires grad."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
 
 
 _BINOPS = {
@@ -194,7 +221,8 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
             if is_bool(at):
                 return a, at
             ty = strong(at)
-            return torch.abs(cast(a, at, ty)), ty
+            a = cast(a, at, ty)
+            return (_Abs.apply(a) if a.requires_grad else torch.abs(a)), ty
         ty = at if is_float(at) and not is_weak(at) else np.dtype(np.float64)
         return _CALLS[expr.fn](cast(a, at, ty)), ty
     raise TypeError(f"unknown expression node {type(expr)}")
@@ -256,7 +284,10 @@ def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
     fields: Dict[str, Any] = {}
     for iname, spec in program.inputs.items():
         arr = tile_fields[iname]
-        fields[iname] = arr.to(device) if spec.is_scalar else \
+        if spec.is_scalar and device is not None and arr.device != device:
+            arr = arr.to(device) if arr.requires_grad else \
+                device_const(arr.item(), arr.dtype, device)
+        fields[iname] = arr if spec.is_scalar else \
             broadcast_input_tile(arr, spec.dim_mask, tile_shape)
 
     names = list(program.outputs)

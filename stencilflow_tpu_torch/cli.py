@@ -1,15 +1,19 @@
-"""Command-line interface of the port: the ``run`` and ``report``
-subcommands.
+"""Command-line interface of the port: the ``run``, ``report``,
+``iterate``, ``solve`` and ``adjoint`` subcommands.
 
     python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference --device cuda
     python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R]
+    python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
+    python -m stencilflow_tpu_torch.cli solve <prog.json> --rhs random:0,1 [--method cg|cgnr] [--tol T] [--device cuda]
+    python -m stencilflow_tpu_torch.cli adjoint <prog.json> [-o adj.json] [--wrt a,b]
 
-Port of ``stencilflow_tpu/cli.py`` ``run`` and ``report``: the JAX
-package's own usage parses here too.  Its spellings map to the port's
-(``--no-mxu`` is ``--mxu off``, ``--backend pallas`` is ``tile``,
-``--backend xla`` is ``dense``; the ``mode`` is accepted and ignored, as
-there); options whose engines are not ported yet exit with ``error:``
-and rc 2, naming the ROADMAP item that ports them.  The other
+Port of the same subcommands of ``stencilflow_tpu/cli.py``: the JAX
+package's own usage parses here too and prints the same lines.  Its
+spellings map to the port's (``--no-mxu`` is ``--mxu off``, ``--backend
+pallas`` is ``tile``, ``--backend xla`` is ``dense``, ``solve
+--emulation`` is ``--device cpu``; the ``run`` mode is accepted and
+ignored, as there); options whose engines are not ported yet exit with
+``error:`` and rc 2, naming the ROADMAP item that ports them.  The other
 subcommands are not ported yet.
 """
 from __future__ import annotations
@@ -28,6 +32,9 @@ NOT_PORTED = {
               "matplotlib)",
     "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model with the "
               "sharded engine)",
+    "--checkpoint-format orbax": "Queue 1 item 8 (M12, the sharded "
+                                 "engine's asynchronous checkpoints; the "
+                                 "card's machine has no orbax)",
 }
 
 
@@ -116,6 +123,84 @@ def _cmd_report(args) -> int:
     return 0
 
 
+def _cmd_iterate(args) -> int:
+    """Time-step a chain with device-resident state and checkpoints."""
+    from .data import load_input_arrays, save_output_arrays
+    from .frontend.parser import parse_program
+    from .iterate import iterate
+    if args.checkpoint_format == "orbax":
+        return _refuse("--checkpoint-format orbax")
+    program = parse_program(args.stencil_file)
+    inputs = load_input_arrays(program, prefix=args.input_directory,
+                               seed=args.seed)
+    state = iterate(program, inputs, args.steps,
+                    device=args.device,
+                    chunk=args.chunk,
+                    fuse=args.fuse_steps,
+                    host_chunks=args.host_chunks,
+                    checkpoint_every=args.checkpoint_every,
+                    checkpoint_dir=args.checkpoint_dir,
+                    resume=not args.no_resume)
+    print(f"ran {args.steps} steps")
+    if args.output_dir:
+        save_output_arrays(state, args.output_dir)
+        print(f"state written to {args.output_dir}/")
+    return 0
+
+
+def _cmd_solve(args) -> int:
+    """Implicit solve: find x with fn(x) = rhs, the chain as matrix-free
+    linear operator (CG / CGNR; out-of-core with --host-chunks)."""
+    import numpy as np
+
+    from .data import load_array, save_array
+    from .frontend.parser import parse_program
+    from .ir import InputSpec
+    from .solve import make_solver
+    program = parse_program(args.stencil_file)
+    raw = tuple(program.raw_dimensions)
+    dt = np.dtype(program.kernels[args.out or program.outputs[0]].dtype)
+    if args.rhs.startswith(("constant:", "random:")):
+        mask = (False,) * (3 - len(raw)) + (True,) * len(raw)
+        rhs = load_array(InputSpec("rhs", dt, mask, args.rhs),
+                         program.dimensions,
+                         rng=np.random.default_rng(args.seed))
+    else:
+        rhs = np.fromfile(args.rhs, dt).reshape(raw)
+    solver = make_solver(program, field=args.field, out=args.out,
+                         method=args.method, tol=args.tol,
+                         maxiter=args.maxiter,
+                         device="cpu" if args.emulation else args.device,
+                         host_chunks=args.host_chunks)
+    x, info = solver(rhs)
+    print(f"converged in {info['iterations']} iterations; "
+          f"true relative residual {info['residual']:.3e}")
+    if args.output:
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        save_array(x.reshape(raw), args.output)
+        print(f"x written to {args.output}")
+    return 0 if info["residual"] <= args.tol * 100 else 1
+
+
+def _cmd_adjoint(args) -> int:
+    """Transpose an affine chain into its adjoint program (grad.py) and
+    emit it in the JSON dialect: the backward pass then runs through any
+    lowering or CLI command like a forward chain."""
+    from .frontend.export import program_to_json
+    from .frontend.parser import parse_program
+    from .grad import adjoint_program
+    program = parse_program(args.stencil_file)
+    wrt = ([w.strip() for w in args.wrt.split(",")] if args.wrt else None)
+    adj, cot = adjoint_program(program, wrt)
+    spec = program_to_json(adj)
+    out = args.output or f"{program.name}_adjoint.json"
+    with open(out, "w") as f:
+        json.dump(spec, f, indent=2)
+    print(f"wrote {out} (cotangent inputs: {cot}; "
+          f"outputs: {adj.outputs})")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .driver import BACKEND_ALIASES, BACKENDS
     ap = argparse.ArgumentParser(prog="stencilflow_tpu_torch")
@@ -191,6 +276,66 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--comm-overlap", action="store_true",
                    help="with --mesh (not ported yet)")
     p.set_defaults(fn=_cmd_report)
+
+    p = sub.add_parser("iterate",
+                       help="time-step a chain with checkpoint/resume")
+    p.add_argument("stencil_file")
+    p.add_argument("--steps", type=int, required=True)
+    p.add_argument("--chunk", type=int, default=16,
+                   help="steps a CUDA graph replays at once")
+    p.add_argument("--fuse-steps", type=int, default=1,
+                   help="compose this many time steps into one deeper "
+                        "chain before compiling (multiplies arithmetic "
+                        "intensity; steps must be a multiple)")
+    p.add_argument("--host-chunks", type=int, default=0, metavar="N",
+                   help="out-of-core time-stepping: state stays in host "
+                        "memory, each step streams the domain through "
+                        "the device in N i-chunks (combine with "
+                        "--fuse-steps to amortize host-device traffic)")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--checkpoint-dir")
+    p.add_argument("--checkpoint-format", default="npz",
+                   choices=["npz", "orbax"],
+                   help="npz: one host file per checkpoint; orbax is not "
+                        "ported yet (exits with rc 2)")
+    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--output-dir")
+    p.add_argument("--input-directory")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=_cmd_iterate)
+
+    p = sub.add_parser("solve",
+                       help="implicit solve fn(x) = rhs with the chain "
+                            "as matrix-free linear operator (CG/CGNR)")
+    p.add_argument("stencil_file")
+    p.add_argument("--rhs", required=True,
+                   help=".dat file, constant:<v>, or random:<a>,<b>")
+    p.add_argument("--method", default="cg", choices=["cg", "cgnr"])
+    p.add_argument("--tol", type=float, default=1e-6)
+    p.add_argument("--maxiter", type=int, default=1000)
+    p.add_argument("--field", help="solve input (default: first input)")
+    p.add_argument("--out", help="solve output (default: first output)")
+    p.add_argument("--host-chunks", type=int, default=0, metavar="N",
+                   help="out-of-core solve: chunked operator sweeps, "
+                        "host-resident CG vectors")
+    p.add_argument("--emulation", action="store_true",
+                   help="the JAX package's spelling of --device cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    p.add_argument("-o", "--output", help="write x to this .dat file")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=_cmd_solve)
+
+    p = sub.add_parser("adjoint",
+                       help="transpose an affine chain into its adjoint "
+                            "program (JSON dialect)")
+    p.add_argument("stencil_file")
+    p.add_argument("-o", "--output")
+    p.add_argument("--wrt", help="comma-separated input names "
+                                 "(default: all floating field inputs)")
+    p.set_defaults(fn=_cmd_adjoint)
     return ap
 
 

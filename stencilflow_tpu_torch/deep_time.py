@@ -5,7 +5,8 @@ overlapped-tile kernel's cells (K6) or of the overlap kernel's cells
 (K2), for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
-        [--cells deep|panel|banded|local|group|tile|overlap] [--ptxas]
+        [--cells deep|panel|banded|local|group|tile|overlap|solvers]
+        [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
 file's own checkout by default), so the same file times another commit
@@ -27,7 +28,10 @@ the group kernel's plan at the rows route's B = 64, g = 8
 (``plan_group``).  ``--cells tile``: jacobi3d 512^3 x 2 and hdiff3d
 256^3 x 8 on the overlapped-tile kernel's plans (``plan_tile``), masked
 and fast (the call the checkout makes: a parent's fast mode includes its
-torch fix-up of the border shell).  ``--cells overlap``: jacobi3d and
+torch fix-up of the border shell).  ``--cells solvers``: the time-step
+loop eager against its CUDA-graph replay and fused by 1, 2, 4 and 8, and
+CG's iteration split into the operator and the vector passes
+(``_solvers``).  ``--cells overlap``: jacobi3d and
 hotspot3d 512^3 x 2 and jacobi2d 8192^2 x 2 (I = 1) on the overlap
 kernel's plan (``OverlapPlan.build``, their route), each followed by
 the overlapped-tile kernel's fast mode on the same program.  Random
@@ -188,6 +192,129 @@ def _overlap(sft, synthesize_stencil):
     return out
 
 
+def _solvers(smi: str, reps: int) -> dict:
+    """``--cells solvers``: the time-step loop and CG at full width.
+
+    For jacobi3d (one stage) at 512^3 fused by 1, 2, 4 and 8, and at
+    64^3 unfused (a step short enough for launches to show): ms a step
+    eager (``make_step`` in a Python loop, 64 steps) and replayed from
+    the CUDA graph ``iterate`` captures (``GraphLoop``), bit for bit
+    equal, beside the step's bound.  For CG on backward-Euler diffusion
+    512^3: ms an iteration, the operator's ms, and the vector passes
+    (the offset subtraction, two dots, three ``addcmul``s) timed alone
+    on the same vectors, beside their bytes over the copy floor."""
+    import numpy as np
+    import torch
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch import solver_cells as sc
+    from stencilflow_tpu_torch.iterate import (GraphLoop,
+                                               compose_iterations,
+                                               make_step)
+    from stencilflow_tpu_torch.report import HardwareModel, Report
+    from stencilflow_tpu_torch.synthesize import jacobi
+
+    def events(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n
+
+    out = {}
+    for size, fuses in ((512, (1, 2, 4, 8)), (64, (1,))):
+        base = sft.parse_program(jacobi(3, size, 1),
+                                 name=f"jacobi3d_{size}")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        a = torch.rand((size,) * 3, generator=gen, device="cuda")
+        for fuse in fuses:
+            p = compose_iterations(base, fuse) if fuse > 1 else base
+            step, feed = make_step(p, device="cuda")
+            n = 64 // fuse
+            state = {"a": a}
+
+            def eager():
+                s = state
+                for _ in range(n):
+                    s = step(s)
+                return s
+
+            want = eager()["a"]
+            loop = GraphLoop(step, {"a": a.clone()}, feed,
+                             torch.device("cuda"))
+            loop.run(n)
+            equal = torch.equal(loop.buffers["a"], want)
+            eager_ms = events(eager, reps) / (n * fuse)
+            graph_ms = events(lambda: loop.run(n), reps) / (n * fuse)
+            bound_ms = Report.build(p).roofline_time_s() * 1e3 / fuse
+            key = f"{base.name} fuse {fuse}"
+            out[key] = {"route": step.backend, "eager_ms": eager_ms,
+                        "graph_ms": graph_ms, "bound_ms": bound_ms,
+                        "equal": bool(equal)}
+            print(f"solvers: {key} ({step.backend}): eager {eager_ms:.4f} "
+                  f"ms a step, graph replay {graph_ms:.4f}, bound "
+                  f"{bound_ms:.4f}; replay == eager: {equal} | {smi}",
+                  flush=True)
+            if not equal:
+                raise RuntimeError(f"{key}: replay differs from eager")
+            del loop, want
+            torch.cuda.empty_cache()
+
+    p = sc.implicit_diffusion(512)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rhs = torch.rand((512,) * 3, generator=gen, device="cuda")
+    solver = sft.make_solver(p, tol=1e-6)
+    solver(rhs)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    x, info = solver(rhs)
+    stop.record()
+    torch.cuda.synchronize()
+    iter_ms = start.elapsed_time(stop) / info["iterations"]
+    op = solver.operator
+    op_ms = events(lambda: op(x), reps)
+    # one iteration's vector passes on the same vectors (solve.py
+    # _make_cg_run less the operator's launch)
+    r, q, ap, off = rhs.clone(), x.clone(), op(x), rhs.clone()
+    rs = torch.dot(r.reshape(-1), r.reshape(-1))
+
+    def passes():
+        ap.sub_(off)
+        alpha = rs / torch.dot(q.reshape(-1), ap.reshape(-1))
+        x.addcmul_(q, alpha)
+        r.addcmul_(ap, alpha, value=-1)
+        rs_new = torch.dot(r.reshape(-1), r.reshape(-1))
+        torch.addcmul(r, q, rs_new / rs, out=q)
+
+    vec_ms = events(passes, reps)
+    # bytes each input read once, each output written once: the offset
+    # subtraction 3 vectors, the dots 2 and 1, each addcmul 3
+    floor = HardwareModel().copy_floor
+    vec_bytes = 15 * rhs.numel() * 4
+    row = {"route": solver.lowering["operator"],
+           "iterations": info["iterations"],
+           "residual": info["residual"], "iteration_ms": iter_ms,
+           "operator_ms": op_ms, "vector_ms": vec_ms,
+           "vector_bytes": vec_bytes,
+           "vector_floor_ms": vec_bytes / floor * 1e3,
+           "operator_bound_ms": Report.build(p).roofline_time_s() * 1e3}
+    out[p.name + " cg"] = row
+    print(f"solvers: cg {p.name} ({row['route']}): {info['iterations']} "
+          f"iterations, residual {info['residual']:.3e}, {iter_ms:.3f} ms "
+          f"an iteration: operator {op_ms:.3f} (bound "
+          f"{row['operator_bound_ms']:.4f}), vector passes {vec_ms:.3f} "
+          f"({vec_bytes / 1e9:.2f} GB: {row['vector_floor_ms']:.3f} ms at "
+          f"the copy floor), the rest (the host read of rs, launches) "
+          f"{iter_ms - op_ms - vec_ms:.3f} | {smi}", flush=True)
+    return out
+
+
 def _ptxas(sources) -> None:
     """nvcc's register and spill report of every source."""
     import tempfile
@@ -214,7 +341,8 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
-                                        "group", "tile", "overlap"),
+                                        "group", "tile", "overlap",
+                                        "solvers"),
                     default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
@@ -234,6 +362,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    if args.cells == "solvers":
+        print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
+                          "cells": _solvers(smi, args.reps)}))
+        return 0
     cells = {"deep": _deep, "panel": _panel, "banded": _banded,
              "local": _local, "group": _group, "tile": _tile,
              "overlap": _overlap}[args.cells](sft, synthesize_stencil)

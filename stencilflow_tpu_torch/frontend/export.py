@@ -1,17 +1,24 @@
-"""Program -> JSON-dialect computation strings, for ``report --verbose``.
+"""Program -> JSON dialect (the inverse of the parser).
 
 Copied from ``stencilflow_tpu/frontend/export.py`` with no change of
-meaning, cut to the kernel-string forms ``report.full_dump`` prints:
-computation strings re-emitted in Python syntax with dimensional indices
-relative to the canonical iterators (``kernel_to_string``), and the
+meaning: computation strings re-emitted in Python syntax with
+dimensional indices relative to the canonical iterators
+(``kernel_to_string``, which ``report.full_dump`` prints), the
 relative-offset form of the reference's
 ``generate_relative_access_kernel_string`` (kernel.py:327-368,
-``kernel_to_relative``).
+``kernel_to_relative``), and whole programs (``program_to_json``, which
+``cli adjoint`` writes).
 """
 from __future__ import annotations
 
+import os
+from typing import Any, Dict
+
+import numpy as np
+
 from .. import ir
 from ..config import ITERATORS
+from ..dtypes import dtype_to_str
 
 
 def _index_str(offsets: ir.Offsets, raw_rank: int) -> str:
@@ -116,3 +123,64 @@ def kernel_to_relative(kspec: ir.KernelSpec) -> str:
 
     return "; ".join(f"{s.lhs} = {walk(s.rhs)}"
                      for s in kspec.statements)
+
+
+def program_to_json(program: ir.Program,
+                    embed_data: bool = True) -> Dict[str, Any]:
+    """Serialize a Program back to the JSON dialect.
+
+    ``embed_data``: inline ndarray input data as lists (otherwise emit a
+    ``constant:0.0`` placeholder the caller replaces with file paths).
+    """
+    raw_rank = len(program.raw_dimensions)
+    iters = list(ITERATORS)
+
+    inputs: Dict[str, Any] = {}
+    for name, spec in program.inputs.items():
+        entry: Dict[str, Any] = {"data_type": dtype_to_str(spec.dtype)}
+        data = spec.data
+        if isinstance(data, np.ndarray):
+            entry["data"] = data.tolist() if embed_data else "constant:0.0"
+        elif isinstance(data, str):
+            # relative data file paths resolve against the SOURCE
+            # program's directory at load time: rebase so the exported
+            # JSON works from any directory
+            if (not data.startswith(("constant:", "random:"))
+                    and not os.path.isabs(data) and program.path):
+                data = os.path.join(
+                    os.path.dirname(os.path.abspath(program.path)), data)
+            entry["data"] = data
+        elif isinstance(data, list):
+            entry["data"] = data
+        elif np.isscalar(data):
+            entry["data"] = float(data)
+        else:
+            entry["data"] = "constant:0.0"
+        # spanned iterator names, trimmed to the raw rank's iterators
+        spanned = [iters[d] for d in range(3) if spec.dim_mask[d]]
+        full = iters[3 - raw_rank:]
+        if spanned != full:
+            entry["input_dims"] = spanned
+        inputs[name] = entry
+
+    kernels: Dict[str, Any] = {}
+    for name, kspec in program.kernels.items():
+        kernels[name] = {
+            "computation_string": kernel_to_string(kspec, raw_rank),
+            "boundary_conditions": {
+                f: {"type": bc.kind.value, "value": bc.value}
+                for f, bc in kspec.boundary_conditions.items()},
+            "data_type": dtype_to_str(kspec.dtype),
+        }
+
+    out: Dict[str, Any] = {
+        "inputs": inputs,
+        "outputs": list(program.outputs),
+        "dimensions": list(program.raw_dimensions),
+        "program": kernels,
+    }
+    if program.vectorization != 1:
+        out["vectorization"] = program.vectorization
+    if program.constants:
+        out["constants"] = dict(program.constants)
+    return out

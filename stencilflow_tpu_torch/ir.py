@@ -13,9 +13,8 @@ get size-1 leading dims.  A field access stores a 3-long offset vector where
 ``None`` marks dimensions the field does not span (lower-dimensional inputs,
 or leading padded dims).
 
-Copied from ``stencilflow_tpu/ir.py`` with no change of meaning, less
-``rename_fields`` (no port module renames fields yet): the port cannot
-import the JAX package, whose ``__init__`` imports jax.
+Copied from ``stencilflow_tpu/ir.py`` with no change of meaning: the
+port cannot import the JAX package, whose ``__init__`` imports jax.
 """
 from __future__ import annotations
 
@@ -157,6 +156,16 @@ def rewrite_expr(expr: Expr, fn) -> Expr:
         expr = Call(expr.fn, tuple(rewrite_expr(a, fn)
                                    for a in expr.args))
     return fn(expr)
+
+
+def rename_fields(expr: Expr, ren: Dict[str, str]) -> Expr:
+    """Rebuild an expression with Access fields renamed through ``ren``
+    (temporary Refs are kernel-local and untouched)."""
+    def fn(e: Expr) -> Expr:
+        if isinstance(e, Access) and e.field in ren:
+            return dataclasses.replace(e, field=ren[e.field])
+        return e
+    return rewrite_expr(expr, fn)
 
 
 def walk(expr: Expr):

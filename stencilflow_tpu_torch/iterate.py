@@ -1,0 +1,433 @@
+"""Iterative solving: time-step a stencil chain with checkpoints.
+
+Port of ``stencilflow_tpu/iterate.py``:
+
+* ``compose_iterations`` fuses ``n`` time steps into one deeper chain
+  (a copy: it maps IR to IR);
+* ``make_step`` compiles one chain evaluation on any lowering into a
+  state update ``{field: tensor} -> {field: tensor}`` that feeds
+  designated outputs back into inputs;
+* ``iterate`` runs N steps with ``.npz`` checkpoints and resume.
+
+The device loop.  The reference runs ``chunk`` steps inside one jitted
+``lax.fori_loop``.  Here each chunk of ``n`` steps is captured once in a
+CUDA graph (``torch.cuda.CUDAGraph``) and replayed: one host call per
+chunk, with no Python and no launch overhead per step.  The program's
+array inputs live in static device buffers; the graph reads them,
+chains the ``n`` steps through its own memory pool and, as its last
+operations, copies the final state of each fed field back into its
+buffer: one copy per chunk, none per step.  One graph is kept per
+distinct ``n`` (the full chunk, a remainder, a checkpoint boundary), all
+in one memory pool.  A capture that fails raises; nothing falls back to
+eager launches.  On the CPU the loop is a Python loop over the kernels'
+plain versions.
+
+The reference's rule of two steps per loop iteration (XLA pins the loop
+carry, and a ``pallas_call`` cannot alias its operand) has no
+counterpart: a graph's steps write fresh buffers of its pool.
+
+``host_chunks`` > 1 keeps the state in host numpy arrays and streams each
+step through the device in i-chunks (``outofcore.run_chunked``, K4 on
+the card).  ``mesh``/``dim_axes`` (the sharded engine) and orbax
+checkpoints are not ported: they raise, naming ROADMAP Queue 1 item 8
+(M12).
+"""
+from __future__ import annotations
+
+import dataclasses as dc
+import glob
+import os
+import re
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import ir
+from .backend.stacked_io import resolve_device
+from .frontend.analysis import ChainAnalysis
+
+NOT_PORTED_M12 = "is not ported to stencilflow_tpu_torch yet (ROADMAP " \
+                 "Queue 1 item 8, M12)"
+
+
+class IterateError(ValueError):
+    pass
+
+
+def _default_feed(program: ir.Program) -> Dict[str, str]:
+    """Map the unique full-domain input to the unique output (only
+    full-domain inputs are feedable; lower-rank coefficient arrays and
+    scalars are carried unchanged)."""
+    raw = tuple(program.raw_dimensions)
+    feedable = [
+        n for n, s in program.inputs.items()
+        if not s.is_scalar and tuple(s.shape(program.dimensions)) == raw
+    ]
+    if len(feedable) == 1 and len(program.outputs) == 1:
+        return {feedable[0]: program.outputs[0]}
+    raise IterateError(
+        "ambiguous feedback: pass feed={input_name: output_name}")
+
+
+def compose_iterations(program: ir.Program, n: int,
+                       feed: Optional[Dict[str, str]] = None
+                       ) -> ir.Program:
+    """Fuse ``n`` time steps of a chain into one deeper chain program.
+
+    Iteration ``t``'s kernels are cloned as ``<name>__it<t>`` with fed
+    inputs rewired to the previous iteration's outputs; the final
+    iteration's outputs keep their original names, so the fused program
+    has the same external interface (inputs, outputs, BCs) as applying
+    the original ``n`` times.  Fusing multiplies arithmetic intensity by
+    ``n`` (one input read and one output write for the fused step).
+    """
+    if n < 1:
+        raise IterateError("compose_iterations needs n >= 1")
+    feed = feed or _default_feed(program)
+    for iname, oname in feed.items():
+        if iname not in program.inputs or oname not in program.outputs:
+            raise IterateError(f"bad feed entry {iname!r} <- {oname!r}")
+    if n == 1:
+        return program
+
+    def clone_name(k: str, t: int) -> str:
+        if t == n - 1 and k in program.outputs:
+            return k
+        return f"{k}__it{t}"
+
+    kernels: Dict[str, ir.KernelSpec] = {}
+    for t in range(n):
+        ren = {k: clone_name(k, t) for k in program.kernels}
+        if t > 0:
+            for iname, oname in feed.items():
+                ren[iname] = clone_name(oname, t - 1)
+        for k, spec in program.kernels.items():
+            stmts = [dc.replace(s, rhs=ir.rename_fields(s.rhs, ren))
+                     for s in spec.statements]
+            bcs = {ren.get(f, f): bc
+                   for f, bc in spec.boundary_conditions.items()}
+            name = clone_name(k, t)
+            kernels[name] = dc.replace(spec, name=name, statements=stmts,
+                                       boundary_conditions=bcs)
+    # prune clones not reachable from the final outputs: subtrees feeding
+    # only non-fed outputs of intermediate iterations are dead (their
+    # results are superseded, never emitted)
+    live = set(program.outputs)
+    frontier = list(program.outputs)
+    while frontier:
+        k = frontier.pop()
+        if k not in kernels:
+            continue
+        for f in kernels[k].accesses():
+            if f not in live:
+                live.add(f)
+                frontier.append(f)
+    kernels = {k: v for k, v in kernels.items() if k in live}
+    return dc.replace(program, name=f"{program.name}_x{n}",
+                      kernels=kernels)
+
+
+def _check_feed(program: ir.Program, feed: Dict[str, str]) -> None:
+    for iname, oname in feed.items():
+        if iname not in program.inputs or oname not in program.outputs:
+            raise IterateError(f"bad feed entry {iname!r} <- {oname!r}")
+        spec = program.inputs[iname]
+        in_shape = spec.shape(program.dimensions)
+        if tuple(in_shape) != tuple(program.raw_dimensions):
+            raise IterateError(
+                f"fed input {iname!r} must span the full domain")
+
+
+def _compile(program, analysis, backend: str, device):
+    """``(fn, lowering name)`` of one chain evaluation on ``device``: the
+    ``run`` subcommand's lowerings, the dense one given its inputs on
+    ``device`` as the kernels' wrappers move them."""
+    from .backend.stacked_io import spanned_arrays
+    from .driver import BACKEND_ALIASES, BACKENDS
+    from .driver import _compile as compile_lowering
+    backend = BACKEND_ALIASES.get(backend, backend)
+    if backend not in BACKENDS:
+        raise IterateError(f"unknown backend: {backend} (choose from "
+                           f"{BACKENDS}; pallas = tile, xla = dense)")
+    fn, name = compile_lowering(program, analysis, backend, device,
+                                mxu="auto", mxu_precision="split",
+                                spill="auto")
+    if name != "dense":
+        return fn, name
+
+    def forward(inputs):
+        return fn(spanned_arrays(program, inputs, device=device))
+
+    return forward, name
+
+
+def make_step(program: ir.Program,
+              feed: Optional[Dict[str, str]] = None,
+              backend: str = "auto",
+              device="cuda",
+              mesh=None, dim_axes: Optional[Sequence] = None,
+              analysis: Optional[ChainAnalysis] = None,
+              host_chunks: int = 0,
+              ring_storage: str = "off"
+              ) -> Tuple[Callable, Dict[str, str]]:
+    """Compile one time step.  Returns ``(step, feed)`` where
+    ``step(state_dict) -> state_dict`` carries every program input; fed
+    inputs are replaced by the designated outputs each call.  Array
+    state on the device is a dict of tensors there; the lowering's name
+    is ``step.backend``.
+
+    ``host_chunks`` > 1 builds a *host-level* step: state stays in host
+    numpy arrays and each step streams the domain through the device in
+    i-chunks (outofcore.py); combine with ``fuse`` (via ``iterate``) to
+    amortize the host-device traffic over several time steps a pass."""
+    feed = feed or _default_feed(program)
+    _check_feed(program, feed)
+    if mesh is not None or dim_axes is not None:
+        raise IterateError(f"mesh {NOT_PORTED_M12}")
+    if ring_storage != "off":
+        raise IterateError("ring_storage is not ported to "
+                           "stencilflow_tpu_torch yet (ROADMAP Queue 1 "
+                           "item 11, bf16)")
+    device = resolve_device(device)
+    analysis = analysis or ChainAnalysis.run(program)
+    if host_chunks and host_chunks > 1:
+        if backend not in ("auto", "stream", "xla", "dense"):
+            raise IterateError(
+                f"backend {backend!r} is not available out-of-core "
+                "(the chunk kernel supports auto/stream/dense)")
+        from .outofcore import compile_chunked_chain, run_chunked
+        compiled = compile_chunked_chain(
+            program, host_chunks, analysis,
+            backend="dense" if backend == "xla" else backend,
+            device=device)
+
+        def host_step(state: Dict[str, Any]) -> Dict[str, Any]:
+            out = run_chunked(program, state, host_chunks,
+                              analysis=analysis, compiled=compiled)
+            new_state = dict(state)
+            for iname, oname in feed.items():
+                new_state[iname] = out[oname]
+            return new_state
+
+        host_step.backend = f"outofcore[{compiled[1].backend} x" \
+                            f"{host_chunks} chunks]"
+        return host_step, feed
+
+    fn, name = _compile(program, analysis, backend, device)
+
+    def step(state: Dict[str, Any]) -> Dict[str, Any]:
+        out = fn(state)
+        new_state = dict(state)
+        for iname, oname in feed.items():
+            new_state[iname] = out[oname]
+        return new_state
+
+    step.backend = name
+    return step, feed
+
+
+def _latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[int, str]]:
+    best = None
+    for path in glob.glob(os.path.join(ckpt_dir, "step_*.npz")):
+        m = re.search(r"step_(\d+)\.npz$", path)
+        if m:
+            k = int(m.group(1))
+            if best is None or k > best[0]:
+                best = (k, path)
+    return best
+
+
+class GraphLoop:
+    """Chunks of ``n`` steps replayed from CUDA graphs over static
+    buffers.
+
+    ``state`` (every program input: device tensors, host scalars) holds
+    the static buffers, which the loop owns; ``run(n)`` replays the graph
+    of ``n`` steps (captured at its first use, after one eager warm-up
+    step of the loop), whose last operations copy each fed field's final
+    value into its buffer.  ``buffers`` is the state after the last
+    replay.  ``captures`` and ``replays`` count graphs captured and
+    chunks replayed."""
+
+    def __init__(self, step: Callable, state: Dict[str, Any],
+                 feed: Dict[str, str], device: torch.device):
+        self.step = step
+        self.feed = feed
+        self.device = device
+        self.buffers = dict(state)
+        self.graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self.pool = None
+        self.warm = False
+        self.captures = 0
+        self.replays = 0
+
+    def _capture(self, n: int) -> torch.cuda.CUDAGraph:
+        if not self.warm:
+            # first-use work (builds, tables, attributes) runs outside the
+            # capture, on a side stream; its result is dropped
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self.step(self.buffers)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.warm = True
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            state = self.buffers
+            for _ in range(n):
+                state = self.step(state)
+            for iname in self.feed:
+                self.buffers[iname].copy_(state[iname])
+            del state
+        if self.pool is None:
+            self.pool = graph.pool()
+        self.captures += 1
+        return graph
+
+    def run(self, n: int) -> None:
+        if n not in self.graphs:
+            self.graphs[n] = self._capture(n)
+        self.graphs[n].replay()
+        self.replays += 1
+
+    def state(self) -> Dict[str, Any]:
+        """The buffers as host arrays (waits for the device)."""
+        return {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                for k, v in self.buffers.items()}
+
+
+def _place(v, device: torch.device, host_mode: bool):
+    """A state value where the loop keeps it: arrays on ``device`` (host
+    numpy arrays in host mode), scalars on the host."""
+    a = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    if a.ndim == 0 or host_mode:
+        return a
+    return torch.as_tensor(a).to(device)
+
+
+def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
+            feed: Optional[Dict[str, str]] = None,
+            backend: str = "auto", device="cuda",
+            mesh=None, dim_axes: Optional[Sequence] = None,
+            chunk: int = 16,
+            fuse: int = 1,
+            host_chunks: int = 0,
+            checkpoint_every: int = 0,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_format: str = "npz",
+            resume: bool = True,
+            stats: Optional[Dict[str, Any]] = None
+            ) -> Dict[str, np.ndarray]:
+    """Run ``steps`` chain evaluations with output->input feedback.
+
+    On a CUDA device each chunk of ``chunk`` steps is one replay of a
+    CUDA graph (see the module docstring); with ``checkpoint_every`` >
+    0, state is persisted to ``checkpoint_dir`` at that cadence as
+    ``step_<n>.npz`` (atomic rename) and, when ``resume``, execution
+    continues from the newest checkpoint found (one written by the JAX
+    package's ``iterate`` resumes here too).
+
+    ``fuse`` > 1 composes that many time steps into one deeper chain
+    (``compose_iterations``) before compiling; ``steps`` and
+    ``checkpoint_every`` keep their original-step units and must be
+    multiples of ``fuse``.  ``stats``, when given, receives the
+    lowering (``backend``) and, on the card, the graphs captured and the
+    chunks replayed.  Returns the final state as host arrays.
+    """
+    if fuse < 1:
+        raise IterateError(f"fuse must be >= 1, got {fuse}")
+    if chunk < 1:
+        raise IterateError(f"chunk must be >= 1, got {chunk}")
+    if mesh is not None or dim_axes is not None:
+        raise IterateError(f"mesh {NOT_PORTED_M12}")
+    scale = fuse
+    if scale > 1:
+        if steps % scale:
+            raise IterateError(f"steps ({steps}) must be a multiple of "
+                               f"fuse ({scale})")
+        if checkpoint_every and checkpoint_every % scale:
+            raise IterateError("checkpoint_every must be a multiple of "
+                               "fuse")
+        feed = feed or _default_feed(program)
+        program = compose_iterations(program, scale, feed)
+    steps_f = steps // scale
+    ckpt_f = checkpoint_every // scale if checkpoint_every else 0
+    if ckpt_f > 0:
+        if not checkpoint_dir:
+            raise IterateError("checkpoint_every requires checkpoint_dir")
+        if checkpoint_format == "orbax":
+            raise IterateError(f"checkpoint_format 'orbax' "
+                               f"{NOT_PORTED_M12}")
+        if checkpoint_format != "npz":
+            raise IterateError(
+                f"unknown checkpoint_format: {checkpoint_format!r}")
+
+    device = resolve_device(device)
+    analysis = ChainAnalysis.run(program)
+    host_mode = bool(host_chunks and host_chunks > 1)
+    step, feed = make_step(program, feed, backend, device,
+                           analysis=analysis, host_chunks=host_chunks)
+
+    start = 0
+    state = {k: _place(v, device, host_mode) for k, v in inputs.items()}
+    if ckpt_f > 0:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        latest = _latest_checkpoint(checkpoint_dir) if resume else None
+        if latest is not None:
+            start_orig, path = latest
+            if start_orig > steps:
+                raise IterateError(
+                    f"checkpoint {path} is at step {start_orig}, "
+                    f"beyond the requested {steps}; pass resume=False "
+                    "or a fresh checkpoint_dir")
+            if start_orig % scale:
+                raise IterateError(
+                    f"checkpoint {path} at step {start_orig} does not "
+                    f"align with fuse={scale}")
+            start = start_orig // scale
+            with np.load(path) as data:
+                state = {k: _place(data[k], device, host_mode)
+                         for k in state}
+        # checkpoints must land on chunk boundaries
+        chunk = min(chunk, ckpt_f)
+
+    loop = None
+    if device.type == "cuda" and not host_mode:
+        loop = GraphLoop(step, state, feed, device)
+
+        def run_chunk(n):
+            loop.run(n)
+
+        def snapshot():
+            return loop.state()
+    else:
+        # host mode (one chunked device sweep per fused step) and the CPU
+        def run_chunk(n):
+            nonlocal state
+            for _ in range(n):
+                state = step(state)
+
+        def snapshot():
+            return {k: (v.cpu().numpy() if torch.is_tensor(v)
+                        else np.asarray(v)) for k, v in state.items()}
+
+    done = start
+    while done < steps_f:
+        n = min(chunk, steps_f - done)
+        if ckpt_f > 0:
+            n = min(n, ckpt_f - done % ckpt_f or ckpt_f)
+        run_chunk(n)
+        done += n
+        if ckpt_f > 0 and (done % ckpt_f == 0 or done >= steps_f):
+            final = os.path.join(checkpoint_dir,
+                                 f"step_{done * scale}.npz")
+            tmp = final + ".tmp.npz"
+            np.savez(tmp, **snapshot())
+            os.replace(tmp, final)  # atomic: a crash never corrupts the
+            #                         newest resumable one
+    if stats is not None:
+        stats["backend"] = step.backend
+        if loop is not None:
+            stats.update(captures=loop.captures, replays=loop.replays)
+    return snapshot()

@@ -988,3 +988,148 @@ def test_probe_launch_refused_for_shared_memory_raises(cuda):
         sp.panel(x, B=64, tile=(64, 64))
     with pytest.raises(ValueError):
         ar.ring(x, 4, slots=4, blocks_per_sm=16)   # ring above the cap
+
+
+# -- the solver entry points: iterate (CUDA graphs), grad, solve -------------
+
+def _eager_steps(program, inputs, steps, feed=None, fuse=1):
+    """Eager stepping on the card through make_step (no graph)."""
+    from stencilflow_tpu_torch.iterate import compose_iterations, make_step
+    if fuse > 1:
+        program = compose_iterations(program, fuse, feed)
+    step, feed = make_step(program, feed, device="cuda")
+    state = {k: (torch.as_tensor(v).cuda() if np.ndim(v) else v)
+             for k, v in inputs.items()}
+    for _ in range(steps // fuse):
+        state = step(state)
+    return {k: state[k].cpu().numpy() for k in feed}
+
+
+def _gray_scott(n):
+    lap = ("({f}[j-1, k] + {f}[j+1, k] + {f}[j, k-1] + {f}[j, k+1] "
+           "- 4.0 * {f}[j, k])")
+    bc = {t: {"type": "copy"} for t in ("u", "v")}
+    return port.parse_program({
+        "inputs": {"u": {"data": "random:0.4,1.0", "data_type": "float32"},
+                   "v": {"data": "random:0.0,0.3", "data_type": "float32"}},
+        "outputs": ["u1", "v1"], "dimensions": [n, n],
+        "program": {
+            "u1": {"computation_string":
+                   "u1 = u[j, k] + 0.16 * " + lap.format(f="u") +
+                   " - u[j, k] * v[j, k] * v[j, k] + 0.0545 * "
+                   "(1.0 - u[j, k])",
+                   "boundary_conditions": bc, "data_type": "float32"},
+            "v1": {"computation_string":
+                   "v1 = v[j, k] + 0.08 * " + lap.format(f="v") +
+                   " + u[j, k] * v[j, k] * v[j, k] - 0.1165 * v[j, k]",
+                   "boundary_conditions": bc, "data_type": "float32"}}},
+        name="gray_scott")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # chunks of 4, 4, 2 (a remainder); fused, 3, 3, 1; 4, 2 (a checkpoint
+    # boundary), 4; a two-field feed, fused, one chunk; the dense
+    # lowering (its constants written by fill kernels) in the graph
+    dict(fuse=1, chunk=4, steps=10, replays=3),
+    dict(fuse=1, chunk=4, steps=6, backend="dense", replays=2),
+    dict(fuse=2, chunk=3, steps=14, replays=3),
+    dict(fuse=1, chunk=4, steps=10, every=6, replays=3),
+    dict(fuse=2, chunk=16, steps=8, gray_scott=True, replays=1),
+])
+def test_iterate_graph_replay_equals_eager_on_card(case, cuda, tmp_path):
+    """Bit for bit: the graph-replayed loop against eager stepping."""
+    if case.get("gray_scott"):
+        p = _gray_scott(96)
+        feed = {"u": "u1", "v": "v1"}
+    else:
+        p = port.parse_program(synthesize_stencil(
+            num_stages=1, dimensions=(24, 40, 72), shape="diffusion"),
+            name="step")
+        feed = {"a": p.outputs[0]}
+    inputs = port.load_input_arrays(p, seed=3)
+    stats = {}
+    kw = {}
+    if case.get("every"):
+        kw = dict(checkpoint_every=case["every"],
+                  checkpoint_dir=str(tmp_path / "ck"))
+    got = port.iterate(p, inputs, case["steps"], feed=feed,
+                       fuse=case["fuse"], chunk=case["chunk"], stats=stats,
+                       backend=case.get("backend", "auto"), **kw)
+    assert stats["backend"] != "dense" or case.get("backend") == "dense"
+    want = _eager_steps(p, inputs, case["steps"], feed, case["fuse"])
+    for k in feed:
+        assert np.array_equal(got[k], want[k]), k
+    assert stats["replays"] == case["replays"]
+    assert 1 <= stats["captures"] <= 2
+    if case.get("every"):
+        assert sorted(os.listdir(tmp_path / "ck")) == ["step_10.npz",
+                                                      "step_6.npz"]
+
+
+@pytest.mark.cuda
+def test_iterate_capture_failure_raises_on_card(cuda):
+    """A step that cannot be captured (it waits for the device) raises;
+    nothing runs eagerly in its place."""
+    from stencilflow_tpu_torch.iterate import GraphLoop, make_step
+    p = port.parse_program(synthesize_stencil(
+        num_stages=1, dimensions=(16, 24, 40), shape="diffusion"),
+        name="bad")
+    step, feed = make_step(p, device="cuda")
+
+    def waits(state):
+        state = step(state)
+        float(state["a"].sum())   # a host read: refused under capture
+        return state
+
+    state = {k: (torch.as_tensor(v).cuda() if np.ndim(v) else v)
+             for k, v in port.load_input_arrays(p).items()}
+    loop = GraphLoop(waits, state, feed, cuda)
+    with pytest.raises(RuntimeError):
+        loop.run(2)
+    assert loop.replays == 0 and loop.captures == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", ["constant", "copy"])
+def test_fast_value_and_grad_equals_cpu_on_card(boundary, cuda):
+    """The kernels' forward and adjoint equal their plain versions' run
+    on the CPU bit for bit (value to VERIFY_RTOL: reduction order)."""
+    from stencilflow_tpu_torch.config import VERIFY_RTOL
+    p = port.parse_program(synthesize_stencil(
+        num_stages=4, dimensions=(24, 40, 72), shape="diffusion",
+        boundary=boundary), name=f"fv_{boundary}")
+    inputs = port.load_input_arrays(p, seed=5)
+    f = port.fast_value_and_grad(p)
+    assert "dense" not in f.lowering.values()
+    val, grads = f(inputs)
+    cval, cgrads = port.fast_value_and_grad(p, device="cpu")(inputs)
+    assert np.array_equal(grads["a"].cpu().numpy(), cgrads["a"].numpy())
+    assert abs(float(val) - float(cval)) <= VERIFY_RTOL * abs(float(cval))
+
+
+@pytest.mark.cuda
+def test_solve_cg_equals_cpu_on_card(cuda):
+    """CG on the card against CG on the CPU: both within tol, x within
+    10 * tol relative of each other."""
+    tol = 1e-6
+    p = port.parse_program({
+        "inputs": {"x": {"data": "constant:0.0", "data_type": "float32"}},
+        "outputs": ["y"], "dimensions": [24, 40, 72],
+        "program": {"y": {
+            "computation_string":
+                "y = x[i,j,k] - 0.3*(x[i-1,j,k] + x[i+1,j,k] + x[i,j-1,k] "
+                "+ x[i,j+1,k] + x[i,j,k-1] + x[i,j,k+1] - 6.0*x[i,j,k])",
+            "boundary_conditions": {"x": {"type": "constant",
+                                          "value": 0.0}},
+            "data_type": "float32"}}}, name="impl")
+    rhs = np.random.default_rng(0).random((24, 40, 72)).astype(np.float32)
+    solver = port.make_solver(p, tol=tol)
+    assert solver.lowering["operator"] == "overlap"
+    x, info = solver(rhs)
+    xc, info_c = port.make_solver(p, tol=tol, device="cpu")(rhs)
+    assert info["residual"] <= tol * 100 and info_c["residual"] <= tol * 100
+    assert abs(info["iterations"] - info_c["iterations"]) <= 1
+    x = x.cpu().numpy()
+    assert np.linalg.norm(x - xc.numpy()) <= 10 * tol * np.linalg.norm(x)
