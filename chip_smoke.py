@@ -150,6 +150,22 @@ Phases, one line each (any failure raises and exits non-zero):
    iteration split into operator and vector passes, and CG at 4 host
    chunks within 10 tol of the in-core x.
 
+8. the simulator: ``run --run-simulation`` through ``run_program(...,
+   device="cuda", run_simulation=True, compare_to_reference=True)`` on
+   jacobi3d 512^3 x 8 (K1), jacobi3d 256^3 x 2 (K2), hotspot2d 4096^2 x 8
+   (K5, rows+group_g8), box3d 128^3 x 8 of extent 2 (K3b, banded stages,
+   MXU_VERIFY_RTOL) and a mixed-dtype chain (int32 / bool / float stages)
+   at 48^3, each leg's native simulator core (g++) and kernel (nvcc)
+   built first, all at once; the 512^3 leg on one thread, the others in
+   turn on another (the simulator and the oracle run on the host); each
+   verified against the simulator and the oracle, the per-cell ones
+   bit-equal to the simulator, with the kernels' counts reset just
+   before the legs and read just after (each leg's kernel must launch)
+   and the simulator's cycles, host seconds, Mcycles/s and g++ seconds
+   printed; beside the legs, ``python -m stencilflow_tpu_torch.cli
+   simulate`` with ``--trace-chrome`` on a 16^3 program in a subprocess
+   (exit 0, a non-empty trace with activity spans).
+
 Every bound comes from the port's report (report.py): the larger of the
 minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
 strategy's operations over the single-instruction FP32 rate.  The last
@@ -985,6 +1001,243 @@ def _solvers(sft, progs, smi, k1_ms: float):
     for name in need:
         check(counts[name] > 0, f"the solver paths never launched {name}")
     return counts
+
+
+def _mixed_dtype_spec(dims):
+    """A chain with a dtype per kernel (float32 / float64 / int32 / int16
+    / bool; edges carry the producer's dtype), drawn as
+    ``tests/test_fuzz.py::make_mixed_dtype_program`` draws (the port's
+    ``random_program`` types every field alike): the first draw from
+    seed 0 up with an int32, a bool and a floating stage whose C++
+    simulator core is generated, at ``dims``."""
+    from stencilflow_tpu_torch import ChainAnalysis, parse_program
+    from stencilflow_tpu_torch.sim.native import (NativeBuildError,
+                                                  generate_cpp)
+    from stencilflow_tpu_torch.synthesize import _offset_str
+    for seed in range(200):
+        rng = np.random.default_rng(seed)
+        for _ in range(3):   # the generator's dims, replaced by ``dims``
+            rng.integers(4, 8)
+
+        def acc(field):
+            offs = [int(rng.integers(-1, 2)) for _ in range(3)]
+            return field + _offset_str(["i", "j", "k"], offs)
+
+        def fconst():
+            return f"{float(rng.uniform(-2, 2))!r}"
+        avail = [("a", "float32"), ("n", "int32")]
+        prog = {}
+        for s in range(int(rng.integers(3, 6))):
+            name = f"s{s}"
+            dt = str(rng.choice(["float32", "float64", "int32", "int16",
+                                 "bool"]))
+            (x, xdt), (y, ydt) = picks = [
+                avail[-1], avail[int(rng.integers(0, len(avail)))]]
+
+            def term(f, fdt):
+                a = acc(f)
+                if fdt == "bool":
+                    return f"({a} * {int(rng.integers(1, 4))})"
+                return a
+            if dt == "bool":
+                expr = f"({term(x, xdt)} > {term(y, ydt)})"
+            elif dt.startswith("int"):
+                expr = (f"({term(x, xdt)} * {int(rng.integers(1, 4))} "
+                        f"- {term(y, ydt)} + {int(rng.integers(-5, 8))})")
+                if rng.random() < 0.4:
+                    expr = f"min({expr}, {term(x, xdt)})"
+                if rng.random() < 0.3:
+                    expr = f"abs({expr})"
+            else:
+                expr = f"({term(x, xdt)} * {fconst()} + {term(y, ydt)})"
+                if rng.random() < 0.4:
+                    expr = (f"({expr} if {term(x, xdt)} > {fconst()} "
+                            f"else {term(y, ydt)})")
+            bcs = {}
+            for f, fdt in dict(picks).items():
+                if fdt == "bool":
+                    bcs[f] = {"type": "constant", "value": 0}
+                elif fdt.startswith("int"):
+                    bcs[f] = {"type": "constant",
+                              "value": int(rng.integers(0, 5))}
+                else:
+                    bcs[f] = {"type": str(rng.choice(["constant", "copy"])),
+                              "value": float(round(rng.uniform(-1, 1) * 64)
+                                             / 64)}
+            prog[name] = {"computation_string": f"{name} = {expr}",
+                          "boundary_conditions": bcs, "data_type": dt}
+            avail.append((name, dt))
+        kinds = {dt for _, dt in avail[2:]}
+        if not ({"int32", "bool"} <= kinds
+                and kinds & {"float32", "float64"}):
+            continue
+        spec = {"inputs": {"a": {"data": "random:-1,1",
+                                 "data_type": "float32"},
+                           "n": {"data": "random:1,40",
+                                 "data_type": "int32"}},
+                "outputs": [avail[-1][0]], "dimensions": list(dims),
+                "program": prog}
+        p = parse_program(spec, name=f"mixed_dtype_{seed}")
+        try:
+            generate_cpp(p, ChainAnalysis.run(p))
+        except NativeBuildError:
+            continue
+        return p
+    raise RuntimeError("no mixed-dtype draw the simulator core runs")
+
+
+def _simulator(sft, run_program, jacobi8, smi):
+    """Phase 8: ``run --run-simulation`` through the main-path kernels.
+    ``cli simulate --trace-chrome`` on a 16^3 program starts first, in a
+    subprocess; each leg's native simulator core and kernel are built
+    (g++ and nvcc, all at once, on threads); then each leg runs
+    ``run_program(..., run_simulation=True, compare_to_reference=True)``:
+    the jacobi3d 512^3 leg on one thread, the others in turn on another
+    (the simulator and the oracle run on the host and release the GIL),
+    with the kernels' counts reset just before the legs and read just
+    after."""
+    import tempfile
+
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+    t_phase = time.perf_counter()
+
+    # cli simulate --trace-chrome on 16^3 (the host), beside the legs
+    with tempfile.TemporaryDirectory() as tmp:
+        prog = os.path.join(tmp, "prog.json")
+        trace = os.path.join(tmp, "trace.json")
+        with open(prog, "w") as f:
+            json.dump(synthesize_stencil(
+                num_stages=2, dimensions=(16,) * 3, shape="diffusion",
+                seed_data="random:0.0,1.0"), f)
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "stencilflow_tpu_torch.cli", "simulate",
+             prog, "--trace-chrome", trace], cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            _simulator_legs(sft, run_program, jacobi8, smi, t_phase)
+            out, err = cli.communicate(timeout=300)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.communicate()
+        if cli.returncode != 0 or not os.path.isfile(trace) \
+                or os.path.getsize(trace) == 0:
+            raise RuntimeError(f"simulator: cli simulate exited "
+                               f"{cli.returncode}: {err[-2000:]}")
+        events = json.load(open(trace))["traceEvents"]
+    if not any(e["ph"] == "X" for e in events):
+        raise RuntimeError("simulator: the chrome trace has no spans")
+    cycles = next(ln for ln in out.splitlines() if ln.startswith("cycles: "))
+    print(f"simulate: cli simulate 16^3 --trace-chrome: {cycles}, "
+          f"{len(events)} events (a subprocess beside the legs)",
+          flush=True)
+    print(f"simulate: phase 8 took {time.perf_counter() - t_phase:.1f} s "
+          f"| {smi}", flush=True)
+
+
+def _simulator_legs(sft, run_program, jacobi8, smi, t_phase):
+    """Phase 8's legs (``_simulator``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import stencilflow_tpu_torch.sim as simmod
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.backend import group as gp
+    from stencilflow_tpu_torch.backend import overlap as ov
+    from stencilflow_tpu_torch.backend import panel as pn
+    from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.backend import tile as tl
+    from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
+    from stencilflow_tpu_torch.sim.native import NativeSimulator
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+
+    def synth(shape, dims, stages, extent=1):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=stages, dimensions=dims, shape=shape, extent=extent,
+            seed_data="random:0.0,1.0"),
+            name=f"{shape}{len(dims)}d_{dims[0]}_{stages}itr")
+    # (program, the route it must take; None: any, printed)
+    legs = [(jacobi8, "panel"),
+            (synth("diffusion", (256,) * 3, 2), "overlap"),
+            (synth("hotspot", (4096, 4096), 8), "rows+group_g8"),
+            (synth("box", (128,) * 3, 8, extent=2), "stream"),
+            (_mixed_dtype_spec((48, 48, 48)), None)]
+
+    def build_core(p):
+        t0 = time.perf_counter()
+        NativeSimulator(p)   # a NativeBuildError fails the phase
+        return time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=2 * len(legs)) as ex:
+        cores = [ex.submit(build_core, p) for p, _ in legs]
+        kernels = [ex.submit(compile_chain_best, p, device="cuda")
+                   for p, _ in legs]
+        gxx_s = {p.name: f.result() for (p, _), f in zip(legs, cores)}
+        for f in kernels:
+            f.result()
+    print(f"simulate: {len(legs)} native cores (g++) and kernels (nvcc) "
+          f"built at once in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # time each simulation inside run_program and keep its result
+    real, seen = simmod.simulate, {}
+
+    def timed(program, inputs, **kw):
+        t0 = time.perf_counter()
+        res = real(program, inputs, **kw)
+        seen[program.name] = (time.perf_counter() - t0, res)
+        return res
+
+    def leg(p, want):
+        t0 = time.perf_counter()
+        res = run_program(p, device="cuda", run_simulation=True,
+                          compare_to_reference=True, save_results=False,
+                          log_level=0)
+        leg_s = time.perf_counter() - t0
+        if want is not None and res.backend != want:
+            raise RuntimeError(f"simulator: {p.name} took {res.backend}, "
+                               f"expected {want}")
+        if not (res.verified_against_simulation is True
+                and res.verified_against_reference is True):
+            raise RuntimeError(f"simulator: {p.name} not verified")
+        sim_s, sim = seen.pop(p.name)
+        banded = res.backend == "stream" and bool(st.plan_stream(p).tkeys)
+        for o in p.outputs:
+            if banded:
+                ok = sft.arrays_are_equal(sim.outputs[o], res.outputs[o],
+                                          MXU_VERIFY_RTOL)
+            else:   # per-cell kernels and the mixed chain: bit-equal
+                ok = np.array_equal(res.outputs[o], sim.outputs[o])
+            if not ok or res.outputs[o].shape != tuple(p.raw_dimensions):
+                raise RuntimeError(f"simulator: {p.name} {o} disagrees with "
+                                   "the simulator")
+        print(f"simulate: {p.name} route {res.backend} cycles "
+              f"{res.simulation_cycles} elements {p.total_elements} | "
+              f"simulator {sim_s:.2f} s on the host "
+              f"({res.simulation_cycles / sim_s / 1e6:.2f} Mcycles/s), "
+              f"g++ {gxx_s[p.name]:.2f} s (in parallel) | kernel "
+              f"{res.wall_time_s * 1e3:.3f} ms | "
+              f"{'within MXU_VERIFY_RTOL of' if banded else 'equal to'} "
+              f"the simulator, oracle OK | leg {leg_s:.1f} s | {smi}",
+              flush=True)
+        return res.backend
+
+    simmod.simulate = timed
+    pn.launches = ov.launches = gp.launches = tl.launches = 0
+    st.launches = st.local_launches = st.spill_launches = 0
+    try:
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            big = ex.submit(leg, *legs[0])
+            rest = ex.submit(lambda: [leg(*lg) for lg in legs[1:]])
+            routes = [big.result()] + rest.result()
+    finally:
+        simmod.simulate = real
+    counts = {"panel": pn.launches, "overlap": ov.launches,
+              "stream": st.launches, "rows+group_g8": gp.launches,
+              "tile": tl.launches}
+    print(f"simulate: launches {counts} over the legs", flush=True)
+    for route in routes:
+        if counts.get(route, 0) < 1:
+            raise RuntimeError(f"simulator: the legs never launched the "
+                               f"{route} kernel ({counts})")
 
 
 def _design_probes(ov, smi):
@@ -2037,6 +2290,10 @@ def main() -> int:
     # -- 7. the solver entry points ------------------------------------------
     print(f"phase: 7 at {time.perf_counter() - t_run:.1f} s", flush=True)
     _solvers(sft, solver_progs, smi, report["panel"]["ms"])
+
+    # -- 8. the simulator ------------------------------------------------------
+    print(f"phase: 8 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    _simulator(sft, run_program, jacobi8, smi)
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith(("jax.", "stencilflow_tpu."))

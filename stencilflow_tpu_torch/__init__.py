@@ -14,9 +14,11 @@ streamer (backend/overlap.py) for shallow chains and the panel streamer
 stream kernel's local mode (K4).  On those lowerings: time-stepping with
 checkpoints, its loop replayed from CUDA graphs (iterate.py), adjoints
 and gradients (grad.py) and CG / CGNR solves (solve.py).  The
-measurement path: the analytic report on the H100 hardware model
-(report.py, ``cli report``), the bench (bench.py) and the probes that
-measure the model's constants (probes/).
+cycle-accurate dataflow simulator (sim/, on the host) cross-checks the
+kernels' outputs (``run --run-simulation``).  The measurement path:
+the analytic report on the H100 hardware model (report.py, ``cli
+report``), the bench (bench.py) and the probes that measure the model's
+constants (probes/).
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
-"""Command-line interface of the port: the ``run``, ``report``,
-``iterate``, ``solve`` and ``adjoint`` subcommands.
+"""Command-line interface of the port: the ``run``, ``simulate``,
+``report``, ``iterate``, ``solve`` and ``adjoint`` subcommands.
 
-    python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference --device cuda
+    python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] --device cuda
+    python -m stencilflow_tpu_torch.cli simulate <prog.json> [--no-native] [--trace CSV] [--trace-chrome JSON] [--output-dir D]
     python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R]
     python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
     python -m stencilflow_tpu_torch.cli solve <prog.json> --rhs random:0,1 [--method cg|cgnr] [--tol T] [--device cuda]
@@ -13,8 +14,10 @@ spellings map to the port's (``--no-mxu`` is ``--mxu off``, ``--backend
 pallas`` is ``tile``, ``--backend xla`` is ``dense``, ``solve
 --emulation`` is ``--device cpu``; the ``run`` mode is accepted and
 ignored, as there); options whose engines are not ported yet exit with
-``error:`` and rc 2, naming the ROADMAP item that ports them.  The other
-subcommands are not ported yet.
+``error:`` and rc 2, naming the ROADMAP item that ports them.  The
+simulator (``run --run-simulation``, ``simulate``) runs on the host:
+``simulate`` takes no ``--device``, and ``run`` keeps its device for the
+kernels.  The other subcommands are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,7 +27,6 @@ import sys
 
 # option (as given) -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "--run-simulation": "Queue 1 item 5 (M1, the simulator)",
     "--ring-storage bfloat16": "Queue 1 item 11 (bf16)",
     "--mxu-precision bf16": "Queue 1 item 11 (bf16)",
     "--backend autotuned": "Queue 1 item 7 (M14, autotune)",
@@ -46,8 +48,7 @@ def _refuse(option: str) -> int:
 
 def _cmd_run(args) -> int:
     from .driver import BACKEND_ALIASES, VerificationError, run_program
-    for given, option in ((args.run_simulation, "--run-simulation"),
-                          (args.ring_storage == "bfloat16",
+    for given, option in ((args.ring_storage == "bfloat16",
                            "--ring-storage bfloat16"),
                           (args.mxu_precision == "bf16",
                            "--mxu-precision bf16"),
@@ -58,6 +59,7 @@ def _cmd_run(args) -> int:
     try:
         res = run_program(
             args.stencil_file, device=args.device,
+            run_simulation=args.run_simulation,
             compare_to_reference=args.compare_to_reference,
             generate_input=args.generate_input,
             synthetic_reads=args.synthetic_reads,
@@ -89,11 +91,60 @@ def _cmd_run(args) -> int:
               f"{rep.roofline_gcell_s():.1f} GCell/s [{rep.hw.name}] — "
               f"python -m stencilflow_tpu_torch.bench times the device "
               f"loop)")
+    if res.simulation_cycles is not None:
+        print(f"simulated cycles: {res.simulation_cycles}")
     if res.verified_against_reference is not None:
         print("verified against reference: "
               f"{'OK' if res.verified_against_reference else 'FAIL'}")
+    if res.verified_against_simulation is not None:
+        print("verified against simulation: "
+              f"{'OK' if res.verified_against_simulation else 'FAIL'}")
     if res.results_dir:
         print(f"results written to {res.results_dir}/")
+    return 0
+
+
+def _cmd_simulate(args) -> int:
+    """Cycle-accurate dataflow simulation on the host (sim/)."""
+    import os
+
+    from .data import load_input_arrays, save_output_arrays
+    from .frontend.parser import parse_program
+    from .sim import simulate
+    program = parse_program(args.stencil_file)
+    inputs = load_input_arrays(program, prefix=args.input_directory,
+                               seed=args.seed)
+    trace, tmp_dir = args.trace, None
+    if args.trace_chrome and not trace:
+        import tempfile
+        tmp_dir = tempfile.mkdtemp(prefix="sft_trace_")
+        trace = os.path.join(tmp_dir, "trace.csv")
+    try:
+        res = simulate(program, inputs, native=not args.no_native,
+                       trace=trace)
+        if args.trace:
+            print(f"per-cycle trace written to {args.trace}")
+        if args.trace_chrome:
+            from .sim.trace import csv_to_chrome
+            n = csv_to_chrome(trace, args.trace_chrome,
+                              every=args.trace_every)
+            print(f"chrome trace written to {args.trace_chrome} "
+                  f"({n} events; open in Perfetto / chrome://tracing)")
+    finally:
+        if tmp_dir is not None:
+            import shutil
+            shutil.rmtree(tmp_dir, ignore_errors=True)
+    print(f"cycles: {res.cycles} (elements: {program.total_elements})")
+    for (src, dst), high in res.edge_high_water.items():
+        mean = res.edge_mean_occupancy.get((src, dst))
+        mean_s = f", mean occupancy {mean:.2f}" if mean is not None else ""
+        print(f"  edge {src}->{dst}: high water {high}{mean_s}")
+    for k, st in res.kernel_stats.items():
+        print(f"  kernel {k}: first fire {st['first_fire']}, last fire "
+              f"{st['last_fire']}, stalls {st['stall_cycles']}")
+    if args.output_dir:
+        save_output_arrays(res.outputs, args.output_dir)
+        print(f"results written to {args.output_dir}/")
     return 0
 
 
@@ -211,7 +262,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["emulation", "hardware"],
                    help="accepted for the JAX package's usage; ignored")
     p.add_argument("--run-simulation", action="store_true",
-                   help="not ported yet (exits with rc 2)")
+                   help="also run the cycle-accurate dataflow simulator "
+                        "on the host and check the outputs against it")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--compare-to-reference", action="store_true")
@@ -258,6 +310,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler chrome trace of the run")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("simulate", help="cycle-accurate dataflow simulation "
+                                        "(on the host)")
+    p.add_argument("stencil_file")
+    p.add_argument("--input-directory")
+    p.add_argument("--output-dir")
+    p.add_argument("--no-native", action="store_true",
+                   help="use the Python machine instead of the C++ core")
+    p.add_argument("--trace", metavar="CSV",
+                   help="write a per-cycle CSV (kernel PCs + FIFO "
+                        "occupancies; uses the Python engine)")
+    p.add_argument("--trace-chrome", metavar="JSON",
+                   help="write a Chrome/Perfetto trace (counter tracks "
+                        "per FIFO and kernel + activity spans; implies "
+                        "the Python engine)")
+    p.add_argument("--trace-every", type=int, default=1,
+                   help="decimation for --trace-chrome counter samples "
+                        "(change points always kept)")
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=_cmd_simulate)
 
     p = sub.add_parser("report", help="analytic performance report on the "
                                       "H100 hardware model")

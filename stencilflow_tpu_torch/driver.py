@@ -1,23 +1,25 @@
-"""End-to-end driver: parse → analyse → compile → execute → verify → save.
+"""End-to-end driver: parse → analyse → (simulate) → compile → execute
+→ verify → save.
 
 Port of ``stencilflow_tpu/driver.py`` ``run_program`` for one device:
-the same flow, flags and verification (the numpy oracle at
-``VERIFY_RTOL`` after optional halo pruning), with the lowering chosen by
-``backend.compile_chain_best`` for a torch ``device``; a run whose
-stream lowering has banded stages verifies at ``MXU_VERIFY_RTOL``, as the
-JAX package's driver does.  ``spill`` ("auto"/"off") is the stream
-kernel's ring spill to device memory (K3c), as ``spill`` is in the JAX
-package.  Not ported yet: the simulator cross-check, the single-pass
-bf16 transforms and bf16 ring storage.  ``backend="rows"`` streams a 2-D
-program's rows (``compile_chain_rows``, the auto lowering of the rotated
-program), as ``--backend rows`` does in the JAX package;
+the same flow, flags and verification (the numpy oracle and, with
+``run_simulation``, the cycle-accurate dataflow simulator run on the
+host (``sim/``), both at ``VERIFY_RTOL`` after optional halo pruning),
+with the lowering chosen by ``backend.compile_chain_best`` for a torch
+``device``; a run whose stream lowering has banded stages verifies at
+``MXU_VERIFY_RTOL``, as the JAX package's driver does.  ``spill``
+("auto"/"off") is the stream kernel's ring spill to device memory
+(K3c), as ``spill`` is in the JAX package.  Not ported yet: the
+single-pass bf16 transforms and bf16 ring storage.  ``backend="rows"``
+streams a 2-D program's rows (``compile_chain_rows``, the auto lowering
+of the rotated program), as ``--backend rows`` does in the JAX package;
 ``backend="tile"`` forces the overlapped-tile kernel (K6), the JAX
-package's ``pallas``; its ``xla`` is ``dense`` here.  ``host_chunks=N`` (N > 1)
-runs out-of-core (``outofcore.py``): inputs stay on the host and i-chunks
-stream through the chunk kernel K4 (``outofcore[stream xN chunks]``) or,
-on the CPU or where K4's planner refuses, the dense tile body
-(``outofcore[dense xN chunks]``); it overrides ``backend``, and its time
-includes the host-device transfers.
+package's ``pallas``; its ``xla`` is ``dense`` here.  ``host_chunks=N``
+(N > 1) runs out-of-core (``outofcore.py``): inputs stay on the host and
+i-chunks stream through the chunk kernel K4 (``outofcore[stream xN
+chunks]``) or, on the CPU or where K4's planner refuses, the dense tile
+body (``outofcore[dense xN chunks]``); it overrides ``backend``, and its
+time includes the host-device transfers.
 """
 from __future__ import annotations
 
@@ -62,6 +64,8 @@ class RunResult:
     backend: str
     device: str = "cpu"
     verified_against_reference: Optional[bool] = None
+    verified_against_simulation: Optional[bool] = None
+    simulation_cycles: Optional[int] = None
     wall_time_s: Optional[float] = None
     results_dir: Optional[str] = None
     analysis: Optional[ChainAnalysis] = None
@@ -120,6 +124,7 @@ def _write_profile(prof, profile_dir: str, window_s: float,
 
 
 def run_program(stencil_file, device="cuda",
+                run_simulation: bool = False,
                 compare_to_reference: bool = False,
                 generate_input: bool = False,
                 synthetic_reads: bool = False,
@@ -142,6 +147,9 @@ def run_program(stencil_file, device="cuda",
                 spill: str = "auto") -> RunResult:
     """Run one stencil program end to end on ``device``.  ``stencil_file``
     may be a path, a JSON dict, or an already-parsed Program.
+    ``run_simulation`` runs the dataflow simulator on the host inputs
+    first and checks the outputs against it (with ``skip_execution``, its
+    outputs are the result, backend ``"simulator"``).
     ``tolerance`` overrides the relative verification tolerance (default:
     config.VERIFY_RTOL, or MXU_VERIFY_RTOL for a stream run with banded
     stages).  ``mxu`` ("auto"/"off"), ``mxu_precision``
@@ -172,11 +180,25 @@ def run_program(stencil_file, device="cuda",
                     spec, data="constant:1.0")
         program = dataclasses.replace(program, inputs=new_inputs)
     inputs = load_input_arrays(program, prefix=input_directory, seed=seed)
+
+    sim_outputs = None
+    sim_cycles = None
+    if run_simulation:
+        from .sim import simulate
+        sim_res = simulate(program, inputs, analysis=analysis)
+        sim_outputs = sim_res.outputs
+        sim_cycles = sim_res.cycles
+
     result = RunResult(program=program, outputs={}, backend="none",
-                       device=str(device), analysis=analysis)
+                       device=str(device), simulation_cycles=sim_cycles,
+                       analysis=analysis)
     banded = False
 
-    if not skip_execution:
+    if skip_execution:
+        if sim_outputs is not None:
+            result.outputs = sim_outputs
+            result.backend = "simulator"
+    else:
         if host_chunks and host_chunks > 1:
             # out-of-core: inputs stay host-resident, i-chunks stream
             # through one built chunk kernel into host outputs allocated
@@ -245,22 +267,29 @@ def run_program(stencil_file, device="cuda",
         # banded transforms re-associate f32 sums: the JAX package's
         # driver verifies such runs at this envelope
         rtol = MXU_VERIFY_RTOL
-    if compare_to_reference and result.outputs:
-        ref = run_interpreter(program, inputs)
+
+    def check(kind: str, expected) -> bool:
         ok = True
         for o in program.outputs:
             got = prune_halo(result.outputs[o], raw, halo)
-            exp = prune_halo(np.asarray(ref[o]), raw, halo)
+            exp = prune_halo(np.asarray(expected[o]), raw, halo)
             if not arrays_are_equal(exp, got, rtol):
                 ok = False
                 diff = np.max(np.abs(exp.astype(np.float64) -
                                      got.astype(np.float64)))
-                msg = (f"reference mismatch on output '{o}' "
+                msg = (f"{kind} mismatch on output '{o}' "
                        f"(max abs diff {diff:.3e}, halo={halo})")
                 if raise_on_mismatch:
                     raise VerificationError(msg)
                 print(msg)
-        result.verified_against_reference = ok
+        return ok
+
+    if compare_to_reference and result.outputs:
+        result.verified_against_reference = check(
+            "reference", run_interpreter(program, inputs))
+    if sim_outputs is not None and result.outputs and not skip_execution:
+        result.verified_against_simulation = check("simulation",
+                                                   sim_outputs)
 
     if print_result:
         for o, arr in result.outputs.items():

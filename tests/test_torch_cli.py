@@ -98,10 +98,12 @@ def test_no_mxu_is_mxu_off(monkeypatch, prog):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--run-simulation"], "item 5"),
-    (["--ring-storage", "bfloat16"], "item 11"),
-    (["--mxu-precision", "bf16"], "item 11"),
-    (["--backend", "autotuned"], "item 7"),
+    # the cases keep the ids they were first collected under
+    pytest.param(["--ring-storage", "bfloat16"], "item 11",
+                 id="extra1-item 11"),
+    pytest.param(["--mxu-precision", "bf16"], "item 11",
+                 id="extra2-item 11"),
+    pytest.param(["--backend", "autotuned"], "item 7", id="extra3-item 7"),
 ])
 def test_run_refuses_unported_options(prog, capsys, extra, item):
     assert main(["run", prog, "--device", "cpu"] + extra) == 2

@@ -1133,3 +1133,76 @@ def test_solve_cg_equals_cpu_on_card(cuda):
     assert abs(info["iterations"] - info_c["iterations"]) <= 1
     x = x.cpu().numpy()
     assert np.linalg.norm(x - xc.numpy()) <= 10 * tol * np.linalg.norm(x)
+
+
+def _sim_case(shape, dims, stages, extent=1):
+    return lambda: port.parse_program(synthesize_stencil(
+        num_stages=stages, dimensions=dims, shape=shape, extent=extent,
+        seed_data="random:0.0,1.0"),
+        name=f"sim_{shape}_{len(dims)}d_{stages}")
+
+
+# (program, backend, the label run_program gives)
+SIM_CASES = {
+    "K1-panel": (_sim_case("diffusion", (24, 24, 24), 8), "auto", "panel"),
+    "K2-overlap": (_sim_case("diffusion", (24, 24, 24), 2), "auto",
+                   "overlap"),
+    "K3b-stream-banded": (_sim_case("box", (24, 32, 40), 4, extent=2),
+                          "auto", "stream"),
+    "K5-group": (_sim_case("hotspot", (256, 192), 8), "auto",
+                 "rows+group_g8"),
+    "K6-tile": (_sim_case("diffusion", (24, 40, 72), 2), "tile", "tile"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SIM_CASES))
+def test_run_program_verified_against_simulation_on_card(case, cuda):
+    """``run --run-simulation`` on the card: each kernel's output is held
+    against the dataflow simulator's (run on the host, its C++ core) and
+    the oracle; per-cell kernels equal the simulator bit for bit, the
+    banded stream kernel within MXU_VERIFY_RTOL."""
+    from stencilflow_tpu_torch.backend import tile
+    from stencilflow_tpu_torch.sim import simulate
+    from stencilflow_tpu_torch.sim.native import NativeSimulator
+    build, backend, label = SIM_CASES[case]
+    p = build()
+    NativeSimulator(p)   # the native core builds: no Python-machine fallback
+    module = {"panel": panel, "overlap": overlap, "stream": stream,
+              "rows+group_g8": group, "tile": tile}[label]
+    before = module.launches
+    res = run_program(p, device="cuda", backend=backend,
+                      run_simulation=True, compare_to_reference=True,
+                      save_results=False, log_level=0)
+    assert res.backend == label
+    assert module.launches > before
+    assert res.verified_against_simulation is True
+    assert res.verified_against_reference is True
+    sim = simulate(p, port.load_input_arrays(p, seed=0))
+    assert res.simulation_cycles == sim.cycles >= p.total_elements
+    for o in p.outputs:
+        if label == "stream":
+            assert stream.plan_stream(p).tkeys   # banded stages
+            assert port.arrays_are_equal(sim.outputs[o], res.outputs[o],
+                                         MXU_VERIFY_RTOL)
+        else:
+            assert np.array_equal(res.outputs[o], sim.outputs[o])
+
+
+@pytest.mark.cuda
+def test_cli_run_simulation_on_card(cuda, tmp_path, capsys, monkeypatch):
+    """``cli run prog.json --compare-to-reference --run-simulation``: the
+    kernel's backend, the simulated cycles and both checks OK."""
+    from stencilflow_tpu_torch.cli import main
+    monkeypatch.chdir(tmp_path)
+    prog = tmp_path / "prog.json"
+    prog.write_text(json.dumps(synthesize_stencil(
+        num_stages=8, dimensions=(24, 24, 24), shape="diffusion",
+        seed_data="random:0.0,1.0")))
+    assert main(["run", str(prog), "--compare-to-reference",
+                 "--run-simulation"]) == 0
+    out = capsys.readouterr().out
+    for line in ("backend: panel\n", "simulated cycles: ",
+                 "verified against reference: OK\n",
+                 "verified against simulation: OK\n"):
+        assert line in out
