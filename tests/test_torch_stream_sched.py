@@ -21,7 +21,8 @@ tests/test_torch_outofcore.py; the CUDA build to the plain version on the
 card by tests/test_torch_cuda.py and chip_smoke.py.  Three deliberately
 wrong schedules (every block mask-free, a transform plane packed over a
 live ring, no slot for the plane in flight) must show as mismatches here,
-and the sources of the other kernels (K1, K2, K3c, K5, K6) must not move.
+and the sources of the other kernels (K1, K2, K3c, K5, K6), of K3b and of
+K4's chunk mode must not move.
 """
 import ctypes
 import hashlib
@@ -529,6 +530,12 @@ def _group(p, B, g):
     return codegen.group_source(p, an, group.plan_group(p, an, B, g))
 
 
+def _local(p, chunks):
+    an = port.ChainAnalysis.run(p)
+    return stream.stream_source(stream.plan_local(
+        p, an, p.dimensions[0] // chunks, chain_halo(an)[0]))
+
+
 def _local_spill(p, chunks):
     an = port.ChainAnalysis.run(p)
     return stream.stream_source(stream.plan_local(
@@ -536,7 +543,8 @@ def _local_spill(p, chunks):
 
 
 # kernel and fixture: (source, sha256 of the source: K1 and K3c the
-# parent's, K2, K5 and K6 the redesigned ones)
+# parent's, K2, K5 and K6 the redesigned ones; K3b and K4's chunk mode as
+# they were before K4 took a shard origin)
 FROZEN = {
     "K1 jacobi3d": (lambda: _panel(_example(
         "jacobi3d_32x32x32_8itr.json", 10)),
@@ -572,6 +580,18 @@ FROZEN = {
     "K3c local": (lambda: _local_spill(_synth(
         "diffusion", (64, 40, 72), 3, boundary="shrink"), 4),
         "2d7996d909942af075e030c37dee5057fbe10303c06758428883ce9399148f4e"),
+    "K3b box composed": (lambda: stream.stream_source(stream.plan_stream(
+        _synth("box", (20, 40, 48), 4, extent=2))),
+        "7567b94f04e8eeef8182a2827ec1ceb2584952b5544ba2e12b247918b83a7c1e"),
+    "K3b cross": (lambda: stream.stream_source(stream.plan_stream(
+        _synth("cross", (12, 44, 48), 3, extent=2))),
+        "a242e1cf2f7362f051f0e4804a4bbd3cbd7268250ecb1356981272b1cdec374f"),
+    "K4 jacobi3d 4 chunks": (lambda: _local(_example(
+        "jacobi3d_32x32x32_8itr.json", 10), 4),
+        "ae4473c716d612a52ed964a84628a9992ebbb1378d3dcec913dee4003131d62e"),
+    "K4 box banded 2 chunks": (lambda: _local(_synth(
+        "box", (16, 40, 48), 2, extent=2), 2),
+        "511e9bc5e7939978403d735bf4aed9d158c7a7de7c68cf56c098e6c9858c9c3b"),
     "K5 rows jacobi2d": (lambda: _group(rotate_2d_to_rows(_synth(
         "diffusion", (256, 192), 8)), 64, 8),
         "42691b2977a08c63d3c4995bff669b77b93b10a73f7cfe65695e8dce5bf633a8"),
