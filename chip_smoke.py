@@ -6,10 +6,10 @@
 Phases, one line each (any failure raises and exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: every kernel of phases 3 to 7 generated and compiled at once,
-   one nvcc per source, all started together (kernels are built from the
-   checkout's sources; phase 7's through the entry points' own compile
-   calls, on threads beside);
+2. build: every kernel of phases 3 to 7 and 9 generated and compiled at
+   once, one nvcc per source, all started together (kernels are built
+   from the checkout's sources; phase 7's and phase 9's through the entry
+   points' own compile calls, on threads beside);
 3. kernel vs plain version on the card: the panel and overlap kernels,
    each forced through its own plan, against their plain torch versions
    on three example programs and five random chains (constant / copy /
@@ -152,12 +152,12 @@ Phases, one line each (any failure raises and exits non-zero):
 
 8. the simulator: ``run --run-simulation`` through ``run_program(...,
    device="cuda", run_simulation=True, compare_to_reference=True)`` on
-   jacobi3d 512^3 x 8 (K1), jacobi3d 256^3 x 2 (K2), hotspot2d 4096^2 x 8
+   jacobi3d 256^3 x 8 (K1), jacobi3d 256^3 x 2 (K2), hotspot2d 4096^2 x 8
    (K5, rows+group_g8), box3d 128^3 x 8 of extent 2 (K3b, banded stages,
    MXU_VERIFY_RTOL) and a mixed-dtype chain (int32 / bool / float stages)
    at 48^3, each leg's native simulator core (g++) and kernel (nvcc)
-   built first, all at once; the 512^3 leg on one thread, the others in
-   turn on another (the simulator and the oracle run on the host); each
+   built first, all at once; the 256^3 x 8 leg on one thread, the others
+   in turn on another (the simulator and the oracle run on the host); each
    verified against the simulator and the oracle, the per-cell ones
    bit-equal to the simulator, with the kernels' counts reset just
    before the legs and read just after (each leg's kernel must launch)
@@ -166,14 +166,33 @@ Phases, one line each (any failure raises and exits non-zero):
    simulate`` with ``--trace-chrome`` on a 16^3 program in a subprocess
    (exit 0, a non-empty trace with activity spans).
 
+9. the sharded engine (``parallel/domain.py compile_sharded_chain``) on
+   meshes of virtual shards repeating the one card (not a multi-GPU
+   scaling figure): K4 per shard (``sf_shard_launch``: a 3-D origin,
+   inputs widened by the exchanged halo, per-shard band pools) against
+   its plain version shard by shard on jacobi3d 64^3 x 3 (constant /
+   copy / shrink BCs) over 2 x 2 x 2 and a box of extent 1 with constant
+   BC 0.7 over 2 x 2 (bit-exact, MXU_VERIFY_RTOL banded); then jacobi3d
+   512^3 x 8 over 2 x 2 ``(None, x, y)`` and over 4 shards of i, hdiff3d
+   256^3 x 8 with copy BCs over 2 x 2 and box3d 256^3 x 8 of extent 2
+   over 2 x 2 (composed, stacked per-shard bands), each driven once with
+   the counts reset just before and read just after (K4's shard launches
+   equal the shards, nothing else launched), equal to the single-device
+   route on the same inputs (box within MXU_VERIFY_RTOL), with its ms a
+   call, one shard's K4 ms, the exchange's ms and bytes and the
+   single-device route's ms; ``iterate`` on jacobi3d 256^3 over 2 x 2, 16
+   steps fused by 8 (CUDA-graph replays), equal to in-core ``iterate``,
+   and ``fast_value_and_grad`` on jacobi3d 128^3 x 8 over 2 x 2, equal to
+   the single-device gradient.
+
 Every bound comes from the port's report (report.py): the larger of the
 minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
 strategy's operations over the single-instruction FP32 rate.  The last
 lines are the card line, a JSON object of the kernels (launches from
-phase 4, K4's from phase 5 and the probes' from phase 6; error, kernel,
-plain-version and library times measured in this run at the main path's
-shapes, bounds computed from its inputs; 15 entries: the stream
-kernel's on box and on cross) and ``{"ok": true,
+phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
+from phase 9; error, kernel, plain-version and library times measured in
+this run at the main path's shapes, bounds computed from its inputs; 16
+entries: the stream kernel's on box and on cross) and ``{"ok": true,
 "device": {...}}``.
 """
 import json
@@ -1086,13 +1105,13 @@ def _mixed_dtype_spec(dims):
     raise RuntimeError("no mixed-dtype draw the simulator core runs")
 
 
-def _simulator(sft, run_program, jacobi8, smi):
+def _simulator(sft, run_program, smi):
     """Phase 8: ``run --run-simulation`` through the main-path kernels.
     ``cli simulate --trace-chrome`` on a 16^3 program starts first, in a
     subprocess; each leg's native simulator core and kernel are built
     (g++ and nvcc, all at once, on threads); then each leg runs
     ``run_program(..., run_simulation=True, compare_to_reference=True)``:
-    the jacobi3d 512^3 leg on one thread, the others in turn on another
+    the jacobi3d 256^3 x 8 leg on one thread, the others in turn on another
     (the simulator and the oracle run on the host and release the GIL),
     with the kernels' counts reset just before the legs and read just
     after."""
@@ -1114,7 +1133,7 @@ def _simulator(sft, run_program, jacobi8, smi):
              prog, "--trace-chrome", trace], cwd=HERE,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
-            _simulator_legs(sft, run_program, jacobi8, smi, t_phase)
+            _simulator_legs(sft, run_program, smi, t_phase)
             out, err = cli.communicate(timeout=300)
         finally:
             if cli.poll() is None:
@@ -1135,7 +1154,7 @@ def _simulator(sft, run_program, jacobi8, smi):
           f"| {smi}", flush=True)
 
 
-def _simulator_legs(sft, run_program, jacobi8, smi, t_phase):
+def _simulator_legs(sft, run_program, smi, t_phase):
     """Phase 8's legs (``_simulator``)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1156,7 +1175,7 @@ def _simulator_legs(sft, run_program, jacobi8, smi, t_phase):
             seed_data="random:0.0,1.0"),
             name=f"{shape}{len(dims)}d_{dims[0]}_{stages}itr")
     # (program, the route it must take; None: any, printed)
-    legs = [(jacobi8, "panel"),
+    legs = [(synth("diffusion", (256,) * 3, 8), "panel"),
             (synth("diffusion", (256,) * 3, 2), "overlap"),
             (synth("hotspot", (4096, 4096), 8), "rows+group_g8"),
             (synth("box", (128,) * 3, 8, extent=2), "stream"),
@@ -1238,6 +1257,252 @@ def _simulator_legs(sft, run_program, jacobi8, smi, t_phase):
         if counts.get(route, 0) < 1:
             raise RuntimeError(f"simulator: the legs never launched the "
                                f"{route} kernel ({counts})")
+
+
+def _sharded_setup(sft, jacobi8, box256):
+    """Phase 9's programs: (cells, K4-vs-plain cases, solver programs) and
+    one thunk per lowering they compile (the sharded engines' K4 shard
+    plans and the single-device routes beside them): phase 2 runs the
+    thunks beside its other builds.  Meshes repeat the one card (virtual
+    shards)."""
+    import torch
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
+    from stencilflow_tpu_torch.grad import adjoint_program
+    from stencilflow_tpu_torch.iterate import compose_iterations
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+
+    def synth(shape, n, iters, **kw):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape,
+            seed_data="random:0.0,1.0", **kw),
+            name=f"{shape}3d_{n}_{iters}itr"
+                 f"{'_' + kw['boundary'] if 'boundary' in kw else ''}")
+    cuda = torch.device("cuda", 0)
+    jk = ((2, 2), ("x", "y"), (None, "x", "y"))
+    i4 = ((4,), ("x",), ("x", None, None))
+    ijk = ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"))
+    # (label, program, mesh, tolerance against the single-device route)
+    cells = [("jacobi3d 512^3 x 8, 2 x 2 (None, x, y)", jacobi8, jk, 0.0),
+             ("jacobi3d 512^3 x 8, 4 shards of i", jacobi8, i4, 0.0),
+             ("hdiff3d 256^3 x 8 copy BCs, 2 x 2", synth(
+                 "hdiff", 256, 8, boundary="copy"), jk, 0.0),
+             ("box3d 256^3 x 8 extent 2, 2 x 2", box256, jk,
+              MXU_VERIFY_RTOL)]
+    kcases = [(f"jacobi3d 64^3 x 3 {bc}, 2 x 2 x 2",
+               synth("diffusion", 64, 3, boundary=bc), ijk, 0.0)
+              for bc in ("constant", "copy", "shrink")]
+    kcases.append(("box 64^3 x 2 extent 1 BC 0.7, 2 x 2", synth(
+        "box", 64, 2, extent=1, boundary_value=0.7), jk, MXU_VERIFY_RTOL))
+    step = synth("diffusion", 256, 1)
+    grad = synth("diffusion", 128, 8)
+    solvers = {"iterate": step, "grad": grad, "mesh": jk}
+    thunks = []
+    for _label, p, (shape, names, axes), _tol in cells + kcases + [
+            ("", compose_iterations(step, 8), jk, 0),
+            ("", grad, jk, 0), ("", adjoint_program(grad)[0], jk, 0)]:
+        mesh = make_mesh([cuda], shape, names)
+        thunks.append(lambda p=p, m=mesh, a=axes: compile_sharded_chain(
+            p, m, a))
+    for p in [c[1] for c in cells] + [compose_iterations(step, 8), grad,
+                                      adjoint_program(grad)[0]]:
+        thunks.append(lambda p=p: compile_chain_best(p, device="cuda"))
+    return (cells, kcases, solvers), thunks
+
+
+def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
+    """Phase 9: the sharded engine (``compile_sharded_chain``) on meshes of
+    virtual shards of the one card: K4 per shard against its plain
+    version shard by shard; each cell once with the counts reset just
+    before and read just after (K4's shard launches = shards), equal to
+    the single-device route, then timed (a call, its exchange, one
+    shard's K4, the single-device route); sharded ``iterate`` and
+    ``fast_value_and_grad`` against their single-device runs.  Returns
+    K4 per shard's entry of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.backend import linear
+    from stencilflow_tpu_torch.parallel.domain import (_sharded_mxu_assets,
+                                                       exchange_bytes,
+                                                       place_global_inputs)
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.report import Report
+    cells, kcases, solvers = setup
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+    print("sharded: meshes of virtual shards repeating the one card: the "
+          "shards' launches run one after another on its stream, so these "
+          "times are not multi-GPU scaling figures", flush=True)
+
+    def mesh_of(shape, names):
+        return make_mesh([cuda], shape, names)
+
+    def shard_call(fn, plan, per, c):
+        oi, oj, ok = plan.block_origin(c)
+        return st.run_local_stream(fn.plan, oi - plan.halo[0], per[c],
+                                   st.build_stream(fn.plan), oj, ok,
+                                   plan.instance(c))
+
+    # K4 per shard against its plain version, shard by shard
+    for label, p, (shape, names, axes), rtol in kcases:
+        fn, plan = compile_sharded_chain(p, mesh_of(shape, names), axes)
+        if fn.plan is None:
+            raise RuntimeError(f"sharded: {label} fell to the tile body")
+        per = fn.exchange(place_global_inputs(
+            p, plan, sft.load_input_arrays(p, seed=7)))
+        worst = 0.0
+        for c in per:
+            oi, oj, ok = plan.block_origin(c)
+            got = shard_call(fn, plan, per, c)
+            want = st.local_stream_plain(fn.plan, oi - plan.halo[0], per[c],
+                                         oj, ok, plan.instance(c))
+            for o in p.outputs:
+                good, err = _compare(got[o].cpu().numpy(),
+                                     want[o].cpu().numpy(), rtol)
+                worst = max(worst, err)
+                if not good:
+                    raise RuntimeError(f"sharded: K4 shard {c} of {label} "
+                                       f"disagrees with its plain version "
+                                       f"({o}: {err})")
+        print(f"kernel: local_stream_shard {label}: {len(per)} shards "
+              f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} the "
+              f"plain version (max_abs_err {worst:.3g}), tile "
+              f"{fn.plan.tile}, banded {fn.last_config['mxu_stages']}",
+              flush=True)
+
+    entry = None
+    launches = 0
+    for label, p, (shape, names, axes), rtol in cells:
+        mesh = mesh_of(shape, names)
+        fn, plan = compile_sharded_chain(p, mesh, axes)
+        cfg = fn.last_config
+        if cfg["backend"] != "stream":
+            raise RuntimeError(f"sharded: {label} fell to {cfg}")
+        inputs = sft.load_input_arrays(p, seed=0)
+        placed = place_global_inputs(p, plan, inputs)
+        single, route = compile_chain_best(p, device="cuda")
+        dev_in = {n: torch.as_tensor(np.asarray(v)).to(cuda)
+                  if np.ndim(v) else v for n, v in inputs.items()}
+        del inputs
+        torch.cuda.synchronize()
+        pn.launches = ov.launches = gp.launches = tl.launches = 0
+        st.launches = st.local_launches = st.spill_launches = 0
+        st.shard_launches = 0
+        out = fn(placed)
+        torch.cuda.synchronize()
+        n = st.shard_launches
+        other = (pn.launches + ov.launches + gp.launches + tl.launches
+                 + st.launches + st.local_launches + st.spill_launches)
+        if n != mesh.size or other:
+            raise RuntimeError(f"sharded: {label}: K4 launched {n} times "
+                               f"for {mesh.size} shards (others {other})")
+        launches += n
+        ref = single(dev_in)
+        worst = 0.0
+        for o in p.outputs:
+            good, err = _compare(out[o].gather(cuda).cpu().numpy(),
+                                 ref[o].reshape(p.raw_dimensions).cpu()
+                                 .numpy(), rtol)
+            worst = max(worst, err)
+            if not good:
+                raise RuntimeError(f"sharded: {label} {o} differs from the "
+                                   f"single-device route ({err})")
+        del out, ref
+        ms = _time_ms(lambda: fn(placed), 5)
+        x_ms = _time_ms(lambda: fn.exchange(placed), 5)
+        per = fn.exchange(placed)
+        c = list(per)[-1]
+        lib = st.build_stream(fn.plan)   # built in phase 2: a lookup
+        k_ms = _time_ms(lambda: st.run_local_stream(
+            fn.plan, plan.block_origin(c)[0] - plan.halo[0], per[c], lib,
+            *plan.block_origin(c)[1:], plan.instance(c)), 5)
+        s_ms = _time_ms(lambda: single(dev_in), 5)
+        xr, xw = exchange_bytes(plan)
+        assets = _sharded_mxu_assets(fn.plan, plan)
+        pools = (f", per-shard band pool {assets[3]} B, "
+                 f"{sum(map(linear.is_stacked_key, assets[0]))} of "
+                 f"{len(assets[0])} entries stacked") if assets else ""
+        print(f"sharded: {label} ({cfg['backend']}, banded "
+              f"{cfg['mxu_stages']}{', composed' if cfg.get('composed') else ''}"
+              f"{pools}; block {plan.block}, halo {plan.halo}, tile "
+              f"{fn.plan.tile} x {fn.plan.threads}) {ms:.3f} ms a call | K4 "
+              f"a shard {k_ms:.3f} ms | exchange {x_ms:.3f} ms, "
+              f"{xr / 1e9:.3f} GB read + {xw / 1e9:.3f} GB written | "
+              f"single-device {route} {s_ms:.3f} ms | "
+              f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} it "
+              f"(max_abs_err {worst:.3g}) | K4 launches {n} | {smi}",
+              flush=True)
+        if entry is None:
+            # the kernels line's entry: one shard of the first cell
+            oi, oj, ok = plan.block_origin(c)
+            t0 = time.perf_counter()
+            st.local_stream_plain(fn.plan, oi - plan.halo[0], per[c], oj, ok,
+                                  plan.instance(c))
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            cells_in = sum(t.numel() * t.element_size()
+                           for name, t in per[c].items()
+                           if not p.inputs[name].is_scalar)
+            out_bytes = sum(int(np.prod(plan.block)) * np.dtype(
+                p.kernels[o].dtype).itemsize for o in p.outputs)
+            rep = Report.build(p)
+            t_bytes = (cells_in + out_bytes) / rep.hw.hbm_bandwidth * 1e3
+            t_ops = rep.alu_time_s() / mesh.size * 1e3
+            bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops                 else (t_ops, "operations")
+            wide = tuple(b + 2 * h for b, h in zip(plan.block, plan.halo))
+            lib_ms = _conv_chain_ms(p, 1, shape=wide)
+            entry = {"name": "local_stream_shard", "route": "cuda",
+                     "source": "stencilflow_tpu_torch/backend/codegen.py",
+                     "replaces": "stencilflow_tpu/backend/stream.py:1943",
+                     "launches": 0, "max_abs_err": worst, "ms": k_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+            print(f"kernel: local_stream_shard {label}, shard {c} "
+                  f"({wide} in, {plan.block} out): {k_ms:.3f} ms, plain "
+                  f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {len(p.kernels)} chained F.conv3d over "
+                  f"the widened shard {lib_ms:.3f} ms | {smi}", flush=True)
+        del placed, dev_in, per
+        torch.cuda.empty_cache()
+    entry["launches"] = launches
+
+    # the solver entry points on a mesh, against their single-device runs
+    shape, names, axes = solvers["mesh"]
+    mesh = mesh_of(shape, names)
+    p = solvers["iterate"]
+    inputs = sft.load_input_arrays(p, seed=0)
+    stats = {}
+    t0 = time.perf_counter()
+    got = sft.iterate(p, inputs, 16, fuse=8, mesh=mesh, dim_axes=axes,
+                      stats=stats)
+    it_s = time.perf_counter() - t0
+    want = sft.iterate(p, inputs, 16, fuse=8, device="cuda")
+    if stats["backend"] != "sharded[stream]" or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        raise RuntimeError(f"sharded: iterate on the mesh ({stats}) differs "
+                           "from in-core iterate")
+    p = solvers["grad"]
+    inputs = sft.load_input_arrays(p, seed=0)
+    f = sft.fast_value_and_grad(p, mesh=mesh, dim_axes=axes)
+    v1, g1 = f(inputs)
+    v2, g2 = sft.fast_value_and_grad(p, device="cuda")(inputs)
+    if f.lowering != {"forward": "sharded[stream]",
+                      "adjoint": "sharded[stream]"} or not all(
+            torch.equal(g1[k], g2[k]) for k in g2):
+        raise RuntimeError(f"sharded: fast_value_and_grad on the mesh "
+                           f"({f.lowering}) differs from one device")
+    print(f"sharded: iterate {solvers['iterate'].name} 16 steps fused by 8 "
+          f"on 2 x 2 ({stats['backend']}, {stats.get('captures')} captures, "
+          f"{stats.get('replays')} replays, {it_s:.2f} s with its capture) "
+          f"equal to in-core iterate; fast_value_and_grad {p.name} on 2 x 2 "
+          f"({f.lowering['forward']} + {f.lowering['adjoint']}) equal to "
+          f"one device | {smi}", flush=True)
+    print(f"sharded: phase 9 took {time.perf_counter() - t_phase:.1f} s | "
+          f"{smi}", flush=True)
+    return entry
 
 
 def _design_probes(ov, smi):
@@ -1684,8 +1949,11 @@ def main() -> int:
     # the solvers phase's lowerings (composed and adjoint programs among
     # them) compile on threads beside, each through its entry point
     solver_progs, solver_thunks = _solver_setup(sft, jacobi8)
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        solver_built = [pool.submit(t) for t in solver_thunks]
+    # phase 9's sharded engines and single-device routes, the same way
+    sharded_setup, sharded_thunks = _sharded_setup(sft, jacobi8, box256)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        solver_built = [pool.submit(t) for t in solver_thunks
+                        + sharded_thunks]
         libs = build.load_libraries(sources)
         for fut in solver_built:
             fut.result()
@@ -2293,7 +2561,12 @@ def main() -> int:
 
     # -- 8. the simulator ------------------------------------------------------
     print(f"phase: 8 at {time.perf_counter() - t_run:.1f} s", flush=True)
-    _simulator(sft, run_program, jacobi8, smi)
+    _simulator(sft, run_program, smi)
+
+    # -- 9. the sharded engine -------------------------------------------------
+    print(f"phase: 9 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    report["local_stream_shard"] = _sharded(sft, st, pn, ov, gp, tl,
+                                            sharded_setup, smi)
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith(("jax.", "stencilflow_tpu."))

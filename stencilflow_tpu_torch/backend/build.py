@@ -18,7 +18,9 @@ inputs packed into 8-byte slots (``scalar_blob``), and the CUDA stream.
 It returns ``cudaGetLastError()`` after the launch.  The local stream
 kernel (K4) has ``int sf_local_launch(inputs, outputs, scalars, int
 origin_i, stream)`` instead: the chunk's global origin is a launch
-argument, so one build serves every chunk.
+argument, so one build serves every chunk.  K4 on one shard of a mesh
+has ``int sf_shard_launch(inputs, outputs, scalars, int origin_i, int
+origin_j, int origin_k, stream)``: one build serves every shard.
 """
 from __future__ import annotations
 
@@ -87,7 +89,9 @@ def load_library(source: str, name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so_path)
     vp = ctypes.c_void_p
     for entry, args in (("sf_launch", [vp] * 4),
-                        ("sf_local_launch", [vp] * 3 + [ctypes.c_int, vp])):
+                        ("sf_local_launch", [vp] * 3 + [ctypes.c_int, vp]),
+                        ("sf_shard_launch",
+                         [vp] * 3 + [ctypes.c_int] * 3 + [vp])):
         if hasattr(lib, entry):
             getattr(lib, entry).argtypes = args
             getattr(lib, entry).restype = ctypes.c_int
@@ -122,11 +126,13 @@ def _ptrs(tensors) -> ctypes.Array:
 
 def launch(lib: ctypes.CDLL, program: ir.Program, inputs: Dict[str, object],
            arrays: List[torch.Tensor], outputs: List[torch.Tensor],
-           origin_i: Optional[int] = None) -> None:
+           origin_i: Optional[int] = None,
+           origin_jk: Optional[tuple] = None) -> None:
     """Launch ``lib``'s kernel on the current stream; raise on a refused
     launch.  ``arrays``/``outputs`` are checked, contiguous CUDA tensors in
     program order; ``origin_i`` goes to a local kernel's
-    ``sf_local_launch``."""
+    ``sf_local_launch``, with ``origin_jk`` to a shard's
+    ``sf_shard_launch``."""
     blob = scalar_blob(program, inputs)
     device = outputs[0].device
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -136,6 +142,12 @@ def launch(lib: ctypes.CDLL, program: ir.Program, inputs: Dict[str, object],
             rc = lib.sf_launch(ctypes.addressof(in_ptrs),
                                ctypes.addressof(out_ptrs),
                                blob.ctypes.data, stream)
+        elif origin_jk is not None:
+            rc = lib.sf_shard_launch(ctypes.addressof(in_ptrs),
+                                     ctypes.addressof(out_ptrs),
+                                     blob.ctypes.data, int(origin_i),
+                                     int(origin_jk[0]), int(origin_jk[1]),
+                                     stream)
         else:
             rc = lib.sf_local_launch(ctypes.addressof(in_ptrs),
                                      ctypes.addressof(out_ptrs),

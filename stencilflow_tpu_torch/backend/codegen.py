@@ -374,7 +374,8 @@ def _params(program: ir.Program, n_pool: int = 0,
             origin: bool = False, spill: bool = False) -> Tuple[str, str]:
     """Kernel parameter list and the matching launch arguments; ``n_pool``
     float32 tables follow the array inputs in ``in``; ``origin`` adds the
-    local kernel's ``origin_i``; ``spill`` the stream kernel's spill
+    local kernel's ``origin_i`` (``origin`` 3: and a shard's ``origin_j``,
+    ``origin_k``); ``spill`` the stream kernel's spill
     buffer ``sf_spill`` (written and read back by the block, so neither
     const nor restrict: no read goes through the non-coherent path)."""
     params, args = [], []
@@ -395,6 +396,9 @@ def _params(program: ir.Program, n_pool: int = 0,
     if origin:
         params.append("const int origin_i")
         args.append("origin_i")
+    if origin == 3:
+        params += ["const int origin_j", "const int origin_k"]
+        args += ["origin_j", "origin_k"]
     if spill:
         params.append("unsigned char* const sf_spill")
         args.append("sf_spill")
@@ -411,8 +415,11 @@ def _launcher(program, kernel: str, grid: str, smem: int, slots,
         n_arrays = sum(not s.is_scalar for s in program.inputs.values())
         copies += (f"  unsigned char* const sf_spill = (unsigned char*)"
                    f"in[{n_arrays + n_pool}];\n")
-    name = "sf_local_launch" if origin else "sf_launch"
+    name = "sf_shard_launch" if origin == 3 else \
+        "sf_local_launch" if origin else "sf_launch"
     origin_arg = "const int origin_i, " if origin else ""
+    if origin == 3:
+        origin_arg += "const int origin_j, const int origin_k, "
     return f"""
 extern "C" int {name}(const void* const* in, void* const* out,
     const unsigned char* scal, {origin_arg}void* stream) {{
@@ -510,23 +517,29 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
     """cp.async of plane ``t_expr`` of every ring input in ``fields`` into
     its ``slot(f)`` (synchronous stores for 1- and 2-byte types), zero
     beyond the (j, k) domain; the arrays' planes are (J, K) (a chunk's
-    slabs too)."""
+    slabs too), or a shard's widened plane (PJ, PK), whose cell (0, 0)
+    is global (wj, wk), read where it holds the cell."""
     _, J, K = program.dimensions
+    sharded = bool(getattr(plan, "shard", (0, 0))[0])
+    PJ, PK = plan.plane() if sharded else (J, K)
     out = []
     for f in fields:
         RJ, RK = plan.region(f)
         hj, hk = plan.halo[f]
         size = np.dtype(program.field_dtype(f)).itemsize
-        src = (f"g_{f} + (long long)({t_expr}) * {J * K}LL + "
-               f"(inb ? gj * {K} + gk : 0)")
+        cell = "(gj - wj) * {PK} + (gk - wk)" if sharded else "gj * {K} + gk"
+        src = (f"g_{f} + (long long)({t_expr}) * {PJ * PK}LL + "
+               f"(inb ? {cell.format(PK=PK, K=K)} : 0)")
         dst = f"r_{f} + {slot(f)} * {RJ * RK} + p"
         st = (f"sf_cp{size}({dst}, {src}, inb);" if size in (4, 8) else
               f"*({dst}) = inb ? *({src}) : "
               f"{literal(0, program.field_dtype(f))};")
+        inb = f"gj >= 0 && gj < {J} && gk >= 0 && gk < {K}"
+        if sharded:
+            inb += (f" && gj - wj < {PJ} && gk - wk < {PK}")
         out += _region_loop(RJ, RK, [
             f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
-            f"const bool inb = gj >= 0 && gj < {J} && gk >= 0 && "
-            f"gk < {K};", st])
+            f"const bool inb = {inb};", st])
     return out
 
 
@@ -1067,8 +1080,11 @@ class _StreamEmitter:
     def __init__(self, program, plan, slots):
         self.program, self.plan, self.slots = program, plan, slots
         self.dims = program.dimensions
-        # the arrays' extents: a local kernel's slabs hold its planes
-        self.adims = (plan.extent(),) + tuple(self.dims[1:])
+        # the arrays' extents: a local kernel's slabs hold its planes, a
+        # shard's its widened (j, k) plane, whose cell (0, 0) is global
+        # (wj, wk)
+        self.adims = (plan.extent(),) + tuple(plan.plane())
+        self.sharded = bool(plan.shard[0])
         self.pidx = {k: i for i, (k, _) in enumerate(plan.kernel_pool())}
         self.tidx = {t: n for n, t in enumerate(plan.tkeys)}
         self.n_otf = 0
@@ -1082,6 +1098,13 @@ class _StreamEmitter:
         global plane ``origin_i``)."""
         return f"(origin_i + {pexpr})" if self.plan.block else pexpr
 
+    def at(self, jexpr: str, kexpr: str) -> Tuple[str, str]:
+        """Indices into the arrays' (and the pool's) planes of global
+        cell (``jexpr``, ``kexpr``)."""
+        if self.sharded:
+            return f"({jexpr} - wj)", f"({kexpr} - wk)"
+        return jexpr, kexpr
+
     def tslot(self, tkey, d: int) -> str:
         """Slot of ``tkey``'s transform ring holding plane t - d at step
         t (its depth's counter)."""
@@ -1093,7 +1116,8 @@ class _StreamEmitter:
         if f in self.program.inputs and self.program.inputs[f].is_scalar:
             return f"sc.x{self.slots[f]}"
         mask = self.program.field_dim_mask(f)
-        c = (pexpr, "(gj + 0)", "(gk + 0)")
+        c = (pexpr,) + self.at("gj", "gk") if self.sharded else (
+            pexpr, "(gj + 0)", "(gk + 0)")
         return (f"(({_inb(mask, c, self.adims)}) ? g_{f}"
                 f"[{_flat(mask, c, self.adims)}] : 0.0f)")
 
@@ -1103,10 +1127,12 @@ class _StreamEmitter:
         plan = self.plan
         f, lkey, rkey = tkey
         _, J, K = self.dims
+        PJ, PK = self.adims[1:]
         mask = self.program.field_dim_mask(f)
         v = f"tv{self.n_otf}"
         self.n_otf += 1
-        g = f"g_{f}[{_flat(mask, (pexpr, 'sj', 'sk'), self.adims)}]"
+        g = f"g_{f}[{_flat(mask, (pexpr,) + self.at('sj', 'sk'), self.adims)}]"
+        lj, lk = self.at("gj", "gk")
         pre += [f"float {v} = 0.0f;",
                 f"if (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) {{"]
         if lkey is not None:
@@ -1125,12 +1151,12 @@ class _StreamEmitter:
                     "      const int sk = gk + dk;",
                     f"      if (sk < 0 || sk >= {K}) continue;",
                     f"      rs = rs + SF_LDG(pc{self.pidx[rkey]} + "
-                    f"(dk - ({dk0})) * {K} + gk) * {g};", "    }"]
+                    f"(dk - ({dk0})) * {PK} + {lk}) * {g};", "    }"]
         else:
             pre += ["    const int sk = gk;", f"    const float rs = {g};"]
         if lkey is not None:
             pre.append(f"    {v} = {v} + SF_LDG(pc{self.pidx[lkey]} + "
-                       f"(dj - ({dj0})) * {J} + gj) * rs;")
+                       f"(dj - ({dj0})) * {PJ} + {lj}) * rs;")
         else:
             pre.append(f"    {v} = rs;")
         pre += ["  }", "}"]
@@ -1189,15 +1215,17 @@ class _StreamEmitter:
                                tptrs, xs, [])
             base, cell = first[:first.index("[")], first[
                 first.index("[") + 1:-1].split(" + ")
+            gq = self.glob("q")
             if masked:
-                row = "q" if mp.full_table else (
-                    f"(q < {D} ? q : (q >= {I - D} ? {rows - I} + q : {D}))")
+                row = gq if mp.full_table else (
+                    f"({gq} < {D} ? {gq} : ({gq} >= {I - D} ? {rows - I} + "
+                    f"{gq} : {D}))")
                 L.append(f"const int row = sf_clamp({row}, {rows});")
             w_in = tab[min(D, rows - 1)]
             for idx, d in enumerate(mp.offsets):
                 v = f"{base}[{cell[0]} + {int(cell[1]) + idx * TJ * TK}]"
                 if masked:
-                    L.append(f"if (q + {d} >= 0 && q + {d} < {I}) acc = "
+                    L.append(f"if ({gq} + {d} >= 0 && {gq} + {d} < {I}) acc = "
                              f"fmaf({v}, SF_LDG(pc{self.pidx[mp.table_key]}"
                              f" + row * {len(mp.offsets)} + {idx}), acc);")
                 elif w_in[idx] != 0:
@@ -1242,13 +1270,15 @@ class _StreamEmitter:
                              else f"    part = part + {val};")
             if grp.correction_key is not None:
                 c = f"pc{self.pidx[grp.correction_key]}"
+                PK = self.adims[2]
+                lj, lk = self.at("gj", "gk")
                 if masked:
                     L.append(f"    part = part + ((gj >= 0 && gj < {J} && "
-                             f"gk >= 0 && gk < {K}) ? SF_LDG({c} + gj * {K}"
-                             " + gk) : 0.0f);")
+                             f"gk >= 0 && gk < {K}) ? SF_LDG({c} + {lj} * "
+                             f"{PK} + {lk}) : 0.0f);")
                 else:
-                    L.append(f"    part = part + SF_LDG({c} + gj * {K} + "
-                             "gk);")
+                    L.append(f"    part = part + SF_LDG({c} + {lj} * {PK} + "
+                             f"{lk});")
             L += ["  }", "  acc = acc + part;", "}"]
         if mp.bias:
             L.append(f"acc = acc + {literal(f32(mp.bias), f32)};")
@@ -1282,14 +1312,21 @@ class _StreamEmitter:
             htj, htk = plan.thalo[tkey]
             width = tab // info.taps
             base = f"k0 - {htk}" if side == "R" else f"j0 - {htj}"
+            # the table's columns: global, or a shard plane's
+            n, x0 = info.n, ""
+            if self.sharded:
+                n = self.adims[2 if side == "R" else 1]
+                x0 = " - wk" if side == "R" else " - wj"
+            inb = f"g >= 0 && g < {info.n}" + (
+                f" && g{x0} < {n}" if x0 else "")
             L += [f"  float* const bt{name} = (float*)(sf_smem + "
                   f"{off['btab', tkey, side]});",
                   f"  for (int d = 0; d < {info.taps}; ++d)",
                   f"    for (int x = tid; x < {width}; x += SF_NT) {{",
                   f"      const int g = {base} + x;",
-                  f"      bt{name}[d * {width} + x] = (g >= 0 && g < "
-                  f"{info.n}) ? SF_LDG(pc{self.pidx[key]} + d * {info.n} + "
-                  f"g) : 0.0f;", "    }",
+                  f"      bt{name}[d * {width} + x] = ({inb}) ? "
+                  f"SF_LDG(pc{self.pidx[key]} + d * {n} + g{x0}) : 0.0f;",
+                  "    }",
                   f"  const bool tb{name} = !({base} >= {info.lo} && "
                   f"{base} + {width} <= {info.hi}) && !({base} + {width} "
                   f"<= 0 || {base} >= {info.n});"]
@@ -1469,6 +1506,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
     ring_inputs = [f for f in plan.raw_ring if f in program.inputs]
     sources = {t[0] for t in plan.tkeys}
     Hj, Hk = plan.inner_reach()
+    sharded = bool(plan.shard[0])
     L = ["// stream streamer (backend/stream.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/stream.py _stream_kernel_body (K3a per-"
          "cell stages, K3b banded transforms)" + (
@@ -1478,8 +1516,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
          f"SF_DEV void {kernel}_block(const int by, const int bx, "
          "const int tid, const int nt, unsigned char* const sf_smem, "
          f"{params}) {{",
-         "  (void)nt;",
-         f"  const int j0 = by * {tj}, k0 = bx * {tk};",
+         "  (void)nt;"] + _block_origin(plan) + [
          "  const int warp = tid >> 5, lane = tid & 31;",
          "  (void)warp; (void)lane;",
          "  // every cell and read of the block inside the (j, k) domain",
@@ -1513,7 +1550,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
 
     step: List[str] = []
     pos = ("gq", "gj", "gk") if local else ("q", "gj", "gk")
-    at_pos = ("q", "gj", "gk") if local else None
+    at_pos = ("q",) + em.at("gj", "gk") if local else None
     stage_idx = {s: i for i, s in enumerate(order)}
     for e in plan.schedule[1:]:
         if e[0] == "fused":
@@ -1569,11 +1606,18 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                     cond.append(f"jl >= {hj} && jl < {hj + tj}")
                 if hk:
                     cond.append(f"kl >= {hk} && kl < {hk + tk}")
-                if masked:
-                    cond.append(f"gj < {J} && gk < {K}")
                 qo = f"(q - {h})" if local else "q"
-                write = (f"o_{s}[((long long){qo} * {J} + gj) * {K} + gk]"
-                         " = r;")
+                if sharded:   # the shard's core, every body
+                    BJ, BK = plan.core()
+                    cond.append(f"gj - origin_j < {BJ} && gk - origin_k < "
+                                f"{BK}")
+                    write = (f"o_{s}[((long long){qo} * {BJ} + gj - "
+                             f"origin_j) * {BK} + gk - origin_k] = r;")
+                else:
+                    if masked:
+                        cond.append(f"gj < {J} && gk < {K}")
+                    write = (f"o_{s}[((long long){qo} * {J} + gj) * {K} + "
+                             "gk] = r;")
                 body.append(f"if ({' && '.join(cond)}) {write}" if cond
                             else write)
             bodies.append(body)
@@ -1625,7 +1669,13 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     plane q works on global plane ``origin_i + q``: i-offset reads and
     banded groups are masked against the global [0, I), array inputs are
     read from the local (Ii, ...) slabs, and only core planes q in [h, h
-    + Ic) are written, to plane q - h of the (Ic, J, K) outputs.
+    + Ic) are written, to plane q - h of the (Ic, J, K) outputs.  A shard
+    plan (``plan.shard``) adds ``origin_j`` and ``origin_k`` (the shard
+    core's global origin; ``sf_shard_launch`` and ``sf_host_launch``
+    take all three): blocks tile the core from there, inputs and the
+    pool's planes are read at the cell's offset (wj, wk) from the
+    widened plane's origin, and only the core is written, to (Ic, Bj,
+    Bk) outputs.
 
     A plan of the spill rung (K3c, ``plan.packed``) takes
     ``_packed_stream_body``: shared memory packed by liveness, and
@@ -1644,13 +1694,14 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     ntj, ntk = plan.grid()
     n_pool = len(plan.kernel_pool())
     spill = bool(plan.spilled)
-    params, args = _params(program, n_pool, origin=local, spill=spill)
+    origin = 3 if plan.shard[0] else local
+    params, args = _params(program, n_pool, origin=origin, spill=spill)
     em = _StreamEmitter(program, plan, slots)
     if plan.packed:
         L = [head, _STREAM_MACROS, _SPILL_MACROS] + _packed_stream_body(
             program, plan, em, order, slots, kernel, params)
         L += _entry_points(program, kernel, params, args, (ntj, ntk),
-                           plan.smem_bytes(), slots, n_pool, origin=local,
+                           plan.smem_bytes(), slots, n_pool, origin=origin,
                            spill_bytes=plan.spill_bytes() if spill else 0)
         return "\n".join(L)
     body = _onchip_stream_body(program, plan, em, order, slots, kernel,
@@ -1658,10 +1709,24 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + (
         [_MMA_MACROS] if "mma" in em.routes else []) + body
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
-                       plan.smem_bytes(), slots, n_pool, origin=local,
+                       plan.smem_bytes(), slots, n_pool, origin=origin,
                        min_blocks=plan.min_blocks(), threads=plan.threads)
     L += _occupancy(plan.smem_bytes(), plan.threads, kernel)
     return "\n".join(L)
+
+
+def _block_origin(plan) -> List[str]:
+    """The block's core tile origin (j0, k0), global; a shard's tiles
+    start at its core's origin (``origin_j``, ``origin_k``), whose
+    widened plane's cell (0, 0) is global (wj, wk)."""
+    tj, tk = plan.tile
+    if not plan.shard[0]:
+        return [f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
+    xj, xk = plan.xhalo
+    return [f"  const int j0 = origin_j + by * {tj}, k0 = origin_k + bx * "
+            f"{tk};",
+            f"  const int wj = origin_j - {xj}, wk = origin_k - {xk};",
+            "  (void)wj; (void)wk;"]
 
 
 def _packed_stream_body(program, plan, em, order, slots, kernel: str,
@@ -1702,8 +1767,10 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             f"{', '.join(plan.spilled)}" if plan.spilled else ""),
          f"SF_DEV void {kernel}_block(const int by, const int bx, "
          "const int tid, const int nt, unsigned char* const sf_smem, "
-         f"{params}) {{",
-         f"  const int j0 = by * {tj}, k0 = bx * {tk};"]
+         f"{params}) {{"] + _block_origin(plan)
+    sharded = bool(plan.shard[0])
+    PJ, PK = plan.plane()
+    BJ, BK = plan.core()
     if lay.loads:
         L.append("  unsigned long long* const sf_bar = "
                  "(unsigned long long*)sf_smem;")
@@ -1780,18 +1847,23 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             hj, hk = plan.halo[f]
             dst = (f"st_{f}[p]" if f in plan.spilled else
                    f"r_{f}[(t % {plan.raw_ring[f]}) * {RJ * RK} + p]")
+            inb = f"gj >= 0 && gj < {J} && gk >= 0 && gk < {K}"
+            src = f"g_{f}[((long long)t * {J} + gj) * {K} + gk]"
+            if sharded:
+                inb += f" && gj - wj < {PJ} && gk - wk < {PK}"
+                src = (f"g_{f}[((long long)t * {PJ} + gj - wj) * {PK} + "
+                       "gk - wk]")
             L += [f"      for (int p = tid; p < {RJ * RK}; p += nt) {{",
                   f"        const int jl = p / {RK}, kl = p - jl * {RK};",
                   f"        const int gj = j0 - {hj} + jl, "
                   f"gk = k0 - {hk} + kl;",
-                  f"        {dst} = (gj >= 0 && gj < {J} && gk >= 0 && "
-                  f"gk < {K}) ? g_{f}[((long long)t * {J} + gj) * {K} + gk]"
+                  f"        {dst} = ({inb}) ? {src}"
                   f" : {literal(0, program.field_dtype(f))};",
                   "      }"]
         L.append("    }")
     L += close
     pos = ("gq", "gj", "gk") if local else ("q", "gj", "gk")
-    at_pos = ("q", "gj", "gk") if local else None
+    at_pos = ("q",) + em.at("gj", "gk") if local else None
     for idx, s in enumerate(order):
         kspec = program.kernels[s]
         RJ, RK = plan.region(s)
@@ -1826,11 +1898,19 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
                         "= r;")
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
-            body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
-                        f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
-                        f"gk < {K}) o_{s}[((long long)"
-                        f"{f'(q - {h})' if local else 'q'} * {J} + gj) * "
-                        f"{K} + gk] = r;")
+            qo = f"(q - {h})" if local else "q"
+            if sharded:
+                body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
+                            f"kl >= {hk} && kl < {hk + tk} && gj - origin_j"
+                            f" < {BJ} && gk - origin_k < {BK}) o_{s}[("
+                            f"(long long){qo} * {BJ} + gj - origin_j) * "
+                            f"{BK} + gk - origin_k] = r;")
+            else:
+                body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
+                            f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
+                            f"gk < {K}) o_{s}[((long long)"
+                            f"{qo} * {J} + gj) * "
+                            f"{K} + gk] = r;")
         L.append(f"    // phase {ph}: stage {s}")
         L += prologue(ph)
         L += ["    {", f"      const int q = t - {plan.lag[s]};"]
@@ -1892,7 +1972,9 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
             "void* const* out, const unsigned char* scal"
-            + (", const int origin_i" if origin else "") + ") {",
+            + (", const int origin_i" if origin else "")
+            + (", const int origin_j, const int origin_k" if origin == 3
+               else "") + ") {",
             "  SfScalars sc;", "  sc.unused_ = 0;",
             copies.rstrip("\n"),
             "  // uninitialised shared memory reads as NaN here",

@@ -1,10 +1,10 @@
 """Affine-run composition: collapse t consecutive separable affine stages
 into ONE wider banded stage.
 
-Copied from ``stencilflow_tpu/backend/compose.py``, cut to the untiled
-plane the port's stream kernel reads (no per-tile band windows), with no
-change of meaning.  A stage whose coefficient tensor factors as an outer
-product
+Copied from ``stencilflow_tpu/backend/compose.py``, cut to the planes the
+port's stream kernel reads (the whole plane, or a shard's widened plane
+with the reference's origin contexts), with no change of meaning.  A
+stage whose coefficient tensor factors as an outer product
 
     out = sum_{di,dj,dk} a[di] * u[dj] * v[dk] * src[x + (di,dj,dk)]
 
@@ -80,8 +80,9 @@ class BandMat:
         return BandMat(n, acc)
 
     def window(self, g0: int, size: int, dtype=np.float32) -> np.ndarray:
-        """Dense ``M[g0:g0+size, g0:g0+size]`` (the whole matrix at g0 = 0,
-        size = n)."""
+        """Dense ``M[g0:g0+size, g0:g0+size]`` with out-of-domain rows and
+        columns zero (the whole matrix at g0 = 0, size = n; a shard's
+        widened window otherwise)."""
         m = np.zeros((size, size), np.float64)
         for d, v in self.diags.items():
             rows = np.arange(max(0, -d), self.n - max(0, d))
@@ -365,10 +366,15 @@ def _i_table(build: ComposedBuild, I: int) -> Optional[Tuple[
 
 
 def plan_composed(build: ComposedBuild, plane: Tuple[int, int],
-                  dims: Tuple[int, int, int], pool: MatrixPool
+                  dims: Tuple[int, int, int], pool: MatrixPool,
+                  j_contexts=None, k_contexts=None
                   ) -> Optional[ComposedPlan]:
-    """ComposedPlan for one segment over the whole (J, K) plane, or None
-    when the geometry refuses (giant planes)."""
+    """ComposedPlan for one segment over the whole (J, K) plane, or over
+    one halo-widened shard plane per context (``j_contexts`` /
+    ``k_contexts``: the global coordinate of each instance's row/col 0,
+    as ``linear.plan_linear_stage`` takes them; the bands are pooled
+    stacked unless every instance agrees), or None when the geometry
+    refuses (giant planes)."""
     I, J, K = dims
     pj, pk = plane
     if max(J, K) > MAX_DENSE_N:
@@ -378,16 +384,26 @@ def plan_composed(build: ComposedBuild, plane: Tuple[int, int],
         return None
     table, offsets, D, full = got
 
-    def side_key(profiles, n_dom, n_plane, side):
+    tiled = j_contexts is not None or k_contexts is not None
+    j_contexts = j_contexts if j_contexts is not None else [None]
+    k_contexts = k_contexts if k_contexts is not None else [None]
+
+    def side_key(profiles, n_dom, n_plane, contexts, side):
         if all(p == {0: 1.0} for p in profiles):
             return None
-        m = _compose_axis(profiles, n_dom).window(0, n_plane)
-        if side == "R":
-            m = np.ascontiguousarray(m.T)
-        return pool.add(m, side)
+        M = _compose_axis(profiles, n_dom)
+        slices = []
+        for g0 in contexts:
+            m = M.window(g0 if g0 is not None else 0, n_plane)
+            slices.append(np.ascontiguousarray(m.T) if side == "R" else m)
+        if all(np.array_equal(slices[0], s) for s in slices[1:]):
+            return pool.add(slices[0], side)
+        return pool.add(np.stack(slices), side + "s")
 
-    lkey = side_key([f.jprof for f in build.factors], J, pj, "L")
-    rkey = side_key([f.kprof for f in build.factors], K, pk, "R")
+    lkey = side_key([f.jprof for f in build.factors], J, pj,
+                    j_contexts if tiled else [None], "L")
+    rkey = side_key([f.kprof for f in build.factors], K, pk,
+                    k_contexts if tiled else [None], "R")
     table_key = pool.add(table, "itab")
     return ComposedPlan(field=build.field, offsets=offsets, lkey=lkey,
                         rkey=rkey, table_key=table_key,

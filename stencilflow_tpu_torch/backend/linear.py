@@ -18,10 +18,12 @@ exactly and a static correction plane lifting them to any constant BC.
 The stream kernel (stream.py) executes the plans.
 
 Left out of the copy: the blocked-banded layout (``_blocked_rows``, which
-feeds 128-wide MXU blocks) and the origin-stacked per-tile matrices (the
-``j_contexts``/``k_contexts`` branch): the port's kernel tiles (j, k)
-itself and reads global coordinates, so one global band per side is
-exact.  The TPU's bf16 hi/lo operand split becomes a TF32 hi/lo split
+feeds 128-wide MXU blocks): the port's kernel tiles (j, k) itself and
+reads global coordinates, so on one device one global band per side is
+exact.  The origin-stacked matrices (the ``j_contexts``/``k_contexts``
+branch) serve the sharded stream kernel: one slice per shard instance
+of the halo-widened shard plane (``parallel/domain.py``
+``_sharded_mxu_assets``).  The TPU's bf16 hi/lo operand split becomes a TF32 hi/lo split
 on the H100's tensor cores for wide bands under ``mxu_precision="split"``
 (see stream.py); the matrices stay f32.
 """
@@ -193,10 +195,17 @@ def finalize_pool(plans: Dict[str, object], pool: MatrixPool, program,
     return pkeys, parrs, tkeys
 
 
+def is_stacked_key(key: str) -> bool:
+    """True for pool entries holding one slice per tile/shard instance
+    (leading dim selected per shard)."""
+    return key.startswith(("Ls_", "Rs_", "corrs_"))
+
+
 def plan_all_stages(program, plane, dims, pool: MatrixPool,
-                    min_footprint: int, exclude=()
-                    ) -> Dict[str, LinearStagePlan]:
-    """Banded plans for every eligible stage of a program.
+                    min_footprint: int, j_contexts=None, k_contexts=None,
+                    exclude=()) -> Dict[str, LinearStagePlan]:
+    """Banded plans for every eligible stage of a program (the contexts
+    as ``plan_linear_stage`` takes them).
 
     Stages touching data wider than f32, or integer data, stay on the
     per-cell path: the transforms compute in f32, which would silently
@@ -216,7 +225,9 @@ def plan_all_stages(program, plane, dims, pool: MatrixPool,
                 for f in kspec.accesses()):
             continue
         mp = plan_linear_stage(kspec, plane, dims, pool,
-                               min_footprint=min_footprint)
+                               min_footprint=min_footprint,
+                               j_contexts=j_contexts,
+                               k_contexts=k_contexts)
         if mp is not None:
             plans[kname] = mp
     return plans
@@ -240,22 +251,28 @@ def mxu_flops_per_cell(pool: Dict[str, np.ndarray], transform_keys
     return total
 
 
-def band_diagonals(matrix: np.ndarray, side: str):
+def band_diagonals(matrix: np.ndarray, side: str,
+                   span: Optional[Tuple[int, int]] = None):
     """Diagonal form of a pooled band matrix, as the kernel applies it:
     ``out[p] = sum_d coef[d - d0, p] * in[p + d]`` with reads outside
     [0, n) contributing 0.  ``side`` "L": ``matrix`` is applied as
     ``matrix @ P``; "R": as ``P @ matrix`` (stored transposed).  Returns
     ``(offsets, coef)``: the contiguous offset range d0..d1 covering every
-    nonzero diagonal, and an (d1 - d0 + 1, n) float32 table whose row
-    ``d - d0`` holds ``M[p, p + d]`` (0 where p + d leaves [0, n))."""
+    nonzero diagonal (``span``: a given range covering them, as the
+    shard slices of one band share), and an (d1 - d0 + 1, n) float32
+    table whose row ``d - d0`` holds ``M[p, p + d]`` (0 where p + d
+    leaves [0, n))."""
     m = np.asarray(matrix, np.float32)
     if side == "R":
         m = m.T
     n = m.shape[0]
     rows, cols = np.nonzero(m)
-    if rows.size == 0:
+    if span is not None:
+        d0, d1 = span
+    elif rows.size == 0:
         return [0], np.zeros((1, n), np.float32)
-    d0, d1 = int((cols - rows).min()), int((cols - rows).max())
+    else:
+        d0, d1 = int((cols - rows).min()), int((cols - rows).max())
     coef = np.zeros((d1 - d0 + 1, n), np.float32)
     for d in range(d0, d1 + 1):
         p = np.arange(max(0, -d), min(n, n - d))
@@ -271,13 +288,24 @@ def _normalize(w):
     return (w / a, float(a)) if a != 0 else (w, 1.0)
 
 
-def _band_matrix(n: int, offsets: List[int], weights: List[float]
+def _band_matrix(n: int, offsets: List[int], weights: List[float],
+                 g0: Optional[int] = None, N: Optional[int] = None
                  ) -> np.ndarray:
     """Banded matrix M with M[p, p+o] = w_o (truncated at the window edges —
-    exactly the zero-boundary contribution when the window IS the domain)."""
+    exactly the zero-boundary contribution when the window IS the domain).
+
+    With ``g0``/``N``, row p corresponds to global coordinate ``g0 + p`` of
+    a domain of size ``N`` (a halo-widened tile/shard plane): entries whose
+    source global coordinate leaves [0, N) are zeroed — the origin-aware
+    band truncation for tiled/sharded planes.  ``g0=None`` keeps every
+    in-window entry (an interior tile, where the exchanged halo provides
+    all band sources)."""
     m = np.zeros((n, n), np.float32)
     for o, wt in zip(offsets, weights):
         idx = np.arange(max(0, -o), min(n, n - o))
+        if g0 is not None:
+            g = g0 + idx + o
+            idx = idx[(g >= 0) & (g < N)]
         m[idx, idx + o] = wt
     return m
 
@@ -287,12 +315,24 @@ def plan_linear_stage(kspec: ir.KernelSpec,
                       dims: Tuple[int, int, int],
                       pool: MatrixPool,
                       min_footprint: int = 9,
-                      max_rank: int = 2) -> Optional[LinearStagePlan]:
+                      max_rank: int = 2,
+                      j_contexts: Optional[List[Optional[int]]] = None,
+                      k_contexts: Optional[List[Optional[int]]] = None
+                      ) -> Optional[LinearStagePlan]:
     """Build the banded plan for one stage, or None if ineligible.
 
     Eligibility: affine expression; every accessed array field has a
     constant or shrink BC; footprint at least ``min_footprint``; every
-    i-offset group factors with rank <= ``max_rank``."""
+    i-offset group factors with rank <= ``max_rank``.
+
+    ``j_contexts``/``k_contexts``: for sharded planes, the GLOBAL
+    coordinate of the widened plane's row/col 0 for every shard instance
+    along that dim (None entry = interior instance, no global band edge).
+    Matrices and correction planes are then built origin-aware and
+    pooled stacked — L over j instances, R over k instances, corrections
+    over their cross product (j-major), collapsed back to a single matrix
+    when every instance agrees; each shard reads its instance's slice.
+    With both None (plane == global domain) matrices are unstacked."""
     coeffs = extract_linear(kspec)
     if coeffs is None:
         return None
@@ -315,12 +355,29 @@ def plan_linear_stage(kspec: ir.KernelSpec,
         return None
 
     pj, pk = plane
+    J, K = dims[1], dims[2]
+
+    tiled = j_contexts is not None or k_contexts is not None
+    if tiled:
+        j_contexts = j_contexts if j_contexts is not None else [None]
+        k_contexts = k_contexts if k_contexts is not None else [None]
 
     def add_band(n, offs, wts, side):
-        full = _band_matrix(n, offs, wts)
-        if side == "R":   # stored transposed, applied as P @ full
-            full = np.ascontiguousarray(full.T)
-        return pool.add(full, side)
+        """Pool one band matrix (or a per-instance stack of them)."""
+        if not tiled:
+            full = _band_matrix(n, offs, wts)
+            if side == "R":   # stored transposed, applied as P @ full
+                full = np.ascontiguousarray(full.T)
+            return pool.add(full, side)
+        ndom = J if side == "L" else K
+        slices = []
+        for g0 in (j_contexts if side == "L" else k_contexts):
+            m = _band_matrix(n, offs, wts, g0=g0,
+                             N=ndom if g0 is not None else None)
+            slices.append(np.ascontiguousarray(m.T) if side == "R" else m)
+        if all(np.array_equal(slices[0], s) for s in slices[1:]):
+            return pool.add(slices[0], side)
+        return pool.add(np.stack(slices), side + "s")
 
     groups: List[PlaneGroup] = []
     for (field, oi), cmap in by_field_oi.items():
@@ -366,16 +423,33 @@ def plan_linear_stage(kspec: ir.KernelSpec,
             bval = float(bc.value) if bc is not None else 0.0
         corr_key = None
         if bval != 0.0:
-            J, K = dims[1], dims[2]
-            jj = np.arange(pj)[:, None]
-            kk = np.arange(pk)[None, :]
-            correction = np.zeros((pj, pk), np.float32)
-            for (oj, ok), c in cmap.items():
-                oob = ((jj + oj < 0) | (jj + oj >= J)
-                       | (kk + ok < 0) | (kk + ok >= K))
-                correction += np.float32(bval * c) * oob
-            if np.any(correction):
-                corr_key = pool.add(correction, "corr")
+            def corr_for(g0j, g0k):
+                jj = (np.arange(pj) +
+                      (g0j if g0j is not None else 0))[:, None]
+                kk = (np.arange(pk) +
+                      (g0k if g0k is not None else 0))[None, :]
+                correction = np.zeros((pj, pk), np.float32)
+                for (oj, ok), c in cmap.items():
+                    oob = np.zeros((pj, pk), bool)
+                    if g0j is not None:
+                        oob |= (jj + oj < 0) | (jj + oj >= J)
+                    if g0k is not None:
+                        oob |= (kk + ok < 0) | (kk + ok >= K)
+                    correction += np.float32(bval * c) * oob
+                return correction
+            if not tiled:
+                correction = corr_for(0, 0)
+                if np.any(correction):
+                    corr_key = pool.add(correction, "corr")
+            else:
+                # cross product, j-major: instance (ji, ki) at ji*nk + ki
+                stack = np.stack([corr_for(a, b)
+                                  for a in j_contexts for b in k_contexts])
+                if np.any(stack):
+                    if all(np.array_equal(stack[0], s) for s in stack[1:]):
+                        corr_key = pool.add(stack[0], "corr")
+                    else:
+                        corr_key = pool.add(stack, "corrs")
         groups.append(PlaneGroup(field, oi, terms, wsum, bval, corr_key))
 
     if not groups:

@@ -159,12 +159,13 @@ def resolve_device(device) -> torch.device:
 
 
 def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
-               out_dims=None, origin_i=None):
+               out_dims=None, origin_i=None, origin_jk=None):
     """Shared wrapper body: CPU tensors take ``plain``; CUDA tensors
     launch ``lib()``'s kernel or raise.  ``extra(device)`` gives device
     tensors the kernel reads after the array inputs.  Inputs span
     ``in_dims`` and outputs are ``out_dims`` (both the program's (I, J,
-    K) by default); ``origin_i`` is the local kernel's launch argument.
+    K) by default); ``origin_i`` is the local kernel's launch argument,
+    ``origin_jk`` a shard's (j, k) origin.
     Returns the outputs and whether the kernel was launched."""
     first = next(a for n, a in arrays.items()
                  if not program.inputs[n].is_scalar)
@@ -181,7 +182,7 @@ def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
                  [arrays[n] for n, s in program.inputs.items()
                   if not s.is_scalar]
                  + (list(extra(first.device)) if extra else []), outs,
-                 origin_i=origin_i)
+                 origin_i=origin_i, origin_jk=origin_jk)
     return dict(zip(program.outputs, outs)), True
 
 

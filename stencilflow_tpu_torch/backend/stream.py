@@ -108,6 +108,29 @@ planes (1.125x the core at h = 8, Ic = 128) so that chunks need nothing
 from each other, and an out-of-core call is bound by the host copies
 around it, not by the kernel (PERF.md).
 
+Shard mode (K4 on one shard of a mesh, the counterpart of
+``compile_local_stream``'s ``pallas_call`` with a 3-element origin,
+``mxu_assets`` and ``pool_locals``; ``parallel/domain.py`` plans and
+drives it): a local plan with ``shard`` = (Bj, Bk), the shard's core,
+and ``xhalo``, the (j, k) halo its inputs arrive widened by.  The
+kernel's entry ``sf_shard_launch`` takes the shard's origin
+(``origin_i`` as in local mode, ``origin_j``, ``origin_k``: the core's
+global (j, k)); its blocks tile the core from there, so every cell keeps
+its global (j, k) and every BC mask, Toeplitz range and i-table row is
+taken at the global coordinate, as a (j, k) tile of the whole plane
+takes them; inputs are read from the widened (Bj + 2Xj, Bk + 2Xk)
+planes at their offset from the plane's origin, and only the core is
+written, to (block, Bj, Bk) outputs.  Banded stages read this shard's
+slice of the origin-aware band matrices and correction planes
+(``linear.plan_linear_stage``'s j/k contexts: stacked keys hold a slice
+per shard instance, ``kernel_pool(inst)``), passed per launch; the
+source is one for every shard: a band's literal weights and its
+Toeplitz range are global (``StreamPlan._shard_band_info``), only its
+table (the columns where a composed band's products differ near an
+edge) and the correction planes are read per shard.  Composed runs and
+the spill rung take the same origin.  Launches count in
+``shard_launches``.
+
 Spill (K3c, the counterpart of ``choose_spill``, ``spill_prefetch``,
 ``spill_read`` and ``spill_write``, the last rung of the reference's
 ``compile_chain_stream``): when no tile fits the shared-memory budget
@@ -167,7 +190,7 @@ from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
-                     mxu_flops_per_cell, plan_all_stages)
+                     is_stacked_key, mxu_flops_per_cell, plan_all_stages)
 from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
                     tile_candidates)
 from .stacked_io import (SPILL_BYTES_CAP, THREADS,
@@ -177,11 +200,12 @@ from .stacked_io import (SPILL_BYTES_CAP, THREADS,
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only): the whole-domain stream
-# kernel (K3), the local chunk kernel (K4), and either with spilled rings
-# (K3c)
+# kernel (K3), the local chunk kernel (K4), either with spilled rings
+# (K3c), and K4 on one shard of a mesh (any plan in shard mode)
 launches = 0
 local_launches = 0
 spill_launches = 0
+shard_launches = 0
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -298,6 +322,15 @@ class StreamPlan:
     instep: Dict[TKey, int] = dataclasses.field(default_factory=dict)
     mxu_precision: str = "split"
     passes: str = "auto"
+    # shard mode (K4 on one shard of a mesh): the shard's core (Bj, Bk)
+    # and the exchanged (j, k) halo its inputs arrive widened by; (0, 0):
+    # the whole (J, K) plane.  ``contexts``: the global coordinate of
+    # the widened plane's row 0 of every j instance and col 0 of every k
+    # instance the pool was built for (stacked keys hold one slice per
+    # instance, corrections j-major over both)
+    shard: Tuple[int, int] = (0, 0)
+    xhalo: Tuple[int, int] = (0, 0)
+    contexts: Optional[Tuple[List[int], List[int]]] = None
 
     @staticmethod
     def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
@@ -352,11 +385,50 @@ class StreamPlan:
         return self.extent() + self.lag_max - self.halo_i
 
     # -- geometry ------------------------------------------------------------
-    def band(self, key: str, side: str):
-        """(offsets, coef) of pool matrix ``key`` (linear.band_diagonals)."""
-        if key not in self.bands:
-            self.bands[key] = band_diagonals(self.pool[key], side)
-        return self.bands[key]
+    def core(self) -> Tuple[int, int]:
+        """The (j, k) extents the kernel writes: a shard's core, else the
+        whole plane."""
+        return self.shard if self.shard[0] else tuple(
+            self.program.dimensions[1:])
+
+    def plane(self) -> Tuple[int, int]:
+        """The (j, k) extents of the input arrays and the pool's planes: a
+        shard's core widened by the exchanged halo, else the whole
+        plane."""
+        (bj, bk), (xj, xk) = self.core(), self.xhalo
+        return bj + 2 * xj, bk + 2 * xk
+
+    def instances(self) -> Tuple[int, int]:
+        """(j, k) shard instances the pool holds slices for."""
+        if self.contexts is None:
+            return 1, 1
+        return len(self.contexts[0]), len(self.contexts[1])
+
+    def matrix(self, key: str, inst: Tuple[int, int] = (0, 0)) -> np.ndarray:
+        """Pool entry ``key`` as shard instance ``inst`` = (j, k) reads it:
+        its slice of a stacked key (``linear.is_stacked_key``)."""
+        a = self.pool[key]
+        if not is_stacked_key(key):
+            return a
+        if key.startswith("Ls_"):
+            return a[inst[0]]
+        if key.startswith("Rs_"):
+            return a[inst[1]]
+        return a[inst[0] * self.instances()[1] + inst[1]]
+
+    def band(self, key: str, side: str, inst: Tuple[int, int] = (0, 0)):
+        """(offsets, coef) of pool matrix ``key`` (linear.band_diagonals)
+        as shard instance ``inst`` reads it; a stacked key's tables of
+        every instance span the offsets of all of them."""
+        if (key, inst) not in self.bands:
+            span = None
+            if is_stacked_key(key):
+                offs = {d for m in self.pool[key]
+                        for d in band_diagonals(m, side)[0]}
+                span = (min(offs), max(offs))
+            self.bands[key, inst] = band_diagonals(self.matrix(key, inst),
+                                                   side, span)
+        return self.bands[key, inst]
 
     def reach(self, key: Optional[str], side: str) -> int:
         if key is None:
@@ -401,8 +473,41 @@ class StreamPlan:
     # -- the on-chip body: band passes and the step's phases -----------------
     def band_info(self, key: str, side: str) -> BandInfo:
         if (key, side) not in self.bands:
-            self.bands[key, side] = band_info(*self.band(key, side))
+            self.bands[key, side] = band_info(*self.band(key, side)) \
+                if self.contexts is None else self._shard_band_info(key, side)
         return self.bands[key, side]
+
+    def _shard_band_info(self, key: str, side: str) -> BandInfo:
+        """``BandInfo`` of a band over shard planes, in global columns: the
+        weights of the interior column nearest the domain's middle, and
+        the global range [lo, hi) around it in which every instance's
+        slice applies those weights wherever the source lies inside its
+        window and the domain (beyond the domain the source planes hold
+        0, so literal weights are exact there too)."""
+        d = 0 if side == "L" else 1
+        N = self.program.dimensions[1 + d]
+        per = []
+        for i, g0 in enumerate(self.contexts[d]):
+            offsets, coef = self.band(key, side, (i, 0) if d == 0 else (0, i))
+            dd = np.asarray(offsets)[:, None]
+            p = np.arange(coef.shape[1])[None, :]
+            g = g0 + np.arange(coef.shape[1])
+            window = (p + dd >= 0) & (p + dd < coef.shape[1])
+            inside = window & (g0 + p + dd >= 0) & (g0 + p + dd < N)
+            per.append((coef, g, inside, np.all(window, axis=0)
+                        & (g >= 0) & (g < N)))
+        w = min(((abs(int(g[c]) - N // 2), i, c)
+                 for i, (_coef, g, _in, full) in enumerate(per)
+                 for c in np.nonzero(full)[0]))
+        w = per[w[1]][0][:, w[2]]
+        odd = set()
+        for coef, g, inside, _full in per:
+            bad = ~np.all(~inside | (coef == w[:, None]), axis=0)
+            odd.update(int(x) for x in g[bad & (g >= 0) & (g < N)])
+        lo = max([x + 1 for x in odd if x < N // 2], default=0)
+        hi = min([x for x in odd if x >= N // 2], default=N)
+        return BandInfo(tuple(self.band(key, side)[0]),
+                        tuple(float(x) for x in w), lo, hi, N)
 
     def route(self, key: str, side: str) -> str:
         """"mma" (tensor cores) or "fma" (CUDA cores) for the pass that
@@ -662,7 +767,7 @@ class StreamPlan:
                                        else 2), self.threads]
         compute = self.steps() * waves * per_sm * self.lanes() * latency \
             / H100_PANEL_CELL_RATE
-        _, J, K = self.program.dimensions
+        J, K = self.core()
         moved = ntj * ntk * self.extent() * sum(
             math.prod(self.region(f)) * np.dtype(
                 self.program.field_dtype(f)).itemsize
@@ -806,8 +911,8 @@ class StreamPlan:
             + ntj * ntk * self.spill_traffic() / (H100_COPY_FLOOR * share))
 
     def grid(self) -> Tuple[int, int]:
-        dims = self.program.dimensions
-        return -(-dims[1] // self.tile[0]), -(-dims[2] // self.tile[1])
+        bj, bk = self.core()
+        return -(-bj // self.tile[0]), -(-bk // self.tile[1])
 
     def cells(self) -> int:
         """Cells one block evaluates per plane step: every stage's region
@@ -817,10 +922,12 @@ class StreamPlan:
                 + sum(math.prod(self.region(f)) for f in self.raw_ring
                       if f in program.inputs))
 
-    def kernel_pool(self) -> List[Tuple[str, np.ndarray]]:
+    def kernel_pool(self, inst: Tuple[int, int] = (0, 0)
+                    ) -> List[Tuple[str, np.ndarray]]:
         """The device arrays the kernel reads, in argument order: the
         diagonal table of every band it applies, correction planes and
-        composed i-tables."""
+        composed i-tables; of shard instance ``inst`` (its slices of the
+        stacked keys) in shard mode."""
         keys: Dict[str, str] = {}
         for mp in self.mxu_plans.values():
             if isinstance(mp, ComposedPlan):
@@ -838,14 +945,15 @@ class StreamPlan:
                             keys[k] = side
         out = []
         for k in sorted(keys):
-            arr = (self.band(k, keys[k])[1] if keys[k] else
-                   np.ascontiguousarray(self.pool[k], np.float32))
+            arr = (self.band(k, keys[k], inst)[1] if keys[k] else
+                   np.ascontiguousarray(self.matrix(k, inst), np.float32))
             out.append((k, arr))
         return out
 
     def flops_per_cell(self) -> float:
         """Executed f32 flops per cell of the plan's transforms."""
-        return mxu_flops_per_cell(self.pool, self.tkeys)
+        return mxu_flops_per_cell({k: self.matrix(k) for k in self.pool},
+                                  self.tkeys)
 
     def last_config(self) -> dict:
         """The JAX package's ``compile_chain_stream.last_config`` keys."""
@@ -1011,16 +1119,25 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 mxu_precision: str, builds, tile, block: int = 0,
                 halo_i: int = 0, smem_budget: int = H100_SMEM_PER_BLOCK,
                 spill: str = "off", passes: str = "auto",
-                threads: Optional[int] = None) -> StreamPlan:
+                threads: Optional[int] = None,
+                shard: Tuple[int, int] = (0, 0),
+                xhalo: Tuple[int, int] = (0, 0),
+                contexts=None) -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
+    # the plane the pool's matrices span: a shard's widened core, or the
+    # whole (J, K) plane
+    plane = (shard[0] + 2 * xhalo[0], shard[1] + 2 * xhalo[1]) \
+        if shard[0] else (J, K)
+    ctx = contexts or (None, None)
     pool = MatrixPool()
     plans: Dict[str, object] = {}
     if mxu != "off":
-        plans = plan_all_stages(program, (J, K), dims, pool,
-                                MXU_MIN_FOOTPRINT, exclude=tuple(builds))
+        plans = plan_all_stages(program, plane, dims, pool,
+                                MXU_MIN_FOOTPRINT, ctx[0], ctx[1],
+                                exclude=tuple(builds))
     for cname, b in builds.items():
-        cp = plan_composed(b, (J, K), dims, pool)
+        cp = plan_composed(b, plane, dims, pool, ctx[0], ctx[1])
         if cp is None:
             raise ValueError(f"composed segment {cname} not plannable")
         plans[cname] = cp
@@ -1089,7 +1206,14 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                       dict(zip(pkeys, parrs)), tkeys, raw,
                       {t: d for t, d in tdepth.items() if t not in instep},
                       halo, {}, block=block, halo_i=halo_i, instep=instep,
-                      mxu_precision=mxu_precision, passes=passes)
+                      mxu_precision=mxu_precision, passes=passes,
+                      shard=tuple(shard), xhalo=tuple(xhalo),
+                      contexts=contexts)
+    for f in onchip:   # a sharded dim's reads stay in the exchanged halo
+        if any(halo[f][d] > xhalo[d] for d in range(2)
+               if shard[0] and shard[d] < dims[1 + d]):
+            raise ValueError(f"field {f} halo {halo[f]} exceeds the "
+                             f"exchanged halo {tuple(xhalo)}")
     for t in tkeys:
         plan.thalo[t] = tuple(max(halo[c][d] for c in readers[t])
                               for d in range(2))
@@ -1137,7 +1261,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
     legs = ("spill",) if every else ("on chip", "spill") if spillable \
         else ("on chip",)
     for leg in legs:
-        for cand in tile_candidates(dims):
+        for cand in tile_candidates((I,) + plan.core()):
             plan.tile = cand
             if leg == "spill":
                 plan.threads = THREADS
@@ -1257,15 +1381,27 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
                tile: Optional[Tuple[int, int]] = None,
                smem_budget: int = H100_SMEM_PER_BLOCK,
                spill: str = "auto", passes: str = "auto",
-               threads: Optional[int] = None) -> StreamPlan:
+               threads: Optional[int] = None,
+               shard: Tuple[int, int] = (0, 0),
+               xhalo: Tuple[int, int] = (0, 0), contexts=None,
+               builds=None) -> StreamPlan:
     """The local (chunk) plan of K4: ``block`` core i-planes widened by
     ``halo_i`` planes each side; stages banded where ``mxu`` is "auto"
-    and the banded planner takes them (never composed), the rest per
-    cell; a per-cell plan spills rings (``spill="auto"``) when no tile
-    fits ``smem_budget`` otherwise; ``passes`` and ``threads`` as
+    and the banded planner takes them, the rest per cell; a per-cell
+    plan spills rings (``spill="auto"``) when no tile fits
+    ``smem_budget`` otherwise; ``passes`` and ``threads`` as
     ``plan_stream`` takes them.  Raises ValueError /
     NotImplementedError when the program is out of scope or no tile
-    fits."""
+    fits.
+
+    Shard mode (a mesh's shard, ``parallel/domain.py``): ``shard`` =
+    (Bj, Bk) is the shard's core in (j, k), ``xhalo`` the (j, k) halo its
+    inputs arrive widened by, ``contexts`` the global (j, k) origin of
+    every shard instance's widened plane (``linear.plan_linear_stage``'s
+    j/k contexts: the pool then holds origin-aware bands and correction
+    planes, stacked per instance).  ``builds``: a composed program's
+    segments (``compose.compose_program``), planned exactly or
+    refused."""
     if block < 1 or halo_i < 0:
         raise ValueError(f"bad local block {block} / i-halo {halo_i}")
     analysis = analysis or ChainAnalysis.run(program)
@@ -1274,9 +1410,10 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
     check_spill(spill)
     check_passes(passes, mxu_precision)
     return _build_plan(program, analysis, "off" if spill == "all" else mxu,
-                       mxu_precision, {}, tile, block=block, halo_i=halo_i,
-                       smem_budget=smem_budget, spill=spill, passes=passes,
-                       threads=threads)
+                       mxu_precision, builds or {}, tile, block=block,
+                       halo_i=halo_i, smem_budget=smem_budget, spill=spill,
+                       passes=passes, threads=threads, shard=shard,
+                       xhalo=xhalo, contexts=contexts)
 
 
 # -- plain version --------------------------------------------------------------
@@ -1294,7 +1431,9 @@ def _junk(dtype: torch.dtype, shape, device) -> torch.Tensor:
 
 
 def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
-                 origin_i: int = 0) -> Dict[str, torch.Tensor]:
+                 origin_i: int = 0, origin_j: int = 0, origin_k: int = 0,
+                 inst: Tuple[int, int] = (0, 0)
+                 ) -> Dict[str, torch.Tensor]:
     """The plan's function in torch ops on whole (J, K) planes, streamed
     along i: per-cell stages through tile_eval with the boundary rules of
     the kernels, banded stages as ``L @ P @ R`` matmuls, the correction
@@ -1303,22 +1442,29 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
     extent; returns the core planes, (I, J, K) for a whole-domain plan
     and (block, J, K) for a local one, whose local plane 0 is global
     plane ``origin_i``.  A read of a plane outside the chunk gets a junk
-    plane (``_junk``)."""
+    plane (``_junk``).  In shard mode the planes are the shard's widened
+    (j, k) plane, whose core starts at global (``origin_j``,
+    ``origin_k``), the pool is shard instance ``inst``'s and the outputs
+    are the (block, Bj, Bk) core."""
     program = plan.program
     I, J, K = program.dimensions
     Ii, h = plan.extent(), plan.halo_i
     Ic = Ii - 2 * h
+    PJ, PK = plan.plane()
+    (BJ, BK), (XJ, XK) = plan.core(), plan.xhalo
     device = next(a for n, a in arrays.items()
                   if not program.inputs[n].is_scalar).device
     f32 = torch.float32
-    mats = {k: torch.as_tensor(v).to(device) for k, v in plan.pool.items()}
+    mats = {k: torch.as_tensor(plan.matrix(k, inst)).to(device)
+            for k in plan.pool}
     planes: Dict[str, Dict[int, torch.Tensor]] = {}
     tcache: Dict[Tuple[TKey, Optional[int]], torch.Tensor] = {}
-    outs = {o: torch.empty((Ic, J, K), device=device,
+    outs = {o: torch.empty((Ic, BJ, BK), device=device,
                            dtype=to_torch_dtype(program.kernels[o].dtype))
             for o in program.outputs}
-    jj = torch.arange(J, device=device)[:, None]
-    kk = torch.arange(K, device=device)[None, :]
+    # global (j, k) of the plane's cells
+    jj = torch.arange(PJ, device=device)[:, None] + (origin_j - XJ)
+    kk = torch.arange(PK, device=device)[None, :] + (origin_k - XK)
 
     def inside(p):
         """Is global plane ``p`` in the domain?"""
@@ -1330,17 +1476,17 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
         dt = to_torch_dtype(program.field_dtype(f))
         if f in program.kernels:
             got = planes.get(f, {}).get(p)
-            return got if got is not None else _junk(dt, (J, K), device)
+            return got if got is not None else _junk(dt, (PJ, PK), device)
         spec = program.inputs[f]
         a = arrays[f].to(device)
         if spec.is_scalar:
-            return a.expand(J, K)
+            return a.expand(PJ, PK)
         if spec.dim_mask[0]:
             if not 0 <= p < Ii:
-                return _junk(dt, (J, K), device)
+                return _junk(dt, (PJ, PK), device)
             a = a[p]
-        return a.reshape(J if spec.dim_mask[1] else 1,
-                         K if spec.dim_mask[2] else 1).expand(J, K)
+        return a.reshape(PJ if spec.dim_mask[1] else 1,
+                         PK if spec.dim_mask[2] else 1).expand(PJ, PK)
 
     def transformed(f, p, lkey, rkey):
         key = ((f, lkey, rkey), p)
@@ -1359,13 +1505,14 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
     def banded(mp, q):
         if isinstance(mp, ComposedPlan):
             tab = plan.pool[mp.table_key]
-            row = q if mp.full_table else (
-                q if q < mp.D else
-                mp.table_rows + q - I if q >= I - mp.D else mp.D)
+            gq = origin_i + q
+            row = gq if mp.full_table else (
+                gq if gq < mp.D else
+                mp.table_rows + gq - I if gq >= I - mp.D else mp.D)
             row = min(max(row, 0), mp.table_rows - 1)
-            acc = torch.zeros((J, K), dtype=f32, device=device)
+            acc = torch.zeros((PJ, PK), dtype=f32, device=device)
             for idx, d in enumerate(mp.offsets):
-                if 0 <= q + d < I:
+                if 0 <= gq + d < I:
                     acc = acc + transformed(mp.field, q + d, mp.lkey,
                                             mp.rkey) * f32c(tab[row, idx])
             return acc
@@ -1373,7 +1520,7 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
         for grp in mp.groups:
             p = None if grp.oi is None else q + grp.oi
             if p is not None and not inside(p):
-                parts = f32c(grp.bc_value * grp.weight_sum).expand(J, K)
+                parts = f32c(grp.bc_value * grp.weight_sum).expand(PJ, PK)
             else:
                 parts = None
                 for term in grp.terms:
@@ -1407,7 +1554,7 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                     mask = or_mask(mask, (kk + ok < 0) | (kk + ok >= K))
                 val = torch.roll(plane(field, q + oi), (-oj, -ok), (0, 1))
             return bc_select(bc, dt, mask, val, lambda: plane(field, q)), dt
-        return eval_kernel_statements(kspec, read, (J, K), device)
+        return eval_kernel_statements(kspec, read, (PJ, PK), device)
 
     for t in range(plan.steps()):
         for s in plan.analysis.graph.kernel_order:
@@ -1421,7 +1568,7 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                 planes.setdefault(s, {})[q] = val.contiguous()
                 planes[s].pop(q - plan.ring[s], None)
             if s in outs and h <= q < h + Ic:
-                outs[s][q - h] = val
+                outs[s][q - h] = val[XJ:XJ + BJ, XK:XK + BK]
         # drop transformed planes no reader can reach any more
         for key in [k for k in tcache if k[1] is not None
                     and k[1] < t - plan.lag[k[0][0]]
@@ -1443,26 +1590,30 @@ def build_stream(plan: StreamPlan):
                               "local_stream" if plan.block else "stream")
 
 
-def _pool_tensors(plan: StreamPlan, device) -> List[torch.Tensor]:
-    """The kernel's device tables, then its spill buffer (one per plan
-    and device: launches on one stream reuse it in turn).  The compile
-    entry points fill it for their device, so that no launch copies from
-    the host (a copy a CUDA graph capture refuses)."""
+def _pool_tensors(plan: StreamPlan, device, inst: Tuple[int, int] = (0, 0)
+                  ) -> List[torch.Tensor]:
+    """The kernel's device tables, then its spill buffer (one per plan,
+    device and shard instance: launches on one stream reuse it in turn).
+    The compile entry points fill it for their device, so that no launch
+    copies from the host (a copy a CUDA graph capture refuses)."""
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if device not in plan.device_pool:
-        plan.device_pool[device] = [
+    key = device if plan.contexts is None else (device, inst)
+    if key not in plan.device_pool:
+        plan.device_pool[key] = [
             torch.as_tensor(a).to(device).contiguous()
-            for _k, a in plan.kernel_pool()]
+            for _k, a in plan.kernel_pool(inst)]
         if plan.spilled:
-            plan.device_pool[device].append(torch.empty(
+            plan.device_pool[key].append(torch.empty(
                 plan.spill_bytes(), dtype=torch.uint8, device=device))
-    return plan.device_pool[device]
+    return plan.device_pool[key]
 
 
 def _count(plan: StreamPlan, launched: int) -> None:
-    global launches, local_launches, spill_launches
-    if plan.packed:
+    global launches, local_launches, spill_launches, shard_launches
+    if plan.shard[0]:
+        shard_launches += launched
+    elif plan.packed:
         spill_launches += launched
     elif plan.block:
         local_launches += launched
@@ -1486,34 +1637,44 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
 
 
 def local_stream_plain(plan: StreamPlan, origin_i: int,
-                       slabs: Dict[str, torch.Tensor]
+                       slabs: Dict[str, torch.Tensor], origin_j: int = 0,
+                       origin_k: int = 0, inst: Tuple[int, int] = (0, 0)
                        ) -> Dict[str, torch.Tensor]:
     """K4's plain version: ``stream_plain`` of a local plan on one
-    chunk's slabs, local plane 0 at global plane ``origin_i``."""
-    return stream_plain(plan, slabs, origin_i)
+    chunk's slabs, local plane 0 at global plane ``origin_i`` (in shard
+    mode: the shard's core at global (``origin_j``, ``origin_k``), pool
+    instance ``inst``)."""
+    return stream_plain(plan, slabs, origin_i, origin_j, origin_k, inst)
 
 
 def _local_dims(plan: StreamPlan):
-    _, J, K = plan.program.dimensions
-    return (plan.extent(), J, K), (plan.block, J, K)
+    return (plan.extent(),) + plan.plane(), (plan.block,) + plan.core()
 
 
 def run_local_stream(plan: StreamPlan, origin_i: int,
-                     slabs: Dict[str, torch.Tensor], lib=None):
+                     slabs: Dict[str, torch.Tensor], lib=None,
+                     origin_j: int = 0, origin_k: int = 0,
+                     inst: Tuple[int, int] = (0, 0)):
     """K4 on one chunk: ``slabs`` holds the i-spanning inputs at the
     plan's extent (Ic + 2h planes, zero outside the domain), the other
     inputs whole, scalars 0-d; ``origin_i`` is the global index of the
     slabs' first plane.  Returns the (Ic, J, K) core planes of every
-    output.  ``lib`` is the built kernel (``build_stream``)."""
+    output.  ``lib`` is the built kernel (``build_stream``).  In shard
+    mode the slabs span the shard's widened (j, k) plane (zero outside
+    the domain), the shard's core starts at global (``origin_j``,
+    ``origin_k``), ``inst`` is its pool instance, and the outputs are
+    the (Ic, Bj, Bk) core (``sf_shard_launch``)."""
     if not plan.block:
         raise ValueError("run_local_stream takes a local plan (plan_local)")
     in_dims, out_dims = _local_dims(plan)
     outs, launched = run_kernel(
         plan.program, slabs,
         lambda: lib if lib is not None else build_stream(plan),
-        lambda: stream_plain(plan, slabs, origin_i),
-        extra=lambda device: _pool_tensors(plan, device),
-        in_dims=in_dims, out_dims=out_dims, origin_i=origin_i)
+        lambda: stream_plain(plan, slabs, origin_i, origin_j, origin_k,
+                             inst),
+        extra=lambda device: _pool_tensors(plan, device, inst),
+        in_dims=in_dims, out_dims=out_dims, origin_i=origin_i,
+        origin_jk=(origin_j, origin_k) if plan.shard[0] else None)
     _count(plan, launched)
     return outs
 

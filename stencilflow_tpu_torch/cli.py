@@ -1,5 +1,6 @@
 """Command-line interface of the port: the ``run``, ``simulate``,
-``report``, ``iterate``, ``solve`` and ``adjoint`` subcommands.
+``report``, ``iterate``, ``solve``, ``adjoint`` and ``run-distributed``
+subcommands.
 
     python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] --device cuda
     python -m stencilflow_tpu_torch.cli simulate <prog.json> [--no-native] [--trace CSV] [--trace-chrome JSON] [--output-dir D]
@@ -7,6 +8,7 @@
     python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
     python -m stencilflow_tpu_torch.cli solve <prog.json> --rhs random:0,1 [--method cg|cgnr] [--tol T] [--device cuda]
     python -m stencilflow_tpu_torch.cli adjoint <prog.json> [-o adj.json] [--wrt a,b]
+    python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --devices N [--dim-axes none,x,y] [--force-host-devices] --compare-to-reference
 
 Port of the same subcommands of ``stencilflow_tpu/cli.py``: the JAX
 package's own usage parses here too and prints the same lines.  Its
@@ -32,8 +34,15 @@ NOT_PORTED = {
     "--backend autotuned": "Queue 1 item 7 (M14, autotune)",
     "--plot": "Queue 1 item 10 (M15; the card's machine has no "
               "matplotlib)",
-    "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model with the "
-              "sharded engine)",
+    "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model on an NVLink "
+              "model)",
+    "--comm-overlap": "Queue 1 item 8 (M12, the comm/compute overlap)",
+    "--coordinator": "Queue 1 item 8 (M12, multi-host over "
+                     "torch.distributed)",
+    "--parallel-mode pipeline": "Queue 1 item 9 (M13b, the pipeline "
+                                "split across devices)",
+    "--split-at/--cut/--optimize-cuts/--pipeline-domain":
+        "Queue 1 item 9 (M13b, the pipeline split across devices)",
     "--checkpoint-format orbax": "Queue 1 item 8 (M12, the sharded "
                                  "engine's asynchronous checkpoints; the "
                                  "card's machine has no orbax)",
@@ -252,6 +261,91 @@ def _cmd_adjoint(args) -> int:
     return 0
 
 
+def _make_mesh_2d(devices, n):
+    """Near-square 2-D ('x', 'y') mesh over n devices."""
+    import numpy as np
+    from .parallel.mesh import Mesh
+    a = int(np.floor(np.sqrt(n)))
+    while n % a:
+        a -= 1
+    arr = np.empty(n, dtype=object)
+    arr[:] = list(devices)
+    return Mesh(arr.reshape(a, n // a), ("x", "y"))
+
+
+def _parse_axes(text: str):
+    """'none,x,y' -> (None, 'x', 'y'); exactly one entry per padded dim.
+    Returns None (and prints to stderr) on malformed input."""
+    axes = tuple(None if t.strip().lower() in ("none", "-") else t.strip()
+                 for t in text.split(","))
+    if len(axes) != 3:
+        print(f"axis list needs 3 entries (i,j,k), got {len(axes)}",
+              file=sys.stderr)
+        return None
+    return axes
+
+
+def _cmd_run_distributed(args) -> int:
+    """Domain decomposition over ``--devices`` devices in one process: the
+    CUDA devices, or with ``--force-host-devices`` that many virtual CPU
+    shards (the reference's meaning)."""
+    import numpy as np
+    import torch
+
+    from .data import arrays_are_equal, load_input_arrays
+    from .frontend.parser import parse_program
+    from .interpreter import run_interpreter
+    from .parallel.domain import run_sharded_chain
+
+    if args.coordinator is not None or args.num_hosts is not None or \
+            args.host_id is not None:
+        return _refuse("--coordinator")
+    if args.parallel_mode == "pipeline":
+        return _refuse("--parallel-mode pipeline")
+    if args.split_at or args.cut or args.optimize_cuts or \
+            args.pipeline_domain:
+        return _refuse("--split-at/--cut/--optimize-cuts/--pipeline-domain")
+    if args.comm_overlap:
+        return _refuse("--comm-overlap")
+    program = parse_program(args.stencil_file)
+    inputs = load_input_arrays(program, prefix=args.input_directory,
+                               seed=args.seed)
+    if args.force_host_devices:
+        devices = [torch.device("cpu")] * args.devices
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())][:args.devices]
+    if len(devices) < args.devices:
+        print(f"only {len(devices)} devices available", file=sys.stderr)
+        return 2
+    mesh = _make_mesh_2d(devices, args.devices)
+    if args.dim_axes:
+        axes = _parse_axes(args.dim_axes)
+        if axes is None:
+            return 2
+        bad = [a for a in axes if a and a not in mesh.shape]
+        if bad:
+            print(f"unknown mesh axis {bad} (mesh has "
+                  f"{list(mesh.shape)})", file=sys.stderr)
+            return 2
+    else:
+        axes = (None, "x", "y")
+    outputs = run_sharded_chain(program, mesh, axes, inputs)
+    print(f"ran {args.parallel_mode} over {args.devices} devices "
+          f"(mesh {dict(mesh.shape)})")
+
+    if args.compare_to_reference:
+        ref = run_interpreter(program, inputs)
+        ok = True
+        for o in program.outputs:
+            if not arrays_are_equal(np.asarray(ref[o]), outputs[o]):
+                print(f"MISMATCH on {o}", file=sys.stderr)
+                ok = False
+        print("verified against reference: " + ("OK" if ok else "FAIL"))
+        return 0 if ok else 1
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from .driver import BACKEND_ALIASES, BACKENDS
     ap = argparse.ArgumentParser(prog="stencilflow_tpu_torch")
@@ -408,6 +502,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wrt", help="comma-separated input names "
                                  "(default: all floating field inputs)")
     p.set_defaults(fn=_cmd_adjoint)
+
+    p = sub.add_parser("run-distributed",
+                       help="multi-device run (domain decomposition)")
+    p.add_argument("stencil_file")
+    p.add_argument("--devices", type=int, default=2)
+    p.add_argument("--parallel-mode", default="domain",
+                   choices=["domain", "pipeline"],
+                   help="pipeline is not ported yet (exits with rc 2)")
+    p.add_argument("--num-chunks", type=int, default=None,
+                   help="pipeline mode's microbatches (domain mode "
+                        "ignores it, as the JAX package does)")
+    for flag in ("--split-at", "--cut", "--pipeline-domain"):
+        p.add_argument(flag, default=None,
+                       help="pipeline mode: not ported yet (rc 2)")
+    p.add_argument("--optimize-cuts", action="store_true",
+                   help="pipeline mode: not ported yet (rc 2)")
+    p.add_argument("--dim-axes", default=None,
+                   help="domain mode: mesh axis per padded dim (i,j,k), "
+                        "e.g. 'x,y,none' to shard (i, j); default "
+                        "'none,x,y'")
+    p.add_argument("--compare-to-reference", action="store_true")
+    p.add_argument("--input-directory")
+    p.add_argument("--force-host-devices", action="store_true",
+                   help="simulate the mesh with virtual CPU devices")
+    p.add_argument("--seed", type=int, default=0)
+    for flag in ("--coordinator", "--num-hosts", "--host-id"):
+        p.add_argument(flag, default=None,
+                       help="multi-host: not ported yet (rc 2)")
+    p.add_argument("--comm-overlap", action="store_true",
+                   help="domain mode: not ported yet (rc 2)")
+    p.set_defaults(fn=_cmd_run_distributed)
     return ap
 
 

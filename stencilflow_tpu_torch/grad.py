@@ -17,8 +17,15 @@ Port of ``stencilflow_tpu/grad.py``:
   loss cotangent is autograd over the outputs only.  ``host_chunks`` > 1
   runs both passes out of core (``outofcore.py``).
 
-``mesh``/``dim_axes`` (the sharded engine) are not ported: they raise,
-naming ROADMAP Queue 1 item 8 (M12).
+Multi-device: ``mesh`` + ``dim_axes`` run the chain through the sharded
+engine (``parallel/domain.py compile_sharded_chain``).  ``value_and_grad``
+takes its dense tile body (as the reference takes ``local_backend="xla"``)
+and torch autograd differentiates the halo exchange's slab copies, so
+the gradient of a sharded forward needs no adjoint exchange of its own;
+``fast_value_and_grad`` runs the forward and the adjoint program both
+sharded (K4 per shard on CUDA shards).  Outputs are gathered for the
+loss on the mesh's first device; the gradients are global tensors
+there.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from . import ir
 from .backend.stacked_io import resolve_device
 from .dtypes import is_floating
 from .frontend.analysis import ChainAnalysis
-from .iterate import NOT_PORTED_M12
+from .iterate import MESH_NEEDS_AXES
 
 
 def _default_wrt(program: ir.Program):
@@ -65,12 +72,21 @@ def value_and_grad(program: ir.Program,
     floating-point input).  ``grads`` is a dict of tensors over ``wrt``.
     Where an input requires grad, the value and the grads keep their
     graph (``create_graph``): the returned function differentiates again.
+
+    ``mesh`` + ``dim_axes``: the forward is the sharded engine's dense
+    tile body on the mesh (``device`` unused); the decomposition plan is
+    ``f.plan``.
     """
-    if mesh is not None or dim_axes is not None:
-        raise ValueError(f"mesh {NOT_PORTED_M12}")
-    from .backend.dense import compile_chain
-    device = resolve_device(device)
-    fn = compile_chain(program, analysis)
+    plan = None
+    if mesh is not None:
+        if dim_axes is None:
+            raise ValueError(MESH_NEEDS_AXES)
+        fn, plan = _sharded(program, mesh, dim_axes, analysis, "xla")
+        device = _gather_device(mesh)
+    else:
+        from .backend.dense import compile_chain
+        device = resolve_device(device)
+        fn = compile_chain(program, analysis)
     wrt = list(_default_wrt(program) if wrt is None else wrt)
     unknown = [n for n in wrt if n not in program.inputs]
     if unknown:
@@ -92,8 +108,30 @@ def value_and_grad(program: ir.Program,
                  for n, g in zip(wrt, grads)}
         return (val if higher else val.detach()), grads
 
-    f.plan = None
+    f.plan = plan
     return f
+
+
+def _gather_device(mesh) -> torch.device:
+    """Where sharded outputs are gathered for the loss: the mesh's first
+    device."""
+    return mesh.devices.flat[0]
+
+
+def _sharded(program, mesh, dim_axes, analysis=None, local_backend="auto"):
+    """``(fn, plan)``: the sharded chain with its outputs gathered to
+    global tensors on the mesh's first device (differentiable: the
+    gathers and the exchange are copies autograd follows)."""
+    from .parallel.domain import compile_sharded_chain
+    sfn, plan = compile_sharded_chain(program, mesh, dim_axes, analysis,
+                                      local_backend=local_backend)
+    device = _gather_device(mesh)
+
+    def fn(inputs):
+        return {o: v.gather(device) for o, v in sfn(inputs).items()}
+
+    fn.last_config = sfn.last_config
+    return fn, plan
 
 
 def grad(program: ir.Program, **kw) -> Callable:
@@ -140,19 +178,34 @@ def fast_value_and_grad(program: ir.Program,
     i-chunked sweeps (outofcore.py) over host arrays.  The loss must be
     ADDITIVE over elements (sum, MSE, any per-element reduction): it is
     evaluated per i-chunk and summed.
+
+    ``mesh`` + ``dim_axes``: the forward and the adjoint both run through
+    the sharded engine on the mesh (``device`` unused); ``f.plan`` is the
+    forward's decomposition and ``f.lowering`` names
+    ``sharded[<local body>]`` for each pass.
     """
-    if mesh is not None or dim_axes is not None:
-        raise ValueError(f"mesh {NOT_PORTED_M12}")
-    device = resolve_device(device)
     wrt = list(_default_wrt(program) if wrt is None else wrt)
     loss = loss or _sum_loss
     adj, cot = adjoint_program(program, wrt)
+    plan = None
     if host_chunks and host_chunks > 1:
+        if mesh is not None:
+            raise ValueError("host_chunks is incompatible with mesh")
         return _fast_vag_chunked(program, adj, cot, loss, wrt,
-                                 host_chunks, device)
-    from .backend import compile_chain_best
-    fwd, fwd_name = compile_chain_best(program, device=device)
-    bwd, bwd_name = compile_chain_best(adj, device=device)
+                                 host_chunks, resolve_device(device))
+    if mesh is not None:
+        if dim_axes is None:
+            raise ValueError(MESH_NEEDS_AXES)
+        fwd, plan = _sharded(program, mesh, dim_axes)
+        bwd, _bplan = _sharded(adj, mesh, dim_axes)
+        fwd_name = f"sharded[{fwd.last_config['backend']}]"
+        bwd_name = f"sharded[{bwd.last_config['backend']}]"
+        device = _gather_device(mesh)
+    else:
+        from .backend import compile_chain_best
+        device = resolve_device(device)
+        fwd, fwd_name = compile_chain_best(program, device=device)
+        bwd, bwd_name = compile_chain_best(adj, device=device)
     extra = {n: _on_device(v, device)
              for n, v in _adjoint_extras(adj, cot).items()}
     adj_raw = tuple(adj.raw_dimensions)
@@ -186,7 +239,7 @@ def fast_value_and_grad(program: ir.Program,
                  for n, x, g in zip(wrt, xs, grads)}
         return val.detach(), grads
 
-    f.plan = None
+    f.plan = plan
     f.function = Chain
     f.lowering = {"forward": fwd_name, "adjoint": bwd_name}
     return f

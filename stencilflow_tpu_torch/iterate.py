@@ -28,9 +28,14 @@ counterpart: a graph's steps write fresh buffers of its pool.
 
 ``host_chunks`` > 1 keeps the state in host numpy arrays and streams each
 step through the device in i-chunks (``outofcore.run_chunked``, K4 on
-the card).  ``mesh``/``dim_axes`` (the sharded engine) and orbax
-checkpoints are not ported: they raise, naming ROADMAP Queue 1 item 8
-(M12).
+the card).  ``mesh``/``dim_axes`` run each step through the sharded
+engine (``parallel/domain.py compile_sharded_chain``: K4 per shard on
+CUDA shards): the state is ``parallel.mesh.ShardedArray``s laid out by
+the plan's specs, a chunk of steps is captured in one CUDA graph (the
+exchange copies and every shard's launch) when the shards share one
+device, and npz checkpoints gather the shards under the reference's
+keys.  Orbax checkpoints are not ported: they raise, naming ROADMAP
+Queue 1 item 8 (M12).
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ from .frontend.analysis import ChainAnalysis
 
 NOT_PORTED_M12 = "is not ported to stencilflow_tpu_torch yet (ROADMAP " \
                  "Queue 1 item 8, M12)"
+MESH_NEEDS_AXES = "mesh requires dim_axes, e.g. (None, 'x', 'y')"
 
 
 class IterateError(ValueError):
@@ -180,17 +186,37 @@ def make_step(program: ir.Program,
     ``host_chunks`` > 1 builds a *host-level* step: state stays in host
     numpy arrays and each step streams the domain through the device in
     i-chunks (outofcore.py); combine with ``fuse`` (via ``iterate``) to
-    amortize the host-device traffic over several time steps a pass."""
+    amortize the host-device traffic over several time steps a pass.
+
+    ``mesh`` (with ``dim_axes``) builds a sharded step on the mesh's
+    devices (``device`` is then unused): state arrays are ShardedArrays
+    and the step's lowering is ``sharded[<local body>]``."""
     feed = feed or _default_feed(program)
     _check_feed(program, feed)
-    if mesh is not None or dim_axes is not None:
-        raise IterateError(f"mesh {NOT_PORTED_M12}")
     if ring_storage != "off":
         raise IterateError("ring_storage is not ported to "
                            "stencilflow_tpu_torch yet (ROADMAP Queue 1 "
                            "item 11, bf16)")
-    device = resolve_device(device)
     analysis = analysis or ChainAnalysis.run(program)
+    if host_chunks and host_chunks > 1 and mesh is not None:
+        raise IterateError("host_chunks is incompatible with mesh")
+    if mesh is not None:
+        if dim_axes is None:
+            raise IterateError(MESH_NEEDS_AXES)
+        from .parallel.domain import compile_sharded_chain
+        fn, _plan = compile_sharded_chain(program, mesh, dim_axes, analysis)
+
+        def mesh_step(state: Dict[str, Any]) -> Dict[str, Any]:
+            out = fn(state)
+            new_state = dict(state)
+            for iname, oname in feed.items():
+                new_state[iname] = out[oname]
+            return new_state
+
+        mesh_step.backend = f"sharded[{fn.last_config['backend']}]"
+        mesh_step.plan = _plan
+        return mesh_step, feed
+    device = resolve_device(device)
     if host_chunks and host_chunks > 1:
         if backend not in ("auto", "stream", "xla", "dense"):
             raise IterateError(
@@ -293,16 +319,28 @@ class GraphLoop:
 
     def state(self) -> Dict[str, Any]:
         """The buffers as host arrays (waits for the device)."""
-        return {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
-                for k, v in self.buffers.items()}
+        return {k: _host(v) for k, v in self.buffers.items()}
 
 
-def _place(v, device: torch.device, host_mode: bool):
+def _host(v):
+    """A state value as a host array (a sharded one gathered)."""
+    from .parallel.mesh import ShardedArray
+    if isinstance(v, ShardedArray):
+        return v.numpy()
+    return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _place(v, device: torch.device, host_mode: bool, plan=None, name=None):
     """A state value where the loop keeps it: arrays on ``device`` (host
-    numpy arrays in host mode), scalars on the host."""
+    numpy arrays in host mode; with a decomposition ``plan``, a
+    ShardedArray laid out by the plan's spec for input ``name``),
+    scalars on the host."""
     a = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
     if a.ndim == 0 or host_mode:
         return a
+    if plan is not None:
+        from .parallel.domain import place_global_inputs
+        return place_global_inputs(plan.program, plan, {name: a})[name]
     return torch.as_tensor(a).to(device)
 
 
@@ -334,13 +372,18 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
     multiples of ``fuse``.  ``stats``, when given, receives the
     lowering (``backend``) and, on the card, the graphs captured and the
     chunks replayed.  Returns the final state as host arrays.
+
+    ``mesh`` + ``dim_axes``: every step runs through the sharded engine
+    on the mesh's devices (``make_step``); ``device`` is then unused.
     """
     if fuse < 1:
         raise IterateError(f"fuse must be >= 1, got {fuse}")
     if chunk < 1:
         raise IterateError(f"chunk must be >= 1, got {chunk}")
-    if mesh is not None or dim_axes is not None:
-        raise IterateError(f"mesh {NOT_PORTED_M12}")
+    if mesh is not None and dim_axes is None:
+        raise IterateError(MESH_NEEDS_AXES)
+    if mesh is not None and host_chunks and host_chunks > 1:
+        raise IterateError("host_chunks is incompatible with mesh")
     scale = fuse
     if scale > 1:
         if steps % scale:
@@ -363,14 +406,23 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
             raise IterateError(
                 f"unknown checkpoint_format: {checkpoint_format!r}")
 
-    device = resolve_device(device)
     analysis = ChainAnalysis.run(program)
     host_mode = bool(host_chunks and host_chunks > 1)
-    step, feed = make_step(program, feed, backend, device,
+    step, feed = make_step(program, feed, backend, device, mesh, dim_axes,
                            analysis=analysis, host_chunks=host_chunks)
+    plan = getattr(step, "plan", None)
+    if mesh is not None:
+        # the loop's device: the one every shard shares (else none: an
+        # eager loop over the mesh's devices)
+        device = mesh.one_device() or torch.device("cpu")
+    else:
+        device = resolve_device(device)
+
+    def place(k, v):
+        return _place(v, device, host_mode, plan, k)
 
     start = 0
-    state = {k: _place(v, device, host_mode) for k, v in inputs.items()}
+    state = {k: place(k, v) for k, v in inputs.items()}
     if ckpt_f > 0:
         os.makedirs(checkpoint_dir, exist_ok=True)
         latest = _latest_checkpoint(checkpoint_dir) if resume else None
@@ -387,13 +439,13 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
                     f"align with fuse={scale}")
             start = start_orig // scale
             with np.load(path) as data:
-                state = {k: _place(data[k], device, host_mode)
-                         for k in state}
+                state = {k: place(k, data[k]) for k in state}
         # checkpoints must land on chunk boundaries
         chunk = min(chunk, ckpt_f)
 
     loop = None
-    if device.type == "cuda" and not host_mode:
+    one = mesh is None or mesh.one_device() is not None
+    if device.type == "cuda" and not host_mode and one:
         loop = GraphLoop(step, state, feed, device)
 
         def run_chunk(n):
@@ -409,8 +461,7 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
                 state = step(state)
 
         def snapshot():
-            return {k: (v.cpu().numpy() if torch.is_tensor(v)
-                        else np.asarray(v)) for k, v in state.items()}
+            return {k: _host(v) for k, v in state.items()}
 
     done = start
     while done < steps_f:

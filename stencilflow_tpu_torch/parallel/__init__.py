@@ -1,2 +1,7 @@
-"""Decomposition of a domain into blocks (``domain.py``): so far the
-single-block part the out-of-core chunks use."""
+"""Multi-device parallelism: domain decomposition over a device mesh."""
+from .domain import (DomainDecomposition, compile_sharded_chain,
+                     run_sharded_chain)
+from .mesh import Mesh, ShardedArray
+
+__all__ = ["DomainDecomposition", "compile_sharded_chain",
+           "run_sharded_chain", "Mesh", "ShardedArray"]

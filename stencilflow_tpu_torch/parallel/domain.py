@@ -1,58 +1,352 @@
-"""Per-block planning of a decomposed domain: the single-block part.
+"""Domain decomposition over a device mesh with a halo exchange.
 
-Port of the pieces of ``stencilflow_tpu/parallel/domain.py`` that a block
-with no mesh needs — the ``DomainDecomposition`` carrier and the per-block
-stream chooser ``plan_local_stream`` — which the out-of-core chunks
-(``outofcore.py``) run.  The mesh, the halo exchange and the sharded
-chain (``compile_sharded_chain``) are not ported yet; they extend this
-module.
+Port of ``stencilflow_tpu/parallel/domain.py`` (less the opt-in
+comm/compute overlap).  Each mesh position owns a contiguous block of
+the (i, j, k) domain.  One halo exchange per chain evaluation: every
+sharded input receives slabs of the chain's *cumulative* halo width from
+its mesh neighbours, after which the whole kernel chain is evaluated
+locally on the widened block — one halo per input, not one per stage.
+Global boundary blocks receive zero slabs, which is safe: the local body
+masks every out-of-domain read with its boundary condition using
+*global* coordinates derived from the block's mesh position.
+
+The design is single-controller, as the reference's ``shard_map`` is:
+one process drives the whole mesh (``mesh.Mesh``), each shard a tensor
+on its mesh position's device (``mesh.ShardedArray``).  The exchange is
+slab copies between shard tensors (``copy_``; between two devices
+PyTorch orders the copy after both devices' pending work with events),
+dim by dim, so corner slabs come from diagonal neighbours as the
+reference's sequence of ``ppermute``s gives them.  A mesh may repeat a
+device: virtual shards on one GPU run the same launches, one after
+another on its stream.
+
+The local body is K4 in shard mode on CUDA shards (the stream kernel,
+``backend/stream.py`` local mode with a 3-D origin: ``sf_shard_launch``
+takes the shard's (i, j, k) origin, inputs arrive widened by the
+exchanged halo, every BC mask and band edge is taken at the global
+coordinate, and banded stages read this shard's slice of the
+origin-aware band matrices and correction planes), and the dense tile
+body (``backend/tile_eval.py evaluate_chain_tile``, the reference's
+"xla" body) on CPU shards or where no stream plan fits.
+
+``plan_local_stream`` also chooses the out-of-core chunk body
+(``outofcore.py``), a block with no mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from .. import ir
+from ..backend.dense import chain_halo
+from ..backend.tile_eval import evaluate_chain_tile
 from ..frontend.analysis import ChainAnalysis
+from .mesh import Mesh, ShardedArray
 
 Vec3 = Tuple[int, int, int]
+
+NOT_PORTED_OVERLAP = ("comm_overlap is not ported to stencilflow_tpu_torch "
+                      "yet (ROADMAP Queue 1 item 8, M12)")
 
 
 @dataclasses.dataclass
 class DomainDecomposition:
-    """Static plan of one program's domain in blocks.
+    """Static plan for sharding one program's domain over a mesh.
 
-    ``dim_axes[d]`` is the mesh axis dim ``d`` is split over (None: the
-    block spans it whole).  ``halo`` is the effective i/j/k halo each
-    block carries, ``block`` a block's core extents.  Without a mesh
-    (``mesh=None``, all axes None) it describes the one block of an
+    ``dim_axes[d]`` is the mesh axis name dim ``d`` is sharded over (None =
+    replicated).  Dims must divide evenly by the axis size and each local
+    block must be wider than the halo (single-hop exchange).  Without a
+    mesh (``mesh=None``, all axes None) it describes the one block of an
     out-of-core chunk, whose i-halo arrives with the host slab."""
     program: ir.Program
-    mesh: object
+    mesh: Optional[Mesh]
     dim_axes: Tuple[Optional[str], Optional[str], Optional[str]]
-    halo: Vec3
+    halo: Vec3          # effective halo: chain halo in sharded dims, else 0
     block: Vec3
+
+    @classmethod
+    def plan(cls, program: ir.Program, mesh: Mesh,
+             dim_axes: Sequence[Optional[str]],
+             analysis: Optional[ChainAnalysis] = None
+             ) -> "DomainDecomposition":
+        analysis = analysis or ChainAnalysis.run(program)
+        full_halo = chain_halo(analysis)
+        dims = program.dimensions
+        if dim_axes is None:
+            raise ValueError(
+                "dim_axes is required, e.g. (None, 'x', 'y') to shard "
+                "(j, k) over a 2-D mesh")
+        dim_axes = tuple(dim_axes)
+        block = []
+        halo = []
+        for d in range(3):
+            ax = dim_axes[d]
+            if ax is not None and ax not in mesh.shape:
+                raise ValueError(f"unknown mesh axis {ax!r} (mesh has "
+                                 f"{list(mesh.shape)})")
+            n = mesh.shape[ax] if ax is not None else 1
+            if dims[d] % n != 0:
+                raise ValueError(
+                    f"dim {d} ({dims[d]}) not divisible by mesh axis "
+                    f"'{ax}' size {n}")
+            b = dims[d] // n
+            # unsharded dims span the whole domain locally: offset reads
+            # land on globally-OOB cells which every BC mask corrects, so
+            # no widening is needed there
+            h = full_halo[d] if (ax is not None and n > 1) else 0
+            if h >= b > 0 and h > 0:
+                raise ValueError(
+                    f"halo {h} >= local block {b} in dim {d}; "
+                    "use fewer shards or a shallower chain")
+            block.append(b)
+            halo.append(h)
+        return cls(program, mesh, dim_axes, tuple(halo), tuple(block))
+
+    # -- shardings -----------------------------------------------------------
+    def spec_for_input(self, name: str) -> Tuple[Optional[str], ...]:
+        """The input's PartitionSpec: a mesh axis per spanned dim."""
+        spec = self.program.inputs[name]
+        if spec.is_scalar:
+            return ()
+        return tuple(self.dim_axes[d] for d in range(3) if spec.dim_mask[d])
+
+    def spec_for_output(self) -> Tuple[Optional[str], ...]:
+        raw = self.program.raw_dimensions
+        # outputs are produced at raw (unpadded) rank; padded leading dims
+        # of size 1 are dropped, so map the trailing raw dims
+        return tuple(self.dim_axes[d] for d in range(3 - len(raw), 3))
+
+    def input_shardings(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        return {n: self.spec_for_input(n) for n in self.program.inputs}
+
+    # -- per shard -----------------------------------------------------------
+    def block_origin(self, coord) -> Vec3:
+        """Global element offset of ``coord``'s (unwidened) block."""
+        return tuple(self.mesh.index(coord, self.dim_axes[d]) * self.block[d]
+                     for d in range(3))
+
+    def instance(self, coord) -> Tuple[int, int]:
+        """``coord``'s (j, k) shard instance: its slice of the stacked
+        band matrices and correction planes."""
+        return (self.mesh.index(coord, self.dim_axes[1]),
+                self.mesh.index(coord, self.dim_axes[2]))
+
+    def local_raw(self) -> Tuple[int, ...]:
+        raw = self.program.raw_dimensions
+        return tuple(self.block[3 - len(raw) + i] for i in range(len(raw)))
+
+
+def _exchange_halo(arr: ShardedArray, local_dims: Sequence[int],
+                   plan: DomainDecomposition) -> Dict[Any, torch.Tensor]:
+    """Widen every shard of ``arr`` by the halo in every spanned dim
+    (``local_dims``: the global dims its array dims span, in order),
+    with its neighbours' slabs (zeros at global boundaries).  Dims are
+    widened one after another, each slab spanning the dims widened
+    before it, so corners come from diagonal neighbours.  Returns the
+    widened tensor of every mesh position."""
+    mesh = plan.mesh
+    out = {}
+    for c, t in arr.shards.items():
+        shape = tuple(t.shape[p] + 2 * plan.halo[d]
+                      for p, d in enumerate(local_dims))
+        if shape == tuple(t.shape):
+            out[c] = t
+            continue
+        w = torch.empty(shape, dtype=t.dtype, device=t.device)
+        w[tuple(slice(plan.halo[d], plan.halo[d] + t.shape[p])
+                for p, d in enumerate(local_dims))].copy_(t)
+        out[c] = w
+    for pos, d in enumerate(local_dims):
+        h = plan.halo[d]
+        ax = plan.dim_axes[d]
+        if h == 0:
+            continue
+        n = mesh.shape[ax]
+        B = plan.block[d]
+        axis = mesh.axis_names.index(ax)
+
+        def region(c, lo, hi):
+            """Slab [lo, hi) of dim ``pos``: dims widened before it whole,
+            the ones after it at their core."""
+            idx = []
+            for p, dd in enumerate(local_dims):
+                if p == pos:
+                    idx.append(slice(lo, hi))
+                elif p < pos or plan.halo[dd] == 0:
+                    idx.append(slice(None))
+                else:
+                    hh = plan.halo[dd]
+                    idx.append(slice(hh, hh + plan.block[dd]))
+            return out[c][tuple(idx)]
+
+        for c in out:
+            i = c[axis]
+            left = c[:axis] + (i - 1,) + c[axis + 1:]
+            right = c[:axis] + (i + 1,) + c[axis + 1:]
+            # my left halo is my left neighbour's high core slab
+            if i > 0:
+                region(c, 0, h).copy_(region(left, B, B + h),
+                                      non_blocking=True)
+            else:
+                region(c, 0, h).zero_()
+            # my right halo is my right neighbour's low core slab
+            if i < n - 1:
+                region(c, h + B, 2 * h + B).copy_(region(right, h, 2 * h),
+                                                  non_blocking=True)
+            else:
+                region(c, h + B, 2 * h + B).zero_()
+    return out
+
+
+def exchange_bytes(plan: DomainDecomposition) -> Tuple[int, int]:
+    """(bytes read, bytes written) of one exchange over the mesh: every
+    widened shard written once, its core and its neighbours' slabs read
+    (the global-edge slabs are zero-filled, not read)."""
+    program, mesh = plan.program, plan.mesh
+    read = written = 0
+    for name, spec in program.inputs.items():
+        if spec.is_scalar:
+            continue
+        dims = [d for d in range(3) if spec.dim_mask[d]]
+        if not any(plan.halo[d] for d in dims):
+            continue
+        size = np.dtype(spec.dtype).itemsize
+        core = int(np.prod([plan.block[d] for d in dims]))
+        wide = int(np.prod([plan.block[d] + 2 * plan.halo[d] for d in dims]))
+        read += mesh.size * core * size
+        written += mesh.size * wide * size
+        for pos, d in enumerate(dims):
+            h = plan.halo[d]
+            if not h:
+                continue
+            n = mesh.shape[plan.dim_axes[d]]
+            slab = h * int(np.prod([
+                (plan.block[dd] + 2 * plan.halo[dd]) if p < pos
+                else plan.block[dd]
+                for p, dd in enumerate(dims) if dd != d]))
+            read += 2 * (n - 1) * (mesh.size // n) * slab * size
+    return read, written
+
+
+def _widen_and_origin(plan: DomainDecomposition,
+                      inputs: Dict[str, ShardedArray]):
+    """The exchange: every array input widened on every shard (scalars
+    pass through).  Returns {coord: {name: tensor}}."""
+    program = plan.program
+    per: Dict[Any, Dict[str, Any]] = {c: {} for c in plan.mesh.coords()}
+    for name, spec in program.inputs.items():
+        arr = inputs[name]
+        if spec.is_scalar:
+            for c in per:
+                per[c][name] = arr
+            continue
+        spanned = [d for d in range(3) if spec.dim_mask[d]]
+        for c, t in _exchange_halo(arr, spanned, plan).items():
+            per[c][name] = t
+    return per
+
+
+def _local_forward(plan: DomainDecomposition, graph, coord,
+                   tiles: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The dense tile body on one shard's widened block."""
+    program = plan.program
+    halo = plan.halo
+    results = evaluate_chain_tile(program, graph, tiles,
+                                  plan.block_origin(coord), halo)
+    core = tuple(slice(halo[d], halo[d] + plan.block[d]) for d in range(3))
+    return {n: arr[core].reshape(plan.local_raw())
+            for n, arr in results.items()}
+
+
+def _local_forward_stream(plan: DomainDecomposition, kern, coord,
+                          tiles: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """K4 on one shard: origin i shifted back by the i-halo (local plane
+    g is global i = origin + g), (j, k) at the core's origin, and this
+    shard's instance of the pool."""
+    oi, oj, ok = plan.block_origin(coord)
+    outs = kern(oi - plan.halo[0], tiles, oj, ok, plan.instance(coord))
+    return {n: arr.reshape(plan.local_raw()) for n, arr in outs.items()}
+
+
+def _shard_contexts(plan: DomainDecomposition):
+    """The j and k contexts of the origin-aware band matrices: the global
+    coordinate of every shard instance's widened plane's row / col 0;
+    None when the shard plane is the global (j, k) plane (i-only
+    sharding)."""
+    mesh = plan.mesh
+    ax_j, ax_k = plan.dim_axes[1], plan.dim_axes[2]
+    n_j = mesh.shape[ax_j] if ax_j is not None else 1
+    n_k = mesh.shape[ax_k] if ax_k is not None else 1
+    Bj, Bk = plan.block[1], plan.block[2]
+    hjp, hkp = plan.halo[1], plan.halo[2]
+    if n_j == 1 and n_k == 1 and hjp == 0 and hkp == 0:
+        return None
+    return ([s * Bj - hjp for s in range(n_j)],
+            [s * Bk - hkp for s in range(n_k)])
+
+
+def _sharded_mxu_assets(splan, plan: DomainDecomposition):
+    """The stacked band-matrix assets of a shard plan, as the reference
+    lays them over the mesh: ``(global_arrays, pspecs, local_shapes,
+    resident_bytes)`` — L stacks over the j instances (sharded over the
+    j axis), R over the k ones, correction planes over their j-major
+    cross product (both axes), the rest replicated; or None when no
+    stage is banded.  Each shard's kernel reads its instance's slice
+    (``StreamPlan.kernel_pool(inst)``, passed per launch)."""
+    from ..backend.linear import is_stacked_key
+    if not splan.mxu_plans:
+        return None
+    ax_j, ax_k = plan.dim_axes[1], plan.dim_axes[2]
+    n_j, n_k = splan.instances()
+    global_arrays: Dict[str, np.ndarray] = {}
+    pspecs: Dict[str, tuple] = {}
+    local_shapes: Dict[str, tuple] = {}
+    resident = 0
+    for k, a in splan.pool.items():
+        if is_stacked_key(k):
+            if k.startswith("Ls_"):
+                global_arrays[k], pspecs[k] = a, (ax_j,)
+            elif k.startswith("Rs_"):
+                global_arrays[k], pspecs[k] = a, (ax_k,)
+            else:   # corrs: (n_j*n_k, pj, pk), j-major cross product
+                global_arrays[k] = a.reshape((n_j, n_k) + a.shape[1:])
+                pspecs[k] = (ax_j, ax_k)
+            local_shapes[k] = a.shape[1:]
+            resident += int(np.prod(a.shape[1:])) * a.dtype.itemsize
+        else:
+            global_arrays[k], pspecs[k] = a, ()
+            local_shapes[k] = a.shape
+            resident += a.nbytes
+    return global_arrays, pspecs, local_shapes, resident
 
 
 def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
                       plan: DomainDecomposition, mxu: str = "auto",
                       mxu_precision: str = "split", spill: str = "auto",
-                      smem_budget: Optional[int] = None):
+                      smem_budget: Optional[int] = None, _composed=None):
     """Choose the per-block streaming kernel (K4) for a local block of
-    ``plan.block`` with i-halo ``plan.halo[0]``.
+    ``plan.block`` with halo ``plan.halo``.
 
     Candidate order, as the reference's rescue: the block with banded
-    stages (uncomposed), then every stage per cell, then (``spill="auto"``)
-    every stage per cell with rings spilled to device memory (K3c).
-    Outputs may spill here: the kernel writes core planes directly, not
-    through their ring.  The (j, k) tile is the port's own choice within
-    each candidate (the reference's j-tiles); ``smem_budget`` is the
-    shared memory a block may take (``H100_SMEM_PER_BLOCK`` by default).
-    Returns ``(stream_plan, config)``, ``config`` with the reference's
-    keys (``backend``, ``jtiles``, ``mxu_stages``, ``spilled``), or None
-    when the program is out of the kernel's scope or no candidate fits
-    (the caller then takes the dense tile body, as the reference takes
-    its fused-XLA one)."""
+    stages, then every stage per cell, then (``spill="auto"``) every
+    stage per cell with rings spilled to device memory (K3c).  Outputs
+    may spill here: the kernel writes core planes directly, not through
+    their ring.  The (j, k) tile is the port's own choice within each
+    candidate (it replaces the reference's j-tiles, so ``jtiles`` is 1);
+    ``smem_budget`` is the shared memory a block may take
+    (``H100_SMEM_PER_BLOCK`` by default).  With a mesh (``plan.mesh``)
+    the plan is K4's shard mode: the shard's (j, k) core, the exchanged
+    halo and the origin-aware band contexts (``_shard_contexts``).  A
+    composed program (``_composed``: its segments) takes the banded leg
+    only and raises ValueError where that fails.  Returns
+    ``(stream_plan, config)``, ``config`` with the reference's keys
+    (``backend``, ``jtiles``, ``mxu_stages``, ``spilled``), or None when
+    the program is out of the kernel's scope or no candidate fits (the
+    caller then takes the dense tile body, as the reference takes its
+    fused-XLA one)."""
     from ..config import H100_SMEM_PER_BLOCK
     from ..backend.stream import check_options, check_spill, plan_local
     check_options(mxu, mxu_precision)   # raised, never re-routed
@@ -62,17 +356,228 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
     legs += [("off", "off")] + ([("off", spill)] if spill != "off" else [])
     if spill == "all":   # the spill rung alone
         legs = [("off", "all")]
+    if _composed:
+        legs = [("auto", "off")]
+    shard = {}
+    if plan.mesh is not None:
+        shard = dict(shard=plan.block[1:], xhalo=plan.halo[1:],
+                     contexts=_shard_contexts(plan))
     for leg, leg_spill in legs:
         try:
             splan = plan_local(program, analysis, plan.block[0],
                                plan.halo[0], mxu=leg,
                                mxu_precision=mxu_precision,
-                               smem_budget=budget, spill=leg_spill)
+                               smem_budget=budget, spill=leg_spill,
+                               builds=_composed, **shard)
         except (ValueError, NotImplementedError):
+            if _composed:
+                raise ValueError("composed segments not plannable on this "
+                                 "decomposition")
             continue
         if leg == "auto" and not splan.mxu_plans:
             continue   # no banded stage: the same as the per-cell leg
         return splan, {"backend": "stream", "jtiles": 1,
                        "mxu_stages": sorted(splan.mxu_plans),
                        "spilled": sorted(splan.spilled)}
+    if _composed:
+        raise ValueError("composed segments not plannable on this "
+                         "decomposition")
     return None
+
+
+def _as_sharded(plan: DomainDecomposition, name: str, v) -> Any:
+    """An input as the local bodies take it: a ShardedArray laid out by
+    the plan's spec (placed now when given as a global array), scalars
+    as 0-d host tensors."""
+    spec = plan.program.inputs[name]
+    if spec.is_scalar:
+        return v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+    if isinstance(v, ShardedArray):
+        if v.mesh is plan.mesh and v.spec == plan.spec_for_input(name):
+            return v
+        v = v.gather()
+    return ShardedArray.place(plan.mesh, plan.spec_for_input(name),
+                              _spanned(plan.program, name, v))
+
+
+def _spanned(program: ir.Program, name: str, v):
+    """An input value at its spanned shape."""
+    spec = program.inputs[name]
+    shape = tuple(program.dimensions[d] for d in range(3)
+                  if spec.dim_mask[d])
+    t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+    return t.reshape(shape)
+
+
+def plan_sharded_chain(program: ir.Program, mesh: Mesh,
+                       dim_axes: Sequence[Optional[str]],
+                       analysis: Optional[ChainAnalysis] = None,
+                       local_backend: str = "auto", mxu: str = "auto",
+                       mxu_precision: str = "split", spill: str = "auto",
+                       smem_budget: Optional[int] = None,
+                       compose: str = "auto"):
+    """``compile_sharded_chain``'s planning, nothing built: ``(program,
+    analysis, plan, stream_plan, config)`` — the program the shards run
+    (composed where that plans), its decomposition, K4's shard plan (None
+    for the dense tile body) and ``last_config``'s keys.
+
+    Affine-run composition on the sharded path: the composed i-table is
+    indexed by the GLOBAL plane (the kernel globalizes via origin_i + q,
+    so i-sharded decompositions compose too); per-shard j/k windows come
+    from plan_composed's origin contexts.  Any planning failure of the
+    composed program falls back to the uncomposed one."""
+    analysis = analysis or ChainAnalysis.run(program)
+    on_cuda = {d.type for d in mesh.devices.flat} == {"cuda"}
+    if local_backend == "auto":
+        local_backend = "stream" if on_cuda else "xla"
+    if local_backend not in ("stream", "xla"):
+        raise ValueError(f"unknown local_backend {local_backend!r} "
+                         "(choose from auto, stream, xla)")
+    plan = DomainDecomposition.plan(program, mesh, dim_axes, analysis)
+    if compose != "off" and mxu != "off" and local_backend == "stream":
+        from ..backend.compose import compose_program
+        max_t = int(compose) if compose not in ("auto",) else 0
+        got = (compose_program(program, analysis, max_t)
+               if max_t >= 0 else None)
+        if got is not None:
+            program2, builds = got
+            try:
+                analysis2 = ChainAnalysis.run(program2)
+                plan2 = DomainDecomposition.plan(program2, mesh, dim_axes,
+                                                 analysis2)
+                splan, cfg = plan_local_stream(
+                    program2, analysis2, plan2, mxu=mxu,
+                    mxu_precision=mxu_precision, spill=spill,
+                    smem_budget=smem_budget, _composed=builds)
+                # the caller shards inputs/outputs by the ORIGINAL
+                # program's field names; composition preserves inputs
+                # and outputs, so plan2's shardings apply directly
+                return program2, analysis2, plan2, splan, dict(
+                    cfg, comm_overlap=False, composed={
+                        name: list(b.stages) for name, b in builds.items()})
+            except (ValueError, NotImplementedError):
+                pass
+    if local_backend == "stream":
+        got = plan_local_stream(program, analysis, plan, mxu=mxu,
+                                mxu_precision=mxu_precision, spill=spill,
+                                smem_budget=smem_budget)
+        if got is not None:
+            return program, analysis, plan, got[0], dict(
+                got[1], comm_overlap=False)
+    # the dense tile body: asked for, or the rescue where nothing fits
+    return program, analysis, plan, None, {
+        "backend": "xla", "jtiles": 0, "mxu_stages": [],
+        "comm_overlap": False}
+
+
+def compile_sharded_chain(program: ir.Program, mesh: Mesh,
+                          dim_axes: Sequence[Optional[str]],
+                          analysis: Optional[ChainAnalysis] = None,
+                          local_backend: str = "auto",
+                          mxu: str = "auto",
+                          mxu_precision: str = "split",
+                          spill: str = "auto",
+                          smem_budget: Optional[int] = None,
+                          comm_overlap: bool = False,
+                          compose: str = "auto"):
+    """Build a mesh-sharded ``fn(inputs) -> outputs`` for the chain.
+
+    ``local_backend``: per-shard compute path — "stream" (K4 in shard
+    mode on CUDA shards, its plain version on CPU shards; any subset of
+    (i, j, k) may be sharded), "xla" (the dense tile body, runs
+    anywhere), or "auto" ("stream" on CUDA shards, "xla" on CPU ones).
+    "xla" is also the rescue when no stream plan fits, and
+    ``compile_sharded_chain.last_config`` (and ``fn.last_config``) says
+    so.  ``inputs`` are ShardedArrays laid out by
+    ``plan.input_shardings()`` (others are placed on entry); the outputs
+    are ShardedArrays by ``plan.spec_for_output()``.  Returns ``(fn,
+    plan)``; ``fn.exchange`` and ``fn.compute`` are its two halves
+    (placed inputs -> widened shards -> outputs) and ``fn.plan`` K4's
+    shard plan (None on the tile body).
+
+    ``mxu="auto"`` lowers wide affine stages to banded transforms inside
+    the per-shard kernel, with origin-aware per-shard band matrices and
+    correction planes; ``compose`` composes affine runs first
+    (``plan_sharded_chain``).  ``comm_overlap=True`` is not ported
+    yet."""
+    if comm_overlap:
+        raise NotImplementedError(NOT_PORTED_OVERLAP)
+    program, analysis, plan, splan, cfg = plan_sharded_chain(
+        program, mesh, dim_axes, analysis, local_backend, mxu,
+        mxu_precision, spill, smem_budget, compose)
+    graph = analysis.graph
+    compile_sharded_chain.last_config = cfg
+    if splan is not None:
+        from ..backend.stream import (_pool_tensors, build_stream,
+                                      run_local_stream)
+        on_cuda = {d.type for d in mesh.devices.flat} == {"cuda"}
+        lib = build_stream(splan) if on_cuda else None
+        # each shard's slice of the pool, on its device, now: no launch
+        # copies from the host (a copy a CUDA graph capture refuses)
+        if lib is not None:
+            for c in mesh.coords():
+                _pool_tensors(splan, mesh.device(c), plan.instance(c))
+
+        def kern(origin_i, tiles, origin_j, origin_k, inst):
+            return run_local_stream(splan, origin_i, tiles, lib, origin_j,
+                                    origin_k, inst)
+
+        def local(c, tiles):
+            return _local_forward_stream(plan, kern, c, tiles)
+    else:
+        def local(c, tiles):
+            return _local_forward(plan, graph, c, tiles)
+
+    out_spec = plan.spec_for_output()
+    out_shape = tuple(program.raw_dimensions)
+
+    def exchange(placed):
+        return _widen_and_origin(plan, placed)
+
+    def compute(per):
+        outs: Dict[str, Dict[Any, torch.Tensor]] = {
+            o: {} for o in program.outputs}
+        for c, tiles in per.items():
+            for o, v in local(c, tiles).items():
+                outs[o][c] = v
+        return {o: ShardedArray(mesh, out_spec, out_shape, shards)
+                for o, shards in outs.items()}
+
+    def fn(inputs):
+        placed = {n: _as_sharded(plan, n, inputs[n])
+                  for n in program.inputs}
+        return compute(exchange(placed))
+
+    fn.exchange, fn.compute, fn.plan = exchange, compute, splan
+    fn.last_config = dict(cfg)
+    return fn, plan
+
+
+compile_sharded_chain.last_config = {}
+
+
+def place_global_inputs(program: ir.Program,
+                        plan: DomainDecomposition,
+                        inputs: Dict[str, Any]) -> Dict[str, Any]:
+    """Commit every input as a mesh-sharded array: each mesh position
+    receives its block of the (full, replicated) host input on its
+    device; scalars stay host values."""
+    return {n: _as_sharded(plan, n, v) for n, v in inputs.items()
+            if n in program.inputs}
+
+
+def run_sharded_chain(program: ir.Program, mesh: Mesh,
+                      dim_axes: Sequence[Optional[str]],
+                      inputs: Dict[str, Any],
+                      as_numpy: bool = True,
+                      comm_overlap: bool = False,
+                      **compile_kw) -> Dict[str, Any]:
+    """One-shot sharded evaluation.  ``as_numpy=False`` returns the
+    ShardedArrays (``.gather()`` assembles one)."""
+    fn, plan = compile_sharded_chain(program, mesh, dim_axes,
+                                     comm_overlap=comm_overlap,
+                                     **compile_kw)
+    out = fn(place_global_inputs(program, plan, inputs))
+    if not as_numpy:
+        return out
+    return {k: v.numpy() for k, v in out.items()}

@@ -172,3 +172,52 @@ def test_report_verbose_and_optimize_ratio(prog, capsys):
     tail = "\n\nkernels:"
     assert got.split(tail, 1)[1] == want.split(tail, 1)[1]
     assert "memory placement at slow/fast ratio 0.5" in got
+
+
+@pytest.fixture
+def dprog(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    path = tmp_path / "dprog.json"
+    path.write_text(json.dumps(synthesize_stencil(
+        num_stages=2, dimensions=(8, 12, 16), shape="diffusion",
+        boundary="copy")))
+    return str(path)
+
+
+@pytest.mark.parametrize("axes", [None, "x,y,none", "x,none,none"])
+def test_run_distributed_on_host_devices(dprog, capsys, axes):
+    """run-distributed --force-host-devices: four virtual CPU shards on a
+    2 x 2 mesh, checked against the oracle, as the JAX package's
+    subcommand prints it."""
+    extra = ["--dim-axes", axes] if axes else []
+    argv = ["run-distributed", dprog, "--devices", "4",
+            "--force-host-devices", "--compare-to-reference"] + extra
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "ran domain over 4 devices (mesh {'x': 2, 'y': 2})" in out
+    assert "verified against reference: OK" in out
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--parallel-mode", "pipeline"], "item 9"),
+    (["--split-at", "s0"], "item 9"),
+    (["--optimize-cuts"], "item 9"),
+    (["--comm-overlap"], "item 8"),
+    (["--coordinator", "localhost:1234", "--num-hosts", "2",
+      "--host-id", "0"], "item 8")])
+def test_run_distributed_refusals(dprog, capsys, extra, item):
+    argv = ["run-distributed", dprog, "--devices", "2",
+            "--force-host-devices"] + extra
+    assert main(argv) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
+
+
+def test_run_distributed_needs_its_devices(dprog, capsys, monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert main(["run-distributed", dprog, "--devices", "4"]) == 2
+    assert "only 1 devices available" in capsys.readouterr().err
+    assert main(["run-distributed", dprog, "--devices", "4",
+                 "--force-host-devices", "--dim-axes", "x,q,none"]) == 2
+    assert "unknown mesh axis ['q']" in capsys.readouterr().err

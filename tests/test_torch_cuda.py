@@ -1206,3 +1206,105 @@ def test_cli_run_simulation_on_card(cuda, tmp_path, capsys, monkeypatch):
                  "verified against reference: OK\n",
                  "verified against simulation: OK\n"):
         assert line in out
+
+
+# -- domain decomposition: K4 per shard (virtual shards of one card) ---------
+
+def _check(got, want, rtol):
+    """Bit-exact where ``rtol`` is 0, else within it."""
+    assert np.isfinite(got).all()
+    if rtol:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def _shard_cases():
+    """(program, mesh shape, axis names, dim axes, banded)."""
+    def synth(shape, dims, iters, **kw):
+        return port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape,
+            seed_data="random:0,1", **kw))
+    jk = ((2, 2), ("x", "y"), (None, "x", "y"))
+    ijk = ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"))
+    return {
+        "jacobi-copy-ijk": (synth("diffusion", (16, 24, 40), 3,
+                                  boundary="copy"),) + ijk + (False,),
+        "jacobi-shrink-jk": (synth("diffusion", (8, 40, 72), 3,
+                                   boundary="shrink"),) + jk + (False,),
+        "hdiff-jk": (synth("hdiff", (8, 32, 48), 2),) + jk + (False,),
+        "box-bc0.7-jk": (synth("box", (8, 40, 48), 2, extent=1,
+                               boundary_value=0.7),) + jk + (True,),
+        "box-r2-composed-jk": (synth("box", (16, 64, 64), 4, extent=2),)
+        + jk + (True,),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_shard_cases()))
+def test_shard_kernel_matches_plain_on_card(name, cuda):
+    """K4 in shard mode, shard by shard on virtual shards of the card,
+    against its plain version (bit-exact per cell, MXU_VERIFY_RTOL
+    banded); every shard launches once, and the assembled result equals
+    the single-device route."""
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    p, shape, names, axes, banded = _shard_cases()[name]
+    mesh = make_mesh([cuda], shape, names)
+    fn, plan = compile_sharded_chain(p, mesh, axes)
+    assert fn.last_config["backend"] == "stream"
+    assert bool(fn.last_config["mxu_stages"]) == banded
+    inputs = port.load_input_arrays(p, seed=4)
+    placed = place_global_inputs(p, plan, inputs)
+    per = fn.exchange(placed)
+    splan = fn.plan
+    rtol = MXU_VERIFY_RTOL if banded else 0.0
+    for c, tiles in per.items():
+        oi, oj, ok = plan.block_origin(c)
+        args = (oi - plan.halo[0], tiles)
+        got = stream.run_local_stream(splan, *args, None, oj, ok,
+                                      plan.instance(c))
+        want = stream.local_stream_plain(splan, *args, oj, ok,
+                                         plan.instance(c))
+        for o in p.outputs:
+            _check(got[o].cpu().numpy(), want[o].cpu().numpy(), rtol)
+    before = stream.shard_launches
+    out = fn(placed)
+    assert stream.shard_launches - before == mesh.size
+    single, _route = compile_chain_best(p, device=cuda)
+    ref = single({n: torch.as_tensor(np.asarray(v)).to(cuda)
+                  if np.ndim(v) else v for n, v in inputs.items()})
+    for o in p.outputs:
+        _check(out[o].numpy(), ref[o].cpu().numpy(), rtol)
+
+
+@pytest.mark.cuda
+def test_sharded_iterate_and_grad_on_card(cuda):
+    """iterate(mesh=) replayed from CUDA graphs, and fast_value_and_grad
+    (mesh=), on a 2 x 2 mesh of virtual shards: equal to their
+    single-device runs."""
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh([cuda], (2, 2), ("x", "y"))
+    p = port.parse_program(synthesize_stencil(
+        num_stages=1, dimensions=(32, 48, 64), shape="diffusion",
+        seed_data="random:0,1"))
+    inputs = port.load_input_arrays(p, seed=2)
+    stats = {}
+    got = port.iterate(p, inputs, 8, fuse=4, chunk=2, mesh=mesh,
+                       dim_axes=(None, "x", "y"), stats=stats)
+    assert stats["backend"] == "sharded[stream]" and stats["captures"] >= 1
+    want = port.iterate(p, inputs, 8, fuse=4, chunk=2, device=cuda)
+    np.testing.assert_array_equal(got["a"], want["a"])
+    p3 = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(16, 32, 48), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"))
+    inputs = port.load_input_arrays(p3, seed=3)
+    f = port.fast_value_and_grad(p3, mesh=mesh, dim_axes=(None, "x", "y"))
+    assert f.lowering == {"forward": "sharded[stream]",
+                          "adjoint": "sharded[stream]"}
+    v1, g1 = f(inputs)
+    v2, g2 = port.fast_value_and_grad(p3, device=cuda)(inputs)
+    np.testing.assert_array_equal(g1["a"].cpu().numpy(),
+                                  g2["a"].cpu().numpy())

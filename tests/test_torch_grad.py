@@ -285,7 +285,7 @@ def test_fast_value_and_grad_host_chunks(boundary):
 
 
 def test_rejections():
-    """The reference's error types and messages; mesh names M12."""
+    """The reference's error types and messages."""
     a, b = _both(jacobi(3, 8, iterations=2, boundary="shrink"), "sh")
     with pytest.raises(ValueError, match="shrink"):
         port.adjoint_program(b)
@@ -296,10 +296,12 @@ def test_rejections():
     _a, b = _both(jacobi(2, 8, iterations=1), "wr")
     with pytest.raises(ValueError, match="not a program input"):
         port.adjoint_program(b, wrt=["zzz"])
-    with pytest.raises(ValueError, match="M12"):
+    with pytest.raises(ValueError, match="mesh requires dim_axes"):
         port.value_and_grad(b, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="M12"):
+    with pytest.raises(ValueError, match="mesh requires dim_axes"):
         port.fast_value_and_grad(b, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="incompatible with mesh"):
+        port.fast_value_and_grad(b, mesh=object(), host_chunks=2)
 
 
 def test_cli_adjoint(tmp_path, capsys):
@@ -318,3 +320,39 @@ def test_cli_adjoint(tmp_path, capsys):
     assert got == want.replace("ref.json", "mine.json")
     assert json.load(open(tmp_path / "mine.json")) == \
         json.load(open(tmp_path / "ref.json"))
+
+
+@pytest.mark.parametrize("boundary,shape,names,axes", [
+    ("constant", (2, 2), ("x", "y"), (None, "x", "y")),
+    ("copy", (2, 2, 2), ("x", "y", "z"), ("x", "y", "z"))])
+def test_grads_on_a_mesh(boundary, shape, names, axes):
+    """value_and_grad and fast_value_and_grad over a CPU mesh of virtual
+    shards: the fast gradient bit for bit with the single-device one,
+    the autograd one within VERIFY_RTOL of it (autograd sums the halo
+    slabs' contributions in another order), both within VERIFY_RTOL of
+    the JAX package's fast_value_and_grad(mesh=)."""
+    from jax.sharding import Mesh as JaxMesh
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    a, b = _both(jacobi(3, 8, iterations=3, boundary=boundary), "gm")
+    inputs = ref.load_input_arrays(a, seed=1)
+    mesh = make_mesh(["cpu"], shape, names)
+    v1, g1 = port.fast_value_and_grad(b, device="cpu")(inputs)
+    f = port.fast_value_and_grad(b, mesh=mesh, dim_axes=axes)
+    assert f.lowering == {"forward": "sharded[xla]",
+                          "adjoint": "sharded[xla]"}
+    assert f.plan.block == tuple(8 // n for n in (
+        [1] * (3 - len(shape)) + list(shape)))
+    v2, g2 = f(inputs)
+    assert float(v2) == float(v1)
+    np.testing.assert_array_equal(g2["a"].numpy(), g1["a"].numpy())
+    v3, g3 = port.value_and_grad(b, mesh=mesh, dim_axes=axes)(inputs)
+    np.testing.assert_allclose(float(v3), float(v1), rtol=VERIFY_RTOL)
+    np.testing.assert_allclose(g3["a"].numpy(), g1["a"].numpy(),
+                               rtol=VERIFY_RTOL, atol=1e-6)
+    n = int(np.prod(shape))
+    jmesh = JaxMesh(np.array(jax.devices()[:n]).reshape(shape), names)
+    rv, rg = ref.fast_value_and_grad(a, interpret=True, mesh=jmesh,
+                                     dim_axes=axes)(_jnp(inputs))
+    np.testing.assert_allclose(float(v2), float(rv), rtol=VERIFY_RTOL)
+    np.testing.assert_allclose(g2["a"].numpy(), np.asarray(rg["a"]),
+                               rtol=VERIFY_RTOL, atol=1e-6)

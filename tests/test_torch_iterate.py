@@ -219,8 +219,8 @@ def test_make_step_routes_and_carries():
 
 
 def test_rejections():
-    """The reference's error types and messages; mesh and orbax name
-    their ROADMAP item."""
+    """The reference's error types and messages; orbax names its
+    ROADMAP item."""
     p = port.parse_program(jacobi(2, 16, iterations=1), name="rj")
     inputs = port.load_input_arrays(p, seed=0)
     with pytest.raises(IterateError, match="chunk"):
@@ -239,8 +239,12 @@ def test_rejections():
         port.iterate(p, inputs, steps=4, checkpoint_every=2,
                      checkpoint_dir="x", checkpoint_format="orbax",
                      device="cpu")
-    with pytest.raises(IterateError, match="M12"):
+    with pytest.raises(IterateError, match="mesh requires dim_axes"):
         port.iterate(p, inputs, steps=2, mesh=object(), device="cpu")
+    with pytest.raises(IterateError, match="incompatible with mesh"):
+        port.iterate(p3, port.load_input_arrays(p3), steps=2,
+                     host_chunks=2, mesh=object(), dim_axes=("x", None,
+                                                              None))
     two = port.parse_program(ref.program_to_json(
         _load_example("wave_propagation").build_program(n=8)), name="w")
     with pytest.raises(IterateError, match="ambiguous"):
@@ -308,3 +312,41 @@ def test_solver_cells_gray_scott_is_the_example():
     assert _as_json(port.program_to_json, gray_scott(24)) == \
         _as_json(ref.program_to_json, gs.build_program(n=24))
     assert GRAY_SCOTT_FEED == {"u": "u1", "v": "v1"}
+
+
+@pytest.mark.parametrize("shape,names,axes,fuse", [
+    ((2, 2), ("x", "y"), (None, "x", "y"), 2),
+    ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"), 1)])
+def test_iterate_on_a_mesh(shape, names, axes, fuse, tmp_path):
+    """The sharded step (CPU mesh of virtual shards): bit for bit with
+    oracle stepping and the port's single-device iterate; within
+    VERIFY_RTOL of the JAX package's iterate(mesh=) on its virtual CPU
+    devices; npz checkpoints gathered under the reference's keys, and a
+    resume from them."""
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    spec = jacobi(3, 8, iterations=1, boundary="copy")
+    a, b = _both(spec, "itmesh")
+    inputs = ref.load_input_arrays(a, seed=3)
+    mesh = make_mesh(["cpu"], shape, names)
+    stats = {}
+    got = port.iterate(b, inputs, 4, fuse=fuse, mesh=mesh, dim_axes=axes,
+                       checkpoint_every=2, checkpoint_dir=str(tmp_path),
+                       stats=stats)
+    assert stats["backend"] == "sharded[xla]"
+    want = _oracle_steps(b, inputs, {"a": b.outputs[0]}, 4)
+    np.testing.assert_array_equal(got["a"], want["a"])
+    with np.load(tmp_path / "step_2.npz") as ck:
+        assert set(ck.files) == set(inputs)
+    resumed = port.iterate(b, inputs, 6, fuse=fuse, mesh=mesh,
+                           dim_axes=axes, checkpoint_every=2,
+                           checkpoint_dir=str(tmp_path))
+    np.testing.assert_array_equal(
+        resumed["a"], port.iterate(b, inputs, 6, device="cpu")["a"])
+    n = int(np.prod(shape))
+    jmesh = JaxMesh(np.array(jax.devices()[:n]).reshape(shape), names)
+    theirs = ref_iterate(a, inputs, 4, fuse=fuse, interpret=True,
+                         mesh=jmesh, dim_axes=axes)
+    np.testing.assert_allclose(got["a"], np.asarray(theirs["a"]),
+                               rtol=VERIFY_RTOL, atol=1e-6)
