@@ -178,9 +178,11 @@ Phases, one line each (any failure raises and exits non-zero):
    over 2 x 2 (composed, stacked per-shard bands), each driven once with
    the counts reset just before and read just after (K4's shard launches
    equal the shards, nothing else launched), equal to the single-device
-   route on the same inputs (box within MXU_VERIFY_RTOL), with its ms a
-   call, one shard's K4 ms, the exchange's ms and bytes and the
-   single-device route's ms; ``iterate`` on jacobi3d 256^3 over 2 x 2, 16
+   route on the same inputs (box within MXU_VERIFY_RTOL), and its last
+   shard (non-zero origins in every sharded dim) through K4 against its
+   plain version at that shape (bit-exact, box within MXU_VERIFY_RTOL),
+   with its ms a call, one shard's K4 ms and plain-version ms, the
+   exchange's ms and bytes and the single-device route's ms; ``iterate`` on jacobi3d 256^3 over 2 x 2, 16
    steps fused by 8 (CUDA-graph replays), equal to in-core ``iterate``,
    and ``fast_value_and_grad`` on jacobi3d 128^3 x 8 over 2 x 2, equal to
    the single-device gradient.
@@ -1317,10 +1319,13 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
     virtual shards of the one card: K4 per shard against its plain
     version shard by shard; each cell once with the counts reset just
     before and read just after (K4's shard launches = shards), equal to
-    the single-device route, then timed (a call, its exchange, one
-    shard's K4, the single-device route); sharded ``iterate`` and
+    the single-device route, its last shard's K4 against its plain
+    version at the main path's shape, then timed (a call, its exchange,
+    one shard's K4, the single-device route); sharded ``iterate`` and
     ``fast_value_and_grad`` against their single-device runs.  Returns
-    K4 per shard's entry of the kernels line."""
+    K4 per shard's entry of the kernels line, whose ``max_abs_err`` is
+    the largest of K4's errors against its plain version in this
+    phase."""
     import torch
     from stencilflow_tpu_torch.backend import compile_chain_best
     from stencilflow_tpu_torch.parallel import compile_sharded_chain
@@ -1347,6 +1352,7 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
                                    plan.instance(c))
 
     # K4 per shard against its plain version, shard by shard
+    k_err = 0.0
     for label, p, (shape, names, axes), rtol in kcases:
         fn, plan = compile_sharded_chain(p, mesh_of(shape, names), axes)
         if fn.plan is None:
@@ -1367,6 +1373,7 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
                     raise RuntimeError(f"sharded: K4 shard {c} of {label} "
                                        f"disagrees with its plain version "
                                        f"({o}: {err})")
+        k_err = max(k_err, worst)
         print(f"kernel: local_stream_shard {label}: {len(per)} shards "
               f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} the "
               f"plain version (max_abs_err {worst:.3g}), tile "
@@ -1420,6 +1427,27 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
             fn.plan, plan.block_origin(c)[0] - plan.halo[0], per[c], lib,
             *plan.block_origin(c)[1:], plan.instance(c)), 5)
         s_ms = _time_ms(lambda: single(dev_in), 5)
+        # the last shard (non-zero origins in every sharded dim) through
+        # K4 against its plain version at the main path's shape
+        oi, oj, ok = plan.block_origin(c)
+        got = shard_call(fn, plan, per, c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = st.local_stream_plain(fn.plan, oi - plan.halo[0], per[c], oj,
+                                     ok, plan.instance(c))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        s_err = 0.0
+        for o in p.outputs:
+            good, err = _compare(got[o].cpu().numpy(),
+                                 want[o].cpu().numpy(), rtol)
+            s_err = max(s_err, err)
+            if not good:
+                raise RuntimeError(f"sharded: K4 shard {c} of {label} "
+                                   f"disagrees with its plain version "
+                                   f"({o}: {err})")
+        k_err = max(k_err, s_err)
+        del got, want
         xr, xw = exchange_bytes(plan)
         assets = _sharded_mxu_assets(fn.plan, plan)
         pools = (f", per-shard band pool {assets[3]} B, "
@@ -1433,16 +1461,12 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
               f"{xr / 1e9:.3f} GB read + {xw / 1e9:.3f} GB written | "
               f"single-device {route} {s_ms:.3f} ms | "
               f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} it "
-              f"(max_abs_err {worst:.3g}) | K4 launches {n} | {smi}",
-              flush=True)
+              f"(max_abs_err {worst:.3g}) | K4 launches {n} | K4 shard {c} "
+              f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} its "
+              f"plain version (max_abs_err {s_err:.3g}, plain "
+              f"{plain_ms:.1f} ms) | {smi}", flush=True)
         if entry is None:
             # the kernels line's entry: one shard of the first cell
-            oi, oj, ok = plan.block_origin(c)
-            t0 = time.perf_counter()
-            st.local_stream_plain(fn.plan, oi - plan.halo[0], per[c], oj, ok,
-                                  plan.instance(c))
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
             cells_in = sum(t.numel() * t.element_size()
                            for name, t in per[c].items()
                            if not p.inputs[name].is_scalar)
@@ -1451,13 +1475,14 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
             rep = Report.build(p)
             t_bytes = (cells_in + out_bytes) / rep.hw.hbm_bandwidth * 1e3
             t_ops = rep.alu_time_s() / mesh.size * 1e3
-            bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops                 else (t_ops, "operations")
+            bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                  else (t_ops, "operations"))
             wide = tuple(b + 2 * h for b, h in zip(plan.block, plan.halo))
             lib_ms = _conv_chain_ms(p, 1, shape=wide)
             entry = {"name": "local_stream_shard", "route": "cuda",
                      "source": "stencilflow_tpu_torch/backend/codegen.py",
                      "replaces": "stencilflow_tpu/backend/stream.py:1943",
-                     "launches": 0, "max_abs_err": worst, "ms": k_ms,
+                     "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms}
             print(f"kernel: local_stream_shard {label}, shard {c} "
@@ -1467,7 +1492,7 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
                   f"the widened shard {lib_ms:.3f} ms | {smi}", flush=True)
         del placed, dev_in, per
         torch.cuda.empty_cache()
-    entry["launches"] = launches
+    entry.update(launches=launches, max_abs_err=k_err)
 
     # the solver entry points on a mesh, against their single-device runs
     shape, names, axes = solvers["mesh"]

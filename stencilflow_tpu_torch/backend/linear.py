@@ -195,10 +195,24 @@ def finalize_pool(plans: Dict[str, object], pool: MatrixPool, program,
     return pkeys, parrs, tkeys
 
 
+def stacked_axes(key: str) -> Tuple[int, ...]:
+    """The shard-instance axes (0 = j, 1 = k) a pool entry is stacked
+    over, its leading dim: L matrices over the j instances, R over the k
+    ones, correction planes over their j-major cross product; () for an
+    entry every instance shares."""
+    if key.startswith("Ls_"):
+        return (0,)
+    if key.startswith("Rs_"):
+        return (1,)
+    if key.startswith("corrs_"):
+        return (0, 1)
+    return ()
+
+
 def is_stacked_key(key: str) -> bool:
     """True for pool entries holding one slice per tile/shard instance
     (leading dim selected per shard)."""
-    return key.startswith(("Ls_", "Rs_", "corrs_"))
+    return bool(stacked_axes(key))
 
 
 def plan_all_stages(program, plane, dims, pool: MatrixPool,

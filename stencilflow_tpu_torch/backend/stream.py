@@ -190,7 +190,8 @@ from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .compose import ComposedPlan, compose_program, plan_composed
 from .linear import (MatrixPool, band_diagonals, finalize_pool,
-                     is_stacked_key, mxu_flops_per_cell, plan_all_stages)
+                     is_stacked_key, mxu_flops_per_cell, plan_all_stages,
+                     stacked_axes)
 from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
                     tile_candidates)
 from .stacked_io import (SPILL_BYTES_CAP, THREADS,
@@ -406,15 +407,16 @@ class StreamPlan:
 
     def matrix(self, key: str, inst: Tuple[int, int] = (0, 0)) -> np.ndarray:
         """Pool entry ``key`` as shard instance ``inst`` = (j, k) reads it:
-        its slice of a stacked key (``linear.is_stacked_key``)."""
+        its slice of a stacked key (``linear.stacked_axes``)."""
         a = self.pool[key]
-        if not is_stacked_key(key):
+        axes = stacked_axes(key)
+        if not axes:
             return a
-        if key.startswith("Ls_"):
-            return a[inst[0]]
-        if key.startswith("Rs_"):
-            return a[inst[1]]
-        return a[inst[0] * self.instances()[1] + inst[1]]
+        n = self.instances()
+        idx = 0
+        for ax in axes:
+            idx = idx * n[ax] + inst[ax]
+        return a[idx]
 
     def band(self, key: str, side: str, inst: Tuple[int, int] = (0, 0)):
         """(offsets, coef) of pool matrix ``key`` (linear.band_diagonals)

@@ -411,12 +411,10 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
     step, feed = make_step(program, feed, backend, device, mesh, dim_axes,
                            analysis=analysis, host_chunks=host_chunks)
     plan = getattr(step, "plan", None)
-    if mesh is not None:
-        # the loop's device: the one every shard shares (else none: an
-        # eager loop over the mesh's devices)
-        device = mesh.one_device() or torch.device("cpu")
-    else:
-        device = resolve_device(device)
+    # the loop's device; with a mesh, the one every shard shares, or None
+    # for a mesh of distinct devices (stepped eagerly, not yet run on
+    # distinct devices)
+    device = mesh.one_device() if mesh is not None else resolve_device(device)
 
     def place(k, v):
         return _place(v, device, host_mode, plan, k)
@@ -444,8 +442,7 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
         chunk = min(chunk, ckpt_f)
 
     loop = None
-    one = mesh is None or mesh.one_device() is not None
-    if device.type == "cuda" and not host_mode and one:
+    if device is not None and device.type == "cuda" and not host_mode:
         loop = GraphLoop(step, state, feed, device)
 
         def run_chunk(n):
@@ -454,7 +451,8 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
         def snapshot():
             return loop.state()
     else:
-        # host mode (one chunked device sweep per fused step) and the CPU
+        # host mode (one chunked device sweep per fused step), the CPU and
+        # a mesh of distinct devices
         def run_chunk(n):
             nonlocal state
             for _ in range(n):

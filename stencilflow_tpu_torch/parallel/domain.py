@@ -18,7 +18,8 @@ PyTorch orders the copy after both devices' pending work with events),
 dim by dim, so corner slabs come from diagonal neighbours as the
 reference's sequence of ``ppermute``s gives them.  A mesh may repeat a
 device: virtual shards on one GPU run the same launches, one after
-another on its stream.
+another on its stream.  The copies between distinct devices have not
+yet been run on distinct devices.
 
 The local body is K4 in shard mode on CUDA shards (the stream kernel,
 ``backend/stream.py`` local mode with a 3-D origin: ``sf_shard_launch``
@@ -296,30 +297,22 @@ def _sharded_mxu_assets(splan, plan: DomainDecomposition):
     cross product (both axes), the rest replicated; or None when no
     stage is banded.  Each shard's kernel reads its instance's slice
     (``StreamPlan.kernel_pool(inst)``, passed per launch)."""
-    from ..backend.linear import is_stacked_key
+    from ..backend.linear import stacked_axes
     if not splan.mxu_plans:
         return None
-    ax_j, ax_k = plan.dim_axes[1], plan.dim_axes[2]
-    n_j, n_k = splan.instances()
+    names = (plan.dim_axes[1], plan.dim_axes[2])
+    n = splan.instances()
     global_arrays: Dict[str, np.ndarray] = {}
     pspecs: Dict[str, tuple] = {}
     local_shapes: Dict[str, tuple] = {}
     resident = 0
     for k, a in splan.pool.items():
-        if is_stacked_key(k):
-            if k.startswith("Ls_"):
-                global_arrays[k], pspecs[k] = a, (ax_j,)
-            elif k.startswith("Rs_"):
-                global_arrays[k], pspecs[k] = a, (ax_k,)
-            else:   # corrs: (n_j*n_k, pj, pk), j-major cross product
-                global_arrays[k] = a.reshape((n_j, n_k) + a.shape[1:])
-                pspecs[k] = (ax_j, ax_k)
-            local_shapes[k] = a.shape[1:]
-            resident += int(np.prod(a.shape[1:])) * a.dtype.itemsize
-        else:
-            global_arrays[k], pspecs[k] = a, ()
-            local_shapes[k] = a.shape
-            resident += a.nbytes
+        axes = stacked_axes(k)
+        local = a.shape[1:] if axes else a.shape
+        global_arrays[k] = a.reshape(tuple(n[x] for x in axes) + local)
+        pspecs[k] = tuple(names[x] for x in axes)
+        local_shapes[k] = local
+        resident += int(np.prod(local)) * a.dtype.itemsize
     return global_arrays, pspecs, local_shapes, resident
 
 
@@ -409,7 +402,7 @@ def _spanned(program: ir.Program, name: str, v):
     return t.reshape(shape)
 
 
-def plan_sharded_chain(program: ir.Program, mesh: Mesh,
+def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
                        dim_axes: Sequence[Optional[str]],
                        analysis: Optional[ChainAnalysis] = None,
                        local_backend: str = "auto", mxu: str = "auto",
@@ -498,11 +491,11 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
     ``mxu="auto"`` lowers wide affine stages to banded transforms inside
     the per-shard kernel, with origin-aware per-shard band matrices and
     correction planes; ``compose`` composes affine runs first
-    (``plan_sharded_chain``).  ``comm_overlap=True`` is not ported
+    (``_plan_sharded_chain``).  ``comm_overlap=True`` is not ported
     yet."""
     if comm_overlap:
         raise NotImplementedError(NOT_PORTED_OVERLAP)
-    program, analysis, plan, splan, cfg = plan_sharded_chain(
+    program, analysis, plan, splan, cfg = _plan_sharded_chain(
         program, mesh, dim_axes, analysis, local_backend, mxu,
         mxu_precision, spill, smem_budget, compose)
     graph = analysis.graph

@@ -5,8 +5,9 @@ sharded ``jax.Array`` for the port's single-controller domain
 decomposition (``domain.py``): one process drives every shard, each
 shard a tensor on its mesh position's device.  An entry of the mesh may
 repeat a device ("virtual shards"): a 2 x 2 mesh on one GPU, or 8
-shards on the CPU, run the same code as one shard per device on an
-8-GPU node.
+shards on the CPU.  A mesh of distinct devices (one shard per GPU of a
+node) takes the same code, but has not yet been run on distinct
+devices.
 """
 from __future__ import annotations
 
