@@ -185,17 +185,31 @@ Phases, one line each (any failure raises and exits non-zero):
    exchange's ms and bytes and the single-device route's ms; ``iterate`` on jacobi3d 256^3 over 2 x 2, 16
    steps fused by 8 (CUDA-graph replays), equal to in-core ``iterate``,
    and ``fast_value_and_grad`` on jacobi3d 128^3 x 8 over 2 x 2, equal to
-   the single-device gradient.
+   the single-device gradient.  Then the pipeline split
+   (``parallel/pipeline.py compile_pipeline_split``) over positions
+   repeating the card, K4 a segment in chunk mode: jacobi3d 512^3 x 8
+   over 4 ``("p",)`` in sharded and in replicated io, box3d 256^3 x 8 of
+   extent 2 over 2 (banded segments) and jacobi3d 512^3 x 8 over ``("p",
+   "x")`` 2 x 2 with j over x (the dense tile body, as the reference's
+   ``domain_axes``), each driven once with the counts reset just before
+   and read just after (K4 launched segments x chunks, nothing else; the
+   dense cell launches no kernel), equal to the single-device route (box
+   within MXU_VERIFY_RTOL), with its ms a call beside the route's; the
+   first cell's segment 0 through K4 against its plain version at the
+   main path's shape (every plane bit-exact), with its ms, plain-version
+   ms, bound, the chained ``F.conv3d`` over its tile, and one cut's
+   carry with the ms of a device copy of it (what a hop between distinct
+   devices copies; on the repeated card a hop copies nothing).
 
 Every bound comes from the port's report (report.py): the larger of the
 minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
 strategy's operations over the single-instruction FP32 rate.  The last
 lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
-from phase 9; error, kernel, plain-version and library times measured in
-this run at the main path's shapes, bounds computed from its inputs; 16
-entries: the stream kernel's on box and on cross) and ``{"ok": true,
-"device": {...}}``.
+and per segment's from phase 9; error, kernel, plain-version and library
+times measured in this run at the main path's shapes, bounds computed
+from its inputs; 17 entries: the stream kernel's on box and on cross)
+and ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -1272,7 +1286,8 @@ def _sharded_setup(sft, jacobi8, box256):
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
     from stencilflow_tpu_torch.grad import adjoint_program
     from stencilflow_tpu_torch.iterate import compose_iterations
-    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel import (compile_pipeline_split,
+                                                compile_sharded_chain)
     from stencilflow_tpu_torch.parallel.mesh import make_mesh
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
 
@@ -1311,7 +1326,22 @@ def _sharded_setup(sft, jacobi8, box256):
     for p in [c[1] for c in cells] + [compose_iterations(step, 8), grad,
                                       adjoint_program(grad)[0]]:
         thunks.append(lambda p=p: compile_chain_best(p, device="cuda"))
-    return (cells, kcases, solvers), thunks
+    # the pipeline split: (label, program, mesh, compile options,
+    # tolerance against the single-device route); every segment's K4
+    # builds in its own nvcc, started with the other builds
+    pipes = [("jacobi3d 512^3 x 8 over 4, sharded io", jacobi8,
+              ((4,), ("p",)), {"io": "sharded"}, 0.0),
+             ("jacobi3d 512^3 x 8 over 4, replicated io", jacobi8,
+              ((4,), ("p",)), {"io": "replicated"}, 0.0),
+             ("box3d 256^3 x 8 extent 2 over 2, banded", box256,
+              ((2,), ("p",)), {}, MXU_VERIFY_RTOL),
+             ("jacobi3d 512^3 x 8, p x x 2 x 2 (j over x)", jacobi8,
+              ((2, 2), ("p", "x")), {"domain_axes": {1: "x"}}, 0.0)]
+    for _label, p, (shape, names), kw, _tol in pipes:
+        mesh = make_mesh([cuda], shape, names)
+        thunks.append(lambda p=p, m=mesh, kw=kw: compile_pipeline_split(
+            p, m, "p", **kw))
+    return (cells, kcases, solvers, pipes), thunks
 
 
 def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
@@ -1335,7 +1365,7 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
                                                        place_global_inputs)
     from stencilflow_tpu_torch.parallel.mesh import make_mesh
     from stencilflow_tpu_torch.report import Report
-    cells, kcases, solvers = setup
+    cells, kcases, solvers, _pipes = setup
     t_phase = time.perf_counter()
     cuda = torch.device("cuda", 0)
     print("sharded: meshes of virtual shards repeating the one card: the "
@@ -1525,8 +1555,152 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
           f"equal to in-core iterate; fast_value_and_grad {p.name} on 2 x 2 "
           f"({f.lowering['forward']} + {f.lowering['adjoint']}) equal to "
           f"one device | {smi}", flush=True)
-    print(f"sharded: phase 9 took {time.perf_counter() - t_phase:.1f} s | "
-          f"{smi}", flush=True)
+    print(f"sharded: the domain engine took "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    return entry
+
+
+def _pipeline(sft, st, pn, ov, gp, tl, setup, smi):
+    """Phase 9, continued: the pipeline split (``compile_pipeline_split``)
+    over meshes repeating the one card.  Each cell once with the counts
+    reset just before and read just after (K4's launches = segments x
+    chunks; the pipeline x domain cell runs the dense tile body, as the
+    reference's, and launches no kernel), equal to the single-device
+    route; then timed (a call, the single-device route).  The first
+    cell's segment 0 through K4 against its plain version at the main
+    path's shape, timed with its plain version and the chained
+    ``F.conv3d`` over the segment's tile.  Returns K4 per segment's entry
+    of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.parallel import compile_pipeline_split
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.report import Report
+    pipes = setup[3]
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda", 0)
+    print("pipeline: positions repeating the one card: segments run one "
+          "after another on its stream and a hop copies nothing, so these "
+          "times are not multi-GPU figures", flush=True)
+    entry, launches, k_err = None, 0, 0.0
+    for label, p, (shape, names), kw, rtol in pipes:
+        mesh = make_mesh([cuda], shape, names)
+        fn, plan = compile_pipeline_split(p, mesh, "p", **kw)
+        cfg = fn.last_config
+        want_backend = "xla" if kw.get("domain_axes") else "stream"
+        if cfg["backend"] != want_backend:
+            raise RuntimeError(f"pipeline: {label} took {cfg}")
+        inputs = sft.load_input_arrays(p, seed=0)
+        dev_in = {n: torch.as_tensor(np.asarray(v)).to(cuda)
+                  if np.ndim(v) else v for n, v in inputs.items()}
+        del inputs
+        single, route = compile_chain_best(p, device="cuda")
+        placed = fn.place(dev_in)
+        torch.cuda.synchronize()
+        pn.launches = ov.launches = gp.launches = tl.launches = 0
+        st.launches = st.local_launches = st.spill_launches = 0
+        st.shard_launches = 0
+        out = fn(placed)
+        torch.cuda.synchronize()
+        n = st.local_launches + st.spill_launches
+        other = (pn.launches + ov.launches + gp.launches + tl.launches
+                 + st.launches + st.shard_launches)
+        S, C = len(plan.segments), plan.num_chunks
+        lines = mesh.size // S
+        want_n = 0 if want_backend == "xla" else S * C * lines
+        if n != want_n or other:
+            raise RuntimeError(f"pipeline: {label}: K4 launched {n} times "
+                               f"for {S} segments x {C} chunks (others "
+                               f"{other})")
+        launches += n
+        ref = single(dev_in)
+        worst = 0.0
+        for o in p.outputs:
+            good, err = _compare(out[o].gather(cuda).cpu().numpy(),
+                                 ref[o].reshape(p.raw_dimensions).cpu()
+                                 .numpy(), rtol)
+            worst = max(worst, err)
+            if not good:
+                raise RuntimeError(f"pipeline: {label} {o} differs from the "
+                                   f"single-device route ({err})")
+        del out, ref
+        ms = _time_ms(lambda: fn(placed), 5)
+        s_ms = _time_ms(lambda: single(dev_in), 5)
+        seg = ""
+        if want_backend == "stream" and entry is None:
+            # segment 0 on chunk 1 through K4 against its plain version
+            # at the main path's shape: its slabs are the program inputs'
+            # window of chunk + 2 E planes
+            sp, E = fn.stream_plans[0], plan.widen[0][0]
+            lo = plan.chunk - E
+            slabs = {n: (v[lo:lo + plan.chunk + 2 * E].contiguous()
+                         if not p.inputs[n].is_scalar
+                         and p.inputs[n].dim_mask[0] else v)
+                     for n, v in dev_in.items() if n in sp.program.inputs}
+            lib = st.build_stream(sp)   # built in phase 2: a lookup
+            got = st.run_local_stream(sp, lo, slabs, lib)
+            k_ms = _time_ms(lambda: st.run_local_stream(sp, lo, slabs, lib),
+                            5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = st.local_stream_plain(sp, lo, slabs)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for o in sp.program.outputs:
+                good, err = _compare(got[o].cpu().numpy(),
+                                     want[o].cpu().numpy(), rtol)
+                k_err = max(k_err, err)
+                if not good:
+                    raise RuntimeError(f"pipeline: K4 segment 0 of {label} "
+                                       f"disagrees with its plain version "
+                                       f"({o}: {err})")
+            # one cut's carry: what a hop between distinct devices copies
+            carry = {f: got[f] for f in fn.cut_layouts[0] if f in got}
+            hop_mb = sum(t.numel() * t.element_size()
+                         for t in carry.values()) / 1e6
+            hop_ms = _time_ms(lambda: [t.clone() for t in carry.values()],
+                              5)
+            in_bytes = sum(t.numel() * t.element_size()
+                           for n, t in slabs.items()
+                           if not p.inputs[n].is_scalar)
+            out_bytes = sum(t.numel() * t.element_size()
+                            for t in got.values())
+            rep = Report.build(sp.program)
+            t_bytes = (in_bytes + out_bytes) / rep.hw.hbm_bandwidth * 1e3
+            t_ops = rep.alu_time_s() * sp.block / p.dimensions[0] * 1e3
+            bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                  else (t_ops, "operations"))
+            wide = (sp.extent(),) + tuple(p.dimensions[1:])
+            lib_ms = _conv_chain_ms(sp.program, 1, shape=wide)
+            entry = {"name": "local_stream_segment", "route": "cuda",
+                     "source": "stencilflow_tpu_torch/backend/codegen.py",
+                     "replaces": "stencilflow_tpu/backend/stream.py:1943",
+                     "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+            seg = (f" | K4 segment 0 ({wide} in, ({sp.block}, "
+                   f"{p.dimensions[1]}, {p.dimensions[2]}) out, tile "
+                   f"{sp.tile} x {sp.threads}) {k_ms:.3f} ms, plain version "
+                   f"{plain_ms:.1f} ms, equal to it (max_abs_err {err:.3g}), "
+                   f"bound {bound_ms:.4f} ms ({bound_by}), "
+                   f"{len(sp.program.kernels)} chained F.conv3d over its "
+                   f"tile {lib_ms:.3f} ms | hop: one cut's carry "
+                   f"{hop_mb:.1f} MB, no copy on a repeated card, a device "
+                   f"copy of it {hop_ms:.3f} ms")
+            del got, want, slabs, carry
+        print(f"pipeline: {label} ({cfg['backend']}, {cfg['io']} io, "
+              f"segments {[len(x) for x in plan.segments]}, banded "
+              f"{[x['mxu_stages'] for x in cfg['segments']]}, chunk "
+              f"{plan.chunk}, widen {[w for w in plan.widen]}) "
+              f"{ms:.3f} ms a call | single-device {route} {s_ms:.3f} ms | "
+              f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} it "
+              f"(max_abs_err {worst:.3g}) | K4 launches {n}{seg} | {smi}",
+              flush=True)
+        del dev_in, placed
+        torch.cuda.empty_cache()
+    entry.update(launches=launches, max_abs_err=k_err)
+    print(f"pipeline: took {time.perf_counter() - t_phase:.1f} s | {smi}",
+          flush=True)
     return entry
 
 
@@ -2590,8 +2764,13 @@ def main() -> int:
 
     # -- 9. the sharded engine -------------------------------------------------
     print(f"phase: 9 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    t9 = time.perf_counter()
     report["local_stream_shard"] = _sharded(sft, st, pn, ov, gp, tl,
                                             sharded_setup, smi)
+    report["local_stream_segment"] = _pipeline(sft, st, pn, ov, gp, tl,
+                                               sharded_setup, smi)
+    print(f"sharded: phase 9 took {time.perf_counter() - t9:.1f} s | {smi}",
+          flush=True)
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith(("jax.", "stencilflow_tpu."))

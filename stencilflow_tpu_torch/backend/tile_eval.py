@@ -254,26 +254,37 @@ def broadcast_input_tile(arr, dim_mask: Tuple[bool, bool, bool],
 
 def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
                         tile_fields: Dict[str, Any],
-                        origin: Sequence[int], halo: Vec3
+                        origin: Sequence[int], halo: Vec3,
+                        keep: Optional[Sequence[str]] = None
                         ) -> Dict[str, Any]:
-    """Evaluate every kernel of ``program`` over one widened tile.
+    """Evaluate every kernel of ``graph.kernel_order`` over one widened
+    tile.
 
-    ``tile_fields`` maps each program input to its widened-tile tensor
-    (spanned dims only for lower-dimensional inputs, 0-d for scalars);
-    ``origin`` is the global offset of the tile core.  Returns the program
-    outputs at the widened tile shape."""
+    ``tile_fields`` maps each program input the evaluated kernels read
+    to its widened-tile tensor (spanned dims only for lower-dimensional
+    inputs, 0-d for scalars), and may also hold precomputed upstream
+    kernel tiles (a pipeline segment's carried fields,
+    ``parallel/pipeline.py``); ``origin`` is the global offset of the
+    tile core.  Returns kernel results at the widened tile shape: the
+    program outputs, or the kernels ``keep`` names."""
     dims = program.dimensions
     tile_shape = None
     device = None
-    for iname, spec in program.inputs.items():
+    given = {n: s for n, s in program.inputs.items() if n in tile_fields}
+    for iname, spec in given.items():
         if not spec.is_scalar:
             device = tile_fields[iname].device
             if all(spec.dim_mask):
                 tile_shape = tuple(tile_fields[iname].shape)
+    if tile_shape is None:   # a carried kernel tile is full rank
+        for name, arr in tile_fields.items():
+            if name in program.kernels:
+                tile_shape, device = tuple(arr.shape), arr.device
+                break
     if tile_shape is None:
         guess = [(dims[d] + 2 * halo[d]) if dims[d] > 1 else 1
                  for d in range(3)]
-        for iname, spec in program.inputs.items():
+        for iname, spec in given.items():
             if spec.is_scalar:
                 continue
             it = iter(tile_fields[iname].shape)
@@ -282,15 +293,17 @@ def evaluate_chain_tile(program: ir.Program, graph: ChainGraph,
                     guess[d] = next(it)
         tile_shape = tuple(guess)
     fields: Dict[str, Any] = {}
-    for iname, spec in program.inputs.items():
+    for iname, spec in given.items():
         arr = tile_fields[iname]
         if spec.is_scalar and device is not None and arr.device != device:
             arr = arr.to(device) if arr.requires_grad else \
                 device_const(arr.item(), arr.dtype, device)
         fields[iname] = arr if spec.is_scalar else \
             broadcast_input_tile(arr, spec.dim_mask, tile_shape)
+    for name, arr in tile_fields.items():   # precomputed upstream tiles
+        fields.setdefault(name, arr)
 
-    names = list(program.outputs)
+    names = list(keep) if keep is not None else list(program.outputs)
     order = graph.kernel_order
     last_use: Dict[str, int] = {}
     for idx, kname in enumerate(order):

@@ -1,6 +1,6 @@
 """Command-line interface of the port: the ``run``, ``simulate``,
-``report``, ``iterate``, ``solve``, ``adjoint`` and ``run-distributed``
-subcommands.
+``report``, ``iterate``, ``solve``, ``adjoint``, ``partition`` and
+``run-distributed`` subcommands.
 
     python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] --device cuda
     python -m stencilflow_tpu_torch.cli simulate <prog.json> [--no-native] [--trace CSV] [--trace-chrome JSON] [--output-dir D]
@@ -8,7 +8,9 @@ subcommands.
     python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
     python -m stencilflow_tpu_torch.cli solve <prog.json> --rhs random:0,1 [--method cg|cgnr] [--tol T] [--device cuda]
     python -m stencilflow_tpu_torch.cli adjoint <prog.json> [-o adj.json] [--wrt a,b]
+    python -m stencilflow_tpu_torch.cli partition <prog.json> --devices N [--at K | --cut K,.. | --optimize] [--enumerate-cuts]
     python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --devices N [--dim-axes none,x,y] [--force-host-devices] --compare-to-reference
+    python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --parallel-mode pipeline --devices N [--split-at K | --cut K,.. | --optimize-cuts] [--pipeline-domain j=N[,k=M]] [--num-chunks C]
 
 Port of the same subcommands of ``stencilflow_tpu/cli.py``: the JAX
 package's own usage parses here too and prints the same lines.  Its
@@ -39,10 +41,6 @@ NOT_PORTED = {
     "--comm-overlap": "Queue 1 item 8 (M12, the comm/compute overlap)",
     "--coordinator": "Queue 1 item 8 (M12, multi-host over "
                      "torch.distributed)",
-    "--parallel-mode pipeline": "Queue 1 item 9 (M13b, the pipeline "
-                                "split across devices)",
-    "--split-at/--cut/--optimize-cuts/--pipeline-domain":
-        "Queue 1 item 9 (M13b, the pipeline split across devices)",
     "--checkpoint-format orbax": "Queue 1 item 8 (M12, the sharded "
                                  "engine's asynchronous checkpoints; the "
                                  "card's machine has no orbax)",
@@ -261,6 +259,74 @@ def _cmd_adjoint(args) -> int:
     return 0
 
 
+def _cmd_partition(args) -> int:
+    from .frontend.analysis import ChainAnalysis
+    from .frontend.parser import parse_program
+    from .parallel.pipeline import split_kernels
+    program = parse_program(args.stencil_file)
+    analysis = ChainAnalysis.run(program)
+    graph = analysis.graph
+    print(f"kernels (topological): {graph.kernel_order}")
+    if args.at:
+        from .parallel.pipeline import split_kernels_at
+        segments = split_kernels_at(
+            graph, [k.strip() for k in args.at.split(",")])
+        if len(segments) != args.devices:
+            print(f"note: {len(segments)} segments from --at; pass "
+                  f"--devices {len(segments)} to run-distributed")
+    elif args.cut:
+        from .parallel.pipeline import split_kernels_at_cut
+        segments = split_kernels_at_cut(
+            graph, [k.strip() for k in args.cut.split(",")])
+    elif args.optimize:
+        from .parallel.pipeline import optimize_split
+        segments, stats = optimize_split(program, graph, args.devices)
+        print(f"optimized cuts: segment loads {stats['segment_loads']} "
+              f"(weighted ops/cell), crossing "
+              f"{stats['cut_bytes_per_cell']} B/cell per cut")
+    else:
+        segments = split_kernels(graph, args.devices)
+    for i, seg in enumerate(segments):
+        print(f"  device {i}: {seg}")
+    if args.enumerate_cuts:
+        print("all valid pipeline cuts (downward-closed subsets):")
+        for cut in graph.enumerate_cuts():
+            print(f"  {sorted(cut)}")
+    return 0
+
+
+def _pipeline_mesh(devices, n: int, spec: str):
+    """The pipeline mode's mesh: ``("p",)`` over the devices, or with
+    ``--pipeline-domain`` ("j=2" / "j=2,k=2") the named domain dims over
+    extra axes of the given sizes and the pipeline over the rest.
+    Returns (mesh, domain_axes), or None (after printing to stderr) on a
+    malformed spec."""
+    import numpy as np
+    from .parallel.mesh import Mesh
+    arr = np.empty(n, dtype=object)
+    arr[:] = list(devices)
+    if not spec:
+        return Mesh(arr, ("p",)), None
+    domain_axes, dshape, dnames = {}, [], []
+    for part in spec.split(","):
+        dim_name, _, size = part.partition("=")
+        d = {"j": 1, "k": 2}.get(dim_name.strip())
+        if d is None or not size.strip().isdigit():
+            print(f"--pipeline-domain: expected 'j=N[,k=M]', got {spec!r}",
+                  file=sys.stderr)
+            return None
+        ax = "x" if not dnames else "y"
+        domain_axes[d] = ax
+        dnames.append(ax)
+        dshape.append(int(size.strip()))
+    dn = int(np.prod(dshape))
+    if n % dn:
+        print(f"--devices {n} not divisible by the domain factor {dn}",
+              file=sys.stderr)
+        return None
+    return Mesh(arr.reshape((n // dn, *dshape)), ("p", *dnames)), domain_axes
+
+
 def _make_mesh_2d(devices, n):
     """Near-square 2-D ('x', 'y') mesh over n devices."""
     import numpy as np
@@ -286,9 +352,10 @@ def _parse_axes(text: str):
 
 
 def _cmd_run_distributed(args) -> int:
-    """Domain decomposition over ``--devices`` devices in one process: the
-    CUDA devices, or with ``--force-host-devices`` that many virtual CPU
-    shards (the reference's meaning)."""
+    """Domain decomposition (or, ``--parallel-mode pipeline``, the
+    wavefront pipeline split) over ``--devices`` devices in one process:
+    the CUDA devices, or with ``--force-host-devices`` that many virtual
+    CPU positions (the reference's meaning)."""
     import numpy as np
     import torch
 
@@ -297,14 +364,25 @@ def _cmd_run_distributed(args) -> int:
     from .interpreter import run_interpreter
     from .parallel.domain import run_sharded_chain
 
+    # misdirected flags are rejected before anything runs, as the
+    # reference's subcommand rejects them
+    if args.parallel_mode == "pipeline" and args.dim_axes:
+        print("--dim-axes applies to domain mode only", file=sys.stderr)
+        return 2
+    if args.parallel_mode == "pipeline" and args.comm_overlap:
+        print("--comm-overlap applies to domain mode only",
+              file=sys.stderr)
+        return 2
+    if args.parallel_mode == "domain" and (args.split_at or args.cut or
+                                           args.optimize_cuts or
+                                           args.pipeline_domain):
+        print("--split-at/--cut/--optimize-cuts/--pipeline-domain apply "
+              "to pipeline mode only (pass --parallel-mode pipeline)",
+              file=sys.stderr)
+        return 2
     if args.coordinator is not None or args.num_hosts is not None or \
             args.host_id is not None:
         return _refuse("--coordinator")
-    if args.parallel_mode == "pipeline":
-        return _refuse("--parallel-mode pipeline")
-    if args.split_at or args.cut or args.optimize_cuts or \
-            args.pipeline_domain:
-        return _refuse("--split-at/--cut/--optimize-cuts/--pipeline-domain")
     if args.comm_overlap:
         return _refuse("--comm-overlap")
     program = parse_program(args.stencil_file)
@@ -318,19 +396,35 @@ def _cmd_run_distributed(args) -> int:
     if len(devices) < args.devices:
         print(f"only {len(devices)} devices available", file=sys.stderr)
         return 2
-    mesh = _make_mesh_2d(devices, args.devices)
-    if args.dim_axes:
-        axes = _parse_axes(args.dim_axes)
-        if axes is None:
+    if args.parallel_mode == "pipeline":
+        from .parallel.pipeline import compile_pipeline_split
+        got = _pipeline_mesh(devices, args.devices, args.pipeline_domain)
+        if got is None:
             return 2
-        bad = [a for a in axes if a and a not in mesh.shape]
-        if bad:
-            print(f"unknown mesh axis {bad} (mesh has "
-                  f"{list(mesh.shape)})", file=sys.stderr)
-            return 2
+        mesh, domain_axes = got
+        fn, _plan = compile_pipeline_split(
+            program, mesh, "p", num_chunks=args.num_chunks,
+            split_at=([k.strip() for k in args.split_at.split(",")]
+                      if args.split_at else None),
+            cut=([k.strip() for k in args.cut.split(",")]
+                 if args.cut else None),
+            optimize_cuts=args.optimize_cuts,
+            domain_axes=domain_axes)
+        outputs = {k: v.numpy() for k, v in fn(inputs).items()}
     else:
-        axes = (None, "x", "y")
-    outputs = run_sharded_chain(program, mesh, axes, inputs)
+        mesh = _make_mesh_2d(devices, args.devices)
+        if args.dim_axes:
+            axes = _parse_axes(args.dim_axes)
+            if axes is None:
+                return 2
+            bad = [a for a in axes if a and a not in mesh.shape]
+            if bad:
+                print(f"unknown mesh axis {bad} (mesh has "
+                      f"{list(mesh.shape)})", file=sys.stderr)
+                return 2
+        else:
+            axes = (None, "x", "y")
+        outputs = run_sharded_chain(program, mesh, axes, inputs)
     print(f"ran {args.parallel_mode} over {args.devices} devices "
           f"(mesh {dict(mesh.shape)})")
 
@@ -503,21 +597,49 @@ def build_parser() -> argparse.ArgumentParser:
                                  "(default: all floating field inputs)")
     p.set_defaults(fn=_cmd_adjoint)
 
+    p = sub.add_parser("partition",
+                       help="plan a pipeline split across devices")
+    p.add_argument("stencil_file")
+    p.add_argument("--devices", type=int, default=2)
+    p.add_argument("--at", default=None,
+                   help="comma-separated kernel names to cut after "
+                        "(named-stream split) instead of auto-balancing")
+    p.add_argument("--cut", default=None,
+                   help="comma-separated kernel names forming one "
+                        "downward-closed cut set (may be non-prefix on "
+                        "forked chains; see --enumerate-cuts)")
+    p.add_argument("--optimize", action="store_true",
+                   help="search cuts minimizing the bottleneck segment "
+                        "load (H100 op costs), tie-breaking on "
+                        "inter-device traffic")
+    p.add_argument("--enumerate-cuts", action="store_true")
+    p.set_defaults(fn=_cmd_partition)
+
     p = sub.add_parser("run-distributed",
-                       help="multi-device run (domain decomposition)")
+                       help="multi-device run (domain or pipeline split)")
     p.add_argument("stencil_file")
     p.add_argument("--devices", type=int, default=2)
     p.add_argument("--parallel-mode", default="domain",
-                   choices=["domain", "pipeline"],
-                   help="pipeline is not ported yet (exits with rc 2)")
+                   choices=["domain", "pipeline"])
     p.add_argument("--num-chunks", type=int, default=None,
                    help="pipeline mode's microbatches (domain mode "
                         "ignores it, as the JAX package does)")
-    for flag in ("--split-at", "--cut", "--pipeline-domain"):
-        p.add_argument(flag, default=None,
-                       help="pipeline mode: not ported yet (rc 2)")
+    p.add_argument("--split-at", default=None,
+                   help="pipeline mode: comma-separated kernel names to "
+                        "cut after (the reference's split at a named "
+                        "stream); cuts+1 must equal --devices")
+    p.add_argument("--cut", default=None,
+                   help="pipeline mode (2 devices): comma-separated "
+                        "kernel names forming a downward-closed cut set "
+                        "(any 'partition --enumerate-cuts' member, "
+                        "non-prefix fork cuts included)")
     p.add_argument("--optimize-cuts", action="store_true",
-                   help="pipeline mode: not ported yet (rc 2)")
+                   help="pipeline mode: search cuts minimizing the "
+                        "bottleneck segment load")
+    p.add_argument("--pipeline-domain", default=None, metavar="SPEC",
+                   help="pipeline mode: ALSO shard the domain over extra "
+                        "mesh axes, e.g. 'j=4' or 'j=2,k=2'; --devices "
+                        "must be divisible by the product")
     p.add_argument("--dim-axes", default=None,
                    help="domain mode: mesh axis per padded dim (i,j,k), "
                         "e.g. 'x,y,none' to shard (i, j); default "

@@ -1,11 +1,12 @@
 """Time the route plans of the stream kernel's deep cells (K3c), of the
 panel kernel's cells (K1), of the stream kernel's banded cells (K3b), of
 K4's out-of-core chunk, of the group kernel's cells (K5), of the
-overlapped-tile kernel's cells (K6) or of the overlap kernel's cells
-(K2), for one checkout.
+overlapped-tile kernel's cells (K6), of the overlap kernel's cells (K2)
+or of the pipeline split (K4 a segment), for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
-        [--cells deep|panel|banded|local|group|tile|overlap|solvers]
+        [--cells deep|panel|banded|local|group|tile|overlap|solvers|
+                 pipeline]
         [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
@@ -31,7 +32,9 @@ and fast (the call the checkout makes: a parent's fast mode includes its
 torch fix-up of the border shell).  ``--cells solvers``: the time-step
 loop eager against its CUDA-graph replay and fused by 1, 2, 4 and 8, and
 CG's iteration split into the operator and the vector passes
-(``_solvers``).  ``--cells overlap``: jacobi3d and
+(``_solvers``).  ``--cells pipeline``: the pipeline split over a mesh
+repeating the card in turns with the single-device route
+(``_pipeline``).  ``--cells overlap``: jacobi3d and
 hotspot3d 512^3 x 2 and jacobi2d 8192^2 x 2 (I = 1) on the overlap
 kernel's plan (``OverlapPlan.build``, their route), each followed by
 the overlapped-tile kernel's fast mode on the same program.  Random
@@ -315,6 +318,92 @@ def _solvers(smi: str, reps: int) -> dict:
     return out
 
 
+def _pipeline(smi: str, reps: int) -> dict:
+    """``--cells pipeline``: the pipeline split over a ``("p",)`` mesh
+    repeating the card (``compile_pipeline_split``, sharded io, K4 a
+    segment in chunk mode), in turns with the single-device route
+    (``compile_chain_best``): pipeline, route, route, pipeline, each
+    ``reps`` calls after a warm-up.  Cells: jacobi3d 512^3 x 8 over 4
+    (route K1), jacobi3d 512^3 x 32 over 4 (route K3c, the spill rung),
+    hdiff3d 256^3 x 16 over 2 and over 4 (route K3c).  One call of each
+    is checked against the route bit for bit, and K4's launches over it
+    must be segments x chunks.  Positions share the one card: no
+    multi-GPU figure."""
+    import numpy as np
+    import torch
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.parallel import compile_pipeline_split
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+
+    def events(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / n
+
+    cuda = torch.device("cuda", 0)
+    out = {}
+    for shape, n, iters, S in (("diffusion", 512, 8, 4),
+                               ("diffusion", 512, 32, 4),
+                               ("hdiff", 256, 16, 2), ("hdiff", 256, 16, 4)):
+        p = sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape,
+            seed_data="random:0.0,1.0"), name=f"{shape}3d_{n}_{iters}itr")
+        fn, plan = compile_pipeline_split(
+            p, make_mesh([cuda], (S,), ("p",)), "p")
+        single, route = compile_chain_best(p, device="cuda")
+        inputs = sft.load_input_arrays(p, seed=0)
+        dev_in = {k: torch.as_tensor(np.asarray(v)).to(cuda)
+                  for k, v in inputs.items()}
+        del inputs
+        placed = fn.place(dev_in)
+        torch.cuda.synchronize()
+        st.local_launches = st.spill_launches = 0
+        got = fn(placed)
+        torch.cuda.synchronize()
+        launches = st.local_launches + st.spill_launches
+        want = single(dev_in)
+        o = p.outputs[0]
+        equal = torch.equal(got[o].gather(cuda),
+                            want[o].reshape(p.raw_dimensions))
+        del got, want
+        pipe_a = events(lambda: fn(placed), reps)
+        route_a = events(lambda: single(dev_in), reps)
+        route_b = events(lambda: single(dev_in), reps)
+        pipe_b = events(lambda: fn(placed), reps)
+        label = f"{p.name} over {S}"
+        row = {"pipeline_ms": [pipe_a, pipe_b], "route": route,
+               "route_ms": [route_a, route_b], "equal_route": bool(equal),
+               "backend": fn.last_config["backend"],
+               "segments": [len(x) for x in plan.segments],
+               "widen": [list(w) for w in plan.widen],
+               "k4_launches": launches,
+               "k4": [{"tile": list(sp.tile), "threads": sp.threads,
+                       "spilled": sorted(sp.spilled),
+                       "banded": sorted(sp.mxu_plans)}
+                      for sp in (fn.stream_plans or [])]}
+        out[label] = row
+        print(f"{label}: pipeline {pipe_a:.3f} / {pipe_b:.3f} ms, route "
+              f"{route} {route_a:.3f} / {route_b:.3f} ms, equal {equal}, K4 "
+              f"launches {launches}, widen {plan.widen} | {smi}",
+              flush=True)
+        if not equal or launches != S * plan.num_chunks:
+            raise RuntimeError(f"{label}: equal {equal}, K4 launches "
+                               f"{launches}")
+        del dev_in, placed
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ptxas(sources) -> None:
     """nvcc's register and spill report of every source."""
     import tempfile
@@ -342,7 +431,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
                                         "group", "tile", "overlap",
-                                        "solvers"),
+                                        "solvers", "pipeline"),
                     default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
@@ -362,9 +451,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.cells == "solvers":
+    if args.cells in ("solvers", "pipeline"):
+        cells = {"solvers": _solvers, "pipeline": _pipeline}[args.cells]
         print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
-                          "cells": _solvers(smi, args.reps)}))
+                          "cells": cells(smi, args.reps)}))
         return 0
     cells = {"deep": _deep, "panel": _panel, "banded": _banded,
              "local": _local, "group": _group, "tile": _tile,

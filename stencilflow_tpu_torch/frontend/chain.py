@@ -4,17 +4,18 @@ TPU-native re-think of the reference's ``KernelChainGraph``
 (stencilflow/kernel_chain_graph.py:243-272,417-455): nodes are
 field names (inputs, kernels, outputs), edges connect producers to consumers
 by name matching.  We keep the graph as plain adjacency dicts (no networkx)
-and expose topological order and cycle diagnostics.
+and expose topological order, cycle diagnostics, and the downward-closed cut
+enumeration used for pipeline partitioning (``parallel/pipeline.py``).
 
 Copied from ``stencilflow_tpu/frontend/chain.py`` with no change of
-meaning, less the pipeline-cut enumeration that nothing in the port uses
-yet: the port cannot import the JAX package, whose ``__init__`` imports
+meaning (less ``edge_list`` and ``cut_edges``, which nothing in the port
+uses): the port cannot import the JAX package, whose ``__init__`` imports
 jax.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Set
+from typing import Dict, FrozenSet, Iterator, List, Sequence, Set
 
 from .. import ir
 
@@ -106,3 +107,34 @@ class ChainGraph:
 
     def producers(self, kernel: str) -> List[str]:
         return self.redges.get(kernel, [])
+
+    # ------------------------------------------------------------------
+    def enumerate_cuts(self) -> Iterator[FrozenSet[str]]:
+        """Enumerate non-trivial downward-closed kernel subsets ("before"
+        halves of a pipeline cut), reference: kernel_chain_graph.py:116-160.
+
+        A cut set S is valid if every kernel predecessor of a kernel in S is
+        also in S.  Yields each valid S (excluding the empty and full sets).
+        """
+        kernels = self.kernel_order
+        n = len(kernels)
+        if n > 20:
+            raise ValueError("cut enumeration is exponential; refusing for "
+                             f"{n} kernels — use partition heuristics instead")
+        idx = {k: i for i, k in enumerate(kernels)}
+        pred_masks = []
+        for k in kernels:
+            m = 0
+            for p in self.producers(k):
+                if p in idx:
+                    m |= 1 << idx[p]
+            pred_masks.append(m)
+        for mask in range(1, (1 << n) - 1):
+            ok = True
+            for i in range(n):
+                if mask & (1 << i) and (pred_masks[i] & ~mask):
+                    ok = False
+                    break
+            if ok:
+                yield frozenset(kernels[i] for i in range(n)
+                                if mask & (1 << i))

@@ -1,11 +1,11 @@
 """Out-of-core execution: domains larger than device memory.
 
 Port of ``stencilflow_tpu/outofcore.py`` (``ChunkPlan``,
-``compile_chunked_chain``, ``_host_slab``, ``run_chunked``) for one
-device.  The i axis is split into C chunks of ``Ic = I / C`` core planes.
-Each chunk's i-spanning inputs are sliced on the host with the chain's
-cumulative i-halo h on both sides (zero planes outside the domain: the
-kernel's boundary masks are global, so it treats them as any
+``compile_chunked_chain``, ``compile_chunked_sharded``, ``_host_slab``,
+``run_chunked``).  The i axis is split into C chunks of ``Ic = I / C``
+core planes.  Each chunk's i-spanning inputs are sliced on the host with
+the chain's cumulative i-halo h on both sides (zero planes outside the
+domain: the kernel's boundary masks are global, so it treats them as any
 out-of-domain read), one kernel built for all chunks evaluates each
 chunk with the chunk's global origin as an argument, and the core planes
 land in host ``out=`` arrays, which may be ``np.memmap``s.  Device
@@ -18,7 +18,9 @@ memory where no (j, k) tile fits shared memory otherwise); where no plan
 fits, or on the CPU, it is the dense tile body
 (``backend/tile_eval.py evaluate_chain_tile`` at the core origin), as the
 reference falls back to its XLA body.  ``backend="stream"`` on the CPU
-runs K4's plain version.
+runs K4's plain version.  ``compile_chunked_sharded`` (``run_chunked(...,
+mesh=, dim_axes=)``) evaluates each chunk sharded over a mesh's (j, k)
+instead, on the dense tile body, as the reference does.
 
 Host staging (``run_chunked``).  The reference overlaps host slicing and
 device work through JAX's asynchronous dispatch; here it is explicit.  On
@@ -141,6 +143,110 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
                            backend="dense", config={})
 
 
+def compile_chunked_sharded(program: ir.Program, chunks: int, mesh,
+                            dim_axes=(None, "x", "y"),
+                            analysis: Optional[ChainAnalysis] = None):
+    """Out-of-core x domain decomposition: each host i-chunk is evaluated
+    sharded over ``mesh`` — ``dim_axes`` maps j/k to mesh axes (i must
+    stay None: it is the chunked streaming dim).  A position's chunk body
+    holds O((block + 2h) * J/X * K/Y): the host feeds every position its
+    shard of the chunk, and the j/k halos come from mesh neighbours
+    (multi-hop when the chain halo exceeds a shard,
+    ``parallel/pipeline.py _gather_axis_halo``).  The body is the dense
+    tile body on every position, as the reference's is its XLA body.
+
+    Returns ``(chunk_fn, plan)`` with ``compile_chunked_chain``'s
+    ``chunk_fn(origin_i, tiles) -> outputs`` contract: tiles and outputs
+    are GLOBAL (j, k) extents, on the host; the chunk function places the
+    tiles over the mesh and gathers the outputs."""
+    from .parallel.mesh import ShardedArray
+    from .parallel.pipeline import _gather_axis_halo
+
+    analysis = analysis or ChainAnalysis.run(program)
+    dims = program.dimensions
+    I, J, K = dims
+    if dim_axes[0] is not None:
+        raise ValueError("dim 0 (i) is the chunked streaming dim; "
+                         "shard j/k only (dim_axes[0] must be None)")
+    dax = {d: ax for d, ax in enumerate(dim_axes)
+           if ax is not None and d in (1, 2)}
+    for d, ax in dax.items():
+        if ax not in mesh.shape:
+            raise ValueError(f"unknown mesh axis {ax!r}")
+        if dims[d] % mesh.shape[ax]:
+            raise ValueError(f"dim {d} ({dims[d]}) not divisible by "
+                             f"mesh axis {ax!r} ({mesh.shape[ax]})")
+    if chunks < 1 or I % chunks:
+        raise ValueError(f"chunks={chunks} must divide I={I}")
+    Ic = I // chunks
+    halo = chain_halo(analysis)
+    h = (halo[0] if chunks > 1 else 0, halo[1], halo[2])
+    if chunks > 1 and h[0] >= Ic:
+        raise ValueError(f"chain i-halo {h[0]} >= chunk block {Ic}; "
+                         "use fewer chunks")
+    nx = {d: mesh.shape[a] for d, a in dax.items()}
+    loc = {d: dims[d] // nx.get(d, 1) for d in (1, 2)}
+    graph = analysis.graph
+    local_raw = (Ic,) + tuple(program.raw_dimensions[1:])
+    in_specs = {n: tuple(dax.get(d) for d in range(3) if spec.dim_mask[d])
+                for n, spec in program.inputs.items()}
+    out_spec = (None, dax.get(1), dax.get(2))
+    core = (slice(h[0], h[0] + Ic), slice(h[1], h[1] + loc[1]),
+            slice(h[2], h[2] + loc[2]))
+
+    def chunk_fn(origin_i, tiles):
+        wide: Dict[Any, Dict[str, Any]] = {c: {} for c in mesh.coords()}
+        for name, spec in program.inputs.items():
+            arr = torch.as_tensor(np.asarray(tiles[name])) \
+                if not torch.is_tensor(tiles[name]) else tiles[name]
+            if spec.is_scalar:
+                for c in wide:
+                    wide[c][name] = arr
+                continue
+            spanned = [d for d in range(3) if spec.dim_mask[d]]
+            shape = tuple(Ic + 2 * h[0] if d == 0 else dims[d]
+                          for d in spanned)
+            shards = ShardedArray.place(mesh, in_specs[name],
+                                        arr.reshape(shape)).shards
+            for pos, d in reversed(list(enumerate(spanned))):
+                if d == 0:
+                    continue   # the i-halo arrived in the host slab
+                if d in dax:
+                    shards = _gather_axis_halo(shards, mesh, dax[d], pos,
+                                               h[d], loc[d])
+                elif h[d]:
+                    shards = _gather_axis_halo(shards, mesh, None, pos,
+                                               h[d], loc[d])
+            for c, t in shards.items():
+                wide[c][name] = t
+        outs: Dict[str, Dict[Any, torch.Tensor]] = {
+            o: {} for o in program.outputs}
+        for c, tiles_c in wide.items():
+            origin = (int(origin_i) + h[0],
+                      mesh.index(c, dax.get(1)) * loc[1],
+                      mesh.index(c, dax.get(2)) * loc[2])
+            results = evaluate_chain_tile(program, graph, tiles_c, origin,
+                                          h)
+            for n, arr in results.items():
+                outs[n][c] = arr[core]
+        return {n: ShardedArray(mesh, out_spec, (Ic, J, K), s).gather()
+                .reshape(local_raw) for n, s in outs.items()}
+
+    chunk_fn.device = torch.device("cpu")   # run_chunked stages on the host
+    n_dev = int(np.prod([nx[d] for d in nx])) or 1
+    per_host = sum(
+        (Ic + 2 * h[0]) * (loc[1] + 2 * h[1]) * (loc[2] + 2 * h[2])
+        * np.dtype(program.field_dtype(f)).itemsize
+        for f in list(program.inputs) + list(program.kernels)
+        if f not in program.inputs or not program.inputs[f].is_scalar)
+    plan = ChunkPlan(chunks=chunks, block=Ic, halo=h[0],
+                     backend="sharded-xla",
+                     config={"dim_axes": tuple(dim_axes),
+                             "devices": n_dev,
+                             "per_device_tile_bytes": int(per_host)})
+    return chunk_fn, plan
+
+
 def _host_tensor(a) -> torch.Tensor:
     """A CPU tensor over host array ``a`` (a numpy array or memmap: no
     copy; a read-only memmap is only read)."""
@@ -197,13 +303,18 @@ def run_chunked(program: ir.Program, inputs: Dict[str, Any], chunks: int,
     ``inputs`` values may be numpy arrays or memmaps at raw rank; ``out``
     may supply preallocated (possibly memmapped) output arrays.
     ``compiled`` reuses a prior ``compile_chunked_chain`` result; else
-    ``compile_kw`` (``device``, ``backend``, ``mxu``, ...) goes to it.
+    ``compile_kw`` (``device``, ``backend``, ``mxu``, ...) goes to it, or,
+    when it names a ``mesh`` (and ``dim_axes``), to
+    ``compile_chunked_sharded``.
     ``stats``, when given, receives the host seconds spent slicing inputs
     into the slabs (``fill_s``) and waiting for and copying outputs out of
     them (``drain_s``)."""
     analysis = analysis or ChainAnalysis.run(program)
     if compiled is not None:
         fn, plan = compiled
+    elif "mesh" in compile_kw:
+        fn, plan = compile_chunked_sharded(program, chunks,
+                                           analysis=analysis, **compile_kw)
     else:
         fn, plan = compile_chunked_chain(program, chunks, analysis,
                                          **compile_kw)

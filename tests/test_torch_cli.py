@@ -6,6 +6,9 @@ the reference's spellings map to the port's lowerings (``--no-mxu``,
 mode), and the options whose engines are not ported exit with ``error:``
 and rc 2, naming their ROADMAP item.  ``report --json`` prints the
 reference's keys with the same hardware-independent numbers.
+``partition`` prints the reference's lines, and ``run-distributed
+--parallel-mode pipeline`` runs on virtual CPU positions with the
+reference's rc-2 checks.
 """
 import argparse
 import json
@@ -199,9 +202,6 @@ def test_run_distributed_on_host_devices(dprog, capsys, axes):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--parallel-mode", "pipeline"], "item 9"),
-    (["--split-at", "s0"], "item 9"),
-    (["--optimize-cuts"], "item 9"),
     (["--comm-overlap"], "item 8"),
     (["--coordinator", "localhost:1234", "--num-hosts", "2",
       "--host-id", "0"], "item 8")])
@@ -221,3 +221,76 @@ def test_run_distributed_needs_its_devices(dprog, capsys, monkeypatch):
     assert main(["run-distributed", dprog, "--devices", "4",
                  "--force-host-devices", "--dim-axes", "x,q,none"]) == 2
     assert "unknown mesh axis ['q']" in capsys.readouterr().err
+
+
+@pytest.fixture
+def pprog(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    path = tmp_path / "pprog.json"
+    path.write_text(json.dumps(synthesize_stencil(
+        num_stages=4, dimensions=(8, 12, 16), shape="diffusion",
+        boundary="copy")))
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--at", "s0"], ["--cut", "s0,s1"], ["--optimize", "--devices", "3"],
+    ["--devices", "4", "--enumerate-cuts"]], ids=" ".join)
+def test_partition_prints_the_reference_lines(pprog, capsys, extra):
+    """The diffusion chain has only adds and multiplies, which cost the
+    same in the JAX package's table and the port's H100 table."""
+    assert ref_main(["partition", pprog] + extra) == 0
+    want = capsys.readouterr().out
+    assert main(["partition", pprog] + extra) == 0
+    assert capsys.readouterr().out == want
+
+
+@pytest.mark.parametrize("extra,mesh", [
+    ([], "{'p': 4}"), (["--split-at", "s0,s1,s2"], "{'p': 4}"),
+    (["--optimize-cuts"], "{'p': 4}"),
+    (["--pipeline-domain", "j=2"], "{'p': 2, 'x': 2}"),
+    (["--num-chunks", "8"], "{'p': 4}")], ids=lambda v: " ".join(v)
+    if isinstance(v, list) else "")
+def test_run_distributed_pipeline_on_host_devices(pprog, capsys, extra,
+                                                  mesh):
+    """run-distributed --parallel-mode pipeline --force-host-devices: four
+    virtual CPU positions, checked against the oracle, printing the JAX
+    package's lines."""
+    argv = ["run-distributed", pprog, "--parallel-mode", "pipeline",
+            "--devices", "4", "--force-host-devices",
+            "--compare-to-reference"] + extra
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert f"ran pipeline over 4 devices (mesh {mesh})" in out
+    assert "verified against reference: OK" in out
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--parallel-mode", "pipeline", "--dim-axes", "none,x,y"],
+     "--dim-axes applies to domain mode only"),
+    (["--parallel-mode", "pipeline", "--comm-overlap"],
+     "--comm-overlap applies to domain mode only"),
+    (["--split-at", "s0"], "--split-at/--cut/--optimize-cuts/"
+     "--pipeline-domain apply to pipeline mode only"),
+    (["--parallel-mode", "pipeline", "--pipeline-domain", "q=2"],
+     "--pipeline-domain: expected 'j=N[,k=M]'"),
+    (["--parallel-mode", "pipeline", "--pipeline-domain", "j=3"],
+     "--devices 4 not divisible by the domain factor 3")])
+def test_run_distributed_pipeline_rc2_checks(pprog, capsys, extra,
+                                             message):
+    """The JAX package's rc-2 checks of misdirected flags."""
+    argv = ["run-distributed", pprog, "--devices", "4",
+            "--force-host-devices"] + extra
+    assert main(argv) == 2
+    assert message in capsys.readouterr().err
+
+
+def test_run_distributed_pipeline_needs_its_devices(pprog, capsys,
+                                                    monkeypatch):
+    """One H100 has one CUDA device: pipeline mode over 2 refuses as
+    domain mode does (a mesh repeating the card is built from Python)."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert main(["run-distributed", pprog, "--parallel-mode", "pipeline",
+                 "--devices", "2"]) == 2
+    assert "only 1 devices available" in capsys.readouterr().err

@@ -1308,3 +1308,97 @@ def test_sharded_iterate_and_grad_on_card(cuda):
     v2, g2 = port.fast_value_and_grad(p3, device=cuda)(inputs)
     np.testing.assert_array_equal(g1["a"].cpu().numpy(),
                                   g2["a"].cpu().numpy())
+
+
+# -- the pipeline split: K4 a segment (positions repeating one card) ---------
+
+def _pipeline_cases():
+    """(program, mesh shape, axis names, compile options, banded)."""
+    def synth(shape, dims, iters, **kw):
+        return port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape,
+            seed_data="random:0,1", **kw))
+    return {
+        "jacobi-4-sharded": (synth("diffusion", (32, 24, 40), 4), (4,),
+                             ("p",), {"io": "sharded"}, False),
+        "jacobi-copy-4-replicated-6-chunks": (
+            synth("diffusion", (24, 24, 40), 4, boundary="copy"), (4,),
+            ("p",), {"io": "replicated", "num_chunks": 6}, False),
+        "hdiff-2": (synth("hdiff", (16, 32, 48), 2), (2,), ("p",), {},
+                    False),
+        "box-r2-2-banded": (synth("box", (16, 40, 48), 2, extent=2), (2,),
+                            ("p",), {}, True),
+        "jacobi-2x2-domain": (synth("diffusion", (16, 32, 40), 4), (2, 2),
+                              ("p", "x"), {"domain_axes": {1: "x"}}, False),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_pipeline_cases()))
+def test_pipeline_segments_match_plain_on_card(name, cuda, monkeypatch):
+    """compile_pipeline_split over positions repeating the card: every
+    K4 launch of a run against its plain version on the same tiles (the
+    in-domain planes; bit-exact per cell, MXU_VERIFY_RTOL banded), K4
+    launched segments x chunks times (the pipeline x domain case runs
+    the dense tile body, as the reference's, and launches none), and the
+    result equal to the single-device route."""
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.parallel import compile_pipeline_split
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    calls = []
+    launch = stream.run_local_stream
+
+    def record(plan, origin_i, slabs, lib=None, *rest):
+        got = launch(plan, origin_i, slabs, lib, *rest)
+        calls.append((plan, origin_i, dict(slabs), got))
+        return got
+    monkeypatch.setattr(stream, "run_local_stream", record)
+    p, shape, names, kw, banded = _pipeline_cases()[name]
+    fn, plan = compile_pipeline_split(p, make_mesh([cuda], shape, names),
+                                      "p", **kw)
+    domain = bool(kw.get("domain_axes"))
+    assert fn.last_config["backend"] == ("xla" if domain else "stream")
+    inputs = port.load_input_arrays(p, seed=4)
+    before = stream.local_launches + stream.spill_launches
+    out = fn(inputs)
+    S, C = len(plan.segments), plan.num_chunks
+    assert stream.local_launches + stream.spill_launches - before == \
+        (0 if domain else S * C)
+    assert len(calls) == (0 if domain else S * C)
+    rtol = MXU_VERIFY_RTOL if banded else 0.0
+    I = p.dimensions[0]
+    for sp, oi, slabs, got in calls:
+        want = stream.local_stream_plain(sp, oi, slabs)
+        g0 = oi + sp.halo_i
+        lo, hi = max(0, -g0), min(sp.block, I - g0)
+        for o in sp.program.outputs:
+            _check(got[o][lo:hi].cpu().numpy(), want[o][lo:hi].cpu().numpy(),
+                   rtol)
+    single, _route = compile_chain_best(p, device=cuda)
+    ref = single({n: torch.as_tensor(np.asarray(v)).to(cuda)
+                  if np.ndim(v) else v for n, v in inputs.items()})
+    for o in p.outputs:
+        _check(out[o].numpy(), ref[o].reshape(p.raw_dimensions).cpu()
+               .numpy(), rtol)
+
+
+@pytest.mark.cuda
+def test_chunked_sharded_on_card(cuda):
+    """run_chunked(mesh=) over a 2 x 2 mesh repeating the card (the dense
+    tile body on every position): equal to the in-core route."""
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.outofcore import run_chunked
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    p = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(32, 24, 40), shape="diffusion",
+        seed_data="random:0,1"))
+    inputs = port.load_input_arrays(p, seed=5)
+    got = run_chunked(p, {k: np.asarray(v) for k, v in inputs.items()}, 4,
+                      mesh=make_mesh([cuda], (2, 2), ("x", "y")),
+                      dim_axes=(None, "x", "y"))
+    single, _route = compile_chain_best(p, device=cuda)
+    ref = single({n: torch.as_tensor(np.asarray(v)).to(cuda)
+                  for n, v in inputs.items()})
+    for o in p.outputs:
+        np.testing.assert_array_equal(
+            got[o], ref[o].reshape(p.raw_dimensions).cpu().numpy())
