@@ -411,6 +411,14 @@ def _cmd_run_distributed(args) -> int:
             optimize_cuts=args.optimize_cuts,
             domain_axes=domain_axes)
         outputs = {k: v.numpy() for k, v in fn(inputs).items()}
+        cfg = fn.last_config
+        print(f"backend: pipeline[{cfg['backend']} x{mesh.shape['p']} "
+              f"segments, {cfg['io']} io]")
+        if (cfg["backend"] == "xla" and not domain_axes
+                and devices[0].type == "cuda"):
+            # the rescue: some segment fits no K4 plan
+            print("warning: a segment fits no K4 plan; every segment ran "
+                  "the dense tile body on the card", file=sys.stderr)
     else:
         mesh = _make_mesh_2d(devices, args.devices)
         if args.dim_axes:

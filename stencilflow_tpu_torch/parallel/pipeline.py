@@ -431,8 +431,7 @@ def _cut_layouts(program: ir.Program, graph: ChainGraph,
 
 
 def _segment_stream_plans(plan: PipelineSplit, subs, mxu: str,
-                          mxu_precision: str, spill: str,
-                          smem_budget: Optional[int], _composed=None):
+                          mxu_precision: str, _composed=None):
     """Each segment's K4 plan in chunk mode (``plan_local_stream``'s
     legs: banded, every stage per cell, spilled) over its block of
     ``chunk + 2 W`` planes with its own i-halo, and the plan's
@@ -450,8 +449,7 @@ def _segment_stream_plans(plan: PipelineSplit, subs, mxu: str,
         seg_composed = {n: b for n, b in (_composed or {}).items()
                         if n in subp.kernels}
         res = plan_local_stream(subp, suba, geo, mxu=mxu,
-                                mxu_precision=mxu_precision, spill=spill,
-                                smem_budget=smem_budget,
+                                mxu_precision=mxu_precision,
                                 _composed=seg_composed or None)
         if res is None:
             return None
@@ -758,8 +756,6 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
                            local_backend: str = "auto",
                            mxu: str = "auto",
                            mxu_precision: str = "split",
-                           spill: str = "auto",
-                           smem_budget: Optional[int] = None,
                            split_at: Optional[Sequence[str]] = None,
                            cut: Optional[Sequence[str]] = None,
                            segments: Optional[Sequence[Sequence[str]]]
@@ -788,7 +784,6 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     "xla" the dense tile body (runs anywhere), "auto" "stream" on CUDA
     positions and "xla" on CPU ones.  "xla" is also the rescue where no
     K4 plan fits some segment, and ``last_config["backend"]`` says so.
-    ``spill`` and ``smem_budget`` go to K4's planner.
 
     Partition selection (at most one): ``split_at`` cuts after named
     kernels in the global topological order; ``cut`` realizes ONE
@@ -871,7 +866,7 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
                 try:
                     fn2, plan2 = compile_pipeline_split(
                         program2, mesh, axis, num_chunks, None, "stream",
-                        mxu, mxu_precision, spill, smem_budget,
+                        mxu, mxu_precision,
                         optimize_cuts=optimize_cuts, io=io,
                         compose="off", _composed=builds)
                     if fn2.last_config["backend"] == "stream":
@@ -949,7 +944,7 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     splans = None
     if local_backend == "stream":
         splans = _segment_stream_plans(plan, subs, mxu, mxu_precision,
-                                       spill, smem_budget, _composed)
+                                       _composed)
         # None: a segment fits no K4 plan — the dense body
         if splans is None and _composed:
             raise ValueError(

@@ -262,6 +262,7 @@ def test_run_distributed_pipeline_on_host_devices(pprog, capsys, extra,
     assert main(argv) == 0
     out = capsys.readouterr().out
     assert f"ran pipeline over 4 devices (mesh {mesh})" in out
+    assert "backend: pipeline[xla x" in out
     assert "verified against reference: OK" in out
 
 
@@ -283,6 +284,32 @@ def test_run_distributed_pipeline_rc2_checks(pprog, capsys, extra,
             "--force-host-devices"] + extra
     assert main(argv) == 2
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("backend,warns", [("xla", True),
+                                            ("stream", False)])
+def test_run_distributed_pipeline_names_its_backend(pprog, capsys,
+                                                    monkeypatch, backend,
+                                                    warns):
+    """On CUDA positions the segments' body is printed, and the dense
+    tile body taken because no K4 plan fits a segment warns on stderr."""
+    import torch
+    from stencilflow_tpu_torch.parallel import pipeline
+
+    def fake_compile(program, mesh, axis, **kw):
+        def fn(inputs):
+            return {o: torch.zeros(program.dimensions)
+                    for o in program.outputs}
+        fn.last_config = {"backend": backend, "io": "sharded"}
+        return fn, None
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(pipeline, "compile_pipeline_split", fake_compile)
+    assert main(["run-distributed", pprog, "--parallel-mode", "pipeline",
+                 "--devices", "4"]) == 0
+    got = capsys.readouterr()
+    assert f"backend: pipeline[{backend} x4 segments, sharded io]" in got.out
+    assert ("fits no K4 plan" in got.err) == warns
 
 
 def test_run_distributed_pipeline_needs_its_devices(pprog, capsys,
