@@ -8,8 +8,9 @@ Phases, one line each (any failure raises and exits non-zero):
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: every kernel of phases 3 to 7 and 9 generated and compiled at
    once, one nvcc per source, all started together (kernels are built
-   from the checkout's sources; phase 7's and phase 9's through the entry
-   points' own compile calls, on threads beside);
+   from the checkout's sources; phase 7's, phase 9's and phase 4's
+   autotune candidates through the entry points' own compile calls, on
+   threads beside);
 3. kernel vs plain version on the card: the panel and overlap kernels,
    each forced through its own plan, against their plain torch versions
    on three example programs and five random chains (constant / copy /
@@ -90,7 +91,15 @@ Phases, one line each (any failure raises and exits non-zero):
    resident blocks per SM, time and bound; after the main path, one
    ``F.conv3d`` (``F.conv2d`` for jacobi2d) per stage, chained (TF32
    off), is timed for the linear chains as a library yardstick the port
-   never calls;
+   never calls; then the autotuned main path on cross3d 256^3 x 8 of
+   extent 2: ``compile_chain_autotuned`` with the default labels, one
+   trial and a temporary cache (each label's ms, the skipped labels and
+   the phase-2 build seconds printed; every timed candidate's kernel
+   launched, counts reset just before and read just after), each
+   measured candidate equal to the dense lowering (bit-exact per cell,
+   MXU_VERIFY_RTOL banded), a second call served from the cache, and
+   ``run_program(..., backend="autotuned", compare_to_reference=True)``
+   verified, the winner's kernel launched;
 5. the out-of-core path (``run --host-chunks N``) through
    ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
    8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
@@ -776,6 +785,144 @@ def _measurement(pn, smi):
     del a, b
     torch.cuda.empty_cache()
     return {"copy_floor": p4, "alu_ceiling": p1, "loop_copy": p7}
+
+
+def _autotune_thunks(program, build_s):
+    """One thunk per default autotune label of ``program``: phase 2 runs
+    them beside its other builds (a planner's refusal or a label that
+    does not apply builds nothing), each thunk's seconds into
+    ``build_s``."""
+    from stencilflow_tpu_torch import autotune as at
+
+    def build(label):
+        t0 = time.perf_counter()
+        try:
+            at.build_from_label(program, label, device="cuda")
+        except (KeyError, ValueError, NotImplementedError):
+            return
+        build_s[label] = time.perf_counter() - t0
+    return [lambda label=label: build(label) for label in at.DEFAULT_LABELS]
+
+
+def _autotune_leg(sft, st, pn, ov, gp, tl, program, build_s, smi,
+                  run_program):
+    """Phase 4, continued: ``compile_chain_autotuned`` on ``program`` with
+    the default labels, one trial, a temporary cache; each measured
+    candidate against ``dense``; a second call from the cache; ``run
+    --backend autotuned``.  Counts are reset just before each drive and
+    read just after: every timed candidate's kernel must launch, and the
+    winner's again through ``run_program``."""
+    import tempfile
+
+    import torch
+    from stencilflow_tpu_torch import autotune as at
+    from stencilflow_tpu_torch.backend import compile_chain
+    from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
+    counters = {"stream": lambda: st.launches + st.spill_launches,
+                "panel": lambda: pn.launches,
+                "overlap": lambda: ov.launches, "group": lambda: gp.launches,
+                "pallas": lambda: tl.launches}
+
+    def reset():
+        pn.launches = ov.launches = gp.launches = tl.launches = 0
+        st.launches = st.spill_launches = st.local_launches = 0
+
+    def launched(label):
+        kind = label.split(":")[0]
+        return counters[kind]() if kind in counters else None
+
+    t_leg = time.perf_counter()
+    tuned = {}
+    tune = at.autotune
+
+    def keep(*a, **k):   # the result's timings, skips and build seconds
+        tuned["res"] = tune(*a, **k)
+        return tuned["res"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        at.autotune = keep
+        try:
+            reset()
+            fn, label = at.compile_chain_autotuned(program, cache_path=cache,
+                                                   device="cuda", trials=1)
+            torch.cuda.synchronize()
+            counts = {l: launched(l) for l in tuned["res"].timings}
+        finally:
+            at.autotune = tune
+        res = tuned["res"]
+        idle = [l for l, n in counts.items() if n == 0]
+        if idle:
+            raise RuntimeError(f"autotune: {idle} timed without a launch")
+        print(f"autotune: {program.name} winner {label} "
+              f"{res.seconds * 1e3:.3f} ms | " + ", ".join(
+                  f"{l} {t * 1e3:.3f} ms" for l, t in res.timings.items())
+              + " | skipped: " + (", ".join(
+                  f"{l} ({why.splitlines()[0][:50]})"
+                  for l, why in res.skipped.items()) or "none")
+              + " | build s (phase 2): " + ", ".join(
+                  f"{l} {build_s.get(l, 0.0):.1f}" for l in res.timings)
+              + f" | launches {counts} | {smi}", flush=True)
+        # each measured candidate against dense on the same inputs
+        inputs = {k: v if program.inputs[k].is_scalar else
+                  torch.as_tensor(np.asarray(v)).cuda()
+                  for k, v in sft.load_input_arrays(program,
+                                                    seed=0).items()}
+        want = {o: v.cpu().numpy()
+                for o, v in compile_chain(program)(inputs).items()}
+        errs = {}
+        for l in res.timings:
+            cand = at.build_from_label(program, l, device="cuda")
+            banded = bool(getattr(cand, "last_config", {}).get(
+                "mxu_stages"))
+            got = cand(inputs)
+            for o in program.outputs:
+                ok, err = _compare(got[o].cpu().numpy(), want[o],
+                                   MXU_VERIFY_RTOL if banded else 0.0)
+                if not ok:
+                    raise RuntimeError(f"autotune: {l} disagrees with dense "
+                                       f"on {program.name} ({err:.3g})")
+                errs[l] = max(errs.get(l, 0.0), err)
+            del got
+        del inputs
+        torch.cuda.empty_cache()
+
+        def boom(*a, **k):
+            raise RuntimeError("autotune: the second call tuned again")
+        at.autotune = boom
+        try:
+            _fn, again = at.compile_chain_autotuned(program, cache_path=cache,
+                                                    device="cuda")
+        finally:
+            at.autotune = tune
+        if again != label:
+            raise RuntimeError(f"autotune: the cache gave {again}, the "
+                               f"tuning {label}")
+        before = os.environ.get("SFT_AUTOTUNE_CACHE")
+        os.environ["SFT_AUTOTUNE_CACHE"] = cache
+        try:
+            reset()
+            run = run_program(program, device="cuda", backend="autotuned",
+                              compare_to_reference=True, repetitions=20,
+                              save_results=False, log_level=0)
+            torch.cuda.synchronize()
+            winner_launches = launched(label)
+        finally:
+            if before is None:
+                del os.environ["SFT_AUTOTUNE_CACHE"]
+            else:
+                os.environ["SFT_AUTOTUNE_CACHE"] = before
+    if run.backend != f"autotuned:{label}" or \
+            not run.verified_against_reference or winner_launches == 0:
+        raise RuntimeError(f"autotune: run_program took {run.backend}, "
+                           f"verified {run.verified_against_reference}, "
+                           f"winner launches {winner_launches}")
+    print(f"autotune: every measured candidate equal to dense (banded "
+          f"within MXU_VERIFY_RTOL; max abs err {errs}) | second call from "
+          f"the cache: {again} | run --backend autotuned: {run.backend} "
+          f"{run.wall_time_s * 1e3:.3f} ms, verified against reference OK, "
+          f"winner launches {winner_launches} | leg took "
+          f"{time.perf_counter() - t_leg:.1f} s | {smi}", flush=True)
 
 
 def _solver_setup(sft, jacobi8):
@@ -2171,9 +2318,12 @@ def main() -> int:
     solver_progs, solver_thunks = _solver_setup(sft, jacobi8)
     # phase 9's sharded engines and single-device routes, the same way
     sharded_setup, sharded_thunks = _sharded_setup(sft, jacobi8, box256)
+    # phase 4's autotune leg: every default candidate of cross3d 256^3 x 8
+    autotune_build_s = {}
+    autotune_thunks = _autotune_thunks(cross256, autotune_build_s)
     with ThreadPoolExecutor(max_workers=8) as pool:
         solver_built = [pool.submit(t) for t in solver_thunks
-                        + sharded_thunks]
+                        + sharded_thunks + autotune_thunks]
         libs = build.load_libraries(sources)
         for fut in solver_built:
             fut.result()
@@ -2761,6 +2911,9 @@ def main() -> int:
     if st.local_launches:
         raise RuntimeError("the in-core main path launched the local "
                            "stream kernel")
+    # the autotuned main path on cross3d 256^3 x 8, extent 2
+    _autotune_leg(sft, st, pn, ov, gp, tl, cross256, autotune_build_s, smi,
+                  run_program)
 
     # -- 5. the out-of-core path ---------------------------------------------
     print(f"phase: 5 at {time.perf_counter() - t_run:.1f} s", flush=True)

@@ -15,7 +15,10 @@ stream kernel's local mode (K4).  On those lowerings: time-stepping with
 checkpoints, its loop replayed from CUDA graphs (iterate.py), adjoints
 and gradients (grad.py) and CG / CGNR solves (solve.py).  The
 cycle-accurate dataflow simulator (sim/, on the host) cross-checks the
-kernels' outputs (``run --run-simulation``).  The measurement path:
+kernels' outputs (``run --run-simulation``).  ``autotune.py`` times
+every applicable lowering on the card and caches the winner
+(``compile_chain_autotuned``, ``run --backend autotuned``).  The
+measurement path:
 the analytic report on the H100 hardware model (report.py, ``cli
 report``), the bench (bench.py) and the probes that measure the model's
 constants (probes/).
@@ -37,6 +40,9 @@ from .grad import (adjoint_program, fast_value_and_grad, grad,
 from .solve import make_solver, solve_cg, solve_cgnr
 from .iterate import compose_iterations, iterate, make_step
 from .outofcore import compile_chunked_chain, run_chunked
+# only the compile entry point: exporting autotune.autotune here would
+# shadow the stencilflow_tpu_torch.autotune module attribute
+from .autotune import compile_chain_autotuned
 from .interpreter import ChainInterpreter, run_interpreter
 from .data import (arrays_are_equal, load_input_arrays, prune_halo,
                    save_output_arrays)
@@ -52,7 +58,7 @@ __all__ = [
     "compose_iterations", "iterate", "make_step",
     "adjoint_program", "fast_value_and_grad", "grad", "value_and_grad",
     "make_solver", "solve_cg", "solve_cgnr",
-    "compile_chunked_chain", "run_chunked",
+    "compile_chunked_chain", "run_chunked", "compile_chain_autotuned",
     "ChainInterpreter", "run_interpreter",
     "arrays_are_equal", "load_input_arrays", "prune_halo",
     "save_output_arrays",

@@ -45,7 +45,8 @@ from .data import load_input_arrays
 from .driver import BACKEND_ALIASES, _compile
 from .frontend.analysis import ChainAnalysis
 from .frontend.parser import parse_program
-from .probes import ClockSampler, card, differenced_ms
+from .probes import (ClockSampler, card, differenced_ms,
+                     host_differenced_ms)
 from .report import Report
 from .synthesize import jacobi, synthesize_stencil
 
@@ -81,12 +82,9 @@ def loop_lengths(cells: int, cuda: bool):
     return max(3, big // 5), big, 5
 
 
-def time_per_application(fn, inputs: Dict[str, object], in_name: str,
-                         out_name: str, cells: int, device) -> float:
-    """Seconds per application of ``fn``: a loop whose iterations apply
-    it twice, output into input, at two lengths, differenced."""
-    cuda = device.type == "cuda"
-    small, big, trials = loop_lengths(cells, cuda)
+def feed_loop(fn, inputs: Dict[str, object], in_name: str, out_name: str):
+    """``run(n)``: ``n`` loop iterations that each apply ``fn`` twice,
+    output ``out_name`` into input ``in_name``."""
     rest = {k: v for k, v in inputs.items() if k != in_name}
 
     def run(n):
@@ -95,18 +93,18 @@ def time_per_application(fn, inputs: Dict[str, object], in_name: str,
             y = fn({in_name: x, **rest})[out_name]
             x = fn({in_name: y, **rest})[out_name]
         return x
+    return run
 
-    if cuda:
-        return differenced_ms(run, small, big, trials) / 2 / 1e3
-    best = {}
-    run(small)
-    for n in (small, big):
-        for _ in range(trials):
-            t0 = time.perf_counter()
-            run(n)
-            best[n] = min(best.get(n, float("inf")),
-                          time.perf_counter() - t0)
-    return (best[big] - best[small]) / (big - small) / 2
+
+def time_per_application(fn, inputs: Dict[str, object], in_name: str,
+                         out_name: str, cells: int, device) -> float:
+    """Seconds per application of ``fn``: a loop whose iterations apply
+    it twice, output into input, at two lengths, differenced."""
+    cuda = device.type == "cuda"
+    small, big, trials = loop_lengths(cells, cuda)
+    diff = differenced_ms if cuda else host_differenced_ms
+    return diff(feed_loop(fn, inputs, in_name, out_name), small, big,
+                trials) / 2 / 1e3
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,9 @@
-"""Command-line interface of the port: the ``run``, ``simulate``,
-``report``, ``iterate``, ``solve``, ``adjoint``, ``partition`` and
-``run-distributed`` subcommands.
+"""Command-line interface of the port: the ``run``, ``autotune``,
+``simulate``, ``report``, ``iterate``, ``solve``, ``adjoint``,
+``partition`` and ``run-distributed`` subcommands.
 
-    python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] --device cuda
+    python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] [--backend autotuned] --device cuda
+    python -m stencilflow_tpu_torch.cli autotune <prog.json> [--no-sweep] [--trials N] [--cache F | --no-cache] [--json] [--device cuda | --emulation]
     python -m stencilflow_tpu_torch.cli simulate <prog.json> [--no-native] [--trace CSV] [--trace-chrome JSON] [--output-dir D]
     python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R]
     python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
@@ -16,7 +17,8 @@ Port of the same subcommands of ``stencilflow_tpu/cli.py``: the JAX
 package's own usage parses here too and prints the same lines.  Its
 spellings map to the port's (``--no-mxu`` is ``--mxu off``, ``--backend
 pallas`` is ``tile``, ``--backend xla`` is ``dense``, ``solve
---emulation`` is ``--device cpu``; the ``run`` mode is accepted and
+--emulation`` and ``autotune --emulation`` are ``--device cpu``; the
+``run`` mode is accepted and
 ignored, as there); options whose engines are not ported yet exit with
 ``error:`` and rc 2, naming the ROADMAP item that ports them.  The
 simulator (``run --run-simulation``, ``simulate``) runs on the host:
@@ -33,7 +35,7 @@ import sys
 NOT_PORTED = {
     "--ring-storage bfloat16": "Queue 1 item 11 (bf16)",
     "--mxu-precision bf16": "Queue 1 item 11 (bf16)",
-    "--backend autotuned": "Queue 1 item 7 (M14, autotune)",
+    "--allow-reduced-precision": "Queue 1 item 11 (bf16)",
     "--plot": "Queue 1 item 10 (M15; the card's machine has no "
               "matplotlib)",
     "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model on an NVLink "
@@ -58,9 +60,7 @@ def _cmd_run(args) -> int:
     for given, option in ((args.ring_storage == "bfloat16",
                            "--ring-storage bfloat16"),
                           (args.mxu_precision == "bf16",
-                           "--mxu-precision bf16"),
-                          (args.backend == "autotuned",
-                           "--backend autotuned")):
+                           "--mxu-precision bf16")):
         if given:
             return _refuse(option)
     try:
@@ -108,6 +108,49 @@ def _cmd_run(args) -> int:
               f"{'OK' if res.verified_against_simulation else 'FAIL'}")
     if res.results_dir:
         print(f"results written to {res.results_dir}/")
+    return 0
+
+
+def _cmd_autotune(args) -> int:
+    """Time every applicable lowering on the device and cache the winner
+    (``run --backend autotuned`` takes it)."""
+    from .autotune import autotune, save_result
+    from .frontend.parser import parse_program
+    for given, option in ((args.allow_reduced_precision,
+                           "--allow-reduced-precision"),
+                          (args.mxu_precision == "bf16",
+                           "--mxu-precision bf16")):
+        if given:
+            return _refuse(option)
+    program = parse_program(args.stencil_file)
+    device = "cpu" if args.emulation else args.device
+    settings = dict(mxu="off" if args.no_mxu else "auto",
+                    mxu_precision=args.mxu_precision,
+                    spill="off" if args.no_spill else "auto")
+    res = autotune(program, sweep=args.sweep, trials=args.trials,
+                   seed=args.seed, device=device, verbose=not args.json,
+                   **settings)
+    path = None
+    if not args.no_cache:
+        path = save_result(program, res, args.cache, device=device,
+                           **settings)
+    if args.json:
+        print(json.dumps({
+            "winner": res.label,
+            "seconds_per_run": res.seconds,
+            "gcell_s": program.total_elements / res.seconds / 1e9,
+            "timings": res.timings,
+            "skipped": res.skipped,
+            "cache": path,
+        }))
+    else:
+        for label, why in res.skipped.items():
+            print(f"  {label:16s} skipped: {why.splitlines()[0][:60]}")
+        gc = program.total_elements / res.seconds / 1e9
+        print(f"winner: {res.label} ({res.seconds * 1e3:.3f} ms/run, "
+              f"{gc:.2f} GCell/s)")
+        if path:
+            print(f"cached -> {path}")
     return 0
 
 
@@ -468,10 +511,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--halo", type=int, default=0)
     p.add_argument("--repetitions", type=int, default=1)
     p.add_argument("--backend", default="auto",
-                   choices=list(BACKENDS) + list(BACKEND_ALIASES)
-                   + ["autotuned"],
+                   choices=list(BACKENDS) + list(BACKEND_ALIASES),
                    help="pallas = tile, xla = dense (the JAX package's "
-                        "names); autotuned is not ported yet")
+                        "names); autotuned: the winner `autotune` cached "
+                        "for this program and device (tuned on a miss)")
     p.add_argument("--tolerance", type=float, default=None,
                    help="relative verification tolerance (default: "
                         "config.VERIFY_RTOL, MXU_VERIFY_RTOL for a stream "
@@ -506,6 +549,36 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler chrome trace of the run")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=_cmd_run)
+
+    p = sub.add_parser("autotune",
+                       help="time every applicable lowering on this "
+                            "device and cache the winner for "
+                            "`run --backend autotuned`")
+    p.add_argument("stencil_file")
+    p.add_argument("--sweep", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="also time the explicit overlap / group block "
+                        "sizes and the second rows group; --no-sweep "
+                        "times the default candidates only")
+    p.add_argument("--trials", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to tune on (default: cuda)")
+    p.add_argument("--emulation", action="store_true",
+                   help="the JAX package's spelling of --device cpu")
+    p.add_argument("--no-mxu", action="store_true")
+    p.add_argument("--no-spill", action="store_true")
+    p.add_argument("--mxu-precision", default="split",
+                   choices=["split", "bf16", "exact"],
+                   help="bf16 is not ported yet (exits with rc 2)")
+    p.add_argument("--allow-reduced-precision", action="store_true",
+                   help="not ported yet (exits with rc 2)")
+    p.add_argument("--cache", help="cache file (default: "
+                                   "$SFT_AUTOTUNE_CACHE, else ~/.cache/"
+                                   "stencilflow_tpu_torch/autotune.json)")
+    p.add_argument("--no-cache", action="store_true")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=_cmd_autotune)
 
     p = sub.add_parser("simulate", help="cycle-accurate dataflow simulation "
                                         "(on the host)")

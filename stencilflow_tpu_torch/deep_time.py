@@ -1,12 +1,13 @@
 """Time the route plans of the stream kernel's deep cells (K3c), of the
 panel kernel's cells (K1), of the stream kernel's banded cells (K3b), of
 K4's out-of-core chunk, of the group kernel's cells (K5), of the
-overlapped-tile kernel's cells (K6), of the overlap kernel's cells (K2)
-or of the pipeline split (K4 a segment), for one checkout.
+overlapped-tile kernel's cells (K6), of the overlap kernel's cells (K2),
+of the pipeline split (K4 a segment) or of autotune's winners, for one
+checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
         [--cells deep|panel|banded|local|group|tile|overlap|solvers|
-                 pipeline]
+                 pipeline|autotune]
         [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
@@ -34,7 +35,10 @@ loop eager against its CUDA-graph replay and fused by 1, 2, 4 and 8, and
 CG's iteration split into the operator and the vector passes
 (``_solvers``).  ``--cells pipeline``: the pipeline split over a mesh
 repeating the card in turns with the single-device route
-(``_pipeline``).  ``--cells overlap``: jacobi3d and
+(``_pipeline``).  ``--cells autotune``: ``autotune`` (sweep, 3 trials)
+on cross-r2 256^3 x 8, hdiff3d 256^3 x 8 and jacobi2d 8192^2 x 8, each
+winner in turns with the route (``_autotune``).  ``--cells overlap``:
+jacobi3d and
 hotspot3d 512^3 x 2 and jacobi2d 8192^2 x 2 (I = 1) on the overlap
 kernel's plan (``OverlapPlan.build``, their route), each followed by
 the overlapped-tile kernel's fast mode on the same program.  Random
@@ -216,18 +220,6 @@ def _solvers(smi: str, reps: int) -> dict:
     from stencilflow_tpu_torch.report import HardwareModel, Report
     from stencilflow_tpu_torch.synthesize import jacobi
 
-    def events(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n
-
     out = {}
     for size, fuses in ((512, (1, 2, 4, 8)), (64, (1,))):
         base = sft.parse_program(jacobi(3, size, 1),
@@ -251,8 +243,8 @@ def _solvers(smi: str, reps: int) -> dict:
                              torch.device("cuda"))
             loop.run(n)
             equal = torch.equal(loop.buffers["a"], want)
-            eager_ms = events(eager, reps) / (n * fuse)
-            graph_ms = events(lambda: loop.run(n), reps) / (n * fuse)
+            eager_ms = _events(eager, reps) / (n * fuse)
+            graph_ms = _events(lambda: loop.run(n), reps) / (n * fuse)
             bound_ms = Report.build(p).roofline_time_s() * 1e3 / fuse
             key = f"{base.name} fuse {fuse}"
             out[key] = {"route": step.backend, "eager_ms": eager_ms,
@@ -281,7 +273,7 @@ def _solvers(smi: str, reps: int) -> dict:
     torch.cuda.synchronize()
     iter_ms = start.elapsed_time(stop) / info["iterations"]
     op = solver.operator
-    op_ms = events(lambda: op(x), reps)
+    op_ms = _events(lambda: op(x), reps)
     # one iteration's vector passes on the same vectors (solve.py
     # _make_cg_run less the operator's launch)
     r, q, ap, off = rhs.clone(), x.clone(), op(x), rhs.clone()
@@ -295,7 +287,7 @@ def _solvers(smi: str, reps: int) -> dict:
         rs_new = torch.dot(r.reshape(-1), r.reshape(-1))
         torch.addcmul(r, q, rs_new / rs, out=q)
 
-    vec_ms = events(passes, reps)
+    vec_ms = _events(passes, reps)
     # bytes each input read once, each output written once: the offset
     # subtraction 3 vectors, the dots 2 and 1, each addcmul 3
     floor = HardwareModel().copy_floor
@@ -318,6 +310,21 @@ def _solvers(smi: str, reps: int) -> dict:
     return out
 
 
+def _events(fn, n: int) -> float:
+    """ms a call of ``fn``: ``n`` calls on CUDA events after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def _pipeline(smi: str, reps: int) -> dict:
     """``--cells pipeline``: the pipeline split over a ``("p",)`` mesh
     repeating the card (``compile_pipeline_split``, sharded io, K4 a
@@ -337,18 +344,6 @@ def _pipeline(smi: str, reps: int) -> dict:
     from stencilflow_tpu_torch.parallel import compile_pipeline_split
     from stencilflow_tpu_torch.parallel.mesh import make_mesh
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
-
-    def events(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / n
 
     cuda = torch.device("cuda", 0)
     out = {}
@@ -376,10 +371,10 @@ def _pipeline(smi: str, reps: int) -> dict:
         equal = torch.equal(got[o].gather(cuda),
                             want[o].reshape(p.raw_dimensions))
         del got, want
-        pipe_a = events(lambda: fn(placed), reps)
-        route_a = events(lambda: single(dev_in), reps)
-        route_b = events(lambda: single(dev_in), reps)
-        pipe_b = events(lambda: fn(placed), reps)
+        pipe_a = _events(lambda: fn(placed), reps)
+        route_a = _events(lambda: single(dev_in), reps)
+        route_b = _events(lambda: single(dev_in), reps)
+        pipe_b = _events(lambda: fn(placed), reps)
         label = f"{p.name} over {S}"
         row = {"pipeline_ms": [pipe_a, pipe_b], "route": route,
                "route_ms": [route_a, route_b], "equal_route": bool(equal),
@@ -400,6 +395,76 @@ def _pipeline(smi: str, reps: int) -> dict:
             raise RuntimeError(f"{label}: equal {equal}, K4 launches "
                                f"{launches}")
         del dev_in, placed
+        torch.cuda.empty_cache()
+    return out
+
+
+def _autotune(smi: str, reps: int) -> dict:
+    """``--cells autotune``: ``autotune`` with the sweep and 3 trials on
+    cross-r2 256^3 x 8, hdiff3d 256^3 x 8 and jacobi2d 8192^2 x 8 (every
+    label's ms, the skipped labels, the build seconds and the winner),
+    then the route (``compile_chain_best``) and the winner in turns:
+    route, winner, winner, route, each ``reps`` calls after a warm-up.
+    The winner's output is checked against the route's (bit for bit per
+    cell, within MXU_VERIFY_RTOL where either has banded stages)."""
+    import time
+
+    import numpy as np
+    import torch
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch.autotune import autotune
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
+    from stencilflow_tpu_torch.data import arrays_are_equal
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+
+    out = {}
+    for shape, dims, iters, extent in (("cross", (256,) * 3, 8, 2),
+                                       ("hdiff", (256,) * 3, 8, 1),
+                                       ("diffusion", (8192, 8192), 8, 1)):
+        p = sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape, extent=extent,
+            seed_data="random:0.0,1.0"),
+            name=f"{shape}{len(dims)}d_{dims[0]}_{iters}itr")
+        t0 = time.perf_counter()
+        res = autotune(p, sweep=True, trials=3, device="cuda")
+        tune_s = time.perf_counter() - t0
+        single, route = compile_chain_best(p, device="cuda")
+        dev_in = {k: v if p.inputs[k].is_scalar else
+                  torch.as_tensor(np.asarray(v)).cuda()
+                  for k, v in sft.load_input_arrays(p, seed=0).items()}
+        banded = any(getattr(f, "last_config", {}).get("mxu_stages")
+                     for f in (single, res.fn))
+        o = p.outputs[0]
+        got, want = res.fn(dev_in)[o].cpu().numpy(), \
+            single(dev_in)[o].cpu().numpy()
+        equal = (arrays_are_equal(want, got, MXU_VERIFY_RTOL) if banded
+                 else np.array_equal(got, want))
+        route_a = _events(lambda: single(dev_in), reps)
+        win_a = _events(lambda: res.fn(dev_in), reps)
+        win_b = _events(lambda: res.fn(dev_in), reps)
+        route_b = _events(lambda: single(dev_in), reps)
+        row = {"winner": res.label,
+               "label_ms": {l: t * 1e3 for l, t in res.timings.items()},
+               "skipped": {l: why.splitlines()[0][:80]
+                           for l, why in res.skipped.items()},
+               "build_s": res.build_seconds, "tune_s": tune_s,
+               "route": route, "route_ms": [route_a, route_b],
+               "winner_ms": [win_a, win_b], "equal_route": bool(equal)}
+        out[p.name] = row
+        print(f"{p.name}: winner {res.label} {res.seconds * 1e3:.3f} ms | "
+              + ", ".join(f"{l} {t:.3f}" for l, t in
+                          row["label_ms"].items())
+              + f" | skipped {sorted(res.skipped)} | tuned in "
+              f"{tune_s:.1f} s (builds "
+              f"{max(res.build_seconds.values()):.1f} s at most) | in "
+              f"turns: route {route} {route_a:.3f} / {route_b:.3f} ms, "
+              f"winner {win_a:.3f} / {win_b:.3f} ms, equal {equal} | {smi}",
+              flush=True)
+        if not equal:
+            raise RuntimeError(f"{p.name}: the winner {res.label} disagrees "
+                               f"with the route {route}")
+        del dev_in, res, single
         torch.cuda.empty_cache()
     return out
 
@@ -431,7 +496,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
                                         "group", "tile", "overlap",
-                                        "solvers", "pipeline"),
+                                        "solvers", "pipeline", "autotune"),
                     default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
@@ -451,8 +516,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.cells in ("solvers", "pipeline"):
-        cells = {"solvers": _solvers, "pipeline": _pipeline}[args.cells]
+    if args.cells in ("solvers", "pipeline", "autotune"):
+        cells = {"solvers": _solvers, "pipeline": _pipeline,
+                 "autotune": _autotune}[args.cells]
         print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
                           "cells": cells(smi, args.reps)}))
         return 0

@@ -14,7 +14,10 @@ single-pass bf16 transforms and bf16 ring storage.  ``backend="rows"``
 streams a 2-D program's rows (``compile_chain_rows``, the auto lowering
 of the rotated program), as ``--backend rows`` does in the JAX package;
 ``backend="tile"`` forces the overlapped-tile kernel (K6), the JAX
-package's ``pallas``; its ``xla`` is ``dense`` here.  ``host_chunks=N``
+package's ``pallas``; its ``xla`` is ``dense`` here.
+``backend="autotuned"`` takes the lowering ``autotune.py`` measured
+fastest for this program on this device (cached; tuned on a miss), named
+``autotuned:<label>``.  ``host_chunks=N``
 (N > 1) runs out-of-core (``outofcore.py``): inputs stay on the host and
 i-chunks stream through the chunk kernel K4 (``outofcore[stream xN
 chunks]``) or, on the CPU or where K4's planner refuses, the dense tile
@@ -47,8 +50,8 @@ from .frontend.analysis import ChainAnalysis
 from .frontend.parser import parse_program
 from .interpreter import run_interpreter
 
-BACKENDS = ("auto", "stream", "rows", "panel", "overlap", "tile", "dense",
-            "interpreter")
+BACKENDS = ("auto", "autotuned", "stream", "rows", "panel", "overlap",
+            "tile", "dense", "interpreter")
 # the JAX package's names for the port's lowerings (its ``--backend``)
 BACKEND_ALIASES = {"pallas": "tile", "xla": "dense"}
 
@@ -78,6 +81,14 @@ def _compile(program, analysis, backend: str, device, mxu, mxu_precision,
     if backend == "auto":
         return compile_chain_best(program, analysis, device=device, mxu=mxu,
                                   mxu_precision=mxu_precision, spill=spill)
+    if backend == "autotuned":
+        # the measured winner, from the cache or tuned now on ``device``
+        from .autotune import compile_chain_autotuned
+        fn, label = compile_chain_autotuned(program, analysis, device=device,
+                                            mxu=mxu,
+                                            mxu_precision=mxu_precision,
+                                            spill=spill)
+        return fn, f"autotuned:{label}"
     if backend == "stream":
         return (compile_chain_stream(program, analysis, mxu=mxu,
                                      mxu_precision=mxu_precision,

@@ -27,6 +27,7 @@ import functools
 import os
 import subprocess
 import sys
+import time
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -159,6 +160,21 @@ def differenced_ms(run: Callable[[int], None], n1: int, n2: int,
             stop.synchronize()
             best[n] = min(best.get(n, float("inf")),
                           start.elapsed_time(stop))
+    return (best[n2] - best[n1]) / (n2 - n1)
+
+
+def host_differenced_ms(run: Callable[[int], None], n1: int, n2: int,
+                        trials: int) -> float:
+    """``differenced_ms`` on the host clock, for work that runs on the
+    CPU: ``run(n)`` returns when its ``n`` units are done."""
+    run(n1)                      # warm-up
+    best = {}
+    for n in (n1, n2):
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            run(n)
+            best[n] = min(best.get(n, float("inf")),
+                          (time.perf_counter() - t0) * 1e3)
     return (best[n2] - best[n1]) / (n2 - n1)
 
 

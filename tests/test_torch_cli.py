@@ -6,7 +6,9 @@ the reference's spellings map to the port's lowerings (``--no-mxu``,
 mode), and the options whose engines are not ported exit with ``error:``
 and rc 2, naming their ROADMAP item.  ``report --json`` prints the
 reference's keys with the same hardware-independent numbers.
-``partition`` prints the reference's lines, and ``run-distributed
+``autotune`` parses the reference's arguments and prints its JSON keys,
+``run --backend autotuned`` runs the cached winner, ``partition`` prints
+the reference's lines, and ``run-distributed
 --parallel-mode pipeline`` runs on virtual CPU positions with the
 reference's rc-2 checks.
 """
@@ -49,6 +51,7 @@ def _argvs(sub):
 
 REF_RUN = list(_argvs(_subparser(ref_parser(), "run")))
 REF_REPORT = list(_argvs(_subparser(ref_parser(), "report")))
+REF_AUTOTUNE = list(_argvs(_subparser(ref_parser(), "autotune")))
 
 
 @pytest.mark.parametrize("extra", REF_RUN + [["emulation"], ["hardware"]],
@@ -106,7 +109,6 @@ def test_no_mxu_is_mxu_off(monkeypatch, prog):
                  id="extra1-item 11"),
     pytest.param(["--mxu-precision", "bf16"], "item 11",
                  id="extra2-item 11"),
-    pytest.param(["--backend", "autotuned"], "item 7", id="extra3-item 7"),
 ])
 def test_run_refuses_unported_options(prog, capsys, extra, item):
     assert main(["run", prog, "--device", "cpu"] + extra) == 2
@@ -321,3 +323,68 @@ def test_run_distributed_pipeline_needs_its_devices(pprog, capsys,
     assert main(["run-distributed", pprog, "--parallel-mode", "pipeline",
                  "--devices", "2"]) == 2
     assert "only 1 devices available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", REF_AUTOTUNE, ids=" ".join)
+def test_autotune_parses_every_reference_argument(extra):
+    ref_parser().parse_args(["autotune", "prog.json"] + extra)
+    args = build_parser().parse_args(["autotune", "prog.json"] + extra)
+    assert args.stencil_file == "prog.json"
+
+
+@pytest.fixture
+def jprog(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    path = tmp_path / "jprog.json"
+    path.write_text(json.dumps(synthesize_stencil(
+        num_stages=2, dimensions=(8, 10, 12), shape="diffusion")))
+    return str(path)
+
+
+@pytest.mark.parametrize("flag", ["--device", "--emulation"])
+def test_autotune_json_prints_the_reference_keys(jprog, tmp_path, capsys,
+                                                 flag):
+    cache = str(tmp_path / "at.json")
+    argv = ["autotune", jprog, "--no-sweep", "--trials", "1", "--cache",
+            cache, "--json"] + (["--device", "cpu"] if flag == "--device"
+                                else ["--emulation"])
+    assert main(argv) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(got) == {"winner", "seconds_per_run", "gcell_s", "timings",
+                        "skipped", "cache"}
+    assert got["winner"] in got["timings"] and got["cache"] == cache
+    assert got["seconds_per_run"] == min(got["timings"].values()) > 0
+    entry, = json.load(open(cache)).values()
+    assert entry["label"] == got["winner"] and entry["device"] == "cpu:cpu"
+
+
+def test_autotune_prints_the_reference_lines(jprog, capsys):
+    assert main(["autotune", jprog, "--no-sweep", "--trials", "1",
+                 "--device", "cpu", "--no-cache"]) == 0
+    out = capsys.readouterr().out
+    assert "winner: " in out and " ms/run, " in out
+    assert "cached -> " not in out
+    assert " ms " in out and "GCell/s" in out
+
+
+def test_run_backend_autotuned(jprog, tmp_path, capsys, monkeypatch):
+    monkeypatch.setenv("SFT_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    argv = ["run", jprog, "--backend", "autotuned", "--device", "cpu",
+            "--compare-to-reference"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    label = re.search(r"^backend: autotuned:(\S+)$", out, re.M).group(1)
+    assert "verified against reference: OK" in out
+    entry, = json.load(open(tmp_path / "at.json")).values()
+    assert entry["label"] == label
+    assert main(argv) == 0      # the cached winner
+    assert f"backend: autotuned:{label}\n" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [["--allow-reduced-precision"],
+                                   ["--mxu-precision", "bf16"]],
+                         ids=" ".join)
+def test_autotune_refuses_reduced_precision(jprog, capsys, extra):
+    assert main(["autotune", jprog, "--device", "cpu"] + extra) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: ") and "ROADMAP Queue 1 item 11" in err

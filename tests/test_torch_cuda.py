@@ -1402,3 +1402,87 @@ def test_chunked_sharded_on_card(cuda):
     for o in p.outputs:
         np.testing.assert_array_equal(
             got[o], ref[o].reshape(p.raw_dimensions).cpu().numpy())
+
+
+# -- autotune: every candidate on the card ------------------------------------
+
+def _autotune_cases():
+    def synth(shape, dims, iters, **kw):
+        return port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape,
+            seed_data="random:0,1", **kw))
+    return {"jacobi3d": synth("diffusion", (32, 40, 48), 3),
+            "box-r2": synth("box", (24, 32, 40), 2, extent=2),
+            "jacobi2d": synth("diffusion", (128, 192), 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_autotune_cases()))
+def test_autotune_candidates_equal_dense_on_card(name, cuda):
+    """``autotune(device="cuda", sweep=True)``: every candidate is built
+    and timed on the card (only planner refusals skipped), and each one's
+    output equals ``dense``'s on the same inputs, bit for bit per cell,
+    within MXU_VERIFY_RTOL where its stream plan has banded stages."""
+    from stencilflow_tpu_torch import autotune as at
+    from stencilflow_tpu_torch.backend import compile_chain
+    p = _autotune_cases()[name]
+    res = at.autotune(p, device="cuda", sweep=True, trials=1)
+    assert res.label in res.timings
+    assert all(np.isfinite(t) and t > 0 for t in res.timings.values())
+    inputs = {k: v if p.inputs[k].is_scalar else
+              torch.as_tensor(np.asarray(v)).to(cuda)
+              for k, v in port.load_input_arrays(p, seed=0).items()}
+    want = compile_chain(p)(inputs)
+    for label in res.timings:
+        fn = at.build_from_label(p, label, device="cuda")
+        got = fn(inputs)
+        banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
+        for o in p.outputs:
+            _check(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                   MXU_VERIFY_RTOL if banded else 0)
+
+
+@pytest.mark.cuda
+def test_autotune_cache_key_names_the_card(cuda, tmp_path, monkeypatch):
+    from stencilflow_tpu_torch import autotune as at
+    p = _autotune_cases()["jacobi3d"]
+    key = at.cache_key(p, "cuda")
+    assert key != at.cache_key(p, "cpu")
+    res = at.AutotuneResult("xla", 1e-3, {"xla": 1e-3}, {})
+    path = at.save_result(p, res, str(tmp_path / "at.json"), "cuda")
+    entry = json.load(open(path))[key]
+    assert entry["device"] == f"cuda:{torch.cuda.get_device_name()}"
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda device=None: "another card")
+    assert at.cache_key(p, "cuda") != key
+
+
+@pytest.mark.cuda
+def test_cli_run_backend_autotuned_on_card(cuda, tmp_path, capsys,
+                                           monkeypatch):
+    """``cli run prog.json --backend autotuned --compare-to-reference``:
+    tuned on the card, verified, and served from the cache the second
+    time."""
+    from stencilflow_tpu_torch import autotune as at
+    from stencilflow_tpu_torch.cli import main
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("SFT_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    prog = tmp_path / "prog.json"
+    prog.write_text(json.dumps(synthesize_stencil(
+        num_stages=4, dimensions=(24, 32, 40), shape="diffusion",
+        seed_data="random:0.0,1.0")))
+    argv = ["run", str(prog), "--backend", "autotuned",
+            "--compare-to-reference"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "backend: autotuned:" in out
+    assert "verified against reference: OK\n" in out
+    label = out.split("backend: autotuned:")[1].split()[0]
+
+    def boom(*a, **k):
+        raise AssertionError("tuned again on a cache hit")
+    monkeypatch.setattr(at, "autotune", boom)
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert f"backend: autotuned:{label}\n" in out
+    assert "verified against reference: OK\n" in out

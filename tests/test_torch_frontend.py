@@ -293,6 +293,27 @@ def test_import_scan_covers_the_pipeline_slice():
                 assert n.split(".")[0] not in FORBIDDEN, f"{rel}: {n}"
 
 
+def test_import_scan_covers_the_autotune_slice():
+    """The scan reaches autotune.py and the bench, probes, driver, CLI
+    and facade that it runs through, and none of them imports jax or the
+    JAX package, at any depth of the module."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ("autotune.py", "bench.py", "probes/__init__.py",
+                "driver.py", "cli.py", "__init__.py"):
+        rel = os.path.join("stencilflow_tpu_torch", mod)
+        assert rel in scanned
+        tree = ast.parse(open(os.path.join(ROOT, rel)).read(), rel)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, f"{rel}: {n}"
+
+
 @pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
 def test_program_to_json_matches(path):
     """``frontend/export.py program_to_json``: the JAX package's JSON."""
