@@ -43,7 +43,14 @@ Phases, one line each (any failure raises and exits non-zero):
    shared-memory budget that forces the spill), jacobi3d 64^3 x 3 with
    every ring spilled (constant / copy / shrink BCs), the hdiff DAG and a
    32-stage hotspot chain (``spill="all"``) and K4 with every ring
-   spilled at 4 chunks; the overlapped-tile kernel
+   spilled at 4 chunks; the reduced-precision modes against their plain
+   versions: bf16 rings (``ring_storage="bfloat16"``) bit for bit in K1
+   (jacobi3d 40 x 48 x 72 x 4), K5 (jacobi2d 256 x 192 x 8 through rows),
+   K3a (the same jacobi3d per cell) and K3c (the reconvergent chain under
+   its budget), and single-pass bf16 band passes (``mxu_precision=
+   "bf16"``, K3b) held by ``stream.bf16_passes_agree`` against their
+   plain version and apart from the split route, on box-r2 (CUDA cores,
+   then tensor cores) and cross-r2; the overlapped-tile kernel
    (K6), masked and fast (one launch: mask-free interior blocks, masked
    border blocks), against its plain version (fast: mask-free plus the
    torch fix-up of the border shell) on the example programs and fuzz
@@ -57,7 +64,7 @@ Phases, one line each (any failure raises and exits non-zero):
    (rows+group_g8), hdiff2d 8192^2 x 16 (panel: its rings of one plane
    packed by liveness; the stream kernel's packed plan timed beside), the
    deep 3-D chains jacobi3d
-   512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 32 (the spill
+   512^3 x 32, hdiff3d 256^3 x 16 and hotspot3d 256^3 x 24 (the spill
    rung, K3c, 3 repetitions), and K6 forced
    through ``backend="tile"`` (its fast mode) on jacobi3d 512^3 x 2 and
    hdiff3d 256^3 x 8, each verified against the dense lowering on the
@@ -99,7 +106,20 @@ Phases, one line each (any failure raises and exits non-zero):
    measured candidate equal to the dense lowering (bit-exact per cell,
    MXU_VERIFY_RTOL banded), a second call served from the cache, and
    ``run_program(..., backend="autotuned", compare_to_reference=True)``
-   verified, the winner's kernel launched;
+   verified, the winner's kernel launched.  The reduced-precision legs:
+   before the main path, each mode's kernel at its leg's shape against
+   its plain version (bf16 rings bit for bit, bf16 passes as in phase 3)
+   with its plan (tile, shared memory, spilled rings),
+   time and bound; after it, with the counts set to 0 just before and
+   read just after, jacobi3d 512^3 x 8 ``--backend panel --ring-storage
+   bfloat16`` (K1), jacobi3d 512^3 x 32 ``--backend stream --ring-storage
+   bfloat16`` (K3c), jacobi2d 8192^2 x 8 through ``compile_chain_rows(p,
+   "group", group=8, panel=64, ring_storage="bfloat16")`` (K5) and box3d
+   256^3 x 8 of extent 2 ``--backend stream --mxu-precision bf16`` (K3b),
+   each held to its plain version again and within BF16_VERIFY_RTOL of
+   its cell's f32 route on the same inputs wherever its plain version is
+   (one rule for every leg; the line prints both drifts), with both
+   times;
 5. the out-of-core path (``run --host-chunks N``) through
    ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
    8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
@@ -157,13 +177,14 @@ Phases, one line each (any failure raises and exits non-zero):
    diffusion 512^3 and ``solve_cgnr`` on an upwind operator at 512^3,
    their iterations, true relative residuals (at most 100 tol) and ms an
    iteration split into operator and vector passes, and CG at 4 host
-   chunks within 10 tol of the in-core x.
+   chunks cut to its first 4 iterations (for the script's time) within
+   10 tol of the in-core solver's x at the same iteration.
 
 8. the simulator: ``run --run-simulation`` through ``run_program(...,
    device="cuda", run_simulation=True, compare_to_reference=True)`` on
-   jacobi3d 256^3 x 8 (K1), jacobi3d 256^3 x 2 (K2), hotspot2d 4096^2 x 8
-   (K5, rows+group_g8), box3d 128^3 x 8 of extent 2 (K3b, banded stages,
-   MXU_VERIFY_RTOL) and a mixed-dtype chain (int32 / bool / float stages)
+   jacobi3d 256^3 x 8 (K1), jacobi3d 256^3 x 2 (K2), hotspot2d 4096^2 x 4
+   (K5, rows+group_g8), box3d 128^3 x 4 of extent 2 (K3b, banded stages,
+   MXU_VERIFY_RTOL; both cut from 8 stages to keep the script's time) and a mixed-dtype chain (int32 / bool / float stages)
    at 48^3, each leg's native simulator core (g++) and kernel (nvcc)
    built first, all at once; the 256^3 x 8 leg on one thread, the others
    in turn on another (the simulator and the oracle run on the host); each
@@ -217,8 +238,9 @@ lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
 and per segment's from phase 9; error, kernel, plain-version and library
 times measured in this run at the main path's shapes, bounds computed
-from its inputs; 17 entries: the stream kernel's on box and on cross)
-and ``{"ok": true, "device": {...}}``.
+from its inputs; 21 entries: the stream kernel's on box and on cross,
+and the four reduced-precision modes' from phase 4's bf16 legs) and
+``{"ok": true, "device": {...}}``.
 """
 import json
 import os
@@ -389,15 +411,192 @@ def _reconvergent_spec(stages=16, dims=(12, 24, 32)):
             "outputs": [prev], "dimensions": list(dims), "program": prog}
 
 
-def _bound(program):
+def _bound(program, mxu_precision: str = "split"):
     """(bound ms, "bytes" or "operations") of one chain evaluation: the
     port's report (report.py, the H100 model of config.py), the memory
     floor against the faster compute strategy — one yardstick for this
-    script, ``cli report`` and the bench."""
+    script, ``cli report`` and the bench.  ``mxu_precision="bf16"``: the
+    band transforms as single-pass bf16 products at the dense bf16
+    tensor rate."""
     from stencilflow_tpu_torch.report import Report
     rep = Report.build(program)
-    return (rep.roofline_time_s() * 1e3,
-            "bytes" if rep.bound() == "hbm" else "operations")
+    return (rep.roofline_time_s(mxu_precision) * 1e3,
+            "bytes" if rep.bound(mxu_precision) == "hbm" else "operations")
+
+
+def _bf16_plan(sft, pn, gp, st, codegen, kind: str, p, kw):
+    """(analysis, plan, source) of a reduced-precision case: bf16 rings
+    (``ring_storage="bfloat16"``) unless ``kw`` asks for single-pass bf16
+    band passes (``mxu_precision="bf16"``); the group kernel at the main
+    path's g = 8, B = 64."""
+    an = sft.ChainAnalysis.run(p)
+    if kind == "panel":
+        plan = pn.PanelPlan.build(an, ring_storage="bfloat16")
+        return an, plan, codegen.panel_source(p, an, plan)
+    if kind == "group":
+        plan = gp.plan_group(p, an, 64, 8, ring_storage="bfloat16")
+        return an, plan, codegen.group_source(p, an, plan)
+    rings = {} if "mxu_precision" in kw else {"ring_storage": "bfloat16"}
+    plan = st.plan_stream(p, an, **kw, **rings)
+    return an, plan, st.stream_source(plan)
+
+
+def _bf16_kernel(pn, gp, st, kind: str, p, an, plan):
+    """(run(arrays, lib), plain(arrays), launch count, plan line,
+    split(arrays) or None) of a reduced-precision case: ``split`` (single-
+    pass bf16 passes only) the plain version of the same program's split
+    route, which ``_bf16_held`` holds the kernel apart from."""
+    if kind == "panel":
+        return (lambda a, lib: pn.run_panel(p, an, plan, a, lib),
+                lambda a: pn.panel_plain(p, an, plan, a),
+                lambda: pn.bf16_launches,
+                f"tile {plan.tile} x {plan.threads}, smem "
+                f"{plan.smem_bytes(p)} B, {plan.residency(p)} blocks/SM",
+                None)
+    if kind == "group":
+        return (lambda a, lib: gp.run_group(p, an, plan, a, lib),
+                lambda a: gp.group_plain(p, an, plan, a),
+                lambda: gp.bf16_launches,
+                f"tile {plan.tile} x {plan.threads}, segments "
+                f"{plan.segments}, smem {plan.smem_bytes(p)} B, rounded "
+                f"{sorted(plan.rounds)}", None)
+    line = f"tile {plan.tile} x {plan.threads}, smem {plan.smem_bytes()} B"
+    if plan.packed:
+        line += (f", spilled {len(plan.spilled)} of {len(plan.raw_ring)} "
+                 f"rings ({plan.spill_bytes() / 2 ** 30:.3f} GiB)")
+    if plan.tkeys:
+        line += f", {_routes(plan)} passes"
+    split = None
+    if plan.mxu_precision == "bf16":
+        split_plan = st.plan_stream(p, an)
+        split = lambda a: st.stream_plain(split_plan, a)  # noqa: E731
+    return (lambda a, lib: st.run_stream(plan, a, lib),
+            lambda a: st.stream_plain(plan, a),
+            lambda: (st.spill_bf16_launches if plan.packed
+                     else st.bf16_launches),
+            line, split)
+
+
+def _bf16_held(got, plain, split):
+    """(ok, max abs err against the plain version, the figures of
+    ``stream.bf16_passes_agree`` or None) of a reduced-precision kernel's
+    output: finite and, for bf16 rings (``split`` None), bit for bit; for
+    single-pass bf16 passes, ``bf16_passes_agree`` against the plain
+    version and ``split`` (the split route's output)."""
+    from stencilflow_tpu_torch.backend.stream import bf16_passes_agree
+    got = np.asarray(got).reshape(np.shape(plain))
+    if split is None:
+        ok, err = _compare(got, plain, 0.0)
+        return ok and bool(np.isfinite(got).all()), err, None
+    ok, fig = bf16_passes_agree(plain, got, split)
+    return ok, fig["max_abs_err"], fig
+
+
+def _held_text(fig) -> str:
+    """How a reduced-precision kernel was held (``_bf16_held``)."""
+    if fig is None:
+        return "(bit-exact)"
+    return (f"({fig['share']:.4%} of cells within BF16_PASS_RTOL, the "
+            f"rest within BF16_VERIFY_RTOL; at that share "
+            f"{fig['plain_q']:.3g} from it, {fig['split_q']:.3g} from "
+            "split)")
+
+
+def _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
+               bf16_plain, f32_route, report, smi, cells):
+    """Phase 4's reduced-precision legs at full width, the counts set to 0
+    just before and read just after: jacobi3d 512^3 x 8 ``run --backend
+    panel --ring-storage bfloat16`` (K1), jacobi3d 512^3 x 32 ``--backend
+    stream --ring-storage bfloat16`` (K3c), jacobi2d 8192^2 x 8 through
+    ``compile_chain_rows(p, "group", group=8, panel=64,
+    ring_storage="bfloat16")`` (K5: ``run --backend rows --ring-storage``
+    takes rows+stream, as the JAX package's does) and box3d 256^3 x 8 of
+    extent 2 ``--backend stream --mxu-precision bf16`` (K3b).  Each leg's
+    output is held to its mode's plain version on the same inputs
+    (computed before the main path, ``_bf16_held``: bf16 rings bit for
+    bit, bf16 passes by ``bf16_passes_agree`` against it and the f32
+    route), and its largest difference from its cell's f32 route (phase
+    4's main path) is printed beside both times, with the plain version's
+    own.  Every leg must lie within BF16_VERIFY_RTOL of its f32 route,
+    the JAX package's envelope for these modes, wherever its plain
+    version does: the one rule for all legs.  Where the plain version
+    itself lies outside (bf16 rings round once a stage, and a deep chain
+    on a large grid drifts past the envelope, as the JAX package's own
+    mode does: tests/test_torch_bf16.py holds the two equal at 32
+    stages), the kernel, equal to it, is outside by the mode's drift, and
+    the line says so."""
+    import torch
+    from stencilflow_tpu_torch.config import BF16_VERIFY_RTOL
+    from stencilflow_tpu_torch.data import arrays_are_equal
+
+    def rel(a, want):
+        return float(np.max(np.abs(np.asarray(a, np.float64).reshape(
+            want.shape) - want)) / np.max(np.abs(want)))
+    jacobi8, jacobi32, jacobi2d, box256 = cells
+    pn.bf16_launches = gp.bf16_launches = 0
+    st.bf16_launches = st.spill_bf16_launches = 0
+    legs = (("panel_bf16", jacobi8, "--backend panel --ring-storage "
+             "bfloat16", dict(backend="panel", ring_storage="bfloat16"), 20),
+            ("stream_spill_bf16", jacobi32, "--backend stream "
+             "--ring-storage bfloat16", dict(backend="stream",
+                                             ring_storage="bfloat16"), 3),
+            ("group_bf16", jacobi2d, "compile_chain_rows(group=8, panel=64, "
+             "ring_storage=bfloat16)", None, 20),
+            ("stream_bf16", box256, "--backend stream --mxu-precision bf16",
+             dict(backend="stream", mxu_precision="bf16"), 20))
+    for key, p, spelled, kw, reps in legs:
+        o = p.outputs[0]
+        if kw is None:
+            fn, backend = compile_chain_rows(p, "group", group=8, panel=64,
+                                             device="cuda",
+                                             ring_storage="bfloat16")
+            inputs = {k: v if p.inputs[k].is_scalar else
+                      torch.as_tensor(np.asarray(v)).cuda()
+                      for k, v in sft.load_input_arrays(p, seed=0).items()}
+            out = fn(inputs)[o].cpu().numpy()
+            ms = _time_ms(lambda: fn(inputs), reps)
+            del fn, inputs
+        else:
+            res = run_program(p, device="cuda", repetitions=reps,
+                              save_results=False, log_level=0, **kw)
+            out, backend, ms = (res.outputs[o], res.backend,
+                                res.wall_time_s * 1e3)
+            del res
+        want, route, route_ms = f32_route[p.name]
+        *_, line, split = _bf16_kernel(pn, gp, st, *bf16_main[key][:4])
+        plain = bf16_plain[key].reshape(want.shape)
+        same, err, fig = _bf16_held(out, plain, want if split else None)
+        within = arrays_are_equal(want, out.reshape(want.shape),
+                                  BF16_VERIFY_RTOL)
+        drift = rel(out, want)
+        # the plain version's own (the same arrays where the leg equals it)
+        mode_within, mode_drift = (within, drift) if err == 0 else (
+            arrays_are_equal(want, plain, BF16_VERIFY_RTOL), rel(plain, want))
+        print(f"main: {p.name} {spelled}: backend {backend} {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s) | f32 route "
+              f"{route} {route_ms:.3f} ms | its plain version: max_abs_err "
+              f"{err:.3g} {'OK' if same else 'MISMATCH'} "
+              f"{_held_text(fig)} | from f32: max diff "
+              f"{drift:.3g} of the largest output "
+              f"({'within' if within else 'OUTSIDE'} BF16_VERIFY_RTOL), "
+              f"its plain version's {mode_drift:.3g} "
+              f"({'within' if mode_within else 'OUTSIDE: the mode'}) | "
+              f"{line} | {smi}", flush=True)
+        if not same:
+            raise RuntimeError(f"{p.name}: the {key} leg disagrees with its "
+                               "plain version")
+        if not within and mode_within:
+            raise RuntimeError(f"{p.name}: the {key} leg is not within "
+                               "BF16_VERIFY_RTOL of its f32 route")
+        del out
+        torch.cuda.empty_cache()
+    report["panel_bf16"]["launches"] = pn.bf16_launches
+    report["group_bf16"]["launches"] = gp.bf16_launches
+    report["stream_spill_bf16"]["launches"] = st.spill_bf16_launches
+    report["stream_bf16"]["launches"] = st.bf16_launches
+    if st.spill_bf16_launches != 4:
+        raise RuntimeError(f"the bf16 spill leg launched K3c "
+                           f"{st.spill_bf16_launches} times over 4 calls")
 
 
 def _conv_chain_ms(program, radius: int, shape=None) -> float:
@@ -1142,7 +1341,6 @@ def _solvers(sft, progs, smi, k1_ms: float):
     rhs = _device_random((512,) * 3, 2)
     rhs_dev = torch.as_tensor(rhs).cuda()
     tol = 1e-6
-    x_in = None
     for key, method in (("diffusion", "cg"), ("upwind", "cgnr")):
         solver = sft.make_solver(progs[key], method=method, tol=tol,
                                  maxiter=3000)
@@ -1164,12 +1362,14 @@ def _solvers(sft, progs, smi, k1_ms: float):
               f"passes {per - op_ms:.3f} | {smi}", flush=True)
         check(info["residual"] <= tol * 100,
               f"{method} residual {info['residual']} above tol * 100")
-        if key == "diffusion":
-            x_in = x.cpu().numpy()
         del solver, x
         torch.cuda.empty_cache()
+    # out of core, cut to its first 4 iterations: against the in-core
+    # solver stopped at the same iteration
+    x_in = sft.make_solver(progs["diffusion"], tol=tol, maxiter=4)(
+        rhs_dev)[0].cpu().numpy()
     t0 = time.perf_counter()
-    x_oc, info = sft.make_solver(progs["diffusion"], tol=tol,
+    x_oc, info = sft.make_solver(progs["diffusion"], tol=tol, maxiter=4,
                                  host_chunks=4)(rhs)
     oc_s = time.perf_counter() - t0
     rel = float(np.linalg.norm(x_oc - x_in) / np.linalg.norm(x_in))
@@ -1349,8 +1549,8 @@ def _simulator_legs(sft, run_program, smi, t_phase):
     # (program, the route it must take; None: any, printed)
     legs = [(synth("diffusion", (256,) * 3, 8), "panel"),
             (synth("diffusion", (256,) * 3, 2), "overlap"),
-            (synth("hotspot", (4096, 4096), 8), "rows+group_g8"),
-            (synth("box", (128,) * 3, 8, extent=2), "stream"),
+            (synth("hotspot", (4096, 4096), 4), "rows+group_g8"),
+            (synth("box", (128,) * 3, 4, extent=2), "stream"),
             (_mixed_dtype_spec((48, 48, 48)), None)]
 
     def build_core(p):
@@ -2154,7 +2354,9 @@ def main() -> int:
                         {"spill": "all"}))
     # the deep 3-D cells (phase 4): the stream kernel's spill rung
     jacobi32 = synth("diffusion", 512, 32)
-    deep = [jacobi32, synth("hdiff", 256, 16), synth("hotspot", 256, 32)]
+    # hotspot3d cut from 32 stages to 24 (21 of 25 rings still spilled) to
+    # keep the script's time
+    deep = [jacobi32, synth("hdiff", 256, 16), synth("hotspot", 256, 24)]
     deep_names = {p.name for p in deep}
 
     # -- 2. build: every kernel, one nvcc each, all at once ------------------
@@ -2290,6 +2492,34 @@ def main() -> int:
     for p in deep:
         deep_plans[p.name] = st.plan_stream(p, mxu="off")
         sources.append((st.stream_source(deep_plans[p.name]), "stream"))
+    # the reduced-precision modes (bf16 rings: K1, K5, K3a, K3c; single-pass
+    # bf16 band passes: K3b): phase 3's small cases, then phase 4's
+    # full-width plans, which the run_program legs rebuild as lookups
+    bf16_small, bf16_main = [], {}
+    for label, kernel, p, kw in (
+            ("K1 jacobi3d", "panel", synth("diffusion", small, 4), {}),
+            ("K5 jacobi2d rows", "group", group_cases[0][1], {}),
+            ("K3a jacobi3d", "stream", synth("diffusion", small, 4),
+             {"mxu": "off"}),
+            ("K3c reconvergent", "stream", spill_cases[0][1],
+             {"smem_budget": 40000}),
+            ("K3b box-r2", "stream", stream_cases[1][1],
+             {"mxu_precision": "bf16"}),
+            ("K3b box-r2 mma", "stream", stream_cases[1][1],
+             {"mxu_precision": "bf16", "passes": "mma"}),
+            ("K3b cross-r2", "stream", stream_cases[4][1],
+             {"mxu_precision": "bf16"})):
+        bf16_small.append((label, kernel, p) + _bf16_plan(
+            sft, pn, gp, st, codegen, kernel, p, kw))
+        sources.append((bf16_small[-1][-1], kernel))
+    for key, kernel, p, kw in (
+            ("panel_bf16", "panel", jacobi8, {}),
+            ("stream_spill_bf16", "stream", jacobi32, {"mxu": "off"}),
+            ("group_bf16", "group", rows(jacobi2d), {}),
+            ("stream_bf16", "stream", box256, {"mxu_precision": "bf16"})):
+        bf16_main[key] = (kernel, p) + _bf16_plan(sft, pn, gp, st, codegen,
+                                                  kernel, p, kw)
+        sources.append((bf16_main[key][-1], kernel))
     # K6: phase 3's programs in both modes, then the forced cells
     tile_plans = []
     for label, p in cases:
@@ -2496,6 +2726,31 @@ def main() -> int:
         raise RuntimeError(f"spilled K4 launched {launched} times over 4 "
                            "chunks")
 
+    # the reduced-precision modes: bf16 rings (K1, K5, K3a, K3c) bit for
+    # bit, single-pass bf16 band passes (K3b) against their plain version
+    # and apart from the split route (``_bf16_held``)
+    for label, kernel, p, an, plan, src in bf16_small:
+        run, plain, count, line, split = _bf16_kernel(
+            pn, gp, st, kernel, p, an, plan)
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        before = count()
+        got = run(arrays, lib_of[src])
+        torch.cuda.synchronize()
+        n = count() - before
+        want = plain(arrays)
+        far = split(arrays) if split else None
+        for o in p.outputs:
+            ok, err, fig = _bf16_held(
+                got[o].cpu().numpy(), want[o].cpu().numpy(),
+                None if far is None else far[o].cpu().numpy())
+            print(f"compare: bf16    {label:28s} {line} max_abs_err "
+                  f"{err:.3g} launches {n} {'OK' if ok else 'MISMATCH'} "
+                  f"{_held_text(fig)}", flush=True)
+            if not ok or n != 1:
+                raise RuntimeError(f"{kernel} kernel ({label}) disagrees "
+                                   "with its plain version")
+
     # K6, masked and fast
     for label, p, plan in tile_plans:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
@@ -2542,11 +2797,14 @@ def main() -> int:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
                                 device="cuda")
         got = run(p, an, plan, arrays, lib)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
         want = plain(p, an, plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
         ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
                            want[p.outputs[0]].cpu().numpy(), 0.0)
         ms = _time_ms(lambda: run(p, an, plan, arrays, lib), 10)
-        plain_ms = _time_ms(lambda: plain(p, an, plan, arrays), 1)
         del got, want, arrays
         torch.cuda.empty_cache()
         bound_ms, bound_by = _bound(p)
@@ -2700,6 +2958,53 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
     library.append(("stream_spill", jacobi32, 1))
+    # the reduced-precision kernels at the full-width legs' shapes (counted
+    # out): kernel and plain version, their times, the plan, the bound; the
+    # plain versions' outputs stay for the legs
+    bf16_plain = {}
+    for key, (kernel, p, an, plan, src) in bf16_main.items():
+        run, plain, _count, line, split = _bf16_kernel(
+            pn, gp, st, kernel, p, an, plan)
+        lib = lib_of[src]
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                                device="cuda")
+        got = run(arrays, lib)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        want = plain(arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        o = p.outputs[0]
+        bf16_plain[key] = want[o].cpu().numpy()
+        del want
+        far = None if split is None else split(arrays)[o].cpu().numpy()
+        ok, err, fig = _bf16_held(got[o].cpu().numpy(), bf16_plain[key], far)
+        del got, far
+        ms = _time_ms(lambda: run(arrays, lib),
+                      2 if key == "stream_spill_bf16" else 10)
+        del arrays
+        if kernel == "stream":
+            plan.device_pool.clear()
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(p, getattr(plan, "mxu_precision",
+                                               "split"))
+        print(f"kernel: {key} {p.name} {line}: {ms:.3f} ms, plain version "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} "
+              f"{_held_text(fig)} | {smi}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{key} disagrees with its plain version on "
+                               f"{p.name}")
+        report[key] = {
+            "name": key, "route": "cuda",
+            "source": "stencilflow_tpu_torch/backend/codegen.py",
+            "replaces": {"panel": "stencilflow_tpu/backend/panel.py:167",
+                         "group": "stencilflow_tpu/backend/group.py:195",
+                         "stream": "stencilflow_tpu/backend/stream.py:297"}[
+                             kernel],
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
     # K6 on jacobi3d 512^3 x 2: masked, then fast (the route's mode,
     # tl.AUTO_MODE, whose entry the kernels line carries)
     arrays = spanned_arrays(jacobi2, sft.load_input_arrays(jacobi2, seed=0),
@@ -2819,6 +3124,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     route_ms = {}
+    # the f32 routes' outputs and ms of the cells the bf16 legs run again
+    f32_route = {}
+    bf16_cells = {jacobi8.name, jacobi32.name, jacobi2d.name, box256.name}
     pn.launches = 0
     ov.launches = 0
     st.launches = 0
@@ -2879,6 +3187,9 @@ def main() -> int:
                      f"{route_ms[p.name][1]:.3f} ms")
         else:
             route_ms[p.name] = (res.backend, res.wall_time_s * 1e3)
+            if p.name in bf16_cells:
+                f32_route[p.name] = (res.outputs[p.outputs[0]],
+                                     res.backend, res.wall_time_s * 1e3)
         print(f"main: {p.name} backend {res.backend} "
               f"{res.wall_time_s * 1e3:.3f} ms "
               f"({cells / res.wall_time_s / 1e9:.2f} GCell/s) | dense "
@@ -2890,6 +3201,9 @@ def main() -> int:
         del res, dense
         torch.cuda.empty_cache()
     oracle_pool.shutdown()
+    _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
+               bf16_plain, f32_route, report, smi,
+               (jacobi8, jacobi32, jacobi2d, box256))
     # the library yardstick, after the main path (cuDNN state stays out
     # of the kernels' timings)
     for key, p, radius in library:

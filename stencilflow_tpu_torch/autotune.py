@@ -28,8 +28,15 @@ port: it propagates, naming the label, and is never timed as infinite
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where every candidate runs its plain version.
 
+The bf16-ring labels (``REDUCED_PRECISION_LABELS``: K3 and K1 with bf16
+rings, f32 compute) trade accuracy for shared memory, so they are
+measured only under ``allow_reduced_precision`` (``autotune
+--allow-reduced-precision``) or when named, and a winner among them is
+flagged ``reduced_precision`` in the cache.
+
 The cache key hashes the program's structure (``program_to_json`` without
-data values), the device type and name, and the lowering settings; the
+data values), the device type and name, the lowering settings and the
+reduced-precision flag where it is set; the
 default file is ``$SFT_AUTOTUNE_CACHE``, else
 ``$XDG_CACHE_HOME/stencilflow_tpu_torch/autotune.json``.
 """
@@ -51,14 +58,10 @@ from .bench import feed_loop, loop_lengths
 from .frontend.analysis import ChainAnalysis
 from .probes import differenced_ms, host_differenced_ms
 
-BF16_ITEM = "ROADMAP Queue 1 item 11 (bf16)"
-
 # the JAX package's labels that the port does not build, and why
 NOT_PORTED_LABELS = {
     "stream:sm=off": "stage-major order is a TPU-only workaround (ROADMAP "
                      "North star, \"Don't port TPU-only workarounds\")",
-    "stream:rings=bf16": f"bf16 ring storage comes with {BF16_ITEM}",
-    "panel:rings=bf16": f"bf16 ring storage comes with {BF16_ITEM}",
     **{f"panel:B={B}": "the port's panel kernel (K1) marches one plane a "
                        "step, and the gate_frac=1.0 these labels carry "
                        "relaxes the TPU's VMEM gate (ROADMAP North star, "
@@ -76,7 +79,10 @@ DEFAULT_LABELS = ["stream", "stream:mxu=off", "panel:B=auto",
                   "overlap:B=auto", "group:g=2", "group:g=4", "rows:auto",
                   "rows:group:g=8:B=64", "pallas", "xla"]
 
-# the JAX package's opt-in rounding envelopes: not ported (item 11)
+# the JAX package's opt-in rounding envelopes (bf16 rings, f32 compute):
+# never a default, measured only under ``allow_reduced_precision`` (or
+# when named in ``labels``); a winner among them is flagged in the cache
+# and verifies at BF16_VERIFY_RTOL
 REDUCED_PRECISION_LABELS = ["stream:rings=bf16", "panel:rings=bf16"]
 
 # a trial's longest loop, in seconds at the rate of one timed iteration
@@ -120,6 +126,15 @@ def _builders(program: ir.Program, analysis: ChainAnalysis, device,
     b["stream"] = lambda: compile_chain_stream(
         program, analysis, mxu=mxu, mxu_precision=mxu_precision,
         device=device, spill=spill)
+    # bf16 rings, f32 compute (all-f32 programs, as the JAX package
+    # offers them): half the rings' shared memory for a rounding a stage
+    if all(np.dtype(program.field_dtype(f)) == np.float32
+           for f in list(program.inputs) + list(program.kernels)):
+        b["stream:rings=bf16"] = lambda: compile_chain_stream(
+            program, analysis, mxu=mxu, mxu_precision=mxu_precision,
+            device=device, spill=spill, ring_storage="bfloat16")
+        b["panel:rings=bf16"] = lambda: compile_chain_panel(
+            program, analysis, device=device, ring_storage="bfloat16")
     if mxu != "off" and _any_mxu_candidate(program):
         b["stream:mxu=off"] = lambda: compile_chain_stream(
             program, analysis, mxu="off", device=device, spill=spill)
@@ -158,17 +173,6 @@ def _check_label(builders, label: str) -> None:
         raise NotImplementedError(f"autotune label {label!r} is not ported: "
                                   f"{NOT_PORTED_LABELS[label]}")
     raise KeyError(f"unknown autotune label {label!r}")
-
-
-def _check_precision(mxu_precision: str,
-                     allow_reduced_precision: bool) -> None:
-    if allow_reduced_precision:
-        raise NotImplementedError("allow_reduced_precision (bf16 ring "
-                                  f"storage) is not ported yet: {BF16_ITEM}")
-    if mxu_precision == "bf16":
-        raise NotImplementedError("mxu_precision='bf16' (single-pass bf16 "
-                                  f"transforms) is not ported yet: "
-                                  f"{BF16_ITEM}")
 
 
 def build_from_label(program: ir.Program, label: str,
@@ -270,18 +274,23 @@ def autotune(program: ir.Program,
     ``sweep`` adds the explicit overlap / group block sizes and the second
     rows group to the default candidates.  Candidates whose planners
     refuse the program are recorded in ``skipped``; any other failure
-    raises, naming the label.  ``allow_reduced_precision`` and
-    ``mxu_precision="bf16"`` raise: bf16 is ROADMAP Queue 1 item 11."""
+    raises, naming the label.  ``allow_reduced_precision`` adds the
+    opt-in rounding envelopes (``REDUCED_PRECISION_LABELS``, bf16 rings)
+    to the measured set, which selects on speed alone and so never takes
+    them otherwise; explicit ``labels`` bypass the filter.
+    ``mxu_precision="bf16"`` forwards to the stream candidates."""
     from .data import load_input_arrays
     from .backend.stacked_io import resolve_device
-    _check_precision(mxu_precision, allow_reduced_precision)
     device = resolve_device(device)
     analysis = analysis or ChainAnalysis.run(program)
     builders = _builders(program, analysis, device, mxu=mxu,
                          mxu_precision=mxu_precision, spill=spill)
     if labels is None:
-        labels = list(builders) if sweep else [
-            l for l in DEFAULT_LABELS if l in builders]
+        labels = [l for l in (list(builders) if sweep else DEFAULT_LABELS)
+                  if l in builders and l not in REDUCED_PRECISION_LABELS]
+        if allow_reduced_precision:
+            labels += [l for l in REDUCED_PRECISION_LABELS
+                       if l in builders]
     for label in labels:
         _check_label(builders, label)
     arrs = {k: v if program.inputs[k].is_scalar
@@ -345,17 +354,28 @@ def _save_cache(path: str, cache: Dict[str, Any]) -> None:
     os.replace(tmp, path)
 
 
+def _key_settings(settings, allow_reduced_precision: bool):
+    """The cache key's settings: the flag joins them where it is set, so
+    that a bf16-rings winner tuned under it is never served to a run
+    that did not opt in."""
+    return dict(settings, allow_reduced_precision=True) \
+        if allow_reduced_precision else dict(settings)
+
+
 def save_result(program: ir.Program, res: AutotuneResult,
                 cache_path: Optional[str] = None, device="cuda",
+                allow_reduced_precision: bool = False,
                 **settings) -> str:
-    """Record an AutotuneResult in the on-disk cache; returns the path."""
+    """Record an AutotuneResult in the on-disk cache (under the key of
+    ``settings`` and ``allow_reduced_precision``); returns the path."""
     path = cache_path or default_cache_path()
     device = torch.device(device)
     cache = _load_cache(path)
-    cache[cache_key(program, device, **settings)] = {
+    cache[cache_key(program, device, **_key_settings(
+            settings, allow_reduced_precision))] = {
         "label": res.label,
-        # the JAX package's flag for bf16-ring winners; no such label is
-        # built here
+        # a bf16-rings winner carries a rounding envelope: run --backend
+        # autotuned verifies it at BF16_VERIFY_RTOL
         "reduced_precision": ":rings=bf16" in res.label,
         "seconds": res.seconds,
         "timings": res.timings,
@@ -380,11 +400,12 @@ def compile_chain_autotuned(program: ir.Program,
     """Return ``(fn, label)`` for the measured-best lowering, consulting
     (and updating) the on-disk cache; ``force`` tunes again.  A cached
     label that no longer builds (KeyError, ValueError,
-    NotImplementedError) is tuned again on the same device."""
-    _check_precision(mxu_precision, allow_reduced_precision)
+    NotImplementedError) is tuned again on the same device.
+    ``allow_reduced_precision`` is part of the cache key."""
     path = cache_path or default_cache_path()
     settings = dict(mxu=mxu, mxu_precision=mxu_precision, spill=spill)
-    key = cache_key(program, device, **settings)
+    key = cache_key(program, device, **_key_settings(
+        settings, allow_reduced_precision))
     cache = _load_cache(path)
     if not force and key in cache:
         label = cache[key]["label"]
@@ -394,6 +415,8 @@ def compile_chain_autotuned(program: ir.Program,
         except (KeyError, ValueError, NotImplementedError):
             pass   # a stale entry: tune again
     res = autotune(program, analysis, device=device, **settings,
+                   allow_reduced_precision=allow_reduced_precision,
                    **autotune_kw)
-    save_result(program, res, path, device, **settings)
+    save_result(program, res, path, device, allow_reduced_precision,
+                **settings)
     return res.fn, res.label

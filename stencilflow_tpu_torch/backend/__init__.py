@@ -159,7 +159,8 @@ def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
 
 def compile_chain_rows(program, backend: str = "auto", group: int = 2,
                        panel: int = 0, device="cuda", mxu: str = "auto",
-                       mxu_precision: str = "split", spill: str = "auto"):
+                       mxu_precision: str = "split", spill: str = "auto",
+                       ring_storage: str = "off"):
     """Row-streaming lowering of a 2-D program: rotate the padded domain
     ``(1, J, K) -> (J, 1, K)`` (``frontend.canonicalize.rotate_2d_to_rows``)
     and stream rows through a 3-D lowering — ``backend`` "group" (groups
@@ -169,22 +170,34 @@ def compile_chain_rows(program, backend: str = "auto", group: int = 2,
     at the program's raw (J, K); raises ValueError when the program is
     not 2-D or the lowering refuses it.  ``panel`` is the group kernel's
     B only; ``mxu``/``mxu_precision``/``spill`` forward to the stream
-    lowering."""
+    lowering.  ``ring_storage="bfloat16"`` (bf16 rings, f32 compute)
+    takes the stream, panel or group lowering and is refused with any
+    other, as the JAX package refuses it."""
     rot = rotate_2d_to_rows(program)
     if panel and backend != "group":
         raise ValueError("panel= sets the group kernel's B "
                          "(backend='group')")
+    if ring_storage != "off" and backend not in ("stream", "panel",
+                                                 "group"):
+        raise ValueError(
+            "ring_storage requires the stream, panel or group rows "
+            "lowering (pass backend='stream'/'panel'/'group'); refusing to "
+            "silently measure an f32 kernel")
     if backend == "group":
         fn, name = (compile_chain_group(rot, panel=panel, group=group,
-                                        device=device), f"group_g{group}")
+                                        device=device,
+                                        ring_storage=ring_storage),
+                    f"group_g{group}")
     elif backend == "panel":
-        fn, name = compile_chain_panel(rot, device=device), "panel"
+        fn, name = (compile_chain_panel(rot, device=device,
+                                        ring_storage=ring_storage), "panel")
     elif backend == "overlap":
         fn, name = compile_chain_overlap(rot, device=device), "overlap"
     elif backend == "stream":
         fn, name = (compile_chain_stream(rot, mxu=mxu,
                                          mxu_precision=mxu_precision,
-                                         device=device, spill=spill),
+                                         device=device, spill=spill,
+                                         ring_storage=ring_storage),
                     "stream")
     elif backend == "auto":
         fn, name = compile_chain_best(rot, device=device, mxu=mxu,

@@ -561,8 +561,16 @@ def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
     step += ["      " + y for y in _input_loads(
         program, plan, fields, f"t + {AHEAD}",
         lambda f: _slot(plan, f, -AHEAD))]
-    step += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();",
-             "    SF_SYNC();"]
+    step += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();"]
+    for f in fields:
+        if plan.rounded(f):
+            # a cp.async copy cannot convert: each thread rounds the cells
+            # of plane t it copied itself, once they have landed
+            RJ, RK = plan.region(f)
+            step += ["    " + y for y in _region_loop(RJ, RK, [
+                f"float* const x = r_{f} + {_slot(plan, f, 0)} * "
+                f"{RJ * RK} + p;", "*x = sf_bfr(*x);"])]
+    step.append("    SF_SYNC();")
     return pro, step
 
 
@@ -585,13 +593,14 @@ def _ring_reader(plan, s: str, RK: int, ptrs: Dict, xs: set, ringed):
             x = "p" if FK == RK else f"x{FK}"
             if FK != RK:
                 xs.add(FK)
-            return (f"b_{f}_{d}[{x} + {(dj + o[1]) * FK + dk + o[2]}]")
+            return _from_slot(plan, f, f"b_{f}_{d}[{x} + "
+                              f"{(dj + o[1]) * FK + dk + o[2]}]")
         return at
     return onchip
 
 
 def _ring_bases(program, plan, ptrs, ind: str) -> List[str]:
-    return [f"{ind}const {ctype(program.field_dtype(f))}* const {name} = "
+    return [f"{ind}const {_slot_type(program, plan, f)}* const {name} = "
             f"r_{f} + {_slot(plan, f, d)} * {math.prod(plan.region(f))};"
             for (f, d), name in sorted(ptrs.items())]
 
@@ -749,7 +758,8 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
     params, args = _params(program)
     from .panel import i_reach, reach
     Hj, Hk = reach(program, plan)
-    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + [
+    L = [head, _STREAM_MACROS] + _bf16_macros(plan) + _skeleton_macros(
+        plan.threads) + [
          "// panel streamer (backend/panel.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/panel.py _panel_kernel_body (K1)",
          "SF_DEV void sf_panel_block(const int by, const int bx, "
@@ -762,7 +772,7 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
          f"k0 >= {Hk} && k0 + {tk + Hk} <= {K};",
          "  (void)inner;"]
     for f in plan.ring:
-        ct = ctype(program.field_dtype(f))
+        ct = _slot_type(program, plan, f)
         L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
     widths = sorted({plan.region(f)[1]
                      for f in list(program.kernels) + list(plan.inputs)})
@@ -786,7 +796,7 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
             body = _stage_call(program, kspec, idx, ("q", "gj", "gk"),
                                onchip, slots, masked=masked)
             if s in plan.ring:
-                body.append("w[p] = r;")
+                body.append(f"w[p] = {_to_slot(plan, s, 'r')};")
             if s in program.outputs:
                 cond = []
                 if hj:
@@ -803,7 +813,7 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
               f"      const int q = t - {plan.lag[s]};",
               f"      if (q >= 0 && q < {I}) {{"]
         if s in plan.ring:
-            ct = ctype(program.field_dtype(s))
+            ct = _slot_type(program, plan, s)
             L.append(f"        {ct}* const w = r_{s} + "
                      f"{_slot(plan, s, plan.lag[s])} * {RJ * RK};")
         L += _ring_bases(program, plan, ptrs, "        ")
@@ -904,6 +914,62 @@ SF_DEV void sf_mbar_wait(unsigned long long* bar, const unsigned parity) {
 }
 #endif
 """
+
+
+# bf16 rings with f32 compute (ring_storage="bfloat16": K1, K3a, K3c, K5)
+# and the single-pass bf16 band operands (mxu_precision="bf16": K3b):
+# sf_f2bf rounds to nearest, ties to even, where a value is stored;
+# sf_bf2f reads it back as f32; sf_bfr is both (an f32 slot that holds a
+# rounded value).  On the host a uint16_t carries the bits (NaN kept).
+# Emitted only into sources that use them.
+_BF16_MACROS = """#ifdef __CUDACC__
+#include <cuda_bf16.h>
+typedef __nv_bfloat16 sf_bf16;
+SF_DEV sf_bf16 sf_f2bf(const float v) { return __float2bfloat16_rn(v); }
+SF_DEV float sf_bf2f(const sf_bf16 v) { return __bfloat162float(v); }
+#else
+typedef uint16_t sf_bf16;
+SF_DEV sf_bf16 sf_f2bf(const float v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (sf_bf16)((u >> 16) | 0x40u);
+  return (sf_bf16)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+SF_DEV float sf_bf2f(const sf_bf16 h) {
+  const uint32_t u = (uint32_t)h << 16;
+  float r;
+  memcpy(&r, &u, 4);
+  return r;
+}
+#endif
+SF_DEV float sf_bfr(const float v) { return sf_bf2f(sf_f2bf(v)); }
+"""
+
+
+def _bf16_macros(plan) -> List[str]:
+    """``_BF16_MACROS`` for a plan that rounds a ring or a band operand."""
+    uses = plan.rounds or (getattr(plan, "mxu_precision", "") == "bf16"
+                           and plan.tkeys)
+    return [_BF16_MACROS] if uses else []
+
+
+def _slot_type(program, plan, f: str) -> str:
+    """C type of ring ``f``'s slots: ``sf_bf16`` where the plan keeps it
+    as bf16."""
+    return "sf_bf16" if plan.bf16_slots(f) else ctype(program.field_dtype(f))
+
+
+def _from_slot(plan, f: str, lv: str) -> str:
+    """A read of ring ``f``'s slot ``lv`` as its compute type."""
+    return f"sf_bf2f({lv})" if plan.bf16_slots(f) else lv
+
+
+def _to_slot(plan, f: str, v: str) -> str:
+    """Value ``v`` as ring ``f`` stores it: converted to bf16, rounded in
+    an f32 slot (a rounded ring that keeps f32 slots), or as it is."""
+    if plan.bf16_slots(f):
+        return f"sf_f2bf({v})"
+    return f"sf_bfr({v})" if plan.rounded(f) else v
 
 
 def _param_names(params: str) -> str:
@@ -1018,17 +1084,108 @@ SF_DEV void sf_mma_band(float* const d, const int d_rs, const int d_cs,
 """
 
 
-def mma_probe_source(ksteps=(2, 5, 6)) -> str:
+# the single-pass bf16 band pass on tensor cores (K3b under
+# mxu_precision="bf16"): ``sf_mma_band``'s tile and operands, with both
+# operands rounded to bf16 (to nearest, ties to even) and one
+# mma.sync m16n8k16 bf16 product a k-step of 16 with f32 accumulation.
+# Fragments: A (16 x 16, row) a[0] = row g cols 2c, 2c + 1; a[1] = row
+# g + 8, the same cols; a[2], a[3] the same rows at cols 2c + 8, 2c + 9;
+# B (16 x 8, col) b[0] = rows 2c, 2c + 1 of col g, b[1] = rows 2c + 8,
+# 2c + 9; each register holds its lower column (row) in its low half.
+# A product of two bf16 values is exact in f32, so the host version (the
+# same rounded operands summed in f32 in tap order, as the CUDA-core pass
+# sums them) differs from the card's only in the order of the sums.
+_MMA_BF16_MACROS = """#ifdef __CUDACC__
+SF_DEV unsigned sf_bf16x2(const float lo, const float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+SF_DEV void sf_mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                        const unsigned (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+                 "r"(b[0]), "r"(b[1]));
+}
+template <int KS>
+SF_DEV void sf_mma_band_bf16(float* const d, const int d_rs, const int d_cs,
+                             const int d_rows, const int d_cols,
+                             const float* const x, const int x_rs,
+                             const int x_cs, const int x_rows,
+                             const int x_cols, const float* const w,
+                             const int w_ts, const int w_cs, const int taps,
+                             const int lane) {
+  const int g = lane >> 2, c = lane & 3;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    float av[8], bv[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 16 * s + 2 * c + 8 * h + e, t = m - g;
+        av[4 * h + e] = (g < x_rows && m < x_cols) ? x[g * x_rs + m * x_cs]
+                                                   : 0.0f;
+        av[4 * h + 2 + e] = (g + 8 < x_rows && m < x_cols)
+                                ? x[(g + 8) * x_rs + m * x_cs] : 0.0f;
+        bv[2 * h + e] = (t >= 0 && t < taps) ? w[t * w_ts + g * w_cs] : 0.0f;
+      }
+    const unsigned a[4] = {sf_bf16x2(av[0], av[1]), sf_bf16x2(av[2], av[3]),
+                           sf_bf16x2(av[4], av[5]), sf_bf16x2(av[6], av[7])};
+    const unsigned b[2] = {sf_bf16x2(bv[0], bv[1]), sf_bf16x2(bv[2], bv[3])};
+    sf_mma_bf16(acc, a, b);
+  }
+  const int n0 = 2 * c, n1 = n0 + 1;
+  if (g < d_rows && n0 < d_cols) d[g * d_rs + n0 * d_cs] = acc[0];
+  if (g < d_rows && n1 < d_cols) d[g * d_rs + n1 * d_cs] = acc[1];
+  if (g + 8 < d_rows && n0 < d_cols) d[(g + 8) * d_rs + n0 * d_cs] = acc[2];
+  if (g + 8 < d_rows && n1 < d_cols) d[(g + 8) * d_rs + n1 * d_cs] = acc[3];
+}
+#else
+template <int KS>
+SF_DEV void sf_mma_band_bf16(float* const d, const int d_rs, const int d_cs,
+                             const int d_rows, const int d_cols,
+                             const float* const x, const int x_rs,
+                             const int x_cs, const int x_rows,
+                             const int x_cols, const float* const w,
+                             const int w_ts, const int w_cs, const int taps,
+                             const int lane) {
+  (void)lane;
+  for (int r = 0; r < 16 && r < d_rows; ++r)
+    for (int n = 0; n < 8 && n < d_cols; ++n) {
+      float acc = 0.0f;
+      for (int m = 0; m < 16 * KS; ++m) {
+        const float a = (r < x_rows && m < x_cols) ? x[r * x_rs + m * x_cs]
+                                                   : 0.0f;
+        const int tp = m - n;
+        const float b = (tp >= 0 && tp < taps) ? w[tp * w_ts + n * w_cs]
+                                               : 0.0f;
+        acc = acc + sf_bfr(a) * sf_bfr(b);
+      }
+      d[r * d_rs + n * d_cs] = acc;
+    }
+}
+#endif
+"""
+
+
+def mma_probe_source(ksteps=(2, 5, 6), bf16: bool = False) -> str:
     """``sf_mma_band`` alone, for the tests: ``int sf_mma_probe(x, w, d,
     x_rs, x_cs, x_rows, x_cols, w_ts, w_cs, taps, ks, stream)`` runs one
     warp on the card over device arrays (one 16 x 8 tile, X of 16 x 8 ks
     and the band as ``sf_mma_band`` takes them); g++ builds
     ``sf_mma_probe_host`` with the same arguments (host arrays, no
-    stream) around the host version."""
+    stream) around the host version.  ``bf16``: the same for
+    ``sf_mma_band_bf16``, whose k-steps are 16 deep (X of 16 x 16 ks)."""
     cases = "".join(f"    case {k}: CALL({k}); break;\n" for k in ksteps)
     args = ("d, 8, 1, 16, 8, x, x_rs, x_cs, x_rows, x_cols, w, w_ts, "
             "w_cs, taps")
-    return (prelude() + _STREAM_MACROS + _MMA_MACROS + f"""
+    macros = _BF16_MACROS + _MMA_BF16_MACROS if bf16 else _MMA_MACROS
+    band = "sf_mma_band_bf16" if bf16 else "sf_mma_band"
+    return (prelude() + _STREAM_MACROS + macros + f"""
 #define SF_PROBE_ARGS const float* x, const float* w, float* d, \\
     int x_rs, int x_cs, int x_rows, int x_cols, int w_ts, int w_cs, \\
     int taps, int ks
@@ -1038,7 +1195,7 @@ __global__ void sf_mma_probe_kernel(const float* x, const float* w,
                                     float* d, int x_rs, int x_cs,
                                     int x_rows, int x_cols, int w_ts,
                                     int w_cs, int taps) {{
-  sf_mma_band<KS>({args}, threadIdx.x);
+  {band}<KS>({args}, threadIdx.x);
 }}
 #define CALL(K) sf_mma_probe_kernel<K><<<1, 32, 0, (cudaStream_t)stream>>>(\\
     x, w, d, x_rs, x_cs, x_rows, x_cols, w_ts, w_cs, taps)
@@ -1049,7 +1206,7 @@ extern "C" int sf_mma_probe(SF_PROBE_ARGS, void* stream) {{
   return (int)cudaGetLastError();
 }}
 #else
-#define CALL(K) sf_mma_band<K>({args}, 0)
+#define CALL(K) {band}<K>({args}, 0)
 extern "C" int sf_mma_probe_host(SF_PROBE_ARGS) {{
   switch (ks) {{
 {cases}    default: return -1;
@@ -1092,6 +1249,14 @@ class _StreamEmitter:
         self.tiles = set()      # column counts of the tile loops
         self.routes = set()     # the band passes' routes
         self.vectors = set()    # bands whose weight vector is written
+        # single-pass bf16 band passes: both operands of every pass round
+        # to bf16 (the pool's bands are bf16 already: linear.finalize_pool)
+        self.bf = plan.mxu_precision == "bf16"
+
+    def opnd(self, x: str) -> str:
+        """A band pass's source operand ``x`` (rounded to bf16 under
+        mxu_precision="bf16")."""
+        return f"sf_bfr({x})" if self.bf else x
 
     def glob(self, pexpr: str) -> str:
         """Global index of plane ``pexpr`` (a local kernel's plane 0 is
@@ -1151,12 +1316,13 @@ class _StreamEmitter:
                     "      const int sk = gk + dk;",
                     f"      if (sk < 0 || sk >= {K}) continue;",
                     f"      rs = rs + SF_LDG(pc{self.pidx[rkey]} + "
-                    f"(dk - ({dk0})) * {PK} + {lk}) * {g};", "    }"]
+                    f"(dk - ({dk0})) * {PK} + {lk}) * {self.opnd(g)};",
+                    "    }"]
         else:
             pre += ["    const int sk = gk;", f"    const float rs = {g};"]
         if lkey is not None:
             pre.append(f"    {v} = {v} + SF_LDG(pc{self.pidx[lkey]} + "
-                       f"(dj - ({dj0})) * {PJ} + {lj}) * rs;")
+                       f"(dj - ({dj0})) * {PJ} + {lj}) * {self.opnd('rs')};")
         else:
             pre.append(f"    {v} = rs;")
         pre += ["  }", "}"]
@@ -1183,7 +1349,8 @@ class _StreamEmitter:
             self.n_otf += 1
             pre.append(f"float {v} = 0.0f;")
             pre += [f"{v} = fmaf({literal(np.float32(w), np.float32)}, "
-                    f"u{n}[{x} + {(dj + bj + d) * TK + dk}], {v});"
+                    + self.opnd(f"u{n}[{x} + {(dj + bj + d) * TK + dk}]")
+                    + f", {v});"
                     for d, w in zip(info.offsets, info.w) if w != 0]
             return v
         if tkey in plan.instep:
@@ -1370,7 +1537,7 @@ class _StreamEmitter:
                     w = info.w[d - info.offsets[0]]
                     body.append(f"s{n} = fmaf("
                                 f"{literal(np.float32(w), np.float32)}, "
-                                f"sr[{d}], s{n});")
+                                f"{self.opnd(f'sr[{d}]')}, s{n});")
         body += [f"u{n}[p] = s{n};" for n in names]
         return ([f"{{  // k-passes of transforms "
                  f"{', '.join(map(str, names))}: {f} (CUDA cores; their "
@@ -1379,9 +1546,10 @@ class _StreamEmitter:
                 + ["  " + x for x in _region_loop(rows, cols, body)] + ["}"])
 
     def tpass(self, tkey, side: str) -> List[str]:
-        """``tkey``'s pass along ``side``'s axis ("R": the k-pass, into
-        the scratch of a two-sided transform; "L": the j-pass) for the
-        step's plane of the transform: one fmaf a tap on CUDA cores
+        """``tkey``'s pass along ``side``'s axis ("R": the k-pass; "L":
+        the j-pass; the first of a two-sided transform's, in
+        ``plan.pass_order``, into its scratch) for the step's plane of
+        the transform: one fmaf a tap on CUDA cores
         (literal Toeplitz weights, the block's table window where the
         band is not Toeplitz), or ``sf_mma_band`` tiles on tensor cores.
         The source planes hold 0 beyond the domain, so no read is
@@ -1396,7 +1564,8 @@ class _StreamEmitter:
         key = rkey if side == "R" else lkey
         info = plan.band_info(key, side)
         d0, taps = info.offsets[0], info.taps
-        two = lkey is not None and rkey is not None
+        order = plan.pass_order(tkey)
+        two = len(order) == 2
         route = plan.route(key, side)
         self.routes.add(route)
         dsrc = plan.instep.get(tkey, plan.lag[f])
@@ -1404,20 +1573,22 @@ class _StreamEmitter:
         out = f"tp{n}" if tkey in plan.instep else \
             f"t{n} + {self.tslot(tkey, plan.lag[f])} * {TJ * TK}"
         name = f"{n}{side}"
-        if side == "R":
-            rows, cols = plan.pass_shape(tkey, "R")
-            src, stride = raw, FK
-            roff = oj - plan.reach(lkey, "L") if two else oj
-            coff, srows = ok, FJ
-            if two:
-                out = f"u{n}"
-        else:
-            rows, cols = TJ, TK
-            if two:
-                src, stride, roff, coff = f"u{n}", TK, plan.reach(lkey, "L"), 0
-                srows = plan.scratch_shape(tkey)[0]
+        rows, cols = plan.pass_shape(tkey, side)
+        # the first pass reads the raw plane (from the second's reach
+        # before the region along the second's axis) into the scratch;
+        # the second reads the scratch
+        src, stride, roff, coff, srows = raw, FK, oj, ok, FJ
+        if two and side == order[0]:
+            out = f"u{n}"
+            if side == "R":
+                roff -= plan.reach(lkey, "L")
             else:
-                src, stride, roff, coff, srows = raw, FK, oj, ok, FJ
+                coff -= plan.reach(rkey, "R")
+        elif two:
+            srows, stride = plan.scratch_shape(tkey)
+            src, roff, coff = f"u{n}", plan.reach(lkey, "L"), 0
+            if side == "R":
+                roff, coff = 0, plan.reach(rkey, "R")
         L = [f"{{  // {'k' if side == 'R' else 'j'}-pass of transform {n}: "
              f"{f} ({taps} taps, {'tensor' if route == 'mma' else 'CUDA'} "
              "cores)",
@@ -1425,7 +1596,7 @@ class _StreamEmitter:
              f"  float* const so = {out};"]
         # a mirrored ring's plane also goes to slot s + S (s < S - 1)
         mirror = (plan.mirrored(tkey) and route == "fma"
-                  and (side == "L" or not two))
+                  and side == order[-1])
         if mirror:
             S = plan.tring[tkey]
             L.append(f"  const bool mir = {self.tslot(tkey, plan.lag[f])} "
@@ -1439,13 +1610,14 @@ class _StreamEmitter:
                 b = [f"const float* const sr = {at};", "float s = 0.0f;"]
                 for i, d in enumerate(info.offsets):
                     step = d if side == "R" else d * stride
+                    src = self.opnd(f"sr[{step}]")
                     if table:
                         pos = "kl" if side == "R" else "jl"
                         b.append(f"s = fmaf(bt{name}[{i * width} + {pos}], "
-                                 f"sr[{step}], s);")
+                                 f"{src}, s);")
                     elif info.w[i] != 0:
                         b.append(f"s = fmaf({literal(np.float32(info.w[i]), np.float32)}, "
-                                 f"sr[{step}], s);")
+                                 f"{src}, s);")
                 return b + ["so[p] = s;"] + (
                     [f"if (mir) so[p + {S * TJ * TK}] = s;"] if mirror
                     else [])
@@ -1460,7 +1632,8 @@ class _StreamEmitter:
             L.append("}")
             return L
         from .stream import mma_ksteps
-        ks = mma_ksteps(taps)
+        ks = mma_ksteps(taps, self.bf)
+        fn = "sf_mma_band_bf16" if self.bf else "sf_mma_band"
         if info.toeplitz:
             band = f"bv{name}, 1, 0"
         else:
@@ -1469,7 +1642,7 @@ class _StreamEmitter:
         if side == "R":
             NR, NC = -(-rows // 16), -(-cols // 8)
             body = ["const int r0 = tr * 16, c0 = tc * 8;",
-                    f"sf_mma_band<{ks}>(so + r0 * {cols} + c0, {cols}, 1, "
+                    f"{fn}<{ks}>(so + r0 * {cols} + c0, {cols}, 1, "
                     f"{rows} - r0, {cols} - c0,",
                     f"    sx + (r0 + {roff}) * {stride} + c0 + {coff + d0}, "
                     f"{stride}, 1, {rows} - r0, {stride - coff - d0} - c0,",
@@ -1477,7 +1650,7 @@ class _StreamEmitter:
         else:   # transposed: 16 columns by 8 rows a tile
             NR, NC = -(-cols // 16), -(-rows // 8)
             body = ["const int c0 = tr * 16, r0 = tc * 8;",
-                    f"sf_mma_band<{ks}>(so + r0 * {cols} + c0, 1, {cols}, "
+                    f"{fn}<{ks}>(so + r0 * {cols} + c0, 1, {cols}, "
                     f"{cols} - c0, {rows} - r0,",
                     f"    sx + (r0 + {roff + d0}) * {stride} + c0 + {coff}, "
                     f"1, {stride}, {cols} - c0, {srows - roff - d0} - r0,",
@@ -1524,7 +1697,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
          f"k0 >= {Hk} && k0 + {tk + Hk} <= {K};",
          "  (void)inner;"]
     for f in plan.raw_ring:
-        ct = ctype(program.field_dtype(f))
+        ct = _slot_type(program, plan, f)
         at = off[f] if f in off else off["ring", f]
         L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {at});")
     for t in plan.tkeys:
@@ -1594,12 +1767,13 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 body = _stage_call(program, kspec, idx, pos, onchip, slots,
                                    at_pos, em.adims, masked)
             if s in plan.raw_ring:
+                rv = _to_slot(plan, s, "r")
                 if masked and s in sources:   # the passes read 0 beyond
                     body.append(f"w[p] = (gj >= 0 && gj < {J} && gk >= 0 "
-                                f"&& gk < {K}) ? r : "
+                                f"&& gk < {K}) ? {rv} : "
                                 f"{literal(0, program.field_dtype(s))};")
                 else:
-                    body.append("w[p] = r;")
+                    body.append(f"w[p] = {rv};")
             if s in program.outputs:
                 cond = [f"q >= {h} && q < {h + Ic}"] if local else []
                 if hj:
@@ -1624,7 +1798,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
         step += [f"    {{  // phase: stage {s}: {RJ} x {RK}"] + guard(
             f"t - {plan.lag[s]}")
         if s in plan.raw_ring:
-            ct = ctype(program.field_dtype(s))
+            ct = _slot_type(program, plan, s)
             step.append(f"        {ct}* const w = r_{s} + "
                         f"{_slot(plan, s, plan.lag[s])} * {RJ * RK};")
         step += _ring_bases(program, plan, ptrs, "        ")
@@ -1698,7 +1872,8 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     params, args = _params(program, n_pool, origin=origin, spill=spill)
     em = _StreamEmitter(program, plan, slots)
     if plan.packed:
-        L = [head, _STREAM_MACROS, _SPILL_MACROS] + _packed_stream_body(
+        L = [head, _STREAM_MACROS, _SPILL_MACROS] + _bf16_macros(
+            plan) + _packed_stream_body(
             program, plan, em, order, slots, kernel, params)
         L += _entry_points(program, kernel, params, args, (ntj, ntk),
                            plan.smem_bytes(), slots, n_pool, origin=origin,
@@ -1706,8 +1881,11 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
         return "\n".join(L)
     body = _onchip_stream_body(program, plan, em, order, slots, kernel,
                                params)
-    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + (
-        [_MMA_MACROS] if "mma" in em.routes else []) + body
+    mma = []
+    if "mma" in em.routes:
+        mma = [_MMA_BF16_MACROS if em.bf else _MMA_MACROS]
+    L = [head, _STREAM_MACROS] + _bf16_macros(plan) + _skeleton_macros(
+        plan.threads) + mma + body
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
                        plan.smem_bytes(), slots, n_pool, origin=origin,
                        min_blocks=plan.min_blocks(), threads=plan.threads)
@@ -1778,7 +1956,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
         L.append(f"  unsigned char* const sf_region = sf_spill + (long long)"
                  f"(by * {ntk} + bx) * {soffs['end']}LL;")
     for f in plan.raw_ring:
-        ct = ctype(program.field_dtype(f))
+        ct = _slot_type(program, plan, f)
         if f in plan.spilled:
             L.append(f"  {ct}* const st_{f} = ({ct}*)(sf_smem + "
                      f"{lay.offset['stage', f]});")
@@ -1786,7 +1964,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             off = lay.offset[f] if f in lay.offset else lay.offset["ring", f]
             L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {off});")
     for key, i in bar.items():
-        ct = ctype(program.field_dtype(key[0]))
+        ct = _slot_type(program, plan, key[0])
         L.append(f"  {ct}* const ld{i} = ({ct}*)(sf_smem + "
                  f"{lay.offset[('read',) + key]});")
     if lay.loads:
@@ -1857,8 +2035,9 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
                   f"        const int jl = p / {RK}, kl = p - jl * {RK};",
                   f"        const int gj = j0 - {hj} + jl, "
                   f"gk = k0 - {hk} + kl;",
-                  f"        {dst} = ({inb}) ? {src}"
-                  f" : {literal(0, program.field_dtype(f))};",
+                  f"        {dst} = " + _to_slot(
+                      plan, f, f"({inb}) ? {src} : "
+                      f"{literal(0, program.field_dtype(f))}") + ";",
                   "      }"]
         L.append("    }")
     L += close
@@ -1878,24 +2057,25 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             dk = plan.halo[f][1] - plan.halo[s][1]
             if f not in plan.spilled:
                 D = plan.raw_ring[f]
-                return lambda o: (f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
-                                  f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
-                                  f"kl + {dk + o[2]}]")
+                return lambda o: _from_slot(
+                    plan, f, f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
+                    f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
+                    f"kl + {dk + o[2]}]")
 
             def at(o):
                 d = plan.lag[s] - o[0]
                 buf = f"st_{f}" if d == plan.lag[f] else f"ld{bar[f, d]}"
-                return (f"{buf}[(jl + {dj + o[1]}) * {fk} + kl + "
-                        f"{dk + o[2]}]")
+                return _from_slot(plan, f, f"{buf}[(jl + {dj + o[1]}) * "
+                                  f"{fk} + kl + {dk + o[2]}]")
             return at
 
         body = _stage_call(program, kspec, idx, pos, onchip, slots, at_pos,
                            em.adims)
         if s in plan.spilled:
-            body.append(f"st_{s}[p] = r;")
+            body.append(f"st_{s}[p] = {_to_slot(plan, s, 'r')};")
         elif s in plan.raw_ring:
             body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
-                        "= r;")
+                        f"= {_to_slot(plan, s, 'r')};")
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
             qo = f"(q - {h})" if local else "q"
@@ -2030,7 +2210,8 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
     S, Ps = plan.segments, plan.panels_per_segment(program)
     lag_max = plan.lag_max(program)
     ring_inputs = [f for f in plan.rings if f in program.inputs]
-    L = [head, _STREAM_MACROS] + _skeleton_macros(plan.threads) + [
+    L = [head, _STREAM_MACROS] + _bf16_macros(plan) + _skeleton_macros(
+        plan.threads) + [
          _CP_WAIT_ALL,
          "// group streamer (backend/group.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/group.py _group_kernel_body (K5)",
@@ -2052,7 +2233,7 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
          f"P1 + {warm['in_hi']} : {n_panels};",
          "  (void)P1; (void)Pin;"]
     for f in plan.rings:
-        ct = ctype(program.field_dtype(f))
+        ct = _slot_type(program, plan, f)
         L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {ring_off[f]});")
     counters = sorted({plan.slots(f) for f in plan.rings} - {1})
     L += [f"  int m{D} = T0 % {D};  // t mod {D}" for D in counters]
@@ -2127,7 +2308,7 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
         for f in nd:
             if f in gset or f not in plan.rings:
                 continue
-            ct = ctype(program.field_dtype(f))
+            ct = _slot_type(program, plan, f)
             D = plan.slots(f)
             e = (plan.shift[f] - nd[f][0]) % (D * B)
             L.append(f"    const {ct}* const rb{g}_{f} = r_{f} + "
@@ -2144,10 +2325,15 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                 if f not in gset and f not in plan.rings:
                     return lambda o: None   # read from device memory
                 name = f"b_{f}" if f in gset else f"rb{g}_{f}"
-                return _block_reader(
+                at = _block_reader(
                     name, plan.region(f), plan.region(s), nd[f][0] - lo_s,
                     plan.halo[f][0] - plan.halo[s][0],
                     plan.halo[f][1] - plan.halo[s][1], xs)
+                if f in gset or not plan.rounded(f):
+                    return at   # in-group blocks hold exact values
+                if f in program.inputs:   # f32 slots, rounded at read
+                    return lambda o: f"sf_bfr({at(o)})"
+                return lambda o: _from_slot(plan, f, at(o))
 
             bodies = []
             for masked in (False, True):
@@ -2159,12 +2345,13 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                     body.append(f"b_{s}[p] = r;")
                 if s in plan.rings:
                     n, M = plan.slots(s) * B, plan.mirror[s]
+                    rv = _to_slot(plan, s, "r")
                     body += [f"if ({core}) {{",
                              f"  const int pr = sf_wrap(ub + il, {n});",
-                             f"  w[p + (pr - il) * {RJ * RK}] = r;"]
+                             f"  w[p + (pr - il) * {RJ * RK}] = {rv};"]
                     if M:
                         body.append(f"  if (pr < {M}) w[p + (pr - il + {n})"
-                                    f" * {RJ * RK}] = r;")
+                                    f" * {RJ * RK}] = {rv};")
                     body.append("}")
                 if s in program.outputs:
                     cond = [core]
@@ -2183,7 +2370,7 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
             qlo, qhi = plan.free_panels(program, g, s)
             L += [f"    if (run{g}) {{  // stage {s}: {R} x {RJ} x {RK}"]
             if s in plan.rings:
-                ct = ctype(program.field_dtype(s))
+                ct = _slot_type(program, plan, s)
                 L += [f"      {ct}* const w = r_{s};",
                       f"      const int ub = "
                       f"{_slot_of(plan.slots(s), plan.lag[g])} * {B} + "

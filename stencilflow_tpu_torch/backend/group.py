@@ -65,8 +65,17 @@ ms (2.10-2.12 before) at (1, 64) x 256 with 8 segments, and hotspot2d
 moved neither.
 
 Not ported (TPU-only, ROADMAP ground rules): direct input windows, the
-bool wire and narrow stores, VMEM limits, bf16 ring storage, and the
-auto-B preference for sublane multiples of 8.
+bool wire and narrow stores, VMEM limits, and the auto-B preference for
+sublane multiples of 8.
+
+``ring_storage="bfloat16"`` (the reference's bf16 ring storage, f32
+compute): every f32 field of ``ring_fields`` rounds to bf16 (to nearest,
+ties to even) where its ring stores it and every ring read sees it as
+f32; a stage's ring keeps bf16 slots (``smem_layout`` counts 2 bytes a
+cell), a ring input keeps f32 slots, which ``cp.async`` fills, and
+rounds at each read; in-group blocks hold exact values, as the
+reference's in-group reads do.  Outputs are written unrounded.  Launches
+count in ``bf16_launches``.
 
 ``group_plain`` runs the reference's schedule from the same plan in
 torch ops, all tiles at once, one segment; the wrapper ``run_group``
@@ -92,11 +101,14 @@ from . import build, codegen
 from .panel import AHEAD, PANEL_THREADS, reach, tile_candidates
 from .stacked_io import (THREADS, accesses_with_center, bc_select,
                          check_scope, gather_global, or_mask,
-                         resolve_device, run_kernel, spanned_arrays)
+                         resolve_device, round_bf16, rounded_rings,
+                         run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only)
+# number of kernel launches (CUDA tensors only): with exact rings, and
+# with bf16 rings (ring_storage="bfloat16")
 launches = 0
+bf16_launches = 0
 # the i-segments a plan may cut I into (one block per segment and tile)
 SEGMENTS = (1, 2, 3, 4, 6, 8)
 # the plan rule's cost of a lane at (resident blocks per SM, threads a
@@ -149,6 +161,12 @@ class GroupPlan:
         default_factory=dict)
     threads: int = THREADS                   # threads of a block
     segments: int = 1                        # i-segments of the grid
+    # ring_storage="bfloat16": the rings that round to bf16 at their store
+    # (the f32 fields of ``ring_fields``); a stage's ring keeps bf16
+    # slots, a ring input f32 slots (cp.async copies bytes) rounded where
+    # they are read; in-group blocks keep exact values, as the reference's
+    # in-group reads do
+    rounds: frozenset = frozenset()
 
     @classmethod
     def build(cls, program: ir.Program, analysis: ChainAnalysis,
@@ -326,6 +344,13 @@ class GroupPlan:
         return self.depth[f] + (AHEAD if f in self.issue
                                 and self.issue[f] is None else 0)
 
+    def rounded(self, f: str) -> bool:
+        return f in self.rounds
+
+    def bf16_slots(self, f: str) -> bool:
+        """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
+        return f in self.rounds and f not in self.inputs
+
     def ring_planes(self, f: str) -> int:
         """Planes of ring ``f`` in shared memory: its slots' and the
         mirrored ones."""
@@ -338,8 +363,9 @@ class GroupPlan:
         for f in self.rings:
             rings[f] = off
             RJ, RK = self.region(f)
-            off += _align16(self.ring_planes(f) * RJ * RK * np.dtype(
-                program.field_dtype(f)).itemsize)
+            off += _align16(self.ring_planes(f) * RJ * RK * (
+                2 if self.bf16_slots(f) else np.dtype(
+                    program.field_dtype(f)).itemsize))
         temps, peak = [], 0
         for gi in range(len(self.groups)):
             t = self.temps(program, gi)
@@ -486,7 +512,8 @@ class GroupPlan:
 
 def _fit(program: ir.Program, analysis: ChainAnalysis, B: int, group: int,
          tile: Optional[Tuple[int, int]], threads: Optional[int] = None,
-         segments: Optional[int] = None) -> Optional[GroupPlan]:
+         segments: Optional[int] = None,
+         ring_storage: str = "off") -> Optional[GroupPlan]:
     """The plan at panel size B of least modelled time
     (``GroupPlan.seconds``) over the tiles (or ``tile``), the thread
     counts of ``PANEL_THREADS`` (or ``threads``) and the i-segments of
@@ -494,6 +521,7 @@ def _fit(program: ir.Program, analysis: ChainAnalysis, B: int, group: int,
     when nothing fits."""
     plan = GroupPlan.build(program, analysis, B, group)
     plan.place(program, analysis)
+    plan.rounds = rounded_rings(program, plan.rings, ring_storage)
     n_panels = program.dimensions[0] // B
     segs = [segments] if segments else [
         S for S in SEGMENTS if S <= n_panels
@@ -520,13 +548,15 @@ def plan_group(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                panel: int = 0, group: int = 2,
                tile: Optional[Tuple[int, int]] = None,
                threads: Optional[int] = None,
-               segments: Optional[int] = None) -> GroupPlan:
+               segments: Optional[int] = None,
+               ring_storage: str = "off") -> GroupPlan:
     """The group kernel's plan: panel size B (``panel``, 0 = the JAX
     package's auto rule), groups of at most ``group`` stages, and the
     (tj, tk) tile, threads and i-segments of least modelled time whose
     shared memory fits (each fixed where given).  An auto B steps down by
     divisors of I until some tile fits; an explicit B that fits nowhere,
-    or does not divide I, raises ValueError (nothing is built)."""
+    or does not divide I, raises ValueError (nothing is built).
+    ``ring_storage`` ("off" or "bfloat16") is the rings' storage."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     if group < 1:
@@ -554,11 +584,13 @@ def plan_group(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                              f"[1, {I // B}]")
         # as many segments as runs of ceil(panels / segments) panels
         segments = -(-(I // B) // -(-(I // B) // segments))
-    plan = _fit(program, analysis, B, group, tile, threads, segments)
+    plan = _fit(program, analysis, B, group, tile, threads, segments,
+                ring_storage)
     while auto and plan is None and B > 1:
         B = max(d for d in range(1, B // 2 + 1) if I % d == 0)
         plan = _fit(program, analysis, B, group, tile, threads,
-                    min(segments, I // B) if segments else None)
+                    min(segments, I // B) if segments else None,
+                    ring_storage)
     if plan is None:
         where = f"tile {tuple(tile)}" if tile else "every tile"
         raise ValueError(f"group rings and blocks exceed shared memory at "
@@ -613,10 +645,12 @@ def group_plain(program: ir.Program, analysis: ChainAnalysis,
         if t < n_panels:
             for f in ring_inputs:
                 gj, gk = jk(f)
-                rings[f][t * B % rings[f].shape[0]:][:B] = gather_global(
+                val = gather_global(
                     arrays[f], program.inputs[f].dim_mask,
                     (planes(t * B, B), gj, gk), dims).expand(
                         (B, ntj, ntk) + plan.region(f))
+                rings[f][t * B % rings[f].shape[0]:][:B] = round_bf16(
+                    val) if plan.rounded(f) else val
         for gi, grp in enumerate(plan.groups):
             q = t - plan.lag[gi]
             if not 0 <= q < n_panels:
@@ -677,7 +711,8 @@ def group_plain(program: ir.Program, analysis: ChainAnalysis,
                 vals[s] = val
                 core = val[lo_s:lo_s + B]
                 if s in rings:
-                    rings[s][q * B % rings[s].shape[0]:][:B] = core
+                    rings[s][q * B % rings[s].shape[0]:][:B] = round_bf16(
+                        core) if plan.rounded(s) else core
                 if s in outs:
                     hj, hk = plan.halo[s]
                     c = core[:, :, :, hj:hj + tj, hk:hk + tk]
@@ -700,13 +735,16 @@ def run_group(program: ir.Program, analysis: ChainAnalysis, plan: GroupPlan,
     """The group kernel on ``arrays`` (spanned shapes, scalars 0-d).
     ``lib`` is the built kernel (``build_group``); it is built on demand
     when omitted."""
-    global launches
+    global launches, bf16_launches
     outs, launched = run_kernel(
         program, arrays,
         lambda: lib if lib is not None else build_group(program, analysis,
                                                         plan),
         lambda: group_plain(program, analysis, plan, arrays))
-    launches += launched
+    if plan.rounds:
+        bf16_launches += launched
+    else:
+        launches += launched
     return outs
 
 
@@ -714,14 +752,17 @@ def compile_chain_group(program: ir.Program,
                         analysis: Optional[ChainAnalysis] = None,
                         panel: int = 0, group: int = 2,
                         tile: Optional[Tuple[int, int]] = None,
-                        device="cuda"):
+                        device="cuda", ring_storage: str = "off"):
     """Plan the group kernel (``plan_group``: ValueError /
     NotImplementedError when the program is out of its scope) and, for a
     CUDA ``device``, build it.  Returns ``fn(inputs) -> outputs`` at the
     program's raw dims on ``device`` (inputs are moved there), with the
-    plan as ``fn.plan``."""
+    plan as ``fn.plan``.  ``ring_storage="bfloat16"`` rounds every f32
+    ring to bf16 at its store (f32 compute; in-group reads and outputs
+    exact)."""
     analysis = analysis or ChainAnalysis.run(program)
-    plan = plan_group(program, analysis, panel, group, tile)
+    plan = plan_group(program, analysis, panel, group, tile,
+                      ring_storage=ring_storage)
     device = resolve_device(device)
     lib = build_group(program, analysis, plan) if device.type == "cuda" \
         else None

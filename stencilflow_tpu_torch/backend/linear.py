@@ -34,10 +34,12 @@ import hashlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import ir
 from ..config import JUNK_VAL
 from ..dtypes import is_floating
+from .stacked_io import round_bf16
 
 Offset2 = Tuple[int, int]
 
@@ -165,14 +167,15 @@ def finalize_pool(plans: Dict[str, object], pool: MatrixPool, program,
     ``"split"`` and ``"exact"`` keep every matrix in f32: the port's
     kernel splits operands itself (TF32 hi/lo on tensor cores for wide
     bands under "split"), so there are no ``__lo`` residual matrices.
-    The opt-in single-pass ``"bf16"`` mode is not ported yet."""
+    The opt-in single-pass ``"bf16"`` mode rounds the band matrices (the
+    ``L``/``R`` keys) to bf16 with no residual, as the JAX package's
+    does; correction planes and composed i-tables stay f32, and the
+    kernel rounds each pass's operand plane (the plan's
+    ``mxu_precision`` records the mode, where the JAX package keeps its
+    ``__precision__`` sentinel)."""
     if mxu_precision not in ("split", "bf16", "exact"):
         raise ValueError(f"unknown mxu_precision {mxu_precision!r} "
                          "(expected split, bf16, or exact)")
-    if mxu_precision == "bf16":
-        raise NotImplementedError(
-            "mxu_precision='bf16' (single-pass bf16 transforms) is not "
-            "ported yet")
     used = set()
     tkeys = set()
     for mp in plans.values():
@@ -191,6 +194,10 @@ def finalize_pool(plans: Dict[str, object], pool: MatrixPool, program,
                     tkeys.add((grp.field, t.left_key, t.right_key))
     pkeys = sorted(used)
     parrs = [pool.items[k] for k in pkeys]
+    if mxu_precision == "bf16":
+        parrs = [round_bf16(torch.from_numpy(np.asarray(a, np.float32)))
+                 .numpy() if k.startswith(("L", "R")) else a
+                 for k, a in zip(pkeys, parrs)]
     tkeys = sorted(tkeys, key=lambda t: (t[0], t[1] or "", t[2] or ""))
     return pkeys, parrs, tkeys
 
@@ -262,6 +269,22 @@ def mxu_flops_per_cell(pool: Dict[str, np.ndarray], transform_keys
         for key, side in ((lkey, "L"), (rkey, "R")):
             if key is not None:
                 total += 2.0 * len(band_diagonals(pool[key], side)[0])
+    return total
+
+
+def mxu_bf16_flops_per_cell(pool: Dict[str, np.ndarray], transform_keys
+                            ) -> float:
+    """Executed tensor-core flops per domain cell of the plan's band
+    transforms as single-pass bf16 passes (``mxu_precision="bf16"``): a
+    side's 16 x 8 output tile takes one m16n8k16 product per k-step of
+    16, ``ceil((taps + 7) / 16)`` steps (the fragments' depth padding
+    included), 2 x 16 flops a cell per step."""
+    total = 0.0
+    for _field, lkey, rkey in transform_keys:
+        for key, side in ((lkey, "L"), (rkey, "R")):
+            if key is not None:
+                taps = len(band_diagonals(pool[key], side)[0])
+                total += 2.0 * 16 * -(-(taps + 7) // 16)
     return total
 
 

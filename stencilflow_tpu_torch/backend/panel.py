@@ -54,6 +54,15 @@ no tile fits.  On an NVIDIA H100 80GB HBM3 (700 W; ``deep_time.py
 256^3 x 8 1.12 (1.81): about 1.85 thread-evaluations per SM-cycle on
 jacobi, where the shared-memory path allows some 4.6.
 
+``ring_storage="bfloat16"`` (the reference's bf16 panel-stack storage,
+f32 compute): every f32 ring rounds to bf16 (to nearest, ties to even)
+where it is stored and is read back as f32; a stage's ring keeps bf16
+slots, so ``plane_bytes`` and the tile rule see half its bytes (jacobi3d
+512^3 x 8 then fits (32, 32) where f32 fits (16, 32)), while a ring input
+keeps f32 slots: ``cp.async`` copies bytes, so each thread rounds the
+cells it copied in place once the plane has landed.  Outputs are written
+unrounded.  Launches count in ``bf16_launches``.
+
 ``panel_plain`` runs the same schedule from the same plan in torch ops,
 all tiles at once; the wrapper ``run_panel`` uses it for CPU tensors
 only, and launches the CUDA kernel (codegen.py) for CUDA tensors.
@@ -77,12 +86,14 @@ from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .stacked_io import (THREADS, accesses_with_center, bc_select,
                          check_scope, gather_global, or_mask,
-                         place_by_phase, resolve_device, run_kernel,
-                         spanned_arrays)
+                         place_by_phase, resolve_device, round_bf16,
+                         rounded_rings, run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only)
+# number of kernel launches (CUDA tensors only): with exact rings, and
+# with bf16 rings (ring_storage="bfloat16")
 launches = 0
+bf16_launches = 0
 # input planes are loaded this many plane steps ahead of the step that
 # first reads them, into as many more slots of their rings
 AHEAD = 1
@@ -134,6 +145,11 @@ class PanelPlan:
         default_factory=dict)
     planes: int = 0                    # I: planes the inputs stream
     threads: int = THREADS             # threads of a block
+    # ring_storage="bfloat16": the rings that round to bf16 at their store
+    # (the f32 fields of ``ring``); a stage's ring keeps bf16 slots, a
+    # ring input keeps f32 slots (cp.async copies bytes), rounded in place
+    # once its plane lands
+    rounds: frozenset = frozenset()
 
     @staticmethod
     def lags(analysis: ChainAnalysis):
@@ -155,10 +171,12 @@ class PanelPlan:
     @classmethod
     def build(cls, analysis: ChainAnalysis,
               tile: Optional[Tuple[int, int]] = None,
-              threads: Optional[int] = None) -> "PanelPlan":
+              threads: Optional[int] = None,
+              ring_storage: str = "off") -> "PanelPlan":
         """The plan of least modelled time (``seconds``) whose packed
         shared memory fits a block, over the tiles (or at ``tile``) and
-        the thread counts of ``PANEL_THREADS`` (or ``threads``)."""
+        the thread counts of ``PANEL_THREADS`` (or ``threads``), with the
+        rings' ``ring_storage`` ("off" or "bfloat16")."""
         program = analysis.program
         check_scope(program)
         lag, lag_max = cls.lags(analysis)
@@ -183,7 +201,8 @@ class PanelPlan:
                 for f in list(ring) + list(program.kernels)}
         plan = cls(lag, ring, lag_max, halo, (0, 0),
                    tuple(f for f in ring if f in program.inputs), span,
-                   program.dimensions[0])
+                   program.dimensions[0],
+                   rounds=rounded_rings(program, ring, ring_storage))
         tiles = [tuple(tile)] if tile is not None else \
             tile_candidates(program.dimensions)
         best = None
@@ -212,9 +231,17 @@ class PanelPlan:
         more for a ring input (the planes in flight)."""
         return self.ring[f] + (AHEAD if f in self.inputs else 0)
 
+    def rounded(self, f: str) -> bool:
+        return f in self.rounds
+
+    def bf16_slots(self, f: str) -> bool:
+        """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
+        return f in self.rounds and f not in self.inputs
+
     def plane_bytes(self, f: str, program: ir.Program) -> int:
-        return math.prod(self.region(f)) * np.dtype(
-            program.field_dtype(f)).itemsize
+        return math.prod(self.region(f)) * (2 if self.bf16_slots(f) else
+                                            np.dtype(program.field_dtype(
+                                                f)).itemsize)
 
     def live_mask(self, f: str) -> int:
         """Phases of a step in which ring ``f`` of one step is live."""
@@ -392,8 +419,10 @@ def panel_plain(program: ir.Program, analysis: ChainAnalysis,
         if t < I:
             for f in ring_inputs:
                 gj, gk = coords(f)
-                rings[f][t % plan.ring[f]] = gather_global(
-                    arrays[f], (True, True, True), (t, gj, gk), dims)
+                val = gather_global(arrays[f], (True, True, True),
+                                    (t, gj, gk), dims)
+                rings[f][t % plan.ring[f]] = round_bf16(val) \
+                    if plan.rounded(f) else val
         for s in analysis.graph.kernel_order:
             q = t - plan.lag[s]
             if not 0 <= q < I:
@@ -440,7 +469,8 @@ def panel_plain(program: ir.Program, analysis: ChainAnalysis,
             val = eval_kernel_statements(kspec, read, (ntj, ntk, TJ, TK),
                                          device)
             if s in plan.ring:
-                rings[s][q % plan.ring[s]] = val
+                rings[s][q % plan.ring[s]] = round_bf16(val) \
+                    if plan.rounded(s) else val
             if s in outs:
                 hj, hk = plan.halo[s]
                 core = val[:, :, hj:hj + tj, hk:hk + tk]
@@ -474,26 +504,32 @@ def run_panel(program: ir.Program, analysis: ChainAnalysis, plan: PanelPlan,
     """The panel kernel on ``arrays`` (spanned shapes, scalars 0-d).
     ``lib`` is the built kernel (``build_panel``); it is built on demand
     when omitted."""
-    global launches
+    global launches, bf16_launches
     outs, launched = run_kernel(
         program, arrays,
         lambda: lib if lib is not None else build_panel(program, analysis,
                                                         plan),
         lambda: panel_plain(program, analysis, plan, arrays))
-    launches += launched
+    if plan.rounds:
+        bf16_launches += launched
+    else:
+        launches += launched
     return outs
 
 
 def compile_chain_panel(program: ir.Program,
                         analysis: Optional[ChainAnalysis] = None,
                         tile: Optional[Tuple[int, int]] = None,
-                        device="cuda"):
+                        device="cuda", ring_storage: str = "off"):
     """Plan the panel kernel (ValueError / NotImplementedError when the
     program is out of its scope) and, for a CUDA ``device``, build it.
     Returns ``fn(inputs) -> outputs`` at the program's raw dims on
-    ``device`` (inputs are moved there), with the plan as ``fn.plan``."""
+    ``device`` (inputs are moved there), with the plan as ``fn.plan``.
+    ``ring_storage="bfloat16"`` rounds every f32 ring to bf16 at its
+    store (f32 compute, outputs written unrounded); "off" keeps them
+    exact; anything else raises ValueError."""
     analysis = analysis or ChainAnalysis.run(program)
-    plan = PanelPlan.build(analysis, tile)
+    plan = PanelPlan.build(analysis, tile, ring_storage=ring_storage)
     device = resolve_device(device)
     lib = build_panel(program, analysis, plan) if device.type == "cuda" \
         else None

@@ -44,6 +44,32 @@ def check_scope(program: ir.Program) -> None:
         raise ValueError("the kernels need an array input")
 
 
+def check_ring_storage(ring_storage: str) -> None:
+    """The JAX package's refusal of a ring storage it does not know."""
+    if ring_storage not in ("off", "bfloat16"):
+        raise ValueError(f"ring_storage must be 'off' or 'bfloat16', "
+                         f"got {ring_storage!r}")
+
+
+def rounded_rings(program: ir.Program, ring, ring_storage: str
+                  ) -> frozenset:
+    """The rings that round to bf16 at their store under
+    ``ring_storage="bfloat16"``: the float32 fields of the ring set
+    ``ring`` (f32 compute; other types are left alone, as the JAX
+    package's ``rs_round`` leaves them)."""
+    check_ring_storage(ring_storage)
+    if ring_storage == "off":
+        return frozenset()
+    return frozenset(f for f in ring
+                     if np.dtype(program.field_dtype(f)) == np.float32)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even) and read back in
+    its own float type: a bf16 ring's store and read."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def first_fit(placed, size: int, mask: int) -> int:
     """The lowest offset where ``size`` bytes overlap no placed ``(offset,
     size, mask)`` live in a phase of ``mask``."""

@@ -7,11 +7,11 @@ banded transforms ``L @ P @ R`` (``_band_dot``, ``apply_transform_block``,
 ``mxu_eval``), composed runs and constant-BC correction planes, and K4,
 the same streamer over one out-of-core i-chunk (``compile_local_stream``,
 local mode below), and K3c, the ring spill (``choose_spill`` and the
-spill rung, spill below).  Not ported here: j-tiling (the port tiles
-(j, k) itself), bf16 compute / ring storage, micro-step blocks,
-stage-major order and BC padding (pipeline workarounds for the TPU), and
-the opt-in single-pass ``mxu_precision="bf16"`` mode
-(NotImplementedError).
+spill rung, spill below), with the reference's opt-in reduced
+precisions (bf16 below).  Not ported here: j-tiling (the port tiles (j,
+k) itself), bf16 compute (``compute_dtype``), ring storage in local and
+shard mode, micro-step blocks, stage-major order and BC padding
+(pipeline workarounds for the TPU).
 
 Planning follows the JAX package's choices per stage, untiled: compose
 runs of separable stages (``compose.py``, ``compose="auto"``), then plan
@@ -40,7 +40,9 @@ the shared memory leaves room for — over the phases of
   stage's 33-plane i-table, a per-stage box's five groups) keeps a ring
   filled right after its field's producer;
 * a transform is ``P @ R`` along k into a scratch tile, then ``L @ .``
-  along j.  Sources hold 0 beyond the domain (inputs are loaded so, a
+  along j (single-pass bf16 passes run the j-pass first, as the JAX
+  package's ``(L @ P) @ R`` does: the rounded intermediate differs with
+  the order, ``StreamPlan.pass_order``).  Sources hold 0 beyond the domain (inputs are loaded so, a
   transform's source stage writes 0 there), so a band whose columns are
   Toeplitz applies literal weights with no mask; a composed band's edge
   columns (``BandInfo``) read a window of its coefficient table that
@@ -169,6 +171,31 @@ programs).  The plain version does not change (spilling moves storage,
 not arithmetic).  Launches of a spill-rung plan count in
 ``spill_launches``.  Bound: the same bytes as the unspilled kernel; it
 pays the halo recompute of small tiles and the spilled rings' traffic.
+
+bf16 (the reference's opt-in modes, whole-domain plans): under
+``ring_storage="bfloat16"`` every f32 ring of the reference's ring set
+rounds to bf16 (to nearest, ties to even) where it is stored and is read
+back as f32 (``StreamPlan.rounded``).  A stage's ring keeps bf16 slots
+(``bf16_slots``: 2 bytes a cell, so ``ring_bytes``, ``plane_bytes``,
+``pack_layout``, the spill choice and the spill buffer see half-size
+rings, and a spilled ring's bulk copies move half the bytes), except a
+band pass's source, whose slots stay f32 holding rounded values; a ring
+input keeps f32 slots on chip, where ``cp.async`` lands its planes and
+each thread rounds its own cells in place, and bf16 slots on the spill
+rung, whose loads round.  Outputs are written unrounded.  Under
+``mxu_precision="bf16"`` the pool's band matrices round to bf16
+(``linear.finalize_pool``) and every band pass rounds its operand plane:
+on CUDA cores one ``fmaf`` a tap of two bf16 values, exact products
+summed in f32, and on tensor cores, from ``MMA_MIN_TAPS`` taps,
+``sf_mma_band_bf16`` (mma.sync m16n8k16 bf16, one product a k-step of
+16, priced at ``MMA_BF16_KSTEP_LANES``).  A two-sided transform runs its
+j-pass first, into a scratch tile widened along k, and its k-pass reads
+the rounded scratch, so the intermediate rounds where the JAX package's
+``(L @ P) @ R`` rounds it; no pass is ``fused`` into its readers.
+``stream_plain`` rounds at the same points and applies each band pass
+as the kernel sums it (j-pass, then k-pass, taps in order), so the host
+build equals it up to the order of the band groups' sums.  Launches of these plans count in
+``bf16_launches`` (``spill_bf16_launches`` on the spill rung).
 """
 from __future__ import annotations
 
@@ -195,18 +222,23 @@ from .linear import (MatrixPool, band_diagonals, finalize_pool,
 from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
                     tile_candidates)
 from .stacked_io import (SPILL_BYTES_CAP, THREADS,
-                         accesses_with_center, bc_select, check_scope,
-                         or_mask, place_by_phase, resolve_device,
-                         run_kernel, spanned_arrays)
+                         accesses_with_center, bc_select,
+                         check_ring_storage, check_scope, or_mask,
+                         place_by_phase, resolve_device, round_bf16,
+                         rounded_rings, run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only): the whole-domain stream
 # kernel (K3), the local chunk kernel (K4), either with spilled rings
-# (K3c), and K4 on one shard of a mesh (any plan in shard mode)
+# (K3c), and K4 on one shard of a mesh (any plan in shard mode); a
+# whole-domain plan under a reduced precision (bf16 rings, single-pass
+# bf16 passes) counts apart, on chip and on the spill rung
 launches = 0
 local_launches = 0
 spill_launches = 0
 shard_launches = 0
+bf16_launches = 0
+spill_bf16_launches = 0
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -227,6 +259,10 @@ MMA_MIN_TAPS = 33
 # 16 x 8 tile this many lanes per k-step of 8
 FMA_TAPS_PER_LANE = 7
 MMA_KSTEP_LANES = 48
+# a single-pass bf16 16 x 8 tile per k-step of 16: the same operand reads
+# as two split k-steps of 8 (96 lanes), a third of their conversions and
+# one product where they issue six; a model, not a measurement
+MMA_BF16_KSTEP_LANES = 32
 # a stage cell costs one lane per this many shared-memory reads (at least
 # one lane: the 7-point jacobi stage the lane rate was measured on)
 STAGE_READS_PER_LANE = 7
@@ -332,6 +368,13 @@ class StreamPlan:
     shard: Tuple[int, int] = (0, 0)
     xhalo: Tuple[int, int] = (0, 0)
     contexts: Optional[Tuple[List[int], List[int]]] = None
+    # ring_storage="bfloat16": the f32 fields of the reference's ring set
+    # round to bf16 at their store (``rounded``); a stage ring keeps bf16
+    # slots (and bf16 planes in the spill buffer), except a band pass's
+    # source, whose passes read f32 slots that hold the rounded values; a
+    # ring input keeps f32 slots rounded in place once cp.async lands them
+    # on chip, and bf16 slots on the spill rung, which loads it itself
+    ring_storage: str = "off"
 
     @staticmethod
     def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
@@ -442,9 +485,21 @@ class StreamPlan:
         hj, hk = self.thalo[f] if isinstance(f, tuple) else self.halo[f]
         return self.tile[0] + 2 * hj, self.tile[1] + 2 * hk
 
+    def pass_order(self, tkey: TKey) -> Tuple[str, ...]:
+        """The sides of ``tkey``'s passes in the order they run: the
+        k-pass ("R") into the scratch of a two-sided transform, then the
+        j-pass ("L"); single-pass bf16 passes the other way round, as the
+        JAX package's ``(L @ P) @ R`` rounds its intermediate."""
+        sides = ("L", "R") if self.mxu_precision == "bf16" else ("R", "L")
+        return tuple(x for x in sides
+                     if tkey[1 if x == "L" else 2] is not None)
+
     def scratch_shape(self, tkey: TKey) -> Tuple[int, int]:
-        """(rows, cols) of the k-pass scratch of a two-sided transform."""
+        """(rows, cols) of the first pass's scratch of a two-sided
+        transform: widened along the second pass's axis by its reach."""
         TJ, TK = self.region(tkey)
+        if self.pass_order(tkey)[0] == "L":
+            return TJ, TK + 2 * self.reach(tkey[2], "R")
         return TJ + 2 * self.reach(tkey[1], "L"), TK
 
     def slots(self, f: str) -> int:
@@ -453,11 +508,31 @@ class StreamPlan:
         ahead = AHEAD if not self.packed and f in self.program.inputs else 0
         return self.raw_ring[f] + ahead
 
+    @functools.cached_property
+    def rounds(self) -> frozenset:
+        return rounded_rings(self.program, [f for f in self.raw_ring
+                                            if f in self.ring],
+                             self.ring_storage)
+
+    def rounded(self, f: str) -> bool:
+        """Does ring ``f`` round to bf16 at its store?"""
+        return f in self.rounds
+
+    def bf16_slots(self, f: str) -> bool:
+        """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
+        return (f in self.rounds
+                and (self.packed or f not in self.program.inputs)
+                and all(t[0] != f for t in self.tkeys))
+
+    def itemsize(self, f: str) -> int:
+        """Bytes of a cell of ring ``f``'s slots."""
+        return 2 if self.bf16_slots(f) else np.dtype(
+            self.program.field_dtype(f)).itemsize
+
     def ring_bytes(self, f: str) -> int:
         """Bytes of field ``f``'s raw ring, rounded up to 16."""
         tj, tk = self.region(f)
-        size = self.slots(f) * tj * tk * np.dtype(
-            self.program.field_dtype(f)).itemsize
+        size = self.slots(f) * tj * tk * self.itemsize(f)
         return -(-size // 16) * 16
 
     def smem_bytes(self) -> int:
@@ -516,26 +591,28 @@ class StreamPlan:
         applies band ``key``."""
         if self.passes != "auto":
             return self.passes
-        taps = self.band_info(key, side).taps
-        return "mma" if (self.mxu_precision == "split"
-                         and taps >= MMA_MIN_TAPS) else "fma"
+        return "mma" if (self.mxu_precision in ("split", "bf16")
+                         and self.band_info(key, side).taps
+                         >= MMA_MIN_TAPS) else "fma"
 
     def pass_shape(self, tkey: TKey, side: str):
         """(rows, cols, source field's region) of ``tkey``'s pass along
-        ``side``'s axis: the k-pass ("R") of a two-sided transform covers
-        the j-pass's widened rows."""
-        TJ, TK = self.region(tkey)
-        if side == "R" and tkey[1] is not None:
+        ``side``'s axis: the first pass of a two-sided transform covers
+        its scratch, widened for the second."""
+        order = self.pass_order(tkey)
+        if len(order) == 2 and side == order[0]:
             return self.scratch_shape(tkey)
-        return TJ, TK
+        return self.region(tkey)
 
     def fused(self, tkey: TKey) -> bool:
         """Is ``tkey`` a two-sided transform of ``instep`` whose j-pass
         runs inside its readers' stage (CUDA-core passes, Toeplitz
         bands): its k-pass fills a scratch tile, and each reader sums the
-        j-band's taps of it at its own cell, with no transformed plane?"""
+        j-band's taps of it at its own cell, with no transformed plane?
+        Never under single-pass bf16 passes, whose j-pass runs first."""
         f, lkey, rkey = tkey
         return (tkey in self.instep and lkey is not None
+                and self.mxu_precision != "bf16"
                 and rkey is not None
                 and self.route(lkey, "L") == self.route(rkey, "R") == "fma"
                 and self.band_info(lkey, "L").toeplitz
@@ -554,9 +631,9 @@ class StreamPlan:
     def schedule(self) -> List[tuple]:
         """The phases of one plane step of the on-chip body, each closed
         by a barrier: ("ingest",) the ring inputs, ("stage", s), ("pass",
-        tkey, side) a transform pass — the k-pass ("R") of a two-sided
-        transform into its scratch, then its j-pass ("L") into the
-        transformed plane — ("fused", tkeys) the k-passes of ``fused``
+        tkey, side) a transform pass — the first of a two-sided transform
+        into its scratch, then the second into the transformed plane, in
+        ``pass_order`` — ("fused", tkeys) the k-passes of ``fused``
         transforms of one source plane and shape, one loop over their
         shared source reads, and ("mirror", tkey) the copy of a
         ``mirrored`` ring's new plane that a tensor-core pass wrote (a
@@ -564,12 +641,11 @@ class StreamPlan:
         its first reader's stage; a transform ring is filled right after
         its field's producer (the ingest for a ring input)."""
         def passes(t):
-            out = [("pass", t, side) for side, key in (("R", t[2]),
-                                                       ("L", t[1]))
-                   if key is not None]
-            last = t[1] if t[1] is not None else t[2]
+            order = self.pass_order(t)
+            out = [("pass", t, side) for side in order]
+            last = order[-1]
             if self.mirrored(t) and self.route(
-                    last, "L" if t[1] is not None else "R") == "mma":
+                    t[1 if last == "L" else 2], last) == "mma":
                 out.append(("mirror", t))
             return out
         first = {t: next(c for c in self.analysis.graph.kernel_order
@@ -687,7 +763,7 @@ class StreamPlan:
     def onchip_items(self) -> List[tuple]:
         """The on-chip body's short-lived items (``place_by_phase``'s
         form, masks over the step's phases): the scratch of every
-        two-sided transform (its k-pass and j-pass) and the plane of every
+        two-sided transform (its two passes) and the plane of every
         transform of ``instep`` (its last pass to its last reader)."""
         if self.packed:
             return []
@@ -701,13 +777,14 @@ class StreamPlan:
                 out.append((a, ("scratch", t),
                             4 * math.prod(self.scratch_shape(t)), m, m))
                 continue
-            if t[1] is not None and t[2] is not None:
-                a, b = self.pass_phase(t, "R"), self.pass_phase(t, "L")
+            order = self.pass_order(t)
+            if len(order) == 2:
+                a, b = (self.pass_phase(t, x) for x in order)
                 m = sum(1 << x for x in range(a, b + 1))
                 out.append((a, ("scratch", t),
                             4 * math.prod(self.scratch_shape(t)), m, m))
             if t in self.instep:
-                a = self.pass_phase(t, "L" if t[1] is not None else "R")
+                a = self.pass_phase(t, order[-1])
                 b = max(self.phase(c) for c in self.readers(t))
                 m = sum(1 << (x % n) for x in range(a, b + 1))
                 out.append((a, ("tplane", t),
@@ -750,8 +827,9 @@ class StreamPlan:
             m, n = (rows, cols) if side == "R" else (cols, rows)
             tiles = -(-m // 16) * -(-n // 8)
             warps = nt // 32
-            total += (-(-tiles // warps) * warps * mma_ksteps(info.taps)
-                      * MMA_KSTEP_LANES)
+            bf = self.mxu_precision == "bf16"
+            total += (-(-tiles // warps) * warps * mma_ksteps(info.taps, bf)
+                      * (MMA_BF16_KSTEP_LANES if bf else MMA_KSTEP_LANES))
         return total
 
     def seconds(self) -> float:
@@ -824,7 +902,7 @@ class StreamPlan:
         stride of its slots in the spill buffer and of its on-chip
         copies; bulk copies move multiples of 16 bytes)."""
         tj, tk = self.region(f)
-        size = tj * tk * np.dtype(self.program.field_dtype(f)).itemsize
+        size = tj * tk * self.itemsize(f)
         return -(-size // 16) * 16
 
     def read_phases(self) -> Dict[str, Dict[int, List[int]]]:
@@ -969,10 +1047,11 @@ def _align(n: int, to: int) -> int:
     return -(-n // to) * to
 
 
-def mma_ksteps(taps: int) -> int:
-    """k-steps of 8 of a tensor-core band pass: 8 outputs along the
-    band's axis read 8 + taps - 1 source values."""
-    return -(-(7 + taps) // 8)
+def mma_ksteps(taps: int, bf16: bool = False) -> int:
+    """k-steps of a tensor-core band pass, 8 deep (16 for the single-pass
+    bf16 pass): 8 outputs along the band's axis read 8 + taps - 1 source
+    values."""
+    return -(-(7 + taps) // (16 if bf16 else 8))
 
 
 @dataclasses.dataclass
@@ -1124,7 +1203,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 threads: Optional[int] = None,
                 shard: Tuple[int, int] = (0, 0),
                 xhalo: Tuple[int, int] = (0, 0),
-                contexts=None) -> StreamPlan:
+                contexts=None, ring_storage: str = "off") -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
     # the plane the pool's matrices span: a shard's widened core, or the
@@ -1210,7 +1289,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                       halo, {}, block=block, halo_i=halo_i, instep=instep,
                       mxu_precision=mxu_precision, passes=passes,
                       shard=tuple(shard), xhalo=tuple(xhalo),
-                      contexts=contexts)
+                      contexts=contexts, ring_storage=ring_storage)
     for f in onchip:   # a sharded dim's reads stay in the exchanged halo
         if any(halo[f][d] > xhalo[d] for d in range(2)
                if shard[0] and shard[d] < dims[1 + d]):
@@ -1300,22 +1379,64 @@ def check_passes(passes: str, mxu_precision: str) -> None:
     if passes not in ("auto", "mma", "fma"):
         raise ValueError(f"passes must be 'auto', 'mma' or 'fma', got "
                          f"{passes!r}")
-    if passes == "mma" and mxu_precision != "split":
+    if passes == "mma" and mxu_precision == "exact":
         raise ValueError("tensor-core passes (passes='mma') take "
-                         "mxu_precision='split'")
+                         "mxu_precision='split' or 'bf16'")
 
 
 def check_options(mxu: str, mxu_precision: str) -> None:
     """Raise on options the stream lowering does not take."""
     if mxu not in ("auto", "off"):
         raise ValueError(f"mxu must be 'auto' or 'off', got {mxu!r}")
-    if mxu_precision == "bf16":
-        raise NotImplementedError(
-            "mxu_precision='bf16' (single-pass bf16 transforms) is not "
-            "ported yet")
-    if mxu_precision not in ("split", "exact"):
+    if mxu_precision not in ("split", "bf16", "exact"):
         raise ValueError(f"unknown mxu_precision {mxu_precision!r} "
                          "(expected split, bf16, or exact)")
+
+
+def bf16_passes_agree(plain, got, split) -> Tuple[bool, Dict[str, float]]:
+    """(ok, figures) of ``got``, a kernel's output under single-pass bf16
+    band passes, against ``plain``, its plain version's, and ``split``,
+    the split route's on the same inputs (arrays of one shape): finite,
+    at least ``BF16_PASS_SHARE`` of the cells within ``BF16_PASS_RTOL``
+    of the largest output from ``plain`` (an f32 sum order), every cell
+    within ``BF16_VERIFY_RTOL`` of it (``arrays_are_equal``: a rounding
+    tie taken the other way, and its cone), and ``split`` farther at that
+    share by ``BF16_PASS_SEPARATION``.  Figures: ``max_abs_err`` against
+    ``plain``, ``share`` within ``BF16_PASS_RTOL`` of it, and the
+    share-quantiles of both distances over the largest output
+    (``plain_q``, ``split_q``)."""
+    from ..config import (BF16_PASS_RTOL, BF16_PASS_SEPARATION,
+                          BF16_PASS_SHARE, BF16_VERIFY_RTOL)
+    from ..data import arrays_are_equal
+    got = np.asarray(got, np.float64)
+    plain = np.asarray(plain, np.float64).reshape(got.shape)
+    split = np.asarray(split, np.float64).reshape(got.shape)
+    scale = float(np.max(np.abs(plain))) or 1.0
+    d = np.abs(got - plain)
+    figures = {
+        "max_abs_err": float(np.max(d)),
+        "share": float(np.mean(d <= BF16_PASS_RTOL * scale)),
+        "plain_q": float(np.quantile(d, BF16_PASS_SHARE)) / scale,
+        "split_q": float(np.quantile(np.abs(got - split),
+                                     BF16_PASS_SHARE)) / scale}
+    ok = (bool(np.isfinite(got).all())
+          and figures["share"] >= BF16_PASS_SHARE
+          and arrays_are_equal(plain, got, BF16_VERIFY_RTOL)
+          and figures["split_q"] > BF16_PASS_SEPARATION * max(
+              figures["plain_q"], BF16_PASS_RTOL))
+    return ok, figures
+
+
+def check_local_precision(mxu_precision: str) -> None:
+    """Refuse single-pass bf16 band passes where K4 (the chunk, shard and
+    segment modes) or the dense tile body beside it would run: they reach
+    the whole-domain stream kernel only, and an f32 run in their place
+    would be a different result."""
+    if mxu_precision == "bf16":
+        raise NotImplementedError(
+            "mxu_precision='bf16' (single-pass bf16 band passes) reaches "
+            "the whole-domain stream kernel only; K4's chunk, shard and "
+            "segment modes are not ported for it yet")
 
 
 def _composed(program: ir.Program, analysis: ChainAnalysis, max_t: int):
@@ -1336,7 +1457,8 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                 tile: Optional[Tuple[int, int]] = None,
                 smem_budget: int = H100_SMEM_PER_BLOCK,
                 spill: str = "auto", passes: str = "auto",
-                threads: Optional[int] = None) -> StreamPlan:
+                threads: Optional[int] = None,
+                ring_storage: str = "off") -> StreamPlan:
     """The stream lowering's plan, making the JAX package's per-stage
     choice between composed, per-stage banded and per-cell, in the
     reference's order: composed, banded, every stage per cell, and last
@@ -1345,15 +1467,18 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     (the reference's ``vmem_budget``).  ``passes`` forces the band
     passes' route ("mma": tensor cores, "fma": CUDA cores; "auto" by band
     width, ``StreamPlan.route``) and ``threads`` a block's threads (256
-    or 512; by default the tile rule's pick).  Raises ValueError /
-    NotImplementedError when the program is out of scope (nothing is
-    built)."""
+    or 512; by default the tile rule's pick).  ``ring_storage``
+    ("bfloat16") rounds the f32 rings to bf16 at their store, so that
+    they take half the bytes.  Raises ValueError / NotImplementedError
+    when the program is out of scope (nothing is built)."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
     check_spill(spill)
     check_passes(passes, mxu_precision)
-    kw = dict(smem_budget=smem_budget, passes=passes, threads=threads)
+    check_ring_storage(ring_storage)
+    kw = dict(smem_budget=smem_budget, passes=passes, threads=threads,
+              ring_storage=ring_storage)
     if spill == "all":   # the spill rung alone
         return _build_plan(program, analysis, "off", mxu_precision, {},
                            tile, spill=spill, **kw)
@@ -1409,6 +1534,7 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
+    check_local_precision(mxu_precision)
     check_spill(spill)
     check_passes(passes, mxu_precision)
     return _build_plan(program, analysis, "off" if spill == "all" else mxu,
@@ -1487,17 +1613,43 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             if not 0 <= p < Ii:
                 return _junk(dt, (PJ, PK), device)
             a = a[p]
+            if plan.rounded(f):
+                a = round_bf16(a)
         return a.reshape(PJ if spec.dim_mask[1] else 1,
                          PK if spec.dim_mask[2] else 1).expand(PJ, PK)
+
+    def band_pass(v, key, side):
+        """The single-pass bf16 pass of band ``key`` along ``side``'s
+        axis, as the kernel sums it: operand and band rounded to bf16,
+        the exact products summed in f32 in tap order."""
+        offsets, coef = plan.band(key, side, inst)
+        v = round_bf16(v)
+        n = v.shape[0 if side == "L" else 1]
+        acc = torch.zeros_like(v)
+        for i, d in enumerate(offsets):
+            lo, hi = max(0, -d), min(n, n - d)
+            src = torch.zeros_like(v)   # 0 beyond the plane
+            w = torch.as_tensor(coef[i]).to(device)
+            if side == "L":
+                src[lo:hi] = v[lo + d:hi + d]
+                acc = acc + w[:, None] * src
+            else:
+                src[:, lo:hi] = v[:, lo + d:hi + d]
+                acc = acc + w[None, :] * src
+        return acc
 
     def transformed(f, p, lkey, rkey):
         key = ((f, lkey, rkey), p)
         if key not in tcache:
             v = plane(f, p).to(f32)
-            if lkey is not None:
-                v = torch.matmul(mats[lkey], v)
-            if rkey is not None:
-                v = torch.matmul(v, mats[rkey])
+            if plan.mxu_precision == "bf16":   # in the kernel's order
+                for side in plan.pass_order((f, lkey, rkey)):
+                    v = band_pass(v, lkey if side == "L" else rkey, side)
+            else:
+                if lkey is not None:
+                    v = torch.matmul(mats[lkey], v)
+                if rkey is not None:
+                    v = torch.matmul(v, mats[rkey])
             tcache[key] = v
         return tcache[key]
 
@@ -1567,7 +1719,8 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             val = banded(mp, q) if mp is not None else \
                 per_cell(program.kernels[s], q)
             if s in plan.ring:
-                planes.setdefault(s, {})[q] = val.contiguous()
+                planes.setdefault(s, {})[q] = round_bf16(val).contiguous() \
+                    if plan.rounded(s) else val.contiguous()
                 planes[s].pop(q - plan.ring[s], None)
             if s in outs and h <= q < h + Ic:
                 outs[s][q - h] = val[XJ:XJ + BJ, XK:XK + BK]
@@ -1613,12 +1766,19 @@ def _pool_tensors(plan: StreamPlan, device, inst: Tuple[int, int] = (0, 0)
 
 def _count(plan: StreamPlan, launched: int) -> None:
     global launches, local_launches, spill_launches, shard_launches
+    global bf16_launches, spill_bf16_launches
+    reduced = bool(plan.rounds) or (plan.mxu_precision == "bf16"
+                                    and bool(plan.tkeys))
     if plan.shard[0]:
         shard_launches += launched
+    elif plan.packed and reduced:
+        spill_bf16_launches += launched
     elif plan.packed:
         spill_launches += launched
     elif plan.block:
         local_launches += launched
+    elif reduced:
+        bf16_launches += launched
     else:
         launches += launched
 
@@ -1725,14 +1885,15 @@ def compile_chain_stream(program: ir.Program,
                          tile: Optional[Tuple[int, int]] = None,
                          device="cuda",
                          smem_budget: int = H100_SMEM_PER_BLOCK,
-                         spill: str = "auto"):
+                         spill: str = "auto", ring_storage: str = "off"):
     """Plan the stream lowering (ValueError / NotImplementedError when the
     program is out of its scope) and, for a CUDA ``device``, build its
     kernel.  Returns ``fn(inputs) -> outputs`` at the program's raw dims,
     with the plan as ``fn.plan`` and the JAX package's configuration keys
-    as ``fn.last_config``.  ``smem_budget`` and ``spill`` go to
-    ``plan_stream``."""
+    as ``fn.last_config``.  ``smem_budget``, ``spill`` and
+    ``ring_storage`` go to ``plan_stream``."""
     plan = plan_stream(program, analysis, mxu=mxu,
                        mxu_precision=mxu_precision, compose=compose,
-                       tile=tile, smem_budget=smem_budget, spill=spill)
+                       tile=tile, smem_budget=smem_budget, spill=spill,
+                       ring_storage=ring_storage)
     return compile_stream_plan(plan, device)

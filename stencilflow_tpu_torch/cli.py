@@ -33,9 +33,6 @@ import sys
 
 # option (as given) -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "--ring-storage bfloat16": "Queue 1 item 11 (bf16)",
-    "--mxu-precision bf16": "Queue 1 item 11 (bf16)",
-    "--allow-reduced-precision": "Queue 1 item 11 (bf16)",
     "--plot": "Queue 1 item 10 (M15; the card's machine has no "
               "matplotlib)",
     "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model on an NVLink "
@@ -57,12 +54,6 @@ def _refuse(option: str) -> int:
 
 def _cmd_run(args) -> int:
     from .driver import BACKEND_ALIASES, VerificationError, run_program
-    for given, option in ((args.ring_storage == "bfloat16",
-                           "--ring-storage bfloat16"),
-                          (args.mxu_precision == "bf16",
-                           "--mxu-precision bf16")):
-        if given:
-            return _refuse(option)
     try:
         res = run_program(
             args.stencil_file, device=args.device,
@@ -79,7 +70,8 @@ def _cmd_run(args) -> int:
             seed=args.seed, tolerance=args.tolerance,
             mxu="off" if args.no_mxu else args.mxu,
             mxu_precision=args.mxu_precision, host_chunks=args.host_chunks,
-            spill="off" if args.no_spill else "auto")
+            spill="off" if args.no_spill else "auto",
+            ring_storage=args.ring_storage)
     except VerificationError as exc:
         print(f"VERIFICATION FAILED: {exc}", file=sys.stderr)
         return 1
@@ -95,7 +87,8 @@ def _cmd_run(args) -> int:
         print(f"wall time: {res.wall_time_s * 1e3:.3f} ms/run on "
               f"{res.device} (~{gcell:.3g} GCell/s, {clock} over the "
               f"repetitions, transfers {moved}; roofline "
-              f"{rep.roofline_gcell_s():.1f} GCell/s [{rep.hw.name}] — "
+              f"{rep.roofline_gcell_s(args.mxu_precision):.1f} GCell/s "
+              f"[{rep.hw.name}] — "
               f"python -m stencilflow_tpu_torch.bench times the device "
               f"loop)")
     if res.simulation_cycles is not None:
@@ -116,12 +109,6 @@ def _cmd_autotune(args) -> int:
     (``run --backend autotuned`` takes it)."""
     from .autotune import autotune, save_result
     from .frontend.parser import parse_program
-    for given, option in ((args.allow_reduced_precision,
-                           "--allow-reduced-precision"),
-                          (args.mxu_precision == "bf16",
-                           "--mxu-precision bf16")):
-        if given:
-            return _refuse(option)
     program = parse_program(args.stencil_file)
     device = "cpu" if args.emulation else args.device
     settings = dict(mxu="off" if args.no_mxu else "auto",
@@ -129,11 +116,13 @@ def _cmd_autotune(args) -> int:
                     spill="off" if args.no_spill else "auto")
     res = autotune(program, sweep=args.sweep, trials=args.trials,
                    seed=args.seed, device=device, verbose=not args.json,
+                   allow_reduced_precision=args.allow_reduced_precision,
                    **settings)
     path = None
     if not args.no_cache:
         path = save_result(program, res, args.cache, device=device,
-                           **settings)
+                           allow_reduced_precision=(
+                               args.allow_reduced_precision), **settings)
     if args.json:
         print(json.dumps({
             "winner": res.label,
@@ -518,7 +507,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tolerance", type=float, default=None,
                    help="relative verification tolerance (default: "
                         "config.VERIFY_RTOL, MXU_VERIFY_RTOL for a stream "
-                        "run with banded stages)")
+                        "run with banded stages, BF16_VERIFY_RTOL under "
+                        "--mxu-precision bf16 or --ring-storage bfloat16)")
     p.add_argument("--mxu", default="auto", choices=["auto", "off"],
                    help="auto: wide affine stages run as banded transforms "
                         "on the stream lowering; off: per cell")
@@ -530,11 +520,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mxu-precision", default="split",
                    choices=["split", "exact", "bf16"],
                    help="band transform precision (split and exact both "
-                        "compute in f32 on the card; bf16 is not ported "
-                        "yet)")
+                        "compute in f32 on the card; bf16: single-pass "
+                        "bf16 passes, operands and bands rounded to bf16, "
+                        "f32 sums; verified at BF16_VERIFY_RTOL)")
     p.add_argument("--ring-storage", default="off",
                    choices=["off", "bfloat16"],
-                   help="bfloat16 is not ported yet (exits with rc 2)")
+                   help="bfloat16: the rings of --backend stream, panel or "
+                        "rows hold bf16 (f32 compute, half the shared "
+                        "memory; verified at BF16_VERIFY_RTOL)")
     p.add_argument("--host-chunks", type=int, default=0, metavar="N",
                    help="out-of-core: stream N host i-chunks (+ the "
                         "chain's i-halo) through the chunk kernel; "
@@ -570,9 +563,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-spill", action="store_true")
     p.add_argument("--mxu-precision", default="split",
                    choices=["split", "bf16", "exact"],
-                   help="bf16 is not ported yet (exits with rc 2)")
+                   help="the stream candidates' band transform precision")
     p.add_argument("--allow-reduced-precision", action="store_true",
-                   help="not ported yet (exits with rc 2)")
+                   help="also time the bf16-ring candidates "
+                        "(stream:rings=bf16, panel:rings=bf16); the cache "
+                        "key carries the flag")
     p.add_argument("--cache", help="cache file (default: "
                                    "$SFT_AUTOTUNE_CACHE, else ~/.cache/"
                                    "stencilflow_tpu_torch/autotune.json)")

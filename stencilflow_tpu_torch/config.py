@@ -55,6 +55,20 @@ MXU_VERIFY_RTOL = 3e-5
 # verifies such runs at this envelope
 # (tests/test_mxu.py::test_box_chain_bf16_single_pass)
 BF16_VERIFY_RTOL = 2e-2
+# a kernel's single-pass bf16 band passes against their plain version
+# (``backend.stream.bf16_passes_agree``): the same roundings, f32 sums
+# in another order (the tensor cores' own, a banded stage's fmaf), which
+# moves a cell by an f32 ulp or so; where such a sum lands on a bf16 tie,
+# a later pass rounds its operand the other way, and a cone of cells
+# differs by bf16 ulps (2.1e-3 of the largest output on cross-r2 40 x 48
+# x 72 x 4 of the g++ build, 0.18 % of its cells).  So at least
+# BF16_PASS_SHARE of the cells lie within BF16_PASS_RTOL of the largest
+# output from the plain version, every cell within BF16_VERIFY_RTOL, and
+# at that share the split route's output lies BF16_PASS_SEPARATION times
+# farther: passes run unrounded or split fail
+BF16_PASS_RTOL = 1e-6
+BF16_PASS_SHARE = 0.99
+BF16_PASS_SEPARATION = 4
 
 # Junk value written into shrink-boundary halo cells
 # (reference: stencilflow/stencil/_common.py:8).
@@ -77,6 +91,9 @@ H100_F32_FLOPS = 67e12
 # instructions (probes/alu_ceiling.py on an NVIDIA H100 80GB HBM3,
 # 700.00 W).  The report divides counted ops by this rate.
 H100_ALU_OPS = H100_F32_FLOPS / 2
+# the data sheet's dense bf16 tensor-core rate (flops/s): the price of the
+# single-pass bf16 band passes (mxu_precision="bf16", report.py)
+H100_BF16_TENSOR_FLOPS = 989e12
 H100_SMEM_PER_BLOCK = 232448          # 227 KB of dynamic shared memory
 H100_SMEM_PER_SM = 233472
 H100_SM_COUNT = 132

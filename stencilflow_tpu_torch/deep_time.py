@@ -2,12 +2,12 @@
 panel kernel's cells (K1), of the stream kernel's banded cells (K3b), of
 K4's out-of-core chunk, of the group kernel's cells (K5), of the
 overlapped-tile kernel's cells (K6), of the overlap kernel's cells (K2),
-of the pipeline split (K4 a segment) or of autotune's winners, for one
-checkout.
+of the pipeline split (K4 a segment), of autotune's winners or of the
+reduced-precision modes beside their f32 routes, for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
         [--cells deep|panel|banded|local|group|tile|overlap|solvers|
-                 pipeline|autotune]
+                 pipeline|autotune|bf16]
         [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
@@ -37,7 +37,9 @@ CG's iteration split into the operator and the vector passes
 repeating the card in turns with the single-device route
 (``_pipeline``).  ``--cells autotune``: ``autotune`` (sweep, 3 trials)
 on cross-r2 256^3 x 8, hdiff3d 256^3 x 8 and jacobi2d 8192^2 x 8, each
-winner in turns with the route (``_autotune``).  ``--cells overlap``:
+winner in turns with the route (``_autotune``).  ``--cells bf16``: each
+reduced-precision leg of ``chip_smoke.py`` in turns with its cell's f32
+plan over three sessions (``_bf16``).  ``--cells overlap``:
 jacobi3d and
 hotspot3d 512^3 x 2 and jacobi2d 8192^2 x 2 (I = 1) on the overlap
 kernel's plan (``OverlapPlan.build``, their route), each followed by
@@ -469,6 +471,125 @@ def _autotune(smi: str, reps: int) -> dict:
     return out
 
 
+def _bf16(smi: str, reps: int) -> dict:
+    """``--cells bf16``: the reduced-precision legs beside their cells' f32
+    plans, on the same kernels as the routes take them: jacobi3d 512^3 x
+    8 on K1 with bf16 rings, jacobi3d 512^3 x 32 on K3c with bf16 rings,
+    jacobi2d 8192^2 x 8 rotated to rows on K5 (B = 64, g = 8) with bf16
+    rings, and box3d 256^3 x 8 of extent 2 on K3b with single-pass bf16
+    passes.  Every kernel is built at once; each mode's largest
+    difference from its f32 plan's output is printed, with whether it
+    lies within BF16_VERIFY_RTOL (``chip_smoke.py`` holds each mode to
+    its plain version); then three sessions of f32, bf16, bf16, f32,
+    ``reps`` launches each after a warm-up."""
+    import numpy as np
+    import torch
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch.backend import build, codegen
+    from stencilflow_tpu_torch.backend import group as gp
+    from stencilflow_tpu_torch.backend import panel as pn
+    from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    from stencilflow_tpu_torch.config import BF16_VERIFY_RTOL
+    from stencilflow_tpu_torch.data import arrays_are_equal
+    from stencilflow_tpu_torch.frontend.canonicalize import rotate_2d_to_rows
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+
+    def synth(shape, dims, iters, extent=1):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape, extent=extent,
+            seed_data="random:0.0,1.0"),
+            name=f"{shape}{len(dims)}d_{dims[0]}_{iters}itr")
+
+    def panel_cell(p, an, **kw):
+        plan = pn.PanelPlan.build(an, **kw)
+        evals = sum(np.prod(plan.region(s)) for s in p.kernels) / np.prod(
+            plan.tile)
+        return (plan, codegen.panel_source(p, an, plan), "panel",
+                lambda a, lib: pn.run_panel(p, an, plan, a, lib),
+                f"tile {plan.tile} x {plan.threads}, smem "
+                f"{plan.smem_bytes(p)} B, {plan.residency(p)} blocks/SM, "
+                f"{evals:.2f} evaluations a cell, modelled "
+                f"{plan.seconds(p) * 1e3:.3f} ms")
+
+    def group_cell(p, an, **kw):
+        plan = gp.plan_group(p, an, 64, 8, **kw)
+        return (plan, codegen.group_source(p, an, plan), "group",
+                lambda a, lib: gp.run_group(p, an, plan, a, lib),
+                f"tile {plan.tile} x {plan.threads}, segments "
+                f"{plan.segments}, smem {plan.smem_bytes(p)} B, modelled "
+                f"{plan.seconds(p) * 1e3:.3f} ms")
+
+    def stream_cell(p, an, **kw):
+        plan = st.plan_stream(p, an, **kw)
+        text = f"tile {plan.tile} x {plan.threads}, smem {plan.smem_bytes()} B"
+        if plan.packed:
+            ntj, ntk = plan.grid()
+            moved = plan.spill_traffic() * plan.steps() * ntj * ntk
+            text += (f", spilled {len(plan.spilled)} of "
+                     f"{len(plan.raw_ring)} rings, spill traffic "
+                     f"{moved / 1e9:.2f} GB a call, modelled "
+                     f"{plan.spill_seconds() * 1e3:.3f} ms")
+        else:
+            text += f", modelled {plan.seconds() * 1e3:.3f} ms"
+        if plan.tkeys:
+            text += ", passes " + ", ".join(sorted({
+                f"{plan.band_info(k, s).taps}-tap {plan.route(k, s)}"
+                for t in plan.tkeys for k, s in ((t[1], "L"), (t[2], "R"))
+                if k is not None}))
+        return (plan, st.stream_source(plan), "stream",
+                lambda a, lib: st.run_stream(plan, a, lib), text)
+
+    rings = {"ring_storage": "bfloat16"}
+    cells = []
+    for p, make, f32_kw, bf16_kw in (
+            (synth("diffusion", (512,) * 3, 8), panel_cell, {}, rings),
+            (synth("diffusion", (512,) * 3, 32), stream_cell, {"mxu": "off"},
+             dict(rings, mxu="off")),
+            (rotate_2d_to_rows(synth("diffusion", (8192, 8192), 8)),
+             group_cell, {}, rings),
+            (synth("box", (256,) * 3, 8, 2), stream_cell, {},
+             {"mxu_precision": "bf16"})):
+        an = sft.ChainAnalysis.run(p)
+        cells.append((p, make(p, an, **f32_kw), make(p, an, **bf16_kw)))
+    sources = [(c[1], c[2]) for _p, *pair in cells for c in pair]
+    libs = iter(build.load_libraries(sources))
+    out = {}
+    for p, f32, bf16 in cells:
+        lib32, lib16 = next(libs), next(libs)
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                                device="cuda")
+        o = p.outputs[0]
+        want = f32[3](arrays, lib32)[o].cpu().numpy()
+        got = bf16[3](arrays, lib16)[o].cpu().numpy()
+        within = bool(arrays_are_equal(want, got, BF16_VERIFY_RTOL))
+        rel = float(np.max(np.abs(got.astype(np.float64) - want))
+                    / np.max(np.abs(want)))
+        del want, got
+        sessions = []
+        for _ in range(3):
+            sessions.append([_events(lambda c=c, lib=lib: c[3](arrays, lib),
+                                     reps)
+                             for c, lib in ((f32, lib32), (bf16, lib16),
+                                            (bf16, lib16), (f32, lib32))])
+        row = {"f32_ms": [x for s in sessions for x in (s[0], s[3])],
+               "bf16_ms": [x for s in sessions for x in (s[1], s[2])],
+               "f32_plan": f32[4], "bf16_plan": bf16[4],
+               "max_rel_diff": rel, "within_bf16_rtol": within}
+        out[p.name] = row
+        print(f"{p.name}: f32 {', '.join(f'{x:.3f}' for x in row['f32_ms'])}"
+              f" ms ({f32[4]}) | bf16 "
+              f"{', '.join(f'{x:.3f}' for x in row['bf16_ms'])} ms "
+              f"({bf16[4]}) | max rel diff {rel:.3g} within "
+              f"BF16_VERIFY_RTOL: {within} | {smi}", flush=True)
+        for c in (f32, bf16):
+            if hasattr(c[0], "device_pool"):
+                c[0].device_pool.clear()
+        del arrays
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ptxas(sources) -> None:
     """nvcc's register and spill report of every source."""
     import tempfile
@@ -496,7 +617,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
                                         "group", "tile", "overlap",
-                                        "solvers", "pipeline", "autotune"),
+                                        "solvers", "pipeline", "autotune",
+                                        "bf16"),
                     default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
@@ -516,9 +638,9 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.cells in ("solvers", "pipeline", "autotune"):
+    if args.cells in ("solvers", "pipeline", "autotune", "bf16"):
         cells = {"solvers": _solvers, "pipeline": _pipeline,
-                 "autotune": _autotune}[args.cells]
+                 "autotune": _autotune, "bf16": _bf16}[args.cells]
         print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
                           "cells": cells(smi, args.reps)}))
         return 0

@@ -9,8 +9,12 @@ with the lowering chosen by ``backend.compile_chain_best`` for a torch
 ``device``; a run whose stream lowering has banded stages verifies at
 ``MXU_VERIFY_RTOL``, as the JAX package's driver does.  ``spill``
 ("auto"/"off") is the stream kernel's ring spill to device memory
-(K3c), as ``spill`` is in the JAX package.  Not ported yet: the
-single-pass bf16 transforms and bf16 ring storage.  ``backend="rows"``
+(K3c), as ``spill`` is in the JAX package.  The opt-in reduced
+precisions verify at ``BF16_VERIFY_RTOL``, as there: a stream run with
+banded stages under ``mxu_precision="bf16"`` (single-pass bf16 band
+transforms), and ``ring_storage="bfloat16"`` (bf16 rings, f32 compute;
+``stream``, ``panel`` and ``rows`` only, ``rows`` then taking
+rows+stream) or an autotuned ``:rings=bf16`` winner.  ``backend="rows"``
 streams a 2-D program's rows (``compile_chain_rows``, the auto lowering
 of the rotated program), as ``--backend rows`` does in the JAX package;
 ``backend="tile"`` forces the overlapped-tile kernel (K6), the JAX
@@ -43,7 +47,7 @@ from .backend.overlap import compile_chain_overlap
 from .backend.panel import compile_chain_panel
 from .backend.stream import compile_chain_stream
 from .backend.tile import compile_chain_tile
-from .config import MXU_VERIFY_RTOL, VERIFY_RTOL
+from .config import BF16_VERIFY_RTOL, MXU_VERIFY_RTOL, VERIFY_RTOL
 from .data import (arrays_are_equal, load_input_arrays, prune_halo,
                    save_output_arrays)
 from .frontend.analysis import ChainAnalysis
@@ -77,7 +81,7 @@ class RunResult:
 
 
 def _compile(program, analysis, backend: str, device, mxu, mxu_precision,
-             spill):
+             spill, ring_storage="off"):
     if backend == "auto":
         return compile_chain_best(program, analysis, device=device, mxu=mxu,
                                   mxu_precision=mxu_precision, spill=spill)
@@ -92,14 +96,18 @@ def _compile(program, analysis, backend: str, device, mxu, mxu_precision,
     if backend == "stream":
         return (compile_chain_stream(program, analysis, mxu=mxu,
                                      mxu_precision=mxu_precision,
-                                     device=device, spill=spill), "stream")
+                                     device=device, spill=spill,
+                                     ring_storage=ring_storage), "stream")
     if backend == "rows":
-        return compile_chain_rows(program, device=device, mxu=mxu,
-                                  mxu_precision=mxu_precision, spill=spill)
+        return compile_chain_rows(
+            program, "stream" if ring_storage != "off" else "auto",
+            device=device, mxu=mxu, mxu_precision=mxu_precision,
+            spill=spill, ring_storage=ring_storage)
     if backend == "tile":
         return compile_chain_tile(program, analysis, device=device), "tile"
     if backend == "panel":
-        return compile_chain_panel(program, analysis, device=device), "panel"
+        return (compile_chain_panel(program, analysis, device=device,
+                                    ring_storage=ring_storage), "panel")
     if backend == "overlap":
         return (compile_chain_overlap(program, analysis, device=device),
                 "overlap")
@@ -155,7 +163,8 @@ def run_program(stencil_file, device="cuda",
                 mxu: str = "auto",
                 mxu_precision: str = "split",
                 host_chunks: int = 0,
-                spill: str = "auto") -> RunResult:
+                spill: str = "auto",
+                ring_storage: str = "off") -> RunResult:
     """Run one stencil program end to end on ``device``.  ``stencil_file``
     may be a path, a JSON dict, or an already-parsed Program.
     ``run_simulation`` runs the dataflow simulator on the host inputs
@@ -163,11 +172,24 @@ def run_program(stencil_file, device="cuda",
     outputs are the result, backend ``"simulator"``).
     ``tolerance`` overrides the relative verification tolerance (default:
     config.VERIFY_RTOL, or MXU_VERIFY_RTOL for a stream run with banded
-    stages).  ``mxu`` ("auto"/"off"), ``mxu_precision``
-    ("split"/"exact") and ``spill`` ("auto"/"off") forward to the stream
-    lowering.  ``host_chunks`` > 1
+    stages; BF16_VERIFY_RTOL under the reduced precisions below).
+    ``mxu`` ("auto"/"off"), ``mxu_precision`` ("split"/"exact"/"bf16")
+    and ``spill`` ("auto"/"off") forward to the stream lowering;
+    ``ring_storage`` ("off"/"bfloat16") to the stream, panel and rows
+    lowerings, and any other backend refuses it.  ``host_chunks`` > 1
     runs out-of-core in that many i-chunks (overrides ``backend``; the
     timing includes the transfers)."""
+    if ring_storage != "off" and backend not in ("stream", "panel",
+                                                 "rows"):
+        raise ValueError(
+            "--ring-storage requires --backend stream, panel, or rows "
+            "(other backends have no ring state; refusing to widen "
+            "verification for an f32 run)")
+    if host_chunks and host_chunks > 1 and (ring_storage != "off"
+                                            or mxu_precision == "bf16"):
+        raise ValueError("--ring-storage and --mxu-precision bf16 do not "
+                         "reach the chunk kernel (K4's local mode keeps "
+                         "f32 rings and split passes)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch sees no GPU")
@@ -231,7 +253,8 @@ def run_program(stencil_file, device="cuda",
             dev_inputs = inputs
         else:
             fn, result.backend = _compile(program, analysis, backend,
-                                          device, mxu, mxu_precision, spill)
+                                          device, mxu, mxu_precision, spill,
+                                          ring_storage)
             banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
             dev_inputs = {k: (torch.as_tensor(np.asarray(v)).to(device)
                               if not program.inputs[k].is_scalar else v)
@@ -276,8 +299,15 @@ def run_program(stencil_file, device="cuda",
     rtol = tolerance if tolerance is not None else VERIFY_RTOL
     if tolerance is None and banded:
         # banded transforms re-associate f32 sums: the JAX package's
-        # driver verifies such runs at this envelope
-        rtol = MXU_VERIFY_RTOL
+        # driver verifies such runs at this envelope, and single-pass
+        # bf16 transforms at the bf16 one
+        rtol = BF16_VERIFY_RTOL if mxu_precision == "bf16" \
+            else MXU_VERIFY_RTOL
+    if tolerance is None and (ring_storage == "bfloat16"
+                              or ":rings=bf16" in result.backend):
+        # bf16 rings round each stage's output once: about one bf16 ulp
+        # a stage (an autotuned reduced-precision winner too)
+        rtol = max(rtol, BF16_VERIFY_RTOL)
 
     def check(kind: str, expected) -> bool:
         ok = True

@@ -145,7 +145,8 @@ def _check_feed(program: ir.Program, feed: Dict[str, str]) -> None:
                 f"fed input {iname!r} must span the full domain")
 
 
-def _compile(program, analysis, backend: str, device):
+def _compile(program, analysis, backend: str, device,
+             ring_storage: str = "off"):
     """``(fn, lowering name)`` of one chain evaluation on ``device``: the
     ``run`` subcommand's lowerings, the dense one given its inputs on
     ``device`` as the kernels' wrappers move them."""
@@ -158,7 +159,7 @@ def _compile(program, analysis, backend: str, device):
                            f"{BACKENDS}; pallas = tile, xla = dense)")
     fn, name = compile_lowering(program, analysis, backend, device,
                                 mxu="auto", mxu_precision="split",
-                                spill="auto")
+                                spill="auto", ring_storage=ring_storage)
     if name != "dense":
         return fn, name
 
@@ -193,10 +194,12 @@ def make_step(program: ir.Program,
     and the step's lowering is ``sharded[<local body>]``."""
     feed = feed or _default_feed(program)
     _check_feed(program, feed)
-    if ring_storage != "off":
-        raise IterateError("ring_storage is not ported to "
-                           "stencilflow_tpu_torch yet (ROADMAP Queue 1 "
-                           "item 11, bf16)")
+    if ring_storage != "off" and backend != "stream":
+        raise IterateError(
+            "ring_storage requires backend='stream'")
+    if ring_storage != "off" and (mesh is not None or host_chunks > 1):
+        raise IterateError("ring_storage does not reach the chunk and "
+                           "shard kernels (K4 keeps f32 rings)")
     analysis = analysis or ChainAnalysis.run(program)
     if host_chunks and host_chunks > 1 and mesh is not None:
         raise IterateError("host_chunks is incompatible with mesh")
@@ -240,7 +243,7 @@ def make_step(program: ir.Program,
                             f"{host_chunks} chunks]"
         return host_step, feed
 
-    fn, name = _compile(program, analysis, backend, device)
+    fn, name = _compile(program, analysis, backend, device, ring_storage)
 
     def step(state: Dict[str, Any]) -> Dict[str, Any]:
         out = fn(state)

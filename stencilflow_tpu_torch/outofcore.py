@@ -85,6 +85,8 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     "stream" (K4; its plain version on the CPU), "dense", or "auto"
     (stream on a CUDA device, dense on the CPU).  ``spill`` and
     ``smem_budget`` go to K4's planner (``plan_local_stream``)."""
+    from .backend.stream import check_local_precision
+    check_local_precision(mxu_precision)   # the dense body too
     analysis = analysis or ChainAnalysis.run(program)
     dims = program.dimensions
     I, J, K = dims

@@ -341,8 +341,10 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
     caller then takes the dense tile body, as the reference takes its
     fused-XLA one)."""
     from ..config import H100_SMEM_PER_BLOCK
-    from ..backend.stream import check_options, check_spill, plan_local
+    from ..backend.stream import (check_local_precision, check_options,
+                                  check_spill, plan_local)
     check_options(mxu, mxu_precision)   # raised, never re-routed
+    check_local_precision(mxu_precision)
     check_spill(spill)
     budget = H100_SMEM_PER_BLOCK if smem_budget is None else smem_budget
     legs = [("auto", "off")] if mxu != "off" else []
@@ -495,6 +497,8 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
     yet."""
     if comm_overlap:
         raise NotImplementedError(NOT_PORTED_OVERLAP)
+    from ..backend.stream import check_local_precision
+    check_local_precision(mxu_precision)   # the tile body too
     program, analysis, plan, splan, cfg = _plan_sharded_chain(
         program, mesh, dim_axes, analysis, local_backend, mxu,
         mxu_precision, spill, smem_budget, compose)

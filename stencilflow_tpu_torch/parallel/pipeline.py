@@ -807,6 +807,8 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     by the axis size; the local body is the dense tile body ("xla"), as
     the reference's.
     """
+    from ..backend.stream import check_local_precision
+    check_local_precision(mxu_precision)   # the tile body too
     analysis = analysis or ChainAnalysis.run(program)
     if axis not in mesh.shape:
         raise ValueError(f"unknown mesh axis {axis!r} (mesh has "

@@ -21,11 +21,15 @@ they are divided by:
 * **band transforms** (``mxu_model``): the stream kernel's banded stages
   (K3b) as executed multiply-add sums on the CUDA cores, two
   instructions per band diagonal and plane cell
-  (``linear.mxu_flops_per_cell``), over the same single-instruction rate.
+  (``linear.mxu_flops_per_cell``), over the same single-instruction rate;
+  and as single-pass bf16 tensor-core passes (``mxu_precision="bf16"``),
+  the m16n8k16 products' executed flops
+  (``linear.mxu_bf16_flops_per_cell``) over the data sheet's dense bf16
+  tensor rate, 989e12 flop/s (``mxu_time_s_bf16``).
 
 The runtime lower bound is the larger of the memory time and the faster
 of the two compute strategies.  Not ported yet: ``mesh_scaling`` (with
-the sharded engine) and the single-pass bf16 transform prices.
+the sharded engine).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ class HardwareModel:
     copy_floor: float = config.H100_COPY_FLOOR
     alu_issue_rate: float = config.H100_ALU_ISSUE_RATE
     smem_pass_rate: float = config.H100_SMEM_PASS_RATE
+    bf16_tensor_flops: float = config.H100_BF16_TENSOR_FLOPS
     name: str = "h100-sxm"
 
 
@@ -124,16 +129,20 @@ class Report:
         """Counted ops at the data sheet's single-instruction FP32 rate."""
         return self.total_ops() / self.hw.alu_ops
 
-    def _compute(self) -> Tuple[float, float, str]:
+    def _compute(self, mxu_precision: str = "split"
+                 ) -> Tuple[float, float, str]:
         """(seconds, executed ops, kind) of the faster compute strategy:
         "alu", every stage per cell, or "mxu", the band transforms' flops
-        plus the other stages' ops (the JAX package's name for it)."""
+        plus the other stages' ops (the JAX package's name for it), the
+        transforms as single-pass bf16 products at the bf16 tensor rate
+        under ``mxu_precision="bf16"``."""
         per_cell = (self.alu_time_s(), self.total_ops(), "alu")
         m = self.mxu_model()
         if m is None:
             return per_cell
-        banded = (m["mxu_time_s"] + m["vpu_rest_time_s"],
-                  (m["mxu_flops_per_cell"] + m["vpu_rest_ops_per_cell"])
+        bf = "_bf16" if mxu_precision == "bf16" else ""
+        banded = (m["mxu_time_s" + bf] + m["vpu_rest_time_s"],
+                  (m["mxu_flops_per_cell" + bf] + m["vpu_rest_ops_per_cell"])
                   * self.program.total_elements, "mxu")
         return banded if banded[0] < per_cell[0] else per_cell
 
@@ -147,7 +156,9 @@ class Report:
         per-evaluation time: ``vs_hbm`` (data sheet), ``vs_copy_floor``
         (P4), ``vs_alu_issue`` (P1's issue rate) and ``vs_smem_pass``
         (P1's shared-memory pass rate) over the executed ops, and
-        ``vs_mxu`` when band transforms apply."""
+        ``vs_mxu`` when band transforms apply (and ``vs_mxu_1pass``, the
+        single-pass bf16 passes' bound, for runs under
+        ``mxu_precision="bf16"``)."""
         ops = self.executed_ops()
         out = {
             "vs_hbm": self.hbm_time_s() / measured_time_s,
@@ -160,6 +171,9 @@ class Report:
         if m is not None:
             out["vs_mxu"] = ((m["mxu_time_s"] + m["vpu_rest_time_s"])
                              / measured_time_s)
+            out["vs_mxu_1pass"] = ((m["mxu_time_s_bf16"]
+                                    + m["vpu_rest_time_s"])
+                                   / measured_time_s)
         return {k: round(v, 4) for k, v in out.items()}
 
     def mxu_model(self) -> Optional[Dict]:
@@ -172,6 +186,7 @@ class Report:
             return self._mxu_model
         from .backend.compose import compose_program, plan_composed
         from .backend.linear import (MatrixPool, finalize_pool,
+                                     mxu_bf16_flops_per_cell,
                                      mxu_flops_per_cell, plan_all_stages)
         from .backend.stream import MXU_MIN_FOOTPRINT
         from .frontend.analysis import operation_count
@@ -196,6 +211,7 @@ class Report:
             return None
         pkeys, parrs, tkeys = finalize_pool(plans, pool, p)
         fpc = mxu_flops_per_cell(dict(zip(pkeys, parrs)), tkeys)
+        fpc_bf16 = mxu_bf16_flops_per_cell(dict(zip(pkeys, parrs)), tkeys)
         vpu_rest = 0.0
         for kname, kspec in p.kernels.items():
             if kname in plans:
@@ -217,25 +233,31 @@ class Report:
             "mxu_flops_per_cell": fpc,
             # unfused (-fmad=false): every flop is an instruction
             "mxu_time_s": fpc * n / self.hw.alu_ops,
+            # the opt-in single-pass bf16 passes on tensor cores
+            "mxu_flops_per_cell_bf16": fpc_bf16,
+            "mxu_time_s_bf16": fpc_bf16 * n / self.hw.bf16_tensor_flops,
             "vpu_rest_ops_per_cell": vpu_rest,
             "vpu_rest_time_s": vpu_rest * n / self.hw.alu_ops,
         }
         return self._mxu_model
 
-    def roofline_time_s(self) -> float:
+    def roofline_time_s(self, mxu_precision: str = "split") -> float:
         """Runtime lower bound: the memory floor against the faster of the
         two compute strategies — every stage per cell, or band transforms
-        for the eligible stages plus per-cell ops for the rest."""
-        return max(self.hbm_time_s(), self._compute()[0], 1e-12)
+        for the eligible stages (single-pass bf16 under
+        ``mxu_precision="bf16"``) plus per-cell ops for the rest."""
+        return max(self.hbm_time_s(), self._compute(mxu_precision)[0],
+                   1e-12)
 
-    def bound(self) -> str:
+    def bound(self, mxu_precision: str = "split") -> str:
         """"hbm", "alu" (per-cell ops) or "mxu" (band transforms, the JAX
         package's name for that strategy)."""
-        compute, _, kind = self._compute()
+        compute, _, kind = self._compute(mxu_precision)
         return kind if compute > self.hbm_time_s() else "hbm"
 
-    def roofline_gcell_s(self) -> float:
-        return self.program.total_elements / self.roofline_time_s() / 1e9
+    def roofline_gcell_s(self, mxu_precision: str = "split") -> float:
+        return (self.program.total_elements
+                / self.roofline_time_s(mxu_precision) / 1e9)
 
     def fast_memory_bytes(self) -> int:
         """On-chip working set of the streaming schedule (delay + line

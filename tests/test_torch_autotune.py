@@ -96,7 +96,7 @@ def test_default_labels_are_the_reference_less_not_ported():
     assert at.DEFAULT_LABELS == [l for l in ref.DEFAULT_LABELS
                                  if l not in at.NOT_PORTED_LABELS]
     assert at.REDUCED_PRECISION_LABELS == ref.REDUCED_PRECISION_LABELS
-    assert set(at.REDUCED_PRECISION_LABELS) <= set(at.NOT_PORTED_LABELS)
+    assert not set(at.REDUCED_PRECISION_LABELS) & set(at.NOT_PORTED_LABELS)
 
 
 def test_facade_exports_the_compile_entry_point_only():
@@ -370,11 +370,44 @@ def test_a_slow_candidate_gets_a_shorter_loop(monkeypatch):
                                 dict(mxu_precision="bf16")],
                          ids=["allow_reduced_precision", "bf16"])
 @pytest.mark.parametrize("entry", ["autotune", "compile_chain_autotuned"])
-def test_reduced_precision_names_item_11(entry, kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        getattr(at, entry)(_port("jacobi3d"), device="cpu", **kw,
-                           **({"cache_path": str(tmp_path / "c.json")}
-                              if entry != "autotune" else {}))
+def test_reduced_precision_is_opt_in(entry, kw, tmp_path):
+    """``allow_reduced_precision`` adds the bf16-ring labels to the
+    measured set (never there without it), and its cache entries live
+    under a key of their own, flagged when a bf16-ring label wins;
+    ``mxu_precision="bf16"`` reaches the stream candidates (box-r2: its
+    banded plan) and the key."""
+    name = "box-r2" if "mxu_precision" in kw else "jacobi3d"
+    p = _port(name)
+    settings = dict(mxu="auto", mxu_precision=kw.get("mxu_precision",
+                                                     "split"), spill="auto")
+    if entry == "autotune":
+        res = at.autotune(p, device="cpu", trials=1, **kw)
+        plain = at.autotune(p, device="cpu", trials=1,
+                            mxu_precision=settings["mxu_precision"])
+        reduced = set(res.timings) & set(at.REDUCED_PRECISION_LABELS)
+        assert not set(plain.timings) & set(at.REDUCED_PRECISION_LABELS)
+        if kw.get("allow_reduced_precision"):
+            assert reduced == set(at.REDUCED_PRECISION_LABELS)
+        else:
+            assert not reduced
+            plan = at.build_from_label(p, "stream", device="cpu",
+                                       **settings).plan
+            assert plan.mxu_precision == "bf16" and plan.mxu_plans
+        return
+    path = str(tmp_path / "c.json")
+    labels = ["panel:rings=bf16"] if kw.get("allow_reduced_precision") \
+        else None
+    fn, label = at.compile_chain_autotuned(p, device="cpu", cache_path=path,
+                                           trials=1, labels=labels, **kw)
+    entry_, = json.load(open(path)).values()
+    flag = bool(kw.get("allow_reduced_precision"))
+    key = at.cache_key(p, "cpu", **at._key_settings(settings, flag))
+    assert json.load(open(path)) == {key: entry_}
+    assert key != at.cache_key(p, "cpu", **at._key_settings(settings,
+                                                             not flag))
+    assert entry_["label"] == label
+    assert entry_["reduced_precision"] == (label == "panel:rings=bf16") \
+        == flag
 
 
 # -- the driver ---------------------------------------------------------------

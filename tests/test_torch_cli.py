@@ -103,17 +103,44 @@ def test_no_mxu_is_mxu_off(monkeypatch, prog):
     assert seen["mxu"] == "off" and seen["backend"] == "auto"
 
 
-@pytest.mark.parametrize("extra,item", [
-    # the cases keep the ids they were first collected under
-    pytest.param(["--ring-storage", "bfloat16"], "item 11",
-                 id="extra1-item 11"),
-    pytest.param(["--mxu-precision", "bf16"], "item 11",
-                 id="extra2-item 11"),
-])
-def test_run_refuses_unported_options(prog, capsys, extra, item):
-    assert main(["run", prog, "--device", "cpu"] + extra) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
+@pytest.mark.parametrize("backend", ["panel", "stream", "rows"])
+def test_run_ring_storage_bfloat16(jprog, tmp_path, capsys, backend):
+    """bf16 rings (f32 compute) verify at BF16_VERIFY_RTOL: the same run
+    held to VERIFY_RTOL fails, so the rounding is really there.  ``rows``
+    (a 2-D program) takes rows+stream, as the JAX package's does."""
+    prog = jprog
+    if backend == "rows":
+        prog = str(tmp_path / "prog2d.json")
+        with open(prog, "w") as f:
+            json.dump(synthesize_stencil(
+                num_stages=3, dimensions=(24, 40), shape="diffusion",
+                seed_data="random:0,1"), f)
+    argv = ["run", prog, "--device", "cpu", "--backend", backend,
+            "--ring-storage", "bfloat16", "--compare-to-reference"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    want = "rows+stream" if backend == "rows" else backend
+    assert f"backend: {want}\n" in out
+    assert "verified against reference: OK" in out
+    assert main(argv + ["--tolerance", "1e-5"]) == 1
+
+
+def test_run_mxu_precision_bf16(prog, capsys):
+    """Single-pass bf16 band transforms on a box chain: banded stages,
+    verified at BF16_VERIFY_RTOL and not at MXU_VERIFY_RTOL."""
+    argv = ["run", prog, "--device", "cpu", "--backend", "stream",
+            "--mxu-precision", "bf16", "--compare-to-reference"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "backend: stream\n" in out
+    assert "verified against reference: OK" in out
+    assert main(argv + ["--tolerance", "3e-5"]) == 1
+
+
+def test_run_ring_storage_refused_elsewhere(jprog, capsys):
+    assert main(["run", jprog, "--device", "cpu", "--backend", "overlap",
+                 "--ring-storage", "bfloat16"]) == 2
+    assert "--ring-storage requires" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("extra,item", [(["--plot"], "item 10"),
@@ -381,10 +408,45 @@ def test_run_backend_autotuned(jprog, tmp_path, capsys, monkeypatch):
     assert f"backend: autotuned:{label}\n" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("extra", [["--allow-reduced-precision"],
-                                   ["--mxu-precision", "bf16"]],
-                         ids=" ".join)
-def test_autotune_refuses_reduced_precision(jprog, capsys, extra):
-    assert main(["autotune", jprog, "--device", "cpu"] + extra) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and "ROADMAP Queue 1 item 11" in err
+def test_autotune_allow_reduced_precision(jprog, tmp_path, capsys):
+    cache = str(tmp_path / "at.json")
+    assert main(["autotune", jprog, "--device", "cpu", "--no-sweep",
+                 "--trials", "1", "--allow-reduced-precision", "--json",
+                 "--cache", cache]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert {"stream:rings=bf16", "panel:rings=bf16"} <= set(got["timings"])
+    entry, = json.load(open(cache)).values()
+    assert entry["reduced_precision"] == (":rings=bf16" in got["winner"])
+
+
+def test_autotune_mxu_precision_bf16(prog, tmp_path, capsys):
+    cache = str(tmp_path / "at.json")
+    assert main(["autotune", prog, "--device", "cpu", "--no-sweep",
+                 "--trials", "1", "--mxu-precision", "bf16", "--json",
+                 "--cache", cache]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "stream" in got["timings"]
+    assert not {"stream:rings=bf16", "panel:rings=bf16"} & set(
+        got["timings"])
+
+
+def test_run_autotuned_bf16_rings_winner(jprog, tmp_path, capsys,
+                                         monkeypatch):
+    """A cached ``:rings=bf16`` winner (tuned on that label alone) runs
+    and verifies at the widened tolerance."""
+    from stencilflow_tpu_torch import autotune as at
+    from stencilflow_tpu_torch.frontend.parser import parse_program
+    path = str(tmp_path / "at.json")
+    monkeypatch.setenv("SFT_AUTOTUNE_CACHE", path)
+    p = parse_program(jprog)
+    res = at.autotune(p, labels=["panel:rings=bf16"], device="cpu",
+                      trials=1)
+    at.save_result(p, res, device="cpu", mxu="auto", mxu_precision="split",
+                   spill="auto")
+    argv = ["run", jprog, "--backend", "autotuned", "--device", "cpu",
+            "--compare-to-reference"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "backend: autotuned:panel:rings=bf16\n" in out
+    assert "verified against reference: OK" in out
+    assert main(argv + ["--tolerance", "1e-5"]) == 1

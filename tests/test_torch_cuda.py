@@ -1486,3 +1486,162 @@ def test_cli_run_backend_autotuned_on_card(cuda, tmp_path, capsys,
     out = capsys.readouterr().out
     assert f"backend: autotuned:{label}\n" in out
     assert "verified against reference: OK\n" in out
+
+
+# -- reduced precision: bf16 rings (K1, K5, K3a, K3c), single-pass bf16
+# band passes (K3b) -----------------------------------------------------------
+
+@pytest.mark.cuda
+def test_mma_bf16_band_matches_host_version_on_card(cuda, tmp_path):
+    """``sf_mma_band_bf16`` alone (mma.sync m16n8k16 bf16, operands
+    rounded to nearest even, f32 accumulation) against its host version on
+    one tile: 5- and 33-tap bands from a weight vector, a 41-tap band from
+    a table.  The rounded operands' products are exact in f32, so the two
+    differ only in the order of their sums: each element within 1e-6 of
+    the sum of its products' magnitudes."""
+    import ctypes
+    import shutil
+    import subprocess
+    from stencilflow_tpu_torch.backend import build, codegen
+    src = codegen.mma_probe_source((1, 3), bf16=True)
+    dev = build.load_library(src, "mma_bf16_probe")
+    gxx = shutil.which("g++") or shutil.which("c++")
+    assert gxx, "the card's machine has no host C++ compiler"
+    cpp, so = tmp_path / "probe.cpp", tmp_path / "probe.so"
+    cpp.write_text(src)
+    proc = subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off",
+                           "-shared", "-fPIC", "-o", str(so), str(cpp)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    host = ctypes.CDLL(str(so))
+    rng = np.random.default_rng(12)
+
+    def bf(a):
+        return torch.as_tensor(a).to(torch.bfloat16).float().numpy()
+    for taps, ks, table in ((5, 1, False), (33, 3, False), (41, 3, True)):
+        x = rng.standard_normal((16, 16 * ks)).astype(np.float32)
+        w = rng.standard_normal((taps, 8) if table else (taps,)).astype(
+            np.float32)
+        args = [16 * ks, 1, 16, 16 * ks, 8 if table else 1,
+                1 if table else 0, taps, ks]
+        want = np.zeros((16, 8), np.float32)
+        host.sf_mma_probe_host.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 8
+        assert host.sf_mma_probe_host(x.ctypes.data, w.ctypes.data,
+                                      want.ctypes.data, *args) == 0
+        xt, wt = torch.as_tensor(x).to(cuda), torch.as_tensor(w).to(cuda)
+        dt = torch.zeros((16, 8), dtype=torch.float32, device=cuda)
+        dev.sf_mma_probe.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int] * 8 + [ctypes.c_void_p]
+        assert dev.sf_mma_probe(xt.data_ptr(), wt.data_ptr(),
+                                dt.data_ptr(), *args,
+                                torch.cuda.current_stream(cuda).cuda_stream
+                                ) == 0
+        torch.cuda.synchronize()
+        got = dt.cpu().numpy()
+        band = np.zeros((16 * ks, 8), np.float32)
+        for m in range(16 * ks):
+            for n in range(8):
+                if 0 <= m - n < taps:
+                    band[m, n] = w[m - n, n] if table else w[m - n]
+        scale = np.abs(bf(x)) @ np.abs(bf(band))
+        err = np.max(np.abs(got - want) / (scale + 1e-30))
+        print(f"sf_mma_band_bf16 taps {taps}: max error {err:.3g} of the "
+              "products' magnitudes")
+        assert err <= 1e-6, (taps, err)
+
+
+def _jacobi_bf16(dims, iters, **kw):
+    return lambda: synthesize_stencil(num_stages=iters, dimensions=dims,
+                                      shape="diffusion",
+                                      seed_data="random:0,1", **kw)
+
+
+# name: (spec, kernel): bf16 rings, bit for bit against the plain version
+BF16_RINGS = {
+    "K1 jacobi3d": (_jacobi_bf16((32, 40, 72), 4), "panel"),
+    "K1 hdiff": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(12, 52, 72), shape="hdiff",
+        seed_data="random:0,1"), "panel"),
+    "K5 jacobi3d g2": (_jacobi_bf16((16, 40, 72), 4), "group"),
+    "K5 rows jacobi2d g8": (_jacobi_bf16((256, 192), 8), "rows"),
+    "K5 rows copy g8": (_jacobi_bf16((256, 192), 8, boundary="copy"),
+                        "rows"),
+    "K3a jacobi3d": (_jacobi_bf16((40, 48, 72), 4), "stream"),
+    "K3c reconvergent": (lambda: reconvergent_chain(), "spill"),
+    "K3c hotspot deep": (lambda: synthesize_stencil(
+        num_stages=32, dimensions=(40, 40, 72), shape="hotspot"),
+        "spill_all"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BF16_RINGS))
+def test_bf16_rings_match_plain_on_card(name, cuda):
+    """``ring_storage="bfloat16"``: the kernel and its plain version round
+    the same rings at the same points and compute in f32 alike."""
+    make, kind = BF16_RINGS[name]
+    p = port.parse_program(make())
+    if kind == "rows":
+        p = rotate_2d_to_rows(p)
+    an = port.ChainAnalysis.run(p)
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    if kind == "panel":
+        plan = panel.PanelPlan.build(an, ring_storage="bfloat16")
+        before = panel.bf16_launches
+        got = panel.run_panel(p, an, plan, arrays)
+        n = panel.bf16_launches - before
+        want = panel.panel_plain(p, an, plan, arrays)
+    elif kind in ("group", "rows"):
+        B, g = (64, 8) if kind == "rows" else (2, 2)
+        plan = group.plan_group(p, an, B, g, ring_storage="bfloat16")
+        before = group.bf16_launches
+        got = group.run_group(p, an, plan, arrays)
+        n = group.bf16_launches - before
+        want = group.group_plain(p, an, plan, arrays)
+    else:
+        kw = {"stream": {"mxu": "off"}, "spill": {"smem_budget": 64 * 1024},
+              "spill_all": {"spill": "all"}}[kind]
+        plan = stream.plan_stream(p, ring_storage="bfloat16", **kw)
+        assert plan.packed == (kind != "stream")
+        counter = "spill_bf16_launches" if plan.packed else "bf16_launches"
+        before = getattr(stream, counter)
+        got = stream.run_stream(plan, arrays)
+        n = getattr(stream, counter) - before
+        want = stream.stream_plain(plan, arrays)
+    torch.cuda.synchronize()
+    assert plan.rounds and n == 1
+    for o in want:
+        np.testing.assert_array_equal(got[o].cpu().numpy(),
+                                      want[o].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", ["auto", "fma", "mma"])
+@pytest.mark.parametrize("name", ["box_r2", "cross_r2"])
+def test_bf16_passes_match_plain_on_card(name, passes, cuda):
+    """``mxu_precision="bf16"``: single-pass bf16 band passes on either
+    route against the plain version's sums of the same rounded operands
+    and apart from the split route's (``stream.bf16_passes_agree``: the
+    tensor cores sum in their own order, and a sum that lands near a bf16
+    tie may round the other way before the next pass, so a few cells
+    differ by bf16 ulps; passes run unrounded or split fail)."""
+    p = port.parse_program(ONCHIP_BANDED[name]())
+    kw = {} if passes == "auto" else {"passes": passes}
+    plan = stream.plan_stream(p, mxu_precision="bf16", **kw)
+    assert plan.tkeys and not plan.packed
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = stream.bf16_launches
+    got = stream.run_stream(plan, arrays)
+    torch.cuda.synchronize()
+    assert stream.bf16_launches == before + 1
+    want = stream.stream_plain(plan, arrays)
+    split = stream.stream_plain(stream.plan_stream(p), arrays)
+    for o in want:
+        ok, fig = stream.bf16_passes_agree(want[o].cpu().numpy(),
+                                           got[o].cpu().numpy(),
+                                           split[o].cpu().numpy())
+        print(f"{name} {passes}: {fig}")
+        assert ok, fig

@@ -11,6 +11,7 @@ programs are those of tests/test_mxu.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import stencilflow_tpu as ref
 import stencilflow_tpu_torch as port
@@ -155,7 +156,10 @@ def test_blocked_band_reassembles():
 @pytest.mark.parametrize("name", ["box2_bval", "cross_r2_3d", "shrink"])
 def test_finalize_pool_keys(name):
     """Referenced keys and transform-ring keys equal the JAX package's
-    (less its bf16 ``__lo`` residual matrices: the port has no split)."""
+    (less its bf16 ``__lo`` residual matrices: the port has no split).
+    Under the single-pass "bf16" mode both have the same keys (no
+    residual) and the same arrays: the band matrices rounded to bf16,
+    correction planes exact."""
     a, b, rp, pp, rpool, ppool = _plans(PROGRAMS[name](), 9)
     rk, _ra, _rm, rt = ref_linear.finalize_pool(rp, rpool, a, "split")
     pk, pa, pt = linear.finalize_pool(pp, ppool, b, "split")
@@ -163,8 +167,17 @@ def test_finalize_pool_keys(name):
     assert pt == rt
     for k, arr in zip(pk, pa):
         np.testing.assert_array_equal(arr, rpool.items[k])
-    with pytest.raises(NotImplementedError):
-        linear.finalize_pool(pp, ppool, b, "bf16")
+    rk, ra, rm, rt = ref_linear.finalize_pool(rp, rpool, a, "bf16")
+    bk, ba, bt = linear.finalize_pool(pp, ppool, b, "bf16")
+    assert rm["__precision__"] == "bf16"
+    assert bk == rk == pk and bt == rt
+    for k, got, want in zip(bk, ba, ra):
+        np.testing.assert_array_equal(got, np.asarray(want, np.float32))
+        if k.startswith(("L", "R")):   # bf16-exact
+            np.testing.assert_array_equal(got, torch.as_tensor(got).to(
+                torch.bfloat16).float().numpy())
+        else:
+            np.testing.assert_array_equal(got, ppool.items[k])
     with pytest.raises(ValueError, match="mxu_precision"):
         linear.finalize_pool(pp, ppool, b, "fast")
 

@@ -8,8 +8,8 @@ exactly: op counts, the critical path and runtime bound, communication
 volume, fast-memory and footprint bytes, the memory and ALU times
 (``alu_time_s`` against the reference's ``vpu_time_s``), the
 out-of-core hint and the band-transform stages.  The ``as_dict`` keys
-are the reference's but for the single-pass bf16 prices, which are not
-ported.
+are the reference's, the single-pass bf16 prices included (priced here
+as the port's tensor-core passes execute them).
 """
 import os
 
@@ -81,9 +81,7 @@ def test_report_matches_reference(name, monkeypatch):
     if mr is not None:
         assert mr["stages"] == mp["stages"]
         assert mr["vpu_rest_ops_per_cell"] == mp["vpu_rest_ops_per_cell"]
-        assert set(mr) - set(mp) == {"mxu_flops_per_cell_bf16",
-                                     "mxu_time_s_bf16"}
-        assert set(mp) <= set(mr)
+        assert set(mr) == set(mp)
     # the dump after the roofline header is hardware-independent
     tail = "\n\nkernels:"
     assert r.full_dump().split(tail, 1)[1] == p.full_dump().split(tail, 1)[1]
@@ -156,7 +154,15 @@ def test_mxu_model_prices_the_stream_kernel(name):
     assert m["mxu_flops_per_cell"] == plan_stream(prog).flops_per_cell()
     assert m["mxu_time_s"] == (m["mxu_flops_per_cell"] * prog.total_elements
                                / p.hw.alu_ops)
-    assert "mxu_time_s_bf16" not in m
+    # single-pass bf16: one m16n8k16 product a k-step of 16 for each side
+    # of each transform, at the dense bf16 tensor rate
+    plan = plan_stream(prog, mxu_precision="bf16")
+    steps = sum(-(-(len(plan.band(k, s)[0]) + 7) // 16)
+                for t in plan.tkeys for k, s in ((t[1], "L"), (t[2], "R"))
+                if k is not None)
+    assert m["mxu_flops_per_cell_bf16"] == 2.0 * 16 * steps
+    assert m["mxu_time_s_bf16"] == (m["mxu_flops_per_cell_bf16"]
+                                    * prog.total_elements / 989e12)
 
 
 def test_report_text():

@@ -301,8 +301,10 @@ def test_main_path_plans_fit():
 
 def test_options():
     p = port.parse_program(PROGRAMS["box1"][0]())
-    with pytest.raises(NotImplementedError, match="bf16"):
-        stream.compile_chain_stream(p, mxu_precision="bf16", device="cpu")
+    fn = stream.compile_chain_stream(p, mxu_precision="bf16", device="cpu")
+    assert fn.plan.mxu_precision == "bf16" and fn.plan.mxu_plans
+    with pytest.raises(ValueError, match="ring_storage"):
+        stream.compile_chain_stream(p, ring_storage="float16", device="cpu")
     with pytest.raises(ValueError, match="mxu_precision"):
         stream.compile_chain_stream(p, mxu_precision="fast", device="cpu")
     with pytest.raises(ValueError, match="mxu"):
