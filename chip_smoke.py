@@ -131,6 +131,13 @@ Phases, one line each (any failure raises and exits non-zero):
    alone on one jacobi chunk beside its plain version and 8 chained
    ``F.conv3d`` over the widened chunk, with its tile, threads, packed
    and unpacked shared memory, resident blocks and evaluations a cell;
+   then K4's single-pass bf16 passes (``run --host-chunks 4
+   --mxu-precision bf16``) on box3d 512^3 x 8 of extent 2: K4 alone on
+   the middle chunk against its plain version (``bf16_passes_agree``,
+   apart from the split chunk plan's plain version) and in turns with
+   the split chunk kernel, then the out-of-core call with the counts
+   reset just before and read just after (K4's bf16 launches 4 a call,
+   nothing else), within BF16_VERIFY_RTOL of the in-core f32 route;
 6. the measurement path: the probes' kernels against their plain
    versions on the card (P4's copy of 512 x 512^2 bit-equal to its input
    and timed beside ``copy_``; P1's every op at 8 steps, bit-exact or
@@ -229,7 +236,22 @@ Phases, one line each (any failure raises and exits non-zero):
    main path's shape (every plane bit-exact), with its ms, plain-version
    ms, bound, the chained ``F.conv3d`` over its tile, and one cut's
    carry with the ms of a device copy of it (what a hop between distinct
-   devices copies; on the repeated card a hop copies nothing).
+   devices copies; on the repeated card a hop copies nothing).  Then
+   K4's reduced precisions beside their f32 cells: bf16 rings on
+   jacobi3d 512^3 x 8 over 2 x 2 and single-pass bf16 passes on box3d
+   256^3 x 8 of extent 2 over 2 x 2 (shard mode) and over 2 pipeline
+   positions (segment mode), each driven once with the counts reset just
+   before and read just after (K4's bf16 launches only), within
+   BF16_VERIFY_RTOL of its f32 cell, and one launch at that shape (the
+   last shard; segment 0 on chunk 1) against its plain version (rings
+   bit for bit, passes by ``bf16_passes_agree``) and timed in turns with
+   the f32 cell's kernel on the same tiles.
+
+Phases 3 to 5 and 9 draw each program's inputs once a phase
+(``_InputMemo``: ``run_program`` and the script take the same seeded
+arrays from a memo), equal arrays compare without float64 copies
+(``_compare``), and phase 4 prints the seconds of its sections and of
+each main-path cell, with the time it waited for the cell's oracle.
 
 Every bound comes from the port's report (report.py): the larger of the
 minimum bytes over the data sheet's 3.35e12 B/s and the faster compute
@@ -238,8 +260,10 @@ lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
 and per segment's from phase 9; error, kernel, plain-version and library
 times measured in this run at the main path's shapes, bounds computed
-from its inputs; 21 entries: the stream kernel's on box and on cross,
-and the four reduced-precision modes' from phase 4's bf16 legs) and
+from its inputs; 25 entries: the stream kernel's on box and on cross,
+the four reduced-precision modes' from phase 4's bf16 legs, K4's bf16
+passes on chunks from phase 5 and K4's three reduced-precision legs
+from phase 9) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -288,11 +312,15 @@ def _i_window(v, lo: int, n: int):
 
 
 def _compare(a: np.ndarray, b: np.ndarray, rtol: float):
-    """(ok, max abs diff): bit-exact (NaN == NaN) when rtol is 0."""
+    """(ok, max abs diff): bit-exact (NaN == NaN) when rtol is 0.  Equal
+    arrays return at once: the float64 differences of a 512^3 pair take
+    seconds on the host, and most pairs here are equal."""
     from stencilflow_tpu_torch.data import arrays_are_equal
     a, b = np.asarray(a), np.asarray(b)
     if a.shape != b.shape or a.dtype != b.dtype:
         return False, float("inf")
+    if np.array_equal(a, b):
+        return True, 0.0
     with np.errstate(invalid="ignore"):
         d = np.abs(a.astype(np.float64) - b.astype(np.float64))
     both_nan = np.isnan(a.astype(np.float64)) & np.isnan(b.astype(np.float64))
@@ -409,6 +437,51 @@ def _reconvergent_spec(stages=16, dims=(12, 24, 32)):
         prev = f"s{s}"
     return {"inputs": {"a": {"data": "random:-1,1", "data_type": "float32"}},
             "outputs": [prev], "dimensions": list(dims), "program": prog}
+
+
+class _InputMemo:
+    """Each program's inputs made once per phase: ``load_input_arrays``
+    (the package's, and the driver's that ``run_program`` calls) served
+    from a memo keyed by the program's inputs, dimensions and seed while
+    ``on``; a 512^3 input takes seconds to draw on the host, and phases 4,
+    5 and 9 draw the same ones for every call.  ``clear()`` drops them."""
+
+    def __init__(self, sft):
+        from stencilflow_tpu_torch import driver
+        self.modules = (sft, driver)
+        self.load = sft.load_input_arrays
+        self.memo = {}
+        self.on = False
+        for m in self.modules:
+            m.load_input_arrays = self
+
+    def __call__(self, program, prefix=None, seed: int = 0):
+        if not self.on:
+            return self.load(program, prefix, seed)
+        key = (tuple(program.dimensions), prefix, seed,
+               tuple((n, str(s.data), str(s.dtype), tuple(s.dim_mask))
+                     for n, s in program.inputs.items()))
+        if key not in self.memo:
+            self.memo[key] = self.load(program, prefix, seed)
+        return dict(self.memo[key])
+
+    def clear(self):
+        self.memo.clear()
+
+
+def _share_bound(program, in_bytes: int, out_bytes: int, share: float,
+                 mxu_precision: str = "split"):
+    """(bound ms, "bytes" or "operations") of a kernel that evaluates
+    ``share`` of ``program``'s cells from ``in_bytes`` of inputs into
+    ``out_bytes`` of outputs: the bytes over the data sheet's rate against
+    that share of the report's compute bound (the faster strategy; the
+    band transforms as single-pass bf16 products under
+    ``mxu_precision="bf16"``)."""
+    from stencilflow_tpu_torch.report import Report
+    rep = Report.build(program)
+    t_bytes = (in_bytes + out_bytes) / rep.hw.hbm_bandwidth * 1e3
+    t_ops = rep._compute(mxu_precision)[0] * share * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _bound(program, mxu_precision: str = "split"):
@@ -662,7 +735,7 @@ def _chunk_slabs(program, inputs, lo: int, Ii: int):
     return slabs
 
 
-def _local_plan(program, chunks: int):
+def _local_plan(program, chunks: int, mxu_precision: str = "split"):
     """K4's plan of ``program`` at ``chunks`` chunks, as the out-of-core
     path chooses it (``plan_local_stream``)."""
     import stencilflow_tpu_torch as sft
@@ -673,7 +746,8 @@ def _local_plan(program, chunks: int):
     I, J, K = program.dimensions
     h = chain_halo(an)[0] if chunks > 1 else 0
     got = plan_local_stream(program, an, DomainDecomposition(
-        program, None, (None, None, None), (h, 0, 0), (I // chunks, J, K)))
+        program, None, (None, None, None), (h, 0, 0), (I // chunks, J, K)),
+        mxu_precision=mxu_precision)
     if got is None:
         raise RuntimeError(f"{program.name}: K4's planner refused")
     return got[0]
@@ -836,6 +910,142 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
         entry["launches"] += n
         del oc, in_core
         torch.cuda.empty_cache()
+    return entry
+
+
+def _counts_zero(pn, ov, gp, tl, st):
+    """Every kernel's launch count set to 0."""
+    pn.launches = ov.launches = gp.launches = tl.launches = 0
+    pn.bf16_launches = gp.bf16_launches = 0
+    for name in ("launches", "local_launches", "spill_launches",
+                 "shard_launches", "bf16_launches", "spill_bf16_launches",
+                 "local_bf16_launches", "shard_bf16_launches"):
+        setattr(st, name, 0)
+
+
+def _counts(pn, ov, gp, tl, st) -> dict:
+    """Every kernel's launch count that is not 0."""
+    got = {"panel": pn.launches, "overlap": ov.launches,
+           "group": gp.launches, "tile": tl.launches,
+           "panel_bf16": pn.bf16_launches, "group_bf16": gp.bf16_launches}
+    got.update({name: getattr(st, name) for name in (
+        "launches", "local_launches", "spill_launches", "shard_launches",
+        "bf16_launches", "spill_bf16_launches", "local_bf16_launches",
+        "shard_bf16_launches")})
+    return {k: v for k, v in got.items() if v}
+
+
+def _rel(a, want) -> float:
+    """Largest difference of ``a`` from ``want`` over ``want``'s largest
+    magnitude."""
+    want = np.asarray(want, np.float64)
+    return float(np.max(np.abs(np.asarray(a, np.float64).reshape(
+        want.shape) - want)) / np.max(np.abs(want)))
+
+
+def _outofcore_bf16(sft, st, pn, ov, gp, tl, p, chunks, plans, lib_of, smi,
+                    run_program):
+    """Phase 5, continued: K4's single-pass bf16 band passes in chunk mode
+    (``run --host-chunks N --mxu-precision bf16``) on box3d 512^3 x 8 of
+    extent 2 at ``chunks`` chunks.  K4 alone on the middle chunk against
+    its plain version (``_bf16_held``: ``bf16_passes_agree`` against it
+    and the split chunk plan's plain version) and timed in turns with the
+    split chunk kernel (split, bf16, bf16, split); then the out-of-core
+    call, the counts set to 0 just before and read just after (K4's bf16
+    launches: chunks a call, nothing else launched), its output within
+    BF16_VERIFY_RTOL of the in-core f32 route's on the same inputs.
+    Returns its entry of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch.config import BF16_VERIFY_RTOL
+    from stencilflow_tpu_torch.data import arrays_are_equal
+    plan, split_plan = plans
+    lib = lib_of[st.stream_source(plan)]
+    slib = lib_of[st.stream_source(split_plan)]
+    _, J, K = p.dimensions
+    o = p.outputs[0]
+    c = chunks // 2
+    lo = c * plan.block - plan.halo_i
+    slabs = _chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
+                         plan.extent())
+    before = st.local_bf16_launches
+    got = st.run_local_stream(plan, lo, slabs, lib)
+    torch.cuda.synchronize()
+    counted = st.local_bf16_launches - before
+    t_plain = time.perf_counter()
+    want = st.local_stream_plain(plan, lo, slabs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t_plain) * 1e3
+    far = st.local_stream_plain(split_plan, lo, slabs)[o].cpu().numpy()
+    ok, err, fig = _bf16_held(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                              far)
+    del got, want, far
+    turns = [_time_ms(lambda q=q, lb=lb: st.run_local_stream(
+        q, lo, slabs, lb), 5) for q, lb in ((split_plan, slib), (plan, lib),
+                                            (plan, lib), (split_plan, slib))]
+    ms, f32_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    in_bytes = sum(t.numel() * t.element_size() for n, t in slabs.items()
+                   if not p.inputs[n].is_scalar)
+    out_bytes = sum(plan.block * J * K * np.dtype(p.kernels[q].dtype)
+                    .itemsize for q in p.outputs)
+    bound_ms, bound_by = _share_bound(p, in_bytes, out_bytes,
+                                      plan.block / p.dimensions[0], "bf16")
+    del slabs
+    torch.cuda.empty_cache()
+    print(f"kernel: local_stream_bf16 {p.name} chunk {c} of {chunks} "
+          f"({plan.extent()} planes in, {plan.block} out) tile {plan.tile} "
+          f"x {plan.threads}, smem {plan.smem_bytes()} B, banded "
+          f"{sorted(plan.mxu_plans)}, {_routes(plan)} bf16 passes: "
+          f"{ms:.3f} ms per chunk (in turns {turns[1]:.3f} / "
+          f"{turns[2]:.3f}) | the split chunk kernel tile {split_plan.tile} "
+          f"x {split_plan.threads}, {_routes(split_plan)} passes {f32_ms:.3f}"
+          f" ms (in turns {turns[0]:.3f} / {turns[3]:.3f}) | plain version "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} "
+          f"{_held_text(fig)} | {smi}", flush=True)
+    if not ok or counted != 1:
+        raise RuntimeError(f"K4's bf16 passes disagree with their plain "
+                           f"version on {p.name} (launches {counted})")
+    entry = {"name": "local_stream_bf16", "route": "cuda",
+             "source": "stencilflow_tpu_torch/backend/codegen.py",
+             "replaces": "stencilflow_tpu/backend/stream.py:1943",
+             "launches": 0, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
+
+    reps = 2
+    res = run_program(p, device="cuda", repetitions=reps,
+                      save_results=False, log_level=0)
+    f32_out, route, route_ms = (res.outputs[o], res.backend,
+                                res.wall_time_s * 1e3)
+    del res
+    torch.cuda.empty_cache()
+    _counts_zero(pn, ov, gp, tl, st)
+    oc = run_program(p, device="cuda", host_chunks=chunks,
+                     mxu_precision="bf16", repetitions=reps,
+                     save_results=False, log_level=0)
+    counts = _counts(pn, ov, gp, tl, st)
+    n = counts.pop("local_bf16_launches", 0)
+    label = f"outofcore[stream x{chunks} chunks]"
+    if oc.backend != label or n != chunks * (reps + 1) or counts:
+        raise RuntimeError(f"{p.name}: {oc.backend} launched K4's bf16 "
+                           f"passes {n} times over {reps + 1} calls of "
+                           f"{chunks} chunks (others {counts})")
+    within = arrays_are_equal(f32_out, oc.outputs[o], BF16_VERIFY_RTOL)
+    drift = _rel(oc.outputs[o], f32_out)
+    print(f"outofcore: {p.name} --host-chunks {chunks} --mxu-precision "
+          f"bf16: {oc.backend} {oc.wall_time_s * 1e3:.3f} ms per call (CUDA "
+          f"events over {reps} calls, transfers included) | in-core f32 "
+          f"route {route} {route_ms:.3f} ms | from it: max diff "
+          f"{drift:.3g} of the largest output "
+          f"({'within' if within else 'OUTSIDE'} BF16_VERIFY_RTOL) | K4 "
+          f"bf16 launches {n} over "
+          f"{reps + 1} calls | {smi}", flush=True)
+    if not within:
+        raise RuntimeError(f"{p.name}: the bf16 chunks are not within "
+                           "BF16_VERIFY_RTOL of the f32 route")
+    entry["launches"] = n
+    del oc, f32_out
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -1697,7 +1907,25 @@ def _sharded_setup(sft, jacobi8, box256):
         mesh = make_mesh([cuda], shape, names)
         thunks.append(lambda p=p, m=mesh, kw=kw: compile_pipeline_split(
             p, m, "p", **kw))
-    return (cells, kcases, solvers, pipes), thunks
+    # K4's reduced precisions (their f32 counterparts are the cells above):
+    # (kernels-line name, label, program, mesh, options)
+    bf16 = [("local_stream_shard_bf16_rings",
+             "jacobi3d 512^3 x 8, 2 x 2, ring_storage=bfloat16", jacobi8,
+             jk, {"ring_storage": "bfloat16"}),
+            ("local_stream_shard_bf16",
+             "box3d 256^3 x 8 extent 2, 2 x 2, mxu_precision=bf16", box256,
+             jk, {"mxu_precision": "bf16"}),
+            ("local_stream_segment_bf16",
+             "box3d 256^3 x 8 extent 2 over 2, mxu_precision=bf16", box256,
+             ((2,), ("p",), None), {"mxu_precision": "bf16"})]
+    for _key, _label, p, (shape, names, axes), kw in bf16:
+        mesh = make_mesh([cuda], shape, names)
+        thunks.append(
+            (lambda p=p, m=mesh, kw=kw: compile_pipeline_split(
+                p, m, "p", **kw)) if axes is None else
+            (lambda p=p, m=mesh, a=axes, kw=kw: compile_sharded_chain(
+                p, m, a, **kw)))
+    return (cells, kcases, solvers, pipes, bf16), thunks
 
 
 def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
@@ -1721,7 +1949,7 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
                                                        place_global_inputs)
     from stencilflow_tpu_torch.parallel.mesh import make_mesh
     from stencilflow_tpu_torch.report import Report
-    cells, kcases, solvers, _pipes = setup
+    cells, kcases, solvers = setup[:3]
     t_phase = time.perf_counter()
     cuda = torch.device("cuda", 0)
     print("sharded: meshes of virtual shards repeating the one card: the "
@@ -2072,6 +2300,157 @@ def _pipeline(sft, st, pn, ov, gp, tl, setup, smi):
     return entry
 
 
+def _k4_bf16(sft, st, pn, ov, gp, tl, setup, smi):
+    """Phase 9, continued: K4's reduced precisions on meshes repeating the
+    one card, each beside its f32 cell (the same program, mesh and
+    inputs): bf16 rings in shard mode (jacobi3d 512^3 x 8 over 2 x 2),
+    single-pass bf16 passes in shard mode (box3d 256^3 x 8 of extent 2
+    over 2 x 2, its per-shard bf16 bands and f32 correction planes) and in
+    segment mode (the same box over 2 pipeline positions).  Each leg
+    driven once with the counts set to 0 just before and read just after
+    (K4's bf16 launches: the shards, or segments x chunks; nothing else),
+    its output within BF16_VERIFY_RTOL of its f32 cell's; then its last
+    shard (segment 0 on chunk 1) through K4 against its plain version at
+    that shape (bf16 rings bit for bit, bf16 passes by
+    ``bf16_passes_agree`` against it and the f32 plan's plain version) and
+    timed in turns with the f32 cell's kernel on the same tiles (f32,
+    bf16, bf16, f32).  Returns the legs' entries of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch.config import BF16_VERIFY_RTOL
+    from stencilflow_tpu_torch.data import arrays_are_equal
+    from stencilflow_tpu_torch.parallel import (compile_pipeline_split,
+                                                compile_sharded_chain)
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    cuda = torch.device("cuda", 0)
+    entries = {}
+    for key, label, p, (shape, names, axes), kw in setup[4]:
+        t_leg = time.perf_counter()
+        mesh = make_mesh([cuda], shape, names)
+        segment = axes is None
+        mode = kw.get("mxu_precision", "split")
+        if segment:
+            fn, plan = compile_pipeline_split(p, mesh, "p", **kw)
+            f32, _ = compile_pipeline_split(p, mesh, "p")
+            splans, f32_plans = fn.stream_plans, f32.stream_plans
+        else:
+            fn, plan = compile_sharded_chain(p, mesh, axes, **kw)
+            f32, _ = compile_sharded_chain(p, mesh, axes)
+            splans, f32_plans = [fn.plan], [f32.plan]
+        if fn.last_config["backend"] != "stream" or not all(
+                st.reduced(sp) for sp in splans):
+            raise RuntimeError(f"k4 bf16: {label} took {fn.last_config}")
+        inputs = sft.load_input_arrays(p, seed=0)
+        dev_in = {n: torch.as_tensor(np.asarray(v)).to(cuda)
+                  if np.ndim(v) else v for n, v in inputs.items()}
+        placed = fn.place(dev_in) if segment else place_global_inputs(
+            p, plan, inputs)
+        del inputs
+        torch.cuda.synchronize()
+        _counts_zero(pn, ov, gp, tl, st)
+        out = fn(placed)
+        torch.cuda.synchronize()
+        counts = _counts(pn, ov, gp, tl, st)
+        n = counts.pop("local_bf16_launches" if segment
+                       else "shard_bf16_launches", 0)
+        want_n = (len(plan.segments) * plan.num_chunks if segment
+                  else mesh.size)
+        if n != want_n or counts:
+            raise RuntimeError(f"k4 bf16: {label}: K4 launched {n} times, "
+                               f"expected {want_n} (others {counts})")
+        ref = f32(placed)
+        o = p.outputs[0]
+        got_all = out[o].gather(cuda).cpu().numpy()
+        ref_all = ref[o].gather(cuda).cpu().numpy()
+        within = arrays_are_equal(ref_all, got_all, BF16_VERIFY_RTOL)
+        drift = _rel(got_all, ref_all)
+        del out, ref, got_all, ref_all
+        ms = _time_ms(lambda: fn(placed), 5)
+        f32_ms = _time_ms(lambda: f32(placed), 5)
+        # one launch at the main path's shape: the last shard, or segment
+        # 0 on chunk 1 (the program inputs' window, as in ``_pipeline``)
+        sp, fsp = splans[0], f32_plans[0]
+        if segment:
+            E = plan.widen[0][0]
+            lo = plan.chunk - E
+            tiles = {n: _i_window(v, lo, plan.chunk + 2 * E)
+                     if not p.inputs[n].is_scalar
+                     and p.inputs[n].dim_mask[0] else v
+                     for n, v in dev_in.items() if n in sp.program.inputs}
+            args, extra = (lo, tiles), ()
+        else:
+            per = fn.exchange(placed)
+            c = list(per)[-1]
+            oi, oj, ok = plan.block_origin(c)
+            tiles = per[c]
+            args, extra = (oi - plan.halo[0], tiles), (oj, ok,
+                                                       plan.instance(c))
+        lib, flib = st.build_stream(sp), st.build_stream(fsp)   # lookups
+        got = st.run_local_stream(sp, *args, lib, *extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = st.local_stream_plain(sp, *args, *extra)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        so = sp.program.outputs[0]
+        if segment:   # the in-domain planes of the segment's block
+            g0 = args[0] + sp.halo_i
+            win = slice(max(0, -g0), min(sp.block, p.dimensions[0] - g0))
+        else:
+            win = slice(None)
+        far = None
+        if mode == "bf16":
+            far = st.local_stream_plain(fsp, *args, *extra)[so][win]
+            far = far.cpu().numpy()
+        ok, err, fig = _bf16_held(got[so][win].cpu().numpy(),
+                                  want[so][win].cpu().numpy(), far)
+        out_bytes = sum(t.numel() * t.element_size() for t in got.values())
+        del got, want, far
+        turns = [_time_ms(lambda q=q, lb=lb: st.run_local_stream(
+            q, *args, lb, *extra), 5) for q, lb in (
+                (fsp, flib), (sp, lib), (sp, lib), (fsp, flib))]
+        k_ms, k_f32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        in_bytes = sum(t.numel() * t.element_size() for n, t in tiles.items()
+                       if n in sp.program.inputs
+                       and not sp.program.inputs[n].is_scalar)
+        # a segment's work: its stages over its block's planes
+        bound_ms, bound_by = _share_bound(
+            sp.program if segment else p, in_bytes, out_bytes,
+            sp.block / p.dimensions[0] if segment else 1 / mesh.size, mode)
+        where = "segment 0, chunk 1" if segment else f"shard {c}"
+        print(f"k4 bf16: {label} ({'segments' if segment else 'shards'} "
+              f"{len(splans) if segment else mesh.size}, tile {sp.tile} x "
+              f"{sp.threads}, smem {sp.smem_bytes()} B, rounded rings "
+              f"{sorted(sp.rounds)}, banded {sorted(sp.mxu_plans)}"
+              f"{', ' + _routes(sp) + ' bf16 passes' if sp.tkeys else ''}) "
+              f"{ms:.3f} ms a call, the f32 cell {f32_ms:.3f} | from it: max "
+              f"diff {drift:.3g} of the largest output "
+              f"({'within' if within else 'OUTSIDE'} BF16_VERIFY_RTOL) | "
+              f"K4 bf16 launches {n} | "
+              f"{where}: {k_ms:.3f} ms (in turns {turns[1]:.3f} / "
+              f"{turns[2]:.3f}), f32 {k_f32:.3f} ms (in turns "
+              f"{turns[0]:.3f} / {turns[3]:.3f}), plain version "
+              f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} "
+              f"{_held_text(fig)} | leg {time.perf_counter() - t_leg:.1f} s"
+              f" | {smi}", flush=True)
+        if not ok:
+            raise RuntimeError(f"k4 bf16: {label}: K4 disagrees with its "
+                               "plain version")
+        if not within:
+            raise RuntimeError(f"k4 bf16: {label} is not within "
+                               "BF16_VERIFY_RTOL of its f32 cell")
+        entries[key] = {"name": key, "route": "cuda",
+                        "source": "stencilflow_tpu_torch/backend/codegen.py",
+                        "replaces": "stencilflow_tpu/backend/stream.py:1943",
+                        "launches": n, "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}
+        del dev_in, placed, tiles
+        torch.cuda.empty_cache()
+    return entries
+
+
 def _design_probes(ov, smi):
     """Phase 6, continued: P6, P3, P2 and P5 against their plain versions
     at a ragged and at the main shape (bit-exact; P6's out and acc, P3's
@@ -2336,6 +2715,8 @@ def main() -> int:
         num_stages=8, dimensions=(1024,) * 3, shape="diffusion",
         seed_data="random:0.0,1.0"), name="jacobi3d_1024_8itr")
     oc_cells = [(jacobi1024, 8), (synth("hotspot", 512, 8), 4)]
+    # phase 5's chunk leg of K4's bf16 passes: box3d 512^3 x 8, extent 2
+    box512 = synth("box", 512, 8, 2)
     jacobi2d = synth2d("diffusion", (8192, 8192), 8)
     hotspot2d = synth2d("hotspot", (8192, 8192), 8)
     hdiff2d = synth2d("hdiff", (8192, 8192), 16)
@@ -2476,6 +2857,11 @@ def main() -> int:
         an = sft.ChainAnalysis.run(p)
         sources.append((codegen.panel_source(p, an, pn.PanelPlan.build(an)),
                         "panel"))
+    # K4's bf16 passes at 4 chunks and the split chunk plan beside them,
+    # and the in-core f32 route of the same program
+    oc_bf16 = (_local_plan(box512, 4, "bf16"), _local_plan(box512, 4))
+    sources += [(st.stream_source(q), "local_stream") for q in oc_bf16]
+    sources.append((st.stream_source(st.plan_stream(box512)), "stream"))
     # K3c: phase 3's spilled plans, K4 spilled at 4 chunks, the deep
     # cells' route plans (rung 4: every stage per cell, spilled)
     spill_plans = []
@@ -2564,6 +2950,10 @@ def main() -> int:
           f"parallel, in {time.perf_counter() - t0:.1f}s (slowest "
           f"{slow[0]} {slow[1]:.1f}s)", flush=True)
 
+    # each program's inputs drawn once a phase (the oracles' threads draw
+    # phase 4's first, and its calls take them from the memo)
+    inputs_memo = _InputMemo(sft)
+    inputs_memo.on = True
     # the numpy oracles of phase 4's cells, computed on host threads while
     # the card works through phases 3 and 4 (the same inputs as
     # run_program's: seed 0)
@@ -2774,6 +3164,7 @@ def main() -> int:
 
     # -- 4. the main path at full size ---------------------------------------
     print(f"phase: 4 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    t4 = time.perf_counter()
     # kernel vs plain version at the main path's shapes (counted out)
     report = {}
     library = []     # (report key or cell, program, filter radius)
@@ -2829,6 +3220,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": None}
         library.append((kname, p, 1))
     stream_extra = {}
+    # the split route's plain outputs, which the bf16 passes' kernel is
+    # held apart from below
+    split_plain = {}
     for label, p, plan in stream_plans[len(stream_cases):]:
         lib = lib_of[st.stream_source(plan)]
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
@@ -2839,8 +3233,9 @@ def main() -> int:
         want = st.stream_plain(plan, arrays)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t_plain) * 1e3
+        split_plain[p.name] = want[p.outputs[0]].cpu().numpy()
         ok, err = _compare(got[p.outputs[0]].cpu().numpy(),
-                           want[p.outputs[0]].cpu().numpy(), MXU_VERIFY_RTOL)
+                           split_plain[p.name], MXU_VERIFY_RTOL)
         # the other route of the band passes, checked, then both timed in
         # turns (route, other, other, route)
         oplan = other_route[label][1]
@@ -2977,7 +3372,11 @@ def main() -> int:
         o = p.outputs[0]
         bf16_plain[key] = want[o].cpu().numpy()
         del want
-        far = None if split is None else split(arrays)[o].cpu().numpy()
+        far = None
+        if split is not None:   # computed above on the same inputs
+            far = split_plain.get(p.name)
+            if far is None:
+                far = split(arrays)[o].cpu().numpy()
         ok, err, fig = _bf16_held(got[o].cpu().numpy(), bf16_plain[key], far)
         del got, far
         ms = _time_ms(lambda: run(arrays, lib),
@@ -3123,6 +3522,9 @@ def main() -> int:
         del inputs, fr
         torch.cuda.empty_cache()
 
+    print(f"phase 4: the kernels against their plain versions took "
+          f"{time.perf_counter() - t4:.1f} s", flush=True)
+    t4 = time.perf_counter()
     route_ms = {}
     # the f32 routes' outputs and ms of the cells the bf16 legs run again
     f32_route = {}
@@ -3139,6 +3541,7 @@ def main() -> int:
             + [(p, "stream", "auto") for p in deep]
             + [(jacobi2, "tile", "tile"), (hdiff8, "tile", "tile")]):
         spilled_before = st.spill_launches
+        t_cell = time.perf_counter()
         res = run_program(p, device="cuda", backend=backend,
                           repetitions=3 if p.name in deep_names else 20,
                           save_results=False, log_level=0)
@@ -3159,8 +3562,11 @@ def main() -> int:
                 raise RuntimeError(f"{p.name}: {res.backend} disagrees "
                                    f"with dense (max abs diff {err:.3g})")
         oracle = p.name in oracle_of
+        waited = 0.0
         if oracle:   # run_program's own check (VERIFY_RTOL, banded: MXU)
+            t_wait = time.perf_counter()
             want = oracle_of[p.name].result()
+            waited = time.perf_counter() - t_wait
             for o in p.outputs:
                 if not _compare(res.outputs[o], np.asarray(want[o]),
                                 rtol or VERIFY_RTOL)[0]:
@@ -3196,14 +3602,21 @@ def main() -> int:
               f"{dense.wall_time_s * 1e3:.3f} ms "
               f"({cells / dense.wall_time_s / 1e9:.2f} GCell/s) | "
               f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} "
-              f"dense, oracle {'OK' if oracle else 'skipped'}"
-              f"{extra} | {smi}", flush=True)
+              f"dense, oracle "
+              f"{f'OK (waited {waited:.1f} s)' if oracle else 'skipped'}"
+              f"{extra} | cell {time.perf_counter() - t_cell:.1f} s | {smi}",
+              flush=True)
         del res, dense
         torch.cuda.empty_cache()
     oracle_pool.shutdown()
+    print(f"phase 4: the main path took {time.perf_counter() - t4:.1f} s",
+          flush=True)
+    t4 = time.perf_counter()
     _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
                bf16_plain, f32_route, report, smi,
                (jacobi8, jacobi32, jacobi2d, box256))
+    print(f"phase 4: the bf16 legs took {time.perf_counter() - t4:.1f} s",
+          flush=True)
     # the library yardstick, after the main path (cuDNN state stays out
     # of the kernels' timings)
     for key, p, radius in library:
@@ -3231,8 +3644,13 @@ def main() -> int:
 
     # -- 5. the out-of-core path ---------------------------------------------
     print(f"phase: 5 at {time.perf_counter() - t_run:.1f} s", flush=True)
+    inputs_memo.clear()
     report["local_stream"] = _outofcore(sft, st, pn, ov, gp, oc_cells,
                                         oc_plans, lib_of, smi, run_program)
+    report["local_stream_bf16"] = _outofcore_bf16(
+        sft, st, pn, ov, gp, tl, box512, 4, oc_bf16, lib_of, smi, run_program)
+    inputs_memo.clear()
+    inputs_memo.on = False
 
     # -- 6. the measurement path ---------------------------------------------
     print(f"phase: 6 at {time.perf_counter() - t_run:.1f} s", flush=True)
@@ -3253,10 +3671,13 @@ def main() -> int:
     # -- 9. the sharded engine -------------------------------------------------
     print(f"phase: 9 at {time.perf_counter() - t_run:.1f} s", flush=True)
     t9 = time.perf_counter()
+    inputs_memo.on = True
     report["local_stream_shard"] = _sharded(sft, st, pn, ov, gp, tl,
                                             sharded_setup, smi)
     report["local_stream_segment"] = _pipeline(sft, st, pn, ov, gp, tl,
                                                sharded_setup, smi)
+    report.update(_k4_bf16(sft, st, pn, ov, gp, tl, sharded_setup, smi))
+    inputs_memo.clear()
     print(f"sharded: phase 9 took {time.perf_counter() - t9:.1f} s | {smi}",
           flush=True)
 

@@ -948,8 +948,8 @@ SF_DEV float sf_bfr(const float v) { return sf_bf2f(sf_f2bf(v)); }
 
 def _bf16_macros(plan) -> List[str]:
     """``_BF16_MACROS`` for a plan that rounds a ring or a band operand."""
-    uses = plan.rounds or (getattr(plan, "mxu_precision", "") == "bf16"
-                           and plan.tkeys)
+    uses = (plan.rounds or getattr(plan, "rounds_out", ())
+            or getattr(plan, "bf16_passes", False))
     return [_BF16_MACROS] if uses else []
 
 
@@ -1300,6 +1300,25 @@ class _StreamEmitter:
         lj, lk = self.at("gj", "gk")
         pre += [f"float {v} = 0.0f;",
                 f"if (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) {{"]
+        if self.bf and lkey is not None and rkey is not None:
+            # single-pass bf16: the j-pass first, each of its sums rounded
+            # before the k-pass, as the reference's (L @ P) @ R rounds
+            dj0, dj1 = plan.band(lkey, "L")[0][0], plan.band(lkey, "L")[0][-1]
+            dk0, dk1 = plan.band(rkey, "R")[0][0], plan.band(rkey, "R")[0][-1]
+            pre += [f"  for (int dk = {dk0}; dk <= {dk1}; ++dk) {{",
+                    "    const int sk = gk + dk;",
+                    f"    if (sk < 0 || sk >= {K}) continue;",
+                    "    float ls = 0.0f;",
+                    f"    for (int dj = {dj0}; dj <= {dj1}; ++dj) {{",
+                    "      const int sj = gj + dj;",
+                    f"      if (sj < 0 || sj >= {J}) continue;",
+                    f"      ls = ls + SF_LDG(pc{self.pidx[lkey]} + "
+                    f"(dj - ({dj0})) * {PJ} + {lj}) * {self.opnd(g)};",
+                    "    }",
+                    f"    {v} = {v} + SF_LDG(pc{self.pidx[rkey]} + "
+                    f"(dk - ({dk0})) * {PK} + {lk}) * {self.opnd('ls')};",
+                    "  }", "}"]
+            return v
         if lkey is not None:
             offs = plan.band(lkey, "L")[0]
             dj0, dj1 = offs[0], offs[-1]
@@ -1781,17 +1800,18 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 if hk:
                     cond.append(f"kl >= {hk} && kl < {hk + tk}")
                 qo = f"(q - {h})" if local else "q"
+                ro = "sf_bfr(r)" if s in plan.rounds_out else "r"
                 if sharded:   # the shard's core, every body
                     BJ, BK = plan.core()
                     cond.append(f"gj - origin_j < {BJ} && gk - origin_k < "
                                 f"{BK}")
                     write = (f"o_{s}[((long long){qo} * {BJ} + gj - "
-                             f"origin_j) * {BK} + gk - origin_k] = r;")
+                             f"origin_j) * {BK} + gk - origin_k] = {ro};")
                 else:
                     if masked:
                         cond.append(f"gj < {J} && gk < {K}")
                     write = (f"o_{s}[((long long){qo} * {J} + gj) * {K} + "
-                             "gk] = r;")
+                             f"gk] = {ro};")
                 body.append(f"if ({' && '.join(cond)}) {write}" if cond
                             else write)
             bodies.append(body)
@@ -2079,18 +2099,19 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
             qo = f"(q - {h})" if local else "q"
+            ro = "sf_bfr(r)" if s in plan.rounds_out else "r"
             if sharded:
                 body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
                             f"kl >= {hk} && kl < {hk + tk} && gj - origin_j"
                             f" < {BJ} && gk - origin_k < {BK}) o_{s}[("
                             f"(long long){qo} * {BJ} + gj - origin_j) * "
-                            f"{BK} + gk - origin_k] = r;")
+                            f"{BK} + gk - origin_k] = {ro};")
             else:
                 body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
                             f"kl >= {hk} && kl < {hk + tk} && gj < {J} && "
                             f"gk < {K}) o_{s}[((long long)"
                             f"{qo} * {J} + gj) * "
-                            f"{K} + gk] = r;")
+                            f"{K} + gk] = {ro};")
         L.append(f"    // phase {ph}: stage {s}")
         L += prologue(ph)
         L += ["    {", f"      const int q = t - {plan.lag[s]};"]

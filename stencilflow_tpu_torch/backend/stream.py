@@ -9,9 +9,8 @@ the same streamer over one out-of-core i-chunk (``compile_local_stream``,
 local mode below), and K3c, the ring spill (``choose_spill`` and the
 spill rung, spill below), with the reference's opt-in reduced
 precisions (bf16 below).  Not ported here: j-tiling (the port tiles (j,
-k) itself), bf16 compute (``compute_dtype``), ring storage in local and
-shard mode, micro-step blocks, stage-major order and BC padding
-(pipeline workarounds for the TPU).
+k) itself), bf16 compute (``compute_dtype``), micro-step blocks,
+stage-major order and BC padding (pipeline workarounds for the TPU).
 
 Planning follows the JAX package's choices per stage, untiled: compose
 runs of separable stages (``compose.py``, ``compose="auto"``), then plan
@@ -172,7 +171,8 @@ not arithmetic).  Launches of a spill-rung plan count in
 ``spill_launches``.  Bound: the same bytes as the unspilled kernel; it
 pays the halo recompute of small tiles and the spilled rings' traffic.
 
-bf16 (the reference's opt-in modes, whole-domain plans): under
+bf16 (the reference's opt-in modes, in every mode: whole-domain, chunk,
+shard and segment plans): under
 ``ring_storage="bfloat16"`` every f32 ring of the reference's ring set
 rounds to bf16 (to nearest, ties to even) where it is stored and is read
 back as f32 (``StreamPlan.rounded``).  A stage's ring keeps bf16 slots
@@ -182,7 +182,10 @@ rings, and a spilled ring's bulk copies move half the bytes), except a
 band pass's source, whose slots stay f32 holding rounded values; a ring
 input keeps f32 slots on chip, where ``cp.async`` lands its planes and
 each thread rounds its own cells in place, and bf16 slots on the spill
-rung, whose loads round.  Outputs are written unrounded.  Under
+rung, whose loads round.  Outputs are written unrounded, except by a
+local plan with an i-halo (a shard of an i-sharded mesh), which emits
+them through their rounded rings as the reference's kernel does there
+(``rounds_out``).  Under
 ``mxu_precision="bf16"`` the pool's band matrices round to bf16
 (``linear.finalize_pool``) and every band pass rounds its operand plane:
 on CUDA cores one ``fmaf`` a tap of two bf16 values, exact products
@@ -194,8 +197,13 @@ the rounded scratch, so the intermediate rounds where the JAX package's
 ``(L @ P) @ R`` rounds it; no pass is ``fused`` into its readers.
 ``stream_plain`` rounds at the same points and applies each band pass
 as the kernel sums it (j-pass, then k-pass, taps in order), so the host
-build equals it up to the order of the band groups' sums.  Launches of these plans count in
-``bf16_launches`` (``spill_bf16_launches`` on the spill rung).
+build equals it up to the order of the band groups' sums.  In shard mode
+the rounded bands are each shard instance's slices of the origin-aware
+stacked bands; correction planes and composed i-tables stay f32, as the
+reference's ``finalize_pool`` keeps them.  Launches of these plans count
+apart (``reduced``): ``bf16_launches``, ``spill_bf16_launches`` on the
+spill rung, ``local_bf16_launches`` for K4 on a chunk or a segment and
+``shard_bf16_launches`` for K4 on a shard.
 """
 from __future__ import annotations
 
@@ -230,15 +238,18 @@ from .tile_eval import eval_kernel_statements
 
 # number of kernel launches (CUDA tensors only): the whole-domain stream
 # kernel (K3), the local chunk kernel (K4), either with spilled rings
-# (K3c), and K4 on one shard of a mesh (any plan in shard mode); a
-# whole-domain plan under a reduced precision (bf16 rings, single-pass
-# bf16 passes) counts apart, on chip and on the spill rung
+# (K3c), and K4 on one shard of a mesh (any plan in shard mode); a plan
+# under a reduced precision (bf16 rings, single-pass bf16 passes) counts
+# apart: whole-domain on chip, on the spill rung, K4 on a chunk and K4 on
+# a shard
 launches = 0
 local_launches = 0
 spill_launches = 0
 shard_launches = 0
 bf16_launches = 0
 spill_bf16_launches = 0
+local_bf16_launches = 0
+shard_bf16_launches = 0
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -517,6 +528,25 @@ class StreamPlan:
     def rounded(self, f: str) -> bool:
         """Does ring ``f`` round to bf16 at its store?"""
         return f in self.rounds
+
+    @property
+    def bf16_passes(self) -> bool:
+        """Does the plan apply band matrices as single-pass bf16 passes
+        (``mxu_precision="bf16"`` and a band in its pool)?"""
+        return self.mxu_precision == "bf16" and any(
+            k.startswith(("L", "R")) for k in self.pool)
+
+    @functools.cached_property
+    def rounds_out(self) -> frozenset:
+        """The outputs written rounded to bf16: under ring storage a local
+        plan with an i-halo emits every output through its (rounded)
+        ring, as the JAX package's ``compile_local_stream`` does once
+        ``halo_i`` > 0 (no direct emit there); other plans write outputs
+        unrounded."""
+        if not self.halo_i:
+            return frozenset()
+        return rounded_rings(self.program, self.program.outputs,
+                             self.ring_storage)
 
     def bf16_slots(self, f: str) -> bool:
         """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
@@ -1427,18 +1457,6 @@ def bf16_passes_agree(plain, got, split) -> Tuple[bool, Dict[str, float]]:
     return ok, figures
 
 
-def check_local_precision(mxu_precision: str) -> None:
-    """Refuse single-pass bf16 band passes where K4 (the chunk, shard and
-    segment modes) or the dense tile body beside it would run: they reach
-    the whole-domain stream kernel only, and an f32 run in their place
-    would be a different result."""
-    if mxu_precision == "bf16":
-        raise NotImplementedError(
-            "mxu_precision='bf16' (single-pass bf16 band passes) reaches "
-            "the whole-domain stream kernel only; K4's chunk, shard and "
-            "segment modes are not ported for it yet")
-
-
 def _composed(program: ir.Program, analysis: ChainAnalysis, max_t: int):
     """``compose_program``'s (composed program, builds) and the composed
     program's analysis, or None; kept on ``program`` (planning it at many
@@ -1511,13 +1529,14 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
                threads: Optional[int] = None,
                shard: Tuple[int, int] = (0, 0),
                xhalo: Tuple[int, int] = (0, 0), contexts=None,
-               builds=None) -> StreamPlan:
+               builds=None, ring_storage: str = "off") -> StreamPlan:
     """The local (chunk) plan of K4: ``block`` core i-planes widened by
     ``halo_i`` planes each side; stages banded where ``mxu`` is "auto"
     and the banded planner takes them, the rest per cell; a per-cell
     plan spills rings (``spill="auto"``) when no tile fits
-    ``smem_budget`` otherwise; ``passes`` and ``threads`` as
-    ``plan_stream`` takes them.  Raises ValueError /
+    ``smem_budget`` otherwise; ``passes``, ``threads``, ``mxu_precision``
+    and ``ring_storage`` as ``plan_stream`` takes them.  Raises
+    ValueError /
     NotImplementedError when the program is out of scope or no tile
     fits.
 
@@ -1534,14 +1553,15 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
-    check_local_precision(mxu_precision)
     check_spill(spill)
     check_passes(passes, mxu_precision)
+    check_ring_storage(ring_storage)
     return _build_plan(program, analysis, "off" if spill == "all" else mxu,
                        mxu_precision, builds or {}, tile, block=block,
                        halo_i=halo_i, smem_budget=smem_budget, spill=spill,
                        passes=passes, threads=threads, shard=shard,
-                       xhalo=xhalo, contexts=contexts)
+                       xhalo=xhalo, contexts=contexts,
+                       ring_storage=ring_storage)
 
 
 # -- plain version --------------------------------------------------------------
@@ -1723,7 +1743,9 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                     if plan.rounded(s) else val.contiguous()
                 planes[s].pop(q - plan.ring[s], None)
             if s in outs and h <= q < h + Ic:
-                outs[s][q - h] = val[XJ:XJ + BJ, XK:XK + BK]
+                core = val[XJ:XJ + BJ, XK:XK + BK]
+                outs[s][q - h] = round_bf16(core) if s in plan.rounds_out \
+                    else core
         # drop transformed planes no reader can reach any more
         for key in [k for k in tcache if k[1] is not None
                     and k[1] < t - plan.lag[k[0][0]]
@@ -1764,20 +1786,30 @@ def _pool_tensors(plan: StreamPlan, device, inst: Tuple[int, int] = (0, 0)
     return plan.device_pool[key]
 
 
+def reduced(plan: StreamPlan) -> bool:
+    """Does ``plan`` round anything to bf16: a ring, an output, or the
+    operands of its band passes?"""
+    return bool(plan.rounds or plan.rounds_out) or plan.bf16_passes
+
+
 def _count(plan: StreamPlan, launched: int) -> None:
     global launches, local_launches, spill_launches, shard_launches
-    global bf16_launches, spill_bf16_launches
-    reduced = bool(plan.rounds) or (plan.mxu_precision == "bf16"
-                                    and bool(plan.tkeys))
-    if plan.shard[0]:
+    global bf16_launches, spill_bf16_launches, local_bf16_launches
+    global shard_bf16_launches
+    bf = reduced(plan)
+    if plan.shard[0] and bf:
+        shard_bf16_launches += launched
+    elif plan.shard[0]:
         shard_launches += launched
-    elif plan.packed and reduced:
+    elif plan.packed and bf:
         spill_bf16_launches += launched
     elif plan.packed:
         spill_launches += launched
+    elif plan.block and bf:
+        local_bf16_launches += launched
     elif plan.block:
         local_launches += launched
-    elif reduced:
+    elif bf:
         bf16_launches += launched
     else:
         launches += launched

@@ -531,7 +531,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-chunks", type=int, default=0, metavar="N",
                    help="out-of-core: stream N host i-chunks (+ the "
                         "chain's i-halo) through the chunk kernel; "
-                        "overrides --backend (default 0: in-core)")
+                        "overrides --backend and takes --mxu-precision "
+                        "bf16 (default 0: in-core)")
     p.add_argument("--print-result", action="store_true")
     p.add_argument("--generate-input", action="store_true",
                    help="replace file-backed inputs with constant data")

@@ -476,12 +476,17 @@ def _bf16(smi: str, reps: int) -> dict:
     plans, on the same kernels as the routes take them: jacobi3d 512^3 x
     8 on K1 with bf16 rings, jacobi3d 512^3 x 32 on K3c with bf16 rings,
     jacobi2d 8192^2 x 8 rotated to rows on K5 (B = 64, g = 8) with bf16
-    rings, and box3d 256^3 x 8 of extent 2 on K3b with single-pass bf16
-    passes.  Every kernel is built at once; each mode's largest
-    difference from its f32 plan's output is printed, with whether it
-    lies within BF16_VERIFY_RTOL (``chip_smoke.py`` holds each mode to
-    its plain version); then three sessions of f32, bf16, bf16, f32,
-    ``reps`` launches each after a warm-up."""
+    rings, box3d 256^3 x 8 of extent 2 on K3b with single-pass bf16
+    passes, and jacobi3d 256^3 x 8 on K3a (``plan_stream(mxu="off")``, on
+    chip) with bf16 rings.  Every kernel is built at once; each mode's
+    largest difference from its f32 plan's output is printed, with
+    whether it lies within BF16_VERIFY_RTOL (``chip_smoke.py`` holds each
+    mode to its plain version; here its plain version is timed once on
+    the host clock, with the kernel's largest difference from it); then
+    three sessions of f32, bf16, bf16, f32, ``reps`` launches each after a
+    warm-up, and the reduced-precision kernel's launches over them (its
+    wrapper's count)."""
+    import time
     import numpy as np
     import torch
     import stencilflow_tpu_torch as sft
@@ -510,7 +515,8 @@ def _bf16(smi: str, reps: int) -> dict:
                 f"tile {plan.tile} x {plan.threads}, smem "
                 f"{plan.smem_bytes(p)} B, {plan.residency(p)} blocks/SM, "
                 f"{evals:.2f} evaluations a cell, modelled "
-                f"{plan.seconds(p) * 1e3:.3f} ms")
+                f"{plan.seconds(p) * 1e3:.3f} ms",
+                lambda a: pn.panel_plain(p, an, plan, a))
 
     def group_cell(p, an, **kw):
         plan = gp.plan_group(p, an, 64, 8, **kw)
@@ -518,7 +524,8 @@ def _bf16(smi: str, reps: int) -> dict:
                 lambda a, lib: gp.run_group(p, an, plan, a, lib),
                 f"tile {plan.tile} x {plan.threads}, segments "
                 f"{plan.segments}, smem {plan.smem_bytes(p)} B, modelled "
-                f"{plan.seconds(p) * 1e3:.3f} ms")
+                f"{plan.seconds(p) * 1e3:.3f} ms",
+                lambda a: gp.group_plain(p, an, plan, a))
 
     def stream_cell(p, an, **kw):
         plan = st.plan_stream(p, an, **kw)
@@ -538,7 +545,8 @@ def _bf16(smi: str, reps: int) -> dict:
                 for t in plan.tkeys for k, s in ((t[1], "L"), (t[2], "R"))
                 if k is not None}))
         return (plan, st.stream_source(plan), "stream",
-                lambda a, lib: st.run_stream(plan, a, lib), text)
+                lambda a, lib: st.run_stream(plan, a, lib), text,
+                lambda a: st.stream_plain(plan, a))
 
     rings = {"ring_storage": "bfloat16"}
     cells = []
@@ -549,7 +557,9 @@ def _bf16(smi: str, reps: int) -> dict:
             (rotate_2d_to_rows(synth("diffusion", (8192, 8192), 8)),
              group_cell, {}, rings),
             (synth("box", (256,) * 3, 8, 2), stream_cell, {},
-             {"mxu_precision": "bf16"})):
+             {"mxu_precision": "bf16"}),
+            (synth("diffusion", (256,) * 3, 8), stream_cell, {"mxu": "off"},
+             dict(rings, mxu="off"))):
         an = sft.ChainAnalysis.run(p)
         cells.append((p, make(p, an, **f32_kw), make(p, an, **bf16_kw)))
     sources = [(c[1], c[2]) for _p, *pair in cells for c in pair]
@@ -562,10 +572,24 @@ def _bf16(smi: str, reps: int) -> dict:
         o = p.outputs[0]
         want = f32[3](arrays, lib32)[o].cpu().numpy()
         got = bf16[3](arrays, lib16)[o].cpu().numpy()
+        # the reduced-precision kernel's plain version, once, host clock
+        t_plain = time.perf_counter()
+        plain = bf16[5](arrays)[o]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t_plain) * 1e3
+        plain = plain.cpu().numpy().reshape(got.shape)
+        plain_err = float(np.max(np.abs(got.astype(np.float64) - plain)))
+        del plain
         within = bool(arrays_are_equal(want, got, BF16_VERIFY_RTOL))
         rel = float(np.max(np.abs(got.astype(np.float64) - want))
                     / np.max(np.abs(want)))
         del want, got
+
+        def counted():
+            return {"panel": pn.bf16_launches, "group": gp.bf16_launches,
+                    "stream": st.bf16_launches + st.spill_bf16_launches}[
+                        bf16[2]]
+        before = counted()
         sessions = []
         for _ in range(3):
             sessions.append([_events(lambda c=c, lib=lib: c[3](arrays, lib),
@@ -575,13 +599,17 @@ def _bf16(smi: str, reps: int) -> dict:
         row = {"f32_ms": [x for s in sessions for x in (s[0], s[3])],
                "bf16_ms": [x for s in sessions for x in (s[1], s[2])],
                "f32_plan": f32[4], "bf16_plan": bf16[4],
-               "max_rel_diff": rel, "within_bf16_rtol": within}
+               "max_rel_diff": rel, "within_bf16_rtol": within,
+               "bf16_launches": counted() - before,
+               "bf16_plain_ms": plain_ms, "max_abs_err": plain_err}
         out[p.name] = row
         print(f"{p.name}: f32 {', '.join(f'{x:.3f}' for x in row['f32_ms'])}"
               f" ms ({f32[4]}) | bf16 "
               f"{', '.join(f'{x:.3f}' for x in row['bf16_ms'])} ms "
-              f"({bf16[4]}) | max rel diff {rel:.3g} within "
-              f"BF16_VERIFY_RTOL: {within} | {smi}", flush=True)
+              f"({bf16[4]}), {row['bf16_launches']} launches, plain version "
+              f"{plain_ms:.1f} ms, max_abs_err {plain_err:.3g} | max rel diff "
+              f"{rel:.3g} within BF16_VERIFY_RTOL: {within} | {smi}",
+              flush=True)
         for c in (f32, bf16):
             if hasattr(c[0], "device_pool"):
                 c[0].device_pool.clear()

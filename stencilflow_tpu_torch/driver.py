@@ -26,7 +26,10 @@ fastest for this program on this device (cached; tuned on a miss), named
 i-chunks stream through the chunk kernel K4 (``outofcore[stream xN
 chunks]``) or, on the CPU or where K4's planner refuses, the dense tile
 body (``outofcore[dense xN chunks]``); it overrides ``backend``, and its
-time includes the host-device transfers.
+time includes the host-device transfers.  With ``mxu_precision="bf16"``
+the chunks run K4's single-pass bf16 band passes (its plain version on
+the CPU) and verify at ``BF16_VERIFY_RTOL``; the dense body refuses the
+request, and ``ring_storage`` does not reach the chunks (refused).
 """
 from __future__ import annotations
 
@@ -178,18 +181,19 @@ def run_program(stencil_file, device="cuda",
     ``ring_storage`` ("off"/"bfloat16") to the stream, panel and rows
     lowerings, and any other backend refuses it.  ``host_chunks`` > 1
     runs out-of-core in that many i-chunks (overrides ``backend``; the
-    timing includes the transfers)."""
+    timing includes the transfers; ``mxu_precision`` reaches the chunk
+    kernel, ``ring_storage`` is refused there)."""
     if ring_storage != "off" and backend not in ("stream", "panel",
                                                  "rows"):
         raise ValueError(
             "--ring-storage requires --backend stream, panel, or rows "
             "(other backends have no ring state; refusing to widen "
             "verification for an f32 run)")
-    if host_chunks and host_chunks > 1 and (ring_storage != "off"
-                                            or mxu_precision == "bf16"):
-        raise ValueError("--ring-storage and --mxu-precision bf16 do not "
-                         "reach the chunk kernel (K4's local mode keeps "
-                         "f32 rings and split passes)")
+    if host_chunks and host_chunks > 1 and ring_storage != "off":
+        raise ValueError("--ring-storage does not reach the chunk kernel: "
+                         "the JAX package's driver never passes it there "
+                         "(its chunks keep f32 rings); refusing to widen "
+                         "verification for an f32 run")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch sees no GPU")

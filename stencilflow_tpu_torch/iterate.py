@@ -198,8 +198,9 @@ def make_step(program: ir.Program,
         raise IterateError(
             "ring_storage requires backend='stream'")
     if ring_storage != "off" and (mesh is not None or host_chunks > 1):
-        raise IterateError("ring_storage does not reach the chunk and "
-                           "shard kernels (K4 keeps f32 rings)")
+        raise IterateError("ring_storage does not reach make_step's chunk "
+                           "and mesh steps: the JAX package's make_step "
+                           "drops it there and runs f32 rings")
     analysis = analysis or ChainAnalysis.run(program)
     if host_chunks and host_chunks > 1 and mesh is not None:
         raise IterateError("host_chunks is incompatible with mesh")

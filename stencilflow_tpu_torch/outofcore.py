@@ -18,9 +18,12 @@ memory where no (j, k) tile fits shared memory otherwise); where no plan
 fits, or on the CPU, it is the dense tile body
 (``backend/tile_eval.py evaluate_chain_tile`` at the core origin), as the
 reference falls back to its XLA body.  ``backend="stream"`` on the CPU
-runs K4's plain version.  ``compile_chunked_sharded`` (``run_chunked(...,
-mesh=, dim_axes=)``) evaluates each chunk sharded over a mesh's (j, k)
-instead, on the dense tile body, as the reference does.
+runs K4's plain version, and so does a request for single-pass bf16
+band passes (``mxu_precision="bf16"``), which K4 alone runs: where the
+dense body would run, it raises.  ``compile_chunked_sharded``
+(``run_chunked(..., mesh=, dim_axes=)``) evaluates each chunk sharded
+over a mesh's (j, k) instead, on the dense tile body, as the reference
+does.
 
 Host staging (``run_chunked``).  The reference overlaps host slicing and
 device work through JAX's asynchronous dispatch; here it is explicit.  On
@@ -47,7 +50,9 @@ from .backend.stacked_io import resolve_device
 from .backend.tile_eval import evaluate_chain_tile
 from .dtypes import to_torch_dtype
 from .frontend.analysis import ChainAnalysis
-from .parallel.domain import DomainDecomposition, plan_local_stream
+from .parallel.domain import (DomainDecomposition, check_dense_precision,
+                              plan_local_stream, reduced_precision)
+
 
 @dataclasses.dataclass
 class ChunkPlan:
@@ -82,11 +87,14 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     others pass whole, scalars 0-d.  ``origin_i`` is the global i index of
     the chunk's first *widened* plane (core start minus halo).  Outputs
     are the chunk's core planes at the program's raw rank.  ``backend``:
-    "stream" (K4; its plain version on the CPU), "dense", or "auto"
-    (stream on a CUDA device, dense on the CPU).  ``spill`` and
-    ``smem_budget`` go to K4's planner (``plan_local_stream``)."""
-    from .backend.stream import check_local_precision
-    check_local_precision(mxu_precision)   # the dense body too
+    "stream" (K4; its plain version on the CPU; ``chunk_fn.plan`` is
+    its plan), "dense", or "auto" (stream on a CUDA device, dense on the
+    CPU).  ``spill`` and ``smem_budget`` go to K4's planner
+    (``plan_local_stream``).
+    ``mxu_precision="bf16"`` (single-pass bf16 band passes) runs in K4
+    alone: "auto" then takes the stream body on the CPU too, and where
+    the dense body would run it raises ValueError (the JAX package's XLA
+    body runs f32 there)."""
     analysis = analysis or ChainAnalysis.run(program)
     dims = program.dimensions
     I, J, K = dims
@@ -105,7 +113,8 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     halo_i = plan3.halo[0]
     device = resolve_device(device)
     if backend == "auto":
-        backend = "stream" if device.type == "cuda" else "dense"
+        backend = "stream" if device.type == "cuda" or reduced_precision(
+            mxu_precision) else "dense"
     if backend not in ("stream", "dense"):
         raise ValueError(f"unknown chunk backend {backend!r} (choose from "
                          "auto, stream, dense)")
@@ -124,11 +133,12 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
                 return {n: arr.reshape(local_raw)
                         for n, arr in kern(origin_i, tiles).items()}
 
-            body.device = device
+            body.device, body.plan = device, splan
             return body, ChunkPlan(chunks=chunks, block=Ic, halo=halo_i,
                                    backend="stream", config=cfg)
         # nothing fits: the dense tile body below
 
+    check_dense_precision(mxu_precision)
     graph = analysis.graph
 
     def body(origin_i, tiles):
@@ -140,7 +150,7 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
         return {n: arr[halo_i:halo_i + Ic].reshape(local_raw)
                 for n, arr in results.items()}
 
-    body.device = device
+    body.device, body.plan = device, None
     return body, ChunkPlan(chunks=chunks, block=Ic, halo=halo_i,
                            backend="dense", config={})
 

@@ -319,7 +319,8 @@ def _sharded_mxu_assets(splan, plan: DomainDecomposition):
 def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
                       plan: DomainDecomposition, mxu: str = "auto",
                       mxu_precision: str = "split", spill: str = "auto",
-                      smem_budget: Optional[int] = None, _composed=None):
+                      smem_budget: Optional[int] = None,
+                      ring_storage: str = "off", _composed=None):
     """Choose the per-block streaming kernel (K4) for a local block of
     ``plan.block`` with halo ``plan.halo``.
 
@@ -332,20 +333,23 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
     ``smem_budget`` is the shared memory a block may take
     (``H100_SMEM_PER_BLOCK`` by default).  With a mesh (``plan.mesh``)
     the plan is K4's shard mode: the shard's (j, k) core, the exchanged
-    halo and the origin-aware band contexts (``_shard_contexts``).  A
-    composed program (``_composed``: its segments) takes the banded leg
-    only and raises ValueError where that fails.  Returns
+    halo and the origin-aware band contexts (``_shard_contexts``).
+    ``mxu_precision="bf16"`` gives single-pass bf16 band passes and
+    ``ring_storage="bfloat16"`` bf16 rings (every leg: the spill leg's
+    choice sees the half-size rings).  A composed program (``_composed``:
+    its segments) takes the banded leg only and raises ValueError where
+    that fails.  Returns
     ``(stream_plan, config)``, ``config`` with the reference's keys
     (``backend``, ``jtiles``, ``mxu_stages``, ``spilled``), or None when
     the program is out of the kernel's scope or no candidate fits (the
     caller then takes the dense tile body, as the reference takes its
     fused-XLA one)."""
     from ..config import H100_SMEM_PER_BLOCK
-    from ..backend.stream import (check_local_precision, check_options,
-                                  check_spill, plan_local)
+    from ..backend.stacked_io import check_ring_storage
+    from ..backend.stream import check_options, check_spill, plan_local
     check_options(mxu, mxu_precision)   # raised, never re-routed
-    check_local_precision(mxu_precision)
     check_spill(spill)
+    check_ring_storage(ring_storage)
     budget = H100_SMEM_PER_BLOCK if smem_budget is None else smem_budget
     legs = [("auto", "off")] if mxu != "off" else []
     legs += [("off", "off")] + ([("off", spill)] if spill != "off" else [])
@@ -363,7 +367,8 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
                                plan.halo[0], mxu=leg,
                                mxu_precision=mxu_precision,
                                smem_budget=budget, spill=leg_spill,
-                               builds=_composed, **shard)
+                               builds=_composed, ring_storage=ring_storage,
+                               **shard)
         except (ValueError, NotImplementedError):
             if _composed:
                 raise ValueError("composed segments not plannable on this "
@@ -378,6 +383,27 @@ def plan_local_stream(program: ir.Program, analysis: ChainAnalysis,
         raise ValueError("composed segments not plannable on this "
                          "decomposition")
     return None
+
+
+def reduced_precision(mxu_precision: str, ring_storage: str = "off") -> bool:
+    """Is a reduced precision asked for: single-pass bf16 band passes or
+    bf16 rings?  Both live in K4 alone."""
+    return mxu_precision == "bf16" or ring_storage != "off"
+
+
+def check_dense_precision(mxu_precision: str, ring_storage: str = "off"
+                          ) -> None:
+    """Refuse a reduced precision where the dense tile body would run: it
+    has neither band passes nor rings, so it would compute in f32 (the
+    JAX package's XLA tile body does so while its driver widens the
+    verification for bf16); a bf16 request is K4's or an error."""
+    if reduced_precision(mxu_precision, ring_storage):
+        asked = ("mxu_precision='bf16'" if mxu_precision == "bf16"
+                 else f"ring_storage={ring_storage!r}")
+        raise ValueError(
+            f"{asked} needs K4 (the stream body): the dense tile body "
+            "has no bf16 band passes or rings and would run f32; no K4 "
+            "plan fits here or local_backend='xla' was asked for")
 
 
 def _as_sharded(plan: DomainDecomposition, name: str, v) -> Any:
@@ -410,7 +436,7 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
                        local_backend: str = "auto", mxu: str = "auto",
                        mxu_precision: str = "split", spill: str = "auto",
                        smem_budget: Optional[int] = None,
-                       compose: str = "auto"):
+                       compose: str = "auto", ring_storage: str = "off"):
     """``compile_sharded_chain``'s planning, nothing built: ``(program,
     analysis, plan, stream_plan, config)`` — the program the shards run
     (composed where that plans), its decomposition, K4's shard plan (None
@@ -420,11 +446,15 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
     indexed by the GLOBAL plane (the kernel globalizes via origin_i + q,
     so i-sharded decompositions compose too); per-shard j/k windows come
     from plan_composed's origin contexts.  Any planning failure of the
-    composed program falls back to the uncomposed one."""
+    composed program falls back to the uncomposed one.  A reduced
+    precision (``reduced_precision``) takes K4 on any shard ("auto": its
+    plain version on CPU shards) and raises where the dense tile body
+    would run (``check_dense_precision``)."""
     analysis = analysis or ChainAnalysis.run(program)
     on_cuda = {d.type for d in mesh.devices.flat} == {"cuda"}
     if local_backend == "auto":
-        local_backend = "stream" if on_cuda else "xla"
+        local_backend = "stream" if on_cuda or reduced_precision(
+            mxu_precision, ring_storage) else "xla"
     if local_backend not in ("stream", "xla"):
         raise ValueError(f"unknown local_backend {local_backend!r} "
                          "(choose from auto, stream, xla)")
@@ -443,7 +473,8 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
                 splan, cfg = plan_local_stream(
                     program2, analysis2, plan2, mxu=mxu,
                     mxu_precision=mxu_precision, spill=spill,
-                    smem_budget=smem_budget, _composed=builds)
+                    smem_budget=smem_budget, ring_storage=ring_storage,
+                    _composed=builds)
                 # the caller shards inputs/outputs by the ORIGINAL
                 # program's field names; composition preserves inputs
                 # and outputs, so plan2's shardings apply directly
@@ -455,11 +486,13 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
     if local_backend == "stream":
         got = plan_local_stream(program, analysis, plan, mxu=mxu,
                                 mxu_precision=mxu_precision, spill=spill,
-                                smem_budget=smem_budget)
+                                smem_budget=smem_budget,
+                                ring_storage=ring_storage)
         if got is not None:
             return program, analysis, plan, got[0], dict(
                 got[1], comm_overlap=False)
     # the dense tile body: asked for, or the rescue where nothing fits
+    check_dense_precision(mxu_precision, ring_storage)
     return program, analysis, plan, None, {
         "backend": "xla", "jtiles": 0, "mxu_stages": [],
         "comm_overlap": False}
@@ -474,6 +507,7 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
                           spill: str = "auto",
                           smem_budget: Optional[int] = None,
                           comm_overlap: bool = False,
+                          ring_storage: str = "off",
                           compose: str = "auto"):
     """Build a mesh-sharded ``fn(inputs) -> outputs`` for the chain.
 
@@ -493,15 +527,17 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
     ``mxu="auto"`` lowers wide affine stages to banded transforms inside
     the per-shard kernel, with origin-aware per-shard band matrices and
     correction planes; ``compose`` composes affine runs first
-    (``_plan_sharded_chain``).  ``comm_overlap=True`` is not ported
-    yet."""
+    (``_plan_sharded_chain``).  The JAX package's opt-in reduced
+    precisions run in K4 alone: ``mxu_precision="bf16"`` (single-pass
+    bf16 band passes) and ``ring_storage="bfloat16"`` (bf16 rings, f32
+    compute) take the stream body on any shard and raise ValueError
+    where the dense tile body would run.  ``comm_overlap=True`` is not
+    ported yet."""
     if comm_overlap:
         raise NotImplementedError(NOT_PORTED_OVERLAP)
-    from ..backend.stream import check_local_precision
-    check_local_precision(mxu_precision)   # the tile body too
     program, analysis, plan, splan, cfg = _plan_sharded_chain(
         program, mesh, dim_axes, analysis, local_backend, mxu,
-        mxu_precision, spill, smem_budget, compose)
+        mxu_precision, spill, smem_budget, compose, ring_storage)
     graph = analysis.graph
     compile_sharded_chain.last_config = cfg
     if splan is not None:

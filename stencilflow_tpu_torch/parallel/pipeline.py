@@ -806,9 +806,13 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     the pipeline axis.  Requires sharded io and a domain extent divisible
     by the axis size; the local body is the dense tile body ("xla"), as
     the reference's.
+
+    ``mxu_precision="bf16"`` runs each segment's band passes as
+    single-pass bf16 passes in K4 ("auto" then takes the stream body on
+    CPU positions too, its plain version); where the dense tile body
+    would run it raises ValueError (the JAX package's runs f32 there).
     """
-    from ..backend.stream import check_local_precision
-    check_local_precision(mxu_precision)   # the tile body too
+    from .domain import check_dense_precision, reduced_precision
     analysis = analysis or ChainAnalysis.run(program)
     if axis not in mesh.shape:
         raise ValueError(f"unknown mesh axis {axis!r} (mesh has "
@@ -942,7 +946,8 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
                          chunk, domain_axes=dax, widen=widen, emit=emit)
     on_cuda = {d.type for d in mesh.devices.flat} == {"cuda"}
     if local_backend == "auto":
-        local_backend = "stream" if on_cuda else "xla"
+        local_backend = "stream" if on_cuda or reduced_precision(
+            mxu_precision) else "xla"
     splans = None
     if local_backend == "stream":
         splans = _segment_stream_plans(plan, subs, mxu, mxu_precision,
@@ -964,6 +969,7 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
         runners = [_stream_runner(sp, lib, widen[s])
                    for s, ((sp, _info), lib) in enumerate(zip(splans, libs))]
     else:
+        check_dense_precision(mxu_precision)
         runners = [_dense_runner(program, graph, seg, widen[s], emit[s])
                    for s, seg in enumerate(segments)]
     config = {

@@ -11,6 +11,13 @@ them:
   single-pass bf16 passes, matrix and operand plane rounded to bf16,
   products summed in f32.
 
+Both reach K4, the stream kernel over one i-chunk (chunk mode: the
+out-of-core path and each pipeline segment) and over one shard of a mesh
+(shard mode): bf16 passes in every mode, bf16 rings in shard mode (the
+JAX package's driver never passes ``ring_storage`` to its chunks).  A
+shard plan with an i-halo (i sharded) emits its outputs through the
+rounded rings, as the JAX package's kernel does there.
+
 (a) The port's plain versions against the JAX package's kernels
 (interpret mode, as its own tests run them) within ``ORDER_RTOL`` (an
 f32 sum order; one rounding more or less moves a cell by up to 2^-9 of
@@ -18,16 +25,19 @@ its value), against the numpy oracle within ``BF16_VERIFY_RTOL`` (2e-2
 relative to the output's largest magnitude, the JAX package's envelope
 for these modes), and unequal to the f32 route; at 32 stages the two
 drift from f32 alike.  (b) The generated CUDA sources built with g++ (one thread a
-block, ``sf_host_launch``) against the plain versions bit for bit: the
-same roundings at the same points and f32 math (-fmad=false on the
-card), except where K3b sums band groups (``MXU_VERIFY_RTOL``).  (c) The
+block, ``sf_host_launch``; K4's chunk by chunk and shard by shard)
+against the plain versions bit for bit: the same roundings at the same
+points and f32 math (-fmad=false on the card), except where band groups
+are summed (``MXU_VERIFY_RTOL``).  (c) The
 plans' bytes: a rounded stage ring takes 2 bytes a cell, a ring input
 loaded by ``cp.async`` keeps f32 slots (rounded in place, or at read in
 K5), and a shared-memory budget that spills a ring at f32 fits unspilled
 at bf16.  (d) The single-pass band passes, both routes, and the
 tensor-core pass's host version alone, and the bound's price of them.
-(e) The refusals, K4's and its callers' of single-pass bf16 passes
-among them.
+(e) K4's entry points under bf16 passes, and the refusals: the dense
+tile body's of a reduced precision (the JAX package runs f32 there), and
+ring storage on chunks and on make_step's chunk and mesh steps (the JAX
+package drops it there).
 """
 import ctypes
 import math
@@ -46,12 +56,21 @@ from stencilflow_tpu.backend import compile_chain_rows as ref_rows
 from stencilflow_tpu.backend.group import compile_chain_group as ref_group
 from stencilflow_tpu.backend.panel import compile_chain_panel as ref_panel
 from stencilflow_tpu.backend.stream import compile_chain_stream as ref_stream
+from stencilflow_tpu.outofcore import (compile_chunked_chain as
+                                       ref_chunked, run_chunked as
+                                       ref_run_chunked)
+from stencilflow_tpu.parallel import domain as ref_domain
+from stencilflow_tpu.parallel import pipeline as ref_pipeline
 from stencilflow_tpu_torch.backend import (codegen, compile_chain_rows, group,
                                            panel, stream)
 from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
 from stencilflow_tpu_torch.config import BF16_VERIFY_RTOL, MXU_VERIFY_RTOL
 from stencilflow_tpu_torch.driver import run_program
 from stencilflow_tpu_torch.frontend.canonicalize import rotate_2d_to_rows
+from stencilflow_tpu_torch.outofcore import compile_chunked_chain, run_chunked
+from stencilflow_tpu_torch.parallel.domain import compile_sharded_chain
+from stencilflow_tpu_torch.parallel.mesh import make_mesh
+from stencilflow_tpu_torch.parallel.pipeline import compile_pipeline_split
 from stencilflow_tpu_torch.synthesize import jacobi, synthesize_stencil
 from test_torch_stream import _gxx, run_host, run_source
 
@@ -83,7 +102,97 @@ def _ref_out(fn, inputs):
 
 
 def _port_out(fn, inputs):
-    return {k: v.numpy() for k, v in fn(inputs).items()}
+    return {k: v if isinstance(v, np.ndarray) else v.numpy()
+            for k, v in fn(inputs).items()}
+
+
+def _jax_mesh(shape, names):
+    import jax
+    from jax.sharding import Mesh as JaxMesh
+    n = int(np.prod(shape))
+    return JaxMesh(np.array(jax.devices()[:n]).reshape(shape), names)
+
+
+def _jax_placed(fn, program, specs, mesh):
+    """The JAX package's mesh function on inputs placed by ``specs``
+    (shardings, or partition specs over ``mesh``)."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    def run(inputs):
+        placed = {}
+        for n, v in inputs.items():
+            spec = program.inputs[n]
+            arr = jnp.asarray(v)
+            if not spec.is_scalar:
+                arr = arr.reshape(tuple(program.dimensions[d]
+                                        for d in range(3)
+                                        if spec.dim_mask[d]))
+            sh = specs[n]
+            if not isinstance(sh, NamedSharding):
+                sh = NamedSharding(mesh, PartitionSpec(*sh))
+            placed[n] = jax.device_put(arr, sh)
+        return fn(placed)
+    return run
+
+
+def _mode(rs):
+    """The reduced-precision case's option: ``rs`` is BF (the mode on) or
+    "off" (f32 rings, split passes)."""
+    return {"mxu_precision": "bf16" if rs == BF else "split"}
+
+
+JK = ((2, 2), ("x", "y"), (None, "x", "y"))
+IJK = ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"))
+
+
+def _box(dims, stages=2, **kw):
+    return synthesize_stencil(num_stages=stages, dimensions=dims,
+                              shape="box", extent=2,
+                              seed_data="random:0,1", **kw)
+
+
+def _ref_sharded(mesh_args, **kw):
+    shape, names, axes = mesh_args
+
+    def build(p):
+        mesh = _jax_mesh(shape, names)
+        fn, plan = ref_domain.compile_sharded_chain(
+            p, mesh, axes, local_backend="stream", interpret=True, **kw)
+        return _jax_placed(fn, p, plan.input_shardings(), mesh)
+    return build
+
+
+def _port_sharded(mesh_args, **kw):
+    shape, names, axes = mesh_args
+    return lambda p: compile_sharded_chain(
+        p, make_mesh(["cpu"], shape, names), axes, local_backend="stream",
+        **kw)[0]
+
+
+def _ref_segments(p, rs):
+    mesh = _jax_mesh((2,), ("p",))
+    fn, _plan = ref_pipeline.compile_pipeline_split(
+        p, mesh, "p", local_backend="stream", interpret=True, **_mode(rs))
+    specs = ref_pipeline.compile_pipeline_split.last_config["in_specs"]
+    return _jax_placed(fn, p, specs, mesh)
+
+
+def _ref_chunks(p, rs, chunks=2):
+    compiled = ref_chunked(p, chunks, backend="stream", interpret=True,
+                           **_mode(rs))
+    return lambda inputs: ref_run_chunked(p, inputs, chunks,
+                                          compiled=compiled)
+
+
+def _port_chunks(p, rs, chunks=2):
+    compiled = compile_chunked_chain(p, chunks, backend="stream",
+                                     device="cpu", **_mode(rs))
+
+    def fn(inputs):
+        return run_chunked(p, inputs, chunks, compiled=compiled)
+    fn.plan = compiled[0].plan
+    return fn
 
 
 # -- (a) the port against the JAX package and the oracle -----------------------
@@ -129,6 +238,33 @@ CASES = {
         lambda p, rs: stream.compile_chain_stream(p, device="cpu",
                                                   smem_budget=64 * 1024,
                                                   ring_storage=rs)),
+    # K4: the chunk mode (2 chunks), the shard mode (a 2 x 2 mesh of
+    # (j, k) shards, and 2 x 2 x 2 with i sharded too) and the segment
+    # mode (2 pipeline positions)
+    "K4 chunk box 16x12x16 x 2 bf16 passes": (
+        lambda: _box((16, 12, 16)), 41, _ref_chunks, _port_chunks),
+    "K4 shard jacobi3d 12x16x16 x 3 bf16 rings": (
+        lambda: synthesize_stencil(num_stages=3, dimensions=(12, 16, 16),
+                                   shape="diffusion", boundary_value=0.5,
+                                   seed_data="random:0,1"), 43,
+        lambda p, rs: _ref_sharded(JK, ring_storage=rs)(p),
+        lambda p, rs: _port_sharded(JK, ring_storage=rs)(p)),
+    "K4 shard jacobi3d 16^3 x 2 ijk bf16 rings": (
+        lambda: synthesize_stencil(num_stages=2, dimensions=(16, 16, 16),
+                                   shape="diffusion", boundary="copy",
+                                   seed_data="random:0,1"), 44,
+        lambda p, rs: _ref_sharded(IJK, ring_storage=rs)(p),
+        lambda p, rs: _port_sharded(IJK, ring_storage=rs)(p)),
+    "K4 shard box 8x24x24 x 2 bf16 passes": (
+        lambda: _box((8, 24, 24)), 45,
+        lambda p, rs: _ref_sharded(JK, **_mode(rs))(p),
+        lambda p, rs: _port_sharded(JK, **_mode(rs))(p)),
+    "K4 segment box 8x16x24 x 2 bf16 passes": (
+        lambda: _box((8, 16, 24), boundary="constant", boundary_value=0.3),
+        46, _ref_segments,
+        lambda p, rs: compile_pipeline_split(
+            p, make_mesh(["cpu"], (2,), ("p",)), "p",
+            local_backend="stream", **_mode(rs))[0]),
 }
 
 
@@ -144,13 +280,25 @@ def test_plain_matches_jax_package_and_oracle(name):
     want = _ref_out(ref_compile(rp, BF), inputs)
     if name.startswith("K3c"):   # the spill rung, a ring spilled
         assert fn.plan.packed and fn.plan.spilled
+    passes = name.endswith("passes")
+    if name.startswith("K4"):   # K4 ran, in the mode asked for
+        plans = getattr(fn, "stream_plans", None) or [fn.plan]
+        assert all(sp.block for sp in plans)
+        assert all(bool(sp.shard[0]) == (" shard " in name) for sp in plans)
+        assert all(stream.reduced(sp) for sp in plans)
+        assert all(bool(sp.tkeys) == passes for sp in plans)
+        # i sharded: the outputs leave through their rounded rings
+        assert all(bool(sp.rounds_out) == (" ijk " in name) for sp in plans)
     for o in pp.outputs:
         assert got[o].dtype == np.float32
         assert _rel(got[o], want[o]) < ORDER_RTOL
         assert 0 < _rel(got[o], oracle[o]) < BF16_VERIFY_RTOL
         assert _rel(got[o], f32[o]) > 0
-        np.testing.assert_array_equal(f32[o].reshape(oracle[o].shape),
-                                      oracle[o])
+        if passes:   # split band passes re-associate f32 sums
+            assert _rel(f32[o], oracle[o]) < MXU_VERIFY_RTOL
+        else:
+            np.testing.assert_array_equal(f32[o].reshape(oracle[o].shape),
+                                          oracle[o])
 
 
 def test_deep_chain_drifts_as_the_jax_package_does():
@@ -251,6 +399,218 @@ def test_stream_host_build_matches_plain(name, tmp_path):
             assert np.allclose(got[o], w, rtol=MXU_VERIFY_RTOL, atol=1e-6)
         else:
             np.testing.assert_array_equal(got[o], w)
+
+
+def _k4_chunks(p, chunks, **kw):
+    """[(K4 plan, launch arguments, slabs, pool instance)] of a chunk
+    plan over every chunk of ``p``."""
+    from test_torch_outofcore import _chunk_slabs
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    an = port.ChainAnalysis.run(p)
+    Ic, h = p.dimensions[0] // chunks, chain_halo(an)[0]
+    plan = stream.plan_local(p, an, Ic, h, **kw)
+    inputs = port.load_input_arrays(p, seed=8)
+    return [(plan, (c * Ic - h,), _chunk_slabs(p, inputs, c * Ic - h,
+                                               Ic + 2 * h), (0, 0))
+            for c in range(chunks)]
+
+
+def _k4_shards(p, mesh_args, **kw):
+    """The same of a shard plan over every shard of a CPU mesh, the
+    shards widened by the engine's own exchange."""
+    from stencilflow_tpu_torch.parallel.domain import (
+        DomainDecomposition, _shard_contexts, _widen_and_origin,
+        place_global_inputs)
+    shape, names, axes = mesh_args
+    an = port.ChainAnalysis.run(p)
+    plan = DomainDecomposition.plan(p, make_mesh(["cpu"], shape, names),
+                                    axes, an)
+    splan = stream.plan_local(p, an, plan.block[0], plan.halo[0],
+                              shard=plan.block[1:], xhalo=plan.halo[1:],
+                              contexts=_shard_contexts(plan), **kw)
+    inputs = port.load_input_arrays(p, seed=9)
+    out = []
+    for c, tiles in _widen_and_origin(
+            plan, place_global_inputs(p, plan, inputs)).items():
+        oi, oj, ok = plan.block_origin(c)
+        out.append((splan, (oi - plan.halo[0], oj, ok), tiles,
+                    plan.instance(c)))
+    return out
+
+
+def _k4_segments(p, monkeypatch):
+    """The same of every segment's plan on the tiles a 2-position
+    pipeline run gives it."""
+    calls = []
+    plain = stream.run_local_stream
+
+    def record(plan, origin_i, slabs, lib=None, *rest):
+        calls.append((plan, (origin_i,), dict(slabs), (0, 0)))
+        return plain(plan, origin_i, slabs, lib, *rest)
+    monkeypatch.setattr(stream, "run_local_stream", record)
+    fn, _plan = compile_pipeline_split(p, make_mesh(["cpu"], (2,), ("p",)),
+                                       "p", mxu_precision="bf16")
+    fn(port.load_input_arrays(p, seed=10))
+    return calls
+
+
+K4_TWINS = {
+    # name: (program, launches of K4, banded)
+    "chunk box fma": (lambda: _box((16, 12, 16)), lambda p, mp: _k4_chunks(
+        p, 2, mxu_precision="bf16", passes="fma", tile=(4, 8)), True),
+    "chunk box mma": (lambda: _box((16, 20, 24)), lambda p, mp: _k4_chunks(
+        p, 2, mxu_precision="bf16", passes="mma"), True),
+    "shard jacobi rings": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(6, 24, 32), shape="diffusion",
+        boundary_value=0.5, seed_data="random:0,1"),
+        lambda p, mp: _k4_shards(p, JK, ring_storage=BF, tile=(4, 8)),
+        False),
+    "shard jacobi rings ijk": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(8, 24, 32), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"),
+        lambda p, mp: _k4_shards(p, IJK, ring_storage=BF, tile=(8, 8)),
+        False),
+    "shard hotspot rings spilled": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(8, 24, 32), shape="hotspot",
+        seed_data="random:0,1"),
+        lambda p, mp: _k4_shards(p, IJK, ring_storage=BF, spill="all"),
+        False),
+    "shard box rings banded": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(6, 24, 32), shape="box", extent=1,
+        boundary_value=0.7, seed_data="random:0,1"),
+        lambda p, mp: _k4_shards(p, JK, ring_storage=BF, tile=(4, 8)),
+        True),
+    "shard box fma": (lambda: _box((6, 32, 48)), lambda p, mp: _k4_shards(
+        p, JK, mxu_precision="bf16", passes="fma"), True),
+    "shard box mma": (lambda: _box((6, 32, 48)), lambda p, mp: _k4_shards(
+        p, JK, mxu_precision="bf16", passes="mma"), True),
+    "shard cross": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(6, 32, 32), shape="cross", extent=2,
+        seed_data="random:0,1"), lambda p, mp: _k4_shards(
+        p, JK, mxu_precision="bf16", tile=(2, 8)), True),
+    "segment box": (lambda: _box((8, 16, 24), boundary="constant",
+                                 boundary_value=0.3), _k4_segments, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K4_TWINS))
+def test_k4_host_build_matches_plain(name, tmp_path, monkeypatch):
+    """K4's chunk, shard and segment sources under a reduced precision,
+    built with g++ and run launch by launch (``sf_host_launch`` with the
+    launch's origin) on the slabs the entry points give it, against
+    ``local_stream_plain``: bit for bit per cell, within MXU_VERIFY_RTOL
+    where band groups are summed.  The f32 source of the same plan does
+    not hold the rounding's marks."""
+    from test_torch_domain_sched import _build
+    from stencilflow_tpu_torch.backend.build import scalar_blob
+    make, launches, banded = K4_TWINS[name]
+    p = port.parse_program(make())
+    calls = launches(p, monkeypatch)
+    libs = {}
+    for plan, origin, slabs, inst in calls:
+        q = plan.program
+        assert stream.reduced(plan) and bool(plan.mxu_plans) == banded
+        assert bool(plan.shard[0]) == name.startswith("shard")
+        assert bool(plan.rounds_out) == ("ijk" in name or "spilled" in name)
+        if id(plan) not in libs:
+            src = stream.stream_source(plan)
+            assert "sf_bfr(" in src
+            libs[id(plan)] = _build(src, tmp_path)
+            libs[id(plan)].sf_host_launch.argtypes = \
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * len(origin)
+        want = stream.local_stream_plain(plan, origin[0], slabs,
+                                         *origin[1:], inst=inst)
+        arrays = [slabs[n].numpy() for n, s in q.inputs.items()
+                  if not s.is_scalar]
+        arrays += [np.ascontiguousarray(a, np.float32)
+                   for _k, a in plan.kernel_pool(inst)]
+        outs = [np.zeros((plan.block,) + plan.core(), q.kernels[o].dtype)
+                for o in q.outputs]
+        ip = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data
+                                               for a in arrays])
+        op = (ctypes.c_void_p * len(outs))(*[a.ctypes.data for a in outs])
+        libs[id(plan)].sf_host_launch(
+            ctypes.addressof(ip), ctypes.addressof(op),
+            scalar_blob(q, slabs).ctypes.data, *origin)
+        # the planes of a segment's block past the domain hold junk
+        g0 = origin[0] + plan.halo_i
+        lo, hi = max(0, -g0), min(plan.block, q.dimensions[0] - g0)
+        for o, got in zip(q.outputs, outs):
+            w = want[o].numpy()[lo:hi]
+            assert np.isfinite(got[lo:hi]).all()
+            if banded:
+                assert np.allclose(got[lo:hi], w, rtol=MXU_VERIFY_RTOL,
+                                   atol=1e-6)
+            else:
+                np.testing.assert_array_equal(got[lo:hi], w)
+    assert len(libs) >= 1 and len(calls) >= 2
+
+
+def _plane_input_box(I):
+    """A banded stage of a 3-D input and a (j, k) input read at a 5 x 5
+    box: the plane input has no ring, so its transform is summed on the
+    fly from device memory (``_StreamEmitter.otf``)."""
+    terms = " + ".join(f"0.04 * c[j{dj:+d},k{dk:+d}]"
+                       for dj in range(-2, 3) for dk in range(-2, 3))
+    bc = {"type": "constant", "value": 0.0}
+    return {"inputs": {"a": {"data": "random:0,1", "data_type": "float32"},
+                       "c": {"data": "random:0,1", "data_type": "float32",
+                             "input_dims": ["j", "k"]}},
+            "outputs": ["s0"], "dimensions": [I, 20, 24],
+            "program": {"s0": {
+                "computation_string": "s0 = a[i,j,k] + " + terms.replace(
+                    "+0", "").replace("-0", ""),
+                "boundary_conditions": {"a": bc, "c": bc},
+                "data_type": "float32"}}}
+
+
+@pytest.mark.parametrize("mode", ["whole", "chunk"])
+def test_bf16_passes_of_a_plane_input(mode, tmp_path):
+    """The on-the-fly transform of an input without a ring under bf16
+    passes: its source builds (the bf16 macros), sums the j-pass first
+    with each sum rounded, equals the plain version bit for bit (g++),
+    and the plain version equals the JAX package's kernel."""
+    from test_torch_domain_sched import _build
+    from stencilflow_tpu_torch.backend.build import scalar_blob
+    rp, p = _pair(_plane_input_box(6 if mode == "whole" else 12), "otf")
+    inputs = port.load_input_arrays(p, seed=3)
+    if mode == "whole":
+        plan = stream.plan_stream(p, mxu_precision="bf16")
+        got = run_host(plan, inputs, tmp_path)["s0"]
+        want = stream.stream_plain(plan, spanned_arrays(p, inputs))["s0"]
+        jax_out = _ref_out(ref_stream(rp, interpret=True,
+                                      mxu_precision="bf16"), inputs)["s0"]
+        plain = _port_out(stream.compile_chain_stream(
+            p, mxu_precision="bf16", device="cpu"), inputs)["s0"]
+    else:
+        calls = _k4_chunks(p, 2, mxu_precision="bf16")
+        plan = calls[0][0]
+        lib = _build(stream.stream_source(plan), tmp_path)
+        lib.sf_host_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+        got, want = [], []
+        for _plan, (lo,), slabs, _inst in calls:
+            arrays = [slabs[n].numpy() for n, sp in p.inputs.items()
+                      if not sp.is_scalar]
+            arrays += [np.ascontiguousarray(a, np.float32)
+                       for _k, a in plan.kernel_pool()]
+            out = np.zeros((plan.block,) + plan.core(), np.float32)
+            ip = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data
+                                                   for a in arrays])
+            op = (ctypes.c_void_p * 1)(out.ctypes.data)
+            lib.sf_host_launch(ctypes.addressof(ip), ctypes.addressof(op),
+                               scalar_blob(p, slabs).ctypes.data, lo)
+            got.append(out)
+            want.append(stream.local_stream_plain(plan, lo, slabs)["s0"])
+        got, want = np.concatenate(got), torch.cat(want)
+        jax_out = ref_run_chunked(rp, inputs, 2, compiled=ref_chunked(
+            rp, 2, backend="stream", interpret=True,
+            mxu_precision="bf16"))["s0"]
+        plain = _port_chunks(p, BF)(inputs)["s0"]
+    assert plan.mxu_plans and not plan.tkeys and stream.reduced(plan)
+    np.testing.assert_array_equal(got, want.numpy().reshape(got.shape))
+    assert _rel(plain, jax_out) < ORDER_RTOL
+    oracle = port.run_interpreter(p, inputs)["s0"]
+    assert 0 < _rel(plain, oracle) < BF16_VERIFY_RTOL
 
 
 # -- (c) the plans' bytes ------------------------------------------------------
@@ -500,45 +860,127 @@ def test_run_program_ring_storage_refused_out_of_core():
                     host_chunks=2, save_results=False, log_level=0)
 
 
-@pytest.mark.parametrize("entry", ["run_program", "chunked", "sharded",
-                                   "pipeline", "plan_local"])
-def test_bf16_passes_refused_off_the_whole_domain_kernel(entry):
-    """Single-pass bf16 passes reach the whole-domain stream kernel only:
-    K4's chunk, shard and segment modes, and the dense tile body that
-    stands in for them, refuse them rather than run split or f32."""
-    from stencilflow_tpu_torch.outofcore import compile_chunked_chain
-    from stencilflow_tpu_torch.parallel.domain import compile_sharded_chain
-    from stencilflow_tpu_torch.parallel.mesh import make_mesh
-    from stencilflow_tpu_torch.parallel.pipeline import compile_pipeline_split
-    p = port.parse_program(synthesize_stencil(
+def _box2():
+    return port.parse_program(synthesize_stencil(
         num_stages=2, dimensions=(16, 12, 16), shape="box", extent=2,
         seed_data="random:0,1"))
+
+
+@pytest.mark.parametrize("entry", ["run_program", "chunked", "sharded",
+                                   "pipeline", "plan_local"])
+def test_bf16_passes_reach_k4(entry):
+    """The entry points that refused single-pass bf16 passes run them in
+    K4 now, its plain version on the CPU ("auto" takes the stream body on
+    the CPU under bf16): every K4 plan has bf16 passes, and the outputs
+    lie within BF16_VERIFY_RTOL of the oracle and away from the split
+    route's."""
+    p = _box2()
+    inputs = port.load_input_arrays(p, seed=12)
+    oracle = port.run_interpreter(p, inputs)["s1"]
     bf = dict(mxu_precision="bf16")
-    call = {"run_program": lambda: run_program(
-                p, device="cpu", backend="stream", host_chunks=2,
-                save_results=False, log_level=0, **bf),
-            "chunked": lambda: compile_chunked_chain(p, 2, device="cpu",
-                                                     **bf),
-            "sharded": lambda: compile_sharded_chain(
-                p, make_mesh(["cpu"], (2,), ("x",)), (None, "x", None),
-                **bf),
-            "pipeline": lambda: compile_pipeline_split(
-                p, make_mesh(["cpu"], (2,), ("p",)), "p", **bf),
-            "plan_local": lambda: stream.plan_local(p, None, 8, 2, **bf)
-            }[entry]
-    kind = ValueError if entry == "run_program" else NotImplementedError
-    with pytest.raises(kind, match="chunk kernel|whole-domain"):
+    if entry == "plan_local":
+        plan = stream.plan_local(p, None, 8, 2, **bf)
+        assert plan.mxu_precision == "bf16" and plan.tkeys
+        return
+    if entry == "run_program":
+        res = run_program(p, device="cpu", host_chunks=2, seed=12,
+                          compare_to_reference=True, save_results=False,
+                          log_level=0, **bf)
+        assert res.backend == "outofcore[stream x2 chunks]"
+        assert res.verified_against_reference
+        got = res.outputs["s1"]
+    elif entry == "chunked":
+        fn, plan = compile_chunked_chain(p, 2, device="cpu", **bf)
+        assert plan.backend == "stream" and fn.plan.tkeys
+        got = run_chunked(p, inputs, 2, compiled=(fn, plan))["s1"]
+    elif entry == "sharded":
+        fn, _ = compile_sharded_chain(p, make_mesh(["cpu"], *JK[:2]), JK[2],
+                                      **bf)
+        assert fn.last_config["backend"] == "stream" and fn.plan.tkeys
+        got = fn(inputs)["s1"].numpy()
+    else:
+        fn, _ = compile_pipeline_split(p, make_mesh(["cpu"], (2,), ("p",)),
+                                       "p", **bf)
+        assert fn.last_config["backend"] == "stream"
+        assert all(sp.tkeys for sp in fn.stream_plans)
+        got = fn(inputs)["s1"].numpy()
+    split = stream.compile_chain_stream(p, device="cpu")(inputs)["s1"]
+    assert 0 < _rel(got, oracle) < BF16_VERIFY_RTOL
+    assert _rel(got, split.numpy()) > 100 * ORDER_RTOL
+
+
+@pytest.mark.parametrize("entry", ["chunked dense", "chunked nothing fits",
+                                   "sharded xla", "sharded xla rings",
+                                   "pipeline xla"])
+def test_dense_body_refuses_reduced_precision(entry):
+    """Where the dense tile body would run a reduced-precision request
+    (asked for, or the rescue where no K4 plan fits), the port raises
+    and says why: the JAX package's XLA body computes f32 there."""
+    p = _box2()
+    bf = dict(mxu_precision="bf16")
+    mesh = make_mesh(["cpu"], *JK[:2])
+    call = {"chunked dense": lambda: compile_chunked_chain(
+                p, 2, backend="dense", device="cpu", **bf),
+            "chunked nothing fits": lambda: compile_chunked_chain(
+                p, 2, device="cpu", spill="off", smem_budget=256, **bf),
+            "sharded xla": lambda: compile_sharded_chain(
+                p, mesh, JK[2], local_backend="xla", **bf),
+            "sharded xla rings": lambda: compile_sharded_chain(
+                p, mesh, JK[2], local_backend="xla", ring_storage=BF),
+            "pipeline xla": lambda: compile_pipeline_split(
+                p, make_mesh(["cpu"], (2,), ("p",)), "p",
+                local_backend="xla", **bf)}[entry]
+    with pytest.raises(ValueError, match="needs K4.*would run f32"):
         call()
+
+
+@pytest.mark.parametrize("name", ["sharded box r1 x 3", "sharded box r2",
+                                  "pipeline box r1 x 8"])
+def test_bf16_composition_is_the_jax_packages(name):
+    """``compose="auto"`` under bf16 passes: the port composes (or keeps
+    every stage) where the JAX package does, and its segments' banded
+    stages are the JAX package's."""
+    if name.startswith("sharded"):
+        spec = (synthesize_stencil(num_stages=3, dimensions=(8, 16, 16),
+                                   shape="box", extent=1)
+                if "r1" in name else _box((8, 24, 24)))
+        rp, pp = _pair(spec, "boxc")
+        fn = _port_sharded(JK, mxu_precision="bf16")(pp)
+        _ref_sharded(JK, mxu_precision="bf16")(rp)
+        jcfg = ref_domain.compile_sharded_chain.last_config
+        assert fn.last_config.get("composed") == jcfg.get("composed")
+        assert bool(jcfg.get("composed")) == ("r1" in name)
+    else:
+        rp, pp = _pair(synthesize_stencil(num_stages=8,
+                                          dimensions=(16, 16, 24),
+                                          shape="box", extent=1), "box8")
+        fn, _ = compile_pipeline_split(pp, make_mesh(["cpu"], (2,), ("p",)),
+                                       "p", local_backend="stream",
+                                       mxu_precision="bf16")
+        ref_pipeline.compile_pipeline_split(
+            rp, _jax_mesh((2,), ("p",)), "p", local_backend="stream",
+            interpret=True, mxu_precision="bf16")
+        jcfg = ref_pipeline.compile_pipeline_split.last_config
+        assert fn.last_config["composed"] == jcfg["composed"]
+        assert fn.last_config["segments"] == jcfg["segments"]
+    assert fn.last_config["mxu_stages" if name.startswith("sharded")
+                          else "backend"] == jcfg["mxu_stages" if
+                                                  name.startswith("sharded")
+                                                  else "backend"]
 
 
 @pytest.mark.parametrize("backend,kw", [("stream", {}),
                                         ("panel", {}),
-                                        ("stream", {"host_chunks": 2})])
+                                        ("stream", {"host_chunks": 2}),
+                                        ("stream", {"mesh": JK})])
 def test_make_step_ring_storage(backend, kw):
     """``make_step(ring_storage="bfloat16")`` takes the stream lowering,
-    as the JAX package's does, and refuses every other backend and the
-    chunk kernel."""
+    as the JAX package's does, and refuses every other backend, the
+    chunk step and the mesh step (the JAX package's make_step drops
+    ring storage on those two and runs f32 rings)."""
     from stencilflow_tpu_torch.iterate import IterateError, make_step
+    if "mesh" in kw:
+        kw = dict(mesh=make_mesh(["cpu"], *JK[:2]), dim_axes=JK[2])
     p = port.parse_program(_jacobi3d(12, 3))
     if backend != "stream" or kw:
         with pytest.raises(IterateError, match="ring_storage"):

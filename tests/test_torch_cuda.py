@@ -1645,3 +1645,249 @@ def test_bf16_passes_match_plain_on_card(name, passes, cuda):
                                            split[o].cpu().numpy())
         print(f"{name} {passes}: {fig}")
         assert ok, fig
+
+
+# -- K4's reduced precisions: single-pass bf16 passes in the chunk, shard
+# and segment modes, bf16 rings on shards ---------------------------------------
+
+def _agree(want, got, split, label):
+    """``stream.bf16_passes_agree`` of every output."""
+    for o in want:
+        ok, fig = stream.bf16_passes_agree(want[o].cpu().numpy(),
+                                           got[o].cpu().numpy(),
+                                           split[o].cpu().numpy())
+        print(f"{label} {o}: {fig}")
+        assert ok, fig
+
+
+def _banded(shape, dims, stages=2):
+    return port.parse_program(synthesize_stencil(
+        num_stages=stages, dimensions=dims, shape=shape, extent=2,
+        seed_data="random:0,1"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", ["auto", "fma", "mma"])
+@pytest.mark.parametrize("shape", ["box", "cross"])
+def test_k4_chunk_bf16_passes_match_plain_on_card(shape, passes, cuda):
+    """K4 in chunk mode under ``mxu_precision="bf16"``, chunk by chunk:
+    each launch counts in ``local_bf16_launches`` and agrees with its
+    plain version, apart from the split route's."""
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    p = _banded(shape, (48, 48, 72))
+    an = port.ChainAnalysis.run(p)
+    kw = {} if passes == "auto" else {"passes": passes}
+    h = chain_halo(an)[0]
+    plan = stream.plan_local(p, an, 16, h, mxu_precision="bf16", **kw)
+    split = stream.plan_local(p, an, 16, h, **kw)
+    assert plan.tkeys and not plan.packed and stream.reduced(plan)
+    lib = stream.build_stream(plan)
+    inputs = port.load_input_arrays(p, seed=4)
+    for lo, slabs in _chunks(p, inputs, 3, plan, cuda):
+        before = stream.local_bf16_launches
+        got = stream.run_local_stream(plan, lo, slabs, lib)
+        torch.cuda.synchronize()
+        assert stream.local_bf16_launches == before + 1
+        _agree(stream.local_stream_plain(plan, lo, slabs), got,
+               stream.local_stream_plain(split, lo, slabs),
+               f"{shape} {passes} chunk {lo}")
+
+
+@pytest.mark.cuda
+def test_run_program_host_chunks_bf16_on_card(cuda):
+    """``run_program(host_chunks=4, mxu_precision="bf16")``: K4's bf16
+    passes on every chunk, verified against the oracle at
+    BF16_VERIFY_RTOL."""
+    p = _banded("box", (64, 64, 64))
+    before = stream.local_bf16_launches
+    res = run_program(p, device=cuda, host_chunks=4, mxu_precision="bf16",
+                      compare_to_reference=True, save_results=False,
+                      log_level=0)
+    assert res.backend == "outofcore[stream x4 chunks]"
+    assert res.verified_against_reference
+    assert stream.local_bf16_launches == before + 2 * 4   # warm-up + 1 run
+
+
+def _k4_shards(p, mesh_args, cuda, **kw):
+    """(sharded fn, decomposition, widened shards) of K4 on virtual
+    shards of the card."""
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    shape, names, axes = mesh_args
+    fn, plan = compile_sharded_chain(p, make_mesh([cuda], shape, names),
+                                     axes, **kw)
+    assert fn.last_config["backend"] == "stream"
+    placed = place_global_inputs(p, plan, port.load_input_arrays(p, seed=4))
+    return fn, plan, placed
+
+
+JK_MESH = ((2, 2), ("x", "y"), (None, "x", "y"))
+IJK_MESH = ((2, 2, 2), ("x", "y", "z"), ("x", "y", "z"))
+# name: (program, mesh, options)
+SHARD_BF16_RINGS = {
+    "jacobi-jk": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(8, 40, 72), shape="diffusion",
+        boundary_value=0.5, seed_data="random:0,1"), JK_MESH, {}),
+    "jacobi-copy-ijk": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(16, 24, 40), shape="diffusion",
+        boundary="copy", seed_data="random:0,1"), IJK_MESH, {}),
+    "hdiff-jk": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(8, 32, 48), shape="hdiff",
+        seed_data="random:0,1"), JK_MESH, {}),
+    "hotspot-spilled-jk": (lambda: synthesize_stencil(
+        num_stages=3, dimensions=(8, 40, 48), shape="hotspot",
+        seed_data="random:0,1"), JK_MESH, {"spill": "all"}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SHARD_BF16_RINGS))
+def test_k4_shard_bf16_rings_match_plain_on_card(name, cuda):
+    """K4 in shard mode under ``ring_storage="bfloat16"``: shard by shard
+    bit for bit against its plain version (an i-sharded mesh's outputs
+    leave through the rounded rings), one launch a shard counted in
+    ``shard_bf16_launches``."""
+    make, mesh_args, kw = SHARD_BF16_RINGS[name]
+    p = port.parse_program(make())
+    fn, plan, placed = _k4_shards(p, mesh_args, cuda,
+                                  ring_storage="bfloat16", **kw)
+    splan = fn.plan
+    assert splan.rounds and bool(splan.rounds_out) == ("ijk" in name)
+    assert splan.packed == ("spilled" in name)
+    for c, tiles in fn.exchange(placed).items():
+        oi, oj, ok = plan.block_origin(c)
+        args = (oi - plan.halo[0], tiles)
+        before = stream.shard_bf16_launches
+        got = stream.run_local_stream(splan, *args, None, oj, ok,
+                                      plan.instance(c))
+        torch.cuda.synchronize()
+        assert stream.shard_bf16_launches == before + 1
+        want = stream.local_stream_plain(splan, *args, oj, ok,
+                                         plan.instance(c))
+        for o in p.outputs:
+            np.testing.assert_array_equal(got[o].cpu().numpy(),
+                                          want[o].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", ["auto", "fma", "mma"])
+@pytest.mark.parametrize("shape", ["box", "cross"])
+def test_k4_shard_bf16_passes_match_plain_on_card(shape, passes, cuda):
+    """K4 in shard mode under ``mxu_precision="bf16"`` on a 2 x 2 mesh:
+    each shard's launch (its slice of the origin-aware bf16 bands, f32
+    correction planes) agrees with its plain version, apart from the
+    split route's."""
+    p = _banded(shape, (8, 64, 64))
+    kw = {} if passes == "auto" else {"passes": passes}
+    fn, plan, placed = _k4_shards(p, JK_MESH, cuda, mxu_precision="bf16")
+    if kw:   # the forced route on the same shard plan's geometry
+        from stencilflow_tpu_torch.parallel.domain import _shard_contexts
+        fn.plan = stream.plan_local(
+            fn.plan.program, fn.plan.analysis, plan.block[0], plan.halo[0],
+            mxu_precision="bf16", shard=plan.block[1:],
+            xhalo=plan.halo[1:], contexts=_shard_contexts(plan), **kw)
+    split, _ = _k4_shards(p, JK_MESH, cuda)[:2]
+    splan = fn.plan
+    assert splan.tkeys and stream.reduced(splan)
+    for c, tiles in fn.exchange(placed).items():
+        oi, oj, ok = plan.block_origin(c)
+        args = (oi - plan.halo[0], tiles)
+        inst = plan.instance(c)
+        before = stream.shard_bf16_launches
+        got = stream.run_local_stream(splan, *args, None, oj, ok, inst)
+        torch.cuda.synchronize()
+        assert stream.shard_bf16_launches == before + 1
+        _agree(stream.local_stream_plain(splan, *args, oj, ok, inst), got,
+               stream.local_stream_plain(split.plan, *args, oj, ok, inst),
+               f"{shape} {passes} shard {c}")
+
+
+@pytest.mark.cuda
+def test_k4_segment_bf16_passes_match_plain_on_card(cuda, monkeypatch):
+    """compile_pipeline_split(mxu_precision="bf16") over 2 positions
+    repeating the card: every segment's K4 launch (counted in
+    ``local_bf16_launches``) agrees with its plain version on the same
+    tiles (the in-domain planes), apart from the split segments'."""
+    from stencilflow_tpu_torch.parallel import compile_pipeline_split
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    calls = []
+    launch = stream.run_local_stream
+
+    def record(plan, origin_i, slabs, lib=None, *rest):
+        got = launch(plan, origin_i, slabs, lib, *rest)
+        calls.append((plan, origin_i, dict(slabs), got))
+        return got
+    monkeypatch.setattr(stream, "run_local_stream", record)
+    p = _banded("box", (16, 40, 48))
+    mesh = make_mesh([cuda], (2,), ("p",))
+    fn, plan = compile_pipeline_split(p, mesh, "p", mxu_precision="bf16")
+    split, _ = compile_pipeline_split(p, mesh, "p")
+    assert fn.last_config["backend"] == "stream"
+    before = stream.local_bf16_launches
+    fn(port.load_input_arrays(p, seed=4))
+    torch.cuda.synchronize()
+    S, C = len(plan.segments), plan.num_chunks
+    assert stream.local_bf16_launches - before == S * C == len(calls)
+    I = p.dimensions[0]
+    for sp, oi, slabs, got in calls:
+        s = fn.stream_plans.index(sp)
+        assert sp.tkeys and stream.reduced(sp)
+        g0 = oi + sp.halo_i
+        lo, hi = max(0, -g0), min(sp.block, I - g0)
+
+        def core(out):
+            return {o: v[lo:hi] for o, v in out.items()}
+        _agree(core(stream.local_stream_plain(sp, oi, slabs)), core(got),
+               core(stream.local_stream_plain(split.stream_plans[s], oi,
+                                              slabs)),
+               f"segment {s} origin {oi}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["whole", "chunk"])
+def test_bf16_passes_of_a_plane_input_on_card(mode, cuda):
+    """A banded stage's transform of a (j, k) input, which has no ring and
+    is summed on the fly from device memory, under bf16 passes (the
+    j-pass first, each sum rounded): K3b whole and K4 chunk by chunk
+    agree with their plain versions, apart from the split route's."""
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    terms = " + ".join(f"0.04 * c[j{dj:+d},k{dk:+d}]"
+                       for dj in range(-2, 3) for dk in range(-2, 3))
+    bc = {"type": "constant", "value": 0.0}
+    p = port.parse_program({
+        "inputs": {"a": {"data": "random:0,1", "data_type": "float32"},
+                   "c": {"data": "random:0,1", "data_type": "float32",
+                         "input_dims": ["j", "k"]}},
+        "outputs": ["s0"], "dimensions": [24, 40, 72],
+        "program": {"s0": {
+            "computation_string": "s0 = a[i,j,k] + " + terms.replace(
+                "+0", "").replace("-0", ""),
+            "boundary_conditions": {"a": bc, "c": bc},
+            "data_type": "float32"}}})
+    inputs = port.load_input_arrays(p, seed=4)
+    if mode == "whole":
+        plan = stream.plan_stream(p, mxu_precision="bf16")
+        split = stream.plan_stream(p)
+        assert plan.mxu_plans and not plan.tkeys
+        arrays = spanned_arrays(p, inputs, device=cuda)
+        before = stream.bf16_launches
+        got = stream.run_stream(plan, arrays)
+        torch.cuda.synchronize()
+        assert stream.bf16_launches == before + 1
+        _agree(stream.stream_plain(plan, arrays), got,
+               stream.stream_plain(split, arrays), "plane input whole")
+        return
+    an = port.ChainAnalysis.run(p)
+    h = chain_halo(an)[0]
+    plan = stream.plan_local(p, an, 8, h, mxu_precision="bf16")
+    split = stream.plan_local(p, an, 8, h)
+    lib = stream.build_stream(plan)
+    for lo, slabs in _chunks(p, inputs, 3, plan, cuda):
+        before = stream.local_bf16_launches
+        got = stream.run_local_stream(plan, lo, slabs, lib)
+        torch.cuda.synchronize()
+        assert stream.local_bf16_launches == before + 1
+        _agree(stream.local_stream_plain(plan, lo, slabs), got,
+               stream.local_stream_plain(split, lo, slabs),
+               f"plane input chunk {lo}")

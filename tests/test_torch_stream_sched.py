@@ -22,7 +22,8 @@ card by tests/test_torch_cuda.py and chip_smoke.py.  Three deliberately
 wrong schedules (every block mask-free, a transform plane packed over a
 live ring, no slot for the plane in flight) must show as mismatches here,
 and the sources of the other kernels (K1, K2, K3c, K5, K6), of K3b and of
-K4's chunk mode must not move.
+K4's chunk and shard modes (f32: the reduced-precision branches leave
+them as they were) must not move.
 """
 import ctypes
 import hashlib
@@ -542,9 +543,25 @@ def _local_spill(p, chunks):
         p, an, p.dimensions[0] // chunks, chain_halo(an)[0], spill="all"))
 
 
+def _shard(p):
+    """K4's shard-mode source of ``p`` over a 2 x 2 mesh of (j, k)
+    shards, as ``parallel/domain.py`` plans it."""
+    from stencilflow_tpu_torch.parallel.domain import (DomainDecomposition,
+                                                       _shard_contexts)
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    an = port.ChainAnalysis.run(p)
+    plan = DomainDecomposition.plan(p, make_mesh(["cpu"], (2, 2),
+                                                 ("x", "y")),
+                                    (None, "x", "y"), an)
+    return stream.stream_source(stream.plan_local(
+        p, an, plan.block[0], plan.halo[0], shard=plan.block[1:],
+        xhalo=plan.halo[1:], contexts=_shard_contexts(plan)))
+
+
 # kernel and fixture: (source, sha256 of the source: K1 and K3c the
 # parent's, K2, K5 and K6 the redesigned ones; K3b and K4's chunk mode as
-# they were before K4 took a shard origin)
+# they were before K4 took a shard origin; K4's f32 shard mode as it was
+# before K4 took bf16 passes and rings)
 FROZEN = {
     "K1 jacobi3d": (lambda: _panel(_example(
         "jacobi3d_32x32x32_8itr.json", 10)),
@@ -592,6 +609,12 @@ FROZEN = {
     "K4 box banded 2 chunks": (lambda: _local(_synth(
         "box", (16, 40, 48), 2, extent=2), 2),
         "511e9bc5e7939978403d735bf4aed9d158c7a7de7c68cf56c098e6c9858c9c3b"),
+    "K4 shard jacobi3d 2 x 2": (lambda: _shard(_example(
+        "jacobi3d_32x32x32_8itr.json", 24)),
+        "cf2c33d7fafb38138c16f2b452b13f06384897870e9bfd1dd93f7caeea3f7c34"),
+    "K4 shard box banded 2 x 2": (lambda: _shard(_synth(
+        "box", (8, 32, 48), 2, extent=2)),
+        "a04b898f4957c0a43079230b4739033563fdc06aebfc93af53dafd006cca7c18"),
     "K5 rows jacobi2d": (lambda: _group(rotate_2d_to_rows(_synth(
         "diffusion", (256, 192), 8)), 64, 8),
         "42691b2977a08c63d3c4995bff669b77b93b10a73f7cfe65695e8dce5bf633a8"),
