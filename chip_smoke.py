@@ -201,7 +201,16 @@ Phases, one line each (any failure raises and exits non-zero):
    and the simulator's cycles, host seconds, Mcycles/s and g++ seconds
    printed; beside the legs, ``python -m stencilflow_tpu_torch.cli
    simulate`` with ``--trace-chrome`` on a 16^3 program in a subprocess
-   (exit 0, a non-empty trace with activity spans).
+   (exit 0, a non-empty trace with activity spans), and in another
+   ``cli import-sdfg tests/fixtures/hdiff.sdfg --dimensions 256,256,256
+   --input-data random:0,1`` then ``cli compile`` of the program it
+   wrote (exit 0, the program JSON-equal to ``sdfg_to_program``'s, a
+   non-empty ``.cu`` equal to ``backend.route_source``'s and a built
+   library); after the legs, that imported program through
+   ``run_program(..., device="cuda", compare_to_reference=True)`` on K1
+   (the panel route; K1's count reset just before and read just after,
+   the outputs equal to the oracle's bit for bit), with its kernel time
+   and bound printed.
 
 9. the sharded engine (``parallel/domain.py compile_sharded_chain``) on
    meshes of virtual shards repeating the one card (not a multi-GPU
@@ -1702,7 +1711,8 @@ def _simulator(sft, run_program, smi):
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
     t_phase = time.perf_counter()
 
-    # cli simulate --trace-chrome on 16^3 (the host), beside the legs
+    # cli simulate --trace-chrome on 16^3 (the host), and cli import-sdfg
+    # then cli compile of hdiff 256^3, beside the legs
     with tempfile.TemporaryDirectory() as tmp:
         prog = os.path.join(tmp, "prog.json")
         trace = os.path.join(tmp, "trace.json")
@@ -1714,17 +1724,20 @@ def _simulator(sft, run_program, smi):
             [sys.executable, "-m", "stencilflow_tpu_torch.cli", "simulate",
              prog, "--trace-chrome", trace], cwd=HERE,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        try:
-            _simulator_legs(sft, run_program, smi, t_phase)
-            out, err = cli.communicate(timeout=300)
-        finally:
-            if cli.poll() is None:
-                cli.kill()
-                cli.communicate()
-        if cli.returncode != 0 or not os.path.isfile(trace) \
-                or os.path.getsize(trace) == 0:
-            raise RuntimeError(f"simulator: cli simulate exited "
-                               f"{cli.returncode}: {err[-2000:]}")
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            imported = ex.submit(_import_and_compile, tmp)
+            try:
+                _simulator_legs(sft, run_program, smi, t_phase)
+                out, err = cli.communicate(timeout=300)
+            finally:
+                if cli.poll() is None:
+                    cli.kill()
+                    cli.communicate()
+            if cli.returncode != 0 or not os.path.isfile(trace) \
+                    or os.path.getsize(trace) == 0:
+                raise RuntimeError(f"simulator: cli simulate exited "
+                                   f"{cli.returncode}: {err[-2000:]}")
+            _imported_hdiff(sft, run_program, imported.result(), smi)
         events = json.load(open(trace))["traceEvents"]
     if not any(e["ph"] == "X" for e in events):
         raise RuntimeError("simulator: the chrome trace has no spans")
@@ -1734,6 +1747,87 @@ def _simulator(sft, run_program, smi):
           flush=True)
     print(f"simulate: phase 8 took {time.perf_counter() - t_phase:.1f} s "
           f"| {smi}", flush=True)
+
+
+HDIFF_SDFG = os.path.join(HERE, "tests", "fixtures", "hdiff.sdfg")
+
+
+def _import_and_compile(tmp):
+    """Phase 8's CLI legs, in subprocesses one after the other: ``cli
+    import-sdfg`` of the hdiff fixture at 256^3 and ``cli compile`` of
+    the program it wrote.  Returns (program JSON path, .cu path, the two
+    stdouts, the compile's seconds)."""
+    cmd = [sys.executable, "-m", "stencilflow_tpu_torch.cli"]
+    spec, cu = os.path.join(tmp, "hdiff256.json"), os.path.join(
+        tmp, "hdiff256.cu")
+    outs = []
+    for argv in (["import-sdfg", HDIFF_SDFG, "--dimensions", "256,256,256",
+                  "--input-data", "random:0,1", "-o", spec],
+                 ["compile", spec, "-o", cu]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + argv, cwd=HERE, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"simulator: cli {argv[0]} exited "
+                               f"{proc.returncode}: {proc.stderr[-2000:]}")
+        outs.append(proc.stdout.strip())
+    return spec, cu, outs, time.perf_counter() - t0
+
+
+def _imported_hdiff(sft, run_program, imported, smi):
+    """The hdiff fixture as ``cli import-sdfg`` wrote it at 256^3, held to
+    ``sdfg_to_program``, compiled by ``cli compile`` into the route's
+    source and a library, and run on K1 (counted) against the oracle bit
+    for bit."""
+    import stencilflow_tpu_torch.driver as drv
+    from stencilflow_tpu_torch.backend import panel as pn
+    from stencilflow_tpu_torch.backend import route_source
+    from stencilflow_tpu_torch.frontend.sdfg_import import sdfg_to_program
+    spec, cu, (imp_out, comp_out), compile_s = imported
+    t0 = time.perf_counter()
+    want = sft.program_to_json(sdfg_to_program(
+        HDIFF_SDFG, dimensions=(256, 256, 256), input_data="random:0,1"))
+    if json.load(open(spec)) != json.loads(json.dumps(want)):
+        raise RuntimeError("simulator: cli import-sdfg wrote another "
+                           "program than sdfg_to_program")
+    program = sft.parse_program(spec)
+    backend, source, _lib = route_source(program)
+    built = comp_out.splitlines()[-1]
+    lib = built.split()[1] if built.startswith("built ") else ""
+    if (backend != "panel" or open(cu).read() != source
+            or not os.path.isfile(lib) or os.path.getsize(lib) == 0):
+        raise RuntimeError(f"simulator: cli compile of the imported hdiff "
+                           f"did not write and build K1: {comp_out!r}")
+
+    real, oracle = drv.run_interpreter, {}
+
+    def kept(p, inputs):
+        oracle.update(real(p, inputs))
+        return oracle
+    drv.run_interpreter = kept
+    pn.launches = 0
+    try:
+        res = run_program(program, device="cuda", repetitions=5,
+                          compare_to_reference=True, save_results=False,
+                          log_level=0)
+    finally:
+        drv.run_interpreter = real
+    launched = pn.launches
+    if res.backend != "panel" or launched < 1:
+        raise RuntimeError(f"simulator: the imported hdiff took "
+                           f"{res.backend}, K1 launched {launched} times")
+    for o in program.outputs:
+        if not np.array_equal(res.outputs[o], np.asarray(oracle[o])):
+            raise RuntimeError(f"simulator: the imported hdiff's {o} is not "
+                               "the oracle's bit for bit")
+    bound, by = _bound(program)
+    print(f"simulate: {imp_out} | the imported hdiff 256^3 "
+          f"({len(program.kernels)} kernels) route {res.backend}: K1 "
+          f"launches {launched}, {res.wall_time_s * 1e3:.3f} ms a call "
+          f"(CUDA events, 5 calls), bound {bound:.4f} ms ({by}), equal to "
+          f"the oracle bit for bit | cli compile: {comp_out.splitlines()[0]}"
+          f"; {built} (the subprocess {compile_s:.1f} s) | leg "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
 
 
 def _simulator_legs(sft, run_program, smi, t_phase):

@@ -21,7 +21,12 @@ every applicable lowering on the card and caches the winner
 measurement path:
 the analytic report on the H100 hardware model (report.py, ``cli
 report``), the bench (bench.py) and the probes that measure the model's
-constants (probes/).
+constants (probes/).  Programs also come from traced Python functions
+(frontend/trace.py), serialized DaCe SDFGs (frontend/sdfg_import.py and
+frontend/mapnest.py) and ordered op lists (frontend/canonicalize.py),
+whose passes the ``canonicalize`` subcommand runs; ``compile`` writes and
+builds the CUDA C++ of a program's route, and examples/ holds the JAX
+package's example scripts on the port.
 """
 
 __version__ = "0.1.0"
@@ -33,7 +38,10 @@ from .ir import (Access, Assign, BCKind, BinOp, BoolOp, BoundaryCondition,
                  Select, UnaryOp)
 from .frontend.parser import StencilSyntaxError, parse_program
 from .frontend.chain import ChainGraph, CycleError
-from .frontend.analysis import ChainAnalysis
+from .frontend.analysis import ChainAnalysis, flatten_index
+from .frontend.canonicalize import (canonicalize, nest_dimension,
+                                    program_from_op_list, version_program)
+from .frontend.trace import trace_program
 from .frontend.export import program_to_json
 from .grad import (adjoint_program, fast_value_and_grad, grad,
                    value_and_grad)
@@ -44,8 +52,8 @@ from .outofcore import compile_chunked_chain, run_chunked
 # shadow the stencilflow_tpu_torch.autotune module attribute
 from .autotune import compile_chain_autotuned
 from .interpreter import ChainInterpreter, run_interpreter
-from .data import (arrays_are_equal, load_input_arrays, prune_halo,
-                   save_output_arrays)
+from .data import (arrays_are_equal, load_array, load_input_arrays,
+                   prune_halo, save_array, save_output_arrays)
 
 __all__ = [
     "ITERATORS", "JUNK_VAL", "VERIFY_RTOL",
@@ -54,12 +62,15 @@ __all__ = [
     "Call", "Compare", "Const", "InputSpec", "KernelSpec", "Program", "Ref",
     "Select", "UnaryOp",
     "parse_program", "StencilSyntaxError", "ChainGraph", "CycleError",
-    "ChainAnalysis", "program_to_json",
+    "ChainAnalysis", "flatten_index",
+    "canonicalize", "nest_dimension", "program_from_op_list",
+    "version_program",
+    "trace_program", "program_to_json",
     "compose_iterations", "iterate", "make_step",
     "adjoint_program", "fast_value_and_grad", "grad", "value_and_grad",
     "make_solver", "solve_cg", "solve_cgnr",
     "compile_chunked_chain", "run_chunked", "compile_chain_autotuned",
     "ChainInterpreter", "run_interpreter",
-    "arrays_are_equal", "load_input_arrays", "prune_halo",
-    "save_output_arrays",
+    "arrays_are_equal", "load_array", "load_input_arrays", "prune_halo",
+    "save_array", "save_output_arrays",
 ]

@@ -26,20 +26,25 @@
    rung), when a tile's live buffers fit shared memory;
 7. ``dense``, the whole-domain lowering — also the lowering on a CPU
    device.
+
+``route_source`` gives the CUDA C++ that rung's build compiles, by
+planning only (the ``compile`` subcommand's artifact).
 """
 import torch
 
 from .. import ir
 from ..frontend.analysis import ChainAnalysis
 from ..frontend.canonicalize import rotate_2d_to_rows
+from . import codegen
 from .dense import chain_halo, compile_chain
 from .group import compile_chain_group, plan_group
 from .linear import extract_linear
 from .overlap import OverlapPlan, compile_chain_overlap, shallow_extent
 from .panel import PanelPlan, compile_chain_panel
 from .stream import (MXU_MIN_FOOTPRINT, check_options, check_spill,
-                     compile_chain_stream, compile_stream_plan, plan_stream)
-from .tile import compile_chain_tile, plan_tile
+                     compile_chain_stream, compile_stream_plan, plan_stream,
+                     stream_source)
+from .tile import AUTO_MODE, compile_chain_tile, plan_tile, tile_source
 
 # rung 2: the reference's rows+group configuration for deep 2-D chains
 ROWS_GROUP = 8
@@ -157,6 +162,44 @@ def compile_chain_best(program, analysis=None, device="cuda", mxu="auto",
     return compile_chain(program, analysis), name
 
 
+def route_source(program, analysis=None, mxu="auto", mxu_precision="split",
+                 spill="auto"):
+    """``(backend name, CUDA C++ source, library name)`` of the kernel that
+    ``compile_chain_best(program, device="cuda")`` builds, by planning
+    only: each rung plans as its compile entry point does and generates
+    the source through the function its build compiles (a ``rows+`` rung:
+    the rotated program's, as ``compile_chain_rows`` builds it).  Raises
+    ValueError where the route is ``dense``, which has no generated
+    kernel."""
+    analysis = analysis or ChainAnalysis.run(program)
+    name, plan = _route(program, analysis, "cuda", mxu, mxu_precision,
+                        spill)
+    if name == f"rows+group_g{ROWS_GROUP}":
+        rot = rotate_2d_to_rows(program)
+        an = ChainAnalysis.run(rot)
+        plan = plan_group(rot, an, ROWS_PANEL, ROWS_GROUP)
+        return name, codegen.group_source(rot, an, plan), "group"
+    if name.startswith("rows+"):
+        inner, source, lib = route_source(rotate_2d_to_rows(program),
+                                          mxu=mxu,
+                                          mxu_precision=mxu_precision,
+                                          spill=spill)
+        return "rows+" + inner, source, lib
+    if name == "stream":
+        return name, stream_source(plan), "stream"
+    if name == "tile":
+        return name, tile_source(plan_tile(program, analysis,
+                                           mode=AUTO_MODE)), "tile"
+    if name == "overlap":
+        return name, codegen.overlap_source(
+            program, analysis, OverlapPlan.build(analysis)), "overlap"
+    if name == "panel":
+        return name, codegen.panel_source(
+            program, analysis, PanelPlan.build(analysis)), "panel"
+    raise ValueError(f"{program.name} routes to dense, the whole-domain "
+                     "torch lowering, which has no generated kernel")
+
+
 def compile_chain_rows(program, backend: str = "auto", group: int = 2,
                        panel: int = 0, device="cuda", mxu: str = "auto",
                        mxu_precision: str = "split", spill: str = "auto",
@@ -217,4 +260,4 @@ def compile_chain_rows(program, backend: str = "auto", group: int = 2,
 
 __all__ = ["chain_halo", "choose_backend", "compile_chain",
            "compile_chain_best", "compile_chain_group", "compile_chain_rows",
-           "compile_chain_stream", "compile_chain_tile"]
+           "compile_chain_stream", "compile_chain_tile", "route_source"]

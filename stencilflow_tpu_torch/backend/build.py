@@ -64,14 +64,23 @@ def find_nvcc() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME or NVCC)")
 
 
+def _digest(source: str) -> str:
+    return hashlib.sha256(
+        (source + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:24]
+
+
+def library_path(source: str, name: str) -> str:
+    """Where ``load_library`` keeps the library built from ``source``."""
+    return os.path.join(BUILD_DIR, f"{name}_{_digest(source)}.so")
+
+
 def load_library(source: str, name: str) -> ctypes.CDLL:
     """Compile ``source`` (cached by content hash) and load it."""
-    digest = hashlib.sha256(
-        (source + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:24]
+    digest = _digest(source)
     if digest in _loaded:
         return _loaded[digest]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+    so_path = library_path(source, name)
     if not os.path.isfile(so_path):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:

@@ -270,14 +270,18 @@ class StageEmitter:
         params = ", ".join(
             f"const {ctype(self.program.field_dtype(f))} v{i}"
             for i, (f, _) in enumerate(self.accesses)) or "void"
-        body = []
+        body, declared = [], {}
         for stmt in self.kspec.statements:
             src, ty = self.expr(stmt.rhs)
             if is_weak(ty):
                 self.env[stmt.lhs] = (src, ty)
                 continue
-            body.append(f"  const {ctype(ty)} t_{stmt.lhs} = {src};")
-            self.env[stmt.lhs] = (f"t_{stmt.lhs}", ty)
+            # a name assigned again (``f = ...; f = g(f)``, as SDFG
+            # imports write) gets a fresh C name: t_f, t_f__2, ...
+            n = declared[stmt.lhs] = declared.get(stmt.lhs, 0) + 1
+            var = f"t_{stmt.lhs}" + (f"__{n}" if n > 1 else "")
+            body.append(f"  const {ctype(ty)} {var} = {src};")
+            self.env[stmt.lhs] = (var, ty)
         src, ty = self.env[self.kspec.output_statement.lhs]
         kdt = np.dtype(self.kspec.dtype)
         out = conv(src, strong(ty), kdt) if not is_weak(ty) \

@@ -9,8 +9,10 @@ the same streamer over one out-of-core i-chunk (``compile_local_stream``,
 local mode below), and K3c, the ring spill (``choose_spill`` and the
 spill rung, spill below), with the reference's opt-in reduced
 precisions (bf16 below).  Not ported here: j-tiling (the port tiles (j,
-k) itself), bf16 compute (``compute_dtype``), micro-step blocks,
-stage-major order and BC padding (pipeline workarounds for the TPU).
+k) itself), micro-step blocks, stage-major order and BC padding
+(pipeline workarounds for the TPU).  Still to port: the reduced-precision
+compute ``compile_chain_stream(compute_dtype=)`` (every stage computed in
+bf16; ROADMAP Queue 2a item 4), which is not such a workaround.
 
 Planning follows the JAX package's choices per stage, untiled: compose
 runs of separable stages (``compose.py``, ``compose="auto"``), then plan

@@ -1,29 +1,37 @@
 """Command-line interface of the port: the ``run``, ``autotune``,
 ``simulate``, ``report``, ``iterate``, ``solve``, ``adjoint``,
+``canonicalize``, ``import-sdfg``, ``compile``, ``synthesize``,
 ``partition`` and ``run-distributed`` subcommands.
 
     python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] [--backend autotuned] --device cuda
     python -m stencilflow_tpu_torch.cli autotune <prog.json> [--no-sweep] [--trials N] [--cache F | --no-cache] [--json] [--device cuda | --emulation]
     python -m stencilflow_tpu_torch.cli simulate <prog.json> [--no-native] [--trace CSV] [--trace-chrome JSON] [--output-dir D]
-    python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R]
+    python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R] [--plot]
     python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
     python -m stencilflow_tpu_torch.cli solve <prog.json> --rhs random:0,1 [--method cg|cgnr] [--tol T] [--device cuda]
     python -m stencilflow_tpu_torch.cli adjoint <prog.json> [-o adj.json] [--wrt a,b]
+    python -m stencilflow_tpu_torch.cli canonicalize <prog.json> [-o out.json] [--symbols C=1.5,D=2] [--predicate-min-max]
+    python -m stencilflow_tpu_torch.cli import-sdfg <prog.sdfg> [-o out.json] [--dimensions I,J,K] [--symbols I=128] [--input-data SPEC] [--vector-length V]
+    python -m stencilflow_tpu_torch.cli compile <prog.json> [-o out.cu] [--emulation]
+    python -m stencilflow_tpu_torch.cli synthesize [-o out.json] [--num-stages N] [--dimensions I J K] [--shape cross|box|diffusion|hotspot|hdiff]
     python -m stencilflow_tpu_torch.cli partition <prog.json> --devices N [--at K | --cut K,.. | --optimize] [--enumerate-cuts]
     python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --devices N [--dim-axes none,x,y] [--force-host-devices] --compare-to-reference
     python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --parallel-mode pipeline --devices N [--split-at K | --cut K,.. | --optimize-cuts] [--pipeline-domain j=N[,k=M]] [--num-chunks C]
 
-Port of the same subcommands of ``stencilflow_tpu/cli.py``: the JAX
-package's own usage parses here too and prints the same lines.  Its
-spellings map to the port's (``--no-mxu`` is ``--mxu off``, ``--backend
-pallas`` is ``tile``, ``--backend xla`` is ``dense``, ``solve
---emulation`` and ``autotune --emulation`` are ``--device cpu``; the
-``run`` mode is accepted and
+Port of ``stencilflow_tpu/cli.py``: the JAX package's usage parses here
+too and prints the same lines.  Its spellings map to the port's
+(``--no-mxu`` is ``--mxu off``, ``--backend pallas`` is ``tile``,
+``--backend xla`` is ``dense``, ``solve --emulation`` and ``autotune
+--emulation`` are ``--device cpu``; the ``run`` mode is accepted and
 ignored, as there); options whose engines are not ported yet exit with
 ``error:`` and rc 2, naming the ROADMAP item that ports them.  The
 simulator (``run --run-simulation``, ``simulate``) runs on the host:
 ``simulate`` takes no ``--device``, and ``run`` keeps its device for the
-kernels.  The other subcommands are not ported yet.
+kernels.  ``compile`` writes the port's artifact where the JAX package
+writes StableHLO text: the CUDA C++ of the kernel ``compile_chain_best``
+builds for the program on the card, then builds it with nvcc
+(``--emulation``: the source only).  ``report --plot`` needs matplotlib
+and exits with ``error:`` and rc 2 where it cannot be imported.
 """
 from __future__ import annotations
 
@@ -33,8 +41,6 @@ import sys
 
 # option (as given) -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "--plot": "Queue 1 item 10 (M15; the card's machine has no "
-              "matplotlib)",
     "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model on an NVLink "
               "model)",
     "--comm-overlap": "Queue 1 item 8 (M12, the comm/compute overlap)",
@@ -191,11 +197,23 @@ def _cmd_report(args) -> int:
     from .frontend.analysis import ChainAnalysis
     from .frontend.parser import parse_program
     from .report import Report
-    for given, option in ((args.plot, "--plot"), (args.mesh, "--mesh")):
-        if given:
-            return _refuse(option)
+    if args.mesh:
+        return _refuse("--mesh")
     program = parse_program(args.stencil_file)
     analysis = ChainAnalysis.run(program)
+    if args.plot:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as exc:
+            print(f"error: report --plot needs matplotlib, which cannot be "
+                  f"imported ({exc})", file=sys.stderr)
+            return 2
+        from .utils import plot_chain_graph, plot_compute_graph
+        print("wrote " + plot_chain_graph(program,
+                                          f"{program.name}_chain.png"))
+        for kname, kspec in program.kernels.items():
+            print("wrote " + plot_compute_graph(
+                kspec, f"{program.name}_{kname}_compute.png"))
     report = Report.build(program, analysis)
     if args.json:
         print(json.dumps(report.as_dict(), indent=2, default=str))
@@ -288,6 +306,115 @@ def _cmd_adjoint(args) -> int:
         json.dump(spec, f, indent=2)
     print(f"wrote {out} (cotangent inputs: {cot}; "
           f"outputs: {adj.outputs})")
+    return 0
+
+
+def _cmd_canonicalize(args) -> int:
+    """Canonicalization passes + JSON re-export — the analogue of
+    bin/canonicalize_sdfg.py (cleanup) + bin/sdfg_to_stencilflow.py
+    (dialect emission)."""
+    from .frontend.canonicalize import canonicalize
+    from .frontend.export import program_to_json
+    from .frontend.parser import parse_program
+    program = parse_program(args.stencil_file)
+    constants = {}
+    if args.symbols:
+        for kv in args.symbols.split(","):
+            k, v = kv.split("=")
+            constants[k.strip()] = float(v)
+    program = canonicalize(program, constants=constants or None,
+                           min_max_to_select=args.predicate_min_max)
+    spec = program_to_json(program)
+    out = args.output or f"{program.name}_canonical.json"
+    with open(out, "w") as f:
+        json.dump(spec, f, indent=2)
+    print(f"wrote {out} ({len(program.kernels)} kernels)")
+    return 0
+
+
+def _cmd_import_sdfg(args) -> int:
+    """Serialized-DaCe-SDFG ingestion (bin/sdfg_to_stencilflow.py's import
+    direction, without a dace dependency — .sdfg files are JSON)."""
+    from .frontend.export import program_to_json
+    from .frontend.sdfg_import import sdfg_to_program
+    dims = ([int(x) for x in args.dimensions.split(",")]
+            if args.dimensions else None)
+    symbols = None
+    if args.symbols:
+        symbols = {}
+        for part in args.symbols.split(","):
+            name, sep, val = part.partition("=")
+            try:
+                v = float(val)
+            except ValueError:
+                sep = ""
+            if not sep or not name.strip():
+                print(f"bad --symbols entry {part!r} "
+                      "(want NAME=NUMBER)", file=sys.stderr)
+                return 2
+            symbols[name.strip()] = int(v) if v == int(v) else v
+    program = sdfg_to_program(args.sdfg_file, dimensions=dims,
+                              input_data=args.input_data,
+                              vectorization=args.vector_length,
+                              symbols=symbols)
+    spec = program_to_json(program)
+    out = args.output or f"{program.name}.json"
+    with open(out, "w") as f:
+        json.dump(spec, f, indent=2)
+    print(f"wrote {out} ({len(program.kernels)} kernels, "
+          f"inputs {sorted(program.inputs)}, outputs {program.outputs})")
+    return 0
+
+
+def _cmd_compile(args) -> int:
+    """Write the CUDA C++ of the kernel ``compile_chain_best(device=
+    "cuda")`` builds for the program (routed by planning only) and build
+    it with nvcc into ``_build/``; ``--emulation`` writes the source
+    only."""
+    import time
+
+    from .backend import build, route_source
+    from .frontend.parser import parse_program
+    program = parse_program(args.stencil_file)
+    backend, source, lib_name = route_source(program)
+    out = args.output or f"{program.name}.cu"
+    with open(out, "w") as f:
+        f.write(source)
+    print(f"lowered with backend '{backend}' -> {out} "
+          f"({len(source.encode())} bytes)")
+    if args.emulation:
+        return 0
+    t0 = time.perf_counter()
+    built = len(build.build_log)
+    build.load_library(source, lib_name)
+    nvcc = (f"nvcc {build.build_log[-1][1]:.1f} s"
+            if len(build.build_log) > built else "cached")
+    print(f"built {build.library_path(source, lib_name)} ({nvcc}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
+def _cmd_synthesize(args) -> int:
+    from .synthesize import synthesize_stencil
+    spec = synthesize_stencil(
+        num_stages=args.num_stages,
+        dimensions=tuple(args.dimensions),
+        shape=args.shape,
+        extent=args.extent,
+        data_type=args.data_type,
+        vectorization=args.vectorization,
+        fork_frequency=args.fork_frequency,
+        fork_length=args.fork_length,
+        input_frequency=args.input_frequency,
+        boundary=args.boundary,
+    )
+    text = json.dumps(spec, indent=2, default=str)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(text)
+        print(f"wrote {args.output}")
+    else:
+        print(text)
     return 0
 
 
@@ -605,7 +732,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimize-ratio", type=float, default=None,
                    help="also print the fast/slow placement at this ratio")
     p.add_argument("--plot", action="store_true",
-                   help="not ported yet (exits with rc 2)")
+                   help="write chain/compute graph PNGs (needs matplotlib)")
     p.add_argument("--mesh", default=None,
                    help="not ported yet (exits with rc 2)")
     p.add_argument("--mesh-axes", default="none,x,y",
@@ -673,6 +800,61 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wrt", help="comma-separated input names "
                                  "(default: all floating field inputs)")
     p.set_defaults(fn=_cmd_adjoint)
+
+    p = sub.add_parser("canonicalize",
+                       help="cleanup passes + JSON dialect re-export")
+    p.add_argument("stencil_file")
+    p.add_argument("-o", "--output")
+    p.add_argument("--symbols", help='e.g. "C=1.5,D=2"')
+    p.add_argument("--predicate-min-max", action="store_true")
+    p.set_defaults(fn=_cmd_canonicalize)
+
+    p = sub.add_parser("import-sdfg",
+                       help="ingest a serialized DaCe SDFG with Stencil "
+                            "library nodes into the JSON dialect "
+                            "(no dace dependency)")
+    p.add_argument("sdfg_file")
+    p.add_argument("-o", "--output")
+    p.add_argument("--dimensions",
+                   help="override domain dims, e.g. '64,64,64' (required "
+                        "when the SDFG shapes are symbolic)")
+    p.add_argument("--input-data", default="constant:1.0",
+                   help="data spec for imported inputs (reference: "
+                        "-data-directory; default constant:1.0)")
+    p.add_argument("--vector-length", type=int, default=1)
+    p.add_argument("--symbols",
+                   help="specialize free SDFG symbols, e.g. 'I=128,J=64'"
+                        " (the reference's bin/canonicalize_sdfg.py "
+                        "-symbols; seeds the interstate-edge symbol "
+                        "environment)")
+    p.set_defaults(fn=_cmd_import_sdfg)
+
+    p = sub.add_parser("compile",
+                       help="write the CUDA C++ of the program's route "
+                            "and build it with nvcc")
+    p.add_argument("stencil_file")
+    p.add_argument("-o", "--output", help="source file (default: "
+                                          "<name>.cu)")
+    p.add_argument("--emulation", action="store_true",
+                   help="write the source only (no nvcc, no card)")
+    p.set_defaults(fn=_cmd_compile)
+
+    p = sub.add_parser("synthesize", help="generate a benchmark program")
+    p.add_argument("-o", "--output")
+    p.add_argument("--num-stages", type=int, default=4)
+    p.add_argument("--dimensions", type=int, nargs="+",
+                   default=[64, 64, 64])
+    p.add_argument("--shape", default="cross",
+                   choices=["cross", "box", "diffusion", "hotspot",
+                            "hdiff"])
+    p.add_argument("--extent", type=int, default=1)
+    p.add_argument("--data-type", default="float32")
+    p.add_argument("--vectorization", type=int, default=1)
+    p.add_argument("--fork-frequency", type=int, default=0)
+    p.add_argument("--fork-length", type=int, default=1)
+    p.add_argument("--input-frequency", type=int, default=0)
+    p.add_argument("--boundary", default="constant")
+    p.set_defaults(fn=_cmd_synthesize)
 
     p = sub.add_parser("partition",
                        help="plan a pipeline split across devices")

@@ -8,14 +8,13 @@ and expose topological order, cycle diagnostics, and the downward-closed cut
 enumeration used for pipeline partitioning (``parallel/pipeline.py``).
 
 Copied from ``stencilflow_tpu/frontend/chain.py`` with no change of
-meaning (less ``edge_list`` and ``cut_edges``, which nothing in the port
-uses): the port cannot import the JAX package, whose ``__init__`` imports
-jax.
+meaning (less ``cut_edges``, which nothing in the port uses): the port
+cannot import the JAX package, whose ``__init__`` imports jax.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, FrozenSet, Iterator, List, Sequence, Set
+from typing import Dict, FrozenSet, Iterator, List, Sequence, Set, Tuple
 
 from .. import ir
 
@@ -107,6 +106,9 @@ class ChainGraph:
 
     def producers(self, kernel: str) -> List[str]:
         return self.redges.get(kernel, [])
+
+    def edge_list(self) -> List[Tuple[str, str]]:
+        return [(u, v) for u, succs in self.edges.items() for v in succs]
 
     # ------------------------------------------------------------------
     def enumerate_cuts(self) -> Iterator[FrozenSet[str]]:

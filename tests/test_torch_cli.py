@@ -10,7 +10,12 @@ reference's keys with the same hardware-independent numbers.
 ``run --backend autotuned`` runs the cached winner, ``partition`` prints
 the reference's lines, and ``run-distributed
 --parallel-mode pipeline`` runs on virtual CPU positions with the
-reference's rc-2 checks.
+reference's rc-2 checks.  ``synthesize`` prints and writes the
+reference's bytes, ``canonicalize`` and ``import-sdfg`` write its JSON,
+``compile --emulation`` writes the CUDA C++ of the program's route
+(each rung's source is what its compile entry point's plan gives), and
+``report --plot`` writes the reference's graphs or, without matplotlib,
+exits with ``error:`` and rc 2.
 """
 import argparse
 import json
@@ -143,8 +148,7 @@ def test_run_ring_storage_refused_elsewhere(jprog, capsys):
     assert "--ring-storage requires" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("extra,item", [(["--plot"], "item 10"),
-                                        (["--mesh", "x=2"], "item 8")])
+@pytest.mark.parametrize("extra,item", [(["--mesh", "x=2"], "item 8")])
 def test_report_refuses_unported_options(prog, capsys, extra, item):
     assert main(["report", prog] + extra) == 2
     err = capsys.readouterr().err
@@ -450,3 +454,234 @@ def test_run_autotuned_bf16_rings_winner(jprog, tmp_path, capsys,
     assert "backend: autotuned:panel:rings=bf16\n" in out
     assert "verified against reference: OK" in out
     assert main(argv + ["--tolerance", "1e-5"]) == 1
+
+
+NEW_COMMANDS = ("canonicalize", "import-sdfg", "compile", "synthesize")
+
+
+@pytest.mark.parametrize("command,extra", [
+    (c, e) for c in NEW_COMMANDS
+    for e in [[]] + list(_argvs(_subparser(ref_parser(), c)))],
+    ids=lambda v: v if isinstance(v, str) else " ".join(v))
+def test_new_subcommands_parse_every_reference_argument(command, extra):
+    argv = [command] + ([] if command == "synthesize" else ["f.json"]) \
+        + extra
+    want = vars(ref_parser().parse_args(argv))
+    got = vars(build_parser().parse_args(argv))
+    assert {k: v for k, v in got.items() if k != "fn"} == \
+        {k: v for k, v in want.items() if k != "fn"}
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--shape", "box", "--extent", "2"], ["--shape", "diffusion"],
+    ["--shape", "hotspot", "--dimensions", "8", "16"],
+    ["--shape", "hdiff", "--num-stages", "2", "--data-type", "float64"],
+    ["--fork-frequency", "2", "--fork-length", "2", "--input-frequency",
+     "3", "--boundary", "copy", "--vectorization", "2"]], ids=" ".join)
+def test_synthesize_matches_reference_bytes(tmp_path, capsys, extra):
+    assert ref_main(["synthesize"] + extra) == 0
+    want = capsys.readouterr().out
+    assert main(["synthesize"] + extra) == 0
+    assert capsys.readouterr().out == want
+    ref_out, out = str(tmp_path / "ref.json"), str(tmp_path / "port.json")
+    assert ref_main(["synthesize", "-o", ref_out] + extra) == 0
+    assert main(["synthesize", "-o", out] + extra) == 0
+    assert open(out, "rb").read() == open(ref_out, "rb").read()
+    assert capsys.readouterr().out == f"wrote {ref_out}\nwrote {out}\n"
+
+
+EXAMPLE_JSON = sorted(f for f in os.listdir(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "examples")) if f.endswith(".json"))
+
+
+def _both_write(argv_of, capsys):
+    """Run the reference CLI, then the port's, each writing to its own
+    file; return (want, got) JSON and check the printed lines agree."""
+    assert ref_main(argv_of("ref.json")) == 0
+    want_out = capsys.readouterr().out
+    assert main(argv_of("port.json")) == 0
+    got_out = capsys.readouterr().out
+    assert got_out == want_out.replace("ref.json", "port.json")
+    return json.load(open("ref.json")), json.load(open("port.json"))
+
+
+@pytest.mark.parametrize("extra", [[], ["--predicate-min-max"],
+                                   ["--symbols", "cap=1.5,ct=2"]],
+                         ids=" ".join)
+@pytest.mark.parametrize("name", EXAMPLE_JSON)
+def test_canonicalize_matches_reference(tmp_path, monkeypatch, capsys,
+                                        name, extra):
+    monkeypatch.chdir(tmp_path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = json.load(open(os.path.join(root, "examples", name)))
+    spec["dimensions"] = [min(d, 8) for d in spec["dimensions"]]
+    with open("prog.json", "w") as f:
+        json.dump(spec, f)
+    want, got = _both_write(
+        lambda out: ["canonicalize", "prog.json", "-o", out] + extra, capsys)
+    assert got == want
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--dimensions", "4,16,16"], ["--symbols", "I=4,J=16,K=16"],
+    ["--vector-length", "2", "--input-data", "random:0,1"]], ids=" ".join)
+@pytest.mark.parametrize("fixture", ["hdiff", "hdiff_mapnest",
+                                     "hdiff_mapnest_dace"])
+def test_import_sdfg_matches_reference(tmp_path, monkeypatch, capsys,
+                                       fixture, extra):
+    monkeypatch.chdir(tmp_path)
+    path = os.path.join(FIXTURES, f"{fixture}.sdfg")
+    want, got = _both_write(
+        lambda out: ["import-sdfg", path, "-o", out] + extra, capsys)
+    assert got == want
+
+
+@pytest.mark.parametrize("symbols", ["I", "=3", "I=x", "I=4,J"])
+def test_import_sdfg_bad_symbols(capsys, symbols):
+    path = os.path.join(FIXTURES, "hdiff_mapnest.sdfg")
+    argv = ["import-sdfg", path, "--symbols", symbols, "-o", "unused.json"]
+    assert ref_main(argv) == 2
+    want = capsys.readouterr().err
+    assert main(argv) == 2
+    assert capsys.readouterr().err == want
+    assert want.startswith("bad --symbols entry")
+    assert not os.path.exists("unused.json")
+
+
+def _route_programs():
+    """{route: program spec} with one small program per kernel route."""
+    return {
+        "overlap": synthesize_stencil(num_stages=1, dimensions=(8, 12, 16),
+                                      shape="diffusion"),
+        "panel": synthesize_stencil(num_stages=4, dimensions=(8, 12, 16),
+                                    shape="diffusion"),
+        "stream": synthesize_stencil(num_stages=2, dimensions=(8, 12, 16),
+                                     shape="box", extent=2),
+        "rows+group_g8": synthesize_stencil(num_stages=4,
+                                            dimensions=(64, 16),
+                                            shape="diffusion"),
+    }
+
+
+def _entry_source(program, route):
+    """The source of ``route``'s kernel from the plan its compile entry
+    point makes on the CPU, through the source function its build
+    compiles."""
+    from stencilflow_tpu_torch.backend import (codegen, group, overlap,
+                                               panel, stream, tile)
+    from stencilflow_tpu_torch.frontend.analysis import ChainAnalysis
+    from stencilflow_tpu_torch.frontend.canonicalize import \
+        rotate_2d_to_rows
+    if route.startswith("rows+"):
+        program = rotate_2d_to_rows(program)
+        route = route[len("rows+"):]
+    an = ChainAnalysis.run(program)
+    if route == "group_g8":
+        plan = group.compile_chain_group(program, panel=64, group=8,
+                                         device="cpu").plan
+        return codegen.group_source(program, an, plan)
+    if route == "panel":
+        plan = panel.compile_chain_panel(program, device="cpu").plan
+        return codegen.panel_source(program, an, plan)
+    if route == "overlap":
+        plan = overlap.compile_chain_overlap(program, device="cpu").plan
+        return codegen.overlap_source(program, an, plan)
+    if route == "stream":
+        return stream.stream_source(
+            stream.compile_chain_stream(program, device="cpu").plan)
+    assert route == "tile"
+    return tile.tile_source(tile.compile_chain_tile(program,
+                                                    device="cpu").plan)
+
+
+@pytest.mark.parametrize("route", sorted(_route_programs()))
+def test_compile_emulation_writes_the_routes_source(tmp_path, monkeypatch,
+                                                    capsys, route):
+    from stencilflow_tpu_torch.backend import route_source
+    from stencilflow_tpu_torch.frontend.parser import parse_program
+    monkeypatch.chdir(tmp_path)
+    with open("prog.json", "w") as f:
+        json.dump(_route_programs()[route], f)
+    assert main(["compile", "prog.json", "--emulation"]) == 0
+    program = parse_program("prog.json")
+    written = open(f"{program.name}.cu").read()
+    assert capsys.readouterr().out == (
+        f"lowered with backend '{route}' -> {program.name}.cu "
+        f"({len(written.encode())} bytes)\n")
+    assert route_source(program) == (route, written,
+                                     route.split("+")[-1].split("_")[0])
+    assert written == _entry_source(program, route)
+    assert not os.path.isdir("_build")
+
+
+@pytest.mark.parametrize("route,shape,extent", [
+    ("tile", "diffusion", 1), ("rows+overlap", "diffusion", 1),
+    ("rows+panel", "cross", 2), ("rows+stream", "box", 2)])
+def test_route_source_rungs_off_the_small_ladder(monkeypatch, route, shape,
+                                                 extent):
+    """The rungs that small programs do not reach (``tile`` and the 2-D
+    rescue ``rows+<lowering>``), with the route forced: each gives the
+    source of its compile entry point's plan."""
+    import stencilflow_tpu_torch.backend as be
+    from stencilflow_tpu_torch.frontend.parser import parse_program
+    program = parse_program(synthesize_stencil(
+        num_stages=2, dimensions=(12, 16), shape=shape, extent=extent))
+    real = be._route
+
+    def forced(p, *args):
+        if p is program:
+            return route, None
+        got = real(p, *args)
+        inner = route.split("+")[-1]
+        assert got[0] == inner   # the rotated program's own route
+        return got
+    monkeypatch.setattr(be, "_route", forced)
+    name, source, _lib = be.route_source(program)
+    assert name == route and source == _entry_source(program, route)
+
+
+def test_compile_refuses_dense_and_missing_nvcc(tmp_path, monkeypatch,
+                                                capsys):
+    monkeypatch.chdir(tmp_path)
+    with open("f16.json", "w") as f:
+        json.dump(synthesize_stencil(num_stages=2, dimensions=(8, 8, 8),
+                                     shape="diffusion",
+                                     data_type="float16"), f)
+    for extra in ([], ["--emulation"]):
+        assert main(["compile", "f16.json"] + extra) == 2
+        err = capsys.readouterr().err
+        assert err.startswith("error: ") and "routes to dense" in err
+    with open("prog.json", "w") as f:
+        json.dump(_route_programs()["panel"], f)
+    monkeypatch.delenv("NVCC", raising=False)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    assert main(["compile", "prog.json", "-o", "k.cu"]) != 0
+    assert "nvcc not found" in capsys.readouterr().err
+    assert os.path.getsize("k.cu") > 0   # the source is written first
+
+
+def test_report_plot_writes_the_graphs(prog, capsys):
+    from stencilflow_tpu_torch.frontend.parser import parse_program
+    assert main(["report", prog, "--plot"]) == 0
+    out = capsys.readouterr().out
+    p = parse_program(prog)
+    names = [f"{p.name}_chain.png"] + [f"{p.name}_{k}_compute.png"
+                                       for k in p.kernels]
+    assert out.splitlines()[:len(names)] == [f"wrote {n}" for n in names]
+    for n in names:
+        assert open(n, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def test_report_plot_without_matplotlib(prog, capsys, monkeypatch):
+    import sys
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert main(["report", prog, "--plot"]) == 2
+    err = capsys.readouterr().err
+    assert err.startswith("error: ") and "needs matplotlib" in err
+    assert not [f for f in os.listdir(".") if f.endswith(".png")]

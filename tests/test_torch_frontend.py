@@ -16,6 +16,7 @@ import pytest
 
 import stencilflow_tpu as ref
 import stencilflow_tpu_torch as port
+import stencilflow_tpu_torch.examples as port_examples
 from stencilflow_tpu_torch.synthesize import random_program
 from test_fuzz import make_random_program
 
@@ -324,3 +325,50 @@ def test_program_to_json_matches(path):
     again = port.parse_program(port.program_to_json(b), name=b.name)
     assert json.dumps(port.program_to_json(again), sort_keys=True,
                       default=str) == want
+
+
+def test_facade_matches_the_reference():
+    """Every export of the JAX package's facade, and no other."""
+    assert set(port.__all__) == set(ref.__all__)
+    for name in port.__all__:
+        assert hasattr(port, name), name
+
+
+def test_import_scan_covers_the_surfaces_slice():
+    """The scan reaches the frontends, the plot utilities and the example
+    scripts, and none of them imports jax or the JAX package, at any
+    depth of the module; matplotlib is imported inside the plot
+    functions only (the card's machine has none)."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    mods = ["frontend/canonicalize.py", "frontend/trace.py",
+            "frontend/mapnest.py", "frontend/sdfg_import.py",
+            "utils/__init__.py", "utils/plot.py", "examples/__init__.py"]
+    mods += [f"examples/{n}.py" for n in port_examples.NAMES]
+    for mod in mods:
+        rel = os.path.join("stencilflow_tpu_torch", mod)
+        assert rel in scanned
+        tree = ast.parse(open(os.path.join(ROOT, rel)).read(), rel)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in FORBIDDEN, f"{rel}: {n}"
+        top = [n for n in tree.body
+               if isinstance(n, (ast.Import, ast.ImportFrom))]
+        assert not any("matplotlib" in ast.dump(n) for n in top), rel
+    assert sorted(port_examples.NAMES) == sorted(
+        f[:-3] for f in os.listdir(os.path.join(ROOT, "examples"))
+        if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
+def test_chain_graph_dot_matches(path):
+    """``utils/plot.py chain_graph_dot``: the JAX package's DOT text."""
+    from stencilflow_tpu.utils import chain_graph_dot as ref_dot
+    from stencilflow_tpu_torch.utils import chain_graph_dot
+    assert chain_graph_dot(port.parse_program(path)) == \
+        ref_dot(ref.parse_program(path))

@@ -16,6 +16,7 @@ chip_smoke.py.  Three deliberately wrong schedules (every block
 mask-free, every packed ring at one offset, no slot for the plane in
 flight) must show as mismatches here.
 """
+import os
 import re
 
 import numpy as np
@@ -26,6 +27,7 @@ from stencilflow_tpu_torch.backend import codegen, panel
 from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
 from stencilflow_tpu_torch.config import H100_SMEM_PER_BLOCK
 from stencilflow_tpu_torch.frontend.canonicalize import rotate_2d_to_rows
+from stencilflow_tpu_torch.frontend.sdfg_import import sdfg_to_program
 from stencilflow_tpu_torch.synthesize import random_program, synthesize_stencil
 from test_torch_panel import PROGRAMS
 from test_torch_stream import run_source
@@ -39,7 +41,9 @@ def _synth(shape, dims, iters, **kw):
 
 # programs with blocks inside the (j, k) domain at the given tiles (and
 # ragged last tiles), one per boundary condition, the hdiff DAG with
-# rings of one step, a J = 1 rows plan, and the 1-, 2- and 8-byte types
+# rings of one step, the hdiff SDFG fixture as imported (stages that
+# assign one name twice), a J = 1 rows plan, and the 1-, 2- and 8-byte
+# types
 SCHED = {
     "jacobi-constant": (_synth("diffusion", (8, 40, 44), 3,
                                boundary_value=0.5), (4, 8)),
@@ -48,6 +52,10 @@ SCHED = {
     "jacobi-shrink": (_synth("diffusion", (8, 40, 44), 3,
                              boundary="shrink"), (4, 8)),
     "hdiff-dag": (_synth("hdiff", (5, 52, 60), 2), (4, 8)),
+    "hdiff-sdfg": (lambda: sdfg_to_program(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "fixtures", "hdiff.sdfg"), dimensions=(5, 20, 28),
+        input_data="random:0,1"), (4, 8)),
     "hotspot": (_synth("hotspot", (6, 36, 44), 3), (4, 8)),
     "rows": (lambda: rotate_2d_to_rows(port.parse_program(synthesize_stencil(
         num_stages=4, dimensions=(24, 120), shape="diffusion",
