@@ -50,7 +50,13 @@ Phases, one line each (any failure raises and exits non-zero):
    its budget), and single-pass bf16 band passes (``mxu_precision=
    "bf16"``, K3b) held by ``stream.bf16_passes_agree`` against their
    plain version and apart from the split route, on box-r2 (CUDA cores,
-   then tensor cores) and cross-r2; the overlapped-tile kernel
+   then tensor cores) and cross-r2; bf16 compute
+   (``compute_dtype="bfloat16"``: bf16 inputs, rings, math and outputs)
+   against its plain version by ``stream.bf16_compute_agree`` (bit for
+   bit per cell, the banded rule banded) in K3a (jacobi3d 40 x 48 x 72 x
+   4, hotspot3d with constant BC 0.3), K3b (the box of BC 0.7, both
+   routes) and K3c (jacobi3d 64^3 x 3 with every ring spilled); the
+   overlapped-tile kernel
    (K6), masked and fast (one launch: mask-free interior blocks, masked
    border blocks), against its plain version (fast: mask-free plus the
    torch fix-up of the border shell) on the example programs and fuzz
@@ -119,7 +125,12 @@ Phases, one line each (any failure raises and exits non-zero):
    each held to its plain version again and within BF16_VERIFY_RTOL of
    its cell's f32 route on the same inputs wherever its plain version is
    (one rule for every leg; the line prints both drifts), with both
-   times;
+   times; then bf16 compute (``compile_chain_stream(compute_dtype=
+   "bfloat16")``) on jacobi3d 512^3 x 8 (K3a) and box3d 256^3 x 8 of
+   extent 2 (K3b, tensor cores): the kernel against its plain version,
+   timed in turns with the f32 stream kernel on the same tile, its drift
+   from f32, one chained ``F.conv3d`` in bf16, and the leg through the
+   entry point with the count set to 0 just before and read just after;
 5. the out-of-core path (``run --host-chunks N``) through
    ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
    8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
@@ -152,7 +163,11 @@ Phases, one line each (any failure raises and exits non-zero):
    loop at 512 planes, U = 2, with its plain version and with ``copy_``
    as the body.  The graph-timed probes (P4, P7) count eager launches
    and graph captures: a replay re-runs the captured launches without
-   passing through the wrapper.  Then the design probes: P6 (dep and
+   passing through the wrapper.  P1's variant bodies of the TPU script
+   (mul4, expr_jac2d, expr_jac2d_shift, the three flux-limiter
+   formulations, selc and maskmul) each measured with its count reset
+   just before and read just after, then timed at 8 steps beside its
+   plain version.  Then the design probes: P6 (dep and
    indep, out and acc) and P3 (direct and the cp.async ring, every S) at
    1, 2 and all blocks per SM, P2 in every variant and P5 in every walk,
    each against its plain version bit for bit at ragged shapes and at
@@ -254,7 +269,14 @@ Phases, one line each (any failure raises and exits non-zero):
    BF16_VERIFY_RTOL of its f32 cell, and one launch at that shape (the
    last shard; segment 0 on chunk 1) against its plain version (rings
    bit for bit, passes by ``bf16_passes_agree``) and timed in turns with
-   the f32 cell's kernel on the same tiles.
+   the f32 cell's kernel on the same tiles.  Then the comm/compute
+   overlap (``comm_overlap=True``: the exchange on a side stream, the
+   interior K4 on the compute stream, two strip K4s a shard after it) on
+   jacobi3d 512^3 x 8 over 4 shards of i and box3d 256^3 x 8 of extent 2
+   over 2 (banded): once with the counts reset (K4 launches 3 x shards),
+   held to the uncomposed blocking call over 11 calls, timed in turns
+   with it beside the exchange and the blocking route, and the first
+   cell's interior and strip K4s against their plain versions.
 
 Phases 3 to 5 and 9 draw each program's inputs once a phase
 (``_InputMemo``: ``run_program`` and the script take the same seeded
@@ -269,10 +291,11 @@ lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
 and per segment's from phase 9; error, kernel, plain-version and library
 times measured in this run at the main path's shapes, bounds computed
-from its inputs; 25 entries: the stream kernel's on box and on cross,
-the four reduced-precision modes' from phase 4's bf16 legs, K4's bf16
-passes on chunks from phase 5 and K4's three reduced-precision legs
-from phase 9) and
+from its inputs; 36 entries: the stream kernel's on box and on cross,
+the four reduced-precision modes' from phase 4's bf16 legs and its two
+bf16-compute legs, K4's bf16 passes on chunks from phase 5, P1's eight
+variant bodies from phase 6, and K4's three reduced-precision legs and
+the overlap's interior and strip K4s from phase 9) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -493,17 +516,18 @@ def _share_bound(program, in_bytes: int, out_bytes: int, share: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bound(program, mxu_precision: str = "split"):
+def _bound(program, mxu_precision: str = "split", compute_dtype=None):
     """(bound ms, "bytes" or "operations") of one chain evaluation: the
     port's report (report.py, the H100 model of config.py), the memory
     floor against the faster compute strategy — one yardstick for this
     script, ``cli report`` and the bench.  ``mxu_precision="bf16"``: the
     band transforms as single-pass bf16 products at the dense bf16
-    tensor rate."""
+    tensor rate; ``compute_dtype="bfloat16"``: the bytes at 2 a cell."""
     from stencilflow_tpu_torch.report import Report
     rep = Report.build(program)
-    return (rep.roofline_time_s(mxu_precision) * 1e3,
-            "bytes" if rep.bound(mxu_precision) == "hbm" else "operations")
+    return (rep.roofline_time_s(mxu_precision, compute_dtype) * 1e3,
+            "bytes" if rep.bound(mxu_precision, compute_dtype) == "hbm"
+            else "operations")
 
 
 def _bf16_plan(sft, pn, gp, st, codegen, kind: str, p, kw):
@@ -681,12 +705,101 @@ def _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
                            f"{st.spill_bf16_launches} times over 4 calls")
 
 
-def _conv_chain_ms(program, radius: int, shape=None) -> float:
+def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
+    """Phase 4's bf16-compute legs at full width (``compile_chain_stream(
+    compute_dtype="bfloat16")``): jacobi3d 512^3 x 8 (K3a) and box3d
+    256^3 x 8 of extent 2 (K3b, its composed bands on tensor cores).  Each
+    cell's kernel against its plain version on the same inputs
+    (``stream.bf16_compute_agree``: bit for bit per cell, the banded rule
+    banded), then timed in turns with the f32 stream kernel on the same
+    tile where that plan fits (f32, bf16, bf16, f32), its drift from f32
+    (the largest difference over the largest output) and one chained
+    ``F.conv3d`` in bf16 over the domain (the library yardstick); then the
+    leg itself through the entry point, the count set to 0 just before and
+    read just after (one launch a call).  Returns the kernels line's
+    entries."""
+    import torch
+    out = {}
+    for key, (p, plan, f32) in cbf_main.items():
+        o = p.outputs[0]
+        lib, flib = (lib_of[st.stream_source(q)] for q in (plan, f32))
+        arrays = _spanned_on_card(sft, p)
+        got = st.run_stream(plan, arrays, lib)[o]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = st.stream_plain(plan, arrays)[o]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        banded = bool(plan.mxu_plans)
+        ok, fig = st.bf16_compute_agree(want.cpu().numpy(),
+                                        got.cpu().numpy(), banded)
+        ref = st.run_stream(f32, arrays, flib)[o].cpu().numpy()
+        drift = float(np.max(np.abs(got.cpu().numpy().astype(np.float64)
+                                    - ref)) / np.max(np.abs(ref)))
+        del got, want, ref
+        turns = [_time_ms(lambda q=q, lb=lb: st.run_stream(q, arrays, lb), 5)
+                 for q, lb in ((f32, flib), (plan, lib), (plan, lib),
+                               (f32, flib))]
+        ms, f32_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        del arrays
+        radius = 2 if banded else 1
+        lib_ms = _conv_chain_ms(p, radius, dtype=torch.bfloat16)
+        bound_ms, bound_by = _bound(p, compute_dtype="bfloat16")
+        # the leg through the entry point (a lookup of the built kernel)
+        fn = st.compile_chain_stream(p, compute_dtype="bfloat16")
+        inputs = {k: v if p.inputs[k].is_scalar else
+                  torch.as_tensor(np.asarray(v)).cuda()
+                  for k, v in sft.load_input_arrays(p, seed=0).items()}
+        st.compute_bf16_launches = 0
+        leg = fn(inputs)[o]
+        torch.cuda.synchronize()
+        launches = st.compute_bf16_launches
+        same = bool(torch.equal(leg, st.run_stream(plan, _spanned_on_card(
+            sft, p), lib)[o].reshape(leg.shape)))
+        del leg, inputs, fn
+        plan.device_pool.clear()
+        f32.device_pool.clear()
+        torch.cuda.empty_cache()
+        print(f"kernel: {key} {p.name} compute_dtype=bfloat16 tile "
+              f"{plan.tile} x {plan.threads}, smem {plan.smem_bytes()} B "
+              f"(f32 tile {f32.tile}, {f32.smem_bytes()} B)"
+              f"{', ' + _routes(plan) + ' passes' if banded else ''}: "
+              f"{ms:.3f} ms (in turns {turns[1]:.3f} / {turns[2]:.3f}) | "
+              f"f32 stream kernel {f32_ms:.3f} ms (in turns {turns[0]:.3f} "
+              f"/ {turns[3]:.3f}) | plain version {plain_ms:.1f} ms, "
+              f"max_abs_err {fig['max_abs_err']:.3g}, {fig['share']:.4%} of "
+              f"cells equal, {'OK' if ok else 'MISMATCH'} | drift from f32 "
+              f"{drift:.3g} of the largest output | bound {bound_ms:.4f} ms "
+              f"({bound_by}) | {len(p.kernels)} chained F.conv3d in bf16 "
+              f"{lib_ms:.3f} ms | leg: compile_chain_stream launches "
+              f"{launches}, equal to the kernel: {'yes' if same else 'NO'} "
+              f"| {smi}", flush=True)
+        if not ok or not same or launches != 1:
+            raise RuntimeError(f"{key}: the bf16-compute kernel disagrees "
+                               f"with its plain version ({fig}) or its leg "
+                               f"(launches {launches})")
+        out[key] = {"name": key, "route": "cuda",
+                    "source": "stencilflow_tpu_torch/backend/codegen.py",
+                    "replaces": "stencilflow_tpu/backend/stream.py:1683",
+                    "launches": launches, "max_abs_err": fig["max_abs_err"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms}
+    return out
+
+
+def _spanned_on_card(sft, p):
+    """``p``'s inputs (seed 0) at their spanned shapes on the card."""
+    from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    return spanned_arrays(p, sft.load_input_arrays(p, seed=0), device="cuda")
+
+
+def _conv_chain_ms(program, radius: int, shape=None, dtype=None) -> float:
     """One ``F.conv3d`` (``F.conv2d`` for a 2-D program) per stage,
     chained, computing the same constant-0 linear chain with TF32 off over
-    the program's domain (or ``shape``): the library yardstick (timed
-    only; the port never calls it).  The stages of these chains are
-    identical, so the first stage's coefficients give the filter."""
+    the program's domain (or ``shape``), in float32 or ``dtype``: the
+    library yardstick (timed only; the port never calls it).  The stages
+    of these chains are identical, so the first stage's coefficients give
+    the filter."""
     import torch
     import torch.nn.functional as F
     torch.backends.cudnn.allow_tf32 = False
@@ -698,10 +811,11 @@ def _conv_chain_ms(program, radius: int, shape=None) -> float:
         if key != ("const",):
             w[(0, 0) + tuple((o or 0) + radius
                              for o in key[1][3 - nd:])] = c
-    weight = torch.as_tensor(w, device="cuda")
+    weight = torch.as_tensor(w, device="cuda").to(dtype or torch.float32)
     x = torch.rand((1, 1) + tuple(shape or program.raw_dimensions),
                    device="cuda",
-                   generator=torch.Generator("cuda").manual_seed(0))
+                   generator=torch.Generator("cuda").manual_seed(0)).to(
+                       dtype or torch.float32)
     conv = F.conv3d if nd == 3 else F.conv2d
 
     def run():
@@ -928,7 +1042,8 @@ def _counts_zero(pn, ov, gp, tl, st):
     pn.bf16_launches = gp.bf16_launches = 0
     for name in ("launches", "local_launches", "spill_launches",
                  "shard_launches", "bf16_launches", "spill_bf16_launches",
-                 "local_bf16_launches", "shard_bf16_launches"):
+                 "local_bf16_launches", "shard_bf16_launches",
+                 "compute_bf16_launches"):
         setattr(st, name, 0)
 
 
@@ -940,7 +1055,7 @@ def _counts(pn, ov, gp, tl, st) -> dict:
     got.update({name: getattr(st, name) for name in (
         "launches", "local_launches", "spill_launches", "shard_launches",
         "bf16_launches", "spill_bf16_launches", "local_bf16_launches",
-        "shard_bf16_launches")})
+        "shard_bf16_launches", "compute_bf16_launches")})
     return {k: v for k, v in got.items() if v}
 
 
@@ -1099,13 +1214,21 @@ def _measurement(pn, smi):
     del x, y
     torch.cuda.empty_cache()
 
-    # P1: every op at 8 steps against its plain version on the card
+    # P1: every op at 8 steps against its plain version on the card (the
+    # plain versions of the script's variant bodies timed)
     xa = pa.inputs(pa.elements(), "cuda")
     worst = 0.0
+    variants = pa.OPS[pa.OPS.index("mul4"):]
+    var_plain = {}
     for op, smem in [(op, False) for op in pa.OPS] + [("add", True)]:
         got = pa.alu(op, xa, 8, smem=smem)
         torch.cuda.synchronize()
-        ok, err = pa.compare(op, got, pa.alu_plain(op, xa, 8))
+        t_plain = time.perf_counter()
+        want = pa.alu_plain(op, xa, 8)
+        torch.cuda.synchronize()
+        ok, err = pa.compare(op, got, want)
+        if op in variants:
+            var_plain[op] = (err, (time.perf_counter() - t_plain) * 1e3)
         if not ok:
             raise RuntimeError(f"alu kernel ({op}{', smem' if smem else ''})"
                                f" disagrees with its plain version: max "
@@ -1142,6 +1265,31 @@ def _measurement(pn, smi):
     pa.launches = 0
     alu_rows = pa.measure(("add", "fma", "fma_fused"), trials=3)
     p1["launches"] = pa.launches
+    # the variant bodies, each measured with the count reset just before
+    # and read just after, then timed at 8 steps beside its plain version
+    var_entries = {}
+    for op in variants:
+        pa.launches = 0
+        row = pa.measure((op,), trials=3, smem=False)[0]
+        n = pa.launches
+        ms = _time_ms(lambda op=op: pa.alu(op, xa, 8), 5)
+        err, plain_ms = var_plain[op]
+        apps = pa.APPLICATIONS.get(op, 1)
+        bound_ms = xa.numel() * pa.UNROLL * 8 * apps / hw.alu_ops * 1e3
+        var_entries["alu_ceiling_" + op] = dict(
+            entry, name="alu_ceiling_" + op,
+            source="stencilflow_tpu_torch/csrc/probes/alu.cu",
+            replaces="scripts/vpu_ceiling.py:240", launches=n,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="operations")
+        print(f"kernel: alu_ceiling {op} {xa.numel()} x {pa.UNROLL} x 8 "
+              f"({apps} counted ops an application): {ms:.4f} ms, plain "
+              f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+              f"(operations), max_abs_err {err:.3g} | measured "
+              f"{row['ops_per_s'] / 1e12:.3f} Top/s ({row['ms_per_step']:.4f}"
+              f" ms a step), launches {n} | {smi}", flush=True)
+        if n < 1:
+            raise RuntimeError(f"the measurement path skipped alu {op}")
     pc.launches = 0
     loops = pl.measure(unrolls=(1, 2), trials=3)
     p7_launches = pc.launches
@@ -1202,7 +1350,8 @@ def _measurement(pn, smi):
           f"max_abs_err {p7['max_abs_err']:.3g} | {smi}", flush=True)
     del a, b
     torch.cuda.empty_cache()
-    return {"copy_floor": p4, "alu_ceiling": p1, "loop_copy": p7}
+    return {"copy_floor": p4, "alu_ceiling": p1, "loop_copy": p7,
+            **var_entries}
 
 
 def _autotune_thunks(program, build_s):
@@ -2019,7 +2168,19 @@ def _sharded_setup(sft, jacobi8, box256):
                 p, m, "p", **kw)) if axes is None else
             (lambda p=p, m=mesh, a=axes, kw=kw: compile_sharded_chain(
                 p, m, a, **kw)))
-    return (cells, kcases, solvers, pipes, bf16), thunks
+    # the comm/compute overlap over shards of i: (label, program, mesh,
+    # tolerance against the blocking call); the blocking engine of each,
+    # uncomposed as the overlap is, is built here
+    overlap = [("jacobi3d 512^3 x 8, 4 shards of i", jacobi8, i4, 0.0),
+               ("box3d 256^3 x 8 extent 2, 2 shards of i", box256,
+                ((2,), ("x",), ("x", None, None)), MXU_VERIFY_RTOL)]
+    for _label, p, (shape, names, axes), _tol in overlap:
+        mesh = make_mesh([cuda], shape, names)
+        thunks.append(lambda p=p, m=mesh, a=axes: compile_sharded_chain(
+            p, m, a, comm_overlap=True))
+        thunks.append(lambda p=p, m=mesh, a=axes: compile_sharded_chain(
+            p, m, a, compose="off"))
+    return (cells, kcases, solvers, pipes, bf16, overlap), thunks
 
 
 def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
@@ -2235,6 +2396,152 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
           f"one device | {smi}", flush=True)
     print(f"sharded: the domain engine took "
           f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
+    return entry
+
+
+def _overlap(sft, st, pn, ov, gp, tl, setup, smi):
+    """Phase 9, continued: the comm/compute overlap
+    (``compile_sharded_chain(comm_overlap=True)``) over virtual shards of
+    i: jacobi3d 512^3 x 8 over 4 (B0 = 128, h = 8: a 112-plane interior
+    K4 and two 8-plane strip K4s a shard) and box3d 256^3 x 8 of extent 2
+    over 2 (banded interior and strips).  Each cell driven once with the
+    counts reset just before and read just after (K4's shard launches 3 x
+    shards, nothing else), then held to the blocking call over 10 more
+    calls (bit for bit per cell, MXU_VERIFY_RTOL banded: the interior and
+    strip plans sum their bands in their own tiles), timed in turns with
+    it (blocking, overlapped, overlapped, blocking) beside the exchange
+    alone and the blocking route's call (which composes box's affine
+    run: the overlap does not, as the reference's, so the blocking call
+    held and timed in turns is the uncomposed one); the first cell's last
+    shard's interior and strip K4s against their plain versions and
+    timed.  On one card the exchange's side
+    stream and the interiors share the card: no scaling figure.  Returns
+    the kernels line's entry."""
+    import torch
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.report import Report
+    cuda = torch.device("cuda", 0)
+    entry, launches, k_err = None, 0, 0.0
+    for label, p, (shape, names, axes), rtol in setup[5]:
+        mesh = make_mesh([cuda], shape, names)
+        fn, plan = compile_sharded_chain(p, mesh, axes, comm_overlap=True)
+        block, _ = compile_sharded_chain(p, mesh, axes, compose="off")
+        routed, _ = compile_sharded_chain(p, mesh, axes)
+        cfg = fn.last_config
+        if cfg["backend"] != "stream" or not cfg["comm_overlap"]:
+            raise RuntimeError(f"overlap: {label} took {cfg}")
+        placed = place_global_inputs(p, plan, sft.load_input_arrays(p,
+                                                                    seed=0))
+        torch.cuda.synchronize()
+        _counts_zero(pn, ov, gp, tl, st)
+        out = fn(placed)
+        torch.cuda.synchronize()
+        counts = _counts(pn, ov, gp, tl, st)
+        n = counts.pop("shard_launches", 0)
+        if n != 3 * mesh.size or counts:
+            raise RuntimeError(f"overlap: {label}: K4 launched {n} times for "
+                               f"{mesh.size} shards (others {counts})")
+        launches += n
+        o = p.outputs[0]
+        want = block(placed)[o].gather(cuda).cpu().numpy()
+        worst = 0.0
+        for _rep in range(11):
+            got = (out if _rep == 0 else fn(placed))[o].gather(cuda)
+            good, err = _compare(got.cpu().numpy(), want, rtol)
+            worst = max(worst, err)
+            if not good or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"overlap: {label} call {_rep} differs "
+                                   f"from the blocking call ({err})")
+        del out, got
+        turns = [_time_ms(lambda f=f: f(placed), 5)
+                 for f in (block, fn, fn, block)]
+        x_ms = _time_ms(lambda: block.exchange(placed), 5)
+        r_ms = _time_ms(lambda: routed(placed), 5)
+        ip, sp = fn.plan
+        line = ""
+        if entry is None:
+            # the last shard's interior and strips, each against its plain
+            # version, then the three timed one after another
+            c = plan.mesh.coords()[-1]
+            start, oj, ok = plan.block_origin(c)
+            h, B0 = plan.halo[0], plan.block[0]
+            raw = {n: v if p.inputs[n].is_scalar else v.shards[c]
+                   for n, v in placed.items()}
+            wide = block.exchange(placed)[c]
+            slabs = [({n: v if p.inputs[n].is_scalar else v.narrow(
+                0, lo, 3 * h) for n, v in wide.items()}, origin)
+                for lo, origin in ((0, start - h),
+                                   (B0 - h, start + B0 - 2 * h))]
+            calls = [(ip, start, raw)] + [(sp, org, sl) for sl, org in slabs]
+            libs = [st.build_stream(q) for q, _o, _a in calls]
+            s_err = 0.0
+            plain_ms = 0.0
+            for (q, org, arrs), lib in zip(calls, libs):
+                got = st.run_local_stream(q, org, arrs, lib, oj, ok,
+                                          plan.instance(c))[o]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want_k = st.local_stream_plain(q, org, arrs, oj, ok,
+                                               plan.instance(c))[o]
+                torch.cuda.synchronize()
+                plain_ms += (time.perf_counter() - t0) * 1e3
+                good, err = _compare(got.cpu().numpy(),
+                                     want_k.cpu().numpy(), rtol)
+                s_err = max(s_err, err)
+                if not good:
+                    raise RuntimeError(f"overlap: {label}: K4 (block "
+                                       f"{q.block}) disagrees with its plain "
+                                       f"version ({err})")
+            k_ms = _time_ms(lambda: [st.run_local_stream(
+                q, org, arrs, lib, oj, ok, plan.instance(c))
+                for (q, org, arrs), lib in zip(calls, libs)], 5)
+            k_err = max(k_err, s_err)
+            in_bytes = sum(t.numel() * t.element_size()
+                           for _q, _o, arrs in calls
+                           for n, t in arrs.items()
+                           if not p.inputs[n].is_scalar)
+            out_bytes = sum(int(np.prod(plan.block)) * np.dtype(
+                p.kernels[q].dtype).itemsize for q in p.outputs)
+            rep = Report.build(p)
+            t_bytes = (in_bytes + out_bytes) / rep.hw.hbm_bandwidth * 1e3
+            t_ops = rep.alu_time_s() / mesh.size * 1e3
+            bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                  else (t_ops, "operations"))
+            lib_ms = _conv_chain_ms(p, 1, shape=(B0 + 2 * h,)
+                                    + tuple(plan.block[1:]))
+            entry = {"name": "local_stream_shard_overlap", "route": "cuda",
+                     "source": "stencilflow_tpu_torch/backend/codegen.py",
+                     "replaces": "stencilflow_tpu/backend/stream.py:1943",
+                     "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+            line = (f" | shard {c}: interior K4 ({ip.block} planes, tile "
+                    f"{ip.tile}) + 2 strip K4s ({sp.block} planes, tile "
+                    f"{sp.tile}) {k_ms:.3f} ms, plain versions "
+                    f"{plain_ms:.1f} ms, max_abs_err {s_err:.3g}, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}), {len(p.kernels)} "
+                    f"chained F.conv3d over the widened shard "
+                    f"{lib_ms:.3f} ms")
+            del raw, wide, slabs, calls
+        print(f"overlap: {label} (banded {cfg['mxu_stages']}; block "
+              f"{plan.block}, halo {plan.halo}) overlapped "
+              f"{(turns[1] + turns[2]) / 2:.3f} ms a call (in turns "
+              f"{turns[1]:.3f} / {turns[2]:.3f}) | blocking "
+              f"{(turns[0] + turns[3]) / 2:.3f} ms ({turns[0]:.3f} / "
+              f"{turns[3]:.3f}) | exchange {x_ms:.3f} ms | blocking route "
+              f"({'composed' if routed.last_config.get('composed') else 'the same plan'})"
+              f" {r_ms:.3f} ms | K4 launches {n} "
+              f"= 3 x {mesh.size} shards | 11 calls "
+              f"{'within MXU_VERIFY_RTOL of' if rtol else 'equal to'} the "
+              f"blocking call (max_abs_err {worst:.3g}){line} | {smi}",
+              flush=True)
+        del placed, routed
+        for q in fn.plan:
+            q.device_pool.clear()
+        torch.cuda.empty_cache()
+    entry.update(launches=launches, max_abs_err=k_err)
     return entry
 
 
@@ -3000,6 +3307,30 @@ def main() -> int:
         bf16_main[key] = (kernel, p) + _bf16_plan(sft, pn, gp, st, codegen,
                                                   kernel, p, kw)
         sources.append((bf16_main[key][-1], kernel))
+    # bf16 compute (compute_dtype="bfloat16": K3a, K3b, K3c): phase 3's
+    # small cases, then phase 4's legs, each beside the f32 stream plan on
+    # its tile (where that fits)
+    cbf_small = []
+    for label, p, kw in (
+            ("K3a jacobi3d", synth("diffusion", small, 4), {"mxu": "off"}),
+            ("K3a hotspot3d", synth("hotspot", small, 3,
+                                    boundary_value=0.3), {}),
+            ("K3b box-r2", stream_cases[2][1], {}),
+            ("K3b box-r2 fma", stream_cases[2][1], {"passes": "fma"}),
+            ("K3c jacobi3d spilled", local_cases[0][1], {"spill": "all"})):
+        plan = st.plan_stream(p, compute_dtype="bfloat16", **kw)
+        cbf_small.append((label, p, plan))
+        sources.append((st.stream_source(plan), "stream"))
+    cbf_main = {}
+    for key, p in (("stream_compute_bf16", jacobi8),
+                   ("stream_compute_bf16_banded", box256)):
+        plan = st.plan_stream(p, compute_dtype="bfloat16")
+        try:
+            f32 = st.plan_stream(p, tile=plan.tile)
+        except ValueError:
+            f32 = st.plan_stream(p)
+        cbf_main[key] = (p, plan, f32)
+        sources += [(st.stream_source(q), "stream") for q in (plan, f32)]
     # K6: phase 3's programs in both modes, then the forced cells
     tile_plans = []
     for label, p in cases:
@@ -3234,6 +3565,43 @@ def main() -> int:
             if not ok or n != 1:
                 raise RuntimeError(f"{kernel} kernel ({label}) disagrees "
                                    "with its plain version")
+
+    # bf16 compute: per-cell plans bit for bit, banded ones by the banded
+    # rule (``stream.bf16_compute_agree``); each kernel and plain version
+    # timed (K3c's only timing: no main-path cell runs it)
+    for label, p, plan in cbf_small:
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        lib = lib_of[st.stream_source(plan)]
+        before = st.compute_bf16_launches
+        got = st.run_stream(plan, arrays, lib)
+        torch.cuda.synchronize()
+        n = st.compute_bf16_launches - before
+        t0 = time.perf_counter()
+        want = st.stream_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 5)
+        bound_ms, bound_by = _bound(p, compute_dtype="bfloat16")
+        conv = (f", {len(p.kernels)} chained F.conv3d in bf16 "
+                f"{_conv_chain_ms(p, 1, dtype=torch.bfloat16):.4f} ms"
+                if plan.packed else "")
+        for o in p.outputs:
+            ok, fig = st.bf16_compute_agree(want[o].cpu().numpy(),
+                                            got[o].cpu().numpy(),
+                                            bool(plan.mxu_plans))
+            print(f"compare: bf16c   {label:28s} tile {plan.tile} x "
+                  f"{plan.threads} smem {plan.smem_bytes()} B"
+                  f"{' spilled %d rings' % len(plan.spilled) if plan.packed else ''}"
+                  f"{', ' + _routes(plan) + ' passes' if plan.tkeys else ''}"
+                  f" max_abs_err {fig['max_abs_err']:.3g} ({fig['share']:.4%}"
+                  f" of cells equal) launches {n} "
+                  f"{'OK' if ok else 'MISMATCH'} | {ms:.4f} ms, plain "
+                  f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}){conv}", flush=True)
+            if not ok or n != 1:
+                raise RuntimeError(f"bf16-compute stream kernel ({label}) "
+                                   "disagrees with its plain version")
 
     # K6, masked and fast
     for label, p, plan in tile_plans:
@@ -3709,6 +4077,7 @@ def main() -> int:
     _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
                bf16_plain, f32_route, report, smi,
                (jacobi8, jacobi32, jacobi2d, box256))
+    report.update(_compute_bf16_legs(sft, st, cbf_main, lib_of, smi))
     print(f"phase 4: the bf16 legs took {time.perf_counter() - t4:.1f} s",
           flush=True)
     # the library yardstick, after the main path (cuDNN state stays out
@@ -3771,6 +4140,8 @@ def main() -> int:
     report["local_stream_segment"] = _pipeline(sft, st, pn, ov, gp, tl,
                                                sharded_setup, smi)
     report.update(_k4_bf16(sft, st, pn, ov, gp, tl, sharded_setup, smi))
+    report["local_stream_shard_overlap"] = _overlap(
+        sft, st, pn, ov, gp, tl, sharded_setup, smi)
     inputs_memo.clear()
     print(f"sharded: phase 9 took {time.perf_counter() - t9:.1f} s | {smi}",
           flush=True)

@@ -35,8 +35,9 @@ import numpy as np
 
 from .. import ir
 from ..frontend.analysis import ChainAnalysis
-from .promotion import (const_dtype_of, const_type, fill_value, is_bool,
-                        is_float, is_weak, result_type, strong)
+from .promotion import (BF16, F32, bf16_join, bf16_value, const_dtype_of,
+                        const_type, fill_value, is_bool, is_float, is_weak,
+                        result_type, strong)
 from .stacked_io import THREADS, accesses_with_center
 
 _CT = {"float32": "float", "float64": "double", "int8": "int8_t",
@@ -163,11 +164,14 @@ def conv(src: str, ty_from, ty_to) -> str:
 
 
 class StageEmitter:
-    """Emits one kernel's stage function."""
+    """Emits one kernel's stage function (``bf16``: computed in bf16, the
+    stream kernel's compute_dtype="bfloat16", ``expr_bf16``)."""
 
-    def __init__(self, program: ir.Program, kspec: ir.KernelSpec):
+    def __init__(self, program: ir.Program, kspec: ir.KernelSpec,
+                 bf16: bool = False):
         self.program = program
         self.kspec = kspec
+        self.bf16 = bf16
         self.pin = const_dtype_of(kspec)
         self.accesses: List[Tuple[str, ir.Offsets]] = [
             (f, offs) for f, lst in kspec.accesses().items()
@@ -266,7 +270,99 @@ class StageEmitter:
             return f"sf_{e.fn}({conv(a, at, ty)})", ty
         raise TypeError(f"unknown expression node {type(e)}")
 
+    def expr_bf16(self, e: ir.Expr):
+        """``expr`` under bf16 compute (tile_eval ``eval_expr_bf16``'s
+        rule): array reads are bf16 values carried in float, float32
+        scalars and float constants float32; a bf16 site computes in
+        float and rounds its result (``sf_bfr``), a weak scalar meeting
+        bf16 is rounded to bf16 here."""
+        rec = self.expr_bf16
+
+        def cast(src, ty_from, ty_to):
+            if is_weak(ty_from):
+                v = bf16_value(ty_from[1]) if ty_to == BF16 else ty_from[1]
+                return literal(v, F32)
+            if is_bool(ty_from) and not is_bool(ty_to):
+                return f"((float)({src}))"
+            return src
+
+        def both(a, at, b, bt):
+            ty = bf16_join(at, bt)
+            return cast(a, at, ty), cast(b, bt, ty), ty
+
+        def rnd(src, ty):
+            return f"sf_bfr({src})" if ty == BF16 else src
+        if isinstance(e, ir.Const):
+            v, ty = const_type(e.value, F32)
+            return (str(v) if is_weak(ty) else literal(v, ty)), ty
+        if isinstance(e, ir.Ref):
+            return self.env[e.name]
+        if isinstance(e, ir.Access):
+            spec = self.program.inputs.get(e.field)
+            return (f"v{self.ids[(e.field, e.offsets)]}",
+                    F32 if spec is not None and spec.is_scalar else BF16)
+        if isinstance(e, ir.BinOp):
+            (a, at), (b, bt) = rec(e.left), rec(e.right)
+            if is_weak(at) and is_weak(bt):
+                return self.expr(e)
+            a, b, ty = both(a, at, b, bt)
+            if is_bool(ty):
+                if e.op in ("add", "mult"):
+                    op = "||" if e.op == "add" else "&&"
+                    return f"(({a}) {op} ({b}))", ty
+                raise TypeError("numpy rejects bool - bool and bool / bool")
+            return rnd(f"(({a}) {_SYM[e.op]} ({b}))", ty), ty
+        if isinstance(e, ir.UnaryOp):
+            a, at = rec(e.operand)
+            if is_weak(at):
+                return str(-at[1]), (at[0], -at[1])
+            if is_bool(at):
+                raise TypeError("numpy rejects unary minus on bool")
+            return f"(-({a}))", at
+        if isinstance(e, ir.Compare):
+            (a, at), (b, bt) = rec(e.left), rec(e.right)
+            a, b, _ty = both(a, at, b, bt)
+            return f"(({a}) {_CMP[e.op]} ({b}))", np.dtype(np.bool_)
+        if isinstance(e, ir.BoolOp):
+            parts = [rec(o) for o in e.operands]
+            if not all(is_bool(t) for _s, t in parts):
+                raise NotImplementedError(
+                    "and/or of non-bool under bf16 compute")
+            op = " & " if e.op == "and" else " | "
+            return (f"((bool)({op.join(f'({x})' for x, _t in parts)}))",
+                    np.dtype(np.bool_))
+        if isinstance(e, ir.Select):
+            c, ct = rec(e.cond)
+            (t, tt), (f, ft) = rec(e.if_true), rec(e.if_false)
+            cond = c if is_bool(ct) else conv(c, ct, np.dtype(np.bool_)) \
+                if is_weak(ct) else f"(({c}) != 0)"
+            t, f, ty = both(t, tt, f, ft)
+            return f"(({cond}) ? ({t}) : ({f}))", ty
+        if isinstance(e, ir.Call):
+            args = [rec(a) for a in e.args]
+            if e.fn in ("min", "max"):
+                (a, at), (b, bt) = args
+                a, b, ty = both(a, at, b, bt)
+                if is_bool(ty):
+                    raise NotImplementedError(
+                        "min/max of bool under bf16 compute")
+                return f"sf_{e.fn}({a}, {b})", ty
+            (a, at), = args
+            if is_weak(at) or is_bool(at):
+                if e.fn == "abs" and is_weak(at):
+                    return str(abs(at[1])), (at[0], abs(at[1]))
+                if e.fn == "abs":
+                    return a, at
+                raise NotImplementedError(
+                    f"{e.fn} of a scalar literal under bf16 compute")
+            if e.fn == "abs":
+                return f"sf_fabs({a})", at
+            return rnd(f"sf_{e.fn}({a})", at), at
+        raise TypeError(f"unknown expression node {type(e)}")
+
     def function(self, name: str) -> str:
+        if self.bf16:
+            return self._function_bf16(name)
         params = ", ".join(
             f"const {ctype(self.program.field_dtype(f))} v{i}"
             for i, (f, _) in enumerate(self.accesses)) or "void"
@@ -287,6 +383,32 @@ class StageEmitter:
         out = conv(src, strong(ty), kdt) if not is_weak(ty) \
             else conv(src, ty, kdt)
         return (f"SF_HD {ctype(kdt)} {name}({params}) {{\n"
+                + "\n".join(body) + f"\n  return {out};\n}}\n")
+
+    def _function_bf16(self, name: str) -> str:
+        """The stage function under bf16 compute: float parameters that
+        hold bf16 values, a float result rounded to bf16."""
+        params = ", ".join(f"const float v{i}" for i in
+                           range(len(self.accesses))) or "void"
+        body, declared = [], {}
+        for stmt in self.kspec.statements:
+            src, ty = self.expr_bf16(stmt.rhs)
+            if is_weak(ty):
+                self.env[stmt.lhs] = (src, ty)
+                continue
+            n = declared[stmt.lhs] = declared.get(stmt.lhs, 0) + 1
+            var = f"t_{stmt.lhs}" + (f"__{n}" if n > 1 else "")
+            ct = "bool" if is_bool(ty) else "float"
+            body.append(f"  const {ct} {var} = {src};")
+            self.env[stmt.lhs] = (var, ty)
+        src, ty = self.env[self.kspec.output_statement.lhs]
+        if is_weak(ty):
+            out = literal(bf16_value(ty[1]), F32)
+        elif ty == BF16:
+            out = src
+        else:
+            out = f"sf_bfr((float)({src}))"
+        return (f"SF_DEV float {name}({params}) {{\n"
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
 
 
@@ -311,7 +433,7 @@ def _inb(dim_mask, coords, dims) -> str:
 def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
               offsets: ir.Offsets, pos: Tuple[str, str, str],
               onchip, scalar_slot: Dict[str, int], at_pos=None,
-              at_dims=None, masked: bool = True) -> str:
+              at_dims=None, masked: bool = True, bf16: bool = False) -> str:
     """C expression reading ``field`` at ``offsets`` from the cell whose
     global coords are ``pos``, boundary condition applied (unless
     ``masked`` is False: the mask-free interior read, zero beyond the
@@ -319,7 +441,8 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     field at offset vector ``o`` (or None: read the global array
     ``g_<field>``, whose cell is at ``at_pos`` in an array spanning
     ``at_dims`` — ``pos`` and the program's dimensions unless a chunk's
-    local slab is read)."""
+    local slab is read).  ``bf16``: under bf16 compute the global arrays
+    hold bf16 and a constant BC's fill rounds to bf16."""
     if field in program.inputs and program.inputs[field].is_scalar:
         return f"sc.x{scalar_slot[field]}"
     dims = program.dimensions
@@ -335,8 +458,9 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
         if lv is not None:
             return lv
         c = [f"({at_pos[d]} + {o[d]})" for d in range(3)]
-        return (f"(({_inb(mask, c, at_dims)}) ? g_{field}"
-                f"[{_flat(mask, c, at_dims)}] : {literal(0, dt)})")
+        g = f"g_{field}[{_flat(mask, c, at_dims)}]"
+        return (f"(({_inb(mask, c, at_dims)}) ? "
+                f"{f'sf_bf2f({g})' if bf16 else g} : {literal(0, dt)})")
 
     val = at(offs)
     if not terms or not masked:
@@ -345,54 +469,64 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     bc = kspec.boundary_conditions.get(field)
     if bc is not None and bc.kind == ir.BCKind.COPY:
         return f"(({m}) ? {at((0, 0, 0))} : {val})"
-    return f"(({m}) ? {literal(fill_value(bc, dt), dt)} : {val})"
+    fill = fill_value(bc, dt)
+    if bf16:
+        fill = np.float32(bf16_value(fill))
+    return f"(({m}) ? {literal(fill, dt)} : {val})"
 
 
 def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
-                at_dims=None, masked: bool = True) -> List[str]:
+                at_dims=None, masked: bool = True,
+                bf16: bool = False) -> List[str]:
     em = StageEmitter(program, kspec)
     lines = [f"const {ctype(program.field_dtype(f))} v{i} = "
              + read_expr(program, kspec, f, offs, pos, onchip(f), slots,
-                         at_pos, at_dims, masked) + ";"
+                         at_pos, at_dims, masked, bf16) + ";"
              for i, (f, offs) in enumerate(em.accesses)]
     args = ", ".join(f"v{i}" for i in range(len(em.accesses)))
     lines.append(f"const {ctype(kspec.dtype)} r = sf_stage_{idx}({args});")
     return lines
 
 
-def _common(program: ir.Program, analysis: ChainAnalysis, skip=()):
+def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
+            bf16: bool = False):
     """(kernel order, prelude + scalar struct + one stage function per
-    kernel not in ``skip``, scalar slots)."""
+    kernel not in ``skip``, scalar slots); ``bf16``: stage functions
+    computed in bf16, after the stream kernel's and the bf16 macros they
+    call."""
     order = analysis.graph.kernel_order
-    funcs = [StageEmitter(program, program.kernels[k]).function(
+    funcs = [StageEmitter(program, program.kernels[k], bf16).function(
         f"sf_stage_{i}") for i, k in enumerate(order) if k not in skip]
     scalars = [n for n, s in program.inputs.items() if s.is_scalar]
     slots = {n: i for i, n in enumerate(scalars)}
     struct = ("struct SfScalars {\n  int unused_;\n"
               + "".join(f"  {ctype(program.inputs[n].dtype)} x{i};\n"
                         for i, n in enumerate(scalars)) + "};\n")
-    return order, prelude() + struct + "\n".join(funcs), slots
+    macros = _STREAM_MACROS + _BF16_MACROS if bf16 else ""
+    return order, prelude() + macros + struct + "\n".join(funcs), slots
 
 
 def _params(program: ir.Program, n_pool: int = 0,
-            origin: bool = False, spill: bool = False) -> Tuple[str, str]:
+            origin: bool = False, spill: bool = False,
+            bf16: bool = False) -> Tuple[str, str]:
     """Kernel parameter list and the matching launch arguments; ``n_pool``
     float32 tables follow the array inputs in ``in``; ``origin`` adds the
     local kernel's ``origin_i`` (``origin`` 3: and a shard's ``origin_j``,
     ``origin_k``); ``spill`` the stream kernel's spill
     buffer ``sf_spill`` (written and read back by the block, so neither
-    const nor restrict: no read goes through the non-coherent path)."""
+    const nor restrict: no read goes through the non-coherent path);
+    ``bf16``: array inputs and outputs are bf16 (bf16 compute)."""
     params, args = [], []
     arrays = [n for n, s in program.inputs.items() if not s.is_scalar]
     for i, n in enumerate(arrays):
-        ct = ctype(program.inputs[n].dtype)
+        ct = "sf_bf16" if bf16 else ctype(program.inputs[n].dtype)
         params.append(f"const {ct}* __restrict__ g_{n}")
         args.append(f"(const {ct}*)in[{i}]")
     for i in range(n_pool):
         params.append(f"const float* __restrict__ pc{i}")
         args.append(f"(const float*)in[{len(arrays) + i}]")
     for i, o in enumerate(program.outputs):
-        ct = ctype(program.kernels[o].dtype)
+        ct = "sf_bf16" if bf16 else ctype(program.kernels[o].dtype)
         params.append(f"{ct}* __restrict__ o_{o}")
         args.append(f"({ct}*)out[{i}]")
     params.append("const SfScalars sc")
@@ -411,8 +545,9 @@ def _params(program: ir.Program, n_pool: int = 0,
 
 def _launcher(program, kernel: str, grid: str, smem: int, slots,
               n_pool: int = 0, origin: bool = False,
-              spill: bool = False, threads: int = THREADS) -> str:
-    params, args = _params(program, n_pool, origin, spill)
+              spill: bool = False, threads: int = THREADS,
+              bf16: bool = False) -> str:
+    params, args = _params(program, n_pool, origin, spill, bf16)
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
     if spill:   # the spill buffer follows the tables in ``in``
@@ -535,9 +670,17 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
         src = (f"g_{f} + (long long)({t_expr}) * {PJ * PK}LL + "
                f"(inb ? {cell.format(PK=PK, K=K)} : 0)")
         dst = f"r_{f} + {slot(f)} * {RJ * RK} + p"
-        st = (f"sf_cp{size}({dst}, {src}, inb);" if size in (4, 8) else
-              f"*({dst}) = inb ? *({src}) : "
-              f"{literal(0, program.field_dtype(f))};")
+        if getattr(plan, "compute_bf16", False):
+            # bf16 arrays: synchronous copies (cp.async moves 4 bytes or
+            # more), into bf16 slots or a band pass's f32 source slots
+            st = (f"*({dst}) = inb ? *({src}) : sf_f2bf(0.0f);"
+                  if plan.bf16_slots(f) else
+                  f"*({dst}) = inb ? sf_bf2f(*({src})) : 0.0f;")
+        elif size in (4, 8):
+            st = f"sf_cp{size}({dst}, {src}, inb);"
+        else:
+            st = (f"*({dst}) = inb ? *({src}) : "
+                  f"{literal(0, program.field_dtype(f))};")
         inb = f"gj >= 0 && gj < {J} && gk >= 0 && gk < {K}"
         if sharded:
             inb += (f" && gj - wj < {PJ} && gk - wk < {PK}")
@@ -567,7 +710,7 @@ def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
         lambda f: _slot(plan, f, -AHEAD))]
     step += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();"]
     for f in fields:
-        if plan.rounded(f):
+        if plan.rounded(f) and not getattr(plan, "compute_bf16", False):
             # a cp.async copy cannot convert: each thread rounds the cells
             # of plane t it copied itself, once they have landed
             RJ, RK = plan.region(f)
@@ -1256,6 +1399,16 @@ class _StreamEmitter:
         # single-pass bf16 band passes: both operands of every pass round
         # to bf16 (the pool's bands are bf16 already: linear.finalize_pool)
         self.bf = plan.mxu_precision == "bf16"
+        # bf16 compute: the arrays hold bf16, every stage's result rounds
+        self.cbf = plan.compute_bf16
+
+    def gread(self, g: str) -> str:
+        """A value of a global array read at ``g`` as float."""
+        return f"sf_bf2f({g})" if self.cbf else g
+
+    def out(self, v: str) -> str:
+        """Value ``v`` as an output array stores it."""
+        return f"sf_f2bf({v})" if self.cbf else v
 
     def opnd(self, x: str) -> str:
         """A band pass's source operand ``x`` (rounded to bf16 under
@@ -1287,8 +1440,8 @@ class _StreamEmitter:
         mask = self.program.field_dim_mask(f)
         c = (pexpr,) + self.at("gj", "gk") if self.sharded else (
             pexpr, "(gj + 0)", "(gk + 0)")
-        return (f"(({_inb(mask, c, self.adims)}) ? g_{f}"
-                f"[{_flat(mask, c, self.adims)}] : 0.0f)")
+        g = self.gread(f"g_{f}[{_flat(mask, c, self.adims)}]")
+        return f"(({_inb(mask, c, self.adims)}) ? {g} : 0.0f)"
 
     def otf(self, tkey, pexpr, pre: List[str]) -> str:
         """Transformed plane ``pexpr`` of a field without a ring, summed
@@ -1300,7 +1453,7 @@ class _StreamEmitter:
         mask = self.program.field_dim_mask(f)
         v = f"tv{self.n_otf}"
         self.n_otf += 1
-        g = f"g_{f}[{_flat(mask, (pexpr,) + self.at('sj', 'sk'), self.adims)}]"
+        g = self.gread(f"g_{f}[{_flat(mask, (pexpr,) + self.at('sj', 'sk'), self.adims)}]")
         lj, lk = self.at("gj", "gk")
         pre += [f"float {v} = 0.0f;",
                 f"if (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) {{"]
@@ -1421,7 +1574,8 @@ class _StreamEmitter:
                 elif w_in[idx] != 0:
                     L.append(f"acc = fmaf({v}, "
                              f"{literal(f32(w_in[idx]), f32)}, acc);")
-            L.append("const float r = acc;")
+            L.append("const float r = sf_bfr(acc);" if self.cbf else
+                     "const float r = acc;")
             return L
         for grp in mp.groups:
             pexpr = "q" if grp.oi is None else "pi"
@@ -1472,7 +1626,8 @@ class _StreamEmitter:
             L += ["  }", "  acc = acc + part;", "}"]
         if mp.bias:
             L.append(f"acc = acc + {literal(f32(mp.bias), f32)};")
-        L.append("const float r = acc;")
+        L.append("const float r = sf_bfr(acc);" if self.cbf else
+                 "const float r = acc;")
         return L
 
     # -- the band passes -----------------------------------------------------
@@ -1788,7 +1943,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 body = em.banded(s, masked, onchip, tptrs, xs)
             else:
                 body = _stage_call(program, kspec, idx, pos, onchip, slots,
-                                   at_pos, em.adims, masked)
+                                   at_pos, em.adims, masked, em.cbf)
             if s in plan.raw_ring:
                 rv = _to_slot(plan, s, "r")
                 if masked and s in sources:   # the passes read 0 beyond
@@ -1804,7 +1959,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 if hk:
                     cond.append(f"kl >= {hk} && kl < {hk + tk}")
                 qo = f"(q - {h})" if local else "q"
-                ro = "sf_bfr(r)" if s in plan.rounds_out else "r"
+                ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r")
                 if sharded:   # the shard's core, every body
                     BJ, BK = plan.core()
                     cond.append(f"gj - origin_j < {BJ} && gk - origin_k < "
@@ -1887,32 +2042,39 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     local = bool(plan.block)
     Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
     kernel = "sf_local_stream" if local else "sf_stream"
-    order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans))
+    cbf = plan.compute_bf16
+    order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans),
+                                 bf16=cbf)
     tj, tk = plan.tile
     ntj, ntk = plan.grid()
     n_pool = len(plan.kernel_pool())
     spill = bool(plan.spilled)
     origin = 3 if plan.shard[0] else local
-    params, args = _params(program, n_pool, origin=origin, spill=spill)
+    params, args = _params(program, n_pool, origin=origin, spill=spill,
+                           bf16=cbf)
     em = _StreamEmitter(program, plan, slots)
+    # bf16 compute: _common put the stream and bf16 macros before the
+    # stage functions, which call sf_bfr
+    macros = [] if cbf else [_STREAM_MACROS] + _bf16_macros(plan)
     if plan.packed:
-        L = [head, _STREAM_MACROS, _SPILL_MACROS] + _bf16_macros(
-            plan) + _packed_stream_body(
+        L = [head] + macros[:1] + [_SPILL_MACROS] + macros[1:] + \
+            _packed_stream_body(
             program, plan, em, order, slots, kernel, params)
         L += _entry_points(program, kernel, params, args, (ntj, ntk),
                            plan.smem_bytes(), slots, n_pool, origin=origin,
-                           spill_bytes=plan.spill_bytes() if spill else 0)
+                           spill_bytes=plan.spill_bytes() if spill else 0,
+                           bf16=cbf)
         return "\n".join(L)
     body = _onchip_stream_body(program, plan, em, order, slots, kernel,
                                params)
     mma = []
     if "mma" in em.routes:
         mma = [_MMA_BF16_MACROS if em.bf else _MMA_MACROS]
-    L = [head, _STREAM_MACROS] + _bf16_macros(plan) + _skeleton_macros(
-        plan.threads) + mma + body
+    L = [head] + macros + _skeleton_macros(plan.threads) + mma + body
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
                        plan.smem_bytes(), slots, n_pool, origin=origin,
-                       min_blocks=plan.min_blocks(), threads=plan.threads)
+                       min_blocks=plan.min_blocks(), threads=plan.threads,
+                       bf16=cbf)
     L += _occupancy(plan.smem_bytes(), plan.threads, kernel)
     return "\n".join(L)
 
@@ -2055,6 +2217,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
                 inb += f" && gj - wj < {PJ} && gk - wk < {PK}"
                 src = (f"g_{f}[((long long)t * {PJ} + gj - wj) * {PK} + "
                        "gk - wk]")
+            src = em.gread(src)
             L += [f"      for (int p = tid; p < {RJ * RK}; p += nt) {{",
                   f"        const int jl = p / {RK}, kl = p - jl * {RK};",
                   f"        const int gj = j0 - {hj} + jl, "
@@ -2094,7 +2257,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             return at
 
         body = _stage_call(program, kspec, idx, pos, onchip, slots, at_pos,
-                           em.adims)
+                           em.adims, bf16=em.cbf)
         if s in plan.spilled:
             body.append(f"st_{s}[p] = {_to_slot(plan, s, 'r')};")
         elif s in plan.raw_ring:
@@ -2103,7 +2266,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
             qo = f"(q - {h})" if local else "q"
-            ro = "sf_bfr(r)" if s in plan.rounds_out else "r"
+            ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r")
             if sharded:
                 body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
                             f"kl >= {hk} && kl < {hk + tk} && gj - origin_j"
@@ -2137,7 +2300,7 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
                   smem: int, slots, n_pool: int = 0,
                   origin: bool = False, spill_bytes: int = 0,
                   min_blocks: int = 0, threads: int = THREADS,
-                  segments: int = 0) -> List[str]:
+                  segments: int = 0, bf16: bool = False) -> List[str]:
     """The ``__global__`` kernel around the block body ``<kernel>_block``
     and its ``sf_launch`` (``sf_local_launch`` with ``origin``) for nvcc;
     for g++, ``sf_host_launch``, which runs every block with one thread
@@ -2149,7 +2312,8 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
     grid dimension z of that many blocks, passed first to the block body
     (the group kernel's i-segments, the overlap kernel's blocks along i);
     the host then fills shared memory with NaN before every block, so a
-    block reads nothing another left."""
+    block reads nothing another left.  ``bf16``: bf16 array inputs and
+    outputs (bf16 compute)."""
     ntj, ntk = grid
     bounds = f"{threads}, {min_blocks}" if min_blocks > 1 else f"{threads}"
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
@@ -2173,7 +2337,8 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             f"{threads}, sf_smem, {_param_names(params)});",
             "}",
             _launcher(program, kernel, f"dim3({ntk}, {ntj}{dim_z})", smem,
-                      slots, n_pool, origin, bool(spill_bytes), threads),
+                      slots, n_pool, origin, bool(spill_bytes), threads,
+                      bf16),
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
             "void* const* out, const unsigned char* scal"

@@ -38,7 +38,7 @@ def is_float(ty) -> bool:
 
 
 def is_bool(ty) -> bool:
-    return not is_weak(ty) and np.dtype(ty).kind == "b"
+    return not is_weak(ty) and ty != BF16 and np.dtype(ty).kind == "b"
 
 
 def weak(value) -> tuple:
@@ -113,3 +113,51 @@ def check_kernel_dtypes(program: ir.Program) -> None:
             raise NotImplementedError(
                 f"field {name!r} is float16: the generated kernels do not "
                 "emulate narrow-float rounding yet")
+
+
+# -- bf16 compute (the stream kernel's compute_dtype="bfloat16") --------------
+#
+# The JAX package casts every array input to bf16 before the kernel and
+# evaluates each stage with jnp on those arrays: a bf16 op bf16 rounds
+# its result to bf16 after every operation, a Python scalar (weak) is
+# converted to bf16 first, a float32 scalar input or a float constant
+# (pinned to np.float32, a strong type) promotes the site to float32, and
+# the stage result rounds to bf16 at its store.  Node types here: ``BF16``
+# (an f32 value that holds a bf16 one), float32, bool, and weak scalars.
+
+BF16 = "bf16"
+F32 = np.dtype(np.float32)
+
+
+def bf16_join(*tys):
+    """Result type of a site under bf16 compute: float32 wins over bf16,
+    bf16 over weak scalars and bool (the framework's mixed rule), bool
+    with bool stays bool.  Raises NotImplementedError elsewhere."""
+    if F32 in tys:
+        return F32
+    if BF16 in tys:
+        return BF16
+    if all(not is_weak(t) and np.dtype(t) == np.bool_ for t in tys):
+        return np.dtype(np.bool_)
+    raise NotImplementedError(
+        f"a site of types {tys} under bf16 compute")
+
+
+def bf16_value(value) -> float:
+    """``value`` as float32, rounded to bf16 (to nearest, ties to even)."""
+    import torch
+    return float(torch.tensor(np.float32(value)).to(torch.bfloat16).float())
+
+
+def check_bf16_compute(program: ir.Program) -> None:
+    """bf16 compute takes float32 programs only: every input (scalars
+    too) and every kernel float32.  The JAX package casts int arrays to
+    bf16 as well; the port refuses them, since a bf16 integer field is a
+    bf16-typed program (ROADMAP Queue 1 item 11)."""
+    for name in list(program.inputs) + list(program.kernels):
+        dt = np.dtype(program.field_dtype(name))
+        if dt != np.float32:
+            raise ValueError(
+                f"compute_dtype='bfloat16' takes float32 programs; field "
+                f"{name!r} is {dt.name} (casting it to bf16 would make a "
+                "bf16-typed program, ROADMAP Queue 1 item 11)")

@@ -153,9 +153,10 @@ def bc_select(bc, dtype, mask, val, center_fn):
 
 
 def check_arrays(program: ir.Program, arrays, device_type: str,
-                 dims=None):
-    """Device, dtype, shape and contiguity of every array input (spanning
-    ``dims``, the program's dimensions by default)."""
+                 dims=None, io_dtype=None):
+    """Device, dtype (``io_dtype`` where given, else the input's), shape
+    and contiguity of every array input (spanning ``dims``, the
+    program's dimensions by default)."""
     dims = dims or program.dimensions
     for n, spec in program.inputs.items():
         if spec.is_scalar:
@@ -165,9 +166,9 @@ def check_arrays(program: ir.Program, arrays, device_type: str,
         if a.device.type != device_type:
             raise ValueError(f"input {n!r} is on {a.device}, expected "
                              f"{device_type}")
-        if a.dtype != to_torch_dtype(spec.dtype):
-            raise TypeError(f"input {n!r} is {a.dtype}, expected "
-                            f"{to_torch_dtype(spec.dtype)}")
+        want = io_dtype or to_torch_dtype(spec.dtype)
+        if a.dtype != want:
+            raise TypeError(f"input {n!r} is {a.dtype}, expected {want}")
         if tuple(a.shape) != shape:
             raise ValueError(f"input {n!r} has shape {tuple(a.shape)}, "
                              f"expected {shape}")
@@ -185,25 +186,43 @@ def resolve_device(device) -> torch.device:
 
 
 def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
-               out_dims=None, origin_i=None, origin_jk=None):
+               out_dims=None, origin_i=None, origin_jk=None, io_dtype=None,
+               out=None):
     """Shared wrapper body: CPU tensors take ``plain``; CUDA tensors
     launch ``lib()``'s kernel or raise.  ``extra(device)`` gives device
     tensors the kernel reads after the array inputs.  Inputs span
     ``in_dims`` and outputs are ``out_dims`` (both the program's (I, J,
     K) by default); ``origin_i`` is the local kernel's launch argument,
-    ``origin_jk`` a shard's (j, k) origin.
+    ``origin_jk`` a shard's (j, k) origin; ``io_dtype`` the torch type
+    of the kernel's array inputs and outputs where it is not the
+    program's (bf16 compute); ``out`` the output tensors to write
+    (contiguous, of the outputs' shape and type; allocated otherwise).
     Returns the outputs and whether the kernel was launched."""
     first = next(a for n, a in arrays.items()
                  if not program.inputs[n].is_scalar)
     if first.device.type == "cpu":
         check_arrays(program, arrays, "cpu", in_dims)
-        return plain(), False
+        got = plain()
+        if out is None:
+            return got, False
+        for o in program.outputs:
+            out[o].copy_(got[o])
+        return dict(out), False
     if first.device.type != "cuda":
         raise ValueError(f"unsupported device {first.device}")
-    check_arrays(program, arrays, "cuda", in_dims)
-    outs = [torch.empty(out_dims or program.dimensions, device=first.device,
-                        dtype=to_torch_dtype(program.kernels[o].dtype))
-            for o in program.outputs]
+    check_arrays(program, arrays, "cuda", in_dims, io_dtype)
+    dims = tuple(out_dims or program.dimensions)
+    if out is None:
+        outs = [torch.empty(dims, device=first.device, dtype=io_dtype
+                            or to_torch_dtype(program.kernels[o].dtype))
+                for o in program.outputs]
+    else:
+        outs = [out[o] for o in program.outputs]
+        for o, t in zip(program.outputs, outs):
+            if (tuple(t.shape) != dims or t.device != first.device
+                    or not t.is_contiguous()):
+                raise ValueError(f"output {o!r} buffer does not fit the "
+                                 "kernel")
     build.launch(lib(), program, arrays,
                  [arrays[n] for n, s in program.inputs.items()
                   if not s.is_scalar]

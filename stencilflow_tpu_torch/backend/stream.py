@@ -8,11 +8,10 @@ banded transforms ``L @ P @ R`` (``_band_dot``, ``apply_transform_block``,
 the same streamer over one out-of-core i-chunk (``compile_local_stream``,
 local mode below), and K3c, the ring spill (``choose_spill`` and the
 spill rung, spill below), with the reference's opt-in reduced
-precisions (bf16 below).  Not ported here: j-tiling (the port tiles (j,
-k) itself), micro-step blocks, stage-major order and BC padding
-(pipeline workarounds for the TPU).  Still to port: the reduced-precision
-compute ``compile_chain_stream(compute_dtype=)`` (every stage computed in
-bf16; ROADMAP Queue 2a item 4), which is not such a workaround.
+precisions (bf16 below) and its reduced-precision compute (bf16 compute
+below).  Not ported here: j-tiling (the port tiles (j, k) itself),
+micro-step blocks, stage-major order and BC padding (pipeline workarounds
+for the TPU).
 
 Planning follows the JAX package's choices per stage, untiled: compose
 runs of separable stages (``compose.py``, ``compose="auto"``), then plan
@@ -206,6 +205,25 @@ reference's ``finalize_pool`` keeps them.  Launches of these plans count
 apart (``reduced``): ``bf16_launches``, ``spill_bf16_launches`` on the
 spill rung, ``local_bf16_launches`` for K4 on a chunk or a segment and
 ``shard_bf16_launches`` for K4 on a shard.
+
+bf16 compute (``compile_chain_stream(compute_dtype="bfloat16")``, the
+reference's ``compute_dtype``; float32 programs): the wrapper casts the
+array inputs to bf16 before the kernel and its bf16 outputs back to
+float32 after it, as the reference's ``astype`` does.  Every ring keeps
+bf16 slots (a band pass's source: f32 slots holding bf16 values) and
+the plan sizes rings, staging planes, spill slots and ``pack_layout``
+at 2 bytes a cell.  A per-cell stage computes each operation in f32 on
+bf16 values and rounds its result to bf16 (``sf_bfr``) after every
+operation, with no FMA contraction, which equals jnp on bf16 arrays when
+XLA rounds each operation (a float32 scalar input or float constant
+promotes a site to f32, a Python literal meeting bf16 is rounded to bf16
+first, a constant BC's fill is bf16; promotion.py ``bf16_join``).  A
+banded stage reads its bf16 operands through the split route's f32 band
+passes (a bf16 operand's TF32 lo part is 0: the three products are the
+reference's hi and lo band products to f32 rounding) and rounds its
+result.  Launches count in ``compute_bf16_launches``.  On the H100 it is
+slower than f32 (every operation carries a rounding, and bf16 inputs load
+synchronously, not by ``cp.async``): PERF.md.
 """
 from __future__ import annotations
 
@@ -243,7 +261,8 @@ from .tile_eval import eval_kernel_statements
 # (K3c), and K4 on one shard of a mesh (any plan in shard mode); a plan
 # under a reduced precision (bf16 rings, single-pass bf16 passes) counts
 # apart: whole-domain on chip, on the spill rung, K4 on a chunk and K4 on
-# a shard
+# a shard; every launch of a plan that computes in bf16 (compute_dtype)
+# counts in compute_bf16_launches
 launches = 0
 local_launches = 0
 spill_launches = 0
@@ -252,6 +271,7 @@ bf16_launches = 0
 spill_bf16_launches = 0
 local_bf16_launches = 0
 shard_bf16_launches = 0
+compute_bf16_launches = 0
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -388,6 +408,12 @@ class StreamPlan:
     # ring input keeps f32 slots rounded in place once cp.async lands them
     # on chip, and bf16 slots on the spill rung, which loads it itself
     ring_storage: str = "off"
+    # compute_dtype="bfloat16" (the reference's reduced-precision
+    # compute): inputs arrive as bf16 arrays, every stage computes in
+    # bf16 (per-cell stages round after every operation, banded stages
+    # round their result), every ring keeps bf16 slots (a band pass's
+    # source: f32 slots holding bf16 values) and outputs leave as bf16
+    compute_dtype: str = "float32"
 
     @staticmethod
     def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
@@ -521,8 +547,15 @@ class StreamPlan:
         ahead = AHEAD if not self.packed and f in self.program.inputs else 0
         return self.raw_ring[f] + ahead
 
+    @property
+    def compute_bf16(self) -> bool:
+        """Does every stage compute in bf16 (``compute_dtype``)?"""
+        return self.compute_dtype == "bfloat16"
+
     @functools.cached_property
     def rounds(self) -> frozenset:
+        if self.compute_bf16:   # every ring, inputs too
+            return frozenset(self.raw_ring)
         return rounded_rings(self.program, [f for f in self.raw_ring
                                             if f in self.ring],
                              self.ring_storage)
@@ -544,7 +577,9 @@ class StreamPlan:
         plan with an i-halo emits every output through its (rounded)
         ring, as the JAX package's ``compile_local_stream`` does once
         ``halo_i`` > 0 (no direct emit there); other plans write outputs
-        unrounded."""
+        unrounded.  Under bf16 compute every output leaves as bf16."""
+        if self.compute_bf16:
+            return frozenset(self.program.outputs)
         if not self.halo_i:
             return frozenset()
         return rounded_rings(self.program, self.program.outputs,
@@ -553,12 +588,19 @@ class StreamPlan:
     def bf16_slots(self, f: str) -> bool:
         """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
         return (f in self.rounds
-                and (self.packed or f not in self.program.inputs)
+                and (self.packed or self.compute_bf16
+                     or f not in self.program.inputs)
                 and all(t[0] != f for t in self.tkeys))
 
     def itemsize(self, f: str) -> int:
         """Bytes of a cell of ring ``f``'s slots."""
         return 2 if self.bf16_slots(f) else np.dtype(
+            self.program.field_dtype(f)).itemsize
+
+    def io_itemsize(self, f: str) -> int:
+        """Bytes of a cell of input or output ``f`` in device memory (2
+        under bf16 compute)."""
+        return 2 if self.compute_bf16 else np.dtype(
             self.program.field_dtype(f)).itemsize
 
     def ring_bytes(self, f: str) -> int:
@@ -881,12 +923,10 @@ class StreamPlan:
             / H100_PANEL_CELL_RATE
         J, K = self.core()
         moved = ntj * ntk * self.extent() * sum(
-            math.prod(self.region(f)) * np.dtype(
-                self.program.field_dtype(f)).itemsize
+            math.prod(self.region(f)) * self.io_itemsize(f)
             for f in self.raw_ring if f in self.program.inputs)
-        moved += sum(self.extent() * J * K * np.dtype(
-            self.program.kernels[o].dtype).itemsize
-            for o in self.program.outputs)
+        moved += sum(self.extent() * J * K * self.io_itemsize(o)
+                     for o in self.program.outputs)
         share = H100_ASYNC_COPY_SHARE[min(per_sm, 3) - 1]
         return max(compute, moved / (H100_COPY_FLOOR * share))
 
@@ -1072,7 +1112,8 @@ class StreamPlan:
         return {"mxu_stages": sorted(self.mxu_plans),
                 "composed": {k: list(v) for k, v in self.composed.items()},
                 "jtiles": 1, "spilled": sorted(self.spilled),
-                "tile": self.tile, "packed": self.packed}
+                "tile": self.tile, "packed": self.packed,
+                "compute_dtype": self.compute_dtype}
 
 
 def _align(n: int, to: int) -> int:
@@ -1235,7 +1276,8 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 threads: Optional[int] = None,
                 shard: Tuple[int, int] = (0, 0),
                 xhalo: Tuple[int, int] = (0, 0),
-                contexts=None, ring_storage: str = "off") -> StreamPlan:
+                contexts=None, ring_storage: str = "off",
+                compute_dtype: str = "float32") -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
     # the plane the pool's matrices span: a shard's widened core, or the
@@ -1321,7 +1363,8 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                       halo, {}, block=block, halo_i=halo_i, instep=instep,
                       mxu_precision=mxu_precision, passes=passes,
                       shard=tuple(shard), xhalo=tuple(xhalo),
-                      contexts=contexts, ring_storage=ring_storage)
+                      contexts=contexts, ring_storage=ring_storage,
+                      compute_dtype=compute_dtype)
     for f in onchip:   # a sharded dim's reads stay in the exchanged halo
         if any(halo[f][d] > xhalo[d] for d in range(2)
                if shard[0] and shard[d] < dims[1 + d]):
@@ -1416,6 +1459,27 @@ def check_passes(passes: str, mxu_precision: str) -> None:
                          "mxu_precision='split' or 'bf16'")
 
 
+def check_compute_dtype(program: ir.Program, compute_dtype,
+                        ring_storage: str) -> Tuple[str, str]:
+    """(compute dtype, ring storage) as the plan takes them: None and
+    float32 compute in the program's types; bfloat16 computes every stage
+    in bf16 (float32 programs only) and drops ``ring_storage``, as the JAX
+    package does when the compute is already reduced.  Other types are
+    refused: float16 and bf16-typed programs are ROADMAP Queue 1 item
+    11."""
+    name = "float32" if compute_dtype is None else str(
+        compute_dtype).replace("torch.", "")
+    if name == "float32":
+        return name, ring_storage
+    if name != "bfloat16":
+        raise NotImplementedError(
+            f"compute_dtype {name!r}: the stream kernel computes in "
+            "float32 or bfloat16 (other types: ROADMAP Queue 1 item 11)")
+    from .promotion import check_bf16_compute
+    check_bf16_compute(program)
+    return name, "off"
+
+
 def check_options(mxu: str, mxu_precision: str) -> None:
     """Raise on options the stream lowering does not take."""
     if mxu not in ("auto", "off"):
@@ -1459,6 +1523,37 @@ def bf16_passes_agree(plain, got, split) -> Tuple[bool, Dict[str, float]]:
     return ok, figures
 
 
+# bf16 compute (compute_dtype="bfloat16"): the share of a banded chain's
+# cells that must equal the plain version's (the rest: a bf16 rounding tie
+# taken the other way after an f32 sum in another order, and the cells
+# downstream of it)
+BF16_COMPUTE_SHARE = 0.99
+
+
+def bf16_compute_agree(plain, got, banded: bool
+                       ) -> Tuple[bool, Dict[str, float]]:
+    """(ok, figures) of ``got``, a kernel's output under bf16 compute,
+    against ``plain``, its plain version's (arrays of one shape): finite
+    and bit for bit on per-cell chains; on banded ones at least
+    ``BF16_COMPUTE_SHARE`` of the cells equal and every cell within
+    ``BF16_VERIFY_RTOL`` of the largest output.  Figures: ``max_abs_err``,
+    ``share`` (cells equal) and ``rel`` (largest difference over the
+    largest output)."""
+    from ..config import BF16_VERIFY_RTOL
+    got = np.asarray(got, np.float64)
+    plain = np.asarray(plain, np.float64).reshape(got.shape)
+    scale = float(np.max(np.abs(plain))) or 1.0
+    d = np.abs(got - plain)
+    figures = {"max_abs_err": float(np.max(d)),
+               "share": float(np.mean(d == 0)),
+               "rel": float(np.max(d)) / scale}
+    ok = bool(np.isfinite(got).all()) and (
+        figures["share"] >= BF16_COMPUTE_SHARE
+        and figures["rel"] <= BF16_VERIFY_RTOL if banded
+        else figures["share"] == 1.0)
+    return ok, figures
+
+
 def _composed(program: ir.Program, analysis: ChainAnalysis, max_t: int):
     """``compose_program``'s (composed program, builds) and the composed
     program's analysis, or None; kept on ``program`` (planning it at many
@@ -1478,7 +1573,8 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
                 smem_budget: int = H100_SMEM_PER_BLOCK,
                 spill: str = "auto", passes: str = "auto",
                 threads: Optional[int] = None,
-                ring_storage: str = "off") -> StreamPlan:
+                ring_storage: str = "off",
+                compute_dtype=None) -> StreamPlan:
     """The stream lowering's plan, making the JAX package's per-stage
     choice between composed, per-stage banded and per-cell, in the
     reference's order: composed, banded, every stage per cell, and last
@@ -1489,7 +1585,9 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     width, ``StreamPlan.route``) and ``threads`` a block's threads (256
     or 512; by default the tile rule's pick).  ``ring_storage``
     ("bfloat16") rounds the f32 rings to bf16 at their store, so that
-    they take half the bytes.  Raises ValueError / NotImplementedError
+    they take half the bytes.  ``compute_dtype`` ("bfloat16") computes
+    every stage in bf16 on bf16 inputs, rings and outputs
+    (``check_compute_dtype``).  Raises ValueError / NotImplementedError
     when the program is out of scope (nothing is built)."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
@@ -1497,8 +1595,10 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     check_spill(spill)
     check_passes(passes, mxu_precision)
     check_ring_storage(ring_storage)
+    compute_dtype, ring_storage = check_compute_dtype(program, compute_dtype,
+                                                      ring_storage)
     kw = dict(smem_budget=smem_budget, passes=passes, threads=threads,
-              ring_storage=ring_storage)
+              ring_storage=ring_storage, compute_dtype=compute_dtype)
     if spill == "all":   # the spill rung alone
         return _build_plan(program, analysis, "off", mxu_precision, {},
                            tile, spill=spill, **kw)
@@ -1637,6 +1737,8 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             a = a[p]
             if plan.rounded(f):
                 a = round_bf16(a)
+        elif plan.compute_bf16:   # every array input is cast to bf16
+            a = round_bf16(a)
         return a.reshape(PJ if spec.dim_mask[1] else 1,
                          PK if spec.dim_mask[2] else 1).expand(PJ, PK)
 
@@ -1729,8 +1831,11 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                 if ok:
                     mask = or_mask(mask, (kk + ok < 0) | (kk + ok >= K))
                 val = torch.roll(plane(field, q + oi), (-oj, -ok), (0, 1))
-            return bc_select(bc, dt, mask, val, lambda: plane(field, q)), dt
-        return eval_kernel_statements(kspec, read, (PJ, PK), device)
+            val = bc_select(bc, dt, mask, val, lambda: plane(field, q))
+            # under bf16 compute a constant BC's fill is bf16 too
+            return (round_bf16(val) if plan.compute_bf16 else val), dt
+        return eval_kernel_statements(kspec, read, (PJ, PK), device,
+                                      bf16=plan.compute_bf16)
 
     for t in range(plan.steps()):
         for s in plan.analysis.graph.kernel_order:
@@ -1738,8 +1843,11 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             if not 0 <= q < Ii:
                 continue
             mp = plan.mxu_plans.get(s)
-            val = banded(mp, q) if mp is not None else \
-                per_cell(program.kernels[s], q)
+            if mp is None:
+                val = per_cell(program.kernels[s], q)
+            else:   # under bf16 compute the stage's result rounds
+                val = banded(mp, q)
+                val = round_bf16(val) if plan.compute_bf16 else val
             if s in plan.ring:
                 planes.setdefault(s, {})[q] = round_bf16(val).contiguous() \
                     if plan.rounded(s) else val.contiguous()
@@ -1797,9 +1905,11 @@ def reduced(plan: StreamPlan) -> bool:
 def _count(plan: StreamPlan, launched: int) -> None:
     global launches, local_launches, spill_launches, shard_launches
     global bf16_launches, spill_bf16_launches, local_bf16_launches
-    global shard_bf16_launches
+    global shard_bf16_launches, compute_bf16_launches
     bf = reduced(plan)
-    if plan.shard[0] and bf:
+    if plan.compute_bf16:
+        compute_bf16_launches += launched
+    elif plan.shard[0] and bf:
         shard_bf16_launches += launched
     elif plan.shard[0]:
         shard_launches += launched
@@ -1823,12 +1933,19 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
     when omitted."""
     if plan.block:
         raise ValueError("a local plan runs through run_local_stream")
+    io = torch.bfloat16 if plan.compute_bf16 else None
+    if io is not None:   # bf16 compute: the kernel reads and writes bf16
+        arrays = {n: a if plan.program.inputs[n].is_scalar
+                  or a.device.type == "cpu" else a.to(io)
+                  for n, a in arrays.items()}
     outs, launched = run_kernel(
         plan.program, arrays,
         lambda: lib if lib is not None else build_stream(plan),
         lambda: stream_plain(plan, arrays),
-        extra=lambda device: _pool_tensors(plan, device))
+        extra=lambda device: _pool_tensors(plan, device), io_dtype=io)
     _count(plan, launched)
+    if io is not None:
+        outs = {o: v.float() for o, v in outs.items()}
     return outs
 
 
@@ -1850,7 +1967,7 @@ def _local_dims(plan: StreamPlan):
 def run_local_stream(plan: StreamPlan, origin_i: int,
                      slabs: Dict[str, torch.Tensor], lib=None,
                      origin_j: int = 0, origin_k: int = 0,
-                     inst: Tuple[int, int] = (0, 0)):
+                     inst: Tuple[int, int] = (0, 0), out=None):
     """K4 on one chunk: ``slabs`` holds the i-spanning inputs at the
     plan's extent (Ic + 2h planes, zero outside the domain), the other
     inputs whole, scalars 0-d; ``origin_i`` is the global index of the
@@ -1859,7 +1976,8 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
     mode the slabs span the shard's widened (j, k) plane (zero outside
     the domain), the shard's core starts at global (``origin_j``,
     ``origin_k``), ``inst`` is its pool instance, and the outputs are
-    the (Ic, Bj, Bk) core (``sf_shard_launch``)."""
+    the (Ic, Bj, Bk) core (``sf_shard_launch``).  ``out``: the output
+    tensors to write (slices of a shard's whole output, say)."""
     if not plan.block:
         raise ValueError("run_local_stream takes a local plan (plan_local)")
     in_dims, out_dims = _local_dims(plan)
@@ -1870,7 +1988,7 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
                              inst),
         extra=lambda device: _pool_tensors(plan, device, inst),
         in_dims=in_dims, out_dims=out_dims, origin_i=origin_i,
-        origin_jk=(origin_j, origin_k) if plan.shard[0] else None)
+        origin_jk=(origin_j, origin_k) if plan.shard[0] else None, out=out)
     _count(plan, launched)
     return outs
 
@@ -1919,15 +2037,19 @@ def compile_chain_stream(program: ir.Program,
                          tile: Optional[Tuple[int, int]] = None,
                          device="cuda",
                          smem_budget: int = H100_SMEM_PER_BLOCK,
-                         spill: str = "auto", ring_storage: str = "off"):
+                         spill: str = "auto", ring_storage: str = "off",
+                         compute_dtype=None):
     """Plan the stream lowering (ValueError / NotImplementedError when the
     program is out of its scope) and, for a CUDA ``device``, build its
     kernel.  Returns ``fn(inputs) -> outputs`` at the program's raw dims,
     with the plan as ``fn.plan`` and the JAX package's configuration keys
-    as ``fn.last_config``.  ``smem_budget``, ``spill`` and
-    ``ring_storage`` go to ``plan_stream``."""
+    as ``fn.last_config``.  ``smem_budget``, ``spill``,
+    ``ring_storage`` and ``compute_dtype`` go to ``plan_stream``; under
+    bf16 compute the inputs are cast to bf16 before the kernel and its
+    bf16 outputs back to the program's float32 after it."""
     plan = plan_stream(program, analysis, mxu=mxu,
                        mxu_precision=mxu_precision, compose=compose,
                        tile=tile, smem_budget=smem_budget, spill=spill,
-                       ring_storage=ring_storage)
+                       ring_storage=ring_storage,
+                       compute_dtype=compute_dtype)
     return compile_stream_plan(plan, device)

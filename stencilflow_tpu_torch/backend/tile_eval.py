@@ -24,8 +24,9 @@ import torch
 from .. import ir
 from ..dtypes import to_numpy_dtype, to_torch_dtype
 from ..frontend.chain import ChainGraph
-from .promotion import (const_dtype_of, const_type, fill_value, is_bool,
-                        is_float, is_weak, result_type, strong, weak)
+from .promotion import (BF16, F32, bf16_join, bf16_value, const_dtype_of,
+                        const_type, fill_value, is_bool, is_float, is_weak,
+                        result_type, strong, weak)
 
 Vec3 = Tuple[int, int, int]
 
@@ -228,16 +229,118 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
     raise TypeError(f"unknown expression node {type(expr)}")
 
 
-def eval_kernel_statements(kspec: ir.KernelSpec, read_fn, shape, device):
+def _bf16_cast(v, ty_from, ty_to, device):
+    """``v`` as an operand of a bf16-compute site of type ``ty_to``: a
+    weak scalar becomes a float32 tensor (rounded to bf16 for a bf16
+    site), bool becomes 0/1."""
+    if is_weak(ty_from):
+        x = bf16_value(ty_from[1]) if ty_to == BF16 else ty_from[1]
+        return device_const(x, torch.float32, device)
+    if ty_to != np.bool_ and v.dtype == torch.bool:
+        return v.to(torch.float32)
+    return v
+
+
+def _bf16_round(v, ty):
+    return v.to(torch.bfloat16).to(torch.float32) if ty == BF16 else v
+
+
+def eval_expr_bf16(expr: ir.Expr, env: Dict[str, Any], read_fn, device):
+    """``eval_expr_generic`` under bf16 compute (promotion.py ``BF16``):
+    array reads are bf16, float32 scalars and float constants float32;
+    every bf16 site computes in float32 and rounds its result to bf16, as
+    the JAX package's jnp on bf16 arrays does."""
+    def rec(e):
+        return eval_expr_bf16(e, env, read_fn, device)
+
+    def both(a, at, b, bt):
+        ty = bf16_join(at, bt)
+        return (_bf16_cast(a, at, ty, device), _bf16_cast(b, bt, ty, device),
+                ty)
+
+    if isinstance(expr, ir.Const):
+        return const_type(expr.value, F32)
+    if isinstance(expr, ir.Ref):
+        return env[expr.name]
+    if isinstance(expr, ir.Access):
+        val, _dt = read_fn(expr.field, expr.offsets)
+        return val, (F32 if val.ndim == 0 else BF16)
+    if isinstance(expr, ir.BinOp):
+        (a, at), (b, bt) = rec(expr.left), rec(expr.right)
+        if is_weak(at) and is_weak(bt):
+            v = _FOLD[expr.op](at[1], bt[1])
+            return v, weak(v)
+        a, b, ty = both(a, at, b, bt)
+        if is_bool(ty):
+            if expr.op in ("add", "mult"):
+                return (a | b) if expr.op == "add" else (a & b), ty
+            raise TypeError("numpy rejects bool - bool and bool / bool")
+        return _bf16_round(_BINOPS[expr.op](a, b), ty), ty
+    if isinstance(expr, ir.UnaryOp):
+        a, at = rec(expr.operand)
+        if is_weak(at):
+            return -at[1], weak(-at[1])
+        if is_bool(at):
+            raise TypeError("numpy rejects unary minus on bool")
+        return torch.neg(a), at
+    if isinstance(expr, ir.Compare):
+        (a, at), (b, bt) = rec(expr.left), rec(expr.right)
+        a, b, _ty = both(a, at, b, bt)
+        return _CMPOPS[expr.op](a, b), np.dtype(np.bool_)
+    if isinstance(expr, ir.BoolOp):
+        parts = [rec(o) for o in expr.operands]
+        if not all(is_bool(t) for _v, t in parts):
+            raise NotImplementedError("and/or of non-bool under bf16 compute")
+        acc = parts[0][0]
+        for v, _t in parts[1:]:
+            acc = (acc & v) if expr.op == "and" else (acc | v)
+        return acc, np.dtype(np.bool_)
+    if isinstance(expr, ir.Select):
+        c, ct = rec(expr.cond)
+        (t, tt), (f, ft) = rec(expr.if_true), rec(expr.if_false)
+        if is_weak(ct):
+            c = device_const(bool(ct[1]), torch.bool, device)
+        elif c.dtype != torch.bool:
+            c = c != 0
+        t, f, ty = both(t, tt, f, ft)
+        return torch.where(c, t, f), ty
+    if isinstance(expr, ir.Call):
+        args = [rec(a) for a in expr.args]
+        if expr.fn in ("min", "max"):
+            (a, at), (b, bt) = args
+            a, b, ty = both(a, at, b, bt)
+            fn = torch.minimum if expr.fn == "min" else torch.maximum
+            return fn(a, b), ty
+        (a, at), = args
+        if is_weak(at) or is_bool(at):
+            if expr.fn == "abs" and is_weak(at):
+                return abs(at[1]), weak(abs(at[1]))
+            if expr.fn == "abs":
+                return a, at
+            raise NotImplementedError(
+                f"{expr.fn} of a scalar literal under bf16 compute")
+        if expr.fn == "abs":
+            return torch.abs(a), at
+        return _bf16_round(_CALLS[expr.fn](a), at), at
+    raise TypeError(f"unknown expression node {type(expr)}")
+
+
+def eval_kernel_statements(kspec: ir.KernelSpec, read_fn, shape, device,
+                           bf16: bool = False):
     """Evaluate a kernel's statements with a custom read; returns the
     output statement's value broadcast to ``shape`` and cast to the
-    kernel dtype."""
+    kernel dtype.  ``bf16``: under bf16 compute (``eval_expr_bf16``),
+    the result rounded to bf16, as a float32 tensor."""
     pin = const_dtype_of(kspec)
     env: Dict[str, Any] = {}
     for stmt in kspec.statements:
-        env[stmt.lhs] = eval_expr_generic(stmt.rhs, env, read_fn, pin,
-                                          device)
+        env[stmt.lhs] = eval_expr_bf16(stmt.rhs, env, read_fn, device) \
+            if bf16 else eval_expr_generic(stmt.rhs, env, read_fn, pin,
+                                           device)
     val, ty = env[kspec.output_statement.lhs]
+    if bf16:
+        val = _bf16_cast(val, ty, BF16, device).to(torch.float32)
+        return _bf16_round(val, BF16).expand(tuple(shape))
     val = as_type(val, ty, strong(ty), device)
     return val.to(to_torch_dtype(kspec.dtype)).expand(tuple(shape))
 

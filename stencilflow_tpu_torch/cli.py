@@ -43,7 +43,6 @@ import sys
 NOT_PORTED = {
     "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model on an NVLink "
               "model)",
-    "--comm-overlap": "Queue 1 item 8 (M12, the comm/compute overlap)",
     "--coordinator": "Queue 1 item 8 (M12, multi-host over "
                      "torch.distributed)",
     "--checkpoint-format orbax": "Queue 1 item 8 (M12, the sharded "
@@ -542,8 +541,6 @@ def _cmd_run_distributed(args) -> int:
     if args.coordinator is not None or args.num_hosts is not None or \
             args.host_id is not None:
         return _refuse("--coordinator")
-    if args.comm_overlap:
-        return _refuse("--comm-overlap")
     program = parse_program(args.stencil_file)
     inputs = load_input_arrays(program, prefix=args.input_directory,
                                seed=args.seed)
@@ -591,7 +588,8 @@ def _cmd_run_distributed(args) -> int:
                 return 2
         else:
             axes = (None, "x", "y")
-        outputs = run_sharded_chain(program, mesh, axes, inputs)
+        outputs = run_sharded_chain(program, mesh, axes, inputs,
+                                    comm_overlap=args.comm_overlap)
     print(f"ran {args.parallel_mode} over {args.devices} devices "
           f"(mesh {dict(mesh.shape)})")
 
@@ -738,7 +736,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-axes", default="none,x,y",
                    help="with --mesh (not ported yet)")
     p.add_argument("--comm-overlap", action="store_true",
-                   help="with --mesh (not ported yet)")
+                   help="with --mesh, which is not ported yet (ROADMAP "
+                        "Queue 1 item 8)")
     p.set_defaults(fn=_cmd_report)
 
     p = sub.add_parser("iterate",
@@ -912,7 +911,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument(flag, default=None,
                        help="multi-host: not ported yet (rc 2)")
     p.add_argument("--comm-overlap", action="store_true",
-                   help="domain mode: not ported yet (rc 2)")
+                   help="domain mode: compute each shard's interior while "
+                        "the halo exchange runs on a side stream")
     p.set_defaults(fn=_cmd_run_distributed)
     return ap
 

@@ -1,7 +1,6 @@
 """Domain decomposition over a device mesh with a halo exchange.
 
-Port of ``stencilflow_tpu/parallel/domain.py`` (less the opt-in
-comm/compute overlap).  Each mesh position owns a contiguous block of
+Port of ``stencilflow_tpu/parallel/domain.py``.  Each mesh position owns a contiguous block of
 the (i, j, k) domain.  One halo exchange per chain evaluation: every
 sharded input receives slabs of the chain's *cumulative* halo width from
 its mesh neighbours, after which the whole kernel chain is evaluated
@@ -30,11 +29,27 @@ origin-aware band matrices and correction planes), and the dense tile
 body (``backend/tile_eval.py evaluate_chain_tile``, the reference's
 "xla" body) on CPU shards or where no stream plan fits.
 
+The opt-in comm/compute overlap (``comm_overlap=True``, the reference's
+``_local_forward_overlap`` and ``_local_forward_stream_overlap``) splits
+each shard's work in two: the block's interior, which needs no
+neighbour, is computed from the raw block, and boundary strips from the
+widened block once the exchange has landed.  On CUDA shards the
+exchange's copies run on a side stream of each device while the
+interiors run on the compute stream; the strips wait for the exchange
+with ``wait_stream``.  The stream body (K4) takes i-only sharding: an
+interior K4 of ``B0 - 2h`` planes reads the raw block, and a strip K4
+of ``h`` planes runs on a ``3h``-plane slab at each face, all three
+writing slices of one output per shard.  The tile body overlaps on any
+sharding (the interior on the unwidened block, ``3h`` strips per face,
+stitched).  On one card the shards are virtual: the overlap there shows
+the streams at work, not a scaling figure.
+
 ``plan_local_stream`` also chooses the out-of-core chunk body
 (``outofcore.py``), a block with no mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -44,14 +59,11 @@ import torch
 from .. import ir
 from ..backend.dense import chain_halo
 from ..backend.tile_eval import evaluate_chain_tile
+from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from .mesh import Mesh, ShardedArray
 
 Vec3 = Tuple[int, int, int]
-
-NOT_PORTED_OVERLAP = ("comm_overlap is not ported to stencilflow_tpu_torch "
-                      "yet (ROADMAP Queue 1 item 8, M12)")
-
 
 @dataclasses.dataclass
 class DomainDecomposition:
@@ -272,6 +284,87 @@ def _local_forward_stream(plan: DomainDecomposition, kern, coord,
     return {n: arr.reshape(plan.local_raw()) for n, arr in outs.items()}
 
 
+def _local_forward_overlap(plan: DomainDecomposition, graph, coord,
+                           raw: Dict[str, Any]):
+    """The tile body's overlap, first half: the shard's chain evaluated
+    on its unwidened block (no exchange).  Wrap-around reads in sharded
+    dims land on wrong cells, so its outermost cumulative-halo rim is
+    invalid until ``_overlap_strips`` overwrites it; unsharded dims keep
+    the single-device invariant."""
+    results = evaluate_chain_tile(plan.program, graph, dict(raw),
+                                  plan.block_origin(coord), (0, 0, 0))
+    return {n: a.contiguous() for n, a in results.items()}
+
+
+def _overlap_strips(plan: DomainDecomposition, graph, coord,
+                    tiles: Dict[str, Any], outs: Dict[str, torch.Tensor]):
+    """The tile body's overlap, second half: per sharded dim and face, a
+    ``3h`` slab of the widened block (every other dim at its widened
+    extent, so corners are covered) evaluated and its ``h`` core planes
+    stitched over ``outs``' rim."""
+    program, halo, B = plan.program, plan.halo, plan.block
+    origin = plan.block_origin(coord)
+    for d in [d for d in range(3) if halo[d] > 0]:
+        h = halo[d]
+        for side in (0, 1):
+            strip: Dict[str, Any] = {}
+            for name, spec in program.inputs.items():
+                arr = tiles[name]
+                if spec.is_scalar or not spec.dim_mask[d]:
+                    strip[name] = arr
+                    continue
+                pos = sum(spec.dim_mask[:d])
+                lo = 0 if side == 0 else arr.shape[pos] - 3 * h
+                strip[name] = arr.narrow(pos, lo, 3 * h)
+            so = list(origin)
+            if side == 1:
+                so[d] += B[d] - h
+            res = evaluate_chain_tile(program, graph, strip, so, halo)
+            for n, arr in res.items():
+                core = [slice(halo[dd], halo[dd] + B[dd]) for dd in range(3)]
+                core[d] = slice(h, 2 * h)
+                dst = [slice(0, B[dd]) for dd in range(3)]
+                dst[d] = slice(0, h) if side == 0 else slice(B[d] - h, B[d])
+                outs[n][tuple(dst)] = arr[tuple(core)]
+    return {n: a.reshape(plan.local_raw()) for n, a in outs.items()}
+
+
+def _stream_overlap_interior(plan: DomainDecomposition, kern_i, coord,
+                             raw: Dict[str, Any]):
+    """The stream body's overlap, first half: each output of the shard
+    allocated whole, and the interior K4 (local planes [h, B0 - h)) run
+    on the raw block, whose plane 0 is global ``start``, writing its
+    slice."""
+    h, B0 = plan.halo[0], plan.block[0]
+    start, oj, ok = plan.block_origin(coord)
+    t = next(v for n, v in raw.items()
+             if not plan.program.inputs[n].is_scalar)
+    outs = {o: torch.empty((B0,) + tuple(plan.block[1:]), device=t.device,
+                           dtype=to_torch_dtype(plan.program.kernels[o].dtype))
+            for o in plan.program.outputs}
+    kern_i(start, raw, oj, ok, plan.instance(coord),
+           {o: v[h:B0 - h] for o, v in outs.items()})
+    return outs
+
+
+def _stream_overlap_strips(plan: DomainDecomposition, kern_s, coord,
+                           tiles: Dict[str, Any], outs):
+    """The stream body's overlap, second half: the strip K4 (h planes) on
+    the widened block's ``3h``-plane slab at each face, writing the
+    output's first and last ``h`` planes."""
+    h, B0 = plan.halo[0], plan.block[0]
+    start, oj, ok = plan.block_origin(coord)
+    for lo, origin, dst in ((0, start - h, slice(0, h)),
+                            (B0 - h, start + B0 - 2 * h, slice(B0 - h, B0))):
+        slab = {n: v if plan.program.inputs[n].is_scalar
+                or not plan.program.inputs[n].dim_mask[0]
+                else v.narrow(0, lo, 3 * h)
+                for n, v in tiles.items()}
+        kern_s(origin, slab, oj, ok, plan.instance(coord),
+               {o: v[dst] for o, v in outs.items()})
+    return {n: v.reshape(plan.local_raw()) for n, v in outs.items()}
+
+
 def _shard_contexts(plan: DomainDecomposition):
     """The j and k contexts of the origin-aware band matrices: the global
     coordinate of every shard instance's widened plane's row / col 0;
@@ -436,11 +529,20 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
                        local_backend: str = "auto", mxu: str = "auto",
                        mxu_precision: str = "split", spill: str = "auto",
                        smem_budget: Optional[int] = None,
-                       compose: str = "auto", ring_storage: str = "off"):
+                       compose: str = "auto", ring_storage: str = "off",
+                       comm_overlap: bool = False):
     """``compile_sharded_chain``'s planning, nothing built: ``(program,
     analysis, plan, stream_plan, config)`` — the program the shards run
     (composed where that plans), its decomposition, K4's shard plan (None
-    for the dense tile body) and ``last_config``'s keys.
+    for the dense tile body; under the stream body's overlap the pair
+    (interior plan, strip plan)) and ``last_config``'s keys.
+
+    ``comm_overlap`` as the reference takes it: dropped where no halo is
+    exchanged, no composition under it; the stream body takes i-only
+    sharding (ValueError "i-only") with an interior (B0 > 2h, ValueError
+    "interior") and plans K4 twice, for the (B0 - 2h)-plane interior and
+    the h-plane strip, each with its own pool instances; where either
+    does not plan, the tile body's overlap runs.
 
     Affine-run composition on the sharded path: the composed i-table is
     indexed by the GLOBAL plane (the kernel globalizes via origin_i + q,
@@ -459,7 +561,31 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
         raise ValueError(f"unknown local_backend {local_backend!r} "
                          "(choose from auto, stream, xla)")
     plan = DomainDecomposition.plan(program, mesh, dim_axes, analysis)
-    if compose != "off" and mxu != "off" and local_backend == "stream":
+    comm_overlap = comm_overlap and any(h > 0 for h in plan.halo)
+    if local_backend == "stream" and comm_overlap:
+        if plan.halo[1] or plan.halo[2]:
+            raise ValueError(
+                "comm_overlap with the streaming local backend supports "
+                "i-only sharding; use local_backend='xla' for j/k-sharded "
+                "overlap, or comm_overlap=False")
+        h, B0 = plan.halo[0], plan.block[0]
+        if B0 <= 2 * h:
+            raise ValueError(
+                f"comm_overlap needs an interior: local i-block {B0} must "
+                f"exceed twice the halo {h} (use fewer shards)")
+        got = [plan_local_stream(
+            program, analysis,
+            dataclasses.replace(plan, block=(b,) + plan.block[1:]),
+            mxu=mxu, mxu_precision=mxu_precision, spill=spill,
+            smem_budget=smem_budget, ring_storage=ring_storage)
+            for b in (B0 - 2 * h, h)]
+        if None not in got:
+            return program, analysis, plan, (got[0][0], got[1][0]), dict(
+                got[0][1], comm_overlap=True,
+                strip_jtiles=got[1][1]["jtiles"])
+        local_backend = "xla"   # the tile body's overlap
+    if (compose != "off" and mxu != "off" and local_backend == "stream"
+            and not comm_overlap):
         from ..backend.compose import compose_program
         max_t = int(compose) if compose not in ("auto",) else 0
         got = (compose_program(program, analysis, max_t)
@@ -495,7 +621,7 @@ def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
     check_dense_precision(mxu_precision, ring_storage)
     return program, analysis, plan, None, {
         "backend": "xla", "jtiles": 0, "mxu_stages": [],
-        "comm_overlap": False}
+        "comm_overlap": comm_overlap}
 
 
 def compile_sharded_chain(program: ir.Program, mesh: Mesh,
@@ -531,29 +657,27 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
     precisions run in K4 alone: ``mxu_precision="bf16"`` (single-pass
     bf16 band passes) and ``ring_storage="bfloat16"`` (bf16 rings, f32
     compute) take the stream body on any shard and raise ValueError
-    where the dense tile body would run.  ``comm_overlap=True`` is not
-    ported yet."""
-    if comm_overlap:
-        raise NotImplementedError(NOT_PORTED_OVERLAP)
+    where the dense tile body would run.
+
+    ``comm_overlap=True`` hides the exchange behind each shard's
+    interior (``_plan_sharded_chain``): on CUDA shards the exchange's
+    copies run on a side stream per device while the interiors (the
+    interior K4, or the tile body on the unwidened block) run on the
+    compute stream, which waits for the exchange before the strips
+    (two strip K4s a shard, or the tile body's strips).  ``fn.plan`` is
+    then the (interior, strip) pair of K4 plans, and ``fn`` has no
+    ``compute`` half."""
     program, analysis, plan, splan, cfg = _plan_sharded_chain(
         program, mesh, dim_axes, analysis, local_backend, mxu,
-        mxu_precision, spill, smem_budget, compose, ring_storage)
+        mxu_precision, spill, smem_budget, compose, ring_storage,
+        comm_overlap)
     graph = analysis.graph
     compile_sharded_chain.last_config = cfg
+    on_cuda = {d.type for d in mesh.devices.flat} == {"cuda"}
+    if cfg["comm_overlap"]:
+        return _compile_overlap(program, plan, graph, splan, cfg, on_cuda)
     if splan is not None:
-        from ..backend.stream import (_pool_tensors, build_stream,
-                                      run_local_stream)
-        on_cuda = {d.type for d in mesh.devices.flat} == {"cuda"}
-        lib = build_stream(splan) if on_cuda else None
-        # each shard's slice of the pool, on its device, now: no launch
-        # copies from the host (a copy a CUDA graph capture refuses)
-        if lib is not None:
-            for c in mesh.coords():
-                _pool_tensors(splan, mesh.device(c), plan.instance(c))
-
-        def kern(origin_i, tiles, origin_j, origin_k, inst):
-            return run_local_stream(splan, origin_i, tiles, lib, origin_j,
-                                    origin_k, inst)
+        kern = _shard_kernel(splan, plan, on_cuda)
 
         def local(c, tiles):
             return _local_forward_stream(plan, kern, c, tiles)
@@ -587,6 +711,100 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
 
 
 compile_sharded_chain.last_config = {}
+
+
+def _shard_kernel(splan, plan: DomainDecomposition, on_cuda: bool):
+    """``kern(origin_i, tiles, origin_j, origin_k, inst, out=None)``: K4
+    in shard mode for ``splan``, built now for CUDA shards with each
+    shard's slice of the pool placed on its device (no launch copies
+    from the host, a copy a CUDA graph capture refuses)."""
+    from ..backend.stream import (_pool_tensors, build_stream,
+                                  run_local_stream)
+    lib = build_stream(splan) if on_cuda else None
+    if lib is not None:
+        for c in plan.mesh.coords():
+            _pool_tensors(splan, plan.mesh.device(c), plan.instance(c))
+
+    def kern(origin_i, tiles, origin_j, origin_k, inst, out=None):
+        return run_local_stream(splan, origin_i, tiles, lib, origin_j,
+                                origin_k, inst, out)
+    return kern
+
+
+def _compile_overlap(program, plan: DomainDecomposition, graph, splan,
+                     cfg, on_cuda: bool):
+    """``compile_sharded_chain``'s function under ``comm_overlap``: per
+    call, every shard's interior is issued on the compute stream, then
+    the exchange (on a side stream of each device on CUDA shards, which
+    first waits for the compute stream's pending work: the inputs), then
+    the compute stream waits for the exchange and every shard's strips
+    run.  The widened blocks are recorded on the compute stream, so the
+    caching allocator keeps them until the strips have read them."""
+    mesh = plan.mesh
+    if splan is not None:
+        kern_i = _shard_kernel(splan[0], plan, on_cuda)
+        kern_s = _shard_kernel(splan[1], plan, on_cuda)
+
+        def interior(c, raw):
+            return _stream_overlap_interior(plan, kern_i, c, raw)
+
+        def strips(c, tiles, outs):
+            return _stream_overlap_strips(plan, kern_s, c, tiles, outs)
+    else:
+        def interior(c, raw):
+            return _local_forward_overlap(plan, graph, c, raw)
+
+        def strips(c, tiles, outs):
+            return _overlap_strips(plan, graph, c, tiles, outs)
+    side = {}
+    if on_cuda:   # a side stream per device, keyed as tensors name it
+        for c in mesh.coords():
+            d = mesh.device(c)
+            d = torch.device("cuda", torch.cuda.current_device()
+                             if d.index is None else d.index)
+            side.setdefault(d, torch.cuda.Stream(d))
+    out_spec = plan.spec_for_output()
+    out_shape = tuple(program.raw_dimensions)
+
+    def exchange(placed):
+        return _widen_and_origin(plan, placed)
+
+    def fn(inputs):
+        placed = {n: _as_sharded(plan, n, inputs[n])
+                  for n in program.inputs}
+        raw = {c: {n: v if program.inputs[n].is_scalar else v.shards[c]
+                   for n, v in placed.items()} for c in mesh.coords()}
+        for d, s in side.items():
+            s.wait_stream(torch.cuda.current_stream(d))
+        partial = {c: interior(c, raw[c]) for c in mesh.coords()}
+        if side:
+            with contextlib.ExitStack() as stack:
+                for s in side.values():
+                    stack.enter_context(torch.cuda.stream(s))
+                for v in placed.values():
+                    if isinstance(v, ShardedArray):
+                        for t in v.shards.values():
+                            t.record_stream(side[t.device])
+                per = exchange(placed)
+            for d, s in side.items():
+                torch.cuda.current_stream(d).wait_stream(s)
+            for tiles in per.values():
+                for t in tiles.values():
+                    if torch.is_tensor(t) and t.device.type == "cuda":
+                        t.record_stream(torch.cuda.current_stream(t.device))
+        else:
+            per = exchange(placed)
+        outs: Dict[str, Dict[Any, torch.Tensor]] = {
+            o: {} for o in program.outputs}
+        for c in mesh.coords():
+            for o, v in strips(c, per[c], partial[c]).items():
+                outs[o][c] = v
+        return {o: ShardedArray(mesh, out_spec, out_shape, shards)
+                for o, shards in outs.items()}
+
+    fn.exchange, fn.plan = exchange, splan
+    fn.last_config = dict(cfg)
+    return fn, plan
 
 
 def place_global_inputs(program: ir.Program,

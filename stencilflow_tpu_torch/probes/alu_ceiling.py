@@ -8,8 +8,11 @@ applies ``UNROLL`` unrolled ops per step to one accumulator (and the
 operands c, d) held in registers, for ``steps`` steps, one thread per
 element of ``elements()`` (every SM filled to 2048 resident threads).
 Two step counts are differenced, best of trials.  The ops are the TPU
-script's default list, its K-chain and expression variants, and
-``fma_fused`` (explicit ``fmaf``): the kernel is built with the port's
+script's default list, its K-chain and expression variants (``mul4``,
+``expr_jac2d``, the flux limiter's three formulations ``expr_lim_*``,
+the hoisted mask's ``selc`` and ``maskmul``, and ``expr_jac2d_shift``,
+whose blocks own a 16 x 16 plane in shared memory and read four shifted
+neighbours an application), and ``fma_fused`` (explicit ``fmaf``): the kernel is built with the port's
 ``-fmad=false``, under which ``a * c + d`` is two instructions.  The
 shared-memory variant of ``add`` loads and stores the accumulator around
 every op behind a ``__syncthreads``: the pass rate of kernels that store
@@ -41,14 +44,23 @@ UNROLL = 64                       # SF_ALU_UNROLL in alu.cu
 # op ids in the order of alu.cu's enum
 OPS = ("add", "add2", "mul", "fma", "fma_fused", "mixed", "div", "divc",
        "sqrt", "exp", "select", "min", "sin", "cos", "tan", "tanh", "log",
-       "abs", "add4", "fma4", "add8", "expr_jac", "expr_hs")
-# counted ops per unrolled application: K chains, or an expression's ops
-APPLICATIONS = {"add4": 4, "fma4": 4, "add8": 8, "expr_jac": 8,
-                "expr_hs": 20}
+       "abs", "add4", "fma4", "add8", "expr_jac", "expr_hs", "mul4",
+       "expr_jac2d", "expr_jac2d_shift", "expr_lim_sel", "expr_lim_mask",
+       "expr_lim_minmax", "selc", "maskmul")
+# counted ops per unrolled application, as the TPU script counts them: K
+# chains, or an expression's ops (expr_jac2d_shift: the 4-term sum; its
+# shifted reads and store are what its time adds to expr_jac2d's; the
+# limiter: 2 sub, mul, cmp, select and the carry's mul and add)
+APPLICATIONS = {"add4": 4, "fma4": 4, "add8": 8, "mul4": 4, "expr_jac": 8,
+                "expr_hs": 20, "expr_jac2d": 4, "expr_jac2d_shift": 4,
+                "expr_lim_sel": 7, "expr_lim_mask": 7,
+                "expr_lim_minmax": 7}
+# expr_jac2d_shift's plane: a block's 16 x 16 cells
+SHIFT_SIDE = 16
 FLOPS = {"fma": 2, "fma_fused": 2, "fma4": 2}     # per op; else 1
 # FP32 instructions per op under -fmad=false, where the op is one kind
 INSTRUCTIONS = {"add": 1, "add2": 1, "mul": 1, "fma": 2, "fma_fused": 1,
-                "mixed": 1, "add4": 1, "fma4": 2, "add8": 1}
+                "mixed": 1, "add4": 1, "fma4": 2, "add8": 1, "mul4": 1}
 TRANSCENDENTAL = ("exp", "sin", "cos", "tan", "tanh", "log")
 # plain versions: bit-exact but for these (stated tolerance, relative)
 TOLERANCE = {**{op: 1e-5 for op in TRANSCENDENTAL},
@@ -69,13 +81,17 @@ def alu(op: str, x: torch.Tensor, steps: int, smem: bool = False,
         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``steps`` steps of ``UNROLL`` ops ``op`` from each element of the
     1-D float32 ``x``.  ``smem``: the shared-memory variant (``add``
-    only).  On a CUDA tensor the kernel runs; on a CPU tensor the plain
-    version."""
+    only).  ``expr_jac2d_shift`` takes a multiple of 256 elements: one
+    16 x 16 plane a block.  On a CUDA tensor the kernel runs; on a CPU
+    tensor the plain version."""
     if op not in OPS or (smem and op != "add"):
         raise ValueError(f"unknown probe op {op!r}"
                          f"{' (shared memory: add only)' if smem else ''}")
     if x.dim() != 1 or steps < 0:
         raise ValueError("alu takes a 1-D tensor and steps >= 0")
+    if op == "expr_jac2d_shift" and x.numel() % SHIFT_SIDE ** 2:
+        raise ValueError("expr_jac2d_shift takes a multiple of "
+                         f"{SHIFT_SIDE ** 2} elements")
     if x.device.type == "cpu":
         return alu_plain(op, x, steps)
     check_cuda(x)
@@ -101,20 +117,64 @@ def alu_plain(op: str, x: torch.Tensor, steps: int) -> torch.Tensor:
     c = x * f(0.999993)
     d = x * f(1e-7)
     n = steps * UNROLL
-    if op in ("add4", "fma4", "add8"):
+    if op in ("add4", "fma4", "add8", "mul4"):
         K = APPLICATIONS[op]
         ch = [x * f(np.float32(1.0) + np.float32(1e-6) * np.float32(k))
               for k in range(K)]
         for i in range(n):
             u = i % UNROLL
             for k in range(K):
-                ch[k] = (ch[k] * c + d if op == "fma4"
-                         else ch[k] + (d if (u + k) & 1 else c))
+                if op == "fma4":
+                    ch[k] = ch[k] * c + d
+                elif op == "mul4":
+                    ch[k] = ch[k] * (d if (u + k) & 1 else c)
+                else:
+                    ch[k] = ch[k] + (d if (u + k) & 1 else c)
         a = ch[0]
         for k in range(1, K):
             a = a + ch[k]
         return a
     a = x
+    if op.startswith("expr_lim"):
+        zero, one = f(0.0), f(1.0)
+        for i in range(n):
+            flx = (c if (i % UNROLL) & 1 else a) - a * f(0.999)
+            dq = c - a * f(1.001)
+            p = flx * dq
+            if op == "expr_lim_sel":
+                flx = torch.where(p > zero, zero, flx)
+            elif op == "expr_lim_mask":
+                flx = flx * torch.where(p <= zero, one, zero)
+            else:
+                flx = torch.where(dq > zero, torch.minimum(flx, zero),
+                                  torch.maximum(flx, zero))
+            a = a * f(0.5) + flx
+        return a
+    if op in ("selc", "maskmul"):
+        m = c > d
+        mf = m.float()
+        nf = f(1.0) - mf
+        for i in range(n):
+            odd = (i % UNROLL) & 1
+            if op == "selc":
+                a = torch.where(m, a, c) if odd else torch.where(m, d, a)
+            else:
+                a = a * (nf if odd else mf)
+        return a
+    if op == "expr_jac2d_shift":
+        a = x.reshape(-1, SHIFT_SIDE, SHIFT_SIDE)
+        for _ in range(n):   # each edge reads itself (concat fill)
+            jm = torch.cat([a[:, 1:], a[:, -1:]], 1)
+            jp = torch.cat([a[:, :1], a[:, :-1]], 1)
+            km = torch.cat([a[:, :, 1:], a[:, :, -1:]], 2)
+            kp = torch.cat([a[:, :, :1], a[:, :, :-1]], 2)
+            a = f(0.25) * (jm + jp + km + kp)
+        return a.reshape(-1)
+    if op == "expr_jac2d":
+        b0, b1, b2 = c * f(0.9), c * f(0.91), c * f(0.92)
+        for _ in range(n):
+            a = f(0.25) * (a + b0 + b1 + b2)
+        return a
     if op in ("expr_jac", "expr_hs"):
         b0, b1, b2, b3, b4 = c * f(0.9), c * f(0.91), c * f(0.92), \
             c * f(0.93), d
@@ -187,14 +247,16 @@ def compare(op: str, got: torch.Tensor, want: torch.Tensor):
     return bool(torch.all(diff <= rtol * want.abs())), err
 
 
-def measure(ops=OPS, trials: int = 3) -> List[Dict[str, object]]:
-    """Each op and the shared-memory add on the card: ms per step (4096
-    and 512 steps differenced, best of ``trials``) and the rates that
-    follow."""
+def measure(ops=OPS, trials: int = 3,
+            smem: bool = True) -> List[Dict[str, object]]:
+    """Each op and (``smem``) the shared-memory add on the card: ms per
+    step (4096 and 512 steps differenced, best of ``trials``) and the
+    rates that follow."""
     x = inputs(elements(), "cuda")
     out = torch.empty_like(x)
     rows = []
-    for op, sm in [(op, False) for op in ops] + [("add", True)]:
+    for op, sm in [(op, False) for op in ops] + ([("add", True)]
+                                                 if smem else []):
         ms = differenced_ms(lambda n: alu(op, x, n, sm, out), 512, 4096,
                             trials)
         apps = x.numel() * UNROLL * APPLICATIONS.get(op, 1) / (ms / 1e3)

@@ -121,9 +121,15 @@ class Report:
             c *= 2
         return 0
 
-    def hbm_time_s(self) -> float:
-        return (self.analysis.minimum_communication_volume()
-                / self.hw.hbm_bandwidth)
+    def hbm_time_s(self, compute_dtype=None) -> float:
+        """The memory floor: every input read once and every output
+        written once at the data sheet's rate; under
+        ``compute_dtype="bfloat16"`` (float32 programs, the stream
+        kernel's bf16 compute) at 2 bytes a cell."""
+        vol = self.analysis.minimum_communication_volume()
+        if compute_dtype == "bfloat16":
+            vol = vol / 2
+        return vol / self.hw.hbm_bandwidth
 
     def alu_time_s(self) -> float:
         """Counted ops at the data sheet's single-instruction FP32 rate."""
@@ -241,23 +247,27 @@ class Report:
         }
         return self._mxu_model
 
-    def roofline_time_s(self, mxu_precision: str = "split") -> float:
-        """Runtime lower bound: the memory floor against the faster of the
-        two compute strategies — every stage per cell, or band transforms
-        for the eligible stages (single-pass bf16 under
-        ``mxu_precision="bf16"``) plus per-cell ops for the rest."""
-        return max(self.hbm_time_s(), self._compute(mxu_precision)[0],
-                   1e-12)
+    def roofline_time_s(self, mxu_precision: str = "split",
+                        compute_dtype=None) -> float:
+        """Runtime lower bound: the memory floor (``hbm_time_s``, at 2
+        bytes a cell under ``compute_dtype="bfloat16"``) against the
+        faster of the two compute strategies — every stage per cell at
+        the FP32 rate, or band transforms for the eligible stages
+        (single-pass bf16 under ``mxu_precision="bf16"``) plus per-cell
+        ops for the rest."""
+        return max(self.hbm_time_s(compute_dtype),
+                   self._compute(mxu_precision)[0], 1e-12)
 
-    def bound(self, mxu_precision: str = "split") -> str:
+    def bound(self, mxu_precision: str = "split", compute_dtype=None) -> str:
         """"hbm", "alu" (per-cell ops) or "mxu" (band transforms, the JAX
         package's name for that strategy)."""
         compute, _, kind = self._compute(mxu_precision)
-        return kind if compute > self.hbm_time_s() else "hbm"
+        return kind if compute > self.hbm_time_s(compute_dtype) else "hbm"
 
-    def roofline_gcell_s(self, mxu_precision: str = "split") -> float:
+    def roofline_gcell_s(self, mxu_precision: str = "split",
+                         compute_dtype=None) -> float:
         return (self.program.total_elements
-                / self.roofline_time_s(mxu_precision) / 1e9)
+                / self.roofline_time_s(mxu_precision, compute_dtype) / 1e9)
 
     def fast_memory_bytes(self) -> int:
         """On-chip working set of the streaming schedule (delay + line

@@ -235,7 +235,6 @@ def test_run_distributed_on_host_devices(dprog, capsys, axes):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--comm-overlap"], "item 8"),
     (["--coordinator", "localhost:1234", "--num-hosts", "2",
       "--host-id", "0"], "item 8")])
 def test_run_distributed_refusals(dprog, capsys, extra, item):
@@ -244,6 +243,23 @@ def test_run_distributed_refusals(dprog, capsys, extra, item):
     assert main(argv) == 2
     err = capsys.readouterr().err
     assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("axes", ["x,none,none", None])
+def test_run_distributed_comm_overlap(dprog, capsys, axes):
+    """--comm-overlap on four virtual CPU shards (a 2 x 2 mesh; the tile
+    body, CPU shards' auto body), sharding i or the default (j, k),
+    checked against the oracle; pipeline mode still refuses it."""
+    extra = ["--dim-axes", axes] if axes else []
+    argv = ["run-distributed", dprog, "--devices", "4",
+            "--force-host-devices", "--comm-overlap",
+            "--compare-to-reference"] + extra
+    assert main(argv) == 0
+    assert "verified against reference: OK" in capsys.readouterr().out
+    assert main(["run-distributed", dprog, "--devices", "2",
+                 "--force-host-devices", "--comm-overlap",
+                 "--parallel-mode", "pipeline"]) == 2
+    assert "domain mode only" in capsys.readouterr().err
 
 
 def test_run_distributed_needs_its_devices(dprog, capsys, monkeypatch):

@@ -1988,3 +1988,107 @@ def test_cli_compile_builds_what_the_route_launches(route, spec, cuda,
                                          MXU_VERIFY_RTOL)
         else:
             assert np.array_equal(got, np.asarray(want[o]))
+
+
+# -- bf16 compute, the sharded engine's overlap, P1's variant bodies ----------
+
+def _bf16_compute_cases():
+    def synth(shape, dims, iters, **kw):
+        return port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape,
+            seed_data="random:0,1", **kw))
+    return {
+        "K3a-jacobi": (synth("diffusion", (24, 40, 72), 4), {"mxu": "off"}),
+        "K3a-hotspot": (synth("hotspot", (16, 40, 72), 3,
+                              boundary_value=0.3), {}),
+        "K3b-box-r2-mma": (synth("box", (16, 40, 72), 3, extent=2), {}),
+        "K3b-box-bc0.7-fma": (synth("box", (16, 40, 72), 2, extent=2,
+                                    boundary_value=0.7), {"passes": "fma"}),
+        "K3c-jacobi-spilled": (synth("diffusion", (24, 40, 72), 3,
+                                     boundary="copy"), {"spill": "all"}),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_bf16_compute_cases()))
+def test_bf16_compute_matches_plain_on_card(name, cuda):
+    """compute_dtype="bfloat16": the kernel on bf16 arrays against its
+    plain version (``stream.bf16_compute_agree``: bit for bit per cell,
+    at least BF16_COMPUTE_SHARE equal and every cell within
+    BF16_VERIFY_RTOL banded), one launch counted in
+    ``compute_bf16_launches``, and the entry point equal to it."""
+    p, kw = _bf16_compute_cases()[name]
+    plan = stream.plan_stream(p, compute_dtype="bfloat16", **kw)
+    assert plan.packed == name.startswith("K3c")
+    assert bool(plan.mxu_plans) == name.startswith("K3b")
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = stream.compute_bf16_launches
+    got = stream.run_stream(plan, arrays)
+    torch.cuda.synchronize()
+    assert stream.compute_bf16_launches == before + 1
+    want = stream.stream_plain(plan, arrays)
+    for o in p.outputs:
+        assert got[o].dtype == torch.float32
+        ok, fig = stream.bf16_compute_agree(
+            want[o].cpu().numpy(), got[o].cpu().numpy(),
+            bool(plan.mxu_plans))
+        assert ok, fig
+    # the entry point (compile_chain_stream takes no ``passes``: the plan
+    # then goes through compile_stream_plan, the function beneath it)
+    fn = stream.compile_stream_plan(plan, cuda) if "passes" in kw else \
+        stream.compile_chain_stream(p, compute_dtype="bfloat16", **kw)
+    again = fn(port.load_input_arrays(p, seed=4))
+    for o in p.outputs:
+        assert torch.equal(again[o].reshape(got[o].shape), got[o])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,axes,lb", [
+    ("stream-i", (2,), ("x", None, None), "stream"),
+    ("stream-i4", (4,), ("x", None, None), "stream"),
+    ("tile-jk", (2, 2), (None, "x", "y"), "xla")])
+def test_overlap_equals_blocking_on_card(name, shape, axes, lb, cuda):
+    """comm_overlap=True on virtual shards of the card: the exchange on a
+    side stream, interiors (and strips) on the compute stream; 3 K4
+    launches a shard on the stream body; equal to the blocking call bit
+    for bit over 12 repeated calls (a strip launched before the exchange
+    landed would read stale slabs only sometimes)."""
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    p = port.parse_program(synthesize_stencil(
+        num_stages=4, dimensions=(64, 40, 72), shape="diffusion",
+        seed_data="random:0,1", boundary="copy"))
+    names = ("x", "y")[:len(shape)]
+    mesh = make_mesh([cuda], shape, names)
+    fn, plan = compile_sharded_chain(p, mesh, axes, local_backend=lb,
+                                     comm_overlap=True)
+    assert fn.last_config["comm_overlap"]
+    assert fn.last_config["backend"] == ("stream" if lb == "stream"
+                                         else "xla")
+    block, _ = compile_sharded_chain(p, mesh, axes, local_backend=lb)
+    placed = place_global_inputs(p, plan, port.load_input_arrays(p, seed=4))
+    want = block(placed)[p.outputs[0]].numpy()
+    before = stream.shard_launches
+    for _rep in range(12):
+        got = fn(placed)[p.outputs[0]].numpy()
+        np.testing.assert_array_equal(got, want)
+    if lb == "stream":
+        assert stream.shard_launches - before == 12 * 3 * mesh.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mul4", "expr_jac2d", "expr_jac2d_shift",
+                                "expr_lim_sel", "expr_lim_mask",
+                                "expr_lim_minmax", "selc", "maskmul"])
+def test_alu_variant_matches_plain_on_card(op, cuda):
+    """P1's variant bodies equal their plain versions bit for bit."""
+    from stencilflow_tpu_torch.probes import alu_ceiling
+    x = alu_ceiling.inputs(1024, cuda)
+    for steps in (1, 3):
+        got = alu_ceiling.alu(op, x, steps)
+        torch.cuda.synchronize()
+        ok, err = alu_ceiling.compare(op, got,
+                                      alu_ceiling.alu_plain(op, x, steps))
+        assert ok, f"{op}: max abs diff {err}"

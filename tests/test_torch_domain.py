@@ -221,9 +221,17 @@ def test_plan_errors_match_the_reference():
         DomainDecomposition.plan(b, mesh8, ("x", None, None))
     with pytest.raises(ValueError, match="dim_axes is required"):
         DomainDecomposition.plan(b, mesh, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # the overlap's refusals, as the reference words them: the stream
+    # body takes i-only sharding with an interior (B0 > 2h)
+    with pytest.raises(ValueError, match="i-only"):
         compile_sharded_chain(b, make_mesh(["cpu"], (2,), ("x",)),
-                              ("x", None, None), comm_overlap=True)
+                              (None, "x", None), local_backend="stream",
+                              comm_overlap=True)
+    thin = port.parse_program(_synth("diffusion", (8, 8, 16), 2))
+    with pytest.raises(ValueError, match="interior"):
+        compile_sharded_chain(thin, make_mesh(["cpu"], (2,), ("x",)),
+                              ("x", None, None), local_backend="stream",
+                              comm_overlap=True)
 
 
 def test_run_sharded_chain_and_arrays():
@@ -297,3 +305,109 @@ def test_sharded_band_assets_equal_jax(spec, shape, names, axes):
                              v.shape[1:] if linear.is_stacked_key(k)
                              else v.shape)
     assert resident == sum(int(np.prod(s)) * 4 for s in shapes.values())
+
+
+# -- the comm/compute overlap (tests/test_comm_overlap.py's cases) --------------
+
+# name: (spec, mesh, local backend, last_config backend)
+OVERLAP = {
+    "tile-jk-constant": (lambda: _synth("diffusion", boundary_value=0.5),
+                         JK, "xla", "xla"),
+    "tile-jk-copy": (lambda: _synth("diffusion", boundary="copy"), JK,
+                     "xla", "xla"),
+    "tile-jk-shrink": (lambda: _synth("diffusion", boundary="shrink"), JK,
+                       "xla", "xla"),
+    "stream-i-constant": (lambda: _synth("diffusion", (16, 8, 32),
+                                         boundary_value=0.5),
+                          ((2,), ("x",), ("x", None, None)), "stream",
+                          "stream"),
+    "stream-i-copy": (lambda: _synth("diffusion", (16, 8, 32),
+                                     boundary="copy"),
+                      ((2,), ("x",), ("x", None, None)), "stream", "stream"),
+    "stream-i-shrink": (lambda: _synth("diffusion", (16, 8, 32),
+                                       boundary="shrink"),
+                        ((2,), ("x",), ("x", None, None)), "stream",
+                        "stream"),
+    "tile-const-ireach-i": (_const_ireach,
+                            ((2,), ("x",), ("x", None, None)), "xla", "xla"),
+    "stream-const-ireach-i": (_const_ireach,
+                              ((2,), ("x",), ("x", None, None)), "stream",
+                              "stream"),
+    "stream-deep-i": (lambda: _synth("diffusion", (32, 8, 16), 4),
+                      ((2,), ("x",), ("x", None, None)), "stream", "stream"),
+    "tile-thin-i": (lambda: _synth("diffusion", (12, 8, 16), 2),
+                    I4, "xla", "xla"),
+    "stream-banded-i": (lambda: _synth("box", (32, 12, 16), 2, extent=2,
+                                       boundary_value=0.7),
+                        ((2,), ("x",), ("x", None, None)), "stream",
+                        "stream"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OVERLAP))
+def test_overlap_matches_blocking_and_jax(name):
+    """The overlapped call against the port's blocking body bit for bit
+    (within MXU_VERIFY_RTOL banded) and against the JAX package's
+    ``run_sharded_chain(comm_overlap=True)`` within its own rtol 1e-6
+    (MXU_VERIFY_RTOL banded), with the reference's last_config keys."""
+    make, (shape, names, axes), lb, backend = OVERLAP[name]
+    spec = make()
+    a, b = ref.parse_program(spec), port.parse_program(spec)
+    inputs = port.load_input_arrays(b, seed=71)
+    mesh = make_mesh(["cpu"], shape, names)
+    fn, _plan = compile_sharded_chain(b, mesh, axes, local_backend=lb,
+                                      comm_overlap=True)
+    cfg = fn.last_config
+    assert cfg["comm_overlap"] and cfg["backend"] == backend
+    assert compile_sharded_chain.last_config == cfg
+    if backend == "stream":
+        assert cfg["strip_jtiles"] == 1 and len(fn.plan) == 2
+        assert [p.block for p in fn.plan] == [
+            b.dimensions[0] // shape[0] - 2 * _plan.halo[0], _plan.halo[0]]
+    banded = bool(cfg["mxu_stages"])
+    assert banded == name.startswith("stream-banded")
+    block, _ = compile_sharded_chain(b, mesh, axes, local_backend=lb)
+    want = {k: v.numpy() for k, v in block(inputs).items()}
+    for _rep in range(2):   # the same function called again
+        got = {k: v.numpy() for k, v in fn(inputs).items()}
+        for o in b.outputs:
+            assert np.isfinite(got[o]).all()
+            if banded:
+                assert _close(got[o], want[o], MXU_VERIFY_RTOL)
+            else:
+                np.testing.assert_array_equal(got[o], want[o])
+    jfn, jplan = ref_domain.compile_sharded_chain(
+        a, _jax_mesh(shape, names), axes, local_backend=lb, interpret=True,
+        comm_overlap=True)
+    assert ref_domain.compile_sharded_chain.last_config["comm_overlap"]
+    sh = jplan.input_shardings()
+    jout = jfn({n: jax.device_put(jnp.asarray(v), sh[n])
+                for n, v in inputs.items()})
+    for o in b.outputs:
+        np.testing.assert_allclose(
+            got[o], np.asarray(jout[o]),
+            rtol=MXU_VERIFY_RTOL if banded else 1e-6,
+            atol=MXU_VERIFY_RTOL if banded else 0)
+
+
+def test_overlap_without_exchange_is_dropped():
+    """One shard: no halo to hide, the flag downgrades (the reference's
+    test_no_exchange_is_a_noop)."""
+    b = port.parse_program(_synth("diffusion", (8, 8, 16), 2))
+    fn, _plan = compile_sharded_chain(b, make_mesh(["cpu"], (1,), ("x",)),
+                                      ("x", None, None), comm_overlap=True)
+    assert not fn.last_config["comm_overlap"]
+    inputs = port.load_input_arrays(b, seed=74)
+    np.testing.assert_array_equal(
+        fn(inputs)[b.outputs[0]].numpy(),
+        np.asarray(port.run_interpreter(b, inputs)[b.outputs[0]]))
+
+
+def test_overlap_refuses_reduced_precision_on_the_tile_body():
+    """Where the stream overlap does not plan (here: asked for the tile
+    body), a reduced precision raises as the blocking body's does."""
+    b = port.parse_program(_synth("diffusion", (16, 8, 16), 2))
+    with pytest.raises(ValueError, match="needs K4"):
+        compile_sharded_chain(b, make_mesh(["cpu"], (2,), ("x",)),
+                              ("x", None, None), local_backend="xla",
+                              comm_overlap=True, mxu_precision="bf16")

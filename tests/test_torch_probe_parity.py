@@ -341,6 +341,34 @@ def test_panel_plain_matches_the_script_kernel(B):
     assert float(np.abs(got - want).max()) < 1e-5
 
 
+@pytest.mark.parametrize("op", ["mul4", "expr_jac2d", "expr_jac2d_shift",
+                                "expr_lim_sel", "expr_lim_mask",
+                                "expr_lim_minmax", "selc", "maskmul"])
+def test_alu_variant_plain_matches_the_script_kernel(op):
+    """P1's variant bodies: the plain version (the kernel's op sequence)
+    against ``scripts/vpu_ceiling.py``'s Pallas kernel on one 16 x 16
+    block, ``UNROLL`` ops a grid step as the port's.  A 16 x 16 block is
+    one plane of the port's expr_jac2d_shift, whose edges read
+    themselves as the script's concat fill does, and expr_lim_minmax is
+    held to its own formulation (it differs from the other two where dq
+    == 0).  Tolerance: 2e-7 of the largest magnitude, and FLT_MIN: XLA's
+    CPU compiler contracts a multiply and an add into one FMA where it
+    fuses them (its ``add`` computes x + x * 0.999993 as one fma, a
+    rounding fewer than the kernel's -fmad=false), and flushes denormals
+    to zero (the limiter decays into them); elsewhere bit for bit."""
+    from stencilflow_tpu_torch.probes import alu_ceiling
+    script = _script("vpu_ceiling", ROWS=16, COLS=16)
+    x = _uniform((16, 16), seed=13)
+    for steps in (1, 2):
+        got = np.asarray(jax.jit(script.build(op, alu_ceiling.UNROLL,
+                                              steps))(jnp.asarray(x)))
+        want = alu_ceiling.alu_plain(op, torch.as_tensor(x.reshape(-1)),
+                                     steps).numpy().reshape(16, 16)
+        err = np.abs(got.astype(np.float64) - want)
+        tol = 2e-7 * float(np.abs(want).max()) + np.finfo(np.float32).tiny
+        assert float(err.max()) <= tol, (steps, float(err.max()))
+
+
 # -- the wrappers and the sources agree ------------------------------------
 
 def test_sources_build_what_the_wrappers_offer():

@@ -62,7 +62,8 @@ def test_op_ids_match_the_kernel():
 
 @pytest.mark.parametrize("op", alu_ceiling.OPS)
 def test_alu_kernel_body_matches_plain(op, alu_lib):
-    x = alu_ceiling.inputs(37, "cpu")
+    # expr_jac2d_shift: whole 16 x 16 planes, one a block
+    x = alu_ceiling.inputs(512 if op == "expr_jac2d_shift" else 37, "cpu")
     out = torch.empty_like(x)
     for steps in (0, 1, 2):
         rc = alu_lib.sf_alu_host(x.data_ptr(), out.data_ptr(), x.numel(),
@@ -84,6 +85,16 @@ def test_alu_shared_memory_variant(alu_lib):
                                1) == -1      # add only
     with pytest.raises(ValueError, match="add only"):
         alu_ceiling.alu("mul", x, 1, smem=True)
+
+
+def test_alu_shift_variant_needs_whole_planes(alu_lib):
+    x = alu_ceiling.inputs(300, "cpu")
+    out = torch.empty_like(x)
+    op = alu_ceiling.OPS.index("expr_jac2d_shift")
+    assert alu_lib.sf_alu_host(x.data_ptr(), out.data_ptr(), 300, op, 1,
+                               0) == -1
+    with pytest.raises(ValueError, match="multiple of 256"):
+        alu_ceiling.alu("expr_jac2d_shift", x, 1)
 
 
 def test_alu_plain_is_the_op_sequence():
