@@ -55,7 +55,13 @@ Phases, one line each (any failure raises and exits non-zero):
    against its plain version by ``stream.bf16_compute_agree`` (bit for
    bit per cell, the banded rule banded) in K3a (jacobi3d 40 x 48 x 72 x
    4, hotspot3d with constant BC 0.3), K3b (the box of BC 0.7, both
-   routes) and K3c (jacobi3d 64^3 x 3 with every ring spilled); the
+   routes) and K3c (jacobi3d 64^3 x 3 with every ring spilled); programs
+   typed bfloat16 and float16 (``_narrow_small``) against their plain
+   versions and the host oracle, bit for bit (one bf16 ulp from the
+   oracle where a transcendental appears), in K1 (hdiff3d 40 x 48 x 72
+   x 3), K2 (jacobi3d x 2), K3a (jacobi3d x 4), K3c (jacobi3d 64^3 x 3,
+   every ring spilled) and K5 (jacobi2d 256 x 192 x 8 through rows), and
+   two mixed bf16 programs (K1, K3a) and bf16 meeting f16 (K1); the
    overlapped-tile kernel
    (K6), masked and fast (one launch: mask-free interior blocks, masked
    border blocks), against its plain version (fast: mask-free plus the
@@ -131,6 +137,13 @@ Phases, one line each (any failure raises and exits non-zero):
    timed in turns with the f32 stream kernel on the same tile, its drift
    from f32, one chained ``F.conv3d`` in bf16, and the leg through the
    entry point with the count set to 0 just before and read just after;
+   then programs typed bf16 and f16 (``_narrow_legs``): jacobi3d 512^3 x
+   8 bf16 and f16 (K1), x 2 bf16 (K2), x 8 bf16 with ``--backend
+   stream`` (K3a) and jacobi2d 8192^2 x 8 bf16 (rows+group_g8, K5), each
+   through ``run_program`` with the narrow counts set to 0 just before
+   and read just after, the kernel against its plain version and the
+   main path's output bit for bit, both timed, with one chained
+   ``F.conv3d``/``conv2d`` in the program's type;
 5. the out-of-core path (``run --host-chunks N``) through
    ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
    8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
@@ -291,11 +304,13 @@ lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
 and per segment's from phase 9; error, kernel, plain-version and library
 times measured in this run at the main path's shapes, bounds computed
-from its inputs; 36 entries: the stream kernel's on box and on cross,
+from its inputs; 42 entries: the stream kernel's on box and on cross,
 the four reduced-precision modes' from phase 4's bf16 legs and its two
 bf16-compute legs, K4's bf16 passes on chunks from phase 5, P1's eight
 variant bodies from phase 6, and K4's three reduced-precision legs and
-the overlap's interior and strip K4s from phase 9) and
+the overlap's interior and strip K4s from phase 9, and the six rows of
+programs typed bf16 and f16: K1, K1 f16, K2, K3a and K5 from phase 4's
+narrow legs, ``_narrow_legs``, and K3c from phase 3) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -555,14 +570,14 @@ def _bf16_kernel(pn, gp, st, kind: str, p, an, plan):
     if kind == "panel":
         return (lambda a, lib: pn.run_panel(p, an, plan, a, lib),
                 lambda a: pn.panel_plain(p, an, plan, a),
-                lambda: pn.bf16_launches,
+                lambda: pn.launches_by["bf16"],
                 f"tile {plan.tile} x {plan.threads}, smem "
                 f"{plan.smem_bytes(p)} B, {plan.residency(p)} blocks/SM",
                 None)
     if kind == "group":
         return (lambda a, lib: gp.run_group(p, an, plan, a, lib),
                 lambda a: gp.group_plain(p, an, plan, a),
-                lambda: gp.bf16_launches,
+                lambda: gp.launches_by["bf16"],
                 f"tile {plan.tile} x {plan.threads}, segments "
                 f"{plan.segments}, smem {plan.smem_bytes(p)} B, rounded "
                 f"{sorted(plan.rounds)}", None)
@@ -578,8 +593,8 @@ def _bf16_kernel(pn, gp, st, kind: str, p, an, plan):
         split = lambda a: st.stream_plain(split_plan, a)  # noqa: E731
     return (lambda a, lib: st.run_stream(plan, a, lib),
             lambda a: st.stream_plain(plan, a),
-            lambda: (st.spill_bf16_launches if plan.packed
-                     else st.bf16_launches),
+            lambda: (st.launches_by["spill_bf16"] if plan.packed
+                     else st.launches_by["bf16"]),
             line, split)
 
 
@@ -639,8 +654,8 @@ def _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
         return float(np.max(np.abs(np.asarray(a, np.float64).reshape(
             want.shape) - want)) / np.max(np.abs(want)))
     jacobi8, jacobi32, jacobi2d, box256 = cells
-    pn.bf16_launches = gp.bf16_launches = 0
-    st.bf16_launches = st.spill_bf16_launches = 0
+    pn.launches_by["bf16"] = gp.launches_by["bf16"] = 0
+    st.launches_by["bf16"] = st.launches_by["spill_bf16"] = 0
     legs = (("panel_bf16", jacobi8, "--backend panel --ring-storage "
              "bfloat16", dict(backend="panel", ring_storage="bfloat16"), 20),
             ("stream_spill_bf16", jacobi32, "--backend stream "
@@ -696,13 +711,14 @@ def _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
                                "BF16_VERIFY_RTOL of its f32 route")
         del out
         torch.cuda.empty_cache()
-    report["panel_bf16"]["launches"] = pn.bf16_launches
-    report["group_bf16"]["launches"] = gp.bf16_launches
-    report["stream_spill_bf16"]["launches"] = st.spill_bf16_launches
-    report["stream_bf16"]["launches"] = st.bf16_launches
-    if st.spill_bf16_launches != 4:
+    report["panel_bf16"]["launches"] = pn.launches_by["bf16"]
+    report["group_bf16"]["launches"] = gp.launches_by["bf16"]
+    report["stream_spill_bf16"]["launches"] = st.launches_by["spill_bf16"]
+    report["stream_bf16"]["launches"] = st.launches_by["bf16"]
+    if st.launches_by["spill_bf16"] != 4:
         raise RuntimeError(f"the bf16 spill leg launched K3c "
-                           f"{st.spill_bf16_launches} times over 4 calls")
+                           f"{st.launches_by['spill_bf16']} times over 4 "
+                           "calls")
 
 
 def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
@@ -750,10 +766,10 @@ def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
         inputs = {k: v if p.inputs[k].is_scalar else
                   torch.as_tensor(np.asarray(v)).cuda()
                   for k, v in sft.load_input_arrays(p, seed=0).items()}
-        st.compute_bf16_launches = 0
+        st.launches_by["compute_bf16"] = 0
         leg = fn(inputs)[o]
         torch.cuda.synchronize()
-        launches = st.compute_bf16_launches
+        launches = st.launches_by["compute_bf16"]
         same = bool(torch.equal(leg, st.run_stream(plan, _spanned_on_card(
             sft, p), lib)[o].reshape(leg.shape)))
         del leg, inputs, fn
@@ -988,12 +1004,13 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
         del res
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        pn.launches = ov.launches = st.launches = gp.launches = 0
-        st.local_launches = 0
+        for m in (pn, ov, st, gp):
+            m.launches_by["exact"] = 0
+        st.launches_by["local"] = 0
         oc = run_program(p, device="cuda", host_chunks=chunks,
                          repetitions=reps, save_results=False, log_level=0)
-        n = st.local_launches
-        other = pn.launches + ov.launches + st.launches + gp.launches
+        n = st.launches_by["local"]
+        other = sum(m.launches_by["exact"] for m in (pn, ov, st, gp))
         peak = torch.cuda.max_memory_allocated()
         stats = oc.host_staging
         label = f"outofcore[stream x{chunks} chunks]"
@@ -1038,25 +1055,15 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
 
 def _counts_zero(pn, ov, gp, tl, st):
     """Every kernel's launch count set to 0."""
-    pn.launches = ov.launches = gp.launches = tl.launches = 0
-    pn.bf16_launches = gp.bf16_launches = 0
-    for name in ("launches", "local_launches", "spill_launches",
-                 "shard_launches", "bf16_launches", "spill_bf16_launches",
-                 "local_bf16_launches", "shard_bf16_launches",
-                 "compute_bf16_launches"):
-        setattr(st, name, 0)
+    for m in (pn, ov, gp, tl, st):
+        m.launches_by.clear()
 
 
 def _counts(pn, ov, gp, tl, st) -> dict:
-    """Every kernel's launch count that is not 0."""
-    got = {"panel": pn.launches, "overlap": ov.launches,
-           "group": gp.launches, "tile": tl.launches,
-           "panel_bf16": pn.bf16_launches, "group_bf16": gp.bf16_launches}
-    got.update({name: getattr(st, name) for name in (
-        "launches", "local_launches", "spill_launches", "shard_launches",
-        "bf16_launches", "spill_bf16_launches", "local_bf16_launches",
-        "shard_bf16_launches", "compute_bf16_launches")})
-    return {k: v for k, v in got.items() if v}
+    """Every kernel's launch count that is not 0, keyed "module:mode"."""
+    return {f"{m.__name__.rsplit('.', 1)[1]}:{mode}": n
+            for m in (pn, ov, gp, tl, st)
+            for mode, n in m.launches_by.items() if n}
 
 
 def _rel(a, want) -> float:
@@ -1091,10 +1098,10 @@ def _outofcore_bf16(sft, st, pn, ov, gp, tl, p, chunks, plans, lib_of, smi,
     lo = c * plan.block - plan.halo_i
     slabs = _chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
                          plan.extent())
-    before = st.local_bf16_launches
+    before = st.launches_by["local_bf16"]
     got = st.run_local_stream(plan, lo, slabs, lib)
     torch.cuda.synchronize()
-    counted = st.local_bf16_launches - before
+    counted = st.launches_by["local_bf16"] - before
     t_plain = time.perf_counter()
     want = st.local_stream_plain(plan, lo, slabs)
     torch.cuda.synchronize()
@@ -1148,7 +1155,7 @@ def _outofcore_bf16(sft, st, pn, ov, gp, tl, p, chunks, plans, lib_of, smi,
                      mxu_precision="bf16", repetitions=reps,
                      save_results=False, log_level=0)
     counts = _counts(pn, ov, gp, tl, st)
-    n = counts.pop("local_bf16_launches", 0)
+    n = counts.pop("stream:local_bf16", 0)
     label = f"outofcore[stream x{chunks} chunks]"
     if oc.backend != label or n != chunks * (reps + 1) or counts:
         raise RuntimeError(f"{p.name}: {oc.backend} launched K4's bf16 "
@@ -1293,11 +1300,11 @@ def _measurement(pn, smi):
     pc.launches = 0
     loops = pl.measure(unrolls=(1, 2), trials=3)
     p7_launches = pc.launches
-    pn.launches = 0
+    pn.launches_by["exact"] = 0
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(["--workload", "jacobi", "--sessions", "1"])
-    bench_launches = pn.launches
+    bench_launches = pn.launches_by["exact"]
     line = out.getvalue().strip().splitlines()[-1]
     print(f"bench: {line}", flush=True)
     rec = json.loads(line)
@@ -1385,14 +1392,18 @@ def _autotune_leg(sft, st, pn, ov, gp, tl, program, build_s, smi,
     from stencilflow_tpu_torch import autotune as at
     from stencilflow_tpu_torch.backend import compile_chain
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
-    counters = {"stream": lambda: st.launches + st.spill_launches,
-                "panel": lambda: pn.launches,
-                "overlap": lambda: ov.launches, "group": lambda: gp.launches,
-                "pallas": lambda: tl.launches}
+    counters = {"stream": lambda: (st.launches_by["exact"]
+                                   + st.launches_by["spill"]),
+                "panel": lambda: pn.launches_by["exact"],
+                "overlap": lambda: ov.launches_by["exact"],
+                "group": lambda: gp.launches_by["exact"],
+                "pallas": lambda: tl.launches_by["exact"]}
 
     def reset():
-        pn.launches = ov.launches = gp.launches = tl.launches = 0
-        st.launches = st.spill_launches = st.local_launches = 0
+        for m in (pn, ov, gp, tl):
+            m.launches_by["exact"] = 0
+        for k in ("exact", "spill", "local"):
+            st.launches_by[k] = 0
 
     def launched(label):
         kind = label.split(":")[0]
@@ -1583,8 +1594,10 @@ def _solvers(sft, progs, smi, k1_ms: float):
     from stencilflow_tpu_torch.backend.dense import compile_chain
     from stencilflow_tpu_torch.config import VERIFY_RTOL
     from stencilflow_tpu_torch.iterate import make_step
-    pn.launches = ov.launches = gp.launches = 0
-    st.launches = st.local_launches = st.spill_launches = 0
+    for m in (pn, ov, gp):
+        m.launches_by["exact"] = 0
+    for k in ("exact", "local", "spill"):
+        st.launches_by[k] = 0
 
     def check(ok, what):
         if not ok:
@@ -1748,9 +1761,12 @@ def _solvers(sft, progs, smi, k1_ms: float):
           flush=True)
     check(rel <= 10 * tol, "out-of-core CG differs from in-core")
 
-    counts = {"panel": pn.launches, "overlap": ov.launches,
-              "group": gp.launches, "local_stream": st.local_launches,
-              "stream": st.launches, "stream_spill": st.spill_launches}
+    counts = {"panel": pn.launches_by["exact"],
+              "overlap": ov.launches_by["exact"],
+              "group": gp.launches_by["exact"],
+              "local_stream": st.launches_by["local"],
+              "stream": st.launches_by["exact"],
+              "stream_spill": st.launches_by["spill"]}
     print(f"solvers: launches {counts} (warm-up and capture launches; a "
           f"graph replay re-runs its captured launches without the "
           f"wrappers) | {smi}", flush=True)
@@ -1954,14 +1970,14 @@ def _imported_hdiff(sft, run_program, imported, smi):
         oracle.update(real(p, inputs))
         return oracle
     drv.run_interpreter = kept
-    pn.launches = 0
+    pn.launches_by["exact"] = 0
     try:
         res = run_program(program, device="cuda", repetitions=5,
                           compare_to_reference=True, save_results=False,
                           log_level=0)
     finally:
         drv.run_interpreter = real
-    launched = pn.launches
+    launched = pn.launches_by["exact"]
     if res.backend != "panel" or launched < 1:
         raise RuntimeError(f"simulator: the imported hdiff took "
                            f"{res.backend}, K1 launched {launched} times")
@@ -2065,8 +2081,10 @@ def _simulator_legs(sft, run_program, smi, t_phase):
         return res.backend
 
     simmod.simulate = timed
-    pn.launches = ov.launches = gp.launches = tl.launches = 0
-    st.launches = st.local_launches = st.spill_launches = 0
+    for m in (pn, ov, gp, tl):
+        m.launches_by["exact"] = 0
+    for k in ("exact", "local", "spill"):
+        st.launches_by[k] = 0
     try:
         with ThreadPoolExecutor(max_workers=2) as ex:
             big = ex.submit(leg, *legs[0])
@@ -2074,9 +2092,11 @@ def _simulator_legs(sft, run_program, smi, t_phase):
             routes = [big.result()] + rest.result()
     finally:
         simmod.simulate = real
-    counts = {"panel": pn.launches, "overlap": ov.launches,
-              "stream": st.launches, "rows+group_g8": gp.launches,
-              "tile": tl.launches}
+    counts = {"panel": pn.launches_by["exact"],
+              "overlap": ov.launches_by["exact"],
+              "stream": st.launches_by["exact"],
+              "rows+group_g8": gp.launches_by["exact"],
+              "tile": tl.launches_by["exact"]}
     print(f"simulate: launches {counts} over the legs", flush=True)
     for route in routes:
         if counts.get(route, 0) < 1:
@@ -2264,14 +2284,15 @@ def _sharded(sft, st, pn, ov, gp, tl, setup, smi):
                   if np.ndim(v) else v for n, v in inputs.items()}
         del inputs
         torch.cuda.synchronize()
-        pn.launches = ov.launches = gp.launches = tl.launches = 0
-        st.launches = st.local_launches = st.spill_launches = 0
-        st.shard_launches = 0
+        for m in (pn, ov, gp, tl):
+            m.launches_by["exact"] = 0
+        for k in ("exact", "local", "spill", "shard"):
+            st.launches_by[k] = 0
         out = fn(placed)
         torch.cuda.synchronize()
-        n = st.shard_launches
-        other = (pn.launches + ov.launches + gp.launches + tl.launches
-                 + st.launches + st.local_launches + st.spill_launches)
+        n = st.launches_by["shard"]
+        other = (sum(m.launches_by["exact"] for m in (pn, ov, gp, tl, st))
+                 + st.launches_by["local"] + st.launches_by["spill"])
         if n != mesh.size or other:
             raise RuntimeError(f"sharded: {label}: K4 launched {n} times "
                                f"for {mesh.size} shards (others {other})")
@@ -2439,7 +2460,7 @@ def _overlap(sft, st, pn, ov, gp, tl, setup, smi):
         out = fn(placed)
         torch.cuda.synchronize()
         counts = _counts(pn, ov, gp, tl, st)
-        n = counts.pop("shard_launches", 0)
+        n = counts.pop("stream:shard", 0)
         if n != 3 * mesh.size or counts:
             raise RuntimeError(f"overlap: {label}: K4 launched {n} times for "
                                f"{mesh.size} shards (others {counts})")
@@ -2583,14 +2604,15 @@ def _pipeline(sft, st, pn, ov, gp, tl, setup, smi):
         single, route = compile_chain_best(p, device="cuda")
         placed = fn.place(dev_in)
         torch.cuda.synchronize()
-        pn.launches = ov.launches = gp.launches = tl.launches = 0
-        st.launches = st.local_launches = st.spill_launches = 0
-        st.shard_launches = 0
+        for m in (pn, ov, gp, tl):
+            m.launches_by["exact"] = 0
+        for k in ("exact", "local", "spill", "shard"):
+            st.launches_by[k] = 0
         out = fn(placed)
         torch.cuda.synchronize()
-        n = st.local_launches + st.spill_launches
-        other = (pn.launches + ov.launches + gp.launches + tl.launches
-                 + st.launches + st.shard_launches)
+        n = st.launches_by["local"] + st.launches_by["spill"]
+        other = (sum(m.launches_by["exact"] for m in (pn, ov, gp, tl, st))
+                 + st.launches_by["shard"])
         S, C = len(plan.segments), plan.num_chunks
         lines = mesh.size // S
         want_n = 0 if want_backend == "xla" else S * C * lines
@@ -2752,8 +2774,8 @@ def _k4_bf16(sft, st, pn, ov, gp, tl, setup, smi):
         out = fn(placed)
         torch.cuda.synchronize()
         counts = _counts(pn, ov, gp, tl, st)
-        n = counts.pop("local_bf16_launches" if segment
-                       else "shard_bf16_launches", 0)
+        n = counts.pop("stream:local_bf16" if segment
+                       else "stream:shard_bf16", 0)
         want_n = (len(plan.segments) * plan.num_chunks if segment
                   else mesh.size)
         if n != want_n or counts:
@@ -2980,9 +3002,9 @@ def _design_probes(ov, smi):
     sp.launches = 0
     ms = pingpong_ms(lambda s, d: sp.panel(s, d), a, b, 3)
     n = sp.launches
-    ov_before = ov.launches
+    ov_before = ov.launches_by["exact"]
     k2_ms = sp.k2_ms(k2, a, 3)      # timed as P5 is: graphs, fed back
-    k2_n = ov.launches - ov_before
+    k2_n = ov.launches_by["exact"] - ov_before
     out["stateless_panel"] = dict(
         entry, name="stateless_panel",
         source="stencilflow_tpu_torch/csrc/probes/stateless_panel.cu",
@@ -3005,6 +3027,375 @@ def _design_probes(ov, smi):
           f"{k2_ms:.4f} ms | {smi}", flush=True)
     del a, b, x, x2, tab
     torch.cuda.empty_cache()
+    return out
+
+
+# -- programs typed bfloat16 and float16 (K1, K2, K3a, K3c, K5) -------------
+
+NARROW_REPLACES = {"panel": "stencilflow_tpu/backend/panel.py:611",
+                   "overlap": "stencilflow_tpu/backend/overlap.py:411",
+                   "stream": "stencilflow_tpu/backend/stream.py:1683",
+                   "group": "stencilflow_tpu/backend/group.py:695"}
+
+
+def _narrow_mixed_spec(dims):
+    """A bf16 chain with transcendentals, a bf16 scalar, a copy and a
+    shrink BC, float constants pinned to bf16, and an int32 stage that
+    casts bf16 values (the oracle's lattice at every kind of site; the
+    int32 stage reads the inputs alone, so its cells stay exact)."""
+    bf = "bfloat16"
+    return {"inputs": {"b": {"data": "random:-2,3", "data_type": bf},
+                       "g": {"data": "random:-2,3", "data_type": bf,
+                             "input_dims": []}},
+            "outputs": ["s", "z"], "dimensions": list(dims),
+            "program": {
+                "u": {"computation_string":
+                      "u = exp(b[i,j,k] * 0.5) + tanh(b[i,j+1,k]) - "
+                      "sqrt(abs(b[i,j,k-1])) + g",
+                      "boundary_conditions": {"b": {"type": "shrink"}},
+                      "data_type": bf},
+                "s": {"computation_string":
+                      "s = u[i,j,k] / (u[i+1,j,k] + 3.0) if u[i,j,k] > 1.0 "
+                      "else -u[i,j,k]",
+                      "boundary_conditions": {"u": {"type": "copy"}},
+                      "data_type": bf},
+                "z": {"computation_string":
+                      "z = b[i,j,k] * 4.0 + min(b[i,j+1,k], g)",
+                      "boundary_conditions":
+                      {"b": {"type": "constant", "value": 0.3}},
+                      "data_type": "int32"}}}
+
+
+def _narrow_pair_spec(dims):
+    """bf16 meeting f16 at ufunc sites (+, *, max, a comparison): each
+    pair computes in float32, as ml_dtypes' loops do; a float32 and a
+    bf16 output."""
+    bc = {"a": {"type": "constant", "value": 0.3}}
+    return {"inputs": {"a": {"data": "random:-2,3", "data_type": "bfloat16"},
+                       "b": {"data": "random:-2,3", "data_type": "float16"}},
+            "outputs": ["s", "t"], "dimensions": list(dims),
+            "program": {
+                "s": {"computation_string":
+                      "s = a[i,j,k] + b[i,j+1,k] * 0.5 - "
+                      "max(a[i,j,k-1], b[i,j,k])",
+                      "boundary_conditions": dict(bc, b={"type": "copy"}),
+                      "data_type": "float32"},
+                "t": {"computation_string":
+                      "t = a[i-1,j,k] * b[i,j,k] + s[i,j,k] if "
+                      "a[i,j,k] > b[i,j,k] else a[i,j,k] / b[i,j-1,k]",
+                      "boundary_conditions": dict(
+                          bc, b={"type": "constant", "value": 1.5},
+                          s={"type": "copy"}),
+                      "data_type": "bfloat16"}}}
+
+
+def _narrow_weak_spec(dims):
+    """A float32 stage reading a bf16 stage and an int32 and a bool one:
+    weak constants pinned, a bf16 field promoted to float32."""
+    return {"inputs": {"f": {"data": "random:0,9", "data_type": "int32"},
+                       "b": {"data": "random:0,3", "data_type": "bfloat16"}},
+            "outputs": ["s"], "dimensions": list(dims),
+            "program": {
+                "m": {"computation_string":
+                      "m = (f[i,j,k] > 2 and f[i,j,k-1] > 1)",
+                      "boundary_conditions":
+                      {"f": {"type": "constant", "value": 0}},
+                      "data_type": "bool"},
+                "w": {"computation_string":
+                      "w = (b[i,j,k] + b[i,j+1,k]) * 0.5",
+                      "boundary_conditions":
+                      {"b": {"type": "constant", "value": 1.0}},
+                      "data_type": "bfloat16"},
+                "s": {"computation_string":
+                      "s = ((1.0 if m[i,j,k] else 0.3) + w[i,j,k]) * 1000 "
+                      "+ (f[i,j,k] and f[i+1,j,k])",
+                      "boundary_conditions":
+                      {"m": {"type": "constant", "value": 0},
+                       "w": {"type": "constant", "value": 0.5},
+                       "f": {"type": "constant", "value": 0}},
+                      "data_type": "float32"}}}
+
+
+def _narrow_plan(sft, pn, ov, gp, st, codegen, kind: str, p, kw=None):
+    """(analysis, plan, source) of a narrow case as its entry point plans
+    it (the group kernel at the main path's g = 8, B = 64)."""
+    an = sft.ChainAnalysis.run(p)
+    if kind == "panel":
+        plan = pn.PanelPlan.build(an)
+        return an, plan, codegen.panel_source(p, an, plan)
+    if kind == "overlap":
+        plan = ov.OverlapPlan.build(an)
+        return an, plan, codegen.overlap_source(p, an, plan)
+    if kind == "group":
+        plan = gp.plan_group(p, an, 64, 8)
+        return an, plan, codegen.group_source(p, an, plan)
+    plan = st.plan_stream(p, an, **(kw or {}))
+    return an, plan, st.stream_source(plan)
+
+
+def _narrow_kernel(pn, ov, gp, st, kind: str, p, an, plan):
+    """(run(arrays, lib), plain(arrays), narrow launch count) of a case."""
+    if kind == "panel":
+        return (lambda a, lib: pn.run_panel(p, an, plan, a, lib),
+                lambda a: pn.panel_plain(p, an, plan, a),
+                lambda: pn.launches_by["narrow"])
+    if kind == "overlap":
+        return (lambda a, lib: ov.run_overlap(p, an, plan, a, lib),
+                lambda a: ov.overlap_plain(p, an, plan, a),
+                lambda: ov.launches_by["narrow"])
+    if kind == "group":
+        return (lambda a, lib: gp.run_group(p, an, plan, a, lib),
+                lambda a: gp.group_plain(p, an, plan, a),
+                lambda: gp.launches_by["narrow"])
+    return (lambda a, lib: st.run_stream(plan, a, lib),
+            lambda a: st.stream_plain(plan, a),
+            lambda: (st.launches_by["spill_narrow"] if plan.packed
+                     else st.launches_by["narrow"]))
+
+
+def _narrow_zero(pn, ov, gp, st):
+    for m in (pn, ov, gp, st):
+        m.launches_by["narrow"] = 0
+    st.launches_by["spill_narrow"] = 0
+
+
+def _narrow_held(got, want, rtol: float):
+    """(ok, max abs err) of two outputs as numpy arrays of one type: bit
+    for bit (a bf16 or f16 array by its 2-byte patterns), or within
+    ``rtol`` (VERIFY_RTOL where a transcendental appears)."""
+    from stencilflow_tpu_torch.data import arrays_are_equal
+    from stencilflow_tpu_torch.dtypes import cast
+    got, want = np.asarray(got).reshape(np.shape(want)), np.asarray(want)
+    if got.dtype != want.dtype:
+        return False, float("inf")
+    a, b = cast(got, np.float64), cast(want, np.float64)
+    err = float(np.max(np.abs(a - b))) if a.size else 0.0
+    if rtol:
+        return arrays_are_equal(b, a, rtol) and bool(np.isfinite(a).all()), \
+            err
+    bits = (lambda x: x.view(np.uint16)) if got.dtype.itemsize == 2 \
+        else (lambda x: x)
+    return bool(np.array_equal(bits(got), bits(want))), err
+
+
+def _narrow_setup(sft, pn, ov, gp, st, codegen, rows, synthesize_stencil,
+                  small):
+    """Phase 2's share of the narrow legs: phase 3's small cases of each
+    kernel on bf16 and f16, two mixed bf16 programs and bf16 meeting f16
+    (K1), phase 4's five
+    full-width rows, each planned as its entry point plans it.  Returns
+    (small cases, full-width rows, sources to build)."""
+    def typed(shape, dims, iters, dt):
+        tag = "bf16" if dt == "bfloat16" else "f16"
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape,
+            seed_data="random:0.0,1.0", data_type=dt),
+            name=f"{shape}{len(dims)}d_{dims[0]}_{iters}itr_{tag}")
+    cases = []
+    for dt in ("bfloat16", "float16"):
+        tag = "bf16" if dt == "bfloat16" else "f16"
+        for label, kind, p, kw in (
+                (f"K1 hdiff3d {tag}", "panel", typed("hdiff", small, 3, dt),
+                 None),
+                (f"K2 jacobi3d {tag}", "overlap",
+                 typed("diffusion", small, 2, dt), None),
+                (f"K3a jacobi3d {tag}", "stream",
+                 typed("diffusion", small, 4, dt), {"mxu": "off"}),
+                (f"K3c jacobi3d {tag}", "stream",
+                 typed("diffusion", (64, 64, 64), 3, dt), {"spill": "all"}),
+                (f"K5 jacobi2d rows {tag}", "group",
+                 rows(typed("diffusion", (256, 192), 8, dt)), None)):
+            cases.append((label, kind, p, kw) + _narrow_plan(
+                sft, pn, ov, gp, st, codegen, kind, p, kw))
+    for label, kind, spec, kw in (
+            ("K1 mixed bf16", "panel", _narrow_mixed_spec(small), None),
+            ("K1 bf16 meets f16", "panel", _narrow_pair_spec(small), None),
+            ("K3a weak-const bf16", "stream", _narrow_weak_spec(small),
+             {"mxu": "off"})):
+        p = sft.parse_program(spec, name=label.replace(" ", "_"))
+        cases.append((label, kind, p, kw) + _narrow_plan(
+            sft, pn, ov, gp, st, codegen, kind, p, kw))
+    jacobi8 = {dt: typed("diffusion", (512,) * 3, 8, dt)
+               for dt in ("bfloat16", "float16")}
+    # (key, kernel, program, run_program backend, its route, repetitions)
+    legs = [("panel_typed_bf16", "panel", jacobi8["bfloat16"], "auto",
+             "panel"),
+            ("panel_typed_f16", "panel", jacobi8["float16"], "auto",
+             "panel"),
+            ("overlap_typed_bf16", "overlap",
+             typed("diffusion", (512,) * 3, 2, "bfloat16"), "auto",
+             "overlap"),
+            ("stream_typed_bf16", "stream", jacobi8["bfloat16"], "stream",
+             "stream"),
+            ("group_typed_bf16", "group",
+             typed("diffusion", (8192, 8192), 8, "bfloat16"), "auto",
+             "rows+group_g8")]
+    mains = []
+    for key, kind, p, backend, route in legs:
+        q = rows(p) if kind == "group" else p
+        mains.append((key, kind, p, backend, route, q) + _narrow_plan(
+            sft, pn, ov, gp, st, codegen, kind, q))
+    sources = [(c[-1], c[1]) for c in cases] + [(m[-1], m[1])
+                                                for m in mains]
+    return cases, mains, sources
+
+
+def _narrow_small(sft, pn, ov, gp, st, cases, lib_of, smi):
+    """Phase 3's narrow cases: each kernel against its plain version on
+    the card, bit for bit (within VERIFY_RTOL where a transcendental
+    appears), and against the host oracle, bit for bit (within one bf16
+    ulp, 2^-7 relative, where a transcendental appears: the card's expf
+    is not the host's, and a one-ulp float32 difference that crosses a
+    bf16 rounding point moves the result by a bf16 ulp); the launch
+    counted in its narrow count.  Returns K3c bf16's entry of
+    the kernels line (no main-path cell reaches the spill rung on a narrow
+    program), timed here with its plain version and its library call and
+    driven once through its entry point, the count set to 0 just before
+    and read just after."""
+    import torch
+    from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    from stencilflow_tpu_torch.config import VERIFY_RTOL
+    from stencilflow_tpu_torch.dtypes import to_numpy, to_torch
+    entry = None
+    for label, kind, p, kw, an, plan, src in cases:
+        run, plain, count = _narrow_kernel(pn, ov, gp, st, kind, p, an,
+                                           plan)
+        lib = lib_of[src]
+        inputs = sft.load_input_arrays(p, seed=7)
+        arrays = spanned_arrays(p, inputs, device="cuda")
+        before = count()
+        got = run(arrays, lib)
+        torch.cuda.synchronize()
+        n = count() - before
+        t0 = time.perf_counter()
+        want = plain(arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        oracle = sft.run_interpreter(p, inputs)
+        tr = _has_transcendental(p)
+        rtol = VERIFY_RTOL if tr else 0.0
+        ms = _time_ms(lambda: run(arrays, lib), 5)
+        for o in p.outputs:
+            g = to_numpy(got[o])
+            ok, err = _narrow_held(g, to_numpy(want[o]), rtol)
+            ok_o, err_o = _narrow_held(g, oracle[o], 2.0 ** -7 if tr
+                                       else 0.0)
+            print(f"compare: narrow  {label:28s} {kind} "
+                  f"{'packed, spilled %d rings ' % len(plan.spilled) if getattr(plan, 'packed', False) else ''}"
+                  f"{o} max_abs_err {err:.3g} (oracle {err_o:.3g}) launches "
+                  f"{n} {'OK' if ok and ok_o else 'MISMATCH'} "
+                  f"{'(within VERIFY_RTOL, oracle one bf16 ulp)' if tr else '(bit-exact)'} | "
+                  f"{ms:.4f} ms, plain version {plain_ms:.1f} ms", flush=True)
+            if not (ok and ok_o) or n != 1:
+                raise RuntimeError(f"narrow {kind} kernel ({label}) "
+                                   "disagrees with its plain version or the "
+                                   "oracle")
+        if label != "K3c jacobi3d bf16":
+            continue
+        # K3c bf16's row: the leg through its entry point
+        fn = st.compile_chain_stream(p, **kw)
+        _narrow_zero(pn, ov, gp, st)
+        leg = fn({k: v if p.inputs[k].is_scalar else to_torch(v, "cuda")
+                  for k, v in inputs.items()})
+        torch.cuda.synchronize()
+        launches = st.launches_by["spill_narrow"]
+        same = all(torch.equal(leg[o].reshape(got[o].shape).view(
+            torch.int16), got[o].view(torch.int16)) for o in p.outputs)
+        bound_ms, bound_by = _bound(p)
+        lib_ms = _conv_chain_ms(p, 1, dtype=torch.bfloat16)
+        print(f"kernel: stream_spill_typed_bf16 {p.name} tile {plan.tile} x "
+              f"{plan.threads}, smem {plan.smem_bytes()} B, spilled "
+              f"{len(plan.spilled)} of {len(plan.raw_ring)} rings: "
+              f"{ms:.4f} ms | plain version {plain_ms:.1f} ms | bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | {len(p.kernels)} chained "
+              f"F.conv3d in bf16 {lib_ms:.4f} ms | leg: "
+              f"compile_chain_stream(spill='all') launches {launches}, "
+              f"equal to the kernel: {'yes' if same else 'NO'} | {smi}",
+              flush=True)
+        if launches != 1 or not same:
+            raise RuntimeError("the narrow K3c leg did not run its kernel "
+                               "once or disagrees with it")
+        entry = {"name": "stream_spill_typed_bf16", "route": "cuda",
+                 "source": "stencilflow_tpu_torch/backend/codegen.py",
+                 "replaces": NARROW_REPLACES["stream"],
+                 "launches": launches, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": lib_ms}
+        del fn, leg
+    return entry
+
+
+def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
+    """Phase 4's narrow rows at full width: jacobi3d 512^3 x 8 typed bf16
+    and f16 (K1), jacobi3d 512^3 x 2 bf16 (K2), jacobi3d 512^3 x 8 bf16
+    with ``--backend stream`` (K3a) and jacobi2d 8192^2 x 8 bf16
+    (rows+group_g8, K5).  Each drives ``run_program`` with the narrow
+    counts set to 0 just before and read just after (the route must be
+    the kernel's), then holds the kernel to its plain version on the same
+    inputs on the card bit for bit and to the main path's output, and
+    times both and one chained ``F.conv3d``/``conv2d`` in the program's
+    type.  Returns the kernels line's entries."""
+    import torch
+    from stencilflow_tpu_torch.dtypes import to_numpy, to_torch_dtype
+    out = {}
+    for key, kind, p, backend, route, q, an, plan, src in mains:
+        o = p.outputs[0]
+        t_cell = time.perf_counter()
+        _narrow_zero(pn, ov, gp, st)
+        res = run_program(p, device="cuda", backend=backend, repetitions=10,
+                          save_results=False, log_level=0)
+        run, plain, count = _narrow_kernel(pn, ov, gp, st, kind, q, an,
+                                           plan)
+        launches = count()
+        if res.backend != route or launches != 11:
+            raise RuntimeError(f"{key}: backend {res.backend} launched "
+                               f"{launches} times over 11 calls, expected "
+                               f"{route}")
+        main_out, main_ms = res.outputs[o], res.wall_time_s * 1e3
+        del res
+        lib = lib_of[src]
+        arrays = _spanned_on_card(sft, q)
+        got = run(arrays, lib)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        g = to_numpy(got[o])
+        ok, err = _narrow_held(g, to_numpy(want[o]), 0.0)
+        same = _narrow_held(g, np.asarray(main_out).reshape(g.shape),
+                            0.0)[0]
+        del got, want, main_out
+        ms = _time_ms(lambda: run(arrays, lib), 10)
+        del arrays
+        torch.cuda.empty_cache()
+        dt = to_torch_dtype(p.field_dtype(o))
+        lib_ms = _conv_chain_ms(p, 1, dtype=dt)
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(p)
+        extra = (f"smem {plan.smem_bytes(q)} B"
+                 if kind in ("panel", "overlap", "group")
+                 else f"smem {plan.smem_bytes()} B")
+        print(f"kernel: {key} {p.name} {route} tile {plan.tile} x "
+              f"{plan.threads}, {extra}: {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s) | main path "
+              f"{main_ms:.3f} ms, launches {launches}, "
+              f"{'equal to the kernel' if same else 'DIFFERS'} | plain "
+              f"version {plain_ms:.1f} ms, max_abs_err {err:.3g} "
+              f"{'bit-equal' if ok else 'MISMATCH'} | bound "
+              f"{bound_ms:.4f} ms ({bound_by}, 2 B a cell) | "
+              f"{len(p.kernels)} chained F.conv{len(p.raw_dimensions)}d in "
+              f"{str(dt).split('.')[-1]} {lib_ms:.3f} ms | cell "
+              f"{time.perf_counter() - t_cell:.1f} s | {smi}", flush=True)
+        if not ok or not same:
+            raise RuntimeError(f"{key}: the narrow kernel disagrees with its "
+                               "plain version or the main path")
+        out[key] = {"name": key, "route": "cuda",
+                    "source": "stencilflow_tpu_torch/backend/codegen.py",
+                    "replaces": NARROW_REPLACES[kind],
+                    "launches": launches, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms}
     return out
 
 
@@ -3331,6 +3722,11 @@ def main() -> int:
             f32 = st.plan_stream(p)
         cbf_main[key] = (p, plan, f32)
         sources += [(st.stream_source(q), "stream") for q in (plan, f32)]
+    # programs typed bfloat16 and float16: phase 3's small cases of K1, K2,
+    # K3a, K3c and K5, then phase 4's full-width rows
+    narrow_cases, narrow_mains, narrow_sources = _narrow_setup(
+        sft, pn, ov, gp, st, codegen, rows, synthesize_stencil, small)
+    sources += narrow_sources
     # K6: phase 3's programs in both modes, then the forced cells
     tile_plans = []
     for label, p in cases:
@@ -3395,7 +3791,7 @@ def main() -> int:
         lib = lib_of[src]
         inputs = sft.load_input_arrays(p, seed=7)
         arrays = spanned_arrays(p, inputs, device="cuda")
-        before = module.launches
+        before = module.launches_by["exact"]
         got = run(p, an, plan, arrays, lib)
         torch.cuda.synchronize()
         want = plain(p, an, plan, arrays)
@@ -3403,7 +3799,7 @@ def main() -> int:
         for o in p.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
                                rtol)
-            n = module.launches - before
+            n = module.launches_by["exact"] - before
             print(f"compare: {kname:7s} {label:28s} tile {plan.tile} "
                   f"max_abs_err {err:.3g} launches {n} "
                   f"{'OK' if ok else 'MISMATCH'}", flush=True)
@@ -3417,7 +3813,7 @@ def main() -> int:
         lib = lib_of[st.stream_source(plan)]
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
-        before = st.launches
+        before = st.launches_by["exact"]
         got = st.run_stream(plan, arrays, lib)
         torch.cuda.synchronize()
         want = st.stream_plain(plan, arrays)
@@ -3425,7 +3821,7 @@ def main() -> int:
             g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
             ok, err = _compare(g, w, MXU_VERIFY_RTOL)
             ok = ok and bool(np.isfinite(g).all())
-            n = st.launches - before
+            n = st.launches_by["exact"] - before
             cfg = plan.last_config()
             print(f"compare: stream  {label:28s} tile {plan.tile} x "
                   f"{plan.threads} passes {_routes(plan) or '-'} banded "
@@ -3440,7 +3836,7 @@ def main() -> int:
     for label, p, an, plan, src in group_plans[:n_group3]:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
-        before = gp.launches
+        before = gp.launches_by["exact"]
         got = gp.run_group(p, an, plan, arrays, lib_of[src])
         torch.cuda.synchronize()
         want = gp.group_plain(p, an, plan, arrays)
@@ -3448,7 +3844,7 @@ def main() -> int:
         for o in p.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
                                rtol)
-            n = gp.launches - before
+            n = gp.launches_by["exact"] - before
             print(f"compare: group   {label:28s} B {plan.B} groups "
                   f"{len(plan.groups)} tile {plan.tile} x {plan.threads} "
                   f"segments {plan.segments} max_abs_err "
@@ -3472,10 +3868,10 @@ def main() -> int:
         for c in range(chunks):
             lo = c * plan.block - plan.halo_i
             slabs = _chunk_slabs(p, inputs, lo, plan.extent())
-            before = st.local_launches
+            before = st.launches_by["local"]
             got = st.run_local_stream(plan, lo, slabs, lib)
             torch.cuda.synchronize()
-            launched += st.local_launches - before
+            launched += st.launches_by["local"] - before
             want = st.local_stream_plain(plan, lo, slabs)
             for o in p.outputs:
                 g = got[o].cpu().numpy()
@@ -3500,11 +3896,11 @@ def main() -> int:
     for label, p, plan in spill_plans:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
-        before = st.spill_launches
+        before = st.launches_by["spill"]
         got = st.run_stream(plan, arrays, lib_of[st.stream_source(plan)])
         torch.cuda.synchronize()
         want = st.stream_plain(plan, arrays)
-        n = st.spill_launches - before
+        n = st.launches_by["spill"] - before
         for o in p.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
                                0.0)
@@ -3521,11 +3917,11 @@ def main() -> int:
     for c in range(4):
         lo = c * local_spill.block - local_spill.halo_i
         slabs = _chunk_slabs(lp, inputs, lo, local_spill.extent())
-        before = st.spill_launches
+        before = st.launches_by["spill"]
         got = st.run_local_stream(local_spill, lo, slabs,
                                   lib_of[st.stream_source(local_spill)])
         torch.cuda.synchronize()
-        launched += st.spill_launches - before
+        launched += st.launches_by["spill"] - before
         want = st.local_stream_plain(local_spill, lo, slabs)
         for o in lp.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
@@ -3573,10 +3969,10 @@ def main() -> int:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
         lib = lib_of[st.stream_source(plan)]
-        before = st.compute_bf16_launches
+        before = st.launches_by["compute_bf16"]
         got = st.run_stream(plan, arrays, lib)
         torch.cuda.synchronize()
-        n = st.compute_bf16_launches - before
+        n = st.launches_by["compute_bf16"] - before
         t0 = time.perf_counter()
         want = st.stream_plain(plan, arrays)
         torch.cuda.synchronize()
@@ -3603,16 +3999,20 @@ def main() -> int:
                 raise RuntimeError(f"bf16-compute stream kernel ({label}) "
                                    "disagrees with its plain version")
 
+    # programs typed bfloat16 and float16 (K3c bf16's row comes from here)
+    narrow_k3c = _narrow_small(sft, pn, ov, gp, st, narrow_cases, lib_of,
+                               smi)
+
     # K6, masked and fast
     for label, p, plan in tile_plans:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
-        before = tl.launches
+        before = tl.launches_by["exact"]
         got = tl.run_tile(plan, arrays, lib_of[tl.tile_source(plan)])
         torch.cuda.synchronize()
         want = tl.tile_plain(plan, arrays)
         rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
-        n = tl.launches - before
+        n = tl.launches_by["exact"] - before
         for o in p.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
                                rtol)
@@ -3991,18 +4391,18 @@ def main() -> int:
     # the f32 routes' outputs and ms of the cells the bf16 legs run again
     f32_route = {}
     bf16_cells = {jacobi8.name, jacobi32.name, jacobi2d.name, box256.name}
-    pn.launches = 0
-    ov.launches = 0
-    st.launches = 0
-    st.local_launches = 0
-    st.spill_launches = 0
-    gp.launches = 0
-    tl.launches = 0
+    pn.launches_by["exact"] = 0
+    ov.launches_by["exact"] = 0
+    st.launches_by["exact"] = 0
+    st.launches_by["local"] = 0
+    st.launches_by["spill"] = 0
+    gp.launches_by["exact"] = 0
+    tl.launches_by["exact"] = 0
     for p, want_backend, backend in (
             [(p, w, "auto") for p, w in mains]
             + [(p, "stream", "auto") for p in deep]
             + [(jacobi2, "tile", "tile"), (hdiff8, "tile", "tile")]):
-        spilled_before = st.spill_launches
+        spilled_before = st.launches_by["spill"]
         t_cell = time.perf_counter()
         res = run_program(p, device="cuda", backend=backend,
                           repetitions=3 if p.name in deep_names else 20,
@@ -4011,9 +4411,9 @@ def main() -> int:
             raise RuntimeError(f"{p.name}: backend {res.backend}, expected "
                                f"{want_backend}")
         if p.name in deep_names and (not deep_plans[p.name].packed
-                          or st.spill_launches - spilled_before != 4):
+                          or st.launches_by["spill"] - spilled_before != 4):
             raise RuntimeError(f"{p.name}: the spilled stream kernel ran "
-                               f"{st.spill_launches - spilled_before} "
+                               f"{st.launches_by['spill'] - spilled_before} "
                                "times over 4 calls")
         dense = run_program(p, device="cuda", backend="dense",
                             repetitions=2, save_results=False, log_level=0)
@@ -4078,6 +4478,9 @@ def main() -> int:
                bf16_plain, f32_route, report, smi,
                (jacobi8, jacobi32, jacobi2d, box256))
     report.update(_compute_bf16_legs(sft, st, cbf_main, lib_of, smi))
+    report.update(_narrow_legs(sft, pn, ov, gp, st, run_program,
+                               narrow_mains, lib_of, smi))
+    report["stream_spill_typed_bf16"] = narrow_k3c
     print(f"phase 4: the bf16 legs took {time.perf_counter() - t4:.1f} s",
           flush=True)
     # the library yardstick, after the main path (cuDNN state stays out
@@ -4091,14 +4494,14 @@ def main() -> int:
               f"(filter {2 * radius + 1}^{nd}, TF32 off) {lib_ms:.3f} ms "
               f"| {smi}", flush=True)
         torch.cuda.empty_cache()
-    report["panel"]["launches"] = pn.launches
-    report["overlap"]["launches"] = ov.launches
-    report["stream"]["launches"] = st.launches
-    report["stream_cross"]["launches"] = st.launches
-    report["group"]["launches"] = gp.launches
-    report["stream_spill"]["launches"] = st.spill_launches
-    report["tile"]["launches"] = tl.launches
-    if st.local_launches:
+    report["panel"]["launches"] = pn.launches_by["exact"]
+    report["overlap"]["launches"] = ov.launches_by["exact"]
+    report["stream"]["launches"] = st.launches_by["exact"]
+    report["stream_cross"]["launches"] = st.launches_by["exact"]
+    report["group"]["launches"] = gp.launches_by["exact"]
+    report["stream_spill"]["launches"] = st.launches_by["spill"]
+    report["tile"]["launches"] = tl.launches_by["exact"]
+    if st.launches_by["local"]:
         raise RuntimeError("the in-core main path launched the local "
                            "stream kernel")
     # the autotuned main path on cross3d 256^3 x 8, extent 2

@@ -38,7 +38,7 @@ from ..frontend.canonicalize import rotate_2d_to_rows
 from . import codegen
 from .dense import chain_halo, compile_chain
 from .group import compile_chain_group, plan_group
-from .linear import extract_linear
+from .linear import banded_types, extract_linear
 from .overlap import OverlapPlan, compile_chain_overlap, shallow_extent
 from .panel import PanelPlan, compile_chain_panel
 from .stream import (MXU_MIN_FOOTPRINT, check_options, check_spill,
@@ -54,9 +54,10 @@ ROWS_PANEL = 64
 def _any_mxu_candidate(program, min_footprint: int = MXU_MIN_FOOTPRINT
                        ) -> bool:
     """Is any stage affine with a footprint wide enough for the banded
-    lowering, and no copy BC?"""
+    lowering, of float32 types, and no copy BC?"""
     for kspec in program.kernels.values():
-        coeffs = extract_linear(kspec)
+        coeffs = extract_linear(kspec) if banded_types(program, kspec) \
+            else None
         if coeffs is None:
             continue
         if any(bc.kind == ir.BCKind.COPY

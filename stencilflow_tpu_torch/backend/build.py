@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import ir
+from ..dtypes import cast, is_narrow, to_numpy
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
@@ -116,14 +117,17 @@ def load_libraries(items) -> List[ctypes.CDLL]:
 
 
 def scalar_blob(program: ir.Program, inputs) -> np.ndarray:
-    """The scalar inputs, each in its own 8-byte slot, in program order."""
+    """The scalar inputs, each in its own 8-byte slot, in program order
+    (a narrow float as the float32 value the kernels compute with)."""
     names = [n for n, s in program.inputs.items() if s.is_scalar]
     blob = np.zeros(8 * max(1, len(names)), np.uint8)
     for i, n in enumerate(names):
-        v = inputs[n]
-        if torch.is_tensor(v):
-            v = v.detach().cpu().numpy()
-        raw = np.asarray(v, np.dtype(program.inputs[n].dtype)).tobytes()
+        dt = np.dtype(program.inputs[n].dtype)
+        v = to_numpy(inputs[n])
+        if is_narrow(dt):
+            raw = cast(cast(v, dt), np.float32).tobytes()
+        else:
+            raw = np.asarray(v, dt).tobytes()
         blob[8 * i:8 * i + len(raw)] = np.frombuffer(raw, np.uint8)
     return blob
 

@@ -22,7 +22,12 @@ each program gets its own translation unit:
 
 The typed emitter extends the JAX package's native simulator emitter
 (``sim/native.py _expr_cpp_typed``) from double-carried values to native
-C types.  Reads carry boundary conditions from global coordinates: an
+C types.  A narrow float (bfloat16, float16) is stored in 2 bytes
+(``sf_bf16``, ``sf_half``: ``stype``) and computed in ``float``
+(``ctype``): every site whose type is narrow computes in float and rounds
+its result once (``sf_bfr``, ``sf_hr``), as numpy and ml_dtypes do, a
+load widens exactly and a store converts an already rounded value; no
+native half arithmetic or ``__hfma`` is emitted.  Reads carry boundary conditions from global coordinates: an
 offset read whose target leaves the domain in any dim with a nonzero
 offset yields the fill value (constant, shrink) or the centre (copy).
 """
@@ -34,11 +39,12 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from .. import ir
+from ..dtypes import BFLOAT16, FLOAT16, is_floating, is_narrow, scalar
 from ..frontend.analysis import ChainAnalysis
 from .promotion import (BF16, F32, bf16_join, bf16_value, const_dtype_of,
                         const_type, fill_value, is_bool, is_float, is_weak,
                         result_type, strong)
-from .stacked_io import THREADS, accesses_with_center
+from .stacked_io import THREADS, accesses_with_center, has_narrow
 
 _CT = {"float32": "float", "float64": "double", "int8": "int8_t",
        "int16": "int16_t", "int32": "int32_t", "int64": "int64_t",
@@ -49,10 +55,55 @@ _CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
 
 
 def ctype(dt) -> str:
+    """The C type a value of ``dt`` computes in (float for the narrow
+    floats)."""
+    if is_narrow(dt):
+        return "float"
     name = np.dtype(dt).name
     if name not in _CT:
         raise NotImplementedError(f"no C type for {name}")
     return _CT[name]
+
+
+def stype(dt) -> str:
+    """The C type an array or a shared-memory slot of ``dt`` holds."""
+    dt = np.dtype(dt)
+    if dt == BFLOAT16:
+        return "sf_bf16"
+    if dt == FLOAT16:
+        return "sf_half"
+    return ctype(dt)
+
+
+def load(dt, lv: str) -> str:
+    """A stored value (lvalue ``lv`` of ``stype(dt)``) as its value."""
+    dt = np.dtype(dt)
+    if dt == BFLOAT16:
+        return f"sf_bf2f({lv})"
+    if dt == FLOAT16:
+        return f"sf_h2f({lv})"
+    return lv
+
+
+def store(dt, v: str) -> str:
+    """Value ``v`` of ``dt`` as ``stype(dt)`` stores it (a narrow value is
+    rounded already: the conversion is exact)."""
+    dt = np.dtype(dt)
+    if dt == BFLOAT16:
+        return f"sf_f2bf({v})"
+    if dt == FLOAT16:
+        return f"sf_f2h({v})"
+    return v
+
+
+def zero(dt) -> str:
+    """A stored zero of ``dt``."""
+    return store(dt, "0.0f") if is_narrow(dt) else literal(0, dt)
+
+
+def _rnd(dt) -> str:
+    """The C function rounding a float to narrow ``dt``."""
+    return "sf_bfr" if np.dtype(dt) == BFLOAT16 else "sf_hr"
 
 
 def _ut(dt) -> str:
@@ -76,13 +127,14 @@ def _i64(v: int) -> str:
 
 
 def literal(value, dt) -> str:
-    """C literal of ``value`` as numpy dtype ``dt``."""
+    """C literal of ``value`` as numpy dtype ``dt`` (a narrow float:
+    rounded to it, as a float)."""
     dt = np.dtype(dt)
     if dt.kind == "b":
         return "true" if bool(value) else "false"
     ct = ctype(dt)
-    if dt.kind == "f":
-        v = float(value)
+    if is_floating(dt):
+        v = float(scalar(value, dt)) if is_narrow(dt) else float(value)
         if math.isnan(v):
             return f"(({ct})NAN)"
         if math.isinf(v):
@@ -142,6 +194,77 @@ SF_HD long long sf_clamp(long long x, long long n) {{
 """ + "\n".join(fns) + "\n"
 
 
+# float16 (programs typed float16): stored in 2 bytes, computed in float.
+# sf_f2h rounds to nearest, ties to even, where a value is stored, sf_h2f
+# widens exactly, sf_hr rounds a float once (one per operation), sf_d2hr
+# rounds a double to float16 once (to float rounding to odd first, as
+# numpy's double -> half).  On the host a struct carries the bits, so a
+# missed conversion does not compile.  Emitted, after _BF16_MACROS (the
+# bfloat16 half of the narrow types), only into sources of programs with
+# a narrow field (_common).
+_HALF_MACROS = """#ifdef __CUDACC__
+#include <cuda_fp16.h>
+typedef __half sf_half;
+SF_DEV sf_half sf_f2h(const float v) { return __float2half_rn(v); }
+SF_DEV float sf_h2f(const sf_half v) { return __half2float(v); }
+#else
+struct sf_half { uint16_t u; };
+SF_DEV sf_half sf_f2h(const float v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  const uint32_t sign = u & 0x80000000u;
+  u ^= sign;
+  uint32_t o;
+  if (u >= 0x47800000u) {   // 65536 and up: inf, or NaN kept quiet
+    o = u > 0x7f800000u ? 0x7e00u | ((u >> 13) & 0x3ffu) : 0x7c00u;
+  } else if (u < 0x38800000u) {   // below 2^-14: subnormal, by an add
+    float f, magic;
+    const uint32_t m = 126u << 23;
+    memcpy(&f, &u, 4);
+    memcpy(&magic, &m, 4);
+    f += magic;
+    memcpy(&o, &f, 4);
+    o -= m;
+  } else {
+    o = (u + 0xc8000fffu + ((u >> 13) & 1u)) >> 13;
+  }
+  sf_half h;
+  h.u = (uint16_t)(o | (sign >> 16));
+  return h;
+}
+SF_DEV float sf_h2f(const sf_half h) {
+  const uint32_t sign = (uint32_t)(h.u & 0x8000u) << 16;
+  const uint32_t e = (h.u >> 10) & 0x1fu, m = h.u & 0x3ffu;
+  uint32_t u;
+  if (e == 0x1fu) {
+    u = sign | 0x7f800000u | (m << 13);
+  } else if (e) {
+    u = sign | ((e + 112u) << 23) | (m << 13);
+  } else {
+    const float f = (float)m * 5.9604644775390625e-8f;
+    memcpy(&u, &f, 4);
+    u |= sign;
+  }
+  float r;
+  memcpy(&r, &u, 4);
+  return r;
+}
+#endif
+SF_DEV float sf_hr(const float v) { return sf_h2f(sf_f2h(v)); }
+SF_DEV float sf_d2hr(const double d) {
+  float f = (float)d;
+  if ((double)f != d && d == d) {
+    uint32_t u;
+    memcpy(&u, &f, 4);
+    if (fabs((double)f) > fabs(d)) u -= 1u;
+    u |= 1u;
+    memcpy(&f, &u, 4);
+  }
+  return sf_hr(f);
+}
+"""
+
+
 # -- typed expression emitter --------------------------------------------------
 
 def conv(src: str, ty_from, ty_to) -> str:
@@ -154,10 +277,14 @@ def conv(src: str, ty_from, ty_to) -> str:
     ty_from = np.dtype(ty_from)
     if ty_from == ty_to:
         return src
+    if is_narrow(ty_to):
+        if ty_to == FLOAT16 and ty_from == np.float64:
+            return f"sf_d2hr((double)({src}))"
+        return f"{_rnd(ty_to)}((float)({src}))"
     ct = ctype(ty_to)
     if ty_to.kind == "b":
         return f"(({src}) != 0)"
-    if ty_to.kind == "f" or ty_from.kind != "f":
+    if is_floating(ty_to) or not is_floating(ty_from):
         return f"(({ct})({src}))"
     f2i = "sf_f2i64" if ty_to.itemsize == 8 else "sf_f2i32"
     return f"(({ct}){f2i}((double)({src})))"
@@ -207,7 +334,8 @@ class StageEmitter:
                     return f"(({a}) && ({b}))", ty
                 raise TypeError("numpy rejects bool - bool and bool / bool")
             if is_float(ty):
-                return f"(({a}) {_SYM[e.op]} ({b}))", ty
+                v = f"(({a}) {_SYM[e.op]} ({b}))"
+                return (f"{_rnd(ty)}({v})" if is_narrow(ty) else v), ty
             ut = _ut(ty)
             return (f"(({ctype(ty)})(({ut})({a}) {_SYM[e.op]} "
                     f"({ut})({b})))"), ty
@@ -240,7 +368,7 @@ class StageEmitter:
         if isinstance(e, ir.Select):
             c, ct = rec(e.cond)
             (t, tt), (f, ft) = rec(e.if_true), rec(e.if_false)
-            ty = strong(result_type(tt, ft))
+            ty = strong(result_type(tt, ft, ufunc=False))
             cond = conv(c, ct, np.dtype(np.bool_))
             return (f"(({cond}) ? ({conv(t, tt, ty)}) : "
                     f"({conv(f, ft, ty)}))"), ty
@@ -267,7 +395,8 @@ class StageEmitter:
                 return f"(({ctype(ty)}){fn}(({cast})({a})))", ty
             ty = at if is_float(at) and not is_weak(at) \
                 else np.dtype(np.float64)
-            return f"sf_{e.fn}({conv(a, at, ty)})", ty
+            v = f"sf_{e.fn}({conv(a, at, ty)})"
+            return (f"{_rnd(ty)}({v})" if is_narrow(ty) else v), ty
         raise TypeError(f"unknown expression node {type(e)}")
 
     def expr_bf16(self, e: ir.Expr):
@@ -382,7 +511,9 @@ class StageEmitter:
         kdt = np.dtype(self.kspec.dtype)
         out = conv(src, strong(ty), kdt) if not is_weak(ty) \
             else conv(src, ty, kdt)
-        return (f"SF_HD {ctype(kdt)} {name}({params}) {{\n"
+        # the narrow conversions are device functions on the card
+        qual = "SF_DEV" if has_narrow(self.program) else "SF_HD"
+        return (f"{qual} {ctype(kdt)} {name}({params}) {{\n"
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
 
     def _function_bf16(self, name: str) -> str:
@@ -460,7 +591,8 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
         c = [f"({at_pos[d]} + {o[d]})" for d in range(3)]
         g = f"g_{field}[{_flat(mask, c, at_dims)}]"
         return (f"(({_inb(mask, c, at_dims)}) ? "
-                f"{f'sf_bf2f({g})' if bf16 else g} : {literal(0, dt)})")
+                f"{f'sf_bf2f({g})' if bf16 else load(dt, g)} : "
+                f"{literal(0, dt)})")
 
     val = at(offs)
     if not terms or not masked:
@@ -493,7 +625,8 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
     """(kernel order, prelude + scalar struct + one stage function per
     kernel not in ``skip``, scalar slots); ``bf16``: stage functions
     computed in bf16, after the stream kernel's and the bf16 macros they
-    call."""
+    call; a program with a narrow field gets those macros and the
+    float16 ones (``_HALF_MACROS``), and device-only stage functions."""
     order = analysis.graph.kernel_order
     funcs = [StageEmitter(program, program.kernels[k], bf16).function(
         f"sf_stage_{i}") for i, k in enumerate(order) if k not in skip]
@@ -502,7 +635,10 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
     struct = ("struct SfScalars {\n  int unused_;\n"
               + "".join(f"  {ctype(program.inputs[n].dtype)} x{i};\n"
                         for i, n in enumerate(scalars)) + "};\n")
-    macros = _STREAM_MACROS + _BF16_MACROS if bf16 else ""
+    narrow = has_narrow(program)
+    macros = _STREAM_MACROS + _BF16_MACROS if bf16 or narrow else ""
+    if narrow:
+        macros += _HALF_MACROS
     return order, prelude() + macros + struct + "\n".join(funcs), slots
 
 
@@ -519,14 +655,14 @@ def _params(program: ir.Program, n_pool: int = 0,
     params, args = [], []
     arrays = [n for n, s in program.inputs.items() if not s.is_scalar]
     for i, n in enumerate(arrays):
-        ct = "sf_bf16" if bf16 else ctype(program.inputs[n].dtype)
+        ct = "sf_bf16" if bf16 else stype(program.inputs[n].dtype)
         params.append(f"const {ct}* __restrict__ g_{n}")
         args.append(f"(const {ct}*)in[{i}]")
     for i in range(n_pool):
         params.append(f"const float* __restrict__ pc{i}")
         args.append(f"(const float*)in[{len(arrays) + i}]")
     for i, o in enumerate(program.outputs):
-        ct = "sf_bf16" if bf16 else ctype(program.kernels[o].dtype)
+        ct = "sf_bf16" if bf16 else stype(program.kernels[o].dtype)
         params.append(f"{ct}* __restrict__ o_{o}")
         args.append(f"({ct}*)out[{i}]")
     params.append("const SfScalars sc")
@@ -680,7 +816,7 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
             st = f"sf_cp{size}({dst}, {src}, inb);"
         else:
             st = (f"*({dst}) = inb ? *({src}) : "
-                  f"{literal(0, program.field_dtype(f))};")
+                  f"{zero(program.field_dtype(f))};")
         inb = f"gj >= 0 && gj < {J} && gk >= 0 && gk < {K}"
         if sharded:
             inb += (f" && gj - wj < {PJ} && gk - wk < {PK}")
@@ -721,7 +857,8 @@ def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
     return pro, step
 
 
-def _ring_reader(plan, s: str, RK: int, ptrs: Dict, xs: set, ringed):
+def _ring_reader(program, plan, s: str, RK: int, ptrs: Dict, xs: set,
+                 ringed):
     """``onchip`` of ``read_expr`` for stage ``s`` over rings ``ringed``:
     a read of field f at offset o is one load from the base ``b_f_d``
     (ring slot of plane delta d, set once per stage and step: ``ptrs``)
@@ -740,7 +877,7 @@ def _ring_reader(plan, s: str, RK: int, ptrs: Dict, xs: set, ringed):
             x = "p" if FK == RK else f"x{FK}"
             if FK != RK:
                 xs.add(FK)
-            return _from_slot(plan, f, f"b_{f}_{d}[{x} + "
+            return _from_slot(program, plan, f, f"b_{f}_{d}[{x} + "
                               f"{(dj + o[1]) * FK + dk + o[2]}]")
         return at
     return onchip
@@ -867,7 +1004,7 @@ def _async_copy(program, f: str, dst: str, src: str) -> str:
     if size in (4, 8):
         return f"sf_cp{size}({dst}, {src}, inb);"
     return (f"*({dst}) = inb ? *({src}) : "
-            f"{literal(0, program.field_dtype(f))};")
+            f"{zero(program.field_dtype(f))};")
 
 
 _CP_WAIT_ALL = """#ifdef __CUDACC__
@@ -905,8 +1042,8 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
     params, args = _params(program)
     from .panel import i_reach, reach
     Hj, Hk = reach(program, plan)
-    L = [head, _STREAM_MACROS] + _bf16_macros(plan) + _skeleton_macros(
-        plan.threads) + [
+    L = [head, _STREAM_MACROS] + _bf16_macros(plan, program) + \
+        _skeleton_macros(plan.threads) + [
          "// panel streamer (backend/panel.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/panel.py _panel_kernel_body (K1)",
          "SF_DEV void sf_panel_block(const int by, const int bx, "
@@ -937,13 +1074,13 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
         lo, hi = i_reach(program, s)
         ptrs: Dict[Tuple[str, int], str] = {}
         xs = set()
-        onchip = _ring_reader(plan, s, RK, ptrs, xs, plan.ring)
+        onchip = _ring_reader(program, plan, s, RK, ptrs, xs, plan.ring)
         bodies = []
         for masked in (False, True):
             body = _stage_call(program, kspec, idx, ("q", "gj", "gk"),
                                onchip, slots, masked=masked)
             if s in plan.ring:
-                body.append(f"w[p] = {_to_slot(plan, s, 'r')};")
+                body.append(f"w[p] = {_to_slot(program, plan, s, 'r')};")
             if s in program.outputs:
                 cond = []
                 if hj:
@@ -952,7 +1089,8 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
                     cond.append(f"kl >= {hk} && kl < {hk + tk}")
                 if masked:
                     cond.append(f"gj < {J} && gk < {K}")
-                write = f"o_{s}[((long long)q * {J} + gj) * {K} + gk] = r;"
+                write = (f"o_{s}[((long long)q * {J} + gj) * {K} + gk] = "
+                         f"{store(kspec.dtype, 'r')};")
                 body.append(f"if ({' && '.join(cond)}) {write}" if cond
                             else write)
             bodies.append(body)
@@ -1093,30 +1231,36 @@ SF_DEV float sf_bfr(const float v) { return sf_bf2f(sf_f2bf(v)); }
 """
 
 
-def _bf16_macros(plan) -> List[str]:
-    """``_BF16_MACROS`` for a plan that rounds a ring or a band operand."""
+def _bf16_macros(plan, program) -> List[str]:
+    """``_BF16_MACROS`` for a plan that rounds a ring or a band operand
+    (none where ``_common`` emitted them already: ``program`` has a
+    narrow field)."""
     uses = (plan.rounds or getattr(plan, "rounds_out", ())
             or getattr(plan, "bf16_passes", False))
-    return [_BF16_MACROS] if uses else []
+    return [_BF16_MACROS] if uses and not has_narrow(program) else []
 
 
 def _slot_type(program, plan, f: str) -> str:
     """C type of ring ``f``'s slots: ``sf_bf16`` where the plan keeps it
-    as bf16."""
-    return "sf_bf16" if plan.bf16_slots(f) else ctype(program.field_dtype(f))
+    as bf16, else what ``f``'s type stores in."""
+    return "sf_bf16" if plan.bf16_slots(f) else stype(program.field_dtype(f))
 
 
-def _from_slot(plan, f: str, lv: str) -> str:
+def _from_slot(program, plan, f: str, lv: str) -> str:
     """A read of ring ``f``'s slot ``lv`` as its compute type."""
-    return f"sf_bf2f({lv})" if plan.bf16_slots(f) else lv
+    if plan.bf16_slots(f):
+        return f"sf_bf2f({lv})"
+    return load(program.field_dtype(f), lv)
 
 
-def _to_slot(plan, f: str, v: str) -> str:
+def _to_slot(program, plan, f: str, v: str) -> str:
     """Value ``v`` as ring ``f`` stores it: converted to bf16, rounded in
-    an f32 slot (a rounded ring that keeps f32 slots), or as it is."""
+    an f32 slot (a rounded ring that keeps f32 slots), or as its type
+    stores it."""
     if plan.bf16_slots(f):
         return f"sf_f2bf({v})"
-    return f"sf_bfr({v})" if plan.rounded(f) else v
+    return f"sf_bfr({v})" if plan.rounded(f) else store(
+        program.field_dtype(f), v)
 
 
 def _param_names(params: str) -> str:
@@ -1402,13 +1546,16 @@ class _StreamEmitter:
         # bf16 compute: the arrays hold bf16, every stage's result rounds
         self.cbf = plan.compute_bf16
 
-    def gread(self, g: str) -> str:
-        """A value of a global array read at ``g`` as float."""
-        return f"sf_bf2f({g})" if self.cbf else g
+    def gread(self, g: str, f: str) -> str:
+        """A value of field ``f``'s global array read at ``g`` as its
+        compute type."""
+        return f"sf_bf2f({g})" if self.cbf else load(
+            self.program.field_dtype(f), g)
 
-    def out(self, v: str) -> str:
-        """Value ``v`` as an output array stores it."""
-        return f"sf_f2bf({v})" if self.cbf else v
+    def out(self, v: str, s: str) -> str:
+        """Value ``v`` as stage ``s``'s output array stores it."""
+        return f"sf_f2bf({v})" if self.cbf else store(
+            self.program.kernels[s].dtype, v)
 
     def opnd(self, x: str) -> str:
         """A band pass's source operand ``x`` (rounded to bf16 under
@@ -1440,7 +1587,7 @@ class _StreamEmitter:
         mask = self.program.field_dim_mask(f)
         c = (pexpr,) + self.at("gj", "gk") if self.sharded else (
             pexpr, "(gj + 0)", "(gk + 0)")
-        g = self.gread(f"g_{f}[{_flat(mask, c, self.adims)}]")
+        g = self.gread(f"g_{f}[{_flat(mask, c, self.adims)}]", f)
         return f"(({_inb(mask, c, self.adims)}) ? {g} : 0.0f)"
 
     def otf(self, tkey, pexpr, pre: List[str]) -> str:
@@ -1453,7 +1600,7 @@ class _StreamEmitter:
         mask = self.program.field_dim_mask(f)
         v = f"tv{self.n_otf}"
         self.n_otf += 1
-        g = self.gread(f"g_{f}[{_flat(mask, (pexpr,) + self.at('sj', 'sk'), self.adims)}]")
+        g = self.gread(f"g_{f}[{_flat(mask, (pexpr,) + self.at('sj', 'sk'), self.adims)}]", f)
         lj, lk = self.at("gj", "gk")
         pre += [f"float {v} = 0.0f;",
                 f"if (gj >= 0 && gj < {J} && gk >= 0 && gk < {K}) {{"]
@@ -1936,7 +2083,8 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
         ptrs: Dict[Tuple[str, int], str] = {}
         tptrs: Dict[str, str] = {}
         xs = set()
-        onchip = _ring_reader(plan, s, RK, ptrs, xs, plan.raw_ring)
+        onchip = _ring_reader(program, plan, s, RK, ptrs, xs,
+                              plan.raw_ring)
         bodies = []
         for masked in (False, True):
             if s in plan.mxu_plans:
@@ -1945,11 +2093,11 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 body = _stage_call(program, kspec, idx, pos, onchip, slots,
                                    at_pos, em.adims, masked, em.cbf)
             if s in plan.raw_ring:
-                rv = _to_slot(plan, s, "r")
+                rv = _to_slot(program, plan, s, "r")
                 if masked and s in sources:   # the passes read 0 beyond
                     body.append(f"w[p] = (gj >= 0 && gj < {J} && gk >= 0 "
                                 f"&& gk < {K}) ? {rv} : "
-                                f"{literal(0, program.field_dtype(s))};")
+                                f"{zero(program.field_dtype(s))};")
                 else:
                     body.append(f"w[p] = {rv};")
             if s in program.outputs:
@@ -1959,7 +2107,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 if hk:
                     cond.append(f"kl >= {hk} && kl < {hk + tk}")
                 qo = f"(q - {h})" if local else "q"
-                ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r")
+                ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r", s)
                 if sharded:   # the shard's core, every body
                     BJ, BK = plan.core()
                     cond.append(f"gj - origin_j < {BJ} && gk - origin_k < "
@@ -2055,7 +2203,7 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     em = _StreamEmitter(program, plan, slots)
     # bf16 compute: _common put the stream and bf16 macros before the
     # stage functions, which call sf_bfr
-    macros = [] if cbf else [_STREAM_MACROS] + _bf16_macros(plan)
+    macros = [] if cbf else [_STREAM_MACROS] + _bf16_macros(plan, program)
     if plan.packed:
         L = [head] + macros[:1] + [_SPILL_MACROS] + macros[1:] + \
             _packed_stream_body(
@@ -2217,13 +2365,13 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
                 inb += f" && gj - wj < {PJ} && gk - wk < {PK}"
                 src = (f"g_{f}[((long long)t * {PJ} + gj - wj) * {PK} + "
                        "gk - wk]")
-            src = em.gread(src)
+            src = em.gread(src, f)
             L += [f"      for (int p = tid; p < {RJ * RK}; p += nt) {{",
                   f"        const int jl = p / {RK}, kl = p - jl * {RK};",
                   f"        const int gj = j0 - {hj} + jl, "
                   f"gk = k0 - {hk} + kl;",
                   f"        {dst} = " + _to_slot(
-                      plan, f, f"({inb}) ? {src} : "
+                      program, plan, f, f"({inb}) ? {src} : "
                       f"{literal(0, program.field_dtype(f))}") + ";",
                   "      }"]
         L.append("    }")
@@ -2245,28 +2393,28 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             if f not in plan.spilled:
                 D = plan.raw_ring[f]
                 return lambda o: _from_slot(
-                    plan, f, f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
+                    program, plan, f, f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
                     f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
                     f"kl + {dk + o[2]}]")
 
             def at(o):
                 d = plan.lag[s] - o[0]
                 buf = f"st_{f}" if d == plan.lag[f] else f"ld{bar[f, d]}"
-                return _from_slot(plan, f, f"{buf}[(jl + {dj + o[1]}) * "
-                                  f"{fk} + kl + {dk + o[2]}]")
+                return _from_slot(program, plan, f, f"{buf}[(jl + "
+                                  f"{dj + o[1]}) * {fk} + kl + {dk + o[2]}]")
             return at
 
         body = _stage_call(program, kspec, idx, pos, onchip, slots, at_pos,
                            em.adims, bf16=em.cbf)
         if s in plan.spilled:
-            body.append(f"st_{s}[p] = {_to_slot(plan, s, 'r')};")
+            body.append(f"st_{s}[p] = {_to_slot(program, plan, s, 'r')};")
         elif s in plan.raw_ring:
             body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
-                        f"= {_to_slot(plan, s, 'r')};")
+                        f"= {_to_slot(program, plan, s, 'r')};")
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
             qo = f"(q - {h})" if local else "q"
-            ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r")
+            ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r", s)
             if sharded:
                 body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
                             f"kl >= {hk} && kl < {hk + tk} && gj - origin_j"
@@ -2400,8 +2548,8 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
     S, Ps = plan.segments, plan.panels_per_segment(program)
     lag_max = plan.lag_max(program)
     ring_inputs = [f for f in plan.rings if f in program.inputs]
-    L = [head, _STREAM_MACROS] + _bf16_macros(plan) + _skeleton_macros(
-        plan.threads) + [
+    L = [head, _STREAM_MACROS] + _bf16_macros(plan, program) + \
+        _skeleton_macros(plan.threads) + [
          _CP_WAIT_ALL,
          "// group streamer (backend/group.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/group.py _group_kernel_body (K5)",
@@ -2450,7 +2598,7 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                 + [f"gk >= 0 && gk < {K}"] * bool(mask[2])) or "true"
             src = (f"g_{f} + (inb ? "
                    f"{_flat_at(mask, ('gi', 'gj', 'gk'), dims)} : 0LL)")
-            ct = ctype(program.field_dtype(f))
+            ct = stype(program.field_dtype(f))
             body = [f"const int gi = ({t_expr}) * {B} + il, "
                     f"gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
                     f"const bool inb = {inb};",
@@ -2493,7 +2641,7 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
         if any(s in program.outputs for s in live) and S > 1:
             L.append(f"    const bool own{g} = q{g} >= P0 && q{g} < P1;")
         for s, off in temp_off[g].items():
-            ct = ctype(program.field_dtype(s))
+            ct = stype(program.field_dtype(s))
             L.append(f"    {ct}* const b_{s} = ({ct}*)(sf_smem + {off});")
         for f in nd:
             if f in gset or f not in plan.rings:
@@ -2519,11 +2667,11 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                     name, plan.region(f), plan.region(s), nd[f][0] - lo_s,
                     plan.halo[f][0] - plan.halo[s][0],
                     plan.halo[f][1] - plan.halo[s][1], xs)
-                if f in gset or not plan.rounded(f):
-                    return at   # in-group blocks hold exact values
-                if f in program.inputs:   # f32 slots, rounded at read
-                    return lambda o: f"sf_bfr({at(o)})"
-                return lambda o: _from_slot(plan, f, at(o))
+                if f in gset:   # in-group blocks hold exact values
+                    return lambda o: load(program.field_dtype(f), at(o))
+                if plan.rounded(f) and f in program.inputs:
+                    return lambda o: f"sf_bfr({at(o)})"   # f32 slots,
+                return lambda o: _from_slot(program, plan, f, at(o))
 
             bodies = []
             for masked in (False, True):
@@ -2532,10 +2680,11 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                                    masked=masked)
                 core = f"il >= {lo_s} && il < {lo_s + B}"
                 if s in temp_off[g]:
-                    body.append(f"b_{s}[p] = r;")
+                    body.append(f"b_{s}[p] = "
+                                f"{store(program.field_dtype(s), 'r')};")
                 if s in plan.rings:
                     n, M = plan.slots(s) * B, plan.mirror[s]
-                    rv = _to_slot(plan, s, "r")
+                    rv = _to_slot(program, plan, s, "r")
                     body += [f"if ({core}) {{",
                              f"  const int pr = sf_wrap(ub + il, {n});",
                              f"  w[p + (pr - il) * {RJ * RK}] = {rv};"]
@@ -2554,7 +2703,8 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                     if S > 1:
                         cond.append(f"own{g}")
                     body.append(f"if ({' && '.join(cond)}) o_{s}[((long long)"
-                                f"gi * {J} + gj) * {K} + gk] = r;")
+                                f"gi * {J} + gj) * {K} + gk] = "
+                                f"{store(program.field_dtype(s), 'r')};")
                 bodies.append(body)
             pre = _cell_pre3(f"q{g} * {B} - {lo_s}", hj, hk, xs)
             qlo, qhi = plan.free_panels(program, g, s)
@@ -2634,7 +2784,7 @@ def tile_source(program: ir.Program, analysis: ChainAnalysis,
               f"&& j0 >= {H[1]} && j0 + {tj + H[1]} <= {J} && k0 >= {H[2]} "
               f"&& k0 + {tk + H[2]} <= {K};"]
     for f in plan.onchip:
-        ct = ctype(program.field_dtype(f))
+        ct = stype(program.field_dtype(f))
         L.append(f"  {ct}* const b_{f} = ({ct}*)(sf_smem + {offs[f]});")
     fields = list(plan.onchip) + list(order)
     L += _thread_origins3({plan.region(f)[1:] for f in fields})
@@ -2736,6 +2886,11 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
     fields = sorted({f for f, _dj, _dk in keys})
     ct = {f: ctype(program.field_dtype(f)) for f in fields}
 
+    def q(f, x):
+        """Element ``x`` of ``f``'s buffer from the position's pointer, as
+        its value."""
+        return load(program.field_dtype(f), f"q_{f}[{x}]")
+
     def off(f, di, dj, dk):
         (lf, _), (ljf, _), _ = plan.needs[f]
         return ((lf - lo + di) * plan.plane(f) + (ljf - lj + dj) * plan.row(f)
@@ -2747,21 +2902,21 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
     def val(f, di, dj, dk):
         return f"v_{f}_{_mangle(di)}_{_mangle(dj)}_{_mangle(dk)}"
 
-    pre, load, shift = [], [], []
+    pre, loads, shift = [], [], []
     if plan.window:
         for (f, dj, dk), (a, b) in sorted(keys.items()):
             for x in range(b - a):
-                pre.append(f"{ct[f]} {reg(f, dj, dk, x)} = q_{f}"
-                           f"[{off(f, a + x, dj, dk)}];")
+                pre.append(f"{ct[f]} {reg(f, dj, dk, x)} = "
+                           f"{q(f, off(f, a + x, dj, dk))};")
             if b > a:
                 pre.append(f"{ct[f]} {reg(f, dj, dk, b - a)};")
-                load.append(f"{reg(f, dj, dk, b - a)} = q_{f}"
-                            f"[{off(f, b, dj, dk)}];")
+                loads.append(f"{reg(f, dj, dk, b - a)} = "
+                             f"{q(f, off(f, b, dj, dk))};")
                 shift += [f"{reg(f, dj, dk, x)} = {reg(f, dj, dk, x + 1)};"
                           for x in range(b - a)]
             else:
-                load.append(f"const {ct[f]} {reg(f, dj, dk, 0)} = q_{f}"
-                            f"[{off(f, a, dj, dk)}];")
+                loads.append(f"const {ct[f]} {reg(f, dj, dk, 0)} = "
+                             f"{q(f, off(f, a, dj, dk))};")
     else:
         seen = set()
         for f, alist in accesses_with_center(kspec).items():
@@ -2773,8 +2928,8 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
                     k = (f, oi, oj + rj, ok + rk)
                     if k not in seen:
                         seen.add(k)
-                        load.append(f"const {ct[f]} {val(*k)} = q_{f}"
-                                    f"[{off(*k)}];")
+                        loads.append(f"const {ct[f]} {val(*k)} = "
+                                     f"{q(f, off(*k))};")
 
     def onchip_of(rj, rk):
         def onchip(f):
@@ -2799,10 +2954,11 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
                                    masked=masked)
                          for f, offs in em.accesses)
         cells.append(f"const {kt} x{r} = sf_stage_{idx}({args});")
-    store = []
+    sdt = program.field_dtype(s)
+    stores = []
     if s in plan.onchip:
-        store += [f"w[{rj * plan.row(s) + rk}] = x{r};"
-                  for r, (rj, rk) in enumerate(cell)]
+        stores += [f"w[{rj * plan.row(s) + rk}] = {store(sdt, f'x{r}')};"
+                   for r, (rj, rk) in enumerate(cell)]
     if s in program.outputs:
         cond = []
         if lo or RI != B:
@@ -2819,26 +2975,26 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
             if masked:
                 c.append(f"{at('gj', rj)} < {J} && {at('gk', rk)} < {K}")
             w = (f"o_{s}[((long long)gi * {J} + {at('gj', rj)}) * {K} + "
-                 f"{at('gk', rk)}] = x{r};")
+                 f"{at('gk', rk)}] = {store(sdt, f'x{r}')};")
             writes.append(f"if ({' && '.join(c)}) {w}" if c else w)
         if cond:
-            store += [f"if ({' && '.join(cond)}) {{"] \
+            stores += [f"if ({' && '.join(cond)}) {{"] \
                 + ["  " + w for w in writes] + ["}"]
         else:
-            store += writes
+            stores += writes
     body = ["{", f"  int pj = jl0_{NPK}, pk = kl0_{NPK};", "#pragma unroll 1",
             f"  for (int p = tid; p < {NPJ * NPK}; p += SF_NT) {{",
             f"    const int jl = pj{f' * {R}' if R > 1 else ''}, kl = pk;",
             f"    const int gj = j0 - {lj} + jl, gk = k0 - {lk} + kl;",
             "    (void)gj; (void)gk;"]
-    body += [f"    const {ct[f]}* q_{f} = {bases[f]} + jl * {plan.row(f)} "
-             "+ kl;" for f in fields]
+    body += [f"    const {stype(program.field_dtype(f))}* q_{f} = "
+             f"{bases[f]} + jl * {plan.row(f)} + kl;" for f in fields]
     if s in plan.onchip:
-        body.append(f"    {kt}* w = b_{s} + jl * {plan.row(s)} + kl;")
+        body.append(f"    {stype(sdt)}* w = b_{s} + jl * {plan.row(s)} + kl;")
     body += ["    " + y for y in pre]
     body += ["#pragma unroll 1", f"    for (int il = 0; il < {RI}; ++il) {{",
              f"      const int gi = t * {B} - {lo} + il;  (void)gi;"]
-    body += ["      " + y for y in load + cells + store + shift]
+    body += ["      " + y for y in loads + cells + stores + shift]
     body += [f"      q_{f} += {plan.plane(f)};" for f in fields]
     if s in plan.onchip:
         body.append(f"      w += {plan.plane(s)};")
@@ -2889,7 +3045,7 @@ def overlap_source(program: ir.Program, analysis: ChainAnalysis,
          f"k0 >= {klo} && k0 + {tk + khi} <= {K};",
          "  (void)inner;"]
     for f in plan.onchip:
-        ct = ctype(program.field_dtype(f))
+        ct = stype(program.field_dtype(f))
         L.append(f"  {ct}* const b_{f} = ({ct}*)(sf_smem + {offs[f]});")
 
     def chunks(f) -> Tuple[int, int]:
@@ -2909,7 +3065,7 @@ def overlap_source(program: ir.Program, analysis: ChainAnalysis,
         RJ, NC = chunks(f)
         V = plan.vec.get(f, 1)
         (lo, _), (lj, _), _ = plan.needs[f]
-        ct = ctype(program.field_dtype(f))
+        ct = stype(program.field_dtype(f))
         src = (f"g_{f} + (inb ? "
                f"{_flat_at((1, 1, 1), ('gi', 'gj', 'gk'), dims)} : 0LL)")
         body = [f"const int gi = t * {B} - {lo} + il, gj = j0 - {lj} + jl, "
@@ -2971,16 +3127,17 @@ def host_source(program: ir.Program, analysis: ChainAnalysis) -> str:
     L += [f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));"
           for i in slots.values()]
     for i, n in enumerate(arrays):
-        ct = ctype(program.inputs[n].dtype)
+        ct = stype(program.inputs[n].dtype)
         L.append(f"  const {ct}* g_{n} = (const {ct}*)in[{i}];")
     for i, k in enumerate(order):
-        ct = ctype(program.kernels[k].dtype)
+        ct = stype(program.kernels[k].dtype)
         L.append(f"  {ct}* g_{k} = ({ct}*)fields[{i}];")
     for idx, s in enumerate(order):
         body = _stage_call(program, program.kernels[s], idx,
                            ("gi", "gj", "gk"), lambda f: (lambda o: None),
                            slots)
-        body.append(f"g_{s}[((long long)gi * {J} + gj) * {K} + gk] = r;")
+        body.append(f"g_{s}[((long long)gi * {J} + gj) * {K} + gk] = "
+                    f"{store(program.kernels[s].dtype, 'r')};")
         L += [f"  for (long long gi = 0; gi < {I}; ++gi)",
               f"  for (long long gj = 0; gj < {J}; ++gj)",
               f"  for (long long gk = 0; gk < {K}; ++gk) {{"]

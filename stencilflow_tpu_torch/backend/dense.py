@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .. import ir
+from ..dtypes import to_torch
 from ..frontend.analysis import ChainAnalysis
 from ..frontend.chain import ChainGraph
 from .tile_eval import evaluate_chain_tile
@@ -62,7 +63,7 @@ def compile_chain(program: ir.Program,
     raw = program.raw_dimensions
 
     def forward(inputs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        tiles = {name: pad_input_to_tile(torch.as_tensor(inputs[name]),
+        tiles = {name: pad_input_to_tile(to_torch(inputs[name]),
                                          spec.dim_mask, dims, halo)
                  for name, spec in program.inputs.items()}
         results = evaluate_chain_tile(program, graph, tiles, (0, 0, 0),

@@ -75,7 +75,7 @@ f32; a stage's ring keeps bf16 slots (``smem_layout`` counts 2 bytes a
 cell), a ring input keeps f32 slots, which ``cp.async`` fills, and
 rounds at each read; in-group blocks hold exact values, as the
 reference's in-group reads do.  Outputs are written unrounded.  Launches
-count in ``bf16_launches``.
+count in ``launches_by["bf16"]``.
 
 ``group_plain`` runs the reference's schedule from the same plan in
 torch ops, all tiles at once, one segment; the wrapper ``run_group``
@@ -84,6 +84,7 @@ takes it for CPU tensors only and launches the CUDA kernel (codegen.py
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
@@ -99,16 +100,15 @@ from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .panel import AHEAD, PANEL_THREADS, reach, tile_candidates
-from .stacked_io import (THREADS, accesses_with_center, bc_select,
-                         check_scope, gather_global, or_mask,
-                         resolve_device, round_bf16, rounded_rings,
-                         run_kernel, spanned_arrays)
+from .stacked_io import (THREADS, accesses_with_center, bc_select, check_scope,
+                         gather_global, launch_mode, or_mask, resolve_device,
+                         round_bf16, rounded_rings, run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only): with exact rings, and
-# with bf16 rings (ring_storage="bfloat16")
-launches = 0
-bf16_launches = 0
+# kernel launches (CUDA tensors only) by mode (stacked_io.launch_mode):
+# "exact", "bf16" (ring_storage="bfloat16") and "narrow" (a program typed
+# bfloat16 or float16)
+launches_by = collections.Counter()
 # the i-segments a plan may cut I into (one block per segment and tile)
 SEGMENTS = (1, 2, 3, 4, 6, 8)
 # the plan rule's cost of a lane at (resident blocks per SM, threads a
@@ -735,16 +735,12 @@ def run_group(program: ir.Program, analysis: ChainAnalysis, plan: GroupPlan,
     """The group kernel on ``arrays`` (spanned shapes, scalars 0-d).
     ``lib`` is the built kernel (``build_group``); it is built on demand
     when omitted."""
-    global launches, bf16_launches
     outs, launched = run_kernel(
         program, arrays,
         lambda: lib if lib is not None else build_group(program, analysis,
                                                         plan),
         lambda: group_plain(program, analysis, plan, arrays))
-    if plan.rounds:
-        bf16_launches += launched
-    else:
-        launches += launched
+    launches_by[launch_mode(program, bool(plan.rounds))] += launched
     return outs
 
 

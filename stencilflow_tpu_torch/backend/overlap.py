@@ -58,6 +58,7 @@ for CUDA tensors.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -72,13 +73,14 @@ from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .panel import PANEL_THREADS, i_reach
-from .stacked_io import (THREADS, accesses_with_center, bc_select,
-                         check_scope, gather_global, or_mask,
-                         resolve_device, run_kernel, spanned_arrays)
+from .stacked_io import (THREADS, accesses_with_center, bc_select, check_scope,
+                         gather_global, launch_mode, or_mask, resolve_device,
+                         run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only)
-launches = 0
+# kernel launches (CUDA tensors only) by mode (stacked_io.launch_mode):
+# "exact" and "narrow" (a program typed bfloat16 or float16)
+launches_by = collections.Counter()
 # the (R, window) runs a plan may take: R adjacent j cells a thread
 # evaluates, the i-neighbours of its walk from registers or not; (1,
 # False) is the skeleton alone
@@ -602,7 +604,6 @@ def run_overlap(program: ir.Program, analysis: ChainAnalysis,
     """The overlap kernel on ``arrays`` (spanned shapes, scalars 0-d).
     ``lib`` is the built kernel (``build_overlap``); it is built on demand
     when omitted."""
-    global launches
     arrays = dict(arrays)
     for f in plan.vec:
         # 16-byte copies need a 16-byte aligned row start: a view that
@@ -614,7 +615,7 @@ def run_overlap(program: ir.Program, analysis: ChainAnalysis,
         lambda: lib if lib is not None else build_overlap(program, analysis,
                                                           plan),
         lambda: overlap_plain(program, analysis, plan, arrays))
-    launches += launched
+    launches_by[launch_mode(program)] += launched
     return outs
 
 

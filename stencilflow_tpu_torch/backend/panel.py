@@ -61,7 +61,7 @@ slots, so ``plane_bytes`` and the tile rule see half its bytes (jacobi3d
 512^3 x 8 then fits (32, 32) where f32 fits (16, 32)), while a ring input
 keeps f32 slots: ``cp.async`` copies bytes, so each thread rounds the
 cells it copied in place once the plane has landed.  Outputs are written
-unrounded.  Launches count in ``bf16_launches``.
+unrounded.  Launches count in ``launches_by["bf16"]``.
 
 ``panel_plain`` runs the same schedule from the same plan in torch ops,
 all tiles at once; the wrapper ``run_panel`` uses it for CPU tensors
@@ -69,6 +69,7 @@ only, and launches the CUDA kernel (codegen.py) for CUDA tensors.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import math
@@ -84,16 +85,16 @@ from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
-from .stacked_io import (THREADS, accesses_with_center, bc_select,
-                         check_scope, gather_global, or_mask,
-                         place_by_phase, resolve_device, round_bf16,
-                         rounded_rings, run_kernel, spanned_arrays)
+from .stacked_io import (THREADS, accesses_with_center, bc_select, check_scope,
+                         gather_global, launch_mode, or_mask, place_by_phase,
+                         resolve_device, round_bf16, rounded_rings, run_kernel,
+                         spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only): with exact rings, and
-# with bf16 rings (ring_storage="bfloat16")
-launches = 0
-bf16_launches = 0
+# kernel launches (CUDA tensors only) by mode (stacked_io.launch_mode):
+# "exact", "bf16" (ring_storage="bfloat16") and "narrow" (a program typed
+# bfloat16 or float16)
+launches_by = collections.Counter()
 # input planes are loaded this many plane steps ahead of the step that
 # first reads them, into as many more slots of their rings
 AHEAD = 1
@@ -504,16 +505,12 @@ def run_panel(program: ir.Program, analysis: ChainAnalysis, plan: PanelPlan,
     """The panel kernel on ``arrays`` (spanned shapes, scalars 0-d).
     ``lib`` is the built kernel (``build_panel``); it is built on demand
     when omitted."""
-    global launches, bf16_launches
     outs, launched = run_kernel(
         program, arrays,
         lambda: lib if lib is not None else build_panel(program, analysis,
                                                         plan),
         lambda: panel_plain(program, analysis, plan, arrays))
-    if plan.rounds:
-        bf16_launches += launched
-    else:
-        launches += launched
+    launches_by[launch_mode(program, bool(plan.rounds))] += launched
     return outs
 
 

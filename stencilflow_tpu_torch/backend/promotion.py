@@ -14,6 +14,15 @@ A node type is a numpy dtype (strong) or a weak python scalar
 constants and arithmetic folded over them (the parser pins float
 constants to the kernel dtype, ``const_dtype_of``).  Same rules as the
 JAX package's native simulator emitter (``sim/native.py _res_ty``).
+
+The narrow floats: float16 is numpy's own, so NEP 50 types its sites.
+bfloat16 (``dtypes.BFLOAT16``) takes the rows ml_dtypes gives the JAX
+package's oracle: with float32 or float64 the wider float; with a strong
+int or bool bf16 (the mixed rule); with a weak scalar float32 at a ufunc
+site (ml_dtypes' loops compute there in float32) and at ``np.where``
+bf16 for a weak int, float64 for a weak float (``np.result_type``); with
+float16 float32 at a ufunc site (ml_dtypes' loops again) and no common
+type at ``np.where`` (TypeError, as ``np.result_type`` refuses it).
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ from typing import Any
 import numpy as np
 
 from .. import ir
-from ..dtypes import is_floating
+from ..dtypes import BFLOAT16, FLOAT16, is_floating, scalar
 
 WEAK_INT, WEAK_FLOAT = "wi", "wf"
 
@@ -57,19 +66,40 @@ def strong(ty) -> np.dtype:
     return np.dtype(np.int64 if ty[0] == WEAK_INT else np.float64)
 
 
-def result_type(*tys) -> Any:
+def result_type(*tys, ufunc: bool = True) -> Any:
     """Result type of a binary site: NEP 50, except that a strong
-    int/bool meeting a strong float takes that float dtype."""
+    int/bool meeting a strong float takes that float dtype.  ``ufunc``
+    False: an ``np.where`` site (it differs for bf16 and a weak scalar)."""
     if all(is_weak(t) for t in tys):
         return (WEAK_FLOAT, None) if any(t[0] == WEAK_FLOAT for t in tys) \
             else (WEAK_INT, None)
     strongs = [np.dtype(t) for t in tys if not is_weak(t)]
+    if BFLOAT16 in strongs:
+        return _bf16_result(tys, strongs, ufunc)
     flts = [t for t in strongs if is_floating(t)]
     if flts and any(t.kind in "iub" for t in strongs):
         return np.result_type(*flts)
     args = [(1 if t[0] == WEAK_INT else 1.0) if is_weak(t) else t
             for t in tys]
     return np.result_type(*args)
+
+
+def _bf16_result(tys, strongs, ufunc: bool) -> np.dtype:
+    others = [t for t in strongs if t != BFLOAT16]
+    if FLOAT16 in others and not ufunc:
+        raise TypeError("bfloat16 meets float16: the two have no common "
+                        "type at an np.where site (numpy's result_type "
+                        "refuses them, as the JAX package's oracle does)")
+    # at a ufunc site ml_dtypes' loops compute the pair in float32
+    flts = [t for t in others if t.kind == "f"]
+    if flts:
+        return np.result_type(np.float32, *flts)
+    weaks = [t for t in tys if is_weak(t)]
+    if weaks and ufunc:
+        return F32
+    if any(t[0] == WEAK_FLOAT for t in weaks):
+        return np.dtype(np.float64)
+    return BFLOAT16
 
 
 def const_dtype_of(kspec: ir.KernelSpec) -> np.dtype:
@@ -85,34 +115,38 @@ def const_type(value, pin: np.dtype):
     if isinstance(value, (bool, np.bool_)):
         return bool(value), np.dtype(np.bool_)
     if isinstance(value, float):
-        return pin.type(value), pin
+        return scalar(value, pin), pin
     return value, weak(value)
 
 
 def fill_value(bc, dtype) -> np.generic:
     """The value an out-of-domain read yields under a constant or shrink
     BC, cast to the field dtype exactly as the oracle's ``np.pad`` casts
-    it (no BC means constant 0)."""
+    it (no BC means constant 0; bf16: the rounded value as float32)."""
     from ..config import JUNK_VAL
     if bc is not None and bc.kind == ir.BCKind.SHRINK:
         v = JUNK_VAL
     else:
         v = bc.value if bc is not None else 0.0
+    if np.dtype(dtype) == BFLOAT16:
+        return scalar(v, dtype)
     with np.errstate(invalid="ignore", over="ignore"):
         return np.pad(np.zeros(1, np.dtype(dtype)), (1, 0),
                       constant_values=v)[0]
 
 
-def check_kernel_dtypes(program: ir.Program) -> None:
-    """The kernels compute in float32/64, int8-64 and bool; float16 has no
-    per-op rounding model in the emitter yet — NotImplementedError, so
-    compile_chain_best hands the program to the dense lowering."""
+def check_not_narrow(program: ir.Program, what: str) -> None:
+    """Refuse a program with a bfloat16 or float16 field where ``what``
+    (a lowering or entry point) has no narrow path yet:
+    NotImplementedError naming ROADMAP Queue 1 item 11, so the routing
+    ladder falls through it."""
     for name in list(program.inputs) + list(program.kernels):
         dt = np.dtype(program.field_dtype(name))
-        if dt == np.float16:
+        if dt in (BFLOAT16, FLOAT16):
             raise NotImplementedError(
-                f"field {name!r} is float16: the generated kernels do not "
-                "emulate narrow-float rounding yet")
+                f"{what} does not take narrow floats yet: field {name!r} is "
+                f"{'bfloat16' if dt == BFLOAT16 else 'float16'} (ROADMAP "
+                "Queue 1 item 11, bf16 and f16 programs)")
 
 
 # -- bf16 compute (the stream kernel's compute_dtype="bfloat16") --------------
@@ -145,8 +179,7 @@ def bf16_join(*tys):
 
 def bf16_value(value) -> float:
     """``value`` as float32, rounded to bf16 (to nearest, ties to even)."""
-    import torch
-    return float(torch.tensor(np.float32(value)).to(torch.bfloat16).float())
+    return float(scalar(np.float32(value), BFLOAT16))
 
 
 def check_bf16_compute(program: ir.Program) -> None:

@@ -13,9 +13,9 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..dtypes import to_torch_dtype
+from ..dtypes import is_narrow, to_torch, to_torch_dtype
 from . import build
-from .promotion import check_kernel_dtypes, fill_value
+from .promotion import fill_value
 
 THREADS = 256
 # the stream kernel's ring spill (K3c): the most device memory one plan's
@@ -35,11 +35,9 @@ def accesses_with_center(kspec: ir.KernelSpec):
 
 
 def check_scope(program: ir.Program) -> None:
-    """What the kernels refuse, with ValueError / NotImplementedError so
-    that compile_chain_best takes the dense lowering: float16 fields, and
-    programs without an array input (the wrapper takes its device from
-    one)."""
-    check_kernel_dtypes(program)
+    """What the kernels refuse, with ValueError so that
+    compile_chain_best takes the dense lowering: programs without an
+    array input (the wrapper takes its device from one)."""
     if all(s.is_scalar for s in program.inputs.values()):
         raise ValueError("the kernels need an array input")
 
@@ -231,6 +229,27 @@ def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
     return dict(zip(program.outputs, outs)), True
 
 
+def has_narrow(program: ir.Program) -> bool:
+    """Has ``program`` a field typed bfloat16 or float16?"""
+    return any(is_narrow(program.field_dtype(n))
+               for n in list(program.inputs) + list(program.kernels))
+
+
+def launch_mode(program: ir.Program, rounds: bool = False,
+                place: str = "", compute_bf16: bool = False) -> str:
+    """The key a launch counts under in its kernel module's
+    ``launches_by`` (a ``collections.Counter``): "compute_bf16" under the
+    stream kernel's bf16 compute; else ``place`` (the stream kernel's
+    "spill", "local" or "shard"; "" for the whole domain on chip) joined
+    with "narrow" for a program with a bfloat16 or float16 field, or
+    "bf16" where the plan rounds (a ring, an output or its band operands
+    to bf16); "exact" where neither applies."""
+    if compute_bf16:
+        return "compute_bf16"
+    kind = "narrow" if has_narrow(program) else "bf16" if rounds else ""
+    return "_".join(k for k in (place, kind) if k) or "exact"
+
+
 def spanned_arrays(program: ir.Program, inputs, device=None):
     """Inputs as tensors at their spanned shapes (scalars stay 0-d
     host values)."""
@@ -239,10 +258,9 @@ def spanned_arrays(program: ir.Program, inputs, device=None):
     for n, spec in program.inputs.items():
         v = inputs[n]
         if spec.is_scalar:
-            out[n] = torch.as_tensor(np.asarray(v)) if not \
-                torch.is_tensor(v) else v
+            out[n] = to_torch(v) if not torch.is_tensor(v) else v
             continue
-        v = torch.as_tensor(v, device=device)
+        v = v.to(device) if torch.is_tensor(v) else to_torch(v, device)
         out[n] = v.reshape(tuple(dims[d] for d in range(3)
                                  if spec.dim_mask[d])).contiguous()
     return out

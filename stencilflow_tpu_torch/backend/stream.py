@@ -103,7 +103,7 @@ Ic) are written, to (Ic, J, K) outputs.  Reads that leave the chunk
 reach only planes outside the core (h covers the chain's reach), so
 whatever they find there never lands in an output.  Per-cell and
 uncomposed banded stages only, as the reference's chunk path builds it.
-``run_local_stream`` is its wrapper (count ``local_launches``) and
+``run_local_stream`` is its wrapper (count ``launches_by["local"]``) and
 ``local_stream_plain`` its plain version.  Its bound is its chunk's
 bytes (slabs in, core planes out); it recomputes the chunk's 2h halo
 planes (1.125x the core at h = 8, Ic = 128) so that chunks need nothing
@@ -131,7 +131,7 @@ Toeplitz range are global (``StreamPlan._shard_band_info``), only its
 table (the columns where a composed band's products differ near an
 edge) and the correction planes are read per shard.  Composed runs and
 the spill rung take the same origin.  Launches count in
-``shard_launches``.
+``launches_by["shard"]``.
 
 Spill (K3c, the counterpart of ``choose_spill``, ``spill_prefetch``,
 ``spill_read`` and ``spill_write``, the last rung of the reference's
@@ -169,7 +169,7 @@ blocks streaming planes asynchronously reach at the plan's residency
 whatever the budget (the CPU tests and the card tests use it on small
 programs).  The plain version does not change (spilling moves storage,
 not arithmetic).  Launches of a spill-rung plan count in
-``spill_launches``.  Bound: the same bytes as the unspilled kernel; it
+``launches_by["spill"]``.  Bound: the same bytes as the unspilled kernel; it
 pays the halo recompute of small tiles and the spilled rings' traffic.
 
 bf16 (the reference's opt-in modes, in every mode: whole-domain, chunk,
@@ -202,9 +202,9 @@ build equals it up to the order of the band groups' sums.  In shard mode
 the rounded bands are each shard instance's slices of the origin-aware
 stacked bands; correction planes and composed i-tables stay f32, as the
 reference's ``finalize_pool`` keeps them.  Launches of these plans count
-apart (``reduced``): ``bf16_launches``, ``spill_bf16_launches`` on the
-spill rung, ``local_bf16_launches`` for K4 on a chunk or a segment and
-``shard_bf16_launches`` for K4 on a shard.
+apart (``reduced``), under the ``launches_by`` keys "bf16", "spill_bf16"
+on the spill rung, "local_bf16" for K4 on a chunk or a segment and
+"shard_bf16" for K4 on a shard.
 
 bf16 compute (``compile_chain_stream(compute_dtype="bfloat16")``, the
 reference's ``compute_dtype``; float32 programs): the wrapper casts the
@@ -221,12 +221,13 @@ first, a constant BC's fill is bf16; promotion.py ``bf16_join``).  A
 banded stage reads its bf16 operands through the split route's f32 band
 passes (a bf16 operand's TF32 lo part is 0: the three products are the
 reference's hi and lo band products to f32 rounding) and rounds its
-result.  Launches count in ``compute_bf16_launches``.  On the H100 it is
+result.  Launches count in ``launches_by["compute_bf16"]``.  On the H100 it is
 slower than f32 (every operation carries a rounding, and bf16 inputs load
 synchronously, not by ``cp.async``): PERF.md.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
@@ -249,29 +250,23 @@ from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      stacked_axes)
 from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
                     tile_candidates)
-from .stacked_io import (SPILL_BYTES_CAP, THREADS,
-                         accesses_with_center, bc_select,
-                         check_ring_storage, check_scope, or_mask,
-                         place_by_phase, resolve_device, round_bf16,
-                         rounded_rings, run_kernel, spanned_arrays)
+from .promotion import check_not_narrow
+from .stacked_io import (SPILL_BYTES_CAP, THREADS, accesses_with_center,
+                         bc_select, check_ring_storage, check_scope,
+                         launch_mode, or_mask, place_by_phase, resolve_device,
+                         round_bf16, rounded_rings, run_kernel, spanned_arrays)
 from .tile_eval import eval_kernel_statements
 
-# number of kernel launches (CUDA tensors only): the whole-domain stream
-# kernel (K3), the local chunk kernel (K4), either with spilled rings
-# (K3c), and K4 on one shard of a mesh (any plan in shard mode); a plan
-# under a reduced precision (bf16 rings, single-pass bf16 passes) counts
-# apart: whole-domain on chip, on the spill rung, K4 on a chunk and K4 on
-# a shard; every launch of a plan that computes in bf16 (compute_dtype)
-# counts in compute_bf16_launches
-launches = 0
-local_launches = 0
-spill_launches = 0
-shard_launches = 0
-bf16_launches = 0
-spill_bf16_launches = 0
-local_bf16_launches = 0
-shard_bf16_launches = 0
-compute_bf16_launches = 0
+# kernel launches (CUDA tensors only) by mode (``_mode``,
+# stacked_io.launch_mode): "exact" (the whole-domain stream kernel, K3),
+# "local" (the local chunk kernel, K4), "spill" (either with spilled
+# rings, K3c), "shard" (K4 on one shard of a mesh: any plan in shard
+# mode); each with "_bf16" under a reduced precision (bf16 rings,
+# single-pass bf16 passes: "bf16", "spill_bf16", "local_bf16",
+# "shard_bf16"); "compute_bf16" for every launch of a plan that computes
+# in bf16 (compute_dtype); "narrow" and "spill_narrow" for a program typed
+# bfloat16 or float16
+launches_by = collections.Counter()
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -1654,6 +1649,7 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
         raise ValueError(f"bad local block {block} / i-halo {halo_i}")
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
+    check_not_narrow(program, "the stream kernel's local mode (K4)")
     check_options(mxu, mxu_precision)
     check_spill(spill)
     check_passes(passes, mxu_precision)
@@ -1902,29 +1898,12 @@ def reduced(plan: StreamPlan) -> bool:
     return bool(plan.rounds or plan.rounds_out) or plan.bf16_passes
 
 
-def _count(plan: StreamPlan, launched: int) -> None:
-    global launches, local_launches, spill_launches, shard_launches
-    global bf16_launches, spill_bf16_launches, local_bf16_launches
-    global shard_bf16_launches, compute_bf16_launches
-    bf = reduced(plan)
-    if plan.compute_bf16:
-        compute_bf16_launches += launched
-    elif plan.shard[0] and bf:
-        shard_bf16_launches += launched
-    elif plan.shard[0]:
-        shard_launches += launched
-    elif plan.packed and bf:
-        spill_bf16_launches += launched
-    elif plan.packed:
-        spill_launches += launched
-    elif plan.block and bf:
-        local_bf16_launches += launched
-    elif plan.block:
-        local_launches += launched
-    elif bf:
-        bf16_launches += launched
-    else:
-        launches += launched
+def _mode(plan: StreamPlan) -> str:
+    """The key of ``plan``'s launches in ``launches_by``."""
+    place = ("shard" if plan.shard[0] else "spill" if plan.packed
+             else "local" if plan.block else "")
+    return launch_mode(plan.program, reduced(plan), place,
+                       plan.compute_bf16)
 
 
 def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
@@ -1943,7 +1922,7 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
         lambda: lib if lib is not None else build_stream(plan),
         lambda: stream_plain(plan, arrays),
         extra=lambda device: _pool_tensors(plan, device), io_dtype=io)
-    _count(plan, launched)
+    launches_by[_mode(plan)] += launched
     if io is not None:
         outs = {o: v.float() for o, v in outs.items()}
     return outs
@@ -1989,7 +1968,7 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
         extra=lambda device: _pool_tensors(plan, device, inst),
         in_dims=in_dims, out_dims=out_dims, origin_i=origin_i,
         origin_jk=(origin_j, origin_k) if plan.shard[0] else None, out=out)
-    _count(plan, launched)
+    launches_by[_mode(plan)] += launched
     return outs
 
 

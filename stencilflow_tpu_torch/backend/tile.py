@@ -63,6 +63,7 @@ tensors.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -80,12 +81,14 @@ from .dense import chain_halo
 from .fast_tile import evaluate_chain_fast, field_margins
 from .overlap import overlap_plain
 from .panel import PANEL_LANE_COST
-from .stacked_io import (THREADS, check_scope, gather_global,
+from .promotion import check_not_narrow
+from .stacked_io import (THREADS, check_scope, gather_global, launch_mode,
                          resolve_device, run_kernel, spanned_arrays)
 from .tile_eval import evaluate_chain_tile
 
-# number of kernel launches (CUDA tensors only)
-launches = 0
+# kernel launches (CUDA tensors only) by mode (stacked_io.launch_mode):
+# "exact" (the ladder refuses narrow programs here)
+launches_by = collections.Counter()
 
 Vec3 = Tuple[int, int, int]
 
@@ -214,6 +217,7 @@ def plan_tile(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     scope or no tile fits."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
+    check_not_narrow(program, "the overlapped-tile kernel (K6)")
     if mode not in ("masked", "fast"):
         raise ValueError(f"tile mode must be 'masked' or 'fast', got "
                          f"{mode!r}")
@@ -357,12 +361,11 @@ def run_tile(plan: TilePlan, arrays: Dict[str, torch.Tensor], lib=None):
     """The overlapped-tile kernel on ``arrays`` (spanned shapes, scalars
     0-d): one launch in either mode.  ``lib`` is the built kernel
     (``build_tile``); it is built on demand when omitted."""
-    global launches
     outs, launched = run_kernel(
         plan.program, arrays,
         lambda: lib if lib is not None else build_tile(plan),
         lambda: tile_plain(plan, arrays))
-    launches += launched
+    launches_by[launch_mode(plan.program)] += launched
     return outs
 
 

@@ -13,6 +13,11 @@ Every value travels with its numpy type (promotion.py), and each op
 casts its operands to the oracle's result dtype before computing, so
 results match the numpy oracle bit for bit wherever torch's elementwise
 ops are IEEE-exact (+ - * / sqrt, comparisons, selects, min/max, abs).
+The narrow floats need nothing more: torch's bfloat16 and float16 ops
+compute in float32 and round the result once, as numpy's float16 and
+ml_dtypes' bfloat16 do, and its conversions to bf16 pass through float32
+as ml_dtypes' do.  Only float64 -> float16 differs (numpy rounds once,
+torch through float32): ``to_dtype`` rounds to odd first.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..dtypes import to_numpy_dtype, to_torch_dtype
+from ..dtypes import is_narrow, scalar, to_numpy_dtype, to_torch_dtype
 from ..frontend.chain import ChainGraph
 from .promotion import (BF16, F32, bf16_join, bf16_value, const_dtype_of,
                         const_type, fill_value, is_bool, is_float, is_weak,
@@ -42,13 +47,30 @@ def device_const(value, tdt: torch.dtype, device) -> torch.Tensor:
     return torch.full((), host.item(), dtype=tdt, device=device)
 
 
+def to_dtype(t: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    """``t.to(tdt)``, with float64 -> float16 rounded once as numpy
+    rounds it: to float32 rounding to odd (the inexact low bit set),
+    then to float16 (float32 keeps more than 11 + 2 bits)."""
+    if t.dtype != torch.float64 or tdt != torch.float16:
+        return t if t.dtype == tdt else t.to(tdt)
+    f = t.to(torch.float32)
+    back = f.to(torch.float64)
+    inexact = (back != t) & (t == t)
+    bits = f.view(torch.int32)
+    bits = torch.where(inexact & (back.abs() > t.abs()), bits - 1, bits)
+    bits = torch.where(inexact, bits | 1, bits)
+    return bits.view(torch.float32).to(torch.float16)
+
+
 def as_type(value, ty_from, ty_to, device):
     """``value`` (a tensor, or a python number when ``ty_from`` is weak)
     converted to the strong numpy dtype ``ty_to`` as a tensor."""
     tdt = to_torch_dtype(ty_to)
+    if is_weak(ty_from) and is_narrow(ty_to):
+        value = scalar(value, ty_to)   # rounded as numpy rounds it
     if is_weak(ty_from) or not torch.is_tensor(value):
         return device_const(value, tdt, device)
-    return value if value.dtype == tdt else value.to(tdt)
+    return to_dtype(value, tdt)
 
 
 def _global_oob_mask(offsets: ir.Offsets, tile_shape: Sequence[int],
@@ -205,7 +227,7 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
     if isinstance(expr, ir.Select):
         c, ct = rec(expr.cond)
         (t, tt), (f, ft) = rec(expr.if_true), rec(expr.if_false)
-        ty = strong(result_type(tt, ft))
+        ty = strong(result_type(tt, ft, ufunc=False))
         c = cast(c, ct, ct if not is_weak(ct) else strong(ct))
         if c.dtype != torch.bool:
             c = c != 0
@@ -342,7 +364,7 @@ def eval_kernel_statements(kspec: ir.KernelSpec, read_fn, shape, device,
         val = _bf16_cast(val, ty, BF16, device).to(torch.float32)
         return _bf16_round(val, BF16).expand(tuple(shape))
     val = as_type(val, ty, strong(ty), device)
-    return val.to(to_torch_dtype(kspec.dtype)).expand(tuple(shape))
+    return to_dtype(val, to_torch_dtype(kspec.dtype)).expand(tuple(shape))
 
 
 def broadcast_input_tile(arr, dim_mask: Tuple[bool, bool, bool],

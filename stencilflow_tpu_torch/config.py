@@ -91,6 +91,12 @@ H100_F32_FLOPS = 67e12
 # instructions (probes/alu_ceiling.py on an NVIDIA H100 80GB HBM3,
 # 700.00 W).  The report divides counted ops by this rate.
 H100_ALU_OPS = H100_F32_FLOPS / 2
+# The data sheet's bf16 and fp16 rate outside the tensor cores (133.8e12
+# flop/s, an FMA counting two) is twice the FP32 rate: packed HADD2 /
+# HMUL2 and their bf16 forms do two ops a lane a cycle.  A native narrow
+# + - * / or sqrt rounds as "compute in f32, round once" does (24 >=
+# 2p + 2), so an op of a stage typed bfloat16 or float16 is priced here.
+H100_NARROW_ALU_OPS = 2 * H100_ALU_OPS
 # the data sheet's dense bf16 tensor-core rate (flops/s): the price of the
 # single-pass bf16 band passes (mxu_precision="bf16", report.py)
 H100_BF16_TENSOR_FLOPS = 989e12

@@ -6,7 +6,12 @@ lists, ``constant:<v>`` / ``random:<lo>,<hi>`` generators, and ``.csv`` /
 ``.dat`` files, plus the relative-tolerance comparison used for verification.
 
 Copied from ``stencilflow_tpu/data.py`` with no change of meaning: the
-port cannot import the JAX package, whose ``__init__`` imports jax.
+port cannot import the JAX package, whose ``__init__`` imports jax.  Values
+become an input's dtype through ``dtypes.cast``, so a bfloat16 input
+(``dtypes.BFLOAT16``, raw bit patterns) holds the values an ml_dtypes
+array would: numbers round to float32, then to bf16.  A bf16 ``.csv``
+parses as float64 first (numpy's ``genfromtxt`` cannot parse into a
+record type; the JAX package's loader raises TypeError there).
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from . import config
+from .dtypes import BFLOAT16, cast
 from .ir import InputSpec, Program
 
 
@@ -33,20 +39,24 @@ def load_array(spec: InputSpec, dimensions: Sequence[int],
             if m.group(1) == "constant":
                 val = float(m.group(2))
                 if spec.is_scalar:
-                    return dtype.type(val)
+                    return _scalar(val, dtype)
+                if dtype == BFLOAT16:
+                    return cast(np.full(shape, val), dtype)
                 return np.full(shape, val, dtype=dtype)
             lo, hi = (float(x) for x in m.group(2).split(","))
             rng = rng or np.random.default_rng(0)
             if spec.is_scalar:
-                return dtype.type(lo + (hi - lo) * rng.random())
-            return (lo + (hi - lo) * rng.random(shape)).astype(dtype)
+                return _scalar(lo + (hi - lo) * rng.random(), dtype)
+            return cast(lo + (hi - lo) * rng.random(shape), dtype)
         path = data
         if not os.path.isfile(path) and prefix is not None:
             path = os.path.join(prefix, data)
         if not os.path.isfile(path):
             raise FileNotFoundError(f"input file not found: {data}")
         if path.endswith(".csv"):
-            arr = np.genfromtxt(path, dtype, delimiter=",")
+            arr = cast(np.genfromtxt(
+                path, np.float64 if dtype == BFLOAT16 else dtype,
+                delimiter=","), dtype)
         elif path.endswith(".dat"):
             arr = np.fromfile(path, dtype)
         else:
@@ -56,9 +66,15 @@ def load_array(spec: InputSpec, dimensions: Sequence[int],
         # scalar fast paths engage)
         return arr.reshape(shape) if shape is not None else arr
     if spec.is_scalar:
-        return dtype.type(data)
-    arr = np.asarray(data, dtype=dtype)
+        return _scalar(data, dtype)
+    arr = cast(data, dtype) if dtype == BFLOAT16 else \
+        np.asarray(data, dtype=dtype)
     return arr.reshape(shape)
+
+
+def _scalar(value, dtype: np.dtype):
+    """A scalar input: a numpy scalar, or a 0-d BFLOAT16 array."""
+    return cast(value, dtype) if dtype == BFLOAT16 else dtype.type(value)
 
 
 def load_input_arrays(program: Program,
@@ -96,8 +112,8 @@ def arrays_are_equal(reference, result,
     which is sound for any sign (see tests/test_data.py negative-output
     regression).
     """
-    reference = np.asarray(reference, dtype=np.float64)
-    result = np.asarray(result, dtype=np.float64)
+    reference = cast(reference, np.float64)
+    result = cast(result, np.float64)
     if reference.shape != result.shape:
         return False
     denom = (np.maximum(np.abs(reference), np.abs(result))

@@ -364,10 +364,10 @@ def _pipeline(smi: str, reps: int) -> dict:
         del inputs
         placed = fn.place(dev_in)
         torch.cuda.synchronize()
-        st.local_launches = st.spill_launches = 0
+        st.launches_by["local"] = st.launches_by["spill"] = 0
         got = fn(placed)
         torch.cuda.synchronize()
-        launches = st.local_launches + st.spill_launches
+        launches = st.launches_by["local"] + st.launches_by["spill"]
         want = single(dev_in)
         o = p.outputs[0]
         equal = torch.equal(got[o].gather(cuda),
@@ -586,9 +586,10 @@ def _bf16(smi: str, reps: int) -> dict:
         del want, got
 
         def counted():
-            return {"panel": pn.bf16_launches, "group": gp.bf16_launches,
-                    "stream": st.bf16_launches + st.spill_bf16_launches}[
-                        bf16[2]]
+            return {"panel": pn.launches_by["bf16"],
+                    "group": gp.launches_by["bf16"],
+                    "stream": (st.launches_by["bf16"]
+                               + st.launches_by["spill_bf16"])}[bf16[2]]
         before = counted()
         sessions = []
         for _ in range(3):

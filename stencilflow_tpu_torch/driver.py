@@ -53,6 +53,7 @@ from .backend.tile import compile_chain_tile
 from .config import BF16_VERIFY_RTOL, MXU_VERIFY_RTOL, VERIFY_RTOL
 from .data import (arrays_are_equal, load_input_arrays, prune_halo,
                    save_output_arrays)
+from .dtypes import cast, to_numpy, to_torch
 from .frontend.analysis import ChainAnalysis
 from .frontend.parser import parse_program
 from .interpreter import run_interpreter
@@ -118,9 +119,9 @@ def _compile(program, analysis, backend: str, device, mxu, mxu_precision,
         return compile_chain(program, analysis), "dense"
     if backend == "interpreter":
         def oracle(xs):
-            host = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+            host = {k: to_numpy(v) if torch.is_tensor(v) else v
                     for k, v in xs.items()}
-            return {k: torch.as_tensor(np.asarray(v)) for k, v in
+            return {k: to_torch(v) for k, v in
                     run_interpreter(program, host).items()}
         return oracle, "interpreter"
     raise ValueError(f"unknown backend: {backend} (choose from {BACKENDS})")
@@ -260,7 +261,7 @@ def run_program(stencil_file, device="cuda",
                                           device, mxu, mxu_precision, spill,
                                           ring_storage)
             banded = bool(getattr(fn, "last_config", {}).get("mxu_stages"))
-            dev_inputs = {k: (torch.as_tensor(np.asarray(v)).to(device)
+            dev_inputs = {k: (to_torch(v, device)
                               if not program.inputs[k].is_scalar else v)
                           for k, v in inputs.items()}
         fn(dev_inputs)   # warm-up: first-call work stays out of the timing
@@ -293,7 +294,7 @@ def run_program(stencil_file, device="cuda",
             _write_profile(prof, profile_dir, result.wall_time_s * reps,
                            cuda)
         result.outputs = {k: v if isinstance(v, np.ndarray)
-                          else v.cpu().numpy() for k, v in out.items()}
+                          else to_numpy(v) for k, v in out.items()}
 
     if save_results and result.outputs:
         result.results_dir = os.path.join(results_base, program.name)
@@ -320,8 +321,8 @@ def run_program(stencil_file, device="cuda",
             exp = prune_halo(np.asarray(expected[o]), raw, halo)
             if not arrays_are_equal(exp, got, rtol):
                 ok = False
-                diff = np.max(np.abs(exp.astype(np.float64) -
-                                     got.astype(np.float64)))
+                diff = np.max(np.abs(cast(exp, np.float64) -
+                                     cast(got, np.float64)))
                 msg = (f"{kind} mismatch on output '{o}' "
                        f"(max abs diff {diff:.3e}, halo={halo})")
                 if raise_on_mismatch:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import ir
+from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
 from .dtypes import is_floating
 from .frontend.analysis import ChainAnalysis
@@ -77,6 +78,7 @@ def value_and_grad(program: ir.Program,
     tile body on the mesh (``device`` unused); the decomposition plan is
     ``f.plan``.
     """
+    check_not_narrow(program, "grad")
     plan = None
     if mesh is not None:
         if dim_axes is None:
@@ -184,6 +186,7 @@ def fast_value_and_grad(program: ir.Program,
     forward's decomposition and ``f.lowering`` names
     ``sharded[<local body>]`` for each pass.
     """
+    check_not_narrow(program, "grad")
     wrt = list(_default_wrt(program) if wrt is None else wrt)
     loss = loss or _sum_loss
     adj, cot = adjoint_program(program, wrt)

@@ -14,6 +14,13 @@ This is the port's copy of ``stencilflow_tpu/interpreter.py`` in its numpy
 mode only (bit-exact CPU oracle, float64 capable): the jax.numpy mode and its
 narrow-float rounding hooks are dropped, the mixed int x float promotion
 (``_match_mixed``) and the float-constant pinning are kept unchanged.
+
+float16 is numpy's own: each op computes in float32 and rounds to float16.
+bfloat16 is not (``dtypes.BFLOAT16`` only carries bits), so a bf16 value
+is evaluated as ``_Bf16``, the float32 values it holds, and each site that
+meets one takes its type from the lattice ml_dtypes gives the JAX
+package's oracle (``promotion.result_type``): a bf16 result computes in
+float32 and rounds to bf16, once, as an ml_dtypes ufunc does.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from . import ir
+from .backend.promotion import result_type, weak
 from .config import JUNK_VAL
+from .dtypes import BFLOAT16, cast, round_bf16, to_float32
 from .frontend.chain import ChainGraph
 
 _BINOPS = {
@@ -74,6 +83,51 @@ def _match_mixed(a, b):
     if fb and not fa and da.kind in "iub":
         return a.astype(db), b
     return a, b
+
+
+class _Bf16:
+    """A bfloat16 value under evaluation: the float32 values it holds."""
+    __slots__ = ("v",)
+
+    def __init__(self, v):
+        self.v = v
+
+
+def _type_of(x):
+    """An operand's type in promotion.py's lattice."""
+    if isinstance(x, _Bf16):
+        return BFLOAT16
+    if isinstance(x, (bool, np.bool_)):
+        return np.dtype(np.bool_)
+    if isinstance(x, (int, float)):
+        return weak(x)
+    return np.dtype(x.dtype)
+
+
+def _as(x, ty):
+    """Operand ``x`` as numpy values of type ``ty`` (bf16: float32)."""
+    if isinstance(x, _Bf16):
+        return x.v if ty == BFLOAT16 else x.v.astype(ty)
+    if ty == BFLOAT16:
+        return round_bf16(x)
+    return np.asarray(x).astype(ty)
+
+
+def _bf16_site(fn, a, b, rounds: bool = True):
+    """``fn(a, b)`` where an operand is bf16: both as the site's type,
+    then a bf16 result rounded and wrapped; a comparison (``rounds``
+    False) gives its bools."""
+    ty = result_type(_type_of(a), _type_of(b))
+    r = fn(_as(a, ty), _as(b, ty))
+    if ty != BFLOAT16 or not rounds:
+        return r
+    return _Bf16(round_bf16(r))
+
+
+def _binary(fn, a, b, rounds: bool = True):
+    if isinstance(a, _Bf16) or isinstance(b, _Bf16):
+        return _bf16_site(fn, a, b, rounds=rounds)
+    return fn(*_match_mixed(a, b))
 
 
 def _broadcast_to_domain(xp, arr, dim_mask, dimensions):
@@ -161,40 +215,58 @@ class ChainInterpreter:
             # bits as a weak const in uniform kernels and oracle-exact
             # promotion in mixed ones.
             if isinstance(expr.value, float) and self._kdtype is not None:
+                if self._kdtype == BFLOAT16:
+                    return _Bf16(round_bf16(np.float64(expr.value)))
                 return self._kdtype.type(expr.value)
             return expr.value
         if isinstance(expr, ir.Ref):
             return env[expr.name]
         if isinstance(expr, ir.Access):
             arr3 = fields[expr.field]
+            if isinstance(arr3, _Bf16):   # the fill rounds to bf16
+                return _Bf16(round_bf16(read_access(
+                    xp, arr3.v, expr.offsets, bcs.get(expr.field),
+                    self.program.dimensions)))
             return read_access(xp, arr3, expr.offsets, bcs.get(expr.field),
                                self.program.dimensions)
         if isinstance(expr, ir.BinOp):
-            return (_BINOPS[expr.op](*_match_mixed(
-                self._eval(expr.left, fields, env, bcs),
-                self._eval(expr.right, fields, env, bcs))))
+            return _binary(_BINOPS[expr.op],
+                           self._eval(expr.left, fields, env, bcs),
+                           self._eval(expr.right, fields, env, bcs))
         if isinstance(expr, ir.UnaryOp):
-            return -self._eval(expr.operand, fields, env, bcs)
+            v = self._eval(expr.operand, fields, env, bcs)
+            return _Bf16(-v.v) if isinstance(v, _Bf16) else -v
         if isinstance(expr, ir.Compare):
-            return _CMPOPS[expr.op](*_match_mixed(
-                self._eval(expr.left, fields, env, bcs),
-                self._eval(expr.right, fields, env, bcs)))
+            return _binary(_CMPOPS[expr.op],
+                           self._eval(expr.left, fields, env, bcs),
+                           self._eval(expr.right, fields, env, bcs),
+                           rounds=False)
         if isinstance(expr, ir.BoolOp):
             vals = [self._eval(o, fields, env, bcs) for o in expr.operands]
+            if any(isinstance(v, _Bf16) for v in vals):
+                raise TypeError("bitwise and/or is not defined on bfloat16")
             acc = vals[0]
             for v in vals[1:]:
                 acc = (acc & v) if expr.op == "and" else (acc | v)
             return acc
         if isinstance(expr, ir.Select):
-            t, f = _match_mixed(
-                self._eval(expr.if_true, fields, env, bcs),
-                self._eval(expr.if_false, fields, env, bcs))
-            return (xp.where(
-                self._eval(expr.cond, fields, env, bcs), t, f))
+            t = self._eval(expr.if_true, fields, env, bcs)
+            f = self._eval(expr.if_false, fields, env, bcs)
+            cond = self._eval(expr.cond, fields, env, bcs)
+            if isinstance(cond, _Bf16):
+                cond = cond.v != 0
+            if isinstance(t, _Bf16) or isinstance(f, _Bf16):
+                ty = result_type(_type_of(t), _type_of(f), ufunc=False)
+                r = xp.where(cond, _as(t, ty), _as(f, ty))
+                return _Bf16(r) if ty == BFLOAT16 else r
+            t, f = _match_mixed(t, f)
+            return (xp.where(cond, t, f))
         if isinstance(expr, ir.Call):
             args = [self._eval(a, fields, env, bcs) for a in expr.args]
             if len(args) == 2:   # min/max: binary ufunc-shaped sites
-                args = _match_mixed(*args)
+                return _binary(self.calls[expr.fn], *args)
+            if isinstance(args[0], _Bf16):   # in float32, rounded once
+                return _Bf16(round_bf16(self.calls[expr.fn](args[0].v)))
             return (self.calls[expr.fn](*args))
         raise TypeError(f"unknown expression node {type(expr)}")
 
@@ -217,10 +289,17 @@ class ChainInterpreter:
             env[stmt.lhs] = self._eval(stmt.rhs, fields, env,
                                        kspec.boundary_conditions)
         result = env[kspec.output_statement.lhs]
+        if isinstance(result, _Bf16):
+            result = result.v
+            if dt == BFLOAT16:   # already rounded: stays as it is
+                return _Bf16(np.broadcast_to(
+                    result, tuple(self.program.dimensions)))
         result = self.xp.asarray(result)
         if result.shape != tuple(self.program.dimensions):
             result = self.xp.broadcast_to(result,
                                           tuple(self.program.dimensions))
+        if dt == BFLOAT16:
+            return _Bf16(round_bf16(result))
         return result.astype(kspec.dtype)
 
     def __call__(self, inputs: Dict[str, Any],
@@ -229,20 +308,28 @@ class ChainInterpreter:
         xp = self.xp
         fields: Dict[str, Any] = {}
         for iname, spec in self.program.inputs.items():
+            value = inputs[iname]
+            if np.dtype(spec.dtype) == BFLOAT16:
+                value = to_float32(cast(value, BFLOAT16))
             if spec.is_scalar:
-                fields[iname] = xp.asarray(inputs[iname])
+                fields[iname] = xp.asarray(value)
             else:
                 fields[iname] = _broadcast_to_domain(
-                    xp, inputs[iname], spec.dim_mask,
-                    self.program.dimensions)
+                    xp, value, spec.dim_mask, self.program.dimensions)
+            if np.dtype(spec.dtype) == BFLOAT16:
+                fields[iname] = _Bf16(fields[iname])
         for kname in self.graph.kernel_order:
             fields[kname] = self.eval_kernel(kname, fields)
+
+        def out(k, shape=None):   # bf16 back to its bits
+            v = fields[k]
+            if isinstance(v, _Bf16):
+                v = cast(v.v, BFLOAT16)
+            return v if shape is None else v.reshape(shape)
         if keep_intermediates:
-            return {k: fields[k] for k in self.program.kernels}
+            return {k: out(k) for k in self.program.kernels}
         raw = self.program.raw_dimensions
-        return {
-            out: fields[out].reshape(raw) for out in self.program.outputs
-        }
+        return {o: out(o, raw) for o in self.program.outputs}
 
 
 def run_interpreter(program: ir.Program,

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from . import ir
+from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
 from .frontend.analysis import ChainAnalysis
 
@@ -192,6 +193,7 @@ def make_step(program: ir.Program,
     ``mesh`` (with ``dim_axes``) builds a sharded step on the mesh's
     devices (``device`` is then unused): state arrays are ShardedArrays
     and the step's lowering is ``sharded[<local body>]``."""
+    check_not_narrow(program, "iterate")
     feed = feed or _default_feed(program)
     _check_feed(program, feed)
     if ring_storage != "off" and backend != "stream":

@@ -46,6 +46,7 @@ import torch
 
 from . import ir
 from .backend.dense import chain_halo
+from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
 from .backend.tile_eval import evaluate_chain_tile
 from .dtypes import to_torch_dtype
@@ -95,6 +96,7 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     alone: "auto" then takes the stream body on the CPU too, and where
     the dense body would run it raises ValueError (the JAX package's XLA
     body runs f32 there)."""
+    check_not_narrow(program, "--host-chunks (the out-of-core chunk kernel)")
     analysis = analysis or ChainAnalysis.run(program)
     dims = program.dimensions
     I, J, K = dims
@@ -171,6 +173,7 @@ def compile_chunked_sharded(program: ir.Program, chunks: int, mesh,
     ``chunk_fn(origin_i, tiles) -> outputs`` contract: tiles and outputs
     are GLOBAL (j, k) extents, on the host; the chunk function places the
     tiles over the mesh and gathers the outputs."""
+    check_not_narrow(program, "--host-chunks on a mesh")
     from .parallel.mesh import ShardedArray
     from .parallel.pipeline import _gather_axis_halo
 

@@ -58,6 +58,7 @@ import torch
 
 from .. import ir
 from ..backend.dense import chain_halo
+from ..backend.promotion import check_not_narrow
 from ..backend.tile_eval import evaluate_chain_tile
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
@@ -667,6 +668,7 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
     (two strip K4s a shard, or the tile body's strips).  ``fn.plan`` is
     then the (interior, strip) pair of K4 plans, and ``fn`` has no
     ``compute`` half."""
+    check_not_narrow(program, "run-distributed (the sharded engine)")
     program, analysis, plan, splan, cfg = _plan_sharded_chain(
         program, mesh, dim_axes, analysis, local_backend, mxu,
         mxu_precision, spill, smem_budget, compose, ring_storage,

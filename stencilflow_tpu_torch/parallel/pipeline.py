@@ -53,6 +53,7 @@ import torch
 
 from .. import ir
 from ..backend.dense import chain_halo
+from ..backend.promotion import check_not_narrow
 from ..backend.tile_eval import evaluate_chain_tile
 from ..dtypes import to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
@@ -812,6 +813,7 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     CPU positions too, its plain version); where the dense tile body
     would run it raises ValueError (the JAX package's runs f32 there).
     """
+    check_not_narrow(program, "run-distributed (the pipeline split)")
     from .domain import check_dense_precision, reduced_precision
     analysis = analysis or ChainAnalysis.run(program)
     if axis not in mesh.shape:

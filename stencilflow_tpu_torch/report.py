@@ -14,10 +14,13 @@ they are divided by:
   add-equivalents) over the data sheet's single-instruction FP32 rate,
   33.5e12 op/s (``alu_time_s``; ``as_dict``'s ``vpu_time_s``): the port
   builds every kernel with ``-fmad=false``, where each counted add and
-  multiply is one instruction; and the executed ops (those of the faster
-  strategy) over P1's measured issue rate (``vs_alu_issue``) and
-  shared-memory pass rate (``vs_smem_pass``, the reachable rate of
-  kernels that store every stage to shared memory);
+  multiply is one instruction; the ops of a stage typed bfloat16 or
+  float16 (or of any stage under ``compute_dtype="bfloat16"``) at twice
+  that, the packed narrow rate (``config.H100_NARROW_ALU_OPS``); and the
+  executed ops (those of the faster strategy) over P1's measured issue
+  rate (``vs_alu_issue``) and shared-memory pass rate (``vs_smem_pass``,
+  the reachable rate of kernels that store every stage to shared
+  memory);
 * **band transforms** (``mxu_model``): the stream kernel's banded stages
   (K3b) as executed multiply-add sums on the CUDA cores, two
   instructions per band diagonal and plane cell
@@ -39,7 +42,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from . import config
-from .frontend.analysis import ChainAnalysis
+from .dtypes import dtype_to_str, is_narrow
+from .frontend.analysis import ChainAnalysis, operation_count
 from .ir import Program
 
 # per-op cost in add-equivalents, measured by P1 on the card
@@ -47,10 +51,17 @@ from .ir import Program
 _OP_COST = config.H100_OP_COST
 
 
+def _stage_ops(kspec) -> float:
+    """Weighted ops a cell of one stage."""
+    return sum(c * _OP_COST.get(op, 1)
+               for op, c in operation_count(kspec).items())
+
+
 @dataclasses.dataclass
 class HardwareModel:
     hbm_bandwidth: float = config.H100_HBM_BANDWIDTH
     alu_ops: float = config.H100_ALU_OPS
+    narrow_alu_ops: float = config.H100_NARROW_ALU_OPS
     hbm_bytes: int = config.H100_HBM_BYTES
     copy_floor: float = config.H100_COPY_FLOOR
     alu_issue_rate: float = config.H100_ALU_ISSUE_RATE
@@ -131,18 +142,36 @@ class Report:
             vol = vol / 2
         return vol / self.hw.hbm_bandwidth
 
-    def alu_time_s(self) -> float:
-        """Counted ops at the data sheet's single-instruction FP32 rate."""
-        return self.total_ops() / self.hw.alu_ops
+    def narrow_ops_per_cell(self, compute_dtype=None) -> float:
+        """The weighted ops a cell of the stages whose ops round to 2
+        bytes: those typed bfloat16 or float16, or every stage under
+        ``compute_dtype="bfloat16"``."""
+        if compute_dtype == "bfloat16":
+            return self.ops_per_cell()
+        return sum(_stage_ops(k) for k in self.program.kernels.values()
+                   if is_narrow(k.dtype))
 
-    def _compute(self, mxu_precision: str = "split"
+    def _alu_seconds(self, ops_per_cell: float, narrow: float) -> float:
+        """``ops_per_cell`` weighted ops a cell over the domain, the
+        ``narrow`` share of them at the packed narrow rate, the rest at
+        the single-instruction FP32 rate."""
+        n = self.program.total_elements
+        return ((ops_per_cell - narrow) * n / self.hw.alu_ops
+                + narrow * n / self.hw.narrow_alu_ops)
+
+    def alu_time_s(self, compute_dtype=None) -> float:
+        """Counted ops, a narrow stage's at the packed narrow rate."""
+        return self._alu_seconds(self.ops_per_cell(),
+                                 self.narrow_ops_per_cell(compute_dtype))
+
+    def _compute(self, mxu_precision: str = "split", compute_dtype=None
                  ) -> Tuple[float, float, str]:
         """(seconds, executed ops, kind) of the faster compute strategy:
         "alu", every stage per cell, or "mxu", the band transforms' flops
         plus the other stages' ops (the JAX package's name for it), the
         transforms as single-pass bf16 products at the bf16 tensor rate
         under ``mxu_precision="bf16"``."""
-        per_cell = (self.alu_time_s(), self.total_ops(), "alu")
+        per_cell = (self.alu_time_s(compute_dtype), self.total_ops(), "alu")
         m = self.mxu_model()
         if m is None:
             return per_cell
@@ -218,7 +247,7 @@ class Report:
         pkeys, parrs, tkeys = finalize_pool(plans, pool, p)
         fpc = mxu_flops_per_cell(dict(zip(pkeys, parrs)), tkeys)
         fpc_bf16 = mxu_bf16_flops_per_cell(dict(zip(pkeys, parrs)), tkeys)
-        vpu_rest = 0.0
+        vpu_rest = vpu_rest_narrow = 0.0
         for kname, kspec in p.kernels.items():
             if kname in plans:
                 mp = plans[kname]
@@ -233,6 +262,8 @@ class Report:
                 continue
             for op, c in operation_count(kspec).items():
                 vpu_rest += c * _OP_COST.get(op, 1)
+            if is_narrow(kspec.dtype):   # banded stages are float32
+                vpu_rest_narrow += _stage_ops(kspec)
         n = p.total_elements
         self._mxu_model = {
             "stages": sorted(plans),
@@ -243,7 +274,7 @@ class Report:
             "mxu_flops_per_cell_bf16": fpc_bf16,
             "mxu_time_s_bf16": fpc_bf16 * n / self.hw.bf16_tensor_flops,
             "vpu_rest_ops_per_cell": vpu_rest,
-            "vpu_rest_time_s": vpu_rest * n / self.hw.alu_ops,
+            "vpu_rest_time_s": self._alu_seconds(vpu_rest, vpu_rest_narrow),
         }
         return self._mxu_model
 
@@ -251,17 +282,17 @@ class Report:
                         compute_dtype=None) -> float:
         """Runtime lower bound: the memory floor (``hbm_time_s``, at 2
         bytes a cell under ``compute_dtype="bfloat16"``) against the
-        faster of the two compute strategies — every stage per cell at
-        the FP32 rate, or band transforms for the eligible stages
-        (single-pass bf16 under ``mxu_precision="bf16"``) plus per-cell
-        ops for the rest."""
+        faster of the two compute strategies — every stage per cell (a
+        narrow stage's ops at the packed rate), or band transforms for
+        the eligible stages (single-pass bf16 under
+        ``mxu_precision="bf16"``) plus per-cell ops for the rest."""
         return max(self.hbm_time_s(compute_dtype),
-                   self._compute(mxu_precision)[0], 1e-12)
+                   self._compute(mxu_precision, compute_dtype)[0], 1e-12)
 
     def bound(self, mxu_precision: str = "split", compute_dtype=None) -> str:
         """"hbm", "alu" (per-cell ops) or "mxu" (band transforms, the JAX
         package's name for that strategy)."""
-        compute, _, kind = self._compute(mxu_precision)
+        compute, _, kind = self._compute(mxu_precision, compute_dtype)
         return kind if compute > self.hbm_time_s(compute_dtype) else "hbm"
 
     def roofline_gcell_s(self, mxu_precision: str = "split",
@@ -326,7 +357,7 @@ class Report:
             lines.append(
                 f"  {src} -> {dst}: delay={eb.delay_size} "
                 f"internal={eb.internal_size} "
-                f"({eb.total_bytes()} B {np.dtype(eb.dtype).name})")
+                f"({eb.total_bytes()} B {dtype_to_str(eb.dtype)})")
         lines.append(f"critical path: {a.critical_path_cycles} cycles")
         halos = a.input_halo()
         lines.append(f"fused-tile input halos: {halos}")

@@ -23,7 +23,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from .. import ir
+from ..backend.promotion import result_type, weak
 from ..config import JUNK_VAL
+from ..dtypes import BFLOAT16, cast, round_bf16, to_float32
 from ..frontend.analysis import ChainAnalysis, flatten_index
 
 
@@ -105,6 +107,77 @@ def edge_capacities(program, analysis, windows=None, slack: int = 0
 # ---------------------------------------------------------------------------
 # Kernel compilation: IR -> python closure
 # ---------------------------------------------------------------------------
+
+class Bf16Scalar:
+    """A bfloat16 scalar of this machine (the port has no ml_dtypes): the
+    float32 value it holds.  Its sites take the oracle's lattice
+    (promotion.result_type, as interpreter.py's bf16 values do): a bf16
+    result computes in float32 and rounds once; numpy's ufuncs reach the
+    one-argument functions through the methods of their names."""
+    __slots__ = ("v",)
+    dtype = BFLOAT16
+
+    def __init__(self, x):
+        self.v = x.v if isinstance(x, Bf16Scalar) else \
+            round_bf16(np.float64(x) if isinstance(x, (int, float))
+                       else x)[()]
+
+    def __float__(self):
+        return float(self.v)
+
+    def __int__(self):
+        return int(self.v)
+
+    def __bool__(self):
+        return bool(self.v != 0)
+
+    def __neg__(self):
+        return Bf16Scalar(-self.v)
+
+    def __abs__(self):
+        return Bf16Scalar(abs(self.v))
+
+    def _fn(name):
+        def fn(self):
+            return Bf16Scalar(getattr(np, name)(self.v))
+        fn.__name__ = name
+        return fn
+
+    sin, cos, tan = _fn("sin"), _fn("cos"), _fn("tan")
+    sinh, cosh, tanh = _fn("sinh"), _fn("cosh"), _fn("tanh")
+    sqrt, exp, log = _fn("sqrt"), _fn("exp"), _fn("log")
+    del _fn
+
+
+def _lattice_type(x):
+    if isinstance(x, Bf16Scalar):
+        return BFLOAT16
+    if isinstance(x, (bool, np.bool_)):
+        return np.dtype(np.bool_)
+    if isinstance(x, (int, float)):
+        return weak(x)
+    return np.dtype(x.dtype)
+
+
+def _bf16_site(op, a, b, ufunc: bool = True):
+    """``op(a, b)`` where an operand is a Bf16Scalar."""
+    ty = result_type(_lattice_type(a), _lattice_type(b), ufunc=ufunc)
+
+    def conv(x):
+        if ty == BFLOAT16:
+            return Bf16Scalar(x).v
+        return np.dtype(ty).type(x.v if isinstance(x, Bf16Scalar) else x)
+    r = op(conv(a), conv(b))
+    if ty == BFLOAT16 and not isinstance(r, np.bool_):
+        return Bf16Scalar(r)
+    return r
+
+
+def scalar_type(dtype):
+    """The scalar constructor of ``dtype`` in this machine."""
+    dtype = np.dtype(dtype)
+    return Bf16Scalar if dtype == BFLOAT16 else dtype.type
+
 
 # numpy scalar functions, NOT math.*: the oracle (interpreter.py) computes
 # with numpy, where sqrt(-1) is NaN and exp overflow is inf — math.sqrt
@@ -207,9 +280,9 @@ def compile_kernel_fn(kspec: ir.KernelSpec,
             if da is not None and db is not None:
                 fa, fb = _isf(da), _isf(db)
                 if fa and not fb and np.dtype(db).kind in "iub":
-                    cast = (1, np.dtype(da).type)
+                    cast = (1, scalar_type(da))
                 elif fb and not fa and np.dtype(da).kind in "iub":
-                    cast = (0, np.dtype(db).type)
+                    cast = (0, scalar_type(db))
             _mx_memo[key] = cast
         if cast is None:
             return a, b
@@ -219,6 +292,8 @@ def compile_kernel_fn(kspec: ir.KernelSpec,
     def _mk_bin(op):
         def f(a, b, op=op):
             a, b = _mx(a, b)
+            if isinstance(a, Bf16Scalar) or isinstance(b, Bf16Scalar):
+                return _bf16_site(op, a, b)
             return op(a, b)
         return f
 
@@ -231,6 +306,9 @@ def compile_kernel_fn(kspec: ir.KernelSpec,
         # Only python ints need the astype detour; everything else takes
         # the cheap scalar constructor (this runs per element).
         a, b = _mx(a, b)
+        if isinstance(a, Bf16Scalar) or isinstance(b, Bf16Scalar):
+            return _bf16_site(lambda x, y: x if c else y, a, b,
+                              ufunc=False)
         key = (type(a), type(b))
         r = _rt_memo.get(key)
         if r is None:
@@ -245,7 +323,7 @@ def compile_kernel_fn(kspec: ir.KernelSpec,
         # float consts pin to the kernel dtype (floating kernels) or
         # float32 (non-floating — the framework's defined semantics;
         # see interpreter.eval_kernel)
-        "_dt": dt.type if is_floating(dt) else np.float32,
+        "_dt": scalar_type(dt) if is_floating(dt) else np.float32,
         "_sel": _sel,
         "_b_add": _mk_bin(_op.add), "_b_sub": _mk_bin(_op.sub),
         "_b_mult": _mk_bin(_op.mul), "_b_div": _mk_bin(_op.truediv),
@@ -389,9 +467,9 @@ class Simulator:
             plans: List[_AccessPlan] = []
             for field, offs in acc_map.items():
                 if field in program.inputs:
-                    sdt = np.dtype(program.inputs[field].dtype).type
+                    sdt = scalar_type(program.inputs[field].dtype)
                 else:
-                    sdt = np.dtype(program.kernels[field].dtype).type
+                    sdt = scalar_type(program.kernels[field].dtype)
                 for o in offs:
                     access_ids[(field, o)] = len(plans)
                     plans.append(_AccessPlan(
@@ -406,7 +484,7 @@ class Simulator:
                 out_edges=[],
                 latency=analysis.kernel_latencies[kname],
                 bcs=kspec.boundary_conditions,
-                dtype=np.dtype(kspec.dtype).type,
+                dtype=scalar_type(kspec.dtype),
                 pace=self._pace[kname],
             )
             for f in acc_map:
@@ -499,6 +577,11 @@ class Simulator:
         input_sent: Dict[Tuple[str, str], int] = {}
         for name, spec in program.inputs.items():
             arr = np.asarray(inputs[name])
+            if np.dtype(spec.dtype) == BFLOAT16:   # its float32 values
+                arr = to_float32(cast(arr, BFLOAT16))
+                if spec.is_scalar:
+                    self.scalars[name] = Bf16Scalar(arr.reshape(())[()])
+                    continue
             if spec.is_scalar:
                 # keep the typed numpy scalar: a python-float detour was
                 # the machine's 2^53 envelope on int64 SCALARS (access
@@ -515,7 +598,10 @@ class Simulator:
             for dst in self.graph.consumers(name):
                 input_sent[(name, dst)] = 0
 
-        out_arrays = {o: np.zeros(N, dtype=program.kernels[o].dtype)
+        # a bf16 output collects its float32 values, cast at the end
+        out_arrays = {o: np.zeros(N, dtype=np.float32 if np.dtype(
+                          program.kernels[o].dtype) == BFLOAT16 else
+                          program.kernels[o].dtype)
                       for o in program.outputs}
         out_pc = {o: 0 for o in program.outputs}
 
@@ -616,7 +702,8 @@ class Simulator:
                 raise DeadlockError(self.diagnostics(cycle, out_pc))
 
         outputs = {
-            o: out_arrays[o].reshape(program.raw_dimensions)
+            o: cast(out_arrays[o], program.kernels[o].dtype).reshape(
+                program.raw_dimensions)
             for o in program.outputs
         }
         stats = {

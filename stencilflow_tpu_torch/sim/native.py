@@ -22,8 +22,9 @@ python-int constants — see ``_expr_cpp_typed``).  FIFO transport is
 TYPED per edge by the producer's dtype: int64 edges carry long long and
 int64 scalar inputs cross the ABI bit-for-bit (bit-exact at any
 magnitude); everything else embeds exactly in double.  The bfloat16
-branches are kept as in the original (the port's parser refuses
-bfloat16 today), so the generated text stays the original's.
+branches are the original's, so the generated text stays the original's;
+the port's bfloat16 (``dtypes.BFLOAT16``) crosses the ABI as its float32
+values (``dtypes.cast``).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from .. import ir
 from ..backend.codegen import _host_cast_sentinels
 from ..backend.codegen import _i64 as _cpp_i64
 from ..config import JUNK_VAL
-from ..dtypes import is_floating
+from ..dtypes import BFLOAT16, cast, is_floating
 from ..frontend.analysis import ChainAnalysis, flatten_index
 from .machine import (SimResult, SimulationError, access_windows,
                       edge_capacities, fire_schedule)
@@ -97,7 +98,7 @@ def _round_mode(dtype) -> str:
         return "f32"
     if dt == np.float16:
         return "f16"
-    if dt.name == "bfloat16":
+    if dt == BFLOAT16:
         return "bf16"
     raise NativeBuildError(
         f"native simulator: no rounding mode for dtype {dt.name}")
@@ -716,7 +717,7 @@ static inline bool oob(long long flat, int oi, int oj, int ok,
             # f32) — mixed-dtype kernels touching bf16 take the Python
             # machine, whose numpy scalars reproduce whatever the oracle
             # does; uniform bf16 kernels keep the fast path above
-            if any(dt.name == "bfloat16" for dt in acc_tys + [kdt]):
+            if any(dt == BFLOAT16 for dt in acc_tys + [kdt]):
                 raise NativeBuildError(
                     "mixed-dtype kernel involving bfloat16: scalar "
                     "promotion is not well-defined in numpy/ml_dtypes; "
@@ -926,7 +927,7 @@ class NativeSimulator:
             # everything else embeds exactly in double
             mdt = (np.int64 if np.dtype(spec.dtype) == np.int64
                    else np.float64)
-            a = np.asarray(inputs[name]).astype(spec.dtype).astype(mdt)
+            a = cast(cast(inputs[name], spec.dtype), mdt)
             shape = tuple(d if m else 1
                           for d, m in zip(dims, spec.dim_mask))
             full = np.ascontiguousarray(
@@ -937,7 +938,9 @@ class NativeSimulator:
             spec = program.inputs[n]
             # reshape(()): a shape-(1,) scalar reads as its 0-d value,
             # as in machine.py
-            v = np.asarray(inputs[n]).astype(spec.dtype).reshape(())
+            v = cast(inputs[n], spec.dtype).reshape(())
+            if np.dtype(spec.dtype) == BFLOAT16:
+                v = cast(v, np.float32)
             if np.dtype(spec.dtype) == np.int64:
                 # bit-for-bit through the double* ABI; the generated
                 # core reads this slot back as long long
@@ -987,7 +990,7 @@ class NativeSimulator:
             }
         outputs = {}
         for o, buf in zip(program.outputs, outs):
-            outputs[o] = buf.astype(program.kernels[o].dtype).reshape(
+            outputs[o] = cast(buf, program.kernels[o].dtype).reshape(
                 program.raw_dimensions)
         return SimResult(outputs=outputs, cycles=cycles,
                          edge_high_water=high, kernel_stats=kstats,

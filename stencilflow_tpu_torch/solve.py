@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import ir
+from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
 from .dtypes import to_torch_dtype
 
@@ -218,6 +219,7 @@ def make_solver(program: ir.Program,
     ``solver.lowering`` the operators' lowerings.  Compilation happens
     once here: reuse the solver across time steps.
     """
+    check_not_narrow(program, "solve")
     host = bool(host_chunks and host_chunks > 1)
     device = resolve_device(device)
     field = field or next(iter(program.inputs))

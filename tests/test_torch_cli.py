@@ -664,14 +664,24 @@ def test_route_source_rungs_off_the_small_ladder(monkeypatch, route, shape,
 def test_compile_refuses_dense_and_missing_nvcc(tmp_path, monkeypatch,
                                                 capsys):
     monkeypatch.chdir(tmp_path)
+    # no array input: the kernels refuse it, so it routes to dense (a
+    # float16 program lowers onto a kernel now)
+    with open("scalar.json", "w") as f:
+        json.dump({"inputs": {"sc": {"data": 1.5, "data_type": "float32",
+                                     "input_dims": []}},
+                   "outputs": ["b"], "dimensions": [4, 5, 6],
+                   "program": {"b": {"computation_string": "b = sc * 2.0",
+                                     "data_type": "float32"}}}, f)
+    for extra in ([], ["--emulation"]):
+        assert main(["compile", "scalar.json"] + extra) == 2
+        err = capsys.readouterr().err
+        assert err.startswith("error: ") and "routes to dense" in err
     with open("f16.json", "w") as f:
         json.dump(synthesize_stencil(num_stages=2, dimensions=(8, 8, 8),
                                      shape="diffusion",
                                      data_type="float16"), f)
-    for extra in ([], ["--emulation"]):
-        assert main(["compile", "f16.json"] + extra) == 2
-        err = capsys.readouterr().err
-        assert err.startswith("error: ") and "routes to dense" in err
+    assert main(["compile", "f16.json", "--emulation"]) == 0
+    assert "lowered with backend 'overlap'" in capsys.readouterr().out
     with open("prog.json", "w") as f:
         json.dump(_route_programs()["panel"], f)
     monkeypatch.delenv("NVCC", raising=False)

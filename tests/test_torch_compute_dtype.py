@@ -271,6 +271,6 @@ def test_refusals():
 
 def test_plain_version_counts_no_launch():
     p, _kw, _pc, inputs = _case("jacobi3d")
-    before = stream.compute_bf16_launches
+    before = stream.launches_by["compute_bf16"]
     _plain(p, {}, inputs)   # the plain version launches nothing
-    assert stream.compute_bf16_launches == before
+    assert stream.launches_by["compute_bf16"] == before

@@ -76,10 +76,10 @@ def test_kernel_matches_plain_on_card(kernel, name, cuda):
     plan = plan_cls.build(an)
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = module.launches
+    before = module.launches_by["exact"]
     got = run(p, an, plan, arrays)
     torch.cuda.synchronize()
-    assert module.launches == before + 1
+    assert module.launches_by["exact"] == before + 1
     want = plain(p, an, plan, arrays)
     for o in want:
         g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
@@ -119,10 +119,10 @@ def _panel_matches_plain(p, plan, cuda):
     assert panel.occupancy(lib) >= 1
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = panel.launches
+    before = panel.launches_by["exact"]
     got = panel.run_panel(p, an, plan, arrays, lib)
     torch.cuda.synchronize()
-    assert panel.launches == before + 1
+    assert panel.launches_by["exact"] == before + 1
     want = panel.panel_plain(p, an, plan, arrays)
     for o in want:
         np.testing.assert_array_equal(got[o].cpu().numpy(),
@@ -199,10 +199,10 @@ def test_stream_kernel_matches_plain_on_card(name, cuda):
     assert plan.mxu_plans
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = stream.launches
+    before = stream.launches_by["exact"]
     got = stream.run_stream(plan, arrays)
     torch.cuda.synchronize()
-    assert stream.launches == before + 1
+    assert stream.launches_by["exact"] == before + 1
     want = stream.stream_plain(plan, arrays)
     for o in want:
         g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
@@ -252,10 +252,10 @@ def test_group_kernel_matches_plain_on_card(name, cuda):
     plan = group.plan_group(p, an, B, g)
     arrays = spanned_arrays(p, port.load_input_arrays(p0, seed=4),
                             device=cuda)
-    before = group.launches
+    before = group.launches_by["exact"]
     got = group.run_group(p, an, plan, arrays)
     torch.cuda.synchronize()
-    assert group.launches == before + 1
+    assert group.launches_by["exact"] == before + 1
     want = group.group_plain(p, an, plan, arrays)
     for o in want:
         g_, w = got[o].cpu().numpy(), want[o].cpu().numpy()
@@ -281,10 +281,10 @@ def test_group_segments_match_plain_on_card(name, segments, cuda):
     assert plan.segments > 1
     inputs = port.load_input_arrays(p0, seed=4)
     arrays = spanned_arrays(p, inputs, device=cuda)
-    before = group.launches
+    before = group.launches_by["exact"]
     got = group.run_group(p, an, plan, arrays)
     torch.cuda.synchronize()
-    assert group.launches == before + 1
+    assert group.launches_by["exact"] == before + 1
     want = group.group_plain(p, an, plan, arrays)
     oracle = port.run_interpreter(p0, inputs)
     for o in want:
@@ -337,10 +337,10 @@ def test_local_kernel_matches_plain_on_card(name, cuda):
     lib = stream.build_stream(plan)
     inputs = port.load_input_arrays(p, seed=4)
     for lo, slabs in _chunks(p, inputs, chunks, plan, cuda):
-        before = stream.local_launches
+        before = stream.launches_by["local"]
         got = stream.run_local_stream(plan, lo, slabs, lib)
         torch.cuda.synchronize()
-        assert stream.local_launches == before + 1
+        assert stream.launches_by["local"] == before + 1
         want = stream.local_stream_plain(plan, lo, slabs)
         for o in want:
             g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
@@ -359,11 +359,11 @@ def test_run_chunked_matches_in_core_on_card(cuda):
         num_stages=4, dimensions=(128,) * 3, shape="diffusion",
         seed_data="random:0,1"))
     res = run_program(p, device=cuda, save_results=False, log_level=0)
-    before = stream.local_launches
+    before = stream.launches_by["local"]
     oc = run_program(p, device=cuda, host_chunks=4, save_results=False,
                      log_level=0)
     assert oc.backend == "outofcore[stream x4 chunks]"
-    assert stream.local_launches == before + 2 * 4   # warm-up + 1 run
+    assert stream.launches_by["local"] == before + 2 * 4   # warm-up + 1 run
     np.testing.assert_array_equal(oc.outputs[p.outputs[0]],
                                   res.outputs[p.outputs[0]])
 
@@ -461,10 +461,10 @@ def test_onchip_stream_matches_plain_on_card(name, cuda):
     assert not plan.packed and bool(plan.mxu_plans) == ("mxu" not in kw)
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = stream.launches
+    before = stream.launches_by["exact"]
     got = stream.run_stream(plan, arrays)
     torch.cuda.synchronize()
-    assert stream.launches == before + 1
+    assert stream.launches_by["exact"] == before + 1
     want = stream.stream_plain(plan, arrays)
     for o in want:
         g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
@@ -600,10 +600,10 @@ def test_spill_kernel_matches_plain_on_card(name, cuda):
                                        stream.H100_SMEM_PER_BLOCK)
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = stream.spill_launches
+    before = stream.launches_by["spill"]
     got = stream.run_stream(plan, arrays)
     torch.cuda.synchronize()
-    assert stream.spill_launches == before + 1
+    assert stream.launches_by["spill"] == before + 1
     want = stream.stream_plain(plan, arrays)
     for o in want:
         np.testing.assert_array_equal(got[o].cpu().numpy(),
@@ -623,10 +623,10 @@ def test_local_spill_kernel_matches_plain_on_card(cuda):
     lib = stream.build_stream(plan)
     inputs = port.load_input_arrays(p, seed=4)
     for lo, slabs in _chunks(p, inputs, 4, plan, cuda):
-        before = stream.spill_launches
+        before = stream.launches_by["spill"]
         got = stream.run_local_stream(plan, lo, slabs, lib)
         torch.cuda.synchronize()
-        assert stream.spill_launches == before + 1
+        assert stream.launches_by["spill"] == before + 1
         want = stream.local_stream_plain(plan, lo, slabs)
         for o in want:
             np.testing.assert_array_equal(got[o].cpu().numpy(),
@@ -643,10 +643,10 @@ def test_tile_kernel_matches_plain_on_card(name, mode, cuda):
     plan = tile.plan_tile(p, mode=mode)
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = tile.launches
+    before = tile.launches_by["exact"]
     got = tile.run_tile(plan, arrays)
     torch.cuda.synchronize()
-    assert tile.launches == before + 1
+    assert tile.launches_by["exact"] == before + 1
     want = tile.tile_plain(plan, arrays)
     for o in want:
         g, w = got[o].cpu().numpy(), want[o].cpu().numpy()
@@ -667,10 +667,10 @@ def test_tile_fast_equals_masked_and_oracle_on_card(name, cuda):
     got = {}
     for mode in ("masked", "fast"):
         plan = tile.plan_tile(p, mode=mode)
-        before = tile.launches
+        before = tile.launches_by["exact"]
         got[mode] = tile.run_tile(plan, arrays)
         torch.cuda.synchronize()
-        assert tile.launches == before + 1
+        assert tile.launches_by["exact"] == before + 1
     for o in oracle:
         f, m = got["fast"][o].cpu().numpy(), got["masked"][o].cpu().numpy()
         np.testing.assert_array_equal(f, m)
@@ -728,10 +728,10 @@ def test_overlap_schedule_matches_plain_on_card(name, cuda):
     arrays = spanned_arrays(p, inputs, device=cuda)
     lib = overlap.build_overlap(p, an, plan)
     assert panel.occupancy(lib) >= 1
-    before = overlap.launches
+    before = overlap.launches_by["exact"]
     got = overlap.run_overlap(p, an, plan, arrays, lib)
     torch.cuda.synchronize()
-    assert overlap.launches == before + 1
+    assert overlap.launches_by["exact"] == before + 1
     want = overlap.overlap_plain(p, an, plan, arrays)
     oracle = port.run_interpreter(p, inputs)
     for o in want:
@@ -777,17 +777,151 @@ def float16_chain(shape, extent):
 @pytest.mark.parametrize("shape,extent", [("box", 1), ("cross", 2),
                                           ("diffusion", 1)])
 def test_float16_dense_matches_oracle_on_card(shape, extent, cuda):
-    """float16 runs on ``dense`` on the card (the kernels refuse it), one
-    op at a time in float32 rounded to float16, as numpy does: equal to
-    the oracle bit for bit (tests/test_torch_float16.py on the CPU)."""
+    """float16 runs on its route's kernel on the card (no longer on
+    ``dense``), one op at a time in float32 rounded to float16, as numpy
+    does: equal to the oracle bit for bit (tests/test_torch_float16.py
+    holds ``dense`` itself on the CPU)."""
+    from stencilflow_tpu_torch.backend import choose_backend
     p = port.parse_program(float16_chain(shape, extent))
+    route = choose_backend(p, port.ChainAnalysis.run(p), "cuda")
+    assert route in ("panel", "overlap", "stream")
     res = run_program(p, device=cuda, save_results=False, log_level=0)
-    assert res.backend == "dense"
+    assert res.backend == route
     oracle = port.run_interpreter(p, port.load_input_arrays(p, seed=0))
     for o in oracle:
         got = np.asarray(res.outputs[o]).reshape(oracle[o].shape)
         assert got.dtype == np.float16
         np.testing.assert_array_equal(got, oracle[o])
+
+
+def _narrow_case(kind, dt):
+    """(program the kernel runs, plan, run, plain, narrow count) of a
+    small program typed ``dt`` on kernel ``kind``."""
+    def typed(shape, dims, iters):
+        return port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape=shape,
+            seed_data="random:0.0,1.0", data_type=dt))
+    if kind == "panel":
+        p = typed("hdiff", (12, 40, 48), 3)
+        an = port.ChainAnalysis.run(p)
+        plan = panel.PanelPlan.build(an)
+        return (p, lambda a: panel.run_panel(p, an, plan, a),
+                lambda a: panel.panel_plain(p, an, plan, a),
+                lambda: panel.launches_by["narrow"])
+    if kind == "overlap":
+        p = typed("diffusion", (12, 40, 48), 2)
+        an = port.ChainAnalysis.run(p)
+        plan = overlap.OverlapPlan.build(an)
+        return (p, lambda a: overlap.run_overlap(p, an, plan, a),
+                lambda a: overlap.overlap_plain(p, an, plan, a),
+                lambda: overlap.launches_by["narrow"])
+    if kind == "group":
+        p = rotate_2d_to_rows(typed("diffusion", (256, 192), 8))
+        an = port.ChainAnalysis.run(p)
+        plan = group.plan_group(p, an, 64, 8)
+        return (p, lambda a: group.run_group(p, an, plan, a),
+                lambda a: group.group_plain(p, an, plan, a),
+                lambda: group.launches_by["narrow"])
+    p = typed("diffusion", (16, 24, 40), 3)
+    plan = stream.plan_stream(p, mxu="off",
+                              spill="all" if kind == "spill" else "auto")
+    assert plan.packed == (kind == "spill")
+    return (p, lambda a: stream.run_stream(plan, a),
+            lambda a: stream.stream_plain(plan, a),
+            lambda: (stream.launches_by["spill_narrow"] if plan.packed
+                     else stream.launches_by["narrow"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("kind", ["panel", "overlap", "stream", "spill",
+                                  "group"])
+def test_narrow_kernel_matches_plain_and_oracle_on_card(kind, dt, cuda):
+    """K1, K2, K3a, K3c and K5 on programs typed bf16 and f16: storage in
+    2 bytes, every op in float rounded once to the narrow type, equal to
+    the plain version and the numpy oracle bit for bit (2-byte
+    patterns); one launch, counted apart."""
+    from stencilflow_tpu_torch.dtypes import to_numpy
+    p, run, plain, count = _narrow_case(kind, dt)
+    inputs = port.load_input_arrays(p, seed=5)
+    arrays = spanned_arrays(p, inputs, device=cuda)
+    before = count()
+    got = run(arrays)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    want = plain(arrays)
+    oracle = port.run_interpreter(p, inputs)
+    for o in p.outputs:
+        g = to_numpy(got[o])
+        assert g.dtype == oracle[o].dtype
+        np.testing.assert_array_equal(g.view(np.uint16),
+                                      to_numpy(want[o]).view(np.uint16))
+        np.testing.assert_array_equal(
+            g.reshape(oracle[o].shape).view(np.uint16),
+            oracle[o].view(np.uint16))
+
+
+@pytest.mark.cuda
+def test_bf16_meets_f16_on_card(cuda):
+    """bf16 meeting f16 at ufunc sites (+, *, max, a comparison) computes
+    in float32, as ml_dtypes' loops do: K1 equals its plain version and
+    the oracle bit for bit, on a float32 and a bf16 output."""
+    from stencilflow_tpu_torch.dtypes import to_numpy
+    bf, hf = "bfloat16", "float16"
+    p = port.parse_program({
+        "inputs": {"a": {"data": "random:-2,3", "data_type": bf},
+                   "b": {"data": "random:-2,3", "data_type": hf}},
+        "outputs": ["s", "t"], "dimensions": [12, 40, 48],
+        "program": {
+            "s": {"computation_string": "s = a[i,j,k] + b[i,j+1,k] * 0.5 - "
+                  "max(a[i,j,k-1], b[i,j,k])",
+                  "boundary_conditions": {"a": {"type": "constant",
+                                                "value": 0.3},
+                                          "b": {"type": "copy"}},
+                  "data_type": "float32"},
+            "t": {"computation_string": "t = a[i-1,j,k] * b[i,j,k] + "
+                  "s[i,j,k] if a[i,j,k] > b[i,j,k] else a[i,j,k] / "
+                  "b[i,j-1,k]",
+                  "boundary_conditions": {"a": {"type": "constant",
+                                                "value": 0.3},
+                                          "b": {"type": "constant",
+                                                "value": 1.5},
+                                          "s": {"type": "copy"}},
+                  "data_type": bf}}})
+    an = port.ChainAnalysis.run(p)
+    plan = panel.PanelPlan.build(an)
+    inputs = port.load_input_arrays(p, seed=1)
+    arrays = spanned_arrays(p, inputs, device=cuda)
+    before = panel.launches_by["narrow"]
+    got = panel.run_panel(p, an, plan, arrays)
+    torch.cuda.synchronize()
+    assert panel.launches_by["narrow"] == before + 1
+    want = panel.panel_plain(p, an, plan, arrays)
+    oracle = port.run_interpreter(p, inputs)
+    for o in p.outputs:
+        g = to_numpy(got[o]).reshape(oracle[o].shape)
+        assert g.dtype == oracle[o].dtype
+        np.testing.assert_array_equal(
+            g.view(np.uint8), to_numpy(want[o]).reshape(g.shape).view(
+                np.uint8))
+        np.testing.assert_array_equal(g.view(np.uint8),
+                                      oracle[o].view(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+def test_run_program_narrow_on_card(dt, cuda):
+    """``run --compare-to-reference`` on a bf16 / f16 program on the
+    card: its route's kernel, verified at VERIFY_RTOL (exact here), the
+    simulator too."""
+    p = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(12, 20, 24), shape="hdiff",
+        seed_data="random:0.0,1.0", data_type=dt))
+    res = run_program(p, device=cuda, compare_to_reference=True,
+                      run_simulation=True, save_results=False, log_level=0)
+    assert res.backend == "panel"
+    assert res.verified_against_reference and \
+        res.verified_against_simulation
 
 
 @pytest.mark.cuda
@@ -969,10 +1103,10 @@ def test_stateless_panel_probe_equals_k2_on_card(cuda):
     from stencilflow_tpu_torch.probes import stateless_panel as sp
     shape = (40, 48, 72)
     x = torch.rand(shape, device=cuda) * 0.5 + 0.5
-    before = overlap.launches
+    before = overlap.launches_by["exact"]
     got = sp.overlap_k2(shape)(x)
     torch.cuda.synchronize()
-    assert overlap.launches == before + 1
+    assert overlap.launches_by["exact"] == before + 1
     assert torch.equal(got, sp.panel(x))
 
 
@@ -1170,12 +1304,12 @@ def test_run_program_verified_against_simulation_on_card(case, cuda):
     NativeSimulator(p)   # the native core builds: no Python-machine fallback
     module = {"panel": panel, "overlap": overlap, "stream": stream,
               "rows+group_g8": group, "tile": tile}[label]
-    before = module.launches
+    before = module.launches_by["exact"]
     res = run_program(p, device="cuda", backend=backend,
                       run_simulation=True, compare_to_reference=True,
                       save_results=False, log_level=0)
     assert res.backend == label
-    assert module.launches > before
+    assert module.launches_by["exact"] > before
     assert res.verified_against_simulation is True
     assert res.verified_against_reference is True
     sim = simulate(p, port.load_input_arrays(p, seed=0))
@@ -1270,9 +1404,9 @@ def test_shard_kernel_matches_plain_on_card(name, cuda):
                                          plan.instance(c))
         for o in p.outputs:
             _check(got[o].cpu().numpy(), want[o].cpu().numpy(), rtol)
-    before = stream.shard_launches
+    before = stream.launches_by["shard"]
     out = fn(placed)
-    assert stream.shard_launches - before == mesh.size
+    assert stream.launches_by["shard"] - before == mesh.size
     single, _route = compile_chain_best(p, device=cuda)
     ref = single({n: torch.as_tensor(np.asarray(v)).to(cuda)
                   if np.ndim(v) else v for n, v in inputs.items()})
@@ -1359,11 +1493,11 @@ def test_pipeline_segments_match_plain_on_card(name, cuda, monkeypatch):
     domain = bool(kw.get("domain_axes"))
     assert fn.last_config["backend"] == ("xla" if domain else "stream")
     inputs = port.load_input_arrays(p, seed=4)
-    before = stream.local_launches + stream.spill_launches
+    before = stream.launches_by["local"] + stream.launches_by["spill"]
     out = fn(inputs)
     S, C = len(plan.segments), plan.num_chunks
-    assert stream.local_launches + stream.spill_launches - before == \
-        (0 if domain else S * C)
+    assert (stream.launches_by["local"] + stream.launches_by["spill"]
+            - before) == (0 if domain else S * C)
     assert len(calls) == (0 if domain else S * C)
     rtol = MXU_VERIFY_RTOL if banded else 0.0
     I = p.dimensions[0]
@@ -1589,26 +1723,26 @@ def test_bf16_rings_match_plain_on_card(name, cuda):
                             device=cuda)
     if kind == "panel":
         plan = panel.PanelPlan.build(an, ring_storage="bfloat16")
-        before = panel.bf16_launches
+        before = panel.launches_by["bf16"]
         got = panel.run_panel(p, an, plan, arrays)
-        n = panel.bf16_launches - before
+        n = panel.launches_by["bf16"] - before
         want = panel.panel_plain(p, an, plan, arrays)
     elif kind in ("group", "rows"):
         B, g = (64, 8) if kind == "rows" else (2, 2)
         plan = group.plan_group(p, an, B, g, ring_storage="bfloat16")
-        before = group.bf16_launches
+        before = group.launches_by["bf16"]
         got = group.run_group(p, an, plan, arrays)
-        n = group.bf16_launches - before
+        n = group.launches_by["bf16"] - before
         want = group.group_plain(p, an, plan, arrays)
     else:
         kw = {"stream": {"mxu": "off"}, "spill": {"smem_budget": 64 * 1024},
               "spill_all": {"spill": "all"}}[kind]
         plan = stream.plan_stream(p, ring_storage="bfloat16", **kw)
         assert plan.packed == (kind != "stream")
-        counter = "spill_bf16_launches" if plan.packed else "bf16_launches"
-        before = getattr(stream, counter)
+        mode = "spill_bf16" if plan.packed else "bf16"
+        before = stream.launches_by[mode]
         got = stream.run_stream(plan, arrays)
-        n = getattr(stream, counter) - before
+        n = stream.launches_by[mode] - before
         want = stream.stream_plain(plan, arrays)
     torch.cuda.synchronize()
     assert plan.rounds and n == 1
@@ -1633,10 +1767,10 @@ def test_bf16_passes_match_plain_on_card(name, passes, cuda):
     assert plan.tkeys and not plan.packed
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = stream.bf16_launches
+    before = stream.launches_by["bf16"]
     got = stream.run_stream(plan, arrays)
     torch.cuda.synchronize()
-    assert stream.bf16_launches == before + 1
+    assert stream.launches_by["bf16"] == before + 1
     want = stream.stream_plain(plan, arrays)
     split = stream.stream_plain(stream.plan_stream(p), arrays)
     for o in want:
@@ -1684,10 +1818,10 @@ def test_k4_chunk_bf16_passes_match_plain_on_card(shape, passes, cuda):
     lib = stream.build_stream(plan)
     inputs = port.load_input_arrays(p, seed=4)
     for lo, slabs in _chunks(p, inputs, 3, plan, cuda):
-        before = stream.local_bf16_launches
+        before = stream.launches_by["local_bf16"]
         got = stream.run_local_stream(plan, lo, slabs, lib)
         torch.cuda.synchronize()
-        assert stream.local_bf16_launches == before + 1
+        assert stream.launches_by["local_bf16"] == before + 1
         _agree(stream.local_stream_plain(plan, lo, slabs), got,
                stream.local_stream_plain(split, lo, slabs),
                f"{shape} {passes} chunk {lo}")
@@ -1699,13 +1833,14 @@ def test_run_program_host_chunks_bf16_on_card(cuda):
     passes on every chunk, verified against the oracle at
     BF16_VERIFY_RTOL."""
     p = _banded("box", (64, 64, 64))
-    before = stream.local_bf16_launches
+    before = stream.launches_by["local_bf16"]
     res = run_program(p, device=cuda, host_chunks=4, mxu_precision="bf16",
                       compare_to_reference=True, save_results=False,
                       log_level=0)
     assert res.backend == "outofcore[stream x4 chunks]"
     assert res.verified_against_reference
-    assert stream.local_bf16_launches == before + 2 * 4   # warm-up + 1 run
+    # warm-up + 1 run
+    assert stream.launches_by["local_bf16"] == before + 2 * 4
 
 
 def _k4_shards(p, mesh_args, cuda, **kw):
@@ -1758,11 +1893,11 @@ def test_k4_shard_bf16_rings_match_plain_on_card(name, cuda):
     for c, tiles in fn.exchange(placed).items():
         oi, oj, ok = plan.block_origin(c)
         args = (oi - plan.halo[0], tiles)
-        before = stream.shard_bf16_launches
+        before = stream.launches_by["shard_bf16"]
         got = stream.run_local_stream(splan, *args, None, oj, ok,
                                       plan.instance(c))
         torch.cuda.synchronize()
-        assert stream.shard_bf16_launches == before + 1
+        assert stream.launches_by["shard_bf16"] == before + 1
         want = stream.local_stream_plain(splan, *args, oj, ok,
                                          plan.instance(c))
         for o in p.outputs:
@@ -1794,10 +1929,10 @@ def test_k4_shard_bf16_passes_match_plain_on_card(shape, passes, cuda):
         oi, oj, ok = plan.block_origin(c)
         args = (oi - plan.halo[0], tiles)
         inst = plan.instance(c)
-        before = stream.shard_bf16_launches
+        before = stream.launches_by["shard_bf16"]
         got = stream.run_local_stream(splan, *args, None, oj, ok, inst)
         torch.cuda.synchronize()
-        assert stream.shard_bf16_launches == before + 1
+        assert stream.launches_by["shard_bf16"] == before + 1
         _agree(stream.local_stream_plain(splan, *args, oj, ok, inst), got,
                stream.local_stream_plain(split.plan, *args, oj, ok, inst),
                f"{shape} {passes} shard {c}")
@@ -1824,11 +1959,11 @@ def test_k4_segment_bf16_passes_match_plain_on_card(cuda, monkeypatch):
     fn, plan = compile_pipeline_split(p, mesh, "p", mxu_precision="bf16")
     split, _ = compile_pipeline_split(p, mesh, "p")
     assert fn.last_config["backend"] == "stream"
-    before = stream.local_bf16_launches
+    before = stream.launches_by["local_bf16"]
     fn(port.load_input_arrays(p, seed=4))
     torch.cuda.synchronize()
     S, C = len(plan.segments), plan.num_chunks
-    assert stream.local_bf16_launches - before == S * C == len(calls)
+    assert stream.launches_by["local_bf16"] - before == S * C == len(calls)
     I = p.dimensions[0]
     for sp, oi, slabs, got in calls:
         s = fn.stream_plans.index(sp)
@@ -1871,10 +2006,10 @@ def test_bf16_passes_of_a_plane_input_on_card(mode, cuda):
         split = stream.plan_stream(p)
         assert plan.mxu_plans and not plan.tkeys
         arrays = spanned_arrays(p, inputs, device=cuda)
-        before = stream.bf16_launches
+        before = stream.launches_by["bf16"]
         got = stream.run_stream(plan, arrays)
         torch.cuda.synchronize()
-        assert stream.bf16_launches == before + 1
+        assert stream.launches_by["bf16"] == before + 1
         _agree(stream.stream_plain(plan, arrays), got,
                stream.stream_plain(split, arrays), "plane input whole")
         return
@@ -1884,10 +2019,10 @@ def test_bf16_passes_of_a_plane_input_on_card(mode, cuda):
     split = stream.plan_local(p, an, 8, h)
     lib = stream.build_stream(plan)
     for lo, slabs in _chunks(p, inputs, 3, plan, cuda):
-        before = stream.local_bf16_launches
+        before = stream.launches_by["local_bf16"]
         got = stream.run_local_stream(plan, lo, slabs, lib)
         torch.cuda.synchronize()
-        assert stream.local_bf16_launches == before + 1
+        assert stream.launches_by["local_bf16"] == before + 1
         _agree(stream.local_stream_plain(plan, lo, slabs), got,
                stream.local_stream_plain(split, lo, slabs),
                f"plane input chunk {lo}")
@@ -1897,23 +2032,23 @@ def _kernel_counts():
     """Every kernel route's launch count (the bf16 and spilled variants
     with their route)."""
     from stencilflow_tpu_torch.backend import tile
-    return {"panel": panel.launches + panel.bf16_launches,
-            "overlap": overlap.launches,
-            "stream": (stream.launches + stream.spill_launches
-                       + stream.bf16_launches + stream.spill_bf16_launches),
-            "group": group.launches + group.bf16_launches,
-            "tile": tile.launches,
-            "local_stream": (stream.local_launches
-                             + stream.local_bf16_launches)}
+    return {"panel": panel.launches_by["exact"] + panel.launches_by["bf16"],
+            "overlap": overlap.launches_by["exact"],
+            "stream": sum(stream.launches_by[k] for k in (
+                "exact", "spill", "bf16", "spill_bf16")),
+            "group": group.launches_by["exact"] + group.launches_by["bf16"],
+            "tile": tile.launches_by["exact"],
+            "local_stream": (stream.launches_by["local"]
+                             + stream.launches_by["local_bf16"])}
 
 
 def _zero_kernel_counts():
     from stencilflow_tpu_torch.backend import tile
-    panel.launches = panel.bf16_launches = overlap.launches = 0
-    group.launches = group.bf16_launches = tile.launches = 0
-    stream.launches = stream.spill_launches = stream.bf16_launches = 0
-    stream.spill_bf16_launches = stream.local_launches = 0
-    stream.local_bf16_launches = 0
+    for m in (panel, overlap, group, tile, stream):
+        m.launches_by["exact"] = 0
+    panel.launches_by["bf16"] = group.launches_by["bf16"] = 0
+    for k in ("spill", "bf16", "spill_bf16", "local", "local_bf16"):
+        stream.launches_by[k] = 0
 
 
 def _route_kernel(lowering: str) -> str:
@@ -2023,10 +2158,10 @@ def test_bf16_compute_matches_plain_on_card(name, cuda):
     assert bool(plan.mxu_plans) == name.startswith("K3b")
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = stream.compute_bf16_launches
+    before = stream.launches_by["compute_bf16"]
     got = stream.run_stream(plan, arrays)
     torch.cuda.synchronize()
-    assert stream.compute_bf16_launches == before + 1
+    assert stream.launches_by["compute_bf16"] == before + 1
     want = stream.stream_plain(plan, arrays)
     for o in p.outputs:
         assert got[o].dtype == torch.float32
@@ -2070,12 +2205,12 @@ def test_overlap_equals_blocking_on_card(name, shape, axes, lb, cuda):
     block, _ = compile_sharded_chain(p, mesh, axes, local_backend=lb)
     placed = place_global_inputs(p, plan, port.load_input_arrays(p, seed=4))
     want = block(placed)[p.outputs[0]].numpy()
-    before = stream.shard_launches
+    before = stream.launches_by["shard"]
     for _rep in range(12):
         got = fn(placed)[p.outputs[0]].numpy()
         np.testing.assert_array_equal(got, want)
     if lb == "stream":
-        assert stream.shard_launches - before == 12 * 3 * mesh.size
+        assert stream.launches_by["shard"] - before == 12 * 3 * mesh.size
 
 
 @pytest.mark.cuda

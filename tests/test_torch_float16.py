@@ -1,8 +1,8 @@
 """float16 chains on the ``dense`` lowering against the numpy oracle.
 
-The generated kernels refuse float16 fields (``promotion.
-check_kernel_dtypes``), so a float16 program runs on ``dense``: torch's
-elementwise ops over the whole domain.  numpy computes each float16 op
+The whole-domain lowering ``dense`` (torch's elementwise ops over the
+domain; the generated kernels' float16 path is tests/test_torch_narrow.py's)
+on float16 programs.  numpy computes each float16 op
 in float32 and rounds the result to float16, and so do torch's float16
 ops on the CPU and on the card (their ``opmath`` type is float32), one
 op at a time: ``dense`` must equal the port's oracle, and the JAX

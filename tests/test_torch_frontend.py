@@ -154,9 +154,19 @@ def test_errors_match():
                              "data_type": "float32"}}}
     with pytest.raises(port.CycleError):
         port.ChainGraph.build(port.parse_program(cyc))
-    with pytest.raises(ValueError, match="unsupported dtype"):
-        port.parse_program({**bad, "inputs": {"a": {
-            "data": "constant:1", "data_type": "bfloat16"}}})
+    # bfloat16 parses, as in the JAX package (the port's own dtype,
+    # dtypes.BFLOAT16); a name the JAX package refuses is refused
+    half = {**bad, "inputs": {"a": {"data": "constant:1",
+                                    "data_type": "bfloat16"}},
+            "program": {"b": {"computation_string": "b = a[j, k]",
+                              "data_type": "bfloat16"}}}
+    assert port.parse_program(half).field_dtype("b") == port.dtypes.BFLOAT16
+    assert ref.parse_program(half).field_dtype("b").name == "bfloat16"
+    eight = {**bad, "inputs": {"a": {"data": "constant:1",
+                                     "data_type": "float8"}}}
+    for pkg in (port, ref):
+        with pytest.raises(ValueError, match="unsupported dtype"):
+            pkg.parse_program(eight)
 
 
 def test_import_scan_covers_the_stream_slice():

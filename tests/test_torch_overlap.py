@@ -131,9 +131,9 @@ def test_wrapper_runs_plain_only_for_cpu_tensors():
     an = port.ChainAnalysis.run(p)
     plan = overlap.OverlapPlan.build(an)
     arrays = overlap.spanned_arrays(p, port.load_input_arrays(p, seed=1))
-    before = overlap.launches
+    before = overlap.launches_by["exact"]
     out = overlap.run_overlap(p, an, plan, arrays)
-    assert overlap.launches == before
+    assert overlap.launches_by["exact"] == before
     assert out["s7"].shape == tuple(p.dimensions)
     with pytest.raises(ValueError, match="shape"):
         overlap.run_overlap(p, an, plan, {"a": arrays["a"][:, :, :4]})
