@@ -55,13 +55,20 @@ Phases, one line each (any failure raises and exits non-zero):
    against its plain version by ``stream.bf16_compute_agree`` (bit for
    bit per cell, the banded rule banded) in K3a (jacobi3d 40 x 48 x 72 x
    4, hotspot3d with constant BC 0.3), K3b (the box of BC 0.7, both
-   routes) and K3c (jacobi3d 64^3 x 3 with every ring spilled); programs
+   routes) and K3c (jacobi3d 64^3 x 3 with every ring spilled), and float16
+   compute (``compute_dtype="float16"``) the same way on the hotspot, the
+   box (CUDA-core split passes) and the spilled jacobi; programs
    typed bfloat16 and float16 (``_narrow_small``) against their plain
    versions and the host oracle, bit for bit (one bf16 ulp from the
    oracle where a transcendental appears), in K1 (hdiff3d 40 x 48 x 72
    x 3), K2 (jacobi3d x 2), K3a (jacobi3d x 4), K3c (jacobi3d 64^3 x 3,
    every ring spilled) and K5 (jacobi2d 256 x 192 x 8 through rows), and
-   two mixed bf16 programs (K1, K3a) and bf16 meeting f16 (K1); the
+   two mixed bf16 programs (K1, K3a) and bf16 meeting f16 (K1); K4 and K6
+   on programs typed bf16 and f16 (``_nk_small``: jacobi3d and hdiff3d
+   64^3 x 3; K4 chunk by chunk at 4 chunks and shard by shard over 2 x 2,
+   K6 masked and fast), every launch against its plain version and the
+   assembled output against the host oracle, bit for bit, each counted
+   under its narrow mode; the
    overlapped-tile kernel
    (K6), masked and fast (one launch: mask-free interior blocks, masked
    border blocks), against its plain version (fast: mask-free plus the
@@ -138,12 +145,18 @@ Phases, one line each (any failure raises and exits non-zero):
    from f32, one chained ``F.conv3d`` in bf16, and the leg through the
    entry point with the count set to 0 just before and read just after;
    then programs typed bf16 and f16 (``_narrow_legs``): jacobi3d 512^3 x
-   8 bf16 and f16 (K1), x 2 bf16 (K2), x 8 bf16 with ``--backend
+   4 bf16 and f16 (K1), x 2 bf16 (K2), x 4 bf16 with ``--backend
    stream`` (K3a) and jacobi2d 8192^2 x 8 bf16 (rows+group_g8, K5), each
    through ``run_program`` with the narrow counts set to 0 just before
    and read just after, the kernel against its plain version and the
    main path's output bit for bit, both timed, with one chained
-   ``F.conv3d``/``conv2d`` in the program's type;
+   ``F.conv3d``/``conv2d`` in the program's type; float16 compute on
+   jacobi3d 512^3 x 8 (K3a) as bf16 compute's legs; K6 on jacobi3d 512^3
+   x 2 typed bf16 and f16 (``_nk_tiles``): ``run --backend tile`` (fast
+   mode, 11 narrow launches) and ``compile_chain_tile(mode="masked")``,
+   the counts set to 0 just before and read just after, the kernel
+   against its plain version and the entry point's output bit for bit,
+   timed beside 2 chained ``F.conv3d`` in the program's type;
 5. the out-of-core path (``run --host-chunks N``) through
    ``run_program(..., host_chunks=N, device="cuda")``: jacobi3d 1024^3 x
    8 at 8 chunks and hotspot3d 512^3 x 8 at 4 chunks, each bit-equal to
@@ -161,7 +174,12 @@ Phases, one line each (any failure raises and exits non-zero):
    apart from the split chunk plan's plain version) and in turns with
    the split chunk kernel, then the out-of-core call with the counts
    reset just before and read just after (K4's bf16 launches 4 a call,
-   nothing else), within BF16_VERIFY_RTOL of the in-core f32 route;
+   nothing else), within BF16_VERIFY_RTOL of the in-core f32 route; then
+   ``run --host-chunks 8`` on jacobi3d 1024^3 x 8 typed bf16
+   (``_nk_outofcore``): K4 alone on the middle chunk against its plain
+   version, then the call with the counts reset just before and read just
+   after (K4's narrow launches 8 a call, nothing else), bit-equal to the
+   in-core narrow route (K1), its ms a call, link bytes and link bound;
 6. the measurement path: the probes' kernels against their plain
    versions on the card (P4's copy of 512 x 512^2 bit-equal to its input
    and timed beside ``copy_``; P1's every op at 8 steps, bit-exact or
@@ -213,7 +231,12 @@ Phases, one line each (any failure raises and exits non-zero):
    their iterations, true relative residuals (at most 100 tol) and ms an
    iteration split into operator and vector passes, and CG at 4 host
    chunks cut to its first 4 iterations (for the script's time) within
-   10 tol of the in-core solver's x at the same iteration.
+   10 tol of the in-core solver's x at the same iteration.  Then the
+   narrow legs (``_nk_solvers``): ``iterate`` on jacobi3d 512^3 typed
+   bf16 fused by 8, checkpointed at step 16 and resumed to 32, bit-equal
+   to the uninterrupted run; ``fast_value_and_grad`` on jacobi3d 256^3 x
+   8 bf16, its gradient bit-equal to the adjoint's dense lowering; CG on
+   backward Euler 512^3 typed float16, 4 iterations.
 
 8. the simulator: ``run --run-simulation`` through ``run_program(...,
    device="cuda", run_simulation=True, compare_to_reference=True)`` on
@@ -289,7 +312,12 @@ Phases, one line each (any failure raises and exits non-zero):
    over 2 (banded): once with the counts reset (K4 launches 3 x shards),
    held to the uncomposed blocking call over 11 calls, timed in turns
    with it beside the exchange and the blocking route, and the first
-   cell's interior and strip K4s against their plain versions.
+   cell's interior and strip K4s against their plain versions.  Then
+   jacobi3d 512^3 x 8 typed bf16 (``_nk_sharded``) over 2 x 2 and over 4
+   pipeline positions, each driven once with the counts reset just
+   before and read just after (K4's narrow launches only), bit-equal to
+   the single-device narrow route, and the last shard and segment 0 on
+   chunk 1 through K4 against its plain version, timed.
 
 Phases 3 to 5 and 9 draw each program's inputs once a phase
 (``_InputMemo``: ``run_program`` and the script take the same seeded
@@ -304,13 +332,16 @@ lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
 and per segment's from phase 9; error, kernel, plain-version and library
 times measured in this run at the main path's shapes, bounds computed
-from its inputs; 42 entries: the stream kernel's on box and on cross,
+from its inputs; 50 entries: the stream kernel's on box and on cross,
 the four reduced-precision modes' from phase 4's bf16 legs and its two
 bf16-compute legs, K4's bf16 passes on chunks from phase 5, P1's eight
 variant bodies from phase 6, and K4's three reduced-precision legs and
 the overlap's interior and strip K4s from phase 9, and the six rows of
 programs typed bf16 and f16: K1, K1 f16, K2, K3a and K5 from phase 4's
-narrow legs, ``_narrow_legs``, and K3c from phase 3) and
+narrow legs, ``_narrow_legs``, and K3c from phase 3, and eight more:
+K3a under float16 compute and K6 fast and masked on bf16 and f16
+programs from phase 4, K4 chunk on a bf16 program from phase 5, K4 per
+shard and per segment on it from phase 9) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -502,15 +533,32 @@ class _InputMemo:
         for m in self.modules:
             m.load_input_arrays = self
 
+    @staticmethod
+    def _key(program, prefix, seed):
+        return (tuple(program.dimensions), prefix, seed,
+                tuple((n, str(s.data), str(s.dtype), tuple(s.dim_mask))
+                      for n, s in program.inputs.items()))
+
     def __call__(self, program, prefix=None, seed: int = 0):
         if not self.on:
             return self.load(program, prefix, seed)
-        key = (tuple(program.dimensions), prefix, seed,
-               tuple((n, str(s.data), str(s.dtype), tuple(s.dim_mask))
-                     for n, s in program.inputs.items()))
+        key = self._key(program, prefix, seed)
         if key not in self.memo:
             self.memo[key] = self.load(program, prefix, seed)
         return dict(self.memo[key])
+
+    def as_bf16(self, program, twin, seed: int = 0):
+        """Put ``program``'s inputs (its fields typed bfloat16) in the memo
+        made from those of ``twin``, the same program typed float32:
+        ``data.load_array`` draws a ``random:`` input in float64, then
+        rounds it to float32, then (for bf16) to bf16, so the bf16 draw is
+        the float32 one rounded (one pass, where drawing again takes a
+        1024^3 input most of a minute on the host).  A no-op when off."""
+        from stencilflow_tpu_torch.dtypes import BFLOAT16, cast
+        if self.on:
+            self.memo[self._key(program, None, seed)] = {
+                n: cast(v, BFLOAT16) if np.ndim(v) else v
+                for n, v in self(twin, seed=seed).items()}
 
     def clear(self):
         self.memo.clear()
@@ -722,22 +770,26 @@ def _bf16_legs(sft, pn, gp, st, run_program, compile_chain_rows, bf16_main,
 
 
 def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
-    """Phase 4's bf16-compute legs at full width (``compile_chain_stream(
-    compute_dtype="bfloat16")``): jacobi3d 512^3 x 8 (K3a) and box3d
-    256^3 x 8 of extent 2 (K3b, its composed bands on tensor cores).  Each
+    """Phase 4's narrow-compute legs at full width (``compile_chain_stream(
+    compute_dtype=...)``, the plan's type): jacobi3d 512^3 x 8 (K3a) and
+    box3d 256^3 x 8 of extent 2 (K3b, its composed bands on tensor cores)
+    in bf16, jacobi3d 512^3 x 8 (K3a) in float16.  Each
     cell's kernel against its plain version on the same inputs
     (``stream.bf16_compute_agree``: bit for bit per cell, the banded rule
     banded), then timed in turns with the f32 stream kernel on the same
     tile where that plan fits (f32, bf16, bf16, f32), its drift from f32
     (the largest difference over the largest output) and one chained
-    ``F.conv3d`` in bf16 over the domain (the library yardstick); then the
-    leg itself through the entry point, the count set to 0 just before and
-    read just after (one launch a call).  Returns the kernels line's
-    entries."""
+    ``F.conv3d`` in the compute type over the domain (the library
+    yardstick); then the leg itself through the entry point, the count set
+    to 0 just before and read just after (one launch a call).  Returns the
+    kernels line's entries."""
     import torch
+    from stencilflow_tpu_torch.dtypes import to_torch_dtype
     out = {}
     for key, (p, plan, f32) in cbf_main.items():
         o = p.outputs[0]
+        cd = plan.compute_dtype
+        count = "compute_" + ("bf16" if cd == "bfloat16" else "f16")
         lib, flib = (lib_of[st.stream_source(q)] for q in (plan, f32))
         arrays = _spanned_on_card(sft, p)
         got = st.run_stream(plan, arrays, lib)[o]
@@ -759,24 +811,25 @@ def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
         ms, f32_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         del arrays
         radius = 2 if banded else 1
-        lib_ms = _conv_chain_ms(p, radius, dtype=torch.bfloat16)
-        bound_ms, bound_by = _bound(p, compute_dtype="bfloat16")
+        lib_ms = _conv_chain_ms(p, radius, dtype=to_torch_dtype(
+            plan.compute_narrow))
+        bound_ms, bound_by = _bound(p, compute_dtype=cd)
         # the leg through the entry point (a lookup of the built kernel)
-        fn = st.compile_chain_stream(p, compute_dtype="bfloat16")
+        fn = st.compile_chain_stream(p, compute_dtype=cd)
         inputs = {k: v if p.inputs[k].is_scalar else
                   torch.as_tensor(np.asarray(v)).cuda()
                   for k, v in sft.load_input_arrays(p, seed=0).items()}
-        st.launches_by["compute_bf16"] = 0
+        st.launches_by[count] = 0
         leg = fn(inputs)[o]
         torch.cuda.synchronize()
-        launches = st.launches_by["compute_bf16"]
+        launches = st.launches_by[count]
         same = bool(torch.equal(leg, st.run_stream(plan, _spanned_on_card(
             sft, p), lib)[o].reshape(leg.shape)))
         del leg, inputs, fn
         plan.device_pool.clear()
         f32.device_pool.clear()
         torch.cuda.empty_cache()
-        print(f"kernel: {key} {p.name} compute_dtype=bfloat16 tile "
+        print(f"kernel: {key} {p.name} compute_dtype={cd} tile "
               f"{plan.tile} x {plan.threads}, smem {plan.smem_bytes()} B "
               f"(f32 tile {f32.tile}, {f32.smem_bytes()} B)"
               f"{', ' + _routes(plan) + ' passes' if banded else ''}: "
@@ -786,12 +839,12 @@ def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
               f"max_abs_err {fig['max_abs_err']:.3g}, {fig['share']:.4%} of "
               f"cells equal, {'OK' if ok else 'MISMATCH'} | drift from f32 "
               f"{drift:.3g} of the largest output | bound {bound_ms:.4f} ms "
-              f"({bound_by}) | {len(p.kernels)} chained F.conv3d in bf16 "
+              f"({bound_by}) | {len(p.kernels)} chained F.conv3d in {cd} "
               f"{lib_ms:.3f} ms | leg: compile_chain_stream launches "
               f"{launches}, equal to the kernel: {'yes' if same else 'NO'} "
               f"| {smi}", flush=True)
         if not ok or not same or launches != 1:
-            raise RuntimeError(f"{key}: the bf16-compute kernel disagrees "
+            raise RuntimeError(f"{key}: the {cd}-compute kernel disagrees "
                                f"with its plain version ({fig}) or its leg "
                                f"(launches {launches})")
         out[key] = {"name": key, "route": "cuda",
@@ -859,18 +912,18 @@ def _link_rates():
 def _chunk_slabs(program, inputs, lo: int, Ii: int):
     """One chunk's inputs on the card: i-spanning ones as host slabs of
     ``Ii`` planes from global plane ``lo`` (zero outside the domain)."""
-    import torch
+    from stencilflow_tpu_torch.dtypes import to_torch
     from stencilflow_tpu_torch.outofcore import _host_slab
     I = program.dimensions[0]
     slabs = {}
     for n, spec in program.inputs.items():
         a = np.asarray(inputs[n])
         if spec.is_scalar:
-            slabs[n] = torch.as_tensor(a)
+            slabs[n] = to_torch(a)
         elif spec.dim_mask[0]:
             slabs[n] = _host_slab(a, lo, lo + Ii, I).cuda()
         else:
-            slabs[n] = torch.as_tensor(a).cuda()
+            slabs[n] = to_torch(a, "cuda")
     return slabs
 
 
@@ -3168,14 +3221,16 @@ def _narrow_held(got, want, rtol: float):
     got, want = np.asarray(got).reshape(np.shape(want)), np.asarray(want)
     if got.dtype != want.dtype:
         return False, float("inf")
+    bits = (lambda x: x.view(np.uint16)) if got.dtype.itemsize == 2 \
+        else (lambda x: x)
+    if not rtol and np.array_equal(bits(got), bits(want)):
+        return True, 0.0   # at once: a 512^3 float64 copy takes seconds
     a, b = cast(got, np.float64), cast(want, np.float64)
     err = float(np.max(np.abs(a - b))) if a.size else 0.0
     if rtol:
         return arrays_are_equal(b, a, rtol) and bool(np.isfinite(a).all()), \
             err
-    bits = (lambda x: x.view(np.uint16)) if got.dtype.itemsize == 2 \
-        else (lambda x: x)
-    return bool(np.array_equal(bits(got), bits(want))), err
+    return False, err
 
 
 def _narrow_setup(sft, pn, ov, gp, st, codegen, rows, synthesize_stencil,
@@ -3215,17 +3270,19 @@ def _narrow_setup(sft, pn, ov, gp, st, codegen, rows, synthesize_stencil,
         p = sft.parse_program(spec, name=label.replace(" ", "_"))
         cases.append((label, kind, p, kw) + _narrow_plan(
             sft, pn, ov, gp, st, codegen, kind, p, kw))
-    jacobi8 = {dt: typed("diffusion", (512,) * 3, 8, dt)
+    # jacobi3d 512^3 x 4 (x 8 until the K4 and K6 narrow legs joined the
+    # script: its time)
+    jacobi4 = {dt: typed("diffusion", (512,) * 3, 4, dt)
                for dt in ("bfloat16", "float16")}
     # (key, kernel, program, run_program backend, its route, repetitions)
-    legs = [("panel_typed_bf16", "panel", jacobi8["bfloat16"], "auto",
+    legs = [("panel_typed_bf16", "panel", jacobi4["bfloat16"], "auto",
              "panel"),
-            ("panel_typed_f16", "panel", jacobi8["float16"], "auto",
+            ("panel_typed_f16", "panel", jacobi4["float16"], "auto",
              "panel"),
             ("overlap_typed_bf16", "overlap",
              typed("diffusion", (512,) * 3, 2, "bfloat16"), "auto",
              "overlap"),
-            ("stream_typed_bf16", "stream", jacobi8["bfloat16"], "stream",
+            ("stream_typed_bf16", "stream", jacobi4["bfloat16"], "stream",
              "stream"),
             ("group_typed_bf16", "group",
              typed("diffusion", (8192, 8192), 8, "bfloat16"), "auto",
@@ -3326,8 +3383,8 @@ def _narrow_small(sft, pn, ov, gp, st, cases, lib_of, smi):
 
 
 def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
-    """Phase 4's narrow rows at full width: jacobi3d 512^3 x 8 typed bf16
-    and f16 (K1), jacobi3d 512^3 x 2 bf16 (K2), jacobi3d 512^3 x 8 bf16
+    """Phase 4's narrow rows at full width: jacobi3d 512^3 x 4 typed bf16
+    and f16 (K1), jacobi3d 512^3 x 2 bf16 (K2), jacobi3d 512^3 x 4 bf16
     with ``--backend stream`` (K3a) and jacobi2d 8192^2 x 8 bf16
     (rows+group_g8, K5).  Each drives ``run_program`` with the narrow
     counts set to 0 just before and read just after (the route must be
@@ -3397,6 +3454,555 @@ def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": lib_ms}
     return out
+
+
+# -- programs typed bfloat16 and float16 on K4 and K6, the entry points above
+#    them, and float16 compute ----------------------------------------------
+
+K4_REPLACES = "stencilflow_tpu/backend/stream.py:1943"
+K6_REPLACES = "stencilflow_tpu/backend/pallas.py:254"
+NARROW_TYPES = ("bfloat16", "float16")
+
+
+def _nk_tag(dt: str) -> str:
+    return "bf16" if dt == "bfloat16" else "f16"
+
+
+def _nk_setup(sft, st, tl, synthesize_stencil):
+    """Phase 2's share of the narrow K4 and K6 legs, each planned as its
+    entry point plans it: phase 3's small cases (jacobi3d and hdiff3d
+    64^3 x 3 typed bf16 and f16: K4 at 4 chunks and over 2 x 2 shards, K6
+    masked and fast), phase 4's K6 cells (jacobi3d 512^3 x 2, both types,
+    both modes), phase 5's out-of-core cell (jacobi3d 1024^3 x 8 bf16 at
+    8 chunks), phase 7's solver programs (jacobi3d 512^3 bf16 fused by 8,
+    jacobi3d 256^3 x 8 bf16 and its adjoint, backward Euler 512^3 f16) and
+    phase 9's cell (jacobi3d 512^3 x 8 bf16 over 2 x 2 and over 4
+    positions).  Returns (setup, sources to build, thunks that build
+    through the entry points)."""
+    import torch
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.grad import adjoint_program
+    from stencilflow_tpu_torch.iterate import compose_iterations
+    from stencilflow_tpu_torch.parallel import (compile_pipeline_split,
+                                                compile_sharded_chain)
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.solver_cells import implicit_diffusion
+
+    def typed(shape, n, iters, dt):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape=shape,
+            seed_data="random:0.0,1.0", data_type=dt),
+            name=f"{shape}3d_{n}_{iters}itr_{_nk_tag(dt)}")
+    cuda = torch.device("cuda", 0)
+    jk = make_mesh([cuda], (2, 2), ("x", "y"))
+    p4 = make_mesh([cuda], (4,), ("p",))
+    sources, thunks, small = [], [], []
+    for dt in NARROW_TYPES:
+        for shape in ("diffusion", "hdiff"):
+            p = typed(shape, 64, 3, dt)
+            plan = _local_plan(p, 4)
+            small.append(("chunk", p, plan))
+            sources.append((st.stream_source(plan), "local_stream"))
+            small.append(("shard", p, None))
+            thunks.append(lambda p=p: compile_sharded_chain(
+                p, jk, (None, "x", "y")))
+            for mode in ("masked", "fast"):
+                plan = tl.plan_tile(p, mode=mode)
+                small.append((mode, p, plan))
+                sources.append((tl.tile_source(plan), "tile"))
+    tiles = {}
+    for dt in NARROW_TYPES:
+        p = typed("diffusion", 512, 2, dt)
+        for mode in ("fast", "masked"):
+            tiles[dt, mode] = (p, tl.plan_tile(p, mode=mode))
+            sources.append((tl.tile_source(tiles[dt, mode][1]), "tile"))
+    oc = typed("diffusion", 1024, 8, "bfloat16")
+    oc_plan = _local_plan(oc, 8)
+    sources.append((st.stream_source(oc_plan), "local_stream"))
+    dist = typed("diffusion", 512, 8, "bfloat16")
+    thunks += [lambda: compile_sharded_chain(dist, jk, (None, "x", "y")),
+               lambda: compile_pipeline_split(dist, p4, "p")]
+    step = typed("diffusion", 512, 1, "bfloat16")
+    grad = typed("diffusion", 256, 8, "bfloat16")
+    euler = implicit_diffusion(512, dtype="float16")
+    for q in (oc, dist, compose_iterations(step, 8), grad,
+              adjoint_program(grad)[0], euler):
+        thunks.append(lambda q=q: compile_chain_best(q, device="cuda"))
+    setup = {"small": small, "tiles": tiles, "oc": (oc, 8, oc_plan),
+             "dist": (dist, jk, p4), "solvers": (step, grad, euler)}
+    return setup, sources, thunks
+
+
+def _nk_small(sft, st, tl, small, lib_of, smi):
+    """Phase 3's narrow K4 and K6 cases: K4 chunk by chunk (4 chunks) and
+    shard by shard over 2 x 2 (shards at non-zero j and k origins), K6
+    masked and fast; every launch against its plain version on the card
+    bit for bit and counted under its narrow mode ("local_narrow",
+    "shard_narrow", K6's "narrow"), the assembled output against the host
+    oracle bit for bit."""
+    import torch
+    from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    from stencilflow_tpu_torch.dtypes import to_numpy
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    jk = make_mesh([torch.device("cuda", 0)], (2, 2), ("x", "y"))
+    oracles = {}
+    for kind, p, plan in small:
+        for module, mode in ((st, "local_narrow"), (st, "shard_narrow"),
+                             (tl, "narrow")):
+            module.launches_by[mode] = 0
+        inputs = sft.load_input_arrays(p, seed=7)
+        if p.name not in oracles:
+            oracles[p.name] = sft.run_interpreter(p, inputs)
+        o = p.outputs[0]
+        want_o = oracles[p.name][o]
+        full = np.zeros(p.dimensions, want_o.dtype)
+        worst, pieces = 0.0, []
+        if kind == "chunk":
+            module, mode = st, "local_narrow"
+            lib = lib_of[st.stream_source(plan)]
+            for c in range(4):
+                lo = c * plan.block - plan.halo_i
+                slabs = _chunk_slabs(p, inputs, lo, plan.extent())
+                pieces.append((st.run_local_stream(plan, lo, slabs, lib),
+                               st.local_stream_plain(plan, lo, slabs),
+                               slice(c * plan.block, (c + 1) * plan.block)))
+            where = f"chunks 4, tile {plan.tile}"
+        elif kind == "shard":
+            module, mode = st, "shard_narrow"
+            fn, dplan = compile_sharded_chain(p, jk, (None, "x", "y"))
+            if fn.plan is None:
+                raise RuntimeError(f"narrow: {p.name} fell to the tile body")
+            plan = fn.plan
+            lib = st.build_stream(plan)   # built in phase 2: a lookup
+            per = fn.exchange(place_global_inputs(p, dplan, inputs))
+            for c, tiles in per.items():
+                oi, oj, ok = dplan.block_origin(c)
+                args = (oi - dplan.halo[0], tiles)
+                extra = (oj, ok, dplan.instance(c))
+                pieces.append((
+                    st.run_local_stream(plan, *args, lib, *extra),
+                    st.local_stream_plain(plan, *args, *extra),
+                    tuple(slice(a, a + b) for a, b in zip(
+                        (oi, oj, ok), dplan.block))))
+            where = f"4 shards, tile {plan.tile}"
+        else:
+            module, mode = tl, "narrow"
+            lib = lib_of[tl.tile_source(plan)]
+            arrays = spanned_arrays(p, inputs, device="cuda")
+            pieces.append((tl.run_tile(plan, arrays, lib),
+                           tl.tile_plain(plan, arrays), slice(None)))
+            where = f"{plan.mode}, tile {plan.tile}"
+        torch.cuda.synchronize()
+        n = module.launches_by[mode]
+        for got, want, at in pieces:
+            g = to_numpy(got[o])
+            ok, err = _narrow_held(g, to_numpy(want[o]), 0.0)
+            worst = max(worst, err)
+            if not ok:
+                raise RuntimeError(f"narrow {kind} kernel on {p.name} "
+                                   "disagrees with its plain version")
+            full[at] = g.reshape(full[at].shape)
+        ok_o, err_o = _narrow_held(full, want_o, 0.0)
+        print(f"compare: narrow  {'K4' if kind in ('chunk', 'shard') else 'K6'}"
+              f" {kind:6s} {p.name:24s} {where}: max_abs_err {worst:.3g} "
+              f"(oracle {err_o:.3g}) launches {n} "
+              f"{'OK' if ok_o and n == len(pieces) else 'MISMATCH'} "
+              "(bit-exact)", flush=True)
+        if not ok_o or n != len(pieces):
+            raise RuntimeError(f"narrow {kind} kernel on {p.name}: launches "
+                               f"{n}, oracle max abs err {err_o}")
+    print(f"narrow k4/k6: phase 3's cases took "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+
+def _nk_tiles(sft, tl, run_program, tiles, lib_of, smi, memo, twin):
+    """Phase 4's K6 cells typed bf16 and f16: jacobi3d 512^3 x 2 through
+    ``run --backend tile`` (fast mode, ``tile.AUTO_MODE``; 10 calls and
+    the warm-up, so 11 narrow launches) and through
+    ``compile_chain_tile(mode="masked")`` (one call), the narrow count
+    set to 0 just before and read just after each; the kernel against
+    its plain version on the same inputs and the entry point's output,
+    bit for bit, timed beside 2 chained ``F.conv3d`` in the program's
+    type (the bf16 inputs made from ``twin``'s, its float32 twin,
+    ``_InputMemo.as_bf16``).  Returns the kernels line's entries."""
+    import torch
+    from stencilflow_tpu_torch.dtypes import to_numpy, to_torch_dtype
+    out = {}
+    t0 = time.perf_counter()
+    for (dt, mode), (p, plan) in tiles.items():
+        o = p.outputs[0]
+        if dt == "bfloat16":
+            memo.as_bf16(p, twin)
+        lib = lib_of[tl.tile_source(plan)]
+        tl.launches_by["narrow"] = 0
+        if mode == "fast":
+            res = run_program(p, device="cuda", backend="tile",
+                              repetitions=10, save_results=False,
+                              log_level=0)
+            main_out, main_ms, want_n = (res.outputs[o],
+                                         res.wall_time_s * 1e3, 11)
+            if res.backend != "tile":
+                raise RuntimeError(f"{p.name}: backend {res.backend}")
+            del res
+        else:
+            fn = tl.compile_chain_tile(p, mode="masked")
+            t1 = time.perf_counter()
+            main_out = to_numpy(fn(_spanned_on_card(sft, p))[o])
+            main_ms, want_n = (time.perf_counter() - t1) * 1e3, 1
+            # (one call, its inputs drawn and moved and its output read
+            # back included)
+        launches = tl.launches_by["narrow"]
+        arrays = _spanned_on_card(sft, p)
+        got = tl.run_tile(plan, arrays, lib)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = tl.tile_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        g = to_numpy(got[o])
+        ok, err = _narrow_held(g, to_numpy(want[o]), 0.0)
+        same = _narrow_held(g, np.asarray(main_out).reshape(g.shape), 0.0)[0]
+        del got, want, main_out
+        ms = _time_ms(lambda: tl.run_tile(plan, arrays, lib), 10)
+        del arrays
+        torch.cuda.empty_cache()
+        lib_ms = _conv_chain_ms(p, 1, dtype=to_torch_dtype(
+            p.field_dtype(o)))
+        torch.cuda.empty_cache()
+        bound_ms, bound_by = _bound(p)
+        key = f"tile_{'masked_' if mode == 'masked' else ''}typed_" \
+              f"{_nk_tag(dt)}"
+        print(f"kernel: {key} {p.name} {mode}, tile {plan.tile}, smem "
+              f"{plan.smem_bytes()} B: {ms:.3f} ms "
+              f"({p.total_elements / ms / 1e6:.2f} GCell/s) | entry point "
+              f"{main_ms:.3f} ms, launches {launches} (expected {want_n}), "
+              f"{'equal to the kernel' if same else 'DIFFERS'} | plain "
+              f"version {plain_ms:.1f} ms, max_abs_err {err:.3g} "
+              f"{'bit-equal' if ok else 'MISMATCH'} | bound {bound_ms:.4f} "
+              f"ms ({bound_by}, 2 B a cell) | {len(p.kernels)} chained "
+              f"F.conv3d in {_nk_tag(dt)} {lib_ms:.3f} ms | {smi}",
+              flush=True)
+        if not ok or not same or launches != want_n:
+            raise RuntimeError(f"{key}: K6 disagrees with its plain version "
+                               "or its entry point")
+        out[key] = {"name": key, "route": "cuda",
+                    "source": "stencilflow_tpu_torch/backend/codegen.py",
+                    "replaces": K6_REPLACES, "launches": launches,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms}
+    print(f"narrow k4/k6: phase 4's K6 cells took "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return out
+
+
+def _nk_outofcore(sft, st, pn, ov, gp, tl, oc, lib_of, smi, run_program,
+                  memo, twin):
+    """Phase 5's narrow cell: ``run --host-chunks 8`` on jacobi3d 1024^3 x
+    8 typed bf16.  K4 alone on the middle chunk against its plain version
+    (bit for bit) and timed; then the in-core narrow route (K1) and the
+    out-of-core call on the same inputs, the counts set to 0 just before
+    and read just after the latter (K4's narrow launches: 8 a call,
+    nothing else launched), bit-equal to the in-core route; its ms a
+    call, the bytes over the host link and the link's bound.  The inputs
+    are ``twin``'s (the float32 cell) rounded to bf16
+    (``_InputMemo.as_bf16``).  Returns K4's entry of the kernels line."""
+    import torch
+    from stencilflow_tpu_torch import outofcore
+    from stencilflow_tpu_torch.dtypes import to_numpy
+    from stencilflow_tpu_torch.report import Report
+    t0 = time.perf_counter()
+    p, chunks, plan = oc
+    memo.as_bf16(p, twin)
+    o = p.outputs[0]
+    lib = lib_of[st.stream_source(plan)]
+    _, J, K = p.dimensions
+    c = chunks // 2
+    lo = c * plan.block - plan.halo_i
+    slabs = _chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
+                         plan.extent())
+    got = st.run_local_stream(plan, lo, slabs, lib)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = st.local_stream_plain(plan, lo, slabs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    ok, err = _narrow_held(to_numpy(got[o]), to_numpy(want[o]), 0.0)
+    del got, want
+    ms = _time_ms(lambda: st.run_local_stream(plan, lo, slabs, lib), 10)
+    in_bytes = sum(t.numel() * t.element_size() for n, t in slabs.items()
+                   if not p.inputs[n].is_scalar)
+    out_bytes = plan.block * J * K * 2
+    bound_ms, bound_by = _share_bound(p, in_bytes, out_bytes,
+                                      plan.block / p.dimensions[0])
+    del slabs
+    torch.cuda.empty_cache()
+    lib_ms = _conv_chain_ms(p, 1, shape=(plan.extent(), J, K),
+                            dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"K4 on {p.name} disagrees with its plain "
+                           "version")
+    reps = 2
+    res = run_program(p, device="cuda", repetitions=reps,
+                      save_results=False, log_level=0)
+    in_core, route, in_ms = res.outputs[o], res.backend, \
+        res.wall_time_s * 1e3
+    del res
+    torch.cuda.empty_cache()
+    up_rate, down_rate = _link_rates()
+    _counts_zero(pn, ov, gp, tl, st)
+    res = run_program(p, device="cuda", host_chunks=chunks,
+                      repetitions=reps, save_results=False, log_level=0)
+    counts = _counts(pn, ov, gp, tl, st)
+    n = counts.pop("stream:local_narrow", 0)
+    label = f"outofcore[stream x{chunks} chunks]"
+    if res.backend != label or n != chunks * (reps + 1) or counts:
+        raise RuntimeError(f"{p.name}: {res.backend} launched K4 {n} times "
+                           f"over {reps + 1} calls (others {counts})")
+    same = _narrow_held(res.outputs[o], in_core, 0.0)[0]
+    up, down = outofcore.link_bytes(p, outofcore.ChunkPlan(
+        chunks, plan.block, plan.halo_i, "stream", {}))
+    duplex = max(up / up_rate, down / down_rate) * 1e3
+    io = Report.build(p).hbm_footprint_bytes()
+    print(f"outofcore: {p.name} --host-chunks {chunks}: {res.backend} "
+          f"{res.wall_time_s * 1e3:.3f} ms a call (CUDA events over {reps} "
+          f"calls, transfers included) | in-core {route} {in_ms:.3f} ms | "
+          f"{'equal to' if same else 'DIFFERS FROM'} the in-core route | K4 "
+          f"narrow launches {n} over {reps + 1} calls ({chunks} a call) | "
+          f"link {up / 2 ** 30:.3f} GiB up + {down / 2 ** 30:.3f} GiB "
+          f"down, bound {duplex:.3f} ms both ways at once (link "
+          f"{up_rate / 1e9:.2f} / {down_rate / 1e9:.2f} GB/s) | in-core "
+          f"in+out {io / 2 ** 30:.3f} GiB | K4 on chunk {c} of {chunks} "
+          f"tile {plan.tile} x {plan.threads}: {ms:.3f} ms, plain version "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{len(p.kernels)} chained F.conv3d in bf16 over the widened "
+          f"chunk {lib_ms:.3f} ms, max_abs_err {err:.3g} | leg "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    if not same:
+        raise RuntimeError(f"{p.name}: the narrow out-of-core call differs "
+                           "from the in-core route")
+    del res, in_core
+    torch.cuda.empty_cache()
+    return {"name": "local_stream_typed_bf16", "route": "cuda",
+            "source": "stencilflow_tpu_torch/backend/codegen.py",
+            "replaces": K4_REPLACES, "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _nk_solvers(sft, pn, ov, gp, tl, st, solvers, smi):
+    """Phase 7's narrow legs: ``iterate`` on jacobi3d 512^3 typed bf16
+    fused by 8, 32 steps, checkpointed at step 16 by a first call and
+    resumed by a second, bit-equal to the uninterrupted run;
+    ``fast_value_and_grad`` on jacobi3d 256^3 x 8 bf16, its gradient
+    bit-equal to the adjoint program's dense lowering on the card; CG on
+    backward Euler 512^3 typed f16 cut to its first 4 iterations.  Each
+    with the counts set to 0 just before and read just after."""
+    import tempfile
+    import torch
+    from stencilflow_tpu_torch.backend.dense import compile_chain
+    from stencilflow_tpu_torch.dtypes import BFLOAT16, to_numpy, to_torch
+    from stencilflow_tpu_torch.grad import _adjoint_extras
+    t0 = time.perf_counter()
+    step, grad, euler = solvers
+    inputs = sft.load_input_arrays(step, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        _counts_zero(pn, ov, gp, tl, st)
+        sft.iterate(step, inputs, 16, fuse=8, checkpoint_every=16,
+                    checkpoint_dir=d)
+        with np.load(os.path.join(d, "step_16.npz")) as z:
+            kept = z["a"].dtype
+        stats = {}
+        resumed = sft.iterate(step, inputs, 32, fuse=8, checkpoint_every=16,
+                              checkpoint_dir=d, stats=stats)
+        counts = _counts(pn, ov, gp, tl, st)
+    whole = sft.iterate(step, inputs, 32, fuse=8, device="cuda")
+    same = all(resumed[k].dtype == whole[k].dtype and np.array_equal(
+        resumed[k].view(np.uint8), whole[k].view(np.uint8)) for k in whole)
+    del inputs, resumed, whole
+    t_it = time.perf_counter() - t0
+    print(f"solvers: iterate {step.name} 32 steps fused by 8, checkpointed "
+          f"at 16 ({kept}) and resumed: {stats['backend']}, launches "
+          f"{counts}, {'bit-equal to' if same else 'DIFFERS FROM'} the "
+          f"uninterrupted run | {t_it:.1f} s | {smi}", flush=True)
+    if kept != BFLOAT16 or not same or not counts:
+        raise RuntimeError("narrow iterate: the resumed run differs")
+    t1 = time.perf_counter()
+    ginputs = sft.load_input_arrays(grad, seed=0)
+    f = sft.fast_value_and_grad(grad, device="cuda")
+    f(ginputs)
+    torch.cuda.synchronize()
+    _counts_zero(pn, ov, gp, tl, st)
+    value, grads = f(ginputs)
+    torch.cuda.synchronize()
+    counts = _counts(pn, ov, gp, tl, st)
+    adj, cot = sft.adjoint_program(grad)
+    o = grad.outputs[0]
+    dense = compile_chain(adj)({cot[o]: torch.ones(
+        grad.raw_dimensions, dtype=torch.bfloat16, device="cuda"), **{
+        k: to_torch(v, "cuda") for k, v in _adjoint_extras(adj, cot).items()}})
+    name = next(iter(grads))
+    g = to_numpy(grads[name])
+    ok = g.dtype == BFLOAT16 and np.array_equal(
+        g.view(np.uint16),
+        to_numpy(dense[f"adj_{name}"]).reshape(g.shape).view(np.uint16))
+    del dense, grads, ginputs
+    torch.cuda.empty_cache()
+    print(f"solvers: fast_value_and_grad {grad.name} ({f.lowering}) value "
+          f"{float(value):.6g}, launches {counts}, gradient "
+          f"{'bit-equal to' if ok else 'DIFFERS FROM'} the adjoint's dense "
+          f"lowering | {time.perf_counter() - t1:.1f} s | {smi}", flush=True)
+    if not ok or len(counts) < 1:
+        raise RuntimeError("narrow fast_value_and_grad: the gradient differs")
+    t1 = time.perf_counter()
+    solver = sft.make_solver(euler, maxiter=4, device="cuda")
+    # the dots stay in float16, as the JAX package's do: a right-hand side
+    # in [0, 0.02) keeps |b|^2 over 512^3 cells below float16's largest
+    # value (one in [0, 1) overflows it, and CG stops at once)
+    rhs = (torch.rand(euler.dimensions, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+           * 0.02).half()
+    _counts_zero(pn, ov, gp, tl, st)
+    x, info = solver(rhs)
+    torch.cuda.synchronize()
+    counts = _counts(pn, ov, gp, tl, st)
+    good = (info["iterations"] == 4 and x.dtype == torch.float16
+            and bool(torch.isfinite(x).all()) and info["residual"] < 1)
+    print(f"solvers: solve_cg {euler.name} ({solver.lowering}) 4 "
+          f"iterations in float16: residual {info['residual']:.4g}, "
+          f"launches {counts} | {time.perf_counter() - t1:.1f} s | {smi}",
+          flush=True)
+    if not good or not counts:
+        raise RuntimeError(f"narrow solve_cg: {info}")
+    print(f"solvers: the narrow legs took {time.perf_counter() - t0:.1f} s "
+          f"| {smi}", flush=True)
+
+
+def _nk_sharded(sft, st, pn, ov, gp, tl, dist, smi, memo, twin):
+    """Phase 9's narrow cell: jacobi3d 512^3 x 8 typed bf16 over 2 x 2
+    (domain) and over 4 positions (pipeline), each driven once with the
+    counts set to 0 just before and read just after (K4's narrow
+    launches: the shards, or segments x chunks; nothing else), bit-equal
+    to the single-device narrow route; then the last shard and segment 0
+    on chunk 1 through K4 against its plain version (bit for bit) and
+    timed, beside chained ``F.conv3d`` in bf16 over its widened block.
+    The inputs are ``twin``'s (phase 9's float32 cell) rounded to bf16
+    (``_InputMemo.as_bf16``).  Returns the two entries of the kernels
+    line."""
+    import torch
+    from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.dtypes import to_numpy, to_torch
+    from stencilflow_tpu_torch.parallel import (compile_pipeline_split,
+                                                compile_sharded_chain)
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    p, jk, p4 = dist
+    o = p.outputs[0]
+    memo.as_bf16(p, twin)
+    inputs = sft.load_input_arrays(p, seed=0)
+    dev_in = {n: to_torch(v, "cuda") if np.ndim(v) else v
+              for n, v in inputs.items()}
+    single, route = compile_chain_best(p, device="cuda")
+    ref = to_numpy(single(dev_in)[o]).reshape(p.raw_dimensions)
+    entries = {}
+    for key, segment in (("local_stream_shard_typed_bf16", False),
+                         ("local_stream_segment_typed_bf16", True)):
+        t0 = time.perf_counter()
+        if segment:
+            fn, plan = compile_pipeline_split(p, p4, "p")
+            placed, sp, mode = fn.place(dev_in), fn.stream_plans[0], \
+                "stream:local_narrow"
+            want_n = len(plan.segments) * plan.num_chunks
+        else:
+            fn, plan = compile_sharded_chain(p, jk, (None, "x", "y"))
+            placed, sp, mode = place_global_inputs(p, plan, inputs), \
+                fn.plan, "stream:shard_narrow"
+            want_n = jk.size
+        if fn.last_config["backend"] != "stream":
+            raise RuntimeError(f"narrow {key}: {fn.last_config}")
+        torch.cuda.synchronize()
+        _counts_zero(pn, ov, gp, tl, st)
+        out = fn(placed)
+        torch.cuda.synchronize()
+        counts = _counts(pn, ov, gp, tl, st)
+        n = counts.pop(mode, 0)
+        got_all = to_numpy(out[o].gather(torch.device("cuda", 0)))
+        same = _narrow_held(got_all, ref, 0.0)[0]
+        del out, got_all
+        ms = _time_ms(lambda: fn(placed), 5)
+        if segment:
+            E = plan.widen[0][0]
+            lo = plan.chunk - E
+            tiles = {n_: _i_window(v, lo, plan.chunk + 2 * E)
+                     if not p.inputs[n_].is_scalar
+                     and p.inputs[n_].dim_mask[0] else v
+                     for n_, v in dev_in.items() if n_ in sp.program.inputs}
+            args, extra, where = (lo, tiles), (), "segment 0, chunk 1"
+        else:
+            per = fn.exchange(placed)
+            c = list(per)[-1]
+            oi, oj, ok = plan.block_origin(c)
+            tiles = per[c]
+            args, extra = (oi - plan.halo[0], tiles), (oj, ok,
+                                                       plan.instance(c))
+            where = f"shard {c}"
+        lib = st.build_stream(sp)   # built in phase 2: a lookup
+        got = st.run_local_stream(sp, *args, lib, *extra)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = st.local_stream_plain(sp, *args, *extra)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        so = sp.program.outputs[0]
+        if segment:   # the in-domain planes of the segment's block
+            g0 = args[0] + sp.halo_i
+            win = slice(max(0, -g0), min(sp.block, p.dimensions[0] - g0))
+        else:
+            win = slice(None)
+        good, err = _narrow_held(to_numpy(got[so][win]),
+                                 to_numpy(want[so][win]), 0.0)
+        out_bytes = sum(t.numel() * t.element_size() for t in got.values())
+        del got, want
+        k_ms = _time_ms(lambda: st.run_local_stream(sp, *args, lib, *extra),
+                        5)
+        in_bytes = sum(t.numel() * t.element_size() for n_, t in tiles.items()
+                       if n_ in sp.program.inputs
+                       and not sp.program.inputs[n_].is_scalar)
+        bound_ms, bound_by = _share_bound(
+            sp.program if segment else p, in_bytes, out_bytes,
+            sp.block / p.dimensions[0] if segment else 1 / jk.size)
+        wide = tuple(next(t.shape for n_, t in tiles.items()
+                          if n_ in sp.program.inputs
+                          and not sp.program.inputs[n_].is_scalar))
+        lib_ms = _conv_chain_ms(sp.program, 1, shape=wide,
+                                dtype=torch.bfloat16)
+        print(f"narrow k4/k6: {p.name} "
+              f"{'over 4 positions (pipeline)' if segment else 'over 2 x 2 (domain)'}"
+              f" {ms:.3f} ms a call, K4 narrow launches {n} (expected "
+              f"{want_n}, others {counts}), "
+              f"{'bit-equal to' if same else 'DIFFERS FROM'} the "
+              f"single-device {route} | {where}: tile {sp.tile} x "
+              f"{sp.threads}, smem {sp.smem_bytes()} B, {k_ms:.3f} ms, plain "
+              f"version {plain_ms:.1f} ms, max_abs_err {err:.3g} "
+              f"{'OK' if good else 'MISMATCH'}, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {len(sp.program.kernels)} chained F.conv3d in "
+              f"bf16 over {wide} {lib_ms:.3f} ms | leg "
+              f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+        if not same or not good or n != want_n or counts:
+            raise RuntimeError(f"narrow {key}: differs, or launches {n} "
+                               f"(others {counts})")
+        entries[key] = {"name": key, "route": "cuda",
+                        "source": "stencilflow_tpu_torch/backend/codegen.py",
+                        "replaces": K4_REPLACES, "launches": n,
+                        "max_abs_err": err, "ms": k_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms}
+        del placed, tiles
+        torch.cuda.empty_cache()
+    return entries
 
 
 def main() -> int:
@@ -3698,24 +4304,33 @@ def main() -> int:
         bf16_main[key] = (kernel, p) + _bf16_plan(sft, pn, gp, st, codegen,
                                                   kernel, p, kw)
         sources.append((bf16_main[key][-1], kernel))
-    # bf16 compute (compute_dtype="bfloat16": K3a, K3b, K3c): phase 3's
+    # bf16 and f16 compute (compute_dtype: K3a, K3b, K3c): phase 3's
     # small cases, then phase 4's legs, each beside the f32 stream plan on
     # its tile (where that fits)
     cbf_small = []
-    for label, p, kw in (
-            ("K3a jacobi3d", synth("diffusion", small, 4), {"mxu": "off"}),
+    for label, p, kw, cd in (
+            ("K3a jacobi3d", synth("diffusion", small, 4), {"mxu": "off"},
+             "bfloat16"),
             ("K3a hotspot3d", synth("hotspot", small, 3,
-                                    boundary_value=0.3), {}),
-            ("K3b box-r2", stream_cases[2][1], {}),
-            ("K3b box-r2 fma", stream_cases[2][1], {"passes": "fma"}),
-            ("K3c jacobi3d spilled", local_cases[0][1], {"spill": "all"})):
-        plan = st.plan_stream(p, compute_dtype="bfloat16", **kw)
+                                    boundary_value=0.3), {}, "bfloat16"),
+            ("K3b box-r2", stream_cases[2][1], {}, "bfloat16"),
+            ("K3b box-r2 fma", stream_cases[2][1], {"passes": "fma"},
+             "bfloat16"),
+            ("K3c jacobi3d spilled", local_cases[0][1], {"spill": "all"},
+             "bfloat16"),
+            ("K3a hotspot3d f16", synth("hotspot", small, 3,
+                                        boundary_value=0.3), {}, "float16"),
+            ("K3b box-r2 f16", stream_cases[2][1], {}, "float16"),
+            ("K3c jacobi3d spilled f16", local_cases[0][1],
+             {"spill": "all"}, "float16")):
+        plan = st.plan_stream(p, compute_dtype=cd, **kw)
         cbf_small.append((label, p, plan))
         sources.append((st.stream_source(plan), "stream"))
     cbf_main = {}
-    for key, p in (("stream_compute_bf16", jacobi8),
-                   ("stream_compute_bf16_banded", box256)):
-        plan = st.plan_stream(p, compute_dtype="bfloat16")
+    for key, p, cd in (("stream_compute_bf16", jacobi8, "bfloat16"),
+                       ("stream_compute_bf16_banded", box256, "bfloat16"),
+                       ("stream_compute_f16", jacobi8, "float16")):
+        plan = st.plan_stream(p, compute_dtype=cd)
         try:
             f32 = st.plan_stream(p, tile=plan.tile)
         except ValueError:
@@ -3727,6 +4342,11 @@ def main() -> int:
     narrow_cases, narrow_mains, narrow_sources = _narrow_setup(
         sft, pn, ov, gp, st, codegen, rows, synthesize_stencil, small)
     sources += narrow_sources
+    # programs typed bfloat16 and float16 on K4 and K6 and the entry points
+    # above them: phase 3's small cases, then phases 4, 5, 7 and 9's cells
+    nk_setup, nk_sources, nk_thunks = _nk_setup(sft, st, tl,
+                                                synthesize_stencil)
+    sources += nk_sources
     # K6: phase 3's programs in both modes, then the forced cells
     tile_plans = []
     for label, p in cases:
@@ -3760,7 +4380,7 @@ def main() -> int:
     autotune_thunks = _autotune_thunks(cross256, autotune_build_s)
     with ThreadPoolExecutor(max_workers=8) as pool:
         solver_built = [pool.submit(t) for t in solver_thunks
-                        + sharded_thunks + autotune_thunks]
+                        + sharded_thunks + autotune_thunks + nk_thunks]
         libs = build.load_libraries(sources)
         for fut in solver_built:
             fut.result()
@@ -3962,31 +4582,35 @@ def main() -> int:
                 raise RuntimeError(f"{kernel} kernel ({label}) disagrees "
                                    "with its plain version")
 
-    # bf16 compute: per-cell plans bit for bit, banded ones by the banded
-    # rule (``stream.bf16_compute_agree``); each kernel and plain version
-    # timed (K3c's only timing: no main-path cell runs it)
+    # bf16 and f16 compute: per-cell plans bit for bit, banded ones by the
+    # banded rule (``stream.bf16_compute_agree``); each kernel and plain
+    # version timed (K3c's only timing: no main-path cell runs it)
+    from stencilflow_tpu_torch.dtypes import to_torch_dtype
     for label, p, plan in cbf_small:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
         lib = lib_of[st.stream_source(plan)]
-        before = st.launches_by["compute_bf16"]
+        cd = plan.compute_dtype
+        count = "compute_" + ("bf16" if cd == "bfloat16" else "f16")
+        before = st.launches_by[count]
         got = st.run_stream(plan, arrays, lib)
         torch.cuda.synchronize()
-        n = st.launches_by["compute_bf16"] - before
+        n = st.launches_by[count] - before
         t0 = time.perf_counter()
         want = st.stream_plain(plan, arrays)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         ms = _time_ms(lambda: st.run_stream(plan, arrays, lib), 5)
-        bound_ms, bound_by = _bound(p, compute_dtype="bfloat16")
-        conv = (f", {len(p.kernels)} chained F.conv3d in bf16 "
-                f"{_conv_chain_ms(p, 1, dtype=torch.bfloat16):.4f} ms"
+        bound_ms, bound_by = _bound(p, compute_dtype=cd)
+        conv = (f", {len(p.kernels)} chained F.conv3d in {cd} "
+                f"{_conv_chain_ms(p, 1, dtype=to_torch_dtype(plan.compute_narrow)):.4f} ms"
                 if plan.packed else "")
         for o in p.outputs:
             ok, fig = st.bf16_compute_agree(want[o].cpu().numpy(),
                                             got[o].cpu().numpy(),
                                             bool(plan.mxu_plans))
-            print(f"compare: bf16c   {label:28s} tile {plan.tile} x "
+            print(f"compare: {'bf16c' if cd == 'bfloat16' else 'f16c':7s} "
+                  f"{label:28s} tile {plan.tile} x "
                   f"{plan.threads} smem {plan.smem_bytes()} B"
                   f"{' spilled %d rings' % len(plan.spilled) if plan.packed else ''}"
                   f"{', ' + _routes(plan) + ' passes' if plan.tkeys else ''}"
@@ -3996,12 +4620,14 @@ def main() -> int:
                   f"version {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}){conv}", flush=True)
             if not ok or n != 1:
-                raise RuntimeError(f"bf16-compute stream kernel ({label}) "
+                raise RuntimeError(f"{cd}-compute stream kernel ({label}) "
                                    "disagrees with its plain version")
 
     # programs typed bfloat16 and float16 (K3c bf16's row comes from here)
     narrow_k3c = _narrow_small(sft, pn, ov, gp, st, narrow_cases, lib_of,
                                smi)
+    # K4 and K6 on programs typed bfloat16 and float16
+    _nk_small(sft, st, tl, nk_setup["small"], lib_of, smi)
 
     # K6, masked and fast
     for label, p, plan in tile_plans:
@@ -4481,6 +5107,8 @@ def main() -> int:
     report.update(_narrow_legs(sft, pn, ov, gp, st, run_program,
                                narrow_mains, lib_of, smi))
     report["stream_spill_typed_bf16"] = narrow_k3c
+    report.update(_nk_tiles(sft, tl, run_program, nk_setup["tiles"], lib_of,
+                            smi, inputs_memo, jacobi2))
     print(f"phase 4: the bf16 legs took {time.perf_counter() - t4:.1f} s",
           flush=True)
     # the library yardstick, after the main path (cuDNN state stays out
@@ -4513,6 +5141,9 @@ def main() -> int:
     inputs_memo.clear()
     report["local_stream"] = _outofcore(sft, st, pn, ov, gp, oc_cells,
                                         oc_plans, lib_of, smi, run_program)
+    report["local_stream_typed_bf16"] = _nk_outofcore(
+        sft, st, pn, ov, gp, tl, nk_setup["oc"], lib_of, smi, run_program,
+        inputs_memo, jacobi1024)
     report["local_stream_bf16"] = _outofcore_bf16(
         sft, st, pn, ov, gp, tl, box512, 4, oc_bf16, lib_of, smi, run_program)
     inputs_memo.clear()
@@ -4529,6 +5160,7 @@ def main() -> int:
     # -- 7. the solver entry points ------------------------------------------
     print(f"phase: 7 at {time.perf_counter() - t_run:.1f} s", flush=True)
     _solvers(sft, solver_progs, smi, report["panel"]["ms"])
+    _nk_solvers(sft, pn, ov, gp, tl, st, nk_setup["solvers"], smi)
 
     # -- 8. the simulator ------------------------------------------------------
     print(f"phase: 8 at {time.perf_counter() - t_run:.1f} s", flush=True)
@@ -4543,6 +5175,8 @@ def main() -> int:
     report["local_stream_segment"] = _pipeline(sft, st, pn, ov, gp, tl,
                                                sharded_setup, smi)
     report.update(_k4_bf16(sft, st, pn, ov, gp, tl, sharded_setup, smi))
+    report.update(_nk_sharded(sft, st, pn, ov, gp, tl, nk_setup["dist"], smi,
+                              inputs_memo, jacobi8))
     report["local_stream_shard_overlap"] = _overlap(
         sft, st, pn, ov, gp, tl, sharded_setup, smi)
     inputs_memo.clear()

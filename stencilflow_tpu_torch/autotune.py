@@ -54,8 +54,8 @@ import numpy as np
 import torch
 
 from . import ir
-from .backend.promotion import check_not_narrow
 from .bench import feed_loop, loop_lengths
+from .dtypes import to_torch
 from .frontend.analysis import ChainAnalysis
 from .probes import differenced_ms, host_differenced_ms
 
@@ -280,7 +280,6 @@ def autotune(program: ir.Program,
     to the measured set, which selects on speed alone and so never takes
     them otherwise; explicit ``labels`` bypass the filter.
     ``mxu_precision="bf16"`` forwards to the stream candidates."""
-    check_not_narrow(program, "autotune")
     from .data import load_input_arrays
     from .backend.stacked_io import resolve_device
     device = resolve_device(device)
@@ -296,7 +295,7 @@ def autotune(program: ir.Program,
     for label in labels:
         _check_label(builders, label)
     arrs = {k: v if program.inputs[k].is_scalar
-            else torch.as_tensor(np.asarray(v)).to(device)
+            else to_torch(v, device)
             for k, v in load_input_arrays(program, seed=seed).items()}
     fns, skipped, build_s = _build_all(builders, labels)
     timings: Dict[str, float] = {}
@@ -404,7 +403,6 @@ def compile_chain_autotuned(program: ir.Program,
     label that no longer builds (KeyError, ValueError,
     NotImplementedError) is tuned again on the same device.
     ``allow_reduced_precision`` is part of the cache key."""
-    check_not_narrow(program, "autotune")
     path = cache_path or default_cache_path()
     settings = dict(mxu=mxu, mxu_precision=mxu_precision, spill=spill)
     key = cache_key(program, device, **_key_settings(

@@ -41,9 +41,9 @@ import numpy as np
 from .. import ir
 from ..dtypes import BFLOAT16, FLOAT16, is_floating, is_narrow, scalar
 from ..frontend.analysis import ChainAnalysis
-from .promotion import (BF16, F32, bf16_join, bf16_value, const_dtype_of,
+from .promotion import (BF16, F32, bf16_join, const_dtype_of,
                         const_type, fill_value, is_bool, is_float, is_weak,
-                        result_type, strong)
+                        narrow_value, result_type, strong)
 from .stacked_io import THREADS, accesses_with_center, has_narrow
 
 _CT = {"float32": "float", "float64": "double", "int8": "int8_t",
@@ -291,14 +291,15 @@ def conv(src: str, ty_from, ty_to) -> str:
 
 
 class StageEmitter:
-    """Emits one kernel's stage function (``bf16``: computed in bf16, the
-    stream kernel's compute_dtype="bfloat16", ``expr_bf16``)."""
+    """Emits one kernel's stage function (``compute``: computed in that
+    narrow type, BFLOAT16 or FLOAT16, the stream kernel's
+    ``compute_dtype``, ``expr_bf16``)."""
 
     def __init__(self, program: ir.Program, kspec: ir.KernelSpec,
-                 bf16: bool = False):
+                 compute=None):
         self.program = program
         self.kspec = kspec
-        self.bf16 = bf16
+        self.compute = compute
         self.pin = const_dtype_of(kspec)
         self.accesses: List[Tuple[str, ir.Offsets]] = [
             (f, offs) for f, lst in kspec.accesses().items()
@@ -400,16 +401,19 @@ class StageEmitter:
         raise TypeError(f"unknown expression node {type(e)}")
 
     def expr_bf16(self, e: ir.Expr):
-        """``expr`` under bf16 compute (tile_eval ``eval_expr_bf16``'s
-        rule): array reads are bf16 values carried in float, float32
-        scalars and float constants float32; a bf16 site computes in
-        float and rounds its result (``sf_bfr``), a weak scalar meeting
-        bf16 is rounded to bf16 here."""
+        """``expr`` under a narrow compute (tile_eval ``eval_expr_bf16``'s
+        rule; promotion.py's ``BF16`` node is a value of the compute
+        type): array reads are compute-type values carried in float,
+        float32 scalars and float constants float32; a site of the
+        compute type computes in float and rounds its result (``sf_bfr``,
+        ``sf_hr``), a weak scalar meeting it is rounded to it here."""
         rec = self.expr_bf16
+        cdt = self.compute
 
         def cast(src, ty_from, ty_to):
             if is_weak(ty_from):
-                v = bf16_value(ty_from[1]) if ty_to == BF16 else ty_from[1]
+                v = narrow_value(ty_from[1], cdt) if ty_to == BF16 \
+                    else ty_from[1]
                 return literal(v, F32)
             if is_bool(ty_from) and not is_bool(ty_to):
                 return f"((float)({src}))"
@@ -420,7 +424,7 @@ class StageEmitter:
             return cast(a, at, ty), cast(b, bt, ty), ty
 
         def rnd(src, ty):
-            return f"sf_bfr({src})" if ty == BF16 else src
+            return f"{_rnd(cdt)}({src})" if ty == BF16 else src
         if isinstance(e, ir.Const):
             v, ty = const_type(e.value, F32)
             return (str(v) if is_weak(ty) else literal(v, ty)), ty
@@ -490,7 +494,7 @@ class StageEmitter:
         raise TypeError(f"unknown expression node {type(e)}")
 
     def function(self, name: str) -> str:
-        if self.bf16:
+        if self.compute is not None:
             return self._function_bf16(name)
         params = ", ".join(
             f"const {ctype(self.program.field_dtype(f))} v{i}"
@@ -517,8 +521,9 @@ class StageEmitter:
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
 
     def _function_bf16(self, name: str) -> str:
-        """The stage function under bf16 compute: float parameters that
-        hold bf16 values, a float result rounded to bf16."""
+        """The stage function under a narrow compute: float parameters
+        that hold values of the compute type, a float result rounded to
+        it."""
         params = ", ".join(f"const float v{i}" for i in
                            range(len(self.accesses))) or "void"
         body, declared = [], {}
@@ -534,11 +539,11 @@ class StageEmitter:
             self.env[stmt.lhs] = (var, ty)
         src, ty = self.env[self.kspec.output_statement.lhs]
         if is_weak(ty):
-            out = literal(bf16_value(ty[1]), F32)
+            out = literal(narrow_value(ty[1], self.compute), F32)
         elif ty == BF16:
             out = src
         else:
-            out = f"sf_bfr((float)({src}))"
+            out = f"{_rnd(self.compute)}((float)({src}))"
         return (f"SF_DEV float {name}({params}) {{\n"
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
 
@@ -564,7 +569,7 @@ def _inb(dim_mask, coords, dims) -> str:
 def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
               offsets: ir.Offsets, pos: Tuple[str, str, str],
               onchip, scalar_slot: Dict[str, int], at_pos=None,
-              at_dims=None, masked: bool = True, bf16: bool = False) -> str:
+              at_dims=None, masked: bool = True, compute=None) -> str:
     """C expression reading ``field`` at ``offsets`` from the cell whose
     global coords are ``pos``, boundary condition applied (unless
     ``masked`` is False: the mask-free interior read, zero beyond the
@@ -572,8 +577,8 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     field at offset vector ``o`` (or None: read the global array
     ``g_<field>``, whose cell is at ``at_pos`` in an array spanning
     ``at_dims`` — ``pos`` and the program's dimensions unless a chunk's
-    local slab is read).  ``bf16``: under bf16 compute the global arrays
-    hold bf16 and a constant BC's fill rounds to bf16."""
+    local slab is read).  ``compute``: under a narrow compute the global
+    arrays hold that type and a constant BC's fill rounds to it."""
     if field in program.inputs and program.inputs[field].is_scalar:
         return f"sc.x{scalar_slot[field]}"
     dims = program.dimensions
@@ -591,7 +596,7 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
         c = [f"({at_pos[d]} + {o[d]})" for d in range(3)]
         g = f"g_{field}[{_flat(mask, c, at_dims)}]"
         return (f"(({_inb(mask, c, at_dims)}) ? "
-                f"{f'sf_bf2f({g})' if bf16 else load(dt, g)} : "
+                f"{load(dt if compute is None else compute, g)} : "
                 f"{literal(0, dt)})")
 
     val = at(offs)
@@ -602,18 +607,18 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     if bc is not None and bc.kind == ir.BCKind.COPY:
         return f"(({m}) ? {at((0, 0, 0))} : {val})"
     fill = fill_value(bc, dt)
-    if bf16:
-        fill = np.float32(bf16_value(fill))
+    if compute is not None:
+        fill = np.float32(narrow_value(fill, compute))
     return f"(({m}) ? {literal(fill, dt)} : {val})"
 
 
 def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
                 at_dims=None, masked: bool = True,
-                bf16: bool = False) -> List[str]:
+                compute=None) -> List[str]:
     em = StageEmitter(program, kspec)
     lines = [f"const {ctype(program.field_dtype(f))} v{i} = "
              + read_expr(program, kspec, f, offs, pos, onchip(f), slots,
-                         at_pos, at_dims, masked, bf16) + ";"
+                         at_pos, at_dims, masked, compute) + ";"
              for i, (f, offs) in enumerate(em.accesses)]
     args = ", ".join(f"v{i}" for i in range(len(em.accesses)))
     lines.append(f"const {ctype(kspec.dtype)} r = sf_stage_{idx}({args});")
@@ -621,14 +626,15 @@ def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
 
 
 def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
-            bf16: bool = False):
+            compute=None):
     """(kernel order, prelude + scalar struct + one stage function per
-    kernel not in ``skip``, scalar slots); ``bf16``: stage functions
-    computed in bf16, after the stream kernel's and the bf16 macros they
-    call; a program with a narrow field gets those macros and the
-    float16 ones (``_HALF_MACROS``), and device-only stage functions."""
+    kernel not in ``skip``, scalar slots); ``compute``: stage functions
+    computed in that narrow type, after the stream kernel's and the
+    narrow macros they call; a program with a narrow field gets those
+    macros (the bf16 ones, and the float16 ones, ``_HALF_MACROS``) and
+    device-only stage functions."""
     order = analysis.graph.kernel_order
-    funcs = [StageEmitter(program, program.kernels[k], bf16).function(
+    funcs = [StageEmitter(program, program.kernels[k], compute).function(
         f"sf_stage_{i}") for i, k in enumerate(order) if k not in skip]
     scalars = [n for n, s in program.inputs.items() if s.is_scalar]
     slots = {n: i for i, n in enumerate(scalars)}
@@ -636,33 +642,35 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
               + "".join(f"  {ctype(program.inputs[n].dtype)} x{i};\n"
                         for i, n in enumerate(scalars)) + "};\n")
     narrow = has_narrow(program)
-    macros = _STREAM_MACROS + _BF16_MACROS if bf16 or narrow else ""
-    if narrow:
+    macros = _STREAM_MACROS + _BF16_MACROS \
+        if compute is not None or narrow else ""
+    if narrow or compute == FLOAT16:
         macros += _HALF_MACROS
     return order, prelude() + macros + struct + "\n".join(funcs), slots
 
 
 def _params(program: ir.Program, n_pool: int = 0,
             origin: bool = False, spill: bool = False,
-            bf16: bool = False) -> Tuple[str, str]:
+            compute=None) -> Tuple[str, str]:
     """Kernel parameter list and the matching launch arguments; ``n_pool``
     float32 tables follow the array inputs in ``in``; ``origin`` adds the
     local kernel's ``origin_i`` (``origin`` 3: and a shard's ``origin_j``,
     ``origin_k``); ``spill`` the stream kernel's spill
     buffer ``sf_spill`` (written and read back by the block, so neither
     const nor restrict: no read goes through the non-coherent path);
-    ``bf16``: array inputs and outputs are bf16 (bf16 compute)."""
+    ``compute``: array inputs and outputs are of that narrow type (a
+    narrow compute)."""
     params, args = [], []
     arrays = [n for n, s in program.inputs.items() if not s.is_scalar]
     for i, n in enumerate(arrays):
-        ct = "sf_bf16" if bf16 else stype(program.inputs[n].dtype)
+        ct = stype(program.inputs[n].dtype if compute is None else compute)
         params.append(f"const {ct}* __restrict__ g_{n}")
         args.append(f"(const {ct}*)in[{i}]")
     for i in range(n_pool):
         params.append(f"const float* __restrict__ pc{i}")
         args.append(f"(const float*)in[{len(arrays) + i}]")
     for i, o in enumerate(program.outputs):
-        ct = "sf_bf16" if bf16 else stype(program.kernels[o].dtype)
+        ct = stype(program.kernels[o].dtype if compute is None else compute)
         params.append(f"{ct}* __restrict__ o_{o}")
         args.append(f"({ct}*)out[{i}]")
     params.append("const SfScalars sc")
@@ -682,8 +690,8 @@ def _params(program: ir.Program, n_pool: int = 0,
 def _launcher(program, kernel: str, grid: str, smem: int, slots,
               n_pool: int = 0, origin: bool = False,
               spill: bool = False, threads: int = THREADS,
-              bf16: bool = False) -> str:
-    params, args = _params(program, n_pool, origin, spill, bf16)
+              compute=None) -> str:
+    params, args = _params(program, n_pool, origin, spill, compute)
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
                      for i in slots.values())
     if spill:   # the spill buffer follows the tables in ``in``
@@ -806,12 +814,13 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
         src = (f"g_{f} + (long long)({t_expr}) * {PJ * PK}LL + "
                f"(inb ? {cell.format(PK=PK, K=K)} : 0)")
         dst = f"r_{f} + {slot(f)} * {RJ * RK} + p"
-        if getattr(plan, "compute_bf16", False):
-            # bf16 arrays: synchronous copies (cp.async moves 4 bytes or
-            # more), into bf16 slots or a band pass's f32 source slots
-            st = (f"*({dst}) = inb ? *({src}) : sf_f2bf(0.0f);"
-                  if plan.bf16_slots(f) else
-                  f"*({dst}) = inb ? sf_bf2f(*({src})) : 0.0f;")
+        cdt = getattr(plan, "compute_narrow", None)
+        if cdt is not None:
+            # narrow arrays: synchronous copies (cp.async moves 4 bytes or
+            # more), into 2-byte slots or a band pass's f32 source slots
+            st = (f"*({dst}) = inb ? *({src}) : {zero(cdt)};"
+                  if plan.narrow_slots(f) else
+                  f"*({dst}) = inb ? {load(cdt, '*(' + src + ')')} : 0.0f;")
         elif size in (4, 8):
             st = f"sf_cp{size}({dst}, {src}, inb);"
         else:
@@ -846,7 +855,8 @@ def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
         lambda f: _slot(plan, f, -AHEAD))]
     step += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();"]
     for f in fields:
-        if plan.rounded(f) and not getattr(plan, "compute_bf16", False):
+        if plan.rounded(f) and getattr(plan, "compute_narrow",
+                                       None) is None:
             # a cp.async copy cannot convert: each thread rounds the cells
             # of plane t it copied itself, once they have landed
             RJ, RK = plan.region(f)
@@ -1241,25 +1251,25 @@ def _bf16_macros(plan, program) -> List[str]:
 
 
 def _slot_type(program, plan, f: str) -> str:
-    """C type of ring ``f``'s slots: ``sf_bf16`` where the plan keeps it
-    as bf16, else what ``f``'s type stores in."""
-    return "sf_bf16" if plan.bf16_slots(f) else stype(program.field_dtype(f))
+    """C type of ring ``f``'s slots: the plan's 2-byte ``slot_dtype``
+    where it keeps 2-byte slots, else what ``f``'s type stores in."""
+    return stype(plan.slot_dtype if plan.narrow_slots(f)
+                 else program.field_dtype(f))
 
 
 def _from_slot(program, plan, f: str, lv: str) -> str:
     """A read of ring ``f``'s slot ``lv`` as its compute type."""
-    if plan.bf16_slots(f):
-        return f"sf_bf2f({lv})"
-    return load(program.field_dtype(f), lv)
+    return load(plan.slot_dtype if plan.narrow_slots(f)
+                else program.field_dtype(f), lv)
 
 
 def _to_slot(program, plan, f: str, v: str) -> str:
-    """Value ``v`` as ring ``f`` stores it: converted to bf16, rounded in
-    an f32 slot (a rounded ring that keeps f32 slots), or as its type
-    stores it."""
-    if plan.bf16_slots(f):
-        return f"sf_f2bf({v})"
-    return f"sf_bfr({v})" if plan.rounded(f) else store(
+    """Value ``v`` as ring ``f`` stores it: converted to the 2-byte
+    ``slot_dtype``, rounded to it in an f32 slot (a rounded ring that
+    keeps f32 slots), or as its type stores it."""
+    if plan.narrow_slots(f):
+        return store(plan.slot_dtype, v)
+    return f"{_rnd(plan.slot_dtype)}({v})" if plan.rounded(f) else store(
         program.field_dtype(f), v)
 
 
@@ -1543,19 +1553,20 @@ class _StreamEmitter:
         # single-pass bf16 band passes: both operands of every pass round
         # to bf16 (the pool's bands are bf16 already: linear.finalize_pool)
         self.bf = plan.mxu_precision == "bf16"
-        # bf16 compute: the arrays hold bf16, every stage's result rounds
-        self.cbf = plan.compute_bf16
+        # a narrow compute: the arrays hold its type (None, or BFLOAT16 or
+        # FLOAT16), every stage's result rounds to it
+        self.cbf = plan.compute_narrow
 
     def gread(self, g: str, f: str) -> str:
         """A value of field ``f``'s global array read at ``g`` as its
         compute type."""
-        return f"sf_bf2f({g})" if self.cbf else load(
-            self.program.field_dtype(f), g)
+        return load(self.program.field_dtype(f) if self.cbf is None
+                    else self.cbf, g)
 
     def out(self, v: str, s: str) -> str:
         """Value ``v`` as stage ``s``'s output array stores it."""
-        return f"sf_f2bf({v})" if self.cbf else store(
-            self.program.kernels[s].dtype, v)
+        return store(self.program.kernels[s].dtype if self.cbf is None
+                     else self.cbf, v)
 
     def opnd(self, x: str) -> str:
         """A band pass's source operand ``x`` (rounded to bf16 under
@@ -1721,7 +1732,8 @@ class _StreamEmitter:
                 elif w_in[idx] != 0:
                     L.append(f"acc = fmaf({v}, "
                              f"{literal(f32(w_in[idx]), f32)}, acc);")
-            L.append("const float r = sf_bfr(acc);" if self.cbf else
+            L.append(f"const float r = {_rnd(self.cbf)}(acc);" if self.cbf
+                     is not None else
                      "const float r = acc;")
             return L
         for grp in mp.groups:
@@ -1773,7 +1785,8 @@ class _StreamEmitter:
             L += ["  }", "  acc = acc + part;", "}"]
         if mp.bias:
             L.append(f"acc = acc + {literal(f32(mp.bias), f32)};")
-        L.append("const float r = sf_bfr(acc);" if self.cbf else
+        L.append(f"const float r = {_rnd(self.cbf)}(acc);" if self.cbf
+                 is not None else
                  "const float r = acc;")
         return L
 
@@ -2107,7 +2120,8 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                 if hk:
                     cond.append(f"kl >= {hk} && kl < {hk + tk}")
                 qo = f"(q - {h})" if local else "q"
-                ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r", s)
+                ro = em.out(f"{_rnd(plan.slot_dtype)}(r)"
+                            if s in plan.rounds_out else "r", s)
                 if sharded:   # the shard's core, every body
                     BJ, BK = plan.core()
                     cond.append(f"gj - origin_j < {BJ} && gk - origin_k < "
@@ -2190,20 +2204,21 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     local = bool(plan.block)
     Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
     kernel = "sf_local_stream" if local else "sf_stream"
-    cbf = plan.compute_bf16
+    cbf = plan.compute_narrow
     order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans),
-                                 bf16=cbf)
+                                 compute=cbf)
     tj, tk = plan.tile
     ntj, ntk = plan.grid()
     n_pool = len(plan.kernel_pool())
     spill = bool(plan.spilled)
     origin = 3 if plan.shard[0] else local
     params, args = _params(program, n_pool, origin=origin, spill=spill,
-                           bf16=cbf)
+                           compute=cbf)
     em = _StreamEmitter(program, plan, slots)
-    # bf16 compute: _common put the stream and bf16 macros before the
-    # stage functions, which call sf_bfr
-    macros = [] if cbf else [_STREAM_MACROS] + _bf16_macros(plan, program)
+    # a narrow compute: _common put the stream and narrow macros before
+    # the stage functions, which call them
+    macros = [] if cbf is not None else [_STREAM_MACROS] + _bf16_macros(
+        plan, program)
     if plan.packed:
         L = [head] + macros[:1] + [_SPILL_MACROS] + macros[1:] + \
             _packed_stream_body(
@@ -2211,7 +2226,7 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
         L += _entry_points(program, kernel, params, args, (ntj, ntk),
                            plan.smem_bytes(), slots, n_pool, origin=origin,
                            spill_bytes=plan.spill_bytes() if spill else 0,
-                           bf16=cbf)
+                           compute=cbf)
         return "\n".join(L)
     body = _onchip_stream_body(program, plan, em, order, slots, kernel,
                                params)
@@ -2222,7 +2237,7 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
                        plan.smem_bytes(), slots, n_pool, origin=origin,
                        min_blocks=plan.min_blocks(), threads=plan.threads,
-                       bf16=cbf)
+                       compute=cbf)
     L += _occupancy(plan.smem_bytes(), plan.threads, kernel)
     return "\n".join(L)
 
@@ -2405,7 +2420,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             return at
 
         body = _stage_call(program, kspec, idx, pos, onchip, slots, at_pos,
-                           em.adims, bf16=em.cbf)
+                           em.adims, compute=em.cbf)
         if s in plan.spilled:
             body.append(f"st_{s}[p] = {_to_slot(program, plan, s, 'r')};")
         elif s in plan.raw_ring:
@@ -2414,7 +2429,8 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
             qo = f"(q - {h})" if local else "q"
-            ro = em.out("sf_bfr(r)" if s in plan.rounds_out else "r", s)
+            ro = em.out(f"{_rnd(plan.slot_dtype)}(r)"
+                        if s in plan.rounds_out else "r", s)
             if sharded:
                 body.append(f"if ({core}jl >= {hj} && jl < {hj + tj} && "
                             f"kl >= {hk} && kl < {hk + tk} && gj - origin_j"
@@ -2448,7 +2464,7 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
                   smem: int, slots, n_pool: int = 0,
                   origin: bool = False, spill_bytes: int = 0,
                   min_blocks: int = 0, threads: int = THREADS,
-                  segments: int = 0, bf16: bool = False) -> List[str]:
+                  segments: int = 0, compute=None) -> List[str]:
     """The ``__global__`` kernel around the block body ``<kernel>_block``
     and its ``sf_launch`` (``sf_local_launch`` with ``origin``) for nvcc;
     for g++, ``sf_host_launch``, which runs every block with one thread
@@ -2460,8 +2476,8 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
     grid dimension z of that many blocks, passed first to the block body
     (the group kernel's i-segments, the overlap kernel's blocks along i);
     the host then fills shared memory with NaN before every block, so a
-    block reads nothing another left.  ``bf16``: bf16 array inputs and
-    outputs (bf16 compute)."""
+    block reads nothing another left.  ``compute``: array inputs and
+    outputs of that narrow type (a narrow compute)."""
     ntj, ntk = grid
     bounds = f"{threads}, {min_blocks}" if min_blocks > 1 else f"{threads}"
     copies = "".join(f"  memcpy(&sc.x{i}, scal + {8 * i}, sizeof(sc.x{i}));\n"
@@ -2486,7 +2502,7 @@ def _entry_points(program, kernel: str, params: str, args: str, grid,
             "}",
             _launcher(program, kernel, f"dim3({ntk}, {ntj}{dim_z})", smem,
                       slots, n_pool, origin, bool(spill_bytes), threads,
-                      bf16),
+                      compute),
             "#else",
             'extern "C" void sf_host_launch(const void* const* in, '
             "void* const* out, const unsigned char* scal"
@@ -2811,15 +2827,17 @@ def tile_source(program: ir.Program, analysis: ChainAnalysis,
             if f not in plan.onchip:
                 return lambda o: None
             d = [plan.margin[f][x] - plan.margin[s][x] for x in range(3)]
-            return _block_reader(f"b_{f}", plan.region(f)[1:],
-                                 plan.region(s)[1:], d[0], d[1], d[2], xs)
+            at = _block_reader(f"b_{f}", plan.region(f)[1:],
+                               plan.region(s)[1:], d[0], d[1], d[2], xs)
+            return lambda o: load(program.field_dtype(f), at(o))
 
         bodies = []
         for m in (False, True):
             body = _stage_call(program, program.kernels[s], idx,
                                ("gi", "gj", "gk"), onchip, slots, masked=m)
+            rv = store(program.field_dtype(s), "r")
             if s in plan.onchip:
-                body.append(f"b_{s}[p] = r;")
+                body.append(f"b_{s}[p] = {rv};")
             if s in program.outputs:
                 cond = (f"il >= {mi} && il < {mi + ti} && jl >= {mj} && "
                         f"jl < {mj + tj} && kl >= {mk} && kl < {mk + tk}")
@@ -2827,7 +2845,7 @@ def tile_source(program: ir.Program, analysis: ChainAnalysis,
                     cond += f" && gi < {I} && gj < {J} && gk < {K}"
                 body.append(f"if ({cond}) "
                             f"o_{s}[((long long)gi * {J} + gj) * {K} + gk] "
-                            "= r;")
+                            f"= {rv};")
             bodies.append(body)
         pre = _cell_pre3(f"i0 - {mi}", mj, mk, xs)
         L.append(f"  // stage {s}: {EI} x {EJ} x {EK}")

@@ -96,7 +96,7 @@ from .. import ir
 from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
                       H100_GROUP_CELL_RATE, H100_SM_COUNT,
                       H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM)
-from ..dtypes import to_torch_dtype
+from ..dtypes import BFLOAT16, to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .panel import AHEAD, PANEL_THREADS, reach, tile_candidates
@@ -347,9 +347,12 @@ class GroupPlan:
     def rounded(self, f: str) -> bool:
         return f in self.rounds
 
-    def bf16_slots(self, f: str) -> bool:
-        """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
+    def narrow_slots(self, f: str) -> bool:
+        """Does ring ``f`` keep 2-byte slots of ``slot_dtype``?"""
         return f in self.rounds and f not in self.inputs
+
+    # the type of the 2-byte slots and of the rounding of rounded rings
+    slot_dtype = BFLOAT16
 
     def ring_planes(self, f: str) -> int:
         """Planes of ring ``f`` in shared memory: its slots' and the
@@ -364,7 +367,7 @@ class GroupPlan:
             rings[f] = off
             RJ, RK = self.region(f)
             off += _align16(self.ring_planes(f) * RJ * RK * (
-                2 if self.bf16_slots(f) else np.dtype(
+                2 if self.narrow_slots(f) else np.dtype(
                     program.field_dtype(f)).itemsize))
         temps, peak = [], 0
         for gi in range(len(self.groups)):

@@ -82,7 +82,7 @@ from .. import ir
 from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
                       H100_PANEL_CELL_RATE, H100_SM_COUNT,
                       H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM)
-from ..dtypes import to_torch_dtype
+from ..dtypes import BFLOAT16, to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .stacked_io import (THREADS, accesses_with_center, bc_select, check_scope,
@@ -235,12 +235,15 @@ class PanelPlan:
     def rounded(self, f: str) -> bool:
         return f in self.rounds
 
-    def bf16_slots(self, f: str) -> bool:
-        """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
+    def narrow_slots(self, f: str) -> bool:
+        """Does ring ``f`` keep 2-byte slots of ``slot_dtype``?"""
         return f in self.rounds and f not in self.inputs
 
+    # the type of the 2-byte slots and of the rounding of rounded rings
+    slot_dtype = BFLOAT16
+
     def plane_bytes(self, f: str, program: ir.Program) -> int:
-        return math.prod(self.region(f)) * (2 if self.bf16_slots(f) else
+        return math.prod(self.region(f)) * (2 if self.narrow_slots(f) else
                                             np.dtype(program.field_dtype(
                                                 f)).itemsize)
 

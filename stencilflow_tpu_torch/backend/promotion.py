@@ -31,7 +31,7 @@ from typing import Any
 import numpy as np
 
 from .. import ir
-from ..dtypes import BFLOAT16, FLOAT16, is_floating, scalar
+from ..dtypes import BFLOAT16, FLOAT16, dtype_to_str, is_floating, scalar
 
 WEAK_INT, WEAK_FLOAT = "wi", "wf"
 
@@ -135,29 +135,17 @@ def fill_value(bc, dtype) -> np.generic:
                       constant_values=v)[0]
 
 
-def check_not_narrow(program: ir.Program, what: str) -> None:
-    """Refuse a program with a bfloat16 or float16 field where ``what``
-    (a lowering or entry point) has no narrow path yet:
-    NotImplementedError naming ROADMAP Queue 1 item 11, so the routing
-    ladder falls through it."""
-    for name in list(program.inputs) + list(program.kernels):
-        dt = np.dtype(program.field_dtype(name))
-        if dt in (BFLOAT16, FLOAT16):
-            raise NotImplementedError(
-                f"{what} does not take narrow floats yet: field {name!r} is "
-                f"{'bfloat16' if dt == BFLOAT16 else 'float16'} (ROADMAP "
-                "Queue 1 item 11, bf16 and f16 programs)")
-
-
-# -- bf16 compute (the stream kernel's compute_dtype="bfloat16") --------------
+# -- a narrow compute (the stream kernel's compute_dtype "bfloat16" or
+#    "float16") ------------------------------------------------------------
 #
-# The JAX package casts every array input to bf16 before the kernel and
-# evaluates each stage with jnp on those arrays: a bf16 op bf16 rounds
-# its result to bf16 after every operation, a Python scalar (weak) is
-# converted to bf16 first, a float32 scalar input or a float constant
-# (pinned to np.float32, a strong type) promotes the site to float32, and
-# the stage result rounds to bf16 at its store.  Node types here: ``BF16``
-# (an f32 value that holds a bf16 one), float32, bool, and weak scalars.
+# The JAX package casts every array input to the compute type before the
+# kernel and evaluates each stage with jnp on those arrays: an op of two
+# values of that type rounds its result to it after every operation, a
+# Python scalar (weak) is converted to it first, a float32 scalar input or
+# a float constant (pinned to np.float32, a strong type) promotes the site
+# to float32, and the stage result rounds to the compute type at its
+# store.  Node types here: ``BF16`` (an f32 value that holds a value of
+# the compute type, bf16 or f16), float32, bool, and weak scalars.
 
 BF16 = "bf16"
 F32 = np.dtype(np.float32)
@@ -177,20 +165,24 @@ def bf16_join(*tys):
         f"a site of types {tys} under bf16 compute")
 
 
-def bf16_value(value) -> float:
-    """``value`` as float32, rounded to bf16 (to nearest, ties to even)."""
-    return float(scalar(np.float32(value), BFLOAT16))
+def narrow_value(value, dtype) -> float:
+    """``value`` as float32, rounded to the narrow ``dtype`` (BFLOAT16 or
+    FLOAT16; to nearest, ties to even), as a weak scalar or a BC's fill
+    meets an array of that type under a narrow compute."""
+    return float(scalar(np.float32(value), dtype))
 
 
-def check_bf16_compute(program: ir.Program) -> None:
-    """bf16 compute takes float32 programs only: every input (scalars
-    too) and every kernel float32.  The JAX package casts int arrays to
-    bf16 as well; the port refuses them, since a bf16 integer field is a
-    bf16-typed program (ROADMAP Queue 1 item 11)."""
-    for name in list(program.inputs) + list(program.kernels):
-        dt = np.dtype(program.field_dtype(name))
+def check_compute_program(program: ir.Program, name: str) -> None:
+    """A ``compute_dtype`` (``name``) is ported for float32 programs:
+    every input (scalars too) and every kernel float32.  The JAX package
+    casts the arrays of any other program to it (an int, float64 or
+    narrow field, and float32 compute of a non-float32 program): still to
+    port, NotImplementedError naming ROADMAP Queue 1 item 11."""
+    for f in list(program.inputs) + list(program.kernels):
+        dt = np.dtype(program.field_dtype(f))
         if dt != np.float32:
-            raise ValueError(
-                f"compute_dtype='bfloat16' takes float32 programs; field "
-                f"{name!r} is {dt.name} (casting it to bf16 would make a "
-                "bf16-typed program, ROADMAP Queue 1 item 11)")
+            raise NotImplementedError(
+                f"compute_dtype={name!r} of a program with a "
+                f"{dtype_to_str(dt)} field ({f!r}): the JAX package casts "
+                "its arrays to the compute type; the port computes "
+                "float32 programs only (ROADMAP Queue 1 item 11)")

@@ -236,16 +236,17 @@ def has_narrow(program: ir.Program) -> bool:
 
 
 def launch_mode(program: ir.Program, rounds: bool = False,
-                place: str = "", compute_bf16: bool = False) -> str:
+                place: str = "", compute=None) -> str:
     """The key a launch counts under in its kernel module's
-    ``launches_by`` (a ``collections.Counter``): "compute_bf16" under the
-    stream kernel's bf16 compute; else ``place`` (the stream kernel's
+    ``launches_by`` (a ``collections.Counter``): "compute_bf16" or
+    "compute_f16" under the stream kernel's ``compute`` ("bfloat16",
+    "float16"); else ``place`` (the stream kernel's
     "spill", "local" or "shard"; "" for the whole domain on chip) joined
     with "narrow" for a program with a bfloat16 or float16 field, or
     "bf16" where the plan rounds (a ring, an output or its band operands
     to bf16); "exact" where neither applies."""
-    if compute_bf16:
-        return "compute_bf16"
+    if compute:
+        return "compute_" + {"bfloat16": "bf16", "float16": "f16"}[compute]
     kind = "narrow" if has_narrow(program) else "bf16" if rounds else ""
     return "_".join(k for k in (place, kind) if k) or "exact"
 

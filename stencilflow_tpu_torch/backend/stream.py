@@ -177,7 +177,7 @@ shard and segment plans): under
 ``ring_storage="bfloat16"`` every f32 ring of the reference's ring set
 rounds to bf16 (to nearest, ties to even) where it is stored and is read
 back as f32 (``StreamPlan.rounded``).  A stage's ring keeps bf16 slots
-(``bf16_slots``: 2 bytes a cell, so ``ring_bytes``, ``plane_bytes``,
+(``narrow_slots``: 2 bytes a cell, so ``ring_bytes``, ``plane_bytes``,
 ``pack_layout``, the spill choice and the spill buffer see half-size
 rings, and a spilled ring's bulk copies move half the bytes), except a
 band pass's source, whose slots stay f32 holding rounded values; a ring
@@ -223,7 +223,16 @@ passes (a bf16 operand's TF32 lo part is 0: the three products are the
 reference's hi and lo band products to f32 rounding) and rounds its
 result.  Launches count in ``launches_by["compute_bf16"]``.  On the H100 it is
 slower than f32 (every operation carries a rounding, and bf16 inputs load
-synchronously, not by ``cp.async``): PERF.md.
+synchronously, not by ``cp.async``): PERF.md.  ``compute_dtype="float16"``
+is the same in float16 (``StreamPlan.compute_narrow``, ``slot_dtype``;
+``sf_hr``; a float16 operand's TF32 lo part is 0 too), counted in
+``launches_by["compute_f16"]``.
+
+Programs typed bfloat16 or float16 run in every mode, K4's included:
+2-byte arrays, rings and staging planes (``codegen.stype``), every op in
+float rounded once to the narrow type, inputs loaded synchronously, the
+launches counted under "narrow", "spill_narrow", "local_narrow" and
+"shard_narrow"; narrow stages are never banded (``linear.banded_types``).
 """
 from __future__ import annotations
 
@@ -241,7 +250,7 @@ from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
                       H100_PANEL_CELL_RATE, H100_SM_COUNT,
                       H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM,
                       H100_STREAM_CELL_RATE)
-from ..dtypes import to_torch_dtype
+from ..dtypes import BFLOAT16, FLOAT16, to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .compose import ComposedPlan, compose_program, plan_composed
@@ -250,7 +259,6 @@ from .linear import (MatrixPool, band_diagonals, finalize_pool,
                      stacked_axes)
 from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
                     tile_candidates)
-from .promotion import check_not_narrow
 from .stacked_io import (SPILL_BYTES_CAP, THREADS, accesses_with_center,
                          bc_select, check_ring_storage, check_scope,
                          launch_mode, or_mask, place_by_phase, resolve_device,
@@ -263,10 +271,14 @@ from .tile_eval import eval_kernel_statements
 # rings, K3c), "shard" (K4 on one shard of a mesh: any plan in shard
 # mode); each with "_bf16" under a reduced precision (bf16 rings,
 # single-pass bf16 passes: "bf16", "spill_bf16", "local_bf16",
-# "shard_bf16"); "compute_bf16" for every launch of a plan that computes
-# in bf16 (compute_dtype); "narrow" and "spill_narrow" for a program typed
+# "shard_bf16"); "compute_bf16" and "compute_f16" for every launch of a
+# plan that computes in bf16 or f16 (compute_dtype); "narrow",
+# "spill_narrow", "local_narrow" and "shard_narrow" for a program typed
 # bfloat16 or float16
 launches_by = collections.Counter()
+
+# the narrow compute types (compute_dtype) and their storage
+COMPUTE_NARROW = {"bfloat16": BFLOAT16, "float16": FLOAT16}
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -543,13 +555,22 @@ class StreamPlan:
         return self.raw_ring[f] + ahead
 
     @property
-    def compute_bf16(self) -> bool:
-        """Does every stage compute in bf16 (``compute_dtype``)?"""
-        return self.compute_dtype == "bfloat16"
+    def compute_narrow(self):
+        """The narrow type every stage computes in (``compute_dtype``
+        "bfloat16" or "float16"), or None."""
+        return COMPUTE_NARROW.get(self.compute_dtype)
+
+    @property
+    def slot_dtype(self):
+        """The type of the 2-byte slots and of the rounding of rounded
+        rings: the compute type under a narrow compute, else bfloat16
+        (``ring_storage``)."""
+        cd = self.compute_narrow
+        return BFLOAT16 if cd is None else cd
 
     @functools.cached_property
     def rounds(self) -> frozenset:
-        if self.compute_bf16:   # every ring, inputs too
+        if self.compute_narrow is not None:   # every ring, inputs too
             return frozenset(self.raw_ring)
         return rounded_rings(self.program, [f for f in self.raw_ring
                                             if f in self.ring],
@@ -572,30 +593,30 @@ class StreamPlan:
         plan with an i-halo emits every output through its (rounded)
         ring, as the JAX package's ``compile_local_stream`` does once
         ``halo_i`` > 0 (no direct emit there); other plans write outputs
-        unrounded.  Under bf16 compute every output leaves as bf16."""
-        if self.compute_bf16:
+        unrounded.  Under a narrow compute every output leaves in it."""
+        if self.compute_narrow is not None:
             return frozenset(self.program.outputs)
         if not self.halo_i:
             return frozenset()
         return rounded_rings(self.program, self.program.outputs,
                              self.ring_storage)
 
-    def bf16_slots(self, f: str) -> bool:
-        """Does ring ``f`` keep bf16 slots (2 bytes a cell)?"""
+    def narrow_slots(self, f: str) -> bool:
+        """Does ring ``f`` keep 2-byte slots of ``slot_dtype``?"""
         return (f in self.rounds
-                and (self.packed or self.compute_bf16
+                and (self.packed or self.compute_narrow is not None
                      or f not in self.program.inputs)
                 and all(t[0] != f for t in self.tkeys))
 
     def itemsize(self, f: str) -> int:
         """Bytes of a cell of ring ``f``'s slots."""
-        return 2 if self.bf16_slots(f) else np.dtype(
+        return 2 if self.narrow_slots(f) else np.dtype(
             self.program.field_dtype(f)).itemsize
 
     def io_itemsize(self, f: str) -> int:
         """Bytes of a cell of input or output ``f`` in device memory (2
-        under bf16 compute)."""
-        return 2 if self.compute_bf16 else np.dtype(
+        under a narrow compute)."""
+        return 2 if self.compute_narrow is not None else np.dtype(
             self.program.field_dtype(f)).itemsize
 
     def ring_bytes(self, f: str) -> int:
@@ -1454,25 +1475,36 @@ def check_passes(passes: str, mxu_precision: str) -> None:
                          "mxu_precision='split' or 'bf16'")
 
 
+# the JAX package's jax.dtypes.canonicalize_dtype under its default
+# 32-bit mode
+_CANONICAL = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
+
+
 def check_compute_dtype(program: ir.Program, compute_dtype,
                         ring_storage: str) -> Tuple[str, str]:
-    """(compute dtype, ring storage) as the plan takes them: None and
-    float32 compute in the program's types; bfloat16 computes every stage
-    in bf16 (float32 programs only) and drops ``ring_storage``, as the JAX
-    package does when the compute is already reduced.  Other types are
-    refused: float16 and bf16-typed programs are ROADMAP Queue 1 item
-    11."""
-    name = "float32" if compute_dtype is None else str(
-        compute_dtype).replace("torch.", "")
-    if name == "float32":
-        return name, ring_storage
-    if name != "bfloat16":
+    """(compute dtype, ring storage) as the plan takes them, its name
+    canonicalised as the JAX package's default 32-bit mode does (float64
+    computes in float32): None computes in the program's types, and so
+    does float32 on a float32 program; bfloat16 and float16 compute every
+    stage in that type and drop ``ring_storage``, as the JAX package does
+    when the compute is already reduced.  Integer and bool types, and a
+    compute type on a program with a field that is not float32
+    (``promotion.check_compute_program``), raise NotImplementedError
+    (ROADMAP Queue 1 item 11)."""
+    if compute_dtype is None:
+        return "float32", ring_storage
+    name = (str(compute_dtype).replace("torch.", "")
+            if isinstance(compute_dtype, (str, torch.dtype))
+            else np.dtype(compute_dtype).name)
+    name = _CANONICAL.get(name, name)
+    if name not in ("float32",) + tuple(COMPUTE_NARROW):
         raise NotImplementedError(
             f"compute_dtype {name!r}: the stream kernel computes in "
-            "float32 or bfloat16 (other types: ROADMAP Queue 1 item 11)")
-    from .promotion import check_bf16_compute
-    check_bf16_compute(program)
-    return name, "off"
+            "float32, bfloat16 or float16 (integer and bool compute types: "
+            "ROADMAP Queue 1 item 11)")
+    from .promotion import check_compute_program
+    check_compute_program(program, name)
+    return name, ring_storage if name == "float32" else "off"
 
 
 def check_options(mxu: str, mxu_precision: str) -> None:
@@ -1649,7 +1681,6 @@ def plan_local(program: ir.Program, analysis: Optional[ChainAnalysis],
         raise ValueError(f"bad local block {block} / i-halo {halo_i}")
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
-    check_not_narrow(program, "the stream kernel's local mode (K4)")
     check_options(mxu, mxu_precision)
     check_spill(spill)
     check_passes(passes, mxu_precision)
@@ -1697,6 +1728,14 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
     Ii, h = plan.extent(), plan.halo_i
     Ic = Ii - 2 * h
     PJ, PK = plan.plane()
+    # rounded rings and a narrow compute round to the plan's slot type
+    cdt = None if plan.compute_narrow is None else to_torch_dtype(
+        plan.compute_narrow)
+    slot = to_torch_dtype(plan.slot_dtype)
+
+    def rnd(x):
+        return x.to(slot).to(x.dtype)
+
     (BJ, BK), (XJ, XK) = plan.core(), plan.xhalo
     device = next(a for n, a in arrays.items()
                   if not program.inputs[n].is_scalar).device
@@ -1732,9 +1771,9 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                 return _junk(dt, (PJ, PK), device)
             a = a[p]
             if plan.rounded(f):
-                a = round_bf16(a)
-        elif plan.compute_bf16:   # every array input is cast to bf16
-            a = round_bf16(a)
+                a = rnd(a)
+        elif cdt is not None:   # every array input is cast to it
+            a = rnd(a)
         return a.reshape(PJ if spec.dim_mask[1] else 1,
                          PK if spec.dim_mask[2] else 1).expand(PJ, PK)
 
@@ -1828,10 +1867,10 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                     mask = or_mask(mask, (kk + ok < 0) | (kk + ok >= K))
                 val = torch.roll(plane(field, q + oi), (-oj, -ok), (0, 1))
             val = bc_select(bc, dt, mask, val, lambda: plane(field, q))
-            # under bf16 compute a constant BC's fill is bf16 too
-            return (round_bf16(val) if plan.compute_bf16 else val), dt
+            # under a narrow compute a constant BC's fill is in it too
+            return (val if cdt is None else rnd(val)), dt
         return eval_kernel_statements(kspec, read, (PJ, PK), device,
-                                      bf16=plan.compute_bf16)
+                                      compute=cdt)
 
     for t in range(plan.steps()):
         for s in plan.analysis.graph.kernel_order:
@@ -1841,16 +1880,16 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             mp = plan.mxu_plans.get(s)
             if mp is None:
                 val = per_cell(program.kernels[s], q)
-            else:   # under bf16 compute the stage's result rounds
+            else:   # under a narrow compute the stage's result rounds
                 val = banded(mp, q)
-                val = round_bf16(val) if plan.compute_bf16 else val
+                val = val if cdt is None else rnd(val)
             if s in plan.ring:
-                planes.setdefault(s, {})[q] = round_bf16(val).contiguous() \
+                planes.setdefault(s, {})[q] = rnd(val).contiguous() \
                     if plan.rounded(s) else val.contiguous()
                 planes[s].pop(q - plan.ring[s], None)
             if s in outs and h <= q < h + Ic:
                 core = val[XJ:XJ + BJ, XK:XK + BK]
-                outs[s][q - h] = round_bf16(core) if s in plan.rounds_out \
+                outs[s][q - h] = rnd(core) if s in plan.rounds_out \
                     else core
         # drop transformed planes no reader can reach any more
         for key in [k for k in tcache if k[1] is not None
@@ -1903,7 +1942,8 @@ def _mode(plan: StreamPlan) -> str:
     place = ("shard" if plan.shard[0] else "spill" if plan.packed
              else "local" if plan.block else "")
     return launch_mode(plan.program, reduced(plan), place,
-                       plan.compute_bf16)
+                       None if plan.compute_narrow is None
+                       else plan.compute_dtype)
 
 
 def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
@@ -1912,8 +1952,9 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
     when omitted."""
     if plan.block:
         raise ValueError("a local plan runs through run_local_stream")
-    io = torch.bfloat16 if plan.compute_bf16 else None
-    if io is not None:   # bf16 compute: the kernel reads and writes bf16
+    io = None if plan.compute_narrow is None else to_torch_dtype(
+        plan.compute_narrow)
+    if io is not None:   # narrow compute: the kernel reads and writes it
         arrays = {n: a if plan.program.inputs[n].is_scalar
                   or a.device.type == "cpu" else a.to(io)
                   for n, a in arrays.items()}

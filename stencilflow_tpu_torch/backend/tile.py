@@ -75,19 +75,19 @@ from .. import ir
 from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
                       H100_PANEL_CELL_RATE, H100_SM_COUNT,
                       H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM)
+from ..dtypes import to_numpy
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .dense import chain_halo
 from .fast_tile import evaluate_chain_fast, field_margins
 from .overlap import overlap_plain
 from .panel import PANEL_LANE_COST
-from .promotion import check_not_narrow
 from .stacked_io import (THREADS, check_scope, gather_global, launch_mode,
                          resolve_device, run_kernel, spanned_arrays)
 from .tile_eval import evaluate_chain_tile
 
 # kernel launches (CUDA tensors only) by mode (stacked_io.launch_mode):
-# "exact" (the ladder refuses narrow programs here)
+# "exact", or "narrow" for a program typed bfloat16 or float16
 launches_by = collections.Counter()
 
 Vec3 = Tuple[int, int, int]
@@ -217,7 +217,6 @@ def plan_tile(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     scope or no tile fits."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
-    check_not_narrow(program, "the overlapped-tile kernel (K6)")
     if mode not in ("masked", "fast"):
         raise ValueError(f"tile mode must be 'masked' or 'fast', got "
                          f"{mode!r}")
@@ -399,4 +398,4 @@ def run_chain_tile(program: ir.Program, inputs, tile: Optional[Vec3] = None,
     """``compile_chain_tile`` once on ``inputs``; numpy outputs."""
     out = compile_chain_tile(program, tile=tile, mode=mode,
                              device=device)(inputs)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return {k: to_numpy(v) for k, v in out.items()}

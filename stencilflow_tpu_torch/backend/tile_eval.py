@@ -29,9 +29,9 @@ import torch
 from .. import ir
 from ..dtypes import is_narrow, scalar, to_numpy_dtype, to_torch_dtype
 from ..frontend.chain import ChainGraph
-from .promotion import (BF16, F32, bf16_join, bf16_value, const_dtype_of,
+from .promotion import (BF16, F32, bf16_join, const_dtype_of,
                         const_type, fill_value, is_bool, is_float, is_weak,
-                        result_type, strong, weak)
+                        narrow_value, result_type, strong, weak)
 
 Vec3 = Tuple[int, int, int]
 
@@ -251,34 +251,39 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
     raise TypeError(f"unknown expression node {type(expr)}")
 
 
-def _bf16_cast(v, ty_from, ty_to, device):
-    """``v`` as an operand of a bf16-compute site of type ``ty_to``: a
-    weak scalar becomes a float32 tensor (rounded to bf16 for a bf16
-    site), bool becomes 0/1."""
+def _bf16_cast(v, ty_from, ty_to, device, cdt):
+    """``v`` as an operand of a site of type ``ty_to`` under the narrow
+    compute ``cdt`` (a torch dtype): a weak scalar becomes a float32
+    tensor (rounded to ``cdt`` for a site of that type, ``BF16``), bool
+    becomes 0/1."""
     if is_weak(ty_from):
-        x = bf16_value(ty_from[1]) if ty_to == BF16 else ty_from[1]
+        x = narrow_value(ty_from[1], to_numpy_dtype(cdt)) if ty_to == BF16 \
+            else ty_from[1]
         return device_const(x, torch.float32, device)
     if ty_to != np.bool_ and v.dtype == torch.bool:
         return v.to(torch.float32)
     return v
 
 
-def _bf16_round(v, ty):
-    return v.to(torch.bfloat16).to(torch.float32) if ty == BF16 else v
+def _bf16_round(v, ty, cdt):
+    return v.to(cdt).to(torch.float32) if ty == BF16 else v
 
 
-def eval_expr_bf16(expr: ir.Expr, env: Dict[str, Any], read_fn, device):
-    """``eval_expr_generic`` under bf16 compute (promotion.py ``BF16``):
-    array reads are bf16, float32 scalars and float constants float32;
-    every bf16 site computes in float32 and rounds its result to bf16, as
-    the JAX package's jnp on bf16 arrays does."""
+def eval_expr_bf16(expr: ir.Expr, env: Dict[str, Any], read_fn, device,
+                   cdt=torch.bfloat16):
+    """``eval_expr_generic`` under the narrow compute ``cdt`` (a torch
+    dtype, bfloat16 or float16; promotion.py's ``BF16`` node is a value
+    of it): array reads are of that type, float32 scalars and float
+    constants float32; every site of the compute type computes in
+    float32 and rounds its result to it, as the JAX package's jnp on
+    arrays of that type does."""
     def rec(e):
-        return eval_expr_bf16(e, env, read_fn, device)
+        return eval_expr_bf16(e, env, read_fn, device, cdt)
 
     def both(a, at, b, bt):
         ty = bf16_join(at, bt)
-        return (_bf16_cast(a, at, ty, device), _bf16_cast(b, bt, ty, device),
-                ty)
+        return (_bf16_cast(a, at, ty, device, cdt),
+                _bf16_cast(b, bt, ty, device, cdt), ty)
 
     if isinstance(expr, ir.Const):
         return const_type(expr.value, F32)
@@ -297,7 +302,7 @@ def eval_expr_bf16(expr: ir.Expr, env: Dict[str, Any], read_fn, device):
             if expr.op in ("add", "mult"):
                 return (a | b) if expr.op == "add" else (a & b), ty
             raise TypeError("numpy rejects bool - bool and bool / bool")
-        return _bf16_round(_BINOPS[expr.op](a, b), ty), ty
+        return _bf16_round(_BINOPS[expr.op](a, b), ty, cdt), ty
     if isinstance(expr, ir.UnaryOp):
         a, at = rec(expr.operand)
         if is_weak(at):
@@ -343,26 +348,28 @@ def eval_expr_bf16(expr: ir.Expr, env: Dict[str, Any], read_fn, device):
                 f"{expr.fn} of a scalar literal under bf16 compute")
         if expr.fn == "abs":
             return torch.abs(a), at
-        return _bf16_round(_CALLS[expr.fn](a), at), at
+        return _bf16_round(_CALLS[expr.fn](a), at, cdt), at
     raise TypeError(f"unknown expression node {type(expr)}")
 
 
 def eval_kernel_statements(kspec: ir.KernelSpec, read_fn, shape, device,
-                           bf16: bool = False):
+                           compute=None):
     """Evaluate a kernel's statements with a custom read; returns the
     output statement's value broadcast to ``shape`` and cast to the
-    kernel dtype.  ``bf16``: under bf16 compute (``eval_expr_bf16``),
-    the result rounded to bf16, as a float32 tensor."""
+    kernel dtype.  ``compute``: under that narrow compute (a torch dtype,
+    ``eval_expr_bf16``), the result rounded to it, as a float32
+    tensor."""
     pin = const_dtype_of(kspec)
     env: Dict[str, Any] = {}
     for stmt in kspec.statements:
-        env[stmt.lhs] = eval_expr_bf16(stmt.rhs, env, read_fn, device) \
-            if bf16 else eval_expr_generic(stmt.rhs, env, read_fn, pin,
-                                           device)
+        env[stmt.lhs] = eval_expr_bf16(stmt.rhs, env, read_fn, device,
+                                       compute) \
+            if compute is not None else eval_expr_generic(
+                stmt.rhs, env, read_fn, pin, device)
     val, ty = env[kspec.output_statement.lhs]
-    if bf16:
-        val = _bf16_cast(val, ty, BF16, device).to(torch.float32)
-        return _bf16_round(val, BF16).expand(tuple(shape))
+    if compute is not None:
+        val = _bf16_cast(val, ty, BF16, device, compute).to(torch.float32)
+        return _bf16_round(val, BF16, compute).expand(tuple(shape))
     val = as_type(val, ty, strong(ty), device)
     return to_dtype(val, to_torch_dtype(kspec.dtype)).expand(tuple(shape))
 

@@ -261,6 +261,7 @@ def _cmd_solve(args) -> int:
     import numpy as np
 
     from .data import load_array, save_array
+    from .dtypes import to_numpy
     from .frontend.parser import parse_program
     from .ir import InputSpec
     from .solve import make_solver
@@ -283,7 +284,7 @@ def _cmd_solve(args) -> int:
     print(f"converged in {info['iterations']} iterations; "
           f"true relative residual {info['residual']:.3e}")
     if args.output:
-        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        x = to_numpy(x)
         save_array(x.reshape(raw), args.output)
         print(f"x written to {args.output}")
     return 0 if info["residual"] <= args.tol * 100 else 1

@@ -170,6 +170,15 @@ def to_torch(x, device=None) -> torch.Tensor:
     return t if device is None else t.to(device)
 
 
+def from_numpy(a) -> torch.Tensor:
+    """A CPU tensor over host array ``a`` without a copy (bf16 bits
+    viewed as ``torch.bfloat16``); ``a`` must be contiguous."""
+    a = np.asarray(a)
+    if a.dtype == BFLOAT16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def to_numpy(t) -> np.ndarray:
     """A tensor as a numpy array of its own type (bf16 as BFLOAT16)."""
     if not torch.is_tensor(t):

@@ -35,9 +35,8 @@ import numpy as np
 import torch
 
 from . import ir
-from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
-from .dtypes import is_floating
+from .dtypes import from_numpy, is_floating, to_numpy, to_torch
 from .frontend.analysis import ChainAnalysis
 from .iterate import MESH_NEEDS_AXES
 
@@ -54,7 +53,7 @@ def _sum_loss(outputs):
 def _on_device(v, device):
     """An input as a tensor on ``device`` (scalars stay on the host, as
     the lowerings take them)."""
-    t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+    t = to_torch(v)
     return t if t.ndim == 0 else t.to(device)
 
 
@@ -78,7 +77,6 @@ def value_and_grad(program: ir.Program,
     tile body on the mesh (``device`` unused); the decomposition plan is
     ``f.plan``.
     """
-    check_not_narrow(program, "grad")
     plan = None
     if mesh is not None:
         if dim_axes is None:
@@ -186,7 +184,6 @@ def fast_value_and_grad(program: ir.Program,
     forward's decomposition and ``f.lowering`` names
     ``sharded[<local body>]`` for each pass.
     """
-    check_not_narrow(program, "grad")
     wrt = list(_default_wrt(program) if wrt is None else wrt)
     loss = loss or _sum_loss
     adj, cot = adjoint_program(program, wrt)
@@ -267,14 +264,14 @@ def _fast_vag_chunked(program: ir.Program, adj: ir.Program,
         for c in range(chunks):
             sl = slice(c * Ic, (c + 1) * Ic)
             with torch.enable_grad():
-                chunk_out = {o: torch.from_numpy(outputs[o][sl]).to(device)
+                chunk_out = {o: from_numpy(outputs[o][sl]).to(device)
                              .requires_grad_() for o in program.outputs}
                 v = loss(chunk_out)
                 g = torch.autograd.grad(v, list(chunk_out.values()),
                                         allow_unused=True)
             val += float(v.detach())
             for o, go in zip(program.outputs, g):
-                ct[o][sl] = 0 if go is None else go.cpu().numpy()
+                ct[o][sl] = 0 if go is None else to_numpy(go)
         adj_in = {cot[o]: ct[o] for o in program.outputs}
         adj_out = run_chunked(adj, {**adj_in, **extra}, chunks,
                               compiled=bwd_c)

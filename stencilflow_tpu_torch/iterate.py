@@ -49,8 +49,8 @@ import numpy as np
 import torch
 
 from . import ir
-from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
+from .dtypes import BFLOAT16, to_numpy, to_torch
 from .frontend.analysis import ChainAnalysis
 
 NOT_PORTED_M12 = "is not ported to stencilflow_tpu_torch yet (ROADMAP " \
@@ -193,7 +193,6 @@ def make_step(program: ir.Program,
     ``mesh`` (with ``dim_axes``) builds a sharded step on the mesh's
     devices (``device`` is then unused): state arrays are ShardedArrays
     and the step's lowering is ``sharded[<local body>]``."""
-    check_not_narrow(program, "iterate")
     feed = feed or _default_feed(program)
     _check_feed(program, feed)
     if ring_storage != "off" and backend != "stream":
@@ -333,7 +332,18 @@ def _host(v):
     from .parallel.mesh import ShardedArray
     if isinstance(v, ShardedArray):
         return v.numpy()
-    return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    return to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
+
+
+def _checkpointed(program: ir.Program, name: str, a: np.ndarray):
+    """A checkpointed state array as the field's type: the JAX package
+    saves its ml_dtypes bfloat16 arrays as raw 2-byte voids (``|V2``),
+    which are the bf16 bit patterns."""
+    dt = np.dtype(program.field_dtype(name))
+    if dt == BFLOAT16 and a.dtype != BFLOAT16 and a.dtype.itemsize == 2 \
+            and a.dtype.kind == "V":
+        return a.view(BFLOAT16)
+    return a
 
 
 def _place(v, device: torch.device, host_mode: bool, plan=None, name=None):
@@ -341,13 +351,13 @@ def _place(v, device: torch.device, host_mode: bool, plan=None, name=None):
     numpy arrays in host mode; with a decomposition ``plan``, a
     ShardedArray laid out by the plan's spec for input ``name``),
     scalars on the host."""
-    a = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    a = to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
     if a.ndim == 0 or host_mode:
         return a
     if plan is not None:
         from .parallel.domain import place_global_inputs
         return place_global_inputs(plan.program, plan, {name: a})[name]
-    return torch.as_tensor(a).to(device)
+    return to_torch(a, device)
 
 
 def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
@@ -443,7 +453,8 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
                     f"align with fuse={scale}")
             start = start_orig // scale
             with np.load(path) as data:
-                state = {k: place(k, data[k]) for k in state}
+                state = {k: place(k, _checkpointed(program, k, data[k]))
+                         for k in state}
         # checkpoints must land on chunk boundaries
         chunk = min(chunk, ckpt_f)
 

@@ -46,10 +46,9 @@ import torch
 
 from . import ir
 from .backend.dense import chain_halo
-from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
 from .backend.tile_eval import evaluate_chain_tile
-from .dtypes import to_torch_dtype
+from .dtypes import from_numpy, to_torch, to_torch_dtype
 from .frontend.analysis import ChainAnalysis
 from .parallel.domain import (DomainDecomposition, check_dense_precision,
                               plan_local_stream, reduced_precision)
@@ -96,7 +95,6 @@ def compile_chunked_chain(program: ir.Program, chunks: int,
     alone: "auto" then takes the stream body on the CPU too, and where
     the dense body would run it raises ValueError (the JAX package's XLA
     body runs f32 there)."""
-    check_not_narrow(program, "--host-chunks (the out-of-core chunk kernel)")
     analysis = analysis or ChainAnalysis.run(program)
     dims = program.dimensions
     I, J, K = dims
@@ -173,7 +171,6 @@ def compile_chunked_sharded(program: ir.Program, chunks: int, mesh,
     ``chunk_fn(origin_i, tiles) -> outputs`` contract: tiles and outputs
     are GLOBAL (j, k) extents, on the host; the chunk function places the
     tiles over the mesh and gathers the outputs."""
-    check_not_narrow(program, "--host-chunks on a mesh")
     from .parallel.mesh import ShardedArray
     from .parallel.pipeline import _gather_axis_halo
 
@@ -212,8 +209,7 @@ def compile_chunked_sharded(program: ir.Program, chunks: int, mesh,
     def chunk_fn(origin_i, tiles):
         wide: Dict[Any, Dict[str, Any]] = {c: {} for c in mesh.coords()}
         for name, spec in program.inputs.items():
-            arr = torch.as_tensor(np.asarray(tiles[name])) \
-                if not torch.is_tensor(tiles[name]) else tiles[name]
+            arr = to_torch(tiles[name])
             if spec.is_scalar:
                 for c in wide:
                     wide[c][name] = arr
@@ -269,7 +265,7 @@ def _host_tensor(a) -> torch.Tensor:
         return a
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # read-only arrays
-        return torch.from_numpy(np.ascontiguousarray(a))
+        return from_numpy(np.ascontiguousarray(a))
 
 
 def _host_slab(arr, lo: int, hi: int, extent: int,
@@ -360,7 +356,7 @@ def run_chunked(program: ir.Program, inputs: Dict[str, Any], chunks: int,
     streamed, whole = [], {}
     for n, spec in program.inputs.items():
         if spec.is_scalar:
-            whole[n] = torch.as_tensor(np.asarray(inputs[n]))
+            whole[n] = to_torch(inputs[n])
         elif spec.dim_mask[0]:
             streamed.append(n)
         else:
@@ -388,7 +384,7 @@ def run_chunked(program: ir.Program, inputs: Dict[str, Any], chunks: int,
     def store(c, got):
         t0 = time.perf_counter()
         for o in program.outputs:   # in place, whatever the strides
-            torch.from_numpy(outputs[o][c * Ic:(c + 1) * Ic]).copy_(got[o])
+            from_numpy(outputs[o][c * Ic:(c + 1) * Ic]).copy_(got[o])
         spent["drain_s"] += time.perf_counter() - t0
 
     if not cuda:

@@ -58,9 +58,8 @@ import torch
 
 from .. import ir
 from ..backend.dense import chain_halo
-from ..backend.promotion import check_not_narrow
 from ..backend.tile_eval import evaluate_chain_tile
-from ..dtypes import to_torch_dtype
+from ..dtypes import to_torch, to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from .mesh import Mesh, ShardedArray
 
@@ -506,7 +505,7 @@ def _as_sharded(plan: DomainDecomposition, name: str, v) -> Any:
     as 0-d host tensors."""
     spec = plan.program.inputs[name]
     if spec.is_scalar:
-        return v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        return to_torch(v)
     if isinstance(v, ShardedArray):
         if v.mesh is plan.mesh and v.spec == plan.spec_for_input(name):
             return v
@@ -520,8 +519,7 @@ def _spanned(program: ir.Program, name: str, v):
     spec = program.inputs[name]
     shape = tuple(program.dimensions[d] for d in range(3)
                   if spec.dim_mask[d])
-    t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-    return t.reshape(shape)
+    return to_torch(v).reshape(shape)
 
 
 def _plan_sharded_chain(program: ir.Program, mesh: Mesh,
@@ -668,7 +666,6 @@ def compile_sharded_chain(program: ir.Program, mesh: Mesh,
     (two strip K4s a shard, or the tile body's strips).  ``fn.plan`` is
     then the (interior, strip) pair of K4 plans, and ``fn`` has no
     ``compute`` half."""
-    check_not_narrow(program, "run-distributed (the sharded engine)")
     program, analysis, plan, splan, cfg = _plan_sharded_chain(
         program, mesh, dim_axes, analysis, local_backend, mxu,
         mxu_precision, spill, smem_budget, compose, ring_storage,

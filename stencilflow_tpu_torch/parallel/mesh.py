@@ -17,6 +17,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..dtypes import to_numpy, to_torch
+
 Coord = Tuple[int, ...]
 
 
@@ -79,8 +81,7 @@ class ShardedArray:
     def place(cls, mesh: Mesh, spec, value) -> "ShardedArray":
         """``value`` (a numpy array or tensor, global shape) cut into the
         blocks ``spec`` gives each mesh position, each on its device."""
-        t = value if torch.is_tensor(value) else torch.as_tensor(
-            np.ascontiguousarray(value))
+        t = to_torch(value)
         spec = tuple(spec) + (None,) * (t.ndim - len(spec))
         shards = {}
         for c in mesh.coords():
@@ -117,7 +118,7 @@ class ShardedArray:
         return out
 
     def numpy(self) -> np.ndarray:
-        return self.gather("cpu").numpy()
+        return to_numpy(self.gather("cpu"))
 
     def copy_(self, other: "ShardedArray") -> "ShardedArray":
         """Shard-by-shard copy of an array of the same layout."""

@@ -53,9 +53,8 @@ import torch
 
 from .. import ir
 from ..backend.dense import chain_halo
-from ..backend.promotion import check_not_narrow
 from ..backend.tile_eval import evaluate_chain_tile
-from ..dtypes import to_torch_dtype
+from ..dtypes import to_torch, to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from ..frontend.chain import ChainGraph
 from .mesh import Mesh, ShardedArray
@@ -740,15 +739,14 @@ def _place(program: ir.Program, mesh: Mesh, spec, name: str, v):
     host tensors."""
     ispec = program.inputs[name]
     if ispec.is_scalar:
-        return v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        return to_torch(v)
     if isinstance(v, ShardedArray):
         if v.mesh is mesh and v.spec == tuple(spec) + (None,) * (
                 len(v.shape) - len(spec)):
             return v
         v = v.gather()
     shape = tuple(program.dimensions[d] for d in _spanned(ispec))
-    t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-    return ShardedArray.place(mesh, spec, t.reshape(shape))
+    return ShardedArray.place(mesh, spec, to_torch(v).reshape(shape))
 
 
 def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
@@ -813,7 +811,6 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
     CPU positions too, its plain version); where the dense tile body
     would run it raises ValueError (the JAX package's runs f32 there).
     """
-    check_not_narrow(program, "run-distributed (the pipeline split)")
     from .domain import check_dense_precision, reduced_precision
     analysis = analysis or ChainAnalysis.run(program)
     if axis not in mesh.shape:

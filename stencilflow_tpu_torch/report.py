@@ -15,7 +15,8 @@ they are divided by:
   33.5e12 op/s (``alu_time_s``; ``as_dict``'s ``vpu_time_s``): the port
   builds every kernel with ``-fmad=false``, where each counted add and
   multiply is one instruction; the ops of a stage typed bfloat16 or
-  float16 (or of any stage under ``compute_dtype="bfloat16"``) at twice
+  float16 (or of any stage under ``compute_dtype`` "bfloat16" or
+  "float16") at twice
   that, the packed narrow rate (``config.H100_NARROW_ALU_OPS``); and the
   executed ops (those of the faster strategy) over P1's measured issue
   rate (``vs_alu_issue``) and shared-memory pass rate (``vs_smem_pass``,
@@ -55,6 +56,11 @@ def _stage_ops(kspec) -> float:
     """Weighted ops a cell of one stage."""
     return sum(c * _OP_COST.get(op, 1)
                for op, c in operation_count(kspec).items())
+
+
+# the stream kernel's narrow compute types (priced at 2 bytes a cell and
+# the packed narrow rate)
+_NARROW_COMPUTE = ("bfloat16", "float16")
 
 
 @dataclasses.dataclass
@@ -134,19 +140,19 @@ class Report:
 
     def hbm_time_s(self, compute_dtype=None) -> float:
         """The memory floor: every input read once and every output
-        written once at the data sheet's rate; under
-        ``compute_dtype="bfloat16"`` (float32 programs, the stream
-        kernel's bf16 compute) at 2 bytes a cell."""
+        written once at the data sheet's rate; under ``compute_dtype``
+        "bfloat16" or "float16" (float32 programs, the stream kernel's
+        narrow compute) at 2 bytes a cell."""
         vol = self.analysis.minimum_communication_volume()
-        if compute_dtype == "bfloat16":
+        if compute_dtype in _NARROW_COMPUTE:
             vol = vol / 2
         return vol / self.hw.hbm_bandwidth
 
     def narrow_ops_per_cell(self, compute_dtype=None) -> float:
         """The weighted ops a cell of the stages whose ops round to 2
         bytes: those typed bfloat16 or float16, or every stage under
-        ``compute_dtype="bfloat16"``."""
-        if compute_dtype == "bfloat16":
+        ``compute_dtype`` "bfloat16" or "float16"."""
+        if compute_dtype in _NARROW_COMPUTE:
             return self.ops_per_cell()
         return sum(_stage_ops(k) for k in self.program.kernels.values()
                    if is_narrow(k.dtype))
@@ -281,7 +287,7 @@ class Report:
     def roofline_time_s(self, mxu_precision: str = "split",
                         compute_dtype=None) -> float:
         """Runtime lower bound: the memory floor (``hbm_time_s``, at 2
-        bytes a cell under ``compute_dtype="bfloat16"``) against the
+        bytes a cell under a narrow ``compute_dtype``) against the
         faster of the two compute strategies — every stage per cell (a
         narrow stage's ops at the packed rate), or band transforms for
         the eligible stages (single-pass bf16 under

@@ -27,9 +27,9 @@ import numpy as np
 import torch
 
 from . import ir
-from .backend.promotion import check_not_narrow
 from .backend.stacked_io import resolve_device
-from .dtypes import to_torch_dtype
+from .dtypes import (from_numpy, is_narrow, scalar, to_numpy,
+                     to_numpy_dtype, to_torch, to_torch_dtype)
 
 
 def _validate_affine(program: ir.Program, field: str, out: str):
@@ -71,7 +71,7 @@ def _affine_op(program: ir.Program, field: str, out: str, device):
     shape = tuple(spec.shape(program.dimensions))
     # every other input pinned at its declared data: its contribution
     # lands in the affine offset and is subtracted with it
-    rest = {n: (v if np.ndim(v) == 0 else torch.as_tensor(v).to(device))
+    rest = {n: (v if np.ndim(v) == 0 else to_torch(v, device))
             for n, v in load_input_arrays(program).items() if n != field}
 
     def full(x):
@@ -109,15 +109,22 @@ def _affine_op_chunked(program: ir.Program, field: str, out: str,
     offset = full(np.zeros(shape, np.dtype(spec.dtype)))
 
     def op(x):
-        return full(x) - offset.reshape(np.shape(x))
+        return _sub(full(x), offset.reshape(np.shape(x)))
 
     name = f"outofcore[{compiled[1].backend} x{chunks} chunks]"
     return op, offset, name
 
 
+def _sub(a, b) -> np.ndarray:
+    """``a - b`` over host arrays of any of the program's types (numpy
+    has no bfloat16 arithmetic), promoted as numpy promotes."""
+    return to_numpy(from_numpy(np.ascontiguousarray(a))
+                    - from_numpy(np.ascontiguousarray(b)))
+
+
 def _flat(a) -> torch.Tensor:
     """A flat CPU tensor over host array ``a`` (no copy)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).reshape(-1)
+    return from_numpy(np.ascontiguousarray(a)).reshape(-1)
 
 
 def _hdot(a, b) -> float:
@@ -141,7 +148,7 @@ def _make_cg_run_host(op: Callable, tol: float, maxiter: int) -> Callable:
     def run(x, b):
         x = np.array(x, copy=True)
         atol2 = float(tol) ** 2 * _hdot(b, b)
-        r = b - op(x)
+        r = _sub(b, op(x))
         p = np.array(r, copy=True)
         xt, rt, pt = _flat(x), _flat(r), _flat(p)
         tmp = torch.empty_like(pt)
@@ -149,11 +156,12 @@ def _make_cg_run_host(op: Callable, tol: float, maxiter: int) -> Callable:
         k = 0
         while rs > atol2 and k < maxiter:
             ap = _flat(op(p))
-            alpha = rs / _hdot(p, ap)
+            # as numpy takes a Python float meeting the vectors' type
+            alpha = float(scalar(rs / _hdot(p, ap), p.dtype))
             xt.add_(torch.mul(pt, alpha, out=tmp))
             rt.sub_(torch.mul(ap, alpha, out=tmp))
             rs_new = _hdot(r, r)
-            pt.mul_(float(np.asarray(rs_new / rs, p.dtype))).add_(rt)
+            pt.mul_(float(scalar(rs_new / rs, p.dtype))).add_(rt)
             rs = rs_new
             k += 1
         return x, rs, k
@@ -168,10 +176,15 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _make_cg_run(op: Callable, tol: float, maxiter: int) -> Callable:
     """Textbook CG on ``op`` (must be SPD) with the vectors on the
     operator's device, updated in place; one host read a iteration (the
-    stopping test)."""
+    stopping test).  Every scalar and vector keeps the vectors' type, as
+    the JAX package's ``jnp`` CG does; on bfloat16 and float16 vectors
+    the dots accumulate in float32 (as XLA's and torch's do) and each
+    product ``alpha * p`` rounds before its sum, as ``x + alpha * p``
+    rounds there."""
 
     def run(x, b):
         x = x.clone()
+        narrow = is_narrow(to_numpy_dtype(b.dtype))
         atol2 = float(torch.tensor(tol, dtype=b.dtype, device=b.device)
                       ** 2 * _dot(b, b))
         r = b - op(x)
@@ -181,10 +194,17 @@ def _make_cg_run(op: Callable, tol: float, maxiter: int) -> Callable:
         while k < maxiter and float(rs) > atol2:
             ap = op(p)
             alpha = rs / _dot(p, ap)
-            x.addcmul_(p, alpha)
-            r.addcmul_(ap, alpha, value=-1)
+            if narrow:
+                x.add_(p * alpha)
+                r.sub_(ap * alpha)
+            else:
+                x.addcmul_(p, alpha)
+                r.addcmul_(ap, alpha, value=-1)
             rs_new = _dot(r, r)
-            torch.addcmul(r, p, rs_new / rs, out=p)
+            if narrow:
+                torch.add(r, p * (rs_new / rs), out=p)
+            else:
+                torch.addcmul(r, p, rs_new / rs, out=p)
             rs = rs_new
             k += 1
         return x, rs, k
@@ -219,7 +239,6 @@ def make_solver(program: ir.Program,
     ``solver.lowering`` the operators' lowerings.  Compilation happens
     once here: reuse the solver across time steps.
     """
-    check_not_narrow(program, "solve")
     host = bool(host_chunks and host_chunks > 1)
     device = resolve_device(device)
     field = field or next(iter(program.inputs))
@@ -256,13 +275,13 @@ def make_solver(program: ir.Program,
         run = _make_cg_run_host(normal, tol, maxiter)
 
         def _residual(x, b, rhs):
-            d = op(x) - b
+            d = _sub(op(x), b)
             return (np.sqrt(_hdot(d, d))
                     / max(np.sqrt(_hdot(rhs, rhs)), 1e-30))
 
         def solver(rhs, x0=None):
             rhs = np.asarray(rhs)
-            b = rhs - offset.reshape(rhs.shape)
+            b = _sub(rhs, offset.reshape(rhs.shape))
             b_sys = (project(b).reshape(b.shape)
                      if project is not None else b)
             x = (np.zeros_like(b_sys) if x0 is None
@@ -282,12 +301,12 @@ def make_solver(program: ir.Program,
                     torch.linalg.norm(rhs).clamp_min(1e-30))
 
         def solver(rhs, x0=None):
-            rhs = torch.as_tensor(rhs).to(device, offset.dtype)
+            rhs = to_torch(rhs).to(device, offset.dtype)
             b = rhs - offset.reshape(rhs.shape)
             b_sys = (project(b).reshape(b.shape)
                      if project is not None else b)
             x = (torch.zeros_like(b_sys) if x0 is None
-                 else torch.as_tensor(x0).to(device, b_sys.dtype))
+                 else to_torch(x0).to(device, b_sys.dtype))
             x, _rs, k = run(x, b_sys)
             return x, {"iterations": int(k),
                        "residual": float(_residual(x, b, rhs))}

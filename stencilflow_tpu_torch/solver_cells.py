@@ -59,22 +59,27 @@ def gray_scott(n: int) -> ir.Program:
     }, name="gray_scott")
 
 
-def _operator(n: int, body: str, name: str) -> ir.Program:
+def _operator(n: int, body: str, name: str,
+              dtype: str = "float32") -> ir.Program:
     return parse_program({
-        "inputs": {"x": {"data": "constant:0.0", "data_type": "float32"}},
+        "inputs": {"x": {"data": "constant:0.0", "data_type": dtype}},
         "outputs": ["y"], "dimensions": [n, n, n],
         "program": {"y": {
             "computation_string": body,
             "boundary_conditions": {"x": {"type": "constant",
                                           "value": 0.0}},
-            "data_type": "float32"}}}, name=name)
+            "data_type": dtype}}}, name=name)
 
 
-def implicit_diffusion(n: int, dt: float = 0.3) -> ir.Program:
+def implicit_diffusion(n: int, dt: float = 0.3,
+                       dtype: str = "float32") -> ir.Program:
+    """``dtype``: the field's type (the program typed float16, say)."""
     return _operator(
         n, f"y = x[i, j, k] - {dt} * (x[i-1, j, k] + x[i+1, j, k] + "
            "x[i, j-1, k] + x[i, j+1, k] + x[i, j, k-1] + x[i, j, k+1] "
-           "- 6.0 * x[i, j, k])", f"implicit_diffusion_{n}")
+           "- 6.0 * x[i, j, k])",
+        f"implicit_diffusion_{n}" + ("" if dtype == "float32" else
+                                     f"_{dtype}"), dtype)
 
 
 def upwind(n: int, c: float = 0.4) -> ir.Program:

@@ -630,8 +630,8 @@ def test_ring_bytes_halve():
     assert k1.smem_bytes(p) < k1f.smem_bytes(p)
     k5 = group.plan_group(p, an, 2, 2, tile=(8, 8), ring_storage=BF)
     k5f = group.plan_group(p, an, 2, 2, tile=(8, 8))
-    assert k5.rounds == set(k5.rings) and k5.bf16_slots("s1")
-    assert not k5.bf16_slots("a") and k5.smem_bytes(p) < k5f.smem_bytes(p)
+    assert k5.rounds == set(k5.rings) and k5.narrow_slots("s1")
+    assert not k5.narrow_slots("a") and k5.smem_bytes(p) < k5f.smem_bytes(p)
     for packed in (False, True):
         kw = dict(spill="all", tile=(2, 8)) if packed else dict(
             mxu="off", tile=(4, 8))

@@ -924,6 +924,104 @@ def test_run_program_narrow_on_card(dt, cuda):
         res.verified_against_simulation
 
 
+def _narrow_k4k6(kind, dt, cuda):
+    """(outputs, the narrow launches they took, the launches expected) of
+    a small program typed ``dt`` through ``kind``'s entry point on the
+    card: K4 chunk / shard / segment, K6 masked / fast."""
+    from stencilflow_tpu_torch.backend import tile
+    from stencilflow_tpu_torch.outofcore import run_chunked
+    from stencilflow_tpu_torch.parallel import compile_pipeline_split
+    from stencilflow_tpu_torch.parallel.domain import run_sharded_chain
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    shape = "hdiff" if kind in ("shard", "masked") else "diffusion"
+    p = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(16, 32, 48), shape=shape,
+        seed_data="random:0.0,1.0", data_type=dt,
+        boundary="copy" if kind == "chunk" else "constant"))
+    inputs = port.load_input_arrays(p, seed=5)
+    for m in (stream, tile):
+        m.launches_by.clear()
+    if kind == "chunk":
+        got = run_chunked(p, inputs, 4, device=cuda)
+        return p, inputs, got, stream.launches_by["local_narrow"], 4
+    if kind == "shard":
+        got = run_sharded_chain(p, make_mesh([cuda], (2, 2), ("x", "y")),
+                                (None, "x", "y"), inputs)
+        return p, inputs, got, stream.launches_by["shard_narrow"], 4
+    if kind == "segment":
+        fn, plan = compile_pipeline_split(
+            p, make_mesh([cuda], (2,), ("p",)), "p")
+        got = {k: v.numpy() for k, v in fn(inputs).items()}
+        return (p, inputs, got, stream.launches_by["local_narrow"],
+                len(plan.segments) * plan.num_chunks)
+    got = tile.run_chain_tile(p, inputs, mode=kind, device=cuda)
+    return p, inputs, got, tile.launches_by["narrow"], 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("kind", ["chunk", "shard", "segment", "masked",
+                                  "fast"])
+def test_narrow_k4_k6_on_card(kind, dt, cuda):
+    """K4 (chunk, shard, segment) and K6 (masked, fast) on programs typed
+    bf16 and f16, through their entry points: 2-byte cells loaded
+    synchronously, every op rounded once, equal to the numpy oracle bit
+    for bit; every launch counted under its narrow mode."""
+    p, inputs, got, n, want_n = _narrow_k4k6(kind, dt, cuda)
+    assert n == want_n
+    oracle = port.run_interpreter(p, inputs)
+    for o in oracle:
+        g = np.asarray(got[o]).reshape(oracle[o].shape)
+        assert g.dtype == oracle[o].dtype
+        np.testing.assert_array_equal(g.view(np.uint16),
+                                      oracle[o].view(np.uint16))
+
+
+@pytest.mark.cuda
+def test_narrow_solver_entry_points_on_card(cuda, tmp_path):
+    """``iterate`` (fused, checkpointed and resumed), ``fast_value_and_grad``
+    and ``solve_cg`` on bf16 / f16 programs on the card: the resumed run
+    bit-equal to the uninterrupted one, the gradient bit-equal to the
+    adjoint program's dense lowering, CG's four iterations in float16."""
+    from stencilflow_tpu_torch.backend.dense import compile_chain
+    from stencilflow_tpu_torch.dtypes import to_numpy, to_torch
+    from stencilflow_tpu_torch.grad import _adjoint_extras
+    from stencilflow_tpu_torch.solver_cells import implicit_diffusion
+    p = port.parse_program(synthesize_stencil(
+        num_stages=1, dimensions=(24, 32, 48), shape="diffusion",
+        seed_data="random:0.0,1.0", data_type="bfloat16"))
+    inputs = port.load_input_arrays(p, seed=2)
+    whole = port.iterate(p, inputs, 8, fuse=2, device=cuda)
+    port.iterate(p, inputs, 4, fuse=2, device=cuda, checkpoint_every=4,
+                 checkpoint_dir=str(tmp_path))
+    resumed = port.iterate(p, inputs, 8, fuse=2, device=cuda,
+                           checkpoint_every=4, checkpoint_dir=str(tmp_path))
+    for k in whole:
+        assert resumed[k].dtype == whole[k].dtype
+        np.testing.assert_array_equal(resumed[k].view(np.uint8),
+                                      whole[k].view(np.uint8))
+    g = port.parse_program(synthesize_stencil(
+        num_stages=4, dimensions=(24, 32, 48), shape="diffusion",
+        seed_data="random:0.0,1.0", data_type="bfloat16"))
+    _v, grads = port.fast_value_and_grad(g, device=cuda)(
+        port.load_input_arrays(g, seed=3))
+    adj, cot = port.adjoint_program(g)
+    o = g.outputs[0]
+    dense = compile_chain(adj)({cot[o]: torch.ones(
+        g.raw_dimensions, dtype=torch.bfloat16, device=cuda), **{
+        k: to_torch(v, cuda) for k, v in _adjoint_extras(adj, cot).items()}})
+    name = next(iter(grads))
+    np.testing.assert_array_equal(
+        to_numpy(grads[name]).view(np.uint16),
+        to_numpy(dense[f"adj_{name}"]).reshape(
+            grads[name].shape).view(np.uint16))
+    e = implicit_diffusion(32, dtype="float16")
+    rhs = np.random.default_rng(0).random((32,) * 3).astype(np.float16)
+    x, info = port.solve_cg(e, rhs, maxiter=4, device=cuda)
+    assert info["iterations"] == 4 and x.dtype == torch.float16
+    assert torch.isfinite(x).all() and info["residual"] < 1
+
+
 @pytest.mark.cuda
 def test_run_program_tile_on_card(cuda):
     """``run --backend tile`` reaches K6 and matches the oracle."""

@@ -28,8 +28,9 @@ as a struct on the host, so a missed conversion does not compile), against
 the plain versions and the oracle.
 (e) K3b: narrow stages stay off the banded route (the JAX package's
 banded kernel lands 0.07955 relative from its oracle on box3d r2 typed
-bf16 at seed 3), the simulator, routing, the entry points that refuse narrow
-programs, and the CLI.
+bf16 at seed 3), the simulator, routing (K6's cell and K4's out-of-core
+chunk plan too) and the CLI; K4, K6 and the entry points above them are
+tests/test_torch_narrow_paths.py's.
 """
 import json
 import os
@@ -656,29 +657,46 @@ def test_mixed_bf16_falls_back_to_the_python_machine(make):
 
 
 @pytest.mark.parametrize("dt", NARROW)
-@pytest.mark.parametrize("dims,iters,route", [
-    ((512, 512, 512), 8, "panel"), ((512, 512, 512), 2, "overlap"),
-    ((8192, 8192), 8, "rows+group_g8")])
-def test_route_plans_the_narrow_cells(dims, iters, route, dt):
-    """Planning only: the narrow cells take the float32 cells' kernels."""
-    p = port.parse_program(typed("diffusion", dims, iters, dt))
-    assert choose_backend(p, port.ChainAnalysis.run(p), "cuda") == route
+@pytest.mark.parametrize("shape,dims,iters,routes,kw", [
+    ("diffusion", (512, 512, 512), 8, ("panel", "panel"), {}),
+    ("diffusion", (512, 512, 512), 2, ("overlap", "overlap"), {}),
+    ("diffusion", (8192, 8192), 8, ("rows+group_g8",) * 2, {}),
+    ("hdiff", (256, 256, 256), 16, ("tile", "panel"), {"spill": "off"}),
+    ("hdiff", (256, 256, 256), 24, ("dense", "tile"), {"spill": "off"})])
+def test_route_plans_the_narrow_cells(shape, dims, iters, routes, kw, dt):
+    """Planning only: the narrow cells take the float32 cells' kernels,
+    or one rung earlier where 2-byte cells fit a kernel that 4-byte ones
+    do not: without the spill rung hdiff3d 256^3 x 16 takes K6 in float32
+    and K1 narrow, and x 24 falls to ``dense`` in float32 and takes K6
+    narrow (the K6 cell)."""
+    for t, route in zip(("float32", dt), routes):
+        p = port.parse_program(typed(shape, dims, iters, t))
+        assert choose_backend(p, port.ChainAnalysis.run(p), "cuda",
+                              **kw) == route
 
 
 @pytest.mark.parametrize("dt", NARROW)
-def test_k4_and_k6_refuse_narrow_programs(dt):
-    """Still to port (ROADMAP Queue 1 item 11): the local stream kernel
-    and the overlapped-tile kernel refuse narrow fields, and the routing
-    ladder falls through them."""
+def test_route_plans_the_narrow_chunk(dt):
+    """The out-of-core cell's chunk plan (jacobi3d 1024^3 x 8 at 8
+    chunks): K4 plans the narrow program where it plans the float32 one,
+    on chip, its cells at 2 bytes, so the same tile takes less shared
+    memory."""
     from stencilflow_tpu_torch.backend.dense import chain_halo
-    from stencilflow_tpu_torch.backend.tile import plan_tile
-    p = port.parse_program(typed("diffusion", (16, 12, 16), 3, dt))
-    an = port.ChainAnalysis.run(p)
-    for plan in (lambda: plan_tile(p, an),
-                 lambda: stream.plan_local(p, an, 4, chain_halo(an)[0])):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 11"):
-            plan()
+    from stencilflow_tpu_torch.outofcore import _fake_plan
+    from stencilflow_tpu_torch.parallel.domain import plan_local_stream
+    plans = {}
+    for t in ("float32", dt):
+        p = port.parse_program(typed("diffusion", (1024,) * 3, 8, t))
+        an = port.ChainAnalysis.run(p)
+        h = chain_halo(an)[0]
+        got = plan_local_stream(p, an, _fake_plan(p, (128, 1024, 1024),
+                                                  (h, 0, 0)))
+        assert got is not None
+        plans[t] = got[0]
+        assert not plans[t].packed and not plans[t].mxu_plans
+    at = stream.plan_local(plans[dt].program, None, 128, plans[dt].halo_i,
+                           tile=plans["float32"].tile)
+    assert at.smem_bytes() < plans["float32"].smem_bytes()
 
 
 def test_report_counts_two_bytes_a_cell():
@@ -729,21 +747,3 @@ def test_cli_run_compare_to_reference(bf16_json, capsys):
     assert main(["simulate", bf16_json]) == 0
     assert main(["compile", bf16_json, "--emulation"]) == 0
     assert "lowered with backend 'panel'" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("argv", [
-    ["run", "--backend", "tile"],
-    ["run", "--host-chunks", "2"],
-    ["run-distributed", "--devices", "2", "--force-host-devices"],
-    ["iterate", "--steps", "2", "--device", "cpu"],
-    ["solve", "--rhs", "random:0,1", "--emulation"],
-    ["autotune", "--device", "cpu", "--no-sweep", "--trials", "1"]])
-def test_entry_points_without_a_narrow_path_refuse(bf16_json, capsys, argv):
-    """Each exits with ``error:`` and rc 2 naming ROADMAP Queue 1 item 11
-    (``--device cpu`` where the entry point takes one)."""
-    cmd = [argv[0], bf16_json] + argv[1:]
-    if argv[0] == "run":
-        cmd += ["--device", "cpu"]
-    assert main(cmd) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and "ROADMAP Queue 1 item 11" in err
