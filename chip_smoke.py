@@ -317,7 +317,24 @@ Phases, one line each (any failure raises and exits non-zero):
    pipeline positions, each driven once with the counts reset just
    before and read just after (K4's narrow launches only), bit-equal to
    the single-device narrow route, and the last shard and segment 0 on
-   chunk 1 through K4 against its plain version, timed.
+   chunk 1 through K4 against its plain version, timed.  Then the
+   multi-host surfaces (``_multihost``): two processes of ``cli
+   run-distributed --coordinator 127.0.0.1:PORT --num-hosts 2 --host-id
+   {0,1} --devices 2 --compare-to-reference`` on jacobi3d 256^3 x 8, a
+   position a process on cuda:0, exchanging over gloo through pinned
+   host buffers, for domain blocking, domain ``--comm-overlap`` and
+   pipeline (the three pairs at once, killed on a timeout): each process
+   exits 0, verifies the shards it holds and launches K4; one timed pair
+   of ``_timed_host`` processes on jacobi3d
+   512^3 x 8 (ms a call, the exchange's ms, the bytes a rank received
+   beside ``mesh_scaling``'s ``ici_bytes_per_device``; both ranks share
+   the card, no scaling figure); ``iterate`` with
+   ``checkpoint_format="orbax"`` (``torch.distributed.checkpoint``, a
+   directory a step, one entry a shard) over 2 x 2 virtual shards at
+   256^3, the newest step removed and the resume bit-equal to the
+   uninterrupted run, with the save's ms and a chunk's wall with and
+   without a save; and the mesh-scaling model's line for jacobi3d 512^3 x
+   8 over 2 x 2 (the exchange at the NVLink data-sheet rate).
 
 Phases 3 to 5 and 9 draw each program's inputs once a phase
 (``_InputMemo``: ``run_program`` and the script take the same seeded
@@ -2253,6 +2270,21 @@ def _sharded_setup(sft, jacobi8, box256):
             p, m, a, comm_overlap=True))
         thunks.append(lambda p=p, m=mesh, a=axes: compile_sharded_chain(
             p, m, a, compose="off"))
+    # the multi-host legs' kernels, for their processes to find built: a
+    # position a process on the (1, 2) ('x', 'y') mesh run-distributed
+    # builds for --devices 2, the ("p",) pipeline of 2, and the sharded
+    # one-stage step the orbax checkpoint leg iterates on 2 x 2
+    m12 = make_mesh([cuda], (1, 2), ("x", "y"))
+    j256 = synth("diffusion", 256, 8)
+    thunks += [
+        lambda: compile_sharded_chain(j256, m12, (None, "x", "y")),
+        lambda: compile_sharded_chain(j256, m12, ("y", None, None),
+                                      comm_overlap=True),
+        lambda: compile_pipeline_split(j256, make_mesh([cuda], (2,),
+                                                       ("p",)), "p"),
+        lambda: compile_sharded_chain(jacobi8, m12, (None, "x", "y")),
+        lambda: compile_sharded_chain(step, make_mesh([cuda], *jk[:2]),
+                                      jk[2])]
     return (cells, kcases, solvers, pipes, bf16, overlap), thunks
 
 
@@ -2774,6 +2806,273 @@ def _pipeline(sft, st, pn, ov, gp, tl, setup, smi):
     print(f"pipeline: took {time.perf_counter() - t_phase:.1f} s | {smi}",
           flush=True)
     return entry
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_pairs(cmds, timeout: float):
+    """Start every command at once (pairs of a multi-host launch), wait
+    for all; on a timeout or an error every process is killed.  Returns
+    (rc, merged output) a command."""
+    procs = [subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = []
+    end = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, end - time.perf_counter()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def _timed_host(stencil_file: str, coordinator: str, host: int,
+                device: str = "cuda") -> int:
+    """One process of phase 9's timed two-process domain call (spawned
+    with ``python -c``, one a host): joins the gloo group, builds the
+    global (1, 2) ('x', 'y') mesh, a position a process on ``device``
+    (``cli run-distributed --devices 2 --coordinator``'s mesh),
+    compiles the sharded chain over ``(None, 'x', 'y')`` and places its
+    inputs; then, each rep started together behind a barrier and ended by
+    synchronizing the device, times a warm call, then the exchange alone.
+    Prints one JSON line: the median ms of a call, of the exchange and of
+    the exchange's cross-process rounds (``transport.stats``), the bytes
+    this process received a call beside the mesh-scaling model's
+    ``ici_bytes_per_device`` (both faces of every sharded dim of a
+    position with two neighbours), and the K4 launches of one call."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from stencilflow_tpu_torch.backend import stream
+    from stencilflow_tpu_torch.data import load_input_arrays
+    from stencilflow_tpu_torch.frontend.parser import parse_program
+    from stencilflow_tpu_torch.parallel import transport
+    from stencilflow_tpu_torch.parallel.domain import (compile_sharded_chain,
+                                                       place_global_inputs)
+    from stencilflow_tpu_torch.parallel.mesh import (make_host_mesh,
+                                                     mesh_shape_2d)
+    from stencilflow_tpu_torch.report import Report
+    axes = (None, "x", "y")
+    dev = torch.device(device)
+    program = parse_program(stencil_file)
+    inputs = load_input_arrays(program, seed=0)
+    transport.init_hosts(coordinator, 2, host)
+    try:
+        shape = mesh_shape_2d(2)
+        mesh = make_host_mesh([dev], shape, ("x", "y"), host, 2)
+        fn, plan = compile_sharded_chain(program, mesh, axes)
+        placed = place_global_inputs(program, plan, inputs)
+        del inputs
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        reps = 5
+
+        def timed(call):
+            """Median ms of a rep and of its cross-process rounds."""
+            ms, rounds = [], []
+            for _ in range(reps):
+                dist.barrier()
+                r0 = transport.stats["seconds"]
+                t0 = time.perf_counter()
+                call()
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                rounds.append((transport.stats["seconds"] - r0) * 1e3)
+            return statistics.median(ms), statistics.median(rounds)
+
+        fn(placed)                       # warm-up: builds, pools, buffers
+        sync()
+        stream.launches_by.clear()
+        fn(placed)
+        sync()
+        launches = sum(stream.launches_by.values())
+        call_ms, _ = timed(lambda: fn(placed))
+        transport.stats["bytes_received"] = 0
+        x_ms, round_ms = timed(lambda: fn.exchange(placed))
+        model = Report.build(program).mesh_scaling(
+            dict(zip(("x", "y"), shape)), axes)
+        print(json.dumps({
+            "host": host, "mesh": dict(mesh.shape),
+            "local": len(mesh.local_coords()),
+            "backend": fn.last_config["backend"], "k4_launches": launches,
+            "call_ms": call_ms, "exchange_ms": x_ms,
+            "remote_round_ms": round_ms,
+            "bytes_received": transport.stats["bytes_received"] // reps,
+            "model_ici_bytes_per_device": model["ici_bytes_per_device"],
+            "transport": transport.TRANSPORT}), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _multihost(sft, setup, smi, tmp):
+    """Phase 9, continued: the multi-host surfaces.  Two processes of
+    ``python -m stencilflow_tpu_torch.cli run-distributed --coordinator
+    127.0.0.1:PORT --num-hosts 2 --host-id {0,1} --devices 2
+    --compare-to-reference`` on jacobi3d 256^3 x 8, a position a process
+    on cuda:0 (K4 a shard or a segment, slabs over gloo through pinned
+    host buffers): domain blocking (k over 2), domain ``--comm-overlap``
+    (i over 2: interior and strip K4s) and pipeline (2 segments), the
+    three pairs at once; each process must exit 0, verify its shards and
+    launch K4.  Then one pair of ``_timed_host`` processes (``python
+    -c``) on jacobi3d 512^3 x 8 (ms a
+    call after a warm-up, the exchange's ms, the bytes a rank received
+    beside ``mesh_scaling``'s ``ici_bytes_per_device``).  Both ranks
+    share the one card: not a scaling figure.  Then ``iterate`` with
+    ``checkpoint_format="orbax"`` over 2 x 2 virtual shards of the card
+    (jacobi3d 256^3, 16 steps, a save every chunk of 4): the newest step
+    removed, the resume bit-equal to the uninterrupted run, with the
+    save's ms and the chunk's wall with and without a save.  Last, the
+    mesh-scaling model's line for jacobi3d 512^3 x 8 over 2 x 2 (host
+    time only; the exchange at the NVLink data-sheet rate)."""
+    import shutil
+
+    import torch
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    from stencilflow_tpu_torch.report import Report
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+    t_phase = time.perf_counter()
+    progs = {}
+    for n in (256, 512):
+        progs[n] = os.path.join(tmp, f"jacobi3d_{n}_8itr.json")
+        with open(progs[n], "w") as f:
+            json.dump(synthesize_stencil(
+                num_stages=8, dimensions=(n,) * 3, shape="diffusion",
+                seed_data="random:0.0,1.0"), f)
+    legs = [("domain, blocking (k over 2)", ["--dim-axes", "none,x,y"]),
+            ("domain, --comm-overlap (i over 2)",
+             ["--dim-axes", "y,none,none", "--comm-overlap"]),
+            ("pipeline (2 segments)", ["--parallel-mode", "pipeline"])]
+    cmds = []
+    for _label, extra in legs:
+        port = _free_port()
+        cmds += [[sys.executable, "-m", "stencilflow_tpu_torch.cli",
+                  "run-distributed", progs[256], "--devices", "2",
+                  "--coordinator", f"127.0.0.1:{port}", "--num-hosts", "2",
+                  "--host-id", str(h), "--compare-to-reference"] + extra
+                 for h in range(2)]
+    t0 = time.perf_counter()
+    got = _spawn_pairs(cmds, 400)
+    wall = time.perf_counter() - t0
+    for i, (label, _extra) in enumerate(legs):
+        seen = []
+        for h in range(2):
+            rc, out = got[2 * i + h]
+            body = [ln for ln in out.splitlines()
+                    if ln.startswith(f"host {h}: backend: ")]
+            if rc != 0 or f"host {h}: verified local shards: OK" not in out \
+                    or not body or "stream" not in body[0] \
+                    or body[0].endswith("K4 launches 0"):
+                raise RuntimeError(f"multihost: {label}, host {h} (rc {rc}):"
+                                   f"\n{out[-3000:]}")
+            seen.append(body[0].split(": backend: ", 1)[1])
+        print(f"multihost: jacobi3d 256^3 x 8 {label}, 2 processes on "
+              f"cuda:0 over gloo: host 0 {seen[0]}, host 1 {seen[1]}, "
+              f"both verified their shards OK (the three pairs at once in "
+              f"{wall:.1f} s) | {smi}", flush=True)
+
+    port = _free_port()
+    got = _spawn_pairs([[sys.executable, "-c",
+                         "import sys, chip_smoke; sys.exit(chip_smoke."
+                         f"_timed_host({progs[512]!r}, '127.0.0.1:{port}', "
+                         f"{h}))"] for h in range(2)], 300)
+    rows = []
+    for h, (rc, out) in enumerate(got):
+        line = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if rc != 0 or not line:
+            raise RuntimeError(f"multihost: timing host {h} (rc {rc}):\n"
+                               f"{out[-3000:]}")
+        rows.append(json.loads(line[-1]))
+        r = rows[-1]
+        if r["backend"] != "stream" or r["k4_launches"] < 1:
+            raise RuntimeError(f"multihost: timing host {h}: {r}")
+    for r in rows:
+        print(f"multihost: timed jacobi3d 512^3 x 8, host {r['host']} of 2 "
+              f"(mesh {r['mesh']}, {r['local']} local on cuda:0, K4 "
+              f"launches {r['k4_launches']} a call): {r['call_ms']:.3f} ms "
+              f"a call (median of 5 after a warm-up), exchange "
+              f"{r['exchange_ms']:.3f} ms of which the cross-process round "
+              f"{r['remote_round_ms']:.3f} ms, received "
+              f"{r['bytes_received']} B a call beside mesh_scaling's "
+              f"ici_bytes_per_device {r['model_ici_bytes_per_device']} B "
+              f"(both faces; an edge position receives one), over "
+              f"{r['transport']}; both ranks share one card: not a "
+              f"scaling figure | {smi}", flush=True)
+
+    # sharded asynchronous checkpoints from the CUDA-graph loop
+    cuda = torch.device("cuda", 0)
+    p = setup[2]["iterate"]
+    shape, names, axes = setup[2]["mesh"]
+    mesh = make_mesh([cuda], shape, names)
+    inputs = sft.load_input_arrays(p, seed=0)
+    ck = os.path.join(tmp, "ckpt")
+    kw = dict(mesh=mesh, dim_axes=axes, chunk=4)
+    # warm: builds, pools, and DCP's imports and writer thread
+    sft.iterate(p, inputs, 4, checkpoint_every=4, checkpoint_format="orbax",
+                checkpoint_dir=os.path.join(tmp, "warm"), **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = sft.iterate(p, inputs, 16, **kw)
+    t_plain = time.perf_counter() - t0
+    stats = {}
+    t0 = time.perf_counter()
+    full = sft.iterate(p, inputs, 16, checkpoint_every=4, checkpoint_dir=ck,
+                       checkpoint_format="orbax", stats=stats, **kw)
+    t_ck = time.perf_counter() - t0
+    steps = sorted(int(d) for d in os.listdir(ck) if d.isdigit())
+    shutil.rmtree(os.path.join(ck, "16"))
+    again = sft.iterate(p, inputs, 16, checkpoint_every=4,
+                        checkpoint_dir=ck, checkpoint_format="orbax", **kw)
+    shutil.rmtree(ck)
+    if steps != [4, 8, 12, 16] or not (
+            np.array_equal(full["a"], again["a"])
+            and np.array_equal(full["a"], plain["a"])):
+        raise RuntimeError(f"multihost: orbax checkpoints {steps}: the "
+                           "resume differs from the uninterrupted run")
+    save_ms = [x * 1e3 for x in stats["save_s"]]
+    print(f"checkpoint: iterate {p.name} over 2 x 2 virtual shards, 16 "
+          f"steps in chunks of 4, checkpoint_format=orbax "
+          f"(torch.distributed.checkpoint, one entry a shard, "
+          f"{stats['backend']}, {stats['replays']} replays): step "
+          f"directories {steps}; with step 16 removed the resume equals "
+          f"the uninterrupted run bit for bit; a save's staging and "
+          f"submission {np.mean(save_ms):.2f} ms (max {max(save_ms):.2f}), "
+          f"{stats['save_wait_s'] * 1e3:.1f} ms waiting for writes in all "
+          f"(the last one's at the end); a chunk's wall (the call over 4 "
+          f"chunks, its capture included, after a warm call) "
+          f"{t_ck / 4 * 1e3:.2f} ms with a save, {t_plain / 4 * 1e3:.2f} ms "
+          f"without | {smi}", flush=True)
+
+    jac = sft.parse_program(progs[512], name="jacobi3d_512_8itr")
+    m = Report.build(jac).mesh_scaling({"x": 2, "y": 2}, (None, "x", "y"))
+    o = m["comm_overlap"]
+    print(f"mesh model: jacobi3d 512^3 x 8 over 2 x 2 (None, x, y): local "
+          f"block {m['local_dims']}, halo {m['halo']}, "
+          f"{m['ici_bytes_per_device']} B a card over NVLink "
+          f"({m['t_ici_s'] * 1e6:.1f} us at the data sheet's 450e9 B/s a "
+          f"direction), compute {m['t_compute_s'] * 1e6:.1f} us, step "
+          f"{m['t_step_s'] * 1e6:.1f} us, {m['scaled_gcell_s']:.1f} GCell/s, "
+          f"efficiency {m['parallel_efficiency']:.3f}; overlap step "
+          f"{o['t_step_s'] * 1e6:.1f} us ({'wins' if o['wins'] else 'loses'}"
+          f", break-even {o['break_even_ici_s'] * 1e6:.1f} us) | {smi}",
+          flush=True)
+    print(f"multihost: the multi-host, checkpoint and model legs took "
+          f"{time.perf_counter() - t_phase:.1f} s | {smi}", flush=True)
 
 
 def _k4_bf16(sft, st, pn, ov, gp, tl, setup, smi):
@@ -5180,6 +5479,9 @@ def main() -> int:
     report["local_stream_shard_overlap"] = _overlap(
         sft, st, pn, ov, gp, tl, sharded_setup, smi)
     inputs_memo.clear()
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="sft_multihost_") as tmp:
+        _multihost(sft, sharded_setup, smi, tmp)
     print(f"sharded: phase 9 took {time.perf_counter() - t9:.1f} s | {smi}",
           flush=True)
 

@@ -6,8 +6,8 @@
     python -m stencilflow_tpu_torch.cli run <prog.json> [emulation|hardware] --compare-to-reference [--run-simulation] [--backend autotuned] --device cuda
     python -m stencilflow_tpu_torch.cli autotune <prog.json> [--no-sweep] [--trials N] [--cache F | --no-cache] [--json] [--device cuda | --emulation]
     python -m stencilflow_tpu_torch.cli simulate <prog.json> [--no-native] [--trace CSV] [--trace-chrome JSON] [--output-dir D]
-    python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R] [--plot]
-    python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D] [--device cuda]
+    python -m stencilflow_tpu_torch.cli report <prog.json> [--json] [--verbose] [--optimize-ratio R] [--plot] [--mesh x=2,y=2 [--mesh-axes none,x,y] [--comm-overlap]]
+    python -m stencilflow_tpu_torch.cli iterate <prog.json> --steps N [--fuse-steps F] [--host-chunks C] [--checkpoint-every E --checkpoint-dir D [--checkpoint-format npz|orbax]] [--device cuda]
     python -m stencilflow_tpu_torch.cli solve <prog.json> --rhs random:0,1 [--method cg|cgnr] [--tol T] [--device cuda]
     python -m stencilflow_tpu_torch.cli adjoint <prog.json> [-o adj.json] [--wrt a,b]
     python -m stencilflow_tpu_torch.cli canonicalize <prog.json> [-o out.json] [--symbols C=1.5,D=2] [--predicate-min-max]
@@ -17,6 +17,7 @@
     python -m stencilflow_tpu_torch.cli partition <prog.json> --devices N [--at K | --cut K,.. | --optimize] [--enumerate-cuts]
     python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --devices N [--dim-axes none,x,y] [--force-host-devices] --compare-to-reference
     python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --parallel-mode pipeline --devices N [--split-at K | --cut K,.. | --optimize-cuts] [--pipeline-domain j=N[,k=M]] [--num-chunks C]
+    python -m stencilflow_tpu_torch.cli run-distributed <prog.json> --devices N --coordinator HOST:PORT --num-hosts H --host-id R [--force-host-devices] --compare-to-reference
 
 Port of ``stencilflow_tpu/cli.py``: the JAX package's usage parses here
 too and prints the same lines.  Its spellings map to the port's
@@ -38,24 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-# option (as given) -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "--mesh": "Queue 1 item 8 (M12, the mesh-scaling model on an NVLink "
-              "model)",
-    "--coordinator": "Queue 1 item 8 (M12, multi-host over "
-                     "torch.distributed)",
-    "--checkpoint-format orbax": "Queue 1 item 8 (M12, the sharded "
-                                 "engine's asynchronous checkpoints; the "
-                                 "card's machine has no orbax)",
-}
-
-
-def _refuse(option: str) -> int:
-    print(f"error: {option} is not ported to stencilflow_tpu_torch yet "
-          f"(ROADMAP {NOT_PORTED[option]})", file=sys.stderr)
-    return 2
-
 
 def _cmd_run(args) -> int:
     from .driver import BACKEND_ALIASES, VerificationError, run_program
@@ -196,8 +179,6 @@ def _cmd_report(args) -> int:
     from .frontend.analysis import ChainAnalysis
     from .frontend.parser import parse_program
     from .report import Report
-    if args.mesh:
-        return _refuse("--mesh")
     program = parse_program(args.stencil_file)
     analysis = ChainAnalysis.run(program)
     if args.plot:
@@ -214,8 +195,18 @@ def _cmd_report(args) -> int:
             print("wrote " + plot_compute_graph(
                 kspec, f"{program.name}_{kname}_compute.png"))
     report = Report.build(program, analysis)
+    mesh_scaling = None
+    if args.mesh:
+        mesh_dims = _parse_mesh(args.mesh)
+        axes = _parse_axes(args.mesh_axes)
+        if mesh_dims is None or axes is None:
+            return 2
+        mesh_scaling = report.mesh_scaling(mesh_dims, axes)
     if args.json:
-        print(json.dumps(report.as_dict(), indent=2, default=str))
+        d = report.as_dict()
+        if mesh_scaling:
+            d["mesh_scaling"] = mesh_scaling
+        print(json.dumps(d, indent=2, default=str))
     elif args.verbose:
         print(report.full_dump())
     else:
@@ -227,6 +218,32 @@ def _cmd_report(args) -> int:
         print(f"\nmemory placement at slow/fast ratio "
               f"{args.optimize_ratio}:")
         print(opt.summary())
+    if mesh_scaling is not None and not args.json:
+        s = mesh_scaling
+        print(f"\nmesh scaling [{s['devices']} devices, "
+              f"mesh {s['mesh']}, dims->axes {s['dim_axes']}]:")
+        print(f"  local block {s['local_dims']}  "
+              f"halo {s['halo']}  "
+              f"NVLink {s['ici_bytes_per_device']/2**20:.2f} MiB/device")
+        print(f"  step: compute {s['t_compute_s']*1e6:.1f} us + "
+              f"NVLink {s['t_ici_s']*1e6:.1f} us = "
+              f"{s['t_step_s']*1e6:.1f} us  "
+              f"-> {s['scaled_gcell_s']:.1f} GCell/s, "
+              f"efficiency {s['parallel_efficiency']:.2f}")
+        if args.comm_overlap:
+            o = s["comm_overlap"]
+            print(f"  --comm-overlap: interior {o['t_interior_s']*1e6:.1f}"
+                  f" us (hides {o['hidden_ici_s']*1e6:.1f} us of NVLink, "
+                  f"{o['exposed_ici_s']*1e6:.1f} us exposed) + strips "
+                  f"{o['t_strips_s']*1e6:.1f} us "
+                  f"({o['strip_cells']/1e6:.2f} Mcell overcompute) = "
+                  f"{o['t_step_s']*1e6:.1f} us -> "
+                  f"{o['scaled_gcell_s']:.1f} GCell/s")
+            be = o["break_even_ici_s"]
+            print(f"  verdict: overlap "
+                  f"{'WINS' if o['wins'] else 'loses'} at this topology "
+                  f"(pays above {be*1e6:.1f} us exchange; modeled "
+                  f"{s['t_ici_s']*1e6:.1f} us)")
     return 0
 
 
@@ -235,8 +252,6 @@ def _cmd_iterate(args) -> int:
     from .data import load_input_arrays, save_output_arrays
     from .frontend.parser import parse_program
     from .iterate import iterate
-    if args.checkpoint_format == "orbax":
-        return _refuse("--checkpoint-format orbax")
     program = parse_program(args.stencil_file)
     inputs = load_input_arrays(program, prefix=args.input_directory,
                                seed=args.seed)
@@ -247,6 +262,7 @@ def _cmd_iterate(args) -> int:
                     host_chunks=args.host_chunks,
                     checkpoint_every=args.checkpoint_every,
                     checkpoint_dir=args.checkpoint_dir,
+                    checkpoint_format=args.checkpoint_format,
                     resume=not args.no_resume)
     print(f"ran {args.steps} steps")
     if args.output_dir:
@@ -489,13 +505,10 @@ def _pipeline_mesh(devices, n: int, spec: str):
 def _make_mesh_2d(devices, n):
     """Near-square 2-D ('x', 'y') mesh over n devices."""
     import numpy as np
-    from .parallel.mesh import Mesh
-    a = int(np.floor(np.sqrt(n)))
-    while n % a:
-        a -= 1
+    from .parallel.mesh import Mesh, mesh_shape_2d
     arr = np.empty(n, dtype=object)
     arr[:] = list(devices)
-    return Mesh(arr.reshape(a, n // a), ("x", "y"))
+    return Mesh(arr.reshape(mesh_shape_2d(n)), ("x", "y"))
 
 
 def _parse_axes(text: str):
@@ -510,11 +523,130 @@ def _parse_axes(text: str):
     return axes
 
 
+def _parse_mesh(text: str):
+    """'x=2,y=4' -> {'x': 2, 'y': 4}; None on malformed input."""
+    mesh = {}
+    for part in text.split(","):
+        ax, sep, n = part.partition("=")
+        if (not sep or not ax.strip() or not n.strip().isdigit()
+                or int(n) < 1):
+            print(f"bad --mesh entry {part!r} (want axis=N, N >= 1)",
+                  file=sys.stderr)
+            return None
+        mesh[ax.strip()] = int(n)
+    return mesh
+
+
+def _multihost_checks(args) -> bool:
+    """The multi-host launch's checks beyond the JAX package's, each
+    before any rendezvous (a lone process would wait for its peers
+    there); prints to stderr and returns False on the first that
+    fails."""
+    if args.num_hosts < 1 or not 0 <= args.host_id < args.num_hosts:
+        print(f"--host-id {args.host_id} is not a rank of --num-hosts "
+              f"{args.num_hosts}", file=sys.stderr)
+        return False
+    if args.devices % args.num_hosts:
+        print(f"--devices {args.devices} not divisible by --num-hosts "
+              f"{args.num_hosts}", file=sys.stderr)
+        return False
+    if args.pipeline_domain:
+        print("--pipeline-domain does not run with --coordinator (the "
+              "multi-host pipeline is a bare ('p',) mesh)", file=sys.stderr)
+        return False
+    return True
+
+
+def _verify_local_shards(program, inputs, out, host) -> bool:
+    """Each output shard this process holds against the oracle's block."""
+    import numpy as np
+
+    from .data import arrays_are_equal
+    from .dtypes import to_numpy
+    from .interpreter import run_interpreter
+    ref = run_interpreter(program, inputs)
+    ok = True
+    for o in program.outputs:
+        expected = np.asarray(ref[o]).reshape(program.raw_dimensions)
+        arr = out[o]
+        for c, t in arr.shards.items():
+            idx = arr.block_slices(c)
+            if not arrays_are_equal(expected[idx], to_numpy(t)):
+                print(f"host {host}: MISMATCH on {o} shard {c}",
+                      file=sys.stderr)
+                ok = False
+    print(f"host {host}: verified local shards: " + ("OK" if ok else "FAIL"))
+    return ok
+
+
+def _run_distributed_multihost(args, program, inputs, devices,
+                               axes) -> int:
+    """One process of a multi-host launch: join the gloo group, build the
+    global mesh over every process's positions (this process's on
+    ``devices``), run one sharded evaluation (domain mode, or the
+    pipeline split over a ``("p",)`` mesh) and check the output shards
+    this process holds against the oracle, as the JAX package's
+    multi-host body does.  Besides its lines, each process prints its
+    local body and the K4 launches it made."""
+    import torch.distributed as dist
+
+    from .backend import stream
+    from .parallel.mesh import make_host_mesh, mesh_shape_2d
+    from .parallel.transport import TRANSPORT, init_hosts
+    host, n = args.host_id, args.devices
+    init_hosts(args.coordinator, args.num_hosts, host)
+    try:
+        stream.launches_by.clear()
+        if args.parallel_mode == "pipeline":
+            from .parallel.pipeline import compile_pipeline_split
+            mesh = make_host_mesh(devices, (n,), ("p",), host,
+                                  args.num_hosts)
+            fn, _plan = compile_pipeline_split(
+                program, mesh, "p", num_chunks=args.num_chunks,
+                split_at=([k.strip() for k in args.split_at.split(",")]
+                          if args.split_at else None),
+                cut=([k.strip() for k in args.cut.split(",")]
+                     if args.cut else None),
+                optimize_cuts=args.optimize_cuts)
+            out = fn(inputs)
+            cfg = fn.last_config
+            body = (f"pipeline[{cfg['backend']} x{n} segments, "
+                    f"{cfg['io']} io]")
+            what = f"io={cfg['io']}, "
+        else:
+            from .parallel.domain import (compile_sharded_chain,
+                                          run_sharded_chain)
+            mesh = make_host_mesh(devices, mesh_shape_2d(n), ("x", "y"),
+                                  host, args.num_hosts)
+            out = run_sharded_chain(program, mesh, axes, inputs,
+                                    as_numpy=False,
+                                    comm_overlap=args.comm_overlap)
+            cfg = compile_sharded_chain.last_config
+            body = (f"sharded[{cfg['backend']}"
+                    f"{', comm_overlap' if cfg['comm_overlap'] else ''}]")
+            what = ""
+        print(f"host {host}: backend: {body}, K4 launches "
+              f"{sum(stream.launches_by.values())}")
+        print(f"host {host}: ran {args.parallel_mode} over {n} global "
+              f"devices (mesh {dict(mesh.shape)}, {what}"
+              f"{len(mesh.local_coords())} local, exchange over "
+              f"{TRANSPORT})", flush=True)
+        rc = 0
+        if args.compare_to_reference:
+            rc = 0 if _verify_local_shards(program, inputs, out, host) else 1
+        dist.barrier()
+        return rc
+    finally:
+        dist.destroy_process_group()
+
+
 def _cmd_run_distributed(args) -> int:
     """Domain decomposition (or, ``--parallel-mode pipeline``, the
     wavefront pipeline split) over ``--devices`` devices in one process:
     the CUDA devices, or with ``--force-host-devices`` that many virtual
-    CPU positions (the reference's meaning)."""
+    CPU positions (the reference's meaning).  With ``--coordinator``,
+    ``--num-hosts`` and ``--host-id`` this is one process of a multi-host
+    launch holding ``--devices // --num-hosts`` of the positions."""
     import numpy as np
     import torch
 
@@ -523,8 +655,13 @@ def _cmd_run_distributed(args) -> int:
     from .interpreter import run_interpreter
     from .parallel.domain import run_sharded_chain
 
-    # misdirected flags are rejected before anything runs, as the
-    # reference's subcommand rejects them
+    multihost = args.coordinator is not None
+    if multihost and (args.num_hosts is None or args.host_id is None):
+        print("--coordinator requires --num-hosts and --host-id",
+              file=sys.stderr)
+        return 2
+    # misdirected flags are rejected before anything runs (and before any
+    # rendezvous), as the reference's subcommand rejects them
     if args.parallel_mode == "pipeline" and args.dim_axes:
         print("--dim-axes applies to domain mode only", file=sys.stderr)
         return 2
@@ -539,20 +676,36 @@ def _cmd_run_distributed(args) -> int:
               "to pipeline mode only (pass --parallel-mode pipeline)",
               file=sys.stderr)
         return 2
-    if args.coordinator is not None or args.num_hosts is not None or \
-            args.host_id is not None:
-        return _refuse("--coordinator")
+    if multihost and not _multihost_checks(args):
+        return 2
+    axes = (None, "x", "y")
+    if args.parallel_mode == "domain" and args.dim_axes:
+        axes = _parse_axes(args.dim_axes)
+        if axes is None:
+            return 2
+        names = ("x", "y")
+        bad = [a for a in axes if a and a not in names]
+        if bad:
+            from .parallel.mesh import mesh_shape_2d
+            shape = dict(zip(names, mesh_shape_2d(args.devices)))
+            print(f"unknown mesh axis {bad} (mesh has {list(shape)})",
+                  file=sys.stderr)
+            return 2
+    local = args.devices // args.num_hosts if multihost else args.devices
+    if args.force_host_devices:
+        devices = [torch.device("cpu")] * local
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())][:local]
+    if len(devices) < local:
+        print(f"only {len(devices)} devices available", file=sys.stderr)
+        return 2
     program = parse_program(args.stencil_file)
     inputs = load_input_arrays(program, prefix=args.input_directory,
                                seed=args.seed)
-    if args.force_host_devices:
-        devices = [torch.device("cpu")] * args.devices
-    else:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())][:args.devices]
-    if len(devices) < args.devices:
-        print(f"only {len(devices)} devices available", file=sys.stderr)
-        return 2
+    if multihost:
+        return _run_distributed_multihost(args, program, inputs, devices,
+                                          axes)
     if args.parallel_mode == "pipeline":
         from .parallel.pipeline import compile_pipeline_split
         got = _pipeline_mesh(devices, args.devices, args.pipeline_domain)
@@ -578,17 +731,6 @@ def _cmd_run_distributed(args) -> int:
                   "the dense tile body on the card", file=sys.stderr)
     else:
         mesh = _make_mesh_2d(devices, args.devices)
-        if args.dim_axes:
-            axes = _parse_axes(args.dim_axes)
-            if axes is None:
-                return 2
-            bad = [a for a in axes if a and a not in mesh.shape]
-            if bad:
-                print(f"unknown mesh axis {bad} (mesh has "
-                      f"{list(mesh.shape)})", file=sys.stderr)
-                return 2
-        else:
-            axes = (None, "x", "y")
         outputs = run_sharded_chain(program, mesh, axes, inputs,
                                     comm_overlap=args.comm_overlap)
     print(f"ran {args.parallel_mode} over {args.devices} devices "
@@ -733,12 +875,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plot", action="store_true",
                    help="write chain/compute graph PNGs (needs matplotlib)")
     p.add_argument("--mesh", default=None,
-                   help="not ported yet (exits with rc 2)")
+                   help="project domain-decomposition scaling over a "
+                        "device mesh, e.g. --mesh x=2,y=4 (the exchange "
+                        "priced at the H100's NVLink data-sheet rate, "
+                        "config.H100_NVLINK_BANDWIDTH)")
     p.add_argument("--mesh-axes", default="none,x,y",
-                   help="with --mesh (not ported yet)")
+                   help="mesh axis sharding each padded dim (i,j,k); "
+                        "'none' leaves a dim unsharded")
     p.add_argument("--comm-overlap", action="store_true",
-                   help="with --mesh, which is not ported yet (ROADMAP "
-                        "Queue 1 item 8)")
+                   help="with --mesh: print the comm/compute-overlap "
+                        "tradeoff (hidden exchange vs strip overcompute) "
+                        "and the per-topology break-even")
     p.set_defaults(fn=_cmd_report)
 
     p = sub.add_parser("iterate",
@@ -760,8 +907,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir")
     p.add_argument("--checkpoint-format", default="npz",
                    choices=["npz", "orbax"],
-                   help="npz: one host file per checkpoint; orbax is not "
-                        "ported yet (exits with rc 2)")
+                   help="npz: one host file per checkpoint; orbax (the "
+                        "JAX package's name): one directory per step, "
+                        "each shard saved asynchronously in "
+                        "torch.distributed.checkpoint's format (neither "
+                        "package reads the other's)")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--output-dir")
     p.add_argument("--input-directory")
@@ -908,9 +1058,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--force-host-devices", action="store_true",
                    help="simulate the mesh with virtual CPU devices")
     p.add_argument("--seed", type=int, default=0)
-    for flag in ("--coordinator", "--num-hosts", "--host-id"):
-        p.add_argument(flag, default=None,
-                       help="multi-host: not ported yet (rc 2)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host: the rendezvous of the "
+                        "torch.distributed process group (gloo; slabs "
+                        "staged through host buffers)")
+    p.add_argument("--num-hosts", type=int, default=None,
+                   help="multi-host: processes in the launch; each holds "
+                        "--devices / --num-hosts positions")
+    p.add_argument("--host-id", type=int, default=None,
+                   help="multi-host: this process's rank (0-based)")
     p.add_argument("--comm-overlap", action="store_true",
                    help="domain mode: compute each shard's interior while "
                         "the halo exchange runs on a side stream")

@@ -100,6 +100,11 @@ H100_NARROW_ALU_OPS = 2 * H100_ALU_OPS
 # the data sheet's dense bf16 tensor-core rate (flops/s): the price of the
 # single-pass bf16 band passes (mxu_precision="bf16", report.py)
 H100_BF16_TENSOR_FLOPS = 989e12
+# NVLink 4 between two H100 SXM5 cards: the data sheet's 900 GB/s counts
+# both directions, so one direction carries 450e9 B/s.  A data-sheet
+# figure, not a measurement: the port's mesh-scaling model
+# (report.mesh_scaling) prices the halo exchange with it.
+H100_NVLINK_BANDWIDTH = 450e9         # bytes/s, per direction
 H100_SMEM_PER_BLOCK = 232448          # 227 KB of dynamic shared memory
 H100_SMEM_PER_SM = 233472
 H100_SM_COUNT = 132

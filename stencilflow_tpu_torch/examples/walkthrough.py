@@ -1,11 +1,11 @@
 """End-to-end walkthrough of the port's surfaces: parse -> report ->
-oracle -> simulate -> compile -> optimize -> trace -> iterate -> grad ->
-out-of-core -> autotune.
+oracle -> simulate -> compile -> optimize -> trace -> mesh scaling ->
+iterate -> grad -> out-of-core -> autotune.
 
 Port of ``examples/walkthrough.py`` on ``device`` (the card by default;
-``--device cpu`` takes the plain versions).  Its step 8, the projected
-multi-chip scaling (``Report.mesh_scaling``), is left out: ``report
---mesh`` is ROADMAP Queue 1 item 8 (M12).
+``--device cpu`` takes the plain versions).  Step 8 projects the 2 x 2
+mesh's scaling with the exchange over NVLink (``Report.mesh_scaling``,
+at the data sheet's rate).
 
     python -m stencilflow_tpu_torch.examples.walkthrough [--device cpu]
 """
@@ -68,8 +68,12 @@ def main(device="cuda", size=None):
                                inputs={"a": np.float32}, name="traced_demo")
     print(f"\ntraced program: kernels={list(traced.kernels)}")
 
-    # 8. (left out: projected multi-chip scaling needs report --mesh,
-    #    ROADMAP Queue 1 item 8)
+    # 8. projected multi-card scaling (halo exchange over NVLink vs
+    #    compute)
+    s = Report.build(program).mesh_scaling({"x": 2, "y": 2})
+    print(f"\n2x2 mesh: {s['scaled_gcell_s']:.1f} GCell/s projected, "
+          f"efficiency {s['parallel_efficiency']:.2f} "
+          f"(NVLink {s['ici_bytes_per_device']/2**10:.0f} KiB/device/step)")
 
     # 9. time-stepping with temporal fusion (iterate.py; add
     #    checkpoint_every/checkpoint_dir for crash-resumable runs)

@@ -7,7 +7,8 @@ Port of ``stencilflow_tpu/iterate.py``:
 * ``make_step`` compiles one chain evaluation on any lowering into a
   state update ``{field: tensor} -> {field: tensor}`` that feeds
   designated outputs back into inputs;
-* ``iterate`` runs N steps with ``.npz`` checkpoints and resume.
+* ``iterate`` runs N steps with checkpoints and resume: ``.npz`` files,
+  or sharded asynchronous checkpoints (``checkpoint_format="orbax"``).
 
 The device loop.  The reference runs ``chunk`` steps inside one jitted
 ``lax.fori_loop``.  Here each chunk of ``n`` steps is captured once in a
@@ -34,8 +35,25 @@ CUDA shards): the state is ``parallel.mesh.ShardedArray``s laid out by
 the plan's specs, a chunk of steps is captured in one CUDA graph (the
 exchange copies and every shard's launch) when the shards share one
 device, and npz checkpoints gather the shards under the reference's
-keys.  Orbax checkpoints are not ported: they raise, naming ROADMAP
-Queue 1 item 8 (M12).
+keys.
+
+``checkpoint_format="orbax"`` keeps the JAX package's name for its
+sharded asynchronous checkpoints, which here are written with
+``torch.distributed.checkpoint`` (the card's machine has no orbax; the
+files are DCP's, and neither package reads the other's).  Each step has
+a directory named by its original step number (``ckpt/2``,
+``ckpt/4``, ...), written as ``<step>.tmp`` and renamed once its save
+has finished, so a directory without DCP's ``.metadata`` is never the
+one resumed.  A ``ShardedArray`` is saved as one entry per block of the
+global field (``<field>/shard_<block>_of_<blocks>``), never gathered;
+state on one device as one entry per field.  Each save copies the state
+to host tensors (so the next replay of the CUDA-graph loop may overwrite
+its static buffers) and writes them with ``async_save`` while the next
+chunk runs; the previous save is waited for before the next one, and in
+a ``finally`` before ``iterate`` returns or raises.  A resume onto the
+saved layout loads each shard in place; onto another (2 x 2 to one
+device, one device to 2 x 2) it reads one saved block at a time and
+copies its overlap into each new shard, as orbax's restore reshards.
 """
 from __future__ import annotations
 
@@ -43,6 +61,9 @@ import dataclasses as dc
 import glob
 import os
 import re
+import shutil
+import time
+import warnings
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,8 +74,6 @@ from .backend.stacked_io import resolve_device
 from .dtypes import BFLOAT16, to_numpy, to_torch
 from .frontend.analysis import ChainAnalysis
 
-NOT_PORTED_M12 = "is not ported to stencilflow_tpu_torch yet (ROADMAP " \
-                 "Queue 1 item 8, M12)"
 MESH_NEEDS_AXES = "mesh requires dim_axes, e.g. (None, 'x', 'y')"
 
 
@@ -269,6 +288,162 @@ def _latest_checkpoint(ckpt_dir: str) -> Optional[Tuple[int, str]]:
     return best
 
 
+_SHARD_KEY = re.compile(r"^(.+)/shard_([\d_]+)_of_([\d_]+)$")
+
+
+def _blocks(v) -> Tuple[int, ...]:
+    """Blocks per dim of a ShardedArray."""
+    spec = tuple(v.spec) + (None,) * (len(v.shape) - len(v.spec))
+    return tuple(v.mesh.shape[ax] if ax is not None else 1 for ax in spec)
+
+
+def _shard_key(name: str, block, blocks) -> str:
+    return (f"{name}/shard_{'_'.join(map(str, block))}_of_"
+            f"{'_'.join(map(str, blocks))}")
+
+
+# what DCP warns at each save and load without a process group: that it
+# assumes one process, which is what is meant here
+_ONE_PROCESS = ("torch.distributed is disabled, unavailable or "
+                "uninitialized, assuming the intent is to {} in a single "
+                "process")
+
+
+def _dcp():
+    """``torch.distributed.checkpoint``, imported at first use.  A save's
+    warning comes from DCP's writer thread after ``async_save`` has
+    returned, where no scoped filter reaches (Python's filters are
+    process-wide and ``catch_warnings`` restores them while the thread
+    runs), so the save's message alone is filtered for the process; the
+    loads are silenced where they are made (``_load``)."""
+    import torch.distributed.checkpoint as dcp
+    warnings.filterwarnings("ignore", message=_ONE_PROCESS.format("save"))
+    return dcp
+
+
+def _load(dcp, state_dict: Dict[str, torch.Tensor], path: str) -> None:
+    """``dcp.load`` into ``state_dict`` in this process alone."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore",
+                                message=_ONE_PROCESS.format("load"))
+        dcp.load(state_dict, checkpoint_id=path, no_dist=True)
+
+
+def _latest_step_dir(ckpt_dir: str) -> Optional[Tuple[int, str]]:
+    """The newest complete step directory (DCP's ``.metadata`` written;
+    ``<step>.tmp`` and unfinished directories are skipped)."""
+    best = None
+    for d in os.listdir(ckpt_dir):
+        path = os.path.join(ckpt_dir, d)
+        if d.isdigit() and os.path.isfile(os.path.join(path, ".metadata")):
+            if best is None or int(d) > best[0]:
+                best = (int(d), path)
+    return best
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``, finished when this returns; from the card
+    into pinned memory (its allocator reuses the blocks of earlier
+    saves)."""
+    if t.device.type != "cuda":
+        return t.detach().clone()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    return buf
+
+
+def _staged(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state as host tensors under DCP keys: one entry per block of a
+    ShardedArray (each block once, from the first position holding it),
+    one per field otherwise."""
+    from .parallel.mesh import ShardedArray
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in state.items():
+        if isinstance(v, ShardedArray):
+            blocks = _blocks(v)
+            for c, t in v.shards.items():
+                key = _shard_key(k, v.block_index(c), blocks)
+                if key not in out:
+                    out[key] = _host_copy(t)
+        elif torch.is_tensor(v):
+            out[k] = _host_copy(v)
+        else:
+            out[k] = to_torch(np.array(v))
+    return out
+
+
+def _saved_blocks(path: str):
+    """{field: [(key, block index, blocks, size, dtype)]} of a DCP step
+    directory (an unsharded entry as one block of one)."""
+    import torch.distributed.checkpoint as dcp
+    md = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    got: Dict[str, list] = {}
+    for key, m in md.items():
+        size = tuple(m.size)
+        hit = _SHARD_KEY.match(key)
+        if hit:
+            name = hit.group(1)
+            block = tuple(int(x) for x in hit.group(2).split("_"))
+            blocks = tuple(int(x) for x in hit.group(3).split("_"))
+        else:
+            name, block, blocks = key, (0,) * len(size), (1,) * len(size)
+        got.setdefault(name, []).append(
+            (key, block, blocks, size, m.properties.dtype))
+    return got
+
+
+def _restore(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
+    """``state`` (freshly placed: the layout to resume onto) filled from
+    the DCP step directory ``path``.  A ShardedArray saved in its own
+    layout loads each shard in place; any other pair of layouts reads
+    one saved block at a time and copies its overlap into each target
+    block (a target on one device is its one block)."""
+    from .parallel.mesh import ShardedArray
+    dcp = _dcp()
+    saved = _saved_blocks(path)
+    out = dict(state)
+    for k, v in state.items():
+        entries = saved[k]
+        if isinstance(v, ShardedArray):
+            blocks = _blocks(v)
+            targets = [(t, v.block_slices(c), v.block_index(c))
+                       for c, t in v.shards.items()]
+        else:
+            t = (v if torch.is_tensor(v) else to_torch(np.array(v))).clone()
+            blocks = (1,) * t.dim()
+            targets = [(t, tuple(slice(0, n) for n in t.shape),
+                        (0,) * t.dim())]
+        if all(e[2] == blocks for e in entries):
+            # the saved layout: every target block loads in place
+            by_block = {e[1]: e[0] for e in entries}
+            keys: Dict[str, torch.Tensor] = {}
+            for t, _idx, block in targets:
+                key = by_block[tuple(block)]
+                if key in keys:
+                    t.copy_(keys[key])
+                else:
+                    _load(dcp, {key: t}, path)
+                    keys[key] = t
+        else:
+            for key, block, _blocks_, size, dtype in entries:
+                buf = torch.empty(size, dtype=dtype)
+                _load(dcp, {key: buf}, path)
+                lo = [b * n for b, n in zip(block, size)]
+                for t, idx, _block in targets:
+                    a = [max(s.start, l) for s, l in zip(idx, lo)]
+                    b = [min(s.stop, l + n) for s, l, n in zip(idx, lo, size)]
+                    if any(x >= y for x, y in zip(a, b)):
+                        continue
+                    t[tuple(slice(x - s.start, y - s.start) for x, y, s in
+                            zip(a, b, idx))].copy_(buf[tuple(
+                                slice(x - l, y - l)
+                                for x, y, l in zip(a, b, lo))])
+        if not isinstance(v, ShardedArray):
+            t = targets[0][0]
+            out[k] = t if torch.is_tensor(v) else to_numpy(t)
+    return out
+
+
 class GraphLoop:
     """Chunks of ``n`` steps replayed from CUDA graphs over static
     buffers.
@@ -378,19 +553,26 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
     On a CUDA device each chunk of ``chunk`` steps is one replay of a
     CUDA graph (see the module docstring); with ``checkpoint_every`` >
     0, state is persisted to ``checkpoint_dir`` at that cadence as
-    ``step_<n>.npz`` (atomic rename) and, when ``resume``, execution
-    continues from the newest checkpoint found (one written by the JAX
-    package's ``iterate`` resumes here too).
+    ``step_<n>.npz`` (atomic rename; one written by the JAX package's
+    ``iterate`` resumes here too) or, with ``checkpoint_format="orbax"``,
+    as a directory ``<n>`` of sharded entries saved asynchronously (the
+    module docstring), and, when ``resume``, execution continues from the
+    newest checkpoint found.
 
     ``fuse`` > 1 composes that many time steps into one deeper chain
     (``compose_iterations``) before compiling; ``steps`` and
     ``checkpoint_every`` keep their original-step units and must be
     multiples of ``fuse``.  ``stats``, when given, receives the
     lowering (``backend``) and, on the card, the graphs captured and the
-    chunks replayed.  Returns the final state as host arrays.
+    chunks replayed, and under ``checkpoint_format="orbax"`` the host
+    seconds of each save's staging and submission (``save_s``) and the
+    seconds spent waiting for saves to finish (``save_wait_s``).
+    Returns the final state as host arrays.
 
     ``mesh`` + ``dim_axes``: every step runs through the sharded engine
-    on the mesh's devices (``make_step``); ``device`` is then unused.
+    on the mesh's devices (``make_step``); ``device`` is then unused.  A
+    mesh spanning processes is refused: the state returned is the global
+    field.
     """
     if fuse < 1:
         raise IterateError(f"fuse must be >= 1, got {fuse}")
@@ -400,6 +582,9 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
         raise IterateError(MESH_NEEDS_AXES)
     if mesh is not None and host_chunks and host_chunks > 1:
         raise IterateError("host_chunks is incompatible with mesh")
+    if getattr(mesh, "distributed", False):
+        raise IterateError("iterate returns the global state; a mesh "
+                           "spanning processes does not run here")
     scale = fuse
     if scale > 1:
         if steps % scale:
@@ -415,10 +600,7 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
     if ckpt_f > 0:
         if not checkpoint_dir:
             raise IterateError("checkpoint_every requires checkpoint_dir")
-        if checkpoint_format == "orbax":
-            raise IterateError(f"checkpoint_format 'orbax' "
-                               f"{NOT_PORTED_M12}")
-        if checkpoint_format != "npz":
+        if checkpoint_format not in ("npz", "orbax"):
             raise IterateError(
                 f"unknown checkpoint_format: {checkpoint_format!r}")
 
@@ -437,9 +619,13 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
 
     start = 0
     state = {k: place(k, v) for k, v in inputs.items()}
+    dcp_format = checkpoint_format == "orbax"
     if ckpt_f > 0:
         os.makedirs(checkpoint_dir, exist_ok=True)
-        latest = _latest_checkpoint(checkpoint_dir) if resume else None
+        latest = None
+        if resume:
+            latest = (_latest_step_dir(checkpoint_dir) if dcp_format
+                      else _latest_checkpoint(checkpoint_dir))
         if latest is not None:
             start_orig, path = latest
             if start_orig > steps:
@@ -452,9 +638,12 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
                     f"checkpoint {path} at step {start_orig} does not "
                     f"align with fuse={scale}")
             start = start_orig // scale
-            with np.load(path) as data:
-                state = {k: place(k, _checkpointed(program, k, data[k]))
-                         for k in state}
+            if dcp_format:
+                state = _restore(path, state)
+            else:
+                with np.load(path) as data:
+                    state = {k: place(k, _checkpointed(program, k, data[k]))
+                             for k in state}
         # checkpoints must land on chunk boundaries
         chunk = min(chunk, ckpt_f)
 
@@ -467,6 +656,9 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
 
         def snapshot():
             return loop.state()
+
+        def live():
+            return loop.buffers
     else:
         # host mode (one chunked device sweep per fused step), the CPU and
         # a mesh of distinct devices
@@ -478,22 +670,63 @@ def iterate(program: ir.Program, inputs: Dict[str, Any], steps: int,
         def snapshot():
             return {k: _host(v) for k, v in state.items()}
 
+        def live():
+            return state
+
+    pending = []        # the save in flight: (future, tmp dir, step dir)
+    save_s, wait_s = [], 0.0
+
+    def finish_save():
+        """Wait for the save in flight, then make its directory visible."""
+        nonlocal wait_s
+        if pending:
+            fut, tmp, final = pending.pop()
+            t0 = time.perf_counter()
+            fut.result()
+            wait_s += time.perf_counter() - t0
+            if os.path.isdir(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+
+    def save(step_orig):
+        finish_save()
+        final = os.path.join(checkpoint_dir, str(step_orig))
+        tmp = final + ".tmp"
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        t0 = time.perf_counter()
+        pending.append((_dcp().async_save(_staged(live()),
+                                          checkpoint_id=tmp, no_dist=True),
+                        tmp, final))
+        save_s.append(time.perf_counter() - t0)
+
     done = start
-    while done < steps_f:
-        n = min(chunk, steps_f - done)
-        if ckpt_f > 0:
-            n = min(n, ckpt_f - done % ckpt_f or ckpt_f)
-        run_chunk(n)
-        done += n
-        if ckpt_f > 0 and (done % ckpt_f == 0 or done >= steps_f):
-            final = os.path.join(checkpoint_dir,
-                                 f"step_{done * scale}.npz")
-            tmp = final + ".tmp.npz"
-            np.savez(tmp, **snapshot())
-            os.replace(tmp, final)  # atomic: a crash never corrupts the
-            #                         newest resumable one
+    try:
+        while done < steps_f:
+            n = min(chunk, steps_f - done)
+            if ckpt_f > 0:
+                n = min(n, ckpt_f - done % ckpt_f or ckpt_f)
+            run_chunk(n)
+            done += n
+            if ckpt_f > 0 and (done % ckpt_f == 0 or done >= steps_f):
+                if dcp_format:
+                    # asynchronous: the write overlaps the next chunk
+                    save(done * scale)
+                else:
+                    final = os.path.join(checkpoint_dir,
+                                         f"step_{done * scale}.npz")
+                    tmp = final + ".tmp.npz"
+                    np.savez(tmp, **snapshot())
+                    os.replace(tmp, final)  # atomic: a crash never
+                    #               corrupts the newest resumable one
+    finally:
+        # the save in flight completes even when the loop raises, so the
+        # newest step directory is whole and resumable
+        finish_save()
     if stats is not None:
         stats["backend"] = step.backend
         if loop is not None:
             stats.update(captures=loop.captures, replays=loop.replays)
+        if dcp_format:
+            stats.update(save_s=save_s, save_wait_s=wait_s)
     return snapshot()

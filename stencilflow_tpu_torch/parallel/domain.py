@@ -9,16 +9,19 @@ Global boundary blocks receive zero slabs, which is safe: the local body
 masks every out-of-domain read with its boundary condition using
 *global* coordinates derived from the block's mesh position.
 
-The design is single-controller, as the reference's ``shard_map`` is:
-one process drives the whole mesh (``mesh.Mesh``), each shard a tensor
-on its mesh position's device (``mesh.ShardedArray``).  The exchange is
-slab copies between shard tensors (``copy_``; between two devices
-PyTorch orders the copy after both devices' pending work with events),
-dim by dim, so corner slabs come from diagonal neighbours as the
-reference's sequence of ``ppermute``s gives them.  A mesh may repeat a
-device: virtual shards on one GPU run the same launches, one after
-another on its stream.  The copies between distinct devices have not
-yet been run on distinct devices.
+The design is single-controller within a process, as the reference's
+``shard_map`` is: one process drives the mesh positions it holds
+(``mesh.Mesh``), each shard a tensor on its position's device
+(``mesh.ShardedArray``).  The exchange is slab copies between shard
+tensors (``copy_``; between two devices PyTorch orders the copy after
+both devices' pending work with events), dim by dim, so corner slabs
+come from diagonal neighbours as the reference's sequence of
+``ppermute``s gives them.  A mesh may repeat a device: virtual shards on
+one GPU run the same launches, one after another on its stream.  Across
+processes (the multi-host launch, multi-controller as the JAX
+package's) a neighbour on another process sends its slab through
+``transport.py`` instead, a round a dim.  Copies between distinct GPUs
+have not been run: the port's machine has one.
 
 The local body is K4 in shard mode on CUDA shards (the stream kernel,
 ``backend/stream.py`` local mode with a 3-D origin: ``sf_shard_launch``
@@ -159,7 +162,12 @@ def _exchange_halo(arr: ShardedArray, local_dims: Sequence[int],
     with its neighbours' slabs (zeros at global boundaries).  Dims are
     widened one after another, each slab spanning the dims widened
     before it, so corners come from diagonal neighbours.  Returns the
-    widened tensor of every mesh position."""
+    widened tensor of every mesh position this process holds.
+
+    A neighbour on this process gives its slab by a device copy; one on
+    another process by a round of ``transport.Transfers`` per dim: every
+    remote slab posted at once, all waited for, then copied into place
+    before the next dim."""
     mesh = plan.mesh
     out = {}
     for c, t in arr.shards.items():
@@ -172,6 +180,9 @@ def _exchange_halo(arr: ShardedArray, local_dims: Sequence[int],
         w[tuple(slice(plan.halo[d], plan.halo[d] + t.shape[p])
                 for p, d in enumerate(local_dims))].copy_(t)
         out[c] = w
+    remote = mesh.distributed
+    if remote:
+        from .transport import Transfers
     for pos, d in enumerate(local_dims):
         h = plan.halo[d]
         ax = plan.dim_axes[d]
@@ -195,22 +206,28 @@ def _exchange_halo(arr: ShardedArray, local_dims: Sequence[int],
                     idx.append(slice(hh, hh + plan.block[dd]))
             return out[c][tuple(idx)]
 
-        for c in out:
+        xfer = Transfers(mesh) if remote else None
+        for c in (mesh.coords() if remote else out):
             i = c[axis]
-            left = c[:axis] + (i - 1,) + c[axis + 1:]
-            right = c[:axis] + (i + 1,) + c[axis + 1:]
-            # my left halo is my left neighbour's high core slab
-            if i > 0:
-                region(c, 0, h).copy_(region(left, B, B + h),
-                                      non_blocking=True)
-            else:
-                region(c, 0, h).zero_()
-            # my right halo is my right neighbour's low core slab
-            if i < n - 1:
-                region(c, h + B, 2 * h + B).copy_(region(right, h, 2 * h),
-                                                  non_blocking=True)
-            else:
-                region(c, h + B, 2 * h + B).zero_()
+            # my left halo is my left neighbour's high core slab, my right
+            # halo my right neighbour's low core slab
+            mine = c in out
+            for nb, dst, src in ((i - 1, (0, h), (B, B + h)),
+                                 (i + 1, (h + B, 2 * h + B), (h, 2 * h))):
+                if not 0 <= nb < n:
+                    if mine:
+                        region(c, *dst).zero_()
+                    continue
+                o = c[:axis] + (nb,) + c[axis + 1:]
+                into = region(c, *dst) if mine else None
+                value = region(o, *src) if o in out else None
+                if xfer is None:
+                    into.copy_(value, non_blocking=True)
+                else:
+                    xfer.move(o, c, value, lambda buf, into=into: into.copy_(
+                        buf, non_blocking=True), like=into)
+        if xfer is not None:
+            xfer.run()
     return out
 
 
@@ -249,7 +266,8 @@ def _widen_and_origin(plan: DomainDecomposition,
     """The exchange: every array input widened on every shard (scalars
     pass through).  Returns {coord: {name: tensor}}."""
     program = plan.program
-    per: Dict[Any, Dict[str, Any]] = {c: {} for c in plan.mesh.coords()}
+    per: Dict[Any, Dict[str, Any]] = {c: {} for c in
+                                      plan.mesh.local_coords()}
     for name, spec in program.inputs.items():
         arr = inputs[name]
         if spec.is_scalar:
@@ -721,7 +739,7 @@ def _shard_kernel(splan, plan: DomainDecomposition, on_cuda: bool):
                                   run_local_stream)
     lib = build_stream(splan) if on_cuda else None
     if lib is not None:
-        for c in plan.mesh.coords():
+        for c in plan.mesh.local_coords():
             _pool_tensors(splan, plan.mesh.device(c), plan.instance(c))
 
     def kern(origin_i, tiles, origin_j, origin_k, inst, out=None):
@@ -756,8 +774,9 @@ def _compile_overlap(program, plan: DomainDecomposition, graph, splan,
         def strips(c, tiles, outs):
             return _overlap_strips(plan, graph, c, tiles, outs)
     side = {}
+    local = mesh.local_coords()
     if on_cuda:   # a side stream per device, keyed as tensors name it
-        for c in mesh.coords():
+        for c in local:
             d = mesh.device(c)
             d = torch.device("cuda", torch.cuda.current_device()
                              if d.index is None else d.index)
@@ -772,10 +791,10 @@ def _compile_overlap(program, plan: DomainDecomposition, graph, splan,
         placed = {n: _as_sharded(plan, n, inputs[n])
                   for n in program.inputs}
         raw = {c: {n: v if program.inputs[n].is_scalar else v.shards[c]
-                   for n, v in placed.items()} for c in mesh.coords()}
+                   for n, v in placed.items()} for c in local}
         for d, s in side.items():
             s.wait_stream(torch.cuda.current_stream(d))
-        partial = {c: interior(c, raw[c]) for c in mesh.coords()}
+        partial = {c: interior(c, raw[c]) for c in local}
         if side:
             with contextlib.ExitStack() as stack:
                 for s in side.values():
@@ -795,7 +814,7 @@ def _compile_overlap(program, plan: DomainDecomposition, graph, splan,
             per = exchange(placed)
         outs: Dict[str, Dict[Any, torch.Tensor]] = {
             o: {} for o in program.outputs}
-        for c in mesh.coords():
+        for c in local:
             for o, v in strips(c, per[c], partial[c]).items():
                 outs[o][c] = v
         return {o: ShardedArray(mesh, out_spec, out_shape, shards)

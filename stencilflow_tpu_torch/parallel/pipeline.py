@@ -10,10 +10,13 @@ S segments, every position busy on a different chunk.  The cut search
 (``split_kernels`` ... ``optimize_split``) is the reference's, unchanged
 in meaning, with the port's H100 op costs (``report._OP_COST``).
 
-Single controller, as ``domain.py``: one process drives every mesh
-position (``mesh.Mesh``), a segment runs on its position's device, and a
-hop hands each tensor to the next position's device (``Tensor.to``: a
-copy between distinct devices, none on a mesh that repeats a device).
+Single controller within a process, as ``domain.py``: one process
+drives the mesh positions it holds (``mesh.Mesh``), a segment runs on
+its position's device, and a hop hands each tensor to the next
+position's device (``Tensor.to``: a copy between distinct devices, none
+on a mesh that repeats a device), or, where another process holds the
+next position, sends it there (``_Hops``, a round of
+``transport.Transfers`` a step).
 Every step's results are new tensors, so a hop never overwrites a tile
 that another position still reads in the same step (the reference's
 ``ppermute`` is simultaneous; an in-place copy on a repeated device
@@ -292,27 +295,42 @@ def _gather_axis_halo(shards: Dict[Coord, torch.Tensor], mesh: Mesh,
     the local extent ``local``).  Cells past the global edge are zeros,
     which the BC masks at global coordinates correct (the widened-tile
     discipline).  With one position on the axis, or no axis
-    (``mesh_axis`` None), this is zero padding.  Also used by
-    ``outofcore.compile_chunked_sharded``."""
+    (``mesh_axis`` None), this is zero padding.  A neighbour on another
+    process sends its part in one round of ``transport.Transfers``.  Also
+    used by ``outofcore.compile_chunked_sharded``."""
     if h == 0:
         return dict(shards)
     ax = None if mesh_axis is None else mesh.axis_names.index(mesh_axis)
     n = 1 if ax is None else mesh.shape[mesh_axis]
+    xfer = None
+    if mesh.distributed:
+        from .transport import Transfers
+        xfer = Transfers(mesh)
+    like = next(iter(shards.values()))
+    shape = list(like.shape)
+    shape[pos] = local + 2 * h
     out = {}
-    for c, t in shards.items():
+    for c in (mesh.coords() if xfer is not None else list(shards)):
         i = 0 if ax is None else c[ax]
-        shape = list(t.shape)
-        shape[pos] = local + 2 * h
-        w = t.new_zeros(shape)
+        w = shards[c].new_zeros(shape) if c in shards else None
+        if w is not None:
+            out[c] = w
         lo = i * local - h            # global index of w's first cell
         for q in range(max(0, lo // local),
                        min(n, (lo + local + 2 * h - 1) // local + 1)):
             a = max(lo, q * local)
             b = min(lo + local + 2 * h, (q + 1) * local)
-            src = t if ax is None else shards[c[:ax] + (q,) + c[ax + 1:]]
-            w.narrow(pos, a - lo, b - a).copy_(
-                src.narrow(pos, a - q * local, b - a), non_blocking=True)
-        out[c] = w
+            src_c = c if ax is None else c[:ax] + (q,) + c[ax + 1:]
+            src = (shards[src_c].narrow(pos, a - q * local, b - a)
+                   if src_c in shards else None)
+            dst = None if w is None else w.narrow(pos, a - lo, b - a)
+            if xfer is None:
+                dst.copy_(src, non_blocking=True)
+            else:
+                xfer.move(src_c, c, src, lambda v, dst=dst: dst.copy_(
+                    v, non_blocking=True), like=dst)
+    if xfer is not None:
+        xfer.run()
     return out
 
 
@@ -528,11 +546,42 @@ class _Body:
                        (0, 0, 0))
 
 
+class _Hops:
+    """One wavefront step's hops between positions: ``hop`` hands a dict
+    of tiles from one position to another (``Tensor.to`` on this
+    process; a send or a receive across processes, a dict of None
+    placeholders where this process holds neither end, keys alike), and
+    ``run`` completes the step's cross-process moves."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.xfer = None
+        if mesh.distributed:
+            from .transport import Transfers
+            self.xfer = Transfers(mesh, headers=True)
+
+    def hop(self, tiles: Dict[str, Any], src: Coord, dst: Coord
+            ) -> Dict[str, Any]:
+        dev = self.mesh.device(dst)
+        if self.xfer is None:
+            return {k: v.to(dev, non_blocking=True) for k, v in tiles.items()}
+        got: Dict[str, Any] = dict.fromkeys(tiles)
+        for k, v in tiles.items():
+            self.xfer.move(src, dst, v, lambda t, k=k: got.__setitem__(
+                k, t.to(dev, non_blocking=True)))
+        return got
+
+    def run(self) -> None:
+        if self.xfer is not None:
+            self.xfer.run()
+
+
 def _pipeline_body(body: _Body, inputs: Dict[str, Any]
                    ) -> Dict[str, ShardedArray]:
     """The replicated-io wavefront: every position holds every input
     whole; the outputs are assembled on the last position of each line
-    and replicated over the mesh."""
+    and replicated over the mesh.  Positions of other processes are
+    skipped, their hops sent and received (``_Hops``)."""
     plan = body.plan
     program, mesh = plan.program, plan.mesh
     S, C, chunk = len(plan.segments), plan.num_chunks, plan.chunk
@@ -544,9 +593,12 @@ def _pipeline_body(body: _Body, inputs: Dict[str, Any]
     for line in _lines(mesh, plan.axis):
         # every input padded by the widest i-widening once per tensor (a
         # mesh that repeats a device shares one copy)
-        padded: List[Dict[str, Any]] = []
+        padded: List[Optional[Dict[str, Any]]] = []
         memo: Dict[Any, torch.Tensor] = {}
         for c in line:
+            if not mesh.is_local(c):
+                padded.append(None)
+                continue
             pos = {}
             for n, spec in program.inputs.items():
                 t = inputs[n] if spec.is_scalar else inputs[n].shards[c]
@@ -567,32 +619,53 @@ def _pipeline_body(body: _Body, inputs: Dict[str, Any]
                     for n, t in padded[s].items()}
 
         last = mesh.device(line[-1])
-        out = {o: torch.empty(
-            (C * chunk,) + tuple(dims[1:]), device=last,
-            dtype=to_torch_dtype(program.kernels[o].dtype))
-            for o in program.outputs}
+        out = None
+        if mesh.is_local(line[-1]):
+            out = {o: torch.empty(
+                (C * chunk,) + tuple(dims[1:]), device=last,
+                dtype=to_torch_dtype(program.kernels[o].dtype))
+                for o in program.outputs}
         carry: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
         for t in range(S + C - 1):
+            hops = _Hops(mesh)
             nxt: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
             for s in range(S):
                 c = t - s
                 if not 0 <= c < C:
                     continue
-                new = body.run(s, window(s, c), carry[s] or {},
-                               (c * chunk, 0, 0))
+                new = None
+                if padded[s] is not None:
+                    new = body.run(s, window(s, c), carry[s] or {},
+                                   (c * chunk, 0, 0))
                 if s == S - 1:
-                    for o in program.outputs:
-                        out[o][c * chunk:(c + 1) * chunk].copy_(
-                            body.core(o, new[o]))
+                    if out is not None:
+                        for o in program.outputs:
+                            out[o][c * chunk:(c + 1) * chunk].copy_(
+                                body.core(o, new[o]))
                 else:   # hop to the next position
-                    dev = mesh.device(line[s + 1])
-                    nxt[s + 1] = {f: new[f].to(dev, non_blocking=True)
-                                  for f in body.layouts[s]}
+                    nxt[s + 1] = hops.hop(
+                        {f: None if new is None else new[f]
+                         for f in body.layouts[s]}, line[s], line[s + 1])
+            hops.run()
             carry = nxt
-        for o in program.outputs:
-            v = out[o].reshape(raw)
-            for c in line:
-                shards[o][c] = v.to(mesh.device(c), non_blocking=True)
+        # the whole outputs reach each other process once, at its first
+        # position of the line; its other positions copy them there
+        whole = {o: None if out is None else out[o].reshape(raw)
+                 for o in program.outputs}
+        first: Dict[int, Coord] = {}
+        for c in line:
+            first.setdefault(mesh.owner(c), c)
+        last_rank = mesh.owner(line[-1])
+        hops = _Hops(mesh)
+        got = {c: hops.hop(whole, line[-1], c) for c in line
+               if mesh.owner(c) == last_rank or first[mesh.owner(c)] == c}
+        hops.run()
+        for c in line:
+            if mesh.is_local(c):
+                for o in program.outputs:
+                    shards[o][c] = (got[c][o] if c in got else
+                                    got[first[mesh.rank]][o].to(
+                                        mesh.device(c), non_blocking=True))
     return {o: ShardedArray(mesh, (), raw, s) for o, s in shards.items()}
 
 
@@ -678,12 +751,12 @@ def _pipeline_body_sharded(body: _Body, inputs: Dict[str, Any]
         o: {} for o in program.outputs}
     T = max(S + C - 1, 3 * S - 3)
     for line in _lines(mesh, plan.axis):
-        devs = [mesh.device(c) for c in line]
         x0 = line[0]
         origin_jk = tuple(mesh.index(x0, dax[d]) * loc[d]
                           if d in dax else 0 for d in (1, 2))
-        feed = [{n: wide[n][c] for n in i_inputs} for c in line]
-        small = [{n: wide[n][c] for n in program.inputs
+        # slots of another process's positions hold None placeholders
+        feed = [{n: wide[n].get(c) for n in i_inputs} for c in line]
+        small = [{n: wide[n].get(c) for n in program.inputs
                   if n not in i_inputs} for c in line]
         wave: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
         wave_in: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
@@ -691,43 +764,50 @@ def _pipeline_body_sharded(body: _Body, inputs: Dict[str, Any]
             [None] * S
         out_local: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
         for t in range(T):
+            hops = _Hops(mesh)
             new_wave: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
             new_in: List[Optional[Dict[str, torch.Tensor]]] = [None] * S
             for p in range(S):
                 c = t - p
                 if not 0 <= c < C:
                     continue
-                # stage 0 takes its input tiles from the feed slot; later
-                # stages from the input carry
-                tiles = dict(small[p])
-                tiles.update(feed[0] if p == 0 else wave_in[p])
-                new = body.run(p, tiles, wave[p] or {},
-                               (c * chunk,) + origin_jk)
+                new = tiles = None
+                if mesh.is_local(line[p]):
+                    # stage 0 takes its input tiles from the feed slot;
+                    # later stages from the input carry
+                    tiles = dict(small[p])
+                    tiles.update(feed[0] if p == 0 else wave_in[p])
+                    new = body.run(p, tiles, wave[p] or {},
+                                   (c * chunk,) + origin_jk)
                 if p < S - 1:
-                    new_wave[p + 1] = {f: new[f].to(devs[p + 1],
-                                                    non_blocking=True)
-                                       for f in body.layouts[p]}
-                    new_in[p + 1] = {n: tiles[n].to(devs[p + 1],
-                                                    non_blocking=True)
-                                     for n in carried_inputs}
+                    new_wave[p + 1] = hops.hop(
+                        {f: None if new is None else new[f]
+                         for f in body.layouts[p]},
+                        line[p], line[p + 1])
+                    new_in[p + 1] = hops.hop(
+                        {n: None if tiles is None else tiles[n]
+                         for n in carried_inputs},
+                        line[p], line[p + 1])
                 else:   # the finished core chunk into the return ring
-                    ring[p] = (c, {o: body.core(o, new[o])
+                    ring[p] = (c, {o: None if new is None
+                                   else body.core(o, new[o])
                                    for o in program.outputs})
             # capture: a chunk in its home position's ring slot stays there
             for q in range(S):
                 if ring[q] is not None and ring[q][0] == q:
                     out_local[q] = ring[q][1]
             # systolic shifts
-            feed = [{n: v.to(devs[q], non_blocking=True)
-                     for n, v in feed[q + 1].items()} for q in range(S - 1)] \
-                + [{}]
-            ring = [None if ring[q - 1] is None else (ring[q - 1][0], {
-                o: v.to(devs[q], non_blocking=True)
-                for o, v in ring[q - 1][1].items()}) for q in range(S)]
+            feed = [hops.hop(feed[q + 1], line[q + 1], line[q])
+                    for q in range(S - 1)] + [{}]
+            ring = [None if ring[q - 1] is None else (
+                ring[q - 1][0], hops.hop(ring[q - 1][1], line[q - 1],
+                                         line[q])) for q in range(S)]
+            hops.run()
             wave, wave_in = new_wave, new_in
         for q, c in enumerate(line):
-            for o in program.outputs:
-                shards_out[o][c] = out_local[q][o].reshape(raw)
+            if mesh.is_local(c):
+                for o in program.outputs:
+                    shards_out[o][c] = out_local[q][o].reshape(raw)
     out_spec = (plan.axis, dax.get(1), dax.get(2))
     return {o: ShardedArray(mesh, out_spec, tuple(program.raw_dimensions), s)
             for o, s in shards_out.items()}
@@ -963,7 +1043,7 @@ def compile_pipeline_split(program: ir.Program, mesh: Mesh, axis: str,
             libs = build.load_libraries([(stream_source(sp), "local_stream")
                                          for sp, _info in splans])
             for sp, _info in splans:
-                for dev in set(mesh.devices.flat):
+                for dev in mesh.local_devices():
                     _pool_tensors(sp, dev)
         runners = [_stream_runner(sp, lib, widen[s])
                    for s, ((sp, _info), lib) in enumerate(zip(splans, libs))]

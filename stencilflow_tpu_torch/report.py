@@ -32,8 +32,17 @@ they are divided by:
   tensor rate, 989e12 flop/s (``mxu_time_s_bf16``).
 
 The runtime lower bound is the larger of the memory time and the faster
-of the two compute strategies.  Not ported yet: ``mesh_scaling`` (with
-the sharded engine).
+of the two compute strategies.
+
+``mesh_scaling`` is the JAX package's model of the sharded engine
+(``parallel/domain.py``) over a mesh of cards: every count term is
+computed as there (the local block, the chain halo from
+``backend.dense.chain_halo``, the exchanged bytes, the overlap's interior
+and strip cells), the compute term is the roofline above scaled by the
+block's widened share of the domain, and the exchange is priced at one
+direction of the H100 SXM5's NVLink 4 (``config.H100_NVLINK_BANDWIDTH``,
+a data-sheet figure).  Its keys keep the JAX package's names
+(``ici_bytes_per_device``, ``t_ici_s``); the printed text says NVLink.
 """
 from __future__ import annotations
 
@@ -310,6 +319,131 @@ class Report:
         """On-chip working set of the streaming schedule (delay + line
         buffers), the reference's fast-memory total."""
         return self.analysis.fast_memory_bytes()
+
+    # -- multi-card scaling model ---------------------------------------------
+    def mesh_scaling(self, mesh_dims: Dict[str, int],
+                     dim_axes=(None, "x", "y"),
+                     ici_bandwidth: float = config.H100_NVLINK_BANDWIDTH
+                     ) -> Dict:
+        """Analytic scaling of the domain decomposition over a mesh of
+        cards: per-card compute (widened by the chain halo) plus the one
+        cumulative-halo exchange per chain evaluation
+        (``parallel/domain.py``), the exchange at ``ici_bandwidth`` (one
+        NVLink direction by default).  ``mesh_dims``: {axis name: cards
+        along it}; ``dim_axes``: per padded dim (i, j, k) the mesh axis
+        that shards it, or None.  The keys are the JAX package's."""
+        from .backend.dense import chain_halo
+        dims = self.program.dimensions
+        halo = chain_halo(self.analysis)
+        used = [a for a in dim_axes if a]
+        if len(set(used)) != len(used):
+            raise ValueError(f"mesh axis used for two dims: {dim_axes}")
+        unknown = [a for a in used if a not in mesh_dims]
+        if unknown:
+            raise ValueError(f"dim_axes name(s) {unknown} missing from "
+                             f"mesh {dict(mesh_dims)}")
+        n_dev = int(np.prod(list(mesh_dims.values())))  # unused axes
+        local = list(dims)                              # replicate
+        shards = [1, 1, 1]
+        for d, ax in enumerate(dim_axes):
+            m = mesh_dims.get(ax, 1) if ax else 1
+            if m <= 1:
+                continue
+            if dims[d] % m:
+                raise ValueError(
+                    f"dim {d} ({dims[d]}) not divisible by mesh axis "
+                    f"{ax!r} ({m})")
+            shards[d] = m
+            local[d] = dims[d] // m
+
+        # redundant compute on the exchanged halo shell: the roofline (the
+        # memory floor against the faster compute strategy) of the
+        # block's widened share of the domain
+        widened = 1.0
+        for d in range(3):
+            if shards[d] > 1:
+                widened *= (local[d] + 2 * halo[d]) / local[d]
+        frac = np.prod(local) / self.program.total_elements
+        t_comp = max(self.roofline_time_s() * frac * widened, 1e-12)
+
+        # cumulative-halo exchange: per sharded dim, both faces, for every
+        # input spanning it; dims are exchanged one after another, so a
+        # later dim's slab spans the earlier dims widened (corners).  The
+        # bytes the port's exchange copies into a position with a
+        # neighbour on both faces (tests/test_torch_mesh_model.py).
+        ici_bytes = 0
+        for name, spec in self.program.inputs.items():
+            if spec.is_scalar:
+                continue
+            isz = np.dtype(self.program.field_dtype(name)).itemsize
+            for d in range(3):
+                if shards[d] <= 1 or not spec.dim_mask[d] or not halo[d]:
+                    continue
+                cross = 1
+                for o in range(3):
+                    if o == d or not spec.dim_mask[o]:
+                        continue
+                    w = local[o]
+                    if o < d and shards[o] > 1 and halo[o]:
+                        w += 2 * halo[o]
+                    cross *= w
+                ici_bytes += 2 * halo[d] * cross * isz
+        t_ici = ici_bytes / ici_bandwidth
+        t_step = t_comp + t_ici          # no compute/exchange overlap
+        t_single = self.roofline_time_s()
+
+        # the comm_overlap body: the interior evaluates the unwidened
+        # block while the exchange runs, then per sharded face a 3h strip
+        # of the widened block (spanning every other dim widened)
+        per_cell = t_comp / (np.prod(local) * widened)
+        interior_cells = float(np.prod(local))
+        strip_cells = 0.0
+        for d in range(3):
+            if shards[d] <= 1 or not halo[d]:
+                continue
+            face = 1.0
+            for o in range(3):
+                if o == d:
+                    continue
+                face *= local[o] + (2 * halo[o]
+                                    if shards[o] > 1 and halo[o] else 0)
+            strip_cells += 2 * 3 * halo[d] * face
+        t_int = per_cell * interior_cells
+        t_strips = per_cell * strip_cells
+        t_step_ov = max(t_int, t_ici) + t_strips
+        overlap = {
+            "interior_cells": interior_cells,
+            "strip_cells": strip_cells,
+            "t_interior_s": t_int,
+            "t_strips_s": t_strips,
+            "t_step_s": t_step_ov,
+            "hidden_ici_s": min(t_ici, t_int),
+            "exposed_ici_s": max(0.0, t_ici - t_int),
+            "parallel_efficiency": t_single / (n_dev * t_step_ov)
+            if t_step_ov > 0 else 1.0,
+            "scaled_gcell_s":
+                self.program.total_elements / t_step_ov / 1e9
+                if t_step_ov > 0 else float("inf"),
+            "wins": t_step_ov < t_step,
+            # the exchange time above which the overlap pays: its
+            # overcompute, t_int + t_strips - t_comp
+            "break_even_ici_s": max(0.0, t_int + t_strips - t_comp),
+        }
+        return {
+            "devices": n_dev,
+            "mesh": dict(mesh_dims),
+            "dim_axes": list(dim_axes),
+            "local_dims": local,
+            "halo": list(halo),
+            "ici_bytes_per_device": ici_bytes,
+            "t_compute_s": t_comp,
+            "t_ici_s": t_ici,
+            "t_step_s": t_step,
+            "parallel_efficiency": t_single / (n_dev * t_step),
+            "scaled_gcell_s":
+                self.program.total_elements / t_step / 1e9,
+            "comm_overlap": overlap,
+        }
 
     # -- output --------------------------------------------------------------
     def as_dict(self) -> Dict:

@@ -3,9 +3,8 @@
 Every ``run`` argument the reference parser accepts parses in the port;
 the reference's spellings map to the port's lowerings (``--no-mxu``,
 ``--backend pallas|xla|interpreter``, the ``emulation``/``hardware``
-mode), and the options whose engines are not ported exit with ``error:``
-and rc 2, naming their ROADMAP item.  ``report --json`` prints the
-reference's keys with the same hardware-independent numbers.
+mode).  ``report --json`` prints the reference's keys with the same
+hardware-independent numbers.
 ``autotune`` parses the reference's arguments and prints its JSON keys,
 ``run --backend autotuned`` runs the cached winner, ``partition`` prints
 the reference's lines, and ``run-distributed
@@ -26,7 +25,7 @@ import pytest
 
 from stencilflow_tpu.cli import build_parser as ref_parser
 from stencilflow_tpu.cli import main as ref_main
-from stencilflow_tpu_torch.cli import NOT_PORTED, build_parser, main
+from stencilflow_tpu_torch.cli import build_parser, main
 from stencilflow_tpu_torch.synthesize import synthesize_stencil
 
 
@@ -148,35 +147,6 @@ def test_run_ring_storage_refused_elsewhere(jprog, capsys):
     assert "--ring-storage requires" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("extra,item", [(["--mesh", "x=2"], "item 8")])
-def test_report_refuses_unported_options(prog, capsys, extra, item):
-    assert main(["report", prog] + extra) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
-
-
-def _queue1_items():
-    """{number: title} of ROADMAP.md's Queue 1."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    text = open(os.path.join(root, "ROADMAP.md")).read()
-    queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
-    return {int(n): title for n, title in
-            re.findall(r"^(\d+)\. \*\*(.+?)\*\*", queue, re.M)}
-
-
-@pytest.mark.parametrize("option", sorted(NOT_PORTED))
-def test_refusals_name_items_of_roadmap_queue_1(option):
-    """Each refusal names an item of ROADMAP Queue 1 whose title carries
-    the milestone (or bf16) the refusal gives."""
-    m = re.fullmatch(r"Queue 1 item (\d+) \(([^,;)]+).*\)",
-                     NOT_PORTED[option])
-    assert m, NOT_PORTED[option]
-    items = _queue1_items()
-    n, code = int(m.group(1)), m.group(2)
-    assert n in items, (option, n)
-    assert re.search(rf"\b{code}\b", items[n]), (option, items[n])
-
-
 @pytest.mark.parametrize("shape,extent", [("box", 2), ("hdiff", 1),
                                           ("diffusion", 1)])
 def test_report_json_matches_reference(tmp_path, capsys, shape, extent):
@@ -232,17 +202,6 @@ def test_run_distributed_on_host_devices(dprog, capsys, axes):
     out = capsys.readouterr().out
     assert "ran domain over 4 devices (mesh {'x': 2, 'y': 2})" in out
     assert "verified against reference: OK" in out
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--coordinator", "localhost:1234", "--num-hosts", "2",
-      "--host-id", "0"], "item 8")])
-def test_run_distributed_refusals(dprog, capsys, extra, item):
-    argv = ["run-distributed", dprog, "--devices", "2",
-            "--force-host-devices"] + extra
-    assert main(argv) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and f"ROADMAP Queue 1 {item}" in err
 
 
 @pytest.mark.parametrize("axes", ["x,none,none", None])

@@ -9,7 +9,10 @@ JAX package's ``iterate`` (``interpret=True``) within ``VERIFY_RTOL``,
 through chunk and fuse splits, two-field feeds, ``host_chunks`` and a
 resume from a checkpoint the JAX package wrote; the rejections raise the
 reference's error types; the ``iterate`` subcommand writes the
-reference's state.
+reference's state.  ``checkpoint_format="orbax"`` writes a directory a
+step in ``torch.distributed.checkpoint``'s format, one entry a shard,
+and resumes bit for bit on one device, on a 2 x 2 mesh and across
+layouts, skipping incomplete directories.
 """
 import json
 import os
@@ -219,8 +222,7 @@ def test_make_step_routes_and_carries():
 
 
 def test_rejections():
-    """The reference's error types and messages; orbax names its
-    ROADMAP item."""
+    """The reference's error types and messages."""
     p = port.parse_program(jacobi(2, 16, iterations=1), name="rj")
     inputs = port.load_input_arrays(p, seed=0)
     with pytest.raises(IterateError, match="chunk"):
@@ -235,9 +237,9 @@ def test_rejections():
         port.iterate(p, inputs, steps=4, fuse=0, device="cpu")
     with pytest.raises(IterateError, match="checkpoint_dir"):
         port.iterate(p, inputs, steps=4, checkpoint_every=2, device="cpu")
-    with pytest.raises(IterateError, match="Queue 1 item 8"):
+    with pytest.raises(IterateError, match="unknown checkpoint_format"):
         port.iterate(p, inputs, steps=4, checkpoint_every=2,
-                     checkpoint_dir="x", checkpoint_format="orbax",
+                     checkpoint_dir="x", checkpoint_format="zarr",
                      device="cpu")
     with pytest.raises(IterateError, match="mesh requires dim_axes"):
         port.iterate(p, inputs, steps=2, mesh=object(), device="cpu")
@@ -273,16 +275,6 @@ def test_cli_iterate(tmp_path, capsys):
     b = port.parse_program(str(path))
     oracle = _oracle_steps(b, port.load_input_arrays(b), {"a": "s0"}, 3)
     np.testing.assert_array_equal(mine, oracle["a"].ravel())
-
-
-def test_cli_iterate_refuses_orbax(tmp_path, capsys):
-    from stencilflow_tpu_torch.cli import main
-    path = tmp_path / "p.json"
-    path.write_text(json.dumps(jacobi(2, 8, iterations=1), default=str))
-    assert main(["iterate", str(path), "--steps", "2",
-                 "--checkpoint-format", "orbax", "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error: ") and "ROADMAP Queue 1 item 8" in err
 
 
 def test_cli_parses_every_reference_iterate_argument():
@@ -350,3 +342,134 @@ def test_iterate_on_a_mesh(shape, names, axes, fuse, tmp_path):
                          mesh=jmesh, dim_axes=axes)
     np.testing.assert_allclose(got["a"], np.asarray(theirs["a"]),
                                rtol=VERIFY_RTOL, atol=1e-6)
+
+
+def _layout(name):
+    """iterate's keywords for one state layout: one CPU device, or a mesh
+    of virtual CPU shards."""
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    if name == "one device":
+        return dict(device="cpu")
+    if name == "2 x 2":
+        return dict(mesh=make_mesh(["cpu"], (2, 2), ("x", "y")),
+                    dim_axes=(None, "x", "y"))
+    assert name == "4 shards of i"
+    return dict(mesh=make_mesh(["cpu"], (4,), ("x",)),
+                dim_axes=("x", None, None))
+
+
+def _orbax_case(layout):
+    """(program, inputs, iterate keywords) of the orbax tests: jacobi3d
+    16^3 on one of ``_layout``'s layouts."""
+    a, b = _both(jacobi(3, 16, iterations=1), "ock")
+    return a, b, ref.load_input_arrays(a, seed=8), _layout(layout)
+
+
+def _step_dirs(ckpt):
+    return sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+
+
+@pytest.mark.parametrize("layout", ["one device", "2 x 2"])
+def test_orbax_checkpoint_and_resume(tmp_path, layout):
+    """One directory a step (2, 4, 6); with the newest removed, a resume
+    equal to the uninterrupted run bit for bit, and to the JAX package's
+    iterate at the same steps within VERIFY_RTOL."""
+    import shutil
+    a, b, inputs, kw = _orbax_case(layout)
+    ckpt = str(tmp_path / "ock")
+    ck = dict(steps=6, chunk=2, checkpoint_every=2, checkpoint_dir=ckpt,
+              checkpoint_format="orbax", **kw)
+    stats = {}
+    full = port.iterate(b, inputs, stats=stats, **ck)
+    assert _step_dirs(ckpt) == [2, 4, 6]
+    assert not [d for d in os.listdir(ckpt) if d.endswith(".tmp")]
+    assert len(stats["save_s"]) == 3 and stats["save_wait_s"] >= 0
+    shutil.rmtree(os.path.join(ckpt, "6"))
+    resumed = port.iterate(b, inputs, **ck)
+    np.testing.assert_array_equal(resumed["a"], full["a"])
+    np.testing.assert_array_equal(
+        full["a"], _oracle_steps(b, inputs, {"a": b.outputs[0]}, 6)["a"])
+    theirs = ref_iterate(a, inputs, 6, interpret=True)
+    np.testing.assert_allclose(resumed["a"], np.asarray(theirs["a"]),
+                               rtol=VERIFY_RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout,blocks", [("2 x 2", (1, 2, 2)),
+                                           ("4 shards of i", (4, 1, 1)),
+                                           ("one device", None)])
+def test_orbax_entries_are_shards(tmp_path, layout, blocks):
+    """A sharded field is saved one entry a block, never whole: no entry
+    has the global shape; state on one device is one entry a field."""
+    import torch.distributed.checkpoint as dcp
+    _a, b, inputs, kw = _orbax_case(layout)
+    ckpt = str(tmp_path / "ent")
+    port.iterate(b, inputs, steps=2, checkpoint_every=2,
+                 checkpoint_dir=ckpt, checkpoint_format="orbax", **kw)
+    md = dcp.FileSystemReader(os.path.join(ckpt, "2")).read_metadata()
+    sizes = {k: tuple(m.size) for k, m in md.state_dict_metadata.items()}
+    if blocks is None:
+        assert sizes == {"a": (16, 16, 16)}
+        return
+    n = int(np.prod(blocks))
+    assert len(sizes) == n
+    want = tuple(16 // k for k in blocks)
+    for key, size in sizes.items():
+        assert key.startswith("a/shard_") and key.endswith(
+            "_of_" + "_".join(map(str, blocks)))
+        assert size == want != (16, 16, 16)
+
+
+@pytest.mark.parametrize("saved,resumed", [("one device", "2 x 2"),
+                                           ("2 x 2", "one device"),
+                                           ("2 x 2", "4 shards of i")])
+def test_orbax_resume_across_layouts(tmp_path, saved, resumed):
+    """A checkpoint resumes onto another layout (each saved block's
+    overlap copied into each new shard), bit for bit."""
+    import shutil
+    _a, b, inputs, kw = _orbax_case(saved)
+    ckpt = str(tmp_path / "lay")
+    ck = dict(steps=4, chunk=2, checkpoint_every=2, checkpoint_dir=ckpt,
+              checkpoint_format="orbax")
+    full = port.iterate(b, inputs, **ck, **kw)
+    shutil.rmtree(os.path.join(ckpt, "4"))
+    got = port.iterate(b, inputs, **ck, **_layout(resumed))
+    np.testing.assert_array_equal(got["a"], full["a"])
+
+
+def test_orbax_skips_incomplete_directories(tmp_path):
+    """A ``<step>.tmp`` directory and a step directory without DCP's
+    metadata are never resumed: the run continues from the newest whole
+    one, and a junk input shows that it did restore."""
+    import shutil
+    _a, b, inputs, kw = _orbax_case("one device")
+    ckpt = str(tmp_path / "inc")
+    ck = dict(steps=6, chunk=2, checkpoint_every=2, checkpoint_dir=ckpt,
+              checkpoint_format="orbax", **kw)
+    full = port.iterate(b, inputs, **ck)
+    os.rename(os.path.join(ckpt, "6"), os.path.join(ckpt, "6.tmp"))
+    shutil.copytree(os.path.join(ckpt, "4"), os.path.join(ckpt, "8"))
+    os.remove(os.path.join(ckpt, "8", ".metadata"))
+    junk = {"a": np.zeros_like(inputs["a"])}
+    got = port.iterate(b, junk, **ck)
+    np.testing.assert_array_equal(got["a"], full["a"])
+    assert _step_dirs(ckpt) == [2, 4, 6, 8]
+
+
+def test_cli_iterate_orbax(tmp_path, capsys):
+    """``iterate --checkpoint-format orbax``: rc 0, a directory a
+    checkpoint, and a resumed run writing the uninterrupted state."""
+    import shutil
+    from stencilflow_tpu_torch.cli import main
+    path = tmp_path / "p.json"
+    path.write_text(json.dumps(jacobi(2, 8, iterations=1), default=str))
+    ckpt = tmp_path / "ck"
+    argv = ["iterate", str(path), "--steps", "4", "--checkpoint-every", "2",
+            "--checkpoint-dir", str(ckpt), "--checkpoint-format", "orbax",
+            "--device", "cpu", "--output-dir"]
+    assert main(argv + [str(tmp_path / "full")]) == 0
+    assert "ran 4 steps" in capsys.readouterr().out
+    assert _step_dirs(ckpt) == [2, 4]
+    shutil.rmtree(ckpt / "4")
+    assert main(argv + [str(tmp_path / "again")]) == 0
+    assert (tmp_path / "full" / "a.dat").read_bytes() == \
+        (tmp_path / "again" / "a.dat").read_bytes()
