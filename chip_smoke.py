@@ -11,70 +11,69 @@ Phases, one line each (any failure raises and exits non-zero):
    from the checkout's sources; phase 7's, phase 9's and phase 4's
    autotune candidates through the entry points' own compile calls, on
    threads beside);
-3. kernel vs plain version on the card: the panel and overlap kernels,
-   each forced through its own plan, against their plain torch versions
-   on three example programs and five random chains (constant / copy /
-   shrink BCs, scalar and lower-rank inputs, float32 / float64 / int32
-   fields), bit-exact or within VERIFY_RTOL where a transcendental
-   appears, and the overlap kernel alone on hotspot3d 24 x 40 x 72 x 2 (on
-   its rule's plan, at B = 4 with runs of 4 j cells and the register
-   window, and as the skeleton alone) and jacobi2d 96 x 200 x 2 (I = 1);
-   the stream kernel against its plain version on box chains of
-   extent 1 and 2 (composed), a box with constant BC 0.7 (per-stage plans
-   with correction planes), a shrink box, a radius-2 cross (rank 2, per
-   stage) and a per-cell stage feeding a wide affine stage that reads two
-   fields, each banded case also with its band passes on the other route
-   (tensor cores against CUDA cores), within MXU_VERIFY_RTOL (the plain
-   version applies the bands with torch.matmul, another summation order);
-   the group kernel against
-   its plain version, bit-exact, on jacobi2d 256 x 192 x 8 through rows
-   (constant / copy / shrink BCs), hotspot2d 256 x 192 x 8 (both at the
-   main path's g = 8, B = 64), the 2-D fuzz chain through rows, a 3-D
-   jacobi with i-offsets of 3 at g = 2, B = 2, and the 3-D fuzz chain with
-   a scalar and lower-rank inputs, and the shrink jacobi2d and the 3-D
-   jacobi again cut into 4 i-segments; the local chunk kernel K4 against its
-   plain version, chunk by chunk, on jacobi3d 64^3 x 3 at 4 chunks
-   (constant / copy / shrink BCs), the hdiff DAG at 4 chunks (i-halo 0),
-   a box chain of extent 2 banded per stage at 2 chunks and the 3-D fuzz
-   chain (bit-exact per cell, MXU_VERIFY_RTOL banded); the stream kernel
-   of the spill rung (K3c: shared memory packed by liveness, spilled
-   rings staged and moved by bulk asynchronous copies) against its plain
-   version, bit-exact, on the reconvergent 16-stage chain (a
-   shared-memory budget that forces the spill), jacobi3d 64^3 x 3 with
-   every ring spilled (constant / copy / shrink BCs), the hdiff DAG and a
-   32-stage hotspot chain (``spill="all"``) and K4 with every ring
-   spilled at 4 chunks; the reduced-precision modes against their plain
+3. kernel vs plain version on the card (one compact case of each kind; the
+   wider matrix of programs, BCs and types of each kernel runs in
+   tests/test_torch_cuda.py): the panel and overlap kernels, each forced
+   through its own plan, and the overlapped-tile kernel (K6), masked and
+   fast (one launch: mask-free interior blocks, masked border blocks),
+   against their plain versions (K6 fast: mask-free plus the torch fix-up
+   of the border shell) on the float64 random chain with shrink BCs and the
+   int32 one (scalar and lower-rank inputs), bit-exact or within
+   VERIFY_RTOL where a transcendental appears; the overlap kernel alone on
+   hotspot3d 24 x 40 x 72 x 2 (on its rule's plan, at B = 4 with runs of 4
+   j cells and the register window, and as the skeleton alone) and jacobi2d
+   96 x 200 x 2 (I = 1); the stream kernel against its plain version on box
+   chains of extent 1 and 2 (composed), a box with constant BC 0.7
+   (per-stage plans with correction planes), a shrink box, a radius-2 cross
+   (rank 2, per stage) and a per-cell stage feeding a wide affine stage
+   that reads two fields, each banded case also with its band passes on the
+   other route (tensor cores against CUDA cores), within MXU_VERIFY_RTOL
+   (the plain version applies the bands with torch.matmul, another
+   summation order); the group kernel against its plain version, bit-exact,
+   on jacobi2d 256 x 192 x 8 through rows with shrink BCs (g = 8, B = 64)
+   and a 3-D jacobi with i-offsets of 3 at g = 2, B = 2; the local chunk
+   kernel K4 against its plain version, chunk by chunk, on jacobi3d 64^3 x
+   3 at 4 chunks (constant / copy / shrink BCs), the hdiff DAG at 4 chunks
+   (i-halo 0), a box chain of extent 2 banded per stage at 2 chunks and the
+   3-D fuzz chain (bit-exact per cell, MXU_VERIFY_RTOL banded); the stream
+   kernel of the spill rung (K3c: shared memory packed by liveness, spilled
+   rings staged and moved by bulk asynchronous copies) on jacobi3d 64^3 x 3
+   with shrink BCs and every ring spilled, and K4 with every ring spilled
+   at 4 chunks, bit-exact; the reduced-precision modes against their plain
    versions: bf16 rings (``ring_storage="bfloat16"``) bit for bit in K1
    (jacobi3d 40 x 48 x 72 x 4), K5 (jacobi2d 256 x 192 x 8 through rows),
    K3a (the same jacobi3d per cell) and K3c (the reconvergent chain under
    its budget), and single-pass bf16 band passes (``mxu_precision=
-   "bf16"``, K3b) held by ``stream.bf16_passes_agree`` against their
-   plain version and apart from the split route, on box-r2 (CUDA cores,
-   then tensor cores) and cross-r2; bf16 compute
-   (``compute_dtype="bfloat16"``: bf16 inputs, rings, math and outputs)
-   against its plain version by ``stream.bf16_compute_agree`` (bit for
-   bit per cell, the banded rule banded) in K3a (jacobi3d 40 x 48 x 72 x
-   4, hotspot3d with constant BC 0.3), K3b (the box of BC 0.7, both
-   routes) and K3c (jacobi3d 64^3 x 3 with every ring spilled), and float16
-   compute (``compute_dtype="float16"``) the same way on the hotspot, the
-   box (CUDA-core split passes) and the spilled jacobi; programs
-   typed bfloat16 and float16 (``_narrow_small``) against their plain
-   versions and the host oracle, bit for bit (one bf16 ulp from the
-   oracle where a transcendental appears), in K1 (hdiff3d 40 x 48 x 72
-   x 3), K2 (jacobi3d x 2), K3a (jacobi3d x 4), K3c (jacobi3d 64^3 x 3,
-   every ring spilled) and K5 (jacobi2d 256 x 192 x 8 through rows), and
-   two mixed bf16 programs (K1, K3a) and bf16 meeting f16 (K1); K4 and K6
-   on programs typed bf16 and f16 (``_nk_small``: jacobi3d and hdiff3d
-   64^3 x 3; K4 chunk by chunk at 4 chunks and shard by shard over 2 x 2,
-   K6 masked and fast), every launch against its plain version and the
-   assembled output against the host oracle, bit for bit, each counted
-   under its narrow mode; the
-   overlapped-tile kernel
-   (K6), masked and fast (one launch: mask-free interior blocks, masked
-   border blocks), against its plain version (fast: mask-free plus the
-   torch fix-up of the border shell) on the example programs and fuzz
-   chains above (bit-exact or within VERIFY_RTOL where a transcendental
-   appears);
+   "bf16"``, K3b) held by ``stream.bf16_passes_agree`` against their plain
+   version and apart from the split route, on box-r2 (CUDA cores, then
+   tensor cores) and cross-r2; bf16 compute (``compute_dtype="bfloat16"``:
+   bf16 inputs, rings, math and outputs) against its plain version by
+   ``stream.bf16_compute_agree`` (bit for bit per cell, the banded rule
+   banded) in K3a (jacobi3d 40 x 48 x 72 x 4, hotspot3d with constant BC
+   0.3), K3b (the box of BC 0.7, both routes) and K3c (jacobi3d 64^3 x 3
+   with every ring spilled), and float16 compute
+   (``compute_dtype="float16"``) the same way on the hotspot, the box
+   (CUDA-core split passes) and the spilled jacobi; programs typed bfloat16
+   and float16 (``_narrow_small``) against their plain versions and the
+   host oracle, bit for bit (one bf16 ulp from the oracle where a
+   transcendental appears), in K1 (hdiff3d 40 x 48 x 72 x 3), K2 (jacobi3d
+   x 2), K3a (jacobi3d x 4), K3c (jacobi3d 64^3 x 3, every ring spilled)
+   and K5 (jacobi2d 256 x 192 x 8 through rows), and two mixed bf16
+   programs (K1, K3a) and bf16 meeting f16 (K1); K4 chunk by chunk at 4
+   chunks and K6 fast on hdiff3d 64^3 x 3 typed f16 (``_nk_small``), every
+   launch against its plain version and the assembled output against the
+   host oracle, bit for bit, each counted under its narrow mode; the
+   compute types of programs typed other than float32 and int32 and bool
+   compute (``_ct_small``): float32, bf16 and f16 compute on the mixed-type
+   chain and on the bf16 chain with an int32 stage (24 x 40 x 72), int32
+   and bool compute on jacobi3d 64^3 x 3 on [-1000, 1000), each as K3a and
+   as K3c (``spill="all"``), against its plain version bit for bit (within
+   VERIFY_RTOL where a transcendental meets float32 compute), counted under
+   ``stream.compute_key``, timed in turns with the same program's f32
+   compute (under f32 compute: its own types) beside its plain version's
+   ms, its bound and the library call (chained F.conv3d in the compute type
+   where one computes the chain and cuDNN takes the type, else "none" and
+   why);
 4. the ``run`` main path at full size through ``run_program(...,
    device="cuda")``: jacobi3d 512^3 x 8 (panel), jacobi3d 512^3 x 2
    (overlap), hdiff3d and hotspot3d 256^3 x 8 (panel), box3d 256^3 x 8 of
@@ -144,6 +143,15 @@ Phases, one line each (any failure raises and exits non-zero):
    timed in turns with the f32 stream kernel on the same tile, its drift
    from f32, one chained ``F.conv3d`` in bf16, and the leg through the
    entry point with the count set to 0 just before and read just after;
+   then the compute types' three cells (``_ct_legs``, K3a): jacobi3d
+   512^3 x 8 typed bf16 under float32 compute, jacobi3d 512^3 x 8 on
+   [-1000, 1000) under int32 compute and the mixed-type chain at the
+   largest cube up to 512^3 whose plan fits under bf16 compute, each
+   kernel against its plain version bit for bit, timed in turns with
+   the same program's f32 compute (under f32 compute: its own types),
+   with its plain version's ms, bound and library call, then the cell
+   through ``compile_chain_stream`` with its ``compute_key`` count set to
+   0 just before and read just after (one launch, equal to the kernel);
    then programs typed bf16 and f16 (``_narrow_legs``): jacobi3d 512^3 x
    4 bf16 and f16 (K1), x 2 bf16 (K2), x 4 bf16 with ``--backend
    stream`` (K3a) and jacobi2d 8192^2 x 8 bf16 (rows+group_g8, K5), each
@@ -349,7 +357,7 @@ lines are the card line, a JSON object of the kernels (launches from
 phase 4, K4's from phase 5, the probes' from phase 6 and K4 per shard's
 and per segment's from phase 9; error, kernel, plain-version and library
 times measured in this run at the main path's shapes, bounds computed
-from its inputs; 50 entries: the stream kernel's on box and on cross,
+from its inputs; 55 entries: the stream kernel's on box and on cross,
 the four reduced-precision modes' from phase 4's bf16 legs and its two
 bf16-compute legs, K4's bf16 passes on chunks from phase 5, P1's eight
 variant bodies from phase 6, and K4's three reduced-precision legs and
@@ -358,7 +366,10 @@ programs typed bf16 and f16: K1, K1 f16, K2, K3a and K5 from phase 4's
 narrow legs, ``_narrow_legs``, and K3c from phase 3, and eight more:
 K3a under float16 compute and K6 fast and masked on bf16 and f16
 programs from phase 4, K4 chunk on a bf16 program from phase 5, K4 per
-shard and per segment on it from phase 9) and
+shard and per segment on it from phase 9, and the compute types' five
+keys: f32 compute of a bf16 program, int32 compute and bf16 compute of
+the mixed-type chain from phase 4's cells, f16 compute of a program
+typed otherwise and bool compute from phase 3) and
 ``{"ok": true, "device": {...}}``.
 """
 import json
@@ -439,39 +450,6 @@ def _time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def _fuzz_programs():
-    """Five random chains covering BC kinds, input ranks and dtypes: the
-    first draw (from a fixed seed sequence) that reads the scalar and
-    the lower-rank input(s)."""
-    from stencilflow_tpu_torch import parse_program
-    from stencilflow_tpu_torch.synthesize import random_program
-    variants = [
-        ("f32", dict(), 3),
-        ("f64-shrink", dict(data_type="float64",
-                            bc_kinds=("constant", "copy", "shrink")), 3),
-        ("i32", dict(data_type="int32", data="random:-20,20"), 3),
-        ("f32-shrink", dict(bc_kinds=("shrink", "copy")), 3),
-        ("f32-2d", dict(bc_kinds=("constant", "copy", "shrink")), 2),
-    ]
-    progs = []
-    for label, kw, ndim in variants:
-        for seed in range(1000, 2000):
-            spec = random_program(np.random.default_rng(seed), ndim=ndim,
-                                  **kw)
-            src = " ".join(k["computation_string"]
-                           for k in spec["program"].values())
-            need = ["sc", "row"]
-            if ndim == 3:
-                need.append("ik")
-            if all(n in src for n in need):
-                progs.append((f"fuzz-{label}-{seed}",
-                              parse_program(spec, name=f"fuzz_{label}")))
-                break
-        else:
-            raise RuntimeError(f"no fuzz draw for {label}")
-    return progs
 
 
 def _mixed_spec(dims):
@@ -806,7 +784,7 @@ def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
     for key, (p, plan, f32) in cbf_main.items():
         o = p.outputs[0]
         cd = plan.compute_dtype
-        count = "compute_" + ("bf16" if cd == "bfloat16" else "f16")
+        count = st.compute_key(plan)
         lib, flib = (lib_of[st.stream_source(q)] for q in (plan, f32))
         arrays = _spanned_on_card(sft, p)
         got = st.run_stream(plan, arrays, lib)[o]
@@ -873,6 +851,260 @@ def _compute_bf16_legs(sft, st, cbf_main, lib_of, smi):
     return out
 
 
+# compute types of programs typed other than float32, and int32 and bool
+# compute (compile_chain_stream(compute_dtype=...)): the kernels line's
+# row of each new launch key, from its phase
+COMPUTE_ROWS = {"compute_f32_typed": 4, "compute_i32": 4,
+                "compute_bf16_typed": 4, "compute_f16_typed": 3,
+                "compute_bool": 3}
+
+
+def _ct_setup(sft, st, synthesize_stencil):
+    """Phase 2's share of the compute-type legs: phase 3's small cases
+    (float32, bf16 and f16 compute on the mixed-type chain and on the
+    bf16 chain with an int32 stage, int32 and bool compute on jacobi3d
+    64^3 x 3 on [-1000, 1000), each as K3a and as K3c, spill="all"), then
+    phase 4's three full-width K3a cells (jacobi3d 512^3 x 8 typed bf16
+    under f32 compute, jacobi3d 512^3 x 8 on [-1000, 1000) under int32,
+    the mixed-type chain at the largest cube up to 512^3 whose plan fits
+    under bf16), each with its yardstick plan: the same program's f32
+    compute (under f32 compute: its own types), on the same tile where
+    that plan fits.  Returns (small, mains, sources)."""
+    from stencilflow_tpu_torch.synthesize import (mixed_dtype_spec,
+                                                  narrow_mixed_spec)
+
+    def jac(n, iters, **kw):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=(n,) * 3, shape="diffusion",
+            **kw), name=f"jacobi3d_{n}_{iters}itr"
+            + ("_wide" if "random:-1000" in kw.get("seed_data", "") else "")
+            + ("_" + kw["data_type"] if "data_type" in kw else ""))
+
+    def yardstick(p, plan, cd, kw):
+        other = None if cd == "float32" else "float32"
+        try:
+            return st.plan_stream(p, compute_dtype=other, tile=plan.tile,
+                                  **kw)
+        except ValueError:
+            return st.plan_stream(p, compute_dtype=other, **kw)
+
+    small_dims = (24, 40, 72)
+    mixed = sft.parse_program(mixed_dtype_spec(small_dims)[0],
+                              name="mixed_dtype_small")
+    narrow = sft.parse_program(narrow_mixed_spec(small_dims),
+                               name="narrow_mixed_small")
+    wide = jac(64, 3, seed_data="random:-1000,1000")
+    small, sources = [], []
+    for label, p, cds in (("mixed", mixed, ("float32", "bfloat16",
+                                            "float16")),
+                          ("narrow", narrow, ("float32", "bfloat16",
+                                              "float16")),
+                          ("jacobi3d-64", wide, ("int32", "bool"))):
+        for cd in cds:
+            for kernel, kw in (("K3a", {}), ("K3c", {"spill": "all"})):
+                plan = st.plan_stream(p, compute_dtype=cd, **kw)
+                other = yardstick(p, plan, cd, kw)
+                small.append((f"{kernel} {label} {cd}", p, plan, other))
+                sources += [(st.stream_source(q), "stream")
+                            for q in (plan, other)]
+    mains = {}
+    bf_jac = jac(512, 8, seed_data="random:0.0,1.0", data_type="bfloat16")
+    wide512 = jac(512, 8, seed_data="random:-1000,1000")
+    for key, p, cd in (("stream_compute_f32_typed", bf_jac, "float32"),
+                       ("stream_compute_i32", wide512, "int32")):
+        plan = st.plan_stream(p, compute_dtype=cd)
+        mains[key] = (p, plan, yardstick(p, plan, cd, {}), cd)
+    for n in (512, 448, 384, 320, 256):
+        p = sft.parse_program(mixed_dtype_spec((n,) * 3)[0],
+                              name=f"mixed_dtype_{n}")
+        try:
+            plan = st.plan_stream(p, compute_dtype="bfloat16")
+        except ValueError:
+            continue
+        mains["stream_compute_bf16_typed"] = (
+            p, plan, yardstick(p, plan, "bfloat16", {}), "bfloat16")
+        break
+    for p, plan, other, _cd in mains.values():
+        sources += [(st.stream_source(q), "stream") for q in (plan, other)]
+    return small, mains, sources
+
+
+def _ct_library(p, cd):
+    """(library ms or None, its text): chained F.conv3d in the compute
+    type where a library call computes the chain (a linear one) and
+    cuDNN takes the type."""
+    import torch
+    from stencilflow_tpu_torch.backend.linear import extract_linear
+    linear = all(extract_linear(k) is not None for k in p.kernels.values())
+    if not linear:
+        return None, "none (no library call computes this nonlinear chain)"
+    if cd in ("int32", "bool"):
+        return None, f"none (cuDNN takes no {cd} convolution)"
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}[cd]
+    ms = _conv_chain_ms(p, 1, dtype=dt)
+    return ms, f"{len(p.kernels)} chained F.conv3d in {cd} {ms:.4f} ms"
+
+
+def _ct_compare(st, p, got, want):
+    """(ok, max abs err, how) of a compute-type kernel against its plain
+    version: bit for bit (NaN == NaN), within VERIFY_RTOL where a
+    transcendental meets float32 compute (libdevice against torch's own
+    on the card)."""
+    import torch
+    from stencilflow_tpu_torch.config import VERIFY_RTOL
+    rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
+    ok, err = True, 0.0
+    for o in p.outputs:
+        g, w = got[o], want[o]
+        if g.dtype == torch.bfloat16:
+            g, w = g.float(), w.float()
+        a, b = g.cpu().numpy(), w.cpu().numpy()
+        k, e = _compare(a, b, rtol)
+        ok, err = ok and k, max(err, e)
+    return ok, err, "bit-exact" if rtol == 0 or err == 0 else "VERIFY_RTOL"
+
+
+def _ct_small(sft, st, small, lib_of, smi):
+    """Phase 3's compute-type legs: each kernel on the card against its
+    plain version, timed in turns with its yardstick plan (the same
+    program's f32 compute, or under f32 compute its own types), beside
+    the plain version's ms, the bound and the library call.  Each key's
+    count is set to 0 before the first leg and read after the last.
+    Returns the kernels line's rows of the keys phase 4 does not run."""
+    import torch
+    from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    t0 = time.perf_counter()
+    keys = {st.compute_key(plan) for _l, _p, plan, _o in small}
+    for key in keys:
+        st.launches_by[key] = 0
+    rows = {}
+    for label, p, plan, other in small:
+        key = st.compute_key(plan)
+        lib, olib = (lib_of[st.stream_source(q)] for q in (plan, other))
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                                device="cuda")
+        before = st.launches_by[key]
+        got = st.run_stream(plan, arrays, lib)
+        torch.cuda.synchronize()
+        n = st.launches_by[key] - before
+        t1 = time.perf_counter()
+        want = st.stream_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        ok, err, how = _ct_compare(st, p, got, want)
+        saved = dict(st.launches_by)
+        turns = [_time_ms(lambda q=q, lb=lb: st.run_stream(q, arrays, lb), 5)
+                 for q, lb in ((other, olib), (plan, lib), (plan, lib),
+                               (other, olib))]
+        st.launches_by.clear()
+        st.launches_by.update(saved)   # timing launches are not counted
+        ms, o_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        bound_ms, bound_by = _bound(p, compute_dtype=plan.compute_dtype)
+        lib_ms, lib_text = _ct_library(p, plan.compute_dtype)
+        yard = ("its own types" if plan.compute_dtype == "float32"
+                else "f32 compute")
+        print(f"compare: ctype   {label:28s} {key} tile {plan.tile} x "
+              f"{plan.threads} smem {plan.smem_bytes()} B"
+              f"{' spilled %d rings' % len(plan.spilled) if plan.packed else ''}"
+              f" max_abs_err {err:.3g} launches {n} "
+              f"{'OK' if ok else 'MISMATCH'} ({how}) | {ms:.4f} ms (in "
+              f"turns {turns[1]:.4f} / {turns[2]:.4f}), {yard} {o_ms:.4f} "
+              f"ms | plain version {plain_ms:.1f} ms | bound "
+              f"{bound_ms:.4f} ms ({bound_by}) | library {lib_text} | {smi}",
+              flush=True)
+        if not ok or n != 1:
+            raise RuntimeError(f"compute-type stream kernel ({label}) "
+                               "disagrees with its plain version")
+        if COMPUTE_ROWS.get(key) == 3 and not (key in rows
+                                               or plan.packed):
+            rows[key] = {"name": "stream_" + key, "route": "cuda",
+                         "source": "stencilflow_tpu_torch/backend/codegen.py",
+                         "replaces": "stencilflow_tpu/backend/stream.py:1683",
+                         "launches": 0, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms}
+        del got, want, arrays
+    for key in rows:
+        rows[key]["launches"] = st.launches_by[key]
+    for key in keys:
+        if not st.launches_by[key]:
+            raise RuntimeError(f"phase 3 launched no {key} kernel")
+    print(f"ctype: phase 3's legs took {time.perf_counter() - t0:.1f} s | "
+          f"{smi}", flush=True)
+    return {"stream_" + k: v for k, v in rows.items()}
+
+
+def _ct_legs(sft, st, mains, lib_of, smi):
+    """Phase 4's compute-type cells at full width (K3a): each kernel
+    against its plain version on the same inputs, timed in turns with its
+    yardstick plan, the plain version's ms, the bound and the library
+    call; then the cell through ``compile_chain_stream`` with its count
+    set to 0 just before and read just after (one launch), equal to the
+    kernel.  Returns the kernels line's rows."""
+    import torch
+    from stencilflow_tpu_torch.dtypes import to_torch
+    out = {}
+    t0 = time.perf_counter()
+    for name, (p, plan, other, cd) in mains.items():
+        key = st.compute_key(plan)
+        lib, olib = (lib_of[st.stream_source(q)] for q in (plan, other))
+        arrays = _spanned_on_card(sft, p)
+        got = st.run_stream(plan, arrays, lib)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = st.stream_plain(plan, arrays)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3
+        ok, err, how = _ct_compare(st, p, got, want)
+        del got, want
+        turns = [_time_ms(lambda q=q, lb=lb: st.run_stream(q, arrays, lb), 5)
+                 for q, lb in ((other, olib), (plan, lib), (plan, lib),
+                               (other, olib))]
+        ms, o_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        del arrays
+        bound_ms, bound_by = _bound(p, compute_dtype=cd)
+        lib_ms, lib_text = _ct_library(p, cd)
+        fn = st.compile_chain_stream(p, compute_dtype=cd)
+        inputs = {k: v if p.inputs[k].is_scalar else to_torch(v, "cuda")
+                  for k, v in sft.load_input_arrays(p, seed=0).items()}
+        st.launches_by[key] = 0
+        leg = fn(inputs)
+        torch.cuda.synchronize()
+        launches = st.launches_by[key]
+        direct = st.run_stream(plan, _spanned_on_card(sft, p), lib)
+        same = all(torch.equal(leg[o], direct[o].reshape(leg[o].shape))
+                   for o in p.outputs)
+        del leg, direct, inputs, fn
+        plan.device_pool.clear()
+        other.device_pool.clear()
+        torch.cuda.empty_cache()
+        yard = ("its own types" if cd == "float32" else "f32 compute")
+        print(f"kernel: {name} {p.name} compute_dtype={cd} ({key}) tile "
+              f"{plan.tile} x {plan.threads}, smem {plan.smem_bytes()} B "
+              f"({yard}: tile {other.tile}, {other.smem_bytes()} B): "
+              f"{ms:.3f} ms (in turns {turns[1]:.3f} / {turns[2]:.3f}) | "
+              f"{yard} {o_ms:.3f} ms (in turns {turns[0]:.3f} / "
+              f"{turns[3]:.3f}) | plain version {plain_ms:.1f} ms, "
+              f"max_abs_err {err:.3g} {'OK' if ok else 'MISMATCH'} ({how}) "
+              f"| bound {bound_ms:.4f} ms ({bound_by}) | library {lib_text} "
+              f"| leg: compile_chain_stream launches {launches}, equal to "
+              f"the kernel: {'yes' if same else 'NO'} | {smi}", flush=True)
+        if not ok or not same or launches != 1:
+            raise RuntimeError(f"{name}: the {cd}-compute kernel disagrees "
+                               f"with its plain version or its leg "
+                               f"(launches {launches})")
+        out[name] = {"name": name, "route": "cuda",
+                     "source": "stencilflow_tpu_torch/backend/codegen.py",
+                     "replaces": "stencilflow_tpu/backend/stream.py:1683",
+                     "launches": launches, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms}
+    print(f"ctype: phase 4's cells took {time.perf_counter() - t0:.1f} s | "
+          f"{smi}", flush=True)
+    return out
+
+
 def _spanned_on_card(sft, p):
     """``p``'s inputs (seed 0) at their spanned shapes on the card."""
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
@@ -926,61 +1158,6 @@ def _link_rates():
     return 4 * n / up * 1e3, 4 * n / down * 1e3
 
 
-def _chunk_slabs(program, inputs, lo: int, Ii: int):
-    """One chunk's inputs on the card: i-spanning ones as host slabs of
-    ``Ii`` planes from global plane ``lo`` (zero outside the domain)."""
-    from stencilflow_tpu_torch.dtypes import to_torch
-    from stencilflow_tpu_torch.outofcore import _host_slab
-    I = program.dimensions[0]
-    slabs = {}
-    for n, spec in program.inputs.items():
-        a = np.asarray(inputs[n])
-        if spec.is_scalar:
-            slabs[n] = to_torch(a)
-        elif spec.dim_mask[0]:
-            slabs[n] = _host_slab(a, lo, lo + Ii, I).cuda()
-        else:
-            slabs[n] = to_torch(a, "cuda")
-    return slabs
-
-
-def _local_plan(program, chunks: int, mxu_precision: str = "split"):
-    """K4's plan of ``program`` at ``chunks`` chunks, as the out-of-core
-    path chooses it (``plan_local_stream``)."""
-    import stencilflow_tpu_torch as sft
-    from stencilflow_tpu_torch.backend.dense import chain_halo
-    from stencilflow_tpu_torch.parallel.domain import (DomainDecomposition,
-                                                       plan_local_stream)
-    an = sft.ChainAnalysis.run(program)
-    I, J, K = program.dimensions
-    h = chain_halo(an)[0] if chunks > 1 else 0
-    got = plan_local_stream(program, an, DomainDecomposition(
-        program, None, (None, None, None), (h, 0, 0), (I // chunks, J, K)),
-        mxu_precision=mxu_precision)
-    if got is None:
-        raise RuntimeError(f"{program.name}: K4's planner refused")
-    return got[0]
-
-
-def _wide_i_spec(dims, stages: int):
-    """A 3-D jacobi whose stages read i-offsets of 3: windows wider than a
-    panel of B = 2."""
-    program, prev = {}, "a"
-    for n in range(stages):
-        program[f"s{n}"] = {
-            "computation_string":
-                f"s{n} = 0.2 * ({prev}[i-3,j,k] + {prev}[i+3,j,k] + "
-                f"{prev}[i,j-1,k] + {prev}[i,j+1,k] + {prev}[i,j,k+1])",
-            "boundary_conditions": {prev: {"type": "constant",
-                                           "value": 0.5}},
-            "data_type": "float32"}
-        prev = f"s{n}"
-    return {"inputs": {"a": {"data": "random:0.0,1.0",
-                             "data_type": "float32"}},
-            "outputs": [prev], "dimensions": list(dims),
-            "program": program}
-
-
 def _fuzz_chunked(cases):
     """(label, program, chunks): the 3-D fuzz chain of phase 3 drawn again
     at (48, 20, 24), with the most chunks (of 4, 3, 2) its i-halo allows."""
@@ -1004,6 +1181,7 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
     against the in-core route.  Returns K4's entry of the kernels line."""
     import torch
     from stencilflow_tpu_torch import outofcore
+    from stencilflow_tpu_torch.cardcheck import chunk_slabs
     from stencilflow_tpu_torch.report import Report
     up_rate, down_rate = _link_rates()
     print(f"link: pinned host-to-device {up_rate / 1e9:.2f} GB/s, "
@@ -1018,7 +1196,7 @@ def _outofcore(sft, st, pn, ov, gp, oc_cells, oc_plans, lib_of, smi,
     c = chunks // 2
     lo = c * plan.block - plan.halo_i
     inputs = sft.load_input_arrays(p, seed=0)
-    slabs = _chunk_slabs(p, inputs, lo, plan.extent())
+    slabs = chunk_slabs(p, inputs, lo, plan.extent())
     del inputs
     got = st.run_local_stream(plan, lo, slabs, lib)
     torch.cuda.synchronize()
@@ -1157,6 +1335,7 @@ def _outofcore_bf16(sft, st, pn, ov, gp, tl, p, chunks, plans, lib_of, smi,
     BF16_VERIFY_RTOL of the in-core f32 route's on the same inputs.
     Returns its entry of the kernels line."""
     import torch
+    from stencilflow_tpu_torch.cardcheck import chunk_slabs
     from stencilflow_tpu_torch.config import BF16_VERIFY_RTOL
     from stencilflow_tpu_torch.data import arrays_are_equal
     plan, split_plan = plans
@@ -1166,7 +1345,7 @@ def _outofcore_bf16(sft, st, pn, ov, gp, tl, p, chunks, plans, lib_of, smi,
     o = p.outputs[0]
     c = chunks // 2
     lo = c * plan.block - plan.halo_i
-    slabs = _chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
+    slabs = chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
                          plan.extent())
     before = st.launches_by["local_bf16"]
     got = st.run_local_stream(plan, lo, slabs, lib)
@@ -1848,89 +2027,6 @@ def _solvers(sft, progs, smi, k1_ms: float):
     return counts
 
 
-def _mixed_dtype_spec(dims):
-    """A chain with a dtype per kernel (float32 / float64 / int32 / int16
-    / bool; edges carry the producer's dtype), drawn as
-    ``tests/test_fuzz.py::make_mixed_dtype_program`` draws (the port's
-    ``random_program`` types every field alike): the first draw from
-    seed 0 up with an int32, a bool and a floating stage whose C++
-    simulator core is generated, at ``dims``."""
-    from stencilflow_tpu_torch import ChainAnalysis, parse_program
-    from stencilflow_tpu_torch.sim.native import (NativeBuildError,
-                                                  generate_cpp)
-    from stencilflow_tpu_torch.synthesize import _offset_str
-    for seed in range(200):
-        rng = np.random.default_rng(seed)
-        for _ in range(3):   # the generator's dims, replaced by ``dims``
-            rng.integers(4, 8)
-
-        def acc(field):
-            offs = [int(rng.integers(-1, 2)) for _ in range(3)]
-            return field + _offset_str(["i", "j", "k"], offs)
-
-        def fconst():
-            return f"{float(rng.uniform(-2, 2))!r}"
-        avail = [("a", "float32"), ("n", "int32")]
-        prog = {}
-        for s in range(int(rng.integers(3, 6))):
-            name = f"s{s}"
-            dt = str(rng.choice(["float32", "float64", "int32", "int16",
-                                 "bool"]))
-            (x, xdt), (y, ydt) = picks = [
-                avail[-1], avail[int(rng.integers(0, len(avail)))]]
-
-            def term(f, fdt):
-                a = acc(f)
-                if fdt == "bool":
-                    return f"({a} * {int(rng.integers(1, 4))})"
-                return a
-            if dt == "bool":
-                expr = f"({term(x, xdt)} > {term(y, ydt)})"
-            elif dt.startswith("int"):
-                expr = (f"({term(x, xdt)} * {int(rng.integers(1, 4))} "
-                        f"- {term(y, ydt)} + {int(rng.integers(-5, 8))})")
-                if rng.random() < 0.4:
-                    expr = f"min({expr}, {term(x, xdt)})"
-                if rng.random() < 0.3:
-                    expr = f"abs({expr})"
-            else:
-                expr = f"({term(x, xdt)} * {fconst()} + {term(y, ydt)})"
-                if rng.random() < 0.4:
-                    expr = (f"({expr} if {term(x, xdt)} > {fconst()} "
-                            f"else {term(y, ydt)})")
-            bcs = {}
-            for f, fdt in dict(picks).items():
-                if fdt == "bool":
-                    bcs[f] = {"type": "constant", "value": 0}
-                elif fdt.startswith("int"):
-                    bcs[f] = {"type": "constant",
-                              "value": int(rng.integers(0, 5))}
-                else:
-                    bcs[f] = {"type": str(rng.choice(["constant", "copy"])),
-                              "value": float(round(rng.uniform(-1, 1) * 64)
-                                             / 64)}
-            prog[name] = {"computation_string": f"{name} = {expr}",
-                          "boundary_conditions": bcs, "data_type": dt}
-            avail.append((name, dt))
-        kinds = {dt for _, dt in avail[2:]}
-        if not ({"int32", "bool"} <= kinds
-                and kinds & {"float32", "float64"}):
-            continue
-        spec = {"inputs": {"a": {"data": "random:-1,1",
-                                 "data_type": "float32"},
-                           "n": {"data": "random:1,40",
-                                 "data_type": "int32"}},
-                "outputs": [avail[-1][0]], "dimensions": list(dims),
-                "program": prog}
-        p = parse_program(spec, name=f"mixed_dtype_{seed}")
-        try:
-            generate_cpp(p, ChainAnalysis.run(p))
-        except NativeBuildError:
-            continue
-        return p
-    raise RuntimeError("no mixed-dtype draw the simulator core runs")
-
-
 def _simulator(sft, run_program, smi):
     """Phase 8: ``run --run-simulation`` through the main-path kernels.
     ``cli simulate --trace-chrome`` on a 16^3 program starts first, in a
@@ -2078,7 +2174,8 @@ def _simulator_legs(sft, run_program, smi, t_phase):
     from stencilflow_tpu_torch.backend import tile as tl
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
     from stencilflow_tpu_torch.sim.native import NativeSimulator
-    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+    from stencilflow_tpu_torch.synthesize import (mixed_dtype_spec,
+                                                  synthesize_stencil)
 
     def synth(shape, dims, stages, extent=1):
         return sft.parse_program(synthesize_stencil(
@@ -2090,7 +2187,7 @@ def _simulator_legs(sft, run_program, smi, t_phase):
             (synth("diffusion", (256,) * 3, 2), "overlap"),
             (synth("hotspot", (4096, 4096), 4), "rows+group_g8"),
             (synth("box", (128,) * 3, 4, extent=2), "stream"),
-            (_mixed_dtype_spec((48, 48, 48)), None)]
+            (sft.parse_program(*mixed_dtype_spec((48, 48, 48))), None)]
 
     def build_core(p):
         t0 = time.perf_counter()
@@ -3390,34 +3487,6 @@ NARROW_REPLACES = {"panel": "stencilflow_tpu/backend/panel.py:611",
                    "group": "stencilflow_tpu/backend/group.py:695"}
 
 
-def _narrow_mixed_spec(dims):
-    """A bf16 chain with transcendentals, a bf16 scalar, a copy and a
-    shrink BC, float constants pinned to bf16, and an int32 stage that
-    casts bf16 values (the oracle's lattice at every kind of site; the
-    int32 stage reads the inputs alone, so its cells stay exact)."""
-    bf = "bfloat16"
-    return {"inputs": {"b": {"data": "random:-2,3", "data_type": bf},
-                       "g": {"data": "random:-2,3", "data_type": bf,
-                             "input_dims": []}},
-            "outputs": ["s", "z"], "dimensions": list(dims),
-            "program": {
-                "u": {"computation_string":
-                      "u = exp(b[i,j,k] * 0.5) + tanh(b[i,j+1,k]) - "
-                      "sqrt(abs(b[i,j,k-1])) + g",
-                      "boundary_conditions": {"b": {"type": "shrink"}},
-                      "data_type": bf},
-                "s": {"computation_string":
-                      "s = u[i,j,k] / (u[i+1,j,k] + 3.0) if u[i,j,k] > 1.0 "
-                      "else -u[i,j,k]",
-                      "boundary_conditions": {"u": {"type": "copy"}},
-                      "data_type": bf},
-                "z": {"computation_string":
-                      "z = b[i,j,k] * 4.0 + min(b[i,j+1,k], g)",
-                      "boundary_conditions":
-                      {"b": {"type": "constant", "value": 0.3}},
-                      "data_type": "int32"}}}
-
-
 def _narrow_pair_spec(dims):
     """bf16 meeting f16 at ufunc sites (+, *, max, a comparison): each
     pair computes in float32, as ml_dtypes' loops do; a float32 and a
@@ -3511,27 +3580,6 @@ def _narrow_zero(pn, ov, gp, st):
     st.launches_by["spill_narrow"] = 0
 
 
-def _narrow_held(got, want, rtol: float):
-    """(ok, max abs err) of two outputs as numpy arrays of one type: bit
-    for bit (a bf16 or f16 array by its 2-byte patterns), or within
-    ``rtol`` (VERIFY_RTOL where a transcendental appears)."""
-    from stencilflow_tpu_torch.data import arrays_are_equal
-    from stencilflow_tpu_torch.dtypes import cast
-    got, want = np.asarray(got).reshape(np.shape(want)), np.asarray(want)
-    if got.dtype != want.dtype:
-        return False, float("inf")
-    bits = (lambda x: x.view(np.uint16)) if got.dtype.itemsize == 2 \
-        else (lambda x: x)
-    if not rtol and np.array_equal(bits(got), bits(want)):
-        return True, 0.0   # at once: a 512^3 float64 copy takes seconds
-    a, b = cast(got, np.float64), cast(want, np.float64)
-    err = float(np.max(np.abs(a - b))) if a.size else 0.0
-    if rtol:
-        return arrays_are_equal(b, a, rtol) and bool(np.isfinite(a).all()), \
-            err
-    return False, err
-
-
 def _narrow_setup(sft, pn, ov, gp, st, codegen, rows, synthesize_stencil,
                   small):
     """Phase 2's share of the narrow legs: phase 3's small cases of each
@@ -3539,6 +3587,7 @@ def _narrow_setup(sft, pn, ov, gp, st, codegen, rows, synthesize_stencil,
     (K1), phase 4's five
     full-width rows, each planned as its entry point plans it.  Returns
     (small cases, full-width rows, sources to build)."""
+    from stencilflow_tpu_torch.synthesize import narrow_mixed_spec
     def typed(shape, dims, iters, dt):
         tag = "bf16" if dt == "bfloat16" else "f16"
         return sft.parse_program(synthesize_stencil(
@@ -3562,7 +3611,7 @@ def _narrow_setup(sft, pn, ov, gp, st, codegen, rows, synthesize_stencil,
             cases.append((label, kind, p, kw) + _narrow_plan(
                 sft, pn, ov, gp, st, codegen, kind, p, kw))
     for label, kind, spec, kw in (
-            ("K1 mixed bf16", "panel", _narrow_mixed_spec(small), None),
+            ("K1 mixed bf16", "panel", narrow_mixed_spec(small), None),
             ("K1 bf16 meets f16", "panel", _narrow_pair_spec(small), None),
             ("K3a weak-const bf16", "stream", _narrow_weak_spec(small),
              {"mxu": "off"})):
@@ -3610,6 +3659,7 @@ def _narrow_small(sft, pn, ov, gp, st, cases, lib_of, smi):
     and read just after."""
     import torch
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    from stencilflow_tpu_torch.cardcheck import narrow_held
     from stencilflow_tpu_torch.config import VERIFY_RTOL
     from stencilflow_tpu_torch.dtypes import to_numpy, to_torch
     entry = None
@@ -3633,8 +3683,8 @@ def _narrow_small(sft, pn, ov, gp, st, cases, lib_of, smi):
         ms = _time_ms(lambda: run(arrays, lib), 5)
         for o in p.outputs:
             g = to_numpy(got[o])
-            ok, err = _narrow_held(g, to_numpy(want[o]), rtol)
-            ok_o, err_o = _narrow_held(g, oracle[o], 2.0 ** -7 if tr
+            ok, err = narrow_held(g, to_numpy(want[o]), rtol)
+            ok_o, err_o = narrow_held(g, oracle[o], 2.0 ** -7 if tr
                                        else 0.0)
             print(f"compare: narrow  {label:28s} {kind} "
                   f"{'packed, spilled %d rings ' % len(plan.spilled) if getattr(plan, 'packed', False) else ''}"
@@ -3692,6 +3742,7 @@ def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
     times both and one chained ``F.conv3d``/``conv2d`` in the program's
     type.  Returns the kernels line's entries."""
     import torch
+    from stencilflow_tpu_torch.cardcheck import narrow_held
     from stencilflow_tpu_torch.dtypes import to_numpy, to_torch_dtype
     out = {}
     for key, kind, p, backend, route, q, an, plan, src in mains:
@@ -3718,8 +3769,8 @@ def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         g = to_numpy(got[o])
-        ok, err = _narrow_held(g, to_numpy(want[o]), 0.0)
-        same = _narrow_held(g, np.asarray(main_out).reshape(g.shape),
+        ok, err = narrow_held(g, to_numpy(want[o]), 0.0)
+        same = narrow_held(g, np.asarray(main_out).reshape(g.shape),
                             0.0)[0]
         del got, want, main_out
         ms = _time_ms(lambda: run(arrays, lib), 10)
@@ -3769,17 +3820,17 @@ def _nk_tag(dt: str) -> str:
 
 def _nk_setup(sft, st, tl, synthesize_stencil):
     """Phase 2's share of the narrow K4 and K6 legs, each planned as its
-    entry point plans it: phase 3's small cases (jacobi3d and hdiff3d
-    64^3 x 3 typed bf16 and f16: K4 at 4 chunks and over 2 x 2 shards, K6
-    masked and fast), phase 4's K6 cells (jacobi3d 512^3 x 2, both types,
-    both modes), phase 5's out-of-core cell (jacobi3d 1024^3 x 8 bf16 at
-    8 chunks), phase 7's solver programs (jacobi3d 512^3 bf16 fused by 8,
-    jacobi3d 256^3 x 8 bf16 and its adjoint, backward Euler 512^3 f16) and
-    phase 9's cell (jacobi3d 512^3 x 8 bf16 over 2 x 2 and over 4
+    entry point plans it: phase 3's small case (hdiff3d 64^3 x 3 typed f16:
+    K4 at 4 chunks, K6 fast), phase 4's K6 cells (jacobi3d 512^3 x 2, both
+    types, both modes), phase 5's out-of-core cell (jacobi3d 1024^3 x 8
+    bf16 at 8 chunks), phase 7's solver programs (jacobi3d 512^3 bf16 fused
+    by 8, jacobi3d 256^3 x 8 bf16 and its adjoint, backward Euler 512^3
+    f16) and phase 9's cell (jacobi3d 512^3 x 8 bf16 over 2 x 2 and over 4
     positions).  Returns (setup, sources to build, thunks that build
     through the entry points)."""
     import torch
     from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.cardcheck import local_plan
     from stencilflow_tpu_torch.grad import adjoint_program
     from stencilflow_tpu_torch.iterate import compose_iterations
     from stencilflow_tpu_torch.parallel import (compile_pipeline_split,
@@ -3795,20 +3846,12 @@ def _nk_setup(sft, st, tl, synthesize_stencil):
     cuda = torch.device("cuda", 0)
     jk = make_mesh([cuda], (2, 2), ("x", "y"))
     p4 = make_mesh([cuda], (4,), ("p",))
-    sources, thunks, small = [], [], []
-    for dt in NARROW_TYPES:
-        for shape in ("diffusion", "hdiff"):
-            p = typed(shape, 64, 3, dt)
-            plan = _local_plan(p, 4)
-            small.append(("chunk", p, plan))
-            sources.append((st.stream_source(plan), "local_stream"))
-            small.append(("shard", p, None))
-            thunks.append(lambda p=p: compile_sharded_chain(
-                p, jk, (None, "x", "y")))
-            for mode in ("masked", "fast"):
-                plan = tl.plan_tile(p, mode=mode)
-                small.append((mode, p, plan))
-                sources.append((tl.tile_source(plan), "tile"))
+    hdiff_f16 = typed("hdiff", 64, 3, "float16")
+    small = [("chunk", hdiff_f16, local_plan(hdiff_f16, 4)),
+             ("fast", hdiff_f16, tl.plan_tile(hdiff_f16, mode="fast"))]
+    sources = [(st.stream_source(small[0][2]), "local_stream"),
+               (tl.tile_source(small[1][2]), "tile")]
+    thunks = []
     tiles = {}
     for dt in NARROW_TYPES:
         p = typed("diffusion", 512, 2, dt)
@@ -3816,7 +3859,7 @@ def _nk_setup(sft, st, tl, synthesize_stencil):
             tiles[dt, mode] = (p, tl.plan_tile(p, mode=mode))
             sources.append((tl.tile_source(tiles[dt, mode][1]), "tile"))
     oc = typed("diffusion", 1024, 8, "bfloat16")
-    oc_plan = _local_plan(oc, 8)
+    oc_plan = local_plan(oc, 8)
     sources.append((st.stream_source(oc_plan), "local_stream"))
     dist = typed("diffusion", 512, 8, "bfloat16")
     thunks += [lambda: compile_sharded_chain(dist, jk, (None, "x", "y")),
@@ -3833,81 +3876,54 @@ def _nk_setup(sft, st, tl, synthesize_stencil):
 
 
 def _nk_small(sft, st, tl, small, lib_of, smi):
-    """Phase 3's narrow K4 and K6 cases: K4 chunk by chunk (4 chunks) and
-    shard by shard over 2 x 2 (shards at non-zero j and k origins), K6
-    masked and fast; every launch against its plain version on the card
-    bit for bit and counted under its narrow mode ("local_narrow",
-    "shard_narrow", K6's "narrow"), the assembled output against the host
-    oracle bit for bit."""
+    """Phase 3's narrow K4 and K6 case (the wider matrix of types, shapes
+    and shards runs in tests/test_torch_cuda.py): K4 chunk by chunk at 4
+    chunks and K6 fast on hdiff3d 64^3 x 3 typed f16, every launch against
+    its plain version on the card bit for bit and counted under its
+    narrow mode ("local_narrow", K6's "narrow"), the assembled output
+    against the host oracle bit for bit."""
     import torch
     from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    from stencilflow_tpu_torch.cardcheck import chunk_slabs, narrow_held
     from stencilflow_tpu_torch.dtypes import to_numpy
-    from stencilflow_tpu_torch.parallel import compile_sharded_chain
-    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
-    from stencilflow_tpu_torch.parallel.mesh import make_mesh
     t0 = time.perf_counter()
-    jk = make_mesh([torch.device("cuda", 0)], (2, 2), ("x", "y"))
-    oracles = {}
     for kind, p, plan in small:
-        for module, mode in ((st, "local_narrow"), (st, "shard_narrow"),
-                             (tl, "narrow")):
-            module.launches_by[mode] = 0
+        module, mode = (st, "local_narrow") if kind == "chunk" else \
+            (tl, "narrow")
+        module.launches_by[mode] = 0
         inputs = sft.load_input_arrays(p, seed=7)
-        if p.name not in oracles:
-            oracles[p.name] = sft.run_interpreter(p, inputs)
         o = p.outputs[0]
-        want_o = oracles[p.name][o]
+        want_o = sft.run_interpreter(p, inputs)[o]
         full = np.zeros(p.dimensions, want_o.dtype)
-        worst, pieces = 0.0, []
+        pieces = []
         if kind == "chunk":
-            module, mode = st, "local_narrow"
             lib = lib_of[st.stream_source(plan)]
             for c in range(4):
                 lo = c * plan.block - plan.halo_i
-                slabs = _chunk_slabs(p, inputs, lo, plan.extent())
+                slabs = chunk_slabs(p, inputs, lo, plan.extent())
                 pieces.append((st.run_local_stream(plan, lo, slabs, lib),
                                st.local_stream_plain(plan, lo, slabs),
                                slice(c * plan.block, (c + 1) * plan.block)))
-            where = f"chunks 4, tile {plan.tile}"
-        elif kind == "shard":
-            module, mode = st, "shard_narrow"
-            fn, dplan = compile_sharded_chain(p, jk, (None, "x", "y"))
-            if fn.plan is None:
-                raise RuntimeError(f"narrow: {p.name} fell to the tile body")
-            plan = fn.plan
-            lib = st.build_stream(plan)   # built in phase 2: a lookup
-            per = fn.exchange(place_global_inputs(p, dplan, inputs))
-            for c, tiles in per.items():
-                oi, oj, ok = dplan.block_origin(c)
-                args = (oi - dplan.halo[0], tiles)
-                extra = (oj, ok, dplan.instance(c))
-                pieces.append((
-                    st.run_local_stream(plan, *args, lib, *extra),
-                    st.local_stream_plain(plan, *args, *extra),
-                    tuple(slice(a, a + b) for a, b in zip(
-                        (oi, oj, ok), dplan.block))))
-            where = f"4 shards, tile {plan.tile}"
         else:
-            module, mode = tl, "narrow"
-            lib = lib_of[tl.tile_source(plan)]
             arrays = spanned_arrays(p, inputs, device="cuda")
-            pieces.append((tl.run_tile(plan, arrays, lib),
+            pieces.append((tl.run_tile(plan, arrays,
+                                       lib_of[tl.tile_source(plan)]),
                            tl.tile_plain(plan, arrays), slice(None)))
-            where = f"{plan.mode}, tile {plan.tile}"
         torch.cuda.synchronize()
         n = module.launches_by[mode]
+        worst = 0.0
         for got, want, at in pieces:
             g = to_numpy(got[o])
-            ok, err = _narrow_held(g, to_numpy(want[o]), 0.0)
+            ok, err = narrow_held(g, to_numpy(want[o]), 0.0)
             worst = max(worst, err)
             if not ok:
                 raise RuntimeError(f"narrow {kind} kernel on {p.name} "
                                    "disagrees with its plain version")
             full[at] = g.reshape(full[at].shape)
-        ok_o, err_o = _narrow_held(full, want_o, 0.0)
-        print(f"compare: narrow  {'K4' if kind in ('chunk', 'shard') else 'K6'}"
-              f" {kind:6s} {p.name:24s} {where}: max_abs_err {worst:.3g} "
-              f"(oracle {err_o:.3g}) launches {n} "
+        ok_o, err_o = narrow_held(full, want_o, 0.0)
+        print(f"compare: narrow  {'K4' if kind == 'chunk' else 'K6'} "
+              f"{kind:6s} {p.name:24s} tile {plan.tile}: max_abs_err "
+              f"{worst:.3g} (oracle {err_o:.3g}) launches {n} "
               f"{'OK' if ok_o and n == len(pieces) else 'MISMATCH'} "
               "(bit-exact)", flush=True)
         if not ok_o or n != len(pieces):
@@ -3928,6 +3944,7 @@ def _nk_tiles(sft, tl, run_program, tiles, lib_of, smi, memo, twin):
     type (the bf16 inputs made from ``twin``'s, its float32 twin,
     ``_InputMemo.as_bf16``).  Returns the kernels line's entries."""
     import torch
+    from stencilflow_tpu_torch.cardcheck import narrow_held
     from stencilflow_tpu_torch.dtypes import to_numpy, to_torch_dtype
     out = {}
     t0 = time.perf_counter()
@@ -3962,8 +3979,8 @@ def _nk_tiles(sft, tl, run_program, tiles, lib_of, smi, memo, twin):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t1) * 1e3
         g = to_numpy(got[o])
-        ok, err = _narrow_held(g, to_numpy(want[o]), 0.0)
-        same = _narrow_held(g, np.asarray(main_out).reshape(g.shape), 0.0)[0]
+        ok, err = narrow_held(g, to_numpy(want[o]), 0.0)
+        same = narrow_held(g, np.asarray(main_out).reshape(g.shape), 0.0)[0]
         del got, want, main_out
         ms = _time_ms(lambda: tl.run_tile(plan, arrays, lib), 10)
         del arrays
@@ -4011,6 +4028,7 @@ def _nk_outofcore(sft, st, pn, ov, gp, tl, oc, lib_of, smi, run_program,
     (``_InputMemo.as_bf16``).  Returns K4's entry of the kernels line."""
     import torch
     from stencilflow_tpu_torch import outofcore
+    from stencilflow_tpu_torch.cardcheck import chunk_slabs, narrow_held
     from stencilflow_tpu_torch.dtypes import to_numpy
     from stencilflow_tpu_torch.report import Report
     t0 = time.perf_counter()
@@ -4021,7 +4039,7 @@ def _nk_outofcore(sft, st, pn, ov, gp, tl, oc, lib_of, smi, run_program,
     _, J, K = p.dimensions
     c = chunks // 2
     lo = c * plan.block - plan.halo_i
-    slabs = _chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
+    slabs = chunk_slabs(p, sft.load_input_arrays(p, seed=0), lo,
                          plan.extent())
     got = st.run_local_stream(plan, lo, slabs, lib)
     torch.cuda.synchronize()
@@ -4029,7 +4047,7 @@ def _nk_outofcore(sft, st, pn, ov, gp, tl, oc, lib_of, smi, run_program,
     want = st.local_stream_plain(plan, lo, slabs)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t1) * 1e3
-    ok, err = _narrow_held(to_numpy(got[o]), to_numpy(want[o]), 0.0)
+    ok, err = narrow_held(to_numpy(got[o]), to_numpy(want[o]), 0.0)
     del got, want
     ms = _time_ms(lambda: st.run_local_stream(plan, lo, slabs, lib), 10)
     in_bytes = sum(t.numel() * t.element_size() for n, t in slabs.items()
@@ -4062,7 +4080,7 @@ def _nk_outofcore(sft, st, pn, ov, gp, tl, oc, lib_of, smi, run_program,
     if res.backend != label or n != chunks * (reps + 1) or counts:
         raise RuntimeError(f"{p.name}: {res.backend} launched K4 {n} times "
                            f"over {reps + 1} calls (others {counts})")
-    same = _narrow_held(res.outputs[o], in_core, 0.0)[0]
+    same = narrow_held(res.outputs[o], in_core, 0.0)[0]
     up, down = outofcore.link_bytes(p, outofcore.ChunkPlan(
         chunks, plan.block, plan.halo_i, "stream", {}))
     duplex = max(up / up_rate, down / down_rate) * 1e3
@@ -4194,6 +4212,7 @@ def _nk_sharded(sft, st, pn, ov, gp, tl, dist, smi, memo, twin):
     line."""
     import torch
     from stencilflow_tpu_torch.backend import compile_chain_best
+    from stencilflow_tpu_torch.cardcheck import narrow_held
     from stencilflow_tpu_torch.dtypes import to_numpy, to_torch
     from stencilflow_tpu_torch.parallel import (compile_pipeline_split,
                                                 compile_sharded_chain)
@@ -4229,7 +4248,7 @@ def _nk_sharded(sft, st, pn, ov, gp, tl, dist, smi, memo, twin):
         counts = _counts(pn, ov, gp, tl, st)
         n = counts.pop(mode, 0)
         got_all = to_numpy(out[o].gather(torch.device("cuda", 0)))
-        same = _narrow_held(got_all, ref, 0.0)[0]
+        same = narrow_held(got_all, ref, 0.0)[0]
         del out, got_all
         ms = _time_ms(lambda: fn(placed), 5)
         if segment:
@@ -4261,7 +4280,7 @@ def _nk_sharded(sft, st, pn, ov, gp, tl, dist, smi, memo, twin):
             win = slice(max(0, -g0), min(sp.block, p.dimensions[0] - g0))
         else:
             win = slice(None)
-        good, err = _narrow_held(to_numpy(got[so][win]),
+        good, err = narrow_held(to_numpy(got[so][win]),
                                  to_numpy(want[so][win]), 0.0)
         out_bytes = sum(t.numel() * t.element_size() for t in got.values())
         del got, want
@@ -4327,6 +4346,8 @@ def main() -> int:
     from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL, VERIFY_RTOL
     from stencilflow_tpu_torch.driver import run_program
     from stencilflow_tpu_torch.backend.dense import chain_halo
+    from stencilflow_tpu_torch.cardcheck import (chunk_slabs, fuzz_programs,
+                                                 local_plan, wide_i_spec)
     from stencilflow_tpu_torch.frontend.canonicalize import \
         rotate_2d_to_rows as rows
     from stencilflow_tpu_torch.synthesize import synthesize_stencil
@@ -4347,11 +4368,11 @@ def main() -> int:
             name=f"{shape}3d_{n if isinstance(n, int) else n[0]}_"
                  f"{iters}itr")
 
-    examples = [(n, sft.parse_program(os.path.join(HERE, "examples",
-                                                   n + ".json")))
-                for n in ("jacobi3d_32x32x32_8itr", "hdiff_64x64x64",
-                          "forked_box_chain")]
-    cases = examples + _fuzz_programs()
+    # the random chains: the 3-D float32 one (drawn again for K4), and the
+    # float64 one with shrink BCs and the int32 one, scalar and lower-rank
+    # inputs through K1, K2 and K6 (the example programs and the other
+    # chains run in tests/test_torch_cuda.py)
+    cases = fuzz_programs(("fuzz-f32", "fuzz-f64-shrink", "fuzz-i32"))
     small = (40, 48, 72)
     stream_cases = [
         ("box-r1", synth("box", small, 4, 1)),
@@ -4382,18 +4403,17 @@ def main() -> int:
             name=f"{shape}2d_{n[0]}_{iters}itr"
                  f"{'_' + kw['boundary'] if 'boundary' in kw else ''}")
 
-    fuzz = {label.rsplit("-", 1)[0]: p for label, p in cases
-            if label.startswith("fuzz-")}
-    # (label, program the kernel runs, B, g)
-    group_cases = [(f"jacobi2d-{bc}", rows(synth2d(
-        "diffusion", (256, 192), 8, boundary=bc)), 64, 8)
-        for bc in ("constant", "copy", "shrink")]
-    group_cases += [
-        ("hotspot2d", rows(synth2d("hotspot", (256, 192), 8)), 64, 8),
-        ("fuzz-f32-2d", rows(fuzz["fuzz-f32-2d"]), 0, 2),
-        ("jacobi3d-i3", sft.parse_program(_wide_i_spec((24, 40, 72), 4),
-                                          name="jacobi3d_i3"), 2, 2),
-        ("fuzz-f32", fuzz["fuzz-f32"], 0, 2)]
+    # jacobi2d 256 x 192 x 8 through rows (the bf16 rings' K5 leg)
+    jacobi2d_rows = rows(synth2d("diffusion", (256, 192), 8,
+                                 boundary="constant"))
+    # the group kernel (phase 3): (label, program the kernel runs, B, g);
+    # the other BCs, hotspot2d, the fuzz chains and i-segments run in
+    # tests/test_torch_cuda.py
+    group_cases = [
+        ("jacobi2d-shrink", rows(synth2d("diffusion", (256, 192), 8,
+                                         boundary="shrink")), 64, 8),
+        ("jacobi3d-i3", sft.parse_program(wide_i_spec((24, 40, 72), 4),
+                                          name="jacobi3d_i3"), 2, 2)]
     # K4, the local chunk kernel (phase 3): (label, program, chunks)
     local_cases = [(f"jacobi3d-64-{bc}", sft.parse_program(
         synthesize_stencil(num_stages=3, dimensions=(64,) * 3,
@@ -4420,16 +4440,9 @@ def main() -> int:
     mains2d = [(jacobi2d, "rows+group_g8"), (hotspot2d, "rows+group_g8"),
                (hdiff2d, "panel")]
     mains += mains2d
-    # K3c (phase 3): (label, program, planner options; spill="all" spills
-    # every ring read at an earlier step)
-    spill_cases = [("reconvergent", sft.parse_program(
-        _reconvergent_spec(), name="reconvergent_16"),
-        {"smem_budget": 40000})]
-    spill_cases += [(label, p, {"spill": "all"})
-                    for label, p, _c in local_cases[:3]]
-    spill_cases.append(("hdiff-dag", local_cases[3][1], {"spill": "all"}))
-    spill_cases.append(("hotspot-deep", synth("hotspot", (40, 40, 72), 32),
-                        {"spill": "all"}))
+    # the reconvergent 16-stage chain (the bf16 rings' K3c leg)
+    reconvergent = sft.parse_program(_reconvergent_spec(),
+                                     name="reconvergent_16")
     # the deep 3-D cells (phase 4): the stream kernel's spill rung
     jacobi32 = synth("diffusion", 512, 32)
     # hotspot3d cut from 32 stages to 24 (21 of 25 rings still spilled) to
@@ -4446,7 +4459,7 @@ def main() -> int:
                            ov.run_overlap, ov.overlap_plain)}
     sources = []
     plain_cases = []
-    for label, p in cases:
+    for label, p in cases[1:]:
         an = sft.ChainAnalysis.run(p)
         for kname, (_, plan_cls, _, _, _) in kernels.items():
             plan = plan_cls.build(an)
@@ -4502,22 +4515,16 @@ def main() -> int:
             continue
         main_panel[p.name] = (an, plan)
         sources.append((codegen.panel_source(p, an, plan), "panel"))
-    # the group kernel: phase 3's cases (then two of them cut into
-    # i-segments), then the 2-D main path's plans
+    # the group kernel: phase 3's cases, then the 2-D main path's plans
     group_plans = []
-    for label, p, B, g, segments in [c + (None,) for c in group_cases] + [
-            (label + f"-S{S}", p, B, g, S) for label, p, B, g in group_cases
-            for want, S in (("jacobi2d-shrink", 4), ("jacobi3d-i3", 4))
-            if label == want] + [
-            (q.name, rows(q), 64, 8, None) for q, want in mains2d
+    for label, p, B, g in group_cases + [
+            (q.name, rows(q), 64, 8) for q, want in mains2d
             if want == "rows+group_g8"]:
         an = sft.ChainAnalysis.run(p)
-        plan = gp.plan_group(p, an, B, g, segments=segments)
+        plan = gp.plan_group(p, an, B, g)
         src = codegen.group_source(p, an, plan)
         group_plans.append((label, p, an, plan, src))
         sources.append((src, "group"))
-    n_group3 = len(group_plans) - sum(w == "rows+group_g8"
-                                      for _, w in mains2d)
     # beside the 2-D cells: forced overlap on the unrotated plane (the
     # route before the rows path), forced rows+panel; a panel route's
     # kernel, and beside it the stream kernel's packed plan (its route
@@ -4544,28 +4551,27 @@ def main() -> int:
     # and their in-core (panel) plans
     local_plans = []
     for label, p, chunks in local_cases:
-        plan = _local_plan(p, chunks)
+        plan = local_plan(p, chunks)
         local_plans.append((label, p, chunks, plan))
         sources.append((st.stream_source(plan), "local_stream"))
     oc_plans = {}
     for p, chunks in oc_cells:
-        oc_plans[p.name] = _local_plan(p, chunks)
+        oc_plans[p.name] = local_plan(p, chunks)
         sources.append((st.stream_source(oc_plans[p.name]), "local_stream"))
         an = sft.ChainAnalysis.run(p)
         sources.append((codegen.panel_source(p, an, pn.PanelPlan.build(an)),
                         "panel"))
     # K4's bf16 passes at 4 chunks and the split chunk plan beside them,
     # and the in-core f32 route of the same program
-    oc_bf16 = (_local_plan(box512, 4, "bf16"), _local_plan(box512, 4))
+    oc_bf16 = (local_plan(box512, 4, "bf16"), local_plan(box512, 4))
     sources += [(st.stream_source(q), "local_stream") for q in oc_bf16]
     sources.append((st.stream_source(st.plan_stream(box512)), "stream"))
-    # K3c: phase 3's spilled plans, K4 spilled at 4 chunks, the deep
-    # cells' route plans (rung 4: every stage per cell, spilled)
-    spill_plans = []
-    for label, p, kw in spill_cases:
-        plan = st.plan_stream(p, **kw)
-        spill_plans.append((label, p, plan))
-        sources.append((st.stream_source(plan), "stream"))
+    # K3c: jacobi3d 64^3 x 3 with shrink BCs, every ring spilled (phase 3;
+    # the other small cases run in tests/test_torch_cuda.py), K4 spilled
+    # at 4 chunks, the deep cells' route plans (rung 4: every stage per
+    # cell, spilled)
+    spill_small = st.plan_stream(local_cases[2][1], spill="all")
+    sources.append((st.stream_source(spill_small), "stream"))
     lp = local_cases[1][1]   # jacobi3d 64^3 x 3, copy BCs
     lan = sft.ChainAnalysis.run(lp)
     local_spill = st.plan_local(lp, lan, lp.dimensions[0] // 4,
@@ -4581,10 +4587,10 @@ def main() -> int:
     bf16_small, bf16_main = [], {}
     for label, kernel, p, kw in (
             ("K1 jacobi3d", "panel", synth("diffusion", small, 4), {}),
-            ("K5 jacobi2d rows", "group", group_cases[0][1], {}),
+            ("K5 jacobi2d rows", "group", jacobi2d_rows, {}),
             ("K3a jacobi3d", "stream", synth("diffusion", small, 4),
              {"mxu": "off"}),
-            ("K3c reconvergent", "stream", spill_cases[0][1],
+            ("K3c reconvergent", "stream", reconvergent,
              {"smem_budget": 40000}),
             ("K3b box-r2", "stream", stream_cases[1][1],
              {"mxu_precision": "bf16"}),
@@ -4636,6 +4642,10 @@ def main() -> int:
             f32 = st.plan_stream(p)
         cbf_main[key] = (p, plan, f32)
         sources += [(st.stream_source(q), "stream") for q in (plan, f32)]
+    # compute types of programs typed other than float32, int32 and bool
+    # compute: phase 3's small cases (K3a, K3c), then phase 4's cells
+    ct_small, ct_mains, ct_sources = _ct_setup(sft, st, synthesize_stencil)
+    sources += ct_sources
     # programs typed bfloat16 and float16: phase 3's small cases of K1, K2,
     # K3a, K3c and K5, then phase 4's full-width rows
     narrow_cases, narrow_mains, narrow_sources = _narrow_setup(
@@ -4646,9 +4656,10 @@ def main() -> int:
     nk_setup, nk_sources, nk_thunks = _nk_setup(sft, st, tl,
                                                 synthesize_stencil)
     sources += nk_sources
-    # K6: phase 3's programs in both modes, then the forced cells
+    # K6: phase 3's random chains in both modes, then the forced cells of
+    # phase 4
     tile_plans = []
-    for label, p in cases:
+    for label, p in cases[1:]:
         for mode in ("masked", "fast"):
             plan = tl.plan_tile(p, mode=mode)
             tile_plans.append((label, p, plan))
@@ -4752,27 +4763,6 @@ def main() -> int:
                 raise RuntimeError(f"stream kernel disagrees with its plain "
                                    f"version on {label}")
 
-    for label, p, an, plan, src in group_plans[:n_group3]:
-        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
-                                device="cuda")
-        before = gp.launches_by["exact"]
-        got = gp.run_group(p, an, plan, arrays, lib_of[src])
-        torch.cuda.synchronize()
-        want = gp.group_plain(p, an, plan, arrays)
-        rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
-        for o in p.outputs:
-            ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
-                               rtol)
-            n = gp.launches_by["exact"] - before
-            print(f"compare: group   {label:28s} B {plan.B} groups "
-                  f"{len(plan.groups)} tile {plan.tile} x {plan.threads} "
-                  f"segments {plan.segments} max_abs_err "
-                  f"{err:.3g} launches {n} {'OK' if ok else 'MISMATCH'}",
-                  flush=True)
-            if not ok or n != 1:
-                raise RuntimeError(f"group kernel disagrees with its plain "
-                                   f"version on {label}")
-
     for label, p, chunks, plan in local_plans:
         lib = lib_of[st.stream_source(plan)]
         inputs = sft.load_input_arrays(p, seed=7)
@@ -4786,7 +4776,7 @@ def main() -> int:
         worst, launched = 0.0, 0
         for c in range(chunks):
             lo = c * plan.block - plan.halo_i
-            slabs = _chunk_slabs(p, inputs, lo, plan.extent())
+            slabs = chunk_slabs(p, inputs, lo, plan.extent())
             before = st.launches_by["local"]
             got = st.run_local_stream(plan, lo, slabs, lib)
             torch.cuda.synchronize()
@@ -4811,31 +4801,49 @@ def main() -> int:
             raise RuntimeError(f"local stream kernel launched {launched} "
                                f"times over {chunks} chunks of {label}")
 
-    # K3c: spilled rings, whole domain, then K4 spilled chunk by chunk
-    for label, p, plan in spill_plans:
+    for label, p, an, plan, src in group_plans[:len(group_cases)]:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
                                 device="cuda")
-        before = st.launches_by["spill"]
-        got = st.run_stream(plan, arrays, lib_of[st.stream_source(plan)])
+        before = gp.launches_by["exact"]
+        got = gp.run_group(p, an, plan, arrays, lib_of[src])
         torch.cuda.synchronize()
-        want = st.stream_plain(plan, arrays)
-        n = st.launches_by["spill"] - before
+        want = gp.group_plain(p, an, plan, arrays)
+        n = gp.launches_by["exact"] - before
         for o in p.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
                                0.0)
-            print(f"compare: spill   {label:28s} tile {plan.tile} spilled "
-                  f"{len(plan.spilled)} of {len(plan.raw_ring)} rings "
-                  f"({plan.spill_bytes()} B) smem {plan.smem_bytes()} B "
+            print(f"compare: group   {label:28s} B {plan.B} groups "
+                  f"{len(plan.groups)} tile {plan.tile} x {plan.threads} "
                   f"max_abs_err {err:.3g} launches {n} "
                   f"{'OK' if ok else 'MISMATCH'}", flush=True)
             if not ok or n != 1:
-                raise RuntimeError(f"spilled stream kernel disagrees with "
-                                   f"its plain version on {label}")
+                raise RuntimeError(f"group kernel disagrees with its plain "
+                                   f"version on {label}")
+
+    # K3c: every ring spilled, whole domain, then K4 spilled chunk by chunk
+    p, plan = local_cases[2][1], spill_small
+    arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=7),
+                            device="cuda")
+    before = st.launches_by["spill"]
+    got = st.run_stream(plan, arrays, lib_of[st.stream_source(plan)])
+    torch.cuda.synchronize()
+    want = st.stream_plain(plan, arrays)
+    n = st.launches_by["spill"] - before
+    for o in p.outputs:
+        ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(), 0.0)
+        print(f"compare: spill   {p.name:28s} tile {plan.tile} spilled "
+              f"{len(plan.spilled)} of {len(plan.raw_ring)} rings "
+              f"({plan.spill_bytes()} B) smem {plan.smem_bytes()} B "
+              f"max_abs_err {err:.3g} launches {n} "
+              f"{'OK' if ok else 'MISMATCH'}", flush=True)
+        if not ok or n != 1:
+            raise RuntimeError(f"spilled stream kernel disagrees with its "
+                               f"plain version on {p.name}")
     inputs = sft.load_input_arrays(lp, seed=7)
     launched, worst = 0, 0.0
     for c in range(4):
         lo = c * local_spill.block - local_spill.halo_i
-        slabs = _chunk_slabs(lp, inputs, lo, local_spill.extent())
+        slabs = chunk_slabs(lp, inputs, lo, local_spill.extent())
         before = st.launches_by["spill"]
         got = st.run_local_stream(local_spill, lo, slabs,
                                   lib_of[st.stream_source(local_spill)])
@@ -4890,7 +4898,7 @@ def main() -> int:
                                 device="cuda")
         lib = lib_of[st.stream_source(plan)]
         cd = plan.compute_dtype
-        count = "compute_" + ("bf16" if cd == "bfloat16" else "f16")
+        count = st.compute_key(plan)
         before = st.launches_by[count]
         got = st.run_stream(plan, arrays, lib)
         torch.cuda.synchronize()
@@ -4922,10 +4930,12 @@ def main() -> int:
                 raise RuntimeError(f"{cd}-compute stream kernel ({label}) "
                                    "disagrees with its plain version")
 
+    # compute types on programs typed otherwise, int32 and bool compute
+    ct_rows = _ct_small(sft, st, ct_small, lib_of, smi)
     # programs typed bfloat16 and float16 (K3c bf16's row comes from here)
     narrow_k3c = _narrow_small(sft, pn, ov, gp, st, narrow_cases, lib_of,
                                smi)
-    # K4 and K6 on programs typed bfloat16 and float16
+    # K4 and K6 on a program typed float16
     _nk_small(sft, st, tl, nk_setup["small"], lib_of, smi)
 
     # K6, masked and fast
@@ -4936,8 +4946,8 @@ def main() -> int:
         got = tl.run_tile(plan, arrays, lib_of[tl.tile_source(plan)])
         torch.cuda.synchronize()
         want = tl.tile_plain(plan, arrays)
-        rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
         n = tl.launches_by["exact"] - before
+        rtol = VERIFY_RTOL if _has_transcendental(p) else 0.0
         for o in p.outputs:
             ok, err = _compare(got[o].cpu().numpy(), want[o].cpu().numpy(),
                                rtol)
@@ -5232,7 +5242,7 @@ def main() -> int:
     del arrays
     torch.cuda.empty_cache()
 
-    for label, p, an, plan, src in group_plans[n_group3:]:
+    for label, p, an, plan, src in group_plans[len(group_cases):]:
         arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
                                 device="cuda")
         lib = lib_of[src]
@@ -5403,6 +5413,8 @@ def main() -> int:
                bf16_plain, f32_route, report, smi,
                (jacobi8, jacobi32, jacobi2d, box256))
     report.update(_compute_bf16_legs(sft, st, cbf_main, lib_of, smi))
+    report.update(_ct_legs(sft, st, ct_mains, lib_of, smi))
+    report.update(ct_rows)
     report.update(_narrow_legs(sft, pn, ov, gp, st, run_program,
                                narrow_mains, lib_of, smi))
     report["stream_spill_typed_bf16"] = narrow_k3c

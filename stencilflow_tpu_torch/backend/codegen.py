@@ -27,7 +27,11 @@ C types.  A narrow float (bfloat16, float16) is stored in 2 bytes
 (``ctype``): every site whose type is narrow computes in float and rounds
 its result once (``sf_bfr``, ``sf_hr``), as numpy and ml_dtypes do, a
 load widens exactly and a store converts an already rounded value; no
-native half arithmetic or ``__hfma`` is emitted.  Reads carry boundary conditions from global coordinates: an
+native half arithmetic or ``__hfma`` is emitted.  Under the stream
+kernel's compute type (``compute_dtype``) a stage is typed as jnp types
+it in the reference's 32-bit mode (``StageEmitter.expr_compute``) and
+converts as XLA converts (``cconv``; ``sf_xi32`` saturates float to
+int32).  Reads carry boundary conditions from global coordinates: an
 offset read whose target leaves the domain in any dim with a nonzero
 offset yields the fill value (constant, shrink) or the centre (copy).
 """
@@ -39,11 +43,13 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from .. import ir
-from ..dtypes import BFLOAT16, FLOAT16, is_floating, is_narrow, scalar
+from ..dtypes import (BFLOAT16, FLOAT16, dtype_to_str, is_floating, is_narrow,
+                      scalar)
 from ..frontend.analysis import ChainAnalysis
-from .promotion import (BF16, F32, bf16_join, const_dtype_of,
+from .promotion import (BOOL, F32, I32, canonical, compute_fill,
+                        compute_join, compute_pin, const_dtype_of,
                         const_type, fill_value, is_bool, is_float, is_weak,
-                        narrow_value, result_type, strong)
+                        result_type, static_input, strong, weak_value)
 from .stacked_io import THREADS, accesses_with_center, has_narrow
 
 _CT = {"float32": "float", "float64": "double", "int8": "int8_t",
@@ -265,6 +271,16 @@ SF_DEV float sf_d2hr(const double d) {
 """
 
 
+# XLA's float -> int32 convert (a stage's result stored under int32
+# compute): truncated, saturated, NaN to 0, as cvt.rzi.s32.f32 gives it;
+# emitted only into sources computing in int32 (_common)
+_XI32_MACRO = """SF_HD int32_t sf_xi32(const float v) {
+  return v != v ? 0 : v >= 2147483648.0f ? 2147483647
+      : v <= -2147483648.0f ? (-2147483647 - 1) : (int32_t)v;
+}
+"""
+
+
 # -- typed expression emitter --------------------------------------------------
 
 def conv(src: str, ty_from, ty_to) -> str:
@@ -292,15 +308,15 @@ def conv(src: str, ty_from, ty_to) -> str:
 
 class StageEmitter:
     """Emits one kernel's stage function (``compute``: computed in that
-    narrow type, BFLOAT16 or FLOAT16, the stream kernel's
-    ``compute_dtype``, ``expr_bf16``)."""
+    type, the stream kernel's ``compute_dtype``, ``expr_compute``)."""
 
     def __init__(self, program: ir.Program, kspec: ir.KernelSpec,
                  compute=None):
         self.program = program
         self.kspec = kspec
         self.compute = compute
-        self.pin = const_dtype_of(kspec)
+        self.pin = const_dtype_of(kspec) if compute is None else \
+            compute_pin(kspec)
         self.accesses: List[Tuple[str, ir.Offsets]] = [
             (f, offs) for f, lst in kspec.accesses().items()
             for offs in lst]
@@ -400,102 +416,145 @@ class StageEmitter:
             return (f"{_rnd(ty)}({v})" if is_narrow(ty) else v), ty
         raise TypeError(f"unknown expression node {type(e)}")
 
-    def expr_bf16(self, e: ir.Expr):
-        """``expr`` under a narrow compute (tile_eval ``eval_expr_bf16``'s
-        rule; promotion.py's ``BF16`` node is a value of the compute
-        type): array reads are compute-type values carried in float,
-        float32 scalars and float constants float32; a site of the
-        compute type computes in float and rounds its result (``sf_bfr``,
-        ``sf_hr``), a weak scalar meeting it is rounded to it here."""
-        rec = self.expr_bf16
-        cdt = self.compute
-
-        def cast(src, ty_from, ty_to):
-            if is_weak(ty_from):
-                v = narrow_value(ty_from[1], cdt) if ty_to == BF16 \
-                    else ty_from[1]
-                return literal(v, F32)
-            if is_bool(ty_from) and not is_bool(ty_to):
-                return f"((float)({src}))"
+    def cconv(self, src: str, ty_from, ty_to) -> str:
+        """C expression converting a value of node type ``ty_from`` to
+        ``ty_to`` under a compute type, as XLA converts
+        (``tile_eval.xla_convert``): a weak scalar as jnp converts it, to
+        bool ``!= 0``, a float to int32 saturated (``sf_xi32``), a float to
+        a narrow float rounded; a narrow value is carried in float, so
+        widening it to float32 is free."""
+        ty_to = np.dtype(ty_to)
+        if is_weak(ty_from):
+            return literal(weak_value(ty_from, ty_to), ty_to)
+        ty_from = np.dtype(ty_from)
+        if ty_from == ty_to:
             return src
+        if ty_to.kind == "b":
+            return f"(({src}) != 0)"
+        if is_floating(ty_to):
+            if is_floating(ty_from) and not is_narrow(ty_to):
+                return src
+            v = f"(({ctype(ty_to)})({src}))"
+            return f"{_rnd(ty_to)}({v[1:-1]})" if is_narrow(ty_to) else v
+        if is_floating(ty_from):
+            if ty_to != I32:
+                raise NotImplementedError(f"float to {ty_to} under a "
+                                          "compute type")
+            return f"sf_xi32((float)({src}))"
+        return f"(({ctype(ty_to)})({src}))"
 
-        def both(a, at, b, bt):
-            ty = bf16_join(at, bt)
-            return cast(a, at, ty), cast(b, bt, ty), ty
+    def expr_compute(self, e: ir.Expr):
+        """``expr`` under the compute type ``self.compute`` (tile_eval
+        ``eval_expr_compute``'s rule): array reads are values of it,
+        scalars of their own 32-bit type, float constants of the kernel's
+        pin; each site takes jnp's type (``compute_join``), a float site
+        computes in float and rounds its result where the type is narrow
+        (``sf_bfr``, ``sf_hr``), an integer one wraps, a bool ``+`` and
+        ``*`` are or and and."""
+        rec = self.expr_compute
+        cv = self.cconv
+
+        def weakless(ty):
+            return (F32 if ty[0] == "wf" else I32) if is_weak(ty) else ty
 
         def rnd(src, ty):
-            return f"{_rnd(cdt)}({src})" if ty == BF16 else src
+            return f"{_rnd(ty)}({src})" if is_narrow(ty) else src
         if isinstance(e, ir.Const):
-            v, ty = const_type(e.value, F32)
+            v, ty = const_type(e.value, self.pin)
             return (str(v) if is_weak(ty) else literal(v, ty)), ty
         if isinstance(e, ir.Ref):
             return self.env[e.name]
         if isinstance(e, ir.Access):
+            v = f"v{self.ids[(e.field, e.offsets)]}"
             spec = self.program.inputs.get(e.field)
-            return (f"v{self.ids[(e.field, e.offsets)]}",
-                    F32 if spec is not None and spec.is_scalar else BF16)
+            if spec is None or not spec.is_scalar:
+                return v, self.compute
+            dt = np.dtype(spec.dtype)
+            ty = canonical(dt)
+            return (v if ty == dt else f"(({ctype(ty)})({v}))"), ty
         if isinstance(e, ir.BinOp):
             (a, at), (b, bt) = rec(e.left), rec(e.right)
             if is_weak(at) and is_weak(bt):
                 return self.expr(e)
-            a, b, ty = both(a, at, b, bt)
+            ty = compute_join(at, bt)
+            if e.op == "div" and not is_floating(ty):
+                ty = F32   # jnp's true division of integers
+            a, b = cv(a, at, ty), cv(b, bt, ty)
             if is_bool(ty):
                 if e.op in ("add", "mult"):
                     op = "||" if e.op == "add" else "&&"
                     return f"(({a}) {op} ({b}))", ty
-                raise TypeError("numpy rejects bool - bool and bool / bool")
-            return rnd(f"(({a}) {_SYM[e.op]} ({b}))", ty), ty
+                raise TypeError("jnp rejects bool - bool")
+            if is_floating(ty):
+                return rnd(f"(({a}) {_SYM[e.op]} ({b}))", ty), ty
+            ut = _ut(ty)
+            return (f"(({ctype(ty)})(({ut})({a}) {_SYM[e.op]} "
+                    f"({ut})({b})))"), ty
         if isinstance(e, ir.UnaryOp):
             a, at = rec(e.operand)
             if is_weak(at):
                 return str(-at[1]), (at[0], -at[1])
             if is_bool(at):
-                raise TypeError("numpy rejects unary minus on bool")
-            return f"(-({a}))", at
+                raise TypeError("jnp rejects unary minus on bool")
+            if is_floating(at):
+                return f"(-({a}))", at
+            ut = _ut(at)
+            return f"(({ctype(at)})(({ut})0 - ({ut})({a})))", at
         if isinstance(e, ir.Compare):
             (a, at), (b, bt) = rec(e.left), rec(e.right)
-            a, b, _ty = both(a, at, b, bt)
-            return f"(({a}) {_CMP[e.op]} ({b}))", np.dtype(np.bool_)
+            ty = weakless(compute_join(at, bt))
+            return (f"(({cv(a, at, ty)}) {_CMP[e.op]} ({cv(b, bt, ty)}))",
+                    BOOL)
         if isinstance(e, ir.BoolOp):
             parts = [rec(o) for o in e.operands]
-            if not all(is_bool(t) for _s, t in parts):
-                raise NotImplementedError(
-                    "and/or of non-bool under bf16 compute")
+            ty = weakless(compute_join(*[t for _s, t in parts]))
+            if is_floating(ty):
+                raise TypeError("jnp rejects bitwise and/or on floats")
             op = " & " if e.op == "and" else " | "
-            return (f"((bool)({op.join(f'({x})' for x, _t in parts)}))",
-                    np.dtype(np.bool_))
+            joined = op.join(f"({cv(x, t, ty)})" for x, t in parts)
+            return f"(({ctype(ty)})({joined}))", ty
         if isinstance(e, ir.Select):
             c, ct = rec(e.cond)
             (t, tt), (f, ft) = rec(e.if_true), rec(e.if_false)
-            cond = c if is_bool(ct) else conv(c, ct, np.dtype(np.bool_)) \
-                if is_weak(ct) else f"(({c}) != 0)"
-            t, f, ty = both(t, tt, f, ft)
-            return f"(({cond}) ? ({t}) : ({f}))", ty
+            ty = weakless(compute_join(tt, ft))
+            return (f"(({cv(c, ct, BOOL)}) ? ({cv(t, tt, ty)}) : "
+                    f"({cv(f, ft, ty)}))"), ty
         if isinstance(e, ir.Call):
             args = [rec(a) for a in e.args]
             if e.fn in ("min", "max"):
                 (a, at), (b, bt) = args
-                a, b, ty = both(a, at, b, bt)
+                if is_weak(at) and is_weak(bt):
+                    v = (min if e.fn == "min" else max)(at[1], bt[1])
+                    return str(v), (at[0] if at[1] == v else bt[0], v)
+                ty = compute_join(at, bt)
+                a, b = cv(a, at, ty), cv(b, bt, ty)
                 if is_bool(ty):
-                    raise NotImplementedError(
-                        "min/max of bool under bf16 compute")
-                return f"sf_{e.fn}({a}, {b})", ty
+                    op = "&&" if e.fn == "min" else "||"
+                    return f"(({a}) {op} ({b}))", ty
+                if is_floating(ty):
+                    return f"sf_{e.fn}({a}, {b})", ty
+                return (f"(({ctype(ty)})sf_i{e.fn}((int64_t)({a}), "
+                        f"(int64_t)({b})))"), ty
             (a, at), = args
-            if is_weak(at) or is_bool(at):
-                if e.fn == "abs" and is_weak(at):
-                    return str(abs(at[1])), (at[0], abs(at[1]))
+            if is_weak(at):
                 if e.fn == "abs":
-                    return a, at
-                raise NotImplementedError(
-                    f"{e.fn} of a scalar literal under bf16 compute")
+                    return str(abs(at[1])), (at[0], abs(at[1]))
+                from .tile_eval import _weak_fold_call
+                v, ty = _weak_fold_call(e.fn, at)
+                return repr(v), ty
             if e.fn == "abs":
-                return f"sf_fabs({a})", at
-            return rnd(f"sf_{e.fn}({a})", at), at
+                if is_bool(at):
+                    return a, at
+                if is_floating(at):
+                    return f"sf_fabs({a})", at
+                return f"(({ctype(at)})sf_iabs32((int32_t)({a})))", at
+            ty = at if is_floating(at) else F32
+            return rnd(f"sf_{e.fn}({cv(a, at, ty)})", ty), ty
         raise TypeError(f"unknown expression node {type(e)}")
 
     def function(self, name: str) -> str:
         if self.compute is not None:
-            return self._function_bf16(name)
+            return self._function_compute(name)
         params = ", ".join(
             f"const {ctype(self.program.field_dtype(f))} v{i}"
             for i, (f, _) in enumerate(self.accesses)) or "void"
@@ -520,32 +579,47 @@ class StageEmitter:
         return (f"{qual} {ctype(kdt)} {name}({params}) {{\n"
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
 
-    def _function_bf16(self, name: str) -> str:
-        """The stage function under a narrow compute: float parameters
-        that hold values of the compute type, a float result rounded to
-        it."""
-        params = ", ".join(f"const float v{i}" for i in
-                           range(len(self.accesses))) or "void"
+    def _function_compute(self, name: str) -> str:
+        """The stage function under a compute type: array parameters of
+        its C type (float for a narrow one), scalars of their own, the
+        result converted to it (``cconv``)."""
+        cd = self.compute
+
+        def ptype(f):   # a scalar keeps its type, an array is of cd
+            spec = self.program.inputs.get(f)
+            return spec.dtype if spec is not None and spec.is_scalar else cd
+        params = ", ".join(f"const {ctype(ptype(f))} v{i}" for i, (f, _)
+                           in enumerate(self.accesses)) or "void"
         body, declared = [], {}
         for stmt in self.kspec.statements:
-            src, ty = self.expr_bf16(stmt.rhs)
+            src, ty = self.expr_compute(stmt.rhs)
             if is_weak(ty):
                 self.env[stmt.lhs] = (src, ty)
                 continue
             n = declared[stmt.lhs] = declared.get(stmt.lhs, 0) + 1
             var = f"t_{stmt.lhs}" + (f"__{n}" if n > 1 else "")
-            ct = "bool" if is_bool(ty) else "float"
-            body.append(f"  const {ct} {var} = {src};")
+            body.append(f"  const {ctype(ty)} {var} = {src};")
             self.env[stmt.lhs] = (var, ty)
         src, ty = self.env[self.kspec.output_statement.lhs]
-        if is_weak(ty):
-            out = literal(narrow_value(ty[1], self.compute), F32)
-        elif ty == BF16:
-            out = src
-        else:
-            out = f"{_rnd(self.compute)}((float)({src}))"
-        return (f"SF_DEV float {name}({params}) {{\n"
+        if is_weak(ty):   # jnp.asarray: int32 or float32, then the cast
+            base = F32 if ty[0] == "wf" else I32
+            src, ty = literal(weak_value(ty, base), base), base
+        out = self.cconv(src, ty, cd)
+        return (f"SF_DEV {ctype(cd)} {name}({params}) {{\n"
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
+
+
+def check_compute_types(program: ir.Program, compute) -> None:
+    """Raise TypeError, naming the kernel, where jnp rejects a site under
+    the compute type ``compute`` (bool minus, bitwise and/or of floats):
+    the JAX package raises there when it traces the kernel."""
+    for name, kspec in program.kernels.items():
+        try:
+            StageEmitter(program, kspec, compute).function("sf_check")
+        except TypeError as e:
+            raise TypeError(f"kernel {name!r} under compute_dtype "
+                            f"{dtype_to_str(np.dtype(compute))!r}: {e}"
+                            ) from None
 
 
 # -- reads with boundary conditions --------------------------------------------
@@ -577,8 +651,8 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     field at offset vector ``o`` (or None: read the global array
     ``g_<field>``, whose cell is at ``at_pos`` in an array spanning
     ``at_dims`` — ``pos`` and the program's dimensions unless a chunk's
-    local slab is read).  ``compute``: under a narrow compute the global
-    arrays hold that type and a constant BC's fill rounds to it."""
+    local slab is read).  ``compute``: under a compute type the global
+    arrays hold that type and a constant BC's fill is converted to it."""
     if field in program.inputs and program.inputs[field].is_scalar:
         return f"sc.x{scalar_slot[field]}"
     dims = program.dimensions
@@ -597,7 +671,7 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
         g = f"g_{field}[{_flat(mask, c, at_dims)}]"
         return (f"(({_inb(mask, c, at_dims)}) ? "
                 f"{load(dt if compute is None else compute, g)} : "
-                f"{literal(0, dt)})")
+                f"{literal(0, dt if compute is None else compute)})")
 
     val = at(offs)
     if not terms or not masked:
@@ -606,22 +680,29 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     bc = kspec.boundary_conditions.get(field)
     if bc is not None and bc.kind == ir.BCKind.COPY:
         return f"(({m}) ? {at((0, 0, 0))} : {val})"
-    fill = fill_value(bc, dt)
-    if compute is not None:
-        fill = np.float32(narrow_value(fill, compute))
-    return f"(({m}) ? {literal(fill, dt)} : {val})"
+    fill = literal(fill_value(bc, dt), dt) if compute is None else \
+        literal(compute_fill(bc, compute, static_input(program, field)),
+                compute)
+    return f"(({m}) ? {fill} : {val})"
 
 
 def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
                 at_dims=None, masked: bool = True,
                 compute=None) -> List[str]:
     em = StageEmitter(program, kspec)
-    lines = [f"const {ctype(program.field_dtype(f))} v{i} = "
+
+    def vtype(f):   # under a compute type an array is of it
+        if compute is None or (f in program.inputs
+                               and program.inputs[f].is_scalar):
+            return program.field_dtype(f)
+        return compute
+    lines = [f"const {ctype(vtype(f))} v{i} = "
              + read_expr(program, kspec, f, offs, pos, onchip(f), slots,
                          at_pos, at_dims, masked, compute) + ";"
              for i, (f, offs) in enumerate(em.accesses)]
     args = ", ".join(f"v{i}" for i in range(len(em.accesses)))
-    lines.append(f"const {ctype(kspec.dtype)} r = sf_stage_{idx}({args});")
+    rt = kspec.dtype if compute is None else compute
+    lines.append(f"const {ctype(rt)} r = sf_stage_{idx}({args});")
     return lines
 
 
@@ -629,8 +710,9 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
             compute=None):
     """(kernel order, prelude + scalar struct + one stage function per
     kernel not in ``skip``, scalar slots); ``compute``: stage functions
-    computed in that narrow type, after the stream kernel's and the
-    narrow macros they call; a program with a narrow field gets those
+    computed in that type, after the stream kernel's and the narrow
+    macros they call (and ``_XI32_MACRO`` under int32); a program with a
+    narrow field gets those
     macros (the bf16 ones, and the float16 ones, ``_HALF_MACROS``) and
     device-only stage functions."""
     order = analysis.graph.kernel_order
@@ -646,6 +728,8 @@ def _common(program: ir.Program, analysis: ChainAnalysis, skip=(),
         if compute is not None or narrow else ""
     if narrow or compute == FLOAT16:
         macros += _HALF_MACROS
+    if compute == I32:
+        macros += _XI32_MACRO
     return order, prelude() + macros + struct + "\n".join(funcs), slots
 
 
@@ -796,12 +880,16 @@ def _thread_origins(widths) -> List[str]:
             for w in widths]
 
 
-def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
+def _input_loads(program, plan, fields, t_expr: str, slot,
+                 atype=None) -> List[str]:
     """cp.async of plane ``t_expr`` of every ring input in ``fields`` into
     its ``slot(f)`` (synchronous stores for 1- and 2-byte types), zero
     beyond the (j, k) domain; the arrays' planes are (J, K) (a chunk's
     slabs too), or a shard's widened plane (PJ, PK), whose cell (0, 0)
-    is global (wj, wk), read where it holds the cell."""
+    is global (wj, wk), read where it holds the cell.  ``atype(f)``: the
+    type of input ``f``'s array (the stream kernel's ``StreamPlan.dtype``;
+    else the field's)."""
+    atype = atype or program.field_dtype
     _, J, K = program.dimensions
     sharded = bool(getattr(plan, "shard", (0, 0))[0])
     PJ, PK = plan.plane() if sharded else (J, K)
@@ -809,7 +897,7 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
     for f in fields:
         RJ, RK = plan.region(f)
         hj, hk = plan.halo[f]
-        size = np.dtype(program.field_dtype(f)).itemsize
+        size = np.dtype(atype(f)).itemsize
         cell = "(gj - wj) * {PK} + (gk - wk)" if sharded else "gj * {K} + gk"
         src = (f"g_{f} + (long long)({t_expr}) * {PJ * PK}LL + "
                f"(inb ? {cell.format(PK=PK, K=K)} : 0)")
@@ -825,7 +913,7 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
             st = f"sf_cp{size}({dst}, {src}, inb);"
         else:
             st = (f"*({dst}) = inb ? *({src}) : "
-                  f"{zero(program.field_dtype(f))};")
+                  f"{zero(atype(f))};")
         inb = f"gj >= 0 && gj < {J} && gk >= 0 && gk < {K}"
         if sharded:
             inb += (f" && gj - wj < {PJ} && gk - wk < {PK}")
@@ -835,11 +923,12 @@ def _input_loads(program, plan, fields, t_expr: str, slot) -> List[str]:
     return out
 
 
-def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
-                                                          List[str]]:
+def _ingest(program, plan, fields, planes: int,
+            atype=None) -> Tuple[List[str], List[str]]:
     """(prologue, the step's ingest) of K1's input planes: the prologue
     puts the first AHEAD planes in flight; step t issues plane t + AHEAD
-    into its own slot, then waits for plane t and a barrier."""
+    into its own slot, then waits for plane t and a barrier (``atype``:
+    ``_input_loads``)."""
     from .panel import AHEAD
     if not fields:
         return [], []
@@ -847,12 +936,13 @@ def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
     for a in range(min(AHEAD, planes)):
         pro += ["  " + y for y in _input_loads(
             program, plan, fields, str(a),
-            lambda f, a=a: str(a % plan.slots(f)))] + ["  SF_CP_COMMIT();"]
+            lambda f, a=a: str(a % plan.slots(f)), atype)] + [
+                "  SF_CP_COMMIT();"]
     step = ["    // plane t + AHEAD in flight, then wait for plane t",
             f"    if (t + {AHEAD} < {planes}) {{"]
     step += ["      " + y for y in _input_loads(
         program, plan, fields, f"t + {AHEAD}",
-        lambda f: _slot(plan, f, -AHEAD))]
+        lambda f: _slot(plan, f, -AHEAD), atype)]
     step += ["    }", "    SF_CP_COMMIT();", "    SF_CP_WAIT_AHEAD();"]
     for f in fields:
         if plan.rounded(f) and getattr(plan, "compute_narrow",
@@ -868,7 +958,7 @@ def _ingest(program, plan, fields, planes: int) -> Tuple[List[str],
 
 
 def _ring_reader(program, plan, s: str, RK: int, ptrs: Dict, xs: set,
-                 ringed):
+                 ringed, rtype=None):
     """``onchip`` of ``read_expr`` for stage ``s`` over rings ``ringed``:
     a read of field f at offset o is one load from the base ``b_f_d``
     (ring slot of plane delta d, set once per stage and step: ``ptrs``)
@@ -888,13 +978,14 @@ def _ring_reader(program, plan, s: str, RK: int, ptrs: Dict, xs: set,
             if FK != RK:
                 xs.add(FK)
             return _from_slot(program, plan, f, f"b_{f}_{d}[{x} + "
-                              f"{(dj + o[1]) * FK + dk + o[2]}]")
+                              f"{(dj + o[1]) * FK + dk + o[2]}]", rtype)
         return at
     return onchip
 
 
-def _ring_bases(program, plan, ptrs, ind: str) -> List[str]:
-    return [f"{ind}const {_slot_type(program, plan, f)}* const {name} = "
+def _ring_bases(program, plan, ptrs, ind: str, rtype=None) -> List[str]:
+    return [f"{ind}const {_slot_type(program, plan, f, rtype)}* const "
+            f"{name} = "
             f"r_{f} + {_slot(plan, f, d)} * {math.prod(plan.region(f))};"
             for (f, d), name in sorted(ptrs.items())]
 
@@ -1250,27 +1341,35 @@ def _bf16_macros(plan, program) -> List[str]:
     return [_BF16_MACROS] if uses and not has_narrow(program) else []
 
 
-def _slot_type(program, plan, f: str) -> str:
-    """C type of ring ``f``'s slots: the plan's 2-byte ``slot_dtype``
-    where it keeps 2-byte slots, else what ``f``'s type stores in."""
-    return stype(plan.slot_dtype if plan.narrow_slots(f)
-                 else program.field_dtype(f))
+def _ring_type(program, plan, f: str, rtype=None):
+    """The type ring ``f``'s slots hold: ``rtype(f)`` where the caller
+    gives it (the stream kernel's ``StreamPlan.ring_dtype``), else the
+    plan's 2-byte ``slot_dtype`` where it keeps 2-byte slots and the
+    field's type otherwise."""
+    if rtype is not None:
+        return rtype(f)
+    return plan.slot_dtype if plan.narrow_slots(f) else \
+        program.field_dtype(f)
 
 
-def _from_slot(program, plan, f: str, lv: str) -> str:
+def _slot_type(program, plan, f: str, rtype=None) -> str:
+    """C type of ring ``f``'s slots (``_ring_type``)."""
+    return stype(_ring_type(program, plan, f, rtype))
+
+
+def _from_slot(program, plan, f: str, lv: str, rtype=None) -> str:
     """A read of ring ``f``'s slot ``lv`` as its compute type."""
-    return load(plan.slot_dtype if plan.narrow_slots(f)
-                else program.field_dtype(f), lv)
+    return load(_ring_type(program, plan, f, rtype), lv)
 
 
-def _to_slot(program, plan, f: str, v: str) -> str:
+def _to_slot(program, plan, f: str, v: str, rtype=None) -> str:
     """Value ``v`` as ring ``f`` stores it: converted to the 2-byte
     ``slot_dtype``, rounded to it in an f32 slot (a rounded ring that
     keeps f32 slots), or as its type stores it."""
     if plan.narrow_slots(f):
         return store(plan.slot_dtype, v)
     return f"{_rnd(plan.slot_dtype)}({v})" if plan.rounded(f) else store(
-        program.field_dtype(f), v)
+        _ring_type(program, plan, f, rtype), v)
 
 
 def _param_names(params: str) -> str:
@@ -1553,20 +1652,20 @@ class _StreamEmitter:
         # single-pass bf16 band passes: both operands of every pass round
         # to bf16 (the pool's bands are bf16 already: linear.finalize_pool)
         self.bf = plan.mxu_precision == "bf16"
-        # a narrow compute: the arrays hold its type (None, or BFLOAT16 or
-        # FLOAT16), every stage's result rounds to it
+        # a compute type: the arrays hold it (``cd``; None: the program's
+        # types); a narrow one (``cbf``: BFLOAT16 or FLOAT16) rounds every
+        # stage's result
+        self.cd = plan.compute
         self.cbf = plan.compute_narrow
 
     def gread(self, g: str, f: str) -> str:
         """A value of field ``f``'s global array read at ``g`` as its
         compute type."""
-        return load(self.program.field_dtype(f) if self.cbf is None
-                    else self.cbf, g)
+        return load(self.plan.dtype(f), g)
 
     def out(self, v: str, s: str) -> str:
         """Value ``v`` as stage ``s``'s output array stores it."""
-        return store(self.program.kernels[s].dtype if self.cbf is None
-                     else self.cbf, v)
+        return store(self.plan.dtype(s), v)
 
     def opnd(self, x: str) -> str:
         """A band pass's source operand ``x`` (rounded to bf16 under
@@ -2035,7 +2134,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
          f"k0 >= {Hk} && k0 + {tk + Hk} <= {K};",
          "  (void)inner;"]
     for f in plan.raw_ring:
-        ct = _slot_type(program, plan, f)
+        ct = _slot_type(program, plan, f, plan.ring_dtype)
         at = off[f] if f in off else off["ring", f]
         L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {at});")
     for t in plan.tkeys:
@@ -2097,20 +2196,20 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
         tptrs: Dict[str, str] = {}
         xs = set()
         onchip = _ring_reader(program, plan, s, RK, ptrs, xs,
-                              plan.raw_ring)
+                              plan.raw_ring, plan.ring_dtype)
         bodies = []
         for masked in (False, True):
             if s in plan.mxu_plans:
                 body = em.banded(s, masked, onchip, tptrs, xs)
             else:
                 body = _stage_call(program, kspec, idx, pos, onchip, slots,
-                                   at_pos, em.adims, masked, em.cbf)
+                                   at_pos, em.adims, masked, em.cd)
             if s in plan.raw_ring:
-                rv = _to_slot(program, plan, s, "r")
+                rv = _to_slot(program, plan, s, "r", plan.ring_dtype)
                 if masked and s in sources:   # the passes read 0 beyond
                     body.append(f"w[p] = (gj >= 0 && gj < {J} && gk >= 0 "
                                 f"&& gk < {K}) ? {rv} : "
-                                f"{zero(program.field_dtype(s))};")
+                                f"{zero(plan.ring_dtype(s))};")
                 else:
                     body.append(f"w[p] = {rv};")
             if s in program.outputs:
@@ -2139,10 +2238,11 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
         step += [f"    {{  // phase: stage {s}: {RJ} x {RK}"] + guard(
             f"t - {plan.lag[s]}")
         if s in plan.raw_ring:
-            ct = _slot_type(program, plan, s)
+            ct = _slot_type(program, plan, s, plan.ring_dtype)
             step.append(f"        {ct}* const w = r_{s} + "
                         f"{_slot(plan, s, plan.lag[s])} * {RJ * RK};")
-        step += _ring_bases(program, plan, ptrs, "        ")
+        step += _ring_bases(program, plan, ptrs, "        ",
+                            plan.ring_dtype)
         step += [f"        const float* const {b} = {v};"
                  for b, v in sorted(tptrs.items())]
         gplane = "gq" if local else "q"
@@ -2154,7 +2254,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
     L += _thread_origins(widths)
     L += [f"  const int tr0_{c} = warp / {c}, tc0_{c} = warp - tr0_{c} * "
           f"{c};" for c in sorted(em.tiles)]
-    prologue, ingest = _ingest(program, plan, ring_inputs, Ii)
+    prologue, ingest = _ingest(program, plan, ring_inputs, Ii, plan.dtype)
     L += prologue
     if setup:
         L += ["  // the bands' copies, once a block"] + setup + \
@@ -2204,20 +2304,20 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     local = bool(plan.block)
     Ii, h, Ic = plan.extent(), plan.halo_i, plan.block
     kernel = "sf_local_stream" if local else "sf_stream"
-    cbf = plan.compute_narrow
+    cd = plan.compute
     order, head, slots = _common(program, analysis, skip=set(plan.mxu_plans),
-                                 compute=cbf)
+                                 compute=cd)
     tj, tk = plan.tile
     ntj, ntk = plan.grid()
     n_pool = len(plan.kernel_pool())
     spill = bool(plan.spilled)
     origin = 3 if plan.shard[0] else local
     params, args = _params(program, n_pool, origin=origin, spill=spill,
-                           compute=cbf)
+                           compute=cd)
     em = _StreamEmitter(program, plan, slots)
-    # a narrow compute: _common put the stream and narrow macros before
+    # a compute type: _common put the stream and narrow macros before
     # the stage functions, which call them
-    macros = [] if cbf is not None else [_STREAM_MACROS] + _bf16_macros(
+    macros = [] if cd is not None else [_STREAM_MACROS] + _bf16_macros(
         plan, program)
     if plan.packed:
         L = [head] + macros[:1] + [_SPILL_MACROS] + macros[1:] + \
@@ -2226,7 +2326,7 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
         L += _entry_points(program, kernel, params, args, (ntj, ntk),
                            plan.smem_bytes(), slots, n_pool, origin=origin,
                            spill_bytes=plan.spill_bytes() if spill else 0,
-                           compute=cbf)
+                           compute=cd)
         return "\n".join(L)
     body = _onchip_stream_body(program, plan, em, order, slots, kernel,
                                params)
@@ -2237,7 +2337,7 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
                        plan.smem_bytes(), slots, n_pool, origin=origin,
                        min_blocks=plan.min_blocks(), threads=plan.threads,
-                       compute=cbf)
+                       compute=cd)
     L += _occupancy(plan.smem_bytes(), plan.threads, kernel)
     return "\n".join(L)
 
@@ -2305,7 +2405,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
         L.append(f"  unsigned char* const sf_region = sf_spill + (long long)"
                  f"(by * {ntk} + bx) * {soffs['end']}LL;")
     for f in plan.raw_ring:
-        ct = _slot_type(program, plan, f)
+        ct = _slot_type(program, plan, f, plan.ring_dtype)
         if f in plan.spilled:
             L.append(f"  {ct}* const st_{f} = ({ct}*)(sf_smem + "
                      f"{lay.offset['stage', f]});")
@@ -2313,7 +2413,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
             off = lay.offset[f] if f in lay.offset else lay.offset["ring", f]
             L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {off});")
     for key, i in bar.items():
-        ct = _slot_type(program, plan, key[0])
+        ct = _slot_type(program, plan, key[0], plan.ring_dtype)
         L.append(f"  {ct}* const ld{i} = ({ct}*)(sf_smem + "
                  f"{lay.offset[('read',) + key]});")
     if lay.loads:
@@ -2387,7 +2487,7 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
                   f"gk = k0 - {hk} + kl;",
                   f"        {dst} = " + _to_slot(
                       program, plan, f, f"({inb}) ? {src} : "
-                      f"{literal(0, program.field_dtype(f))}") + ";",
+                      f"{literal(0, plan.dtype(f))}", plan.ring_dtype) + ";",
                   "      }"]
         L.append("    }")
     L += close
@@ -2410,22 +2510,24 @@ def _packed_stream_body(program, plan, em, order, slots, kernel: str,
                 return lambda o: _from_slot(
                     program, plan, f, f"r_{f}[((q + {o[0]} + {D}) % {D}) * "
                     f"{fj * fk} + (jl + {dj + o[1]}) * {fk} + "
-                    f"kl + {dk + o[2]}]")
+                    f"kl + {dk + o[2]}]", plan.ring_dtype)
 
             def at(o):
                 d = plan.lag[s] - o[0]
                 buf = f"st_{f}" if d == plan.lag[f] else f"ld{bar[f, d]}"
                 return _from_slot(program, plan, f, f"{buf}[(jl + "
-                                  f"{dj + o[1]}) * {fk} + kl + {dk + o[2]}]")
+                                  f"{dj + o[1]}) * {fk} + kl + {dk + o[2]}]",
+                                  plan.ring_dtype)
             return at
 
         body = _stage_call(program, kspec, idx, pos, onchip, slots, at_pos,
-                           em.adims, compute=em.cbf)
+                           em.adims, compute=em.cd)
         if s in plan.spilled:
-            body.append(f"st_{s}[p] = {_to_slot(program, plan, s, 'r')};")
+            body.append(f"st_{s}[p] = "
+                        f"{_to_slot(program, plan, s, 'r', plan.ring_dtype)};")
         elif s in plan.raw_ring:
             body.append(f"r_{s}[(q % {plan.raw_ring[s]}) * {RJ * RK} + p] "
-                        f"= {_to_slot(program, plan, s, 'r')};")
+                        f"= {_to_slot(program, plan, s, 'r', plan.ring_dtype)};")
         if s in program.outputs:
             core = f"q >= {h} && q < {h + Ic} && " if local else ""
             qo = f"(q - {h})" if local else "q"

@@ -26,12 +26,13 @@ type at ``np.where`` (TypeError, as ``np.result_type`` refuses it).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
 
 from .. import ir
-from ..dtypes import BFLOAT16, FLOAT16, dtype_to_str, is_floating, scalar
+from ..dtypes import BFLOAT16, FLOAT16, is_floating, scalar
 
 WEAK_INT, WEAK_FLOAT = "wi", "wf"
 
@@ -47,7 +48,7 @@ def is_float(ty) -> bool:
 
 
 def is_bool(ty) -> bool:
-    return not is_weak(ty) and ty != BF16 and np.dtype(ty).kind == "b"
+    return not is_weak(ty) and np.dtype(ty).kind == "b"
 
 
 def weak(value) -> tuple:
@@ -135,54 +136,167 @@ def fill_value(bc, dtype) -> np.generic:
                       constant_values=v)[0]
 
 
-# -- a narrow compute (the stream kernel's compute_dtype "bfloat16" or
-#    "float16") ------------------------------------------------------------
+# -- a compute type (the stream kernel's ``compute_dtype``) -----------------
 #
 # The JAX package casts every array input to the compute type before the
-# kernel and evaluates each stage with jnp on those arrays: an op of two
-# values of that type rounds its result to it after every operation, a
-# Python scalar (weak) is converted to it first, a float32 scalar input or
-# a float constant (pinned to np.float32, a strong type) promotes the site
-# to float32, and the stage result rounds to the compute type at its
-# store.  Node types here: ``BF16`` (an f32 value that holds a value of
-# the compute type, bf16 or f16), float32, bool, and weak scalars.
+# kernel (scalars keep their own type), evaluates each stage with jnp on
+# those arrays in its default 32-bit mode, casts each stage's result to
+# the compute type at its store and the outputs to their kernel types
+# at the end.  jnp types a site by its own lattice, not numpy's: a value
+# of the compute type meeting a Python integer (weak) keeps its type, a
+# float constant (pinned to its kernel's type, ``compute_pin``) or a
+# float scalar input is strong, bool meets anything as that type, an
+# integer meets a float as that float (the framework's mixed rule agrees),
+# bfloat16 meets float16 as float32, and integer true division gives
+# float32.  Conversions are XLA's: float to integer truncates, saturates
+# and sends NaN to 0, anything to bool is ``!= 0``.
 
-BF16 = "bf16"
 F32 = np.dtype(np.float32)
+I32 = np.dtype(np.int32)
+BOOL = np.dtype(np.bool_)
+
+# the compute types the port computes in, by their canonical names
+COMPUTE_TYPES = {"float32": F32, "bfloat16": BFLOAT16, "float16": FLOAT16,
+                 "int32": I32, "bool": BOOL}
+
+# jax.dtypes.canonicalize_dtype under the JAX package's default 32-bit mode
+_CANONICAL = {np.dtype(np.float64): F32, np.dtype(np.int64): I32,
+              np.dtype(np.uint64): np.dtype(np.uint32)}
 
 
-def bf16_join(*tys):
-    """Result type of a site under bf16 compute: float32 wins over bf16,
-    bf16 over weak scalars and bool (the framework's mixed rule), bool
-    with bool stays bool.  Raises NotImplementedError elsewhere."""
-    if F32 in tys:
-        return F32
-    if BF16 in tys:
-        return BF16
-    if all(not is_weak(t) and np.dtype(t) == np.bool_ for t in tys):
-        return np.dtype(np.bool_)
-    raise NotImplementedError(
-        f"a site of types {tys} under bf16 compute")
+def canonical_name(name: str) -> str:
+    """A compute type's name as the JAX package's 32-bit mode names it."""
+    return {a.name: b.name for a, b in _CANONICAL.items()}.get(name, name)
 
 
-def narrow_value(value, dtype) -> float:
-    """``value`` as float32, rounded to the narrow ``dtype`` (BFLOAT16 or
-    FLOAT16; to nearest, ties to even), as a weak scalar or a BC's fill
-    meets an array of that type under a narrow compute."""
-    return float(scalar(np.float32(value), dtype))
+def canonical(dt) -> np.dtype:
+    """``dt`` as the JAX package's 32-bit mode holds it."""
+    dt = np.dtype(dt)
+    return _CANONICAL.get(dt, dt)
 
 
-def check_compute_program(program: ir.Program, name: str) -> None:
-    """A ``compute_dtype`` (``name``) is ported for float32 programs:
-    every input (scalars too) and every kernel float32.  The JAX package
-    casts the arrays of any other program to it (an int, float64 or
-    narrow field, and float32 compute of a non-float32 program): still to
-    port, NotImplementedError naming ROADMAP Queue 1 item 11."""
-    for f in list(program.inputs) + list(program.kernels):
-        dt = np.dtype(program.field_dtype(f))
-        if dt != np.float32:
+def compute_pin(kspec: ir.KernelSpec) -> np.dtype:
+    """The strong type of a kernel's float constants under a compute
+    type: ``const_dtype_of`` canonicalised (a float64 kernel's pin is a
+    float32 in 32-bit mode)."""
+    return canonical(const_dtype_of(kspec))
+
+
+def _join2(a: np.dtype, b: np.dtype) -> np.dtype:
+    if a == b or b.kind == "b":
+        return a
+    if a.kind == "b":
+        return b
+    fa, fb = is_floating(a), is_floating(b)
+    if fa != fb:
+        return a if fa else b
+    if fa:   # bf16 and f16 meet in float32, either meets float32 there
+        return a if a.itemsize > b.itemsize else b if b.itemsize > \
+            a.itemsize else F32
+    return canonical(np.promote_types(a, b))
+
+
+def compute_join(*tys):
+    """Type of a site of operands ``tys`` under a compute type (jnp's
+    lattice in 32-bit mode); weak with weak gives a weak type, which the
+    caller folds.  A weak Python integer meeting bool gives int32, a weak
+    float meeting an integer or bool float32 (jnp's weakly typed results,
+    kept strong here)."""
+    strongs = [np.dtype(t) for t in tys if not is_weak(t)]
+    weaks = [t for t in tys if is_weak(t)]
+    if not strongs:
+        return result_type(*weaks)
+    ty = strongs[0]
+    for t in strongs[1:]:
+        ty = _join2(ty, t)
+    if weaks and not is_floating(ty):
+        if any(w[0] == WEAK_FLOAT for w in weaks):
+            return F32
+        if ty.kind == "b":
+            return I32
+    return ty
+
+
+def weak_value(ty, to: np.dtype):
+    """The weak scalar ``ty`` converted to ``to`` as jnp converts a Python
+    scalar meeting an array of that type (a float through float32) — a
+    numpy scalar of ``to`` (for bf16 the float32 scalar of its value)."""
+    to = np.dtype(to)
+    v = ty[1]
+    if to.kind == "b":
+        return np.bool_(v != 0)
+    if is_floating(to):
+        return scalar(np.float32(v), to)
+    with np.errstate(over="ignore", invalid="ignore"):
+        return to.type(int(v))
+
+
+def xla_convert_scalar(value, frm: np.dtype, to: np.dtype):
+    """One value of ``frm`` converted to ``to`` as XLA converts it: to
+    bool ``!= 0``, from bool 0 or 1, float to integer truncated and
+    saturated with NaN at 0, integer to integer wrapped, to a narrow
+    float through float32 (``scalar``)."""
+    frm, to = np.dtype(frm), np.dtype(to)
+    if to.kind == "b":
+        return np.bool_(float(value) != 0 if is_floating(frm)
+                        else int(value) != 0)
+    if frm.kind == "b":
+        return scalar(int(bool(value)), to)
+    if is_floating(to):
+        return scalar(np.float32(value), to)
+    info = np.iinfo(to)
+    if is_floating(frm):
+        v = float(value)
+        if v != v:
+            return to.type(0)
+        return to.type(int(min(max(math.trunc(v) if math.isfinite(v)
+                                   else v, info.min), info.max)))
+    return np.array(int(value)).astype(np.int64).astype(to)[()]
+
+
+def static_input(program: ir.Program, f: str) -> bool:
+    """Is ``f`` an array input that does not span i (the JAX package's
+    stream kernel holds its plane whole, of the compute type)?"""
+    spec = program.inputs.get(f)
+    return spec is not None and not spec.is_scalar and not spec.dim_mask[0]
+
+
+def compute_fill(bc, compute: np.dtype, static: bool = False):
+    """The value an out-of-domain read yields under a constant or shrink
+    BC when the field's planes are of ``compute``: the fill converted to
+    that type, a float through float32.  Under bool compute the JAX
+    package's rings carry bool as 0/1 int32, so a ring field's fill
+    reaches bool through int32 first (0.5 gives False); a ``static``
+    input (an array that does not span i) keeps bool planes, and its fill
+    is cast directly (0.5 gives True)."""
+    compute = np.dtype(compute)
+    if compute.kind == "b":
+        return np.bool_(fill_value(bc, BOOL if static else I32) != 0)
+    if is_floating(compute):   # a float fill rounds through float32
+        with np.errstate(over="ignore"):
+            return scalar(fill_value(bc, F32), compute)
+    return fill_value(bc, compute)
+
+
+def check_compute_program(program: ir.Program, name: str):
+    """The type ``compute_dtype`` ``name`` computes in, or None where it
+    changes nothing: float32 on a program whose arrays and kernels are
+    all float32 (scalars keep their own type either way).  Raises
+    NotImplementedError for a type outside ``COMPUTE_TYPES`` and for a
+    scalar input whose type the port does not carry (unsigned)."""
+    if name not in COMPUTE_TYPES:
+        raise NotImplementedError(
+            f"compute_dtype {name!r}: the port's stream kernel computes in "
+            f"{', '.join(COMPUTE_TYPES)} (float64 and int64 as their "
+            "32-bit types); the JAX package also takes the narrower "
+            "integer types")
+    for n, spec in program.inputs.items():
+        if spec.is_scalar and canonical(spec.dtype).kind == "u":
             raise NotImplementedError(
-                f"compute_dtype={name!r} of a program with a "
-                f"{dtype_to_str(dt)} field ({f!r}): the JAX package casts "
-                "its arrays to the compute type; the port computes "
-                "float32 programs only (ROADMAP Queue 1 item 11)")
+                f"compute_dtype={name!r} with the unsigned scalar {n!r}")
+    fields = [n for n, s in program.inputs.items() if not s.is_scalar]
+    if name == "float32" and all(
+            np.dtype(program.field_dtype(f)) == F32
+            for f in fields + list(program.kernels)):
+        return None
+    return COMPUTE_TYPES[name]

@@ -236,17 +236,14 @@ def has_narrow(program: ir.Program) -> bool:
 
 
 def launch_mode(program: ir.Program, rounds: bool = False,
-                place: str = "", compute=None) -> str:
+                place: str = "") -> str:
     """The key a launch counts under in its kernel module's
-    ``launches_by`` (a ``collections.Counter``): "compute_bf16" or
-    "compute_f16" under the stream kernel's ``compute`` ("bfloat16",
-    "float16"); else ``place`` (the stream kernel's
-    "spill", "local" or "shard"; "" for the whole domain on chip) joined
-    with "narrow" for a program with a bfloat16 or float16 field, or
-    "bf16" where the plan rounds (a ring, an output or its band operands
-    to bf16); "exact" where neither applies."""
-    if compute:
-        return "compute_" + {"bfloat16": "bf16", "float16": "f16"}[compute]
+    ``launches_by`` (a ``collections.Counter``): ``place`` (the stream
+    kernel's "spill", "local" or "shard"; "" for the whole domain on
+    chip) joined with "narrow" for a program with a bfloat16 or float16
+    field, or "bf16" where the plan rounds (a ring, an output or its band
+    operands to bf16); "exact" where neither applies.  (The stream
+    kernel counts a plan under a compute type by ``stream.compute_key``.)"""
     kind = "narrow" if has_narrow(program) else "bf16" if rounds else ""
     return "_".join(k for k in (place, kind) if k) or "exact"
 

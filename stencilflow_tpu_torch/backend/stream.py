@@ -206,27 +206,39 @@ apart (``reduced``), under the ``launches_by`` keys "bf16", "spill_bf16"
 on the spill rung, "local_bf16" for K4 on a chunk or a segment and
 "shard_bf16" for K4 on a shard.
 
-bf16 compute (``compile_chain_stream(compute_dtype="bfloat16")``, the
-reference's ``compute_dtype``; float32 programs): the wrapper casts the
-array inputs to bf16 before the kernel and its bf16 outputs back to
-float32 after it, as the reference's ``astype`` does.  Every ring keeps
-bf16 slots (a band pass's source: f32 slots holding bf16 values) and
-the plan sizes rings, staging planes, spill slots and ``pack_layout``
-at 2 bytes a cell.  A per-cell stage computes each operation in f32 on
-bf16 values and rounds its result to bf16 (``sf_bfr``) after every
-operation, with no FMA contraction, which equals jnp on bf16 arrays when
-XLA rounds each operation (a float32 scalar input or float constant
-promotes a site to f32, a Python literal meeting bf16 is rounded to bf16
-first, a constant BC's fill is bf16; promotion.py ``bf16_join``).  A
-banded stage reads its bf16 operands through the split route's f32 band
-passes (a bf16 operand's TF32 lo part is 0: the three products are the
-reference's hi and lo band products to f32 rounding) and rounds its
-result.  Launches count in ``launches_by["compute_bf16"]``.  On the H100 it is
-slower than f32 (every operation carries a rounding, and bf16 inputs load
-synchronously, not by ``cp.async``): PERF.md.  ``compute_dtype="float16"``
-is the same in float16 (``StreamPlan.compute_narrow``, ``slot_dtype``;
-``sf_hr``; a float16 operand's TF32 lo part is 0 too), counted in
-``launches_by["compute_f16"]``.
+A compute type (``compile_chain_stream(compute_dtype=T)``, the
+reference's ``compute_dtype``; T float32, bfloat16, float16, int32 or
+bool, float64 and int64 as their 32-bit types): the wrapper casts the
+array inputs to T before the kernel (scalars keep their own type) and
+its outputs of T to their kernel types after it, as the reference's
+``astype`` does, with XLA's conversions (``tile_eval.xla_convert``: float
+to int32 truncated and saturated, NaN to 0; anything to bool ``!= 0``).
+Every ring keeps slots of T (a band pass's source under a narrow T: f32
+slots holding its values) and the plan sizes rings, staging planes,
+spill slots and ``pack_layout`` at T's bytes (``StreamPlan.compute``,
+``dtype``, ``itemsize``).  A per-cell stage types each site as jnp does
+in the reference's 32-bit mode (``promotion.compute_join``: a float
+constant is pinned to its kernel's type, an int32 scalar meeting bf16
+gives bf16, bf16 meeting f16 float32, integer true division float32); a
+narrow float site computes in f32 and rounds its result (``sf_bfr``,
+``sf_hr``) after every operation, with no FMA contraction, which equals
+jnp when XLA rounds each operation; an int32 site wraps, a bool ``+``
+and ``*`` are or and and; the stage's result is converted to T at its
+store.  Where jnp rejects a site (bool minus) the plan raises TypeError.
+A banded stage reads its bf16 or f16 operands through the split route's
+f32 band passes (a narrow operand's TF32 lo part is 0: the three
+products are the reference's hi and lo band products to f32 rounding)
+and rounds its result; under int32 and bool every stage stays per cell
+(ROADMAP Queue 3).  ``ring_storage`` is dropped under a T narrower than
+4 bytes; under float32 compute of a program typed otherwise its f32
+rings round as on a float32 program, under int32 none does.  Launches
+count under ``compute_key``: "compute_bf16", "compute_f16",
+"compute_i32" and "compute_bool" on float32 programs, with "_typed"
+(and "compute_f32_typed") on programs with an array or a stage of
+another type, each with "spill_" before it on the spill rung (K3c).  On
+the H100 bf16 compute is slower than f32 (every operation carries a
+rounding, and bf16 inputs load synchronously, not by ``cp.async``):
+PERF.md.
 
 Programs typed bfloat16 or float16 run in every mode, K4's included:
 2-byte arrays, rings and staging planes (``codegen.stype``), every op in
@@ -250,7 +262,7 @@ from ..config import (H100_ASYNC_COPY_SHARE, H100_COPY_FLOOR,
                       H100_PANEL_CELL_RATE, H100_SM_COUNT,
                       H100_SMEM_PER_BLOCK, H100_SMEM_PER_SM,
                       H100_STREAM_CELL_RATE)
-from ..dtypes import BFLOAT16, FLOAT16, to_torch_dtype
+from ..dtypes import BFLOAT16, FLOAT16, is_floating, to_torch_dtype
 from ..frontend.analysis import ChainAnalysis
 from . import build, codegen
 from .compose import ComposedPlan, compose_program, plan_composed
@@ -263,7 +275,9 @@ from .stacked_io import (SPILL_BYTES_CAP, THREADS, accesses_with_center,
                          bc_select, check_ring_storage, check_scope,
                          launch_mode, or_mask, place_by_phase, resolve_device,
                          round_bf16, rounded_rings, run_kernel, spanned_arrays)
-from .tile_eval import eval_kernel_statements
+from .promotion import compute_fill, static_input
+from .tile_eval import (carrier, device_const, eval_kernel_statements,
+                        from_compute, round_to, to_compute)
 
 # kernel launches (CUDA tensors only) by mode (``_mode``,
 # stacked_io.launch_mode): "exact" (the whole-domain stream kernel, K3),
@@ -271,14 +285,14 @@ from .tile_eval import eval_kernel_statements
 # rings, K3c), "shard" (K4 on one shard of a mesh: any plan in shard
 # mode); each with "_bf16" under a reduced precision (bf16 rings,
 # single-pass bf16 passes: "bf16", "spill_bf16", "local_bf16",
-# "shard_bf16"); "compute_bf16" and "compute_f16" for every launch of a
-# plan that computes in bf16 or f16 (compute_dtype); "narrow",
+# "shard_bf16"); "compute_" and the type's short name for every launch of
+# a plan under a compute type (``compute_key``: "compute_bf16",
+# "compute_f16", "compute_i32", "compute_bool", with "_typed" on a
+# program of other types, "compute_f32_typed" too, and "spill_" before
+# each on the spill rung: "spill_compute_bf16", ...); "narrow",
 # "spill_narrow", "local_narrow" and "shard_narrow" for a program typed
 # bfloat16 or float16
 launches_by = collections.Counter()
-
-# the narrow compute types (compute_dtype) and their storage
-COMPUTE_NARROW = {"bfloat16": BFLOAT16, "float16": FLOAT16}
 
 # the JAX package's gate for banded stages (compile_chain_stream's
 # mxu_min_footprint default)
@@ -415,12 +429,16 @@ class StreamPlan:
     # ring input keeps f32 slots rounded in place once cp.async lands them
     # on chip, and bf16 slots on the spill rung, which loads it itself
     ring_storage: str = "off"
-    # compute_dtype="bfloat16" (the reference's reduced-precision
-    # compute): inputs arrive as bf16 arrays, every stage computes in
-    # bf16 (per-cell stages round after every operation, banded stages
-    # round their result), every ring keeps bf16 slots (a band pass's
-    # source: f32 slots holding bf16 values) and outputs leave as bf16
+    # compute_dtype: the reference's compute type, by its canonical name
+    # ("float32" where none was given); ``compute``: the numpy type every
+    # stage computes in where that is not the program's own
+    # (``promotion.check_compute_program``; None otherwise).  Under it
+    # inputs arrive cast to it, every ring and staging plane holds it (a
+    # band pass's source: f32 slots holding its values), a float stage
+    # rounds after every operation (a banded one its result), and
+    # outputs leave in it, for the wrapper to cast to their kernel types
     compute_dtype: str = "float32"
+    compute: Optional[np.dtype] = None
 
     @staticmethod
     def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
@@ -556,9 +574,18 @@ class StreamPlan:
 
     @property
     def compute_narrow(self):
-        """The narrow type every stage computes in (``compute_dtype``
-        "bfloat16" or "float16"), or None."""
-        return COMPUTE_NARROW.get(self.compute_dtype)
+        """The narrow type every stage computes in (``compute`` bfloat16
+        or float16), or None."""
+        cd = self.compute
+        return cd if cd is not None and cd in (BFLOAT16, FLOAT16) else None
+
+    def dtype(self, f: str) -> np.dtype:
+        """The type of field ``f``'s planes in the kernel: the compute type
+        for an array or a stage under one, else the field's own."""
+        spec = self.program.inputs.get(f)
+        if self.compute is not None and (spec is None or not spec.is_scalar):
+            return self.compute
+        return np.dtype(self.program.field_dtype(f))
 
     @property
     def slot_dtype(self):
@@ -572,6 +599,10 @@ class StreamPlan:
     def rounds(self) -> frozenset:
         if self.compute_narrow is not None:   # every ring, inputs too
             return frozenset(self.raw_ring)
+        if self.compute is not None:   # the rings whose planes are f32
+            return frozenset(f for f in self.raw_ring if f in self.ring
+                             and self.ring_storage != "off"
+                             and self.dtype(f) == np.float32)
         return rounded_rings(self.program, [f for f in self.raw_ring
                                             if f in self.ring],
                              self.ring_storage)
@@ -596,7 +627,7 @@ class StreamPlan:
         unrounded.  Under a narrow compute every output leaves in it."""
         if self.compute_narrow is not None:
             return frozenset(self.program.outputs)
-        if not self.halo_i:
+        if not self.halo_i or self.compute is not None:
             return frozenset()
         return rounded_rings(self.program, self.program.outputs,
                              self.ring_storage)
@@ -608,16 +639,25 @@ class StreamPlan:
                      or f not in self.program.inputs)
                 and all(t[0] != f for t in self.tkeys))
 
+    def ring_dtype(self, f: str) -> np.dtype:
+        """The type ring ``f``'s slots hold: ``slot_dtype`` where it keeps
+        2-byte slots, float32 for the other rings under a narrow compute
+        (a band pass's source, holding its values), else its planes'
+        type (``dtype``)."""
+        if self.narrow_slots(f):
+            return self.slot_dtype
+        if self.compute_narrow is not None:
+            return np.dtype(np.float32)
+        return self.dtype(f)
+
     def itemsize(self, f: str) -> int:
-        """Bytes of a cell of ring ``f``'s slots."""
-        return 2 if self.narrow_slots(f) else np.dtype(
-            self.program.field_dtype(f)).itemsize
+        """Bytes of a cell of ring ``f``'s slots (``ring_dtype``)."""
+        return self.ring_dtype(f).itemsize
 
     def io_itemsize(self, f: str) -> int:
-        """Bytes of a cell of input or output ``f`` in device memory (2
-        under a narrow compute)."""
-        return 2 if self.compute_narrow is not None else np.dtype(
-            self.program.field_dtype(f)).itemsize
+        """Bytes of a cell of input or output ``f`` in device memory (the
+        compute type's under a compute type)."""
+        return self.dtype(f).itemsize
 
     def ring_bytes(self, f: str) -> int:
         """Bytes of field ``f``'s raw ring, rounded up to 16."""
@@ -1293,7 +1333,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                 shard: Tuple[int, int] = (0, 0),
                 xhalo: Tuple[int, int] = (0, 0),
                 contexts=None, ring_storage: str = "off",
-                compute_dtype: str = "float32") -> StreamPlan:
+                compute_dtype: str = "float32", compute=None) -> StreamPlan:
     dims = program.dimensions
     I, J, K = dims
     # the plane the pool's matrices span: a shard's widened core, or the
@@ -1380,7 +1420,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                       mxu_precision=mxu_precision, passes=passes,
                       shard=tuple(shard), xhalo=tuple(xhalo),
                       contexts=contexts, ring_storage=ring_storage,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, compute=compute)
     for f in onchip:   # a sharded dim's reads stay in the exchanged halo
         if any(halo[f][d] > xhalo[d] for d in range(2)
                if shard[0] and shard[d] < dims[1 + d]):
@@ -1475,36 +1515,44 @@ def check_passes(passes: str, mxu_precision: str) -> None:
                          "mxu_precision='split' or 'bf16'")
 
 
-# the JAX package's jax.dtypes.canonicalize_dtype under its default
-# 32-bit mode
-_CANONICAL = {"float64": "float32", "int64": "int32", "uint64": "uint32"}
-
-
 def check_compute_dtype(program: ir.Program, compute_dtype,
-                        ring_storage: str) -> Tuple[str, str]:
-    """(compute dtype, ring storage) as the plan takes them, its name
-    canonicalised as the JAX package's default 32-bit mode does (float64
-    computes in float32): None computes in the program's types, and so
-    does float32 on a float32 program; bfloat16 and float16 compute every
-    stage in that type and drop ``ring_storage``, as the JAX package does
-    when the compute is already reduced.  Integer and bool types, and a
-    compute type on a program with a field that is not float32
-    (``promotion.check_compute_program``), raise NotImplementedError
-    (ROADMAP Queue 1 item 11)."""
+                        ring_storage: str
+                        ) -> Tuple[str, str, Optional[np.dtype]]:
+    """(compute dtype, ring storage, compute type) as the plan takes them:
+    the name canonicalised as the JAX package's default 32-bit mode does
+    (float64 computes in float32, int64 in int32); the type every stage
+    computes in where it is not the program's own, None otherwise
+    (``promotion.check_compute_program``: None computes in the program's
+    types, and so does float32 on a program of float32 arrays).
+    ``ring_storage`` is dropped under a type narrower than 4 bytes, as the
+    JAX package drops it; under int32 it rounds nothing."""
     if compute_dtype is None:
-        return "float32", ring_storage
+        return "float32", ring_storage, None
     name = (str(compute_dtype).replace("torch.", "")
             if isinstance(compute_dtype, (str, torch.dtype))
             else np.dtype(compute_dtype).name)
-    name = _CANONICAL.get(name, name)
-    if name not in ("float32",) + tuple(COMPUTE_NARROW):
-        raise NotImplementedError(
-            f"compute_dtype {name!r}: the stream kernel computes in "
-            "float32, bfloat16 or float16 (integer and bool compute types: "
-            "ROADMAP Queue 1 item 11)")
-    from .promotion import check_compute_program
-    check_compute_program(program, name)
-    return name, ring_storage if name == "float32" else "off"
+    from .promotion import canonical_name, check_compute_program
+    name = canonical_name(name)
+    compute = check_compute_program(program, name)
+    if compute is not None and compute.itemsize < 4:
+        ring_storage = "off"
+    return name, ring_storage, compute
+
+
+def compute_key(plan: "StreamPlan") -> str:
+    """The ``launches_by`` key of a plan under a compute type: its place
+    as ``launch_mode`` names it ("spill" for the spill rung, K3c; nothing
+    for K3a and K3b), then "compute_" and the type's short name ("bf16",
+    "f16", "f32", "i32", "bool"), then "_typed" where the program has an
+    array or a stage that is not float32 (the JAX package casts it)."""
+    short = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+             "int32": "i32", "bool": "bool"}[plan.compute_dtype]
+    program = plan.program
+    typed = any(np.dtype(program.field_dtype(f)) != np.float32
+                for f in list(program.kernels) + [
+                    n for n, s in program.inputs.items() if not s.is_scalar])
+    return "_".join(k for k in (_place(plan), "compute_" + short) if k) \
+        + ("_typed" if typed else "")
 
 
 def check_options(mxu: str, mxu_precision: str) -> None:
@@ -1612,20 +1660,29 @@ def plan_stream(program: ir.Program, analysis: Optional[ChainAnalysis] = None,
     width, ``StreamPlan.route``) and ``threads`` a block's threads (256
     or 512; by default the tile rule's pick).  ``ring_storage``
     ("bfloat16") rounds the f32 rings to bf16 at their store, so that
-    they take half the bytes.  ``compute_dtype`` ("bfloat16") computes
-    every stage in bf16 on bf16 inputs, rings and outputs
-    (``check_compute_dtype``).  Raises ValueError / NotImplementedError
-    when the program is out of scope (nothing is built)."""
+    they take half the bytes.  ``compute_dtype`` computes every stage in
+    that type on inputs, rings and outputs of it (``check_compute_dtype``;
+    int32 and bool with every stage per cell).  Raises ValueError /
+    NotImplementedError when the program is out of scope, TypeError where
+    jnp rejects a site under the compute type (nothing is built)."""
     analysis = analysis or ChainAnalysis.run(program)
     check_scope(program)
     check_options(mxu, mxu_precision)
     check_spill(spill)
     check_passes(passes, mxu_precision)
     check_ring_storage(ring_storage)
-    compute_dtype, ring_storage = check_compute_dtype(program, compute_dtype,
-                                                      ring_storage)
+    compute_dtype, ring_storage, compute = check_compute_dtype(
+        program, compute_dtype, ring_storage)
+    if compute is not None:   # where jnp rejects a site: TypeError now
+        codegen.check_compute_types(program, compute)
+    if compute is not None and not is_floating(compute):
+        # integer and bool compute keep every stage per cell: a band pass
+        # sums in float, where these types wrap (int32) or or (bool);
+        # ROADMAP Queue 3 names the JAX package's banded figures
+        mxu = "off"
     kw = dict(smem_budget=smem_budget, passes=passes, threads=threads,
-              ring_storage=ring_storage, compute_dtype=compute_dtype)
+              ring_storage=ring_storage, compute_dtype=compute_dtype,
+              compute=compute)
     if spill == "all":   # the spill rung alone
         return _build_plan(program, analysis, "off", mxu_precision, {},
                            tile, spill=spill, **kw)
@@ -1728,10 +1785,13 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
     Ii, h = plan.extent(), plan.halo_i
     Ic = Ii - 2 * h
     PJ, PK = plan.plane()
-    # rounded rings and a narrow compute round to the plan's slot type
-    cdt = None if plan.compute_narrow is None else to_torch_dtype(
-        plan.compute_narrow)
+    # rounded rings and a narrow compute round to the plan's slot type;
+    # under a compute type every array arrives cast to it
+    cd = plan.compute
     slot = to_torch_dtype(plan.slot_dtype)
+    if cd is not None:
+        arrays = {n: a if program.inputs[n].is_scalar else to_compute(
+            a, program.inputs[n].dtype, cd) for n, a in arrays.items()}
 
     def rnd(x):
         return x.to(slot).to(x.dtype)
@@ -1758,7 +1818,9 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
     def plane(f, p):
         """Raw (J, K) plane ``p`` of field ``f`` (broadcast for lower-rank
         inputs and scalars)."""
-        dt = to_torch_dtype(program.field_dtype(f))
+        dt = to_torch_dtype(program.field_dtype(f)) if cd is None or (
+            f in program.inputs and program.inputs[f].is_scalar) \
+            else carrier(cd)
         if f in program.kernels:
             got = planes.get(f, {}).get(p)
             return got if got is not None else _junk(dt, (PJ, PK), device)
@@ -1772,8 +1834,6 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             a = a[p]
             if plan.rounded(f):
                 a = rnd(a)
-        elif cdt is not None:   # every array input is cast to it
-            a = rnd(a)
         return a.reshape(PJ if spec.dim_mask[1] else 1,
                          PK if spec.dim_mask[2] else 1).expand(PJ, PK)
 
@@ -1866,11 +1926,19 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
                 if ok:
                     mask = or_mask(mask, (kk + ok < 0) | (kk + ok >= K))
                 val = torch.roll(plane(field, q + oi), (-oj, -ok), (0, 1))
-            val = bc_select(bc, dt, mask, val, lambda: plane(field, q))
-            # under a narrow compute a constant BC's fill is in it too
-            return (val if cdt is None else rnd(val)), dt
+            if cd is None or (bc is not None
+                               and bc.kind == ir.BCKind.COPY):
+                val = bc_select(bc, dt, mask, val, lambda: plane(field, q))
+            elif mask is not None and mask is not False:
+                # under a compute type a fill is converted to it
+                fill = device_const(compute_fill(
+                    bc, cd, static_input(program, field)).item(),
+                    carrier(cd), val.device)
+                val = fill.expand(val.shape) if mask is True else \
+                    torch.where(mask, fill, val)
+            return val, dt
         return eval_kernel_statements(kspec, read, (PJ, PK), device,
-                                      compute=cdt)
+                                      compute=cd)
 
     for t in range(plan.steps()):
         for s in plan.analysis.graph.kernel_order:
@@ -1880,17 +1948,18 @@ def stream_plain(plan: StreamPlan, arrays: Dict[str, torch.Tensor],
             mp = plan.mxu_plans.get(s)
             if mp is None:
                 val = per_cell(program.kernels[s], q)
-            else:   # under a narrow compute the stage's result rounds
+            else:   # under a compute type the stage's result rounds
                 val = banded(mp, q)
-                val = val if cdt is None else rnd(val)
+                val = val if cd is None else round_to(val, cd)
             if s in plan.ring:
                 planes.setdefault(s, {})[q] = rnd(val).contiguous() \
                     if plan.rounded(s) else val.contiguous()
                 planes[s].pop(q - plan.ring[s], None)
             if s in outs and h <= q < h + Ic:
                 core = val[XJ:XJ + BJ, XK:XK + BK]
-                outs[s][q - h] = rnd(core) if s in plan.rounds_out \
-                    else core
+                outs[s][q - h] = from_compute(
+                    core, cd, program.kernels[s].dtype) if cd is not None \
+                    else rnd(core) if s in plan.rounds_out else core
         # drop transformed planes no reader can reach any more
         for key in [k for k in tcache if k[1] is not None
                     and k[1] < t - plan.lag[k[0][0]]
@@ -1937,13 +2006,18 @@ def reduced(plan: StreamPlan) -> bool:
     return bool(plan.rounds or plan.rounds_out) or plan.bf16_passes
 
 
+def _place(plan: StreamPlan) -> str:
+    """Where ``plan``'s kernel runs, as its launch key names it: "shard",
+    "spill", "local", or "" for the whole domain on chip."""
+    return ("shard" if plan.shard[0] else "spill" if plan.packed
+            else "local" if plan.block else "")
+
+
 def _mode(plan: StreamPlan) -> str:
     """The key of ``plan``'s launches in ``launches_by``."""
-    place = ("shard" if plan.shard[0] else "spill" if plan.packed
-             else "local" if plan.block else "")
-    return launch_mode(plan.program, reduced(plan), place,
-                       None if plan.compute_narrow is None
-                       else plan.compute_dtype)
+    if plan.compute is not None:
+        return compute_key(plan)
+    return launch_mode(plan.program, reduced(plan), _place(plan))
 
 
 def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
@@ -1952,11 +2026,12 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
     when omitted."""
     if plan.block:
         raise ValueError("a local plan runs through run_local_stream")
-    io = None if plan.compute_narrow is None else to_torch_dtype(
-        plan.compute_narrow)
-    if io is not None:   # narrow compute: the kernel reads and writes it
-        arrays = {n: a if plan.program.inputs[n].is_scalar
-                  or a.device.type == "cpu" else a.to(io)
+    program, cd = plan.program, plan.compute
+    io = None if cd is None else to_torch_dtype(cd)
+    if io is not None:   # a compute type: the kernel reads and writes it
+        arrays = {n: a if program.inputs[n].is_scalar
+                  or a.device.type == "cpu" else to_compute(
+                      a, program.inputs[n].dtype, cd).to(io)
                   for n, a in arrays.items()}
     outs, launched = run_kernel(
         plan.program, arrays,
@@ -1964,8 +2039,9 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
         lambda: stream_plain(plan, arrays),
         extra=lambda device: _pool_tensors(plan, device), io_dtype=io)
     launches_by[_mode(plan)] += launched
-    if io is not None:
-        outs = {o: v.float() for o, v in outs.items()}
+    if launched and io is not None:   # each output to its kernel type
+        outs = {o: from_compute(v, cd, program.kernels[o].dtype)
+                for o, v in outs.items()}
     return outs
 
 
@@ -2064,9 +2140,9 @@ def compile_chain_stream(program: ir.Program,
     kernel.  Returns ``fn(inputs) -> outputs`` at the program's raw dims,
     with the plan as ``fn.plan`` and the JAX package's configuration keys
     as ``fn.last_config``.  ``smem_budget``, ``spill``,
-    ``ring_storage`` and ``compute_dtype`` go to ``plan_stream``; under
-    bf16 compute the inputs are cast to bf16 before the kernel and its
-    bf16 outputs back to the program's float32 after it."""
+    ``ring_storage`` and ``compute_dtype`` go to ``plan_stream``; under a
+    compute type the inputs are cast to it before the kernel and its
+    outputs to their kernel types after it."""
     plan = plan_stream(program, analysis, mxu=mxu,
                        mxu_precision=mxu_precision, compose=compose,
                        tile=tile, smem_budget=smem_budget, spill=spill,

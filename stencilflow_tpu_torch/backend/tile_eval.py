@@ -27,11 +27,13 @@ import numpy as np
 import torch
 
 from .. import ir
-from ..dtypes import is_narrow, scalar, to_numpy_dtype, to_torch_dtype
+from ..dtypes import (is_floating, is_narrow, scalar, to_numpy_dtype,
+                      to_torch_dtype)
 from ..frontend.chain import ChainGraph
-from .promotion import (BF16, F32, bf16_join, const_dtype_of,
-                        const_type, fill_value, is_bool, is_float, is_weak,
-                        narrow_value, result_type, strong, weak)
+from .promotion import (BOOL, F32, I32, WEAK_FLOAT, canonical, compute_join,
+                        compute_pin, const_dtype_of, const_type, fill_value,
+                        is_bool, is_float, is_weak, result_type, strong,
+                        weak, weak_value, xla_convert_scalar)
 
 Vec3 = Tuple[int, int, int]
 
@@ -251,104 +253,185 @@ def eval_expr_generic(expr: ir.Expr, env: Dict[str, Any], read_fn,
     raise TypeError(f"unknown expression node {type(expr)}")
 
 
-def _bf16_cast(v, ty_from, ty_to, device, cdt):
-    """``v`` as an operand of a site of type ``ty_to`` under the narrow
-    compute ``cdt`` (a torch dtype): a weak scalar becomes a float32
-    tensor (rounded to ``cdt`` for a site of that type, ``BF16``), bool
-    becomes 0/1."""
+def carrier(ty) -> torch.dtype:
+    """The torch type a value of node type ``ty`` travels in under a
+    compute type: float32 for every float (a narrow value is held
+    exactly), the type itself otherwise."""
+    ty = np.dtype(ty)
+    return torch.float32 if is_floating(ty) else to_torch_dtype(ty)
+
+
+def round_to(x: torch.Tensor, ty) -> torch.Tensor:
+    """A float32 tensor rounded to the float type ``ty`` (to nearest,
+    ties to even), still float32."""
+    if not is_narrow(ty):
+        return x
+    return x.to(to_torch_dtype(ty)).to(torch.float32)
+
+
+def xla_convert(v: torch.Tensor, frm, to) -> torch.Tensor:
+    """A carried value of type ``frm`` as one of ``to``, as XLA converts
+    (promotion.xla_convert_scalar): to bool ``!= 0``, float to integer
+    truncated and saturated with NaN at 0, integer to float through
+    float32, integer to integer wrapped."""
+    frm, to = np.dtype(frm), np.dtype(to)
+    if frm == to:
+        return v
+    if to.kind == "b":
+        return v != 0
+    if is_floating(to):
+        return round_to(v.to(torch.float32), to)
+    if is_floating(frm):
+        info = np.iinfo(to)
+        x = v.to(torch.float64)
+        x = torch.where(x == x, x, torch.zeros_like(x))
+        return x.trunc().clamp(info.min, info.max).to(carrier(to))
+    return v.to(carrier(to))
+
+
+def to_compute(v: torch.Tensor, frm, compute) -> torch.Tensor:
+    """An array of the program's type ``frm`` as the JAX package casts it
+    to ``compute`` before the kernel: canonicalised to its 32-bit type
+    (float64 rounded to float32, int64 wrapped), then converted."""
+    frm = np.dtype(frm)
+    mid = canonical(frm)
+    if v.dtype != carrier(mid):
+        v = v.to(carrier(mid))
+    return xla_convert(v, mid, compute)
+
+
+def from_compute(v: torch.Tensor, compute, kdt) -> torch.Tensor:
+    """An output plane of ``compute`` as the program's kernel type
+    ``kdt``: converted to its 32-bit type, as the JAX package's outputs
+    leave, then held in ``kdt`` (a float64 output widens exactly)."""
+    kdt = np.dtype(kdt)
+    v = xla_convert(v, compute, canonical(kdt))
+    return v.to(to_torch_dtype(kdt))
+
+
+def _operand(v, ty_from, ty_to, device) -> torch.Tensor:
+    """Operand ``v`` of node type ``ty_from`` at a site of ``ty_to``: a
+    weak scalar converted as jnp converts it, a constant as XLA does,
+    a tensor by ``xla_convert``."""
     if is_weak(ty_from):
-        x = narrow_value(ty_from[1], to_numpy_dtype(cdt)) if ty_to == BF16 \
-            else ty_from[1]
-        return device_const(x, torch.float32, device)
-    if ty_to != np.bool_ and v.dtype == torch.bool:
-        return v.to(torch.float32)
-    return v
+        return device_const(weak_value(ty_from, ty_to).item(),
+                            carrier(ty_to), device)
+    if not torch.is_tensor(v):
+        return device_const(xla_convert_scalar(v, ty_from, ty_to).item(),
+                            carrier(ty_to), device)
+    return xla_convert(v, ty_from, ty_to)
 
 
-def _bf16_round(v, ty, cdt):
-    return v.to(cdt).to(torch.float32) if ty == BF16 else v
+def _weak_fold_call(fn: str, ty):
+    """A transcendental of a Python literal: jnp gives a weakly typed
+    float32, kept here as a weak float of that value."""
+    v = float(_CALLS[fn](torch.tensor(float(ty[1]), dtype=torch.float32)))
+    return v, (WEAK_FLOAT, v)
 
 
-def eval_expr_bf16(expr: ir.Expr, env: Dict[str, Any], read_fn, device,
-                   cdt=torch.bfloat16):
-    """``eval_expr_generic`` under the narrow compute ``cdt`` (a torch
-    dtype, bfloat16 or float16; promotion.py's ``BF16`` node is a value
-    of it): array reads are of that type, float32 scalars and float
-    constants float32; every site of the compute type computes in
-    float32 and rounds its result to it, as the JAX package's jnp on
-    arrays of that type does."""
+def eval_expr_compute(expr: ir.Expr, env: Dict[str, Any], read_fn, device,
+                      compute, pin):
+    """``eval_expr_generic`` under the compute type ``compute`` (a numpy
+    dtype), the stream kernel's ``compute_dtype``: array reads are of
+    that type, scalar inputs of their own 32-bit type, float constants
+    of ``pin`` (``promotion.compute_pin``); each site takes jnp's type
+    (``promotion.compute_join``), a float site computes in float32 and
+    rounds its result to its type, an integer one wraps, a bool ``+``
+    and ``*`` are or and and.  Values travel as ``carrier`` tensors
+    (weak scalars as Python numbers, constants as numpy scalars).
+    Raises TypeError where jnp raises (bool minus, bitwise and/or of
+    floats)."""
     def rec(e):
-        return eval_expr_bf16(e, env, read_fn, device, cdt)
+        return eval_expr_compute(e, env, read_fn, device, compute, pin)
 
-    def both(a, at, b, bt):
-        ty = bf16_join(at, bt)
-        return (_bf16_cast(a, at, ty, device, cdt),
-                _bf16_cast(b, bt, ty, device, cdt), ty)
+    def opnd(v, ty_from, ty_to):
+        return _operand(v, ty_from, ty_to, device)
 
     if isinstance(expr, ir.Const):
-        return const_type(expr.value, F32)
+        return const_type(expr.value, pin)
     if isinstance(expr, ir.Ref):
         return env[expr.name]
     if isinstance(expr, ir.Access):
-        val, _dt = read_fn(expr.field, expr.offsets)
-        return val, (F32 if val.ndim == 0 else BF16)
+        val, dt = read_fn(expr.field, expr.offsets)
+        if val.ndim == 0:   # a scalar input keeps its own type
+            ty = canonical(dt)
+            return val.to(carrier(ty)), ty
+        return val, np.dtype(compute)
     if isinstance(expr, ir.BinOp):
         (a, at), (b, bt) = rec(expr.left), rec(expr.right)
         if is_weak(at) and is_weak(bt):
             v = _FOLD[expr.op](at[1], bt[1])
             return v, weak(v)
-        a, b, ty = both(a, at, b, bt)
+        ty = compute_join(at, bt)
+        if expr.op == "div" and not is_floating(ty):
+            ty = F32   # jnp's true division of integers
+        a, b = opnd(a, at, ty), opnd(b, bt, ty)
         if is_bool(ty):
-            if expr.op in ("add", "mult"):
-                return (a | b) if expr.op == "add" else (a & b), ty
-            raise TypeError("numpy rejects bool - bool and bool / bool")
-        return _bf16_round(_BINOPS[expr.op](a, b), ty, cdt), ty
+            if expr.op == "add":
+                return a | b, ty
+            if expr.op == "mult":
+                return a & b, ty
+            raise TypeError("jnp rejects bool - bool")
+        r = _BINOPS[expr.op](a, b)
+        return (round_to(r, ty) if is_floating(ty) else r), ty
     if isinstance(expr, ir.UnaryOp):
         a, at = rec(expr.operand)
         if is_weak(at):
             return -at[1], weak(-at[1])
         if is_bool(at):
-            raise TypeError("numpy rejects unary minus on bool")
+            raise TypeError("jnp rejects unary minus on bool")
+        if not torch.is_tensor(a):
+            a = opnd(a, at, at)
         return torch.neg(a), at
     if isinstance(expr, ir.Compare):
         (a, at), (b, bt) = rec(expr.left), rec(expr.right)
-        a, b, _ty = both(a, at, b, bt)
-        return _CMPOPS[expr.op](a, b), np.dtype(np.bool_)
+        ty = compute_join(at, bt)
+        if is_weak(ty):
+            ty = F32 if ty[0] == WEAK_FLOAT else I32
+        return _CMPOPS[expr.op](opnd(a, at, ty), opnd(b, bt, ty)), BOOL
     if isinstance(expr, ir.BoolOp):
         parts = [rec(o) for o in expr.operands]
-        if not all(is_bool(t) for _v, t in parts):
-            raise NotImplementedError("and/or of non-bool under bf16 compute")
-        acc = parts[0][0]
-        for v, _t in parts[1:]:
+        ty = compute_join(*[t for _v, t in parts])
+        if is_weak(ty):
+            ty = F32 if ty[0] == WEAK_FLOAT else I32
+        if is_floating(ty):
+            raise TypeError("jnp rejects bitwise and/or on floats")
+        acc = opnd(*parts[0], ty)
+        for v, t in parts[1:]:
+            v = opnd(v, t, ty)
             acc = (acc & v) if expr.op == "and" else (acc | v)
-        return acc, np.dtype(np.bool_)
+        return acc, ty
     if isinstance(expr, ir.Select):
         c, ct = rec(expr.cond)
         (t, tt), (f, ft) = rec(expr.if_true), rec(expr.if_false)
-        if is_weak(ct):
-            c = device_const(bool(ct[1]), torch.bool, device)
-        elif c.dtype != torch.bool:
-            c = c != 0
-        t, f, ty = both(t, tt, f, ft)
-        return torch.where(c, t, f), ty
+        c = opnd(c, ct, BOOL)
+        ty = compute_join(tt, ft)
+        if is_weak(ty):
+            ty = F32 if ty[0] == WEAK_FLOAT else I32
+        return torch.where(c, opnd(t, tt, ty), opnd(f, ft, ty)), ty
     if isinstance(expr, ir.Call):
         args = [rec(a) for a in expr.args]
         if expr.fn in ("min", "max"):
             (a, at), (b, bt) = args
-            a, b, ty = both(a, at, b, bt)
+            if is_weak(at) and is_weak(bt):
+                v = (min if expr.fn == "min" else max)(at[1], bt[1])
+                return v, weak(v)
+            ty = compute_join(at, bt)
+            a, b = opnd(a, at, ty), opnd(b, bt, ty)
+            if is_bool(ty):
+                return ((a & b) if expr.fn == "min" else (a | b)), ty
             fn = torch.minimum if expr.fn == "min" else torch.maximum
             return fn(a, b), ty
         (a, at), = args
-        if is_weak(at) or is_bool(at):
-            if expr.fn == "abs" and is_weak(at):
-                return abs(at[1]), weak(abs(at[1]))
+        if is_weak(at):
             if expr.fn == "abs":
-                return a, at
-            raise NotImplementedError(
-                f"{expr.fn} of a scalar literal under bf16 compute")
+                return abs(at[1]), weak(abs(at[1]))
+            return _weak_fold_call(expr.fn, at)
+        a = opnd(a, at, at)
         if expr.fn == "abs":
-            return torch.abs(a), at
-        return _bf16_round(_CALLS[expr.fn](a), at, cdt), at
+            return (a if is_bool(at) else torch.abs(a)), at
+        ty = at if is_floating(at) else F32
+        return round_to(_CALLS[expr.fn](opnd(a, at, ty)), ty), ty
     raise TypeError(f"unknown expression node {type(expr)}")
 
 
@@ -356,20 +439,27 @@ def eval_kernel_statements(kspec: ir.KernelSpec, read_fn, shape, device,
                            compute=None):
     """Evaluate a kernel's statements with a custom read; returns the
     output statement's value broadcast to ``shape`` and cast to the
-    kernel dtype.  ``compute``: under that narrow compute (a torch dtype,
-    ``eval_expr_bf16``), the result rounded to it, as a float32
-    tensor."""
-    pin = const_dtype_of(kspec)
-    env: Dict[str, Any] = {}
-    for stmt in kspec.statements:
-        env[stmt.lhs] = eval_expr_bf16(stmt.rhs, env, read_fn, device,
-                                       compute) \
-            if compute is not None else eval_expr_generic(
-                stmt.rhs, env, read_fn, pin, device)
-    val, ty = env[kspec.output_statement.lhs]
+    kernel dtype.  ``compute``: under that compute type (a numpy dtype,
+    ``eval_expr_compute``), the result converted to it, as its
+    ``carrier`` tensor."""
     if compute is not None:
-        val = _bf16_cast(val, ty, BF16, device, compute).to(torch.float32)
-        return _bf16_round(val, BF16, compute).expand(tuple(shape))
+        pin = compute_pin(kspec)
+        env: Dict[str, Any] = {}
+        for stmt in kspec.statements:
+            env[stmt.lhs] = eval_expr_compute(stmt.rhs, env, read_fn,
+                                              device, compute, pin)
+        val, ty = env[kspec.output_statement.lhs]
+        if is_weak(ty):   # jnp.asarray: int32 or float32, then the cast
+            base = F32 if ty[0] == WEAK_FLOAT else I32
+            val, ty = weak_value(ty, base), base
+        val = _operand(val, ty, compute, device)
+        return val.expand(tuple(shape))
+    pin = const_dtype_of(kspec)
+    env = {}
+    for stmt in kspec.statements:
+        env[stmt.lhs] = eval_expr_generic(stmt.rhs, env, read_fn, pin,
+                                          device)
+    val, ty = env[kspec.output_statement.lhs]
     val = as_type(val, ty, strong(ty), device)
     return to_dtype(val, to_torch_dtype(kspec.dtype)).expand(tuple(shape))
 

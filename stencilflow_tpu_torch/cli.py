@@ -24,9 +24,8 @@ too and prints the same lines.  Its spellings map to the port's
 (``--no-mxu`` is ``--mxu off``, ``--backend pallas`` is ``tile``,
 ``--backend xla`` is ``dense``, ``solve --emulation`` and ``autotune
 --emulation`` are ``--device cpu``; the ``run`` mode is accepted and
-ignored, as there); options whose engines are not ported yet exit with
-``error:`` and rc 2, naming the ROADMAP item that ports them.  The
-simulator (``run --run-simulation``, ``simulate``) runs on the host:
+ignored, as there).  The simulator (``run --run-simulation``,
+``simulate``) runs on the host:
 ``simulate`` takes no ``--device``, and ``run`` keeps its device for the
 kernels.  ``compile`` writes the port's artifact where the JAX package
 writes StableHLO text: the CUDA C++ of the kernel ``compile_chain_best``

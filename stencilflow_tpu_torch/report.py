@@ -8,7 +8,8 @@ package's, computed by the same copied analyses; what changes is what
 they are divided by:
 
 * **device memory**: the minimum traffic (every input and output array
-  moved once) over the data sheet's 3.35e12 B/s (``hbm_time_s``), and
+  moved once, at the compute type's size under the stream kernel's
+  ``compute_dtype``) over the data sheet's 3.35e12 B/s (``hbm_time_s``), and
   over P4's measured copy floor (``vs_copy_floor``);
 * **ALU**: the weighted op count (``_OP_COST``, P1's per-op costs in
   add-equivalents) over the data sheet's single-instruction FP32 rate,
@@ -16,8 +17,8 @@ they are divided by:
   builds every kernel with ``-fmad=false``, where each counted add and
   multiply is one instruction; the ops of a stage typed bfloat16 or
   float16 (or of any stage under ``compute_dtype`` "bfloat16" or
-  "float16") at twice
-  that, the packed narrow rate (``config.H100_NARROW_ALU_OPS``); and the
+  "float16"; under another compute type none) at twice that, the packed
+  narrow rate (``config.H100_NARROW_ALU_OPS``); and the
   executed ops (those of the faster strategy) over P1's measured issue
   rate (``vs_alu_issue``) and shared-memory pass rate (``vs_smem_pass``,
   the reachable rate of kernels that store every stage to shared
@@ -70,6 +71,9 @@ def _stage_ops(kspec) -> float:
 # the stream kernel's narrow compute types (priced at 2 bytes a cell and
 # the packed narrow rate)
 _NARROW_COMPUTE = ("bfloat16", "float16")
+# bytes of a cell under each compute type (its canonical type's size)
+_COMPUTE_SIZE = {"float32": 4, "float64": 4, "int32": 4, "int64": 4,
+                 "bfloat16": 2, "float16": 2, "bool": 1}
 
 
 @dataclasses.dataclass
@@ -149,20 +153,31 @@ class Report:
 
     def hbm_time_s(self, compute_dtype=None) -> float:
         """The memory floor: every input read once and every output
-        written once at the data sheet's rate; under ``compute_dtype``
-        "bfloat16" or "float16" (float32 programs, the stream kernel's
-        narrow compute) at 2 bytes a cell."""
-        vol = self.analysis.minimum_communication_volume()
-        if compute_dtype in _NARROW_COMPUTE:
-            vol = vol / 2
+        written once at the data sheet's rate; under the stream kernel's
+        ``compute_dtype`` every cell of them at that type's size (the
+        kernel reads and writes arrays of it): 4 bytes for float32 and
+        int32 (float64 and int64 compute in them), 2 for bfloat16 and
+        float16, 1 for bool."""
+        if compute_dtype is None:
+            vol = self.analysis.minimum_communication_volume()
+        else:
+            size = _COMPUTE_SIZE[str(compute_dtype).replace("torch.", "")]
+            dims = self.program.dimensions
+            vol = size * (sum(int(np.prod(s.shape(dims), dtype=np.int64))
+                              for s in self.program.inputs.values())
+                          + len(self.program.outputs)
+                          * self.program.total_elements)
         return vol / self.hw.hbm_bandwidth
 
     def narrow_ops_per_cell(self, compute_dtype=None) -> float:
         """The weighted ops a cell of the stages whose ops round to 2
         bytes: those typed bfloat16 or float16, or every stage under
-        ``compute_dtype`` "bfloat16" or "float16"."""
-        if compute_dtype in _NARROW_COMPUTE:
-            return self.ops_per_cell()
+        ``compute_dtype`` "bfloat16" or "float16"; none under another
+        compute type (its ops are float32, int32 or bool ones, priced at
+        the single-instruction FP32 rate)."""
+        if compute_dtype is not None:
+            return self.ops_per_cell() if str(compute_dtype).replace(
+                "torch.", "") in _NARROW_COMPUTE else 0.0
         return sum(_stage_ops(k) for k in self.program.kernels.values()
                    if is_narrow(k.dtype))
 

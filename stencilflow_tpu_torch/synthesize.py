@@ -382,3 +382,105 @@ def random_program(rng: np.random.Generator, ndim: int = 0,
         "dimensions": dims,
         "program": program,
     }
+
+
+# -- programs of many types (the stream kernel's compute types, the
+#    simulator's native core, the narrow floats) -------------------------
+
+# the draw ``mixed_dtype_spec`` takes: the first from seed 0 up with an
+# int32, a bool and a floating stage whose C++ simulator core is generated
+# (held by tests/test_torch_compute_types.py)
+MIXED_DTYPE_SEED = 3
+
+
+def mixed_dtype_spec(dims, seed: int = MIXED_DTYPE_SEED):
+    """A chain with a dtype per kernel (float32 / float64 / int32 / int16
+    / bool; edges carry the producer's dtype), drawn from ``seed`` as
+    ``tests/test_fuzz.py::make_mixed_dtype_program`` draws (the port's
+    ``random_program`` types every field alike), at ``dims``.  Returns
+    (spec, name)."""
+    rng = np.random.default_rng(seed)
+    for _ in range(3):   # the generator's dims, replaced by ``dims``
+        rng.integers(4, 8)
+
+    def acc(field):
+        offs = [int(rng.integers(-1, 2)) for _ in range(3)]
+        return field + _offset_str(["i", "j", "k"], offs)
+
+    def fconst():
+        return f"{float(rng.uniform(-2, 2))!r}"
+    avail = [("a", "float32"), ("n", "int32")]
+    prog = {}
+    for s in range(int(rng.integers(3, 6))):
+        name = f"s{s}"
+        dt = str(rng.choice(["float32", "float64", "int32", "int16",
+                             "bool"]))
+        (x, xdt), (y, ydt) = picks = [
+            avail[-1], avail[int(rng.integers(0, len(avail)))]]
+
+        def term(f, fdt):
+            a = acc(f)
+            if fdt == "bool":
+                return f"({a} * {int(rng.integers(1, 4))})"
+            return a
+        if dt == "bool":
+            expr = f"({term(x, xdt)} > {term(y, ydt)})"
+        elif dt.startswith("int"):
+            expr = (f"({term(x, xdt)} * {int(rng.integers(1, 4))} "
+                    f"- {term(y, ydt)} + {int(rng.integers(-5, 8))})")
+            if rng.random() < 0.4:
+                expr = f"min({expr}, {term(x, xdt)})"
+            if rng.random() < 0.3:
+                expr = f"abs({expr})"
+        else:
+            expr = f"({term(x, xdt)} * {fconst()} + {term(y, ydt)})"
+            if rng.random() < 0.4:
+                expr = (f"({expr} if {term(x, xdt)} > {fconst()} "
+                        f"else {term(y, ydt)})")
+        bcs = {}
+        for f, fdt in dict(picks).items():
+            if fdt == "bool":
+                bcs[f] = {"type": "constant", "value": 0}
+            elif fdt.startswith("int"):
+                bcs[f] = {"type": "constant",
+                          "value": int(rng.integers(0, 5))}
+            else:
+                bcs[f] = {"type": str(rng.choice(["constant", "copy"])),
+                          "value": float(round(rng.uniform(-1, 1) * 64)
+                                         / 64)}
+        prog[name] = {"computation_string": f"{name} = {expr}",
+                      "boundary_conditions": bcs, "data_type": dt}
+        avail.append((name, dt))
+    spec = {"inputs": {"a": {"data": "random:-1,1", "data_type": "float32"},
+                       "n": {"data": "random:1,40", "data_type": "int32"}},
+            "outputs": [avail[-1][0]], "dimensions": list(dims),
+            "program": prog}
+    return spec, f"mixed_dtype_{seed}"
+
+
+def narrow_mixed_spec(dims):
+    """A bf16 chain with transcendentals, a bf16 scalar, a copy and a
+    shrink BC, float constants pinned to bf16, and an int32 stage that
+    casts bf16 values (the oracle's lattice at every kind of site; the
+    int32 stage reads the inputs alone, so its cells stay exact)."""
+    bf = "bfloat16"
+    return {"inputs": {"b": {"data": "random:-2,3", "data_type": bf},
+                       "g": {"data": "random:-2,3", "data_type": bf,
+                             "input_dims": []}},
+            "outputs": ["s", "z"], "dimensions": list(dims),
+            "program": {
+                "u": {"computation_string":
+                      "u = exp(b[i,j,k] * 0.5) + tanh(b[i,j+1,k]) - "
+                      "sqrt(abs(b[i,j,k-1])) + g",
+                      "boundary_conditions": {"b": {"type": "shrink"}},
+                      "data_type": bf},
+                "s": {"computation_string":
+                      "s = u[i,j,k] / (u[i+1,j,k] + 3.0) if u[i,j,k] > 1.0 "
+                      "else -u[i,j,k]",
+                      "boundary_conditions": {"u": {"type": "copy"}},
+                      "data_type": bf},
+                "z": {"computation_string":
+                      "z = b[i,j,k] * 4.0 + min(b[i,j+1,k], g)",
+                      "boundary_conditions":
+                      {"b": {"type": "constant", "value": 0.3}},
+                      "data_type": "int32"}}}

@@ -16,10 +16,9 @@ package's own tolerance of the numpy oracle (rtol 3e-2, atol 1e-2).
 (b) The generated CUDA source built with g++ (``sf_host_launch``, bf16
 arrays as uint16 bits) against the plain version: bit for bit on
 per-cell chains, by the banded rule on banded ones.  (c) Planning: rings
-and io at 2 bytes a cell, ``ring_storage`` dropped, the refusals.
+and io at 2 bytes a cell, ``ring_storage`` dropped, every compute type
+taken, and TypeError where the JAX package raises it.
 """
-import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -31,10 +30,9 @@ import torch
 
 import stencilflow_tpu_torch as port
 from stencilflow_tpu_torch.backend import stream
-from stencilflow_tpu_torch.backend.build import scalar_blob
 from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
 from stencilflow_tpu_torch.synthesize import jacobi, synthesize_stencil
-from test_torch_stream import _gxx
+from test_torch_compute_types import run_host_compute
 
 BF = "bfloat16"
 SEED = 61
@@ -69,7 +67,7 @@ import numpy as np
 import jax.numpy as jnp
 import stencilflow_tpu as ref
 from stencilflow_tpu.backend.stream import compile_chain_stream
-cases = json.load(open(sys.argv[1]))
+cases, raises = json.load(open(sys.argv[1]))
 out = {}
 for name, (spec, kw) in cases.items():
     p = ref.parse_program(spec, name=name)
@@ -79,8 +77,17 @@ for name, (spec, kw) in cases.items():
     got = fn({k: jnp.asarray(v) for k, v in inputs.items()})
     for o, v in got.items():
         out[name + "/" + o] = np.asarray(v)
+for name, (spec, cd) in raises.items():   # what raises, and what
+    p = ref.parse_program(spec, name=name)
+    inputs = ref.load_input_arrays(p, seed=%d)
+    try:
+        fn = compile_chain_stream(p, interpret=True, compute_dtype=cd)
+        fn({k: jnp.asarray(v) for k, v in inputs.items()})
+        out["raises/" + name] = np.array("")
+    except Exception as e:
+        out["raises/" + name] = np.array(type(e).__name__)
 np.savez(sys.argv[2], **out)
-""" % SEED
+""" % (SEED, SEED)
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +96,8 @@ def jax_refs(tmp_path_factory):
     a subprocess whose XLA rounds bf16 after every operation."""
     d = tmp_path_factory.mktemp("jax_bf16")
     cases = {n: (make(), kw) for n, (make, kw, _pc) in CASES.items()}
-    (d / "cases.json").write_text(json.dumps(cases))
+    raises = {n: (make(), cd) for n, (make, cd, _e) in RAISES.items()}
+    (d / "cases.json").write_text(json.dumps([cases, raises]))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") +
                           " --xla_allow_excess_precision=false").strip())
@@ -168,37 +176,6 @@ def test_ring_storage_is_dropped_under_bf16_compute():
 
 # -- (b) the generated source through g++ --------------------------------------
 
-def run_host_bf16(plan, inputs, tmp_path):
-    """The generated kernel built with g++ on bf16 arrays (uint16 bits),
-    its bf16 outputs returned as float32."""
-    p = plan.program
-    src = stream.stream_source(plan)
-    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    cpp, so = tmp_path / f"{tag}.cpp", tmp_path / f"{tag}.so"
-    cpp.write_text(src)
-    proc = subprocess.run([_gxx(), "-std=c++17", "-O1", "-ffp-contract=off",
-                           "-shared", "-fPIC", "-o", str(so), str(cpp)],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    lib = ctypes.CDLL(str(so))
-    lib.sf_host_launch.argtypes = [ctypes.c_void_p] * 3
-
-    def bits(a):
-        t = torch.as_tensor(np.ascontiguousarray(a, np.float32))
-        return t.to(torch.bfloat16).view(torch.int16).numpy().copy()
-    arrays = [bits(inputs[n]) for n, s in p.inputs.items()
-              if not s.is_scalar]
-    arrays += [np.ascontiguousarray(a, np.float32)
-               for _k, a in plan.kernel_pool()]
-    outs = [np.zeros(p.dimensions, np.int16) for _o in p.outputs]
-    ip = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data for a in arrays])
-    op = (ctypes.c_void_p * len(outs))(*[a.ctypes.data for a in outs])
-    lib.sf_host_launch(ctypes.addressof(ip), ctypes.addressof(op),
-                       scalar_blob(p, inputs).ctypes.data)
-    return {o: torch.from_numpy(a).view(torch.bfloat16).float().numpy()
-            for o, a in zip(p.outputs, outs)}
-
-
 @pytest.mark.parametrize("name", ["jacobi3d", "hotspot", "box_r2",
                                   "spilled"])
 def test_generated_source_matches_plain(name, tmp_path):
@@ -209,7 +186,8 @@ def test_generated_source_matches_plain(name, tmp_path):
     assert plan.packed == (name == "spilled")
     if name == "spilled":
         assert plan.spilled
-    got = run_host_bf16(plan, inputs, tmp_path)
+    got = {o: v.numpy() for o, v in run_host_compute(
+        plan, inputs, tmp_path).items()}
     want = stream.stream_plain(plan, spanned_arrays(p, inputs))
     for o in p.outputs:
         w = want[o].numpy()
@@ -254,34 +232,65 @@ def test_plan_sizes_at_two_bytes_a_cell():
     assert src and all(banded.itemsize(f) == 4 for f in src)
 
 
-def test_refusals():
-    """The compute types as the JAX package canonicalises them in its
-    default 32-bit mode (float64 computes in float32, torch dtypes name
-    their type); float16 computes in float16
-    (tests/test_torch_narrow_paths.py holds it to the JAX package).
-    Still to port, NotImplementedError naming ROADMAP Queue 1 item 11:
-    integer and bool compute types, and any compute type on a program
-    with a field that is not float32 (the JAX package casts its arrays)."""
-    p, _kw, _pc, _inputs = _case("jacobi3d")
-    for dt, want in ((None, "float32"), ("float32", "float32"),
-                     ("float64", "float32"), (np.float64, "float32"),
-                     (torch.bfloat16, BF), ("float16", "float16"),
-                     (torch.float16, "float16")):
-        plan = stream.plan_stream(p, compute_dtype=dt)
-        assert plan.compute_dtype == want
-        assert (plan.compute_narrow is None) == (want == "float32")
-    for dt in ("int32", "int64", "bool", torch.int32):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            stream.plan_stream(p, compute_dtype=dt)
+def _bool_minus():
+    return {"inputs": {"a": {"data": "random:-2,2", "data_type": "float32"}},
+            "outputs": ["s"], "dimensions": [4, 8, 8],
+            "program": {"s": {"computation_string":
+                              "s = a[i,j,k] - a[i,j+1,k]",
+                              "boundary_conditions": {"a": {"type": "copy"}},
+                              "data_type": "float32"}}}
+
+
+def _f64_jacobi():
     spec = jacobi(3, 12, iterations=2)
     spec["inputs"]["a"]["data_type"] = "float64"
     for k in spec["program"].values():
         k["data_type"] = "float64"
-    for dt in (BF, "float16", "float32"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            stream.plan_stream(port.parse_program(spec), compute_dtype=dt)
-    assert stream.plan_stream(port.parse_program(spec)).compute_narrow \
-        is None
+    return spec
+
+
+# (program, compute type, the exception both packages raise, "" for none)
+RAISES = {
+    "bool-minus": (_bool_minus, "bool", "TypeError"),
+    "f64-int32": (_f64_jacobi, "int32", ""),
+    "f64-bool": (_f64_jacobi, "bool", ""),
+    "f64-float16": (_f64_jacobi, "float16", ""),
+}
+
+
+def test_refusals(jax_refs):
+    """Every compute type computes, as the JAX package canonicalises it in
+    its default 32-bit mode (float64 computes in float32, int64 in int32,
+    torch dtypes name their type), on a float32 program and on a float64
+    one; the port raises only where the JAX package raises (bool minus:
+    TypeError, at plan time, naming the kernel); tests/
+    test_torch_compute_types.py holds the results to the JAX package's."""
+    p, _kw, _pc, _inputs = _case("jacobi3d")
+    pf = port.parse_program(_f64_jacobi())
+    for dt, want in ((None, "float32"), ("float32", "float32"),
+                     ("float64", "float32"), (np.float64, "float32"),
+                     (torch.bfloat16, BF), ("float16", "float16"),
+                     (torch.float16, "float16"), ("int32", "int32"),
+                     ("int64", "int32"), (torch.int32, "int32"),
+                     (np.int64, "int32"), ("bool", "bool"),
+                     (torch.bool, "bool")):
+        plan = stream.plan_stream(p, compute_dtype=dt)
+        assert plan.compute_dtype == want
+        assert (plan.compute is None) == (want == "float32")
+        assert (plan.compute_narrow is None) == (want not in (BF,
+                                                              "float16"))
+        typed = stream.plan_stream(pf, compute_dtype=dt)
+        assert typed.compute_dtype == want
+        assert (typed.compute is None) == (dt is None)
+    assert stream.plan_stream(pf).compute_narrow is None
+    for name, (make, cd, err) in RAISES.items():
+        assert str(jax_refs["raises/" + name]) == err
+        prog = port.parse_program(make())
+        if err:
+            with pytest.raises(TypeError, match="kernel 's'.*bool"):
+                stream.plan_stream(prog, compute_dtype=cd)
+        else:
+            stream.plan_stream(prog, compute_dtype=cd)
 
 
 def test_plain_version_counts_no_launch():

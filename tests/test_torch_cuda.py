@@ -24,6 +24,7 @@ import torch
 import stencilflow_tpu_torch as port
 from stencilflow_tpu_torch.backend import group, overlap, panel, stream
 from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+from stencilflow_tpu_torch.cardcheck import wide_i_spec
 from stencilflow_tpu_torch.config import MXU_VERIFY_RTOL
 from stencilflow_tpu_torch.driver import run_program
 from stencilflow_tpu_torch.frontend.canonicalize import rotate_2d_to_rows
@@ -239,6 +240,16 @@ GROUP_PROGRAMS = {
         bc_kinds=("constant", "copy", "shrink")), False, 0, 2),
     "fuzz122": (lambda: random_program(np.random.default_rng(122)), False,
                 0, 2),
+    # beside chip_smoke.py's phase-3 cases (its shrink jacobi2d and the
+    # jacobi whose stages read i-offsets of 3): its 2-D and 3-D random
+    # chains (the first draws from seed 1000 that read a scalar and the
+    # lower-rank inputs) and the i-offset jacobi again
+    "rows_fuzz1001_2d": (lambda: random_program(
+        np.random.default_rng(1001), ndim=2,
+        bc_kinds=("constant", "copy", "shrink")), True, 0, 2),
+    "fuzz1000": (lambda: random_program(np.random.default_rng(1000),
+                                        ndim=3), False, 0, 2),
+    "jacobi3d_i3": (lambda: wide_i_spec((24, 40, 72), 4), False, 2, 2),
 }
 
 
@@ -266,7 +277,8 @@ def test_group_kernel_matches_plain_on_card(name, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,segments", [
     ("rows_jacobi2d_constant", 4), ("rows_jacobi2d_copy", 2),
-    ("rows_jacobi2d_shrink", 3), ("rows_hotspot2d", 2), ("fuzz122", 3)])
+    ("rows_jacobi2d_shrink", 3), ("rows_hotspot2d", 2), ("fuzz122", 3),
+    ("rows_jacobi2d_shrink", 4), ("jacobi3d_i3", 4)])
 def test_group_segments_match_plain_on_card(name, segments, cuda):
     """K5 with its panels cut into i-segments (one block per segment and
     tile, each warming its rings up) equals its plain version and the
@@ -583,6 +595,16 @@ SPILL_PROGRAMS = {
     "jacobi3d_deep": (lambda: synthesize_stencil(
         num_stages=12, dimensions=(40, 96, 136), shape="diffusion",
         seed_data="random:0,1"), {"smem_budget": 20000}),
+    # beside chip_smoke.py's phase-3 case (the shrink one): jacobi3d 64^3
+    # x 3 with every ring spilled, and the small hdiff DAG (nothing to
+    # spill)
+    **{f"jacobi3d_64_{bc}": (lambda bc=bc: synthesize_stencil(
+        num_stages=3, dimensions=(64,) * 3, shape="diffusion", boundary=bc,
+        seed_data="random:0.0,1.0"), {"spill": "all"})
+       for bc in ("constant", "copy", "shrink")},
+    "hdiff_dag_small": (lambda: synthesize_stencil(
+        num_stages=2, dimensions=(8, 12, 16), shape="hdiff"),
+        {"spill": "all"}),
 }
 
 
@@ -595,7 +617,7 @@ def test_spill_kernel_matches_plain_on_card(name, cuda):
     make, kw = SPILL_PROGRAMS[name]
     p = port.parse_program(make())
     plan = stream.plan_stream(p, **kw)
-    assert plan.packed and (plan.spilled or name == "hdiff_dag")
+    assert plan.packed and (plan.spilled or name.startswith("hdiff_dag"))
     assert plan.smem_bytes() <= kw.get("smem_budget",
                                        stream.H100_SMEM_PER_BLOCK)
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
@@ -2313,18 +2335,21 @@ def test_bf16_compute_matches_plain_on_card(name, cuda):
     """compute_dtype="bfloat16": the kernel on bf16 arrays against its
     plain version (``stream.bf16_compute_agree``: bit for bit per cell,
     at least BF16_COMPUTE_SHARE equal and every cell within
-    BF16_VERIFY_RTOL banded), one launch counted in
-    ``compute_bf16_launches``, and the entry point equal to it."""
+    BF16_VERIFY_RTOL banded), one launch counted under "compute_bf16"
+    ("spill_compute_bf16" on the spill rung), and the entry point equal
+    to it."""
     p, kw = _bf16_compute_cases()[name]
     plan = stream.plan_stream(p, compute_dtype="bfloat16", **kw)
     assert plan.packed == name.startswith("K3c")
     assert bool(plan.mxu_plans) == name.startswith("K3b")
     arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
                             device=cuda)
-    before = stream.launches_by["compute_bf16"]
+    key = "spill_compute_bf16" if plan.packed else "compute_bf16"
+    assert stream.compute_key(plan) == key
+    before = stream.launches_by[key]
     got = stream.run_stream(plan, arrays)
     torch.cuda.synchronize()
-    assert stream.launches_by["compute_bf16"] == before + 1
+    assert stream.launches_by[key] == before + 1
     want = stream.stream_plain(plan, arrays)
     for o in p.outputs:
         assert got[o].dtype == torch.float32
@@ -2339,6 +2364,215 @@ def test_bf16_compute_matches_plain_on_card(name, cuda):
     again = fn(port.load_input_arrays(p, seed=4))
     for o in p.outputs:
         assert torch.equal(again[o].reshape(got[o].shape), got[o])
+
+
+def _compute_type_cases():
+    """(program, plan keywords, compute type) of the compute types on
+    programs typed other than float32 and of int32 and bool compute, as
+    chip_smoke.py's phase 3 runs them, smaller: the mixed-type chain and
+    the bf16 chain with an int32 stage under float32, bf16 and f16, and
+    jacobi3d on [-1000, 1000) under int32 and bool, each as K3a and as
+    K3c (``spill="all"``)."""
+    from stencilflow_tpu_torch.synthesize import (mixed_dtype_spec,
+                                                  narrow_mixed_spec)
+    dims = (16, 24, 40)
+    progs = {"mixed": port.parse_program(mixed_dtype_spec(dims)[0]),
+             "narrow": port.parse_program(narrow_mixed_spec(dims)),
+             "jacobi": port.parse_program(synthesize_stencil(
+                 num_stages=3, dimensions=(24, 40, 72), shape="diffusion",
+                 seed_data="random:-1000,1000"))}
+    cases = {}
+    for prog, cds in (("mixed", ("float32", "bfloat16", "float16")),
+                      ("narrow", ("float32", "bfloat16", "float16")),
+                      ("jacobi", ("int32", "bool"))):
+        for cd in cds:
+            for kernel, kw in (("K3a", {}), ("K3c", {"spill": "all"})):
+                cases[f"{kernel}-{prog}-{cd}"] = (progs[prog], kw, cd)
+    return cases
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_compute_type_cases()))
+def test_compute_type_matches_plain_on_card(name, cuda):
+    """compute_dtype on a program typed other than float32, and int32 and
+    bool compute: the kernel on arrays of the compute type against its
+    plain version bit for bit (NaN == NaN; within VERIFY_RTOL where the
+    bf16 chain's transcendentals meet float32 compute: libdevice against
+    torch's own), one launch counted under ``stream.compute_key``, and
+    the entry point equal to it."""
+    from stencilflow_tpu_torch.config import VERIFY_RTOL
+    p, kw, cd = _compute_type_cases()[name]
+    plan = stream.plan_stream(p, compute_dtype=cd, **kw)
+    assert plan.packed == name.startswith("K3c") and not plan.mxu_plans
+    key = stream.compute_key(plan)
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=4),
+                            device=cuda)
+    before = stream.launches_by[key]
+    got = stream.run_stream(plan, arrays)
+    torch.cuda.synchronize()
+    assert stream.launches_by[key] == before + 1
+    want = stream.stream_plain(plan, arrays)
+    loose = name.startswith("K3a-narrow-float32") or name.startswith(
+        "K3c-narrow-float32")
+    for o in p.outputs:
+        assert got[o].dtype == want[o].dtype
+        if loose and got[o].dtype == torch.bfloat16:
+            assert port.arrays_are_equal(want[o].float().cpu().numpy(),
+                                         got[o].float().cpu().numpy(),
+                                         VERIFY_RTOL)
+        else:
+            assert torch.equal(_bits(got[o]), _bits(want[o])) or \
+                np.array_equal(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                               equal_nan=True)
+    fn = stream.compile_chain_stream(p, compute_dtype=cd, **kw)
+    again = fn(port.load_input_arrays(p, seed=4))
+    for o in p.outputs:
+        assert torch.equal(_bits(again[o].reshape(got[o].shape)),
+                           _bits(got[o]))
+
+
+# -- the wider matrix of chip_smoke.py's phase 3 ------------------------------
+
+class _BuildOnMiss(dict):
+    """chip_smoke.py's ``lib_of`` (source -> built kernel), building a
+    source the first time it is asked for."""
+
+    def __missing__(self, src):
+        from stencilflow_tpu_torch.backend import build
+        self[src] = build.load_library(src, "moved")
+        return self[src]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape", ["diffusion", "hdiff"])
+@pytest.mark.parametrize("kind", ["chunk", "shard", "masked", "fast"])
+def test_narrow_k4_k6_launches_match_plain_on_card(kind, shape, dt, cuda):
+    """jacobi3d and hdiff3d 64^3 x 3 typed bf16 and f16: K4 chunk by chunk
+    (4 chunks) and shard by shard over 2 x 2 (shards at non-zero j and k
+    origins), K6 masked and fast; every launch against its plain version
+    bit for bit and counted under its narrow mode ("local_narrow",
+    "shard_narrow", K6's "narrow"), the assembled output bit-equal to the
+    host oracle."""
+    from stencilflow_tpu_torch.backend import tile
+    from stencilflow_tpu_torch.cardcheck import (chunk_slabs, local_plan,
+                                                 narrow_held)
+    from stencilflow_tpu_torch.dtypes import to_numpy
+    from stencilflow_tpu_torch.parallel import compile_sharded_chain
+    from stencilflow_tpu_torch.parallel.domain import place_global_inputs
+    from stencilflow_tpu_torch.parallel.mesh import make_mesh
+    p = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(64,) * 3, shape=shape,
+        seed_data="random:0.0,1.0", data_type=dt))
+    libs = _BuildOnMiss()
+    for module, mode in ((stream, "local_narrow"), (stream, "shard_narrow"),
+                         (tile, "narrow")):
+        module.launches_by[mode] = 0
+    inputs = port.load_input_arrays(p, seed=7)
+    o = p.outputs[0]
+    want_o = port.run_interpreter(p, inputs)[o]
+    full = np.zeros(p.dimensions, want_o.dtype)
+    pieces = []
+    if kind == "chunk":
+        module, mode = stream, "local_narrow"
+        plan = local_plan(p, 4)
+        lib = libs[stream.stream_source(plan)]
+        for c in range(4):
+            lo = c * plan.block - plan.halo_i
+            slabs = chunk_slabs(p, inputs, lo, plan.extent())
+            pieces.append((stream.run_local_stream(plan, lo, slabs, lib),
+                           stream.local_stream_plain(plan, lo, slabs),
+                           slice(c * plan.block, (c + 1) * plan.block)))
+        want_n = 4
+    elif kind == "shard":
+        module, mode = stream, "shard_narrow"
+        jk = make_mesh([cuda], (2, 2), ("x", "y"))
+        fn, dplan = compile_sharded_chain(p, jk, (None, "x", "y"))
+        assert fn.plan is not None
+        plan = fn.plan
+        lib = stream.build_stream(plan)
+        per = fn.exchange(place_global_inputs(p, dplan, inputs))
+        for c, tiles in per.items():
+            oi, oj, ok = dplan.block_origin(c)
+            args = (oi - dplan.halo[0], tiles)
+            extra = (oj, ok, dplan.instance(c))
+            pieces.append((
+                stream.run_local_stream(plan, *args, lib, *extra),
+                stream.local_stream_plain(plan, *args, *extra),
+                tuple(slice(a, a + b) for a, b in zip((oi, oj, ok),
+                                                      dplan.block))))
+        want_n = 4
+    else:
+        module, mode = tile, "narrow"
+        plan = tile.plan_tile(p, mode=kind)
+        lib = libs[tile.tile_source(plan)]
+        arrays = spanned_arrays(p, inputs, device=cuda)
+        pieces.append((tile.run_tile(plan, arrays, lib),
+                       tile.tile_plain(plan, arrays), slice(None)))
+        want_n = 1
+    torch.cuda.synchronize()
+    assert module.launches_by[mode] == want_n
+    for got, want, at in pieces:
+        g = to_numpy(got[o])
+        ok, err = narrow_held(g, to_numpy(want[o]), 0.0)
+        assert ok, err
+        full[at] = g.reshape(full[at].shape)
+    ok, err = narrow_held(full, want_o, 0.0)
+    assert ok, err
+
+
+def _smoke_programs():
+    """The three example programs at full size and the five random
+    chains of ``cardcheck.FUZZ_VARIANTS`` (BC kinds, input ranks and
+    dtypes)."""
+    from stencilflow_tpu_torch.cardcheck import fuzz_programs
+    examples = [(n, port.parse_program(os.path.join(ROOT, "examples",
+                                                    n + ".json")))
+                for n in ("jacobi3d_32x32x32_8itr", "hdiff_64x64x64",
+                          "forked_box_chain")]
+    return dict(examples + [(label.rsplit("-", 1)[0], p) for label, p
+                            in fuzz_programs()])
+
+
+SMOKE_PROGRAMS = ["jacobi3d_32x32x32_8itr", "hdiff_64x64x64",
+                  "forked_box_chain", "fuzz-f32", "fuzz-f64-shrink",
+                  "fuzz-i32", "fuzz-f32-shrink", "fuzz-f32-2d"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SMOKE_PROGRAMS)
+@pytest.mark.parametrize("kernel", ["panel", "overlap", "masked", "fast"])
+def test_kernel_matches_plain_on_smoke_programs_on_card(kernel, name, cuda):
+    """K1, K2 and K6 (masked and fast), each forced through its own plan,
+    against its plain version on the card on the example programs and
+    the random chains (chip_smoke.py's phase 3 runs two of the chains):
+    bit-exact, one launch each."""
+    from stencilflow_tpu_torch.backend import tile
+    p = _smoke_programs()[name]
+    arrays = spanned_arrays(p, port.load_input_arrays(p, seed=7),
+                            device=cuda)
+    if kernel in ("masked", "fast"):
+        module = tile
+        plan = tile.plan_tile(p, mode=kernel)
+        before = module.launches_by["exact"]
+        got = tile.run_tile(plan, arrays)
+        want = tile.tile_plain(plan, arrays)
+    else:
+        module, plan_cls, run, plain = KERNELS[kernel]
+        an = port.ChainAnalysis.run(p)
+        plan = plan_cls.build(an)
+        before = module.launches_by["exact"]
+        got = run(p, an, plan, arrays)
+        want = plain(p, an, plan, arrays)
+    torch.cuda.synchronize()
+    assert module.launches_by["exact"] == before + 1
+    for o in p.outputs:
+        assert np.array_equal(got[o].cpu().numpy(), want[o].cpu().numpy(),
+                              equal_nan=True)
 
 
 @pytest.mark.cuda
