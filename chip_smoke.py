@@ -3731,6 +3731,17 @@ def _narrow_small(sft, pn, ov, gp, st, cases, lib_of, smi):
     return entry
 
 
+def _loads(plan) -> str:
+    """How a narrow plan loads its 2-byte ring inputs: by ``cp.async``
+    groups where it aligns them (``copy_groups``: K1, K3a, K4), else
+    synchronously (a plan decision, not a fallback)."""
+    groups = getattr(plan, "copy_groups", {})
+    if not groups:
+        return "2-byte inputs loaded synchronously"
+    return "2-byte inputs by cp.async of " + ", ".join(
+        f"{g} cells ({f})" for f, g in sorted(groups.items()))
+
+
 def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
     """Phase 4's narrow rows at full width: jacobi3d 512^3 x 4 typed bf16
     and f16 (K1), jacobi3d 512^3 x 2 bf16 (K2), jacobi3d 512^3 x 4 bf16
@@ -3784,7 +3795,7 @@ def _narrow_legs(sft, pn, ov, gp, st, run_program, mains, lib_of, smi):
                  if kind in ("panel", "overlap", "group")
                  else f"smem {plan.smem_bytes()} B")
         print(f"kernel: {key} {p.name} {route} tile {plan.tile} x "
-              f"{plan.threads}, {extra}: {ms:.3f} ms "
+              f"{plan.threads}, {extra}, {_loads(plan)}: {ms:.3f} ms "
               f"({p.total_elements / ms / 1e6:.2f} GCell/s) | main path "
               f"{main_ms:.3f} ms, launches {launches}, "
               f"{'equal to the kernel' if same else 'DIFFERS'} | plain "
@@ -4094,7 +4105,8 @@ def _nk_outofcore(sft, st, pn, ov, gp, tl, oc, lib_of, smi, run_program,
           f"down, bound {duplex:.3f} ms both ways at once (link "
           f"{up_rate / 1e9:.2f} / {down_rate / 1e9:.2f} GB/s) | in-core "
           f"in+out {io / 2 ** 30:.3f} GiB | K4 on chunk {c} of {chunks} "
-          f"tile {plan.tile} x {plan.threads}: {ms:.3f} ms, plain version "
+          f"tile {plan.tile} x {plan.threads}, {_loads(plan)}: {ms:.3f} ms, "
+          f"plain version "
           f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"{len(p.kernels)} chained F.conv3d in bf16 over the widened "
           f"chunk {lib_ms:.3f} ms, max_abs_err {err:.3g} | leg "
@@ -4303,7 +4315,8 @@ def _nk_sharded(sft, st, pn, ov, gp, tl, dist, smi, memo, twin):
               f"{want_n}, others {counts}), "
               f"{'bit-equal to' if same else 'DIFFERS FROM'} the "
               f"single-device {route} | {where}: tile {sp.tile} x "
-              f"{sp.threads}, smem {sp.smem_bytes()} B, {k_ms:.3f} ms, plain "
+              f"{sp.threads}, smem {sp.smem_bytes()} B, {_loads(sp)}, "
+              f"{k_ms:.3f} ms, plain "
               f"version {plain_ms:.1f} ms, max_abs_err {err:.3g} "
               f"{'OK' if good else 'MISMATCH'}, bound {bound_ms:.4f} ms "
               f"({bound_by}), {len(sp.program.kernels)} chained F.conv3d in "

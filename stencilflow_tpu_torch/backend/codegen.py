@@ -23,17 +23,22 @@ each program gets its own translation unit:
 The typed emitter extends the JAX package's native simulator emitter
 (``sim/native.py _expr_cpp_typed``) from double-carried values to native
 C types.  A narrow float (bfloat16, float16) is stored in 2 bytes
-(``sf_bf16``, ``sf_half``: ``stype``) and computed in ``float``
-(``ctype``): every site whose type is narrow computes in float and rounds
-its result once (``sf_bfr``, ``sf_hr``), as numpy and ml_dtypes do, a
-load widens exactly and a store converts an already rounded value; no
-native half arithmetic or ``__hfma`` is emitted.  Under the stream
-kernel's compute type (``compute_dtype``) a stage is typed as jnp types
-it in the reference's 32-bit mode (``StageEmitter.expr_compute``) and
-converts as XLA converts (``cconv``; ``sf_xi32`` saturates float to
-int32).  Reads carry boundary conditions from global coordinates: an
-offset read whose target leaves the domain in any dim with a nonzero
-offset yields the fill value (constant, shrink) or the centre (copy).
+(``sf_bf16``, ``sf_half``: ``stype``) and a stage holds its values in
+them too: a same-type ``+ - *`` is the card's bf16 / f16 instruction
+(``sf_bf_add``, ``sf_h_mul``, ...: ``add.rn.bf16``, ``mul.rn.f16``, never
+contracted into an fma), which rounds its result once, as numpy and
+ml_dtypes do (a float32 operation rounded again is that same function,
+24 >= 2p + 2); a division or a function computes in float and rounds once
+(``sf_f2bf``, ``sf_f2h``), a narrow value meeting another type widens
+exactly, and a read or a store moves the 2 bytes as they are.  Under the
+stream kernel's compute type (``compute_dtype``) a stage is typed as jnp
+types it in the reference's 32-bit mode (``StageEmitter.expr_compute``:
+a narrow value in ``float`` (``ctype``), each operation rounded by
+``sf_bfr`` / ``sf_hr``) and converts as XLA converts (``cconv``;
+``sf_xi32`` saturates float to int32).  Reads carry boundary conditions
+from global coordinates: an offset read whose target leaves the domain
+in any dim with a nonzero offset yields the fill value (constant,
+shrink) or the centre (copy).
 """
 from __future__ import annotations
 
@@ -62,7 +67,8 @@ _CMP = {"lt": "<", "le": "<=", "gt": ">", "ge": ">=", "eq": "==",
 
 def ctype(dt) -> str:
     """The C type a value of ``dt`` computes in (float for the narrow
-    floats)."""
+    floats: a compute type's values; the typed emitter keeps narrow
+    values in ``stype``)."""
     if is_narrow(dt):
         return "float"
     name = np.dtype(dt).name
@@ -82,7 +88,8 @@ def stype(dt) -> str:
 
 
 def load(dt, lv: str) -> str:
-    """A stored value (lvalue ``lv`` of ``stype(dt)``) as its value."""
+    """A stored value (``lv`` of ``stype(dt)``) as its ``ctype`` value (a
+    narrow one widened to float, exactly)."""
     dt = np.dtype(dt)
     if dt == BFLOAT16:
         return f"sf_bf2f({lv})"
@@ -92,8 +99,9 @@ def load(dt, lv: str) -> str:
 
 
 def store(dt, v: str) -> str:
-    """Value ``v`` of ``dt`` as ``stype(dt)`` stores it (a narrow value is
-    rounded already: the conversion is exact)."""
+    """Value ``v`` of ``dt`` as ``stype(dt)`` stores it: a float rounded to
+    a narrow ``dt`` (exact where it is rounded already), a 2-byte value
+    passed through (the C overloads of ``sf_f2bf`` / ``sf_f2h``)."""
     dt = np.dtype(dt)
     if dt == BFLOAT16:
         return f"sf_f2bf({v})"
@@ -107,9 +115,28 @@ def zero(dt) -> str:
     return store(dt, "0.0f") if is_narrow(dt) else literal(0, dt)
 
 
+def value(dt, v) -> str:
+    """C literal of ``v`` as a value of ``dt`` in the typed emitter: a
+    narrow float by its 2-byte bits (``sf_bfk`` / ``sf_hk``: no
+    conversion on the card), else ``literal``."""
+    dt = np.dtype(dt)
+    if not is_narrow(dt):
+        return literal(v, dt)
+    f = np.float32(scalar(v, dt))
+    if dt == FLOAT16:
+        return f"sf_hk(0x{int(np.float16(f).view(np.uint16)):04x}u)"
+    return f"sf_bfk(0x{int(f.view(np.uint32)) >> 16:04x}u)"
+
+
 def _rnd(dt) -> str:
     """The C function rounding a float to narrow ``dt``."""
     return "sf_bfr" if np.dtype(dt) == BFLOAT16 else "sf_hr"
+
+
+def _nat(dt) -> str:
+    """The prefix of narrow ``dt``'s value functions (``sf_bf_add``,
+    ``sf_h_min``, ...)."""
+    return "sf_bf" if np.dtype(dt) == BFLOAT16 else "sf_h"
 
 
 def _ut(dt) -> str:
@@ -200,19 +227,37 @@ SF_HD long long sf_clamp(long long x, long long n) {{
 """ + "\n".join(fns) + "\n"
 
 
-# float16 (programs typed float16): stored in 2 bytes, computed in float.
-# sf_f2h rounds to nearest, ties to even, where a value is stored, sf_h2f
-# widens exactly, sf_hr rounds a float once (one per operation), sf_d2hr
-# rounds a double to float16 once (to float rounding to odd first, as
-# numpy's double -> half).  On the host a struct carries the bits, so a
-# missed conversion does not compile.  Emitted, after _BF16_MACROS (the
-# bfloat16 half of the narrow types), only into sources of programs with
-# a narrow field (_common).
+# float16 (programs typed float16): stored in 2 bytes, computed in 2 bytes
+# where the card has the instruction.  sf_f2h rounds a float to nearest,
+# ties to even (and passes a float16 value through), sf_h2f widens
+# exactly, sf_hr rounds a float once (the stream kernel's compute type),
+# sf_d2hr rounds a double to float16 once (to float rounding to odd first,
+# as numpy's double -> half).  The typed emitter's values stay float16:
+# sf_h_add / sf_h_sub / sf_h_mul are add.rn.f16 / sub.rn.f16 / mul.rn.f16
+# on the card (inline PTX: no contraction into fma), equal to the float
+# operation rounded once since float32 holds 24 >= 2 x 11 + 2 bits
+# (Figueroa 1995); on the host they are that float operation.  sf_hk is a
+# constant by its bits, sf_h_neg / sf_h_abs / sf_h_min / sf_h_max pass an
+# operand's bits through, and sf_hq gives a value passed through as
+# sf_f2h gives its float (a NaN as the conversion makes it).  On the host
+# a struct carries the bits, so a missed conversion does not compile.
+# Emitted, after _BF16_MACROS (the bfloat16 half of the narrow types),
+# only into sources of programs with a narrow field (_common).
 _HALF_MACROS = """#ifdef __CUDACC__
 #include <cuda_fp16.h>
 typedef __half sf_half;
 SF_DEV sf_half sf_f2h(const float v) { return __float2half_rn(v); }
 SF_DEV float sf_h2f(const sf_half v) { return __half2float(v); }
+SF_DEV sf_half sf_hk(const unsigned short u) { return __ushort_as_half(u); }
+SF_DEV unsigned short sf_hu(const sf_half v) { return __half_as_ushort(v); }
+#define SF_H_OP(name, op) \
+  SF_DEV sf_half name(const sf_half a, const sf_half b) { \
+    unsigned short r; \
+    asm(op " %0, %1, %2;" : "=h"(r) : "h"(sf_hu(a)), "h"(sf_hu(b))); \
+    return sf_hk(r); }
+SF_H_OP(sf_h_add, "add.rn.f16")
+SF_H_OP(sf_h_sub, "sub.rn.f16")
+SF_H_OP(sf_h_mul, "mul.rn.f16")
 #else
 struct sf_half { uint16_t u; };
 SF_DEV sf_half sf_f2h(const float v) {
@@ -255,8 +300,34 @@ SF_DEV float sf_h2f(const sf_half h) {
   memcpy(&r, &u, 4);
   return r;
 }
+SF_DEV sf_half sf_hk(const unsigned short u) {
+  sf_half h;
+  h.u = u;
+  return h;
+}
+SF_DEV unsigned short sf_hu(const sf_half v) { return v.u; }
+SF_DEV sf_half sf_h_add(const sf_half a, const sf_half b) {
+  return sf_f2h(sf_h2f(a) + sf_h2f(b)); }
+SF_DEV sf_half sf_h_sub(const sf_half a, const sf_half b) {
+  return sf_f2h(sf_h2f(a) - sf_h2f(b)); }
+SF_DEV sf_half sf_h_mul(const sf_half a, const sf_half b) {
+  return sf_f2h(sf_h2f(a) * sf_h2f(b)); }
 #endif
 SF_DEV float sf_hr(const float v) { return sf_h2f(sf_f2h(v)); }
+SF_DEV sf_half sf_f2h(const sf_half v) { return v; }
+SF_DEV sf_half sf_h_neg(const sf_half a) {
+  return sf_hk((unsigned short)(sf_hu(a) ^ 0x8000u)); }
+SF_DEV sf_half sf_h_abs(const sf_half a) {
+  return sf_hk((unsigned short)(sf_hu(a) & 0x7fffu)); }
+SF_DEV sf_half sf_h_min(const sf_half a, const sf_half b) {
+  const float x = sf_h2f(a), y = sf_h2f(b);
+  return x != x ? a : (y != y ? b : (y < x ? b : a)); }
+SF_DEV sf_half sf_h_max(const sf_half a, const sf_half b) {
+  const float x = sf_h2f(a), y = sf_h2f(b);
+  return x != x ? a : (y != y ? b : (y > x ? b : a)); }
+SF_DEV sf_half sf_hq(const sf_half v) {
+  const float x = sf_h2f(v);
+  return x != x ? sf_f2h(x) : v; }
 SF_DEV float sf_d2hr(const double d) {
   float f = (float)d;
   if ((double)f != d && d == d) {
@@ -285,18 +356,24 @@ _XI32_MACRO = """SF_HD int32_t sf_xi32(const float v) {
 
 def conv(src: str, ty_from, ty_to) -> str:
     """C expression converting a value of node type ``ty_from`` to the
-    strong dtype ``ty_to``."""
+    strong dtype ``ty_to`` (the typed emitter's values: a narrow one is
+    held in its 2 bytes, widened exactly where it meets another type, and
+    a value converted to a narrow type is rounded once into them)."""
     ty_to = np.dtype(ty_to)
     if is_weak(ty_from):
-        return literal(ty_from[1], ty_to) if ty_to.kind != "b" \
+        return value(ty_to, ty_from[1]) if ty_to.kind != "b" \
             else ("true" if ty_from[1] else "false")
     ty_from = np.dtype(ty_from)
     if ty_from == ty_to:
         return src
+    if is_narrow(ty_from):
+        src, ty_from = load(ty_from, src), np.dtype(np.float32)
+        if ty_to == ty_from:
+            return src
     if is_narrow(ty_to):
         if ty_to == FLOAT16 and ty_from == np.float64:
-            return f"sf_d2hr((double)({src}))"
-        return f"{_rnd(ty_to)}((float)({src}))"
+            return f"sf_f2h(sf_d2hr((double)({src})))"
+        return store(ty_to, f"(float)({src})")
     ct = ctype(ty_to)
     if ty_to.kind == "b":
         return f"(({src}) != 0)"
@@ -308,7 +385,19 @@ def conv(src: str, ty_from, ty_to) -> str:
 
 class StageEmitter:
     """Emits one kernel's stage function (``compute``: computed in that
-    type, the stream kernel's ``compute_dtype``, ``expr_compute``)."""
+    type, the stream kernel's ``compute_dtype``, ``expr_compute``).
+
+    Without a compute type (``expr``: the typed emitter) a value of a
+    narrow type is held in its 2 bytes (``stype``) from its read to its
+    store: a same-type ``+ - *`` is the card's own bf16 / f16 instruction
+    (``sf_bf_add``, ...), equal bit for bit to the float operation
+    rounded once; a division or a function computes in float and rounds
+    its result once (``store``); a narrow value meeting another type is
+    widened exactly (``load``).  ``canon``: the C expressions whose NaN
+    is the one a conversion gives (an instruction's or a conversion's
+    result); a stage result of a narrow type that is not one passes
+    through ``sf_bfq`` / ``sf_hq``, so that every result is what the
+    float path's store gave."""
 
     def __init__(self, program: ir.Program, kspec: ir.KernelSpec,
                  compute=None):
@@ -322,12 +411,18 @@ class StageEmitter:
             for offs in lst]
         self.ids = {a: i for i, a in enumerate(self.accesses)}
         self.env: Dict[str, Tuple[str, object]] = {}
+        self.canon: set = set()
+
+    def _rounded(self, src: str, ty) -> Tuple[str, object]:
+        """A narrow result computed by an instruction or a conversion."""
+        self.canon.add(src)
+        return src, ty
 
     def expr(self, e: ir.Expr):
         rec = self.expr
         if isinstance(e, ir.Const):
             v, ty = const_type(e.value, self.pin)
-            return (str(v) if is_weak(ty) else literal(v, ty)), ty
+            return (str(v) if is_weak(ty) else value(ty, v)), ty
         if isinstance(e, ir.Ref):
             return self.env[e.name]
         if isinstance(e, ir.Access):
@@ -351,8 +446,13 @@ class StageEmitter:
                     return f"(({a}) && ({b}))", ty
                 raise TypeError("numpy rejects bool - bool and bool / bool")
             if is_float(ty):
-                v = f"(({a}) {_SYM[e.op]} ({b}))"
-                return (f"{_rnd(ty)}({v})" if is_narrow(ty) else v), ty
+                if is_narrow(ty):
+                    if e.op == "div":
+                        return self._rounded(store(
+                            ty, f"(({load(ty, a)}) / ({load(ty, b)}))"), ty)
+                    return self._rounded(
+                        f"{_nat(ty)}_{e.op[:3]}({a}, {b})", ty)
+                return f"(({a}) {_SYM[e.op]} ({b}))", ty
             ut = _ut(ty)
             return (f"(({ctype(ty)})(({ut})({a}) {_SYM[e.op]} "
                     f"({ut})({b})))"), ty
@@ -362,6 +462,8 @@ class StageEmitter:
                 return str(-at[1]), (at[0], -at[1])
             if is_bool(at):
                 raise TypeError("numpy rejects unary minus on bool")
+            if is_narrow(at):
+                return f"{_nat(at)}_neg({a})", at
             if is_float(at):
                 return f"(-({a}))", at
             ut = _ut(at)
@@ -369,8 +471,14 @@ class StageEmitter:
         if isinstance(e, ir.Compare):
             (a, at), (b, bt) = rec(e.left), rec(e.right)
             ty = strong(result_type(at, bt))
-            return (f"(({conv(a, at, ty)}) {_CMP[e.op]} "
-                    f"({conv(b, bt, ty)}))"), np.dtype(np.bool_)
+
+            def side(x, xt):   # a narrow comparison compares floats
+                if not is_narrow(ty):
+                    return conv(x, xt, ty)
+                return literal(xt[1], ty) if is_weak(xt) else load(
+                    ty, conv(x, xt, ty))
+            return (f"(({side(a, at)}) {_CMP[e.op]} ({side(b, bt)}))",
+                    np.dtype(np.bool_))
         if isinstance(e, ir.BoolOp):
             parts = [rec(o) for o in e.operands]
             ty = parts[0][1]
@@ -395,6 +503,8 @@ class StageEmitter:
                 (a, at), (b, bt) = args
                 ty = strong(result_type(at, bt))
                 a, b = conv(a, at, ty), conv(b, bt, ty)
+                if is_narrow(ty):
+                    return f"{_nat(ty)}_{e.fn}({a}, {b})", ty
                 if is_float(ty):
                     return f"sf_{e.fn}({a}, {b})", ty
                 return (f"(({ctype(ty)})sf_i{e.fn}((int64_t)({a}), "
@@ -405,6 +515,8 @@ class StageEmitter:
                     return a, at
                 ty = strong(at)
                 a = conv(a, at, ty)
+                if is_narrow(ty):
+                    return f"{_nat(ty)}_abs({a})", ty
                 if is_float(ty):
                     return f"sf_fabs({a})", ty
                 fn = "sf_iabs64" if ty.itemsize == 8 else "sf_iabs32"
@@ -412,8 +524,11 @@ class StageEmitter:
                 return f"(({ctype(ty)}){fn}(({cast})({a})))", ty
             ty = at if is_float(at) and not is_weak(at) \
                 else np.dtype(np.float64)
-            v = f"sf_{e.fn}({conv(a, at, ty)})"
-            return (f"{_rnd(ty)}({v})" if is_narrow(ty) else v), ty
+            a = conv(a, at, ty)
+            if is_narrow(ty):
+                return self._rounded(
+                    store(ty, f"sf_{e.fn}({load(ty, a)})"), ty)
+            return f"sf_{e.fn}({a})", ty
         raise TypeError(f"unknown expression node {type(e)}")
 
     def cconv(self, src: str, ty_from, ty_to) -> str:
@@ -553,10 +668,13 @@ class StageEmitter:
         raise TypeError(f"unknown expression node {type(e)}")
 
     def function(self, name: str) -> str:
+        """The stage function: a parameter a read, of its field's stored
+        type (a narrow value in its 2 bytes), the result of the kernel's
+        stored type."""
         if self.compute is not None:
             return self._function_compute(name)
         params = ", ".join(
-            f"const {ctype(self.program.field_dtype(f))} v{i}"
+            f"const {stype(self.program.field_dtype(f))} v{i}"
             for i, (f, _) in enumerate(self.accesses)) or "void"
         body, declared = [], {}
         for stmt in self.kspec.statements:
@@ -568,15 +686,20 @@ class StageEmitter:
             # imports write) gets a fresh C name: t_f, t_f__2, ...
             n = declared[stmt.lhs] = declared.get(stmt.lhs, 0) + 1
             var = f"t_{stmt.lhs}" + (f"__{n}" if n > 1 else "")
-            body.append(f"  const {ctype(ty)} {var} = {src};")
+            body.append(f"  const {stype(ty)} {var} = {src};")
+            if src in self.canon:
+                self.canon.add(var)
             self.env[stmt.lhs] = (var, ty)
         src, ty = self.env[self.kspec.output_statement.lhs]
         kdt = np.dtype(self.kspec.dtype)
         out = conv(src, strong(ty), kdt) if not is_weak(ty) \
             else conv(src, ty, kdt)
+        if is_narrow(kdt) and out not in self.canon and not \
+                out.startswith(("sf_f2bf(", "sf_f2h(")):
+            out = f"{_nat(kdt)}q({out})"
         # the narrow conversions are device functions on the card
         qual = "SF_DEV" if has_narrow(self.program) else "SF_HD"
-        return (f"{qual} {ctype(kdt)} {name}({params}) {{\n"
+        return (f"{qual} {stype(kdt)} {name}({params}) {{\n"
                 + "\n".join(body) + f"\n  return {out};\n}}\n")
 
     def _function_compute(self, name: str) -> str:
@@ -653,11 +776,12 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     ``at_dims`` — ``pos`` and the program's dimensions unless a chunk's
     local slab is read).  ``compute``: under a compute type the global
     arrays hold that type and a constant BC's fill is converted to it."""
+    dt = np.dtype(program.field_dtype(field))
     if field in program.inputs and program.inputs[field].is_scalar:
-        return f"sc.x{scalar_slot[field]}"
+        sv = f"sc.x{scalar_slot[field]}"   # a narrow one: its float
+        return store(dt, sv) if compute is None and is_narrow(dt) else sv
     dims = program.dimensions
     at_pos, at_dims = at_pos or pos, at_dims or dims
-    dt = np.dtype(program.field_dtype(field))
     mask = program.field_dim_mask(field)
     offs = [o or 0 for o in offsets]
     terms = [f"({pos[d]} + {offs[d]} < 0 || {pos[d]} + {offs[d]} >= "
@@ -669,9 +793,10 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
             return lv
         c = [f"({at_pos[d]} + {o[d]})" for d in range(3)]
         g = f"g_{field}[{_flat(mask, c, at_dims)}]"
-        return (f"(({_inb(mask, c, at_dims)}) ? "
-                f"{load(dt if compute is None else compute, g)} : "
-                f"{literal(0, dt if compute is None else compute)})")
+        if compute is None:   # the stored cell is the value
+            return f"(({_inb(mask, c, at_dims)}) ? {g} : {value(dt, 0)})"
+        return (f"(({_inb(mask, c, at_dims)}) ? {load(compute, g)} : "
+                f"{literal(0, compute)})")
 
     val = at(offs)
     if not terms or not masked:
@@ -680,7 +805,7 @@ def read_expr(program: ir.Program, kspec: ir.KernelSpec, field: str,
     bc = kspec.boundary_conditions.get(field)
     if bc is not None and bc.kind == ir.BCKind.COPY:
         return f"(({m}) ? {at((0, 0, 0))} : {val})"
-    fill = literal(fill_value(bc, dt), dt) if compute is None else \
+    fill = value(dt, fill_value(bc, dt)) if compute is None else \
         literal(compute_fill(bc, compute, static_input(program, field)),
                 compute)
     return f"(({m}) ? {fill} : {val})"
@@ -696,13 +821,16 @@ def _stage_call(program, kspec, idx, pos, onchip, slots, at_pos=None,
                                and program.inputs[f].is_scalar):
             return program.field_dtype(f)
         return compute
-    lines = [f"const {ctype(vtype(f))} v{i} = "
+    # the typed emitter's values are stored types (a narrow one in its 2
+    # bytes); a compute type's are its C type
+    vt = stype if compute is None else ctype
+    lines = [f"const {vt(vtype(f))} v{i} = "
              + read_expr(program, kspec, f, offs, pos, onchip(f), slots,
                          at_pos, at_dims, masked, compute) + ";"
              for i, (f, offs) in enumerate(em.accesses)]
     args = ", ".join(f"v{i}" for i in range(len(em.accesses)))
     rt = kspec.dtype if compute is None else compute
-    lines.append(f"const {ctype(rt)} r = sf_stage_{idx}({args});")
+    lines.append(f"const {vt(rt)} r = sf_stage_{idx}({args});")
     return lines
 
 
@@ -832,6 +960,43 @@ SF_DEV void sf_cp8(void* dst, const void* src, const bool inb) {
 SF_DEV int sf_wrap(const int x, const int n) { return x >= n ? x - n : x; }
 """
 
+# a group of 8 cells of 2 bytes per cp.async (16 bytes, through L2 only),
+# zero-filled outside the domain; emitted only into sources whose plan
+# loads a 2-byte ring input by such groups (``_load_group``)
+_CP16_MACRO = """#ifdef __CUDACC__
+SF_DEV void sf_cp16(void* dst, const void* src, const bool inb) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"((unsigned)__cvta_generic_to_shared(dst)), "l"(src),
+                  "r"(inb ? 16 : 0) : "memory");
+}
+#else
+SF_DEV void sf_cp16(void* dst, const void* src, const bool inb) {
+  if (inb) memcpy(dst, src, 16); else memset(dst, 0, 16);
+}
+#endif
+"""
+
+
+def _load_group(plan, f: str) -> int:
+    """Cells of ring input ``f`` one cp.async of the loader moves: the
+    plan's group of a 2-byte input (8 or 2, ``stacked_io.copy_group``),
+    else 1 (a cell a copy: cp.async for 4 and 8 bytes, a synchronous
+    store otherwise)."""
+    return getattr(plan, "copy_groups", {}).get(f, 1)
+
+
+def _load_width(plan, f: str) -> int:
+    """The loader's region loop width of ring input ``f``: its region's
+    row in groups."""
+    return plan.region(f)[1] // _load_group(plan, f)
+
+
+def _group_macros(plan) -> List[str]:
+    """``_CP16_MACRO`` where the plan loads a 2-byte input by groups of 8
+    cells."""
+    return [_CP16_MACRO] if 8 in getattr(plan, "copy_groups", {}).values() \
+        else []
+
 
 def _slot(plan, f: str, d: int) -> str:
     """Slot of ring ``f`` holding plane t - d at step t, from the step's
@@ -883,8 +1048,11 @@ def _thread_origins(widths) -> List[str]:
 def _input_loads(program, plan, fields, t_expr: str, slot,
                  atype=None) -> List[str]:
     """cp.async of plane ``t_expr`` of every ring input in ``fields`` into
-    its ``slot(f)`` (synchronous stores for 1- and 2-byte types), zero
-    beyond the (j, k) domain; the arrays' planes are (J, K) (a chunk's
+    its ``slot(f)``, zero beyond the (j, k) domain: a cell a copy of 4 or
+    8 bytes, a group of 2 or 8 cells of 2 bytes where the plan aligns
+    them (``_load_group``: the region's left edge, rows and slots at
+    multiples of the group), else synchronous stores (1 and 2 bytes, and
+    a copy that converts); the arrays' planes are (J, K) (a chunk's
     slabs too), or a shard's widened plane (PJ, PK), whose cell (0, 0)
     is global (wj, wk), read where it holds the cell.  ``atype(f)``: the
     type of input ``f``'s array (the stream kernel's ``StreamPlan.dtype``;
@@ -917,8 +1085,13 @@ def _input_loads(program, plan, fields, t_expr: str, slot,
         inb = f"gj >= 0 && gj < {J} && gk >= 0 && gk < {K}"
         if sharded:
             inb += (f" && gj - wj < {PJ} && gk - wk < {PK}")
-        out += _region_loop(RJ, RK, [
-            f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl;",
+        g = _load_group(plan, f)
+        if g > 1:   # a group of g cells, wholly in or out of the domain
+            st = (f"sf_cp{2 * g}(r_{f} + {slot(f)} * {RJ * RK} + p * {g}, "
+                  f"{src}, inb);")
+        out += _region_loop(RJ, RK // g, [
+            f"const int gj = j0 - {hj} + jl, gk = k0 - {hk} + kl"
+            + (f" * {g};" if g > 1 else ";"),
             f"const bool inb = {inb};", st])
     return out
 
@@ -1144,7 +1317,7 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
     from .panel import i_reach, reach
     Hj, Hk = reach(program, plan)
     L = [head, _STREAM_MACROS] + _bf16_macros(plan, program) + \
-        _skeleton_macros(plan.threads) + [
+        _skeleton_macros(plan.threads) + _group_macros(plan) + [
          "// panel streamer (backend/panel.py): replaces the TPU kernel "
          "stencilflow_tpu/backend/panel.py _panel_kernel_body (K1)",
          "SF_DEV void sf_panel_block(const int by, const int bx, "
@@ -1159,8 +1332,8 @@ def panel_source(program: ir.Program, analysis: ChainAnalysis, plan) -> str:
     for f in plan.ring:
         ct = _slot_type(program, plan, f)
         L.append(f"  {ct}* const r_{f} = ({ct}*)(sf_smem + {offs[f]});")
-    widths = sorted({plan.region(f)[1]
-                     for f in list(program.kernels) + list(plan.inputs)})
+    widths = sorted({plan.region(f)[1] for f in program.kernels}
+                    | {_load_width(plan, f) for f in plan.inputs})
     counters = sorted({plan.slots(f) for f in plan.ring} - {1})
     L += [f"  int m{S} = 0;  // t mod {S}" for S in counters]
     L += _thread_origins(widths)
@@ -1304,15 +1477,34 @@ SF_DEV void sf_mbar_wait(unsigned long long* bar, const unsigned parity) {
 
 # bf16 rings with f32 compute (ring_storage="bfloat16": K1, K3a, K3c, K5)
 # and the single-pass bf16 band operands (mxu_precision="bf16": K3b):
-# sf_f2bf rounds to nearest, ties to even, where a value is stored;
-# sf_bf2f reads it back as f32; sf_bfr is both (an f32 slot that holds a
-# rounded value).  On the host a uint16_t carries the bits (NaN kept).
-# Emitted only into sources that use them.
+# sf_f2bf rounds to nearest, ties to even, where a value is stored (and
+# passes a bf16 value through); sf_bf2f reads it back as f32; sf_bfr is
+# both (an f32 slot that holds a rounded value).  Programs typed bfloat16
+# keep their values in bf16 (the typed emitter): sf_bf_add / sf_bf_sub /
+# sf_bf_mul are add.rn.bf16 / sub.rn.bf16 / mul.rn.bf16 on the card
+# (sm_90, inline PTX: no contraction into fma), equal to the float
+# operation rounded once since float32 holds 24 >= 2 x 8 + 2 bits
+# (Figueroa 1995), and that float operation on the host; sf_bfk is a
+# constant by its bits, sf_bf_neg / sf_bf_abs / sf_bf_min / sf_bf_max
+# pass an operand's bits through, and sf_bfq gives a value passed through
+# as sf_f2bf gives its float (a NaN as the conversion makes it).  On the
+# host a uint16_t carries the bits (NaN kept).  Emitted only into sources
+# that use them.
 _BF16_MACROS = """#ifdef __CUDACC__
 #include <cuda_bf16.h>
 typedef __nv_bfloat16 sf_bf16;
 SF_DEV sf_bf16 sf_f2bf(const float v) { return __float2bfloat16_rn(v); }
 SF_DEV float sf_bf2f(const sf_bf16 v) { return __bfloat162float(v); }
+SF_DEV sf_bf16 sf_bfk(const unsigned short u) { return __ushort_as_bfloat16(u); }
+SF_DEV unsigned short sf_bfu(const sf_bf16 v) { return __bfloat16_as_ushort(v); }
+#define SF_BF_OP(name, op) \
+  SF_DEV sf_bf16 name(const sf_bf16 a, const sf_bf16 b) { \
+    unsigned short r; \
+    asm(op " %0, %1, %2;" : "=h"(r) : "h"(sf_bfu(a)), "h"(sf_bfu(b))); \
+    return sf_bfk(r); }
+SF_BF_OP(sf_bf_add, "add.rn.bf16")
+SF_BF_OP(sf_bf_sub, "sub.rn.bf16")
+SF_BF_OP(sf_bf_mul, "mul.rn.bf16")
 #else
 typedef uint16_t sf_bf16;
 SF_DEV sf_bf16 sf_f2bf(const float v) {
@@ -1327,8 +1519,30 @@ SF_DEV float sf_bf2f(const sf_bf16 h) {
   memcpy(&r, &u, 4);
   return r;
 }
+SF_DEV sf_bf16 sf_bfk(const unsigned short u) { return (sf_bf16)u; }
+SF_DEV unsigned short sf_bfu(const sf_bf16 v) { return v; }
+SF_DEV sf_bf16 sf_bf_add(const sf_bf16 a, const sf_bf16 b) {
+  return sf_f2bf(sf_bf2f(a) + sf_bf2f(b)); }
+SF_DEV sf_bf16 sf_bf_sub(const sf_bf16 a, const sf_bf16 b) {
+  return sf_f2bf(sf_bf2f(a) - sf_bf2f(b)); }
+SF_DEV sf_bf16 sf_bf_mul(const sf_bf16 a, const sf_bf16 b) {
+  return sf_f2bf(sf_bf2f(a) * sf_bf2f(b)); }
 #endif
 SF_DEV float sf_bfr(const float v) { return sf_bf2f(sf_f2bf(v)); }
+SF_DEV sf_bf16 sf_f2bf(const sf_bf16 v) { return v; }
+SF_DEV sf_bf16 sf_bf_neg(const sf_bf16 a) {
+  return sf_bfk((unsigned short)(sf_bfu(a) ^ 0x8000u)); }
+SF_DEV sf_bf16 sf_bf_abs(const sf_bf16 a) {
+  return sf_bfk((unsigned short)(sf_bfu(a) & 0x7fffu)); }
+SF_DEV sf_bf16 sf_bf_min(const sf_bf16 a, const sf_bf16 b) {
+  const float x = sf_bf2f(a), y = sf_bf2f(b);
+  return x != x ? a : (y != y ? b : (y < x ? b : a)); }
+SF_DEV sf_bf16 sf_bf_max(const sf_bf16 a, const sf_bf16 b) {
+  const float x = sf_bf2f(a), y = sf_bf2f(b);
+  return x != x ? a : (y != y ? b : (y > x ? b : a)); }
+SF_DEV sf_bf16 sf_bfq(const sf_bf16 v) {
+  const float x = sf_bf2f(v);
+  return x != x ? sf_f2bf(x) : v; }
 """
 
 
@@ -1358,8 +1572,14 @@ def _slot_type(program, plan, f: str, rtype=None) -> str:
 
 
 def _from_slot(program, plan, f: str, lv: str, rtype=None) -> str:
-    """A read of ring ``f``'s slot ``lv`` as its compute type."""
-    return load(_ring_type(program, plan, f, rtype), lv)
+    """A read of ring ``f``'s slot ``lv`` as its compute type: the slot
+    itself where it holds the field's own type and the plan has no
+    compute type (the typed emitter's values), else widened."""
+    rt = np.dtype(_ring_type(program, plan, f, rtype))
+    if getattr(plan, "compute", None) is None and \
+            rt == np.dtype(program.field_dtype(f)):
+        return lv
+    return load(rt, lv)
 
 
 def _to_slot(program, plan, f: str, v: str, rtype=None) -> str:
@@ -2250,7 +2470,7 @@ def _onchip_stream_body(program, plan, em, order, slots, kernel: str,
                             f"inner && {gplane} >= {lo} && "
                             f"{gplane} < {I - hi}", "        ")
         step += ["        SF_SYNC();", "      }", "    }"]
-    widths = sorted(em.widths | {plan.region(f)[1] for f in ring_inputs})
+    widths = sorted(em.widths | {_load_width(plan, f) for f in ring_inputs})
     L += _thread_origins(widths)
     L += [f"  const int tr0_{c} = warp / {c}, tc0_{c} = warp - tr0_{c} * "
           f"{c};" for c in sorted(em.tiles)]
@@ -2333,7 +2553,8 @@ def stream_source(program: ir.Program, analysis: ChainAnalysis,
     mma = []
     if "mma" in em.routes:
         mma = [_MMA_BF16_MACROS if em.bf else _MMA_MACROS]
-    L = [head] + macros + _skeleton_macros(plan.threads) + mma + body
+    L = [head] + macros + _skeleton_macros(plan.threads) + \
+        _group_macros(plan) + mma + body
     L += _entry_points(program, kernel, params, args, (ntj, ntk),
                        plan.smem_bytes(), slots, n_pool, origin=origin,
                        min_blocks=plan.min_blocks(), threads=plan.threads,
@@ -2786,7 +3007,7 @@ def group_source(program: ir.Program, analysis: ChainAnalysis,
                     plan.halo[f][0] - plan.halo[s][0],
                     plan.halo[f][1] - plan.halo[s][1], xs)
                 if f in gset:   # in-group blocks hold exact values
-                    return lambda o: load(program.field_dtype(f), at(o))
+                    return at
                 if plan.rounded(f) and f in program.inputs:
                     return lambda o: f"sf_bfr({at(o)})"   # f32 slots,
                 return lambda o: _from_slot(program, plan, f, at(o))
@@ -2929,9 +3150,8 @@ def tile_source(program: ir.Program, analysis: ChainAnalysis,
             if f not in plan.onchip:
                 return lambda o: None
             d = [plan.margin[f][x] - plan.margin[s][x] for x in range(3)]
-            at = _block_reader(f"b_{f}", plan.region(f)[1:],
-                               plan.region(s)[1:], d[0], d[1], d[2], xs)
-            return lambda o: load(program.field_dtype(f), at(o))
+            return _block_reader(f"b_{f}", plan.region(f)[1:],
+                                 plan.region(s)[1:], d[0], d[1], d[2], xs)
 
         bodies = []
         for m in (False, True):
@@ -3004,12 +3224,12 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
     cell = [(r, 0) for r in range(R)]
     keys = walk_keys(program, s, plan.onchip, R)
     fields = sorted({f for f, _dj, _dk in keys})
-    ct = {f: ctype(program.field_dtype(f)) for f in fields}
+    ct = {f: stype(program.field_dtype(f)) for f in fields}
 
     def q(f, x):
         """Element ``x`` of ``f``'s buffer from the position's pointer, as
-        its value."""
-        return load(program.field_dtype(f), f"q_{f}[{x}]")
+        its value (the stored cell)."""
+        return f"q_{f}[{x}]"
 
     def off(f, di, dj, dk):
         (lf, _), (ljf, _), _ = plan.needs[f]
@@ -3062,7 +3282,7 @@ def _walk_stage(program, kspec, idx: int, s: str, plan, slots,
         return onchip
 
     em = StageEmitter(program, kspec)
-    kt = ctype(kspec.dtype)
+    kt = stype(kspec.dtype)
     cells = []
     def at(g, x):
         return g if not x else f"({g} + {x})"

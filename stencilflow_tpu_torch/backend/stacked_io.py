@@ -24,6 +24,44 @@ THREADS = 256
 SPILL_BYTES_CAP = 4 << 30
 
 
+def copy_group(itemsize: int, hk: int, K: int, shard=None):
+    """(g, hk') for a ring input of ``itemsize``-byte cells loaded into
+    slots of its own type (K1's, K3a's and K4's loader): it moves by
+    ``cp.async`` in groups of ``g`` cells (8: 16 bytes, where its k-halo
+    ``hk`` is a multiple of 8 already; else 2: 4 bytes), its k-halo
+    widened to ``hk'``, the multiple of ``g`` at or above ``hk``, so
+    that every group's global and shared addresses are multiples of its
+    size (the plane's rows of ``K`` cells, a block's k origin, a
+    multiple of 8, and the region's rows, its tile plus ``2 hk'``).
+    ``shard`` = (Bk, xk): a shard's k core and exchanged k halo (its
+    widened plane's rows of Bk + 2 xk cells start at global k origin -
+    xk, every origin a multiple of Bk).  (1, hk) where that cannot be
+    proven from the shapes (odd ``K``, a shard's odd core or halo, cells
+    of 4 or 8 bytes, which the loader moves a cell a copy): the input
+    keeps a cell a copy, synchronous for a 2-byte cell."""
+    if itemsize != 2:
+        return 1, hk
+    for g in (8, 2):
+        if (g == 8 and hk % 8) or K % g or (
+                shard is not None and (shard[0] % g or shard[1] % g)):
+            continue
+        return g, -(-hk // g) * g
+    return 1, hk
+
+
+def check_aligned(arrays, groups) -> None:
+    """Raise ValueError before a launch where an input that the kernel
+    loads by ``cp.async`` groups (``groups``: input -> cells a group of
+    2 bytes each) does not start at a multiple of the group's bytes:
+    the copy would fault on a misaligned address.  There is no quiet
+    switch to the synchronous loads."""
+    for f, g in groups.items():
+        if g > 1 and arrays[f].data_ptr() % (2 * g):
+            raise ValueError(f"input {f!r} at {arrays[f].data_ptr():#x} is "
+                             f"not aligned to the {2 * g}-byte copies the "
+                             "kernel loads it by")
+
+
 def accesses_with_center(kspec: ir.KernelSpec):
     """{field: offsets list}, with the copy-BC centre read added."""
     accs = {f: list(v) for f, v in kspec.accesses().items()}
@@ -185,7 +223,7 @@ def resolve_device(device) -> torch.device:
 
 def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
                out_dims=None, origin_i=None, origin_jk=None, io_dtype=None,
-               out=None):
+               out=None, groups=None):
     """Shared wrapper body: CPU tensors take ``plain``; CUDA tensors
     launch ``lib()``'s kernel or raise.  ``extra(device)`` gives device
     tensors the kernel reads after the array inputs.  Inputs span
@@ -194,8 +232,10 @@ def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
     ``origin_jk`` a shard's (j, k) origin; ``io_dtype`` the torch type
     of the kernel's array inputs and outputs where it is not the
     program's (bf16 compute); ``out`` the output tensors to write
-    (contiguous, of the outputs' shape and type; allocated otherwise).
-    Returns the outputs and whether the kernel was launched."""
+    (contiguous, of the outputs' shape and type; allocated otherwise);
+    ``groups`` the plan's ``cp.async`` groups of 2-byte inputs
+    (``check_aligned``).  Returns the outputs and whether the kernel was
+    launched."""
     first = next(a for n, a in arrays.items()
                  if not program.inputs[n].is_scalar)
     if first.device.type == "cpu":
@@ -209,6 +249,7 @@ def run_kernel(program, arrays, lib, plain, extra=None, in_dims=None,
     if first.device.type != "cuda":
         raise ValueError(f"unsupported device {first.device}")
     check_arrays(program, arrays, "cuda", in_dims, io_dtype)
+    check_aligned(arrays, groups or {})
     dims = tuple(out_dims or program.dimensions)
     if out is None:
         outs = [torch.empty(dims, device=first.device, dtype=io_dtype

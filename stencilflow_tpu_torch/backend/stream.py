@@ -110,6 +110,15 @@ planes (1.125x the core at h = 8, Ic = 128) so that chunks need nothing
 from each other, and an out-of-core call is bound by the host copies
 around it, not by the kernel (PERF.md).
 
+The on-chip body (K3a, K4 in every mode) loads a ring input of 2-byte
+cells held in slots of its own type by ``cp.async`` groups of 8 or 2
+cells, its k-halo widened to a multiple of the group
+(``copy_groups``, ``stacked_io.copy_group``): a chunk's plane is J x K
+cells, so an even K keeps every group aligned at any i origin; a shard
+needs an even core Bk and exchanged halo Xk too (its origins are
+multiples of Bk), and ``run_local_stream`` refuses a k origin that is
+not a multiple of the group.  The spill rung (K3c) keeps its own loads.
+
 Shard mode (K4 on one shard of a mesh, the counterpart of
 ``compile_local_stream``'s ``pallas_call`` with a 3-element origin,
 ``mxu_assets`` and ``pool_locals``; ``parallel/domain.py`` plans and
@@ -273,8 +282,9 @@ from .panel import (AHEAD, PANEL_LANE_COST, PANEL_THREADS, ring_fields,
                     tile_candidates)
 from .stacked_io import (SPILL_BYTES_CAP, THREADS, accesses_with_center,
                          bc_select, check_ring_storage, check_scope,
-                         launch_mode, or_mask, place_by_phase, resolve_device,
-                         round_bf16, rounded_rings, run_kernel, spanned_arrays)
+                         copy_group, launch_mode, or_mask, place_by_phase,
+                         resolve_device, round_bf16, rounded_rings,
+                         run_kernel, spanned_arrays)
 from .promotion import compute_fill, static_input
 from .tile_eval import (carrier, device_const, eval_kernel_statements,
                         from_compute, round_to, to_compute)
@@ -439,6 +449,10 @@ class StreamPlan:
     # outputs leave in it, for the wrapper to cast to their kernel types
     compute_dtype: str = "float32"
     compute: Optional[np.dtype] = None
+    # the on-chip body's ring inputs of 2-byte cells loaded by cp.async:
+    # cells a copy (8 or 2, ``stacked_io.copy_group``; their k-halo
+    # widened to a multiple of it); the others load a cell a copy
+    copy_groups: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def lags(analysis: ChainAnalysis, min_lag_max: int = 0,
@@ -1435,6 +1449,21 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
             raise ValueError(f"field {t[0]} halo {halo[t[0]]} is narrower "
                              f"than its transform's reach ({need_j}, "
                              f"{need_k})")
+    # the on-chip body's loader moves a ring input of 2-byte cells held in
+    # slots of its own type by cp.async groups (``copy_group``: its k-halo
+    # widened); the spill rung loads its inputs its own way
+    wide, groups = dict(halo), {}
+    for f in onchip:
+        if f in program.inputs and plan.ring_dtype(f) == plan.dtype(f) \
+                and all(t[0] != f for t in tkeys):
+            g, hk = copy_group(plan.dtype(f).itemsize, halo[f][1], K,
+                               (shard[1], xhalo[1]) if shard[0] else None)
+            if g > 1:
+                groups[f], wide[f] = g, (halo[f][0], hk)
+
+    def use_groups(on: bool) -> None:
+        plan.halo, plan.copy_groups = (wide, groups) if on else (halo, {})
+
     # the spill rung: per-cell plans only, as the reference's
     spillable = spill != "off" and not plans
     every = spill == "all"
@@ -1447,6 +1476,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
         rings fit unpacked, as before the body packed them: packing those
         alone is the spill rung's (K3c)."""
         plan.packed, plan.spilled = False, {}
+        use_groups(True)
         size = plan.smem_bytes() if plans else plan.unpacked_bytes()
         return not every and size <= smem_budget
 
@@ -1465,6 +1495,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
             plan.threads = best_threads()[1]
             return plan
         plan.threads = THREADS
+        use_groups(False)
         if spillable and _spill_to_fit(plan, order, deltas, smem_budget,
                                        every):
             return plan
@@ -1477,6 +1508,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
             plan.tile = cand
             if leg == "spill":
                 plan.threads = THREADS
+                use_groups(False)
                 if not _spill_to_fit(plan, order, deltas, smem_budget,
                                      every):
                     continue
@@ -1497,6 +1529,7 @@ def _build_plan(program: ir.Program, analysis: ChainAnalysis, mxu: str,
                             if spillable else ""))
     plan.tile, plan.spilled, plan.threads = best[1], best[2], best[3]
     plan.packed = leg == "spill"
+    use_groups(not plan.packed)
     return plan
 
 
@@ -2037,7 +2070,8 @@ def run_stream(plan: StreamPlan, arrays: Dict[str, torch.Tensor], lib=None):
         plan.program, arrays,
         lambda: lib if lib is not None else build_stream(plan),
         lambda: stream_plain(plan, arrays),
-        extra=lambda device: _pool_tensors(plan, device), io_dtype=io)
+        extra=lambda device: _pool_tensors(plan, device), io_dtype=io,
+        groups=plan.copy_groups)
     launches_by[_mode(plan)] += launched
     if launched and io is not None:   # each output to its kernel type
         outs = {o: from_compute(v, cd, program.kernels[o].dtype)
@@ -2076,6 +2110,10 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
     tensors to write (slices of a shard's whole output, say)."""
     if not plan.block:
         raise ValueError("run_local_stream takes a local plan (plan_local)")
+    if plan.shard[0] and plan.copy_groups and origin_k % max(
+            plan.copy_groups.values()):
+        raise ValueError(f"shard k origin {origin_k} breaks the alignment "
+                         "of the plan's cp.async groups")
     in_dims, out_dims = _local_dims(plan)
     outs, launched = run_kernel(
         plan.program, slabs,
@@ -2084,7 +2122,8 @@ def run_local_stream(plan: StreamPlan, origin_i: int,
                              inst),
         extra=lambda device: _pool_tensors(plan, device, inst),
         in_dims=in_dims, out_dims=out_dims, origin_i=origin_i,
-        origin_jk=(origin_j, origin_k) if plan.shard[0] else None, out=out)
+        origin_jk=(origin_j, origin_k) if plan.shard[0] else None, out=out,
+        groups=plan.copy_groups)
     launches_by[_mode(plan)] += launched
     return outs
 

@@ -7,7 +7,7 @@ reduced-precision modes beside their f32 routes, for one checkout.
 
     python stencilflow_tpu_torch/deep_time.py [--root DIR] [--reps N]
         [--cells deep|panel|banded|local|group|tile|overlap|solvers|
-                 pipeline|autotune|bf16]
+                 pipeline|autotune|bf16|narrow]
         [--ptxas]
 
 Imports ``stencilflow_tpu_torch`` from the checkout at ``--root`` (this
@@ -39,7 +39,11 @@ repeating the card in turns with the single-device route
 on cross-r2 256^3 x 8, hdiff3d 256^3 x 8 and jacobi2d 8192^2 x 8, each
 winner in turns with the route (``_autotune``).  ``--cells bf16``: each
 reduced-precision leg of ``chip_smoke.py`` in turns with its cell's f32
-plan over three sessions (``_bf16``).  ``--cells overlap``:
+plan over three sessions (``_bf16``).  ``--cells narrow``: K1 on
+jacobi3d 512^3 x 8 typed bf16 and f16 and K4 on a chunk of jacobi3d
+1024^3 x 8 typed bf16, each in turns with the program in f32 over three
+sessions, with each kernel's SASS conversions (``_narrow``).
+``--cells overlap``:
 jacobi3d and
 hotspot3d 512^3 x 2 and jacobi2d 8192^2 x 2 (I = 1) on the overlap
 kernel's plan (``OverlapPlan.build``, their route), each followed by
@@ -619,6 +623,119 @@ def _bf16(smi: str, reps: int) -> dict:
     return out
 
 
+def _converts(lib_path: str) -> int:
+    """F2F / F2FP instructions (float conversions) in the SASS of a built
+    kernel library (``cuobjdump -sass``): every stage body is inlined
+    into its one kernel, whose loads convert nothing."""
+    import re
+    from stencilflow_tpu_torch.backend import build
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    return len(re.findall(r"\bF2FP?\b", sass))
+
+
+def _narrow(smi: str, reps: int) -> dict:
+    """``--cells narrow``: programs typed bfloat16 and float16 on the
+    kernels that stream them, each in turns with the same program in
+    float32 on its own plan: jacobi3d 512^3 x 8 typed bf16 and typed f16
+    on K1 (``PanelPlan.build``, the route), and the middle chunk (4 of 8:
+    144 planes in, 128 out) of jacobi3d 1024^3 x 8 typed bf16 on K4
+    (``plan_local``, random slabs made on the card).  A cell's two
+    kernels are built at once; each is held to its plain version on the
+    card bit for bit (2-byte patterns), then three sessions
+    of f32, narrow, narrow, f32, ``reps`` launches each after a warm-up;
+    the narrow kernel's launches over them (its wrapper's count).  Each
+    cell prints the plans' tiles, shared memory, resident blocks per SM
+    (the card's occupancy query), 2-byte inputs moved by cp.async groups
+    (``copy_groups``, where the checkout has them) and the F2F / F2FP
+    instructions in each kernel's SASS (``_converts``)."""
+    import torch
+    import stencilflow_tpu_torch as sft
+    from stencilflow_tpu_torch.backend import build, codegen
+    from stencilflow_tpu_torch.backend import panel as pn
+    from stencilflow_tpu_torch.backend import stream as st
+    from stencilflow_tpu_torch.backend.dense import chain_halo
+    from stencilflow_tpu_torch.backend.stacked_io import spanned_arrays
+    from stencilflow_tpu_torch.synthesize import synthesize_stencil
+
+    def synth(n, dt):
+        return sft.parse_program(synthesize_stencil(
+            num_stages=8, dimensions=(n,) * 3, shape="diffusion",
+            data_type=dt, seed_data="random:0.0,1.0"),
+            name=f"jacobi3d_{n}_8itr_{dt}")
+
+    def panel_cell(p):
+        an = sft.ChainAnalysis.run(p)
+        plan = pn.PanelPlan.build(an)
+        src = codegen.panel_source(p, an, plan)
+        arrays = spanned_arrays(p, sft.load_input_arrays(p, seed=0),
+                                device="cuda")
+        return (plan, src, "panel", plan.smem_bytes(p),
+                lambda lib: pn.run_panel(p, an, plan, arrays, lib),
+                lambda: pn.panel_plain(p, an, plan, arrays),
+                lambda: pn.launches_by["narrow"])
+
+    def local_cell(p):
+        an = sft.ChainAnalysis.run(p)
+        plan = st.plan_local(p, an, 128, chain_halo(an)[0])
+        origin = 4 * 128 - plan.halo_i
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        dt = torch.bfloat16 if "bfloat16" in p.name else torch.float32
+        slabs = {n: torch.rand((plan.extent(),) + p.dimensions[1:],
+                               generator=gen, device="cuda").to(dt)
+                 for n in p.inputs}
+        return (plan, st.stream_source(plan), "stream", plan.smem_bytes(),
+                lambda lib: st.run_local_stream(plan, origin, slabs, lib),
+                lambda: st.local_stream_plain(plan, origin, slabs),
+                lambda: st.launches_by["local_narrow"])
+
+    cells = {"K1 bf16": (panel_cell, 512, "bfloat16"),
+             "K1 f16": (panel_cell, 512, "float16"),
+             "K4 chunk bf16": (local_cell, 1024, "bfloat16")}
+    out = {}
+    for name, (make, n, dt) in cells.items():
+        f32, narrow = make(synth(n, "float32")), make(synth(n, dt))
+        libs = build.load_libraries([(f32[1], f32[2]),
+                                     (narrow[1], narrow[2])])
+        row = {}
+        for key, c, lib in (("f32", f32, libs[0]), ("narrow", narrow,
+                                                    libs[1])):
+            got = c[4](lib)
+            want = c[5]()
+            torch.cuda.synchronize()
+            same = all(torch.equal(got[o].view(torch.int16)
+                                   if got[o].element_size() == 2
+                                   else got[o],
+                                   want[o].view(torch.int16)
+                                   if want[o].element_size() == 2
+                                   else want[o]) for o in want)
+            del got, want
+            row[key + "_plan"] = {
+                "tile": list(c[0].tile), "threads": c[0].threads,
+                "smem": c[3], "blocks_per_sm": pn.occupancy(lib),
+                "copy_groups": dict(getattr(c[0], "copy_groups", {})),
+                "converts": _converts(build.library_path(c[1], c[2])),
+                "equal_plain": bool(same)}
+        before = narrow[6]()
+        sessions = [[_events(lambda c=c, lib=lib: c[4](lib), reps)
+                     for c, lib in ((f32, libs[0]), (narrow, libs[1]),
+                                    (narrow, libs[1]), (f32, libs[0]))]
+                    for _ in range(3)]
+        row.update(f32_ms=[x for s in sessions for x in (s[0], s[3])],
+                   narrow_ms=[x for s in sessions for x in (s[1], s[2])],
+                   narrow_launches=narrow[6]() - before)
+        out[name] = row
+        print(f"{name}: f32 {', '.join(f'{x:.3f}' for x in row['f32_ms'])}"
+              f" ms ({row['f32_plan']}) | {dt} "
+              f"{', '.join(f'{x:.3f}' for x in row['narrow_ms'])} ms "
+              f"({row['narrow_plan']}), {row['narrow_launches']} launches "
+              f"| {smi}", flush=True)
+        del f32, narrow
+        torch.cuda.empty_cache()
+    return out
+
+
 def _ptxas(sources) -> None:
     """nvcc's register and spill report of every source."""
     import tempfile
@@ -647,7 +764,7 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", choices=("deep", "panel", "banded", "local",
                                         "group", "tile", "overlap",
                                         "solvers", "pipeline", "autotune",
-                                        "bf16"),
+                                        "bf16", "narrow"),
                     default="deep")
     ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
@@ -667,12 +784,17 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    if args.cells in ("solvers", "pipeline", "autotune", "bf16"):
+    if args.cells in ("solvers", "pipeline", "autotune", "bf16", "narrow"):
         cells = {"solvers": _solvers, "pipeline": _pipeline,
-                 "autotune": _autotune, "bf16": _bf16}[args.cells]
+                 "autotune": _autotune, "bf16": _bf16,
+                 "narrow": _narrow}[args.cells]
+        got = cells(smi, args.reps)
         print(json.dumps({"root": os.path.abspath(args.root), "card": smi,
-                          "cells": cells(smi, args.reps)}))
-        return 0
+                          "cells": got}))
+        # a narrow kernel that differs from its plain version fails the run
+        return int(any(not row[k]["equal_plain"] for row in got.values()
+                       for k in ("f32_plan", "narrow_plan")
+                       if isinstance(row, dict) and k in row))
     cells = {"deep": _deep, "panel": _panel, "banded": _banded,
              "local": _local, "group": _group, "tile": _tile,
              "overlap": _overlap}[args.cells](sft, synthesize_stencil)

@@ -859,10 +859,11 @@ def _narrow_case(kind, dt):
 @pytest.mark.parametrize("kind", ["panel", "overlap", "stream", "spill",
                                   "group"])
 def test_narrow_kernel_matches_plain_and_oracle_on_card(kind, dt, cuda):
-    """K1, K2, K3a, K3c and K5 on programs typed bf16 and f16: storage in
-    2 bytes, every op in float rounded once to the narrow type, equal to
-    the plain version and the numpy oracle bit for bit (2-byte
-    patterns); one launch, counted apart."""
+    """K1, K2, K3a, K3c and K5 on programs typed bf16 and f16: storage
+    and values in 2 bytes, every op rounded once to the narrow type (the
+    card's bf16 / f16 instruction for + - *), equal to the plain version
+    and the numpy oracle bit for bit (2-byte patterns); one launch,
+    counted apart."""
     from stencilflow_tpu_torch.dtypes import to_numpy
     p, run, plain, count = _narrow_case(kind, dt)
     inputs = port.load_input_arrays(p, seed=5)
@@ -986,8 +987,9 @@ def _narrow_k4k6(kind, dt, cuda):
                                   "fast"])
 def test_narrow_k4_k6_on_card(kind, dt, cuda):
     """K4 (chunk, shard, segment) and K6 (masked, fast) on programs typed
-    bf16 and f16, through their entry points: 2-byte cells loaded
-    synchronously, every op rounded once, equal to the numpy oracle bit
+    bf16 and f16, through their entry points: 2-byte cells (K4's ring
+    inputs by cp.async groups where its plan aligns them, K6's tiles
+    synchronously), every op rounded once, equal to the numpy oracle bit
     for bit; every launch counted under its narrow mode."""
     p, inputs, got, n, want_n = _narrow_k4k6(kind, dt, cuda)
     assert n == want_n
@@ -2624,3 +2626,115 @@ def test_alu_variant_matches_plain_on_card(op, cuda):
         ok, err = alu_ceiling.compare(op, got,
                                       alu_ceiling.alu_plain(op, x, steps))
         assert ok, f"{op}: max abs diff {err}"
+
+
+# -- narrow K1 and K4: grouped cp.async loads, native bf16 / f16 operations --
+
+@pytest.mark.cuda
+def test_native_narrow_ops_equal_the_float_path_on_card(cuda):
+    """add.rn / sub.rn / mul.rn in bf16 and f16, as the typed emitter
+    emits them (``sf_bf_add``, ``sf_h_mul``, ...), equal the float32
+    operation rounded once (the float path they replace) on all 2^32
+    operand pairs of each, NaNs included, bit for bit: 0 mismatches."""
+    from stencilflow_tpu_torch.probes import narrow_ops
+    before = narrow_ops.launches
+    counts, first = narrow_ops.mismatches(device=cuda)
+    assert narrow_ops.launches == before + 1
+    assert sum(counts.values()) == 0, (counts, first)
+
+
+# special 2-byte patterns put into the inputs: NaNs with payloads and
+# signs, infinities, subnormals, and pairs that meet at rounding ties
+# (1 + 2^-8 in bf16, 1 + 2^-11 in f16)
+_SPECIALS = {"bfloat16": (0x7fc1, 0xffc0, 0x7f80, 0xff80, 0x0001, 0x8003,
+                          0x007f, 0x3f80, 0x3b80, 0xbb80),
+             "float16": (0x7e01, 0xfe00, 0x7c00, 0xfc00, 0x0001, 0x8003,
+                         0x03ff, 0x3c00, 0x1000, 0x9000)}
+
+
+def _special_values(shape, dt, seed):
+    """Random values of ``dt`` in [-2, 3) with 0.2 % of the cells set to
+    ``_SPECIALS`` (so that most outputs stay numbers through a chain of
+    8 stages), as a numpy array of the port's type."""
+    from stencilflow_tpu_torch import dtypes
+    rng = np.random.default_rng(seed)
+    a = dtypes.cast(rng.uniform(-2, 3, shape), dtypes.str_to_dtype(dt))
+    bits = a.view(np.uint16).copy()
+    hit = rng.random(shape) < 0.002
+    bits[hit] = rng.choice(np.array(_SPECIALS[dt], np.uint16), hit.sum())
+    return bits.view(a.dtype)
+
+
+def _aligned_case(name, dt):
+    """(program, plan, run(arrays), plain(arrays), arrays' shape, count)
+    of the alignment branches of the narrow loader: K1 on odd K (the
+    synchronous loads), an odd left halo (widened to groups of 2), a halo
+    of 8 (groups of 8); K4 on a chunk at an odd i origin, on shards whose
+    exchanged halo or core is odd (synchronous) or even (groups)."""
+    def jac(dims, iters):
+        return port.parse_program(synthesize_stencil(
+            num_stages=iters, dimensions=dims, shape="diffusion",
+            seed_data="random:0.0,1.0", data_type=dt))
+    if name.startswith("K1"):
+        dims, iters, groups = {"K1 odd K": ((12, 20, 37), 3, {}),
+                               "K1 odd halo": ((12, 20, 48), 3, {"a": 2}),
+                               "K1 halo 8": ((12, 24, 64), 8, {"a": 8})}[
+                                   name]
+        p = jac(dims, iters)
+        an = port.ChainAnalysis.run(p)
+        plan = panel.PanelPlan.build(an)
+        assert plan.copy_groups == groups
+        return (p, lambda a: panel.run_panel(p, an, plan, a),
+                lambda a: panel.panel_plain(p, an, plan, a), p.dimensions,
+                lambda: panel.launches_by["narrow"])
+    p = jac((24, 20, 48) if name == "K4 chunk" else (16, 32, 46), 3)
+    an = port.ChainAnalysis.run(p)
+    if name == "K4 chunk":
+        plan = stream.plan_local(p, an, 8, 3, mxu="off")
+        assert plan.copy_groups == {"a": 2}
+        org = (5, 0, 0)   # chunk 1 of 3: an odd i origin
+    else:
+        shard, xhalo, groups = {
+            "K4 shard odd halo": ((16, 23), (3, 3), {}),
+            "K4 shard odd core": ((16, 23), (4, 4), {}),
+            "K4 shard": ((16, 23), (4, 4), {})}[name]
+        if name == "K4 shard":
+            p = jac((16, 32, 48), 3)
+            an = port.ChainAnalysis.run(p)
+            shard, groups = (16, 24), {"a": 2}
+        plan = stream.plan_local(p, an, 16, 0, mxu="off", shard=shard,
+                                 xhalo=xhalo)
+        assert plan.copy_groups == groups
+        org = (0, 16, shard[1])   # the shard at (1, 1)
+    key = "shard_narrow" if plan.shard[0] else "local_narrow"
+    return (p, lambda a: stream.run_local_stream(plan, org[0], a, None,
+                                                 org[1], org[2]),
+            lambda a: stream.local_stream_plain(plan, org[0], a, org[1],
+                                                org[2]),
+            (plan.extent(),) + plan.plane(),
+            lambda: stream.launches_by[key])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bfloat16", "float16"])
+@pytest.mark.parametrize("name", ["K1 odd K", "K1 odd halo", "K1 halo 8",
+                                  "K4 chunk", "K4 shard odd halo",
+                                  "K4 shard odd core", "K4 shard"])
+def test_narrow_loads_and_ops_match_plain_on_card(name, dt, cuda):
+    """K1 and K4 typed bf16 and f16 on every branch of the loader's
+    alignment, on inputs carrying NaNs, infinities, subnormals and
+    rounding ties: one launch, equal to the plain version bit for bit
+    (2-byte patterns, NaNs included)."""
+    from stencilflow_tpu_torch import dtypes
+    p, run, plain, shape, count = _aligned_case(name, dt)
+    arrays = {n: dtypes.to_torch(_special_values(shape, dt, 7 + i), cuda)
+              for i, n in enumerate(p.inputs)}
+    before = count()
+    got = run(arrays)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    want = plain(arrays)
+    for o in p.outputs:
+        assert got[o].dtype == want[o].dtype
+        assert torch.equal(got[o].view(torch.int16), want[o].view(
+            torch.int16)), o

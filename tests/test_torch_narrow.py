@@ -25,7 +25,11 @@ on hotspot typed float16 (pinned below).
 (d) The generated CUDA sources of those kernels, built with g++
 (``sf_host_launch``; bf16 in the bf16 ring macros' ``uint16_t``, float16
 as a struct on the host, so a missed conversion does not compile), against
-the plain versions and the oracle.
+the plain versions and the oracle, with K1's loader on each of its
+alignment branches (``ALIGN``); the narrow sources' loads and 2-byte
+operations at the source level; the float path's rounding against the
+correctly rounded result on the host (``probes/narrow_ops.py``, whose
+kernel holds the card's instructions to the float path).
 (e) K3b: narrow stages stay off the banded route (the JAX package's
 banded kernel lands 0.07955 relative from its oracle on box3d r2 typed
 bf16 at seed 3), the simulator, routing (K6's cell and K4's out-of-core
@@ -416,6 +420,13 @@ KERNELS = {
        for dt, t in zip(NARROW, ("bf16", "f16"))},
     **{f"K5-{t}": (lambda dt=dt: _k5(dt), "group")
        for dt, t in zip(NARROW, ("bf16", "f16"))},
+    # the loader's alignment branches (ALIGN)
+    "K1-oddK-bf16": (lambda: typed("diffusion", (12, 14, 15), 4,
+                                   "bfloat16"), "panel"),
+    "K1-oddhalo-f16": (lambda: typed("diffusion", (12, 14, 16), 3,
+                                     "float16"), "panel"),
+    "K1-halo8-bf16": (lambda: typed("diffusion", (10, 12, 32), 8,
+                                    "bfloat16"), "panel"),
     "K1-weak-const": (weak_demote_spec, "panel"),
     "K1-bf16-meets-f16": (bf16_meets_f16_spec, "panel"),
     "K3a-f32-reads-bf16": (f32_reads_bf16_spec, "stream"),
@@ -573,10 +584,100 @@ def test_jax_f16_kernels_differ_from_their_oracle(name, jax_kernels):
     assert np.abs(w - truth).mean() <= np.abs(j - truth).mean()
 
 
+# K1's loader on a ring input of 2-byte cells (``stacked_io.copy_group``):
+# case -> (cells a cp.async moves, the input's k-halo in the plan)
+ALIGN = {"K1-oddK-bf16": (1, 4),      # odd K: synchronous stores
+         "K1-oddhalo-f16": (2, 4),    # halo 3 widened to 4: groups of 2
+         "K1-halo8-bf16": (8, 8),     # halo 8: groups of 8 (16 bytes)
+         "K1-jacobi-bf16": (2, 4)}
+
+
+@pytest.mark.parametrize("name", sorted(ALIGN))
+def test_k1_loader_alignment_branches(name):
+    """Each case takes its branch of the loader: the plan's group and
+    widened halo, and the source's copies (``sf_cp4`` / ``sf_cp16`` of 2
+    and 8 cells, the synchronous store where K is odd)."""
+    p, plan, _got, _oracle, _inputs, src = _case(name)
+    g, hk = ALIGN[name]
+    assert plan.copy_groups.get("a", 1) == g and plan.halo["a"][1] == hk
+    RJ, RK = plan.region("a")
+    assert RK % g == 0 and (plan.tile[1] - hk) % g == 0
+    loads = [x for x in src.splitlines() if "g_a + (long long)(t + 1)" in x]
+    assert len(loads) == 1
+    want = {1: "*(r_a + ", 2: "sf_cp4(r_a + ", 8: "sf_cp16(r_a + "}[g]
+    assert loads[0].strip().startswith(want)
+
+
+@pytest.mark.parametrize("a0", [0x0000, 0x0078, 0x3b7c, 0x3f7c, 0x7f78,
+                                0x8000, 0xbf7c, 0xff7c])
+def test_float_path_rounds_correctly_on_the_host(a0):
+    """The theorem under the native bf16 / f16 operations, on the host:
+    for first operands a0 .. a0 + 7 (zeros and subnormals, 2^-8, 1, the
+    largest numbers, infinities and NaNs, both signs) and every second
+    operand, the float32 operation rounded once equals the correctly
+    rounded result, for + - * in bf16 and f16 (``narrow_ops_plain``; the
+    card test holds the instructions to the float path over all pairs)."""
+    from stencilflow_tpu_torch.probes import narrow_ops
+    counts, first = narrow_ops.mismatches(a0, 8, device="cpu")
+    assert sum(counts.values()) == 0, (counts, first)
+
+
+def _stage_functions(src):
+    """The text of a source's stage functions (``sf_stage_<n>``)."""
+    out = []
+    for part in src.split("sf_stage_")[1:]:
+        if part.split("(")[0].isdigit() and ") {\n" in part.split("}")[0]:
+            out.append(part.split("\n}\n")[0])
+    return "\n".join(out)
+
+
+@pytest.mark.parametrize("dt", NARROW)
+@pytest.mark.parametrize("shape", ["diffusion", "hdiff"])
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_narrow_sources_load_by_cp_async_and_compute_in_2_bytes(
+        kernel, shape, dt):
+    """The narrow K1 and K4 sources (jacobi3d x 8 and hdiff x 2 at 64
+    wide) move their 2-byte ring inputs by ``cp.async`` groups and no
+    synchronous store, and their stages take and return 2-byte values:
+    every same-type + - * is the card's instruction (``sf_bf_add``,
+    ``sf_h_mul``, ...), with no ``sf_bfr(`` / ``sf_hr(`` rounding and no
+    conversion to or from float."""
+    p = port.parse_program(typed(shape, (16, 24, 64),
+                                 8 if shape == "diffusion" else 2, dt))
+    an = port.ChainAnalysis.run(p)
+    if kernel == "K1":
+        plan = panel.PanelPlan.build(an)
+        src = codegen.panel_source(p, an, plan)
+    else:
+        from stencilflow_tpu_torch.backend.dense import chain_halo
+        plan = stream.plan_local(p, an, 8, chain_halo(an)[0])
+        src = stream.stream_source(plan)
+    ins = [n for n, sp in p.inputs.items() if not sp.is_scalar]
+    assert set(plan.copy_groups) == set(ins)
+    for n in ins:
+        g = plan.copy_groups[n]
+        loads = [x.strip() for x in src.splitlines()
+                 if f"g_{n} + (long long)(t + 1)" in x]
+        assert loads and all(x.startswith(f"sf_cp{2 * g}(r_{n} + ")
+                             for x in loads)
+        assert f"*(r_{n} + " not in src
+    stages = _stage_functions(src)
+    nat = "sf_bf" if dt == "bfloat16" else "sf_h"
+    ops = ("_add(", "_mul(") + (("_sub(",) if shape == "hdiff" else ())
+    assert all(nat + op in stages for op in ops)
+    for conversion in ("sf_bfr(", "sf_hr(", "sf_f2bf(", "sf_f2h(",
+                       "float "):
+        assert conversion not in stages
+    assert f"const {'sf_bf16' if dt == 'bfloat16' else 'sf_half'} v0 = " \
+        in src
+
+
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_generated_kernel_matches_plain_and_oracle(name, tmp_path):
-    """The CUDA source built with g++: 2-byte storage, float compute,
-    one rounding per narrow op, bit for bit."""
+    """The CUDA source built with g++: 2-byte storage and values, one
+    rounding per narrow op (the host twin of the card's bf16 / f16
+    instructions: the float operation rounded once), ring inputs by
+    ``cp.async`` groups where the plan aligns them, bit for bit."""
     p, plan, got, oracle, inputs, src = _case(name)
     assert "sf_d2hr" in src   # the narrow macros, in narrow programs only
     extra = [a for _k, a in plan.kernel_pool()] if hasattr(

@@ -253,24 +253,89 @@ def _k4_shard_host(p, inputs, tmp_path):
     return outs
 
 
+def _k4_shards_host(p, inputs, shard, xhalo, tmp_path):
+    """Every shard of a (J / Bj) x (K / Bk) grid of (Bj, Bk) = ``shard``
+    cores through K4's shard-mode source built with g++ (inputs widened
+    by ``xhalo``, zero beyond the domain), each held to its plain
+    version; the assembled outputs, and the plan."""
+    import ctypes
+    an = port.ChainAnalysis.run(p)
+    I, J, K = p.dimensions
+    (bj, bk), (xj, xk) = shard, xhalo
+    plan = stream.plan_local(p, an, I, 0, mxu="off", shard=shard,
+                             xhalo=xhalo)
+    lib = _build(stream.stream_source(plan), tmp_path)
+    blob = scalar_blob(p, inputs)
+    outs = {o: np.zeros(p.dimensions, p.kernels[o].dtype)
+            for o in p.outputs}
+    for oj in range(0, J, bj):
+        for ok in range(0, K, bk):
+            tiles = {}
+            for n, spec in p.inputs.items():
+                if spec.is_scalar:
+                    tiles[n] = dtypes.to_torch(inputs[n])
+                    continue
+                a = np.asarray(inputs[n])
+                w = np.zeros((I, bj + 2 * xj, bk + 2 * xk), a.dtype)
+                js, ks = max(0, oj - xj), max(0, ok - xk)
+                je, ke = min(J, oj + bj + xj), min(K, ok + bk + xk)
+                w[:, js - oj + xj:je - oj + xj, ks - ok + xk:ke - ok + xk] = \
+                    a[:, js:je, ks:ke]
+                tiles[n] = dtypes.to_torch(w)
+            want = stream.local_stream_plain(plan, 0, tiles, oj, ok)
+            arrays = [dtypes.to_numpy(tiles[n]) for n, s in p.inputs.items()
+                      if not s.is_scalar]
+            got = [np.zeros((I, bj, bk), p.kernels[o].dtype)
+                   for o in p.outputs]
+            ip = (ctypes.c_void_p * len(arrays))(*[a.ctypes.data
+                                                   for a in arrays])
+            op = (ctypes.c_void_p * len(got))(*[a.ctypes.data for a in got])
+            lib.sf_host_launch(ctypes.addressof(ip), ctypes.addressof(op),
+                               blob.ctypes.data, 0, oj, ok)
+            for o, g in zip(p.outputs, got):
+                np.testing.assert_array_equal(bits(g),
+                                              bits(dtypes.to_numpy(want[o])))
+                outs[o][:, oj:oj + bj, ok:ok + bk] = g
+    return outs, plan
+
+
+# the loader's alignment branches on K4's shards (``stacked_io.copy_group``):
+# mode -> (dims, shard core, exchanged halo, cells a cp.async moves)
+SHARDS = {"K4-shard-oddhalo": ((6, 12, 16), (6, 8), (3, 3), 1),
+          "K4-shard-oddcore": ((6, 12, 14), (6, 7), (4, 4), 1),
+          "K4-shard-groups": ((6, 12, 16), (6, 8), (4, 4), 2)}
 GXX = [(dt, shape, mode) for dt in NARROW
        for shape, mode in [("diffusion", "K4-chunk"), ("hdiff", "K4-shard"),
-                           ("diffusion", "K6-masked"), ("hdiff", "K6-fast")]]
+                           ("diffusion", "K6-masked"), ("hdiff", "K6-fast")]
+       + [("diffusion", m) for m in sorted(SHARDS)]]
 
 
 @pytest.mark.parametrize("dt,shape,mode", GXX)
 def test_generated_kernel_matches_plain_and_oracle(dt, shape, mode,
                                                    tmp_path):
-    """The CUDA source built with g++: 2-byte storage (synchronous 2-byte
-    loads, no ``cp.async``), float compute, one rounding per narrow op,
-    bit for bit against the plain version and the oracle."""
+    """The CUDA source built with g++: 2-byte storage (ring inputs loaded
+    by ``cp.async`` groups where the plan aligns them: memcpy on the
+    host), each op rounded once, bit for bit against the plain version
+    and the oracle; K4's chunks start at odd i origins (-3 and 1), and
+    its shards take every branch of the loader's alignment."""
     if shutil.which("g++") is None:
         pytest.skip("g++ not available")
+    if mode in SHARDS:
+        dims, shard, xhalo, g = SHARDS[mode]
+        spec = synthesize_stencil(num_stages=3, dimensions=dims,
+                                  shape=shape, seed_data="random:0.0,1.0",
+                                  data_type=dt)
+        p, inputs, oracle = _program(spec)
+        got, plan = _k4_shards_host(p, inputs, shard, xhalo, tmp_path)
+        assert plan.copy_groups.get("a", 1) == g
+        _equal(got, oracle)
+        return
     p, inputs, oracle = _program(synth(shape, dt, "copy" if shape == "hdiff"
                                        else "constant"))
     an = port.ChainAnalysis.run(p)
     if mode == "K4-chunk":
         plan = stream.plan_local(p, an, 4, chain_halo(an)[0])
+        assert plan.copy_groups == {"a": 2}   # halo 3 widened to 4
         src = stream.stream_source(plan)
         got = _k4_chunk_host(p, inputs, plan, 2, tmp_path)
     elif mode == "K4-shard":
@@ -286,6 +351,30 @@ def test_generated_kernel_matches_plain_and_oracle(dt, shape, mode,
         _equal(got, {o: dtypes.to_numpy(v) for o, v in plain.items()})
     assert src is None or "sf_d2hr" in src
     _equal(got, oracle)
+
+
+def test_misaligned_groups_are_refused():
+    """An input loaded by cp.async groups must start at a multiple of a
+    group's bytes (``check_aligned``, before every launch), and a shard's
+    k origin at a multiple of the group (``run_local_stream``): both
+    raise, with no quiet switch to synchronous loads."""
+    from stencilflow_tpu_torch.backend.stacked_io import check_aligned
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    check_aligned({"a": base}, {"a": 8})
+    check_aligned({"a": base[2:]}, {"a": 2})
+    for view, g in ((base[1:], 2), (base[2:], 8)):
+        with pytest.raises(ValueError, match="not aligned"):
+            check_aligned({"a": view}, {"a": g})
+    p = port.parse_program(synthesize_stencil(
+        num_stages=3, dimensions=(6, 12, 16), shape="diffusion",
+        seed_data="random:0.0,1.0", data_type="bfloat16"))
+    an = port.ChainAnalysis.run(p)
+    plan = stream.plan_local(p, an, 6, 0, mxu="off", shard=(6, 8),
+                             xhalo=(4, 4))
+    assert plan.copy_groups == {"a": 2}
+    slab = torch.zeros((6, 14, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k origin 7"):
+        stream.run_local_stream(plan, 0, {"a": slab}, None, 0, 7)
 
 
 def test_narrow_macros_in_narrow_sources_only():

@@ -633,3 +633,29 @@ FROZEN = {
 def test_other_kernels_source_unchanged(name):
     make, digest = FROZEN[name]
     assert hashlib.sha256(make().encode()).hexdigest() == digest
+
+
+# the narrow K1 and K4 sources (2-byte ring inputs by cp.async groups, bf16
+# and f16 values computed in 2 bytes), pinned as FROZEN pins the others:
+# groups of 8 (jacobi3d x 8), of 2 (hdiff's halo 3 widened to 4), K4's
+# chunk and its shard over 2 x 2
+NARROW_PINS = {
+    "K1 jacobi3d bf16": (lambda: _panel(_synth(
+        "diffusion", (16, 24, 64), 8, data_type="bfloat16")),
+        "258de2e16effde7c615b24dcb7e7de6474af3f538d68e8d909438fa7660819be"),
+    "K1 hdiff f16": (lambda: _panel(_synth(
+        "hdiff", (12, 40, 48), 3, data_type="float16")),
+        "396ea3b1737af765b222647724e78add951d525bae213379e26d8de3fd512d24"),
+    "K4 jacobi3d bf16 4 chunks": (lambda: _local(_synth(
+        "diffusion", (32, 24, 64), 8, data_type="bfloat16"), 4),
+        "aee23714d0003deec76b40e1f8c853fb555e74cd0453b0d2bdb15fd2f42ad73e"),
+    "K4 shard jacobi3d f16 2 x 2": (lambda: _shard(_synth(
+        "diffusion", (16, 32, 48), 3, data_type="float16")),
+        "106c5c1f0468820e6c7e1b85fad53ba3bbe17bf11e680f9f454115ddc5600845"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NARROW_PINS))
+def test_narrow_k1_k4_source_unchanged(name):
+    make, digest = NARROW_PINS[name]
+    assert hashlib.sha256(make().encode()).hexdigest() == digest
